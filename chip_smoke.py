@@ -8,9 +8,12 @@ to end and check every byte.
 Phases (any failure ends the run with a non-zero exit and no result line):
 
   1 build      nvcc/g++ build of seaweedfs_tpu_torch/csrc, all at once
-  2 kernel     the GF(2^8) kernel against gf_apply_plain, byte for byte, at
-               the main path's shapes, timed with CUDA events beside its
-               byte bound and the plain version's time
+  2 kernel     the GF(2^8) kernel against gf_apply_plain, byte for byte:
+               timed at the main path's shapes (encode, rebuild, degraded
+               reads, the unit batch) with CUDA events beside its byte
+               bound and the plain version's time;
+               untimed at m = 1..16, k = 1/17/32, ragged n, strided and
+               unaligned views, and the codec on a contiguous [10, 700]
   3 write      a volume of needles (sizes uniform in 4 KB..1 MB, data from
                --seed) through Volume.append_needle
   4 encode     write_ec_files + write_sorted_ecx; parity of sampled stripe
@@ -27,7 +30,10 @@ Phases 4-6 each run twice: first "cold", with the files they read synced
 and dropped from the page cache (posix_fadvise DONTNEED; mincore reports
 the share still resident), then "warm", right after, with those files
 cached.  Launch counts are zeroed just before phase 3 and read just after
-phase 6, so the reported launches are the main path's own (both passes).  Needs one CUDA card;
+phase 6, so the reported launches are the main path's own (both passes);
+the run fails if that path made the kernel wrapper stage a copy of any
+input (`gf_cuda.STAGED`), since it hands the kernel rows it reads in
+place.  Needs one CUDA card;
 exits non-zero without one, and outside a checkout of the repository.
 """
 
@@ -72,48 +78,84 @@ def gpu_ms(fn, flush, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
-    """Kernel vs plain at the main path's shapes; returns (rows, json)."""
-    import torch
+def kernel_cases(seed: int):
+    """Phase 2's cases: (name, matrix, x shape, batched, timed).  Every one
+    is held byte for byte against the plain version; the timed ones are
+    the main path's shapes."""
+    import numpy as np
     from seaweedfs_tpu_torch.models import rs
     from seaweedfs_tpu_torch.ops import gf_cuda
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     code = rs.get_code(10, 4)
+    survivors = [1, 2, 4, 5, 6, 7, 8, 9, 11, 13]
+
+    def decode(wanted):
+        return gf_cuda.CudaGFMatrix(code.decode_matrix(survivors, wanted))
     parity = gf_cuda.CudaGFMatrix(code.parity_matrix)
-    decode = gf_cuda.CudaGFMatrix(code.decode_matrix(
-        [1, 2, 4, 5, 6, 7, 8, 9, 11, 13], [0, 3, 10, 12]))
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    flush = torch.empty(128 * MIB, dtype=torch.uint8, device="cuda")
-    cases = [  # (name, matrix, x shape, batched, timed)
+    rebuild = decode([0, 3, 10, 12])
+    g = np.random.default_rng(seed + 3)
+
+    def rand(m, k):
+        return gf_cuda.CudaGFMatrix(g.integers(0, 256, (m, k), np.uint8))
+    cases = [
         ("parity [10,1MiB]", parity, (10, MIB), False, True),
         ("parity [10,16MiB]", parity, (10, 16 * MIB), False, True),
-        ("decode [4,10]@[10,16MiB]", decode, (10, 16 * MIB), False, True),
+        ("decode [4,10]@[10,16MiB]", rebuild, (10, 16 * MIB), False, True),
         ("batch [8,10,1MiB]", parity, (8, 10, MIB), True, True),
-        ("parity n=1", parity, (10, 1), False, False),
-        ("parity n=255", parity, (10, 255), False, False),
-        ("parity n=4097", parity, (10, 4097), False, False),
+        ("decode [1,10]@[10,4KiB]", decode([0]), (10, 4096), False, True),
+        ("decode [1,10]@[10,512KiB]", decode([0]), (10, MIB // 2), False,
+         True),
+        ("decode [2,10]@[10,512KiB]", decode([0, 3]), (10, MIB // 2), False,
+         True),
+        # one block, 16 bytes: the launch and memory-latency floor
+        ("floor [1,1]@[1,16]", rand(1, 1), (1, 16), False, True),
     ]
-    rows = []
-    for name, mat, shape, batched, timed in cases:
-        # rows 16 bytes apart, as the dispatch seam stages them
-        *lead, n = shape
-        x = torch.randint(0, 256, (*lead, gf_cuda.padded_width(n)),
-                          dtype=torch.uint8, device="cuda",
-                          generator=g)[..., :n]
-        bit = mat.bitmat.cuda()
-        kern = (lambda: mat.apply_batch(x)) if batched else (lambda: mat(x))
+    cases += [(f"parity n={n}", parity, (10, n), False, False)
+              for n in (1, 15, 17, 255, 4097)]
+    cases += [(f"random [{m},10] n=4097", rand(m, 10), (10, 4097), False,
+               False) for m in range(1, 17)]
+    cases += [(f"random [4,{k}] n={n}", rand(4, k), (k, n), False, False)
+              for k in (1, 17, 32) for n in (1, 15, 17, 4097)]
+    return cases
 
-        def plain():
-            return gf_cuda.gf_apply_plain(bit, x)
-        got = kern()
-        want = plain()
+
+def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
+    """Kernel vs plain at the main path's shapes and the correctness cases;
+    returns (rows, json)."""
+    import torch
+    from seaweedfs_tpu_torch.ops import gf_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(128 * MIB, dtype=torch.uint8, device="cuda")
+    rows = []
+
+    def check(name, got, want):
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max().item()) \
             if got.numel() else 0
         if got.shape != want.shape or not torch.equal(got, want):
             raise AssertionError(f"kernel != plain at {name}: "
                                  f"max_abs_err {err}")
+        return err
+
+    for name, mat, shape, batched, timed in kernel_cases(seed):
+        # rows 16 bytes apart, as the dispatch seam stages them
+        *lead, n = shape
+        x = torch.randint(0, 256, (*lead, gf_cuda.padded_width(n)),
+                          dtype=torch.uint8, device="cuda",
+                          generator=g)[..., :n]
+        bit = mat.bitmat.cuda()
+        if batched:
+            def kern():
+                return mat.apply_batch(x)
+        else:
+            def kern():
+                return mat(x)
+
+        def plain():
+            return gf_cuda.gf_apply_plain(bit, x)
+        err = check(name, kern(), plain())
         units = shape[0] if batched else 1
         nbytes = units * (mat.k + mat.m) * n
         row = {"case": name, "max_abs_err": err, "bytes": nbytes,
@@ -121,13 +163,15 @@ def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
         if timed:
             row["ms"] = gpu_ms(kern, flush)
             row["plain_ms"] = gpu_ms(plain, flush, runs=20, warmup=1)
-            row["gbps"] = nbytes / row["ms"] / 1e6
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            log(f"[kernel] {name}: equal, {row['ms']:.5f} ms "
+                f"({row['share_of_bound']:.1%} of the {row['bound_ms']:.5f} "
+                f"ms byte bound), plain {row['plain_ms']:.4f} ms")
         rows.append(row)
-        log(f"[kernel] {name}: equal, " + (
-            f"{row['ms']:.4f} ms ({row['gbps']:.1f} GB/s moved), plain "
-            f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms"
-            if timed else "ragged tail"))
-        del x, got, want
+        del x
+    log(f"[kernel] {sum('ms' not in r for r in rows)} correctness cases "
+        "equal (m 1..16, k 1/17/32, ragged n)")
+    rows += views_and_codec(seed)
     torch.cuda.empty_cache()
 
     def entry(name, replaces, case):
@@ -138,7 +182,8 @@ def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
                 "max_abs_err": max(x["max_abs_err"] for x in rows),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": "bytes",
-                "library_ms": None, "shape": case}
+                "library_ms": None, "shape": case,
+                "share_of_bound": r["share_of_bound"]}
     kernels = [
         entry("gf_apply", "seaweedfs_tpu/ops/pallas_gf.py:268",
               "parity [10,1MiB]"),
@@ -146,6 +191,63 @@ def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
               "batch [8,10,1MiB]"),
     ]
     return rows, kernels
+
+
+def views_and_codec(seed: int) -> list[dict]:
+    """Inputs the kernel cannot all read in place, against the plain
+    version: a [:, :n] view of a wider buffer, a view off the 16-byte grid,
+    and the codec's encode / reconstruct on a contiguous [10, 700]."""
+    import torch
+    from seaweedfs_tpu_torch.models import rs
+    from seaweedfs_tpu_torch.ops import gf_cuda
+
+    code = rs.get_code(10, 4)
+    mat = gf_cuda.CudaGFMatrix(code.parity_matrix)
+    bit = mat.bitmat.cuda()
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    wide = torch.randint(0, 256, (10, 8192), dtype=torch.uint8,
+                         device="cuda", generator=g)
+    rows = []
+    for name, x in (("strided [:, :3000] of [10,8192]", wide[:, :3000]),
+                    ("unaligned [:, 1:3001] of [10,8192]", wide[:, 1:3001])):
+        got, want = mat(x), gf_cuda.gf_apply_plain(bit, x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel != plain at {name}")
+        rows.append({"case": name, "max_abs_err": 0})
+    codec = gf_cuda.get_codec(10, 4, device="cuda")
+    data = wide[:, :700].contiguous()
+    shards = codec.encode(data)
+    want = torch.cat([data, gf_cuda.gf_apply_plain(bit, data)])
+    lost = (0, 3, 10, 12)
+    out = codec.reconstruct({i: shards[i] for i in range(14)
+                             if i not in lost})
+    torch.cuda.synchronize()
+    if not torch.equal(shards, want) or \
+            any(not torch.equal(out[i], want[i]) for i in lost):
+        raise AssertionError("codec encode/reconstruct at contiguous "
+                             "[10,700] != plain")
+    rows.append({"case": "codec encode+reconstruct contiguous [10,700]",
+                 "max_abs_err": 0})
+    log("[kernel] strided view, unaligned view and the codec at contiguous "
+        "[10,700]: equal to plain")
+    return rows
+
+
+def ptxas_report(log_text: str) -> list[str]:
+    """ptxas registers, spills and shared memory of the instantiations
+    RS(10,4) runs: k = 10 with m = 1, 2, 4."""
+    out = []
+    entries = log_text.split("Compiling entry function")
+    for label, needle in (("M=1,K=10", "gf_apply_kernelILi1ELi10E"),
+                          ("M=2,K=10", "gf_apply_kernelILi2ELi10E"),
+                          ("M=4,K=10", "gf_apply_kernelILi4ELi10E")):
+        for e in entries:
+            if needle in e.split("\n", 1)[0]:
+                facts = [ln.split(":", 1)[-1].strip() for ln in e.splitlines()
+                         if "spill" in ln or "Used" in ln]
+                out.append(f"{label}: {'; '.join(facts)}")
+    return out
 
 
 def build_volume(vdir: str, seed: int, target: int):
@@ -294,12 +396,8 @@ def main(argv=None) -> int:
     took = _build.build()
     log(f"[build] {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
-    # ptxas reports each instantiation; RS(10,4) runs the M=4 one
-    ptx = _build.LOG.get("gf_matmul", "").split("gf_apply_kernelILi4E")
-    if len(ptx) > 1:
-        regs = [ln for ln in "".join(ptx[1:]).splitlines()
-                if "registers" in ln][:1]
-        log(f"[build] ptxas M=4: {' '.join(r.strip() for r in regs)}")
+    for line in ptxas_report(_build.LOG.get("gf_matmul", "")):
+        log(f"[build] ptxas {line}")
 
     # 2 kernel
     rows, kernels = phase_kernel(args.seed)
@@ -430,6 +528,11 @@ def main(argv=None) -> int:
                 f"{10 * shard_size / dt / 1e9:.3f} GB/s survivors read, "
                 f"{reb_launches} launches")
         main_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the main path made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        log(f"[path] launches {main_launches}, staged copies {staged}")
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 

@@ -36,10 +36,11 @@ _PTR = ctypes.c_void_p
 _SIGNATURES = {
     "gf_matmul": {
         "gf_apply_u8": (ctypes.c_int, [
-            _PTR, ctypes.c_int, ctypes.c_int,   # coef, m, k
+            _PTR, ctypes.c_int, ctypes.c_int,   # tables, m, k
             _PTR, _I64, _I64,                   # x, unit stride, row stride
             _PTR, _I64, _I64,                   # out, unit stride, row stride
-            _I64, ctypes.c_int, _PTR]),         # n, units, stream
+            _I64, ctypes.c_int,                 # n, units
+            _PTR]),                             # stream
     },
     "crc32c": {
         "wn_crc32c": (ctypes.c_uint32,

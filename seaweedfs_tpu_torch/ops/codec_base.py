@@ -14,6 +14,8 @@ import os
 
 import torch
 
+from seaweedfs_tpu_torch.ops.rows import device_empty
+
 
 def decode_cache_cap() -> int:
     """LRU bound for per-(survivors, wanted) decode matrices."""
@@ -70,23 +72,29 @@ class RSCodecBase:
         return self._parity.apply_batch(units)
 
     def encode(self, data: torch.Tensor) -> torch.Tensor:
-        """[k, n] data -> [k+m, n] shards."""
-        return torch.cat([data, self.encode_parity(data)], dim=0)
+        """[k, n] data -> [k+m, n] shards, in a buffer whose rows are
+        16 bytes apart, so the parity apply reads the data rows in place."""
+        out = device_empty((self.n, data.shape[1]), data.device)
+        out[: self.k].copy_(data)
+        out[self.k:].copy_(self.encode_parity(out[: self.k]))
+        return out
 
     def reconstruct(self, shards: dict[int, torch.Tensor],
                     wanted: list[int] | None = None
                     ) -> dict[int, torch.Tensor]:
         """Rebuild missing shards from sufficient survivors; the decode
         matrix is cached per (basis, wanted) pattern.  The survivors are
-        stacked into one contiguous [k, n] tensor, which the card's kernel
-        reads only when n is a multiple of 16; `dispatch.reconstruct_batch`
-        takes host rows of any width."""
+        stacked into one [k, n] buffer whose rows are 16 bytes apart, which
+        the card's kernel reads in place whatever n is."""
         present = tuple(sorted(shards))
         if wanted is None:
             wanted = [i for i in range(self.n) if i not in shards]
         if not wanted:
             return {}
         basis, mat = self.decoder(present, tuple(wanted))
-        stack = torch.stack([shards[i] for i in basis], dim=0)
+        first = shards[basis[0]]
+        stack = device_empty((len(basis), first.shape[0]), first.device)
+        for r, i in enumerate(basis):
+            stack[r].copy_(shards[i])
         out = mat(stack)
         return {w: out[i] for i, w in enumerate(wanted)}

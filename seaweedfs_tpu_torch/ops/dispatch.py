@@ -13,8 +13,9 @@ asynchronous:
   result D2H into pinned memory and hands back numpy.
 
 Every batch lands on the card in a buffer whose rows start 16 bytes
-apart (`device_empty`), the layout the kernel reads in place, so no
-layer copies a batch again to align it.
+apart (`rows.device_empty`), the layout the kernel reads in place, so the
+kernel wrapper never has to stage a copy of it (it does so only for a
+view it cannot read in place, and counts each in `gf_cuda.STAGED`).
 
 Synchronising on the event rather than on a stream matters because the
 encode pipeline dispatches on one thread and drains on another, and each
@@ -35,7 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from seaweedfs_tpu_torch.ops.gf_cuda import padded_width
+from seaweedfs_tpu_torch.ops.rows import device_empty, padded_width
 
 
 class Counters:
@@ -70,15 +71,6 @@ def host_empty(shape, device: torch.device) -> torch.Tensor:
     full link rate; plain memory on the CPU."""
     return torch.empty(shape, dtype=torch.uint8,
                        pin_memory=device.type == "cuda")
-
-
-def device_empty(shape, device: torch.device) -> torch.Tensor:
-    """An uninitialised uint8 [..., n] tensor on `device`: the [..., :n]
-    view of a buffer whose rows are `padded_width(n)` bytes wide."""
-    *lead, n = shape
-    buf = torch.empty((*lead, padded_width(n)), dtype=torch.uint8,
-                      device=device)
-    return buf[..., :n]
 
 
 def _as_tensor(batch) -> torch.Tensor:

@@ -6,8 +6,9 @@ fixed [m, k] GF(2^8) matrix C to [k, n] (`__call__`) or [U, k, n]
 (`apply_batch`) uint8 tensors:
 
 - a CUDA tensor goes to the hand-written kernel in `csrc/gf_matmul.cu`
-  (a per-coefficient product table in shared memory, 16-byte vector
-  loads), launched on PyTorch's current stream without synchronising;
+  (nibble-split lookup tables built here on the host, `nibble_tables`,
+  looked up four bytes at a time with PRMT), launched on PyTorch's
+  current stream without synchronising;
 - a CPU tensor goes to `gf_apply_plain`, the bit-sliced algorithm of
   `gfmat_jax.bitsliced_apply_body`: unpack bit planes, one float32 matrix
   product against the [8m, 8k] 0/1 lift of C (exact: every sum is at most
@@ -15,15 +16,17 @@ fixed [m, k] GF(2^8) matrix C to [k, n] (`__call__`) or [U, k, n]
 
 The two are different algorithms, so agreement between them is evidence.
 There is no fallback between them: a tensor on any other device raises,
-and a kernel that fails to build or launch raises.  The kernel reads its
-input in place and never copies it: a CUDA tensor's rows must start on
-16-byte boundaries, which `padded_width` buffers give (ops/dispatch.py
-stages every host batch into one).
+and a kernel that fails to build or launch raises.  The kernel reads rows
+that start on 16-byte boundaries in place (ops/rows.py buffers, which
+ops/dispatch.py stages every host batch into); any other CUDA view of any
+width is first copied once into such a buffer, as `PallasGFMatrix` pads.
 
 `LAUNCHES` counts the kernel's launches by name ("gf_apply" for the
 [k, n] apply, K1; "gf_apply_batch" for the [U, k, n] one, K2), raised
 only where a launch succeeds: a run reads it to show its path went
-through the kernel.
+through the kernel.  `STAGED` counts, by the same names, the inputs the
+wrapper had to copy before launching: a run reads it to show its path
+handed the kernel rows it reads in place.
 """
 
 from __future__ import annotations
@@ -35,25 +38,22 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch.ops import codec_base, gf
+from seaweedfs_tpu_torch.ops.rows import ALIGN, device_empty, padded_width
 
 MAX_M = 16  # output rows the kernel takes (csrc/gf_matmul.cu kMaxM)
 MAX_K = 32  # input rows (kMaxK)
-ALIGN = 16  # bytes: the kernel's vector width
 
 LAUNCHES = {"gf_apply": 0, "gf_apply_batch": 0}
+STAGED = {"gf_apply": 0, "gf_apply_batch": 0}
 _launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
+    """Zero `LAUNCHES` and `STAGED`."""
     with _launch_lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
-
-
-def padded_width(n: int) -> int:
-    """Row width, in bytes, of a buffer whose [:, :n] view the kernel reads
-    in place: n rounded up to the kernel's 16-byte vector."""
-    return -(-n // ALIGN) * ALIGN
+        for counts in (LAUNCHES, STAGED):
+            for name in counts:
+                counts[name] = 0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -94,48 +94,68 @@ def gf_apply_plain(bitmat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 # -- kernel wrapper ------------------------------------------------------
 
-def gf_apply_cuda(coef: torch.Tensor, x: torch.Tensor,
-                  name: str = "gf_apply") -> torch.Tensor:
-    """Launch the kernel on [U, k, n] uint8 `x` with the [m, k] uint8
-    coefficient matrix `coef`, both on the same card.  Returns [U, m, n]
-    (a view of a 16-byte-padded buffer), enqueued on the current stream,
-    and adds one to `LAUNCHES[name]` once the launch has succeeded.
+def nibble_tables(C: np.ndarray) -> np.ndarray:
+    """The kernel's lookup tables for the [m, k] matrix C: [m, k, 32]
+    uint8, for each coefficient c first lo[x] = c*x, then hi[x] =
+    c*(x << 4), x < 16, so that c*b = lo[b & 15] ^ hi[b >> 4]."""
+    mul = gf.GF_MUL_TABLE[np.asarray(C, dtype=np.uint8)]  # [m, k, 256]
+    x = np.arange(16)
+    return np.ascontiguousarray(
+        np.concatenate([mul[..., x], mul[..., x << 4]], axis=-1),
+        dtype=np.uint8)
 
-    Takes strided rows and units as they are: the inner stride must be 1
-    and the base pointer and every row / unit stride 16-byte aligned.
-    Raises on anything else, and when the launch fails.  An empty `x`
+
+def _in_place(x: torch.Tensor) -> bool:
+    """Whether the kernel can read [U, k, n] `x` where it lies: unit-stride
+    rows on a 16-byte aligned base, row and unit strides too."""
+    U, k, _ = x.shape
+    return x.stride(2) == 1 and x.data_ptr() % ALIGN == 0 and \
+        (k == 1 or x.stride(1) % ALIGN == 0) and \
+        (U == 1 or x.stride(0) % ALIGN == 0)
+
+
+def gf_apply_cuda(tables: torch.Tensor, x: torch.Tensor,
+                  name: str = "gf_apply") -> torch.Tensor:
+    """Launch the kernel on [U, k, n] uint8 `x` with the [m, k, 32]
+    `nibble_tables` of the matrix, both on the same card.  Returns
+    [U, m, n] (a view of a 16-byte-padded buffer), enqueued on the current
+    stream, and adds one to `LAUNCHES[name]` once the launch has succeeded.
+
+    Strided rows and units on 16-byte boundaries are read in place; any
+    other view is copied once into a padded buffer first, which adds one
+    to `STAGED[name]`.  Raises on another device or dtype, on shapes the
+    kernel does not take, and when the launch fails.  An empty `x`
     launches nothing and counts nothing."""
     from seaweedfs_tpu_torch import _build
-    if not x.is_cuda or x.device != coef.device:
-        raise ValueError(f"kernel wants x and coef on one card, got "
-                         f"{x.device} / {coef.device}")
-    if x.dtype != torch.uint8 or coef.dtype != torch.uint8:
+    if not x.is_cuda or x.device != tables.device:
+        raise ValueError(f"kernel wants x and tables on one card, got "
+                         f"{x.device} / {tables.device}")
+    if x.dtype != torch.uint8 or tables.dtype != torch.uint8:
         raise TypeError("kernel wants uint8 tensors")
     if x.dim() != 3:
         raise ValueError(f"kernel wants [U, k, n], got {tuple(x.shape)}")
     U, k, n = x.shape
-    m, kc = coef.shape
-    if kc != k or not coef.is_contiguous():
-        raise ValueError(f"coef {tuple(coef.shape)} does not fit k={k}")
+    m, kc, width = tables.shape
+    if kc != k or width != 32 or not tables.is_contiguous():
+        raise ValueError(f"tables {tuple(tables.shape)} do not fit k={k}")
     if not (1 <= m <= MAX_M and 1 <= k <= MAX_K):
         raise ValueError(f"kernel takes m <= {MAX_M}, k <= {MAX_K}; "
                          f"got m={m}, k={k}")
     if U > 65535:
         raise ValueError(f"kernel takes at most 65535 units, got {U}")
-    out = torch.empty((U, m, padded_width(max(n, 1))),
-                      dtype=torch.uint8, device=x.device)
+    out = device_empty((U, m, n), x.device)
     if n == 0 or U == 0:
-        return out[:, :, :n]
-    if x.stride(2) != 1 or x.data_ptr() % ALIGN or \
-            (k > 1 and x.stride(1) % ALIGN) or \
-            (U > 1 and x.stride(0) % ALIGN):
-        raise ValueError(
-            f"kernel wants unit-stride rows on {ALIGN}-byte aligned base "
-            f"and strides, got strides {x.stride()} at {x.data_ptr():#x}")
+        return out
+    if not _in_place(x):
+        staged = device_empty((U, k, n), x.device)
+        staged.copy_(x)
+        x = staged
+        with _launch_lock:
+            STAGED[name] += 1
     lib = _build.load("gf_matmul")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.gf_apply_u8(coef.data_ptr(), m, k,
+        err = lib.gf_apply_u8(tables.data_ptr(), m, k,
                               x.data_ptr(), x.stride(0), x.stride(1),
                               out.data_ptr(), out.stride(0), out.stride(1),
                               n, U, stream)
@@ -143,12 +163,13 @@ def gf_apply_cuda(coef: torch.Tensor, x: torch.Tensor,
         raise RuntimeError(f"gf_apply_u8 launch failed: cudaError {err}")
     with _launch_lock:
         LAUNCHES[name] += 1
-    return out[:, :, :n]
+    return out
 
 
 class CudaGFMatrix:
     """A fixed GF(2^8) matrix, applied by the kernel to CUDA tensors and
-    by the plain version to CPU tensors."""
+    by the plain version to CPU tensors.  The kernel's lookup tables are
+    built once, here, and copied to each card at first use."""
 
     def __init__(self, C: np.ndarray):
         self.C = np.ascontiguousarray(C, dtype=np.uint8)
@@ -158,13 +179,16 @@ class CudaGFMatrix:
                              f"m <= {MAX_M}, k <= {MAX_K}")
         self.bitmat = torch.from_numpy(
             gf.gf_matrix_to_bitmatrix(self.C)).to(torch.float32)
-        self._coef: dict[torch.device, torch.Tensor] = {}
+        self.tables = nibble_tables(self.C)
+        self._on_device: dict[torch.device, torch.Tensor] = {}
 
-    def _coef_on(self, device: torch.device) -> torch.Tensor:
-        c = self._coef.get(device)
-        if c is None:
-            c = self._coef[device] = torch.from_numpy(self.C).to(device)
-        return c
+    def tables_on(self, device: torch.device) -> torch.Tensor:
+        """`tables` on `device`, copied there at first use."""
+        t = self._on_device.get(device)
+        if t is None:
+            t = self._on_device[device] = torch.from_numpy(
+                self.tables).to(device)
+        return t
 
     def _apply(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """[U, k, n] on the tensor's own device."""
@@ -174,7 +198,7 @@ class CudaGFMatrix:
             return gf_apply_plain(self.bitmat, x)
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
-        return gf_apply_cuda(self._coef_on(x.device), x, name)
+        return gf_apply_cuda(self.tables_on(x.device), x, name)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """[k, n] uint8 -> [m, n]."""

@@ -16,6 +16,13 @@ from seaweedfs_tpu_torch.models import rs
 from seaweedfs_tpu_torch.ops import dispatch, gf, gf_cuda
 
 
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     """Runs where a card is present (chip_smoke.py covers the same ground
@@ -31,11 +38,18 @@ def test_cuda_kernel_matches_plain():
         dev = dispatch.device_empty((10, n), torch.device("cuda"))
         dev.copy_(torch.from_numpy(x))
         before = gf_cuda.LAUNCHES["gf_apply"]
+        staged = gf_cuda.STAGED["gf_apply"]
         got = mat(dev).cpu().numpy()
         assert gf_cuda.LAUNCHES["gf_apply"] == before + 1
+        assert gf_cuda.STAGED["gf_apply"] == staged  # read in place
         assert np.array_equal(got, gf.gf_matmul(C, x))
-    with pytest.raises(ValueError):  # unaligned rows: refused, not copied
-        mat(torch.from_numpy(x).cuda()[:, 1:])
+    # a view the kernel cannot read in place is staged once, then launched
+    before = gf_cuda.LAUNCHES["gf_apply"]
+    staged = gf_cuda.STAGED["gf_apply"]
+    got = mat(torch.from_numpy(x).cuda()[:, 1:]).cpu().numpy()
+    assert gf_cuda.LAUNCHES["gf_apply"] == before + 1
+    assert gf_cuda.STAGED["gf_apply"] == staged + 1
+    assert np.array_equal(got, gf.gf_matmul(C, x[:, 1:]))
     before = dict(gf_cuda.LAUNCHES)
     mat(dispatch.device_empty((10, 0), torch.device("cuda")))
     assert gf_cuda.LAUNCHES == before  # an empty input launches nothing
@@ -43,3 +57,48 @@ def test_cuda_kernel_matches_plain():
     assert np.array_equal(mat.apply_batch(xb.cuda()).cpu().numpy(),
                           mat.apply_batch(xb).numpy())
     assert gf_cuda.LAUNCHES["gf_apply_batch"] == before["gf_apply_batch"] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_every_shape(card):
+    """m = 1..16 at k = 10, k in {1, 17, 32}, ragged n, and a [:, :n] view
+    of a wider buffer, read in place."""
+    g = np.random.default_rng(9)
+    shapes = [(m, 10, 4097) for m in range(1, 17)] + \
+        [(4, k, n) for k in (1, 17, 32) for n in (1, 15, 17, 4097)]
+    for m, k, n in shapes:
+        C = g.integers(0, 256, (m, k), dtype=np.uint8)
+        x = g.integers(0, 256, (k, n), dtype=np.uint8)
+        dev = dispatch.device_empty((k, n), card)
+        dev.copy_(torch.from_numpy(x))
+        got = gf_cuda.CudaGFMatrix(C)(dev).cpu().numpy()
+        assert np.array_equal(got, gf.gf_matmul(C, x)), (m, k, n)
+    C = rs.get_code(10, 4).parity_matrix
+    wide = g.integers(0, 256, (10, 8192), dtype=np.uint8)
+    view = torch.from_numpy(wide).to(card)[:, :3000]
+    mat = gf_cuda.CudaGFMatrix(C)
+    staged = dict(gf_cuda.STAGED)
+    assert np.array_equal(mat(view).cpu().numpy(),
+                          gf.gf_matmul(C, wide[:, :3000]))
+    assert gf_cuda.STAGED == staged
+
+
+@pytest.mark.cuda
+def test_cuda_codec_any_width(card):
+    """CudaRSCodec.encode / reconstruct on a contiguous [10, 700] on the
+    card, which the first port refused."""
+    codec = gf_cuda.get_codec(10, 4, device=card)
+    code = rs.get_code(10, 4)
+    data = np.random.default_rng(10).integers(0, 256, (10, 700),
+                                              dtype=np.uint8)
+    want = np.concatenate([data, gf.gf_matmul(code.parity_matrix, data)])
+    shards = codec.encode(torch.from_numpy(data).to(card))
+    assert np.array_equal(shards.cpu().numpy(), want)
+    assert np.array_equal(
+        codec.encode_parity(torch.from_numpy(data).to(card)).cpu().numpy(),
+        want[10:])
+    lost = (0, 3, 10, 12)
+    out = codec.reconstruct({i: torch.from_numpy(want[i]).to(card)
+                             for i in range(14) if i not in lost})
+    for i in lost:
+        assert np.array_equal(out[i].cpu().numpy(), want[i]), i

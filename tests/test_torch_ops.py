@@ -22,7 +22,7 @@ from seaweedfs_tpu.ops import gf as ref_gf
 from seaweedfs_tpu.ops import gfmat_jax, pallas_gf
 
 from seaweedfs_tpu_torch.models import rs
-from seaweedfs_tpu_torch.ops import codecs, dispatch, gf, gf_cuda
+from seaweedfs_tpu_torch.ops import codec_base, codecs, dispatch, gf, gf_cuda
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -214,6 +214,33 @@ def test_codec_round_trip_equals_pallas_codec():
             assert np.array_equal(out[i].numpy(), np.asarray(ref_out[i]))
 
 
+def test_codec_stacks_rows_16_bytes_apart():
+    """encode and reconstruct hand the apply rows 16 bytes apart whatever
+    n is, so on the card the kernel reads their stack in place (a
+    contiguous [10, 700] used to be refused there)."""
+    strides = []
+
+    class Spy(gf_cuda.CudaGFMatrix):
+        def _apply(self, x, name):
+            strides.append(x.stride(-2))
+            return super()._apply(x, name)
+
+    code = rs.get_code(10, 4)
+    codec = codec_base.RSCodecBase(code, Spy)
+    data = np.random.default_rng(12).integers(0, 256, (10, 700),
+                                              dtype=np.uint8)
+    shards = codec.encode(torch.from_numpy(data))
+    want = np.concatenate([data, ref_gf.gf_matmul(code.parity_matrix, data)])
+    assert np.array_equal(shards.numpy(), want)
+    lost = (0, 3, 10, 12)
+    out = codec.reconstruct({i: torch.from_numpy(want[i])
+                             for i in range(14) if i not in lost})
+    for i in lost:
+        assert np.array_equal(out[i].numpy(), want[i])
+    assert len(strides) == 2
+    assert all(s % gf_cuda.ALIGN == 0 for s in strides), strides
+
+
 def test_decode_cache_is_lru_bounded(monkeypatch):
     monkeypatch.setenv("WEEDTPU_CODEC_DECODE_CACHE", "2")
     codec = gf_cuda.CudaRSCodec(rs.get_code(6, 3), device="cpu")
@@ -249,6 +276,7 @@ def test_launch_counts_only_where_the_kernel_launches():
     nothing; the kernel wrapper refuses a CPU tensor before it counts."""
     mat = gf_cuda.CudaGFMatrix(_matrix("parity"))
     before = dict(gf_cuda.LAUNCHES)
+    staged = dict(gf_cuda.STAGED)
     for shape in ((10, 0), (10, 33)):
         assert mat(torch.zeros(shape, dtype=torch.uint8)).shape == \
             (4, shape[1])
@@ -258,6 +286,7 @@ def test_launch_counts_only_where_the_kernel_launches():
         gf_cuda.gf_apply_cuda(torch.zeros((4, 10), dtype=torch.uint8),
                               torch.zeros((1, 10, 16), dtype=torch.uint8))
     assert gf_cuda.LAUNCHES == before
+    assert gf_cuda.STAGED == staged
 
 
 def test_padded_staging_keeps_rows_aligned():
@@ -268,3 +297,22 @@ def test_padded_staging_keeps_rows_aligned():
         assert x.shape == (10, n) and x.stride() == (
             gf_cuda.padded_width(n), 1)
         assert gf_cuda.padded_width(n) % gf_cuda.ALIGN == 0
+
+
+@pytest.mark.parametrize("view, in_place", [
+    ("padded", True), ("padded_units", True), ("one_row", True),
+    ("contiguous_700", False), ("offset", False), ("transposed", False)])
+def test_kernel_reads_in_place_only_aligned_rows(view, in_place):
+    """Which [U, k, n] views the wrapper hands the kernel as they lie and
+    which it stages a padded copy of first: rows 16 bytes apart on a
+    16-byte base are read in place, and nothing else."""
+    wide = dispatch.device_empty((3, 10, 4097), torch.device("cpu"))
+    x = {"padded": wide[:1],
+         "padded_units": wide,
+         "one_row": torch.zeros((1, 1, 700), dtype=torch.uint8),
+         "contiguous_700": torch.zeros((1, 10, 700), dtype=torch.uint8),
+         "offset": wide[:1, :, 1:],
+         "transposed": torch.zeros((1, 64, 10),
+                                   dtype=torch.uint8).transpose(1, 2),
+         }[view]
+    assert gf_cuda._in_place(x) is in_place
