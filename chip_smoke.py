@@ -9,32 +9,46 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
   1 build      nvcc/g++ build of seaweedfs_tpu_torch/csrc, all at once
   2 kernel     the GF(2^8) kernel against gf_apply_plain, byte for byte:
-               timed at the main path's shapes (encode, rebuild, degraded
-               reads, the unit batch) with CUDA events beside its byte
-               bound and the plain version's time;
+               timed at the paths' shapes (encode, rebuild, degraded
+               reads, the fleet's unit batches) with CUDA events beside
+               its byte bound and the plain version's time;
                untimed at m = 1..16, k = 1/17/32, ragged n, strided and
                unaligned views, and the codec on a contiguous [10, 700]
   3 write      a volume of needles (sizes uniform in 4 KB..1 MB, data from
                --seed) through Volume.append_needle
-  4 encode     write_ec_files + write_sorted_ecx; parity of sampled stripe
-               units recomputed with the plain version and compared with
-               the shard files
+  4 encode     write_ec_files + write_sorted_ecx; sampled stripe rows, cut
+               by the layout's definition, held against the .dat (data
+               shards) and the plain version (parity shards); sha256 of
+               the 14 shards kept
   5 degraded   .ec00/.ec03/.ec10/.ec12 deleted; every needle touching a
                lost data shard (and more, >= 200) read through
                EcVolume.read_needle, CRC checked, bytes compared
   6 rebuild    rebuild_ec_files; rebuilt shards' sha256 == the originals'
-  7 report     {"kernels": [...]} line, the card's name and power limit,
+  7 fleet      convert_volumes over four volumes (the phase-3 .dat, 256
+               MiB and 100 MiB + 12 345 B of random bytes, 65 536 B): one
+               K2 launch per batch of 4 units, launches against the count
+               the layout predicts, every stripe row of the three small
+               volumes checked, the 1 GiB volume's shards sha256-equal to
+               phase 4's, each .vif byte-equal to the reference fleet's;
+               then the 1 GiB volume again at 64 MiB large blocks (one
+               large row: [4,10,16MiB] launches)
+  8 scrub      syndrome_scan of the phase-4 shard set: clean, then with a
+               byte flipped in shards 5 and 11 (two ranges, localised),
+               then with shard 12 aside (a flip found, not localised)
+  9 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
 and dropped from the page cache (posix_fadvise DONTNEED; mincore reports
 the share still resident), then "warm", right after, with those files
 cached.  Launch counts are zeroed just before phase 3 and read just after
-phase 6, so the reported launches are the main path's own (both passes);
-the run fails if that path made the kernel wrapper stage a copy of any
-input (`gf_cuda.STAGED`), since it hands the kernel rows it reads in
-place.  Needs one CUDA card;
-exits non-zero without one, and outside a checkout of the repository.
+phase 8, so the reported launches are the paths' own; the run fails if a
+path made the kernel wrapper stage a copy of any input
+(`gf_cuda.STAGED`), since each hands the kernel rows it reads in place,
+and if K2 was not launched.  After that window, a record: fleet against
+one write_ec_files per volume over the same four volumes (fleet, serial,
+serial, fleet).  Needs one CUDA card; exits non-zero without one, and
+outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -101,6 +115,8 @@ def kernel_cases(seed: int):
         ("parity [10,1MiB]", parity, (10, MIB), False, True),
         ("parity [10,16MiB]", parity, (10, 16 * MIB), False, True),
         ("decode [4,10]@[10,16MiB]", rebuild, (10, 16 * MIB), False, True),
+        ("batch [4,10,1MiB]", parity, (4, 10, MIB), True, True),
+        ("batch [4,10,16MiB]", parity, (4, 10, 16 * MIB), True, True),
         ("batch [8,10,1MiB]", parity, (8, 10, MIB), True, True),
         ("decode [1,10]@[10,4KiB]", decode([0]), (10, 4096), False, True),
         ("decode [1,10]@[10,512KiB]", decode([0]), (10, MIB // 2), False,
@@ -188,7 +204,7 @@ def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
         entry("gf_apply", "seaweedfs_tpu/ops/pallas_gf.py:268",
               "parity [10,1MiB]"),
         entry("gf_apply_batch", "seaweedfs_tpu/ops/pallas_gf.py:304",
-              "batch [8,10,1MiB]"),
+              "batch [4,10,1MiB]"),
     ]
     return rows, kernels
 
@@ -282,41 +298,95 @@ def build_volume(vdir: str, seed: int, target: int):
     return v.dat_path, expect, blob
 
 
-def check_parity(base: str, dat_path: str, dat_size: int, seed: int) -> int:
-    """Phase 4 check: recompute the parity of sampled stripe units with the
-    plain version on the card and compare with the parity shard files."""
+def stripe_rows(dat_size: int, large_block: int, small_block: int):
+    """(dat offset, block, shard offset) of every stripe row of a volume,
+    by the layout's definition: rows of ten large blocks while more than
+    one such row remains, then rows of ten small blocks to the end."""
+    rows, start, off = [], 0, 0
+    while dat_size - start > 10 * large_block:
+        rows.append((start, large_block, off))
+        start, off = start + 10 * large_block, off + large_block
+    while start < dat_size:
+        rows.append((start, small_block, off))
+        start, off = start + 10 * small_block, off + small_block
+    return rows
+
+
+def predict_units(dat_size: int, large_block: int, small_block: int,
+                  batch: int = 16 * MIB) -> int:
+    """Units of a volume that carry data: each stripe row cut into columns
+    min(batch, block) wide, a column counting when its first data block
+    holds .dat bytes."""
+    return sum(start + col < dat_size
+               for start, block, _ in stripe_rows(dat_size, large_block,
+                                                  small_block)
+               for col in range(0, block, min(batch, block)))
+
+
+def sample_rows(n: int, k: int, seed: int) -> list[int]:
+    """k random row indices of n, and always the first and the last."""
+    import numpy as np
+    pick = np.random.default_rng(seed).choice(n, size=min(k, n),
+                                              replace=False)
+    return sorted(set(pick.tolist()) | {0, n - 1})
+
+
+def check_stripes(base: str, dat_path: str, large_block: int,
+                  small_block: int, rows=None) -> int:
+    """Hold a shard set against its .dat, independently of how the port
+    cuts units: each shard's size against `layout.shard_file_size`; for
+    each stripe row in `rows` (indices into `stripe_rows`; None: all), the
+    10 data shards against the .dat bytes, zero past its end, and the 4
+    parity shards against the plain version on the card.  Returns the
+    number of rows checked."""
     import numpy as np
     import torch
     from seaweedfs_tpu_torch.models import rs
     from seaweedfs_tpu_torch.ops import gf, gf_cuda
-    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    from seaweedfs_tpu_torch.storage.ec import layout
 
-    units = list(ec_files._iter_units(dat_size, layout.LARGE_BLOCK_SIZE,
-                                      layout.SMALL_BLOCK_SIZE,
-                                      ec_files.DEFAULT_BATCH))
-    rng = np.random.default_rng(seed + 1)
-    pick = sorted(set(rng.choice(len(units), size=min(8, len(units)),
-                                 replace=False).tolist()) | {len(units) - 1})
+    dat_size = os.path.getsize(dat_path)
+    stripes = stripe_rows(dat_size, large_block, small_block)
+    size = layout.shard_file_size(dat_size, large_block, small_block)
+    if size != sum(block for _, block, _ in stripes):
+        raise AssertionError(f"{base}: layout.shard_file_size {size} != "
+                             f"the rows' {stripes[-1:]}")
     bit = torch.from_numpy(gf.gf_matrix_to_bitmatrix(
         rs.get_code(10, 4).parity_matrix)).float().cuda()
-    with open(dat_path, "rb") as f:
-        dat = f.read()
-    for u in pick:
-        row_start, block, col, step, shard_off = units[u]
-        data = np.zeros((10, step), dtype=np.uint8)
-        for j in range(10):
-            off = row_start + j * block + col
-            n = max(0, min(step, dat_size - off))
-            data[j, :n] = np.frombuffer(dat, np.uint8, n, off) if n else 0
-        want = gf_cuda.gf_apply_plain(bit, torch.from_numpy(data).cuda()).cpu()
-        for i in range(4):
-            with open(base + layout.to_ext(10 + i), "rb") as f:
-                f.seek(shard_off)
-                got = np.frombuffer(f.read(step), np.uint8)
-            if not np.array_equal(got, want[i].numpy()):
-                raise AssertionError(f"parity shard {10 + i} differs at "
-                                     f"unit {u} (offset {shard_off})")
-    return len(pick)
+    fds = [os.open(p, os.O_RDONLY)
+           for p in [base + layout.to_ext(i) for i in range(14)] + [dat_path]]
+    try:
+        for i, fd in enumerate(fds[:14]):
+            if os.fstat(fd).st_size != size:
+                raise AssertionError(f"{base} shard {i}: "
+                                     f"{os.fstat(fd).st_size} B, layout "
+                                     f"says {size}")
+        picks = range(len(stripes)) if rows is None else rows
+        for r in picks:
+            start, block, off = stripes[r]
+            data = np.zeros((10, block), np.uint8)
+            for j in range(10):
+                lo = start + j * block
+                n = max(0, min(block, dat_size - lo))
+                data[j, :n] = np.frombuffer(os.pread(fds[14], n, lo),
+                                            np.uint8)
+            parity = np.empty((4, block), np.uint8)
+            for c in range(0, block, 4 * MIB):  # bounds the plain's memory
+                x = torch.from_numpy(np.ascontiguousarray(
+                    data[:, c:c + 4 * MIB])).cuda()
+                parity[:, c:c + 4 * MIB] = \
+                    gf_cuda.gf_apply_plain(bit, x).cpu().numpy()
+            for i in range(14):
+                got = np.frombuffer(os.pread(fds[i], block, off), np.uint8)
+                want = data[i] if i < 10 else parity[i - 10]
+                if not np.array_equal(got, want):
+                    raise AssertionError(
+                        f"{base} shard {i} differs in stripe row {r} "
+                        f"(shard offset {off}, block {block})")
+    finally:
+        for fd in fds:
+            os.close(fd)
+    return len(picks)
 
 
 def resident_share(paths) -> float:
@@ -367,6 +437,210 @@ def sha256(path: str) -> str:
     return h.hexdigest()
 
 
+def link_volumes(srcs: list[str], dirname: str) -> list[str]:
+    """Hard-link each .dat into a fresh directory; returns the new bases."""
+    os.makedirs(dirname)
+    bases = []
+    for src in srcs:
+        base = os.path.join(dirname, os.path.basename(src)[: -len(".dat")])
+        os.link(src, base + ".dat")
+        bases.append(base)
+    return bases
+
+
+def phase_fleet(vdir: str, dat_path: str, hashes: list[str], seed: int,
+                launches: dict) -> tuple[dict, list[str]]:
+    """Phase 7: fleet conversion of four volumes through K2, checked against
+    the layout, phase 4's shards and the reference fleet's .vif; then the
+    1 GiB volume at 64 MiB large blocks.  Returns (record, the four .dat
+    paths)."""
+    import numpy as np
+    from seaweedfs_tpu_torch.ops import fleet_convert
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+
+    large, small = layout.LARGE_BLOCK_SIZE, layout.SMALL_BLOCK_SIZE
+    src = os.path.join(vdir, "fleet_src")
+    os.makedirs(src)
+    srcs = [os.path.join(src, "1.dat")]
+    os.link(dat_path, srcs[0])
+    rng = np.random.default_rng(seed + 5)
+    for name, size in (("2", 256 * MIB), ("3", 100 * MIB + 12_345),
+                       ("4", 65_536)):
+        srcs.append(os.path.join(src, name + ".dat"))
+        with open(srcs[-1], "wb") as f:
+            f.write(rng.bytes(size))
+    sizes = [os.path.getsize(p) for p in srcs]
+    units = [predict_units(s, large, small) for s in sizes]
+    want = -(-sum(units) // fleet_convert.UNIT_BATCH)
+    log(f"[fleet] predicted: {' + '.join(map(str, units))} = {sum(units)} "
+        f"units, {want} launches of K2 [<=4,10,1MiB], none of K1")
+    bases = link_volumes(srcs, os.path.join(vdir, "fleet"))
+    before = dict(launches)
+    st: dict = {}
+    t0 = time.perf_counter()
+    rep = fleet_convert.convert_volumes(bases, stats=st)
+    dt = time.perf_counter() - t0
+    got = {k: launches[k] - before[k] for k in launches}
+    log(f"[fleet] {sum(sizes)} B in {dt:.3f} s: {sum(sizes) / dt / 1e9:.3f} "
+        f"GB/s, {rep['units']} units, launches {got}")
+    if got != {"gf_apply": 0, "gf_apply_batch": want} or \
+            rep["units"] != sum(units):
+        raise AssertionError(f"fleet launched {got} for {rep['units']} "
+                             f"units; the layout predicts {want} K2 "
+                             f"launches for {sum(units)}")
+    checked = []
+    for i, (base, size) in enumerate(zip(bases, sizes)):
+        rows = None if i else sample_rows(len(stripe_rows(size, large,
+                                                          small)),
+                                          8, seed + 6)
+        checked.append(check_stripes(base, base + ".dat", large, small,
+                                     rows))
+        with open(base + ".vif", "rb") as f:
+            vif = f.read()
+        if vif != json.dumps({"version": t.CURRENT_VERSION,
+                              "dat_file_size": size}).encode():
+            raise AssertionError(f"{base}.vif is {vif!r}")
+    if [sha256(bases[0] + layout.to_ext(i)) for i in range(14)] != hashes:
+        raise AssertionError("fleet shards of the phase-3 volume differ "
+                             "from write_ec_files'")
+    log(f"[fleet] stripe rows checked {checked}; the phase-3 volume's 14 "
+        f"shards sha256-equal to phase 4's; every .vif equal to the "
+        f"reference fleet's")
+    shutil.rmtree(os.path.join(vdir, "fleet"))
+
+    # one large row: the 1 GiB volume at 64 MiB large blocks
+    large64 = 64 * MIB
+    units64 = predict_units(sizes[0], large64, small)
+    want64 = -(-units64 // fleet_convert.UNIT_BATCH)
+    log(f"[fleet 64MiB] predicted: {units64} units, {want64} launches of "
+        f"K2 [<=4,10,16MiB]")
+    (base,) = link_volumes(srcs[:1], os.path.join(vdir, "fleet64"))
+    before = dict(launches)
+    t0 = time.perf_counter()
+    fleet_convert.convert_volumes([base], large_block=large64)
+    dt64 = time.perf_counter() - t0
+    got64 = {k: launches[k] - before[k] for k in launches}
+    if got64 != {"gf_apply": 0, "gf_apply_batch": want64}:
+        raise AssertionError(f"64 MiB fleet launched {got64}, the layout "
+                             f"predicts {want64} of K2")
+    n64 = len(stripe_rows(sizes[0], large64, small))
+    rows64 = check_stripes(base, base + ".dat", large64, small,
+                           sample_rows(n64, 4, seed + 7))
+    log(f"[fleet 64MiB] {sizes[0]} B in {dt64:.3f} s, launches {got64}, "
+        f"{rows64} of {n64} stripe rows checked (row 0 large)")
+    shutil.rmtree(os.path.join(vdir, "fleet64"))
+    return {"bytes": sum(sizes), "units": units, "s": dt,
+            "gbps": sum(sizes) / dt / 1e9, "launches": got,
+            "rows_checked": checked,
+            "stages_s": {k: v for k, v in st.items() if k.endswith("_s")},
+            "large64": {"units": units64, "launches": got64, "s": dt64}}, \
+        srcs
+
+
+def flip(path: str, offset: int) -> None:
+    """Flip bit 4 of one byte of a file (again to restore it)."""
+    with open(path, "r+b") as f:
+        b = os.pread(f.fileno(), 1, offset)
+        os.pwrite(f.fileno(), bytes([b[0] ^ 0x10]), offset)
+
+
+def phase_scrub(base: str, launches: dict) -> dict:
+    """Phase 8: syndrome scans of a full shard set through K1: clean, two
+    flips in different windows (localised), and a flip with a parity shard
+    missing (found, not localised)."""
+    from seaweedfs_tpu_torch.maintenance import scrub
+    from seaweedfs_tpu_torch.storage.ec import ec_volume, layout
+
+    W = scrub.DEFAULT_WINDOW
+    passes = {}
+
+    def scan(label, ev):
+        st: dict = {}
+        before = launches["gf_apply"]
+        t0 = time.perf_counter()
+        found = scrub.syndrome_scan(ev, stats=st)
+        dt = time.perf_counter() - t0
+        passes[label] = {"s": dt, "bytes": st["bytes"],
+                         "gbps": st["bytes"] / dt / 1e9,
+                         "windows": st.get("windows", 0),
+                         "launches": launches["gf_apply"] - before,
+                         "found": found}
+        log(f"[scrub {label}] {st['bytes']} B of shards in {dt:.3f} s: "
+            f"{st['bytes'] / dt / 1e9:.3f} GB/s, {st.get('windows', 0)} "
+            f"windows, {passes[label]['launches']} K1 launches, {found}")
+        if not st.get("windows") or \
+                passes[label]["launches"] != st["windows"]:
+            raise AssertionError(f"scrub {label}: {passes[label]}, want "
+                                 f"one K1 launch per window checked")
+        return found
+
+    def window(w):
+        return {"offset": w * W, "size": min(W, size - w * W), "columns": 1}
+    ev = ec_volume.EcVolume(base)
+    size = ev.shard_size
+    nwin = -(-size // W)
+    w5, w11, w2 = nwin // 4, 3 * nwin // 4, nwin // 2
+    try:
+        if scan("clean", ev) != []:
+            raise AssertionError("scrub found corruption in a clean set")
+        flips = [(base + layout.to_ext(5), w5 * W + 123),
+                 (base + layout.to_ext(11), w11 * W + 4567 % (size - w11 * W))]
+        for p, off in flips:
+            flip(p, off)
+        try:
+            found = scan("flips in 5 and 11", ev)
+        finally:
+            for p, off in flips:
+                flip(p, off)
+        if found != [{"shard": 5, **window(w5)},
+                     {"shard": 11, **window(w11)}]:
+            raise AssertionError(f"scrub reported {found}")
+    finally:
+        ev.close()
+    p12, p2 = base + layout.to_ext(12), base + layout.to_ext(2)
+    os.rename(p12, p12 + ".aside")
+    try:
+        ev = ec_volume.EcVolume(base)
+        flip(p2, w2 * W + 77)
+        try:
+            found = scan("shard 12 aside", ev)
+        finally:
+            flip(p2, w2 * W + 77)
+            ev.close()
+    finally:
+        os.rename(p12 + ".aside", p12)
+    if found != [{"shard": -1, **window(w2)}]:
+        raise AssertionError(f"scrub with shard 12 aside reported {found}")
+    return passes
+
+
+def fleet_record(vdir: str, srcs: list[str]) -> list[dict]:
+    """Fleet conversion against one write_ec_files per volume over the
+    same four volumes, in the order fleet, serial, serial, fleet, each on
+    fresh output files.  A record, outside the counted window."""
+    from seaweedfs_tpu_torch.ops import fleet_convert
+    from seaweedfs_tpu_torch.storage.ec import ec_files
+
+    total = sum(os.path.getsize(p) for p in srcs)
+    out = []
+    for i, mode in enumerate(("fleet", "serial", "serial", "fleet")):
+        d = os.path.join(vdir, f"record{i}")
+        bases = link_volumes(srcs, d)
+        t0 = time.perf_counter()
+        if mode == "fleet":
+            fleet_convert.convert_volumes(bases)
+        else:
+            for base in bases:
+                ec_files.write_ec_files(base)
+        dt = time.perf_counter() - t0
+        shutil.rmtree(d)
+        out.append({"mode": mode, "s": dt, "gbps": total / dt / 1e9})
+        log(f"[record {mode}] {total} B in {dt:.3f} s: "
+            f"{total / dt / 1e9:.3f} GB/s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -374,6 +648,7 @@ def main(argv=None) -> int:
                     help="volume .dat size (default 1 GiB)")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs on the card",
@@ -435,25 +710,29 @@ def main(argv=None) -> int:
             enc_launches = launches["gf_apply"] - before
             if enc_launches <= 0:
                 raise AssertionError("encode did not launch the kernel")
-            checked = check_parity(base, dat_path, dat_size, args.seed)
+            n_rows = len(stripe_rows(dat_size, layout.LARGE_BLOCK_SIZE,
+                                     layout.SMALL_BLOCK_SIZE))
+            checked = check_stripes(base, dat_path, layout.LARGE_BLOCK_SIZE,
+                                    layout.SMALL_BLOCK_SIZE,
+                                    sample_rows(n_rows, 8, args.seed + 1))
             c = dispatch.COUNTERS.snapshot()
             phases[f"encode_{cache}"] = {
                 "s": dt, "gbps": dat_size / dt / 1e9,
                 "launches": enc_launches, "dat_resident": resident,
-                "units_checked": checked, "counters": c,
+                "rows_checked": checked, "counters": c,
                 "stages_s": {k: v for k, v in st.items()
                              if k.endswith("_s")}}
             log(f"[encode {cache}] .dat {resident:.1%} cached: "
                 f"{dat_size / dt / 1e9:.3f} GB/s ({dt:.2f} s), "
-                f"{enc_launches} launches, parity of {checked} units == "
-                f"plain; read {st.get('read_s', 0):.3f} s / h2d "
-                f"{c['h2d_s']:.3f} s / device {c['device_s']:.3f} s / d2h "
-                f"{c['d2h_s']:.3f} s")
+                f"{enc_launches} launches, {checked} of {n_rows} stripe "
+                f"rows == .dat and plain; read {st.get('read_s', 0):.3f} s "
+                f"/ h2d {c['h2d_s']:.3f} s / device {c['device_s']:.3f} s "
+                f"/ d2h {c['d2h_s']:.3f} s")
+        hashes = [sha256(p) for p in shard]
 
         # 5 degraded read
         lost = [0, 3, 10, 12]
         kept = [p for i, p in enumerate(shard) if i not in lost]
-        orig = {i: sha256(shard[i]) for i in lost}
         for i in lost:
             os.remove(shard[i])
         ev = ec_volume.EcVolume(base)
@@ -513,7 +792,7 @@ def main(argv=None) -> int:
             if sorted(rebuilt) != lost:
                 raise AssertionError(f"rebuilt {rebuilt}, wanted {lost}")
             for i in lost:
-                if sha256(shard[i]) != orig[i]:
+                if sha256(shard[i]) != hashes[i]:
                     raise AssertionError(f"rebuilt shard {i} differs")
             reb_launches = launches["gf_apply"] - before
             if reb_launches <= 0:
@@ -527,19 +806,33 @@ def main(argv=None) -> int:
                 f"shards of {shard_size} B sha256-equal in {dt:.2f} s: "
                 f"{10 * shard_size / dt / 1e9:.3f} GB/s survivors read, "
                 f"{reb_launches} launches")
-        main_launches = dict(launches)
+
+        # 7 fleet
+        phases["fleet"], srcs = phase_fleet(vdir, dat_path, hashes,
+                                            args.seed, launches)
+
+        # 8 scrub
+        phases["scrub"] = phase_scrub(base, launches)
+
+        path_launches = dict(launches)
         staged = dict(gf_cuda.STAGED)
         if any(staged.values()):
-            raise AssertionError(f"the main path made the kernel wrapper "
-                                 f"stage copies of its input: {staged}")
-        log(f"[path] launches {main_launches}, staged copies {staged}")
+            raise AssertionError(f"a path made the kernel wrapper stage "
+                                 f"copies of its input: {staged}")
+        if not path_launches["gf_apply_batch"]:
+            raise AssertionError("no path launched K2 (gf_apply_batch)")
+        log(f"[path] launches {path_launches}, staged copies {staged}")
+
+        # fleet against serial encodes: a record, outside the counted window
+        phases["fleet_record"] = fleet_record(vdir, srcs)
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 7 report
+    # 9 report
     for entry in kernels:
-        entry["launches"] = main_launches[entry["name"]]
+        entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))
+    log(f"[total] {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

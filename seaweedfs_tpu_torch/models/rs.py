@@ -122,6 +122,19 @@ class RSCode:
         want = self.matrix[list(wanted)]  # [w, k]
         return gf.gf_matmul(want, inv)
 
+    # ---- slow reference codec (numpy) -----------------------------------
+
+    def reconstruct_numpy(self, shards: dict[int, np.ndarray],
+                          wanted: list[int]) -> dict[int, np.ndarray]:
+        """Rebuild the `wanted` shards from any >= k present ones (numpy
+        path; the scrubber's localiser decodes a few byte columns with
+        it)."""
+        present = sorted(shards)
+        M = self.decode_matrix(present, wanted)
+        stack = np.stack([shards[r] for r in present[: self.k]], axis=0)
+        out = gf.gf_matmul(M, stack)
+        return {w: out[i] for i, w in enumerate(wanted)}
+
 
 @functools.lru_cache(maxsize=32)
 def get_code(k: int = DATA_SHARDS, m: int = PARITY_SHARDS,

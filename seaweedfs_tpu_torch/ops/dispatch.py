@@ -7,7 +7,8 @@ asynchronous:
 
 - H2D copies are `non_blocking` from pinned host buffers, on the calling
   thread's current stream, and the kernel is enqueued behind them;
-- `dispatch_parity` returns a `Pending` (the un-synced output tensor and a
+- `dispatch_parity` ([k, B], kernel K1) and `dispatch_parity_batch`
+  ([U, k, B], K2) return a `Pending` (the un-synced output tensor and a
   CUDA event recorded after the kernel);
 - `materialize` is the sync point: it waits on that event, then copies the
   result D2H into pinned memory and hands back numpy.
@@ -88,32 +89,41 @@ class Pending:
 
 def _h2d(host: torch.Tensor, device: torch.device,
          staging: torch.Tensor | None) -> torch.Tensor:
-    """Enqueue the copy of a [k, B] host batch to the card, row by row
-    into `staging` ([k, >= B] from `device_empty`; a new one when None),
-    so the kernel reads a [:, :B] view of the wider buffer."""
+    """Enqueue the copy of a [..., B] host batch ([k, B], or a [U, k, B]
+    unit batch) to the card, row by row into `staging` ([..., >= B] from
+    `device_empty`; a new one when None), so the kernel reads a [..., :B]
+    view of the wider buffer."""
     if staging is None:
         staging = device_empty(tuple(host.shape), device)
-    dst = staging[:, : host.shape[1]]
-    for j in range(host.shape[0]):
-        dst[j].copy_(host[j], non_blocking=True)
+    n = host.shape[-1]
+    dst = staging[..., :n]
+    for d, h in zip(dst.view(-1, n), host.view(-1, n)):
+        d.copy_(h, non_blocking=True)
     return dst
+
+
+def _dispatch(codec, apply, batch, staging: torch.Tensor | None):
+    """Run `apply` (a codec method) on a host batch: eagerly on the CPU;
+    on the card behind an enqueued H2D into `staging`, returning a
+    `Pending`."""
+    host = _as_tensor(batch)
+    if codec.device.type == "cpu":
+        COUNTERS.add(calls=1)
+        return apply(host)
+    t0 = time.perf_counter()
+    dev = _h2d(host, codec.device, staging)
+    t1 = time.perf_counter()
+    out = apply(dev)
+    ev = torch.cuda.Event()
+    ev.record()
+    COUNTERS.add(calls=1, h2d_s=t1 - t0, h2d_bytes=host.numel())
+    return Pending(out, ev)
 
 
 def dispatch_parity(codec, batch, staging: torch.Tensor | None = None):
     """Dispatch [k, B] -> [m, B] parity.  On the card the result comes back
     un-synced (a `Pending`); on the CPU it is computed eagerly."""
-    host = _as_tensor(batch)
-    if codec.device.type == "cpu":
-        COUNTERS.add(calls=1)
-        return codec.encode_parity(host)
-    t0 = time.perf_counter()
-    dev = _h2d(host, codec.device, staging)
-    t1 = time.perf_counter()
-    out = codec.encode_parity(dev)
-    ev = torch.cuda.Event()
-    ev.record()
-    COUNTERS.add(calls=1, h2d_s=t1 - t0, h2d_bytes=host.numel())
-    return Pending(out, ev)
+    return _dispatch(codec, codec.encode_parity, batch, staging)
 
 
 def materialize(parity) -> np.ndarray:
@@ -131,6 +141,18 @@ def materialize(parity) -> np.ndarray:
     COUNTERS.add(device_s=t1 - t0, d2h_s=time.perf_counter() - t1,
                  d2h_bytes=host.numel())
     return host.numpy()
+
+
+def dispatch_parity_batch(codec, units, staging: torch.Tensor | None = None):
+    """Dispatch a [U, k, B] unit batch -> [U, m, B] parity in one kernel
+    launch (K2), the fleet conversion's seam (ops/fleet_convert.py).
+
+    On the card the pinned host batch is copied into `staging` (a
+    `device_empty((U, k, B))` slot buffer, or a new one when None), whose
+    unit and row strides are multiples of 16, so the kernel reads it in
+    place; the result comes back un-synced as a `Pending`, and
+    `materialize` is its sync point.  On the CPU it is computed eagerly."""
+    return _dispatch(codec, codec.encode_parity_batch, units, staging)
 
 
 def reconstruct_batch(codec, shards: dict[int, np.ndarray],

@@ -1,0 +1,347 @@
+"""Batched multi-volume EC conversion: one stream of unit batches on the card.
+
+Counterpart of `seaweedfs_tpu/ops/fleet_convert.py`.  `write_ec_files`
+converts one volume, and between volumes the card drains and the writers
+idle.  Fleet conversion (what operators run to turn a backlog of sealed
+cold volumes into EC shard sets) interleaves N volumes' column units into
+one stream of [U, k, W] unit batches, each encoded by one launch of the
+batched kernel (K2, `dispatch.dispatch_parity_batch`):
+
+    reader     stages units round-robin across volumes into a pooled
+               pinned [U, k, W] host batch; data shards go straight to
+               each volume's writers by in-kernel copy (they never visit
+               the card)
+    dispatch   (caller's thread, on its own CUDA stream) copies the batch
+               into the slot's device buffer and launches K2 on it
+    drain      waits on the dispatch's event, copies parity D2H
+               (`dispatch.materialize`), returns the slot to the pool
+               and fans rows out to the owning volume's writers; a
+               volume whose last unit lands is finalized (cut to size,
+               .vif, .tmp -> rename) while the stream feeds the others
+    writers    one _ShardWriterPool per volume
+
+W is the widest unit step of any volume, so one pool serves a fleet that
+mixes large- and small-block volumes; shorter units are zero-filled to W,
+as the reference does.  Any error aborts the whole run: volumes not yet
+committed roll back to their previous shard set (or to none), committed
+ones stay.
+
+The geometry is fixed: UNIT_BATCH units per launch, PIPELINE_DEPTH
+batches in flight (the reference's defaults).  The codec is the EC codec
+on one card: with more than one attached the port still uses one (the
+unit-sharded multi-card encoder is ROADMAP 1.13).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from seaweedfs_tpu_torch.ops.dispatch import (Pending, device_empty,
+                                              dispatch_parity_batch,
+                                              host_empty, materialize)
+from seaweedfs_tpu_torch.storage.ec import layout
+from seaweedfs_tpu_torch.storage.ec.ec_files import (
+    DEFAULT_BATCH, _get_codec, _iter_units, _map_readonly, _max_step,
+    _ShardWriterPool, _Timer, _unit_coverage, write_vif)
+
+UNIT_BATCH = 4  # units per K2 launch
+PIPELINE_DEPTH = 2  # batches in flight: the pool holds one more
+
+
+class _VolumeJob:
+    """One volume mid-conversion: source map, recycled .tmp shard fds, its
+    writer pool, and completion accounting."""
+
+    def __init__(self, base: str, large_block: int, small_block: int,
+                 batch_size: int, stats: dict):
+        self.base = base
+        self.dat_path = base + ".dat"
+        self.dat_size = os.path.getsize(self.dat_path)
+        self.shard_size = layout.shard_file_size(
+            self.dat_size, large_block, small_block)
+        self.tmp_paths = [base + layout.to_ext(i) + ".tmp"
+                          for i in range(layout.TOTAL_SHARDS)]
+        self.out_fds = [os.open(p, os.O_RDWR | os.O_CREAT, 0o644)
+                        for p in self.tmp_paths]
+        self.dat_f = open(self.dat_path, "rb")
+        self.mm = None
+        self.view: np.ndarray | None = None
+        if self.dat_size:
+            self.mm = _map_readonly(self.dat_f.fileno(), self.dat_size)
+            self.view = np.frombuffer(self.mm, dtype=np.uint8)
+        self.committed = False
+        self._stats = stats
+        self.highwater = [0] * layout.TOTAL_SHARDS
+        k = layout.DATA_SHARDS
+        self.writers = _ShardWriterPool(
+            self.out_fds, self.highwater, stats,
+            stage_key=lambda i: "write_data_s" if i < k
+            else "write_parity_s")
+        self.units = _iter_units(self.dat_size, large_block, small_block,
+                                 batch_size)
+        # one unit of lookahead: the last unit is known as the last when it
+        # is read, so the drain can finalize the moment it lands
+        self._ahead = next(self.units, None)
+        self.units_read = 0
+        self.units_total: int | None = 0 if self._ahead is None else None
+        self.units_drained = 0  # written by the drain thread only
+        self.units_skipped = 0  # written by the reader thread only
+
+    def next_unit(self):
+        u, self._ahead = self._ahead, next(self.units, None)
+        if u is not None:
+            self.units_read += 1
+            if self._ahead is None:
+                self.units_total = self.units_read
+        return u
+
+    def drained_all(self) -> bool:
+        return self.units_total is not None and \
+            self.units_drained + self.units_skipped >= self.units_total
+
+    def finalize(self) -> None:
+        """All units drained: barrier on the writers, cut the shards to
+        size, commit by rename.  Runs on the drain thread while the stream
+        keeps feeding the other volumes."""
+        self.writers.close()
+        if self.writers.errors:
+            raise self.writers.errors[0]
+        for fd, hw in zip(self.out_fds, self.highwater):
+            os.ftruncate(fd, min(hw, self.shard_size))
+            if hw < self.shard_size:
+                os.ftruncate(fd, self.shard_size)
+        for fd in self.out_fds:
+            os.close(fd)
+        self.out_fds = []
+        # no codec key, as the reference fleet writes it: a reader takes a
+        # missing key as RS
+        write_vif(self.base, self.dat_size)
+        for i, p in enumerate(self.tmp_paths):
+            os.replace(p, self.base + layout.to_ext(i))
+        self.committed = True
+        # a caller that must react per volume sees the commits even when a
+        # later volume fails the run
+        self._stats.setdefault("committed_bases", []).append(self.base)
+
+    def abort(self) -> None:
+        """Failure path: drop the fds and every .tmp, so no partial shard
+        set is ever visible; a previous shard set stays untouched."""
+        self.writers.close()
+        for fd in self.out_fds:
+            with contextlib.suppress(OSError):
+                os.close(fd)
+        self.out_fds = []
+        if not self.committed:
+            for p in self.tmp_paths:
+                with contextlib.suppress(OSError):
+                    os.remove(p)
+
+    def release(self) -> None:
+        self.view = None
+        if self.mm is not None:
+            with contextlib.suppress(BufferError):
+                self.mm.close()  # a traceback may still hold views
+            self.mm = None
+        self.dat_f.close()
+
+
+def convert_volumes(bases: list[str], *,
+                    large_block: int = layout.LARGE_BLOCK_SIZE,
+                    small_block: int = layout.SMALL_BLOCK_SIZE,
+                    batch_size: int = DEFAULT_BATCH,
+                    stats: dict | None = None, device=None) -> dict:
+    """Convert the volumes `<base>.dat` into EC shard sets through one
+    interleaved stream of unit batches on `device` (None: the card; raises
+    without one).  Returns per-volume accounting.
+
+    `stats` receives per-stage seconds, `mode`, `unit_batch`,
+    `committed_bases`, `volumes` and `units`."""
+    if not bases:
+        return {"volumes": {}, "bytes": 0}
+    codec = _get_codec(device)
+    device = codec.device
+    k, m = layout.DATA_SHARDS, layout.PARITY_SHARDS
+    U = UNIT_BATCH
+    stats = stats if stats is not None else {}
+    stats["mode"] = "fleet"
+    stats["unit_batch"] = U
+    t_wall = time.perf_counter()
+    jobs: list[_VolumeJob] = []
+    pool: queue.Queue = queue.Queue()
+    try:
+        for b in bases:
+            jobs.append(_VolumeJob(b, large_block, small_block, batch_size,
+                                   stats))
+        # one staging width covers every volume (shorter units zero-fill);
+        # each slot is a pinned host batch and its device twin
+        W = max(_max_step(j.dat_size, large_block, small_block, batch_size,
+                          k) for j in jobs)
+        for _ in range(PIPELINE_DEPTH + 1):
+            pool.put((host_empty((U, k, W), device),
+                      device_empty((U, k, W), device)
+                      if device.type == "cuda" else None))
+    except BaseException:
+        for job in jobs:
+            job.abort()
+            job.release()
+        raise
+    stats["bytes"] = sum(j.dat_size for j in jobs)
+    q_read: queue.Queue = queue.Queue(maxsize=PIPELINE_DEPTH)
+    q_disp: queue.Queue = queue.Queue()  # bounded by the pool
+    errors: list[BaseException] = []
+
+    def reader() -> None:
+        """Round-robin units across volumes into staged unit batches."""
+        active = list(jobs)
+        try:
+            while active and not errors:
+                with _Timer(stats, "stall_s"):
+                    slot = pool.get()
+                buf = slot[0].numpy()
+                metas = []
+                with _Timer(stats, "read_s"):
+                    while len(metas) < U and active:
+                        # index by units filled so far, so ragged endings
+                        # land the same units in the same slots
+                        job = active[len(metas) % len(active)]
+                        unit = job.next_unit()
+                        if unit is None:
+                            active.remove(job)
+                            continue
+                        row_start, block, col, step, shard_off = unit
+                        nz, tail = _unit_coverage(
+                            job.dat_size, row_start, block, col, step)
+                        if nz == 0:  # wholly beyond the .dat: a hole
+                            job.units_skipped += 1
+                            continue
+                        for j in range(nz):
+                            job.writers.copy(
+                                j, job.dat_f.fileno(),
+                                row_start + j * block + col, shard_off,
+                                step if j < nz - 1 else tail, job.view)
+                        unit_buf = buf[len(metas)]
+                        for j in range(k):
+                            off = row_start + j * block + col
+                            n = max(0, min(step, job.dat_size - off))
+                            if n > 0:
+                                np.copyto(unit_buf[j, :n],
+                                          job.view[off:off + n])
+                            if n < W:
+                                unit_buf[j, n:] = 0
+                        metas.append((job, shard_off, step))
+                if metas:
+                    q_read.put((slot, metas))
+                else:
+                    pool.put(slot)
+        except BaseException as e:  # surfaced by the caller's thread
+            errors.append(e)
+        finally:
+            q_read.put(None)
+
+    def drain() -> None:
+        """Sync each batch, fan its parity rows out, and finalize each
+        volume the moment its last unit lands."""
+        failed = False
+        while True:
+            item = q_disp.get()
+            if item is None:
+                return
+            slot, metas, parity = item
+            try:
+                if failed or errors:
+                    continue
+                with _Timer(stats, "d2h_s"):
+                    out = materialize(parity)
+                # materialize waited on the dispatch's event: the card is
+                # done with both of the slot's buffers
+                pool.put(slot)
+                slot = None
+                for rows, (job, shard_off, step) in zip(out, metas):
+                    # views of the pinned D2H buffer: each queued row
+                    # keeps it alive until the writer has written it
+                    for i in range(m):
+                        job.writers.put(k + i, rows[i, :step], shard_off)
+                    job.units_drained += 1
+                    if job.drained_all():
+                        job.finalize()
+            except BaseException as e:  # surfaced by the caller's thread
+                errors.append(e)
+                failed = True
+            finally:
+                if slot is not None:
+                    if isinstance(parity, Pending):
+                        parity.event.synchronize()  # the card may read it
+                    pool.put(slot)
+
+    t_r = threading.Thread(target=reader, name="fleet-reader", daemon=True)
+    t_d = threading.Thread(target=drain, name="fleet-drain", daemon=True)
+    t_r.start()
+    t_d.start()
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    try:
+        with torch.cuda.stream(stream) if stream is not None \
+                else contextlib.nullcontext():
+            while True:
+                item = q_read.get()
+                if item is None:
+                    break
+                slot, metas = item
+                if errors:
+                    pool.put(slot)
+                    continue
+                nu = len(metas)  # a ragged last batch launches its units only
+                try:
+                    with _Timer(stats, "encode_s"):
+                        parity = dispatch_parity_batch(
+                            codec, slot[0][:nu],
+                            staging=None if slot[1] is None
+                            else slot[1][:nu])
+                    q_disp.put((slot, metas, parity))
+                except BaseException:
+                    if stream is not None:
+                        stream.synchronize()  # an H2D may read the slot
+                    pool.put(slot)
+                    raise
+    except BaseException as e:  # stops the reader; rolls the run back
+        errors.append(e)
+    finally:
+        q_disp.put(None)
+        t_d.join()
+        while t_r.is_alive():  # unblock a reader stuck on a full q_read
+            try:
+                item = q_read.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            if item is not None:
+                pool.put(item[0])
+        t_r.join()
+        # empty volumes never enter the stream: commit them here; on any
+        # error roll every uncommitted volume back
+        for job in jobs:
+            try:
+                if not errors and not job.committed and job.drained_all():
+                    job.finalize()
+            except BaseException as e:
+                errors.append(e)
+        for job in jobs:
+            if errors and not job.committed:
+                job.abort()
+            job.release()
+        stats["wall_s"] = time.perf_counter() - t_wall
+    if errors:
+        raise errors[0]
+    stats["volumes"] = len(jobs)
+    stats["units"] = sum(j.units_read for j in jobs)
+    return {"volumes": {j.base: {"bytes": j.dat_size,
+                                 "shard_size": j.shard_size}
+                        for j in jobs},
+            "bytes": stats["bytes"], "units": stats["units"],
+            "wall_s": round(stats["wall_s"], 4)}
+

@@ -53,6 +53,9 @@ class EcVolume:
             p = base + layout.to_ext(i)
             if os.path.exists(p):
                 self.shards[i] = open(p, "rb")
+        # every shard file has the same size; the scrubber walks it
+        self.shard_size = os.fstat(next(iter(self.shards.values())).fileno()
+                                   ).st_size if self.shards else 0
         self.dat_size = ec_files.find_dat_file_size(base, self.version)
         self.read_stats = {"local_shard_reads": 0, "intervals_coalesced": 0,
                            "reconstruct_batches": 0,

@@ -84,6 +84,59 @@ def test_cuda_kernel_every_shape(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [4097, 1 << 20])
+@pytest.mark.parametrize("units", [1, 4, 8])
+def test_cuda_dispatch_parity_batch(card, units, n):
+    """The fleet's seam: a pinned [U, 10, n] batch staged into a padded
+    slot buffer, one launch of K2, no staged copy, equal to the plain
+    version."""
+    codec = gf_cuda.get_codec(10, 4, device=card)
+    host = dispatch.host_empty((units, 10, n), card)
+    host.copy_(torch.from_numpy(np.random.default_rng(units).integers(
+        0, 256, (units, 10, n), dtype=np.uint8)))
+    before, staged = dict(gf_cuda.LAUNCHES), dict(gf_cuda.STAGED)
+    parity = dispatch.dispatch_parity_batch(
+        codec, host, staging=dispatch.device_empty((units, 10, n), card))
+    got = dispatch.materialize(parity)
+    assert gf_cuda.LAUNCHES["gf_apply_batch"] == \
+        before["gf_apply_batch"] + 1
+    assert gf_cuda.LAUNCHES["gf_apply"] == before["gf_apply"]
+    assert gf_cuda.STAGED == staged
+    bit = codec._parity.bitmat.to(card)
+    want = gf_cuda.gf_apply_plain(bit, host.to(card)).cpu().numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_equals_cpu_fleet(card, tmp_path):
+    """convert_volumes on the card writes the files it writes on the CPU,
+    for a fleet with large rows, ragged tails, an empty volume and 100 B
+    units (slot rows padded to 112 B), in one K2 launch per batch."""
+    from seaweedfs_tpu_torch.ops import fleet_convert
+    geom = dict(large_block=10_000, small_block=100, batch_size=1000)
+    sizes = [250_000, 0, 12_345, 100_001]
+    files = {}
+    for dev in ("cpu", "cuda"):
+        d = tmp_path / dev
+        d.mkdir()
+        rng = np.random.default_rng(6)
+        bases = [str(d / str(i)) for i in range(len(sizes))]
+        for b, s in zip(bases, sizes):
+            (d / (b.rsplit("/", 1)[1] + ".dat")).write_bytes(
+                rng.integers(0, 256, s, dtype=np.uint8).tobytes())
+        before, staged = dict(gf_cuda.LAUNCHES), dict(gf_cuda.STAGED)
+        fleet_convert.convert_volumes(bases, device=dev, **geom)
+        launched = gf_cuda.LAUNCHES["gf_apply_batch"] - \
+            before["gf_apply_batch"]
+        # 70 + 0 + 13 + 11 units carry data: ceil(94 / 4) batches
+        assert launched == (0 if dev == "cpu" else 24)
+        assert gf_cuda.STAGED == staged
+        files[dev] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    assert files["cpu"] == files["cuda"]
+    assert len(files["cpu"]) == 4 * 16  # .dat, 14 shards, .vif each
+
+
+@pytest.mark.cuda
 def test_cuda_codec_any_width(card):
     """CudaRSCodec.encode / reconstruct on a contiguous [10, 700] on the
     card, which the first port refused."""

@@ -52,18 +52,31 @@ def test_port_imports_no_jax_and_no_reference(path):
             assert top != "seaweedfs_tpu", f"{path}: imports {name}"
 
 
-def test_port_path_leaves_jax_unloaded():
-    code = ("import sys, tempfile, numpy as np\n"
+def test_port_path_leaves_jax_unloaded(tmp_path):
+    """Encode through the codec, convert a fleet of two volumes and scrub
+    one of them, all on the CPU, in a fresh interpreter: neither jax nor
+    the reference package gets imported."""
+    code = ("import os, sys, numpy as np, torch\n"
             "from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume\n"
-            "from seaweedfs_tpu_torch.ops import gf_cuda\n"
+            "from seaweedfs_tpu_torch.ops import fleet_convert, gf_cuda\n"
+            "from seaweedfs_tpu_torch.maintenance import scrub\n"
             "c = gf_cuda.get_codec(10, 4, device='cpu')\n"
-            "c.encode_parity(__import__('torch').zeros((10, 16), "
-            "dtype=__import__('torch').uint8))\n"
+            "c.encode_parity(torch.zeros((10, 16), dtype=torch.uint8))\n"
+            "d = sys.argv[1]\n"
+            "bases = [os.path.join(d, v) for v in ('1', '2')]\n"
+            "for b, n in zip(bases, (30_000, 5_000)):\n"
+            "    open(b + '.dat', 'wb').write(os.urandom(n))\n"
+            "fleet_convert.convert_volumes(bases, large_block=1000, "
+            "small_block=100, device='cpu')\n"
+            "open(bases[0] + '.ecx', 'wb').close()\n"
+            "ev = ec_volume.EcVolume(bases[0], 1000, 100, device='cpu')\n"
+            "scrub.DEFAULT_WINDOW = 512\n"
+            "assert scrub.syndrome_scan(ev) == []\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('seaweedfs_tpu.') for m in sys.modules), "
             "sorted(m for m in sys.modules if 'jax' in m)\n")
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=120)
+    subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,
+                   check=True, timeout=120)
 
 
 # ---- entry points need the card -----------------------------------------
