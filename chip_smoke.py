@@ -10,10 +10,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   1 build      nvcc/g++ build of seaweedfs_tpu_torch/csrc, all at once
   2 kernel     the GF(2^8) kernel against gf_apply_plain, byte for byte:
                timed at the paths' shapes (encode, rebuild, degraded
-               reads, the fleet's unit batches) with CUDA events beside
-               its byte bound and the plain version's time;
-               untimed at m = 1..16, k = 1/17/32, ragged n, strided and
-               unaligned views, and the codec on a contiguous [10, 700]
+               reads, the fleet's unit batches, repair's partials) with
+               CUDA events beside its byte bound and the plain version's
+               time; untimed at m = 1..16, k = 1..9/17/32, ragged n,
+               strided and unaligned views, and the codec on a contiguous
+               [10, 700]
   3 write      a volume of needles (sizes uniform in 4 KB..1 MB, data from
                --seed) through Volume.append_needle
   4 encode     write_ec_files + write_sorted_ecx; sampled stripe rows, cut
@@ -35,20 +36,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   8 scrub      syndrome_scan of the phase-4 shard set: clean, then with a
                byte flipped in shards 5 and 11 (two ranges, localised),
                then with shard 12 aside (a flip found, not localised)
-  9 report     {"kernels": [...]} line, the card's name and power limit,
+  9 repair     rebuild_ec_reduced of the phase-4 shard set: the repairing node
+               holds links of shards 0-5, helper "a:1" (same rack) 6-8 and
+               "b:2" (other DC) 9-13, each helper's partial computed on
+               the card by a stand-in of the volume server's; lost [3] at
+               d = 10, at d = None, lost [1, 12], and [3] with "a:1" dying
+               mid-repair; every rebuilt shard sha256-equal to phase 4's,
+               measured bytes per node against the plan's prediction and
+               the stand-in's own count, K1 launches against the count
+               the segment-cut rule predicts
+ 10 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
 and dropped from the page cache (posix_fadvise DONTNEED; mincore reports
 the share still resident), then "warm", right after, with those files
 cached.  Launch counts are zeroed just before phase 3 and read just after
-phase 8, so the reported launches are the paths' own; the run fails if a
+phase 9, so the reported launches are the paths' own; the run fails if a
 path made the kernel wrapper stage a copy of any input
 (`gf_cuda.STAGED`), since each hands the kernel rows it reads in place,
-and if K2 was not launched.  After that window, a record: fleet against
-one write_ec_files per volume over the same four volumes (fleet, serial,
-serial, fleet).  Needs one CUDA card; exits non-zero without one, and
-outside a checkout of the repository.
+and if K2 was not launched.  After that window, two records: fleet
+against one write_ec_files per volume over the same four volumes (fleet,
+serial, serial, fleet), and rebuild_ec_files of phase 9's single loss.
+Needs one CUDA card; exits non-zero without one, and outside a checkout
+of the repository.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -126,12 +138,24 @@ def kernel_cases(seed: int):
         # one block, 16 bytes: the launch and memory-latency floor
         ("floor [1,1]@[1,16]", rand(1, 1), (1, 16), False, True),
     ]
+    # repair's partials (phase 9, lost [3] at d = 10): the repairing node's
+    # own 5 shards, a:1's 3 and b:2's 2, slices of one [1, 10] decode
+    # matrix, each through the kernel's generic (runtime k) instantiation
+    window = [0, 1, 2, 4, 5, 6, 7, 8, 9, 10]
+    lost3 = code.decode_matrix(window, [3])
+    for name, cols in (("partial [1,5]@[5,16MiB]", slice(0, 5)),
+                       ("partial [1,3]@[3,16MiB]", slice(5, 8)),
+                       ("partial [1,2]@[2,16MiB]", slice(8, 10))):
+        mat = gf_cuda.CudaGFMatrix(lost3[:, cols])
+        cases.append((name, mat, (mat.k, 16 * MIB), False, True))
     cases += [(f"parity n={n}", parity, (10, n), False, False)
               for n in (1, 15, 17, 255, 4097)]
     cases += [(f"random [{m},10] n=4097", rand(m, 10), (10, 4097), False,
                False) for m in range(1, 17)]
     cases += [(f"random [4,{k}] n={n}", rand(4, k), (k, n), False, False)
               for k in (1, 17, 32) for n in (1, 15, 17, 4097)]
+    cases += [(f"random [1,{k}] n={n}", rand(1, k), (k, n), False, False)
+              for k in range(2, 10) for n in (17, 4097)]
     return cases
 
 
@@ -186,7 +210,7 @@ def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
         rows.append(row)
         del x
     log(f"[kernel] {sum('ms' not in r for r in rows)} correctness cases "
-        "equal (m 1..16, k 1/17/32, ragged n)")
+        "equal (m 1..16, k 1..9/17/32, ragged n)")
     rows += views_and_codec(seed)
     torch.cuda.empty_cache()
 
@@ -252,12 +276,14 @@ def views_and_codec(seed: int) -> list[dict]:
 
 def ptxas_report(log_text: str) -> list[str]:
     """ptxas registers, spills and shared memory of the instantiations
-    RS(10,4) runs: k = 10 with m = 1, 2, 4."""
+    RS(10,4) runs: k = 10 with m = 1, 2, 4, and repair's partials, m = 1
+    with k at run time."""
     out = []
     entries = log_text.split("Compiling entry function")
     for label, needle in (("M=1,K=10", "gf_apply_kernelILi1ELi10E"),
                           ("M=2,K=10", "gf_apply_kernelILi2ELi10E"),
-                          ("M=4,K=10", "gf_apply_kernelILi4ELi10E")):
+                          ("M=4,K=10", "gf_apply_kernelILi4ELi10E"),
+                          ("M=1,K=any", "gf_apply_kernelILi1ELi0E")):
         for e in entries:
             if needle in e.split("\n", 1)[0]:
                 facts = [ln.split(":", 1)[-1].strip() for ln in e.splitlines()
@@ -615,6 +641,279 @@ def phase_scrub(base: str, launches: dict) -> dict:
     return passes
 
 
+# phase 9's topology, tests/test_regen.py's: the repairing node holds shards
+# 0-5, a same-rack helper 6-8 and an other-DC helper 9-13
+REPAIR_LOCAL = range(0, 6)
+REPAIR_HELPERS = (("a:1", range(6, 9), 1), ("b:2", range(9, 14), 3))
+REPAIR_BATCH = 16 * MIB  # ec_files.DEFAULT_BATCH
+REPAIR_ALIGN = 4 * MIB  # regen.DEFAULT_SEG_ALIGN
+# the repairing thread's stage seconds in rebuild_ec_reduced's stats
+REPAIR_STAGES = ("read_s", "apply_s", "wait_s", "xor_s", "write_s")
+
+
+class HelperStandIn:
+    """Phase 9's helper nodes, computing a partial as the volume server's
+    RS partial endpoint does: pread each asked-for shard range from the
+    phase-4 files, stack the rows, apply the coefficient rows with the
+    port's dispatch.apply_matrix on the card, return the bytes.  Counts,
+    per node, its calls, its applies (one K1 launch each), the bytes it
+    read and the bytes it returned, and the seconds it spent reading
+    (preads and the stack) and applying (apply_matrix and `tobytes`);
+    `die = (node, n)` makes `node` raise HelperDied at every call after
+    its n-th."""
+
+    def __init__(self, base: str, codec, die=None):
+        from seaweedfs_tpu_torch.storage.ec import layout
+        self.codec, self.die = codec, die
+        self.fds = {i: os.open(base + layout.to_ext(i), os.O_RDONLY)
+                    for i in range(14)}
+        self.lock = threading.Lock()
+        self.calls: dict = {}
+        self.applies: dict = {}
+        self.read: dict = {}
+        self.returned: dict = {}
+        self.read_s: dict = {}
+        self.apply_s: dict = {}
+
+    def _add(self, counts: dict, node: str, v):
+        with self.lock:
+            counts[node] = counts.get(node, 0) + v
+            return counts[node]
+
+    def __call__(self, group, sids, coeff, off, n) -> bytes:
+        import numpy as np
+        from seaweedfs_tpu_torch.ops import dispatch, regen
+        calls = self._add(self.calls, group.node, 1)
+        if self.die and self.die[0] == group.node and calls > self.die[1]:
+            raise regen.HelperDied(group.node, tuple(sids))
+        t0 = time.perf_counter()
+        rows = []
+        for sid in sids:
+            data = os.pread(self.fds[sid], n, off)
+            if len(data) != n:
+                raise regen.HelperDied(group.node, tuple(sids))
+            rows.append(np.frombuffer(data, np.uint8))
+        stack = np.stack(rows)
+        t1 = time.perf_counter()
+        out = dispatch.apply_matrix(self.codec, coeff, stack).tobytes()
+        self._add(self.read_s, group.node, t1 - t0)
+        self._add(self.apply_s, group.node, time.perf_counter() - t1)
+        self._add(self.applies, group.node, 1)
+        self._add(self.read, group.node, n * len(sids))
+        self._add(self.returned, group.node, len(out))
+        return out
+
+    def close(self) -> None:
+        for fd in self.fds.values():
+            os.close(fd)
+
+
+def repair_segments(size: int, n_local: int, n_remote: int) -> list[int]:
+    """Segment sizes of one reduced-read pass of a `size`-byte shard, by
+    the planner's rule as the reference documents it: with t = 10 -
+    n_local remote shards needed and 0 < t < n_remote, n_remote rotating
+    windows, else one; [0, size) cut into min(windows, ceil(size /
+    align)) segments of floor(size / nseg) rounded down to the align, the
+    last taking the rest, and one segment when that rounds to 0."""
+    t = 10 - n_local
+    windows = n_remote if 0 < t < n_remote else 1
+    nseg = max(1, min(windows, -(-size // REPAIR_ALIGN)))
+    seg = (size // nseg) // REPAIR_ALIGN * REPAIR_ALIGN if nseg > 1 else size
+    if nseg > 1 and seg == 0:
+        nseg, seg = 1, size
+    return [seg] * (nseg - 1) + [size - seg * (nseg - 1)]
+
+
+def repair_chunks(size: int, n_local: int, n_remote: int) -> int:
+    """Batch chunks of one pass: one local apply (one K1 launch) each."""
+    return sum(-(-s // REPAIR_BATCH)
+               for s in repair_segments(size, n_local, n_remote))
+
+
+def phase_repair(vdir: str, base: str, hashes: list[str],
+                 launches: dict) -> dict:
+    """Phase 9: reduced-read repair of the phase-4 shard set through
+    rebuild_ec_reduced, helpers on the card (K1), four runs, each checked
+    against phase 4's sha256, the plan's byte ledger and the stand-in's
+    own counts."""
+    from seaweedfs_tpu_torch.ops import dispatch, gf_cuda, regen
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+
+    if (ec_files.DEFAULT_BATCH, regen.DEFAULT_SEG_ALIGN) != \
+            (REPAIR_BATCH, REPAIR_ALIGN):
+        raise AssertionError("the port's repair batch or align moved; "
+                             "phase 9's predictions assume 16 / 4 MiB")
+    size = os.path.getsize(base + layout.to_ext(0))
+    codec = gf_cuda.get_codec(10, 4)
+    runs = {}
+
+    def run(label, lost, d=None, die=None):
+        rdir = os.path.join(vdir, "repair")
+        os.makedirs(rdir)
+        rbase = os.path.join(rdir, os.path.basename(base))
+        local = [s for s in REPAIR_LOCAL if s not in lost]
+        for s in local:  # only these links are the repairing node's own
+            os.link(base + layout.to_ext(s), rbase + layout.to_ext(s))
+        os.link(base + ".vif", rbase + ".vif")
+        groups = [{"node": node, "shards": [s for s in span
+                                            if s not in lost],
+                   "locality": loc} for node, span, loc in REPAIR_HELPERS]
+        helper = HelperStandIn(base, codec, die)
+        st: dict = {}
+        dispatch.COUNTERS.reset()
+        before = launches["gf_apply"]
+        t0 = time.perf_counter()
+        try:
+            res = ec_files.rebuild_ec_reduced(rbase, lost, groups, helper,
+                                              d=d, stats=st)
+        finally:
+            helper.close()
+        dt = time.perf_counter() - t0
+        got = launches["gf_apply"] - before
+        for s in lost:
+            if sha256(rbase + layout.to_ext(s)) != hashes[s]:
+                raise AssertionError(f"repair {label}: shard {s} differs "
+                                     f"from phase 4's")
+        if any(p.endswith(".tmp") for p in os.listdir(rdir)):
+            raise AssertionError(f"repair {label} left a .tmp file")
+        shutil.rmtree(rdir)
+        remote = sum(res["helper_bytes"].values())
+        applies = sum(helper.applies.values())
+        rec = {"lost": lost, "d": d, "s": dt,
+               "rebuilt_gbps": len(lost) * size / dt / 1e9,
+               "remote_bytes": remote,
+               "naive_remote": res["predicted"]["naive_remote"],
+               "helper_bytes": res["helper_bytes"],
+               "helper_reads": dict(helper.read),
+               "helper_calls": dict(helper.calls), "launches": got,
+               "helper_applies": applies, "replans": res["replans"],
+               "dead_helpers": res["dead_helpers"],
+               "reconstruct_s": st["reconstruct_s"],
+               "rebuilder_s": {k: st[k] for k in REPAIR_STAGES},
+               "counters": dispatch.COUNTERS.snapshot(),
+               "helper_read_s": dict(helper.read_s),
+               "helper_apply_s": dict(helper.apply_s)}
+        runs[label] = rec
+        return res, helper, rec
+
+    def report(label, rec, local_read=None):
+        """Log a run; `local_read` is the repairing node's own survivor bytes
+        (all its shards, every window: none of these runs has t <= 0)."""
+        gb = ""
+        if local_read is not None:
+            rec["survivors_read_gbps"] = (
+                local_read + sum(rec["helper_reads"].values())) / \
+                rec["s"] / 1e9
+            gb = f", {rec['survivors_read_gbps']:.3f} GB/s of survivors read"
+        log(f"[repair {label}] lost {rec['lost']} d={rec['d']}: "
+            f"{rec['s']:.3f} s, {rec['rebuilt_gbps']:.3f} GB/s rebuilt"
+            f"{gb}; remote {rec['remote_bytes']} B against naive "
+            f"{rec['naive_remote']} B ({rec['helper_bytes']}); "
+            f"{rec['launches']} K1 launches, {rec['helper_applies']} "
+            f"by the helpers ({rec['helper_applies'] / rec['launches']:.0%})"
+            f"; replans {rec['replans']}")
+        c = rec["counters"]
+        log(f"[repair {label}] seconds, summed over threads: every apply's "
+            f"h2d {c['h2d_s']:.3f} / device {c['device_s']:.3f} / d2h "
+            f"{c['d2h_s']:.3f} ({c['calls']} applies, "
+            f"{c['h2d_bytes']} B in); helpers reading "
+            f"{sum(rec['helper_read_s'].values()):.3f}, applying "
+            f"{sum(rec['helper_apply_s'].values()):.3f}")
+        log(f"[repair {label}] the rebuilder's own thread, of "
+            f"{rec['reconstruct_s']:.3f} s: " + ", ".join(
+                f"{k[:-2]} {v:.3f}" for k, v in rec["rebuilder_s"].items()))
+
+    def ledgers_agree(label, res, helper):
+        if not (res["helper_bytes"] == res["predicted"]["per_node"]
+                == helper.returned):
+            raise AssertionError(
+                f"repair {label}: measured {res['helper_bytes']}, "
+                f"predicted {res['predicted']['per_node']}, stand-in "
+                f"{helper.returned}")
+
+    # (a) one window: the repairing node's 5 shards, a:1's 3 and b:2's 9, 10
+    res, helper, rec = run("a", [3], d=10)
+    ledgers_agree("a", res, helper)
+    chunks = -(-size // REPAIR_BATCH)
+    if rec["launches"] != 3 * chunks or \
+            rec["helper_applies"] != 2 * chunks:
+        raise AssertionError(f"repair a: {rec['launches']} K1 launches "
+                             f"({rec['helper_applies']} by helpers), "
+                             f"want 3 x {chunks}")
+    if res["helper_bytes"] != {"a:1": size, "b:2": size} or \
+            res["predicted"]["naive_remote"] != 5 * size:
+        raise AssertionError(f"repair a: {res['helper_bytes']} remote, "
+                             f"naive {res['predicted']['naive_remote']}")
+    report("a", rec, 5 * size)
+
+    # (b) every survivor: 8 rotating windows over the 8 remote shards
+    res, helper, rec = run("b", [3])
+    ledgers_agree("b", res, helper)
+    chunks = repair_chunks(size, 5, 8)
+    if rec["launches"] != rec["helper_applies"] + chunks:
+        raise AssertionError(f"repair b: {rec['launches']} K1 launches, "
+                             f"want {rec['helper_applies']} helper + "
+                             f"{chunks} local chunks")
+    for node, span, _ in REPAIR_HELPERS:
+        held = len([s for s in span if s != 3]) * size
+        if not 0 < helper.read[node] < held:
+            raise AssertionError(f"repair b: {node} read "
+                                 f"{helper.read[node]} B of its {held}")
+    rec["local_chunks"] = chunks
+    report("b", rec, 5 * size)
+
+    # (c) two losses in sequence; shard 1 joins the repairing node's survivors
+    res, helper, rec = run("c", [1, 12])
+    ledgers_agree("c", res, helper)
+    chunks = repair_chunks(size, 5, 7) + repair_chunks(size, 6, 7)
+    if rec["launches"] != rec["helper_applies"] + chunks:
+        raise AssertionError(f"repair c: {rec['launches']} K1 launches, "
+                             f"want {rec['helper_applies']} helper + "
+                             f"{chunks} local chunks")
+    report("c", rec, 11 * size)
+
+    # (d) as (b), with a:1 dying at its third call (at its last one on a
+    # volume too small for three): one replan onto the repairing node and b:2
+    # alone.  The payload b:2 was computing when a:1 died may or may not
+    # have been taken in before the replan
+    res, helper, rec = run("d", [3], die=("a:1", min(
+        2, runs["b"]["helper_calls"]["a:1"] - 1)))
+    chunk = min(repair_segments(size, 5, 8)[0], REPAIR_BATCH)
+    lag = helper.returned.get("b:2", 0) - res["helper_bytes"].get("b:2", 0)
+    if res["replans"] < 1 or \
+            [h["node"] for h in res["dead_helpers"]] != ["a:1"] or \
+            res["predicted"]["per_node"] != {"b:2": size} or \
+            res["helper_bytes"].get("a:1", 0) != \
+            helper.returned.get("a:1", 0) or lag not in (0, chunk):
+        raise AssertionError(f"repair d: {rec}, stand-in returned "
+                             f"{helper.returned}")
+    report("d", rec)
+    return runs
+
+
+def rebuild_record(vdir: str, base: str, hashes: list[str]) -> dict:
+    """rebuild_ec_files of phase 9's single loss [3] from the 13 other
+    shards: a record of its wall time, outside the counted window."""
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    rdir = os.path.join(vdir, "rebuild_record")
+    os.makedirs(rdir)
+    rbase = os.path.join(rdir, os.path.basename(base))
+    for s in range(14):
+        if s != 3:
+            os.link(base + layout.to_ext(s), rbase + layout.to_ext(s))
+    os.link(base + ".vif", rbase + ".vif")
+    t0 = time.perf_counter()
+    ec_files.rebuild_ec_files(rbase)
+    dt = time.perf_counter() - t0
+    if sha256(rbase + layout.to_ext(3)) != hashes[3]:
+        raise AssertionError("rebuild_ec_files of [3] differs")
+    size = os.path.getsize(rbase + layout.to_ext(3))
+    shutil.rmtree(rdir)
+    log(f"[record rebuild_ec_files] lost [3]: {dt:.3f} s, "
+        f"{size / dt / 1e9:.3f} GB/s rebuilt")
+    return {"s": dt, "rebuilt_gbps": size / dt / 1e9}
+
+
 def fleet_record(vdir: str, srcs: list[str]) -> list[dict]:
     """Fleet conversion against one write_ec_files per volume over the
     same four volumes, in the order fleet, serial, serial, fleet, each on
@@ -814,6 +1113,9 @@ def main(argv=None) -> int:
         # 8 scrub
         phases["scrub"] = phase_scrub(base, launches)
 
+        # 9 repair
+        phases["repair"] = phase_repair(vdir, base, hashes, launches)
+
         path_launches = dict(launches)
         staged = dict(gf_cuda.STAGED)
         if any(staged.values()):
@@ -823,12 +1125,13 @@ def main(argv=None) -> int:
             raise AssertionError("no path launched K2 (gf_apply_batch)")
         log(f"[path] launches {path_launches}, staged copies {staged}")
 
-        # fleet against serial encodes: a record, outside the counted window
+        # records, outside the counted window
         phases["fleet_record"] = fleet_record(vdir, srcs)
+        phases["rebuild_record"] = rebuild_record(vdir, base, hashes)
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 9 report
+    # 10 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -11,7 +11,10 @@ asynchronous:
   ([U, k, B], K2) return a `Pending` (the un-synced output tensor and a
   CUDA event recorded after the kernel);
 - `materialize` is the sync point: it waits on that event, then copies the
-  result D2H into pinned memory and hands back numpy.
+  result D2H into pinned memory and hands back numpy;
+- `reconstruct_batch` (rebuild) and `apply_matrix` (a repair helper's
+  partial product, ops/regen.py) go through the same steps and return
+  host bytes.
 
 Every batch lands on the card in a buffer whose rows start 16 bytes
 apart (`rows.device_empty`), the layout the kernel reads in place, so the
@@ -188,6 +191,42 @@ def reconstruct_batch(codec, shards: dict[int, np.ndarray],
                  d2h_s=time.perf_counter() - t3, d2h_bytes=back.numel())
     bn = back.numpy()
     return {w: bn[r] for r, w in enumerate(wanted)}
+
+
+# matrix applies for the reduced-read repair plane (ops/regen.py): the
+# coefficient matrices are tiny ([1, j] slices of a decode matrix) but
+# arbitrary, so each one's apply (its kernel tables) is built once through
+# the codec's factory and cached; a repair plan reuses the same few
+# windows for a whole shard.  The key is the matrix alone: every codec's
+# factory is `CudaGFMatrix`, which depends on C only and copies its
+# tables to each card at first use.  The lock covers the check-build-store:
+# execute_plan applies from its fetch pool's threads and the caller's at
+# once.
+_APPLY_CACHE: dict = {}
+_APPLY_CACHE_MAX = 64
+_APPLY_LOCK = threading.Lock()
+
+
+def apply_matrix(codec, C: np.ndarray, stack: np.ndarray) -> np.ndarray:
+    """out[r, n] = C[r, j] @ stack[j, n] over GF(2^8), host bytes in and
+    out: the partial-sum apply of the reduced-read repair path.
+
+    The [j, n] stack is packed into a pinned host buffer, copied to the
+    card into rows 16 bytes apart (`rows.device_empty`, which the kernel
+    reads in place), applied by K1, and brought back after the dispatch's
+    event, on whichever thread calls.  On the CPU the plain version
+    computes it."""
+    C = np.ascontiguousarray(C, dtype=np.uint8)
+    key = (C.shape, C.tobytes())
+    with _APPLY_LOCK:
+        mat = _APPLY_CACHE.get(key)
+        if mat is None:
+            if len(_APPLY_CACHE) >= _APPLY_CACHE_MAX:
+                _APPLY_CACHE.clear()
+            mat = _APPLY_CACHE[key] = codec._factory(C)
+    host = host_empty(stack.shape, codec.device)
+    host.numpy()[...] = stack
+    return materialize(_dispatch(codec, mat, host, None))
 
 
 def parity_mismatch(codec, data: np.ndarray,

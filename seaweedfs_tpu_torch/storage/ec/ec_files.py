@@ -8,6 +8,7 @@ the device.  The files are byte-identical to the reference package's.
 
   write_ec_files      <- WriteEcFiles (ec_encoder.go:56)
   rebuild_ec_files    <- RebuildEcFiles (ec_encoder.go:91)
+  rebuild_ec_reduced  reduced-read repair of lost shards (ops/regen.py)
   write_sorted_ecx    <- WriteSortedFileFromIdx (ec_encoder.go:27)
   find_dat_file_size  <- FindDatFileSize (ec_decoder.go:48)
 
@@ -28,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from seaweedfs_tpu_torch.ops import codec_base, codecs
+from seaweedfs_tpu_torch.ops import codec_base, codecs, regen
 from seaweedfs_tpu_torch.ops.dispatch import (
     dispatch_parity as _dispatch_parity,
     device_empty as _device_empty,
@@ -568,6 +569,120 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
                 with contextlib.suppress(OSError):
                     os.remove(p_)
     return missing
+
+
+def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
+                       fetch_partial, *, d: int | None = None,
+                       stats: dict | None = None, device=None) -> dict:
+    """Reduced-read rebuild of the `lost` shards: instead of copying k
+    full survivor shards here, each remote helper node ships one
+    XOR-combinable partial product per range (ops/regen.py), so repair
+    bytes per remote node drop to one shard range per lost shard, and the
+    output is byte-identical to a full decode.
+
+    `groups` lists the REMOTE helper nodes: {"node": name, "shards":
+    [ids], "locality": class}.  The local survivor group is the shard
+    files next to `base`, and each rebuilt shard joins it for the next
+    pass.  `fetch_partial(group, shards, coeff_rows, offset, size) ->
+    bytes` is the caller's hop to a helper; its failures raise
+    regen.HelperDied and trigger a re-plan with a substitute survivor.
+    Each lost shard builds under a `.tmp` name and commits by rename, so
+    a dead helper or a crash never leaves a partial shard visible.
+
+    Chunks are DEFAULT_BATCH bytes and segments align to
+    regen.DEFAULT_SEG_ALIGN, both read at call time.
+
+    Returns the accounting: measured helper bytes per node and locality
+    class, the completed plans' predictions (with the naive copy-then-
+    rebuild cost, `naive_remote`), replans and dead helpers.  `stats`,
+    when a dict, also gets mode, bytes, codec, reconstruct_s, wall_s and
+    the repairing thread's stage seconds (regen.execute_plan)."""
+    spec = codecs.parse_tag((read_vif(base) or {}).get("codec"))
+    codec = _get_codec(device, spec.tag)
+    lost = sorted(set(lost))
+    local_fds: dict[int, int] = {}
+    stats = stats if stats is not None else {}
+    stats.setdefault("mode", "reduced")
+    t_wall = time.perf_counter()
+    try:
+        shard_size = 0
+        for i in range(spec.n):
+            p_ = base + layout.to_ext(i)
+            if i not in lost and os.path.exists(p_):
+                local_fds[i] = os.open(p_, os.O_RDONLY)
+                shard_size = max(shard_size, os.path.getsize(p_))
+        if shard_size <= 0:
+            raise ValueError(f"cannot size shards of {base}")
+        stats["bytes"] = shard_size * len(lost)
+        stats["codec"] = spec.tag
+
+        def read_local(sid: int, off: int, n: int) -> bytes | None:
+            fd = local_fds.get(sid)
+            if fd is None:
+                return None
+            try:
+                return os.pread(fd, n, off)
+            except OSError:
+                return None
+
+        remote_groups = [
+            regen.HelperGroup(node=g["node"],
+                              shards=tuple(int(s) for s in g["shards"]
+                                           if int(s) not in lost),
+                              locality=int(g.get("locality", 3)))
+            for g in groups if g.get("shards")]
+        predicted: dict = {"per_node": {}, "by_locality": {},
+                           "remote": 0, "local": 0}
+        for sid in lost:
+            tmp = base + layout.to_ext(sid) + ".tmp"
+            out_fd = os.open(tmp, os.O_RDWR | os.O_CREAT, 0o644)
+            committed = False
+            try:
+                def sink(off: int, row: np.ndarray, fd: int = out_fd) -> None:
+                    _pwrite_all(fd, row, off)
+
+                local_group = regen.HelperGroup(
+                    node="", shards=tuple(sorted(local_fds)), locality=0)
+                with _Timer(stats, "reconstruct_s"):
+                    plan = regen.repair_shard(
+                        codec.code, codec, sid,
+                        [local_group] + remote_groups, shard_size,
+                        read_local, fetch_partial, sink,
+                        d=d, batch_size=DEFAULT_BATCH,
+                        align=regen.DEFAULT_SEG_ALIGN, stats=stats)
+                os.ftruncate(out_fd, shard_size)
+                os.close(out_fd)
+                out_fd = -1
+                os.replace(tmp, base + layout.to_ext(sid))
+                committed = True
+                pred = plan.predicted_bytes()
+                for key in ("remote", "local"):
+                    predicted[key] += pred[key]
+                for dim in ("per_node", "by_locality"):
+                    for k_, v in pred[dim].items():
+                        predicted[dim][k_] = predicted[dim].get(k_, 0) + v
+                predicted["naive_remote"] = \
+                    predicted.get("naive_remote", 0) + \
+                    plan.naive_remote_bytes(len(local_group.shards))
+                # the rebuilt shard is a local survivor for the next pass
+                local_fds[sid] = os.open(base + layout.to_ext(sid),
+                                         os.O_RDONLY)
+            finally:
+                if out_fd >= 0:
+                    os.close(out_fd)
+                if not committed:
+                    with contextlib.suppress(OSError):
+                        os.remove(tmp)
+        stats["wall_s"] = time.perf_counter() - t_wall
+        return {"rebuilt": lost, "shard_size": shard_size,
+                "helper_bytes": stats.get("helper_bytes", {}),
+                "by_locality": stats.get("by_locality", {}),
+                "predicted": predicted,
+                "replans": stats.get("replans", 0),
+                "dead_helpers": stats.get("dead_helpers", [])}
+    finally:
+        for fd in local_fds.values():
+            os.close(fd)
 
 
 def write_sorted_ecx(idx_path: str, ecx_path: str | None = None) -> None:

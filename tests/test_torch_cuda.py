@@ -155,3 +155,65 @@ def test_cuda_codec_any_width(card):
                              for i in range(14) if i not in lost})
     for i in lost:
         assert np.array_equal(out[i].cpu().numpy(), want[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 4097, (1 << 20) + 5])
+@pytest.mark.parametrize("j", [1, 3, 5, 10])
+def test_cuda_apply_matrix_equals_cpu(card, j, n):
+    """Repair's partial apply on the card: [1, j] @ [j, n] in one K1
+    launch on rows it reads in place, equal to the CPU's apply."""
+    C = rs.get_code(10, 4).decode_matrix([0, 1, 2, 4, 5, 6, 7, 8, 9, 10],
+                                         [3])[:, :j]
+    stack = np.random.default_rng(j * 7919 + n).integers(
+        0, 256, (j, n), dtype=np.uint8)
+    before, staged = dict(gf_cuda.LAUNCHES), dict(gf_cuda.STAGED)
+    got = dispatch.apply_matrix(gf_cuda.get_codec(10, 4, device=card), C,
+                                stack)
+    assert gf_cuda.LAUNCHES["gf_apply"] == before["gf_apply"] + 1
+    assert gf_cuda.STAGED == staged
+    want = dispatch.apply_matrix(gf_cuda.get_codec(10, 4, device="cpu"), C,
+                                 stack)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, gf.gf_matmul(C, stack))
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_ec_reduced_equals_cpu(card, tmp_path, monkeypatch):
+    """rebuild_ec_reduced on the card writes the files and returns the
+    result dict it does on the CPU: two losses in sequence over 10 000 B
+    shards at 1 KiB segments and 4 KiB batches (ragged ranges, so the
+    kernel's byte tail runs), the helpers' partials on the same device."""
+    from seaweedfs_tpu_torch.ops import regen
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    monkeypatch.setattr(ec_files, "DEFAULT_BATCH", 4096)
+    monkeypatch.setattr(regen, "DEFAULT_SEG_ALIGN", 1024)
+    code = rs.get_code(10, 4)
+    data = np.random.default_rng(12).integers(0, 256, (10, 10_000),
+                                              dtype=np.uint8)
+    full = np.concatenate([data, gf.gf_matmul(code.parity_matrix, data)])
+    lost = [1, 12]
+    groups = [{"node": "a:1", "shards": [6, 7, 8], "locality": 1},
+              {"node": "b:2", "shards": [9, 10, 11, 13], "locality": 3}]
+    results, files = {}, {}
+    for dev in ("cpu", "cuda"):
+        d = tmp_path / dev
+        d.mkdir()
+        for s in (0, 2, 3, 4, 5):
+            (d / ("4" + layout.to_ext(s))).write_bytes(full[s].tobytes())
+        codec = gf_cuda.get_codec(10, 4, device=dev)
+
+        def fetch(group, sids, coeff, off, n, codec=codec):
+            rows = np.stack([full[s][off:off + n] for s in sids])
+            return dispatch.apply_matrix(codec, coeff, rows).tobytes()
+        before, staged = dict(gf_cuda.LAUNCHES), dict(gf_cuda.STAGED)
+        results[dev] = ec_files.rebuild_ec_reduced(
+            str(d / "4"), lost, groups, fetch, device=dev)
+        launched = gf_cuda.LAUNCHES["gf_apply"] - before["gf_apply"]
+        assert (launched > 0) == (dev == "cuda")
+        assert gf_cuda.STAGED == staged
+        files[dev] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    assert results["cpu"] == results["cuda"]
+    assert files["cpu"] == files["cuda"]
+    for s in lost:
+        assert files["cuda"]["4" + layout.to_ext(s)] == full[s].tobytes()

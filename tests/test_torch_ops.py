@@ -23,6 +23,7 @@ from seaweedfs_tpu.ops import gfmat_jax, pallas_gf
 
 from seaweedfs_tpu_torch.models import rs
 from seaweedfs_tpu_torch.ops import codec_base, codecs, dispatch, gf, gf_cuda
+from seaweedfs_tpu_torch.storage.ec import ec_files
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -53,12 +54,14 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 
 def test_port_path_leaves_jax_unloaded(tmp_path):
-    """Encode through the codec, convert a fleet of two volumes and scrub
-    one of them, all on the CPU, in a fresh interpreter: neither jax nor
-    the reference package gets imported."""
+    """Encode through the codec, convert a fleet of two volumes, scrub
+    one of them and repair a lost shard of it from a helper's partials,
+    all on the CPU, in a fresh interpreter: neither jax nor the reference
+    package gets imported."""
     code = ("import os, sys, numpy as np, torch\n"
             "from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume\n"
-            "from seaweedfs_tpu_torch.ops import fleet_convert, gf_cuda\n"
+            "from seaweedfs_tpu_torch.ops import dispatch, fleet_convert, "
+            "gf_cuda\n"
             "from seaweedfs_tpu_torch.maintenance import scrub\n"
             "c = gf_cuda.get_codec(10, 4, device='cpu')\n"
             "c.encode_parity(torch.zeros((10, 16), dtype=torch.uint8))\n"
@@ -72,6 +75,21 @@ def test_port_path_leaves_jax_unloaded(tmp_path):
             "ev = ec_volume.EcVolume(bases[0], 1000, 100, device='cpu')\n"
             "scrub.DEFAULT_WINDOW = 512\n"
             "assert scrub.syndrome_scan(ev) == []\n"
+            "ev.close()\n"
+            "b = bases[0]\n"
+            "want = open(b + '.ec03', 'rb').read()\n"
+            "os.remove(b + '.ec03')\n"
+            "held = {s: np.fromfile(b + '.ec%02d' % s, np.uint8) "
+            "for s in (10, 11, 12, 13)}\n"
+            "for s in held:\n"
+            "    os.remove(b + '.ec%02d' % s)\n"
+            "def fetch(group, sids, coeff, off, n):\n"
+            "    rows = np.stack([held[s][off:off + n] for s in sids])\n"
+            "    return dispatch.apply_matrix(c, coeff, rows).tobytes()\n"
+            "r = ec_files.rebuild_ec_reduced(b, [3], [{'node': 'h', "
+            "'shards': sorted(held), 'locality': 1}], fetch, device='cpu')\n"
+            "assert r['rebuilt'] == [3] and r['helper_bytes'] == {'h': 3000}\n"
+            "assert open(b + '.ec03', 'rb').read() == want\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('seaweedfs_tpu.') for m in sys.modules), "
             "sorted(m for m in sys.modules if 'jax' in m)\n")
@@ -92,6 +110,12 @@ def test_get_codec_without_card_raises(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         codecs.make_codec("rs_10_4")
     assert gf_cuda.get_codec(10, 4, device="cpu").device.type == "cpu"
+
+
+def test_rebuild_ec_reduced_without_card_raises(tmp_path, no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ec_files.rebuild_ec_reduced(str(tmp_path / "1"), [0], [],
+                                    lambda *a: b"")
 
 
 def test_non_rs_family_is_not_ported():
