@@ -10,11 +10,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   1 build      nvcc/g++ build of seaweedfs_tpu_torch/csrc, all at once
   2 kernel     the GF(2^8) kernel against gf_apply_plain, byte for byte:
                timed at the paths' shapes (encode, rebuild, degraded
-               reads, the fleet's unit batches, repair's partials) with
-               CUDA events beside its byte bound and the plain version's
-               time; untimed at m = 1..16, k = 1..9/17/32, ragged n,
-               strided and unaligned views, and the codec on a contiguous
-               [10, 700]
+               reads, the fleet's unit batches, repair's partials, MSR's
+               [72,72] parity and [8,72] decode, LRC's [1,5] local
+               decode) with CUDA events beside its byte bound and the
+               plain version's time; untimed at m = 1..16, k =
+               1..9/17/32, m in {17, 32, 33, 72} x k in {33, 64, 72, 200}
+               (row blocks of 16), ragged n, strided and unaligned views,
+               a batched [4,72,n], and the codec on a contiguous [10, 700]
   3 write      a volume of needles (sizes uniform in 4 KB..1 MB, data from
                --seed) through Volume.append_needle
   4 encode     write_ec_files + write_sorted_ecx; sampled stripe rows, cut
@@ -45,17 +47,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                measured bytes per node against the plan's prediction and
                the stand-in's own count, K1 launches against the count
                the segment-cut rule predicts
- 10 report     {"kernels": [...]} line, the card's name and power limit,
+ 10 codecs     the phase-3 .dat (linked) encoded as lrc_10_2_2 and as
+               msr_9_16 (write_ec_files(codec_tag=...)): sampled stripe
+               rows held against the .dat (data shards) and numpy's GF
+               product of the code's parity matrix (parity shards, MSR
+               after de-interleave); degraded reads (LRC: shard 2 alone,
+               every gathered set inside its local group, then [2, 5, 11];
+               MSR: [0, 13]); rebuild_ec_files sha256-equal to the encode;
+               syndrome_scan clean, then a flip (LRC localised, MSR -1);
+               K1 launches against the count the layout and the 16-row
+               block split predict
+ 11 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
 and dropped from the page cache (posix_fadvise DONTNEED; mincore reports
 the share still resident), then "warm", right after, with those files
 cached.  Launch counts are zeroed just before phase 3 and read just after
-phase 9, so the reported launches are the paths' own; the run fails if a
-path made the kernel wrapper stage a copy of any input
+phase 9, and zeroed again just before phase 10 and read just after it,
+so the reported launches are the paths' own (their sum); the run fails if
+a path made the kernel wrapper stage a copy of any input
 (`gf_cuda.STAGED`), since each hands the kernel rows it reads in place,
-and if K2 was not launched.  After that window, two records: fleet
+and if K2 was not launched.  After those windows, two records: fleet
 against one write_ec_files per volume over the same four volumes (fleet,
 serial, serial, fleet), and rebuild_ec_files of phase 9's single loss.
 Needs one CUDA card; exits non-zero without one, and outside a checkout
@@ -110,7 +123,7 @@ def kernel_cases(seed: int):
     the main path's shapes."""
     import numpy as np
     from seaweedfs_tpu_torch.models import rs
-    from seaweedfs_tpu_torch.ops import gf_cuda
+    from seaweedfs_tpu_torch.ops import gf_cuda, lrc, msr
 
     code = rs.get_code(10, 4)
     survivors = [1, 2, 4, 5, 6, 7, 8, 9, 11, 13]
@@ -148,6 +161,32 @@ def kernel_cases(seed: int):
                        ("partial [1,2]@[2,16MiB]", slice(8, 10))):
         mat = gf_cuda.CudaGFMatrix(lost3[:, cols])
         cases.append((name, mat, (mat.k, 16 * MIB), False, True))
+    # the codecs phase's shapes: MSR(9,16) parity on one 1 MiB unit and
+    # on a 16 MiB batch (de-interleaved to 128 KiB / 2 MiB sub-rows, five
+    # row-block launches each), its whole-file decode of one shard per
+    # 16 MiB rebuild batch, and LRC's single-loss decode from its group
+    mcode = msr.get_code(9, 16)
+    mparity = gf_cuda.CudaGFMatrix(mcode.parity_matrix)
+    mrows = [r for i in range(1, 10) for r in mcode.node_rows(i)]
+    mdecode = gf_cuda.CudaGFMatrix(mcode.decode_matrix(
+        mrows, mcode.node_rows(0)))
+    # one 16-row block of the parity, alone: five launches' sum against
+    # the [72,72] apply shows what the row-block split costs
+    mblock = gf_cuda.CudaGFMatrix(mcode.parity_matrix[:16])
+    lcode = lrc.get_code(10, 2, 2)
+    llocal = gf_cuda.CudaGFMatrix(lcode.decode_matrix(
+        [i for i in range(14) if i != 2], [2]))
+    cases += [
+        ("msr parity [72,72]@[72,128KiB]", mparity, (72, MIB // 8), False,
+         True),
+        ("msr parity [72,72]@[72,2MiB]", mparity, (72, 2 * MIB), False,
+         True),
+        ("msr block [16,72]@[72,128KiB]", mblock, (72, MIB // 8), False,
+         True),
+        ("msr block [16,72]@[72,2MiB]", mblock, (72, 2 * MIB), False, True),
+        ("msr decode [8,72]@[72,2MiB]", mdecode, (72, 2 * MIB), False, True),
+        ("lrc local [1,5]@[5,16MiB]", llocal, (5, 16 * MIB), False, True),
+    ]
     cases += [(f"parity n={n}", parity, (10, n), False, False)
               for n in (1, 15, 17, 255, 4097)]
     cases += [(f"random [{m},10] n=4097", rand(m, 10), (10, 4097), False,
@@ -156,6 +195,13 @@ def kernel_cases(seed: int):
               for k in (1, 17, 32) for n in (1, 15, 17, 4097)]
     cases += [(f"random [1,{k}] n={n}", rand(1, k), (k, n), False, False)
               for k in range(2, 10) for n in (17, 4097)]
+    # past 16 rows or 32 columns (fault 3.3): row blocks of 16, k at run
+    # time, 100 KB of tables at k = 200 (past the 48 KB default)
+    cases += [(f"random [{m},{k}] n={n}", rand(m, k), (k, n), False, False)
+              for m in (17, 32, 33, 72) for k in (33, 64, 72, 200)
+              if m + k <= 256 for n in (1, 17, 4097)]
+    cases += [(f"batch [4,72,72] n={n}", mparity, (4, 72, n), True, False)
+              for n in (17, 4097)]
     return cases
 
 
@@ -210,7 +256,7 @@ def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
         rows.append(row)
         del x
     log(f"[kernel] {sum('ms' not in r for r in rows)} correctness cases "
-        "equal (m 1..16, k 1..9/17/32, ragged n)")
+        "equal (m 1..16, k 1..9/17/32; m 17..72, k 33..200; ragged n)")
     rows += views_and_codec(seed)
     torch.cuda.empty_cache()
 
@@ -239,7 +285,7 @@ def views_and_codec(seed: int) -> list[dict]:
     and the codec's encode / reconstruct on a contiguous [10, 700]."""
     import torch
     from seaweedfs_tpu_torch.models import rs
-    from seaweedfs_tpu_torch.ops import gf_cuda
+    from seaweedfs_tpu_torch.ops import gf_cuda, msr
 
     code = rs.get_code(10, 4)
     mat = gf_cuda.CudaGFMatrix(code.parity_matrix)
@@ -247,10 +293,19 @@ def views_and_codec(seed: int) -> list[dict]:
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
     wide = torch.randint(0, 256, (10, 8192), dtype=torch.uint8,
                          device="cuda", generator=g)
+    mmat = gf_cuda.CudaGFMatrix(msr.get_code(9, 16).parity_matrix)
+    mbit = mmat.bitmat.cuda()
+    mwide = torch.randint(0, 256, (72, 8192), dtype=torch.uint8,
+                          device="cuda", generator=g)
     rows = []
-    for name, x in (("strided [:, :3000] of [10,8192]", wide[:, :3000]),
-                    ("unaligned [:, 1:3001] of [10,8192]", wide[:, 1:3001])):
-        got, want = mat(x), gf_cuda.gf_apply_plain(bit, x)
+    for name, x, m, b in (
+            ("strided [:, :3000] of [10,8192]", wide[:, :3000], mat, bit),
+            ("unaligned [:, 1:3001] of [10,8192]", wide[:, 1:3001], mat, bit),
+            ("msr strided [:, :3000] of [72,8192]", mwide[:, :3000], mmat,
+             mbit),
+            ("msr unaligned [:, 1:3001] of [72,8192]", mwide[:, 1:3001],
+             mmat, mbit)):
+        got, want = m(x), gf_cuda.gf_apply_plain(b, x)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"kernel != plain at {name}")
@@ -269,21 +324,24 @@ def views_and_codec(seed: int) -> list[dict]:
                              "[10,700] != plain")
     rows.append({"case": "codec encode+reconstruct contiguous [10,700]",
                  "max_abs_err": 0})
-    log("[kernel] strided view, unaligned view and the codec at contiguous "
-        "[10,700]: equal to plain")
+    log("[kernel] strided and unaligned views ([10,k] and [72,72]) and the "
+        "codec at contiguous [10,700]: equal to plain")
     return rows
 
 
 def ptxas_report(log_text: str) -> list[str]:
     """ptxas registers, spills and shared memory of the instantiations
-    RS(10,4) runs: k = 10 with m = 1, 2, 4, and repair's partials, m = 1
-    with k at run time."""
+    the paths run: k = 10 with m = 1, 2, 4 (RS(10,4)), and k at run time
+    with m = 1 (repair's partials, LRC's local decode), 8 (an MSR decode)
+    and 16 (MSR's full row blocks)."""
     out = []
     entries = log_text.split("Compiling entry function")
     for label, needle in (("M=1,K=10", "gf_apply_kernelILi1ELi10E"),
                           ("M=2,K=10", "gf_apply_kernelILi2ELi10E"),
                           ("M=4,K=10", "gf_apply_kernelILi4ELi10E"),
-                          ("M=1,K=any", "gf_apply_kernelILi1ELi0E")):
+                          ("M=1,K=any", "gf_apply_kernelILi1ELi0E"),
+                          ("M=8,K=any", "gf_apply_kernelILi8ELi0E"),
+                          ("M=16,K=any", "gf_apply_kernelILi16ELi0E")):
         for e in entries:
             if needle in e.split("\n", 1)[0]:
                 facts = [ln.split(":", 1)[-1].strip() for ln in e.splitlines()
@@ -324,29 +382,36 @@ def build_volume(vdir: str, seed: int, target: int):
     return v.dat_path, expect, blob
 
 
-def stripe_rows(dat_size: int, large_block: int, small_block: int):
+def stripe_rows(dat_size: int, large_block: int, small_block: int,
+                k: int = 10):
     """(dat offset, block, shard offset) of every stripe row of a volume,
-    by the layout's definition: rows of ten large blocks while more than
-    one such row remains, then rows of ten small blocks to the end."""
+    by the layout's definition: rows of k large blocks while more than
+    one such row remains, then rows of k small blocks to the end."""
     rows, start, off = [], 0, 0
-    while dat_size - start > 10 * large_block:
+    while dat_size - start > k * large_block:
         rows.append((start, large_block, off))
-        start, off = start + 10 * large_block, off + large_block
+        start, off = start + k * large_block, off + large_block
     while start < dat_size:
         rows.append((start, small_block, off))
-        start, off = start + 10 * small_block, off + small_block
+        start, off = start + k * small_block, off + small_block
     return rows
 
 
 def predict_units(dat_size: int, large_block: int, small_block: int,
-                  batch: int = 16 * MIB) -> int:
+                  batch: int = 16 * MIB, k: int = 10) -> int:
     """Units of a volume that carry data: each stripe row cut into columns
     min(batch, block) wide, a column counting when its first data block
     holds .dat bytes."""
     return sum(start + col < dat_size
                for start, block, _ in stripe_rows(dat_size, large_block,
-                                                  small_block)
+                                                  small_block, k)
                for col in range(0, block, min(batch, block)))
+
+
+def row_blocks(rows: int) -> int:
+    """Kernel launches of one apply of a matrix with `rows` rows: one per
+    block of at most 16 rows, the kernel's largest m."""
+    return -(-rows // 16)
 
 
 def sample_rows(n: int, k: int, seed: int) -> list[int]:
@@ -891,6 +956,275 @@ def phase_repair(vdir: str, base: str, hashes: list[str],
     return runs
 
 
+# phase 10: (tag, loss sets read in turn, the data shard flipped for scrub)
+CODEC_RUNS = (("lrc_10_2_2", ([2], [2, 5, 11]), 7),
+              ("msr_9_16", ([0, 13],), 4))
+CODEC_COLS = 64 * 1024  # parity bytes checked per sampled stripe row
+
+
+def check_codec_stripes(base: str, dat_path: str, spec, parity, rows,
+                        seed: int) -> int:
+    """Hold an LRC or MSR shard set against its .dat: each shard's size
+    against `layout.shard_file_size` at the code's k; for each stripe row
+    in `rows` (indices into `stripe_rows`), the k data shards against the
+    .dat bytes, zero past its end, and the m parity shards over a random
+    CODEC_COLS-wide window against numpy's GF(2^8) product of the code's
+    parity matrix (MSR: on the window's de-interleaved sub-rows, then
+    interleaved back), which shares nothing with the kernel.  Returns the
+    number of rows checked."""
+    import numpy as np
+    from seaweedfs_tpu_torch.ops import gf
+    from seaweedfs_tpu_torch.storage.ec import layout
+
+    large, small = layout.LARGE_BLOCK_SIZE, layout.SMALL_BLOCK_SIZE
+    k, m, a = spec.k, spec.m, spec.alpha
+    dat_size = os.path.getsize(dat_path)
+    stripes = stripe_rows(dat_size, large, small, k)
+    size = layout.shard_file_size(dat_size, large, small, data_shards=k)
+    if size != sum(block for _, block, _ in stripes):
+        raise AssertionError(f"{base}: layout.shard_file_size {size} != "
+                             f"the rows' {stripes[-1:]}")
+    rng = np.random.default_rng(seed)
+    fds = [os.open(p, os.O_RDONLY) for p in
+           [base + layout.to_ext(i) for i in range(spec.n)] + [dat_path]]
+    try:
+        for i, fd in enumerate(fds[:-1]):
+            if os.fstat(fd).st_size != size:
+                raise AssertionError(f"{base} shard {i}: "
+                                     f"{os.fstat(fd).st_size} B, layout "
+                                     f"says {size}")
+        for r in rows:
+            start, block, off = stripes[r]
+            data = np.zeros((k, block), np.uint8)
+            for j in range(k):
+                lo = start + j * block
+                n = max(0, min(block, dat_size - lo))
+                data[j, :n] = np.frombuffer(os.pread(fds[-1], n, lo),
+                                            np.uint8)
+                got = np.frombuffer(os.pread(fds[j], block, off), np.uint8)
+                if not np.array_equal(got, data[j]):
+                    raise AssertionError(f"{base} data shard {j} differs "
+                                         f"in stripe row {r}")
+            w = min(CODEC_COLS, block)
+            c0 = int(rng.integers(0, (block - w) // a + 1)) * a
+            x = data[:, c0:c0 + w]
+            if a > 1:
+                virt = x.reshape(k, w // a, a).transpose(0, 2, 1).reshape(
+                    k * a, w // a)
+                want = gf.gf_matmul(parity, virt).reshape(
+                    m, a, w // a).transpose(0, 2, 1).reshape(m, w)
+            else:
+                want = gf.gf_matmul(parity, x)
+            for i in range(m):
+                got = np.frombuffer(os.pread(fds[k + i], w, off + c0),
+                                    np.uint8)
+                if not np.array_equal(got, want[i]):
+                    raise AssertionError(
+                        f"{base} parity shard {k + i} differs in stripe "
+                        f"row {r}, bytes [{c0}, {c0 + w}) of the block")
+    finally:
+        for fd in fds:
+            os.close(fd)
+    return len(rows)
+
+
+def touching_needles(ev, expect, lost) -> list[int]:
+    """Needles with a byte on one of the `lost` shards, by the layout."""
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    out = []
+    for nid in expect:
+        off, size = ev.find_needle(nid)
+        ivs = layout.locate_data(ev.large_block, ev.small_block, ev.dat_size,
+                                 off, t.actual_size(size, ev.version),
+                                 data_shards=ev.spec.k)
+        if any(iv.to_shard_id_and_offset()[0] in lost for iv in ivs):
+            out.append(nid)
+    return out
+
+
+def phase_codecs(vdir: str, dat_path: str, expect: dict, blob: bytes,
+                 seed: int, launches: dict) -> dict:
+    """Phase 10: the phase-3 .dat encoded, read degraded, rebuilt and
+    scrubbed as an lrc_10_2_2 and as an msr_9_16 volume, each step's K1
+    launches against the count the layout and the row-block split
+    predict.  Each shard set is deleted after its checks."""
+    from seaweedfs_tpu_torch.maintenance import scrub
+    from seaweedfs_tpu_torch.ops import codecs, lrc
+    from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume, layout
+
+    large, small = layout.LARGE_BLOCK_SIZE, layout.SMALL_BLOCK_SIZE
+    batch = ec_files.DEFAULT_BATCH
+    dat_size = os.path.getsize(dat_path)
+    out = {}
+    for tag, loss_sets, flipped in CODEC_RUNS:
+        spec = codecs.parse_tag(tag)
+        code = codecs.make_codec(tag).code  # MSR: the inner [72, 72] code
+        a = spec.alpha
+        cdir = os.path.join(vdir, "codec_" + tag)
+        os.makedirs(cdir)
+        base = os.path.join(cdir, "1")
+        os.link(dat_path, base + ".dat")
+        os.link(dat_path[: -len(".dat")] + ".idx", base + ".idx")
+        shard = [base + layout.to_ext(i) for i in range(spec.n)]
+        rec: dict = {}
+
+        # encode: one apply of the [m*a, k*a] parity matrix per unit
+        units = predict_units(dat_size, large, small, k=spec.k)
+        want = units * row_blocks(spec.m * a)
+        st: dict = {}
+        before = launches["gf_apply"]
+        t0 = time.perf_counter()
+        ec_files.write_ec_files(base, codec_tag=tag, stats=st)
+        ec_files.write_sorted_ecx(base + ".idx")
+        dt = time.perf_counter() - t0
+        got = launches["gf_apply"] - before
+        if got != want:
+            raise AssertionError(f"{tag} encode: {got} K1 launches, the "
+                                 f"layout predicts {units} units x "
+                                 f"{row_blocks(spec.m * a)} row blocks")
+        if (ec_files.read_vif(base) or {}).get("codec") != tag:
+            raise AssertionError(f"{tag}: .vif {ec_files.read_vif(base)}")
+        n_rows = len(stripe_rows(dat_size, large, small, spec.k))
+        checked = check_codec_stripes(base, dat_path, spec,
+                                      code.parity_matrix,
+                                      sample_rows(n_rows, 8, seed + 8),
+                                      seed + 9)
+        hashes = [sha256(p) for p in shard]
+        rec["encode"] = {"s": dt, "gbps": dat_size / dt / 1e9,
+                         "launches": got, "units": units,
+                         "rows_checked": checked, "sha256": hashes,
+                         "shard_bytes": os.path.getsize(shard[0]),
+                         "stages_s": {k_: v for k_, v in st.items()
+                                      if k_.endswith("_s")}}
+        log(f"[codecs {tag} encode] {dat_size / dt / 1e9:.3f} GB/s "
+            f"({dt:.2f} s), {got} K1 launches = {units} units x "
+            f"{row_blocks(spec.m * a)} row blocks; {checked} of {n_rows} "
+            f"stripe rows == .dat and numpy's parity; {spec.n} shards of "
+            f"{os.path.getsize(shard[0])} B")
+
+        # degraded reads: one decode apply (of at most 16 rows: one
+        # launch) per needle with a byte on a lost shard
+        gone: list[int] = []
+        for lost in loss_sets:
+            for i in lost:
+                if i not in gone:
+                    os.remove(shard[i])
+            gone = sorted(set(gone) | set(lost))
+            ev = ec_volume.EcVolume(base)
+            gathered: list = []
+            orig = ev._gather_survivors
+
+            def spy(exclude, segs, want=None, need=None, orig=orig,
+                    gathered=gathered):
+                rows = orig(exclude, segs, want=want, need=need)
+                gathered.append(sorted(rows))
+                return rows
+            ev._gather_survivors = spy
+            try:
+                reads = touching_needles(ev, expect, set(gone))
+                before = launches["gf_apply"]
+                t0 = time.perf_counter()
+                for nid in reads:
+                    n = ev.read_needle(nid)  # parses with the CRC checked
+                    cookie, lo, hi = expect[nid]
+                    if n.cookie != cookie or n.data != blob[lo:hi]:
+                        raise AssertionError(f"{tag} degraded read of "
+                                             f"needle {nid} differs")
+                dt = time.perf_counter() - t0
+            finally:
+                ev.close()
+            got = launches["gf_apply"] - before
+            if not reads or got != len(reads) or len(gathered) != len(reads):
+                raise AssertionError(f"{tag} lost {gone}: {len(reads)} reads, "
+                                     f"{got} K1 launches, {len(gathered)} "
+                                     f"gathers; want one each per read")
+            widest = max(len(g) for g in gathered)
+            if spec.family == "lrc" and len(gone) == 1:
+                lc = lrc.get_code(*spec.params)
+                members = set(lc.group_members(lc.group_of(gone[0])))
+                if widest > lc.r + 1 or \
+                        any(not set(g) <= members for g in gathered):
+                    raise AssertionError(f"{tag} lost {gone}: a read left "
+                                         f"group {sorted(members)}")
+            rec[f"degraded_{'_'.join(map(str, gone))}"] = {
+                "reads": len(reads), "s": dt, "reads_per_s": len(reads) / dt,
+                "launches": got, "widest_gather": widest}
+            log(f"[codecs {tag} degraded] lost {gone}: {len(reads)} needles "
+                f"touching them equal, {len(reads) / dt:.1f} reads/s, "
+                f"{got} K1 launches, at most {widest} shards gathered")
+
+        # rebuild: one decode apply per batch of the shard
+        size = os.path.getsize(shard[next(i for i in range(spec.n)
+                                          if i not in gone)])
+        want = -(-size // batch) * row_blocks(len(gone) * a)
+        st = {}
+        before = launches["gf_apply"]
+        t0 = time.perf_counter()
+        rebuilt = ec_files.rebuild_ec_files(base, stats=st)
+        dt = time.perf_counter() - t0
+        got = launches["gf_apply"] - before
+        if sorted(rebuilt) != gone or got != want or st["codec"] != tag:
+            raise AssertionError(f"{tag} rebuilt {rebuilt} in {got} K1 "
+                                 f"launches ({st}); want {gone} in {want}")
+        for i in gone:
+            if sha256(shard[i]) != hashes[i]:
+                raise AssertionError(f"{tag} rebuilt shard {i} differs")
+        rec["rebuild"] = {"s": dt, "launches": got,
+                          "read_gbps": st["bytes"] / dt / 1e9,
+                          "rebuilt_gbps": len(gone) * size / dt / 1e9}
+        log(f"[codecs {tag} rebuild] {gone} sha256-equal in {dt:.3f} s: "
+            f"{st['bytes'] / dt / 1e9:.3f} GB/s survivors read, {got} K1 "
+            f"launches")
+
+        # scrub: one parity apply per window; a flip found, localised
+        # only where a = 1
+        W = scrub.DEFAULT_WINDOW - scrub.DEFAULT_WINDOW % a
+        nwin = -(-size // W)
+        w = nwin // 3
+        passes = {}
+        ev = ec_volume.EcVolume(base)
+        try:
+            for label in ("clean", f"flip in {flipped}"):
+                off = w * W + 123
+                if label != "clean":
+                    flip(shard[flipped], off)
+                st = {}
+                before = launches["gf_apply"]
+                t0 = time.perf_counter()
+                try:
+                    found = scrub.syndrome_scan(ev, st)
+                finally:
+                    if label != "clean":
+                        flip(shard[flipped], off)
+                dt = time.perf_counter() - t0
+                got = launches["gf_apply"] - before
+                want = st.get("windows", 0) * row_blocks(spec.m * a)
+                if st.get("windows") != nwin or got != want:
+                    raise AssertionError(f"{tag} scrub {label}: {st}, {got} "
+                                         f"K1 launches; want {nwin} windows, "
+                                         f"{want} launches")
+                expect_found = [] if label == "clean" else [{
+                    "shard": flipped if a == 1 else -1, "offset": w * W,
+                    "size": min(W, size - w * W)}]
+                if [{k_: f[k_] for k_ in ("shard", "offset", "size")}
+                        for f in found] != expect_found or \
+                        any(not 1 <= f["columns"] <= a for f in found):
+                    raise AssertionError(f"{tag} scrub {label}: {found}")
+                passes[label] = {"s": dt, "gbps": st["bytes"] / dt / 1e9,
+                                 "windows": nwin, "launches": got,
+                                 "found": found}
+                log(f"[codecs {tag} scrub {label}] "
+                    f"{st['bytes'] / dt / 1e9:.3f} GB/s, {nwin} windows, "
+                    f"{got} K1 launches, {found}")
+        finally:
+            ev.close()
+        rec["scrub"] = passes
+        shutil.rmtree(cdir)
+        out[tag] = rec
+    return out
+
+
 def rebuild_record(vdir: str, base: str, hashes: list[str]) -> dict:
     """rebuild_ec_files of phase 9's single loss [3] from the 13 other
     shards: a record of its wall time, outside the counted window."""
@@ -1116,14 +1450,29 @@ def main(argv=None) -> int:
         # 9 repair
         phases["repair"] = phase_repair(vdir, base, hashes, launches)
 
-        path_launches = dict(launches)
+        rs_launches = dict(launches)
         staged = dict(gf_cuda.STAGED)
         if any(staged.values()):
             raise AssertionError(f"a path made the kernel wrapper stage "
                                  f"copies of its input: {staged}")
-        if not path_launches["gf_apply_batch"]:
+        if not rs_launches["gf_apply_batch"]:
             raise AssertionError("no path launched K2 (gf_apply_batch)")
-        log(f"[path] launches {path_launches}, staged copies {staged}")
+        log(f"[path] phases 3-9: launches {rs_launches}, staged copies "
+            f"{staged}")
+
+        # 10 codecs, counted on their own
+        gf_cuda.reset_launches()
+        phases["codecs"] = phase_codecs(vdir, dat_path, expect, blob,
+                                        args.seed, launches)
+        codec_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the codecs phase made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        log(f"[path] phase 10: launches {codec_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: rs_launches[k] + codec_launches[k]
+                         for k in rs_launches}
 
         # records, outside the counted window
         phases["fleet_record"] = fleet_record(vdir, srcs)
@@ -1131,7 +1480,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 10 report
+    # 11 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -38,10 +38,21 @@
 //    and degraded-read shapes) is compiled with k fixed, so a thread issues
 //    all ten 16-byte row loads of its first chunk before it even waits for
 //    the tables; blocks are 128 threads, one 16-byte chunk each, so
-//    n = 512 KiB already gives every SM a block.  Any other (m <= 16,
-//    k <= 32) runs one generic instantiation per m with k at run time.
-// 4. cudaFuncSetAttribute before every launch.  The tables need at most
-//    16 KB of static shared memory, under the 48 KB default: no attribute.
+//    n = 512 KiB already gives every SM a block.  Any other shape runs one
+//    generic instantiation per m (m <= 16) with k at run time (k <= 255).
+// 4. cudaFuncSetAttribute before every launch.  k = 10's tables are static
+//    shared memory.  The generic instantiation keeps its M * k tables in
+//    dynamic shared memory (16 x 72 x 32 B = 36.9 KB for an MSR(9,16)
+//    row block, up to 130.6 KB at k = 255); past the 48 KB default the
+//    attribute is raised once per instantiation and card, then cached.
+//
+// Any [m, k] (k + m <= 256, as a GF(2^8) code allows): the wrapper
+// (ops/gf_cuda.py) cuts C into row blocks of at most 16 rows and makes one
+// launch per block, each writing its own output rows.  So a [72, 72] apply
+// (MSR(9,16) parity) is 5 launches and reads its input 5 times: (5 x 72 +
+// 72) x n bytes against the (72 + 72) x n of the bound.  One launch that
+// loops over the row blocks inside the kernel would read it once; that is
+// later work.
 //
 // The other form considered, one output row's k tables in registers with
 // the selectors made anew for each row, was measured on the card and lost
@@ -52,11 +63,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxM = 16;
-constexpr int kMaxK = 32;
+constexpr int kMaxK = 255;  // k + m <= 256 in GF(2^8)
+constexpr int kDefaultSmem = 48 * 1024;  // without the attribute
 constexpr int64_t kMaxBlocks = 1 << 20;  // a grid-stride loop goes beyond
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
@@ -163,7 +177,10 @@ gf_apply_kernel(const uint4* __restrict__ tables, int k,
                 const uint8_t* __restrict__ x, int64_t x_unit, int64_t x_row,
                 uint8_t* __restrict__ out, int64_t o_unit, int64_t o_row,
                 int64_t n) {
-  __shared__ Coef tab[M * (K ? K : kMaxK)];
+  // k fixed: static tables; k at run time: M * k Coefs of dynamic memory
+  __shared__ Coef tab_static[K ? M * K : 1];
+  extern __shared__ uint4 tab_dynamic[];
+  Coef* tab = K ? tab_static : reinterpret_cast<Coef*>(tab_dynamic);
   const int kk = K ? K : k;
   const uint8_t* xu = x + (int64_t)blockIdx.y * x_unit;
   uint8_t* ou = out + (int64_t)blockIdx.y * o_unit;
@@ -218,13 +235,38 @@ int64_t grid_blocks(int64_t n) {
   return blocks < kMaxBlocks ? blocks : kMaxBlocks;
 }
 
+// Lets gf_apply_kernel<M, 0> take the dynamic shared memory of k = kMaxK
+// on the current card; raised once per instantiation and card (a bit per
+// device id; the few threads that may race here all set the same value).
+template <int M>
+cudaError_t allow_dynamic_smem() {
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(gf_apply_kernel<M, 0>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(M * kMaxK * sizeof(Coef)));
+  if (err == cudaSuccess && bit) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
 template <int M, int K>
 cudaError_t launch(const uint4* tables, int k, const uint8_t* x,
                    int64_t x_unit, int64_t x_row, uint8_t* out,
                    int64_t o_unit, int64_t o_row, int64_t n, int units,
                    cudaStream_t stream) {
   const dim3 grid((unsigned)grid_blocks(n), (unsigned)units);
-  gf_apply_kernel<M, K><<<grid, kThreads, 0, stream>>>(
+  const size_t smem = K ? 0 : (size_t)M * k * sizeof(Coef);
+  if constexpr (K == 0) {
+    if (smem + sizeof(Coef) > (size_t)kDefaultSmem) {  // + the static one
+      const cudaError_t err = allow_dynamic_smem<M>();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  gf_apply_kernel<M, K><<<grid, kThreads, smem, stream>>>(
       tables, k, x, x_unit, x_row, out, o_unit, o_row, n);
   return cudaGetLastError();
 }
@@ -235,7 +277,8 @@ cudaError_t launch(const uint4* tables, int k, const uint8_t* x,
 // the device, (lo[16], hi[16]) per coefficient: lo[x] = C[i,j] * x and
 // hi[x] = C[i,j] * (x << 4).  x: units x k rows of n bytes at the given
 // byte strides; out: units x m rows likewise; both 16-byte aligned.
-// m <= 16, k <= 32.  Launches on `stream` and does not synchronise.
+// m <= 16 (one row block of a larger C), k <= 255.  Launches on `stream`
+// and does not synchronise.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int gf_apply_u8(const void* tables, int m, int k, const void* x,
                            int64_t x_unit, int64_t x_row, void* out,

@@ -1,14 +1,17 @@
 """Syndrome scrub of EC volumes: find silent corruption before a client does.
 
-Counterpart of the EC half of `seaweedfs_tpu/maintenance/scrub.py`.  RS
-parity verification is a batched GF(2^8) product: each scrub window stacks
+Counterpart of the EC half of `seaweedfs_tpu/maintenance/scrub.py`.
+Parity verification is a batched GF(2^8) product: each scrub window stacks
 the k data-shard stripes into one [k, W] matrix, recomputes parity through
 the same dispatch seam the encoder uses (`dispatch.parity_mismatch`, one
-launch of the kernel K1 on the card per window), and compares it with the
-stored parity shards.  A mismatch is localised to the single corrupt
-shard by a per-candidate consistency test on the mismatching byte columns
-(RS decodes column by column, so only those columns are re-derived, with
-the numpy reference code).
+apply of the kernel K1 on the card per window, one launch per row block of
+the parity matrix), and compares it with the stored parity shards.  A
+mismatch is localised to the single corrupt shard by a per-candidate
+consistency test on the mismatching byte columns (RS and LRC decode column
+by column, so only those columns are re-derived, with the numpy reference
+code of the volume's own code).  MSR couples the bytes of each alpha
+block, so its windows are alpha multiples and its mismatches are found
+but not localised.
 
 The background Scrubber with its rate limiter and remote shard reader
 needs a Store and comes with the serving top (ROADMAP 1.15).
@@ -30,11 +33,13 @@ def localize_corrupt_shard(cols: np.ndarray, code) -> int | None:
     """Identify the single corrupt shard from the stored bytes at the
     mismatching byte columns.
 
-    `cols` is [n, C].  For each candidate shard, reconstruct it from the
-    other n-1 and test whether the stripe becomes consistent (all m parity
-    rows match a recompute from the data rows).  With one corrupt shard
-    exactly one candidate passes.  Returns None when zero or several pass:
-    more than one shard is corrupt in this window."""
+    `cols` is [n, C] for the volume's code (any alpha = 1 code with
+    `reconstruct_numpy` and `parity_matrix`: RS, LRC).  For each candidate
+    shard, reconstruct it from the other n-1 and test whether the stripe
+    becomes consistent (all m parity rows match a recompute from the data
+    rows).  With one corrupt shard exactly one candidate passes.  Returns
+    None when zero or several pass: more than one shard is corrupt in this
+    window."""
     passing: list[int] = []
     for cand in range(code.n):
         others = {i: cols[i] for i in range(code.n) if i != cand}
@@ -53,18 +58,20 @@ def localize_corrupt_shard(cols: np.ndarray, code) -> int | None:
 def syndrome_scan(ev, stats: dict | None = None) -> list[dict]:
     """Walk an EcVolume's shard files window by window and verify parity.
 
-    Each window reads the same [off, off+W) slice (W = DEFAULT_WINDOW) of
-    every readable shard, recomputes parity from the k data rows in one
-    dispatch on the volume's codec, and compares it with the stored parity
-    rows.  Windows where a data shard (or every parity shard) is unreadable
-    are skipped and counted.
+    Each window reads the same [off, off+W) slice (W = DEFAULT_WINDOW,
+    cut to an alpha multiple for MSR) of every readable shard, recomputes
+    parity from the k data rows in one dispatch on the volume's codec, and
+    compares it with the stored parity rows.  Windows where a data shard
+    (or every parity shard) is unreadable are skipped and counted.
 
     Returns corrupt-range dicts {shard, offset, size, columns}; shard is -1
     when the corruption could not be localised to one shard (localising
-    needs all n rows)."""
+    needs all n rows and an alpha = 1 code)."""
     codec = ev.codec
     spec = ev.spec
     window = DEFAULT_WINDOW
+    if spec.alpha > 1:
+        window = max(spec.alpha, window - window % spec.alpha)
     k, m = spec.k, spec.m
     out: list[dict] = []
     for off in range(0, ev.shard_size, window):
@@ -93,7 +100,7 @@ def syndrome_scan(ev, stats: dict | None = None) -> list[dict]:
         if bad_cols.size == 0:
             continue
         shard = -1
-        if len(rows) == spec.n:
+        if len(rows) == spec.n and spec.alpha == 1:
             sel = bad_cols[:LOCALIZE_COLS]
             loc = localize_corrupt_shard(
                 np.stack([rows[i][sel] for i in range(spec.n)]),

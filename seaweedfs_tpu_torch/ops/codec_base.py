@@ -1,10 +1,14 @@
 """Shared codec shell: encode/reconstruct orchestration over a matrix-apply
 backend, on torch tensors.
 
-Counterpart of `seaweedfs_tpu/ops/codec_base.py`.  Decode-matrix caching
-lives here once.  Any MDS code object exposing k/m/n, `parity_matrix` and
-`decode_matrix(available, wanted)` plugs in; a decode reads the first k
-sorted survivors.
+Counterpart of `seaweedfs_tpu/ops/codec_base.py`.  Survivor selection and
+decode-matrix caching live here once.  Any code object exposing k/m/n,
+`parity_matrix` and `decode_matrix(available, wanted)` plugs in: RS, LRC
+(ops/lrc.py) and the MSR inner code (ops/msr.py).  Non-MDS codes also
+expose `decode_select(available, wanted)`, which names the survivor basis
+the decode matrix's columns follow; without it a decode reads the first k
+sorted survivors (MDS).  `RSCodecBase.basis` is the one place a caller
+asks which survivors to read, and it caches the answer per pattern.
 """
 
 from __future__ import annotations
@@ -25,9 +29,13 @@ def decode_cache_cap() -> int:
         return 64
 
 
-def select_survivors(code, present) -> tuple:
-    """The survivor basis a decode matrix is built against: the first k
-    sorted survivors (MDS)."""
+def select_survivors(code, present, wanted) -> tuple:
+    """The survivor basis a decode matrix is built against: the code's
+    `decode_select` when it has one, else the MDS default of the first k
+    sorted survivors."""
+    sel = getattr(code, "decode_select", None)
+    if sel is not None:
+        return tuple(sel(sorted(present), list(wanted)))
     return tuple(sorted(present)[: code.k])
 
 
@@ -44,13 +52,27 @@ class RSCodecBase:
         self._factory = matrix_apply_factory
         self._parity = matrix_apply_factory(code.parity_matrix)
         self._decode_cache: collections.OrderedDict = collections.OrderedDict()
+        self._bases: dict = {}
+
+    def basis(self, present, wanted) -> tuple:
+        """The survivors a decode of `wanted` from `present` reads
+        (`select_survivors`: one local group for an LRC single loss),
+        cached per pattern; the cache is emptied when it passes
+        WEEDTPU_CODEC_DECODE_CACHE entries."""
+        key = (tuple(sorted(present)), tuple(wanted))
+        hit = self._bases.get(key)
+        if hit is None:
+            if len(self._bases) >= decode_cache_cap():
+                self._bases.clear()
+            hit = self._bases[key] = select_survivors(self.code, *key)
+        return hit
 
     def decoder(self, present: tuple, wanted: tuple):
         """(basis, matrix apply) for a survivor/wanted pattern: the apply
-        maps the [k, n] rows of the survivors in `basis` (the first k of
-        the sorted `present`) to the [len(wanted), n] wanted rows.
-        LRU-bounded by WEEDTPU_CODEC_DECODE_CACHE."""
-        basis = select_survivors(self.code, present)
+        maps the rows of the survivors in `basis` (`self.basis`) to the
+        [len(wanted), n] wanted rows.  LRU-bounded by
+        WEEDTPU_CODEC_DECODE_CACHE."""
+        basis = self.basis(present, wanted)
         key = (basis, wanted)
         hit = self._decode_cache.get(key)
         if hit is not None:

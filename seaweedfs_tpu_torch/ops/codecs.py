@@ -1,4 +1,4 @@
-"""Codec registry: the tag grammar, and backend builds for the RS family.
+"""Codec registry: the tag grammar, and codec builds for every family.
 
 Counterpart of `seaweedfs_tpu/ops/codecs.py`.  A volume's erasure code is
 named by a tag carried in its `.vif`:
@@ -7,16 +7,27 @@ named by a tag carried in its `.vif`:
     lrc_<k>_<l>_<g>   locally repairable, e.g. lrc_10_2_2
     msr_<k>_<d>       product-matrix regenerating, e.g. msr_9_16
 
-`parse_tag(None)` and any unknown tag resolve to the RS default.  The port
-builds codecs for the RS family only; an LRC or MSR tag parses but
-`make_codec` raises NotImplementedError (ROADMAP 1.8).
+`parse_tag(None)` and any unknown tag resolve to the RS default.
+`make_codec` builds every family over the one matrix apply the port has,
+`CudaGFMatrix` (the card's kernel, or its plain version on the CPU): RS
+and LRC are fixed GF(2^8) matrices in the `RSCodecBase` shell; MSR wraps
+that shell in its interleaving file codec (ops/msr.py).
 
-Knob: WEEDTPU_CODEC_DEFAULT (tag or family for newly encoded volumes).
+An `rs_<k>_<m>` tag builds RS(k, m).  The reference builds RS(10, 4) for
+every `rs_*` tag (its `ec_files._get_codec` takes k and m from the
+layout), so the two differ for any other RS tag; neither writes a
+readable non-10/4 RS volume (ROADMAP 3.4).
+
+Knobs: WEEDTPU_CODEC_DEFAULT (tag or family for newly encoded volumes),
+WEEDTPU_CODEC_LRC ("k,l,g" params behind the bare "lrc" family name),
+WEEDTPU_CODEC_MSR ("k,d" likewise).  Where the reference falls back to
+the default params on a malformed value, the port raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 DEFAULT_TAG = "rs_10_4"
@@ -32,6 +43,20 @@ class CodecSpec:
     n: int            # total shard files
     alpha: int        # sub-packetization (1 for rs/lrc)
     params: tuple     # family params, e.g. (10, 4) / (10, 2, 2) / (9, 16)
+
+
+def _family_params(var: str, default: str, count: int) -> tuple:
+    """The comma-separated ints a bare family name stands for.  A
+    malformed value raises: a typo must not quietly pick another code."""
+    raw = os.environ.get(var, default)
+    try:
+        params = tuple(int(v) for v in raw.split(","))
+    except ValueError:
+        params = ()
+    if len(params) != count:
+        raise ValueError(
+            f"{var}={raw!r}: want {count} comma-separated integers")
+    return params
 
 
 def _spec_rs(k: int, m: int) -> CodecSpec:
@@ -53,16 +78,17 @@ def _spec_msr(k: int, d: int) -> CodecSpec:
 def parse_tag(tag: str | None) -> CodecSpec:
     """Tag string -> CodecSpec.  None, "", bare family names and any
     unparseable/unknown tag degrade to a usable spec: a volume with no
-    codec tag is RS."""
+    codec tag is RS.  Only a malformed WEEDTPU_CODEC_LRC / _MSR behind a
+    bare family name raises."""
     if not tag:
         return parse_tag(DEFAULT_TAG)
     tag = str(tag).strip().lower()
     if tag == "rs":
         return _spec_rs(10, 4)
     if tag == "lrc":
-        return _spec_lrc(10, 2, 2)
+        return _spec_lrc(*_family_params("WEEDTPU_CODEC_LRC", "10,2,2", 3))
     if tag == "msr":
-        return _spec_msr(9, 16)
+        return _spec_msr(*_family_params("WEEDTPU_CODEC_MSR", "9,16", 2))
     parts = tag.split("_")
     try:
         if parts[0] == "rs" and len(parts) == 3:
@@ -84,11 +110,22 @@ def default_tag() -> str:
 
 
 def make_codec(tag: str | None, device=None):
-    """The codec for a tag on `device` (None: the card)."""
-    spec = parse_tag(tag)
-    if spec.family != "rs":
-        raise NotImplementedError(
-            f"codec {spec.tag}: the {spec.family.upper()} family is not "
-            f"ported yet (ROADMAP 1.8)")
+    """The codec for a tag on `device` (None: the card; raises without
+    one): RS(k, m) and LRC as `CudaRSCodec`, MSR as `MSRFileCodec` over
+    one."""
     from seaweedfs_tpu_torch.ops import gf_cuda
-    return gf_cuda.get_codec(spec.k, spec.m, device=device)
+    spec = parse_tag(tag)
+    dev = gf_cuda.resolve_device(device)
+    if spec.family == "rs":
+        return gf_cuda.get_codec(spec.k, spec.m, device=dev)
+    return _build(spec.tag, dev)
+
+
+@functools.lru_cache(maxsize=16)
+def _build(tag: str, device):
+    from seaweedfs_tpu_torch.ops import gf_cuda, lrc, msr
+    spec = parse_tag(tag)
+    if spec.family == "lrc":
+        return gf_cuda.CudaRSCodec(lrc.get_code(*spec.params), device)
+    return msr.MSRFileCodec(
+        gf_cuda.CudaRSCodec(msr.get_code(*spec.params), device))

@@ -119,6 +119,57 @@ def gf_mat_inv(A: np.ndarray) -> np.ndarray:
     return aug[:, n:].copy()
 
 
+def gf_rref(A: np.ndarray) -> tuple[np.ndarray, list[int]]:
+    """Reduced row-echelon form over GF(2^8) -> (R, pivot_columns).
+
+    Non-destructive; the pivot column list doubles as the rank."""
+    R = np.array(A, dtype=np.uint8, copy=True)
+    rows, cols = R.shape
+    pivots: list[int] = []
+    r = 0
+    for c in range(cols):
+        if r >= rows:
+            break
+        pivot = -1
+        for i in range(r, rows):
+            if R[i, c] != 0:
+                pivot = i
+                break
+        if pivot < 0:
+            continue
+        if pivot != r:
+            R[[r, pivot]] = R[[pivot, r]]
+        R[r] = GF_MUL_TABLE[gf_inv(int(R[r, c]))][R[r]]
+        for i in range(rows):
+            if i != r and R[i, c] != 0:
+                R[i] ^= GF_MUL_TABLE[int(R[i, c])][R[r]]
+        pivots.append(c)
+        r += 1
+    return R, pivots
+
+
+def gf_solve(A: np.ndarray, B: np.ndarray) -> np.ndarray | None:
+    """Solve A @ X = B over GF(2^8) for X; None when inconsistent.
+
+    A: [r, c], B: [r, w] -> X: [c, w].  Under-determined systems return
+    the particular solution with every free variable zero: the codec
+    layer uses this to express wanted shard rows as combinations of an
+    arbitrary (possibly non-square, possibly redundant) survivor row set,
+    which a plain matrix inverse cannot do for a non-MDS code like LRC."""
+    A = np.asarray(A, dtype=np.uint8)
+    B = np.asarray(B, dtype=np.uint8)
+    r, c = A.shape
+    assert B.shape[0] == r, (A.shape, B.shape)
+    R, pivots = gf_rref(np.concatenate([A, B], axis=1))
+    # a pivot landing in the B block means B has a row outside A's span
+    if any(p >= c for p in pivots):
+        return None
+    X = np.zeros((c, B.shape[1]), dtype=np.uint8)
+    for row, p in enumerate(pivots):
+        X[p] = R[row, c:]
+    return X
+
+
 def gf_mul_bitmatrix(c: int) -> np.ndarray:
     """The GF(2) 8x8 bit-matrix of 'multiply by constant c'.
 

@@ -12,7 +12,12 @@ fixed [m, k] GF(2^8) matrix C to [k, n] (`__call__`) or [U, k, n]
 - a CPU tensor goes to `gf_apply_plain`, the bit-sliced algorithm of
   `gfmat_jax.bitsliced_apply_body`: unpack bit planes, one float32 matrix
   product against the [8m, 8k] 0/1 lift of C (exact: every sum is at most
-  8k <= 256 < 2^24), keep the parity bit, repack.
+  8k < 2^11), keep the parity bit, repack.
+
+C may have any shape a GF(2^8) code gives it (k + m <= 256).  The kernel
+takes at most 16 output rows per launch, so the wrapper cuts C into row
+blocks of up to 16 rows, one launch each (a [72, 72] MSR(9,16) apply is
+five launches).
 
 The two are different algorithms, so agreement between them is evidence.
 There is no fallback between them: a tensor on any other device raises,
@@ -22,11 +27,11 @@ ops/dispatch.py stages every host batch into); any other CUDA view of any
 width is first copied once into such a buffer, as `PallasGFMatrix` pads.
 
 `LAUNCHES` counts the kernel's launches by name ("gf_apply" for the
-[k, n] apply, K1; "gf_apply_batch" for the [U, k, n] one, K2), raised
-only where a launch succeeds: a run reads it to show its path went
-through the kernel.  `STAGED` counts, by the same names, the inputs the
-wrapper had to copy before launching: a run reads it to show its path
-handed the kernel rows it reads in place.
+[k, n] apply, K1; "gf_apply_batch" for the [U, k, n] one, K2), one per
+row block, raised only where a launch succeeds: a run reads it to show
+its path went through the kernel.  `STAGED` counts, by the same names,
+the inputs the wrapper had to copy before launching: a run reads it to
+show its path handed the kernel rows it reads in place.
 """
 
 from __future__ import annotations
@@ -40,8 +45,8 @@ import torch
 from seaweedfs_tpu_torch.ops import codec_base, gf
 from seaweedfs_tpu_torch.ops.rows import ALIGN, device_empty, padded_width
 
-MAX_M = 16  # output rows the kernel takes (csrc/gf_matmul.cu kMaxM)
-MAX_K = 32  # input rows (kMaxK)
+ROW_BLOCK = 16  # output rows per launch (csrc/gf_matmul.cu kMaxM)
+MAX_UNITS = 65535  # units per launch: the grid's y dimension
 
 LAUNCHES = {"gf_apply": 0, "gf_apply_batch": 0}
 STAGED = {"gf_apply": 0, "gf_apply_batch": 0}
@@ -79,7 +84,8 @@ def gf_apply_plain(bitmat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.uint8:
         raise TypeError(f"want uint8, got {x.dtype}")
     # exact whatever torch.backends.cuda.matmul.allow_tf32 says: 0 and 1
-    # are exact in TF32 and every sum, at most 8k, is exact in float32
+    # are exact in TF32 and every sum, at most 8k < 2^11, is exact in
+    # float32
     *lead, k, n = x.shape
     m = bitmat.shape[0] // 8
     shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
@@ -119,13 +125,15 @@ def gf_apply_cuda(tables: torch.Tensor, x: torch.Tensor,
     """Launch the kernel on [U, k, n] uint8 `x` with the [m, k, 32]
     `nibble_tables` of the matrix, both on the same card.  Returns
     [U, m, n] (a view of a 16-byte-padded buffer), enqueued on the current
-    stream, and adds one to `LAUNCHES[name]` once the launch has succeeded.
+    stream.  C is applied in row blocks of up to ROW_BLOCK rows, one
+    launch each, and each launch that succeeds adds one to
+    `LAUNCHES[name]`.
 
     Strided rows and units on 16-byte boundaries are read in place; any
     other view is copied once into a padded buffer first, which adds one
     to `STAGED[name]`.  Raises on another device or dtype, on shapes the
-    kernel does not take, and when the launch fails.  An empty `x`
-    launches nothing and counts nothing."""
+    kernel does not take, and when a launch fails.  An empty `x` launches
+    nothing and counts nothing."""
     from seaweedfs_tpu_torch import _build
     if not x.is_cuda or x.device != tables.device:
         raise ValueError(f"kernel wants x and tables on one card, got "
@@ -138,11 +146,9 @@ def gf_apply_cuda(tables: torch.Tensor, x: torch.Tensor,
     m, kc, width = tables.shape
     if kc != k or width != 32 or not tables.is_contiguous():
         raise ValueError(f"tables {tuple(tables.shape)} do not fit k={k}")
-    if not (1 <= m <= MAX_M and 1 <= k <= MAX_K):
-        raise ValueError(f"kernel takes m <= {MAX_M}, k <= {MAX_K}; "
-                         f"got m={m}, k={k}")
-    if U > 65535:
-        raise ValueError(f"kernel takes at most 65535 units, got {U}")
+    _check_shape(m, k)
+    if U > MAX_UNITS:
+        raise ValueError(f"kernel takes at most {MAX_UNITS} units, got {U}")
     out = device_empty((U, m, n), x.device)
     if n == 0 or U == 0:
         return out
@@ -155,15 +161,25 @@ def gf_apply_cuda(tables: torch.Tensor, x: torch.Tensor,
     lib = _build.load("gf_matmul")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.gf_apply_u8(tables.data_ptr(), m, k,
-                              x.data_ptr(), x.stride(0), x.stride(1),
-                              out.data_ptr(), out.stride(0), out.stride(1),
-                              n, U, stream)
-    if err != 0:
-        raise RuntimeError(f"gf_apply_u8 launch failed: cudaError {err}")
-    with _launch_lock:
-        LAUNCHES[name] += 1
+        for r0 in range(0, m, ROW_BLOCK):
+            rows = min(ROW_BLOCK, m - r0)
+            err = lib.gf_apply_u8(tables[r0].data_ptr(), rows, k,
+                                  x.data_ptr(), x.stride(0), x.stride(1),
+                                  out[:, r0].data_ptr(), out.stride(0),
+                                  out.stride(1), n, U, stream)
+            if err != 0:
+                raise RuntimeError(f"gf_apply_u8 launch failed: "
+                                   f"cudaError {err}")
+            with _launch_lock:
+                LAUNCHES[name] += 1
     return out
+
+
+def _check_shape(m: int, k: int) -> None:
+    """The shapes a GF(2^8) code can give a matrix: k + m <= 256."""
+    if m < 1 or k < 1 or k + m > 256:
+        raise ValueError(f"matrix [{m}, {k}]: want m, k >= 1 and "
+                         f"k + m <= 256, as a GF(2^8) code allows")
 
 
 class CudaGFMatrix:
@@ -174,9 +190,7 @@ class CudaGFMatrix:
     def __init__(self, C: np.ndarray):
         self.C = np.ascontiguousarray(C, dtype=np.uint8)
         self.m, self.k = self.C.shape
-        if not (1 <= self.m <= MAX_M and 1 <= self.k <= MAX_K):
-            raise ValueError(f"matrix {self.C.shape} exceeds the kernel's "
-                             f"m <= {MAX_M}, k <= {MAX_K}")
+        _check_shape(self.m, self.k)
         self.bitmat = torch.from_numpy(
             gf.gf_matrix_to_bitmatrix(self.C)).to(torch.float32)
         self.tables = nibble_tables(self.C)

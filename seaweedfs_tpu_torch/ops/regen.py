@@ -141,6 +141,15 @@ def _order_survivors(groups: list[HelperGroup], exclude: set[int]
     return out
 
 
+def require_rs(family: str, tag: str) -> None:
+    """Refuse a code this module cannot plan for: its plans read k sorted
+    shards per window (MDS), which is wrong for LRC and MSR."""
+    if family != "rs":
+        raise NotImplementedError(
+            f"reduced-read repair of {tag} volumes: the {family.upper()} "
+            f"repair planner is not ported yet (ROADMAP 1.8b)")
+
+
 def plan_repair(code, lost: int, groups: list[HelperGroup], length: int,
                 d: int | None = None,
                 align: int = DEFAULT_SEG_ALIGN) -> RepairPlan:
@@ -149,7 +158,10 @@ def plan_repair(code, lost: int, groups: list[HelperGroup], length: int,
     `d` caps how many helper shards participate (None = all survivors;
     clamped to [k, available]).  With d > k the range stripes into
     rotating k-of-d windows; local shards are in every window.  Each
-    window's decode matrix reads its k sorted shards (MDS)."""
+    window's decode matrix reads its k sorted shards (MDS): RS codes
+    only."""
+    family = getattr(code, "family", "rs")
+    require_rs(family, getattr(code, "tag", family))
     k = code.k
     entries = _order_survivors(groups, {lost})
     if len(entries) < k:

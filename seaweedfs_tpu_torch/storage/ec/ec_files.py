@@ -29,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from seaweedfs_tpu_torch.ops import codec_base, codecs, regen
+from seaweedfs_tpu_torch.ops import codecs, regen
 from seaweedfs_tpu_torch.ops.dispatch import (
     dispatch_parity as _dispatch_parity,
     device_empty as _device_empty,
@@ -222,10 +222,12 @@ def write_ec_files(base: str, dat_path: str | None = None,
                    small_block: int = layout.SMALL_BLOCK_SIZE,
                    batch_size: int = DEFAULT_BATCH,
                    progress=None, cancel=None, stats=None,
-                   device=None) -> None:
-    """Encode `<base>.dat` (or dat_path) into `<base>.ec00` .. `.ec13`,
-    plus a `<base>.vif` sidecar recording the encode-time dat size,
-    version and codec tag.
+                   codec_tag: str | None = None, device=None) -> None:
+    """Encode `<base>.dat` (or dat_path) into its n shard files (`.ec00`
+    .. `.ec13` for RS(10,4)) under the code `codec_tag` names (None: the
+    default, `codecs.default_tag()`), plus a `<base>.vif` sidecar
+    recording the encode-time dat size, version and codec tag.  The
+    stripe width is the codec's k (9 for msr_9_16).
 
     `progress(bytes_done)` is called per batch, `cancel()` returning True
     aborts, and `stats`, when a dict, receives per-stage seconds.  Shards
@@ -233,7 +235,7 @@ def write_ec_files(base: str, dat_path: str | None = None,
     encode succeeds; stale `.tmp` files are reused in place."""
     dat_path = dat_path or base + ".dat"
     dat_size = os.path.getsize(dat_path)
-    spec = codecs.parse_tag(codecs.default_tag())
+    spec = codecs.parse_tag(codec_tag or codecs.default_tag())
     codec = _get_codec(device, spec.tag)
     tmp_paths = [base + layout.to_ext(i) + ".tmp" for i in range(spec.n)]
     out_fds = [os.open(p_, os.O_RDWR | os.O_CREAT, 0o644) for p_ in tmp_paths]
@@ -487,11 +489,13 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
 def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
                      progress=None, cancel=None, stats=None,
                      device=None) -> list[int]:
-    """Regenerate whichever `.ecXX` files are missing from the >= k
-    present ones; returns the rebuilt shard ids.
+    """Regenerate whichever shard files are missing from the present
+    ones, under the code the `.vif` names; returns the rebuilt shard ids.
 
-    Survivors are mmap'd, and each batch of their columns goes to the
-    card in one transfer and is decoded in one kernel launch; the rebuilt
+    Survivors (`codec.basis`: one local group for an LRC single loss)
+    are mmap'd, and each batch of their columns goes to the card in one
+    transfer and is decoded in one apply (one kernel launch per row block
+    of the decode matrix); MSR batches are alpha multiples.  The rebuilt
     rows stream to per-shard writers into `.tmp` files, committed by
     rename only on success (reference: RebuildEcFiles,
     ec_encoder.go:237-291)."""
@@ -505,10 +509,18 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
         raise ValueError(
             f"need >= {spec.k} shards to rebuild, have {len(present)}")
     codec = _get_codec(device, spec.tag)
-    use = list(codec_base.select_survivors(codec.code, present))
+    use = list(codec.basis(present, missing))
     shard_size = os.path.getsize(base + layout.to_ext(use[0]))
     stats = stats if stats is not None else {}
     stats["bytes"] = shard_size * len(use)
+    stats["codec"] = spec.tag
+    # MSR sub-packetization: every chunk a codec's interleave must see is
+    # an alpha multiple (shard files themselves are block multiples)
+    if spec.alpha > 1:
+        batch_size = max(spec.alpha, batch_size - batch_size % spec.alpha)
+        if shard_size % spec.alpha:
+            raise ValueError(
+                f"shard size {shard_size} not {spec.alpha}-aligned")
     t_wall = time.perf_counter()
     ins: dict[int, object] = {}
     maps: dict[int, mmap_mod.mmap] = {}
@@ -596,8 +608,13 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
     class, the completed plans' predictions (with the naive copy-then-
     rebuild cost, `naive_remote`), replans and dead helpers.  `stats`,
     when a dict, also gets mode, bytes, codec, reconstruct_s, wall_s and
-    the repairing thread's stage seconds (regen.execute_plan)."""
+    the repairing thread's stage seconds (regen.execute_plan).
+
+    RS volumes only: the LRC and MSR repair planners are ROADMAP 1.8b,
+    and any other family raises NotImplementedError before a file is
+    opened."""
     spec = codecs.parse_tag((read_vif(base) or {}).get("codec"))
+    regen.require_rs(spec.family, spec.tag)
     codec = _get_codec(device, spec.tag)
     lost = sorted(set(lost))
     local_fds: dict[int, int] = {}

@@ -9,9 +9,14 @@ file stays the source of truth and deletes are written through (plus the
 A needle read plans every interval up front, coalesces adjacent ranges of
 one shard file, reads what the local shards hold, and rebuilds every
 missing range in ONE codec dispatch: the survivor slices of all failed
-ranges concatenate column-wise into a single GF(2^8) apply (RS decodes
-byte position by byte position, so concatenated ranges rebuild exactly as
-they would one by one).
+ranges concatenate column-wise into a single GF(2^8) apply (RS and LRC
+decode byte position by byte position, MSR alpha-block by alpha-block, so
+concatenated ranges rebuild exactly as they would one by one).
+
+The volume's code comes from its `.vif` (`spec`).  The survivors a
+degraded read gathers are the codec's basis (`codec.basis`): an LRC single loss reads its
+own local group (r + 1 shards at most), never k; an MSR read widens each
+range to alpha boundaries and slices the lead back off after the decode.
 """
 
 from __future__ import annotations
@@ -121,23 +126,34 @@ class EcVolume:
         return self._reconstruct_ranges([(shard_id, offset, size)])[0]
 
     def _gather_survivors(self, exclude: set[int],
-                          segs: list[tuple[int, int]]) -> dict[int, np.ndarray]:
-        """k survivor rows covering every segment, the segments of each
-        shard concatenated: the first k sorted readable shards."""
+                          segs: list[tuple[int, int]],
+                          want: list[int] | None = None,
+                          need: int | None = None
+                          ) -> dict[int, np.ndarray]:
+        """Survivor rows covering every segment, the segments of each
+        shard concatenated, in shard order.
+
+        `want` restricts reads to a codec-chosen basis (an LRC local
+        group); `need` is how many rows suffice (default len(want), else
+        k).  Raises IOError when fewer are readable, so the caller can
+        retry unrestricted."""
+        universe = want if want is not None else range(self.spec.n)
+        need = need if need is not None else \
+            (len(want) if want is not None else self.spec.k)
         rows: dict[int, np.ndarray] = {}
-        for sid in sorted(self.shards):
-            if sid in exclude:
+        for sid in universe:
+            if sid in exclude or sid not in self.shards:
                 continue
             parts = [self._read_local(sid, off, size) for off, size in segs]
             if any(p is None for p in parts):
                 continue
             rows[sid] = np.frombuffer(b"".join(parts), dtype=np.uint8)
             self.read_stats["local_shard_reads"] += len(segs)
-            if len(rows) == self.spec.k:
+            if len(rows) == need:
                 return rows
         raise IOError(
             f"ec volume {self.base}: only {len(rows)} shards readable, need "
-            f"{self.spec.k} to reconstruct shard(s) {sorted(exclude)}")
+            f"{need} to reconstruct shard(s) {sorted(exclude)}")
 
     def _reconstruct_ranges(self, ranges: list[tuple[int, int, int]]
                             ) -> list[bytes]:
@@ -147,16 +163,51 @@ class EcVolume:
         wanted shard), and the rebuilt rows split back per range."""
         wanted = sorted({sid for sid, _, _ in ranges})
         segs = [(off, size) for _, off, size in ranges]
-        rows = self._gather_survivors(set(wanted), segs)
+        # MSR works on byte-interleaved alpha blocks: widen each segment
+        # to alpha boundaries, slice the lead back off after the decode
+        # (alpha = 1 for rs/lrc: no-op)
+        a = self.spec.alpha
+        leads = [off % a for off, _ in segs]
+        gsegs = [(off - lead, -(-(lead + size) // a) * a)
+                 for (off, size), lead in zip(segs, leads)]
+        # the codec's basis over every shard but the wanted: an LRC single
+        # loss reads one local group, MSR any k whole files.  Without one
+        # (RS, or a basis shard absent or unreadable) read unrestricted;
+        # one survivor beyond k keeps every LRC pattern within its
+        # tolerance decodable
+        basis = self._basis(wanted)
+        rows = None
+        if basis is not None:
+            try:
+                rows = self._gather_survivors(set(wanted), gsegs, want=basis)
+            except IOError:
+                pass
+        if rows is None:
+            rows = self._gather_survivors(
+                set(wanted), gsegs,
+                need=self.spec.k + (self.spec.family == "lrc"))
         rebuilt = ec_files._reconstruct_batch(self.codec, rows, wanted)
         self.read_stats["reconstruct_batches"] += 1
         self.read_stats["reconstruct_intervals"] += len(ranges)
         out = []
         pos = 0
-        for sid, _, size in ranges:
-            out.append(rebuilt[sid][pos:pos + size].tobytes())
-            pos += size
+        for (sid, _, size), lead, (_, gsize) in zip(ranges, leads, gsegs):
+            out.append(rebuilt[sid][pos + lead:pos + lead + size].tobytes())
+            pos += gsize
         return out
+
+    def _basis(self, wanted: list[int]) -> list[int] | None:
+        """The codec's survivor basis for `wanted` when every other shard
+        is assumed present (as the reference assumes); None for RS, which
+        reads the first k readable, and when a basis shard is already
+        known absent, which no restricted read can get past."""
+        if self.spec.family == "rs":
+            return None
+        basis = self.codec.basis(
+            sorted(set(range(self.spec.n)) - set(wanted)), wanted)
+        if any(s not in self.shards for s in basis):
+            return None
+        return list(basis)
 
     def _read_ranges(self, plan: list[tuple[int, int, int]]) -> list[bytes]:
         """Coalesce adjacent per-shard ranges, read them locally, and repair

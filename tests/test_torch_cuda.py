@@ -8,6 +8,9 @@ On a host without a card it skips.  chip_smoke.py covers the same ground
 at the main path's shapes.
 """
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -217,3 +220,90 @@ def test_cuda_rebuild_ec_reduced_equals_cpu(card, tmp_path, monkeypatch):
     assert files["cpu"] == files["cuda"]
     for s in lost:
         assert files["cuda"]["4" + layout.to_ext(s)] == full[s].tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(17, 10), (17, 33), (32, 64), (33, 72),
+                                 (72, 72), (8, 72), (16, 72), (4, 200),
+                                 (20, 200), (1, 255)])
+def test_cuda_kernel_any_shape(card, m, k):
+    """Matrices past 16 rows or 32 columns (fault 3.3): one launch per
+    row block of 16, rows read in place, equal to the port's numpy GF
+    product at ragged n, on a [:, :n] view, and batched.  [20, 200]'s
+    first block needs 100 KB of tables, past the 48 KB default."""
+    g = np.random.default_rng(m * 1000 + k)
+    C = g.integers(0, 256, (m, k), dtype=np.uint8)
+    mat = gf_cuda.CudaGFMatrix(C)
+    blocks = -(-m // 16)
+    for n in (1, 17, 4097):
+        x = g.integers(0, 256, (k, n), dtype=np.uint8)
+        dev = dispatch.device_empty((k, n), card)
+        dev.copy_(torch.from_numpy(x))
+        before, staged = dict(gf_cuda.LAUNCHES), dict(gf_cuda.STAGED)
+        got = mat(dev).cpu().numpy()
+        assert gf_cuda.LAUNCHES["gf_apply"] == before["gf_apply"] + blocks
+        assert gf_cuda.STAGED == staged
+        assert np.array_equal(got, gf.gf_matmul(C, x)), (m, k, n)
+    wide = torch.from_numpy(g.integers(0, 256, (4, k, 8192), dtype=np.uint8))
+    before = dict(gf_cuda.LAUNCHES)
+    got = mat.apply_batch(wide.to(card)[:, :, :3001]).cpu()
+    assert gf_cuda.LAUNCHES["gf_apply_batch"] == \
+        before["gf_apply_batch"] + blocks
+    assert torch.equal(got, mat.apply_batch(wide[:, :, :3001]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,losses,blocks", [
+    ("lrc_10_2_2", (2, 5, 11), (10_000, 100)),
+    ("msr_9_16", (0, 13), (8000, 400))])
+def test_cuda_codec_volume_equals_cpu(card, tmp_path, tag, losses, blocks):
+    """write_ec_files, degraded reads through EcVolume and rebuild_ec_files
+    of an LRC and an MSR volume on the card write the files they write on
+    the CPU and return the same needles, with no input staged by the
+    kernel wrapper (MSR's de-interleave lands in rows it reads in
+    place)."""
+    from seaweedfs_tpu_torch.storage import needle
+    from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume, layout
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    large, small = blocks
+    # one .dat for both devices: needles carry their append time
+    src = tmp_path / "src"
+    src.mkdir()
+    v = Volume(str(src), "", 3)
+    rng = np.random.default_rng(5)
+    blobs = {}
+    for i in range(1, 71):
+        data = rng.bytes(int(rng.integers(1, 7000)))
+        v.append_needle(needle.Needle(cookie=9, id=i, data=data))
+        blobs[i] = data
+    v.close()
+    files = {}
+    for dev in ("cpu", "cuda"):
+        d = tmp_path / dev
+        d.mkdir()
+        for ext in (".dat", ".idx"):
+            shutil.copy(src / ("3" + ext), d / ("3" + ext))
+        base = str(d / "3")
+        before, staged = dict(gf_cuda.LAUNCHES), dict(gf_cuda.STAGED)
+        ec_files.write_ec_files(base, large_block=large, small_block=small,
+                                batch_size=small * 10, codec_tag=tag,
+                                device=dev)
+        ec_files.write_sorted_ecx(base + ".idx")
+        files[dev] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+        for s in losses:
+            os.remove(base + layout.to_ext(s))
+        ev = ec_volume.EcVolume(base, large, small, device=dev)
+        try:
+            for nid, data in blobs.items():
+                assert ev.read_needle(nid).data == data, (dev, nid)
+        finally:
+            ev.close()
+        assert sorted(ec_files.rebuild_ec_files(base, device=dev)) == \
+            sorted(losses)
+        for s in losses:
+            name = "3" + layout.to_ext(s)
+            assert (d / name).read_bytes() == files[dev][name]
+        launched = gf_cuda.LAUNCHES["gf_apply"] - before["gf_apply"]
+        assert (launched > 0) == (dev == "cuda")
+        assert gf_cuda.STAGED == staged
+    assert files["cpu"] == files["cuda"]

@@ -63,6 +63,10 @@ def test_port_path_leaves_jax_unloaded(tmp_path):
             "from seaweedfs_tpu_torch.ops import dispatch, fleet_convert, "
             "gf_cuda\n"
             "from seaweedfs_tpu_torch.maintenance import scrub\n"
+            "from seaweedfs_tpu_torch.ops import codecs\n"
+            "for tag in ('lrc_10_2_2', 'msr_9_16'):\n"
+            "    x = codecs.make_codec(tag, device='cpu')\n"
+            "    x.encode_parity(torch.zeros((x.k, 64), dtype=torch.uint8))\n"
             "c = gf_cuda.get_codec(10, 4, device='cpu')\n"
             "c.encode_parity(torch.zeros((10, 16), dtype=torch.uint8))\n"
             "d = sys.argv[1]\n"
@@ -119,11 +123,16 @@ def test_rebuild_ec_reduced_without_card_raises(tmp_path, no_card):
 
 
 def test_non_rs_family_is_not_ported():
-    assert codecs.parse_tag("lrc_10_2_2").n == 14
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
-        codecs.make_codec("lrc_10_2_2", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
-        codecs.make_codec("msr_9_16", device="cpu")
+    """The LRC and MSR families are ported now: make_codec builds both on
+    the CPU, with the reference's geometry (the name is kept from when it
+    refused them)."""
+    from seaweedfs_tpu_torch.ops import msr
+    lc = codecs.make_codec("lrc_10_2_2", device="cpu")
+    assert (lc.k, lc.m, lc.n) == (10, 4, 14) and lc.device.type == "cpu"
+    mc = codecs.make_codec("msr_9_16", device="cpu")
+    assert isinstance(mc, msr.MSRFileCodec)
+    assert (mc.k, mc.m, mc.n, mc.alpha) == (9, 9, 18, 8)
+    assert mc.inner.code.parity_matrix.shape == (72, 72)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -131,8 +140,11 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="on one card"):
         gf_cuda.gf_apply_cuda(coef, torch.zeros((1, 10, 32),
                                                 dtype=torch.uint8))
-    with pytest.raises(ValueError, match="exceeds the kernel"):
-        gf_cuda.CudaGFMatrix(np.ones((17, 10), np.uint8))
+    # any [m, k] a GF(2^8) code can give is taken (fault 3.3); past
+    # k + m = 256 no code exists, and the matrix is refused
+    assert gf_cuda.CudaGFMatrix(np.ones((17, 10), np.uint8)).m == 17
+    with pytest.raises(ValueError, match="k \\+ m <= 256"):
+        gf_cuda.CudaGFMatrix(np.ones((17, 240), np.uint8))
 
 
 # ---- tables and matrices -------------------------------------------------
