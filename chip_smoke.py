@@ -12,10 +12,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                timed at the paths' shapes (encode, rebuild, degraded
                reads, the fleet's unit batches, repair's partials, MSR's
                [72,72] parity and [8,72] decode, LRC's [1,5] local
-               decode) with CUDA events beside its byte bound and the
+               decode, LRC's [1,4] repair partial, MSR repair's [6,48]
+               helper partial and [8,6] post) with CUDA events beside its
+               byte bound and the
                plain version's time; untimed at m = 1..16, k =
                1..9/17/32, m in {17, 32, 33, 72} x k in {33, 64, 72, 200}
-               (row blocks of 16), ragged n, strided and unaligned views,
+               (row blocks of 16), MSR repair's [c,8c] and [8,c] for c =
+               4..6, ragged n, strided and unaligned views,
                a batched [4,72,n], and the codec on a contiguous [10, 700]
   3 write      a volume of needles (sizes uniform in 4 KB..1 MB, data from
                --seed) through Volume.append_needle
@@ -56,7 +59,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                MSR: [0, 13]); rebuild_ec_files sha256-equal to the encode;
                syndrome_scan clean, then a flip (LRC localised, MSR -1);
                K1 launches against the count the layout and the 16-row
-               block split predict
+               block split predict.  Right after each encode,
+               rebuild_ec_reduced on links of its shards, the helpers a
+               stand-in on the card reading sub-rows for MSR: LRC [2]
+               inside its group, [12] at d = 10, [12] at d = None (the
+               reference's ValueError, ROADMAP fault 3.5); MSR, on four
+               nodes, [0], [0, 13], and [0] with "c:3" dying mid-repair;
+               checked as phase 9's runs
  11 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
@@ -187,6 +196,25 @@ def kernel_cases(seed: int):
         ("msr decode [8,72]@[72,2MiB]", mdecode, (72, 2 * MIB), False, True),
         ("lrc local [1,5]@[5,16MiB]", llocal, (5, 16 * MIB), False, True),
     ]
+    # phase 10's repair applies: LRC's group-local partial of lost [2] on
+    # the repairing node (shards 0, 1, 3, 4 of its basis 0, 1, 3, 4, 10),
+    # and MSR's for lost [0] over helpers 1-16 at 2 MiB sub-rows: a:1's
+    # six shards' block-diagonal [6,48] partial and its [8,6] post
+    lrepair = lcode.decode_matrix([i for i in range(14) if i != 2], [2])
+    mhelpers = list(range(1, 17))
+    mcoeff = np.zeros((6, 48), np.uint8)
+    for i in range(6):
+        mcoeff[i, 8 * i:8 * (i + 1)] = mcode.repair_coeff(0)[0]
+    mpost = mcode.repair_matrix(0, mhelpers)[:, 5:11]
+    cases += [
+        ("lrc partial [1,4]@[4,16MiB]",
+         gf_cuda.CudaGFMatrix(lrepair[:, :4]), (4, 16 * MIB), False, True),
+        ("msr helper [6,48]@[48,2MiB]", gf_cuda.CudaGFMatrix(mcoeff),
+         (48, 2 * MIB), False, True),
+        ("msr post [8,6]@[6,2MiB]",
+         gf_cuda.CudaGFMatrix(np.ascontiguousarray(mpost)), (6, 2 * MIB),
+         False, True),
+    ]
     cases += [(f"parity n={n}", parity, (10, n), False, False)
               for n in (1, 15, 17, 255, 4097)]
     cases += [(f"random [{m},10] n=4097", rand(m, 10), (10, 4097), False,
@@ -202,6 +230,11 @@ def kernel_cases(seed: int):
               if m + k <= 256 for n in (1, 17, 4097)]
     cases += [(f"batch [4,72,72] n={n}", mparity, (4, 72, n), True, False)
               for n in (17, 4097)]
+    # MSR repair's helper partials [c, 8c] (k = 40, 48) and posts [8, c]
+    # at ragged sub-row lengths: the byte tail past the last full word
+    cases += [(f"random [{m},{k}] n={n}", rand(m, k), (k, n), False, False)
+              for c in (4, 5, 6) for m, k in ((c, 8 * c), (8, c))
+              for n in (17, 4097, 2 * MIB + 5)]
     return cases
 
 
@@ -717,21 +750,25 @@ REPAIR_STAGES = ("read_s", "apply_s", "wait_s", "xor_s", "write_s")
 
 
 class HelperStandIn:
-    """Phase 9's helper nodes, computing a partial as the volume server's
-    RS partial endpoint does: pread each asked-for shard range from the
-    phase-4 files, stack the rows, apply the coefficient rows with the
-    port's dispatch.apply_matrix on the card, return the bytes.  Counts,
-    per node, its calls, its applies (one K1 launch each), the bytes it
-    read and the bytes it returned, and the seconds it spent reading
-    (preads and the stack) and applying (apply_matrix and `tobytes`);
-    `die = (node, n)` makes `node` raise HelperDied at every call after
-    its n-th."""
+    """The helper nodes of phases 9 and 10, computing a partial as the
+    volume server's partial endpoint does: pread each asked-for shard
+    range from the encode's files, stack the rows, apply the coefficient
+    rows with the port's dispatch.apply_matrix on the card, return the
+    bytes.  With alpha > 1 the ids are virtual (sub-row `sid % alpha` of
+    file `sid // alpha`) and the range is in sub-row bytes: one pread of
+    file bytes [off*alpha, (off+n)*alpha) per distinct file, then column
+    `sid % alpha` of its [n, alpha] view.  Counts, per node, its calls,
+    its applies (one K1 launch each), the bytes it read and the bytes it
+    returned, and the seconds it spent reading (preads, columns and the
+    stack) and applying (apply_matrix and `tobytes`); `die = (node, n)`
+    makes `node` raise HelperDied at every call after its n-th."""
 
-    def __init__(self, base: str, codec, die=None):
+    def __init__(self, base: str, codec, n_shards: int = 14,
+                 alpha: int = 1, die=None):
         from seaweedfs_tpu_torch.storage.ec import layout
-        self.codec, self.die = codec, die
+        self.codec, self.alpha, self.die = codec, alpha, die
         self.fds = {i: os.open(base + layout.to_ext(i), os.O_RDONLY)
-                    for i in range(14)}
+                    for i in range(n_shards)}
         self.lock = threading.Lock()
         self.calls: dict = {}
         self.applies: dict = {}
@@ -751,26 +788,124 @@ class HelperStandIn:
         calls = self._add(self.calls, group.node, 1)
         if self.die and self.die[0] == group.node and calls > self.die[1]:
             raise regen.HelperDied(group.node, tuple(sids))
+        a = self.alpha
         t0 = time.perf_counter()
-        rows = []
-        for sid in sids:
-            data = os.pread(self.fds[sid], n, off)
-            if len(data) != n:
+        blocks = {}
+        for fsid in sorted({s // a for s in sids}):
+            data = os.pread(self.fds[fsid], n * a, off * a)
+            if len(data) != n * a:
                 raise regen.HelperDied(group.node, tuple(sids))
-            rows.append(np.frombuffer(data, np.uint8))
-        stack = np.stack(rows)
+            blocks[fsid] = np.frombuffer(data, np.uint8).reshape(n, a)
+        stack = np.stack([blocks[s // a][:, s % a] for s in sids])
         t1 = time.perf_counter()
         out = dispatch.apply_matrix(self.codec, coeff, stack).tobytes()
         self._add(self.read_s, group.node, t1 - t0)
         self._add(self.apply_s, group.node, time.perf_counter() - t1)
         self._add(self.applies, group.node, 1)
-        self._add(self.read, group.node, n * len(sids))
+        self._add(self.read, group.node, n * a * len(blocks))
         self._add(self.returned, group.node, len(out))
         return out
 
     def close(self) -> None:
         for fd in self.fds.values():
             os.close(fd)
+
+
+def repair_run(vdir: str, base: str, label: str, spec, codec, local,
+               helpers, lost, hashes: list[str], launches: dict, d=None,
+               die=None):
+    """rebuild_ec_reduced of `lost` from a directory holding links of the
+    repairing node's `local` shards (minus the lost) and the .vif, the
+    `helpers` ((node, shards, locality)) answered by a HelperStandIn over
+    `base`'s files.  Checks every rebuilt shard against `hashes` and that
+    no .tmp is left; returns (result, stand-in, record).  A ValueError
+    from the planner propagates after the .tmp check, its directory
+    left for the caller to inspect."""
+    from seaweedfs_tpu_torch.ops import dispatch
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    rdir = os.path.join(vdir, "repair_" + label.replace(" ", "_"))
+    os.makedirs(rdir)
+    rbase = os.path.join(rdir, os.path.basename(base))
+    for s in local:  # only these links are the repairing node's own
+        if s not in lost:
+            os.link(base + layout.to_ext(s), rbase + layout.to_ext(s))
+    os.link(base + ".vif", rbase + ".vif")
+    groups = [{"node": node, "shards": [s for s in span if s not in lost],
+               "locality": loc} for node, span, loc in helpers]
+    helper = HelperStandIn(base, codec, spec.n, spec.alpha, die)
+    st: dict = {}
+    dispatch.COUNTERS.reset()
+    before = launches["gf_apply"]
+    t0 = time.perf_counter()
+    try:
+        res = ec_files.rebuild_ec_reduced(rbase, lost, groups, helper,
+                                          d=d, stats=st)
+    finally:
+        helper.close()
+        if any(p.endswith(".tmp") for p in os.listdir(rdir)):
+            raise AssertionError(f"repair {label} left a .tmp file")
+    dt = time.perf_counter() - t0
+    got = launches["gf_apply"] - before
+    for s in lost:
+        if sha256(rbase + layout.to_ext(s)) != hashes[s]:
+            raise AssertionError(f"repair {label}: shard {s} differs "
+                                 f"from the encode's")
+    shutil.rmtree(rdir)
+    size = res["shard_size"]
+    rec = {"lost": lost, "d": d, "s": dt,
+           "rebuilt_gbps": len(lost) * size / dt / 1e9,
+           "remote_bytes": sum(res["helper_bytes"].values()),
+           "naive_remote": res["predicted"]["naive_remote"],
+           "helper_bytes": res["helper_bytes"],
+           "helper_reads": dict(helper.read),
+           "helper_calls": dict(helper.calls), "launches": got,
+           "helper_applies": sum(helper.applies.values()),
+           "replans": res["replans"], "dead_helpers": res["dead_helpers"],
+           "reconstruct_s": st["reconstruct_s"],
+           "rebuilder_s": {k: st.get(k, 0.0) for k in REPAIR_STAGES},
+           "counters": dispatch.COUNTERS.snapshot(),
+           "helper_read_s": dict(helper.read_s),
+           "helper_apply_s": dict(helper.apply_s)}
+    return res, helper, rec
+
+
+def repair_report(label: str, rec: dict, local_read=None) -> None:
+    """Log a repair run; `local_read` is the repairing node's own survivor
+    bytes, where the run reads all of them in every window."""
+    gb = ""
+    if local_read is not None:
+        rec["survivors_read_gbps"] = (
+            local_read + sum(rec["helper_reads"].values())) / \
+            rec["s"] / 1e9
+        gb = f", {rec['survivors_read_gbps']:.3f} GB/s of survivors read"
+    log(f"[repair {label}] lost {rec['lost']} d={rec['d']}: "
+        f"{rec['s']:.3f} s, {rec['rebuilt_gbps']:.3f} GB/s rebuilt"
+        f"{gb}; remote {rec['remote_bytes']} B against naive "
+        f"{rec['naive_remote']} B ({rec['helper_bytes']}); "
+        f"{rec['launches']} K1 launches, {rec['helper_applies']} "
+        f"by the helpers ({rec['helper_applies'] / rec['launches']:.0%})"
+        f"; replans {rec['replans']}")
+    c = rec["counters"]
+    log(f"[repair {label}] seconds, summed over threads: every apply's "
+        f"h2d {c['h2d_s']:.3f} / device {c['device_s']:.3f} / d2h "
+        f"{c['d2h_s']:.3f} ({c['calls']} applies, "
+        f"{c['h2d_bytes']} B in); helpers reading "
+        f"{sum(rec['helper_read_s'].values()):.3f}, applying "
+        f"{sum(rec['helper_apply_s'].values()):.3f}")
+    log(f"[repair {label}] the rebuilder's own thread, of "
+        f"{rec['reconstruct_s']:.3f} s: " + ", ".join(
+            f"{k[:-2]} {v:.3f}" for k, v in rec["rebuilder_s"].items()))
+
+
+def ledgers_agree(label: str, res: dict, helper) -> None:
+    """Measured bytes per node == the plans' prediction == the stand-in's
+    own count, exactly."""
+    if not (res["helper_bytes"] == res["predicted"]["per_node"]
+            == helper.returned):
+        raise AssertionError(
+            f"repair {label}: measured {res['helper_bytes']}, "
+            f"predicted {res['predicted']['per_node']}, stand-in "
+            f"{helper.returned}")
 
 
 def repair_segments(size: int, n_local: int, n_remote: int) -> list[int]:
@@ -801,7 +936,7 @@ def phase_repair(vdir: str, base: str, hashes: list[str],
     rebuild_ec_reduced, helpers on the card (K1), four runs, each checked
     against phase 4's sha256, the plan's byte ledger and the stand-in's
     own counts."""
-    from seaweedfs_tpu_torch.ops import dispatch, gf_cuda, regen
+    from seaweedfs_tpu_torch.ops import codecs, gf_cuda, regen
     from seaweedfs_tpu_torch.storage.ec import ec_files, layout
 
     if (ec_files.DEFAULT_BATCH, regen.DEFAULT_SEG_ALIGN) != \
@@ -810,91 +945,15 @@ def phase_repair(vdir: str, base: str, hashes: list[str],
                              "phase 9's predictions assume 16 / 4 MiB")
     size = os.path.getsize(base + layout.to_ext(0))
     codec = gf_cuda.get_codec(10, 4)
+    spec = codecs.parse_tag("rs_10_4")
     runs = {}
 
     def run(label, lost, d=None, die=None):
-        rdir = os.path.join(vdir, "repair")
-        os.makedirs(rdir)
-        rbase = os.path.join(rdir, os.path.basename(base))
-        local = [s for s in REPAIR_LOCAL if s not in lost]
-        for s in local:  # only these links are the repairing node's own
-            os.link(base + layout.to_ext(s), rbase + layout.to_ext(s))
-        os.link(base + ".vif", rbase + ".vif")
-        groups = [{"node": node, "shards": [s for s in span
-                                            if s not in lost],
-                   "locality": loc} for node, span, loc in REPAIR_HELPERS]
-        helper = HelperStandIn(base, codec, die)
-        st: dict = {}
-        dispatch.COUNTERS.reset()
-        before = launches["gf_apply"]
-        t0 = time.perf_counter()
-        try:
-            res = ec_files.rebuild_ec_reduced(rbase, lost, groups, helper,
-                                              d=d, stats=st)
-        finally:
-            helper.close()
-        dt = time.perf_counter() - t0
-        got = launches["gf_apply"] - before
-        for s in lost:
-            if sha256(rbase + layout.to_ext(s)) != hashes[s]:
-                raise AssertionError(f"repair {label}: shard {s} differs "
-                                     f"from phase 4's")
-        if any(p.endswith(".tmp") for p in os.listdir(rdir)):
-            raise AssertionError(f"repair {label} left a .tmp file")
-        shutil.rmtree(rdir)
-        remote = sum(res["helper_bytes"].values())
-        applies = sum(helper.applies.values())
-        rec = {"lost": lost, "d": d, "s": dt,
-               "rebuilt_gbps": len(lost) * size / dt / 1e9,
-               "remote_bytes": remote,
-               "naive_remote": res["predicted"]["naive_remote"],
-               "helper_bytes": res["helper_bytes"],
-               "helper_reads": dict(helper.read),
-               "helper_calls": dict(helper.calls), "launches": got,
-               "helper_applies": applies, "replans": res["replans"],
-               "dead_helpers": res["dead_helpers"],
-               "reconstruct_s": st["reconstruct_s"],
-               "rebuilder_s": {k: st[k] for k in REPAIR_STAGES},
-               "counters": dispatch.COUNTERS.snapshot(),
-               "helper_read_s": dict(helper.read_s),
-               "helper_apply_s": dict(helper.apply_s)}
+        res, helper, rec = repair_run(vdir, base, label, spec, codec,
+                                      REPAIR_LOCAL, REPAIR_HELPERS, lost,
+                                      hashes, launches, d=d, die=die)
         runs[label] = rec
         return res, helper, rec
-
-    def report(label, rec, local_read=None):
-        """Log a run; `local_read` is the repairing node's own survivor bytes
-        (all its shards, every window: none of these runs has t <= 0)."""
-        gb = ""
-        if local_read is not None:
-            rec["survivors_read_gbps"] = (
-                local_read + sum(rec["helper_reads"].values())) / \
-                rec["s"] / 1e9
-            gb = f", {rec['survivors_read_gbps']:.3f} GB/s of survivors read"
-        log(f"[repair {label}] lost {rec['lost']} d={rec['d']}: "
-            f"{rec['s']:.3f} s, {rec['rebuilt_gbps']:.3f} GB/s rebuilt"
-            f"{gb}; remote {rec['remote_bytes']} B against naive "
-            f"{rec['naive_remote']} B ({rec['helper_bytes']}); "
-            f"{rec['launches']} K1 launches, {rec['helper_applies']} "
-            f"by the helpers ({rec['helper_applies'] / rec['launches']:.0%})"
-            f"; replans {rec['replans']}")
-        c = rec["counters"]
-        log(f"[repair {label}] seconds, summed over threads: every apply's "
-            f"h2d {c['h2d_s']:.3f} / device {c['device_s']:.3f} / d2h "
-            f"{c['d2h_s']:.3f} ({c['calls']} applies, "
-            f"{c['h2d_bytes']} B in); helpers reading "
-            f"{sum(rec['helper_read_s'].values()):.3f}, applying "
-            f"{sum(rec['helper_apply_s'].values()):.3f}")
-        log(f"[repair {label}] the rebuilder's own thread, of "
-            f"{rec['reconstruct_s']:.3f} s: " + ", ".join(
-                f"{k[:-2]} {v:.3f}" for k, v in rec["rebuilder_s"].items()))
-
-    def ledgers_agree(label, res, helper):
-        if not (res["helper_bytes"] == res["predicted"]["per_node"]
-                == helper.returned):
-            raise AssertionError(
-                f"repair {label}: measured {res['helper_bytes']}, "
-                f"predicted {res['predicted']['per_node']}, stand-in "
-                f"{helper.returned}")
 
     # (a) one window: the repairing node's 5 shards, a:1's 3 and b:2's 9, 10
     res, helper, rec = run("a", [3], d=10)
@@ -909,7 +968,7 @@ def phase_repair(vdir: str, base: str, hashes: list[str],
             res["predicted"]["naive_remote"] != 5 * size:
         raise AssertionError(f"repair a: {res['helper_bytes']} remote, "
                              f"naive {res['predicted']['naive_remote']}")
-    report("a", rec, 5 * size)
+    repair_report("a", rec, 5 * size)
 
     # (b) every survivor: 8 rotating windows over the 8 remote shards
     res, helper, rec = run("b", [3])
@@ -925,7 +984,7 @@ def phase_repair(vdir: str, base: str, hashes: list[str],
             raise AssertionError(f"repair b: {node} read "
                                  f"{helper.read[node]} B of its {held}")
     rec["local_chunks"] = chunks
-    report("b", rec, 5 * size)
+    repair_report("b", rec, 5 * size)
 
     # (c) two losses in sequence; shard 1 joins the repairing node's survivors
     res, helper, rec = run("c", [1, 12])
@@ -935,7 +994,7 @@ def phase_repair(vdir: str, base: str, hashes: list[str],
         raise AssertionError(f"repair c: {rec['launches']} K1 launches, "
                              f"want {rec['helper_applies']} helper + "
                              f"{chunks} local chunks")
-    report("c", rec, 11 * size)
+    repair_report("c", rec, 11 * size)
 
     # (d) as (b), with a:1 dying at its third call (at its last one on a
     # volume too small for three): one replan onto the repairing node and b:2
@@ -952,7 +1011,131 @@ def phase_repair(vdir: str, base: str, hashes: list[str],
             helper.returned.get("a:1", 0) or lag not in (0, chunk):
         raise AssertionError(f"repair d: {rec}, stand-in returned "
                              f"{helper.returned}")
-    report("d", rec)
+    repair_report("d", rec)
+    return runs
+
+
+# phase 10's repair topologies: LRC on phase 9's; MSR on four nodes, where
+# c:3 holds one shard so that losing it still leaves d = 16 survivors
+CODEC_REPAIR_HELPERS = {
+    "lrc": REPAIR_HELPERS,
+    "msr": (("a:1", range(6, 12), 1), ("c:3", (12,), 2),
+            ("b:2", range(13, 18), 3)),
+}
+LRC_UNDECODABLE = ("lrc: cannot reconstruct [12] from [0, 1, 2, 3, 4, 5, 7, "
+                   "8, 9, 10] (undecodable loss pattern)")
+
+
+def codec_repairs(vdir: str, base: str, spec, hashes: list[str],
+                  launches: dict) -> dict:
+    """Phase 10's reduced-read repairs of the encode's LRC or MSR shard
+    set, each checked against the encode's sha256, the plan's byte
+    ledger, the stand-in's own count and the K1 launches the plan
+    predicts.  LRC: [2] inside its group, [12] (a global) at d = 10, and
+    [12] at d = None, which must raise the reference's ValueError
+    (ROADMAP fault 3.5).  MSR: [0], [0, 13], and [0] with c:3 dying at
+    its third call."""
+    from seaweedfs_tpu_torch.ops import codecs
+    codec = codecs.make_codec(spec.tag)
+    helpers = CODEC_REPAIR_HELPERS[spec.family]
+    size = os.path.getsize(base + ".ec00")
+    runs = {}
+
+    def run(label, lost, d=None, die=None):
+        res, helper, rec = repair_run(vdir, base, label, spec, codec,
+                                      REPAIR_LOCAL, helpers, lost, hashes,
+                                      launches, d=d, die=die)
+        runs[label] = rec
+        return res, helper, rec
+
+    def expect(label, rec, res, per_node, naive, launched, applies):
+        if res["predicted"]["per_node"] != per_node or \
+                res["predicted"]["naive_remote"] != naive or \
+                rec["launches"] != launched or \
+                rec["helper_applies"] != applies:
+            raise AssertionError(
+                f"repair {label}: predicted {res['predicted']}, "
+                f"{rec['launches']} K1 launches ({rec['helper_applies']} "
+                f"by helpers); want {per_node}, naive {naive}, "
+                f"{launched} ({applies})")
+
+    if spec.family == "lrc":
+        chunks = -(-size // REPAIR_BATCH)
+        label = "lrc [2]"
+        res, helper, rec = run(label, [2])
+        ledgers_agree(label, res, helper)
+        expect(label, rec, res, {"b:2": size}, 5 * size, 2 * chunks, chunks)
+        repair_report(label, rec, 4 * size)
+        label = "lrc [12] d=10"
+        res, helper, rec = run(label, [12], d=10)
+        ledgers_agree(label, res, helper)
+        expect(label, rec, res, {"a:1": size, "b:2": size}, 4 * size,
+               3 * chunks, 2 * chunks)
+        repair_report(label, rec, 6 * size)
+        if size > REPAIR_ALIGN:  # stripes over more than one window
+            label = "lrc [12] d=None"
+            before = launches["gf_apply"]
+            try:
+                run(label, [12])
+            except ValueError as e:
+                if str(e) != LRC_UNDECODABLE or \
+                        launches["gf_apply"] != before or os.path.exists(
+                            os.path.join(vdir, "repair_lrc_[12]_d=None",
+                                         os.path.basename(base) + ".ec12")):
+                    raise AssertionError(f"repair {label}: {e!r}") from e
+                runs[label] = {"raised": str(e)}
+                log(f"[repair {label}] ValueError as the reference: {e}")
+            else:
+                raise AssertionError(f"repair {label} planned; the "
+                                     "reference's planner raises")
+        return runs
+
+    a = spec.alpha
+    sub = size // a
+    batch = REPAIR_BATCH // a
+    chunks = -(-sub // batch)
+    label = "msr [0]"
+    res, helper, rec = run(label, [0])
+    ledgers_agree(label, res, helper)
+    expect(label, rec, res, {"a:1": 6 * sub, "c:3": sub, "b:2": 4 * sub},
+           4 * size, 8 * chunks, 3 * chunks)
+    repair_report(label, rec, 5 * size)
+    label = "msr [0, 13]"
+    res, helper, rec = run(label, [0, 13])
+    ledgers_agree(label, res, helper)
+    expect(label, rec, res, {"a:1": 12 * sub, "c:3": 2 * sub,
+                             "b:2": 7 * sub}, 7 * size, 16 * chunks,
+           6 * chunks)
+    repair_report(label, rec, 11 * size)
+    # c:3 dies at its third call (its last, on a volume of fewer chunks):
+    # one replan over the repairing node, a:1 and b:2 (5 shards).  In the
+    # dying chunk the repairing node applies its 2 local matrices and a:1
+    # and b:2 their partials; a payload the rebuilder took in before it
+    # met c:3's error costs a post apply and counts in helper_bytes
+    label = "msr [0] c:3 dies"
+    after = min(2, chunks - 1)
+    res, helper, rec = run(label, [0], die=("c:3", after))
+    done = sum(min(batch, sub - i * batch) for i in range(after))
+    dying = min(batch, sub - after * batch)
+    taken = 0
+    for node, rows in (("a:1", 6), ("b:2", 4)):
+        lag = helper.returned[node] - res["helper_bytes"][node]
+        first = res["helper_bytes"][node] - res["predicted"]["per_node"][node]
+        if (lag, first) == (0, rows * (done + dying)):
+            taken += 1
+        elif (lag, first) != (rows * dying, rows * done):
+            raise AssertionError(f"repair {label}: {node} measured "
+                                 f"{res['helper_bytes'][node]}, stand-in "
+                                 f"{helper.returned[node]}")
+    if res["replans"] != 1 or res["dead_helpers"] != [
+            {"node": "c:3", "shards": [12]}] or \
+            not res["helper_bytes"].get("c:3", 0) == \
+            helper.returned.get("c:3", 0) == done:
+        raise AssertionError(f"repair {label}: {res}")
+    expect(label, rec, res, {"a:1": 6 * sub, "b:2": 5 * sub}, 4 * size,
+           8 * after + 4 + taken + 6 * chunks, 3 * after + 2 + 2 * chunks)
+    rec["payloads_taken_before_replan"] = taken
+    repair_report(label, rec)
     return runs
 
 
@@ -1102,6 +1285,9 @@ def phase_codecs(vdir: str, dat_path: str, expect: dict, blob: bytes,
             f"{row_blocks(spec.m * a)} row blocks; {checked} of {n_rows} "
             f"stripe rows == .dat and numpy's parity; {spec.n} shards of "
             f"{os.path.getsize(shard[0])} B")
+
+        # reduced-read repair, on links of the encode's shards
+        rec["repair"] = codec_repairs(vdir, base, spec, hashes, launches)
 
         # degraded reads: one decode apply (of at most 16 rows: one
         # launch) per needle with a byte on a lost shard

@@ -24,8 +24,8 @@ stored_j . phi_f (the same phi_f combination for all helpers); the
 collected d-vector equals Psi_H @ [S1 phi_f^T; S2 phi_f^T], so the
 rebuilder applies R = [I | lambda_f I] @ inv(Psi_H) and, because S1
 and S2 are symmetric, R @ received is node f's content transposed.
-The repair planner that ships these partials is ROADMAP 1.8b; this
-module holds the code and the whole-file codec.
+`ops/regen.plan_msr_repair` ships these partials (`repair_coeff`,
+`repair_matrix`).
 
 Byte layout: sub-packetization is BYTE-INTERLEAVED.  Sub-row a of
 node i's shard file is the byte set {t*alpha + a}; coupling is purely
@@ -97,6 +97,8 @@ class PMMSRCode:
         self.lam = np.array([gf.gf_pow(int(xi), a) for xi in self.x],
                             dtype=np.uint8)
         assert len(set(int(v) for v in self.lam)) == self.n_nodes
+        self.psi = np.concatenate(
+            [self.phi, gf.GF_MUL_TABLE[self.lam[:, None], self.phi]], axis=1)
         # E maps the B = k*alpha free symbols (upper triangles of S1, S2)
         # to the n*alpha stored symbols; systematise against the first k
         # nodes to get the generator G with parity block G[k*alpha:].
@@ -157,6 +159,33 @@ class PMMSRCode:
         basis = self.decode_select(list(available), list(wanted))
         inv = gf.gf_mat_inv(self.G[basis])
         return gf.gf_matmul(self.G[list(wanted)], inv)
+
+    # ---- regenerating repair (consumed by ops/regen.py) ------------------
+
+    def repair_coeff(self, lost_node: int) -> np.ndarray:
+        """[1, alpha] helper-side combination: every helper ships
+        phi_f @ its own sub-rows, one row per alpha stored."""
+        return self.phi[lost_node][None, :].copy()
+
+    def repair_matrix(self, lost_node: int,
+                      helpers: list[int]) -> np.ndarray:
+        """[alpha, d] rebuilder matrix R: node f's sub-rows are
+        R @ stacked helper symbols (helpers in the given order)."""
+        if len(helpers) != self.d:
+            raise ValueError(f"msr repair needs d={self.d} helpers, "
+                             f"got {len(helpers)}")
+        if lost_node in helpers:
+            raise ValueError("lost node cannot help itself")
+        inv = gf.gf_mat_inv(self.psi[list(helpers)])  # [d, d] Vandermonde
+        a = self.alpha
+        eye = np.eye(a, dtype=np.uint8)
+        # [I | lambda_f I] @ inv(Psi_H)
+        return gf.gf_matmul(
+            np.concatenate([eye, eye * self.lam[lost_node]], axis=1), inv)
+
+    def repair_ratio(self) -> float:
+        """Repair bytes over the naive k-shard copy: d / (k * alpha)."""
+        return self.d / (self.k_nodes * self.alpha)
 
 
 def split_rows(x: torch.Tensor, alpha: int) -> torch.Tensor:

@@ -1,18 +1,18 @@
 """Reduced-read shard repair: partial-sum decode plans over helper groups.
 
-Counterpart of `seaweedfs_tpu/ops/regen.py`, its Reed-Solomon half.  A
-naive single-shard rebuild copies k full survivor shards to the
-repairing node.  The code is linear, so
+Counterpart of `seaweedfs_tpu/ops/regen.py`.  A naive single-shard
+rebuild copies k full survivor shards to the repairing node.  The code
+is linear, so
 
     lost_row = sum_GF( M[0, i] * survivor_i )        (GF(2^8) sum == XOR)
 
 distributes over any partition of the survivors: each helper NODE applies
 its slice of the decode matrix to the shards it holds (one GF(2^8) matrix
 apply, `dispatch.apply_matrix`, kernel K1 on the card) and ships a single
-[1, range] partial, and the repairing node XORs the partials.  Network
-cost per remote node drops from (shards_held x range) to (1 x range), and
-the output is byte-identical to the naive decode, because exact MDS
-repair of a shard yields the same bytes from ANY k-survivor set.
+[f, range] partial, and the repairing node XORs the partials.  Network
+cost per remote node drops from (shards_held x range) to (f x range), and
+the output is byte-identical to the naive decode, because exact repair of
+a shard yields the same bytes from ANY decodable survivor set.
 
 With d > k helper shards available, the byte range is striped into
 segments with a rotating k-of-d survivor window, so each remote helper
@@ -20,9 +20,23 @@ reads only sub-shard ranges (~k/d of its shards) while per-node
 aggregation keeps the shipped bytes at one range.  Local shards (locality
 class 0) are free and always participate.
 
+Per family:
+- RS: the windows above (`plan_repair`).
+- LRC: `plan_repair` steers a single loss into the lost shard's local
+  group when the code's `repair_support` finds one (r survivors, not k),
+  and takes the decode matrix's columns from the code's `decode_select`
+  basis, dropping window shards outside it.  The windows take no account
+  of LRC not being MDS: a window the code cannot decode raises the
+  code's ValueError, as the reference does (ROADMAP fault 3.5).
+- MSR: `plan_msr_repair`, the regenerating-code plan in sub-row
+  coordinates: each of d helpers ships one combined sub-row per held
+  shard, and the repairing node expands every payload through a `post`
+  matrix into the alpha sub-rows of the lost shard.
+
 Multi-shard loss is repaired as a sequence of single-shard plans
 (`storage/ec/ec_files.rebuild_ec_reduced`: each rebuilt shard joins the
-local survivors for the next pass).
+local survivors for the next pass).  A ValueError from a planner sends
+the caller to the naive copy+rebuild path.
 """
 
 from __future__ import annotations
@@ -76,11 +90,15 @@ class HelperGroup:
 
 @dataclass(frozen=True)
 class Part:
-    """One group's contribution to one segment: coeff [1, len(shards)]
-    over the group's shard rows, in `shards` order."""
+    """One group's contribution to one segment: coeff [f, len(shards)]
+    over the group's shard rows, in `shards` order.  `post`, when set, is
+    a matrix the repairing node applies to the group's [f, n] partial
+    before the XOR: an MSR helper's payload expands through its columns
+    of R into all alpha output sub-rows."""
     group: HelperGroup
     shards: tuple[int, ...]
     coeff: np.ndarray
+    post: np.ndarray | None = None
 
 
 @dataclass(frozen=True)
@@ -97,6 +115,10 @@ class RepairPlan:
     d: int
     length: int
     segments: list[Segment] = field(default_factory=list)
+    # output rows per offset: 1 for RS and LRC plans, alpha for MSR
+    # plans, whose offsets and lengths are in SUB-ROW coordinates (file
+    # bytes / alpha)
+    out_rows: int = 1
 
     def predicted_bytes(self) -> dict:
         """Exact repair bandwidth this plan will move, per node and per
@@ -125,8 +147,9 @@ class RepairPlan:
 
     def naive_remote_bytes(self, n_local: int) -> int:
         """Bytes the copy-survivors-then-rebuild baseline would move for
-        this loss: (k - local survivors) full shard ranges."""
-        return max(0, self.k - n_local) * self.length
+        this loss: (k - local survivors) full shard ranges.  Sub-row plans
+        scale back up by out_rows: the baseline copies whole shard files."""
+        return max(0, self.k - n_local) * self.length * self.out_rows
 
 
 def _order_survivors(groups: list[HelperGroup], exclude: set[int]
@@ -141,15 +164,6 @@ def _order_survivors(groups: list[HelperGroup], exclude: set[int]
     return out
 
 
-def require_rs(family: str, tag: str) -> None:
-    """Refuse a code this module cannot plan for: its plans read k sorted
-    shards per window (MDS), which is wrong for LRC and MSR."""
-    if family != "rs":
-        raise NotImplementedError(
-            f"reduced-read repair of {tag} volumes: the {family.upper()} "
-            f"repair planner is not ported yet (ROADMAP 1.8b)")
-
-
 def plan_repair(code, lost: int, groups: list[HelperGroup], length: int,
                 d: int | None = None,
                 align: int = DEFAULT_SEG_ALIGN) -> RepairPlan:
@@ -157,27 +171,38 @@ def plan_repair(code, lost: int, groups: list[HelperGroup], length: int,
 
     `d` caps how many helper shards participate (None = all survivors;
     clamped to [k, available]).  With d > k the range stripes into
-    rotating k-of-d windows; local shards are in every window.  Each
-    window's decode matrix reads its k sorted shards (MDS): RS codes
-    only."""
-    family = getattr(code, "family", "rs")
-    require_rs(family, getattr(code, "tag", family))
+    rotating k-of-d windows; local shards are in every window.
+
+    Codes exposing `repair_support(lost, available)` (LRC) steer the plan
+    into the lost shard's local group when it suffices: the window becomes
+    the support set (r survivors, no cross-group fan-in).  Each window's
+    decode matrix has its columns in the code's `decode_select` basis
+    where the code has one; window shards outside the basis drop out."""
     k = code.k
     entries = _order_survivors(groups, {lost})
-    if len(entries) < k:
+    support_hook = getattr(code, "repair_support", None)
+    k_eff = k
+    if support_hook is not None:
+        support = support_hook(lost, sorted({s for _, s in entries}))
+        if support is not None:
+            sup = set(support)
+            entries = [(g, s) for g, s in entries if s in sup]
+            k_eff = len(support)
+    if len(entries) < k_eff:
         raise ValueError(
-            f"need >= {k} survivors to repair shard {lost}, "
+            f"need >= {k_eff} survivors to repair shard {lost}, "
             f"have {len(entries)}")
-    d_eff = len(entries) if d is None else max(k, min(int(d), len(entries)))
+    d_eff = len(entries) if d is None \
+        else max(k_eff, min(int(d), len(entries)))
     helpers = entries[:d_eff]
     local = [(g, s) for g, s in helpers if g.locality == 0]
     remote = [(g, s) for g, s in helpers if g.locality != 0]
-    t = k - len(local)
+    t = k_eff - len(local)
     plan = RepairPlan(lost=lost, k=k, d=d_eff, length=length)
     if length <= 0:
         return plan
     if t <= 0:
-        windows = [local[:k]]
+        windows = [local[:k_eff]]
     elif t >= len(remote):
         windows = [local + remote]
     else:
@@ -193,22 +218,87 @@ def plan_repair(code, lost: int, groups: list[HelperGroup], length: int,
     base = (length // nseg) // align * align if nseg > 1 else length
     if nseg > 1 and base == 0:
         nseg, base = 1, length
+    sel = getattr(code, "decode_select", None)
     for s in range(nseg):
         off = s * base
         size = base if s < nseg - 1 else length - off
         win = windows[s]
         sids = sorted(sid for _, sid in win)
-        M = code.decode_matrix(sids, [lost])  # [1, k] over sorted sids
-        col = {sid: i for i, sid in enumerate(sids)}
+        basis = list(sel(sids, [lost])) if sel is not None else sids
+        M = code.decode_matrix(sids, [lost])  # [1, |basis|]
+        col = {sid: i for i, sid in enumerate(basis)}
         parts: list[Part] = []
         for g in sorted({id(gr): gr for gr, _ in win}.values(),
                         key=lambda g: (g.locality, g.node)):
-            mine = tuple(sorted(sid for gr, sid in win if gr is g))
+            mine = tuple(sorted(sid for gr, sid in win
+                                if gr is g and sid in col))
+            if not mine:
+                continue
             coeff = np.ascontiguousarray(
                 M[:, [col[sid] for sid in mine]], dtype=np.uint8)
             parts.append(Part(group=g, shards=mine, coeff=coeff))
         plan.segments.append(Segment(offset=off, size=size,
                                      parts=tuple(parts)))
+    return plan
+
+
+def plan_msr_repair(code, lost: int, groups: list[HelperGroup],
+                    length: int, d: int | None = None,
+                    align: int = DEFAULT_SEG_ALIGN) -> RepairPlan:
+    """Build the regenerating-code repair plan for ONE lost MSR shard file
+    over its full [0, length) byte range.  `code` is the file codec or its
+    inner `PMMSRCode`; `align` is unused (one segment), and is taken so
+    that `repair_shard` calls every planner alike.
+
+    Plan coordinates are SUB-ROWS (file bytes / alpha): shard ids in Parts
+    are virtual ids `file_sid * alpha + j`, offsets and sizes are sub-row
+    offsets, and the executor's read_local / fetch_partial / sink own the
+    byte-interleave translation (virtual rows [o, o+s) are the contiguous
+    file range [o*alpha, (o+s)*alpha)).
+
+    Each of the d helper shards contributes ONE combined sub-row (coeff =
+    phi_f per held shard, block-diagonal for a node holding several), and
+    the repairing node expands each node's payload through its R columns
+    (`post`): d/alpha shard-equivalents over the network, against k for
+    the naive copy.  Raises ValueError when fewer than d helper shards
+    survive or `length` is not an alpha multiple."""
+    inner = getattr(code, "code", code)
+    a = inner.alpha
+    need = inner.d if d is None else max(inner.d, int(d))
+    if length % a != 0:
+        raise ValueError(f"msr length {length} not a multiple of "
+                         f"alpha={a}")
+    sub_len = length // a
+    entries = _order_survivors(groups, {lost})
+    if len(entries) < need:
+        raise ValueError(
+            f"msr repair of shard {lost} needs {need} helpers, "
+            f"have {len(entries)}")
+    helpers = entries[:need]
+    helper_sids = [sid for _, sid in helpers]
+    phi = inner.repair_coeff(lost)                 # [1, alpha]
+    R = inner.repair_matrix(lost, helper_sids)     # [alpha, d]
+    col = {sid: i for i, sid in enumerate(helper_sids)}
+    plan = RepairPlan(lost=lost, k=inner.k_nodes, d=need, length=sub_len,
+                      out_rows=a)
+    if sub_len <= 0:
+        return plan
+    parts: list[Part] = []
+    for g in sorted({id(gr): gr for gr, _ in helpers}.values(),
+                    key=lambda g: (g.locality, g.node)):
+        mine = tuple(sorted(sid for gr, sid in helpers if gr is g))
+        c = len(mine)
+        coeff = np.zeros((c, c * a), dtype=np.uint8)
+        vids: list[int] = []
+        for i, sid in enumerate(mine):
+            coeff[i, i * a:(i + 1) * a] = phi[0]
+            vids.extend(sid * a + j for j in range(a))
+        post = np.ascontiguousarray(R[:, [col[sid] for sid in mine]],
+                                    dtype=np.uint8)
+        parts.append(Part(group=g, shards=tuple(vids), coeff=coeff,
+                          post=post))
+    plan.segments.append(Segment(offset=0, size=sub_len,
+                                 parts=tuple(parts)))
     return plan
 
 
@@ -231,9 +321,11 @@ def execute_plan(codec, plan: RepairPlan, read_local, fetch_partial,
                  pool: ThreadPoolExecutor | None) -> None:
     """Run one plan: per batch chunk, submit each remote group's fetch to
     `pool`, compute the local partial through `dispatch.apply_matrix`, XOR
-    the remote partials in as they complete, and hand the rebuilt range
-    to `sink(offset, ndarray)`.  `pool` may be None only for a plan with
-    no remote part.
+    the remote partials in as they complete (each through its part's
+    `post` first, where it has one), and hand the rebuilt range to
+    `sink(offset, ndarray)`: one [n] row for a scalar-row plan, all
+    [out_rows, n] sub-rows for a sub-row plan.  `pool` may be None only
+    for a plan with no remote part.
 
     `read_local(sid, off, n) -> bytes|None`; a short/failed local read
     raises HelperDied("", (sid,)) so the caller replans without it.
@@ -243,8 +335,8 @@ def execute_plan(codec, plan: RepairPlan, read_local, fetch_partial,
     partial shard visible.  `stats` gets the payload bytes received per
     node (`helper_bytes`) and per locality class (`by_locality`), and the
     caller thread's seconds by stage: local preads and stack (`read_s`),
-    the local apply (`apply_s`), waiting on remote partials (`wait_s`),
-    XOR (`xor_s`) and the sink (`write_s`)."""
+    the local apply and every post apply (`apply_s`), waiting on remote
+    partials (`wait_s`), XOR (`xor_s`) and the sink (`write_s`)."""
     for seg in plan.segments:
         end = seg.offset + seg.size
         for off in range(seg.offset, end, batch_size):
@@ -269,6 +361,8 @@ def execute_plan(codec, plan: RepairPlan, read_local, fetch_partial,
                 stack = np.stack(rows)
                 t = _tick(stats, "read_s", t)
                 local = dispatch.apply_matrix(codec, part.coeff, stack)
+                if part.post is not None:
+                    local = dispatch.apply_matrix(codec, part.post, local)
                 t = _tick(stats, "apply_s", t)
                 acc = _xor_into(acc, local)
                 t = _tick(stats, "xor_s", t)
@@ -290,12 +384,18 @@ def execute_plan(codec, plan: RepairPlan, read_local, fetch_partial,
                 bl = stats.setdefault("by_locality", {})
                 name = locality_name(part.group.locality)
                 bl[name] = bl.get(name, 0) + want
-                acc = _xor_into(acc, np.frombuffer(
-                    payload, dtype=np.uint8).reshape(
-                        part.coeff.shape[0], n))
+                arr = np.frombuffer(payload, dtype=np.uint8).reshape(
+                    part.coeff.shape[0], n)
+                if part.post is not None:
+                    arr = dispatch.apply_matrix(codec, part.post, arr)
+                    t = _tick(stats, "apply_s", t)
+                acc = _xor_into(acc, arr)
                 t = _tick(stats, "xor_s", t)
             assert acc is not None, "plan segment with no parts"
-            sink(off, acc[0])
+            if plan.out_rows == 1:
+                sink(off, acc[0])
+            else:
+                sink(off, acc.reshape(plan.out_rows, n))
             _tick(stats, "write_s", t)
 
 
@@ -303,15 +403,18 @@ def repair_shard(code, codec, lost: int, groups: list[HelperGroup],
                  length: int, read_local, fetch_partial, sink, *,
                  d: int | None = None, batch_size: int = 16 * 1024 * 1024,
                  align: int = DEFAULT_SEG_ALIGN,
-                 stats: dict) -> RepairPlan:
+                 stats: dict, planner=plan_repair) -> RepairPlan:
     """Repair one lost shard with automatic re-planning: when a helper
     dies mid-transfer (HelperDied), its node (or, for the repairing node's own
     reads, its shards) leaves the survivor pool and the WHOLE shard
     recomputes under a fresh plan; `sink` writes are offset-addressed and
-    idempotent, so a restart simply overwrites.  `stats` gets
+    idempotent, so a restart simply overwrites.  `planner` is
+    `plan_repair` (RS, LRC) or `plan_msr_repair` (MSR, whose virtual
+    shard ids map back to files as `sid // out_rows`).  `stats` gets
     execute_plan's ledgers and stage seconds, and also counts `replans`
-    and lists `dead_helpers`.  Raises ValueError when fewer than k
-    survivors remain.  Returns the plan that completed."""
+    and lists `dead_helpers` (in file shard ids).  Raises the planner's
+    ValueError when too few survivors remain.  Returns the plan that
+    completed."""
     dead_nodes: set[str] = set()
     dead_shards: set[int] = set()
     pool: ThreadPoolExecutor | None = None
@@ -324,7 +427,7 @@ def repair_shard(code, codec, lost: int, groups: list[HelperGroup],
                 keep = tuple(s for s in g.shards if s not in dead_shards)
                 if keep:
                     live.append(g.replace_shards(keep))
-            plan = plan_repair(code, lost, live, length, d=d, align=align)
+            plan = planner(code, lost, live, length, d=d, align=align)
             remote = {g.node for g in live if g.locality != 0}
             if pool is None and remote:
                 # one pool for every attempt: a replan must not pay
@@ -337,7 +440,7 @@ def repair_shard(code, codec, lost: int, groups: list[HelperGroup],
                              sink, batch_size, stats, pool)
                 return plan
             except HelperDied as e:
-                shards = sorted(set(e.shards))
+                shards = sorted({s // plan.out_rows for s in e.shards})
                 stats["replans"] = stats.get("replans", 0) + 1
                 stats.setdefault("dead_helpers", []).append(
                     {"node": e.node, "shards": shards})

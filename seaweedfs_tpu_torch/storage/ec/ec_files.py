@@ -586,11 +586,13 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
 def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
                        fetch_partial, *, d: int | None = None,
                        stats: dict | None = None, device=None) -> dict:
-    """Reduced-read rebuild of the `lost` shards: instead of copying k
-    full survivor shards here, each remote helper node ships one
-    XOR-combinable partial product per range (ops/regen.py), so repair
-    bytes per remote node drop to one shard range per lost shard, and the
-    output is byte-identical to a full decode.
+    """Reduced-read rebuild of the `lost` shards under the code the `.vif`
+    names: instead of copying k full survivor shards here, each remote
+    helper node ships XOR-combinable partial products (ops/regen.py), so
+    repair bytes per remote node drop to one range per lost shard (RS),
+    one range inside the lost shard's local group (LRC single loss), or
+    one sub-row per held shard (MSR), and the output is byte-identical to
+    a full decode.
 
     `groups` lists the REMOTE helper nodes: {"node": name, "shards":
     [ids], "locality": class}.  The local survivor group is the shard
@@ -598,24 +600,28 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
     pass.  `fetch_partial(group, shards, coeff_rows, offset, size) ->
     bytes` is the caller's hop to a helper; its failures raise
     regen.HelperDied and trigger a re-plan with a substitute survivor.
-    Each lost shard builds under a `.tmp` name and commits by rename, so
-    a dead helper or a crash never leaves a partial shard visible.
+    For MSR the shard ids are virtual (`file_sid * alpha + j`, sub-row j
+    of the file) and offset and size are in sub-row bytes: the helper
+    reads file bytes [offset*alpha, (offset+size)*alpha) and takes column
+    j of their [size, alpha] view.  Each lost shard builds under a `.tmp`
+    name and commits by rename, so a dead helper, a plan the code cannot
+    decode (ValueError) or a crash never leaves a partial shard visible.
 
-    Chunks are DEFAULT_BATCH bytes and segments align to
-    regen.DEFAULT_SEG_ALIGN, both read at call time.
+    Chunks are DEFAULT_BATCH bytes (MSR: DEFAULT_BATCH / alpha sub-row
+    bytes, so a helper's file read stays one batch) and segments align
+    to regen.DEFAULT_SEG_ALIGN, both read at call time.
 
     Returns the accounting: measured helper bytes per node and locality
     class, the completed plans' predictions (with the naive copy-then-
     rebuild cost, `naive_remote`), replans and dead helpers.  `stats`,
     when a dict, also gets mode, bytes, codec, reconstruct_s, wall_s and
-    the repairing thread's stage seconds (regen.execute_plan).
-
-    RS volumes only: the LRC and MSR repair planners are ROADMAP 1.8b,
-    and any other family raises NotImplementedError before a file is
-    opened."""
+    the repairing thread's stage seconds (regen.execute_plan)."""
     spec = codecs.parse_tag((read_vif(base) or {}).get("codec"))
-    regen.require_rs(spec.family, spec.tag)
     codec = _get_codec(device, spec.tag)
+    alpha = spec.alpha
+    batch_size = DEFAULT_BATCH
+    if spec.family == "msr":
+        batch_size = max(alpha, batch_size // alpha)
     lost = sorted(set(lost))
     local_fds: dict[int, int] = {}
     stats = stats if stats is not None else {}
@@ -632,6 +638,9 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
             raise ValueError(f"cannot size shards of {base}")
         stats["bytes"] = shard_size * len(lost)
         stats["codec"] = spec.tag
+        if shard_size % alpha:
+            raise ValueError(
+                f"shard size {shard_size} not {alpha}-aligned for {spec.tag}")
 
         def read_local(sid: int, off: int, n: int) -> bytes | None:
             fd = local_fds.get(sid)
@@ -641,6 +650,31 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
                 return os.pread(fd, n, off)
             except OSError:
                 return None
+
+        # MSR plans address sub-rows: one pread of the file range
+        # [off*alpha, (off+n)*alpha) holds all alpha of a file's sub-rows,
+        # so a one-slot cache serves the alpha consecutive reads
+        # execute_plan makes per local file from that single pread
+        _vblk: dict = {}
+
+        def read_local_sub(vid: int, off: int, n: int) -> bytes | None:
+            fsid = vid // alpha
+            fd = local_fds.get(fsid)
+            if fd is None:
+                return None
+            key = (fsid, off, n)
+            blk = _vblk.get(key)
+            if blk is None:
+                try:
+                    raw = os.pread(fd, n * alpha, off * alpha)
+                except OSError:
+                    return None
+                if len(raw) != n * alpha:
+                    return None
+                blk = np.frombuffer(raw, np.uint8).reshape(n, alpha)
+                _vblk.clear()
+                _vblk[key] = blk
+            return blk[:, vid % alpha].tobytes()
 
         remote_groups = [
             regen.HelperGroup(node=g["node"],
@@ -655,18 +689,32 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
             out_fd = os.open(tmp, os.O_RDWR | os.O_CREAT, 0o644)
             committed = False
             try:
-                def sink(off: int, row: np.ndarray, fd: int = out_fd) -> None:
-                    _pwrite_all(fd, row, off)
+                if spec.family == "msr":
+                    # [alpha, n] sub-rows back into file byte order
+                    def sink(off: int, rows: np.ndarray,
+                             fd: int = out_fd) -> None:
+                        _pwrite_all(fd, rows.T.reshape(-1), off * alpha)
+
+                    planner, plan_code = regen.plan_msr_repair, codec
+                    reader = read_local_sub
+                else:
+                    def sink(off: int, row: np.ndarray,
+                             fd: int = out_fd) -> None:
+                        _pwrite_all(fd, row, off)
+
+                    planner, plan_code = regen.plan_repair, codec.code
+                    reader = read_local
 
                 local_group = regen.HelperGroup(
                     node="", shards=tuple(sorted(local_fds)), locality=0)
                 with _Timer(stats, "reconstruct_s"):
                     plan = regen.repair_shard(
-                        codec.code, codec, sid,
+                        plan_code, codec, sid,
                         [local_group] + remote_groups, shard_size,
-                        read_local, fetch_partial, sink,
-                        d=d, batch_size=DEFAULT_BATCH,
-                        align=regen.DEFAULT_SEG_ALIGN, stats=stats)
+                        reader, fetch_partial, sink,
+                        d=d, batch_size=batch_size,
+                        align=regen.DEFAULT_SEG_ALIGN, stats=stats,
+                        planner=planner)
                 os.ftruncate(out_fd, shard_size)
                 os.close(out_fd)
                 out_fd = -1

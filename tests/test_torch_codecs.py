@@ -547,19 +547,3 @@ def test_scrub_equals_reference(volumes, tmp_path, monkeypatch):
     want_shard = flipped if tag.startswith("lrc") else -1
     assert found["shard"] == want_shard
     assert found["offset"] <= offset < found["offset"] + found["size"]
-
-
-def test_reduced_repair_refuses_non_rs(volumes, tmp_path):
-    """The LRC and MSR repair planners are ROADMAP 1.8b: rebuild_ec_reduced
-    refuses both families before it opens a file."""
-    base = _copy(volumes["port"], str(tmp_path / "v"))
-    os.remove(base + layout.to_ext(3))
-    before = sorted(os.listdir(os.path.dirname(base)))
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8b"):
-        ec_files.rebuild_ec_reduced(base, [3], [], lambda *a: b"",
-                                    device="cpu")
-    assert sorted(os.listdir(os.path.dirname(base))) == before
-    from seaweedfs_tpu_torch.ops import regen
-    code = codecs.make_codec(volumes["tag"], device="cpu").code
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8b"):
-        regen.plan_repair(code, 3, [], 100)

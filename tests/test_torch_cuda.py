@@ -307,3 +307,90 @@ def test_cuda_codec_volume_equals_cpu(card, tmp_path, tag, losses, blocks):
         assert (launched > 0) == (dev == "cuda")
         assert gf_cuda.STAGED == staged
     assert files["cpu"] == files["cuda"]
+
+
+def _msr_repair_matrices(c: int):
+    """MSR repair's two matrices for a helper node of c shards, lost 0:
+    the block-diagonal [c, 8c] helper coefficients and the [8, c] post."""
+    from seaweedfs_tpu_torch.ops import msr
+    code = msr.get_code(9, 16)
+    helpers = list(range(1, 17))
+    phi = code.repair_coeff(0)
+    coeff = np.zeros((c, 8 * c), dtype=np.uint8)
+    for i in range(c):
+        coeff[i, 8 * i:8 * (i + 1)] = phi[0]
+    R = code.repair_matrix(0, helpers)
+    return coeff, np.ascontiguousarray(R[:, :c])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 4097, (2 << 20) + 5])
+@pytest.mark.parametrize("c", [1, 4, 5, 6])
+def test_cuda_apply_matrix_msr_repair_shapes(card, c, n):
+    """MSR repair's applies on the card, [c, 8c] @ [8c, n] (a helper's
+    sub-rows, k up to 48) and [8, c] @ [c, n] (the post), one K1 launch
+    each on rows read in place, equal to the CPU's apply at ragged n."""
+    coeff, post = _msr_repair_matrices(c)
+    g = np.random.default_rng(c * 31 + n)
+    for C in (coeff, post):
+        stack = g.integers(0, 256, (C.shape[1], n), dtype=np.uint8)
+        before, staged = dict(gf_cuda.LAUNCHES), dict(gf_cuda.STAGED)
+        got = dispatch.apply_matrix(gf_cuda.get_codec(10, 4, device=card),
+                                    C, stack)
+        assert gf_cuda.LAUNCHES["gf_apply"] == before["gf_apply"] + 1
+        assert gf_cuda.STAGED == staged
+        assert np.array_equal(got, dispatch.apply_matrix(
+            gf_cuda.get_codec(10, 4, device="cpu"), C, stack))
+        assert np.array_equal(got, gf.gf_matmul(C, stack))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,lost,d", [("lrc_10_2_2", [2], None),
+                                        ("lrc_10_2_2", [12], 10),
+                                        ("msr_9_16", [0, 13], None)])
+def test_cuda_rebuild_ec_reduced_codecs_equal_cpu(card, tmp_path,
+                                                  monkeypatch, tag, lost, d):
+    """LRC and MSR rebuild_ec_reduced on the card write the files and
+    return the result dict they do on the CPU (16 000 B shards, 4 KiB
+    batches: MSR's 512 B sub-row chunks end in a ragged one), with the
+    helpers' partials on the same device and no input staged."""
+    from seaweedfs_tpu_torch.ops import codecs, regen
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    monkeypatch.setattr(ec_files, "DEFAULT_BATCH", 4096)
+    monkeypatch.setattr(regen, "DEFAULT_SEG_ALIGN", 1024)
+    cpu = codecs.make_codec(tag, device="cpu")
+    a = 8 if tag == "msr_9_16" else 1
+    data = np.random.default_rng(13).integers(0, 256, (cpu.k, 16_000),
+                                              dtype=np.uint8)
+    full = cpu.encode(torch.from_numpy(data)).numpy()
+    spans = ([("a:1", range(6, 9), 1), ("b:2", range(9, 14), 3)] if a == 1
+             else [("a:1", range(6, 12), 1), ("c:3", (12,), 2),
+                   ("b:2", range(13, 18), 3)])
+    groups = [{"node": n, "shards": list(s), "locality": loc}
+              for n, s, loc in spans]
+    results, files = {}, {}
+    for dev in ("cpu", "cuda"):
+        d_ = tmp_path / dev
+        d_.mkdir()
+        base = str(d_ / "4")
+        for s in range(6):
+            if s not in lost:
+                (d_ / ("4" + layout.to_ext(s))).write_bytes(full[s].tobytes())
+        ec_files.write_vif(base, 10 * 16_000, codec=tag)
+        codec = codecs.make_codec(tag, device=dev)
+
+        def fetch(group, vids, coeff, off, n, codec=codec):
+            rows = np.stack([full[v // a][off * a:(off + n) * a]
+                             .reshape(n, a)[:, v % a] for v in vids])
+            return dispatch.apply_matrix(codec, coeff, rows).tobytes()
+        before, staged = dict(gf_cuda.LAUNCHES), dict(gf_cuda.STAGED)
+        results[dev] = ec_files.rebuild_ec_reduced(base, lost, groups,
+                                                   fetch, d=d, device=dev)
+        launched = gf_cuda.LAUNCHES["gf_apply"] - before["gf_apply"]
+        assert (launched > 0) == (dev == "cuda")
+        assert gf_cuda.STAGED == staged
+        files[dev] = {p.name: p.read_bytes() for p in sorted(d_.iterdir())}
+    assert results["cpu"] == results["cuda"]
+    assert files["cpu"] == files["cuda"]
+    for s in lost:
+        assert files["cuda"]["4" + layout.to_ext(s)] == full[s].tobytes()

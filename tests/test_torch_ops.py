@@ -56,8 +56,9 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_port_path_leaves_jax_unloaded(tmp_path):
     """Encode through the codec, convert a fleet of two volumes, scrub
     one of them and repair a lost shard of it from a helper's partials,
-    all on the CPU, in a fresh interpreter: neither jax nor the reference
-    package gets imported."""
+    then regenerate a lost MSR shard from helper sub-rows, all on the
+    CPU, in a fresh interpreter: neither jax nor the reference package
+    gets imported."""
     code = ("import os, sys, numpy as np, torch\n"
             "from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume\n"
             "from seaweedfs_tpu_torch.ops import dispatch, fleet_convert, "
@@ -94,6 +95,22 @@ def test_port_path_leaves_jax_unloaded(tmp_path):
             "'shards': sorted(held), 'locality': 1}], fetch, device='cpu')\n"
             "assert r['rebuilt'] == [3] and r['helper_bytes'] == {'h': 3000}\n"
             "assert open(b + '.ec03', 'rb').read() == want\n"
+            "m = codecs.make_codec('msr_9_16', device='cpu')\n"
+            "full = m.encode(torch.from_numpy(np.frombuffer(os.urandom(9 * 64),"
+            " np.uint8).reshape(9, 64).copy())).numpy()\n"
+            "mb = os.path.join(d, '9')\n"
+            "for s in range(1, 6):\n"
+            "    open(mb + '.ec%02d' % s, 'wb').write(full[s].tobytes())\n"
+            "ec_files.write_vif(mb, 9 * 64, codec='msr_9_16')\n"
+            "def sub_fetch(group, vids, coeff, off, n):\n"
+            "    rows = np.stack([full[v // 8][off * 8:(off + n) * 8]"
+            ".reshape(n, 8)[:, v % 8] for v in vids])\n"
+            "    return dispatch.apply_matrix(m, coeff, rows).tobytes()\n"
+            "r = ec_files.rebuild_ec_reduced(mb, [0], [{'node': 'h', "
+            "'shards': list(range(6, 18)), 'locality': 1}], sub_fetch, "
+            "device='cpu')\n"
+            "assert r['helper_bytes'] == {'h': 11 * 8}, r\n"
+            "assert open(mb + '.ec00', 'rb').read() == full[0].tobytes()\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('seaweedfs_tpu.') for m in sys.modules), "
             "sorted(m for m in sys.modules if 'jax' in m)\n")
