@@ -8,6 +8,7 @@ to end and check every byte.
 Phases (any failure ends the run with a non-zero exit and no result line):
 
   1 build      nvcc/g++ build of seaweedfs_tpu_torch/csrc, all at once
+               (the GF kernel, the needle checksum, the native host codec)
   2 kernel     the GF(2^8) kernel against gf_apply_plain, byte for byte:
                timed at the paths' shapes (encode, rebuild, degraded
                reads, the fleet's unit batches, repair's partials, MSR's
@@ -66,15 +67,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                reference's ValueError, ROADMAP fault 3.5); MSR, on four
                nodes, [0], [0, 13], and [0] with "c:3" dying mid-repair;
                checked as phase 9's runs
- 11 report     {"kernels": [...]} line, the card's name and power limit,
+ 11 native     the native host codec (WEEDTPU_EC_CODEC=native) on this
+               card's host: the CPU's model, cores and auto impl; its
+               product at [4,10]@[10,1MiB] and @[10,16MiB] under AVX2
+               (and GFNI where the CPU has it) byte-equal to K1's output
+               and the plain version's on phase 2's inputs, then timed;
+               the reference's AVX2 baseline (256 KiB strips, 14 files
+               written in the loop, best of 3: baseline_refshape_gbps);
+               the phase-3 .dat encoded under AVX2 and under auto, each
+               from no shard set and sha256-equal to phase 4's; phase
+               5's degraded reads and phase 6's loss rebuilt
+               host-serial, sha256-equal; no kernel launched;
+               the card-vs-CPU ratios of this call (warm encode over
+               native AVX2 pipelined and over the baseline, rebuild over
+               host-serial) beside the card's name and power limit and
+               the CPU's model
+ 12 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
 and dropped from the page cache (posix_fadvise DONTNEED; mincore reports
 the share still resident), then "warm", right after, with those files
-cached.  Launch counts are zeroed just before phase 3 and read just after
-phase 9, and zeroed again just before phase 10 and read just after it,
-so the reported launches are the paths' own (their sum); the run fails if
+cached; each encode run starts with no shard set on disk.  Launch
+counts are zeroed just before phase 3 and read just after phase 9, and
+zeroed again just before phase 10 and read just after it, so the
+reported launches are the paths' own (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
 (`gf_cuda.STAGED`), since each hands the kernel rows it reads in place,
 and if K2 was not launched.  After those windows, two records: fleet
@@ -238,9 +255,15 @@ def kernel_cases(seed: int):
     return cases
 
 
-def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
+# phase 2's cases whose inputs and K1 outputs phase 11 holds the native
+# host codec against
+NATIVE_CASES = ("parity [10,1MiB]", "parity [10,16MiB]")
+
+
+def phase_kernel(seed: int) -> tuple[list[dict], list[dict], dict]:
     """Kernel vs plain at the main path's shapes and the correctness cases;
-    returns (rows, json)."""
+    returns (rows, json, {case: (C, x, K1's output)} on the host for
+    NATIVE_CASES)."""
     import torch
     from seaweedfs_tpu_torch.ops import gf_cuda
 
@@ -248,6 +271,7 @@ def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
     g = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(128 * MIB, dtype=torch.uint8, device="cuda")
     rows = []
+    k1_io = {}
 
     def check(name, got, want):
         torch.cuda.synchronize()
@@ -274,7 +298,11 @@ def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
 
         def plain():
             return gf_cuda.gf_apply_plain(bit, x)
-        err = check(name, kern(), plain())
+        got = kern()
+        err = check(name, got, plain())
+        if name in NATIVE_CASES:
+            k1_io[name] = (mat.C, x.cpu().numpy(), got.cpu().numpy())
+        del got
         units = shape[0] if batched else 1
         nbytes = units * (mat.k + mat.m) * n
         row = {"case": name, "max_abs_err": err, "bytes": nbytes,
@@ -309,7 +337,7 @@ def phase_kernel(seed: int) -> tuple[list[dict], list[dict]]:
         entry("gf_apply_batch", "seaweedfs_tpu/ops/pallas_gf.py:304",
               "batch [4,10,1MiB]"),
     ]
-    return rows, kernels
+    return rows, kernels, k1_io
 
 
 def views_and_codec(seed: int) -> list[dict]:
@@ -1411,6 +1439,276 @@ def phase_codecs(vdir: str, dat_path: str, expect: dict, blob: bytes,
     return out
 
 
+def cpu_model() -> str:
+    """The host CPU's `model name` from /proc/cpuinfo; where it is absent
+    or "unknown" (as on some virtualised hosts), its vendor, family,
+    model and clock."""
+    fields: dict = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            fields.setdefault(key.strip(), val.strip())
+            if not line.strip():
+                break  # the first processor is enough
+    name = fields.get("model name", "")
+    if name and name != "unknown":
+        return name
+    return (f"{fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')}, {fields.get('cpu MHz', '?')} MHz "
+            f"(model name {name or 'absent'})")
+
+
+def card_name_power() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def baseline_refshape(ndir: str, seed: int) -> float:
+    """The reference's CPU baseline (its bench's
+    `_bench_baseline_refshape`, after ec_encoder.go:198-224): 256 KiB
+    strips read from a file, parity by the native codec forced to AVX2,
+    all 14 shard files written inside the timed loop; 16 stripes of 10
+    strips a pass, best of 3.  Returns GB/s of volume data.  The written
+    parity of the first stripe is checked against numpy's GF product."""
+    import numpy as np
+    from seaweedfs_tpu_torch import native
+    from seaweedfs_tpu_torch.ops import gf, native_codec
+    from seaweedfs_tpu_torch.ops.rows import device_empty
+
+    codec = native_codec.get_codec(10, 4)
+    strip, strips = 256 * 1024, 16
+    payload = np.random.default_rng(seed + 11).integers(
+        0, 256, strips * 10 * strip, dtype=np.uint8)
+    bdir = os.path.join(ndir, "baseline")
+    os.makedirs(bdir)
+    dat = os.path.join(bdir, "v.dat")
+    payload.tofile(dat)
+    batch = device_empty((10, strip), codec.device)
+    bn = batch.numpy()
+    native.set_gf_impl(native.GF_IMPL_AVX2)
+    best = float("inf")
+    for _ in range(3):
+        outs = [open(os.path.join(bdir, f"v.ec{i:02d}"), "wb")
+                for i in range(14)]
+        t0 = time.perf_counter()
+        with open(dat, "rb") as f:
+            for _ in range(strips):
+                for j in range(10):
+                    bn[j] = np.frombuffer(f.read(strip), np.uint8)
+                parity = codec.encode_parity(batch).numpy()
+                for j in range(10):
+                    outs[j].write(bn[j].tobytes())
+                for i in range(4):
+                    outs[10 + i].write(parity[i].tobytes())
+        for o in outs:
+            o.close()
+        best = min(best, time.perf_counter() - t0)
+    first = payload[:10 * strip].reshape(10, strip)
+    want = gf.gf_matmul(codec.code.parity_matrix, first)
+    for i in range(4):
+        with open(os.path.join(bdir, f"v.ec{10 + i:02d}"), "rb") as f:
+            if f.read(strip) != want[i].tobytes():
+                raise AssertionError(f"baseline parity shard {10 + i} "
+                                     f"differs from numpy's")
+    shutil.rmtree(bdir)
+    return strips * 10 * strip / best / 1e9
+
+
+def phase_native(vdir: str, dat_path: str, hashes: list[str], expect: dict,
+                 blob: bytes, reads: list[int], k1_io: dict, card: dict,
+                 seed: int, launches: dict) -> dict:
+    """Phase 11: the native host codec on the card's host, held against
+    the card.  Its product against K1's output and the plain version on
+    phase 2's inputs, then timed; the reference's AVX2 baseline; the
+    phase-3 .dat encoded with WEEDTPU_EC_CODEC=native under AVX2 and
+    under auto, each run from no shard set as phase 4's are, each shard
+    set sha256-equal to phase 4's; phase 5's degraded reads and phase 6's loss rebuilt
+    host-serial; the card-vs-CPU ratios, all measured in this call.  The
+    native paths launch no kernel (checked).  The GF impl and the
+    environment are restored on the way out; a failure goes on up."""
+    import numpy as np
+    import torch
+    from seaweedfs_tpu_torch import native
+    from seaweedfs_tpu_torch.ops import gf, gf_cuda
+    from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume, layout
+
+    from seaweedfs_tpu_torch.ops.native_codec import NativeRSCodec
+
+    saved = os.environ.get("WEEDTPU_EC_CODEC")
+    before = dict(launches)
+    names = native.IMPL_NAMES
+    out: dict = {}
+    try:
+        native.set_gf_impl(native.GF_IMPL_AUTO)
+        auto = native.gf_impl()
+        impls = [native.GF_IMPL_AVX2] + \
+            ([native.GF_IMPL_GFNI] if auto == native.GF_IMPL_GFNI else [])
+        out["cpu"] = {"model": cpu_model(), "cores": os.cpu_count(),
+                      "auto_impl": names[auto]}
+        log(f"[native] CPU {out['cpu']['model']}, {os.cpu_count()} cores, "
+            f"auto impl {names[auto]}")
+
+        # the product, byte-equal to K1's and the plain version's, then
+        # timed: GB/s of input, median of 7 calls after the checked one
+        kern = []
+        for case, (C, x, k1_out) in k1_io.items():
+            m, (k, n) = C.shape[0], x.shape
+            bit = torch.from_numpy(gf.gf_matrix_to_bitmatrix(C)).to(
+                torch.float32).cuda()
+            plain = gf_cuda.gf_apply_plain(bit, torch.from_numpy(
+                np.ascontiguousarray(x)).cuda()).cpu().numpy()
+            got = np.empty((m, n), np.uint8)
+            rows, outs = list(x), list(got)
+            for impl in impls:
+                native.set_gf_impl(impl)
+                got.fill(0)
+                native.gf_matmul_ptrs(C, rows, outs, n)
+                if not np.array_equal(got, k1_out) or \
+                        not np.array_equal(got, plain):
+                    raise AssertionError(f"native {names[impl]} != K1 / "
+                                         f"plain at {case}")
+                times = []
+                for _ in range(7):
+                    t0 = time.perf_counter()
+                    native.gf_matmul_ptrs(C, rows, outs, n)
+                    times.append(time.perf_counter() - t0)
+                t = statistics.median(times)
+                kern.append({"case": f"[{m},{k}]@[{k},{n}]",
+                             "impl": names[impl], "ms": t * 1e3,
+                             "gbps": k * n / t / 1e9})
+                log(f"[native] {names[impl]} [{m},{k}]@[{k},{n // MIB}MiB]"
+                    f": == K1 and plain; {t * 1e3:.3f} ms, "
+                    f"{k * n / t / 1e9:.3f} GB/s of input")
+            native.set_gf_impl(native.GF_IMPL_AUTO)
+        out["kernel"] = kern
+
+        ndir = os.path.join(vdir, "native")
+        os.makedirs(ndir)
+        out["baseline_refshape_gbps"] = baseline_refshape(ndir, seed)
+        native.set_gf_impl(native.GF_IMPL_AUTO)
+        log(f"[native] baseline_refshape_gbps "
+            f"{out['baseline_refshape_gbps']:.4f} (256 KiB strips, AVX2, "
+            f"14 shard files written in the loop, best of 3)")
+
+        base = os.path.join(ndir, "1")
+        os.link(dat_path, base + ".dat")
+        os.link(dat_path[: -len(".dat")] + ".idx", base + ".idx")
+        shard = [base + layout.to_ext(i) for i in range(14)]
+        dat_size = os.path.getsize(dat_path)
+        os.environ["WEEDTPU_EC_CODEC"] = "native"
+        encodes = {}
+        for impl in (native.GF_IMPL_AVX2, native.GF_IMPL_AUTO):
+            label = names.get(impl, "auto")
+            for p in shard:  # no shard set at the start, as in phase 4
+                if os.path.exists(p):
+                    os.remove(p)
+            native.set_gf_impl(impl)
+            st: dict = {}
+            t0 = time.perf_counter()
+            ec_files.write_ec_files(base, stats=st)
+            ec_files.write_sorted_ecx(base + ".idx")
+            dt = time.perf_counter() - t0
+            native.set_gf_impl(native.GF_IMPL_AUTO)
+            if [sha256(p) for p in shard] != hashes:
+                raise AssertionError(f"native {label} encode: shards "
+                                     f"differ from phase 4's")
+            if st["mode"] != "pipelined":
+                raise AssertionError(f"native {label}: mode {st['mode']}")
+            stages = {k: v for k, v in st.items() if k.endswith("_s")}
+            encodes[label] = {"s": dt, "gbps": dat_size / dt / 1e9,
+                              "stream_gbps": dat_size / st["wall_s"] / 1e9,
+                              "mode": st["mode"], "stages_s": stages}
+            log(f"[native] encode {label}: 14 shards sha256 == phase 4's, "
+                f"{dat_size / dt / 1e9:.3f} GB/s ({dt:.3f} s; the encode "
+                f"stream {dat_size / st['wall_s'] / 1e9:.3f} GB/s), mode "
+                f"{st['mode']}; " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in sorted(stages.items())))
+        out["encode"] = encodes
+
+        lost = [0, 3, 10, 12]
+        for i in lost:
+            os.remove(shard[i])
+        ev = ec_volume.EcVolume(base)
+        if not isinstance(ev.codec, NativeRSCodec):
+            raise AssertionError("EcVolume did not take the native codec")
+        t0 = time.perf_counter()
+        for nid in reads:
+            n = ev.read_needle(nid)  # parses with the CRC checked
+            cookie, lo, hi = expect[nid]
+            if n.cookie != cookie or n.data != blob[lo:hi]:
+                raise AssertionError(f"native degraded read of needle "
+                                     f"{nid} differs")
+        dt = time.perf_counter() - t0
+        batches = ev.read_stats["reconstruct_batches"]
+        ev.close()
+        out["degraded"] = {"reads": len(reads), "s": dt,
+                           "reads_per_s": len(reads) / dt,
+                           "reconstruct_batches": batches}
+        log(f"[native] degraded: {len(reads)} needles equal (CRC and "
+            f"bytes), {len(reads) / dt:.1f} reads/s, {batches} "
+            f"reconstructions")
+
+        shard_size = os.path.getsize(shard[1])
+        st = {}
+        t0 = time.perf_counter()
+        rebuilt = ec_files.rebuild_ec_files(base, stats=st)
+        dt = time.perf_counter() - t0
+        if sorted(rebuilt) != lost or st["mode"] != "host-serial":
+            raise AssertionError(f"native rebuild: {rebuilt}, {st['mode']}")
+        for i in lost:
+            if sha256(shard[i]) != hashes[i]:
+                raise AssertionError(f"native rebuilt shard {i} differs")
+        out["rebuild"] = {"s": dt, "mode": st["mode"],
+                          "read_gbps": 10 * shard_size / dt / 1e9,
+                          "stages_s": {k: v for k, v in st.items()
+                                       if k.endswith("_s")}}
+        log(f"[native] rebuild host-serial: 4 shards sha256-equal in "
+            f"{dt:.3f} s, {10 * shard_size / dt / 1e9:.3f} GB/s survivors "
+            f"read; reconstruct {st['reconstruct_s']:.3f} s, write "
+            f"{st.get('write_s', 0):.3f} s, stall "
+            f"{st.get('stall_s', 0):.3f} s")
+        if launches != before:
+            raise AssertionError(f"the native paths launched kernels: "
+                                 f"{before} -> {launches}")
+
+        # end to end on both sides: write_ec_files and write_sorted_ecx,
+        # each started with the .dat cached and no shard set on disk
+        native_avx2 = encodes["avx2"]
+        ratios = {
+            "card_encode_over_native_avx2_pipelined":
+                card["encode_gbps"] / native_avx2["gbps"],
+            "card_encode_over_baseline_refshape":
+                card["encode_gbps"] / out["baseline_refshape_gbps"],
+            "card_rebuild_over_host_serial_rebuild":
+                card["rebuild_gbps"] / out["rebuild"]["read_gbps"]}
+        out["ratios"] = ratios
+        out["card"] = card_name_power()
+        log(f"[native] ratios, this call ({out['card']}; CPU "
+            f"{out['cpu']['model']}): card warm encode "
+            f"{card['encode_gbps']:.3f} GB/s over native AVX2 pipelined "
+            f"{native_avx2['gbps']:.3f} = "
+            f"{ratios['card_encode_over_native_avx2_pipelined']:.3f}; "
+            f"over baseline_refshape "
+            f"{out['baseline_refshape_gbps']:.3f} = "
+            f"{ratios['card_encode_over_baseline_refshape']:.3f}; card "
+            f"rebuild {card['rebuild_gbps']:.3f} over host-serial "
+            f"{out['rebuild']['read_gbps']:.3f} GB/s survivors read = "
+            f"{ratios['card_rebuild_over_host_serial_rebuild']:.3f}")
+        shutil.rmtree(ndir)
+    finally:
+        native.set_gf_impl(native.GF_IMPL_AUTO)
+        if saved is None:
+            os.environ.pop("WEEDTPU_EC_CODEC", None)
+        else:
+            os.environ["WEEDTPU_EC_CODEC"] = saved
+    return out
+
+
 def rebuild_record(vdir: str, base: str, hashes: list[str]) -> dict:
     """rebuild_ec_files of phase 9's single loss [3] from the 13 other
     shards: a record of its wall time, outside the counted window."""
@@ -1494,7 +1792,7 @@ def main(argv=None) -> int:
         log(f"[build] ptxas {line}")
 
     # 2 kernel
-    rows, kernels = phase_kernel(args.seed)
+    rows, kernels, k1_io = phase_kernel(args.seed)
 
     vdir = os.path.join(here, "build", "chip_smoke")
     shutil.rmtree(vdir, ignore_errors=True)
@@ -1515,8 +1813,11 @@ def main(argv=None) -> int:
         base = dat_path[: -len(".dat")]
         shard = [base + layout.to_ext(i) for i in range(14)]
 
-        # 4 encode
+        # 4 encode; each run starts with no shard set, as phase 11's do
         for cache in ("cold", "warm"):
+            for p in shard:
+                if os.path.exists(p):
+                    os.remove(p)
             resident = drop_cache([dat_path]) if cache == "cold" \
                 else resident_share([dat_path])
             dispatch.COUNTERS.reset()
@@ -1660,23 +1961,26 @@ def main(argv=None) -> int:
         path_launches = {k: rs_launches[k] + codec_launches[k]
                          for k in rs_launches}
 
+        # 11 native, on the card's host; launches none of the kernels
+        phases["native"] = phase_native(
+            vdir, dat_path, hashes, expect, blob, reads, k1_io,
+            {"encode_gbps": phases["encode_warm"]["gbps"],
+             "rebuild_gbps": phases["rebuild_warm"]["read_gbps"]},
+            args.seed, launches)
+
         # records, outside the counted window
         phases["fleet_record"] = fleet_record(vdir, srcs)
         phases["rebuild_record"] = rebuild_record(vdir, base, hashes)
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 11 report
+    # 12 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))
     log(f"[total] {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_name_power())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,12 @@
 """First-use build of the port's native sources into shared libraries.
 
-Two libraries, each built from `csrc/` by its own compiler and loaded with
-ctypes through a plain C interface:
+Three libraries, each built from `csrc/` by its own compiler and loaded
+with ctypes through a plain C interface:
 
   gf_matmul   csrc/gf_matmul.cu  nvcc, sm_90a   the GF(2^8) apply kernel
   crc32c      csrc/crc32c.cc     g++            the needle checksum
+  gf_native   csrc/gf_native.cc  g++            the host GF(2^8) codec
+                                                (AVX2; GFNI by CPUID)
 
 A library is built the first time it is loaded, into `build/torch_kernels/`
 at the repository root (git-ignored), under a name keyed by a hash of its
@@ -29,7 +31,8 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
-_SOURCES = {"gf_matmul": "gf_matmul.cu", "crc32c": "crc32c.cc"}
+_SOURCES = {"gf_matmul": "gf_matmul.cu", "crc32c": "crc32c.cc",
+            "gf_native": "gf_native.cc"}
 
 _I64 = ctypes.c_int64
 _PTR = ctypes.c_void_p
@@ -46,7 +49,19 @@ _SIGNATURES = {
         "wn_crc32c": (ctypes.c_uint32,
                       [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32]),
     },
+    "gf_native": {
+        "wn_gf_init": (None, []),
+        "wn_gf_matmul_ptrs": (None, [
+            _PTR, ctypes.c_int, ctypes.c_int,   # mat, rows, k
+            ctypes.POINTER(_PTR), ctypes.POINTER(_PTR),  # in, out rows
+            ctypes.c_size_t]),                  # n
+        "wn_gf_set_impl": (None, [ctypes.c_int]),
+        "wn_gf_impl": (ctypes.c_int, []),
+    },
 }
+# called once, under the load lock, right after a library is loaded: the
+# host codec's tables must be built before any thread multiplies
+_INIT = {"gf_native": "wn_gf_init"}
 
 # compiler output of the builds this process ran (ptxas register and
 # shared-memory report for the kernel), by library name
@@ -74,8 +89,15 @@ def _command(name: str, out: str) -> list[str]:
                 "-Xptxas", "-v", "-o", out, src]
     gxx = shutil.which("g++") or shutil.which("c++")
     if gxx is None:
-        raise RuntimeError("g++ not found: needed to build the crc32c library")
-    isa = ["-msse4.2"] if platform.machine() in ("x86_64", "AMD64") else []
+        raise RuntimeError(f"g++ not found: needed to build the {name} "
+                           f"library")
+    # fixed ISA flags, never -march=native: the library's name is keyed by
+    # this command line, which must mean the same code on every host.  The
+    # host codec's GFNI path has its own `target` attribute and a CPUID
+    # check, so it needs nothing past AVX2 to load
+    isa = []
+    if platform.machine() in ("x86_64", "AMD64"):
+        isa = ["-msse4.2"] if name == "crc32c" else ["-mavx2", "-mssse3"]
     return [gxx, "-O3", *isa, "-shared", "-fPIC", "-o", out, src]
 
 
@@ -129,5 +151,7 @@ def load(name: str) -> ctypes.CDLL:
             for fn, (restype, argtypes) in _SIGNATURES[name].items():
                 getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = argtypes
+            if name in _INIT:
+                getattr(lib, _INIT[name])()
             _loaded[name] = lib
     return lib

@@ -8,10 +8,19 @@ named by a tag carried in its `.vif`:
     msr_<k>_<d>       product-matrix regenerating, e.g. msr_9_16
 
 `parse_tag(None)` and any unknown tag resolve to the RS default.
-`make_codec` builds every family over the one matrix apply the port has,
-`CudaGFMatrix` (the card's kernel, or its plain version on the CPU): RS
-and LRC are fixed GF(2^8) matrices in the `RSCodecBase` shell; MSR wraps
-that shell in its interleaving file codec (ops/msr.py).
+`make_codec` builds every family over one of two matrix applies, chosen
+by the backend kind:
+
+    cuda (or None)   `CudaGFMatrix`: the card's kernel, or its plain
+                     version when the caller passes device="cpu"
+    native           `NativeGFMatrix`: the host CPU codec (AVX2, or GFNI
+                     where CPUID finds it), only when the caller names it
+
+RS and LRC are fixed GF(2^8) matrices in the `RSCodecBase` shell; MSR
+wraps that shell in its interleaving file codec (ops/msr.py).  Any other
+kind raises, the reference's auto, tpu, jax, numpy, mesh and its alias
+cpp included: its auto turns to the CPU codec where there is no accelerator, which is the
+fallback the port does not make.
 
 An `rs_<k>_<m>` tag builds RS(k, m).  The reference builds RS(10, 4) for
 every `rs_*` tag (its `ec_files._get_codec` takes k and m from the
@@ -29,6 +38,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+
+import torch
 
 DEFAULT_TAG = "rs_10_4"
 
@@ -109,23 +120,49 @@ def default_tag() -> str:
                                     DEFAULT_TAG)).tag
 
 
-def make_codec(tag: str | None, device=None):
-    """The codec for a tag on `device` (None: the card; raises without
-    one): RS(k, m) and LRC as `CudaRSCodec`, MSR as `MSRFileCodec` over
-    one."""
-    from seaweedfs_tpu_torch.ops import gf_cuda
+KINDS = ("cuda", "native")
+
+
+def _check_kind(kind: str | None) -> str:
+    """The backend kind a caller named, as "cuda" or "native" (None means
+    "cuda"); raises ValueError on any other value."""
+    if kind is None:
+        return "cuda"
+    if kind in KINDS:
+        return kind
+    raise ValueError(f"codec kind {kind!r}: the port takes "
+                     f"{', '.join(KINDS)} (unset means cuda)")
+
+
+def make_codec(tag: str | None, device=None, kind: str | None = None):
+    """The codec for a tag.  Kind "cuda" (or None): on `device` (None:
+    the card; raises without one), RS(k, m) and LRC as `CudaRSCodec`, MSR
+    as `MSRFileCodec` over one.  Kind "native": the host
+    codec, `NativeRSCodec` or an `MSRFileCodec` over one, on the CPU;
+    `device` must then be None or "cpu"."""
     spec = parse_tag(tag)
+    kind = _check_kind(kind)
+    if kind == "native":
+        if device is not None and torch.device(device).type != "cpu":
+            raise ValueError(f"the native codec runs on the CPU, not "
+                             f"{device}")
+        if spec.family == "rs":
+            from seaweedfs_tpu_torch.ops import native_codec
+            return native_codec.get_codec(spec.k, spec.m)
+        return _build(spec.tag, None, kind)
+    from seaweedfs_tpu_torch.ops import gf_cuda
     dev = gf_cuda.resolve_device(device)
     if spec.family == "rs":
         return gf_cuda.get_codec(spec.k, spec.m, device=dev)
-    return _build(spec.tag, dev)
+    return _build(spec.tag, dev, kind)
 
 
 @functools.lru_cache(maxsize=16)
-def _build(tag: str, device):
-    from seaweedfs_tpu_torch.ops import gf_cuda, lrc, msr
+def _build(tag: str, device, kind: str):
+    from seaweedfs_tpu_torch.ops import gf_cuda, lrc, msr, native_codec
     spec = parse_tag(tag)
-    if spec.family == "lrc":
-        return gf_cuda.CudaRSCodec(lrc.get_code(*spec.params), device)
-    return msr.MSRFileCodec(
-        gf_cuda.CudaRSCodec(msr.get_code(*spec.params), device))
+    code = lrc.get_code(*spec.params) if spec.family == "lrc" \
+        else msr.get_code(*spec.params)
+    shell = native_codec.NativeRSCodec(code) if kind == "native" \
+        else gf_cuda.CudaRSCodec(code, device)
+    return shell if spec.family == "lrc" else msr.MSRFileCodec(shell)

@@ -197,9 +197,10 @@ def reconstruct_batch(codec, shards: dict[int, np.ndarray],
 # coefficient matrices are tiny ([1, j] slices of a decode matrix) but
 # arbitrary, so each one's apply (its kernel tables) is built once through
 # the codec's factory and cached; a repair plan reuses the same few
-# windows for a whole shard.  The key is the matrix alone: every codec's
-# factory is `CudaGFMatrix`, which depends on C only and copies its
-# tables to each card at first use.  The lock covers the check-build-store:
+# windows for a whole shard.  The key is the codec's factory and the
+# matrix: a card codec (`CudaGFMatrix`, which copies its tables to each
+# card at first use) and the native host codec (`NativeGFMatrix`) in one
+# process must not share an apply.  The lock covers the check-build-store:
 # execute_plan applies from its fetch pool's threads and the caller's at
 # once.
 _APPLY_CACHE: dict = {}
@@ -214,10 +215,10 @@ def apply_matrix(codec, C: np.ndarray, stack: np.ndarray) -> np.ndarray:
     The [j, n] stack is packed into a pinned host buffer, copied to the
     card into rows 16 bytes apart (`rows.device_empty`, which the kernel
     reads in place), applied by K1, and brought back after the dispatch's
-    event, on whichever thread calls.  On the CPU the plain version
-    computes it."""
+    event, on whichever thread calls.  On the CPU the codec's own apply
+    computes it: the plain version, or the native host codec's."""
     C = np.ascontiguousarray(C, dtype=np.uint8)
-    key = (C.shape, C.tobytes())
+    key = (codec._factory, C.shape, C.tobytes())
     with _APPLY_LOCK:
         mat = _APPLY_CACHE.get(key)
         if mat is None:

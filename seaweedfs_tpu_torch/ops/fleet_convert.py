@@ -27,9 +27,11 @@ committed roll back to their previous shard set (or to none), committed
 ones stay.
 
 The geometry is fixed: UNIT_BATCH units per launch, PIPELINE_DEPTH
-batches in flight (the reference's defaults).  The codec is the EC codec
-on one card: with more than one attached the port still uses one (the
-unit-sharded multi-card encoder is ROADMAP 1.13).
+batches in flight (the reference's defaults).  The codec is the EC
+codec (`ec_files._get_codec`, so WEEDTPU_EC_CODEC chooses it): unset, on
+one card (with more than one attached the port still uses one; the
+unit-sharded multi-card encoder is ROADMAP 1.13); "native", the host CPU
+codec, which encodes a batch unit by unit and needs no device buffer.
 """
 
 from __future__ import annotations
@@ -180,7 +182,8 @@ def convert_volumes(bases: list[str], *,
             jobs.append(_VolumeJob(b, large_block, small_block, batch_size,
                                    stats))
         # one staging width covers every volume (shorter units zero-fill);
-        # each slot is a pinned host batch and its device twin
+        # each slot is a pinned host batch and its device twin (a host
+        # codec's slot is the host batch alone)
         W = max(_max_step(j.dat_size, large_block, small_block, batch_size,
                           k) for j in jobs)
         for _ in range(PIPELINE_DEPTH + 1):

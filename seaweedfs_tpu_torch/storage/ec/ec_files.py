@@ -14,6 +14,13 @@ the device.  The files are byte-identical to the reference package's.
 
 Every entry point takes `device`: None means the card (and raises when
 there is none); "cpu" runs the same pipeline over the plain version.
+With WEEDTPU_EC_CODEC=native the host CPU codec runs instead (never by
+default), and the encode and rebuild take its zero-copy host paths: the
+GF(2^8) product runs by row address straight off the source mmaps into a
+ring of parity or output buffers, each back in its ring once its writers
+have written it.  The encode always runs the pipelined reader/dispatch/
+drain threads (the reference's own default); the rebuild says in
+`stats["mode"]` whether it ran host-serial or staged.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from seaweedfs_tpu_torch import native
 from seaweedfs_tpu_torch.ops import codecs, regen
 from seaweedfs_tpu_torch.ops.dispatch import (
     dispatch_parity as _dispatch_parity,
@@ -37,6 +45,7 @@ from seaweedfs_tpu_torch.ops.dispatch import (
     materialize as _materialize,
     reconstruct_batch as _reconstruct_batch,
 )
+from seaweedfs_tpu_torch.ops.native_codec import NativeRSCodec
 from seaweedfs_tpu_torch.storage import idx as idxf
 from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.storage.ec import layout
@@ -45,13 +54,18 @@ DEFAULT_BATCH = 16 * 1024 * 1024  # bytes per shard per device round-trip
 
 PIPELINE_DEPTH = 3  # batch buffers in flight: read N+1 / encode N / drain N-1
 WRITER_DEPTH = 4  # queued writes per shard fd before submission blocks
+RING_ALIGN = 4096  # host ring buffers start on O_DIRECT's alignment
 
 
 def _get_codec(device=None, tag: str | None = None):
-    """The EC codec on `device`: "cuda" (or None) runs the kernel, "cpu"
-    the same codec shell over the plain version.  No fallback between
+    """The EC codec for `tag` (None: RS(10,4)).  Its backend kind is the
+    WEEDTPU_EC_CODEC knob (`codecs.make_codec`): unset or "cuda" runs
+    the kernel on `device` ("cuda" or None; raises without a card), or
+    the same codec shell over the plain version when `device` is "cpu";
+    "native" the host codec; any other value raises.  No fallback between
     them."""
-    return codecs.make_codec(tag or codecs.DEFAULT_TAG, device)
+    kind = os.environ.get("WEEDTPU_EC_CODEC") or None
+    return codecs.make_codec(tag or codecs.DEFAULT_TAG, device, kind)
 
 
 def _writer_threads(nshards: int) -> int:
@@ -116,6 +130,36 @@ class EncodeCancelled(RuntimeError):
     pass
 
 
+def _aligned_empty(shape) -> np.ndarray:
+    """An uninitialised uint8 array whose base is RING_ALIGN-aligned."""
+    n = int(np.prod(shape))
+    raw = np.empty(n + RING_ALIGN, dtype=np.uint8)
+    off = -raw.ctypes.data % RING_ALIGN
+    return raw[off:off + n].reshape(shape)
+
+
+def _parity_ring_size() -> int:
+    """Buffers in the host codec's parity ring: the pipeline's depth and
+    one more.  Each row goes to its writer as one job and comes back when
+    written, so no batch of unflushed jobs has to fit in the ring."""
+    return PIPELINE_DEPTH + 1
+
+
+def _countdown(n: int, cb):
+    """A thunk that calls cb on its n-th call: the release hook of a ring
+    buffer fanned out to n shard writers."""
+    lock = threading.Lock()
+    left = [n]
+
+    def hit() -> None:
+        with lock:
+            left[0] -= 1
+            if left[0] > 0:
+                return
+        cb()
+    return hit
+
+
 class _Timer:
     """Accumulates wall seconds into stats[key]."""
 
@@ -137,9 +181,10 @@ class _ShardWriterPool:
     queues.  Shards map to workers by a fixed shard -> worker stripe, so
     writes to one shard stay in order while different shards land
     concurrently.  Workers never die: after the first error they drain
-    the rest without touching the fds, so producers cannot deadlock on a
-    full queue; the error surfaces via `.errors` after close().  Busy
-    seconds fold into stats[stage_key(shard)] on close."""
+    the rest without touching the fds (still calling their release
+    hooks), so producers cannot deadlock on a full queue or an empty
+    ring; the error surfaces via `.errors` after close().  Busy seconds
+    fold into stats[stage_key(shard)] on close."""
 
     def __init__(self, fds, highwater=None, stats=None, stage_key=None):
         self._fds = list(fds)
@@ -165,16 +210,20 @@ class _ShardWriterPool:
     def failed(self) -> bool:
         return bool(self.errors)
 
-    def put(self, shard: int, data, off: int) -> None:
+    def put(self, shard: int, data, off: int, release=None) -> None:
         """Queue a pwrite of a 1-D uint8 buffer at `off`; the queue item
-        keeps `data` alive until it is written."""
-        self._queues[shard % self._nworkers].put((shard, data, None, off))
+        keeps `data` alive until it is written.  `release()`, when given,
+        is called once the write is done or skipped, after which the
+        caller may reuse `data`'s memory."""
+        self._queues[shard % self._nworkers].put(
+            (shard, data, None, off, release))
 
     def copy(self, shard: int, src_fd: int, src_off: int, dst_off: int,
              count: int, src_view) -> None:
         """Queue an in-kernel copy of a source range into the shard file."""
         self._queues[shard % self._nworkers].put(
-            (shard, None, (src_fd, src_off, count, src_view), dst_off))
+            (shard, None, (src_fd, src_off, count, src_view), dst_off,
+             None))
 
     def _run(self, w: int) -> None:
         q = self._queues[w]
@@ -182,24 +231,30 @@ class _ShardWriterPool:
             item = q.get()
             if item is None:
                 return
-            if self.errors:
-                continue  # drain without touching the fds
-            shard, data, cfr, off = item
-            fd = self._fds[shard]
-            t0 = time.perf_counter()
+            shard, data, cfr, off, release = item
             try:
-                if cfr is not None:
-                    src_fd, src_off, count, src_view = cfr
-                    _copy_range(src_fd, fd, src_off, off, count, src_view)
-                    end = off + count
-                else:
-                    _pwrite_all(fd, data, off)
-                    end = off + len(data)
-                if self._hw is not None and end > self._hw[shard]:
-                    self._hw[shard] = end
-            except BaseException as e:  # surfaced after close
-                self.errors.append(e)
-            self._busy[shard] += time.perf_counter() - t0
+                if not self.errors:  # else drain without touching the fds
+                    self._write(shard, data, cfr, off)
+            finally:
+                if release is not None:
+                    release()
+
+    def _write(self, shard: int, data, cfr, off: int) -> None:
+        fd = self._fds[shard]
+        t0 = time.perf_counter()
+        try:
+            if cfr is not None:
+                src_fd, src_off, count, src_view = cfr
+                _copy_range(src_fd, fd, src_off, off, count, src_view)
+                end = off + count
+            else:
+                _pwrite_all(fd, data, off)
+                end = off + len(data)
+            if self._hw is not None and end > self._hw[shard]:
+                self._hw[shard] = end
+        except BaseException as e:  # surfaced after close
+            self.errors.append(e)
+        self._busy[shard] += time.perf_counter() - t0
 
     def close(self) -> None:
         """Drain every queue, join the workers, fold busy seconds into
@@ -329,6 +384,7 @@ def _encode_stream(codec, dat_path: str, dat_size: int, large_block: int,
     """Stream the .dat through the codec into the shard fds.  Units wholly
     beyond the .dat are never read, encoded or written: their parity is
     zero, so they become holes."""
+    stats["mode"] = "pipelined"
     stats["bytes"] = dat_size
     shard_size = layout.shard_file_size(dat_size, large_block, small_block,
                                         data_shards=codec.k)
@@ -348,6 +404,26 @@ def _encode_stream(codec, dat_path: str, dat_size: int, large_block: int,
                     mm.close()  # a traceback may still hold views
         stats["wall_s"] = time.perf_counter() - t_wall
     _finalize_shards(out_fds, highwater, shard_size)
+
+
+def _host_parity_unit(codec, dat_view: np.ndarray, tailbuf: np.ndarray,
+                      pbuf: np.ndarray, row_start: int, block: int,
+                      col: int, step: int, nz: int, tail: int) -> None:
+    """Parity of one column unit by the native codec, straight off the
+    .dat mmap into pbuf's m rows: a partial tail row is staged into the
+    zeroed tailbuf first, and a unit with nz < k rows of data takes the
+    parity matrix's first nz columns."""
+    rows = [dat_view[row_start + j * block + col:
+                     row_start + j * block + col + step]
+            for j in range(nz)]
+    if tail < step:
+        tailbuf[:tail] = rows[nz - 1][:tail]
+        tailbuf[tail:step] = 0
+        rows[nz - 1] = tailbuf
+    mat = codec.code.parity_matrix
+    if nz < codec.k:
+        mat = np.ascontiguousarray(mat[:, :nz])
+    native.gf_matmul_ptrs(mat, rows, list(pbuf), step)
 
 
 def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
@@ -370,15 +446,27 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
 
     The pool of (host, device) slots is the backpressure: a slot comes
     back only once its parity is on the host, so neither buffer is
-    overwritten while the device may still read it."""
+    overwritten while the device may still read it.
+
+    The native codec skips the staging: the reader passes each unit's
+    coverage on, the dispatch computes its parity off the mmap into a
+    buffer of the parity ring (`_host_parity_unit`; waiting for one is
+    stall_s), and the drain hands its rows to the writers, which return
+    it to the ring once all m are written."""
     device = codec.device
+    host = isinstance(codec, NativeRSCodec)
     k, m = codec.k, codec.m
     max_step = _max_step(dat_size, large_block, small_block, batch_size, k)
     pool: queue.Queue = queue.Queue()
-    for _ in range(PIPELINE_DEPTH):
-        dev = _device_empty((k, max_step), device) \
-            if device.type == "cuda" else None
-        pool.put((_host_empty((k, max_step), device), dev))
+    if host:
+        tailbuf = np.zeros(max_step, dtype=np.uint8)
+        for _ in range(_parity_ring_size()):
+            pool.put(_aligned_empty((m, max_step)))
+    else:
+        for _ in range(PIPELINE_DEPTH):
+            dev = _device_empty((k, max_step), device) \
+                if device.type == "cuda" else None
+            pool.put((_host_empty((k, max_step), device), dev))
     q_read: queue.Queue = queue.Queue(maxsize=PIPELINE_DEPTH)
     q_disp: queue.Queue = queue.Queue()  # bounded by the pool
     errors: list[BaseException] = []
@@ -405,18 +493,23 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
                     writers.copy(j, dat_fd, row_start + j * block + col,
                                  shard_off, step if j < nz - 1 else tail,
                                  dat_view)
-                with _Timer(stats, "stall_s"):
-                    slot = pool.get()
-                with _Timer(stats, "read_s"):
-                    batch = slot[0].numpy()[:, :step]
-                    for j in range(k):
-                        off = row_start + j * block + col
-                        n = max(0, min(step, dat_size - off))
-                        if n > 0:
-                            np.copyto(batch[j, :n], dat_view[off:off + n])
-                        if n < step:
-                            batch[j, n:] = 0
-                q_read.put((slot, step, shard_off))
+                if host:  # the dispatch encodes off the mmap itself
+                    q_read.put((None, step, shard_off,
+                                (row_start, block, col, nz, tail)))
+                else:
+                    with _Timer(stats, "stall_s"):
+                        slot = pool.get()
+                    with _Timer(stats, "read_s"):
+                        batch = slot[0].numpy()[:, :step]
+                        for j in range(k):
+                            off = row_start + j * block + col
+                            n = max(0, min(step, dat_size - off))
+                            if n > 0:
+                                np.copyto(batch[j, :n],
+                                          dat_view[off:off + n])
+                            if n < step:
+                                batch[j, n:] = 0
+                    q_read.put((slot, step, shard_off, None))
                 done += (nz - 1) * step + tail
                 if progress is not None:
                     progress(done)
@@ -430,9 +523,18 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
             item = q_disp.get()
             if item is None:
                 return
-            slot, step, shard_off, parity = item
+            slot, step, shard_off, parity, release = item
             if errors or writers.failed:
-                pool.put(slot)
+                if release is not None:
+                    for _ in range(m):
+                        release()
+                else:
+                    pool.put(slot)
+                continue
+            if release is not None:  # host parity, computed in place
+                for i in range(m):
+                    writers.put(k + i, parity[i, :step], shard_off,
+                                release=release)
                 continue
             try:
                 with _Timer(stats, "d2h_s"):
@@ -457,15 +559,27 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
                 item = q_read.get()
                 if item is None:
                     break
-                slot, step, shard_off = item
+                slot, step, shard_off, coverage = item
                 if errors or writers.failed:
-                    pool.put(slot)
+                    if slot is not None:
+                        pool.put(slot)
+                    continue
+                if host:
+                    row_start, block, col, nz, tail = coverage
+                    with _Timer(stats, "stall_s"):
+                        pbuf = pool.get()
+                    with _Timer(stats, "encode_s"):
+                        _host_parity_unit(codec, dat_view, tailbuf, pbuf,
+                                          row_start, block, col, step, nz,
+                                          tail)
+                    release = _countdown(m, lambda b=pbuf: pool.put(b))
+                    q_disp.put((None, step, shard_off, pbuf, release))
                     continue
                 with _Timer(stats, "encode_s"):
                     parity = _dispatch_parity(
                         codec, slot[0][:, :step],
                         staging=slot[1])
-                q_disp.put((slot, step, shard_off, parity))
+                q_disp.put((slot, step, shard_off, parity, None))
     except BaseException as e:
         errors.append(e)
     finally:
@@ -476,7 +590,7 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
                 item = q_read.get(timeout=0.05)
             except queue.Empty:
                 continue
-            if item is not None:
+            if item is not None and item[0] is not None:
                 pool.put(item[0])
         t_r.join()
         writers.close()  # after the producers: no submission can block now
@@ -493,12 +607,17 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
     ones, under the code the `.vif` names; returns the rebuilt shard ids.
 
     Survivors (`codec.basis`: one local group for an LRC single loss)
-    are mmap'd, and each batch of their columns goes to the card in one
+    are mmap'd.  "staged" mode (the card, the plain version, and MSR on
+    any backend): each batch of their columns goes to the card in one
     transfer and is decoded in one apply (one kernel launch per row block
-    of the decode matrix); MSR batches are alpha multiples.  The rebuilt
-    rows stream to per-shard writers into `.tmp` files, committed by
-    rename only on success (reference: RebuildEcFiles,
-    ec_encoder.go:237-291)."""
+    of the decode matrix); MSR batches are alpha multiples.  "host-serial"
+    mode (the native RS or LRC codec): the decode matrix runs by row
+    address straight off the survivors' mmaps into a ring of output
+    buffers, each back in the ring once its writers are done.  The
+    rebuilt rows stream to per-shard writers into `.tmp` files, committed
+    by rename only on success (reference: RebuildEcFiles,
+    ec_encoder.go:237-291).  `stats` gets mode, bytes, codec,
+    reconstruct_s, stall_s, write_s and wall_s."""
     spec = codecs.parse_tag((read_vif(base) or {}).get("codec"))
     present = [i for i in range(spec.n)
                if os.path.exists(base + layout.to_ext(i))]
@@ -514,6 +633,8 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
     stats = stats if stats is not None else {}
     stats["bytes"] = shard_size * len(use)
     stats["codec"] = spec.tag
+    host = isinstance(codec, NativeRSCodec)
+    stats["mode"] = "host-serial" if host else "staged"
     # MSR sub-packetization: every chunk a codec's interleave must see is
     # an alpha multiple (shard files themselves are block multiples)
     if spec.alpha > 1:
@@ -540,6 +661,12 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
             for i, f in ins.items():
                 maps[i] = _map_readonly(f.fileno(), shard_size)
                 views[i] = np.frombuffer(maps[i], dtype=np.uint8)
+        if host and shard_size:
+            _, dec = codec.decoder(tuple(present), tuple(missing))
+            ring: queue.Queue = queue.Queue()
+            for _ in range(PIPELINE_DEPTH):
+                ring.put(_aligned_empty(
+                    (len(missing), min(batch_size, shard_size))))
         done = 0
         for off in range(0, shard_size, batch_size):
             if cancel is not None and cancel():
@@ -547,11 +674,25 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
             if writers.failed:
                 break
             n = min(batch_size, shard_size - off)
-            with _Timer(stats, "reconstruct_s"):
-                rebuilt = _reconstruct_batch(
-                    codec, {i: views[i][off:off + n] for i in use}, missing)
-            for i in missing:
-                writers.put(wpos[i], rebuilt[i], off)
+            if host:
+                with _Timer(stats, "stall_s"):
+                    obuf = ring.get()
+                with _Timer(stats, "reconstruct_s"):
+                    native.gf_matmul_ptrs(
+                        dec.C, [views[i][off:off + n] for i in use],
+                        list(obuf), n)
+                release = _countdown(len(missing),
+                                     lambda b=obuf: ring.put(b))
+                for i in missing:
+                    writers.put(wpos[i], obuf[wpos[i], :n], off,
+                                release=release)
+            else:
+                with _Timer(stats, "reconstruct_s"):
+                    rebuilt = _reconstruct_batch(
+                        codec, {i: views[i][off:off + n] for i in use},
+                        missing)
+                for i in missing:
+                    writers.put(wpos[i], rebuilt[i], off)
             done += n * len(use)
             if progress is not None:
                 progress(done)

@@ -26,7 +26,6 @@ import os
 import numpy as np
 
 from seaweedfs_tpu_torch.ops import codecs
-from seaweedfs_tpu_torch.ops.gf_cuda import resolve_device
 from seaweedfs_tpu_torch.storage import idx as idxf
 from seaweedfs_tpu_torch.storage import needle as ndl
 from seaweedfs_tpu_torch.storage import types as t
@@ -39,13 +38,15 @@ class EcVolume:
                  small_block: int = layout.SMALL_BLOCK_SIZE,
                  version: int = t.CURRENT_VERSION, device=None):
         self.base = base
-        self.device = resolve_device(device)
         self.large_block = large_block
         self.small_block = small_block
         vif = ec_files.read_vif(base)
         self.version = vif.get("version", version) if vif else version
         self.spec = codecs.parse_tag((vif or {}).get("codec"))
-        self.codec = ec_files._get_codec(self.device, self.spec.tag)
+        # the codec resolves the device: the card (raising without one)
+        # unless the caller named the CPU or the native host codec
+        self.codec = ec_files._get_codec(device, self.spec.tag)
+        self.device = self.codec.device
 
         # replay any crash-left journal into the .ecx, as the reference
         # does at mount (RebuildEcxFile, ec_volume_delete.go:51-98)

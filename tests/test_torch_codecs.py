@@ -341,6 +341,8 @@ def _encode_both(tag, root):
                                       small_block=small,
                                       batch_size=small * 10, codec_tag=tag)
             else:
+                # the port takes no reference kind
+                mp.delenv("WEEDTPU_EC_CODEC")
                 ec_files.write_ec_files(base, large_block=large,
                                         small_block=small,
                                         batch_size=small * 10,
@@ -384,7 +386,8 @@ def test_volume_crosses_packages(volumes, tmp_path, monkeypatch, writer,
                                  reader):
     """A shard set one package wrote, with shards lost: the other package
     reads every needle and rebuilds sha256-equal shards."""
-    monkeypatch.setenv("WEEDTPU_EC_CODEC", "numpy")
+    if reader == "ref":
+        monkeypatch.setenv("WEEDTPU_EC_CODEC", "numpy")
     tag = volumes["tag"]
     large, small = BLOCKS[tag]
     base = _copy(volumes[writer], str(tmp_path / "v"))
@@ -518,7 +521,6 @@ def test_codec_basis_is_chosen_once_per_pattern(monkeypatch):
 def test_scrub_equals_reference(volumes, tmp_path, monkeypatch):
     """A clean pass finds nothing; one flipped byte is found, localised
     on LRC and not on MSR (shard -1), as the reference's scan reports."""
-    monkeypatch.setenv("WEEDTPU_EC_CODEC", "numpy")
     monkeypatch.setattr(scrub, "DEFAULT_WINDOW", 1000)
     tag = volumes["tag"]
     large, small = BLOCKS[tag]
@@ -536,7 +538,9 @@ def test_scrub_equals_reference(volumes, tmp_path, monkeypatch):
         try:
             st: dict = {}
             got = scrub.syndrome_scan(ev, st)
-            assert got == ref_scrub.syndrome_scan(rev, window=1000)
+            with monkeypatch.context() as mp:
+                mp.setenv("WEEDTPU_EC_CODEC", "numpy")
+                assert got == ref_scrub.syndrome_scan(rev, window=1000)
             assert st["windows"] == -(-ev.shard_size // 1000)
         finally:
             ev.close()

@@ -394,3 +394,60 @@ def test_cuda_rebuild_ec_reduced_codecs_equal_cpu(card, tmp_path,
     assert files["cpu"] == files["cuda"]
     for s in lost:
         assert files["cuda"]["4" + layout.to_ext(s)] == full[s].tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 4097, (1 << 20) + 5])
+def test_cuda_native_product_equals_kernel(card, n):
+    """The native host codec's product equals K1's on the same inputs,
+    under every kernel this CPU has (GFNI only where CPUID finds it)."""
+    from seaweedfs_tpu_torch import native
+    C = rs.get_code(10, 4).parity_matrix
+    x = np.random.default_rng(n).integers(0, 256, (10, n), dtype=np.uint8)
+    dev = dispatch.device_empty((10, n), card)
+    dev.copy_(torch.from_numpy(x))
+    want = gf_cuda.CudaGFMatrix(C)(dev).cpu().numpy()
+    native.set_gf_impl(native.GF_IMPL_AUTO)
+    impls = [native.GF_IMPL_AVX2, native.GF_IMPL_SCALAR]
+    if native.gf_impl() == native.GF_IMPL_GFNI:
+        impls.append(native.GF_IMPL_GFNI)
+    try:
+        for impl in impls:
+            native.set_gf_impl(impl)
+            got = np.empty_like(want)
+            native.gf_matmul_ptrs(C, list(x), list(got), n)
+            assert np.array_equal(got, want), impl
+    finally:
+        native.set_gf_impl(native.GF_IMPL_AUTO)
+
+
+@pytest.mark.cuda
+def test_cuda_native_shards_equal_card(card, tmp_path, monkeypatch):
+    """One .dat encoded by the card's codec and by the native host codec
+    (WEEDTPU_EC_CODEC=native, no kernel launched): the same shards, and
+    the host-serial rebuild of a lost shard set gives them back."""
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    src = np.random.default_rng(11).integers(0, 256, 345_678,
+                                             dtype=np.uint8).tobytes()
+    files = {}
+    for who in ("card", "native"):
+        d = tmp_path / who
+        d.mkdir()
+        base = str(d / "1")
+        (d / "1.dat").write_bytes(src)
+        if who == "native":
+            monkeypatch.setenv("WEEDTPU_EC_CODEC", "native")
+        before = dict(gf_cuda.LAUNCHES)
+        ec_files.write_ec_files(base, large_block=10_000, small_block=100,
+                                batch_size=1000)
+        assert (gf_cuda.LAUNCHES != before) == (who == "card")
+        files[who] = {i: (d / ("1" + layout.to_ext(i))).read_bytes()
+                      for i in range(14)}
+    assert files["card"] == files["native"]
+    for i in (0, 3, 10, 12):
+        os.remove(str(tmp_path / "native" / ("1" + layout.to_ext(i))))
+    st: dict = {}
+    ec_files.rebuild_ec_files(str(tmp_path / "native" / "1"), stats=st)
+    assert st["mode"] == "host-serial"
+    assert {i: (tmp_path / "native" / ("1" + layout.to_ext(i))).read_bytes()
+            for i in range(14)} == files["card"]

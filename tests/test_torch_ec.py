@@ -63,6 +63,7 @@ def encoded(tmp_path_factory):
         port_base = _write_volume(str(port_dir), Volume, needle)
         ref_ec.write_ec_files(ref_base, large_block=LARGE, small_block=SMALL)
         ref_ec.write_sorted_ecx(ref_base + ".idx")
+        mp.delenv("WEEDTPU_EC_CODEC")  # the port takes no reference kind
         ec_files.write_ec_files(port_base, large_block=LARGE,
                                 small_block=SMALL, batch_size=2000,
                                 device="cpu")
@@ -145,7 +146,6 @@ LOST = [[5], [0, 13], [2, 7, 11], [0, 3, 10, 12]]
                                        "ref_rebuilds_port"])
 def test_rebuild_across_packages(encoded, tmp_path, monkeypatch, lost,
                                  direction):
-    monkeypatch.setenv("WEEDTPU_EC_CODEC", "jax")
     src = encoded["ref"] if direction == "port_rebuilds_ref" \
         else encoded["port"]
     base = _copy(src, str(tmp_path))
@@ -157,6 +157,7 @@ def test_rebuild_across_packages(encoded, tmp_path, monkeypatch, lost,
     if direction == "port_rebuilds_ref":
         got = ec_files.rebuild_ec_files(base, batch_size=3000, device="cpu")
     else:
+        monkeypatch.setenv("WEEDTPU_EC_CODEC", "jax")
         got = ref_ec.rebuild_ec_files(base, batch_size=3000)
     assert sorted(got) == lost
     for i in lost:
@@ -167,7 +168,6 @@ def test_rebuild_across_packages(encoded, tmp_path, monkeypatch, lost,
 @pytest.mark.parametrize("direction", ["port_reads_ref", "ref_reads_port"])
 def test_degraded_reads_across_packages(encoded, tmp_path, monkeypatch,
                                         direction):
-    monkeypatch.setenv("WEEDTPU_EC_CODEC", "jax")
     src = encoded["ref"] if direction == "port_reads_ref" \
         else encoded["port"]
     base = _copy(src, str(tmp_path))
@@ -176,6 +176,7 @@ def test_degraded_reads_across_packages(encoded, tmp_path, monkeypatch,
     if direction == "port_reads_ref":
         vol = ec_volume.EcVolume(base, LARGE, SMALL, device="cpu")
     else:
+        monkeypatch.setenv("WEEDTPU_EC_CODEC", "jax")
         vol = ref_ecv.EcVolume(base, LARGE, SMALL)
     try:
         for kw in NEEDLES:

@@ -56,10 +56,12 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_port_path_leaves_jax_unloaded(tmp_path):
     """Encode through the codec, convert a fleet of two volumes, scrub
     one of them and repair a lost shard of it from a helper's partials,
-    then regenerate a lost MSR shard from helper sub-rows, all on the
-    CPU, in a fresh interpreter: neither jax nor the reference package
-    gets imported."""
+    then regenerate a lost MSR shard from helper sub-rows, then encode
+    with the native host codec and rebuild a shard host-serial, all on
+    the CPU, in a fresh interpreter: neither jax nor the reference
+    package gets imported."""
     code = ("import os, sys, numpy as np, torch\n"
+            "os.environ.pop('WEEDTPU_EC_CODEC', None)\n"
             "from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume\n"
             "from seaweedfs_tpu_torch.ops import dispatch, fleet_convert, "
             "gf_cuda\n"
@@ -111,6 +113,19 @@ def test_port_path_leaves_jax_unloaded(tmp_path):
             "device='cpu')\n"
             "assert r['helper_bytes'] == {'h': 11 * 8}, r\n"
             "assert open(mb + '.ec00', 'rb').read() == full[0].tobytes()\n"
+            "os.environ['WEEDTPU_EC_CODEC'] = 'native'\n"
+            "nb = os.path.join(d, '8')\n"
+            "open(nb + '.dat', 'wb').write(os.urandom(25_000))\n"
+            "st = {}\n"
+            "ec_files.write_ec_files(nb, large_block=1000, small_block=100, "
+            "stats=st)\n"
+            "assert st['mode'] == 'pipelined'\n"
+            "want = open(nb + '.ec12', 'rb').read()\n"
+            "os.remove(nb + '.ec12')\n"
+            "st = {}\n"
+            "ec_files.rebuild_ec_files(nb, stats=st)\n"
+            "assert st['mode'] == 'host-serial'\n"
+            "assert open(nb + '.ec12', 'rb').read() == want\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('seaweedfs_tpu.') for m in sys.modules), "
             "sorted(m for m in sys.modules if 'jax' in m)\n")

@@ -466,14 +466,15 @@ def test_rebuild_ec_reduced_both_helpers_dead(tmp_path, shards, codec,
 def test_shard_set_crosses_packages(tmp_path, codec, monkeypatch, writer):
     """A shard set written by one package's write_ec_files is repaired by
     the other's rebuild_ec_reduced, byte for byte."""
-    monkeypatch.setenv("WEEDTPU_EC_CODEC", "numpy")
     base = str(tmp_path / "3")
     with open(base + ".dat", "wb") as f:
         f.write(np.random.default_rng(31).integers(
             0, 256, 200_000, dtype=np.uint8).tobytes())
     geom = dict(large_block=10_000, small_block=100)
     if writer == "ref":
-        ref_ec_files.write_ec_files(base, **geom)
+        with monkeypatch.context() as mp:
+            mp.setenv("WEEDTPU_EC_CODEC", "numpy")
+            ref_ec_files.write_ec_files(base, **geom)
     else:
         ec_files.write_ec_files(base, device="cpu", **geom)
     files = {s: open(base + layout.to_ext(s), "rb").read()
@@ -490,6 +491,7 @@ def test_shard_set_crosses_packages(tmp_path, codec, monkeypatch, writer):
             base, lost, groups, _port_disk_fetcher(codec, helper),
             device="cpu")
     else:
+        monkeypatch.setenv("WEEDTPU_EC_CODEC", "numpy")
         got = ref_ec_files.rebuild_ec_reduced(
             base, lost, groups, _ref_disk_fetcher(helper),
             batch_size=8192, align=4096)

@@ -553,6 +553,8 @@ def msr_volumes(tmp_path_factory):
                                       small_block=400, batch_size=4000,
                                       codec_tag=MSR)
             else:
+                # the port takes no reference kind
+                mp.delenv("WEEDTPU_EC_CODEC")
                 ec_files.write_ec_files(base, large_block=8000,
                                         small_block=400, batch_size=4000,
                                         codec_tag=MSR, device="cpu")
@@ -593,10 +595,11 @@ def test_msr_volume_repair_crosses_packages(tmp_path, msr_volumes,
             base, lost, groups, _disk_fetcher(True, MSR, shards),
             device="cpu")
     else:
-        monkeypatch.setenv("WEEDTPU_EC_CODEC", "numpy")
-        got = ref_ec.rebuild_ec_reduced(
-            base, lost, groups, _disk_fetcher(False, MSR, shards),
-            batch_size=8192)
+        with monkeypatch.context() as mp:
+            mp.setenv("WEEDTPU_EC_CODEC", "numpy")
+            got = ref_ec.rebuild_ec_reduced(
+                base, lost, groups, _disk_fetcher(False, MSR, shards),
+                batch_size=8192)
     assert got["rebuilt"] == lost
     assert got["helper_bytes"] == got["predicted"]["per_node"]
     for s in lost:
