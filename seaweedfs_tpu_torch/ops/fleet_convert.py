@@ -8,17 +8,19 @@ one stream of [U, k, W] unit batches, each encoded by one launch of the
 batched kernel (K2, `dispatch.dispatch_parity_batch`):
 
     reader     stages units round-robin across volumes into a pooled
-               pinned [U, k, W] host batch; data shards go straight to
-               each volume's writers by in-kernel copy (they never visit
-               the card)
+               pinned [U, k, W] host batch; data shards go to each
+               volume's writers by in-kernel copy (they never visit the
+               card), through the volume's data flusher
     dispatch   (caller's thread, on its own CUDA stream) copies the batch
                into the slot's device buffer and launches K2 on it
     drain      waits on the dispatch's event, copies parity D2H
                (`dispatch.materialize`), returns the slot to the pool
-               and fans rows out to the owning volume's writers; a
-               volume whose last unit lands is finalized (cut to size,
-               .vif, .tmp -> rename) while the stream feeds the others
-    writers    one _ShardWriterPool per volume
+               and fans rows out to the owning volume's parity flusher,
+               flushing the volumes the batch touched; a volume whose
+               last unit lands is finalized (both flushers flushed, cut
+               to size, .vif, .tmp -> rename) while the stream feeds the
+               others
+    writers    one _ShardWriterPool per volume, a write engine per worker
 
 W is the widest unit step of any volume, so one pool serves a fleet that
 mixes large- and small-block volumes; shorter units are zero-filled to W,
@@ -50,8 +52,9 @@ from seaweedfs_tpu_torch.ops.dispatch import (Pending, device_empty,
                                               host_empty, materialize)
 from seaweedfs_tpu_torch.storage.ec import layout
 from seaweedfs_tpu_torch.storage.ec.ec_files import (
-    DEFAULT_BATCH, _get_codec, _iter_units, _map_readonly, _max_step,
-    _ShardWriterPool, _Timer, _unit_coverage, write_vif)
+    DEFAULT_BATCH, _get_codec, _iter_units, _map_readonly, _ShardFlusher,
+    _ShardWriterPool, _Timer, _unit_coverage, _unit_steps,
+    overlap_fraction, write_vif)
 
 UNIT_BATCH = 4  # units per K2 launch
 PIPELINE_DEPTH = 2  # batches in flight: the pool holds one more
@@ -86,6 +89,11 @@ class _VolumeJob:
             self.out_fds, self.highwater, stats,
             stage_key=lambda i: "write_data_s" if i < k
             else "write_parity_s")
+        # one submission batcher per producer thread (a flusher is
+        # unlocked): the reader's data-shard copies, the drain's parity
+        self.data_flusher = _ShardFlusher(self.writers, layout.TOTAL_SHARDS)
+        self.parity_flusher = _ShardFlusher(self.writers,
+                                            layout.TOTAL_SHARDS)
         self.units = _iter_units(self.dat_size, large_block, small_block,
                                  batch_size)
         # one unit of lookahead: the last unit is known as the last when it
@@ -111,7 +119,11 @@ class _VolumeJob:
     def finalize(self) -> None:
         """All units drained: barrier on the writers, cut the shards to
         size, commit by rename.  Runs on the drain thread while the stream
-        keeps feeding the other volumes."""
+        keeps feeding the other volumes.  The reader is done with the
+        volume's data flusher by then: a unit reaches the drain only after
+        the reader has queued its copies."""
+        self.data_flusher.flush()
+        self.parity_flusher.flush()
         self.writers.close()
         if self.writers.errors:
             raise self.writers.errors[0]
@@ -164,7 +176,8 @@ def convert_volumes(bases: list[str], *,
     without one).  Returns per-volume accounting.
 
     `stats` receives per-stage seconds, `mode`, `unit_batch`,
-    `committed_bases`, `volumes` and `units`."""
+    `committed_bases`, `volumes`, `units`, `overlap_frac` and the write
+    engine's keys (`ec_files._ShardWriterPool`)."""
     if not bases:
         return {"volumes": {}, "bytes": 0}
     codec = _get_codec(device)
@@ -184,8 +197,8 @@ def convert_volumes(bases: list[str], *,
         # one staging width covers every volume (shorter units zero-fill);
         # each slot is a pinned host batch and its device twin (a host
         # codec's slot is the host batch alone)
-        W = max(_max_step(j.dat_size, large_block, small_block, batch_size,
-                          k) for j in jobs)
+        W = max(_unit_steps(j.dat_size, large_block, small_block,
+                            batch_size)[1] for j in jobs)
         for _ in range(PIPELINE_DEPTH + 1):
             pool.put((host_empty((U, k, W), device),
                       device_empty((U, k, W), device)
@@ -225,7 +238,7 @@ def convert_volumes(bases: list[str], *,
                             job.units_skipped += 1
                             continue
                         for j in range(nz):
-                            job.writers.copy(
+                            job.data_flusher.copy(
                                 j, job.dat_f.fileno(),
                                 row_start + j * block + col, shard_off,
                                 step if j < nz - 1 else tail, job.view)
@@ -239,6 +252,7 @@ def convert_volumes(bases: list[str], *,
                             if n < W:
                                 unit_buf[j, n:] = 0
                         metas.append((job, shard_off, step))
+                        job.data_flusher.account(step)
                 if metas:
                     q_read.put((slot, metas))
                 else:
@@ -266,14 +280,23 @@ def convert_volumes(bases: list[str], *,
                 # done with both of the slot's buffers
                 pool.put(slot)
                 slot = None
+                touched = []
                 for rows, (job, shard_off, step) in zip(out, metas):
                     # views of the pinned D2H buffer: each queued row
                     # keeps it alive until the writer has written it
                     for i in range(m):
-                        job.writers.put(k + i, rows[i, :step], shard_off)
+                        job.parity_flusher.put(k + i, rows[i, :step],
+                                               shard_off)
+                    job.parity_flusher.account(step)
                     job.units_drained += 1
                     if job.drained_all():
                         job.finalize()
+                    elif job not in touched:
+                        touched.append(job)
+                # the batch's parity goes to the writers now, not at the
+                # volume's next flush group
+                for job in touched:
+                    job.parity_flusher.flush()
             except BaseException as e:  # surfaced by the caller's thread
                 errors.append(e)
                 failed = True
@@ -342,6 +365,9 @@ def convert_volumes(bases: list[str], *,
         raise errors[0]
     stats["volumes"] = len(jobs)
     stats["units"] = sum(j.units_read for j in jobs)
+    frac = overlap_fraction(stats)
+    if frac is not None:
+        stats["overlap_frac"] = frac
     return {"volumes": {j.base: {"bytes": j.dat_size,
                                  "shard_size": j.shard_size}
                         for j in jobs},

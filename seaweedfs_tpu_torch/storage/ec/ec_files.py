@@ -5,6 +5,9 @@ weed/storage/erasure_coding/ec_encoder.go, ec_decoder.go).  A volume's
 .dat streams through the codec as [k, B] uint8 batches; data shards are
 written straight from the .dat and only parity ([m, B]) comes back from
 the device.  The files are byte-identical to the reference package's.
+Every shard byte goes through the writer pool (`_ShardWriterPool`), one
+`aio.WriteEngine` per worker thread, with the submission batcher
+(`_ShardFlusher`) in front of it for small units.
 
   write_ec_files      <- WriteEcFiles (ec_encoder.go:56)
   rebuild_ec_files    <- RebuildEcFiles (ec_encoder.go:91)
@@ -46,15 +49,43 @@ from seaweedfs_tpu_torch.ops.dispatch import (
     reconstruct_batch as _reconstruct_batch,
 )
 from seaweedfs_tpu_torch.ops.native_codec import NativeRSCodec
+from seaweedfs_tpu_torch.storage import aio as _aio
 from seaweedfs_tpu_torch.storage import idx as idxf
 from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.storage.ec import layout
+# the raw write primitives live with the write engine; re-exported here,
+# where the reference's callers (and tests) reach them
+from seaweedfs_tpu_torch.storage.aio import (
+    _pwrite_all, aligned_empty as _aligned_empty)
 
 DEFAULT_BATCH = 16 * 1024 * 1024  # bytes per shard per device round-trip
 
 PIPELINE_DEPTH = 3  # batch buffers in flight: read N+1 / encode N / drain N-1
-WRITER_DEPTH = 4  # queued writes per shard fd before submission blocks
-RING_ALIGN = 4096  # host ring buffers start on O_DIRECT's alignment
+WRITER_DEPTH = 4  # queued batches per shard fd before submission blocks
+
+
+def _env_bytes(name: str, default: int, least: int) -> int:
+    """A byte-count knob: `default` when unset; a value that is not an
+    integer of at least `least` raises ValueError."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        val = int(raw)
+    except ValueError:
+        val = None
+    if val is None or val < least:
+        raise ValueError(f"{name}={raw!r}: expected an integer >= {least}")
+    return val
+
+
+# the submission batcher ships each shard's queued jobs once per this much
+# volume data (WEEDTPU_EC_FLUSH_BYTES; 1 flushes after every unit)
+FLUSH_BYTES = _env_bytes("WEEDTPU_EC_FLUSH_BYTES", 8 * 1024 * 1024, 1)
+# units of at least this many bytes skip the batcher: a queue hop per
+# 256 KiB+ write is noise, and direct submission lets the writers start
+# (and release pooled buffers) as soon as a job exists
+DIRECT_MIN = 256 * 1024
 
 
 def _get_codec(device=None, tag: str | None = None):
@@ -94,14 +125,6 @@ def _map_readonly(fd: int, size: int) -> mmap_mod.mmap:
     return mm
 
 
-def _pwrite_all(fd: int, buf, off: int) -> None:
-    view = memoryview(np.ascontiguousarray(buf)).cast("B")
-    while view:
-        n = os.pwrite(fd, view, off)
-        view = view[n:]
-        off += n
-
-
 _CFR_OK = True  # copy_file_range support, latched off on first failure
 
 
@@ -128,21 +151,6 @@ def _copy_range(src_fd: int, dst_fd: int, src_off: int, dst_off: int,
 
 class EncodeCancelled(RuntimeError):
     pass
-
-
-def _aligned_empty(shape) -> np.ndarray:
-    """An uninitialised uint8 array whose base is RING_ALIGN-aligned."""
-    n = int(np.prod(shape))
-    raw = np.empty(n + RING_ALIGN, dtype=np.uint8)
-    off = -raw.ctypes.data % RING_ALIGN
-    return raw[off:off + n].reshape(shape)
-
-
-def _parity_ring_size() -> int:
-    """Buffers in the host codec's parity ring: the pipeline's depth and
-    one more.  Each row goes to its writer as one job and comes back when
-    written, so no batch of unflushed jobs has to fit in the ring."""
-    return PIPELINE_DEPTH + 1
 
 
 def _countdown(n: int, cb):
@@ -177,20 +185,40 @@ class _Timer:
 
 
 class _ShardWriterPool:
-    """pwrite / copy_file_range workers over the shard fds behind bounded
-    queues.  Shards map to workers by a fixed shard -> worker stripe, so
-    writes to one shard stay in order while different shards land
-    concurrently.  Workers never die: after the first error they drain
-    the rest without touching the fds (still calling their release
-    hooks), so producers cannot deadlock on a full queue or an empty
-    ring; the error surfaces via `.errors` after close().  Busy seconds
-    fold into stats[stage_key(shard)] on close."""
+    """Shard-file writers: worker threads over the shard fds behind
+    bounded queues, each worker with its own `aio.WriteEngine`.
 
-    def __init__(self, fds, highwater=None, stats=None, stage_key=None):
+    Shards map to workers by a fixed shard -> worker stripe, so writes to
+    one shard stay in order while different shards land concurrently.  A
+    queue item is one job (`put`, `copy`) or a batch of them (`put_many`,
+    from a `_ShardFlusher`); the worker merges a batch's jobs that target
+    contiguous offsets into one `writev` of up to _IOV_RUN buffers, and
+    barriers the engine (`ensure_buffered`) before each in-kernel copy.
+    Release hooks fire only after the engine has drained the batch: with
+    an async ring the kernel may still read a buffer after submission
+    returned, and a ring buffer handed back early would be overwritten
+    under it.  `reg_bufs` (the parity or output ring) are registered with
+    every worker's ring, so their rows go out as WRITE_FIXED.
+
+    Workers never die: after the first error they drain the rest without
+    touching the fds (still calling every release hook), so producers
+    cannot deadlock on a full queue or an empty ring; the error surfaces
+    via `.errors` after close().  close() folds the busy seconds into
+    stats[stage_key(shard)], and the engines' `submit_s`, `complete_s`,
+    `aio_direct_bytes`, `aio_mode` (the most degraded engine's) and
+    `aio_degraded_engines` beside them."""
+
+    _IOV_RUN = 512  # most buffers merged into one writev (< IOV_MAX)
+
+    def __init__(self, fds, highwater=None, stats=None, stage_key=None,
+                 reg_bufs=None):
         self._fds = list(fds)
         self._hw = highwater
         self._stats = stats
         self._stage_key = stage_key or (lambda i: "write_s")
+        self._mode = _aio.engine_mode()
+        self._reg = list(reg_bufs) if reg_bufs else None
+        self._engines: list = []
         self._nworkers = max(1, min(len(self._fds),
                                     _writer_threads(len(self._fds))))
         per = -(-len(self._fds) // self._nworkers)
@@ -210,55 +238,114 @@ class _ShardWriterPool:
     def failed(self) -> bool:
         return bool(self.errors)
 
+    def _q(self, shard: int) -> queue.Queue:
+        return self._queues[shard % self._nworkers]
+
     def put(self, shard: int, data, off: int, release=None) -> None:
-        """Queue a pwrite of a 1-D uint8 buffer at `off`; the queue item
+        """Queue a write of a 1-D uint8 buffer at `off`; the queue item
         keeps `data` alive until it is written.  `release()`, when given,
-        is called once the write is done or skipped, after which the
+        is called once the write is drained or skipped, after which the
         caller may reuse `data`'s memory."""
-        self._queues[shard % self._nworkers].put(
-            (shard, data, None, off, release))
+        self._q(shard).put((shard, [(data, None, off, release)]))
 
     def copy(self, shard: int, src_fd: int, src_off: int, dst_off: int,
              count: int, src_view) -> None:
         """Queue an in-kernel copy of a source range into the shard file."""
-        self._queues[shard % self._nworkers].put(
-            (shard, None, (src_fd, src_off, count, src_view), dst_off,
-             None))
+        self._q(shard).put(
+            (shard, [(None, (src_fd, src_off, count, src_view), dst_off,
+                      None)]))
+
+    def put_many(self, shard: int, jobs: list) -> None:
+        """Queue a batch of jobs as one queue item: one worker wakeup per
+        batch, not per job (see _ShardFlusher)."""
+        self._q(shard).put((shard, jobs))
+
+    # a bare pool stands in for a _ShardFlusher, so producers submit
+    # directly where units are big enough (see _make_sink)
+    def account(self, nbytes: int) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
 
     def _run(self, w: int) -> None:
         q = self._queues[w]
-        while True:
-            item = q.get()
-            if item is None:
-                return
-            shard, data, cfr, off, release = item
-            try:
-                if not self.errors:  # else drain without touching the fds
-                    self._write(shard, data, cfr, off)
-            finally:
-                if release is not None:
-                    release()
-
-    def _write(self, shard: int, data, cfr, off: int) -> None:
-        fd = self._fds[shard]
-        t0 = time.perf_counter()
         try:
-            if cfr is not None:
-                src_fd, src_off, count, src_view = cfr
-                _copy_range(src_fd, fd, src_off, off, count, src_view)
-                end = off + count
-            else:
-                _pwrite_all(fd, data, off)
-                end = off + len(data)
-            if self._hw is not None and end > self._hw[shard]:
-                self._hw[shard] = end
-        except BaseException as e:  # surfaced after close
+            eng = _aio.WriteEngine(mode=self._mode, reg=self._reg)
+        except BaseException as e:  # a forced uring without its ring
             self.errors.append(e)
-        self._busy[shard] += time.perf_counter() - t0
+            eng = None
+        if eng is not None:
+            self._engines.append(eng)
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    return
+                shard, jobs = batch
+                t0 = time.perf_counter()
+                releases = self._write_batch(eng, shard, jobs)
+                self._busy[shard] += time.perf_counter() - t0
+                for rel in releases:
+                    rel()
+        finally:
+            if eng is not None:
+                try:
+                    eng.close()
+                except BaseException as e:
+                    self.errors.append(e)
+
+    def _write_batch(self, eng, shard: int, jobs: list) -> list:
+        """Write one batch through the engine and drain it; returns the
+        batch's release hooks, every one of them even after an error."""
+        fd = self._fds[shard]
+        releases: list = []
+        ends: list[int] = []
+        idx = 0
+        while idx < len(jobs):
+            data, cfr, off, release = jobs[idx]
+            if release is not None:
+                releases.append(release)
+            idx += 1
+            if self.errors:
+                continue  # drain without touching the fd
+            try:
+                if cfr is not None:
+                    src_fd, src_off, count, src_view = cfr
+                    # an in-kernel copy wants plain buffered fd semantics
+                    # over every earlier write: barrier the engine first
+                    eng.ensure_buffered(fd)
+                    _copy_range(src_fd, fd, src_off, off, count, src_view)
+                    ends.append(off + count)
+                    continue
+                # merge the run of writes at contiguous offsets
+                bufs = [np.ascontiguousarray(data)]
+                end = off + bufs[0].nbytes
+                while (idx < len(jobs) and len(bufs) < self._IOV_RUN
+                       and jobs[idx][1] is None and jobs[idx][2] == end):
+                    nxt = np.ascontiguousarray(jobs[idx][0])
+                    bufs.append(nxt)
+                    end += nxt.nbytes
+                    if jobs[idx][3] is not None:
+                        releases.append(jobs[idx][3])
+                    idx += 1
+                eng.writev(fd, bufs, off)
+                ends.append(end)
+            except BaseException as e:  # surfaced after close
+                self.errors.append(e)
+        if eng is not None:
+            try:
+                eng.drain()
+            except BaseException as e:
+                self.errors.append(e)
+        if not self.errors and self._hw is not None:
+            self._hw[shard] = max([self._hw[shard]] + ends)
+        return releases
 
     def close(self) -> None:
-        """Drain every queue, join the workers, fold busy seconds into
-        stats.  Idempotent; does not raise (callers read `.errors`)."""
+        """Drain every queue, join the workers, fold the stage seconds and
+        the engines' stats into stats.  Idempotent; does not raise
+        (callers read `.errors`, so a producer's error wins)."""
         if self._closed:
             return
         self._closed = True
@@ -266,10 +353,118 @@ class _ShardWriterPool:
             q.put(None)
         for th in self._threads:
             th.join()
-        if self._stats is not None:
-            for i, busy in enumerate(self._busy):
-                key = self._stage_key(i)
-                self._stats[key] = self._stats.get(key, 0.0) + busy
+        if self._stats is None:
+            return
+        st = self._stats
+        # the engines' finer cut of the write stages' seconds: SQE
+        # stamping and submitting calls against waits for completions
+        sub = sum(e.submit_s for e in self._engines)
+        comp = sum(e.complete_s for e in self._engines)
+        if sub or comp:
+            st["submit_s"] = st.get("submit_s", 0.0) + sub
+            st["complete_s"] = st.get("complete_s", 0.0) + comp
+            for key in ("submit_workers", "complete_workers"):
+                st[key] = st.get(key, 0.0) + self._nworkers
+        direct = sum(e.direct_bytes for e in self._engines)
+        if direct:
+            st["aio_direct_bytes"] = st.get("aio_direct_bytes", 0) + direct
+        # the mode the engines resolved to, the most degraded one: under
+        # auto a worker whose ring setup failed degrades alone
+        rank = {"buffered": 0, "pwritev": 1, "uring": 2}
+        modes = [e.mode for e in self._engines]
+        resolved = min(modes, key=rank.__getitem__) if modes else self._mode
+        cur = st.get("aio_mode")
+        if cur is None or rank[resolved] < rank[cur]:
+            st["aio_mode"] = resolved
+        degraded = sum(1 for m in modes if m != self._mode)
+        if degraded:
+            st["aio_degraded_engines"] = \
+                st.get("aio_degraded_engines", 0) + degraded
+        key_busy: dict[str, float] = {}
+        for i, busy in enumerate(self._busy):
+            key = self._stage_key(i)
+            st[key] = st.get(key, 0.0) + busy
+            key_busy[key] = key_busy.get(key, 0.0) + busy
+        # the pool's threads split across its stages by busy share, summed
+        # over pools (the fleet's volumes share one stats dict)
+        total = sum(key_busy.values())
+        if total > 0:
+            for key, busy in key_busy.items():
+                wkey = key[:-2] + "_workers"
+                st[wkey] = st.get(wkey, 0.0) + \
+                    self._nworkers * busy / total
+
+
+def _make_sink(writers: _ShardWriterPool, nshards: int, min_step: int):
+    """The submission front for a writer pool: the pool itself (direct,
+    one job at a time) when every unit is at least DIRECT_MIN bytes, else
+    a _ShardFlusher that batches the small units."""
+    if min_step >= DIRECT_MIN:
+        return writers
+    return _ShardFlusher(writers, nshards)
+
+
+def _parity_ring_size(min_step: int, max_step: int) -> int:
+    """Buffers in the countdown-released parity ring.  Direct submission
+    needs only the pipeline's headroom (writers release job by job); the
+    batched path must cover a whole unflushed flush group of units, or
+    the encode waits on its own batching."""
+    if min_step >= DIRECT_MIN:
+        return PIPELINE_DEPTH + 1
+    return PIPELINE_DEPTH + max(1, FLUSH_BYTES // max_step)
+
+
+class _ShardFlusher:
+    """Producer-side submission batcher for a _ShardWriterPool: each
+    shard's jobs gather here and go to the pool as one `put_many` batch
+    per FLUSH_BYTES of volume data (or at `flush()`), so a small-block
+    layout's many small units cost one queue hop a batch, not one a job,
+    and the worker merges their contiguous runs into one writev.  One
+    producer thread per flusher: its lists are unlocked."""
+
+    def __init__(self, writers: _ShardWriterPool, nshards: int):
+        self._writers = writers
+        self._jobs: list[list] = [[] for _ in range(nshards)]
+        self._acc = 0
+
+    def put(self, shard: int, data, off: int, release=None) -> None:
+        self._jobs[shard].append((data, None, off, release))
+
+    def copy(self, shard: int, src_fd: int, src_off: int, dst_off: int,
+             count: int, src_view) -> None:
+        self._jobs[shard].append(
+            (None, (src_fd, src_off, count, src_view), dst_off, None))
+
+    def account(self, nbytes: int) -> None:
+        """Called once per unit; crossing FLUSH_BYTES ships every shard's
+        pending batch."""
+        self._acc += nbytes
+        if self._acc >= FLUSH_BYTES:
+            self.flush()
+
+    def flush(self) -> None:
+        self._acc = 0
+        for shard, jobs in enumerate(self._jobs):
+            if jobs:
+                self._writers.put_many(shard, jobs)
+                self._jobs[shard] = []
+
+
+def overlap_fraction(stats: dict) -> float | None:
+    """Achieved stage overlap of an encode or rebuild: 1 - wall / (sum of
+    the stage seconds).  0.0 means fully serial.  stall_s is the producer
+    waiting, not a stage, and submit_s / complete_s are the write engine's
+    finer cut of seconds the write stages already hold, so all three are
+    left out.  None without a wall clock or stage time."""
+    wall = stats.get("wall_s")
+    total = sum(v for key, v in stats.items()
+                if key.endswith("_s")
+                and key not in ("wall_s", "stall_s", "submit_s",
+                                "complete_s")
+                and isinstance(v, float))
+    if not wall or total <= 0:
+        return None
+    return round(max(0.0, 1.0 - wall / total), 3)
 
 
 def write_ec_files(base: str, dat_path: str | None = None,
@@ -341,14 +536,22 @@ def _iter_units(dat_size: int, large_block: int, small_block: int,
         shard_base += small_block
 
 
-def _max_step(dat_size: int, large_block: int, small_block: int,
-              batch_size: int, data_shards: int) -> int:
-    """The widest column batch _iter_units cuts for this volume: it sizes
-    the pooled staging buffers (a small-block-only volume never needs
-    large-step buffers)."""
-    if dat_size > large_block * data_shards:
-        return max(min(batch_size, large_block), min(batch_size, small_block))
-    return min(batch_size, small_block)
+def _unit_steps(dat_size: int, large_block: int, small_block: int,
+                batch_size: int,
+                data_shards: int = layout.DATA_SHARDS) -> tuple[int, int]:
+    """(min, max) column-batch step _iter_units cuts for this volume: min
+    picks direct or batched submission, max sizes the pooled buffers (a
+    small-block-only volume never needs large-step buffers)."""
+    row = large_block * data_shards
+    n_large = (dat_size - 1) // row if dat_size > row else 0
+    steps = []
+    if n_large:
+        steps.append(min(batch_size, large_block))
+    if dat_size - n_large * row > 0:
+        steps.append(min(batch_size, small_block))
+    if not steps:
+        steps = [batch_size]
+    return min(steps), max(steps)
 
 
 def _unit_coverage(dat_size: int, row_start: int, block: int, col: int,
@@ -403,6 +606,9 @@ def _encode_stream(codec, dat_path: str, dat_size: int, large_block: int,
                 with contextlib.suppress(BufferError):
                     mm.close()  # a traceback may still hold views
         stats["wall_s"] = time.perf_counter() - t_wall
+        frac = overlap_fraction(stats)
+        if frac is not None:
+            stats["overlap_frac"] = frac
     _finalize_shards(out_fds, highwater, shard_size)
 
 
@@ -434,49 +640,63 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
 
       reader   walks the units; data shards go to their writers by
                in-kernel copy on the way (they never visit the device),
-               and the stripe is staged from the mmap into a pooled
-               pinned host buffer (read_s)
+               batched through a _ShardFlusher, and the stripe is staged
+               from the mmap into a pooled pinned host buffer (read_s)
       dispatch (caller's thread, on its own CUDA stream) copies the
                stripe into the slot's device buffer and enqueues the
                parity kernel on a [:, :step] view of it (encode_s)
       drain    waits on the dispatch's event and copies parity D2H
                (d2h_s), returns the slot to the pool, and hands the m
-               parity rows to their writers
-      writers  pwrite workers over the shard fds
+               parity rows to the writers: directly when every unit is at
+               least DIRECT_MIN bytes, else through a _ShardFlusher
+      writers  the _ShardWriterPool over the shard fds
 
     The pool of (host, device) slots is the backpressure: a slot comes
     back only once its parity is on the host, so neither buffer is
-    overwritten while the device may still read it.
+    overwritten while the device may still read it.  The parity rows are
+    views of the pinned array `materialize` returns; the queue items and
+    the write engine hold them until written, so the caching host
+    allocator cannot hand that block to another D2H while a ring write
+    still reads it.
 
     The native codec skips the staging: the reader passes each unit's
     coverage on, the dispatch computes its parity off the mmap into a
-    buffer of the parity ring (`_host_parity_unit`; waiting for one is
-    stall_s), and the drain hands its rows to the writers, which return
-    it to the ring once all m are written."""
+    buffer of the aligned, registered parity ring (`_host_parity_unit`;
+    waiting for one is stall_s), and the drain hands its rows to the
+    writers, which return it to the ring once all m are written.  When
+    the ring runs dry the dispatch sends FLUSH to the drain first: its
+    flusher may hold the very jobs whose releases refill the ring."""
     device = codec.device
     host = isinstance(codec, NativeRSCodec)
     k, m = codec.k, codec.m
-    max_step = _max_step(dat_size, large_block, small_block, batch_size, k)
+    min_step, max_step = _unit_steps(dat_size, large_block, small_block,
+                                     batch_size, k)
     pool: queue.Queue = queue.Queue()
+    reg_bufs = None
     if host:
         tailbuf = np.zeros(max_step, dtype=np.uint8)
-        for _ in range(_parity_ring_size()):
-            pool.put(_aligned_empty((m, max_step)))
+        reg_bufs = [_aligned_empty((m, max_step))
+                    for _ in range(_parity_ring_size(min_step, max_step))]
+        for b in reg_bufs:
+            pool.put(b)
     else:
         for _ in range(PIPELINE_DEPTH):
             dev = _device_empty((k, max_step), device) \
                 if device.type == "cuda" else None
             pool.put((_host_empty((k, max_step), device), dev))
     q_read: queue.Queue = queue.Queue(maxsize=PIPELINE_DEPTH)
-    q_disp: queue.Queue = queue.Queue()  # bounded by the pool
+    q_disp: queue.Queue = queue.Queue()  # bounded by the pool, and FLUSH
+    FLUSH = object()
     errors: list[BaseException] = []
     writers = _ShardWriterPool(
         out_fds, highwater, stats,
-        stage_key=lambda i: "write_data_s" if i < k else "write_parity_s")
+        stage_key=lambda i: "write_data_s" if i < k else "write_parity_s",
+        reg_bufs=reg_bufs)
     done = 0
 
     def reader() -> None:
         nonlocal done
+        flusher = _ShardFlusher(writers, k)  # data shards only
         try:
             for row_start, block, col, step, shard_off in _iter_units(
                     dat_size, large_block, small_block, batch_size,
@@ -490,7 +710,7 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
                 if nz == 0:
                     continue
                 for j in range(nz):
-                    writers.copy(j, dat_fd, row_start + j * block + col,
+                    flusher.copy(j, dat_fd, row_start + j * block + col,
                                  shard_off, step if j < nz - 1 else tail,
                                  dat_view)
                 if host:  # the dispatch encodes off the mmap itself
@@ -511,18 +731,25 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
                                 batch[j, n:] = 0
                     q_read.put((slot, step, shard_off, None))
                 done += (nz - 1) * step + tail
+                flusher.account(step)
                 if progress is not None:
                     progress(done)
+            flusher.flush()
         except BaseException as e:  # surfaced by the caller's thread
             errors.append(e)
         finally:
             q_read.put(None)
 
     def drain() -> None:
+        sink = _make_sink(writers, k + m, min_step)
         while True:
             item = q_disp.get()
             if item is None:
+                sink.flush()
                 return
+            if item is FLUSH:
+                sink.flush()
+                continue
             slot, step, shard_off, parity, release = item
             if errors or writers.failed:
                 if release is not None:
@@ -533,8 +760,9 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
                 continue
             if release is not None:  # host parity, computed in place
                 for i in range(m):
-                    writers.put(k + i, parity[i, :step], shard_off,
-                                release=release)
+                    sink.put(k + i, parity[i, :step], shard_off,
+                             release=release)
+                sink.account(step)
                 continue
             try:
                 with _Timer(stats, "d2h_s"):
@@ -545,7 +773,8 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
                 continue
             pool.put(slot)  # the device is done with both buffers
             for i in range(m):
-                writers.put(k + i, pnp[i, :step], shard_off)
+                sink.put(k + i, pnp[i, :step], shard_off)
+            sink.account(step)
 
     t_r = threading.Thread(target=reader, name="ec-reader", daemon=True)
     t_d = threading.Thread(target=drain, name="ec-drain", daemon=True)
@@ -566,8 +795,12 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
                     continue
                 if host:
                     row_start, block, col, nz, tail = coverage
-                    with _Timer(stats, "stall_s"):
-                        pbuf = pool.get()
+                    try:
+                        pbuf = pool.get_nowait()
+                    except queue.Empty:
+                        q_disp.put(FLUSH)  # else the wait may never end
+                        with _Timer(stats, "stall_s"):
+                            pbuf = pool.get()
                     with _Timer(stats, "encode_s"):
                         _host_parity_unit(codec, dat_view, tailbuf, pbuf,
                                           row_start, block, col, step, nz,
@@ -616,8 +849,12 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
     buffers, each back in the ring once its writers are done.  The
     rebuilt rows stream to per-shard writers into `.tmp` files, committed
     by rename only on success (reference: RebuildEcFiles,
-    ec_encoder.go:237-291).  `stats` gets mode, bytes, codec,
-    reconstruct_s, stall_s, write_s and wall_s."""
+    ec_encoder.go:237-291).  The output ring is aligned and registered
+    with the writers' engines; staged mode copies its decoded rows into
+    it only under the io_uring engine, where they then go out as
+    WRITE_FIXED, and otherwise hands them to the writers as they are.  `stats`
+    gets mode, bytes, codec, reconstruct_s, stall_s, write_s, wall_s,
+    overlap_frac and the write engine's keys (`_ShardWriterPool`)."""
     spec = codecs.parse_tag((read_vif(base) or {}).get("codec"))
     present = [i for i in range(spec.n)
                if os.path.exists(base + layout.to_ext(i))]
@@ -655,18 +892,27 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
             ins[i] = open(base + layout.to_ext(i), "rb")
         for i, p_ in tmp_paths.items():
             out_fds[i] = os.open(p_, os.O_RDWR | os.O_CREAT, 0o644)
-        writers = _ShardWriterPool([out_fds[i] for i in missing], None, stats)
-        wpos = {i: r for r, i in enumerate(missing)}
+        # an aligned output ring registered with the writers' engines; a
+        # buffer goes back once all its rows are written.  The staged
+        # decode's rows are copied into it only where a ring engine can
+        # write them as WRITE_FIXED: a synchronous writer takes them as
+        # they are, and the queue item holds them until written
+        obufs = []
+        if host or _aio.engine_mode() == "uring":
+            obufs = [_aligned_empty((len(missing),
+                                     min(batch_size, max(shard_size, 1))))
+                     for _ in range(PIPELINE_DEPTH)]
+        ring: queue.Queue = queue.Queue()
+        for b in obufs:
+            ring.put(b)
+        writers = _ShardWriterPool([out_fds[i] for i in missing], None, stats,
+                                   reg_bufs=obufs)
         if shard_size:
             for i, f in ins.items():
                 maps[i] = _map_readonly(f.fileno(), shard_size)
                 views[i] = np.frombuffer(maps[i], dtype=np.uint8)
         if host and shard_size:
             _, dec = codec.decoder(tuple(present), tuple(missing))
-            ring: queue.Queue = queue.Queue()
-            for _ in range(PIPELINE_DEPTH):
-                ring.put(_aligned_empty(
-                    (len(missing), min(batch_size, shard_size))))
         done = 0
         for off in range(0, shard_size, batch_size):
             if cancel is not None and cancel():
@@ -674,25 +920,28 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
             if writers.failed:
                 break
             n = min(batch_size, shard_size - off)
-            if host:
+            release = None
+            if obufs:
                 with _Timer(stats, "stall_s"):
                     obuf = ring.get()
-                with _Timer(stats, "reconstruct_s"):
+                release = _countdown(len(missing), lambda b=obuf: ring.put(b))
+            with _Timer(stats, "reconstruct_s"):
+                if host:
                     native.gf_matmul_ptrs(
                         dec.C, [views[i][off:off + n] for i in use],
                         list(obuf), n)
-                release = _countdown(len(missing),
-                                     lambda b=obuf: ring.put(b))
-                for i in missing:
-                    writers.put(wpos[i], obuf[wpos[i], :n], off,
-                                release=release)
-            else:
-                with _Timer(stats, "reconstruct_s"):
+                    rows = list(obuf[:, :n])
+                else:
                     rebuilt = _reconstruct_batch(
                         codec, {i: views[i][off:off + n] for i in use},
                         missing)
-                for i in missing:
-                    writers.put(wpos[i], rebuilt[i], off)
+                    rows = [rebuilt[i] for i in missing]
+                    if obufs:
+                        for r, row in enumerate(rows):
+                            np.copyto(obuf[r, :n], row)
+                        rows = list(obuf[:, :n])
+            for r, row in enumerate(rows):
+                writers.put(r, row, off, release=release)
             done += n * len(use)
             if progress is not None:
                 progress(done)
@@ -702,6 +951,9 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
         for fd in out_fds.values():
             os.ftruncate(fd, shard_size)
         stats["wall_s"] = time.perf_counter() - t_wall
+        frac = overlap_fraction(stats)
+        if frac is not None:
+            stats["overlap_frac"] = frac
         ok = True
     finally:
         if writers is not None:

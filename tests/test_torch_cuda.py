@@ -451,3 +451,70 @@ def test_cuda_native_shards_equal_card(card, tmp_path, monkeypatch):
     assert st["mode"] == "host-serial"
     assert {i: (tmp_path / "native" / ("1" + layout.to_ext(i))).read_bytes()
             for i in range(14)} == files["card"]
+
+
+@pytest.mark.cuda
+def test_cuda_encode_uring_direct_equals_cpu(card, tmp_path, monkeypatch):
+    """One .dat encoded and rebuilt on the card under WEEDTPU_AIO=uring
+    with O_DIRECT (parity rows straight from the pinned D2H buffers, 4 KiB
+    multiples, so aligned runs go out direct), and on the CPU under the
+    default engine: the same shards."""
+    from seaweedfs_tpu_torch.storage import aio
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    if not aio.probe_uring():
+        pytest.skip("io_uring unavailable on this host")
+    geom = dict(large_block=1 << 20, small_block=64 << 10,
+                batch_size=256 << 10)
+    src = np.random.default_rng(13).integers(0, 256, 12_345_678,
+                                             dtype=np.uint8).tobytes()
+    files = {}
+    for dev in ("cpu", "cuda"):
+        d = tmp_path / dev
+        d.mkdir()
+        base = str(d / "1")
+        (d / "1.dat").write_bytes(src)
+        with monkeypatch.context() as mp:
+            if dev == "cuda":
+                mp.setenv("WEEDTPU_AIO", "uring")
+                mp.setenv("WEEDTPU_AIO_DIRECT", "1")
+            st: dict = {}
+            ec_files.write_ec_files(base, device=dev, stats=st, **geom)
+            assert st["aio_mode"] == ("uring" if dev == "cuda"
+                                      else aio.engine_mode())
+            files[dev] = {i: (d / ("1" + layout.to_ext(i))).read_bytes()
+                          for i in range(14)}
+            for i in (0, 3, 10, 12):
+                os.remove(base + layout.to_ext(i))
+            rst: dict = {}
+            ec_files.rebuild_ec_files(base, batch_size=geom["batch_size"],
+                                      stats=rst, device=dev)
+            assert rst["aio_mode"] == st["aio_mode"]
+            assert {i: (d / ("1" + layout.to_ext(i))).read_bytes()
+                    for i in range(14)} == files[dev]
+    assert files["cpu"] == files["cuda"]
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_flush_settings_equal(card, tmp_path, monkeypatch):
+    """convert_volumes on the card with the submission batcher (the
+    default FLUSH_BYTES) and without it (FLUSH_BYTES = 1, a flush per
+    unit): the same files, byte for byte."""
+    from seaweedfs_tpu_torch.ops import fleet_convert
+    from seaweedfs_tpu_torch.storage.ec import ec_files
+    geom = dict(large_block=10_000, small_block=100, batch_size=1000)
+    sizes = [250_000, 12_345, 100_001]
+    files = {}
+    for flush in (ec_files.FLUSH_BYTES, 1):
+        d = tmp_path / str(flush)
+        d.mkdir()
+        rng = np.random.default_rng(6)
+        bases = [str(d / str(i)) for i in range(len(sizes))]
+        for b, s in zip(bases, sizes):
+            (d / (b.rsplit("/", 1)[1] + ".dat")).write_bytes(
+                rng.integers(0, 256, s, dtype=np.uint8).tobytes())
+        with monkeypatch.context() as mp:
+            mp.setattr(ec_files, "FLUSH_BYTES", flush)
+            fleet_convert.convert_volumes(bases, device="cuda", **geom)
+        files[flush] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    assert files[1] == files[ec_files.FLUSH_BYTES]
+    assert len(files[1]) == 3 * 16

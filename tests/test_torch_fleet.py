@@ -204,42 +204,65 @@ def _failing_copy(real, victim):
     return copy
 
 
+def _fail_volume_c(d, sizes, pkg, ref_codec, monkeypatch):
+    """Convert volumes a, b, c with every copy into c's shards failing;
+    -> (committed volume names, every volume's files).  c's previous
+    shard set must stay untouched and no .tmp be left."""
+    mod, module = (ref_fleet, ref_ec) if pkg == "ref" else \
+        (fleet_convert, ec_files)
+    d.mkdir()
+    bases = _make_volumes(d, sizes, names={0: "a", 1: "b", 2: "c"})
+    ec_files.write_ec_files(bases[2], device="cpu", large_block=1000,
+                            small_block=100)
+    before = _files(bases[2])
+    stats = {}
+    monkeypatch.setattr(module, "_copy_range",
+                        _failing_copy(module._copy_range, "c"))
+    kw = {"codec": ref_codec} if pkg == "ref" else {"device": "cpu"}
+    with pytest.raises(_Injected):
+        mod.convert_volumes(bases, stats=stats, **GEOM, **kw)
+    monkeypatch.undo()
+    files = {os.path.basename(b): _files(b) for b in bases}
+    assert _no_tmp(d)
+    assert files["c"] == before
+    return [os.path.basename(b)
+            for b in stats.get("committed_bases", [])], files
+
+
 def test_writer_error_keeps_committed_volumes(tmp_path, monkeypatch,
                                              ref_codec):
     """A writer error in a later volume fails the run: the volumes
     committed before it stay committed (stats["committed_bases"]) and the
     rest roll back, in the port as in the reference: no .tmp is left, and
-    the failing volume's previous shard set stays untouched.  Volume "a"
-    ends on the first unit of a batch, so both packages see its end in
-    time."""
-    sizes = [29_000, 200_000, 60_000]  # a, b, c; c fails
-    names = {0: "a", 1: "b", 2: "c"}
-    got = {}
-    for pkg, mod, module in (("ref", ref_fleet, ref_ec),
-                             ("port", fleet_convert, ec_files)):
-        d = tmp_path / pkg
-        d.mkdir()
-        bases = _make_volumes(d, sizes, names=names)
-        ec_files.write_ec_files(bases[2], device="cpu", large_block=1000,
-                                small_block=100)
-        before = _files(bases[2])
-        stats = {}
-        monkeypatch.setattr(module, "_copy_range",
-                            _failing_copy(module._copy_range, "c"))
-        kw = {"codec": ref_codec} if pkg == "ref" else {"device": "cpu"}
-        with pytest.raises(_Injected):
-            mod.convert_volumes(bases, stats=stats, **GEOM, **kw)
-        monkeypatch.undo()
-        got[pkg] = {"committed": [os.path.basename(b)
-                                  for b in stats.get("committed_bases", [])],
-                    "files": {os.path.basename(b): _files(b)
-                              for b in bases}}
-        assert _no_tmp(d)
-        assert got[pkg]["files"]["c"] == before
-    assert got["port"]["committed"] == got["ref"]["committed"] == ["a"]
-    assert got["port"]["files"] == got["ref"]["files"]
-    assert len(got["port"]["files"]["a"]) == 15
-    assert got["port"]["files"]["b"] == {}
+    the failing volume's previous shard set stays untouched.  Volumes "a"
+    and "c" each end before the last unit of a batch, so both packages see
+    their ends in time: the reference learns that a volume has ended only
+    when its reader visits it again, and for a volume whose last unit
+    fills a batch that visit races the drain (at c = 60 000 B it sometimes
+    commits "b" before "c" fails; the port's case is the test below)."""
+    sizes = [29_000, 200_000, 59_000]  # a, b, c; c fails
+    got = {pkg: _fail_volume_c(tmp_path / pkg, sizes, pkg, ref_codec,
+                               monkeypatch)
+           for pkg in ("ref", "port")}
+    assert got["port"][0] == got["ref"][0] == ["a"]
+    assert got["port"][1] == got["ref"][1]
+    assert len(got["port"][1]["a"]) == 15
+    assert got["port"][1]["b"] == {}
+
+
+def test_writer_error_when_the_failing_volume_fills_a_batch(
+        tmp_path, monkeypatch, ref_codec):
+    """The port alone at c = 60 000 B, where c's last unit fills a K2
+    batch.  The port knows a unit is its volume's last when it reads it
+    (one unit of lookahead), so its drain finalizes c, and meets c's
+    error, as c's last unit lands, which is before b's last unit: only
+    "a" is committed, every time, and "b" rolls back (the reference's
+    later notice of c's end races its drain there)."""
+    committed, files = _fail_volume_c(tmp_path / "port",
+                                      [29_000, 200_000, 60_000], "port",
+                                      ref_codec, monkeypatch)
+    assert committed == ["a"]
+    assert len(files["a"]) == 15 and files["b"] == {}
 
 
 def test_fleet_needs_the_card(tmp_path, monkeypatch):
@@ -254,7 +277,7 @@ def test_fleet_needs_the_card(tmp_path, monkeypatch):
                                   1_000_001])
 def test_max_step_equals_reference(size):
     """The staging width the fleet sizes its slots by is the widest step
-    the reference cuts for the volume (an empty volume cuts none)."""
-    assert ec_files._max_step(size, GEOM["large_block"], GEOM["small_block"],
-                              GEOM["batch_size"], 10) == \
-        ref_ec._unit_steps(size, **GEOM)[1]
+    the reference cuts for the volume, and the narrowest (which picks
+    direct or batched submission) is the reference's too."""
+    assert ec_files._unit_steps(size, **GEOM) == \
+        ref_ec._unit_steps(size, **GEOM)
