@@ -3,7 +3,7 @@
 each against its plain PyTorch version, then drive the EC data plane end
 to end and check every byte.
 
-    python3 chip_smoke.py [--seed N] [--volume-mib MIB]
+    python3 chip_smoke.py [--seed N] [--volume-mib MIB] [--trace-dir DIR]
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -99,7 +99,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                set sha256-equal across runs and the phase-3 volume's to
                phase 4's; launches zeroed before the phase (the children
                report theirs) and held against the layout's count
- 13 report     {"kernels": [...]} line, the card's name and power limit,
+ 13 telemetry  under one sampled root trace (stats/trace.py): phase 4's
+               warm encode from no shard set (host stacks sampled by
+               stats/profile.SamplingProfiler), 50 of phase 5's degraded
+               reads, phase 6's loss rebuilt, one fleet conversion of
+               phase 7's four volumes and one scrub window; the spans
+               counted by name; the kernel profile's rows held against
+               the launches (encode_parity calls == K1, fleet_encode
+               calls == K2) and the layout (encode_parity bytes == the
+               padded .dat, shard_write bytes == the .dat and the parity
+               columns written); the encode and the rebuild again under
+               utils/grace.torch_profile, the trace's K1 kernel events
+               held against the counted launches, and each one's device
+               busy and idle share (the union of kernel and copy
+               intervals over its wall clock) with its top device ops;
+               the kernel table, the pipeline jobs with their bottleneck
+               verdicts, the roofline against measured ceilings (device:
+               K1 at [10,16MiB] from phase 2; h2d, d2h: the fastest of
+               ten 256 MiB pinned copies), and the encode's and
+               rebuild's K1, H2D and D2H shares from the trace's own
+               device intervals against published peaks (HBM's byte
+               bound, PCIe Gen5 x16), no share over 1.05; the seam's
+               bookkeeping per dispatch timed alone; the warm encode
+               with pipeline jobs on and off (WEEDTPU_PERF_OBS=1 and =0),
+               A B A B A B, and the median ratio; every shard set
+               sha256-equal to phase 4's; every line with the card's
+               name and power limit
+ 14 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -108,8 +134,8 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phase 12, so the reported launches are the paths' own (their
-sum); the run fails if
+around phases 12 and 13, so the reported launches are the paths' own
+(their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
 (`gf_cuda.STAGED`), since each hands the kernel rows it reads in place,
 and if K2 was not launched.  After those windows, two records: fleet
@@ -133,6 +159,9 @@ import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+# H100 SXM host link, PCIe Gen5 x16, each direction (NVIDIA data sheet:
+# 128 GB/s both ways)
+PCIE_BYTES_PER_S = 64e9
 MIB = 1 << 20
 
 
@@ -867,7 +896,7 @@ def repair_run(vdir: str, base: str, label: str, spec, codec, local,
     no .tmp is left; returns (result, stand-in, record).  A ValueError
     from the planner propagates after the .tmp check, its directory
     left for the caller to inspect."""
-    from seaweedfs_tpu_torch.ops import dispatch
+    from seaweedfs_tpu_torch.stats.profile import KERNELS
     from seaweedfs_tpu_torch.storage.ec import ec_files, layout
     rdir = os.path.join(vdir, "repair_" + label.replace(" ", "_"))
     os.makedirs(rdir)
@@ -880,7 +909,7 @@ def repair_run(vdir: str, base: str, label: str, spec, codec, local,
                "locality": loc} for node, span, loc in helpers]
     helper = HelperStandIn(base, codec, spec.n, spec.alpha, die)
     st: dict = {}
-    dispatch.COUNTERS.reset()
+    KERNELS.reset()
     before = launches["gf_apply"]
     t0 = time.perf_counter()
     try:
@@ -909,7 +938,7 @@ def repair_run(vdir: str, base: str, label: str, spec, codec, local,
            "replans": res["replans"], "dead_helpers": res["dead_helpers"],
            "reconstruct_s": st["reconstruct_s"],
            "rebuilder_s": {k: st.get(k, 0.0) for k in REPAIR_STAGES},
-           "counters": dispatch.COUNTERS.snapshot(),
+           "counters": KERNELS.snapshot()["repair_partial[device]"],
            "helper_read_s": dict(helper.read_s),
            "helper_apply_s": dict(helper.apply_s)}
     return res, helper, rec
@@ -933,7 +962,7 @@ def repair_report(label: str, rec: dict, local_read=None) -> None:
         f"; replans {rec['replans']}")
     c = rec["counters"]
     log(f"[repair {label}] seconds, summed over threads: every apply's "
-        f"h2d {c['h2d_s']:.3f} / device {c['device_s']:.3f} / d2h "
+        f"device wait {c['device_s']:.3f} / d2h "
         f"{c['d2h_s']:.3f} ({c['calls']} applies, "
         f"{c['h2d_bytes']} B in); helpers reading "
         f"{sum(rec['helper_read_s'].values()):.3f}, applying "
@@ -2109,6 +2138,432 @@ def fleet_record(vdir: str, srcs: list[str]) -> list[dict]:
     return out
 
 
+# the trace's device activity: kernels, copies and fills on the card
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+K1_TRACE_NAME = "gf_apply_kernel"  # the kernel's symbol (csrc/gf_matmul.cu)
+
+
+def trace_events(trace_dir: str) -> list[dict]:
+    """The events of the one Chrome trace `grace.torch_profile` wrote into
+    trace_dir."""
+    (name,) = [p for p in os.listdir(trace_dir) if p.endswith(".json")]
+    with open(os.path.join(trace_dir, name)) as f:
+        return json.load(f)["traceEvents"]
+
+
+def device_busy(events: list[dict], op: str) -> dict:
+    """Device busy share of the annotated operation `op` (a
+    `record_function` range): the union of the card's kernel, copy and
+    fill intervals clipped to the range, over its wall clock; the
+    busiest device operations by their time inside it."""
+    (ann,) = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") == op]
+    lo, hi = float(ann["ts"]), float(ann["ts"]) + float(ann["dur"])
+    spans, by_op = [], {}
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        a, b = max(float(e["ts"]), lo), min(float(e["ts"]) + e["dur"], hi)
+        if b <= a:
+            continue
+        spans.append((a, b))
+        key = f"{e['cat']}: {e['name']}"
+        n, t = by_op.get(key, (0, 0.0))
+        by_op[key] = (n + 1, t + b - a)
+    busy, end = 0.0, lo
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    wall = hi - lo
+    top = sorted(by_op.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"wall_ms": wall / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / wall, "idle_share": 1 - busy / wall,
+            "top": [{"op": k, "events": n, "ms": t / 1e3}
+                    for k, (n, t) in top]}
+
+
+def device_seconds(events: list[dict], op: str) -> dict:
+    """Device seconds of the card's work that starts inside the annotated
+    operation `op`, from the profiler's own intervals: K1's kernel
+    events, and the host-to-card and card-to-host copies."""
+    (ann,) = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") == op]
+    lo, hi = float(ann["ts"]), float(ann["ts"]) + float(ann["dur"])
+    out = {"kernel_s": 0.0, "h2d_s": 0.0, "d2h_s": 0.0}
+    for e in events:
+        if not lo <= float(e.get("ts", -1)) < hi:
+            continue
+        name = e.get("name", "")
+        if e.get("cat") == "kernel" and K1_TRACE_NAME in name:
+            out["kernel_s"] += float(e["dur"]) / 1e6
+        elif e.get("cat") == "gpu_memcpy" and "HtoD" in name:
+            out["h2d_s"] += float(e["dur"]) / 1e6
+        elif e.get("cat") == "gpu_memcpy" and "DtoH" in name:
+            out["d2h_s"] += float(e["dur"]) / 1e6
+    return out
+
+
+def seam_us(n: int = 20000) -> float:
+    """Host microseconds per card dispatch of the bookkeeping that the
+    kernel profile and the spans add to it and to its sync point, outside
+    any sampled trace: two unsampled spans, two `KernelProfile.record`
+    calls and the clock reads around them, timed alone in a loop (so a
+    floor of what they cost inside a busy pipeline)."""
+    from seaweedfs_tpu_torch.stats import profile, trace
+    prof = profile.KernelProfile()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with trace.span("codec.dispatch_parity", backend="device", bytes=1):
+            a = time.perf_counter()
+            prof.record("encode_parity", "device",
+                        wall_s=time.perf_counter() - a, h2d_bytes=1,
+                        nbytes=1)
+        with trace.span("codec.d2h", bytes=1):
+            a = time.perf_counter()
+            b = time.perf_counter()
+            prof.record("encode_parity", "device", calls=0,
+                        device_s=b - a, d2h_s=time.perf_counter() - b,
+                        d2h_bytes=1)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def copy_rates(nbytes: int = 256 * MIB, runs: int = 10) -> tuple:
+    """(H2D, D2H) GB/s of one `nbytes` copy between pinned host memory and
+    the card, the fastest of `runs` timed by CUDA events (a ceiling:
+    noise only slows a copy)."""
+    import torch
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = []
+    for dst, src in ((dev, host), (host, dev)):
+        dst.copy_(src, non_blocking=True)  # warm-up
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(runs):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            dst.copy_(src, non_blocking=True)
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+        out.append(nbytes / (min(ms) * 1e-3) / 1e9)
+    return tuple(out)
+
+
+def unit_steps(dat_size: int, large_block: int, small_block: int,
+               batch: int = 16 * MIB, k: int = 10) -> list[int]:
+    """The column width of every unit that carries data, as
+    predict_units counts them."""
+    return [min(batch, block)
+            for start, block, _ in stripe_rows(dat_size, large_block,
+                                               small_block, k)
+            for col in range(0, block, min(batch, block))
+            if start + col < dat_size]
+
+
+def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
+                    reads: list[int], expect: dict, blob: bytes,
+                    srcs: list[str], kernel_rows: list[dict],
+                    launches: dict, trace_dir: str | None) -> dict:
+    """Phase 13: the port's telemetry on the card.  One sampled root
+    trace over phase 4's warm encode (from no shard set), 50 of phase 5's
+    degraded reads, phase 6's loss rebuilt, one fleet conversion of phase
+    7's four volumes and one scrub window; kernel rows held against the
+    launches and the layout; the encode and the rebuild again under
+    torch.profiler, their device busy share; the roofline against
+    measured ceilings; the WEEDTPU_PERF_OBS A/B.  Every shard set
+    sha256-equal to phase 4's."""
+    import torch
+    from seaweedfs_tpu_torch.maintenance import scrub
+    from seaweedfs_tpu_torch.ops import fleet_convert
+    from seaweedfs_tpu_torch.stats import metrics, pipeline, profile, trace
+    from seaweedfs_tpu_torch.stats.profile import KERNELS
+    from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume, layout
+    from seaweedfs_tpu_torch.utils import grace
+
+    card = card_name_power()
+
+    def tlog(msg: str) -> None:
+        log(f"[telemetry] {msg} [{card}]")
+
+    base = dat_path[: -len(".dat")]
+    shard = [base + layout.to_ext(i) for i in range(14)]
+    lost = [0, 3, 10, 12]
+    dat_size = os.path.getsize(dat_path)
+    large, small = layout.LARGE_BLOCK_SIZE, layout.SMALL_BLOCK_SIZE
+    steps = unit_steps(dat_size, large, small)
+    k, m = layout.DATA_SHARDS, layout.PARITY_SHARDS
+    out: dict = {"card": card}
+
+    def same_shards(label, ids=range(14)):
+        for i in ids:
+            if sha256(shard[i]) != hashes[i]:
+                raise AssertionError(f"telemetry {label}: shard {i} "
+                                     f"differs from phase 4's")
+
+    def encode(stats=None) -> float:
+        for p in shard:
+            if os.path.exists(p):
+                os.remove(p)
+        t0 = time.perf_counter()
+        ec_files.write_ec_files(base, stats=stats)
+        return time.perf_counter() - t0
+
+    def row(snap, key):
+        return snap.get(key, {})
+
+    def delta(after, before, key):
+        a, b = row(after, key), row(before, key)
+        return {f: a.get(f, 0.0) - b.get(f, 0.0) for f in a}
+
+    # -- the traced workload -------------------------------------------------
+    KERNELS.reset()
+    pipeline.reset()
+    trace.reset_ring()
+    root = trace.new_root()
+    sampler = profile.SamplingProfiler(hz=97)
+    t_phase = time.perf_counter()
+    with trace.span("chip_smoke.telemetry", parent=root):
+        k1 = launches["gf_apply"]
+        sampler.start()
+        try:
+            enc_s = encode()
+        finally:
+            sampler.stop()
+        enc_k1 = launches["gf_apply"] - k1
+        after_enc = KERNELS.snapshot()
+        same_shards("encode")
+        for i in lost:
+            os.remove(shard[i])
+        ev = ec_volume.EcVolume(base)
+        try:
+            for nid in reads[:50]:
+                n = ev.read_needle(nid)
+                cookie, lo, hi = expect[nid]
+                if n.cookie != cookie or n.data != blob[lo:hi]:
+                    raise AssertionError(f"telemetry: degraded read of "
+                                         f"needle {nid} differs")
+        finally:
+            ev.close()
+        ec_files.rebuild_ec_files(base)
+        same_shards("rebuild", lost)
+        before_fleet = KERNELS.snapshot()
+        k2 = launches["gf_apply_batch"]
+        bases = link_volumes(srcs, os.path.join(vdir, "telemetry_fleet"))
+        fleet_convert.convert_volumes(bases)
+        fleet_k2 = launches["gf_apply_batch"] - k2
+        fleet_row = delta(KERNELS.snapshot(), before_fleet,
+                          "fleet_encode[device]")
+        if [sha256(bases[0] + layout.to_ext(i)) for i in range(14)] != \
+                hashes:
+            raise AssertionError("telemetry: the fleet's shards of the "
+                                 "phase-3 volume differ from phase 4's")
+        shutil.rmtree(os.path.join(vdir, "telemetry_fleet"))
+        ev = ec_volume.EcVolume(base)
+        try:
+            ev.shard_size = min(ev.shard_size, scrub.DEFAULT_WINDOW)
+            if scrub.syndrome_scan(ev) != []:
+                raise AssertionError("telemetry: scrub found corruption")
+        finally:
+            ev.close()
+    out["workload_s"] = time.perf_counter() - t_phase
+    tlog(f"workload under one sampled root trace in {out['workload_s']:.3f} "
+         f"s: encode {enc_s:.3f} s ({dat_size / enc_s / 1e9:.3f} GB/s), 50 "
+         f"degraded reads, rebuild of {lost}, fleet of {len(srcs)} volumes, "
+         f"one {scrub.DEFAULT_WINDOW} B scrub window; every shard set "
+         f"sha256-equal to phase 4's")
+    log("[telemetry] host stacks of the encode, "
+        f"{sampler.samples} samples at {sampler.hz:g} Hz:\n"
+        + sampler.table(limit=30))
+    spans = trace.traces(tid=root.trace_id)[0]
+    names: dict = {}
+    for rec in spans["spans"]:
+        names[rec["name"]] = names.get(rec["name"], 0) + 1
+    waterfall = trace.assemble(spans["spans"])
+    out["spans"] = names
+    tlog(f"trace {root.trace_id}: {waterfall['span_count']} spans over "
+         f"{waterfall['ms']:.1f} ms, {waterfall['orphans']} orphans: "
+         f"{json.dumps(names, sort_keys=True)}")
+
+    # -- the kernel rows, held against the launches and the layout --------
+    enc = row(after_enc, "encode_parity[device]")
+    written = row(after_enc, "shard_write[host]")["bytes"]
+    files = sum(os.path.getsize(p) for p in shard)
+    want_written = dat_size + m * sum(steps)
+    checks = {"encode_parity[device] calls == K1 launches of the encode":
+              (enc["calls"], enc_k1),
+              "encode_parity[device] bytes == the layout's padded .dat":
+              (enc["bytes"], k * sum(steps)),
+              "shard_write[host] bytes == .dat + parity columns written":
+              (written, want_written),
+              "fleet_encode[device] calls == K2 launches of the fleet":
+              (fleet_row["calls"], fleet_k2)}
+    for what, (got, want) in checks.items():
+        tlog(f"{what}: {got:.0f} == {want:.0f}")
+        if got != want:
+            raise AssertionError(f"telemetry: {what}: {got} != {want}")
+    tlog(f"the 14 shard files hold {files} B; the encode wrote {written:.0f}"
+         f" B of them, {files - written:.0f} B are holes past the .dat")
+    out["kernel_checks"] = {w: list(v) for w, v in checks.items()}
+
+    # -- the encode and the rebuild again, under torch.profiler ------------
+    tdir = trace_dir or os.path.join(vdir, "telemetry_trace")
+    shutil.rmtree(tdir, ignore_errors=True)
+    k1 = launches["gf_apply"]
+    for p in shard:
+        os.remove(p)
+    prof_rows = {}
+    with grace.torch_profile(tdir):
+        before = KERNELS.snapshot()
+        with torch.profiler.record_function("chip_smoke.encode"):
+            ec_files.write_ec_files(base)
+        prof_rows["encode"] = delta(KERNELS.snapshot(), before,
+                                    "encode_parity[device]")
+        for i in lost:
+            os.remove(shard[i])
+        before = KERNELS.snapshot()
+        with torch.profiler.record_function("chip_smoke.rebuild"):
+            ec_files.rebuild_ec_files(base)
+        prof_rows["rebuild"] = delta(KERNELS.snapshot(), before,
+                                     "reconstruct[device]")
+    prof_k1 = launches["gf_apply"] - k1
+    same_shards("profiled encode and rebuild")
+    events = trace_events(tdir)
+    traced_k1 = sum(1 for e in events if e.get("cat") == "kernel"
+                    and K1_TRACE_NAME in e.get("name", ""))
+    tlog(f"trace: {traced_k1} K1 kernel events == {prof_k1} K1 launches "
+         f"counted in the profiled encode and rebuild")
+    if traced_k1 != prof_k1:
+        raise AssertionError(f"telemetry: the trace holds {traced_k1} K1 "
+                             f"events, the wrapper counted {prof_k1}")
+    out["busy"] = {}
+    for op in ("encode", "rebuild"):
+        b = device_busy(events, f"chip_smoke.{op}")
+        out["busy"][op] = b
+        tlog(f"{op}: device busy share {b['busy_share']:.4f}, idle share "
+             f"{b['idle_share']:.4f} ({b['busy_ms']:.2f} ms of "
+             f"{b['wall_ms']:.2f} ms wall); top device ops: " + "; ".join(
+                 f"{t['op']} x{t['events']} {t['ms']:.2f} ms"
+                 for t in b["top"]))
+    out["device_s"] = {op: device_seconds(events, f"chip_smoke.{op}")
+                       for op in ("encode", "rebuild")}
+    if not trace_dir:
+        shutil.rmtree(tdir)
+
+    # -- the kernel profile, the jobs and the roofline ---------------------
+    log("[telemetry] kernel profile (all of phase 13 so far):\n"
+        + KERNELS.table())
+    snap = pipeline.local_snapshot()
+    out["jobs"] = []
+    for job in snap["jobs"]:
+        bn = job.get("bottleneck") or {}
+        out["jobs"].append({"kind": job["kind"], "wall_s": job["wall_s"],
+                            "bottleneck": bn})
+        tlog(f"job {job['kind']} ({job['state']}): wall {job['wall_s']} s, "
+             f"bottleneck {json.dumps(bn, sort_keys=True)}; busy_frac "
+             + ", ".join(f"{s} {r['busy_frac']}"
+                         for s, r in sorted(job["stages"].items())))
+    r16 = next(r for r in kernel_rows if r["case"] == "parity [10,16MiB]")
+    device_gbps = k * 16 * MIB / (r16["ms"] * 1e-3) / 1e9
+    h2d_gbps, d2h_gbps = copy_rates()
+    for resource, gbps in (("device", device_gbps), ("h2d", h2d_gbps),
+                           ("d2h", d2h_gbps)):
+        profile.set_ceiling(resource, gbps)
+    tlog(f"ceilings: device {device_gbps:.1f} GB/s (K1 at [10,16MiB], data "
+         f"bytes over phase 2's time), h2d {h2d_gbps:.2f} GB/s and d2h "
+         f"{d2h_gbps:.2f} GB/s (the fastest of ten 256 MiB pinned copies, "
+         f"CUDA events)")
+    roof = profile.roofline_snapshot()
+    out["roofline"] = roof
+    for r in roof["rows"]:
+        tlog(f"roofline {r['kernel']}[{r['backend']}] {r['resource']}: "
+             f"{r['achieved_gbps']} GB/s over {r['busy_s']} s"
+             + (f", {r['ceiling_frac']} of {r['ceiling_gbps']} GB/s"
+                if "ceiling_frac" in r else ""))
+    over = [r for r in roof["rows"] if r.get("ceiling_frac", 0) > 1.05]
+    # the card's kernel and copy shares, from the profiled encode's and
+    # rebuild's own device intervals (the kernel rows hold no device
+    # interval: their device_s is a wait, and they book no h2d_s), held
+    # against published peaks: K1 the HBM byte bound of what it reads and
+    # writes, the copies the host link.  The lone copies' rates above are
+    # printed beside them: they move with the host's load within a call,
+    # and the pipeline's copies have outrun them
+    ceil = {"kernel_s": HBM_BYTES_PER_S / 1e9,
+            "h2d_s": PCIE_BYTES_PER_S / 1e9, "d2h_s": PCIE_BYTES_PER_S / 1e9}
+    lone = {"h2d_s": h2d_gbps, "d2h_s": d2h_gbps}
+    out["trace_roofline"] = []
+    for op, secs in out["device_s"].items():
+        r = prof_rows[op]
+        moved = {"kernel_s": r.get("bytes", 0.0) + r.get("d2h_bytes", 0.0),
+                 "h2d_s": r.get("h2d_bytes", 0.0),
+                 "d2h_s": r.get("d2h_bytes", 0.0)}
+        for field, s in secs.items():
+            nbytes = moved[field]
+            if s <= 0 or nbytes <= 0:
+                raise AssertionError(f"telemetry: the profiled {op} shows "
+                                     f"{s} s of {field} for {nbytes} B")
+            gbps = nbytes / s / 1e9
+            share = gbps / ceil[field]
+            rec = {"op": op, "resource": field[:-2], "device_s": s,
+                   "bytes": nbytes, "gbps": gbps, "share": share}
+            note = ""
+            if field in lone:
+                rec["of_lone_copy"] = gbps / lone[field]
+                note = (f"; {rec['of_lone_copy']:.4f} of the lone copy's "
+                        f"{lone[field]:.2f} GB/s")
+            out["trace_roofline"].append(rec)
+            tlog(f"trace roofline {op} {field[:-2]}: {nbytes:.0f} B over "
+                 f"{s * 1e3:.3f} ms of the trace's own intervals = "
+                 f"{gbps:.2f} GB/s, {share:.4f} of the published "
+                 f"{ceil[field]:.2f} GB/s{note}")
+            if share > 1.05:
+                over.append(out["trace_roofline"][-1])
+    if over:
+        raise AssertionError(f"telemetry: roofline shares over 1.05: {over}")
+    profile.export_roofline()
+    gauges = [ln for ln in metrics.REGISTRY.render().splitlines()
+              if ln.startswith("weedtpu_roofline_frac{")]
+    log("[telemetry] exported gauges:\n" + "\n".join(gauges))
+
+    # -- the seam's bookkeeping, alone, and the pipeline jobs' cost -------
+    per = seam_us()
+    out["seam_us_per_dispatch"] = per
+    tlog(f"seam bookkeeping per card dispatch, timed alone: {per:.2f} us; "
+         f"x {enc_k1} dispatches of the warm encode = "
+         f"{per * enc_k1 / 1e3:.3f} ms of its {enc_s * 1e3:.1f} ms "
+         f"({per * enc_k1 / 1e6 / enc_s:.4%})")
+    # WEEDTPU_PERF_OBS gates the pipeline jobs only (on A, off B); the
+    # kernel rows and the spans run in both arms
+    saved = os.environ.get("WEEDTPU_PERF_OBS")
+    times: dict = {"1": [], "0": []}
+    try:
+        for arm in ("1", "0") * 3:
+            os.environ["WEEDTPU_PERF_OBS"] = arm
+            time.sleep(0.6)  # past the switch's 0.5 s cache
+            if pipeline.perf_obs_enabled() != (arm == "1"):
+                raise AssertionError("WEEDTPU_PERF_OBS did not take")
+            times[arm].append(encode())
+            same_shards(f"encode with WEEDTPU_PERF_OBS={arm}")
+    finally:
+        if saved is None:
+            os.environ.pop("WEEDTPU_PERF_OBS", None)
+        else:
+            os.environ["WEEDTPU_PERF_OBS"] = saved
+    ratio = statistics.median(times["1"]) / statistics.median(times["0"])
+    out["perf_obs_ab"] = {"on_s": times["1"], "off_s": times["0"],
+                          "ratio": ratio}
+    tlog(f"pipeline jobs (WEEDTPU_PERF_OBS) A/B, warm encode seconds, "
+         f"A B A B A B: on "
+         f"{['%.4f' % t for t in times['1']]}, off "
+         f"{['%.4f' % t for t in times['0']]}; median on over off "
+         f"{ratio:.4f}; every shard set sha256-equal to phase 4's")
+    out["s"] = time.perf_counter() - t_phase
+    tlog(f"phase wall {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2116,6 +2571,9 @@ def main(argv=None) -> int:
                     help="volume .dat size (default 1 GiB)")
     ap.add_argument("--fleet-worker", action="store_true",
                     help=argparse.SUPPRESS)  # phase 12's child
+    ap.add_argument("--trace-dir", default=None,
+                    help="keep phase 13's torch.profiler trace (Chrome "
+                         "JSON) in this directory")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -2129,8 +2587,8 @@ def main(argv=None) -> int:
     if args.fleet_worker:
         return fleet_worker()
     from seaweedfs_tpu_torch import _build
-    from seaweedfs_tpu_torch.ops import dispatch
     from seaweedfs_tpu_torch.ops import gf_cuda
+    from seaweedfs_tpu_torch.stats.profile import KERNELS
     from seaweedfs_tpu_torch.storage import types as t
     from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume, layout
 
@@ -2175,7 +2633,7 @@ def main(argv=None) -> int:
                     os.remove(p)
             resident = drop_cache([dat_path]) if cache == "cold" \
                 else resident_share([dat_path])
-            dispatch.COUNTERS.reset()
+            KERNELS.reset()
             st: dict = {}
             before = launches["gf_apply"]
             t0 = time.perf_counter()
@@ -2190,7 +2648,7 @@ def main(argv=None) -> int:
             checked = check_stripes(base, dat_path, layout.LARGE_BLOCK_SIZE,
                                     layout.SMALL_BLOCK_SIZE,
                                     sample_rows(n_rows, 8, args.seed + 1))
-            c = dispatch.COUNTERS.snapshot()
+            c = KERNELS.snapshot()["encode_parity[device]"]
             phases[f"encode_{cache}"] = {
                 "s": dt, "gbps": dat_size / dt / 1e9,
                 "launches": enc_launches, "dat_resident": resident,
@@ -2201,8 +2659,8 @@ def main(argv=None) -> int:
                 f"{dat_size / dt / 1e9:.3f} GB/s ({dt:.2f} s), "
                 f"{enc_launches} launches, {checked} of {n_rows} stripe "
                 f"rows == .dat and plain; read {st.get('read_s', 0):.3f} s "
-                f"/ h2d {c['h2d_s']:.3f} s / device {c['device_s']:.3f} s "
-                f"/ d2h {c['d2h_s']:.3f} s")
+                f"/ device wait {c['device_s']:.3f} s / d2h "
+                f"{c['d2h_s']:.3f} s")
         hashes = [sha256(p) for p in shard]
 
         # 5 degraded read
@@ -2330,13 +2788,33 @@ def main(argv=None) -> int:
         path_launches = {k: path_launches[k] + phases["writer"]["launches"][k]
                          for k in path_launches}
 
+        # 13 telemetry, counted on its own
+        gf_cuda.reset_launches()
+        phases["telemetry"] = phase_telemetry(
+            vdir, dat_path, hashes, reads, expect, blob, srcs, rows,
+            launches, args.trace_dir and os.path.abspath(args.trace_dir))
+        tel_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the telemetry phase made the kernel "
+                                 f"wrapper stage copies of its input: "
+                                 f"{staged}")
+        if not all(tel_launches.values()):
+            raise AssertionError(f"the telemetry phase launched "
+                                 f"{tel_launches}: K1 and K2 both expected")
+        phases["telemetry"]["launches"] = tel_launches
+        log(f"[path] phase 13: launches {tel_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + tel_launches[k]
+                         for k in path_launches}
+
         # records, outside the counted window
         phases["fleet_record"] = fleet_record(vdir, srcs)
         phases["rebuild_record"] = rebuild_record(vdir, base, hashes)
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 13 report
+    # 14 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

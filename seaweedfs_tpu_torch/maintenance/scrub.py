@@ -13,8 +13,11 @@ code of the volume's own code).  MSR couples the bytes of each alpha
 block, so its windows are alpha multiples and its mismatches are found
 but not localised.
 
-The background Scrubber with its rate limiter and remote shard reader
-needs a Store and comes with the serving top (ROADMAP 1.15).
+Every window's bytes read go to ``weedtpu_scrub_bytes_total{kind="ec"}``
+and its parity check is a `scrub.syndrome` span under a sampled trace.
+The background Scrubber with its rate limiter, remote shard reader, pass
+span and corruption counters needs a Store and comes with the serving
+top (ROADMAP 1.15).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 from seaweedfs_tpu_torch.ops import dispatch, gf
+from seaweedfs_tpu_torch.stats import metrics, trace
 
 DEFAULT_WINDOW = 1024 * 1024  # syndrome window, bytes of each shard
 # columns fed to the corrupt-shard localiser: RS is column-independent, so
@@ -81,16 +85,18 @@ def syndrome_scan(ev, stats: dict | None = None) -> list[dict]:
             data = ev._read_local(sid, off, n)
             if data is not None:
                 rows[sid] = np.frombuffer(data, dtype=np.uint8)
+        got = sum(r.nbytes for r in rows.values())
         if stats is not None:
-            stats["bytes"] = stats.get("bytes", 0) + \
-                sum(r.nbytes for r in rows.values())
+            stats["bytes"] = stats.get("bytes", 0) + got
+        metrics.SCRUB_BYTES.labels("ec").inc(got)
         parity_have = {s - k: rows[s] for s in range(k, k + m) if s in rows}
         if any(i not in rows for i in range(k)) or not parity_have:
             if stats is not None:
                 stats["windows_skipped"] = stats.get("windows_skipped", 0) + 1
             continue
         batch = np.stack([rows[i] for i in range(k)])
-        masks = dispatch.parity_mismatch(codec, batch, parity_have)
+        with trace.span("scrub.syndrome", offset=off, bytes=batch.nbytes):
+            masks = dispatch.parity_mismatch(codec, batch, parity_have)
         if stats is not None:
             stats["windows"] = stats.get("windows", 0) + 1
         mism = np.zeros(n, dtype=bool)

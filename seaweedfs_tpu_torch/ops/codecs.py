@@ -22,10 +22,11 @@ kind raises, the reference's auto, tpu, jax, numpy, mesh and its alias
 cpp included: its auto turns to the CPU codec where there is no accelerator, which is the
 fallback the port does not make.
 
-An `rs_<k>_<m>` tag builds RS(k, m).  The reference builds RS(10, 4) for
-every `rs_*` tag (its `ec_files._get_codec` takes k and m from the
-layout), so the two differ for any other RS tag; neither writes a
-readable non-10/4 RS volume (ROADMAP 3.4).
+Every `rs_<k>_<m>` tag builds RS(10, 4), k and m from the layout
+(`storage/ec/layout.py`), as the reference does (its RS build delegates
+to `ec_files._get_codec`, which takes them from the layout): the tag
+names the family, and the two packages give the same code for any RS
+tag.
 
 Knobs: WEEDTPU_CODEC_DEFAULT (tag or family for newly encoded volumes),
 WEEDTPU_CODEC_LRC ("k,l,g" params behind the bare "lrc" family name),
@@ -40,6 +41,8 @@ import functools
 import os
 
 import torch
+
+from seaweedfs_tpu_torch.storage.ec import layout
 
 DEFAULT_TAG = "rs_10_4"
 
@@ -136,8 +139,9 @@ def _check_kind(kind: str | None) -> str:
 
 def make_codec(tag: str | None, device=None, kind: str | None = None):
     """The codec for a tag.  Kind "cuda" (or None): on `device` (None:
-    the card; raises without one), RS(k, m) and LRC as `CudaRSCodec`, MSR
-    as `MSRFileCodec` over one.  Kind "native": the host
+    the card; raises without one), RS (RS(10, 4) whatever the tag's k and
+    m, as the reference builds it) and LRC as `CudaRSCodec`, MSR as
+    `MSRFileCodec` over one.  Kind "native": the host
     codec, `NativeRSCodec` or an `MSRFileCodec` over one, on the CPU;
     `device` must then be None or "cpu"."""
     spec = parse_tag(tag)
@@ -148,12 +152,14 @@ def make_codec(tag: str | None, device=None, kind: str | None = None):
                              f"{device}")
         if spec.family == "rs":
             from seaweedfs_tpu_torch.ops import native_codec
-            return native_codec.get_codec(spec.k, spec.m)
+            return native_codec.get_codec(layout.DATA_SHARDS,
+                                          layout.PARITY_SHARDS)
         return _build(spec.tag, None, kind)
     from seaweedfs_tpu_torch.ops import gf_cuda
     dev = gf_cuda.resolve_device(device)
     if spec.family == "rs":
-        return gf_cuda.get_codec(spec.k, spec.m, device=dev)
+        return gf_cuda.get_codec(layout.DATA_SHARDS, layout.PARITY_SHARDS,
+                                 device=dev)
     return _build(spec.tag, dev, kind)
 
 

@@ -8,8 +8,9 @@ asynchronous:
 - H2D copies are `non_blocking` from pinned host buffers, on the calling
   thread's current stream, and the kernel is enqueued behind them;
 - `dispatch_parity` ([k, B], kernel K1) and `dispatch_parity_batch`
-  ([U, k, B], K2) return a `Pending` (the un-synced output tensor and a
-  CUDA event recorded after the kernel);
+  ([U, k, B], K2) return a `Pending` (the un-synced output tensor, the
+  kernel row it is booked in, and a CUDA event recorded after the
+  kernel);
 - `materialize` is the sync point: it waits on that event, then copies the
   result D2H into pinned memory and hands back numpy;
 - `reconstruct_batch` (rebuild) and `apply_matrix` (a repair helper's
@@ -24,11 +25,26 @@ view it cannot read in place, and counts each in `gf_cuda.STAGED`).
 Synchronising on the event rather than on a stream matters because the
 encode pipeline dispatches on one thread and drains on another, and each
 thread has its own current stream.  On the CPU the codec computes eagerly
-and the same calls return at once.
+and the same calls return at once (the plain version's result still
+comes back as a `Pending`, with no event, so that it carries its row).
 
-`COUNTERS` accumulates h2d / device / d2h seconds and bytes per process.
-h2d seconds are the host's enqueue time; device seconds are the wait on
-the event, which covers the copy and the kernel.
+Every call feeds the kernel profile (`stats.profile.KERNELS`) and, under
+a sampled trace, records the reference's spans (`codec.dispatch_parity`,
+`codec.dispatch_parity_batch`, `codec.d2h`, `codec.apply_matrix`,
+`codec.reconstruct`).  A row is `<kernel>[host]` for the native host
+codec, which computes inside the call (its wall time), and
+`<kernel>[device]` otherwise: the card, or its plain version when the
+caller named the CPU, as the reference books its JAX codecs on any
+backend.  Its calls, bytes, h2d_bytes and d2h_bytes are the reference's:
+payload bytes, counted where the reference counts them.  On the card
+`wall_s` is the host's enqueue of the apply, `device_s` the wait on the
+dispatch's event (whatever of the copy and the kernel is still running
+when the host gets there) and `d2h_s` the copy back.  No `h2d_s` is
+booked there: the copy is asynchronous, and no host clock around its
+enqueue measures it.  Neither the wait nor the enqueue is a device
+interval, so the roofline (stats/profile.py) reads neither; the card's
+copy and kernel times come from a `torch.profiler` trace
+(`utils/grace.torch_profile`).
 """
 
 from __future__ import annotations
@@ -41,32 +57,8 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch.ops.rows import device_empty, padded_width
-
-
-class Counters:
-    """Thread-safe running totals of the dispatch seam."""
-
-    KEYS = ("calls", "h2d_s", "h2d_bytes", "device_s", "d2h_s", "d2h_bytes")
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._v: dict[str, float] = dict.fromkeys(self.KEYS, 0)
-
-    def reset(self) -> None:
-        with self._lock:
-            self._v = dict.fromkeys(self.KEYS, 0)
-
-    def add(self, **kw) -> None:
-        with self._lock:
-            for key, v in kw.items():
-                self._v[key] += v
-
-    def snapshot(self) -> dict[str, float]:
-        with self._lock:
-            return dict(self._v)
-
-
-COUNTERS = Counters()
+from seaweedfs_tpu_torch.stats import trace
+from seaweedfs_tpu_torch.stats.profile import KERNELS
 
 
 def host_empty(shape, device: torch.device) -> torch.Tensor:
@@ -84,10 +76,13 @@ def _as_tensor(batch) -> torch.Tensor:
 
 @dataclass
 class Pending:
-    """An enqueued device result: the output tensor and the event recorded
-    after the kernel that produces it."""
+    """A dispatched result not yet on the host: the output tensor, the
+    `KERNELS` row its sync point is booked in, and on the card the event
+    recorded after the kernel that produces it (None for the plain
+    version's CPU tensor, which is already computed)."""
     tensor: torch.Tensor
-    event: torch.cuda.Event
+    kernel: str
+    event: torch.cuda.Event | None = None
 
 
 def _h2d(host: torch.Tensor, device: torch.device,
@@ -105,92 +100,147 @@ def _h2d(host: torch.Tensor, device: torch.device,
     return dst
 
 
-def _dispatch(codec, apply, batch, staging: torch.Tensor | None):
-    """Run `apply` (a codec method) on a host batch: eagerly on the CPU;
-    on the card behind an enqueued H2D into `staging`, returning a
-    `Pending`."""
-    host = _as_tensor(batch)
+def _backend(codec) -> str:
+    """"host" for the native host codec (and an MSR file codec over it),
+    "device" for the card's codec on any device."""
+    return "host" if getattr(codec, "host_backend", False) else "device"
+
+
+def _enqueue(codec, apply, host: torch.Tensor,
+             staging: torch.Tensor | None, kernel: str):
+    """Run `apply` (a codec method or matrix apply) on a host tensor and
+    book it in `kernel`'s row: the native codec computes eagerly and its
+    result comes back as numpy; the plain version on the CPU returns a
+    `Pending` with no event; on the card the apply is enqueued behind an
+    H2D into `staging` and a `Pending` comes back."""
+    nbytes = host.numel()
+    if _backend(codec) == "host":
+        with KERNELS.timed(kernel, nbytes=nbytes):
+            return apply(host).numpy()
     if codec.device.type == "cpu":
-        COUNTERS.add(calls=1)
-        return apply(host)
-    t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        out = apply(host)
+        KERNELS.record(kernel, "device", wall_s=time.perf_counter() - t0,
+                       h2d_bytes=nbytes, nbytes=nbytes)
+        return Pending(out, kernel)
     dev = _h2d(host, codec.device, staging)
-    t1 = time.perf_counter()
+    t0 = time.perf_counter()
     out = apply(dev)
     ev = torch.cuda.Event()
     ev.record()
-    COUNTERS.add(calls=1, h2d_s=t1 - t0, h2d_bytes=host.numel())
-    return Pending(out, ev)
+    KERNELS.record(kernel, "device", wall_s=time.perf_counter() - t0,
+                   h2d_bytes=nbytes, nbytes=nbytes)
+    return Pending(out, kernel, ev)
+
+
+def _fetch(result) -> np.ndarray:
+    """The host bytes of an `_enqueue` result, booking its device wait and
+    its D2H (calls=0) in the result's row: a card `Pending` waits on its
+    event and is copied into pinned memory; the plain version's CPU
+    tensor is viewed as numpy; the native codec's numpy passes
+    through."""
+    if isinstance(result, np.ndarray):
+        return result
+    if result.event is None:
+        out = result.tensor.numpy()
+        KERNELS.record(result.kernel, "device", calls=0,
+                       d2h_bytes=out.nbytes)
+        return out
+    t0 = time.perf_counter()
+    result.event.synchronize()
+    t1 = time.perf_counter()
+    host = host_empty(tuple(result.tensor.shape), result.tensor.device)
+    host.copy_(result.tensor)
+    KERNELS.record(result.kernel, "device", calls=0, device_s=t1 - t0,
+                   d2h_s=time.perf_counter() - t1, d2h_bytes=host.numel())
+    return host.numpy()
 
 
 def dispatch_parity(codec, batch, staging: torch.Tensor | None = None):
-    """Dispatch [k, B] -> [m, B] parity.  On the card the result comes back
-    un-synced (a `Pending`); on the CPU it is computed eagerly."""
-    return _dispatch(codec, codec.encode_parity, batch, staging)
+    """Dispatch [k, B] -> [m, B] parity (`encode_parity`).  On the card
+    the result comes back un-synced (a `Pending`); on the CPU it is
+    computed eagerly."""
+    host = _as_tensor(batch)
+    with trace.span("codec.dispatch_parity", backend=_backend(codec),
+                    bytes=host.numel()):
+        return _enqueue(codec, codec.encode_parity, host, staging,
+                        "encode_parity")
 
 
 def materialize(parity) -> np.ndarray:
-    """Sync point of a dispatch: host results pass through; a `Pending`
-    waits on its event and copies D2H into pinned memory."""
+    """Sync point of a dispatch, its device wait and D2H booked in the row
+    of the kernel that dispatched it: host results pass through; a
+    `Pending` waits on its event and is copied D2H into pinned
+    memory."""
     if isinstance(parity, np.ndarray):
         return parity
-    if isinstance(parity, torch.Tensor):
-        return parity.numpy()
-    t0 = time.perf_counter()
-    parity.event.synchronize()
-    t1 = time.perf_counter()
-    host = host_empty(tuple(parity.tensor.shape), parity.tensor.device)
-    host.copy_(parity.tensor)
-    COUNTERS.add(device_s=t1 - t0, d2h_s=time.perf_counter() - t1,
-                 d2h_bytes=host.numel())
-    return host.numpy()
+    with trace.span("codec.d2h", bytes=parity.tensor.numel()):
+        return _fetch(parity)
 
 
 def dispatch_parity_batch(codec, units, staging: torch.Tensor | None = None):
     """Dispatch a [U, k, B] unit batch -> [U, m, B] parity in one kernel
-    launch (K2), the fleet conversion's seam (ops/fleet_convert.py).
+    launch (K2, `fleet_encode`), the fleet conversion's seam
+    (ops/fleet_convert.py).
 
     On the card the pinned host batch is copied into `staging` (a
     `device_empty((U, k, B))` slot buffer, or a new one when None), whose
     unit and row strides are multiples of 16, so the kernel reads it in
     place; the result comes back un-synced as a `Pending`, and
-    `materialize` is its sync point.  On the CPU it is computed eagerly."""
-    return _dispatch(codec, codec.encode_parity_batch, units, staging)
+    `materialize` is its sync point.  On the CPU
+    it is computed eagerly."""
+    host = _as_tensor(units)
+    with trace.span("codec.dispatch_parity_batch", backend=_backend(codec),
+                    bytes=host.numel()):
+        return _enqueue(codec, codec.encode_parity_batch, host, staging,
+                        "fleet_encode")
 
 
 def reconstruct_batch(codec, shards: dict[int, np.ndarray],
                       wanted: list[int]) -> dict[int, np.ndarray]:
     """Rebuild `wanted` shard rows from >= k survivor rows (host bytes in
-    and out) in one kernel launch.  The survivors the decode reads are
-    packed into one padded host stack, copied to the card in one transfer
-    and read there in place."""
+    and out) in one apply (`reconstruct`).  The survivors the decode reads
+    are packed into one padded host stack, copied to the card in one
+    transfer and read there in place."""
     if not wanted:
         return {}
-    basis, mat = codec.decoder(tuple(sorted(shards)), tuple(wanted))
-    n = len(shards[basis[0]])
-    host = host_empty((len(basis), padded_width(n)), codec.device)
-    hn = host.numpy()
-    for r, i in enumerate(basis):
-        hn[r, :n] = shards[i]
-    COUNTERS.add(calls=1)
-    if codec.device.type == "cpu":
-        out = mat(host[:, :n])
-        return {w: out[r].numpy() for r, w in enumerate(wanted)}
-    t0 = time.perf_counter()
-    dev = host.to(codec.device, non_blocking=True)[:, :n]
-    t1 = time.perf_counter()
-    out = mat(dev)
-    ev = torch.cuda.Event()
-    ev.record()
-    t2 = time.perf_counter()
-    ev.synchronize()
-    t3 = time.perf_counter()
-    back = host_empty((len(wanted), n), codec.device)
-    back.copy_(out)
-    COUNTERS.add(h2d_s=t1 - t0, h2d_bytes=host.numel(), device_s=t3 - t2,
-                 d2h_s=time.perf_counter() - t3, d2h_bytes=back.numel())
-    bn = back.numpy()
-    return {w: bn[r] for r, w in enumerate(wanted)}
+    nbytes = sum(v.nbytes for v in shards.values())
+    backend = _backend(codec)
+    with trace.span("codec.reconstruct", backend=backend, bytes=nbytes,
+                    wanted=len(wanted)):
+        t0 = time.perf_counter()
+        basis, mat = codec.decoder(tuple(sorted(shards)), tuple(wanted))
+        n = len(shards[basis[0]])
+        host = host_empty((len(basis), padded_width(n)), codec.device)
+        hn = host.numpy()
+        for r, i in enumerate(basis):
+            hn[r, :n] = shards[i]
+        if codec.device.type == "cpu":
+            out = mat(host[:, :n]).numpy()
+            if backend == "host":
+                KERNELS.record("reconstruct", "host", nbytes=nbytes,
+                               wall_s=time.perf_counter() - t0)
+            else:
+                KERNELS.record("reconstruct", "device", nbytes=nbytes,
+                               wall_s=time.perf_counter() - t0,
+                               h2d_bytes=nbytes, d2h_bytes=out.nbytes)
+            return {w: out[r] for r, w in enumerate(wanted)}
+        dev = host.to(codec.device, non_blocking=True)[:, :n]
+        t1 = time.perf_counter()
+        out = mat(dev)
+        ev = torch.cuda.Event()
+        ev.record()
+        t2 = time.perf_counter()
+        ev.synchronize()
+        t3 = time.perf_counter()
+        back = host_empty((len(wanted), n), codec.device)
+        back.copy_(out)
+        KERNELS.record("reconstruct", "device", wall_s=t2 - t1,
+                       h2d_bytes=nbytes,
+                       device_s=t3 - t2, d2h_s=time.perf_counter() - t3,
+                       d2h_bytes=back.numel(), nbytes=nbytes)
+        bn = back.numpy()
+        return {w: bn[r] for r, w in enumerate(wanted)}
 
 
 # matrix applies for the reduced-read repair plane (ops/regen.py): the
@@ -210,7 +260,8 @@ _APPLY_LOCK = threading.Lock()
 
 def apply_matrix(codec, C: np.ndarray, stack: np.ndarray) -> np.ndarray:
     """out[r, n] = C[r, j] @ stack[j, n] over GF(2^8), host bytes in and
-    out: the partial-sum apply of the reduced-read repair path.
+    out: the partial-sum apply of the reduced-read repair path
+    (`repair_partial`).
 
     The [j, n] stack is packed into a pinned host buffer, copied to the
     card into rows 16 bytes apart (`rows.device_empty`, which the kernel
@@ -225,9 +276,11 @@ def apply_matrix(codec, C: np.ndarray, stack: np.ndarray) -> np.ndarray:
             if len(_APPLY_CACHE) >= _APPLY_CACHE_MAX:
                 _APPLY_CACHE.clear()
             mat = _APPLY_CACHE[key] = codec._factory(C)
-    host = host_empty(stack.shape, codec.device)
-    host.numpy()[...] = stack
-    return materialize(_dispatch(codec, mat, host, None))
+    with trace.span("codec.apply_matrix", backend=_backend(codec),
+                    bytes=stack.nbytes):
+        host = host_empty(stack.shape, codec.device)
+        host.numpy()[...] = stack
+        return _fetch(_enqueue(codec, mat, host, None, "repair_partial"))
 
 
 def parity_mismatch(codec, data: np.ndarray,

@@ -47,14 +47,16 @@ import time
 import numpy as np
 import torch
 
+from seaweedfs_tpu_torch.maintenance import faults
 from seaweedfs_tpu_torch.ops.dispatch import (Pending, device_empty,
                                               dispatch_parity_batch,
                                               host_empty, materialize)
+from seaweedfs_tpu_torch.stats import netflow, pipeline
 from seaweedfs_tpu_torch.storage.ec import layout
 from seaweedfs_tpu_torch.storage.ec.ec_files import (
-    DEFAULT_BATCH, _get_codec, _iter_units, _map_readonly, _ShardFlusher,
-    _ShardWriterPool, _Timer, _unit_coverage, _unit_steps,
-    overlap_fraction, write_vif)
+    DEFAULT_BATCH, _book_stage_bytes, _get_codec, _iter_units,
+    _map_readonly, _ShardFlusher, _ShardWriterPool, _Timer, _unit_coverage,
+    _unit_steps, overlap_fraction, write_vif)
 
 UNIT_BATCH = 4  # units per K2 launch
 PIPELINE_DEPTH = 2  # batches in flight: the pool holds one more
@@ -177,11 +179,17 @@ def convert_volumes(bases: list[str], *,
 
     `stats` receives per-stage seconds, `mode`, `unit_batch`,
     `committed_bases`, `volumes`, `units`, `overlap_frac` and the write
-    engine's keys (`ec_files._ShardWriterPool`)."""
+    engine's keys (`ec_files._ShardWriterPool`).  The run is tracked as a
+    `fleet_convert` pipeline job, and its threads carry the `convert`
+    traffic class (unless the caller declared one)."""
     if not bases:
         return {"volumes": {}, "bytes": 0}
     codec = _get_codec(device)
     device = codec.device
+    # an armed shard_write_error fails the run like a dying disk, before
+    # any tmp shard file exists
+    for base in bases:
+        faults.check_shard_write(base)
     k, m = layout.DATA_SHARDS, layout.PARITY_SHARDS
     U = UNIT_BATCH
     stats = stats if stats is not None else {}
@@ -209,6 +217,9 @@ def convert_volumes(bases: list[str], *,
             job.release()
         raise
     stats["bytes"] = sum(j.dat_size for j in jobs)
+    # the class is per thread: stamped here and on each pipeline thread
+    flow_cls = netflow.current_class() or "convert"
+    flow_token = netflow.set_class(flow_cls)
     q_read: queue.Queue = queue.Queue(maxsize=PIPELINE_DEPTH)
     q_disp: queue.Queue = queue.Queue()  # bounded by the pool
     errors: list[BaseException] = []
@@ -216,6 +227,7 @@ def convert_volumes(bases: list[str], *,
     def reader() -> None:
         """Round-robin units across volumes into staged unit batches."""
         active = list(jobs)
+        netflow.set_class(flow_cls)
         try:
             while active and not errors:
                 with _Timer(stats, "stall_s"):
@@ -266,6 +278,7 @@ def convert_volumes(bases: list[str], *,
         """Sync each batch, fan its parity rows out, and finalize each
         volume the moment its last unit lands."""
         failed = False
+        netflow.set_class(flow_cls)
         while True:
             item = q_disp.get()
             if item is None:
@@ -302,12 +315,15 @@ def convert_volumes(bases: list[str], *,
                 failed = True
             finally:
                 if slot is not None:
-                    if isinstance(parity, Pending):
+                    if isinstance(parity, Pending) and \
+                            parity.event is not None:
                         parity.event.synchronize()  # the card may read it
                     pool.put(slot)
 
     t_r = threading.Thread(target=reader, name="fleet-reader", daemon=True)
     t_d = threading.Thread(target=drain, name="fleet-drain", daemon=True)
+    pjob = pipeline.track("fleet_convert", stats, stats["bytes"],
+                          meta={"volumes": len(jobs), "unit_batch": U})
     t_r.start()
     t_d.start()
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
@@ -318,6 +334,11 @@ def convert_volumes(bases: list[str], *,
                 item = q_read.get()
                 if item is None:
                     break
+                # stage-queue depths at the consume site: a full q_read
+                # says the dispatch bounds the run, a deep q_disp the
+                # drain and writers
+                pjob.queue("q_read", q_read.qsize(), PIPELINE_DEPTH)
+                pjob.queue("q_disp", q_disp.qsize())
                 slot, metas = item
                 if errors:
                     pool.put(slot)
@@ -360,7 +381,15 @@ def convert_volumes(bases: list[str], *,
             if errors and not job.committed:
                 job.abort()
             job.release()
+        netflow.reset(flow_token)
         stats["wall_s"] = time.perf_counter() - t_wall
+        # only committed volumes' bytes: an aborted run must not be
+        # credited with bytes it never moved
+        done = [j for j in jobs if j.committed]
+        _book_stage_bytes(pjob, stats, sum(j.dat_size for j in done),
+                          layout.PARITY_SHARDS *
+                          sum(j.shard_size for j in done))
+        pjob.finish(errors[0] if errors else None)
     if errors:
         raise errors[0]
     stats["volumes"] = len(jobs)

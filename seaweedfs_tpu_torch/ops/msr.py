@@ -235,7 +235,8 @@ class MSRFileCodec:
 
     Wraps an inner `RSCodecBase` shell over PMMSRCode's virtual rows and
     owns the byte-interleave reshapes.  Exposes what the dispatch seam
-    (ops/dispatch.py) and the storage layer use: `device`, `_factory`,
+    (ops/dispatch.py) and the storage layer use: `device`,
+    `host_backend`, `_factory`,
     `encode_parity`, `encode_parity_batch`, `basis(present, wanted)` and
     `decoder(present, wanted)`."""
 
@@ -250,6 +251,8 @@ class MSRFileCodec:
         self.n = self.code.n_nodes
         self.alpha = self.code.alpha
         self.device = inner.device
+        # over the native host codec the dispatch seam books it as host
+        self.host_backend = getattr(inner, "host_backend", False)
         self._factory = inner._factory
         self._parity = _FileApply(inner._parity, self.alpha)
 

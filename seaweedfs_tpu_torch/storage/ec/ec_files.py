@@ -33,6 +33,7 @@ import json
 import mmap as mmap_mod
 import os
 import queue
+import sys
 import threading
 import time
 
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch import native
+from seaweedfs_tpu_torch.maintenance import faults
 from seaweedfs_tpu_torch.ops import codecs, regen
 from seaweedfs_tpu_torch.ops.dispatch import (
     dispatch_parity as _dispatch_parity,
@@ -49,6 +51,8 @@ from seaweedfs_tpu_torch.ops.dispatch import (
     reconstruct_batch as _reconstruct_batch,
 )
 from seaweedfs_tpu_torch.ops.native_codec import NativeRSCodec
+from seaweedfs_tpu_torch.stats import netflow, pipeline
+from seaweedfs_tpu_torch.stats.profile import KERNELS
 from seaweedfs_tpu_torch.storage import aio as _aio
 from seaweedfs_tpu_torch.storage import idx as idxf
 from seaweedfs_tpu_torch.storage import types as t
@@ -225,6 +229,7 @@ class _ShardWriterPool:
         self._queues = [queue.Queue(maxsize=WRITER_DEPTH * per)
                         for _ in range(self._nworkers)]
         self._busy = [0.0] * len(self._fds)
+        self._wbytes = [0] * len(self._fds)  # bytes written per shard
         self.errors: list[BaseException] = []
         self._closed = False
         self._threads = [
@@ -300,7 +305,7 @@ class _ShardWriterPool:
         batch's release hooks, every one of them even after an error."""
         fd = self._fds[shard]
         releases: list = []
-        ends: list[int] = []
+        ends: list[tuple[int, int]] = []  # (end offset, bytes) per write
         idx = 0
         while idx < len(jobs):
             data, cfr, off, release = jobs[idx]
@@ -316,7 +321,7 @@ class _ShardWriterPool:
                     # over every earlier write: barrier the engine first
                     eng.ensure_buffered(fd)
                     _copy_range(src_fd, fd, src_off, off, count, src_view)
-                    ends.append(off + count)
+                    ends.append((off + count, count))
                     continue
                 # merge the run of writes at contiguous offsets
                 bufs = [np.ascontiguousarray(data)]
@@ -330,7 +335,7 @@ class _ShardWriterPool:
                         releases.append(jobs[idx][3])
                     idx += 1
                 eng.writev(fd, bufs, off)
-                ends.append(end)
+                ends.append((end, end - off))
             except BaseException as e:  # surfaced after close
                 self.errors.append(e)
         if eng is not None:
@@ -338,14 +343,19 @@ class _ShardWriterPool:
                 eng.drain()
             except BaseException as e:
                 self.errors.append(e)
-        if not self.errors and self._hw is not None:
-            self._hw[shard] = max([self._hw[shard]] + ends)
+        if not self.errors:
+            for end, n in ends:
+                self._wbytes[shard] += n
+                if self._hw is not None:
+                    self._hw[shard] = max(self._hw[shard], end)
         return releases
 
     def close(self) -> None:
         """Drain every queue, join the workers, fold the stage seconds and
-        the engines' stats into stats.  Idempotent; does not raise
-        (callers read `.errors`, so a producer's error wins)."""
+        the engines' stats into stats, and book the writes in the kernel
+        profile's `shard_write[host]` row (the same busy seconds, and the
+        bytes written).  Idempotent; does not raise (callers read
+        `.errors`, so a producer's error wins)."""
         if self._closed:
             return
         self._closed = True
@@ -353,6 +363,10 @@ class _ShardWriterPool:
             q.put(None)
         for th in self._threads:
             th.join()
+        busy_total, wrote = sum(self._busy), sum(self._wbytes)
+        if busy_total > 0 and wrote > 0:
+            KERNELS.record("shard_write", "host", calls=0,
+                           wall_s=busy_total, nbytes=wrote)
         if self._stats is None:
             return
         st = self._stats
@@ -487,6 +501,9 @@ def write_ec_files(base: str, dat_path: str | None = None,
     dat_size = os.path.getsize(dat_path)
     spec = codecs.parse_tag(codec_tag or codecs.default_tag())
     codec = _get_codec(device, spec.tag)
+    # an armed shard_write_error fails the encode like a dying disk,
+    # before any tmp shard file exists: the previous shard set stays
+    faults.check_shard_write(base)
     tmp_paths = [base + layout.to_ext(i) + ".tmp" for i in range(spec.n)]
     out_fds = [os.open(p_, os.O_RDWR | os.O_CREAT, 0o644) for p_ in tmp_paths]
     ok = False
@@ -584,9 +601,10 @@ def _finalize_shards(out_fds, highwater, shard_size: int) -> None:
 def _encode_stream(codec, dat_path: str, dat_size: int, large_block: int,
                    small_block: int, batch_size: int, out_fds,
                    progress, cancel, stats: dict) -> None:
-    """Stream the .dat through the codec into the shard fds.  Units wholly
-    beyond the .dat are never read, encoded or written: their parity is
-    zero, so they become holes."""
+    """Stream the .dat through the codec into the shard fds, tracked as an
+    `ec_encode` pipeline job.  Units wholly beyond the .dat are never
+    read, encoded or written: their parity is zero, so they become
+    holes."""
     stats["mode"] = "pipelined"
     stats["bytes"] = dat_size
     shard_size = layout.shard_file_size(dat_size, large_block, small_block,
@@ -594,22 +612,40 @@ def _encode_stream(codec, dat_path: str, dat_size: int, large_block: int,
     highwater = [0] * (codec.k + codec.m)
     if dat_size > 0:
         t_wall = time.perf_counter()
-        with open(dat_path, "rb") as datf:
+        with pipeline.track("ec_encode", stats, dat_size,
+                            meta={"mode": stats["mode"]}) as pjob, \
+                open(dat_path, "rb") as datf:
             mm = _map_readonly(datf.fileno(), dat_size)
             dat_view = np.frombuffer(mm, dtype=np.uint8)
             try:
                 _encode_pipelined(codec, datf.fileno(), dat_view, dat_size,
                                   large_block, small_block, batch_size,
-                                  out_fds, highwater, progress, cancel, stats)
+                                  out_fds, highwater, progress, cancel, stats,
+                                  pjob)
             finally:
                 del dat_view
                 with contextlib.suppress(BufferError):
                     mm.close()  # a traceback may still hold views
-        stats["wall_s"] = time.perf_counter() - t_wall
-        frac = overlap_fraction(stats)
-        if frac is not None:
-            stats["overlap_frac"] = frac
+            stats["wall_s"] = time.perf_counter() - t_wall
+            frac = overlap_fraction(stats)
+            if frac is not None:
+                stats["overlap_frac"] = frac
+            _book_stage_bytes(pjob, stats, dat_size, codec.m * shard_size)
     _finalize_shards(out_fds, highwater, shard_size)
+
+
+def _book_stage_bytes(pjob, stats: dict, data_bytes: int,
+                      parity_bytes: int) -> None:
+    """Book the run's bytes (fixed by the layout) to the stages that ran:
+    a stage without seconds gets none, so no rate is made up."""
+    for key, nbytes in (("read_s", data_bytes), ("encode_s", data_bytes),
+                        ("d2h_s", parity_bytes),
+                        ("write_data_s", data_bytes),
+                        ("write_parity_s", parity_bytes),
+                        ("reconstruct_s", data_bytes),
+                        ("write_s", parity_bytes)):
+        if stats.get(key):
+            pjob.add_bytes(key[:-2], nbytes)
 
 
 def _host_parity_unit(codec, dat_view: np.ndarray, tailbuf: np.ndarray,
@@ -629,13 +665,15 @@ def _host_parity_unit(codec, dat_view: np.ndarray, tailbuf: np.ndarray,
     mat = codec.code.parity_matrix
     if nz < codec.k:
         mat = np.ascontiguousarray(mat[:, :nz])
-    native.gf_matmul_ptrs(mat, rows, list(pbuf), step)
+    # this path bypasses the dispatch seam, so it books its own row
+    with KERNELS.timed("encode_parity", nbytes=nz * step):
+        native.gf_matmul_ptrs(mat, rows, list(pbuf), step)
 
 
 def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
                       dat_size: int, large_block: int, small_block: int,
                       batch_size: int, out_fds, highwater,
-                      progress, cancel, stats: dict) -> None:
+                      progress, cancel, stats: dict, pjob) -> None:
     """Overlapped reader -> dispatch -> drain -> shard-writer pipeline.
 
       reader   walks the units; data shards go to their writers by
@@ -788,6 +826,8 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
                 item = q_read.get()
                 if item is None:
                     break
+                # stage-queue depth at the consume site
+                pjob.queue("q_read", q_read.qsize(), PIPELINE_DEPTH)
                 slot, step, shard_off, coverage = item
                 if errors or writers.failed:
                     if slot is not None:
@@ -864,6 +904,8 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
     if len(present) < spec.k:
         raise ValueError(
             f"need >= {spec.k} shards to rebuild, have {len(present)}")
+    # fail like a dying disk before any tmp shard file exists
+    faults.check_shard_write(base)
     codec = _get_codec(device, spec.tag)
     use = list(codec.basis(present, missing))
     shard_size = os.path.getsize(base + layout.to_ext(use[0]))
@@ -879,6 +921,11 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
         if shard_size % spec.alpha:
             raise ValueError(
                 f"shard size {shard_size} not {spec.alpha}-aligned")
+    # a rebuild is repair work: unless the caller declared a class, a hop
+    # made on this thread while it runs books as repair
+    flow_token = netflow.set_class(netflow.current_class() or "repair")
+    pjob = pipeline.track("ec_rebuild", stats, shard_size * len(use),
+                          meta={"missing": len(missing), "codec": spec.tag})
     t_wall = time.perf_counter()
     ins: dict[int, object] = {}
     maps: dict[int, mmap_mod.mmap] = {}
@@ -927,9 +974,10 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
                 release = _countdown(len(missing), lambda b=obuf: ring.put(b))
             with _Timer(stats, "reconstruct_s"):
                 if host:
-                    native.gf_matmul_ptrs(
-                        dec.C, [views[i][off:off + n] for i in use],
-                        list(obuf), n)
+                    with KERNELS.timed("reconstruct", nbytes=len(use) * n):
+                        native.gf_matmul_ptrs(
+                            dec.C, [views[i][off:off + n] for i in use],
+                            list(obuf), n)
                     rows = list(obuf[:, :n])
                 else:
                     rebuilt = _reconstruct_batch(
@@ -954,10 +1002,17 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
         frac = overlap_fraction(stats)
         if frac is not None:
             stats["overlap_frac"] = frac
+        _book_stage_bytes(pjob, stats, shard_size * len(use),
+                          shard_size * len(missing))
         ok = True
     finally:
+        netflow.reset(flow_token)
         if writers is not None:
             writers.close()  # idempotent; the fds must outlive the workers
+        # sealed after close() folded the writers' seconds into stats; a
+        # failed rebuild's job carries the error in flight
+        pjob.finish(None if ok else
+                    (sys.exc_info()[1] or "rebuild failed"))
         for f in ins.values():
             f.close()
         views.clear()
@@ -1009,6 +1064,8 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
     rebuild cost, `naive_remote`), replans and dead helpers.  `stats`,
     when a dict, also gets mode, bytes, codec, reconstruct_s, wall_s and
     the repairing thread's stage seconds (regen.execute_plan)."""
+    # fail like a dying disk before any tmp shard file exists
+    faults.check_shard_write(base)
     spec = codecs.parse_tag((read_vif(base) or {}).get("codec"))
     codec = _get_codec(device, spec.tag)
     alpha = spec.alpha
@@ -1019,6 +1076,7 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
     local_fds: dict[int, int] = {}
     stats = stats if stats is not None else {}
     stats.setdefault("mode", "reduced")
+    flow_token = netflow.set_class(netflow.current_class() or "repair")
     t_wall = time.perf_counter()
     try:
         shard_size = 0
@@ -1139,6 +1197,7 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
                 "replans": stats.get("replans", 0),
                 "dead_helpers": stats.get("dead_helpers", [])}
     finally:
+        netflow.reset(flow_token)
         for fd in local_fds.values():
             os.close(fd)
 

@@ -17,6 +17,15 @@ The volume's code comes from its `.vif` (`spec`).  The survivors a
 degraded read gathers are the codec's basis (`codec.basis`): an LRC single loss reads its
 own local group (r + 1 shards at most), never k; an MSR read widens each
 range to alpha boundaries and slices the lead back off after the decode.
+
+Each read records the reference's spans under a sampled trace
+(`ec.plan`, `ec.coalesce`, `ec.local_pread`, `ec.gather_survivors`,
+`ec.reconstruct_batch`), books its stages into the process's `ec_read`
+flow account (`local_pread`, `gather_survivors`, `reconstruct`), and a
+read that reconstructs under foreground traffic marks the volume
+`degraded` in the heat tracker.  The remote shard readers, their
+`ec.remote_fetch` span and the hedging counters come with the volume
+server (ROADMAP 1.15a).
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import os
 import numpy as np
 
 from seaweedfs_tpu_torch.ops import codecs
+from seaweedfs_tpu_torch.stats import heat, pipeline, trace
 from seaweedfs_tpu_torch.storage import idx as idxf
 from seaweedfs_tpu_torch.storage import needle as ndl
 from seaweedfs_tpu_torch.storage import types as t
@@ -38,6 +48,9 @@ class EcVolume:
                  small_block: int = layout.SMALL_BLOCK_SIZE,
                  version: int = t.CURRENT_VERSION, device=None):
         self.base = base
+        # the volume id, the heat tracker's key: base names are "<vid>" or
+        # "<collection>_<vid>"
+        self.vid = os.path.basename(base).rsplit("_", 1)[-1]
         self.large_block = large_block
         self.small_block = small_block
         vif = ec_files.read_vif(base)
@@ -178,18 +191,32 @@ class EcVolume:
         # tolerance decodable
         basis = self._basis(wanted)
         rows = None
-        if basis is not None:
-            try:
-                rows = self._gather_survivors(set(wanted), gsegs, want=basis)
-            except IOError:
-                pass
-        if rows is None:
-            rows = self._gather_survivors(
-                set(wanted), gsegs,
-                need=self.spec.k + (self.spec.family == "lrc"))
-        rebuilt = ec_files._reconstruct_batch(self.codec, rows, wanted)
+        seg_bytes = sum(size for _, size in gsegs)
+        flow = pipeline.flow("ec_read")
+        with trace.span("ec.gather_survivors", shards_lost=len(wanted),
+                        segs=len(gsegs)), \
+                flow.stage("gather_survivors",
+                           nbytes=self.spec.k * seg_bytes):
+            if basis is not None:
+                try:
+                    rows = self._gather_survivors(set(wanted), gsegs,
+                                                  want=basis)
+                except IOError:
+                    pass
+            if rows is None:
+                rows = self._gather_survivors(
+                    set(wanted), gsegs,
+                    need=self.spec.k + (self.spec.family == "lrc"))
+        with trace.span("ec.reconstruct_batch", intervals=len(ranges),
+                        shards=len(wanted), bytes=seg_bytes), \
+                flow.stage("reconstruct", nbytes=seg_bytes):
+            rebuilt = ec_files._reconstruct_batch(self.codec, rows, wanted)
         self.read_stats["reconstruct_batches"] += 1
         self.read_stats["reconstruct_intervals"] += len(ranges)
+        if heat.ambient_is_data():
+            # a read that reconstructed, under foreground traffic; weight
+            # 0: the serving path's read record counts the request itself
+            heat.record("volume", self.vid, 0, "degraded", weight=0.0)
         out = []
         pos = 0
         for (sid, _, size), lead, (_, gsize) in zip(ranges, leads, gsegs):
@@ -213,31 +240,37 @@ class EcVolume:
     def _read_ranges(self, plan: list[tuple[int, int, int]]) -> list[bytes]:
         """Coalesce adjacent per-shard ranges, read them locally, and repair
         everything missing in one reconstruction dispatch."""
-        per_shard: dict[int, list[tuple[int, int, int]]] = {}
-        for i, (sid, off, size) in enumerate(plan):
-            per_shard.setdefault(sid, []).append((off, size, i))
-        reads: list[list] = []  # [sid, off, size, [(idx, rel_off, sz)..]]
-        for sid, lst in per_shard.items():
-            lst.sort()
-            cur: list | None = None
-            for off, size, idx in lst:
-                if cur is not None and cur[1] + cur[2] == off:
-                    cur[3].append((idx, cur[2], size))
-                    cur[2] += size
-                else:
-                    cur = [sid, off, size, [(idx, 0, size)]]
-                    reads.append(cur)
+        with trace.span("ec.coalesce", intervals=len(plan)) as csp:
+            per_shard: dict[int, list[tuple[int, int, int]]] = {}
+            for i, (sid, off, size) in enumerate(plan):
+                per_shard.setdefault(sid, []).append((off, size, i))
+            reads: list[list] = []  # [sid, off, size, [(idx, rel, sz)..]]
+            for sid, lst in per_shard.items():
+                lst.sort()
+                cur: list | None = None
+                for off, size, idx in lst:
+                    if cur is not None and cur[1] + cur[2] == off:
+                        cur[3].append((idx, cur[2], size))
+                        cur[2] += size
+                    else:
+                        cur = [sid, off, size, [(idx, 0, size)]]
+                        reads.append(cur)
+            csp.set(reads=len(reads))
         self.read_stats["intervals_coalesced"] += len(plan) - len(reads)
 
         blobs: dict[int, bytes] = {}
         failed: list[int] = []
-        for ri, (sid, off, size, _) in enumerate(reads):
-            data = self._read_local(sid, off, size)
-            if data is None:
-                failed.append(ri)
-            else:
-                blobs[ri] = data
-                self.read_stats["local_shard_reads"] += 1
+        with trace.span("ec.local_pread", reads=len(reads)) as lsp, \
+                pipeline.flow("ec_read").stage(
+                    "local_pread", nbytes=sum(r[2] for r in reads)):
+            for ri, (sid, off, size, _) in enumerate(reads):
+                data = self._read_local(sid, off, size)
+                if data is None:
+                    failed.append(ri)
+                else:
+                    blobs[ri] = data
+                    self.read_stats["local_shard_reads"] += 1
+            lsp.set(missed=len(failed))
         if failed:
             rebuilt = self._reconstruct_ranges(
                 [tuple(reads[ri][:3]) for ri in failed])
@@ -252,15 +285,17 @@ class EcVolume:
     def read_needle(self, needle_id: int) -> ndl.Needle:
         """Full needle read: locate -> plan all intervals -> local shard
         reads + one-shot reconstruction -> parse (CRC checked)."""
-        dat_offset, size = self.find_needle(needle_id)
-        length = t.actual_size(size, self.version)
-        plan = []
-        for iv in layout.locate_data(self.large_block, self.small_block,
-                                     self.dat_size, dat_offset, length,
-                                     data_shards=self.spec.k):
-            sid, off = iv.to_shard_id_and_offset(self.large_block,
-                                                 self.small_block)
-            plan.append((sid, off, iv.size))
+        with trace.span("ec.plan", needle=f"{needle_id:x}") as psp:
+            dat_offset, size = self.find_needle(needle_id)
+            length = t.actual_size(size, self.version)
+            plan = []
+            for iv in layout.locate_data(self.large_block, self.small_block,
+                                         self.dat_size, dat_offset, length,
+                                         data_shards=self.spec.k):
+                sid, off = iv.to_shard_id_and_offset(self.large_block,
+                                                     self.small_block)
+                plan.append((sid, off, iv.size))
+            psp.set(intervals=len(plan), bytes=length)
         record = b"".join(self._read_ranges(plan))
         n = ndl.Needle.from_record(record, self.version)
         if n.id != needle_id:

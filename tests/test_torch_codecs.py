@@ -30,7 +30,6 @@ from seaweedfs_tpu.storage.ec import ec_files as ref_ec
 from seaweedfs_tpu.storage.ec import ec_volume as ref_ecv
 
 from seaweedfs_tpu_torch.maintenance import scrub
-from seaweedfs_tpu_torch.models import rs
 from seaweedfs_tpu_torch.ops import codecs, gf, gf_cuda, lrc, msr
 from seaweedfs_tpu_torch.storage import needle
 from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume, layout
@@ -102,15 +101,20 @@ def test_wide_rs_codec_equals_pallas_codec(k, m):
         assert np.array_equal(out[i].numpy(), np.asarray(ref_out[i]))
 
 
-def test_rs_tags_build_rs_k_m_unlike_the_reference(numpy_reference):
-    """ROADMAP 3.4: the port builds RS(k, m) from an `rs_<k>_<m>` tag; the
-    reference builds RS(10, 4) for every `rs_*` tag.  This pins the port's
-    side of that divergence."""
-    mine = codecs.make_codec("rs_33_4", device="cpu")
-    assert (mine.k, mine.m) == (33, 4)
-    assert np.array_equal(mine.code.parity_matrix,
-                          rs.get_code(33, 4).parity_matrix)
-    assert ref_codecs.make_codec("rs_33_4").k == 10
+@pytest.mark.parametrize("tag", ["rs_10_4", "rs_33_4", "rs_10_17"])
+def test_rs_tags_build_rs_k_m_unlike_the_reference(numpy_reference, tag):
+    """ROADMAP fault 3.4, repaired: the port once built RS(k, m) from an
+    `rs_<k>_<m>` tag, unlike the reference, which builds RS(10, 4) for
+    every `rs_*` tag.  Now both give the same code: k, m and the parity
+    matrix equal the reference's, on the card's shell and the native
+    one."""
+    ref = ref_codecs.make_codec(tag)
+    for kind in (None, "native"):
+        mine = codecs.make_codec(tag, device="cpu", kind=kind)
+        assert (mine.k, mine.m) == (ref.k, ref.m) == (10, 4)
+        assert np.array_equal(mine.code.parity_matrix,
+                              ref.code.parity_matrix if hasattr(ref, "code")
+                              else ref.parity_matrix)
 
 
 def test_shape_limit_is_the_fields():

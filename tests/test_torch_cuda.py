@@ -518,3 +518,45 @@ def test_cuda_fleet_flush_settings_equal(card, tmp_path, monkeypatch):
         files[flush] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
     assert files[1] == files[ec_files.FLUSH_BYTES]
     assert len(files[1]) == 3 * 16
+
+
+def _trace_kernels(trace_dir, name):
+    """Kernel events whose name holds `name` in the one Chrome trace
+    `torch_profile` wrote into trace_dir."""
+    import json
+    (path,) = [os.path.join(trace_dir, p) for p in os.listdir(trace_dir)]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"
+            and name in e.get("name", "")]
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rows_and_trace_count_the_launches(card, tmp_path):
+    """A 64 MiB encode on the card: the kernel profile's
+    encode_parity[device] calls equal K1's counted launches, its bytes the
+    layout's [k, step] batches, and the torch_profile trace of the
+    encode holds one K1 kernel event per launch."""
+    from seaweedfs_tpu_torch.stats.profile import KERNELS
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    from seaweedfs_tpu_torch.utils import grace
+    base = str(tmp_path / "1")
+    size = 64 << 20
+    with open(base + ".dat", "wb") as f:
+        f.write(np.random.default_rng(3).integers(
+            0, 256, size, dtype=np.uint8).tobytes())
+    k0 = KERNELS.snapshot().get("encode_parity[device]",
+                                {"calls": 0.0, "bytes": 0.0})
+    before = gf_cuda.LAUNCHES["gf_apply"]
+    with grace.torch_profile(str(tmp_path / "trace")):
+        ec_files.write_ec_files(base)
+        torch.cuda.synchronize()
+    launched = gf_cuda.LAUNCHES["gf_apply"] - before
+    row = KERNELS.snapshot()["encode_parity[device]"]
+    units = sum(1 for u in ec_files._iter_units(
+        size, layout.LARGE_BLOCK_SIZE, layout.SMALL_BLOCK_SIZE,
+        ec_files.DEFAULT_BATCH))
+    assert launched == units == row["calls"] - k0["calls"]
+    assert row["bytes"] - k0["bytes"] == units * 10 * layout.SMALL_BLOCK_SIZE
+    assert len(_trace_kernels(str(tmp_path / "trace"),
+                              "gf_apply_kernel")) == launched

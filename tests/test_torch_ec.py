@@ -19,8 +19,8 @@ from seaweedfs_tpu.storage.ec import ec_files as ref_ec
 from seaweedfs_tpu.storage.ec import ec_volume as ref_ecv
 from seaweedfs_tpu.storage.volume import Volume as RefVolume
 
-from seaweedfs_tpu_torch.ops import dispatch
 from seaweedfs_tpu_torch.ops import gf_cuda
+from seaweedfs_tpu_torch.stats.profile import KERNELS
 from seaweedfs_tpu_torch.storage import needle, types
 from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume, layout
 from seaweedfs_tpu_torch.storage.volume import Volume
@@ -101,14 +101,14 @@ def test_ec_files_identical(encoded, ext):
 def test_encode_streams_through_dispatch(tmp_path):
     """Pooled [:, :step] staging, ragged final unit, counters booked."""
     base = _write_volume(str(tmp_path), Volume, needle)
-    dispatch.COUNTERS.reset()
+    KERNELS.reset()
     launches = dict(gf_cuda.LAUNCHES)
     stats = {}
     done = []
     ec_files.write_ec_files(base, large_block=LARGE, small_block=SMALL,
                             batch_size=5000, stats=stats, device="cpu",
                             progress=done.append)
-    assert dispatch.COUNTERS.snapshot()["calls"] > 10
+    assert KERNELS.snapshot()["encode_parity[device]"]["calls"] > 10
     assert done[-1] == os.path.getsize(base + ".dat")
     for key in ("read_s", "encode_s", "d2h_s", "write_parity_s", "wall_s"):
         assert key in stats, key

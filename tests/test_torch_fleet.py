@@ -24,6 +24,7 @@ from seaweedfs_tpu.ops import pallas_gf
 from seaweedfs_tpu.storage.ec import ec_files as ref_ec
 
 from seaweedfs_tpu_torch.ops import dispatch, fleet_convert, gf_cuda
+from seaweedfs_tpu_torch.stats.profile import KERNELS
 from seaweedfs_tpu_torch.storage.ec import ec_files, layout
 
 GEOM = dict(large_block=10_000, small_block=100, batch_size=1000)
@@ -101,7 +102,7 @@ def test_convert_volumes_equals_reference(tmp_path, monkeypatch, reference,
     monkeypatch.setattr(fleet_convert, "UNIT_BATCH", units)
     sizes = FLEETS[fleet]
     bases = _make_volumes(tmp_path, sizes)
-    dispatch.COUNTERS.reset()
+    KERNELS.reset()
     launches = dict(gf_cuda.LAUNCHES)
     stats = {}
     rep = fleet_convert.convert_volumes(bases, device="cpu", stats=stats,
@@ -118,7 +119,7 @@ def test_convert_volumes_equals_reference(tmp_path, monkeypatch, reference,
     assert stats["mode"] == "fleet" and stats["unit_batch"] == units
     assert sorted(stats["committed_bases"]) == sorted(bases)
     assert stats["volumes"] == len(bases)
-    assert dispatch.COUNTERS.snapshot()["calls"] == \
+    assert KERNELS.snapshot()["fleet_encode[device]"]["calls"] == \
         math.ceil(_nonempty_units(sizes) / units)
     assert gf_cuda.LAUNCHES == launches  # the CPU runs no kernel
 
@@ -176,9 +177,9 @@ def test_dispatch_parity_batch_equals_reference(ref_codec, units, n):
     codec = gf_cuda.get_codec(10, 4, device="cpu")
     batch = np.random.default_rng(units).integers(0, 256, (units, 10, n),
                                                   dtype=np.uint8)
-    dispatch.COUNTERS.reset()
+    KERNELS.reset()
     parity = dispatch.dispatch_parity_batch(codec, batch)
-    assert dispatch.COUNTERS.snapshot()["calls"] == 1
+    assert KERNELS.snapshot()["fleet_encode[device]"]["calls"] == 1
     got = dispatch.materialize(parity)
     want = np.concatenate([
         np.asarray(b) for _, _, b in ref_dispatch.unit_parity_shards(
