@@ -125,7 +125,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                A B A B A B, and the median ratio; every shard set
                sha256-equal to phase 4's; every line with the card's
                name and power limit
- 14 report     {"kernels": [...]} line, the card's name and power limit,
+ 14 store      one storage node's volume lifecycle through Store (device
+               left at its default), after the records below: boot under
+               the mmap backend over one crash leftover of each kind and
+               a half-moved copy, with the phase-3 volume linked into
+               location A, every needle read back (cookies checked) and
+               those of 64 KB or less through read_needle_inline too;
+               131 072 needles of 1 KiB (weed benchmark's -size 1024,
+               reduced from its -n 1048576) written into location B, two
+               merges of the compact needle map, a reboot, 4096 sampled
+               reads, the volume reopened sorted_file (reads equal, a
+               write refused); every fourth needle of volume 1 deleted and
+               the volume compacted (revision + 1, size = super block +
+               the live records, every live needle equal, every deleted
+               one KeyError); write_ec_files of the compacted volume, .dat
+               and .idx removed, a reboot mounting the EcVolume, its
+               heartbeat; shards 0, 3, 10, 12 lost, every needle on a
+               lost data shard read degraded, 16 more deleted on the EC
+               volume (.ecj); decode in handle_ec_to_volume's order
+               (rebuild_ec_files, find_dat_file_size, write_dat_file,
+               write_idx_from_ecx), the .dat sha256-equal to the
+               compacted, the shard set dropped, a reboot mounting a
+               Volume whose deleted needles all raise; tier_move to a
+               local remote (reads through RemoteFile, writes refused),
+               a reboot (the store leaves a .tier-only volume unmounted,
+               as the reference: ROADMAP fault 3.6), the volume mounted
+               from its marker, tier_download sha256-equal; K1 launches
+               held against the layout's encode units, one per degraded
+               read and the rebuild's chunks; every line with the card's
+               name and power limit
+ 15 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -134,13 +163,14 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12 and 13, so the reported launches are the paths' own
+around phases 12, 13 and 14, so the reported launches are the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
 (`gf_cuda.STAGED`), since each hands the kernel rows it reads in place,
-and if K2 was not launched.  After those windows, two records: fleet
+and if K2 was not launched.  After phase 13's window, two records: fleet
 against one write_ec_files per volume over the same four volumes (fleet,
-serial, serial, fleet), and rebuild_ec_files of phase 9's single loss.
+serial, serial, fleet), and rebuild_ec_files of phase 9's single loss;
+then phase 14.
 Needs one CUDA card; exits non-zero without one, and outside a checkout
 of the repository.
 """
@@ -2564,6 +2594,372 @@ def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
     return out
 
 
+# phase 14's small objects: upstream's own `weed benchmark` defaults (-n
+# 1048576 -size 1024, the SeaweedFS README's benchmark section), reduced
+# to two of the compact needle map's merges (CompactNeedleMap.
+# MERGE_THRESHOLD is 65 536) by the run's time limit
+STORE_SMALL_N = 131072
+STORE_SMALL_SIZE = 1024
+STORE_SAMPLES = 4096
+# crash leftovers of each kind DiskLocation.load_existing removes
+STORE_LEFTOVERS = ("1.cpd", "1.cpx", "1.cptail", "1.dat.unc", "1.idx.unc")
+
+
+def boot_store(dirs: list[str]):
+    """Store(dirs) on the card (EC volumes build their codec there).
+    Returns the store, the seconds the call took and each location's
+    `load_existing` seconds."""
+    from seaweedfs_tpu_torch.storage import store as st
+    t0 = time.perf_counter()
+    s = st.Store(dirs)
+    return s, time.perf_counter() - t0, [loc.load_s for loc in s.locations]
+
+
+def phase_store(vdir: str, dat_path: str, expect: dict, blob: bytes,
+                seed: int, launches: dict) -> dict:
+    """Phase 14: one storage node's volume lifecycle through `Store`, on
+    the card (device left at its default).  Boot over crash leftovers
+    with the phase-3 volume in location A; small objects in location B
+    across a reboot and a sorted-file reopen; vacuum of volume 1; its
+    encode and the EC volume's mount; degraded reads and deletes on the
+    EC volume; decode back to a volume (handle_ec_to_volume's order);
+    the remote tier out and back.  K1's launches held against the
+    layout's count."""
+    import numpy as np
+    from seaweedfs_tpu_torch.storage import needle as ndl
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.backend import RemoteFile
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    from seaweedfs_tpu_torch.storage.needle_map import CompactNeedleMap
+    from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    card = card_name_power()
+
+    def slog(msg: str) -> None:
+        log(f"[store] {msg} [{card}]")
+
+    work = os.path.join(vdir, "store")
+    a, b = os.path.join(work, "a"), os.path.join(work, "b")
+    cold = os.path.join(work, "cold")
+    os.makedirs(a)
+    os.makedirs(b)
+    base = os.path.join(a, "1")
+    out: dict = {"card": card}
+    k1 = launches["gf_apply"]
+    t_phase = time.perf_counter()
+
+    def check(n, nid):
+        cookie, lo, hi = expect[nid]
+        if n.id != nid or n.cookie != cookie or n.data != blob[lo:hi]:
+            raise AssertionError(f"store read of needle {nid} differs")
+
+    def read_all(s, nids) -> float:
+        t0 = time.perf_counter()
+        for nid in nids:
+            check(s.read_needle(1, nid, expect[nid][0]), nid)
+        return time.perf_counter() - t0
+
+    def must_be_gone(s, nids, label):
+        for nid in nids:
+            try:
+                s.read_needle(1, nid)
+            except KeyError:
+                continue
+            raise AssertionError(f"{label}: needle {nid} still reads")
+
+    # 1 boot over crash leftovers, the phase-3 volume in A
+    for ext in (".dat", ".idx"):
+        os.link(dat_path[: -len(".dat")] + ext, base + ext)
+    for name in STORE_LEFTOVERS:
+        with open(os.path.join(a, name), "wb") as f:
+            f.write(b"leftover")
+    half = Volume(a, "", 9)  # a half-moved copy: .staging beside it
+    half.append_needle(ndl.Needle(id=1, cookie=1, data=b"half-moved"))
+    half.close()
+    open(os.path.join(a, "9.staging"), "w").close()
+    s, boot_s, per = boot_store([a, b])
+    if sorted(os.listdir(a)) != ["1.dat", "1.idx"]:
+        raise AssertionError(f"boot left {sorted(os.listdir(a))}")
+    v1 = s.get_volume(1)
+    if v1 is None or s.location_of(1).directory != a or \
+            v1.backend_kind != "mmap" or s.get_volume(9) is not None:
+        raise AssertionError("boot did not mount volume 1 alone, on mmap")
+    nids = sorted(expect)
+    dt = read_all(s, nids)
+    inline = 0
+    for nid in nids:
+        cookie, lo, hi = expect[nid]
+        if t.actual_size(hi - lo + 5) <= 64 * 1024:
+            n = s.read_needle_inline(1, nid, cookie)
+            if n is None:
+                raise AssertionError(f"inline read of needle {nid} refused")
+            check(n, nid)
+            inline += 1
+    out["boot"] = {"s": boot_s, "location_s": per, "reads": len(nids),
+                   "read_s": dt, "inline_reads": inline}
+    slog(f"boot {boot_s:.4f} s (A {per[0]:.4f} s: volume 1 mounted, "
+         f"{len(STORE_LEFTOVERS)} leftovers and a half-moved volume "
+         f"removed; B {per[1]:.4f} s); {len(nids)} needles read back, "
+         f"cookies checked, {len(nids) / dt:.1f} reads/s "
+         f"({v1.data_size() / dt / 1e9:.3f} GB/s); {inline} of 64 KB or "
+         f"less also through read_needle_inline")
+
+    # 2 small objects in B: two merges of the compact map, a reboot
+    g = np.random.default_rng(seed + 14)
+    small = g.bytes(STORE_SMALL_N * STORE_SMALL_SIZE)
+    cookies = g.integers(0, 1 << 32, STORE_SMALL_N).tolist()
+    v2 = s.allocate_volume(2)
+    if s.location_of(2).directory != b:
+        raise AssertionError("volume 2 was not allocated in location B")
+    t0 = time.perf_counter()
+    for i in range(STORE_SMALL_N):
+        s.write_needle(2, ndl.Needle(
+            cookie=cookies[i], id=i + 1,
+            data=small[i * STORE_SMALL_SIZE:(i + 1) * STORE_SMALL_SIZE]))
+    write_s = time.perf_counter() - t0
+    merged = len(v2.nm._ids)
+    if merged != STORE_SMALL_N - STORE_SMALL_N % \
+            CompactNeedleMap.MERGE_THRESHOLD:
+        raise AssertionError(f"the compact map merged {merged} entries")
+    s.close()
+    s, reboot_s, per = boot_store([a, b])
+    pick = np.random.default_rng(seed + 15).choice(
+        STORE_SMALL_N, STORE_SAMPLES, replace=False).tolist()
+
+    def small_ok(n, i):
+        if n.cookie != cookies[i] or n.data != \
+                small[i * STORE_SMALL_SIZE:(i + 1) * STORE_SMALL_SIZE]:
+            raise AssertionError(f"small object {i + 1} differs")
+
+    t0 = time.perf_counter()
+    for i in pick:
+        small_ok(s.read_needle(2, i + 1, cookies[i]), i)
+    sample_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sf = Volume(b, "", 2, needle_map_kind="sorted_file")
+    sdx_s = time.perf_counter() - t0
+    for i in pick:
+        small_ok(sf.read_needle(i + 1, cookies[i]), i)
+    try:
+        sf.append_needle(ndl.Needle(id=STORE_SMALL_N + 1, data=b"x"))
+    except PermissionError:
+        pass
+    else:
+        raise AssertionError("the sorted-file volume took a write")
+    sf.close()
+    out["small"] = {"needles": STORE_SMALL_N, "write_s": write_s,
+                    "needles_per_s": STORE_SMALL_N / write_s,
+                    "reboot_s": reboot_s, "reboot_location_s": per,
+                    "sample_reads_per_s": STORE_SAMPLES / sample_s,
+                    "sdx_build_s": sdx_s}
+    slog(f"small objects: {STORE_SMALL_N} x {STORE_SMALL_SIZE} B through "
+         f"Store.write_needle in {write_s:.3f} s, "
+         f"{STORE_SMALL_N / write_s:.0f} needles/s ({merged} merged into "
+         f"the compact map's columns); reboot {reboot_s:.4f} s (A "
+         f"{per[0]:.4f} s, B {per[1]:.4f} s); {STORE_SAMPLES} sampled "
+         f"reads equal, {STORE_SAMPLES / sample_s:.0f} reads/s; sorted_file "
+         f"reopen {sdx_s:.4f} s (.sdx built), the same reads equal, a "
+         f"write refused")
+
+    # 3 vacuum volume 1
+    gone = [nid for nid in nids if nid % 4 == 0]
+    live = [nid for nid in nids if nid % 4]
+    for nid in gone:
+        s.delete_needle(1, nid)
+    v1 = s.get_volume(1)
+    ratio = v1.garbage_ratio()
+    rev = v1.super_block.compaction_revision
+    t0 = time.perf_counter()
+    v1.compact()
+    compact_s = time.perf_counter() - t0
+    size = v1.data_size()
+    want = SUPER_BLOCK_SIZE + sum(t.actual_size(expect[nid][2] -
+                                                expect[nid][1] + 5)
+                                  for nid in live)
+    if v1.super_block.compaction_revision != rev + 1 or size != want:
+        raise AssertionError(f"compact: revision {rev} -> "
+                             f"{v1.super_block.compaction_revision}, "
+                             f"{size} B, want {want}")
+    dt = read_all(s, live)
+    must_be_gone(s, gone, "vacuum")
+    s.close()
+    compacted = sha256(base + ".dat")
+    out["vacuum"] = {"deleted": len(gone), "garbage_ratio": ratio,
+                     "compact_s": compact_s, "dat_bytes": size,
+                     "gbps": size / compact_s / 1e9, "read_s": dt}
+    slog(f"vacuum: {len(gone)} needles deleted through Store.delete_needle"
+         f", garbage_ratio {ratio:.4f}; compact {compact_s:.3f} s, "
+         f"{size / compact_s / 1e9:.3f} GB/s written; revision {rev} -> "
+         f"{rev + 1}, .dat {size} B = super block + the live records; "
+         f"{len(live)} live needles equal, every deleted one KeyError")
+
+    # 4 encode (K1) and mount the shard set
+    before = launches["gf_apply"]
+    t0 = time.perf_counter()
+    ec_files.write_ec_files(base)
+    ec_files.write_sorted_ecx(base + ".idx")
+    encode_s = time.perf_counter() - t0
+    units = predict_units(size, layout.LARGE_BLOCK_SIZE,
+                          layout.SMALL_BLOCK_SIZE)
+    if launches["gf_apply"] - before != units:
+        raise AssertionError(f"encode launched "
+                             f"{launches['gf_apply'] - before}, the layout "
+                             f"says {units}")
+    os.remove(base + ".dat")
+    os.remove(base + ".idx")
+    s, mount_s, per = boot_store([a, b])
+    shard_size = os.path.getsize(base + layout.to_ext(0))
+    hb = s.collect_heartbeat()["ec_shards"]
+    if s.get_volume(1) is not None or s.get_ec_volume(1) is None or \
+            hb != [{"id": 1, "collection": "",
+                    "shard_ids": list(range(14)), "shard_size": shard_size,
+                    "codec": "rs_10_4"}] or shard_size != \
+            layout.shard_file_size(size, layout.LARGE_BLOCK_SIZE,
+                                   layout.SMALL_BLOCK_SIZE):
+        raise AssertionError(f"EC mount: heartbeat {hb}")
+    s.close()
+    out["encode"] = {"s": encode_s, "gbps": size / encode_s / 1e9,
+                     "launches": units, "mount_s": mount_s}
+    slog(f"encode {encode_s:.3f} s, {size / encode_s / 1e9:.3f} GB/s, "
+         f"{units} K1 launches == the layout's; reboot {mount_s:.4f} s "
+         f"(A {per[0]:.4f} s) mounts an EcVolume: heartbeat 14 shard ids, "
+         f"shard_size {shard_size}, rs_10_4")
+
+    # 5 degraded reads (K1), then deletes on the EC volume
+    lost = [0, 3, 10, 12]
+    for i in lost:
+        os.remove(base + layout.to_ext(i))
+    s, _, _ = boot_store([a, b])
+    touching = touching_needles(s.get_ec_volume(1), live, set(lost))
+    before = launches["gf_apply"]
+    dt = read_all(s, touching)
+    if not touching or launches["gf_apply"] - before != len(touching):
+        raise AssertionError(f"{len(touching)} degraded reads launched "
+                             f"{launches['gf_apply'] - before}")
+    more = np.random.default_rng(seed + 16).choice(
+        live, 16, replace=False).tolist()
+    for nid in more:
+        s.delete_needle(1, nid)
+    must_be_gone(s, more, "EC delete")
+    s.close()
+    if os.path.getsize(base + ".ecj") != 16 * 8:
+        raise AssertionError("the .ecj does not hold the 16 deletes")
+    out["degraded"] = {"reads": len(touching), "s": dt,
+                       "reads_per_s": len(touching) / dt,
+                       "launches": len(touching)}
+    slog(f"degraded: .ec00/.ec03/.ec10/.ec12 gone; {len(touching)} needles "
+         f"on a lost data shard read through Store.read_needle, equal, "
+         f"{len(touching) / dt:.1f} reads/s, one K1 launch each; 16 more "
+         f"deleted on the EC volume (.ecj 128 B)")
+
+    # 6 decode back to a volume: handle_ec_to_volume's order
+    before = launches["gf_apply"]
+    missing = [i for i in range(10) if not os.path.exists(
+        base + layout.to_ext(i))]
+    t0 = time.perf_counter()
+    rebuilt = ec_files.rebuild_ec_files(base) if missing else []
+    rebuild_s = time.perf_counter() - t0
+    chunks = -(-shard_size // ec_files.DEFAULT_BATCH)
+    if missing != [0, 3] or sorted(rebuilt) != lost or \
+            launches["gf_apply"] - before != chunks * row_blocks(len(lost)):
+        raise AssertionError(f"decode's rebuild: missing {missing}, rebuilt "
+                             f"{rebuilt}, {launches['gf_apply'] - before} "
+                             f"launches")
+    dat_size = ec_files.find_dat_file_size(base)
+    t0 = time.perf_counter()
+    ec_files.write_dat_file(base, dat_size)
+    dat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ec_files.write_idx_from_ecx(base + ".ecx")
+    idx_s = time.perf_counter() - t0
+    if dat_size != size or sha256(base + ".dat") != compacted:
+        raise AssertionError("the decoded .dat differs from the compacted")
+    # the shell's ec.decode drops the shard set once the volume mounts
+    for ext in [layout.to_ext(i) for i in range(14)] + [".ecx", ".ecj",
+                                                        ".vif"]:
+        os.remove(base + ext)
+    s, decoded_boot_s, per = boot_store([a, b])
+    if s.get_ec_volume(1) is not None or s.get_volume(1) is None:
+        raise AssertionError("the decoded volume did not mount as a Volume")
+    kept = [nid for nid in live if nid not in set(more)]
+    read_all(s, kept)
+    must_be_gone(s, gone + more, "decode")
+    decode_s = rebuild_s + dat_s + idx_s
+    out["decode"] = {"rebuild_s": rebuild_s, "write_dat_s": dat_s,
+                     "write_idx_s": idx_s, "gbps": size / decode_s / 1e9,
+                     "boot_s": decoded_boot_s, "boot_location_s": per,
+                     "write_dat_gbps": size / dat_s / 1e9,
+                     "launches": chunks * row_blocks(len(lost))}
+    slog(f"decode {decode_s:.3f} s, {size / decode_s / 1e9:.3f} GB/s: "
+         f"rebuild of {rebuilt} {rebuild_s:.3f} s "
+         f"({chunks * row_blocks(len(lost))} K1 launches), write_dat_file "
+         f"{dat_s:.3f} s ({size / dat_s / 1e9:.3f} GB/s), "
+         f"write_idx_from_ecx {idx_s:.4f} s; .dat sha256 == the "
+         f"compacted; reboot {decoded_boot_s:.4f} s (A {per[0]:.4f} s) "
+         f"mounts it as a Volume: "
+         f"{len(kept)} live needles equal, "
+         f"{len(gone) + len(more)} deleted ones KeyError")
+
+    # 7 the remote tier out and back
+    v1 = s.get_volume(1)
+    t0 = time.perf_counter()
+    v1.tier_move("local", {"directory": cold})
+    move_s = time.perf_counter() - t0
+    if not isinstance(v1._dat, RemoteFile):
+        raise AssertionError("a tiered volume does not read through "
+                             "RemoteFile")
+    sample = kept[:: max(1, len(kept) // 256)]
+    read_all(s, sample)
+    try:
+        s.write_needle(1, ndl.Needle(id=10**9, data=b"x"))
+    except PermissionError:
+        pass
+    else:
+        raise AssertionError("a tiered volume took a write")
+    s.close()
+    s, tier_boot_s, per = boot_store([a, b])  # from the .tier marker (3.6)
+    v1 = s.get_volume(1)
+    hb = s.collect_heartbeat()["volumes"]
+    if v1 is None or v1.backend_kind != "remote" or \
+            [(h["id"], h["read_only"]) for h in hb
+             if h["id"] == 1] != [(1, True)]:
+        raise AssertionError(f"the reboot did not mount the tiered volume "
+                             f"from its marker: heartbeat {hb}")
+    read_all(s, sample)
+    t0 = time.perf_counter()
+    v1.tier_download()
+    dl_s = time.perf_counter() - t0
+    s.close()
+    if sha256(base + ".dat") != compacted:
+        raise AssertionError("the downloaded .dat differs")
+    out["tier"] = {"move_s": move_s, "move_gbps": size / move_s / 1e9,
+                   "download_s": dl_s, "download_gbps": size / dl_s / 1e9,
+                   "reboot_s": tier_boot_s, "reboot_location_s": per,
+                   "sample_reads": len(sample)}
+    slog(f"tier: move {move_s:.3f} s ({size / move_s / 1e9:.3f} GB/s), "
+         f"{len(sample)} reads through RemoteFile equal, a write refused; "
+         f"reboot {tier_boot_s:.4f} s (A {per[0]:.4f} s): the store "
+         f"mounts it from the .tier "
+         f"marker, read-only "
+         f"in the heartbeat (fault 3.6, repaired), the same reads equal "
+         f"through Store.read_needle; download {dl_s:.3f} s "
+         f"({size / dl_s / 1e9:.3f} GB/s), .dat sha256 == before the move")
+
+    # 8 launches against the layout
+    want = units + len(touching) + chunks * row_blocks(len(lost))
+    got = launches["gf_apply"] - k1
+    if got != want:
+        raise AssertionError(f"phase 14 launched K1 {got}; predicted {want}")
+    out["launches_k1"] = got
+    out["s"] = time.perf_counter() - t_phase
+    shutil.rmtree(work)
+    slog(f"K1 launches {got} == {units} encode units + {len(touching)} "
+         f"degraded reads + {chunks} rebuild chunks x "
+         f"{row_blocks(len(lost))}; phase wall {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2811,10 +3207,25 @@ def main(argv=None) -> int:
         # records, outside the counted window
         phases["fleet_record"] = fleet_record(vdir, srcs)
         phases["rebuild_record"] = rebuild_record(vdir, base, hashes)
+
+        # 14 store, counted on its own; last, since its appends and
+        # deletes go through hard links of the phase-3 volume
+        gf_cuda.reset_launches()
+        phases["store"] = phase_store(vdir, dat_path, expect, blob,
+                                      args.seed, launches)
+        store_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the store phase made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        log(f"[path] phase 14: launches {store_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + store_launches[k]
+                         for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 14 report
+    # 15 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

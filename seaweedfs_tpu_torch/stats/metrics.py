@@ -255,6 +255,11 @@ WAN_BYTES = REGISTRY.counter(
     "weedtpu_wan_bytes_total",
     "body bytes crossing a region boundary by direction, traffic "
     "class, and remote region", ("direction", "class", "region"))
+# needle-map integrity-repair drops (storage/needle_map.py)
+NEEDLE_MAP_DROPS = REGISTRY.counter(
+    "weedtpu_needle_map_integrity_drops_total",
+    "needle-map entries discarded by integrity repair / .sdx rebuild",
+    ("kind",))
 SCRUB_BYTES = REGISTRY.counter(
     "weedtpu_scrub_bytes_total", "bytes verified by the background "
     "scrubber", ("kind",))

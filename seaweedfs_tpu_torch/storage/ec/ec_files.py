@@ -14,6 +14,8 @@ Every shard byte goes through the writer pool (`_ShardWriterPool`), one
   rebuild_ec_reduced  reduced-read repair of lost shards (ops/regen.py)
   write_sorted_ecx    <- WriteSortedFileFromIdx (ec_encoder.go:27)
   find_dat_file_size  <- FindDatFileSize (ec_decoder.go:48)
+  write_dat_file      <- WriteDatFile (ec_decoder.go:153)
+  write_idx_from_ecx  <- WriteIdxFileFromEcIndex (ec_decoder.go:18)
 
 Every entry point takes `device`: None means the card (and raises when
 there is none); "cpu" runs the same pipeline over the plain version.
@@ -1202,6 +1204,57 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
             os.close(fd)
 
 
+def write_dat_file(base: str, dat_size: int,
+                   large_block: int = layout.LARGE_BLOCK_SIZE,
+                   small_block: int = layout.SMALL_BLOCK_SIZE) -> None:
+    """Data shard files -> `<base>.dat` (row-major interleave copy).  The
+    stripe width k comes from the volume's .vif codec tag."""
+    data_shards = codecs.parse_tag((read_vif(base) or {}).get("codec")).k
+    rows = layout.n_large_rows(dat_size, large_block, small_block,
+                               data_shards=data_shards)
+    ins = [open(base + layout.to_ext(i), "rb")
+           for i in range(data_shards)]
+    written = 0
+    try:
+        with open(base + ".dat", "wb") as dat:
+            for r in range(rows):
+                for j in range(data_shards):
+                    ins[j].seek(r * large_block)
+                    n = min(large_block, dat_size - written)
+                    if n <= 0:
+                        return
+                    dat.write(ins[j].read(n))
+                    written += n
+            small_base = rows * large_block
+            r = 0
+            while written < dat_size:
+                for j in range(data_shards):
+                    ins[j].seek(small_base + r * small_block)
+                    n = min(small_block, dat_size - written)
+                    if n <= 0:
+                        return
+                    dat.write(ins[j].read(n))
+                    written += n
+                r += 1
+    finally:
+        for f in ins:
+            f.close()
+
+
+def write_idx_from_ecx(ecx_path: str, idx_path: str | None = None) -> None:
+    """.ecx (+ replayed .ecj tombstones) -> .idx for decode-to-volume."""
+    idx_path = idx_path or ecx_path[: -len(".ecx")] + ".idx"
+    deleted = read_ecj(ecx_path[: -len(".ecx")] + ".ecj")
+    with open(ecx_path, "rb") as f:
+        data = f.read()
+    ids, offs, sizes = idxf.read_columns(data)
+    with open(idx_path, "wb") as out:
+        for nid, off, size in zip(ids.tolist(), offs.tolist(), sizes.tolist()):
+            out.write(idxf.pack_entry(nid, off, size))
+        for nid in deleted:
+            out.write(idxf.pack_entry(nid, 0, t.TOMBSTONE_FILE_SIZE))
+
+
 def write_sorted_ecx(idx_path: str, ecx_path: str | None = None) -> None:
     """.idx -> .ecx: 16-byte entries sorted by needle id ascending, ONE entry
     per id.  The .idx is a log, so the last occurrence of an id (re-write or
@@ -1235,6 +1288,12 @@ def read_vif(base: str) -> dict | None:
             return json.load(f)
     except (OSError, ValueError):
         return None
+
+
+def volume_codec_tag(base: str) -> str:
+    """Codec tag of an EC volume from its .vif sidecar.  Volumes written
+    before codec tags existed (or whose .vif is missing) are RS."""
+    return codecs.parse_tag((read_vif(base) or {}).get("codec")).tag
 
 
 def find_dat_file_size(base: str, version: int = t.CURRENT_VERSION) -> int:

@@ -56,6 +56,7 @@ class EcVolume:
         vif = ec_files.read_vif(base)
         self.version = vif.get("version", version) if vif else version
         self.spec = codecs.parse_tag((vif or {}).get("codec"))
+        self.codec_tag = self.spec.tag
         # the codec resolves the device: the card (raising without one)
         # unless the caller named the CPU or the native host codec
         self.codec = ec_files._get_codec(device, self.spec.tag)
@@ -301,6 +302,9 @@ class EcVolume:
         if n.id != needle_id:
             raise IOError(f"ec read returned needle {n.id:x}, wanted {needle_id:x}")
         return n
+
+    def shard_ids(self) -> list[int]:
+        return sorted(self.shards)
 
     def close(self) -> None:
         self._ecx.close()

@@ -21,6 +21,9 @@ from dataclasses import dataclass
 DATA_SHARDS = 10
 PARITY_SHARDS = 4
 TOTAL_SHARDS = DATA_SHARDS + PARITY_SHARDS
+# the widest shard set any codec writes (MSR's 18 files fit): the store's
+# boot scan for shard files walks this many extensions
+MAX_TOTAL_SHARDS = 32
 LARGE_BLOCK_SIZE = 1024 * 1024 * 1024  # 1GB
 SMALL_BLOCK_SIZE = 1024 * 1024  # 1MB
 

@@ -9,6 +9,7 @@ it is milliseconds and feeds the EC `.ecx` sort for free.
 from __future__ import annotations
 
 import struct
+from typing import BinaryIO, Iterator
 
 import numpy as np
 
@@ -21,6 +22,10 @@ def pack_entry(needle_id: int, offset_units: int, size: int) -> bytes:
     return ENTRY.pack(needle_id, offset_units, size)
 
 
+def unpack_entry(b: bytes) -> tuple[int, int, int]:
+    return ENTRY.unpack(b)
+
+
 def read_columns(data: bytes) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Whole .idx buffer -> (ids u64, offset_units u32, sizes i32) columns."""
     n = len(data) // t.NEEDLE_MAP_ENTRY_SIZE
@@ -29,3 +34,14 @@ def read_columns(data: bytes) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     offs = arr[:, 8:12].copy().view(">u4").reshape(n).astype(np.uint32)
     sizes = arr[:, 12:16].copy().view(">i4").reshape(n).astype(np.int32)
     return ids, offs, sizes
+
+
+def walk(f: BinaryIO) -> Iterator[tuple[int, int, int]]:
+    """Yield (needle_id, offset_units, size) in file order."""
+    while True:
+        chunk = f.read(t.NEEDLE_MAP_ENTRY_SIZE * 4096)
+        if not chunk:
+            return
+        n = len(chunk) // t.NEEDLE_MAP_ENTRY_SIZE
+        for i in range(n):
+            yield ENTRY.unpack_from(chunk, i * t.NEEDLE_MAP_ENTRY_SIZE)

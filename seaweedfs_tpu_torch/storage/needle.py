@@ -225,6 +225,34 @@ class Needle:
                     f"needle {self.id:x} CRC mismatch: "
                     f"stored {self.checksum:#x} != computed {c:#x}")
 
+    def parse_meta_tail(self, tail: bytes) -> None:
+        """Parse the post-data metadata block (flags | name | mime |
+        last_modified | ttl | pairs) without the data bytes — the paged
+        read path reads only header + this small tail
+        (reference: needle_read_page.go reads meta separately too)."""
+        if not tail:
+            return
+        try:
+            self.flags = tail[0]
+            pos = 1
+            if self.has(FLAG_HAS_NAME):
+                ln = tail[pos]
+                self.name = tail[pos + 1: pos + 1 + ln]
+                pos += 1 + ln
+            if self.has(FLAG_HAS_MIME):
+                ln = tail[pos]
+                self.mime = tail[pos + 1: pos + 1 + ln]
+                pos += 1 + ln
+            if self.has(FLAG_HAS_LAST_MODIFIED):
+                self.last_modified = int.from_bytes(
+                    tail[pos: pos + LAST_MODIFIED_BYTES], "big")
+                pos += LAST_MODIFIED_BYTES
+            if self.has(FLAG_HAS_TTL):
+                self.ttl = t.TTL.from_bytes(tail[pos: pos + TTL_BYTES])
+                pos += TTL_BYTES
+        except IndexError as e:
+            raise ValueError(f"truncated needle meta tail: {e}") from e
+
     @classmethod
     def from_record(cls, record: bytes, version: int = t.CURRENT_VERSION,
                     verify_checksum: bool = True) -> "Needle":

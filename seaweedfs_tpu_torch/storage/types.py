@@ -10,6 +10,8 @@ Byte-compatible with the reference formats (all integers big-endian):
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 COOKIE_SIZE = 4
 NEEDLE_ID_SIZE = 8
 SIZE_SIZE = 4
@@ -67,6 +69,41 @@ def to_offset_units(byte_offset: int) -> int:
 
 def from_offset_units(units: int) -> int:
     return units * NEEDLE_PADDING_SIZE
+
+
+@dataclass(frozen=True)
+class FileId:
+    """`vid,keyhex+cookie8hex` — the client-visible blob id.
+
+    reference: weed/storage/needle/file_id.go:60-75 (leading zero bytes of
+    the 12-byte key+cookie are trimmed at byte granularity).
+    """
+
+    volume_id: int
+    key: int
+    cookie: int
+
+    def __str__(self) -> str:
+        raw = self.key.to_bytes(8, "big") + self.cookie.to_bytes(4, "big")
+        i = 0
+        while i < 7 and raw[i] == 0:  # keep at least 1 key byte + cookie
+            i += 1
+        return f"{self.volume_id},{raw[i:].hex()}"
+
+    @classmethod
+    def parse(cls, fid: str) -> "FileId":
+        vid_str, _, kc = fid.partition(",")
+        if not kc:
+            raise ValueError(f"bad file id {fid!r}")
+        kc = kc.partition("_")[0]  # strip alternate-key suffix
+        if len(kc) <= 8:
+            raise ValueError(f"file id {fid!r} too short for key+cookie")
+        if len(kc) % 2:
+            kc = "0" + kc
+        raw = bytes.fromhex(kc)
+        return cls(volume_id=int(vid_str),
+                   key=int.from_bytes(raw[:-4], "big"),
+                   cookie=int.from_bytes(raw[-4:], "big"))
 
 
 class TTL:

@@ -53,12 +53,21 @@ def test_port_imports_no_jax_and_no_reference(path):
             assert top != "seaweedfs_tpu", f"{path}: imports {name}"
 
 
+def test_import_rule_covers_the_store_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("storage/store.py", "storage/backend.py", "remote_storage.py",
+                "storage/volume.py", "storage/needle_map.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
 def test_port_path_leaves_jax_unloaded(tmp_path):
     """Encode through the codec, convert a fleet of two volumes, scrub
     one of them and repair a lost shard of it from a helper's partials,
     then regenerate a lost MSR shard from helper sub-rows, then encode
-    with the native host codec and rebuild a shard host-serial, all on
-    the CPU, in a fresh interpreter: neither jax nor the reference
+    with the native host codec and rebuild a shard host-serial, then boot
+    a store, vacuum a volume, encode it, mount its shard set, decode it
+    back after losing two data shards and tier another volume out, all
+    on the CPU, in a fresh interpreter: neither jax nor the reference
     package gets imported."""
     code = ("import os, sys, numpy as np, torch\n"
             "os.environ.pop('WEEDTPU_EC_CODEC', None)\n"
@@ -126,6 +135,38 @@ def test_port_path_leaves_jax_unloaded(tmp_path):
             "ec_files.rebuild_ec_files(nb, stats=st)\n"
             "assert st['mode'] == 'host-serial'\n"
             "assert open(nb + '.ec12', 'rb').read() == want\n"
+            "os.environ.pop('WEEDTPU_EC_CODEC')\n"
+            "from seaweedfs_tpu_torch.storage import needle, store\n"
+            "sd = os.path.join(d, 'node')\n"
+            "s = store.Store([sd], device='cpu')\n"
+            "s.allocate_volume(5)\n"
+            "for nid in range(1, 41):\n"
+            "    s.write_needle(5, needle.Needle(id=nid, cookie=nid, "
+            "data=os.urandom(3000)))\n"
+            "for nid in range(2, 41, 3):\n"
+            "    s.delete_needle(5, nid)\n"
+            "s.get_volume(5).compact()\n"
+            "s.close()\n"
+            "vb = os.path.join(sd, '5')\n"
+            "ec_files.write_ec_files(vb, large_block=1000, small_block=100, "
+            "device='cpu')\n"
+            "ec_files.write_sorted_ecx(vb + '.idx')\n"
+            "want = open(vb + '.dat', 'rb').read()\n"
+            "for p in (vb + '.dat', vb + '.idx', vb + '.ec01', vb + '.ec07'):\n"
+            "    os.remove(p)\n"
+            "s = store.Store([sd], device='cpu')\n"
+            "assert s.get_ec_volume(5) is not None\n"
+            "s.close()\n"
+            "ec_files.rebuild_ec_files(vb, device='cpu')\n"
+            "ec_files.write_dat_file(vb, ec_files.find_dat_file_size(vb), "
+            "1000, 100)\n"
+            "ec_files.write_idx_from_ecx(vb + '.ecx')\n"
+            "assert open(vb + '.dat', 'rb').read() == want\n"
+            "v = s.allocate_volume(6)\n"
+            "v.append_needle(needle.Needle(id=1, data=b'cold'))\n"
+            "v.tier_move('local', {'directory': os.path.join(d, 'cold')})\n"
+            "assert v.read_needle(1).data == b'cold'\n"
+            "v.close()\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('seaweedfs_tpu.') for m in sys.modules), "
             "sorted(m for m in sys.modules if 'jax' in m)\n")
