@@ -154,7 +154,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                held against the layout's encode units, one per degraded
                read and the rebuild's chunks; every line with the card's
                name and power limit
- 15 report     {"kernels": [...]} line, the card's name and power limit,
+ 15 remote     degraded reads with shards on peers, through
+               Store.read_needle(shard_reader=...) on the card, on nodes
+               of hard links of phase 4's shard set; the peers are
+               stand-ins of the volume server's shard-read endpoint
+               (ThreadingHTTPServer on loopback), the reader a stand-in
+               of its shard reader (a static table, the port's
+               PooledHTTP): (1) A holds 4-13, B 0-3, every needle on 0-3
+               read; (2) A 2-13, B 0-1 answering 0.35 s late, 32 needles
+               (drawn from those whose bytes on 0-1 fit 1/32 of the
+               reconstruction LRU) with hedging off, then on
+               (WEEDTPU_HEDGE_PCT=99, WEEDTPU_HEDGE_MAX_MS=100); (3) the
+               32 again from the LRU; (4) 8 needles on 0 and 1 from a
+               node holding 2-10, rescued by the abandoned fetches; (5) B
+               down: the 32 reconstructed, B's breaker open; (6) 128
+               bytes of shard 2 flipped, found by syndrome_scan,
+               quarantined, the needles over it read, restored; (7)
+               skip_shards={0} on 16 needles; (8) step 1's needles in 8
+               threads, B up, then down; K1 per step against its
+               prediction, the hedge counters, rates and latencies, and
+               whether aiohttp, google.protobuf and cryptography import
+ 16 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -163,14 +183,14 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12, 13 and 14, so the reported launches are the paths' own
+around phases 12, 13, 14 and 15, so the reported launches are the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
 (`gf_cuda.STAGED`), since each hands the kernel rows it reads in place,
 and if K2 was not launched.  After phase 13's window, two records: fleet
 against one write_ec_files per volume over the same four volumes (fleet,
 serial, serial, fleet), and rebuild_ec_files of phase 9's single loss;
-then phase 14.
+then phases 14 and 15.
 Needs one CUDA card; exits non-zero without one, and outside a checkout
 of the repository.
 """
@@ -1406,9 +1426,10 @@ def phase_codecs(vdir: str, dat_path: str, expect: dict, blob: bytes,
             gathered: list = []
             orig = ev._gather_survivors
 
-            def spy(exclude, segs, want=None, need=None, orig=orig,
-                    gathered=gathered):
-                rows = orig(exclude, segs, want=want, need=need)
+            def spy(exclude, segs, shard_reader=None, want=None, need=None,
+                    orig=orig, gathered=gathered):
+                rows = orig(exclude, segs, shard_reader, want=want,
+                            need=need)
                 gathered.append(sorted(rows))
                 return rows
             ev._gather_survivors = spy
@@ -2960,6 +2981,644 @@ def phase_store(vdir: str, dat_path: str, expect: dict, blob: bytes,
     return out
 
 
+# phase 15's remote reads.  Two stand-ins, scaffolding as phase 9's
+# helpers are, for what the volume server brings (ROADMAP 1.15a.3):
+# `ShardPeer` answers GET /admin/ec/shard_read from its store's EcVolume
+# as handle_ec_shard_read does (seaweedfs_tpu/server/volume_server.py:
+# 2156-2169), with a delay switch as its _fault_delay_shard_read;
+# `ShardReaderStandIn` maps shard ids to peers with a static table where
+# _shard_reader (volume_server.py:824-944) asks the master, and fetches
+# through the port's PooledHTTP, so the breaker gate, the deadline and
+# the trace and class headers run on the card's host.
+REMOTE_SLOW_S = 0.35  # step 2's slow peer
+REMOTE_HEDGED = 32  # step 2's needles, read again in steps 3 and 5
+REMOTE_RESCUED = 8  # step 4's
+REMOTE_SKIPPED = 16  # step 7's
+REMOTE_THREADS = 8  # step 8's
+# the reconstruction LRU's default budget (ec_volume.RECONSTRUCT_CACHE_
+# BYTES): step 2's needles are drawn among those whose bytes on shards 0
+# and 1 fit 1/32 of it, so that step 3 finds all 32 in the cache
+REMOTE_LRU_SHARE = 8 * MIB // REMOTE_HEDGED
+
+
+class ShardPeer:
+    """One peer volume server's shard-read endpoint on loopback, over a
+    port `Store` holding some of the shard files."""
+
+    def __init__(self, store):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlsplit
+        self.store = store
+        self.delay_s = 0.0
+        self.requests = 0
+        self.inflight = 0
+        self.headers: dict = {}  # header name -> requests carrying it
+        self._lock = threading.Lock()
+        self._conns: set = set()
+        peer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            disable_nagle_algorithm = True  # the body is a write of its own
+
+            def setup(self):
+                super().setup()
+                with peer._lock:
+                    peer._conns.add(self.connection)
+
+            def finish(self):
+                with peer._lock:
+                    peer._conns.discard(self.connection)
+                super().finish()
+
+            def do_GET(self):
+                with peer._lock:
+                    peer.requests += 1
+                    peer.inflight += 1
+                    for name in self.headers:
+                        if name.lower().startswith("x-weedtpu-"):
+                            peer.headers[name] = peer.headers.get(name, 0) + 1
+                try:
+                    if peer.delay_s:
+                        time.sleep(peer.delay_s)
+                    u = urlsplit(self.path)
+                    q = {k: int(v[0]) for k, v in parse_qs(u.query).items()}
+                    ev = peer.store.get_ec_volume(q["volume"]) \
+                        if u.path == "/admin/ec/shard_read" else None
+                    data = None if ev is None else ev._read_local(
+                        q["shard"], q["offset"], q["size"])
+                    body = data if data is not None else \
+                        b'{"error": "shard not local"}'
+                    self.send_response(200 if data is not None else 404)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                finally:
+                    with peer._lock:
+                        peer.inflight -= 1
+
+            def log_message(self, *a):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.addr = f"127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def quiet(self, timeout: float = 10.0) -> None:
+        """Wait until no request is being served."""
+        end = time.monotonic() + timeout
+        while self.inflight and time.monotonic() < end:
+            time.sleep(0.005)
+        if self.inflight:
+            raise AssertionError(f"peer {self.addr}: {self.inflight} "
+                                 f"requests still in flight")
+
+    def stop(self) -> None:
+        """Refuse new dials and cut the keep-alive connections: the peer
+        is down."""
+        import socket
+        self.server.shutdown()
+        self.server.server_close()
+        with self._lock:
+            conns = list(self._conns)
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        self.thread.join(timeout=10)
+
+
+class ShardReaderStandIn:
+    """Shard ids -> peer address, a static table.  `bind()` is called on
+    the reading thread, as the volume server builds its reader per
+    request: it captures that thread's trace, traffic class and deadline,
+    and the fetch threads of the read engine re-enter them around each
+    PooledHTTP request."""
+
+    def __init__(self, vid: int, table: dict):
+        from seaweedfs_tpu_torch.utils import http
+        self.vid = vid
+        self.table = dict(table)
+        self.http = http.PooledHTTP(timeout=5.0, role="volume")
+        self.calls = self.dialed_failed = self.fast_failed = 0
+        self.inflight = 0
+        self.bytes = 0
+        self._lock = threading.Lock()
+
+    def bind(self):
+        from seaweedfs_tpu_torch.security import tls
+        from seaweedfs_tpu_torch.stats import netflow, trace
+        from seaweedfs_tpu_torch.utils import resilience
+        tctx = trace.current()
+        cls = netflow.current_class() or "data"
+        dl = resilience.deadline()
+        scheme = tls.scheme()
+
+        def read(sid: int, off: int, size: int):
+            peer = self.table.get(sid)
+            if peer is None:
+                return None
+            with self._lock:
+                self.calls += 1
+                self.inflight += 1
+            tok_dl = resilience.set_deadline(dl)
+            tok_cls = netflow.set_class(cls)
+            try:
+                with trace.span("volume.shard_fetch", parent=tctx,
+                                shard=sid, peer=peer, bytes=size):
+                    st, _, body = self.http.request(
+                        f"{scheme}://{peer}/admin/ec/shard_read?volume="
+                        f"{self.vid}&shard={sid}&offset={off}&size={size}")
+            except OSError as e:
+                with self._lock:
+                    if "circuit open" in str(e):
+                        self.fast_failed += 1
+                    else:
+                        self.dialed_failed += 1
+                return None
+            finally:
+                netflow.reset(tok_cls)
+                resilience.reset_deadline(tok_dl)
+                with self._lock:
+                    self.inflight -= 1
+            if st != 200 or len(body) != size:
+                return None
+            with self._lock:
+                self.bytes += size
+            return body
+
+        return read
+
+    def quiet(self, timeout: float = 10.0) -> None:
+        """Wait until no fetch is in flight (the hedge's abandoned
+        fetches included)."""
+        end = time.monotonic() + timeout
+        while self.inflight and time.monotonic() < end:
+            time.sleep(0.005)
+        if self.inflight:
+            raise AssertionError(f"{self.inflight} shard fetches still in "
+                                 f"flight")
+
+    def close(self) -> None:
+        self.http.close()
+
+
+class scoped_env:
+    """Set environment variables for a block; restore them after."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def server_packages() -> dict:
+    """Whether the servers' packages can be imported on this host."""
+    import importlib.util
+    out = {}
+    for name in ("aiohttp", "google.protobuf", "cryptography"):
+        try:
+            out[name] = importlib.util.find_spec(name) is not None
+        except ModuleNotFoundError:
+            out[name] = False
+    return out
+
+
+def intervals(ev, nid: int) -> list[tuple[int, int, int]]:
+    """(shard, offset in the shard file, size) of each interval of a
+    needle, by the layout."""
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    off, size = ev.find_needle(nid)
+    return [iv.to_shard_id_and_offset() + (iv.size,)
+            for iv in layout.locate_data(
+                ev.large_block, ev.small_block, ev.dat_size, off,
+                t.actual_size(size, ev.version), data_shards=ev.spec.k)]
+
+
+def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
+                 seed: int, launches: dict, device=None) -> dict:
+    """Phase 15: degraded EC reads with shards on peers, through
+    `Store.read_needle(shard_reader=...)` on the card (device left at its
+    default), on nodes built from hard links of phase 4's shard set:
+    remote reads, hedging against a slow peer (off and on), the
+    reconstruction LRU, the rescue of abandoned fetches, a dead peer
+    behind its breaker, a quarantined range, `skip_shards`, and eight
+    reading threads with the peer up and down.  K1's launches held
+    against each step's prediction."""
+    import numpy as np
+    from seaweedfs_tpu_torch.maintenance import scrub
+    from seaweedfs_tpu_torch.stats import metrics, trace
+    from seaweedfs_tpu_torch.storage import store as st
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.utils import resilience
+
+    card = card_name_power()
+
+    def rlog(msg: str) -> None:
+        log(f"[remote] {msg} [{card}]")
+
+    work = os.path.join(vdir, "remote")
+    os.makedirs(work)
+    name = os.path.basename(base)
+    vid = int(name)
+    rng = np.random.default_rng(seed + 15)
+    out: dict = {"card": card, "server_packages": server_packages()}
+    rlog("server packages importable on this host: " + ", ".join(
+        f"{k} {'yes' if v else 'no'}" for k, v in
+        out["server_packages"].items()))
+    k1_phase = launches["gf_apply"]
+    t_phase = time.perf_counter()
+    stores: list = []
+    peers: list = []
+    readers: list = []
+
+    def node(label: str, keep) -> "st.Store":
+        d = os.path.join(work, label)
+        os.makedirs(d)
+        for ext in [layout.to_ext(i) for i in keep] + [".ecx", ".vif"]:
+            os.link(base + ext, os.path.join(d, name + ext))
+        s = st.Store([d], device=device)
+        stores.append(s)
+        return s
+
+    def peer(s) -> ShardPeer:
+        p = ShardPeer(s)
+        peers.append(p)
+        return p
+
+    def reader(table: dict) -> ShardReaderStandIn:
+        r = ShardReaderStandIn(vid, table)
+        readers.append(r)
+        return r
+
+    def read_one(s, nid: int, rd) -> float:
+        """One read through Store.read_needle under a 30 s budget;
+        returns its seconds."""
+        tok = resilience.set_deadline(time.monotonic() + 30.0)
+        try:
+            t0 = time.perf_counter()
+            n = s.read_needle(vid, nid, expect[nid][0],
+                              shard_reader=rd.bind() if rd else None)
+            dt = time.perf_counter() - t0
+        finally:
+            resilience.reset_deadline(tok)
+        cookie, lo, hi = expect[nid]
+        if n.id != nid or n.cookie != cookie or n.data != blob[lo:hi]:
+            raise AssertionError(f"remote read of needle {nid} differs")
+        return dt
+
+    def read_all(s, nids, rd) -> list[float]:
+        with trace.span("chip.remote_reads", parent=trace.new_root(),
+                        reads=len(nids)):
+            return [read_one(s, nid, rd) for nid in nids]
+
+    def counters(s) -> dict:
+        c = {"k1": launches["gf_apply"], "k2": launches["gf_apply_batch"]}
+        c.update(s.get_ec_volume(vid).read_stats_snapshot())
+        for o in ("fired", "hedge_won", "primary_rescued"):
+            c[o] = int(metrics.HEDGE_TOTAL.labels(o).value)
+        return c
+
+    def grown(s, before: dict) -> dict:
+        after = counters(s)
+        return {k: after[k] - before[k] for k in before}
+
+    def empty_lru(s) -> None:
+        ev = s.get_ec_volume(vid)
+        with ev._recon_lock:
+            ev._recon_cache.clear()
+            ev._recon_cache_bytes = 0
+
+    def fresh_history() -> None:
+        resilience.reset_latency_trackers()
+        resilience.reset_breakers()
+
+    def hold(step: str, got: dict, want: dict) -> None:
+        for key, value in want.items():
+            if got[key] != value:
+                raise AssertionError(f"phase 15 {step}: {key} grew by "
+                                     f"{got[key]}, predicted {value}")
+
+    def lat(ts: list[float]) -> dict:
+        return {"p50_s": statistics.median(ts), "max_s": max(ts),
+                "mean_s": sum(ts) / len(ts), "n": len(ts)}
+
+    steps: dict = {}
+    k1_steps: dict = {}
+    try:
+        full = node("full", range(layout.TOTAL_SHARDS))
+        fev = full.get_ec_volume(vid)
+        ivs = {nid: intervals(fev, nid) for nid in expect}
+        reads1 = [nid for nid, iv in ivs.items()
+                  if any(s < 4 for s, _, _ in iv)]
+        pair = [nid for nid, iv in ivs.items()
+                if any(s < 2 for s, _, _ in iv)]
+        both = [nid for nid in pair
+                if {0, 1} <= {s for s, _, _ in ivs[nid]}]
+        fit = [nid for nid in pair if sum(
+            n for s, _, n in ivs[nid] if s < 2) <= REMOTE_LRU_SHARE]
+        hedged = sorted(rng.choice(fit, REMOTE_HEDGED, replace=False)
+                        .tolist())
+        rescued = sorted(rng.choice(both, REMOTE_RESCUED, replace=False)
+                         .tolist())
+        skipped = sorted(rng.choice(
+            [nid for nid in pair if any(s == 0 for s, _, _ in ivs[nid])],
+            REMOTE_SKIPPED, replace=False).tolist())
+        out["needles"] = {"touching_0_3": len(reads1),
+                          "touching_0_1": len(pair),
+                          "touching_0_and_1": len(both),
+                          "fit_lru_share": len(fit)}
+
+        # 1 remote reads: A holds 4-13, B 0-3 and answers at once
+        a = node("a", range(4, 14))
+        pb = peer(node("b", range(4)))
+        ra = reader({s: pb.addr for s in range(4)})
+        fresh_history()
+        before = counters(a)
+        t0 = time.perf_counter()
+        ts = read_all(a, reads1, ra)
+        dt = time.perf_counter() - t0
+        g = grown(a, before)
+        if g["remote_shard_reads"] <= 0:
+            raise AssertionError("step 1 fetched nothing from the peer")
+        if not g["k1"] == g["reconstruct_batches"] == g["fired"]:
+            raise AssertionError(f"step 1: K1 {g['k1']}, reconstruct "
+                                 f"batches {g['reconstruct_batches']}, "
+                                 f"hedges fired {g['fired']}: not equal")
+        k1_steps["1 remote"] = (g["k1"], 0)
+        steps["remote"] = {"reads": len(reads1), "s": dt,
+                           "reads_per_s": len(reads1) / dt,
+                           "remote_mb_s": ra.bytes / dt / 1e6,
+                           "remote_bytes": ra.bytes, "grown": g,
+                           "latency": lat(ts), "peer_headers": dict(
+                               pb.headers), "peer_requests": pb.requests}
+        rlog(f"1 remote reads: {len(reads1)} needles on shards 0-3 equal, "
+             f"{len(reads1) / dt:.1f} reads/s, {ra.bytes / dt / 1e6:.1f} "
+             f"MB/s fetched from B ({ra.bytes} B in {pb.requests} "
+             f"requests, remote_shard_reads +{g['remote_shard_reads']}); "
+             f"K1 +{g['k1']} == reconstruct batches == hedges fired "
+             f"(predicted 0); B saw headers {dict(pb.headers)}")
+
+        # 2 hedging against a slow peer: A2 holds 2-13, B2 0-1, 0.35 s late
+        a2 = node("a2", range(2, 14))
+        pb2 = peer(node("b2", range(2)))
+        pb2.delay_s = REMOTE_SLOW_S
+        ra2 = reader({0: pb2.addr, 1: pb2.addr})
+        arms = {}
+        for arm, env in (("off", {"WEEDTPU_HEDGE_PCT": "0"}),
+                         ("on", {"WEEDTPU_HEDGE_PCT": "99",
+                                 "WEEDTPU_HEDGE_MAX_MS": "100"})):
+            empty_lru(a2)
+            fresh_history()
+            with scoped_env(**env):
+                before = counters(a2)
+                ts = read_all(a2, hedged, ra2)
+                g = grown(a2, before)
+            ra2.quiet()
+            pb2.quiet()
+            want = {"k1": 0, "fired": 0, "hedge_won": 0} if arm == "off" \
+                else {"k1": REMOTE_HEDGED, "fired": REMOTE_HEDGED,
+                      "hedge_won": REMOTE_HEDGED, "primary_rescued": 0}
+            hold(f"step 2 ({arm})", g, want)
+            k1_steps[f"2 hedge {arm}"] = (g["k1"], want["k1"])
+            arms[arm] = {"latency": lat(ts), "grown": g}
+            rlog(f"2 hedge {arm}: {REMOTE_HEDGED} needles on shards 0-1 "
+                 f"equal, p50 {statistics.median(ts):.4f} s, max "
+                 f"{max(ts):.4f} s; fired +{g['fired']}, hedge_won "
+                 f"+{g['hedge_won']}, primary_rescued "
+                 f"+{g['primary_rescued']}, K1 +{g['k1']} (predicted "
+                 f"{want['k1']})")
+        ratio = arms["off"]["latency"]["p50_s"] / \
+            arms["on"]["latency"]["p50_s"]
+        steps["hedge"] = dict(arms, p50_ratio_off_over_on=ratio,
+                              slow_s=REMOTE_SLOW_S)
+        rlog(f"2 hedge: p50 off / on {ratio:.3f}")
+
+        # 3 the LRU: the on arm's needles again
+        with scoped_env(WEEDTPU_HEDGE_PCT="99", WEEDTPU_HEDGE_MAX_MS="100"):
+            r0 = pb2.requests
+            before = counters(a2)
+            ts = read_all(a2, hedged, ra2)
+            g = grown(a2, before)
+        hold("step 3", g, {"k1": 0})
+        if pb2.requests != r0 or g["reconstruct_cache_hits"] < REMOTE_HEDGED:
+            raise AssertionError(f"step 3: {pb2.requests - r0} requests to "
+                                 f"B, {g['reconstruct_cache_hits']} LRU hits")
+        k1_steps["3 lru"] = (g["k1"], 0)
+        steps["lru"] = {"latency": lat(ts), "grown": g}
+        rlog(f"3 LRU: {REMOTE_HEDGED} needles equal, p50 "
+             f"{statistics.median(ts):.5f} s, max {max(ts):.5f} s, "
+             f"reconstruct_cache_hits +{g['reconstruct_cache_hits']}, no "
+             f"request to B, K1 +0")
+
+        # 4 primary rescue: A4 holds 2-10, nobody 11-13
+        a4 = node("a4", range(2, 11))
+        fresh_history()
+        with scoped_env(WEEDTPU_HEDGE_PCT="99", WEEDTPU_HEDGE_MAX_MS="100"):
+            before = counters(a4)
+            ts = read_all(a4, rescued, ra2)
+            g = grown(a4, before)
+        hold("step 4", g, {"k1": 0, "fired": REMOTE_RESCUED,
+                           "primary_rescued": REMOTE_RESCUED,
+                           "hedge_won": 0, "reconstruct_batches": 0})
+        k1_steps["4 rescue"] = (g["k1"], 0)
+        steps["rescue"] = {"latency": lat(ts), "grown": g}
+        rlog(f"4 rescue: {REMOTE_RESCUED} needles on shards 0 and 1 equal "
+             f"(9 survivors of 10), p50 {statistics.median(ts):.4f} s, "
+             f"primary_rescued +{g['primary_rescued']}, K1 +0")
+
+        # 5 dead peer: B2 down, A2's LRU emptied, the breakers reset
+        ra2.quiet()
+        pb2.stop()
+        empty_lru(a2)
+        fresh_history()
+        threshold = resilience.CircuitBreaker().threshold
+        with scoped_env(WEEDTPU_HEDGE_PCT="99", WEEDTPU_HEDGE_MAX_MS="100",
+                        WEEDTPU_BREAKER_COOLDOWN="30"):
+            c0 = (ra2.calls, ra2.dialed_failed, ra2.fast_failed)
+            before = counters(a2)
+            ts = read_all(a2, hedged, ra2)
+            g = grown(a2, before)
+            calls = ra2.calls - c0[0]
+            dialed = ra2.dialed_failed - c0[1]
+            fast = ra2.fast_failed - c0[2]
+        hold("step 5", g, {"k1": REMOTE_HEDGED,
+                           "reconstruct_batches": REMOTE_HEDGED})
+        # every failed dial is a failure the breaker saw, and it saw none
+        # after it opened: no read dialed B after that (two fetches of one
+        # read can both pass the gate just before it opens)
+        snap = resilience.breakers_snapshot().get(pb2.addr, {})
+        if snap.get("state") != "open" or snap.get("trips") != 1 or \
+                dialed != snap.get("failures") or dialed < threshold or \
+                fast != calls - dialed:
+            raise AssertionError(f"step 5: breaker {snap}, {calls} fetches, "
+                                 f"{dialed} dialed, {fast} fast-failed; "
+                                 f"threshold {threshold}")
+        k1_steps["5 dead peer"] = (g["k1"], REMOTE_HEDGED)
+        steps["dead_peer"] = {"latency": lat(ts), "grown": g,
+                              "breaker": snap, "fetches": calls,
+                              "dialed": dialed, "fast_failed": fast}
+        rlog(f"5 dead peer: {REMOTE_HEDGED} needles equal, p50 "
+             f"{statistics.median(ts):.4f} s; breaker {snap['state']} after "
+             f"{dialed} failed dials (threshold {threshold}), {fast} of "
+             f"{calls} fetches refused without a dial; K1 +{g['k1']}")
+
+        # 6 quarantine: 128 bytes of shard 2 flipped, found, quarantined
+        qev = full.get_ec_volume(vid)
+        s2 = base + layout.to_ext(2)
+        qoff = qev.shard_size // 3 // MIB * MIB + 4096  # inside one window
+        with open(s2, "r+b") as f:
+            orig = os.pread(f.fileno(), 128, qoff)
+            os.pwrite(f.fileno(), bytes(b ^ 0xFF for b in orig), qoff)
+        try:
+            k1 = launches["gf_apply"]
+            t0 = time.perf_counter()
+            found = scrub.syndrome_scan(qev)
+            scan_s = time.perf_counter() - t0
+            scan_k1 = launches["gf_apply"] - k1
+            windows = -(-qev.shard_size // scrub.DEFAULT_WINDOW)
+            if [c["shard"] for c in found] != [2] or scan_k1 != windows:
+                raise AssertionError(f"step 6: scan found {found} with "
+                                     f"{scan_k1} launches")
+            for c in found:
+                qev.quarantine_range(c["shard"], c["offset"], c["size"])
+            over = [nid for nid, iv in ivs.items()
+                    if any(sid == 2 and c["offset"] < off + n and
+                           off < c["offset"] + c["size"]
+                           for c in found for sid, off, n in iv)]
+            rq = reader({})
+            before = counters(full)
+            ts = read_all(full, over, rq)
+            g = grown(full, before)
+            if g["k1"] != g["reconstruct_batches"] or \
+                    g["k1"] != len(over):
+                raise AssertionError(f"step 6: K1 {g['k1']}, batches "
+                                     f"{g['reconstruct_batches']}, "
+                                     f"{len(over)} reads")
+            qev.clear_quarantine(2)
+        finally:
+            with open(s2, "r+b") as f:
+                os.pwrite(f.fileno(), orig, qoff)
+        if qev._read_local(2, qoff, 128) != orig:
+            raise AssertionError("step 6: shard 2 not restored")
+        k1_steps["6 quarantine"] = (g["k1"], len(over))
+        steps["quarantine"] = {"found": found, "reads": len(over),
+                               "latency": lat(ts), "grown": g,
+                               "scan_s": scan_s, "scan_k1": scan_k1}
+        rlog(f"6 quarantine: the flip found in {scan_s:.3f} s "
+             f"({scan_k1} windows, K1 each), range {found[0]['offset']}+"
+             f"{found[0]['size']} of shard 2 quarantined; {len(over)} "
+             f"needles over it equal through reconstruction, K1 "
+             f"+{g['k1']} == reconstruct batches; cleared, restored")
+
+        # 7 skip_shards on the node with every shard
+        lru = (len(qev._recon_cache), qev._recon_cache_bytes)
+        before = counters(full)
+        bound = rq.bind()
+        for nid in skipped:
+            n = qev.read_needle(nid, bound, skip_shards={0})
+            cookie, lo, hi = expect[nid]
+            if n.cookie != cookie or n.data != blob[lo:hi]:
+                raise AssertionError(f"skip_shards read of {nid} differs")
+        g = grown(full, before)
+        hold("step 7", g, {"k1": REMOTE_SKIPPED,
+                           "reconstruct_batches": REMOTE_SKIPPED})
+        if (len(qev._recon_cache), qev._recon_cache_bytes) != lru:
+            raise AssertionError("step 7: skip_shards grew the volume's LRU")
+        k1_steps["7 skip_shards"] = (g["k1"], REMOTE_SKIPPED)
+        steps["skip_shards"] = {"reads": REMOTE_SKIPPED, "grown": g}
+        rlog(f"7 skip_shards={{0}}: {REMOTE_SKIPPED} needles equal, K1 "
+             f"+{g['k1']}, the volume's LRU unchanged ({lru[0]} ranges)")
+
+        # 8 eight threads on A, B up then down
+        order = rng.permutation(reads1).tolist()
+        shares = [order[i::REMOTE_THREADS] for i in range(REMOTE_THREADS)]
+        for label in ("peer up", "peer down"):
+            if label == "peer down":
+                empty_lru(a)
+                ra.quiet()
+                pb.stop()
+            fresh_history()
+            errors: list = []
+
+            def run(share):
+                try:
+                    read_all(a, share, ra)
+                except Exception as e:  # surfaced after the join
+                    errors.append(e)
+
+            before = counters(a)
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=run, args=(sh,))
+                       for sh in shares]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            dt = time.perf_counter() - t0
+            if errors or any(th.is_alive() for th in threads):
+                raise AssertionError(f"step 8 ({label}): {errors[:3]}")
+            g = grown(a, before)
+            want = g["reconstruct_batches"] if label == "peer up" \
+                else len(reads1)
+            if g["k1"] != g["reconstruct_batches"] or g["k1"] != want:
+                raise AssertionError(f"step 8 ({label}): K1 {g['k1']}, "
+                                     f"batches {g['reconstruct_batches']}, "
+                                     f"{len(reads1)} reads")
+            k1_steps[f"8 threads, {label}"] = (g["k1"], 0 if
+                                               label == "peer up" else
+                                               len(reads1))
+            steps[f"threads_{label.replace(' ', '_')}"] = {
+                "reads": len(reads1), "s": dt,
+                "reads_per_s": len(reads1) / dt, "grown": g}
+            rlog(f"8 {REMOTE_THREADS} threads, {label}: {len(reads1)} "
+                 f"needles equal, {len(reads1) / dt:.1f} reads/s, K1 "
+                 f"+{g['k1']} == reconstruct batches, hedges fired "
+                 f"+{g['fired']}")
+        ra.quiet()
+    finally:
+        for p in peers:
+            if p.thread.is_alive():
+                p.stop()
+        for r in readers:
+            r.close()
+        for s in stores:
+            s.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+    got = launches["gf_apply"] - k1_phase
+    want = sum(g for g, _ in k1_steps.values()) + \
+        steps["quarantine"]["scan_k1"]
+    if got != want:
+        raise AssertionError(f"phase 15 launched K1 {got}; the steps "
+                             f"count {want}")
+    out.update(steps)
+    out["k1_steps"] = {k: {"launched": g, "predicted": p}
+                       for k, (g, p) in k1_steps.items()}
+    out["launches_k1"] = got
+    out["s"] = time.perf_counter() - t_phase
+    rlog("K1 per step (launched / predicted): " + "; ".join(
+        f"{k} {g} / {p}" for k, (g, p) in k1_steps.items()) +
+        f"; scan {steps['quarantine']['scan_k1']}; total {got}; phase "
+        f"wall {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3222,10 +3881,25 @@ def main(argv=None) -> int:
             f"{staged}")
         path_launches = {k: path_launches[k] + store_launches[k]
                          for k in path_launches}
+
+        # 15 remote reads, counted on its own; after phase 14, on nodes
+        # linking phase 4's shard set
+        gf_cuda.reset_launches()
+        phases["remote"] = phase_remote(vdir, base, expect, blob, args.seed,
+                                        launches)
+        remote_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the remote phase made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        log(f"[path] phase 15: launches {remote_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + remote_launches[k]
+                         for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 15 report
+    # 16 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

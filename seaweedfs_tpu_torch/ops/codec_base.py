@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import collections
 import os
+import threading
 
 import torch
 
@@ -53,6 +54,8 @@ class RSCodecBase:
         self._parity = matrix_apply_factory(code.parity_matrix)
         self._decode_cache: collections.OrderedDict = collections.OrderedDict()
         self._bases: dict = {}
+        # degraded reads of one volume decode from several threads at once
+        self._lock = threading.Lock()
 
     def basis(self, present, wanted) -> tuple:
         """The survivors a decode of `wanted` from `present` reads
@@ -60,11 +63,12 @@ class RSCodecBase:
         cached per pattern; the cache is emptied when it passes
         WEEDTPU_CODEC_DECODE_CACHE entries."""
         key = (tuple(sorted(present)), tuple(wanted))
-        hit = self._bases.get(key)
-        if hit is None:
-            if len(self._bases) >= decode_cache_cap():
-                self._bases.clear()
-            hit = self._bases[key] = select_survivors(self.code, *key)
+        with self._lock:
+            hit = self._bases.get(key)
+            if hit is None:
+                if len(self._bases) >= decode_cache_cap():
+                    self._bases.clear()
+                hit = self._bases[key] = select_survivors(self.code, *key)
         return hit
 
     def decoder(self, present: tuple, wanted: tuple):
@@ -74,15 +78,16 @@ class RSCodecBase:
         WEEDTPU_CODEC_DECODE_CACHE."""
         basis = self.basis(present, wanted)
         key = (basis, wanted)
-        hit = self._decode_cache.get(key)
-        if hit is not None:
-            self._decode_cache.move_to_end(key)
-            return basis, hit
-        mat = self._factory(self.code.decode_matrix(list(present),
-                                                    list(wanted)))
-        self._decode_cache[key] = mat
-        while len(self._decode_cache) > decode_cache_cap():
-            self._decode_cache.popitem(last=False)
+        with self._lock:
+            hit = self._decode_cache.get(key)
+            if hit is not None:
+                self._decode_cache.move_to_end(key)
+                return basis, hit
+            mat = self._factory(self.code.decode_matrix(list(present),
+                                                        list(wanted)))
+            self._decode_cache[key] = mat
+            while len(self._decode_cache) > decode_cache_cap():
+                self._decode_cache.popitem(last=False)
         return basis, mat
 
     def encode_parity(self, data: torch.Tensor) -> torch.Tensor:

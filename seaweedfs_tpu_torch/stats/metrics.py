@@ -7,7 +7,7 @@ metric classes, the registry and its exposition format 0.0.4 (OpenMetrics
 on request), and the families the port's telemetry books into, under the
 reference's names, labels and buckets.  The push-gateway loop, the
 `/metrics` handler and every serving-plane family come with the servers
-(ROADMAP 1.15a).
+(ROADMAP 1.15a.3).
 """
 
 from __future__ import annotations
@@ -255,6 +255,29 @@ WAN_BYTES = REGISTRY.counter(
     "weedtpu_wan_bytes_total",
     "body bytes crossing a region boundary by direction, traffic "
     "class, and remote region", ("direction", "class", "region"))
+# pooled client (utils/http.py): requests on a warm keep-alive socket
+# against fresh dials
+HTTP_POOL_REUSE = REGISTRY.counter(
+    "weedtpu_http_pool_reuse_total",
+    "pooled-client requests served on a reused keep-alive connection")
+HTTP_POOL_DIAL = REGISTRY.counter(
+    "weedtpu_http_pool_dial_total",
+    "pooled-client requests that dialed a fresh connection")
+# resilience (utils/resilience.py): retry-budget spends and hedged
+# degraded-read outcomes (storage/ec/ec_volume.py)
+RETRY_TOTAL = REGISTRY.counter(
+    "weedtpu_retry_total",
+    "retry-budget spends by traffic class and outcome (allowed/denied)",
+    ("class", "outcome"))
+HEDGE_TOTAL = REGISTRY.counter(
+    "weedtpu_hedge_total",
+    "hedged degraded-read outcomes (fired / hedge_won / primary_rescued)",
+    ("outcome",))
+# degraded-read counters, mirrored from an EcVolume's read_stats
+EC_DEGRADED_READ = REGISTRY.gauge(
+    "weedtpu_ec_degraded_read", "EC degraded-read engine counters "
+    "(shards fetched, intervals coalesced, reconstruct batches/intervals, "
+    "cache hits)", ("stat",))
 # needle-map integrity-repair drops (storage/needle_map.py)
 NEEDLE_MAP_DROPS = REGISTRY.counter(
     "weedtpu_needle_map_integrity_drops_total",

@@ -8,10 +8,12 @@ a contextvar (``flow("repair")``): a call site declares its class once
 and every hop made under it inherits it.  The port's data plane declares
 ``repair`` around `rebuild_ec_files` and `rebuild_ec_reduced` and
 ``convert`` around `convert_volumes` (each of its threads), as the
-reference does; the HTTP hops that book the bytes come with the servers
-(ROADMAP 1.15a), and with them the ``X-Weedtpu-Class`` header
-propagation (`inject`, `extract_class`), the aiohttp role-stamping hook
-and the reference's ``WEEDTPU_NETFLOW`` switch.
+reference does.  The pooled client (utils/http.py) stamps the class and
+its own role on every request (``X-Weedtpu-Class``, ``X-Weedtpu-Role``:
+`inject`) and books the bytes it moves; a server reads the class back
+with `extract_class`.  The aiohttp role-stamping hook and the
+reference's ``WEEDTPU_NETFLOW`` switch come with the servers (ROADMAP
+1.15a.3).
 
 Classes: ``data``, ``replication``, ``repair``, ``convert``,
 ``rebalance``, ``scrub``, ``readahead``, ``internal``.  Unlabelled
@@ -24,6 +26,9 @@ from __future__ import annotations
 from contextvars import ContextVar
 
 from seaweedfs_tpu_torch.stats import metrics
+
+CLASS_HEADER = "X-Weedtpu-Class"
+ROLE_HEADER = "X-Weedtpu-Role"
 
 CLASSES = frozenset({"data", "replication", "repair", "convert",
                      "rebalance", "scrub", "readahead", "internal"})
@@ -152,3 +157,19 @@ def wan_total(direction: str, region: str | None = None) -> float:
             continue
         total += child.value
     return total
+
+
+def inject(headers: dict, path: str = "", role: str | None = None) -> dict:
+    """Stamp the outgoing class (the ambient flow class, else the path's
+    default) and the caller's role onto a header dict, in place."""
+    headers[CLASS_HEADER] = _flow.get() or classify(path)
+    if role:
+        headers[ROLE_HEADER] = role
+    return headers
+
+
+def extract_class(headers, path: str) -> str:
+    """Server-side class: the caller's declared class when valid, else
+    the path's default."""
+    cls = headers.get(CLASS_HEADER, "")
+    return cls if cls in CLASSES else classify(path)

@@ -14,10 +14,11 @@ Counterpart of `seaweedfs_tpu/stats/trace.py`:
 
 Sampling (`WEEDTPU_TRACE_SAMPLE`, default 16: keep 1 root in 16; 0
 disables local sampling) is the serving plane's choice; background work
-and tools start a sampled root themselves with `new_root()`.  The
-`X-Weedtpu-Trace` header propagation, pinned traces, the request
-registry, the aiohttp middleware and the `/debug` routes come with the
-servers (ROADMAP 1.15a).
+and tools start a sampled root themselves with `new_root()`.  A blocking
+client carries the context to its peer in the `X-Weedtpu-Trace` header
+(`inject`; `format_header`/`parse_header`: "<32 hex>-<16 hex>-<0|1>").
+Pinned traces, the request registry, the aiohttp middleware and the
+`/debug` routes come with the servers (ROADMAP 1.15a.3).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import os
 import random
 import time
 from contextvars import ContextVar
+
+TRACE_HEADER = "X-Weedtpu-Trace"
 
 _rand = random.Random()
 
@@ -81,6 +84,30 @@ def current_exemplar() -> str | None:
     """Trace id for histogram exemplars: only sampled traces qualify."""
     t = _current.get()
     return t.trace_id if t is not None and t.sampled else None
+
+
+def format_header(t: Trace) -> str:
+    return f"{t.trace_id}-{t.span_id}-{1 if t.sampled else 0}"
+
+
+def parse_header(value: str) -> Trace | None:
+    """The header's trace context, or None when it is malformed."""
+    parts = value.split("-")
+    if len(parts) != 3 or len(parts[0]) != 32 or len(parts[1]) != 16:
+        return None
+    try:
+        int(parts[0], 16), int(parts[1], 16)
+    except ValueError:
+        return None
+    return Trace(parts[0], parts[1], parts[2] == "1")
+
+
+def inject(headers: dict) -> dict:
+    """Stamp the current trace context into an outgoing header dict."""
+    t = _current.get()
+    if t is not None:
+        headers[TRACE_HEADER] = format_header(t)
+    return headers
 
 
 # -- ring buffer ---------------------------------------------------------

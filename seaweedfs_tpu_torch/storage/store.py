@@ -9,9 +9,6 @@ Differences from the reference, kept on purpose:
 - the store resolves its device once, at construction (None: the card,
   raising without one; "cpu": the plain version), and every EC volume a
   location mounts runs its codec there;
-- `read_needle` takes no `shard_reader`: the EC volume's remote shard
-  readers come with the HTTP plumbing (ROADMAP 1.15a.2), so an EC read is
-  served from local shards, reconstructing what is missing;
 - volumes are served on the mmap backend always (the reference reads
   WEEDTPU_VOLUME_BACKEND, whose default this is);
 - a volume tiered out (its `.tier` marker and `.idx`, no `.dat`) mounts
@@ -186,13 +183,16 @@ class Store:
         return size
 
     def read_needle(self, vid: int, needle_id: int,
-                    cookie: int | None = None) -> ndl.Needle:
+                    cookie: int | None = None,
+                    shard_reader=None) -> ndl.Needle:
+        """A needle of a volume or, through `shard_reader` for shards on
+        peers (`ec_volume.ShardReader`), of an EC volume."""
         v = self.get_volume(vid)
         if v is not None:
             return v.read_needle(needle_id, cookie)
         ev = self.get_ec_volume(vid)
         if ev is not None:
-            n = ev.read_needle(needle_id)
+            n = ev.read_needle(needle_id, shard_reader)
             if cookie is not None and n.cookie != cookie:
                 raise PermissionError("cookie mismatch")
             return n

@@ -430,8 +430,8 @@ def test_lrc_degraded_read_touches_one_group(lrc_volume, tmp_path):
     gathered = []
     orig = ev._gather_survivors
 
-    def spy(exclude, segs, want=None, need=None):
-        rows = orig(exclude, segs, want=want, need=need)
+    def spy(exclude, segs, shard_reader=None, want=None, need=None):
+        rows = orig(exclude, segs, shard_reader, want=want, need=need)
         gathered.append(set(rows))
         return rows
     ev._gather_survivors = spy
@@ -477,9 +477,9 @@ def test_degraded_read_skips_a_basis_with_an_absent_shard(encoded, tmp_path,
     calls = []
     orig = ev._gather_survivors
 
-    def spy(exclude, segs, want=None, need=None):
+    def spy(exclude, segs, shard_reader=None, want=None, need=None):
         try:
-            rows = orig(exclude, segs, want=want, need=need)
+            rows = orig(exclude, segs, shard_reader, want=want, need=need)
         except IOError:
             calls.append("failed")
             raise

@@ -612,3 +612,122 @@ def test_cuda_store_decode_equals_cpu(card, tmp_path):
         s.close()
     assert files["cpu"] == files["cuda"]
     assert files["cuda"]["3.dat"] == (src / "3.dat").read_bytes()
+
+
+@pytest.mark.cuda
+def test_cuda_hedged_and_quarantined_reads_from_two_threads(card, tmp_path,
+                                                            monkeypatch):
+    """Two threads read one shard set's needles at once through
+    `Store.read_needle` on the card and on the CPU: one hedged against a
+    peer 0.2 s late on shards 0 and 1 (its node holds 2-13), one over a
+    quarantined range of shard 2 (its node holds every shard).  Every
+    read equals the CPU's and the written bytes, and on the card K1
+    grows exactly as the volumes' reconstruct batches do."""
+    import threading
+    import time
+    from seaweedfs_tpu_torch.maintenance import scrub
+    from seaweedfs_tpu_torch.storage import needle, store, types
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    monkeypatch.setenv("WEEDTPU_HEDGE_PCT", "99")
+    monkeypatch.setenv("WEEDTPU_HEDGE_MAX_MS", "50")
+    src = tmp_path / "src"
+    src.mkdir()
+    g = np.random.default_rng(11)
+    v = Volume(str(src), "", 3)
+    blobs = {nid: g.bytes(int(g.integers(1, 400_000))) for nid in range(1, 41)}
+    for nid, data in blobs.items():
+        v.append_needle(needle.Needle(cookie=nid, id=nid, data=data,
+                                      append_at_ns=nid))
+    v.close()
+    full = str(src / "3")
+    ec_files.write_ec_files(full, device="cpu")
+    ec_files.write_sorted_ecx(full + ".idx")
+
+    def node(name, keep):
+        d = tmp_path / name
+        d.mkdir()
+        for ext in [layout.to_ext(i) for i in keep] + [".ecx", ".vif"]:
+            shutil.copy(full + ext, str(d / ("3" + ext)))
+        return str(d)
+
+    def reader(sid, off, size):
+        if sid not in (0, 1):
+            return None
+        time.sleep(0.2)
+        with open(full + layout.to_ext(sid), "rb") as f:
+            return os.pread(f.fileno(), size, off)
+
+    def shards_of(ev, nid):
+        off, size = ev.find_needle(nid)
+        return {iv.to_shard_id_and_offset()[0] for iv in layout.locate_data(
+            ev.large_block, ev.small_block, ev.dat_size, off,
+            types.actual_size(size, ev.version))}
+
+    hedged_dir = node("hedged", range(2, 14))
+    quar_dir = node("quarantined", range(14))
+    with open(os.path.join(quar_dir, "3" + layout.to_ext(2)), "r+b") as f:
+        f.seek(5000)
+        f.write(bytes(128))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        kw = {"device": "cpu"} if dev == "cpu" else {}
+        hs, qs = store.Store([hedged_dir], **kw), store.Store([quar_dir], **kw)
+        hev, qev = hs.get_ec_volume(3), qs.get_ec_volume(3)
+        found = scrub.syndrome_scan(qev)
+        assert [c["shard"] for c in found] == [2]
+        for c in found:
+            qev.quarantine_range(c["shard"], c["offset"], c["size"])
+        hedged = [nid for nid in blobs if shards_of(hev, nid) & {0, 1}][:6]
+        quarantined = [nid for nid in blobs if any(
+            c["offset"] < iv_end and iv_off < c["offset"] + c["size"]
+            for c in found for iv_off, iv_end in _shard_spans(qev, nid, 2))]
+        assert hedged and quarantined
+        reads: dict = {}
+        errors: list = []
+
+        def run(s, nids, reader=None):
+            try:
+                for nid in nids:
+                    reads[nid] = s.read_needle(3, nid, nid,
+                                               shard_reader=reader).data
+            except Exception as e:  # surfaced after join
+                errors.append(e)
+
+        before = gf_cuda.LAUNCHES["gf_apply"]
+        b0 = sum(ev.read_stats_snapshot()["reconstruct_batches"]
+                 for ev in (hev, qev))
+        threads = [threading.Thread(target=run, args=(hs, hedged, reader)),
+                   threading.Thread(target=run, args=(qs, quarantined))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads) and not errors, errors
+        batches = sum(ev.read_stats_snapshot()["reconstruct_batches"]
+                      for ev in (hev, qev)) - b0
+        assert batches >= len(hedged) + len(quarantined)
+        launched = gf_cuda.LAUNCHES["gf_apply"] - before
+        assert launched == (batches if dev == "cuda" else 0)
+        for nid, data in reads.items():
+            assert data == blobs[nid], nid
+        got[dev] = reads
+        time.sleep(0.25)  # the abandoned fetches finish
+        hs.close()
+        qs.close()
+    assert got["cpu"] == got["cuda"]
+
+
+def _shard_spans(ev, nid, shard):
+    """(start, end) shard-file offsets of a needle's intervals on one
+    shard."""
+    from seaweedfs_tpu_torch.storage import types
+    from seaweedfs_tpu_torch.storage.ec import layout
+    off, size = ev.find_needle(nid)
+    out = []
+    for iv in layout.locate_data(ev.large_block, ev.small_block, ev.dat_size,
+                                 off, types.actual_size(size, ev.version)):
+        sid, soff = iv.to_shard_id_and_offset()
+        if sid == shard:
+            out.append((soff, soff + iv.size))
+    return out

@@ -51,12 +51,24 @@ def test_port_imports_no_jax_and_no_reference(path):
             top = name.split(".")[0]
             assert top != "jax" and top != "jaxlib", f"{path}: imports {name}"
             assert top != "seaweedfs_tpu", f"{path}: imports {name}"
+    # the card's path needs none of the servers' packages: none is
+    # imported at module level (security/tls.py imports cryptography
+    # inside generate_certs, which nothing on the card's path calls)
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] \
+                if isinstance(node, ast.Import) else [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in (
+                    "aiohttp", "google", "cryptography"), \
+                    f"{path}: imports {name} at module level"
 
 
 def test_import_rule_covers_the_store_slice():
     files = {str(p.relative_to(REPO)) for p in _port_files()}
     for rel in ("storage/store.py", "storage/backend.py", "remote_storage.py",
-                "storage/volume.py", "storage/needle_map.py"):
+                "storage/volume.py", "storage/needle_map.py",
+                "utils/resilience.py", "utils/http.py", "security/tls.py"):
         assert f"seaweedfs_tpu_torch/{rel}" in files, rel
 
 
@@ -66,8 +78,10 @@ def test_port_path_leaves_jax_unloaded(tmp_path):
     then regenerate a lost MSR shard from helper sub-rows, then encode
     with the native host codec and rebuild a shard host-serial, then boot
     a store, vacuum a volume, encode it, mount its shard set, decode it
-    back after losing two data shards and tier another volume out, all
-    on the CPU, in a fresh interpreter: neither jax nor the reference
+    back after losing two data shards and tier another volume out, then
+    read a needle of that shard set degraded from a loopback peer through
+    PooledHTTP, once plainly and once hedged against the peer's delay,
+    all on the CPU, in a fresh interpreter: neither jax nor the reference
     package gets imported."""
     code = ("import os, sys, numpy as np, torch\n"
             "os.environ.pop('WEEDTPU_EC_CODEC', None)\n"
@@ -167,6 +181,59 @@ def test_port_path_leaves_jax_unloaded(tmp_path):
             "v.tier_move('local', {'directory': os.path.join(d, 'cold')})\n"
             "assert v.read_needle(1).data == b'cold'\n"
             "v.close()\n"
+            "import shutil, threading, time\n"
+            "from http.server import BaseHTTPRequestHandler, "
+            "ThreadingHTTPServer\n"
+            "from seaweedfs_tpu_torch.stats import metrics\n"
+            "from seaweedfs_tpu_torch.utils import http\n"
+            "peer = ec_volume.EcVolume(vb, 1000, 100, device='cpu')\n"
+            "delay = [0.0]\n"
+            "class Peer(BaseHTTPRequestHandler):\n"
+            "    protocol_version = 'HTTP/1.1'\n"
+            "    disable_nagle_algorithm = True\n"
+            "    def do_GET(self):\n"
+            "        q = dict(p.split('=') for p in "
+            "self.path.split('?')[1].split('&'))\n"
+            "        time.sleep(delay[0])\n"
+            "        b = peer._read_local(int(q['shard']), int(q['offset']), "
+            "int(q['size']))\n"
+            "        self.send_response(200)\n"
+            "        self.send_header('Content-Length', str(len(b)))\n"
+            "        self.end_headers()\n"
+            "        self.wfile.write(b)\n"
+            "    def log_message(self, *a):\n"
+            "        pass\n"
+            "srv = ThreadingHTTPServer(('127.0.0.1', 0), Peer)\n"
+            "threading.Thread(target=srv.serve_forever, daemon=True).start()\n"
+            "pool = http.PooledHTTP(timeout=5.0)\n"
+            "url = ('http://127.0.0.1:%d/admin/ec/shard_read?volume=5&'\n"
+            "       'shard=%d&offset=%d&size=%d')\n"
+            "def reader(sid, off, size):\n"
+            "    st, _, b = pool.request(url % (srv.server_address[1], sid, "
+            "off, size))\n"
+            "    return b if st == 200 else None\n"
+            "rd = os.path.join(d, 'reader')\n"
+            "os.makedirs(rd)\n"
+            "for ext in ['.ecx', '.vif'] + ['.ec%02d' % i for i in "
+            "range(2, 14)]:\n"
+            "    shutil.copy(vb + ext, os.path.join(rd, '5' + ext))\n"
+            "ev = ec_volume.EcVolume(os.path.join(rd, '5'), 1000, 100, "
+            "device='cpu')\n"
+            "nid = int(ev.ids[0])\n"
+            "want = peer.read_needle(nid).data\n"
+            "os.environ['WEEDTPU_HEDGE_PCT'] = '0'\n"
+            "assert ev.read_needle(nid, reader).data == want\n"
+            "assert ev.read_stats['remote_shard_reads'] > 0\n"
+            "assert ev.read_stats['reconstruct_batches'] == 0\n"
+            "os.environ['WEEDTPU_HEDGE_PCT'] = '99'\n"
+            "os.environ['WEEDTPU_HEDGE_MAX_MS'] = '50'\n"
+            "delay[0] = 0.2\n"
+            "assert ev.read_needle(nid, reader).data == want\n"
+            "assert metrics.HEDGE_TOTAL.labels('hedge_won').value == 1\n"
+            "assert ev.read_stats['reconstruct_batches'] == 1\n"
+            "time.sleep(0.3)\n"
+            "srv.shutdown()\n"
+            "pool.close()\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('seaweedfs_tpu.') for m in sys.modules), "
             "sorted(m for m in sys.modules if 'jax' in m)\n")

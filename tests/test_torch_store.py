@@ -126,12 +126,43 @@ def test_store_boot_over_shards_needs_the_card(tmp_path, no_card):
     s.close()
 
 
-def test_store_read_needle_takes_no_shard_reader(tmp_path):
-    s = store.Store([str(tmp_path / "n")], device="cpu")
-    s.allocate_volume(1)
-    with pytest.raises(TypeError):
-        s.read_needle(1, 1, shard_reader=lambda *a: b"")
-    s.close()
+def test_store_read_needle_takes_no_shard_reader(tmp_path, ref_codec):
+    """`Store.read_needle` hands its `shard_reader` to the EC volume, as
+    the reference's does: with shard 0 moved to a peer (the node's
+    volume is small enough to sit in shard 0's first block), every
+    needle comes from the peer's copy instead of a reconstruction, and every
+    read and the engine's counters equal the reference store's over the
+    same node and reader."""
+    d = _node(str(tmp_path / "n"))
+    blobs = _blobs(2, 40)
+    peer = _write(Volume, needle, str(tmp_path / "peer"), 2, blobs,
+                  collection="pics")
+    _encode_port(peer)
+    with open(peer + layout.to_ext(0), "rb") as f:
+        shard0 = f.read()
+    os.remove(os.path.join(d, "pics_2" + layout.to_ext(0)))
+    asked = []
+
+    def reader(sid, off, size):
+        asked.append(sid)
+        return shard0[off:off + size] if sid == 0 else None
+
+    mine = store.Store([d], device="cpu")
+    ref = ref_store.Store([d])
+    try:
+        for nid, (cookie, data) in blobs.items():
+            got = mine.read_needle(2, nid, cookie, shard_reader=reader)
+            want = ref_codec(ref.read_needle, 2, nid, cookie,
+                             shard_reader=reader)
+            assert got.data == want.data == data, nid
+        stats = mine.get_ec_volume(2).read_stats_snapshot()
+        assert stats == ref.get_ec_volume(2).read_stats_snapshot()
+        assert stats["remote_shard_reads"] > 0
+        assert stats["reconstruct_batches"] == 0
+        assert set(asked) == {0}
+    finally:
+        mine.close()
+        ref.close()
 
 
 # ---- boot, lookup and the heartbeat -------------------------------------
