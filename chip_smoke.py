@@ -95,7 +95,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                fails; then phase 7's four volumes converted with the
                submission batcher (the default WEEDTPU_EC_FLUSH_BYTES)
                and without it (=1, a flush per unit), each arm in a child
-               process of its own, interleaved A B A B A B, every shard
+               process of its own, interleaved A B A B, every shard
                set sha256-equal across runs and the phase-3 volume's to
                phase 4's; launches zeroed before the phase (the children
                report theirs) and held against the layout's count
@@ -161,20 +161,44 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                (ThreadingHTTPServer on loopback), the reader a stand-in
                of its shard reader (a static table, the port's
                PooledHTTP): (1) A holds 4-13, B 0-3, every needle on 0-3
-               read; (2) A 2-13, B 0-1 answering 0.35 s late, 32 needles
-               (drawn from those whose bytes on 0-1 fit 1/32 of the
+               read; (2) A 2-13, B 0-1 answering 0.35 s late, 16 needles
+               (drawn from those whose bytes on 0-1 fit 1/16 of the
                reconstruction LRU) with hedging off, then on
                (WEEDTPU_HEDGE_PCT=99, WEEDTPU_HEDGE_MAX_MS=100); (3) the
-               32 again from the LRU; (4) 8 needles on 0 and 1 from a
+               16 again from the LRU; (4) 8 needles on 0 and 1 from a
                node holding 2-10, rescued by the abandoned fetches; (5) B
-               down: the 32 reconstructed, B's breaker open; (6) 128
+               down: the 16 reconstructed, B's breaker open; (6) 128
                bytes of shard 2 flipped, found by syndrome_scan,
                quarantined, the needles over it read, restored; (7)
                skip_shards={0} on 16 needles; (8) step 1's needles in 8
                threads, B up, then down; K1 per step against its
                prediction, the hedge counters, rates and latencies, and
                whether aiohttp, google.protobuf and cryptography import
- 16 report     {"kernels": [...]} line, the card's name and power limit,
+ 16 server     two port VolumeServers (A, B) on the card, in process on
+               one event-loop thread, behind a master stand-in taking
+               protobuf heartbeats and answering /dir/lookup and
+               /dir/ec/lookup; driven over loopback HTTP: (1) the
+               phase-3 volume (a copy taken before phase 14) mounted on
+               A with /admin/volume/mount, every needle read; (2)
+               /admin/volume/readonly and /admin/ec/generate, polling
+               /admin/ec/progress: shards, .ecx and .vif sha256-equal to
+               phase 4's, K1 == phase 4's; (3) B pulls 7-13 through A's
+               /admin/file, both mount, A drops 7-13 and the volume, the
+               beats show the split; (4) phase 5's losses deleted where
+               they live, every needle read from A, B's shards through
+               A's shard reader and B's /admin/ec/shard_read (hedging
+               off), K1 == needles on lost data shards; (5) the shell's
+               ec.rebuild: A borrows B's survivors, rebuilds (sha256 ==
+               phase 4's, K1 == phase 6's), drops them, mounts; (6) the
+               shell's ec.decode: /admin/ec/to_volume, the .dat sha256 ==
+               phase 3's, every needle read back; (7) 32768 x 1 KiB
+               objects on B at 16 clients (upstream's `weed benchmark`
+               -size 1024 -c 16, cut), written then read, 256 deleted;
+               1024 writes to a 001 volume on A read back from A and B;
+               (8) /metrics on A and B count the blob requests made;
+               launches zeroed before and read after; every line with
+               the card's name and power limit
+ 17 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -183,14 +207,16 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12, 13, 14 and 15, so the reported launches are the paths' own
+around phases 12, 13, 14, 15 and 16, so the reported launches are the
+paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
 (`gf_cuda.STAGED`), since each hands the kernel rows it reads in place,
 and if K2 was not launched.  After phase 13's window, two records: fleet
 against one write_ec_files per volume over the same four volumes (fleet,
 serial, serial, fleet), and rebuild_ec_files of phase 9's single loss;
-then phases 14 and 15.
+then phases 14, 15 and 16 (phase 16 on a copy of the phase-3 volume
+taken before phase 14, whose appends go through links of it).
 Needs one CUDA card; exits non-zero without one, and outside a checkout
 of the repository.
 """
@@ -2043,7 +2069,7 @@ def phase_writer(vdir: str, dat_path: str, hashes: list[str],
                       for p in srcs)
     fleet_launches = -(-fleet_units // fleet_convert.UNIT_BATCH)
     card_arms = sum(a[1] == "cuda" for a in arms)
-    repeats = 3
+    repeats = 2  # cut from 3: the script's time (PERF §4)
     want = {"gf_apply": repeats * card_arms *
             (units + chunks * row_blocks(len(lost))),
             "gf_apply_batch": 2 * (repeats * fleet_launches + 1)}
@@ -2991,13 +3017,15 @@ def phase_store(vdir: str, dat_path: str, expect: dict, blob: bytes,
 # through the port's PooledHTTP, so the breaker gate, the deadline and
 # the trace and class headers run on the card's host.
 REMOTE_SLOW_S = 0.35  # step 2's slow peer
-REMOTE_HEDGED = 32  # step 2's needles, read again in steps 3 and 5
+# step 2's needles, read again in steps 3 and 5; cut from 32 for the
+# script's time (PERF §4)
+REMOTE_HEDGED = 16
 REMOTE_RESCUED = 8  # step 4's
 REMOTE_SKIPPED = 16  # step 7's
 REMOTE_THREADS = 8  # step 8's
 # the reconstruction LRU's default budget (ec_volume.RECONSTRUCT_CACHE_
 # BYTES): step 2's needles are drawn among those whose bytes on shards 0
-# and 1 fit 1/32 of it, so that step 3 finds all 32 in the cache
+# and 1 fit 1/16 of it, so that step 3 finds all 16 in the cache
 REMOTE_LRU_SHARE = 8 * MIB // REMOTE_HEDGED
 
 
@@ -3619,6 +3647,600 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
     return out
 
 
+# phase 16's volume server.  The master stand-in is scaffolding, as phase
+# 9's helpers and phase 15's peers are, until the master comes (ROADMAP
+# 1.18a): it takes /heartbeat in protobuf, decoded with the port's pb,
+# and answers /dir/lookup and /dir/ec/lookup from each node's latest beat,
+# in the reference master's shapes (seaweedfs_tpu/server/master.py
+# handle_lookup, handle_ec_lookup).
+SERVER_LOSSES = (0, 3, 10, 12)  # phase 5's
+SERVER_A_SHARDS = tuple(range(7))  # the spread: A 0-6, B 7-13
+# upstream's `weed benchmark` defaults (-size 1024 -c 16; SeaweedFS
+# README, weed/command/benchmark.go), cut from -n 1048576
+SERVER_SMALL = 32768
+SERVER_SMALL_SIZE = 1024
+SERVER_CLIENTS = 16
+SERVER_REPLICATED = 1024
+SERVER_DELETES = 256
+
+
+class MasterStandIn:
+    """The master's heartbeat intake and lookups, on the servers' loop."""
+
+    def __init__(self):
+        self.beats: dict = {}  # node url -> its latest decoded beat
+        self.framing = {"pb": 0, "json": 0}
+
+    def app(self):
+        from aiohttp import web
+        app = web.Application()
+        app.add_routes([web.post("/heartbeat", self.heartbeat),
+                        web.get("/dir/lookup", self.lookup),
+                        web.get("/dir/ec/lookup", self.ec_lookup)])
+        return app
+
+    async def heartbeat(self, req):
+        from aiohttp import web
+        from seaweedfs_tpu_torch import pb
+        raw = await req.read()
+        if req.headers.get("Content-Type") == pb.CONTENT_TYPE:
+            beat = pb.heartbeat_from_bytes(raw)
+            self.framing["pb"] += 1
+        else:
+            beat = json.loads(raw)
+            self.framing["json"] += 1
+        self.beats[beat["url"]] = beat
+        return web.json_response({"volume_size_limit": 30 << 30})
+
+    async def lookup(self, req):
+        from aiohttp import web
+        vid = int(req.query.get("volumeId", "0"))
+        locs = [{"url": u, "publicUrl": b["public_url"]}
+                for u, b in sorted(self.beats.items())
+                if any(v["id"] == vid for v in b["volumes"])]
+        if not locs:
+            return web.json_response({"error": "volume id not found"},
+                                     status=404)
+        return web.json_response({"volumeId": str(vid), "locations": locs})
+
+    async def ec_lookup(self, req):
+        from aiohttp import web
+        vid = int(req.query.get("volumeId", "0"))
+        shards: dict = {}
+        for u, b in sorted(self.beats.items()):
+            for e in b["ec_shards"]:
+                if e["id"] == vid:
+                    for s in e["shard_ids"]:
+                        shards.setdefault(str(s), []).append(
+                            {"url": u, "publicUrl": b["public_url"],
+                             "dc": b["data_center"], "rack": b["rack"]})
+        if not shards:
+            return web.json_response({"error": "not an ec volume"},
+                                     status=404)
+        return web.json_response({"volumeId": vid, "shards": shards})
+
+    def ec_split(self, vid: int) -> dict:
+        return {u: sorted(s for e in b["ec_shards"] if e["id"] == vid
+                          for s in e["shard_ids"])
+                for u, b in sorted(self.beats.items())}
+
+
+def server_latency(ts: list[float]) -> dict:
+    ts = sorted(ts)
+    return {"p50_s": ts[len(ts) // 2], "p99_s": ts[min(len(ts) - 1,
+                                                        len(ts) * 99 // 100)],
+            "max_s": ts[-1], "n": len(ts)}
+
+
+def small_objects(seed: int):
+    """Step 7's objects: (payload of SERVER_SMALL x SERVER_SMALL_SIZE
+    bytes, one cookie each), from the seed, the same in the parent and in
+    the clients' child."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 16)
+    payload = rng.bytes(SERVER_SMALL * SERVER_SMALL_SIZE)
+    return payload, rng.integers(0, 1 << 32, SERVER_SMALL).tolist()
+
+
+def small_clients(url: str, vid: int, seed: int) -> int:
+    """Child of phase 16's step 7, a process of its own as upstream's
+    `weed benchmark` is: SERVER_CLIENTS threads write then read the
+    SERVER_SMALL objects of `small_objects(seed)` on volume `vid` at
+    `url` through the port's PooledHTTP, every read byte-equal; answers
+    one JSON line of rates and latencies."""
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.utils import http
+
+    payload, cookies = small_objects(seed)
+    client = http.PooledHTTP(timeout=120.0,
+                             max_idle_per_host=SERVER_CLIENTS)
+    fids = [str(t.FileId(vid, i + 1, cookies[i]))
+            for i in range(SERVER_SMALL)]
+
+    def body(i: int) -> bytes:
+        return payload[i * SERVER_SMALL_SIZE:(i + 1) * SERVER_SMALL_SIZE]
+
+    def put(i: int) -> None:
+        st, _, _ = client.request(f"http://{url}/{fids[i]}", method="PUT",
+                                  body=body(i))
+        if st != 201:
+            raise AssertionError(f"small write {i}: HTTP {st}")
+
+    def get(i: int) -> None:
+        st, _, raw = client.request(f"http://{url}/{fids[i]}")
+        if st != 200 or raw != body(i):
+            raise AssertionError(f"small read {i}: HTTP {st}")
+
+    def fan(fn) -> tuple[list[float], float]:
+        ts: list = [[] for _ in range(SERVER_CLIENTS)]
+        errors: list = []
+
+        def worker(c: int) -> None:
+            try:
+                for i in range(c, SERVER_SMALL, SERVER_CLIENTS):
+                    t0 = time.perf_counter()
+                    fn(i)
+                    ts[c].append(time.perf_counter() - t0)
+            except Exception as e:  # surfaced after the join
+                errors.append(e)
+        threads = [threading.Thread(target=worker, args=(c,))
+                   for c in range(SERVER_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        dt = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        return [x for c in ts for x in c], dt
+
+    wts, wdt = fan(put)
+    rts, rdt = fan(get)
+    client.close()
+    print(json.dumps({"writes_per_s": SERVER_SMALL / wdt,
+                      "write": server_latency(wts),
+                      "reads_per_s": SERVER_SMALL / rdt,
+                      "read": server_latency(rts)}), flush=True)
+    return 0
+
+
+def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
+                 hashes: list[str], aux_hashes: dict, dat_hash: str,
+                 encode_k1: int, rebuild_k1: int, seed: int,
+                 launches: dict, device=None) -> dict:
+    """Phase 16: two port volume servers on the card, in process on one
+    event-loop thread behind a master stand-in, driven over loopback HTTP
+    as the reference shell and clients drive them: mount the phase-3
+    volume, encode it, spread the shards, read degraded, rebuild, decode,
+    small objects, replicated writes, /metrics.  K1 per step held
+    against its prediction, every byte against phases 3, 4 and 6."""
+    import asyncio
+
+    import aiohttp
+    from aiohttp import web
+    from google import protobuf
+    from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.stats import metrics
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.utils import http, resilience
+
+    card = card_name_power()
+
+    def slog(msg: str) -> None:
+        log(f"[server] {msg} [{card}]")
+
+    def free_port() -> int:
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    work = os.path.join(vdir, "server")
+    dirs = [os.path.join(work, n) for n in ("a", "b")]
+    for d in dirs:
+        os.makedirs(d)
+    vid = int(os.path.basename(src_base))
+    out: dict = {"card": card, "aiohttp": aiohttp.__version__,
+                 "protobuf": protobuf.__version__}
+    slog(f"aiohttp {aiohttp.__version__}, protobuf {protobuf.__version__}; "
+         f"the one-write response path "
+         f"{'probed' if vsmod._ser_headers is not None else 'unavailable'}")
+    loop = asyncio.new_event_loop()
+    loop_thread = threading.Thread(target=loop.run_forever, daemon=True)
+    loop_thread.start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(600)
+
+    standin = MasterStandIn()
+    runner = None
+    servers: list = []
+    client = http.PooledHTTP(timeout=120.0, max_idle_per_host=64)
+    requests = {"read": 0, "write": 0, "delete": 0}
+    steps: dict = {}
+    k1: dict = {}
+    t_phase = time.perf_counter()
+
+    def call(url: str, path: str, body=None, method=None,
+             data=None) -> tuple[int, bytes]:
+        hdrs = {}
+        if body is not None:
+            data = json.dumps(body).encode()
+            hdrs["Content-Type"] = "application/json"
+        st, _, raw = client.request(
+            f"http://{url}{path}",
+            method=method or ("POST" if data is not None else "GET"),
+            body=data, headers=hdrs)
+        return st, raw
+
+    def admin(url: str, path: str, body=None) -> dict:
+        st, raw = call(url, path, body)
+        if st != 200:
+            raise AssertionError(f"{url}{path}: HTTP {st} {raw[:300]!r}")
+        return json.loads(raw) if raw else {}
+
+    def blob_get(url: str, fid: str) -> bytes:
+        st, raw = call(url, "/" + fid)
+        requests["read"] += 1
+        if st != 200:
+            raise AssertionError(f"GET {url}/{fid}: HTTP {st}")
+        return raw
+
+    def needle_fid(nid: int) -> str:
+        return str(t.FileId(vid, nid, expect[nid][0]))
+
+    def read_needles(url: str, label: str) -> tuple[list[float], float]:
+        """Every needle, byte-equal, at SERVER_CLIENTS clients: (each
+        read's seconds, the wall)."""
+        nids = list(expect)
+        ts: list = [[] for _ in range(SERVER_CLIENTS)]
+        errors: list = []
+
+        def worker(c: int) -> None:
+            try:
+                for nid in nids[c::SERVER_CLIENTS]:
+                    cookie, lo, hi = expect[nid]
+                    t0 = time.perf_counter()
+                    st, raw = call(url, "/" + needle_fid(nid))
+                    ts[c].append(time.perf_counter() - t0)
+                    if st != 200 or raw != blob[lo:hi]:
+                        raise AssertionError(f"{label}: needle {nid} "
+                                             f"differs (HTTP {st})")
+            except Exception as e:  # surfaced after the join
+                errors.append(e)
+        threads = [threading.Thread(target=worker, args=(c,))
+                   for c in range(SERVER_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        dt = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        requests["read"] += len(nids)
+        return [x for c in ts for x in c], dt
+
+    def k1_step(name: str, k0: int, want: int) -> None:
+        got = launches["gf_apply"] - k0
+        k1[name] = got
+        if got != want:
+            raise AssertionError(f"phase 16 {name}: K1 launched {got}, "
+                                 f"predicted {want}")
+
+    try:
+        mport = free_port()
+        runner = web.AppRunner(standin.app())
+        run(runner.setup())
+        run(web.TCPSite(runner, "127.0.0.1", mport).start())
+        for d in dirs:
+            # device left at its default (None): the card
+            vs = vsmod.VolumeServer([d], f"127.0.0.1:{mport}", "127.0.0.1",
+                                    free_port(), heartbeat_interval=1.0,
+                                    device=device)
+            run(vs.start())
+            servers.append(vs)
+        a, b = servers
+        slog(f"servers A {a.url} and B {b.url} on {a.device}")
+        base_a = os.path.join(dirs[0], str(vid))
+        base_b = os.path.join(dirs[1], str(vid))
+        one_shot0 = dict(vsmod.ONE_SHOT)
+        counter0 = {k: metrics.VOLUME_REQUEST_COUNTER.labels(k).value
+                    for k in requests}
+        dat_size = os.path.getsize(src_base + ".dat")
+
+        # 1 mount the phase-3 volume (a copy taken before phase 14) on A
+        k0 = launches["gf_apply"]
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(src_base + ext, base_a + ext)
+        admin(a.url, "/admin/volume/mount", {"volume": vid})
+        ts, dt = read_needles(a.url, "mounted read")
+        k1_step("1 mount", k0, 0)
+        steps["1 mount"] = {"reads": len(ts), "s": dt,
+                            "reads_per_s": len(ts) / dt,
+                            "gbps": len(blob) / dt / 1e9, **server_latency(ts)}
+        slog(f"1 mount: {len(ts)} needles over HTTP from the mounted "
+             f"volume at {SERVER_CLIENTS} clients, {len(ts) / dt:.1f} "
+             f"reads/s, "
+             f"{len(blob) / dt / 1e9:.3f} GB/s, p50 "
+             f"{steps['1 mount']['p50_s'] * 1e3:.2f} ms; K1 0")
+
+        # 2 encode: readonly, generate, /admin/ec/progress polled
+        k0 = launches["gf_apply"]
+        admin(a.url, "/admin/volume/readonly", {"volume": vid})
+        polls: list = []
+        result: dict = {}
+
+        def generate():
+            result["reply"] = admin(a.url, "/admin/ec/generate",
+                                    {"volume": vid})
+        gen = threading.Thread(target=generate)
+        t0 = time.perf_counter()
+        gen.start()
+        while gen.is_alive():
+            st, raw = call(a.url, f"/admin/ec/progress?volumeId={vid}")
+            if st == 200:
+                polls.append(json.loads(raw)["bytes_done"])
+            time.sleep(0.02)
+        gen.join()
+        dt = time.perf_counter() - t0
+        if result.get("reply") != {"shards": list(range(14)),
+                                   "codec": "rs_10_4"}:
+            raise AssertionError(f"generate: {result.get('reply')}")
+        prog = admin(a.url, f"/admin/ec/progress?volumeId={vid}")
+        if prog["state"] != "done" or prog["bytes_done"] != dat_size:
+            raise AssertionError(f"progress after generate: {prog}")
+        if polls != sorted(polls):
+            raise AssertionError(f"progress went backwards: {polls}")
+        k1_step("2 encode", k0, encode_k1)
+        for i in range(14):
+            if sha256(base_a + layout.to_ext(i)) != hashes[i]:
+                raise AssertionError(f"server shard {i} differs from "
+                                     f"phase 4's")
+        for ext, want in aux_hashes.items():
+            if sha256(base_a + ext) != want:
+                raise AssertionError(f"server {ext} differs from phase 4's")
+        steps["2 encode"] = {"s": dt, "gbps": dat_size / dt / 1e9,
+                             "progress_polls": len(polls),
+                             "stages_s": {k: v for k, v in
+                                          prog["stages"].items()
+                                          if k.endswith("_s")}}
+        slog(f"2 encode: {dat_size / dt / 1e9:.3f} GB/s of .dat through "
+             f"/admin/ec/generate ({dt:.3f} s, {len(polls)} progress polls); "
+             f"14 shards, .ecx and .vif sha256 == phase 4's; K1 "
+             f"{k1['2 encode']} == phase 4's")
+
+        # 3 spread: B pulls 7-13 through A's /admin/file; both mount; A
+        # drops its copies of 7-13 and the volume
+        k0 = launches["gf_apply"]
+        moved = [i for i in range(14) if i not in SERVER_A_SHARDS]
+        t0 = time.perf_counter()
+        admin(b.url, "/admin/ec/copy", {"volume": vid, "source": a.url,
+                                        "shards": moved, "copy_ecx": True})
+        dt_copy = time.perf_counter() - t0
+        admin(b.url, "/admin/ec/mount", {"volume": vid})
+        admin(a.url, "/admin/ec/mount", {"volume": vid})
+        admin(a.url, "/admin/ec/delete_shards", {"volume": vid,
+                                                  "shards": moved})
+        admin(a.url, "/admin/volume/delete", {"volume": vid})
+        split = standin.ec_split(vid)
+        if split != {a.url: list(SERVER_A_SHARDS), b.url: moved}:
+            raise AssertionError(f"the beats show {split}")
+        if any(v["id"] == vid for v in standin.beats[a.url]["volumes"]):
+            raise AssertionError("A still beats the deleted volume")
+        k1_step("3 spread", k0, 0)
+        copied = sum(os.path.getsize(base_b + layout.to_ext(i))
+                     for i in moved)
+        steps["3 spread"] = {"copied_bytes": copied, "copy_s": dt_copy,
+                             "copy_gbps": copied / dt_copy / 1e9,
+                             "split": split}
+        slog(f"3 spread: {copied} B of shards pulled by B through A's "
+             f"/admin/file in {dt_copy:.3f} s "
+             f"({copied / dt_copy / 1e9:.3f} GB/s); the beats show A "
+             f"{split[a.url]}, B {split[b.url]}; K1 0")
+
+        # 4 degraded reads: phase 5's losses deleted where they live; A
+        # reads every needle, B's shards through A's _shard_reader and
+        # B's /admin/ec/shard_read.  Hedging off, so K1 is one launch per
+        # needle on a lost data shard (a hedge would add reconstructs)
+        admin(a.url, "/admin/ec/delete_shards",
+              {"volume": vid, "shards": [s for s in SERVER_LOSSES
+                                         if s in SERVER_A_SHARDS]})
+        admin(b.url, "/admin/ec/delete_shards",
+              {"volume": vid, "shards": [s for s in SERVER_LOSSES
+                                         if s not in SERVER_A_SHARDS]})
+        ev = a.store.get_ec_volume(vid)
+        lost_data = {s for s in SERVER_LOSSES if s < layout.DATA_SHARDS}
+        touching = [nid for nid in expect
+                    if any(s in lost_data for s, _, _ in intervals(ev, nid))]
+        resilience.reset_latency_trackers()
+        resilience.reset_breakers()
+        k0 = launches["gf_apply"]
+        s0 = ev.read_stats_snapshot()
+        with scoped_env(WEEDTPU_HEDGE_PCT="0"):
+            ts, dt = read_needles(a.url, "degraded read")
+        grew = {k: v - s0[k] for k, v in ev.read_stats_snapshot().items()}
+        k1_step("4 degraded", k0, len(touching))
+        if grew["reconstruct_batches"] != len(touching):
+            raise AssertionError(f"reconstruct batches {grew}, "
+                                 f"predicted {len(touching)}")
+        if grew["remote_shard_reads"] <= 0:
+            raise AssertionError("no shard came from B")
+        steps["4 degraded"] = {"reads": len(ts), "touching_lost":
+                               len(touching), "s": dt,
+                               "reads_per_s": len(ts) / dt, **server_latency(ts),
+                               "read_stats": grew}
+        slog(f"4 degraded: {len(ts)} needles equal at {SERVER_CLIENTS} "
+             f"clients, "
+             f"{len(ts) / dt:.1f} reads/s, p50 "
+             f"{steps['4 degraded']['p50_s'] * 1e3:.2f} ms, max "
+             f"{steps['4 degraded']['max_s'] * 1e3:.2f} ms; remote shard "
+             f"reads {grew['remote_shard_reads']}, reconstruct batches "
+             f"{grew['reconstruct_batches']}; K1 {k1['4 degraded']} == "
+             f"needles on shards {sorted(lost_data)}")
+
+        # 5 rebuild, as the shell's ec.rebuild: A borrows B's survivors,
+        # rebuilds, drops the borrowed shards and mounts
+        k0 = launches["gf_apply"]
+        borrowed = [s for s in moved if s not in SERVER_LOSSES]
+        admin(a.url, "/admin/ec/copy", {"volume": vid, "source": b.url,
+                                        "shards": borrowed,
+                                        "copy_ecx": False})
+        t0 = time.perf_counter()
+        reply = admin(a.url, "/admin/ec/rebuild", {"volume": vid})
+        dt = time.perf_counter() - t0
+        if sorted(reply["rebuilt"]) != list(SERVER_LOSSES):
+            raise AssertionError(f"rebuilt {reply}")
+        for i in SERVER_LOSSES:
+            if sha256(base_a + layout.to_ext(i)) != hashes[i]:
+                raise AssertionError(f"rebuilt shard {i} differs from "
+                                     f"phase 4's")
+        admin(a.url, "/admin/ec/delete_shards", {"volume": vid,
+                                                  "shards": borrowed})
+        admin(a.url, "/admin/ec/mount", {"volume": vid})
+        k1_step("5 rebuild", k0, rebuild_k1)
+        shard_size = os.path.getsize(base_a + layout.to_ext(0))
+        steps["5 rebuild"] = {"s": dt, "read_gbps":
+                              10 * shard_size / dt / 1e9}
+        slog(f"5 rebuild: shards {list(SERVER_LOSSES)} sha256 == phase "
+             f"4's in {dt:.3f} s ({10 * shard_size / dt / 1e9:.3f} GB/s "
+             f"of survivors read); K1 {k1['5 rebuild']} == phase 6's")
+
+        # 6 decode, as the shell's ec.decode: A collects B's shards and
+        # decodes; every shard then unmounted and deleted on both
+        k0 = launches["gf_apply"]
+        admin(a.url, "/admin/ec/copy", {"volume": vid, "source": b.url,
+                                        "shards": borrowed,
+                                        "copy_ecx": False})
+        t0 = time.perf_counter()
+        admin(a.url, "/admin/ec/to_volume", {"volume": vid})
+        dt = time.perf_counter() - t0
+        if sha256(base_a + ".dat") != dat_hash:
+            raise AssertionError("decoded .dat differs from phase 3's")
+        for url in (a.url, b.url):
+            admin(url, "/admin/ec/unmount", {"volume": vid})
+            admin(url, "/admin/ec/delete_shards",
+                  {"volume": vid, "shards": list(range(14))})
+        ts, dt_read = read_needles(a.url, "decoded read")
+        k1_step("6 decode", k0, 0)
+        steps["6 decode"] = {"s": dt, "gbps": dat_size / dt / 1e9,
+                             "reads_per_s": len(ts) / dt_read}
+        slog(f"6 decode: .dat sha256 == phase 3's in {dt:.3f} s "
+             f"({dat_size / dt / 1e9:.3f} GB/s); {len(ts)} needles read "
+             f"back from the normal volume, {len(ts) / dt_read:.1f} "
+             f"reads/s at {SERVER_CLIENTS} clients; K1 0")
+
+        # 7 small objects on B at 16 clients; then a 001 volume on A and
+        # B, every acknowledged write read back from both
+        k0 = launches["gf_apply"]
+        small_vid, repl_vid = vid + 1, vid + 2
+        admin(b.url, "/admin/assign_volume", {"volume": small_vid})
+        payload, cookies = small_objects(seed)
+        fids = [str(t.FileId(small_vid, i + 1, cookies[i]))
+                for i in range(SERVER_SMALL)]
+
+        def body(i: int) -> bytes:
+            return payload[i * SERVER_SMALL_SIZE:(i + 1) * SERVER_SMALL_SIZE]
+
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--small-clients",
+             b.url, str(small_vid), "--seed", str(seed)],
+            capture_output=True, text=True, timeout=900)
+        if child.returncode != 0:
+            raise AssertionError(f"small-object clients failed:\n"
+                                 f"{child.stderr[-3000:]}")
+        small = json.loads(child.stdout.strip().splitlines()[-1])
+        requests["write"] += SERVER_SMALL
+        requests["read"] += SERVER_SMALL
+        for i in range(SERVER_DELETES):
+            st, _ = call(b.url, "/" + fids[i], method="DELETE")
+            if st != 200:
+                raise AssertionError(f"delete {fids[i]}: HTTP {st}")
+        requests["delete"] += SERVER_DELETES
+        steps["7 small"] = {"writes": SERVER_SMALL,
+                            "clients": SERVER_CLIENTS, **small}
+        for url in (a.url, b.url):
+            admin(url, "/admin/assign_volume",
+                  {"volume": repl_vid, "replication": "001"})
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            st, raw = call(f"127.0.0.1:{mport}",
+                           f"/dir/lookup?volumeId={repl_vid}")
+            if st == 200 and len(json.loads(raw)["locations"]) == 2:
+                break
+            time.sleep(0.1)
+        else:
+            raise AssertionError("the 001 volume never showed on both")
+        repl = {str(t.FileId(repl_vid, i + 1, cookies[i])): body(i)
+                for i in range(SERVER_REPLICATED)}
+        for f, data in repl.items():
+            st, _, _ = client.request(f"http://{a.url}/{f}", method="PUT",
+                                      body=data)
+            if st != 201:
+                raise AssertionError(f"replicated write {f}: HTTP {st}")
+        # A's writes, and the fan-out writes B received
+        requests["write"] += 2 * SERVER_REPLICATED
+        for url in (a.url, b.url):
+            for f, data in repl.items():
+                if blob_get(url, f) != data:
+                    raise AssertionError(f"replica of {f} on {url} "
+                                         f"differs")
+        k1_step("7 small", k0, 0)
+        w, r = steps["7 small"]["write"], steps["7 small"]["read"]
+        slog(f"7 small: {SERVER_SMALL} x {SERVER_SMALL_SIZE} B at "
+             f"{SERVER_CLIENTS} clients in a process of their own: "
+             f"{small['writes_per_s']:.1f} writes/s "
+             f"(p50 {w['p50_s'] * 1e3:.2f} ms, p99 {w['p99_s'] * 1e3:.2f} "
+             f"ms), {small['reads_per_s']:.1f} reads/s (p50 "
+             f"{r['p50_s'] * 1e3:.2f} ms, p99 {r['p99_s'] * 1e3:.2f} ms); "
+             f"{SERVER_REPLICATED} writes to a 001 volume read back from "
+             f"both servers; K1 0")
+
+        # 8 /metrics: both servers share this process's registry, so
+        # each scrape counts both servers' blob requests
+        scraped = []
+        for url in (a.url, b.url):
+            st, raw = call(url, "/metrics")
+            if st != 200:
+                raise AssertionError(f"{url}/metrics: HTTP {st}")
+            got = {}
+            for line in raw.decode().splitlines():
+                for k in requests:
+                    if line.startswith("weedtpu_volume_request_total"
+                                       f'{{type="{k}"}} '):
+                        got[k] = float(line.split()[-1]) - counter0[k]
+            scraped.append(got)
+        if scraped[0] != scraped[1] or scraped[0] != \
+                {k: float(v) for k, v in requests.items()}:
+            raise AssertionError(f"/metrics counted {scraped}, the "
+                                 f"requests made {requests}")
+        one_shot = {k: vsmod.ONE_SHOT[k] - one_shot0[k]
+                    for k in one_shot0}
+        steps["8 metrics"] = {"requests": dict(requests),
+                              "one_shot": one_shot}
+        slog(f"8 metrics: /metrics on A and B count {requests} (the "
+             f"requests made); responses in one write {one_shot}")
+        if standin.framing["json"]:
+            raise AssertionError(f"beats framed {standin.framing}")
+        out["beats"] = dict(standin.framing)
+    finally:
+        for vs in servers:
+            run(vs.stop())
+        if runner is not None:
+            run(runner.cleanup())
+        loop.call_soon_threadsafe(loop.stop)
+        loop_thread.join(10)
+        client.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out.update({"steps": steps, "k1": k1, "s": time.perf_counter() - t_phase,
+                "launches": dict(launches)})
+    slog(f"K1 per step {k1}; {standin.framing['pb']} beats, all protobuf; "
+         f"phase wall {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3626,12 +4248,19 @@ def main(argv=None) -> int:
                     help="volume .dat size (default 1 GiB)")
     ap.add_argument("--fleet-worker", action="store_true",
                     help=argparse.SUPPRESS)  # phase 12's child
+    ap.add_argument("--small-clients", nargs=2, metavar=("URL", "VID"),
+                    help=argparse.SUPPRESS)  # phase 16's child
     ap.add_argument("--trace-dir", default=None,
                     help="keep phase 13's torch.profiler trace (Chrome "
                          "JSON) in this directory")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
+    if args.small_clients:
+        # the clients need no card: the server they load holds it
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return small_clients(args.small_clients[0],
+                             int(args.small_clients[1]), args.seed)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs on the card",
@@ -3717,6 +4346,7 @@ def main(argv=None) -> int:
                 f"/ device wait {c['device_s']:.3f} s / d2h "
                 f"{c['d2h_s']:.3f} s")
         hashes = [sha256(p) for p in shard]
+        aux_hashes = {ext: sha256(base + ext) for ext in (".ecx", ".vif")}
 
         # 5 degraded read
         lost = [0, 3, 10, 12]
@@ -3867,8 +4497,16 @@ def main(argv=None) -> int:
         phases["fleet_record"] = fleet_record(vdir, srcs)
         phases["rebuild_record"] = rebuild_record(vdir, base, hashes)
 
-        # 14 store, counted on its own; last, since its appends and
-        # deletes go through hard links of the phase-3 volume
+        # phase 16 mounts the phase-3 volume as phase 4 encoded it: a
+        # copy, taken before phase 14 appends through links of it
+        server_src = os.path.join(vdir, "server_src", os.path.basename(base))
+        os.makedirs(os.path.dirname(server_src))
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(base + ext, server_src + ext)
+        dat_hash = sha256(server_src + ".dat")
+
+        # 14 store, counted on its own; its appends and deletes go
+        # through hard links of the phase-3 volume
         gf_cuda.reset_launches()
         phases["store"] = phase_store(vdir, dat_path, expect, blob,
                                       args.seed, launches)
@@ -3896,10 +4534,26 @@ def main(argv=None) -> int:
             f"{staged}")
         path_launches = {k: path_launches[k] + remote_launches[k]
                          for k in path_launches}
+
+        # 16 volume server, counted on its own
+        gf_cuda.reset_launches()
+        phases["server"] = phase_server(
+            vdir, server_src, expect, blob, hashes, aux_hashes, dat_hash,
+            phases["encode_warm"]["launches"],
+            phases["rebuild_warm"]["launches"], args.seed, launches)
+        server_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the server phase made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        log(f"[path] phase 16: launches {server_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + server_launches[k]
+                         for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 16 report
+    # 17 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -48,20 +48,11 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from seaweedfs_tpu_torch.ops import dispatch
-
-# locality classes, relative to the rebuild target: 0 same node (local
-# disk, free), 1 same rack, 2 same DC / other rack, 3 other DC; the
-# names every repair-byte ledger attributes by
-LOCALITY_NAMES = ("node", "rack", "dc", "remote")
+from seaweedfs_tpu_torch.topology.topology import locality_name
 
 # segment alignment for sub-shard striping: segments smaller than this
 # cost more per-fetch orchestration than the read spread saves
 DEFAULT_SEG_ALIGN = 4 * 1024 * 1024
-
-
-def locality_name(cls: int) -> str:
-    """Clamped locality class -> its ledger label."""
-    return LOCALITY_NAMES[min(max(int(cls), 0), 3)]
 
 
 class HelperDied(IOError):

@@ -1,0 +1,1323 @@
+"""Volume server: the HTTP blob data path and the volume and EC admin.
+
+Counterpart of `seaweedfs_tpu/server/volume_server.py`, cut to the
+serving core that the reference master, shell and clients drive
+(reference: weed/server/volume_server_handlers_write.go, _read.go,
+volume_grpc_erasure_coding.go):
+
+  POST/PUT /{fid}   upload (raw body or multipart); ?type=replicate marks
+                    a forwarded replica write (no re-fan-out)
+  GET/HEAD /{fid}   read; EC volumes are served transparently and a
+                    degraded read reconstructs online on the store's
+                    device, pulling shards it lacks from peers
+  DELETE /{fid}     delete (+ replica fan-out)
+
+and the admin routes behind the shell's `ec.encode`, `ec.rebuild`,
+`ec.decode` and `volume.*` commands: assign, delete, leave, readonly,
+configure_replication, mount, unmount, vacuum; EC generate, progress,
+cancel, rebuild, mount, unmount, delete_shards, copy, to_volume,
+shard_read; and the peer file pull.
+
+Differences from the reference, kept on purpose:
+- `VolumeServer(..., device=None)` resolves its device once, through its
+  `Store` (None: the card, raising without one; "cpu": the plain
+  version), and every codec it builds runs there: the EC volumes it
+  mounts, the encode of `/admin/ec/generate`, the rebuilds of
+  `/admin/ec/rebuild` and `/admin/ec/to_volume`;
+- a rebuild body with `reduced` answers 501 until the repair endpoint
+  comes (ROADMAP 1.15c); the master's repair then heals by its naive
+  path of survivor copies;
+- `weedtpu_ec_encode_bytes_total` labels an encode by the store's device
+  type ("cuda", "cpu") where the reference writes "tpu".
+
+Routes this slice leaves out (volume copy and move, unconvert, tiering,
+needles, query, recode, probe_read, partial, scrub, faults, fleet
+conversion, `/heat`, `/perf`, `/debug/*`) are not registered and answer
+aiohttp's 404 (ROADMAP 1.15a.3b, 1.15b, 1.15c).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+import threading
+import time
+
+import aiohttp
+from aiohttp import web
+
+from seaweedfs_tpu_torch import pb
+from seaweedfs_tpu_torch.ops import codecs
+from seaweedfs_tpu_torch.security import jwt as sjwt
+from seaweedfs_tpu_torch.security import tls
+from seaweedfs_tpu_torch.stats import heat, metrics, netflow, trace
+from seaweedfs_tpu_torch.storage import needle as ndl
+from seaweedfs_tpu_torch.storage import types as t
+from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+from seaweedfs_tpu_torch.storage.ec import ec_volume as ecv
+from seaweedfs_tpu_torch.storage.store import Store
+from seaweedfs_tpu_torch.storage.volume import Volume
+from seaweedfs_tpu_torch.topology.topology import locality_class
+from seaweedfs_tpu_torch.utils import resilience, weedlog
+from seaweedfs_tpu_torch.utils.http import aiohttp_trace_config, parse_range
+
+log = logging.getLogger("volume")
+
+EC_FILE_EXTS = [layout.to_ext(i)
+                for i in range(layout.MAX_TOTAL_SHARDS)] + \
+    [".ecx", ".ecj", ".vif"]
+
+try:
+    from aiohttp.http_writer import StreamWriter as _AioSW
+    from aiohttp.http_writer import _serialize_headers as _ser_headers
+    # write_eof leans on these writer privates too: probe them all, so a
+    # partial aiohttp internals change disables the fast path instead of
+    # failing the hottest GET route
+    if not all(hasattr(_AioSW, a)
+               for a in ("_writelines", "_write", "chunked")):
+        _ser_headers = None
+except ImportError:  # aiohttp internals moved: two writes, as stock
+    _ser_headers = None
+
+# responses that went out in one transport write, and those that took
+# aiohttp's stock two-write path
+ONE_SHOT = {"one_write": 0, "stock": 0}
+
+
+class _OneShotResponse(web.Response):
+    """web.Response that defers the header write and flushes headers+body
+    in ONE transport write.  Stock aiohttp issues two socket sends per
+    response (headers at prepare, body at write_eof); on syscall-taxed
+    hosts that second send is a measurable slice of a small-blob GET, and
+    the blob read path is exactly small responses at high rate.  Any
+    non-simple shape (chunked, compressed, payload body, empty-body
+    methods) falls back to the stock path."""
+
+    async def _write_headers(self) -> None:
+        if _ser_headers is None:
+            return await super()._write_headers()
+        version = self._req.version
+        status_line = (f"HTTP/{version[0]}.{version[1]} "
+                       f"{self._status} {self._reason}")
+        self._hdr_buf = _ser_headers(status_line, self._headers)
+
+    async def write_eof(self, data: bytes = b"") -> None:
+        buf = getattr(self, "_hdr_buf", None)
+        if buf is None:
+            ONE_SHOT["stock"] += 1
+            return await super().write_eof(data)
+        self._hdr_buf = None
+        writer = self._payload_writer
+        try:
+            # everything read here is aiohttp-private; an internals
+            # change must degrade to the stock two-write path (no bytes
+            # are on the wire yet)
+            from aiohttp.payload import Payload
+            body = (self._body if self._compressed_body is None
+                    else self._compressed_body)
+            simple = (writer is not None and not self._eof_sent
+                      and not writer.chunked and writer._compress is None
+                      and not self._must_be_empty_body
+                      and not isinstance(body, Payload) and not data)
+        except AttributeError:
+            simple = False
+        if not simple:
+            ONE_SHOT["stock"] += 1
+            if writer is not None and not self._eof_sent:
+                writer._write(buf)
+            return await super().write_eof(data)
+        ONE_SHOT["one_write"] += 1
+        if body:
+            if writer.length is not None:
+                writer.length = max(0, writer.length - len(body))
+            writer._writelines((buf, body))
+        else:
+            writer._write(buf)
+        await web.StreamResponse.write_eof(self)
+
+
+class VolumeServer:
+    # in-flight throttling (reference: volume server
+    # -concurrentUploadLimitMB / inFlightUploadDataLimitCond)
+    CONCURRENT_UPLOADS = 64
+    CONCURRENT_DOWNLOADS = 256
+    PAGED_READ_MIN = 256 * 1024  # Range on bigger needles skips full load
+    # small plain-volume needles are pread directly on the event loop:
+    # cheaper than a thread-pool round-trip per request when the pages
+    # are cache-resident.  A cold page stalls the loop for one disk read,
+    # so deployments whose working set exceeds RAM set
+    # WEEDTPU_INLINE_READ_MAX=0 to send every read through the pool
+    INLINE_READ_MAX = int(os.environ.get("WEEDTPU_INLINE_READ_MAX",
+                                         str(64 * 1024)))
+
+    def __init__(self, directories: list[str], master_url: str,
+                 host: str = "127.0.0.1", port: int = 8080,
+                 public_url: str = "", max_volumes: int = 8,
+                 data_center: str = "", rack: str = "",
+                 heartbeat_interval: float = 3.0, security=None,
+                 device=None):
+        self.security = security
+        self.host, self.port = host, port
+        self.url = f"{host}:{port}"
+        self.public_url = public_url or self.url
+        # comma-separated master list (HA): heartbeats follow the leader
+        self.master_urls = [m.strip() for m in master_url.split(",")
+                            if m.strip()]
+        self.master_url = self.master_urls[0]
+        self.data_center, self.rack = data_center, rack
+        self.heartbeat_interval = heartbeat_interval
+        self.store = Store(directories, max_volumes, self.public_url,
+                           device=device)
+        self.volume_size_limit = 30 * 1024 * 1024 * 1024
+
+        self.app = web.Application(
+            client_max_size=256 * 1024 * 1024,
+            middlewares=[trace.aiohttp_middleware("volume")])
+        netflow.install(self.app, "volume")
+        self.app.add_routes([
+            web.get("/", self.handle_ui),
+            web.get("/status", self.handle_status),
+            web.get("/metrics", self.handle_metrics),
+            web.post("/admin/assign_volume", self.handle_assign_volume),
+            web.post("/admin/volume/delete", self.handle_volume_delete),
+            web.post("/admin/leave", self.handle_leave),
+            web.post("/admin/volume/readonly", self.handle_volume_readonly),
+            web.post("/admin/volume/configure_replication",
+                     self.handle_configure_replication),
+            web.post("/admin/volume/mount", self.handle_volume_mount),
+            web.post("/admin/volume/unmount", self.handle_volume_unmount),
+            web.post("/admin/volume/vacuum", self.handle_vacuum),
+            web.post("/admin/ec/generate", self.handle_ec_generate),
+            web.get("/admin/ec/progress", self.handle_ec_progress),
+            web.post("/admin/ec/cancel", self.handle_ec_cancel),
+            web.post("/admin/ec/rebuild", self.handle_ec_rebuild),
+            web.post("/admin/ec/mount", self.handle_ec_mount),
+            web.post("/admin/ec/unmount", self.handle_ec_unmount),
+            web.post("/admin/ec/delete_shards", self.handle_ec_delete_shards),
+            web.post("/admin/ec/copy", self.handle_ec_copy),
+            web.post("/admin/ec/to_volume", self.handle_ec_to_volume),
+            web.get("/admin/ec/shard_read", self.handle_ec_shard_read),
+            web.get("/admin/file", self.handle_file_pull),
+            web.route("*", "/{fid:[^/]*,[^/]+}", self.handle_blob),
+        ])
+        self._upload_sem = asyncio.Semaphore(self.CONCURRENT_UPLOADS)
+        self._download_sem = asyncio.Semaphore(self.CONCURRENT_DOWNLOADS)
+        # vid -> live EC job state (observable and cancellable)
+        self._ec_jobs: dict[int, dict] = {}
+        self._runner: web.AppRunner | None = None
+        self._session: aiohttp.ClientSession | None = None
+        self._hb_task: asyncio.Task | None = None
+        self._wire_pb: bool | None = None  # protobuf heartbeat framing
+        self._left = False
+        # vid -> (expiry, shard location map) for degraded-read fan-out;
+        # read from shard_reader worker threads, hence the locks.  The
+        # master fetch runs under a per-vid lock, so a stalled lookup for
+        # one volume cannot serialize degraded reads of every other
+        # volume; _ec_loc_lock guards only the cache and lock tables
+        self._ec_loc_cache: dict[int, tuple[float, dict]] = {}
+        self._ec_loc_lock = threading.Lock()
+        self._ec_loc_vid_locks: dict[int, threading.Lock] = {}
+
+    @property
+    def device(self):
+        return self.store.device
+
+    # -- lifecycle -----------------------------------------------------
+
+    async def start(self) -> None:
+        self._session = aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(ssl=tls.client_ssl()),
+            timeout=aiohttp.ClientTimeout(total=300),
+            trace_configs=[aiohttp_trace_config("volume")])
+        self._runner = web.AppRunner(self.app)
+        await self._runner.setup()
+        site = web.TCPSite(self._runner, self.host, self.port,
+                           ssl_context=tls.server_ssl("volume"))
+        await site.start()
+        try:
+            await self._heartbeat_once()
+        except aiohttp.ClientError as e:
+            # master not up yet; the heartbeat loop keeps retrying (and
+            # rotates through -mserver candidates under HA)
+            log.warning("initial heartbeat failed: %s", e)
+            if len(self.master_urls) > 1:
+                i = self.master_urls.index(self.master_url)
+                self.master_url = self.master_urls[
+                    (i + 1) % len(self.master_urls)]
+        self._hb_task = asyncio.create_task(self._heartbeat_loop())
+        log.info("volume server on %s (dirs=%s, device=%s)", self.url,
+                 [loc.directory for loc in self.store.locations],
+                 self.device)
+
+    async def stop(self) -> None:
+        if self._hb_task:
+            self._hb_task.cancel()
+        if self._session:
+            await self._session.close()
+        if self._runner:
+            await self._runner.cleanup()
+        self.store.close()
+        # retire this instance's capacity series from the process-wide
+        # registry: a stopped server must not leave stale series behind
+        metrics.DISK_BYTES.remove_matching(vs=self.url)
+        metrics.VOLUME_SIZE.remove_matching(vs=self.url)
+
+    async def _heartbeat_loop(self) -> None:
+        while True:
+            await asyncio.sleep(self.heartbeat_interval)
+            try:
+                await self._heartbeat_once()
+            except (aiohttp.ClientError, asyncio.TimeoutError) as e:
+                log.warning("heartbeat to master %s failed: %s",
+                            self.master_url, e)
+                # dead leader: rotate through the configured master list
+                # so a raft failover picks up
+                if len(self.master_urls) > 1:
+                    i = self.master_urls.index(self.master_url) \
+                        if self.master_url in self.master_urls else -1
+                    self.master_url = self.master_urls[
+                        (i + 1) % len(self.master_urls)]
+
+    async def _heartbeat_once(self) -> None:
+        if self._left:
+            # decommissioned via /admin/leave: admin calls that trigger
+            # delta beats must not re-register this server
+            return
+        beat = self.store.collect_heartbeat()
+        metrics.VOLUME_COUNT_GAUGE.labels("", "normal").set(
+            len(beat.get("volumes", [])))
+        metrics.VOLUME_COUNT_GAUGE.labels("", "ec").set(
+            len(beat.get("ec_shards", [])))
+        # capacity inputs of the master's history plane: per-data-dir
+        # disk occupancy and per-volume sizes, at heartbeat cadence
+        for loc in self.store.locations:
+            try:
+                st = os.statvfs(loc.directory)
+            except OSError:
+                continue
+            total = float(st.f_frsize * st.f_blocks)
+            free = float(st.f_frsize * st.f_bavail)
+            for kind, v in (("total", total), ("used", total - free),
+                            ("free", free)):
+                metrics.DISK_BYTES.labels(self.url, loc.directory,
+                                          kind).set(v)
+        for v in beat.get("volumes", []):
+            # the vs label keeps replicas apart
+            metrics.VOLUME_SIZE.labels(str(v["id"]), self.url).set(
+                v["size"])
+        beat.update({"id": self.url, "url": self.url,
+                     "public_url": self.public_url,
+                     "data_center": self.data_center, "rack": self.rack})
+        # binary protobuf framing (reference: master.proto Heartbeat);
+        # JSON when WEEDTPU_WIRE=json or protobuf cannot be imported.  A
+        # 415 from a JSON-only master latches JSON.  Only the request
+        # framing differs: the reply handling is shared
+        use_pb = self._wire_pb
+        if use_pb is None:
+            use_pb = self._wire_pb = (
+                os.environ.get("WEEDTPU_WIRE", "pb") != "json"
+                and pb.available())
+        url = f"{tls.scheme()}://{self.master_url}/heartbeat"
+        if use_pb:
+            req = self._session.post(
+                url, data=pb.heartbeat_to_bytes(beat),
+                headers={"Content-Type": pb.CONTENT_TYPE})
+        else:
+            req = self._session.post(url, json=beat)
+        async with req as r:
+            if r.status == 415 and use_pb:
+                self._wire_pb = False
+                return await self._heartbeat_once()
+            if r.status == 200:
+                data = await r.json()
+                self.volume_size_limit = data.get(
+                    "volume_size_limit", self.volume_size_limit)
+                return
+            if r.status == 409:
+                # raft follower: re-point at the leader it names, else
+                # rotate through the configured master list
+                data = await r.json()
+                leader = data.get("leader")
+                if leader and leader != self.master_url:
+                    log.info("heartbeat: switching master %s -> leader %s",
+                             self.master_url, leader)
+                    self.master_url = leader
+                elif self.master_urls:
+                    i = self.master_urls.index(self.master_url) \
+                        if self.master_url in self.master_urls else -1
+                    self.master_url = self.master_urls[
+                        (i + 1) % len(self.master_urls)]
+
+    # -- blob data path -------------------------------------------------
+
+    async def handle_blob(self, req: web.Request) -> web.StreamResponse:
+        try:
+            fid = t.FileId.parse(req.match_info["fid"])
+        except ValueError as e:
+            return web.json_response({"error": str(e)}, status=400)
+        if req.method in ("POST", "PUT", "DELETE"):
+            # write JWT check (reference: volume_server_handlers_write.go:33)
+            err = self._check_jwt(req)
+            if err is not None:
+                return err
+        if req.method in ("POST", "PUT"):
+            metrics.VOLUME_REQUEST_COUNTER.labels("write").inc()
+            async with self._upload_sem:
+                with metrics.VOLUME_REQUEST_HISTOGRAM.labels("write").time():
+                    return await self._write_blob(req, fid)
+        if req.method == "GET" or req.method == "HEAD":
+            # read JWT, only when a [jwt.signing.read] key is configured
+            if self.security is not None and self.security.volume_read:
+                token = sjwt.token_from_request(req.headers, req.query)
+                try:
+                    sjwt.decode_jwt(self.security.volume_read, token,
+                                    expected_fid=req.match_info["fid"])
+                except sjwt.JwtError as e:
+                    return web.json_response({"error": str(e)}, status=401)
+            metrics.VOLUME_REQUEST_COUNTER.labels("read").inc()
+            async with self._download_sem:
+                with metrics.VOLUME_REQUEST_HISTOGRAM.labels("read").time():
+                    return await self._read_blob(req, fid)
+        if req.method == "DELETE":
+            metrics.VOLUME_REQUEST_COUNTER.labels("delete").inc()
+            return await self._delete_blob(req, fid)
+        return web.json_response({"error": "method not allowed"}, status=405)
+
+    def _check_jwt(self, req: web.Request) -> web.Response | None:
+        if self.security is None or not self.security.volume_write:
+            return None
+        token = sjwt.token_from_request(req.headers, req.query)
+        if not token:
+            return web.json_response({"error": "missing jwt"}, status=401)
+        try:
+            sjwt.decode_jwt(self.security.volume_write, token,
+                            expected_fid=req.match_info["fid"])
+        except sjwt.JwtError as e:
+            return web.json_response({"error": str(e)}, status=401)
+        return None
+
+    async def _write_blob(self, req: web.Request,
+                          fid: t.FileId) -> web.Response:
+        name, mime, data = b"", b"", b""
+        ctype = req.headers.get("Content-Type", "")
+        if ctype.startswith("multipart/"):
+            reader = await req.multipart()
+            part = await reader.next()
+            while part is not None:
+                if part.name in (None, "file"):
+                    name = (part.filename or "").encode()
+                    pm = part.headers.get("Content-Type", "")
+                    mime = b"" if pm == "application/octet-stream" \
+                        else pm.encode()
+                    data = await part.read(decode=False)
+                    break
+                part = await reader.next()
+        else:
+            data = await req.read()
+            if ctype and ctype != "application/octet-stream":
+                mime = ctype.encode()
+            hname = req.headers.get("X-File-Name")
+            if hname:
+                name = hname.encode()
+        n = ndl.Needle(cookie=fid.cookie, id=fid.key, data=data,
+                       name=name, mime=mime,
+                       last_modified=int(time.time()))
+        try:
+            await asyncio.to_thread(
+                self.store.write_needle, fid.volume_id, n)
+        except KeyError:
+            return web.json_response({"error": "volume not found"},
+                                     status=404)
+        except PermissionError as e:
+            return web.json_response({"error": str(e)}, status=409)
+        if heat.ambient_is_data():
+            # replica fan-in (class=replication) stays out of the sketches
+            heat.record("volume", str(fid.volume_id), len(data), "write")
+        if req.query.get("type") != "replicate":
+            err = await self._replicate(fid, "PUT", data, name, mime)
+            if err:
+                return web.json_response({"error": err}, status=500)
+        return web.json_response({"name": name.decode(errors="replace"),
+                                  "size": len(data),
+                                  "eTag": f"{n.checksum:x}"}, status=201)
+
+    async def _replicate(self, fid: t.FileId, method: str,
+                         data: bytes | None, name: bytes = b"",
+                         mime: bytes = b"") -> str | None:
+        """Synchronous fan-out to the other replica locations
+        (reference: weed/topology/store_replicate.go:24-135).  Every peer
+        is written concurrently; the caller still waits for every ack."""
+        vol = self.store.get_volume(fid.volume_id)
+        if vol is None or vol.super_block.replica_placement.copy_count <= 1:
+            return None
+        try:
+            async with self._session.get(
+                    f"{tls.scheme()}://{self.master_url}/dir/lookup",
+                    params={"volumeId": str(fid.volume_id)}) as r:
+                locations = (await r.json()).get("locations", [])
+        except aiohttp.ClientError as e:
+            return f"replica lookup failed: {e}"
+        peers = [loc["url"] for loc in locations if loc["url"] != self.url]
+        if not peers:
+            return None
+        headers = {}
+        if self.security is not None and self.security.volume_write:
+            headers["Authorization"] = "Bearer " + sjwt.gen_jwt(
+                self.security.volume_write, str(fid))
+        if mime:
+            headers["Content-Type"] = mime.decode(errors="replace")
+        if name:
+            headers["X-File-Name"] = name.decode(errors="replace")
+
+        async def one(peer: str) -> str | None:
+            url = f"{tls.scheme()}://{peer}/{fid}?type=replicate"
+            try:
+                with trace.span("volume.replicate_peer", peer=peer,
+                                method=method):
+                    if method == "PUT":
+                        async with self._session.put(url, data=data,
+                                                     headers=headers) as r:
+                            if r.status >= 300:
+                                return f"replica write to {peer}: {r.status}"
+                    else:
+                        async with self._session.delete(
+                                url, headers=headers) as r:
+                            if r.status >= 300:
+                                return \
+                                    f"replica delete to {peer}: {r.status}"
+            except (aiohttp.ClientError, asyncio.TimeoutError) as e:
+                return f"replica {method} to {peer} failed: {e!r}"
+            return None
+
+        # every peer's outcome is awaited and folded in; the fan-out bytes
+        # book as class=replication (the contextvar rides into the tasks)
+        with netflow.flow("replication"), \
+                trace.span("volume.replicate", peers=len(peers),
+                           method=method):
+            results = await asyncio.gather(*(one(p) for p in peers),
+                                           return_exceptions=True)
+        for err in results:
+            if isinstance(err, BaseException):
+                return f"replica {method} failed: {err!r}"
+            if err:
+                return err
+        return None
+
+    async def _read_blob(self, req: web.Request,
+                         fid: t.FileId) -> web.StreamResponse:
+        # parsing an empty query string still costs a parse_qsl pass per
+        # GET; the common blob read has no query at all
+        query = req.query if req.query_string else {}
+        rng = req.headers.get("Range", "")
+        if rng.startswith("bytes=") and "width" not in query \
+                and "height" not in query:
+            resp = await self._read_blob_paged(req, fid, rng)
+            if resp is not None:
+                return resp
+        try:
+            n = self.store.read_needle_inline(
+                fid.volume_id, fid.key, fid.cookie, self.INLINE_READ_MAX) \
+                if self.INLINE_READ_MAX else None
+            if n is None:
+                n = await asyncio.to_thread(
+                    self.store.read_needle, fid.volume_id, fid.key,
+                    fid.cookie, self._shard_reader(fid.volume_id))
+        except KeyError:
+            return web.json_response({"error": "not found"}, status=404)
+        except PermissionError:
+            return web.json_response({"error": "cookie mismatch"},
+                                     status=404)
+        except ValueError as e:
+            # needle CRC mismatch or a corrupt record: never return the
+            # bad bytes; count it and serve from a replica when one exists
+            return await self._blob_corrupt_fallback(req, fid, e)
+        except IOError as e:
+            return web.json_response({"error": str(e)}, status=500)
+        if heat.ambient_is_data():
+            heat.record("volume", str(fid.volume_id), len(n.data), "read")
+        headers = {"Etag": f'"{n.checksum:x}"', "Accept-Ranges": "bytes"}
+        if n.name:
+            headers["Content-Disposition"] = \
+                f'inline; filename="{n.name.decode(errors="replace")}"'
+        data, status = n.data, 200
+        # on-read image resize/crop (reference: images/resizing.go served
+        # via ?width= on the volume read handler)
+        mime = n.mime.decode() if n.mime else ""
+        if "width" in query or "height" in query:
+            from seaweedfs_tpu_torch import images
+            try:
+                w = int(query.get("width", "0") or 0)
+                h = int(query.get("height", "0") or 0)
+            except ValueError:
+                w = h = 0  # malformed size params are ignored
+            if (w or h) and images.is_image_mime(mime):
+                data = await asyncio.to_thread(
+                    images.resized, data, mime, w, h, query.get("mode", ""))
+        if rng.startswith("bytes=") and data:
+            try:
+                lo, length = parse_range(rng, len(data))
+            except ValueError:
+                return web.Response(
+                    status=416,
+                    headers={"Content-Range": f"bytes */{len(data)}"})
+            headers["Content-Range"] = \
+                f"bytes {lo}-{lo + length - 1}/{len(data)}"
+            data, status = data[lo:lo + length], 206
+        body = b"" if req.method == "HEAD" else data
+        return _OneShotResponse(
+            body=body, status=status,
+            content_type=mime or "application/octet-stream",
+            headers=headers)
+
+    async def _read_blob_paged(self, req: web.Request, fid: t.FileId,
+                               rng: str) -> web.StreamResponse | None:
+        """Serve a Range request by reading only the needed page of a
+        large plain-volume needle (reference: needle_read_page.go).
+        Returns None to fall back to the whole-record path (EC volumes,
+        small needles, parse errors)."""
+        v = self.store.get_volume(fid.volume_id)
+        if v is None or v.version == t.VERSION1:
+            return None
+        loc = v.nm.get(fid.key)
+        if loc is None or loc[1] < self.PAGED_READ_MIN:
+            return None
+        try:
+            # cheap probe: header + meta tail (cookie and TTL enforced,
+            # mime and checksum recovered without touching the data)
+            meta = await asyncio.to_thread(
+                v.read_needle_meta, fid.key, fid.cookie)
+        except (KeyError, PermissionError):
+            return web.json_response({"error": "not found"}, status=404)
+        except (ValueError, EOFError, OSError):
+            return None  # odd record: fall back to the full path
+        total = meta.size
+        if total < self.PAGED_READ_MIN:
+            return None
+        try:
+            lo, length = parse_range(rng, total)
+        except ValueError:
+            return web.Response(
+                status=416, headers={"Content-Range": f"bytes */{total}"})
+        try:
+            data = await asyncio.to_thread(
+                v.read_needle_page, fid.key, lo, length, fid.cookie)
+        except (KeyError, PermissionError):
+            return web.json_response({"error": "not found"}, status=404)
+        except (ValueError, EOFError, OSError):
+            return None
+        if heat.ambient_is_data():
+            heat.record("volume", str(fid.volume_id), len(data), "read")
+        headers = {"Accept-Ranges": "bytes",
+                   "Etag": f'"{meta.checksum:x}"',
+                   "Content-Range":
+                   f"bytes {lo}-{lo + len(data) - 1}/{total}"}
+        if meta.name:
+            headers["Content-Disposition"] = \
+                f'inline; filename="{meta.name.decode(errors="replace")}"'
+        return web.Response(
+            body=data, status=206,
+            content_type=(meta.mime.decode() if meta.mime
+                          else "application/octet-stream"),
+            headers=headers)
+
+    async def _blob_corrupt_fallback(self, req: web.Request, fid: t.FileId,
+                                     err: Exception) -> web.StreamResponse:
+        """A read hit corrupt bytes (CRC mismatch, unparseable record):
+        count it, log a rate-limited line carrying the trace id, and
+        proxy the read to another replica.  The peer is told not to fall
+        back again (X-Weedtpu-No-Fallback), so two corrupt replicas cannot
+        bounce a request between themselves."""
+        metrics.NEEDLE_CRC_MISMATCH.labels().inc()
+        tctx = trace.current()
+        weedlog.warn_ratelimited(
+            f"crc_fallback:{fid.volume_id}", 5.0,
+            "needle %s CRC mismatch on %s (trace %s): %s; trying replica",
+            str(fid), self.url, tctx.trace_id if tctx else "-", err,
+            name="volume")
+        if req.headers.get("X-Weedtpu-No-Fallback"):
+            return web.json_response({"error": str(err)}, status=500)
+        locations: list[dict] = []
+        try:
+            async with self._session.get(
+                    f"{tls.scheme()}://{self.master_url}/dir/lookup",
+                    params={"volumeId": str(fid.volume_id)}) as r:
+                if r.status == 200:
+                    locations = (await r.json()).get("locations", [])
+        except (aiohttp.ClientError, asyncio.TimeoutError):
+            pass
+        for loc in locations:
+            if loc["url"] == self.url:
+                continue
+            try:
+                fwd = {"X-Weedtpu-No-Fallback": "1"}
+                if req.headers.get("Range"):
+                    fwd["Range"] = req.headers["Range"]
+                with trace.span("volume.crc_fallback", peer=loc["url"]):
+                    async with self._session.get(
+                            f"{tls.scheme()}://{loc['url']}/{fid}",
+                            headers=fwd) as r:
+                        if r.status not in (200, 206):
+                            continue
+                        body = await r.read()
+                        headers = {"Accept-Ranges": "bytes"}
+                        for h in ("Etag", "Content-Range",
+                                  "Content-Disposition"):
+                            if r.headers.get(h):
+                                headers[h] = r.headers[h]
+                        return web.Response(
+                            body=b"" if req.method == "HEAD" else body,
+                            status=r.status,
+                            content_type=r.headers.get(
+                                "Content-Type", "application/octet-stream"),
+                            headers=headers)
+            except (aiohttp.ClientError, asyncio.TimeoutError):
+                continue
+        return web.json_response({"error": str(err)}, status=500)
+
+    async def _delete_blob(self, req: web.Request,
+                           fid: t.FileId) -> web.Response:
+        try:
+            size = await asyncio.to_thread(
+                self.store.delete_needle, fid.volume_id, fid.key, fid.cookie)
+        except KeyError:
+            return web.json_response({"error": "not found"}, status=404)
+        except PermissionError:
+            return web.json_response({"error": "cookie mismatch"},
+                                     status=404)
+        if req.query.get("type") != "replicate":
+            err = await self._replicate(fid, "DELETE", None)
+            if err:
+                return web.json_response({"error": err}, status=500)
+        return web.json_response({"size": size})
+
+    # -- degraded reads: where the shards live --------------------------
+
+    def _ec_loc_vid_lock(self, vid: int) -> threading.Lock:
+        """Per-vid fetch lock, created on first use and pruned with the
+        cache; a pruned-then-recreated lock merely allows two concurrent
+        fetches for one vid, resolved by the double-checked insert."""
+        with self._ec_loc_lock:
+            lk = self._ec_loc_vid_locks.get(vid)
+            if lk is None:
+                lk = self._ec_loc_vid_locks[vid] = threading.Lock()
+            return lk
+
+    def _ec_shard_locations(self, vid: int) -> dict:
+        """Master shard-location lookup with a short TTL cache (reference:
+        store_ec.go cachedLookupEcShardLocations): a degraded read fans
+        out to many shards and must not ask the master once per shard.
+        Empty results get a much shorter TTL, so a transient bad answer
+        cannot blank a volume for 10 s."""
+        import json
+        import urllib.request
+        with self._ec_loc_vid_lock(vid):
+            now = time.monotonic()
+            with self._ec_loc_lock:
+                cached = self._ec_loc_cache.get(vid)
+            if cached and cached[0] > now:
+                return cached[1]
+            try:
+                with urllib.request.urlopen(
+                        f"{tls.scheme()}://{self.master_url}"
+                        f"/dir/ec/lookup?volumeId={vid}",
+                        timeout=10) as r:
+                    shards = json.load(r).get("shards", {})
+            except Exception:
+                # a short-TTL negative entry before re-raising: without a
+                # cache entry the vid's lock slot is never evicted, and
+                # vid is client-controlled
+                with self._ec_loc_lock:
+                    self._ec_loc_cache.setdefault(vid, (now + 1.0, {}))
+                    self._ec_loc_evict_locked()
+                raise
+            # nearest-first candidate order: degraded reads and survivor
+            # gathering try same-rack peers before crossing racks or DCs
+            for locs in shards.values():
+                locs.sort(key=self._loc_rank)
+            ttl = 10.0 if shards else 1.0
+            with self._ec_loc_lock:
+                self._ec_loc_cache[vid] = (now + ttl, shards)
+                self._ec_loc_evict_locked()
+            return shards
+
+    def _loc_rank(self, loc) -> int:
+        """Locality class of a shard-location record relative to this
+        server (0 self, 1 same rack, 2 same DC, 3 remote DC).  A bare url
+        string (older or minimal masters) counts as label-less."""
+        if not isinstance(loc, dict):
+            loc = {"url": loc}
+        return locality_class(self.data_center, self.rack,
+                              loc.get("dc", ""), loc.get("rack", ""),
+                              same_node=loc.get("url") == self.url)
+
+    def _ec_loc_evict_locked(self) -> None:
+        """Bound the location cache and its lock table (insertion order
+        is eviction order).  The caller holds _ec_loc_lock."""
+        while len(self._ec_loc_cache) > 256:
+            evicted = next(iter(self._ec_loc_cache))
+            self._ec_loc_cache.pop(evicted)
+            self._ec_loc_vid_locks.pop(evicted, None)
+
+    def _shard_reader(self, vid: int):
+        """Remote-shard fetch for EC degraded reads: ask the master where
+        each shard lives and pull the byte range from a peer (reference:
+        store_ec.go readRemoteEcShardInterval).  The trace context, the
+        ambient traffic class and the deadline are captured here, on the
+        calling thread, because read() runs on the read engine's pool
+        threads, which never see the request's context: the captured
+        trace parents the per-fetch spans, and the class rides
+        X-Weedtpu-Class to the peer so both sides book the shard bytes
+        under one flow."""
+        tctx = trace.current()
+        flow_cls = netflow.current_class() or "data"
+        dl = resilience.deadline()
+
+        def read(shard_id: int, offset: int, size: int) -> bytes | None:
+            # runs inside a worker thread: a blocking client
+            import urllib.error
+            import urllib.request
+            try:
+                shards = self._ec_shard_locations(vid)
+                for loc in shards.get(str(shard_id), []):
+                    if loc["url"] == self.url:
+                        continue
+                    # per-peer circuit breaker: a tripped peer is skipped
+                    # outright, and the next location (or reconstruction)
+                    # serves the interval without paying its timeout
+                    breaker = resilience.breaker_for(loc["url"]) \
+                        if resilience.breaker_enabled() else None
+                    if breaker is not None and not breaker.allow():
+                        continue
+                    try:
+                        # the socket timeout respects the captured budget
+                        tmo = 30.0
+                        if dl is not None:
+                            tmo = min(tmo, dl - time.monotonic())
+                            if tmo <= 0.01:
+                                # budget spent: our state, not the peer's
+                                return None
+                        with trace.span("volume.shard_fetch", parent=tctx,
+                                        vid=vid, shard=shard_id,
+                                        peer=loc["url"], bytes=size) as sp:
+                            req = urllib.request.Request(
+                                f"{tls.scheme()}://{loc['url']}"
+                                f"/admin/ec/shard_read?"
+                                f"volume={vid}&shard={shard_id}"
+                                f"&offset={offset}&size={size}")
+                            # the peer's span parents to this fetch span
+                            hdr_ctx = sp.trace or tctx
+                            if hdr_ctx is not None:
+                                req.add_header(
+                                    trace.TRACE_HEADER,
+                                    trace.format_header(hdr_ctx))
+                            req.add_header(netflow.CLASS_HEADER, flow_cls)
+                            req.add_header(netflow.ROLE_HEADER, "volume")
+                            if dl is not None:
+                                req.add_header(
+                                    resilience.DEADLINE_HEADER,
+                                    str(max(1, int((dl - time.monotonic())
+                                                   * 1000))))
+                            with urllib.request.urlopen(
+                                    req, timeout=tmo) as rr:
+                                data = rr.read()
+                            netflow.account("recv", flow_cls, "volume",
+                                            len(data))
+                            if len(data) != size:
+                                sp.set(short=len(data))
+                        if breaker is not None:
+                            breaker.record(True)
+                        if len(data) == size:
+                            return data
+                    except urllib.error.HTTPError:
+                        # the peer answered (404 shard moved, 5xx): a
+                        # routing or content miss, not a transport
+                        # failure; breakers count unreachable peers only
+                        if breaker is not None:
+                            breaker.record(True)
+                        continue
+                    except OSError:
+                        # a timeout caused by our nearly spent budget is
+                        # no evidence against the peer
+                        if breaker is not None and \
+                                (dl is None
+                                 or dl - time.monotonic() > 0.05):
+                            breaker.record(False)
+                        continue
+            except OSError:
+                return None
+            return None
+
+        def locality_rank(shard_id: int) -> int:
+            """Best locality class among a shard's remote locations: the
+            read engine tries same-rack helpers before cross-rack ones."""
+            try:
+                locs = self._ec_shard_locations(vid).get(str(shard_id), [])
+            except Exception:
+                return 3
+            return min((self._loc_rank(loc) for loc in locs
+                        if (loc.get("url") if isinstance(loc, dict)
+                            else loc) != self.url), default=3)
+
+        read.locality_rank = locality_rank
+        return read
+
+    # -- status ----------------------------------------------------------
+
+    async def handle_ui(self, req: web.Request) -> web.Response:
+        """Operator status page with volume and EC shard tables
+        (reference: weed/server/volume_server_ui/templates.go)."""
+        from seaweedfs_tpu_torch.server import ui
+        hb = self.store.collect_heartbeat()
+        vol_rows = [[v["id"], v.get("collection", "") or "-",
+                     ui.fmt_bytes(v.get("size", 0)), v.get("file_count", 0),
+                     v.get("delete_count", 0),
+                     ui.fmt_bytes(v.get("deleted_bytes", 0)),
+                     v.get("replica_placement", "000"),
+                     v.get("ttl", "") or "-", v.get("read_only", False)]
+                    for v in sorted(hb.get("volumes", []),
+                                    key=lambda v: v["id"])]
+        # the beat lists a volume's shards under "shard_ids" (the
+        # reference's page reads "shards" and shows none)
+        ec_rows = [[e["id"], e.get("collection", "") or "-",
+                    " ".join(str(s) for s in sorted(e["shard_ids"])),
+                    len(e["shard_ids"])]
+                   for e in sorted(hb.get("ec_shards", []),
+                                   key=lambda e: e["id"])]
+        return web.Response(text=ui.render(
+            f"weedtpu volume server {self.url}",
+            {"server": ui.Table(
+                ["master", "max slots", "volumes", "ec volumes", "device"],
+                [[self.master_url, hb.get("max_volume_count", 0),
+                  len(vol_rows), len(ec_rows), str(self.device)]]),
+             "volumes": ui.Table(
+                ["id", "collection", "size", "files", "deleted",
+                 "deleted bytes", "replication", "ttl", "read-only"],
+                vol_rows),
+             "ec shards": ui.Table(
+                ["volume", "collection", "shards here", "count"], ec_rows)},
+            links={"metrics": "/metrics", "status json": "/status"}),
+            content_type="text/html")
+
+    async def handle_status(self, req: web.Request) -> web.Response:
+        return web.json_response(self.store.collect_heartbeat())
+
+    async def handle_metrics(self, req: web.Request) -> web.Response:
+        # per-stage degraded-read counters live on each mounted EcVolume;
+        # mirror their sums into the registry at scrape time
+        totals: dict[str, int] = {}
+        for loc in self.store.locations:
+            for ev in list(loc.ec_volumes.values()):
+                for stat, v in ev.read_stats_snapshot().items():
+                    totals[stat] = totals.get(stat, 0) + v
+        for stat, v in totals.items():
+            metrics.EC_DEGRADED_READ.labels(stat).set(v)
+        return metrics.scrape_response(req)
+
+    # -- admin: volumes --------------------------------------------------
+
+    async def handle_assign_volume(self, req: web.Request) -> web.Response:
+        body = await req.json()
+        try:
+            self.store.allocate_volume(
+                body["volume"], body.get("collection", ""),
+                body.get("replication", "000"), body.get("ttl", ""))
+        except FileExistsError:
+            pass  # idempotent
+        except OSError as e:
+            return web.json_response({"error": str(e)}, status=500)
+        return web.json_response({})
+
+    async def handle_volume_delete(self, req: web.Request) -> web.Response:
+        body = await req.json()
+        self.store.delete_volume(body["volume"])
+        await self._heartbeat_once()
+        return web.json_response({})
+
+    async def handle_leave(self, req: web.Request) -> web.Response:
+        """Stop heartbeating so the master expires this server from the
+        topology (reference: volume_grpc_admin.go VolumeServerLeave)."""
+        self._left = True  # sticky: delta beats from admin calls stay off
+        if self._hb_task:
+            self._hb_task.cancel()
+            self._hb_task = None
+        return web.json_response({"ok": True})
+
+    async def handle_configure_replication(self, req: web.Request
+                                           ) -> web.Response:
+        """Rewrite the replica-placement byte in the super block
+        (reference: volume_grpc_admin.go VolumeConfigure)."""
+        body = await req.json()
+        v = self.store.get_volume(body["volume"])
+        if v is None:
+            return web.json_response({"error": "volume not found"},
+                                     status=404)
+        try:
+            rp = t.ReplicaPlacement.parse(body.get("replication", "000"))
+        except (ValueError, KeyError) as e:
+            return web.json_response({"error": str(e)}, status=400)
+        try:
+            await asyncio.to_thread(v.set_replica_placement, rp)
+        except PermissionError as e:
+            return web.json_response({"error": str(e)}, status=409)
+        await self._heartbeat_once()
+        return web.json_response({"replication": str(rp)})
+
+    async def handle_volume_unmount(self, req: web.Request) -> web.Response:
+        """Close a volume without deleting its files (reference:
+        VolumeUnmount): frees the slot; a later mount or restart picks
+        the files back up."""
+        body = await req.json()
+        vid = body["volume"]
+        for loc in self.store.locations:
+            v = loc.volumes.pop(vid, None)
+            if v is not None:
+                await asyncio.to_thread(v.close)
+                await self._heartbeat_once()
+                return web.json_response({})
+        return web.json_response({"error": "volume not found"}, status=404)
+
+    async def handle_volume_mount(self, req: web.Request) -> web.Response:
+        """(Re)open an existing volume's files (reference: VolumeMount)."""
+        body = await req.json()
+        vid = body["volume"]
+        collection = body.get("collection", "")
+        if self.store.get_volume(vid) is not None:
+            return web.json_response({})  # already mounted
+        for loc in self.store.locations:
+            # an earlier unmount leaves the collection recorded; try it
+            # first so `volume.mount -volumeId N` works without -collection
+            collection = collection or loc.collections.get(vid, "")
+            base = loc.base_path(vid, collection)
+            if os.path.exists(base + ".dat") or \
+                    os.path.exists(base + ".tier"):
+                try:
+                    vol = await asyncio.to_thread(
+                        Volume, loc.directory, collection, vid)
+                except Exception as e:
+                    return web.json_response({"error": f"load: {e}"},
+                                             status=500)
+                loc.volumes[vid] = vol
+                loc.collections[vid] = collection
+                await self._heartbeat_once()
+                return web.json_response({})
+        return web.json_response({"error": "volume files not found"},
+                                 status=404)
+
+    async def handle_volume_readonly(self, req: web.Request) -> web.Response:
+        body = await req.json()
+        v = self.store.get_volume(body["volume"])
+        if v is None:
+            return web.json_response({"error": "volume not found"},
+                                     status=404)
+        v.read_only = bool(body.get("readonly", True))
+        await self._heartbeat_once()
+        return web.json_response({})
+
+    async def handle_vacuum(self, req: web.Request) -> web.Response:
+        body = await req.json()
+        v = self.store.get_volume(body["volume"])
+        if v is None:
+            return web.json_response({"error": "volume not found"},
+                                     status=404)
+        garbage = v.garbage_ratio()
+        await asyncio.to_thread(v.compact)
+        return web.json_response({"garbage_ratio": garbage})
+
+    # -- admin: EC -------------------------------------------------------
+
+    def _ec_base(self, vid: int) -> str | None:
+        for loc in self.store.locations:
+            for cand in (loc.base_path(vid, loc.collections.get(vid, "")),
+                         loc.base_path(vid)):
+                if any(os.path.exists(cand + ext) for ext in
+                       (".dat", ".ecx", layout.to_ext(0))):
+                    return cand
+        return None
+
+    async def handle_ec_generate(self, req: web.Request) -> web.Response:
+        """VolumeEcShardsGenerate (volume_grpc_erasure_coding.go:38): .dat
+        -> its shard files + .ecx, parity computed on the store's
+        device."""
+        body = await req.json()
+        vid = body["volume"]
+        v = self.store.get_volume(vid)
+        if v is None:
+            return web.json_response({"error": "volume not found"},
+                                     status=404)
+        base = v._base
+        if self._ec_jobs.get(vid, {}).get("state") == "running":
+            return web.json_response({"error": "encode already running"},
+                                     status=409)
+        # `stages` is written in place by the encode pipeline (per-stage
+        # seconds, mode, overlap_frac): /admin/ec/progress shows where a
+        # long encode spends its time, not just how far it is
+        stages: dict = {}
+        job = {"state": "running", "kind": "encode", "bytes_done": 0,
+               "total": os.path.getsize(base + ".dat"),
+               "cancel": False, "error": None, "started": time.time(),
+               "stages": stages}
+        self._ec_jobs[vid] = job
+        spec = codecs.parse_tag(body.get("codec") or codecs.default_tag())
+        job["codec"] = spec.tag
+
+        def gen():
+            v.nm.flush()
+            ec_files.write_ec_files(
+                base,
+                progress=lambda n: job.__setitem__("bytes_done", n),
+                cancel=lambda: job["cancel"],
+                stats=stages, codec_tag=spec.tag, device=self.device)
+            ec_files.write_sorted_ecx(base + ".idx")
+            metrics.EC_ENCODE_BYTES.labels(self.device.type).inc(
+                job["total"])
+
+        try:
+            await asyncio.to_thread(gen)
+        except ec_files.EncodeCancelled:
+            # write_ec_files builds under temp names: a cancelled encode
+            # has cleaned up after itself, and an earlier shard set is
+            # untouched
+            job["state"] = "cancelled"
+            return web.json_response({"error": "cancelled"}, status=409)
+        except Exception as e:
+            job["state"] = "failed"
+            job["error"] = str(e)
+            raise
+        job["state"] = "done"
+        job["bytes_done"] = job["total"]
+        return web.json_response({"shards": list(range(spec.n)),
+                                  "codec": spec.tag})
+
+    async def handle_ec_progress(self, req: web.Request) -> web.Response:
+        """Observability of a long-running encode or rebuild."""
+        vid = int(req.query.get("volumeId", "0"))
+        job = self._ec_jobs.get(vid)
+        if job is None:
+            return web.json_response({"error": "no encode job"}, status=404)
+        # dict() is one C-level copy (atomic under the GIL): the worker
+        # thread inserts keys into job and its nested stages while the
+        # reply is serialized
+        snap = {k: dict(v) if isinstance(v, dict) else v
+                for k, v in dict(job).items()}
+        return web.json_response(snap)
+
+    async def handle_ec_cancel(self, req: web.Request) -> web.Response:
+        body = await req.json()
+        job = self._ec_jobs.get(body["volume"])
+        if job is None or job["state"] != "running":
+            return web.json_response({"error": "no running encode"},
+                                     status=404)
+        job["cancel"] = True
+        return web.json_response({"ok": True})
+
+    async def handle_ec_rebuild(self, req: web.Request) -> web.Response:
+        """VolumeEcShardsRebuild (volume_grpc_erasure_coding.go:84),
+        registered under the same per-vid job state as encode, so
+        /admin/ec/progress and /admin/ec/cancel observe and abort it."""
+        body = await req.json()
+        vid = body["volume"]
+        if body.get("reduced"):
+            # reduced-read repair needs /admin/ec/partial on the helpers
+            # (ROADMAP 1.15c); the master's repair falls back to copying
+            # survivors and a plain rebuild
+            return web.json_response(
+                {"error": "reduced-read rebuild is not served here"},
+                status=501)
+        base = self._ec_base(vid)
+        if base is None:
+            return web.json_response({"error": "no shards here"}, status=404)
+        if self._ec_jobs.get(vid, {}).get("state") == "running":
+            return web.json_response({"error": "ec job already running"},
+                                     status=409)
+        # codec identity: the caller's tag (master plans carry it) wins,
+        # else the local .vif
+        spec = codecs.parse_tag(body.get("codec") or
+                                (ec_files.read_vif(base) or {}).get("codec"))
+        present = [i for i in range(spec.n)
+                   if os.path.exists(base + layout.to_ext(i))]
+        total = (os.path.getsize(base + layout.to_ext(present[0]))
+                 * spec.k) if present else 0
+        stages: dict = {}
+        job = {"state": "running", "kind": "rebuild", "codec": spec.tag,
+               "bytes_done": 0, "total": total, "cancel": False,
+               "error": None, "started": time.time(), "stages": stages}
+        self._ec_jobs[vid] = job
+        try:
+            rebuilt = await asyncio.to_thread(
+                ec_files.rebuild_ec_files, base,
+                progress=lambda n: job.__setitem__("bytes_done", n),
+                cancel=lambda: job["cancel"],
+                stats=stages, device=self.device, codec_tag=spec.tag)
+        except ec_files.EncodeCancelled:
+            job["state"] = "cancelled"
+            return web.json_response({"error": "cancelled"}, status=409)
+        except Exception as e:
+            job["state"] = "failed"
+            job["error"] = str(e)
+            raise
+        job["state"] = "done"
+        job["bytes_done"] = job["total"]
+        return web.json_response({"rebuilt": rebuilt})
+
+    async def handle_ec_mount(self, req: web.Request) -> web.Response:
+        body = await req.json()
+        vid = body["volume"]
+        base = self._ec_base(vid)
+        if base is None:
+            return web.json_response({"error": "no shard files"}, status=404)
+        loc = next(loc for loc in self.store.locations
+                   if base.startswith(loc.directory))
+        old = loc.ec_volumes.pop(vid, None)
+        if old is not None:
+            old.close()
+        loc.ec_volumes[vid] = ecv.EcVolume(base, device=self.device)
+        await self._heartbeat_once()
+        return web.json_response({"shards": loc.ec_volumes[vid].shard_ids()})
+
+    async def handle_ec_unmount(self, req: web.Request) -> web.Response:
+        body = await req.json()
+        vid = body["volume"]
+        for loc in self.store.locations:
+            ev = loc.ec_volumes.pop(vid, None)
+            if ev is not None:
+                ev.close()
+        await self._heartbeat_once()
+        return web.json_response({})
+
+    async def handle_ec_delete_shards(self, req: web.Request) -> web.Response:
+        body = await req.json()
+        vid, shards = body["volume"], body.get("shards", [])
+        base = self._ec_base(vid)
+        if base is None:
+            return web.json_response({})
+        mounted = self.store.get_ec_volume(vid)
+        for sid in shards:
+            p = base + layout.to_ext(sid)
+            if os.path.exists(p):
+                os.remove(p)
+            if mounted is not None:
+                f = mounted.shards.pop(sid, None)
+                if f is not None:
+                    f.close()
+                # a purged shard's scrub verdicts die with its file: a
+                # rebuilt replacement must not inherit the quarantine
+                mounted.clear_quarantine(sid)
+        # with no shard left here, the index files go too
+        if not any(os.path.exists(base + layout.to_ext(i))
+                   for i in range(layout.MAX_TOTAL_SHARDS)):
+            for ext in (".ecx", ".ecj"):
+                if os.path.exists(base + ext):
+                    os.remove(base + ext)
+        await self._heartbeat_once()
+        return web.json_response({})
+
+    async def handle_ec_copy(self, req: web.Request) -> web.Response:
+        """VolumeEcShardsCopy (volume_grpc_erasure_coding.go:126): pull
+        shard files from a peer (the reference's CopyFile stream, as
+        HTTP)."""
+        body = await req.json()
+        vid, source = body["volume"], body["source"]
+        shards = body.get("shards", [])
+        collection = body.get("collection", "")
+        exts = [layout.to_ext(s) for s in shards]
+        if body.get("copy_ecx", True):
+            exts += [".ecx", ".vif"]
+        if body.get("copy_ecj", False):
+            exts.append(".ecj")
+        loc = min(self.store.locations, key=lambda loc: len(loc.volumes))
+        base = loc.base_path(vid, collection)
+        for ext in exts:
+            name = os.path.basename(base + ext)
+            try:
+                async with self._session.get(
+                        f"{tls.scheme()}://{source}/admin/file",
+                        params={"name": name}) as r:
+                    if r.status != 200:
+                        if ext in (".ecj", ".vif"):
+                            continue  # optional files
+                        return web.json_response(
+                            {"error": f"pull {name} from {source}: "
+                                      f"{r.status}"}, status=500)
+                    with open(base + ext, "wb") as f:
+                        async for chunk in r.content.iter_chunked(1 << 20):
+                            # streamed reads bypass the aiohttp trace
+                            # hooks: book the shard bytes here
+                            netflow.account("recv",
+                                            netflow.current_class(),
+                                            "volume", len(chunk))
+                            f.write(chunk)
+            except aiohttp.ClientError as e:
+                return web.json_response({"error": str(e)}, status=500)
+        loc.collections.setdefault(vid, collection)
+        return web.json_response({})
+
+    async def handle_ec_to_volume(self, req: web.Request) -> web.Response:
+        """VolumeEcShardsToVolume (volume_grpc_erasure_coding.go:407):
+        decode the local data shards back into a normal volume, rebuilding
+        missing data shards first on the store's device."""
+        body = await req.json()
+        vid = body["volume"]
+        collection = body.get("collection", "")
+        base = self._ec_base(vid)
+        if base is None:
+            return web.json_response({"error": "no shards here"}, status=404)
+        spec = codecs.parse_tag((ec_files.read_vif(base) or {}).get("codec"))
+        missing = [i for i in range(spec.k)
+                   if not os.path.exists(base + layout.to_ext(i))]
+
+        def decode():
+            if missing:
+                ec_files.rebuild_ec_files(base, device=self.device,
+                                          codec_tag=spec.tag)
+            dat_size = ec_files.find_dat_file_size(base)
+            ec_files.write_dat_file(base, dat_size)
+            ec_files.write_idx_from_ecx(base + ".ecx")
+        await asyncio.to_thread(decode)
+        loc = next(loc for loc in self.store.locations
+                   if base.startswith(loc.directory))
+        loc.volumes[vid] = Volume(loc.directory, collection, vid)
+        loc.collections[vid] = collection
+        await self._heartbeat_once()
+        return web.json_response({})
+
+    async def handle_ec_shard_read(self, req: web.Request) -> web.Response:
+        q = req.query
+        vid, sid = int(q["volume"]), int(q["shard"])
+        offset, size = int(q["offset"]), int(q["size"])
+        ev = self.store.get_ec_volume(vid)
+        if ev is None:
+            return web.json_response({"error": "not mounted"}, status=404)
+        data = ev._read_local(sid, offset, size)
+        if data is None:
+            return web.json_response({"error": "shard not local"},
+                                     status=404)
+        return web.Response(body=data,
+                            content_type="application/octet-stream")
+
+    async def handle_file_pull(self, req: web.Request) -> web.StreamResponse:
+        """Serve a volume or EC file by basename for peer pulls (the
+        source side of VolumeEcShardsCopy)."""
+        name = req.query.get("name", "")
+        if "/" in name or ".." in name:
+            return web.json_response({"error": "bad name"}, status=400)
+        ok_ext = name.endswith((".dat", ".idx")) or \
+            any(name.endswith(e) for e in EC_FILE_EXTS)
+        if not ok_ext:
+            return web.json_response({"error": "bad extension"}, status=400)
+        if name.endswith((".dat", ".idx")):
+            # flush buffered index and data writes so peers pull a
+            # current copy
+            stem = name.rsplit(".", 1)[0]
+            try:
+                vid = int(stem.rsplit("_", 1)[-1] if "_" in stem else stem)
+            except ValueError:
+                vid = -1
+            v = self.store.get_volume(vid)
+            if v is not None:
+                await asyncio.to_thread(v.flush)
+        for loc in self.store.locations:
+            p = os.path.join(loc.directory, name)
+            if os.path.exists(p):
+                return web.FileResponse(p)
+        return web.json_response({"error": "file not found"}, status=404)

@@ -17,10 +17,12 @@ multiplicative sweep, and `serialize` is a node's mergeable form.
 Dimensions: ``chunk``, ``volume``, ``tenant``.  The port's data plane
 records a ``degraded`` event on a volume whenever an EC read
 reconstructs (`ec_volume.EcVolume`), under foreground traffic only
-(`ambient_is_data`).  The reference's defaults are constants here: the
-switch, top-K size and half-life knobs, the fleet merge, tenants and the
-`/heat` handler come with the servers and the master (ROADMAP 1.15a,
-1.15).
+(`ambient_is_data`).  The tenant a request carries (`TENANT_HEADER`)
+rides a contextvar that the servers' middleware sets and their clients
+forward (`inject`).  The reference's defaults are constants here: the
+switch, top-K size and half-life knobs, the fleet merge, tenant
+resolution at the edge and the `/heat` handler come with the rest of the
+servers and the master (ROADMAP 1.15a.3b, 1.18c).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import threading
 import time
 import uuid
 import zlib
+from contextvars import ContextVar
 
 from seaweedfs_tpu_torch.stats import netflow
 
@@ -48,6 +51,8 @@ EPS = 1e-3
 # the reference's defaults: counters per dimension, and the half-life
 HEAT_K = 64
 HALFLIFE_S = 300.0
+
+TENANT_HEADER = "X-Weedtpu-Tenant"
 
 
 def ambient_is_data(include_readahead: bool = False) -> bool:
@@ -273,3 +278,28 @@ def reset() -> None:
 
 def serialize() -> dict:
     return TRACKER.serialize()
+
+
+# -- tenant identity -----------------------------------------------------
+
+_tenant: ContextVar[str | None] = ContextVar("weedtpu_tenant",
+                                             default=None)
+
+
+def set_tenant(tenant: str | None):
+    """Raw contextvar set -> reset token (the server middleware's
+    seam)."""
+    return _tenant.set(tenant)
+
+
+def reset_tenant(token) -> None:
+    _tenant.reset(token)
+
+
+def inject(headers: dict) -> dict:
+    """Stamp the ambient tenant on an outgoing header dict, in place, so
+    the next hop attributes its work to the tenant the edge resolved."""
+    tenant = _tenant.get()
+    if tenant:
+        headers[TENANT_HEADER] = tenant
+    return headers

@@ -4,10 +4,11 @@ exposition.
 Counterpart of `seaweedfs_tpu/stats/metrics.py` (reference:
 weed/stats/metrics.go), cut to what the port's data plane touches: the
 metric classes, the registry and its exposition format 0.0.4 (OpenMetrics
-on request), and the families the port's telemetry books into, under the
-reference's names, labels and buckets.  The push-gateway loop, the
-`/metrics` handler and every serving-plane family come with the servers
-(ROADMAP 1.15a.3).
+on request), the families the port's telemetry and its volume server
+book into, under the reference's names, labels and buckets, and the
+servers' `/metrics` response (`scrape_response`).  The push-gateway
+loop comes with the rest of the volume server (ROADMAP 1.15a.3b), the
+other servers' families with those servers.
 """
 
 from __future__ import annotations
@@ -42,6 +43,19 @@ class _Metric:
         self.name, self.help, self.label_names = name, help_text, label_names
         self._children: dict[tuple[str, ...], object] = {}
         self._lock = threading.Lock()
+
+    def remove_matching(self, **by_label) -> int:
+        """Drop every child whose labels match the given values: a server
+        retires its own per-instance series (disk dirs, hosted volumes)
+        at stop()."""
+        idx = {self.label_names.index(k): str(v)
+               for k, v in by_label.items()}
+        with self._lock:
+            dead = [vals for vals in self._children
+                    if all(vals[i] == v for i, v in idx.items())]
+            for vals in dead:
+                del self._children[vals]
+        return len(dead)
 
     def labels(self, *values: str):
         values = tuple(str(v) for v in values)
@@ -305,3 +319,49 @@ ROOFLINE_FRAC = REGISTRY.gauge(
     "achieved throughput of a kernel as a fraction of the measured "
     "hardware ceiling of the resource it exercises",
     ("resource", "kernel"))
+# every completed HTTP request by role/read-write/status class, counted in
+# the trace middleware (stats/trace.py)
+HTTP_REQUESTS = REGISTRY.counter(
+    "weedtpu_http_requests_total",
+    "completed requests by server role, read/write op, and status class",
+    ("server", "op", "class"))
+DEADLINE_TIMEOUTS = REGISTRY.counter(
+    "weedtpu_deadline_timeouts_total",
+    "requests aborted with 504 by an expired deadline budget",
+    ("server",))
+# the volume server's own families (server/volume_server.py)
+VOLUME_REQUEST_COUNTER = REGISTRY.counter(
+    "weedtpu_volume_request_total", "volume server requests", ("type",))
+VOLUME_REQUEST_HISTOGRAM = REGISTRY.histogram(
+    "weedtpu_volume_request_seconds", "volume request latency", ("type",))
+VOLUME_COUNT_GAUGE = REGISTRY.gauge(
+    "weedtpu_volumes", "volumes served", ("collection", "type"))
+EC_ENCODE_BYTES = REGISTRY.counter(
+    "weedtpu_ec_encode_bytes_total", "bytes EC-encoded", ("codec",))
+NEEDLE_CRC_MISMATCH = REGISTRY.counter(
+    "weedtpu_needle_crc_mismatch_total",
+    "store-volume reads that failed CRC verification")
+DISK_BYTES = REGISTRY.gauge(
+    "weedtpu_disk_bytes",
+    "per-data-dir disk capacity by volume server, directory, and kind "
+    "(total/used/free)", ("vs", "dir", "kind"))
+VOLUME_SIZE = REGISTRY.gauge(
+    "weedtpu_volume_size_bytes",
+    "size of each locally served volume, per hosting server",
+    ("vid", "vs"))
+
+
+def scrape_response(req):
+    """The servers' aiohttp /metrics response with content negotiation:
+    the OpenMetrics rendering (exemplars linking latency buckets to trace
+    ids) when the scraper asks for it, Prometheus text 0.0.4 otherwise.
+    Roofline fractions are re-derived from the live kernel profile here,
+    so every scrape carries current achieved-vs-ceiling numbers."""
+    from aiohttp import web
+
+    from seaweedfs_tpu_torch.stats import profile
+    profile.export_roofline()
+    if "application/openmetrics-text" in req.headers.get("Accept", ""):
+        return web.Response(text=REGISTRY.render(openmetrics=True),
+                            content_type="application/openmetrics-text")
+    return web.Response(text=REGISTRY.render(), content_type="text/plain")

@@ -11,9 +11,10 @@ and every hop made under it inherits it.  The port's data plane declares
 reference does.  The pooled client (utils/http.py) stamps the class and
 its own role on every request (``X-Weedtpu-Class``, ``X-Weedtpu-Role``:
 `inject`) and books the bytes it moves; a server reads the class back
-with `extract_class`.  The aiohttp role-stamping hook and the
-reference's ``WEEDTPU_NETFLOW`` switch come with the servers (ROADMAP
-1.15a.3).
+with `extract_class`.  The servers' aiohttp apps stamp their role on
+every reply (`install`), and their middleware books request and reply
+bodies (`response_bytes`).  The reference's ``WEEDTPU_NETFLOW`` switch
+comes with the rest of the servers (ROADMAP 1.15a.3b).
 
 Classes: ``data``, ``replication``, ``repair``, ``convert``,
 ``rebalance``, ``scrub``, ``readahead``, ``internal``.  Unlabelled
@@ -173,3 +174,51 @@ def extract_class(headers, path: str) -> str:
     the path's default."""
     cls = headers.get(CLASS_HEADER, "")
     return cls if cls in CLASSES else classify(path)
+
+
+def response_bytes(resp) -> int:
+    """Best-effort body size of an aiohttp response object after the
+    handler returned: plain Responses know their body; an
+    already-written StreamResponse reports what its writer moved (which
+    includes framing — the reason conservation asserts ~1%, not
+    equality)."""
+    if resp is None:
+        return 0
+    body = getattr(resp, "body", None)
+    if body is not None:
+        try:
+            return len(body)
+        except TypeError:
+            pass  # Payload body: fall through to the writer
+    w = getattr(resp, "_payload_writer", None)
+    if w is not None and getattr(w, "output_size", 0):
+        return int(w.output_size)
+    try:
+        return int(getattr(resp, "content_length", 0) or 0)
+    except (TypeError, ValueError):
+        return 0
+
+
+# request-dict key marking that SOME response was prepared (headers on
+# the wire) for this request — the deadline enforcement in
+# trace.aiohttp_middleware reads it to decide between a clean 504 and
+# tearing the connection down mid-stream
+PREPARED_KEY = "weedtpu_response_prepared"
+
+
+def on_response_prepare(role: str):
+    """aiohttp ``app.on_response_prepare`` hook: stamp this server's role
+    on every reply (including prepared StreamResponses, which the
+    middleware can no longer touch) so the CLIENT side of the ledger can
+    label its recv bytes with the true peer role."""
+    async def _prepare(req, resp) -> None:
+        resp.headers[ROLE_HEADER] = role
+        req[PREPARED_KEY] = True
+    return _prepare
+
+
+def install(app, role: str) -> None:
+    """Wire the role-stamping prepare hook into a server app (the byte
+    counting itself lives in trace.aiohttp_middleware, which every
+    server already mounts)."""
+    app.on_response_prepare.append(on_response_prepare(role))

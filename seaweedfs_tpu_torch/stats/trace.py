@@ -17,8 +17,11 @@ disables local sampling) is the serving plane's choice; background work
 and tools start a sampled root themselves with `new_root()`.  A blocking
 client carries the context to its peer in the `X-Weedtpu-Trace` header
 (`inject`; `format_header`/`parse_header`: "<32 hex>-<16 hex>-<0|1>").
-Pinned traces, the request registry, the aiohttp middleware and the
-`/debug` routes come with the servers (ROADMAP 1.15a.3).
+A server mounts `aiohttp_middleware`, which continues or starts the
+trace per request, registers the request in flight, applies the deadline
+budget and records the root span.  Pinned traces, the `/debug` routes
+and `loopback_error`, the gate of those routes and of the scrub and
+fault hooks, come with the rest of the volume server (ROADMAP 1.15a.3b).
 """
 
 from __future__ import annotations
@@ -59,6 +62,18 @@ def sample_rate() -> int:
     except ValueError:
         raise ValueError(f"WEEDTPU_TRACE_SAMPLE={value!r}: want an "
                          f"integer") from None
+
+
+def slow_ms() -> float:
+    """Requests at least this slow (WEEDTPU_SLOW_MS, default 1000) get a
+    root span even when sampled out, and a log line.  A value that is
+    not a number raises ValueError."""
+    value = os.environ.get("WEEDTPU_SLOW_MS", "1000")
+    try:
+        return float(value)
+    except ValueError:
+        raise ValueError(f"WEEDTPU_SLOW_MS={value!r}: want a number") \
+            from None
 
 
 def _new_trace_id() -> str:
@@ -300,3 +315,208 @@ def assemble(spans: list[dict]) -> dict:
             "error": any(s.get("error") for s in out),
             "span_count": len(out), "servers": servers, "nodes": nodes,
             "regions": regions, "orphans": orphans, "spans": out}
+
+
+# -- in-flight request registry -----------------------------------------
+
+_inflight: dict[int, dict] = {}
+_inflight_seq = itertools.count(1)
+
+
+def request_started(method: str, path: str, remote: str | None,
+                    trace_id: str | None) -> int:
+    rid = next(_inflight_seq)
+    _inflight[rid] = {"id": rid, "method": method, "path": path,
+                      "remote": remote or "", "trace_id": trace_id or "",
+                      "start": time.time(), "_t0": time.perf_counter()}
+    return rid
+
+
+def request_finished(rid: int) -> None:
+    _inflight.pop(rid, None)
+
+
+def inflight() -> list[dict]:
+    now = time.perf_counter()
+    out = []
+    for rec in list(_inflight.values()):
+        r = {k: v for k, v in rec.items() if not k.startswith("_")}
+        r["age_ms"] = round((now - rec["_t0"]) * 1000.0, 1)
+        out.append(r)
+    out.sort(key=lambda r: r["age_ms"], reverse=True)
+    return out
+
+
+# -- aiohttp server glue ------------------------------------------------
+
+def aiohttp_middleware(role: str):
+    """Server-side half of the propagation: extract X-Weedtpu-Trace (or
+    make a root sampling decision), register the request in the in-flight
+    table, and on completion record the root span -- always for sampled
+    requests, retroactively for unsampled ones that finished slow or
+    errored (with a slow-request log line either way).  Client
+    disconnects (CancelledError) are neither slow nor errored.
+
+    The caller's X-Weedtpu-Class/-Role headers and its tenant
+    (X-Weedtpu-Tenant) are honoured, as on every cluster-internal server
+    of the reference: that propagation is how a repair's shard pulls book
+    as repair two hops away.  The class becomes ambient for the handler;
+    the request and reply bodies are booked into the byte ledger, and
+    the request into weedtpu_http_requests_total{server,op,class}
+    (op "internal" for cluster plumbing).  An incoming X-Weedtpu-Deadline,
+    else the WEEDTPU_DEADLINE_MS edge default for data-plane requests,
+    bounds the handler: at expiry it answers a fast 504."""
+    import asyncio
+
+    from aiohttp import web
+
+    from seaweedfs_tpu_torch.stats import heat, metrics, netflow
+    from seaweedfs_tpu_torch.utils import resilience, weedlog
+
+    counter = itertools.count(1)
+
+    @web.middleware
+    async def middleware(req: web.Request, handler):
+        hdr = req.headers.get(TRACE_HEADER)
+        t_in = parse_header(hdr) if hdr else None
+        rate = sample_rate()
+        parent_id = None
+        if t_in is not None:
+            # continue the caller's trace under a fresh span id: the
+            # header's span id is the caller's current span, our parent
+            parent_id = t_in.span_id
+            t = Trace(t_in.trace_id, _new_span_id(), t_in.sampled)
+        elif rate > 0 and next(counter) % rate == 0:
+            t = Trace(_new_trace_id(), _new_span_id(), True)
+        else:
+            t = None
+        token = _current.set(t) if t is not None else None
+        flow_cls = netflow.extract_class(req.headers, req.path)
+        flow_peer = req.headers.get(netflow.ROLE_HEADER, "client")
+        # a declared-internal request must not inflate the data-plane
+        # availability denominators
+        if flow_cls == "internal" or netflow.is_internal(req.path):
+            op = "internal"
+        else:
+            op = "read" if req.method in ("GET", "HEAD") else "write"
+        # the header is caller-sized: the tenant becomes a metric label
+        hdr_tenant = req.headers.get(heat.TENANT_HEADER)
+        tenant_token = heat.set_tenant(hdr_tenant[:64]) \
+            if hdr_tenant else None
+        flow_token = netflow.set_class(flow_cls)
+        deadline_s = resilience.extract_deadline_s(req.headers)
+        if deadline_s is None and op != "internal":
+            edge = resilience.default_deadline_ms()
+            if edge > 0:
+                deadline_s = edge / 1000.0
+        dl_token = resilience.set_deadline(
+            time.monotonic() + deadline_s) if deadline_s is not None \
+            else None
+        rid = request_started(req.method, req.path_qs, req.remote,
+                              t.trace_id if t is not None else None)
+        start = time.time()
+        t0 = time.perf_counter()
+        status = 500
+        cancelled = False
+        timed_out = False
+        resp_obj = None
+        try:
+            if dl_token is not None:
+                try:
+                    resp = await asyncio.wait_for(handler(req),
+                                                  timeout=deadline_s)
+                except (asyncio.TimeoutError,
+                        resilience.DeadlineExceeded) as te:
+                    # only OUR budget expiring is a deadline 504: a
+                    # timeout escaping the handler with budget still on
+                    # the clock is that code path's own failure
+                    rem = resilience.remaining()
+                    if not isinstance(te, resilience.DeadlineExceeded) \
+                            and rem is not None and rem > 0.01:
+                        raise
+                    timed_out = True
+                    metrics.DEADLINE_TIMEOUTS.labels(role).inc()
+                    if req.get(netflow.PREPARED_KEY):
+                        # headers are on the wire: a fresh 504 cannot be
+                        # delivered, so the connection goes down now
+                        if req.transport is not None:
+                            req.transport.close()
+                        raise ConnectionResetError(
+                            "deadline exceeded mid-stream") from None
+                    resp = web.json_response(
+                        {"error": "deadline exceeded",
+                         "budget_ms": round(deadline_s * 1000.0, 1)},
+                        status=504)
+            else:
+                resp = await handler(req)
+            status = resp.status
+            resp_obj = resp
+            return resp
+        except web.HTTPException as e:
+            status = e.status
+            resp_obj = e  # an HTTPException is a Response (has a body)
+            raise
+        except (asyncio.CancelledError, ConnectionResetError,
+                BrokenPipeError):
+            # the client hung up: a fact about the caller, not a server
+            # error -- except the mid-stream deadline teardown above
+            if timed_out:
+                status = 504
+            else:
+                cancelled = True
+            raise
+        finally:
+            ms = (time.perf_counter() - t0) * 1000.0
+            request_finished(rid)
+            if token is not None:
+                _current.reset(token)
+            if dl_token is not None:
+                resilience.reset_deadline(dl_token)
+            netflow.reset(flow_token)
+            if tenant_token is not None:
+                heat.reset_tenant(tenant_token)
+            # chunked uploads have no Content-Length; the payload
+            # StreamReader's total_bytes knows what actually arrived
+            recv = req.content_length if req.content_length is not None \
+                else getattr(req.content, "total_bytes", 0)
+            netflow.account("recv", flow_cls, flow_peer, recv or 0)
+            netflow.account("sent", flow_cls, flow_peer,
+                            netflow.response_bytes(resp_obj))
+            if not cancelled:
+                metrics.HTTP_REQUESTS.labels(
+                    role, op, f"{status // 100}xx").inc()
+            slow = ms >= slow_ms() and not cancelled
+            errored = status >= 500 and not cancelled
+            if t is not None and t.sampled:
+                attrs = {"method": req.method, "path": req.path,
+                         "status": status, "server": role}
+                if cancelled:
+                    attrs["cancelled"] = True
+                if timed_out:
+                    # the waterfall's "this hop ran out of budget" mark
+                    attrs["op"] = "timeout"
+                    attrs["budget_ms"] = round(deadline_s * 1000.0, 1)
+                record_span(f"{role}.request", t.trace_id, t.span_id,
+                            parent_id, start, ms, attrs, errored)
+            elif rate > 0 and (slow or errored):
+                # keep slow and errored requests even when sampled out:
+                # a root span appears retroactively
+                retro = t or Trace(_new_trace_id(), _new_span_id(), True)
+                retro_attrs = {"method": req.method, "path": req.path,
+                               "status": status, "server": role,
+                               "retro": True}
+                if timed_out:
+                    retro_attrs["op"] = "timeout"
+                record_span(f"{role}.request", retro.trace_id,
+                            retro.span_id, None, start, ms,
+                            retro_attrs, errored)
+                t = retro
+            if slow and rate > 0:
+                weedlog.info(
+                    "slow request: %s %s %s took %.1fms (status %d) "
+                    "trace=%s", role, req.method, req.path_qs, ms,
+                    status, t.trace_id if t is not None else "-",
+                    name="trace")
+
+    return middleware
+

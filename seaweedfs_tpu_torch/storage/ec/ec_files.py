@@ -877,9 +877,12 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
 
 def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
                      progress=None, cancel=None, stats=None,
-                     device=None) -> list[int]:
+                     device=None, codec_tag: str | None = None) -> list[int]:
     """Regenerate whichever shard files are missing from the present
-    ones, under the code the `.vif` names; returns the rebuilt shard ids.
+    ones, under `codec_tag` (the caller's tag wins, as in the reference:
+    a rebuilder holding copied shards but no `.vif` must still decode
+    with the right matrix) or else the code the `.vif` names; returns the
+    rebuilt shard ids.
 
     Survivors (`codec.basis`: one local group for an LRC single loss)
     are mmap'd.  "staged" mode (the card, the plain version, and MSR on
@@ -897,7 +900,8 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
     WRITE_FIXED, and otherwise hands them to the writers as they are.  `stats`
     gets mode, bytes, codec, reconstruct_s, stall_s, write_s, wall_s,
     overlap_frac and the write engine's keys (`_ShardWriterPool`)."""
-    spec = codecs.parse_tag((read_vif(base) or {}).get("codec"))
+    spec = codecs.parse_tag(codec_tag or
+                            (read_vif(base) or {}).get("codec"))
     present = [i for i in range(spec.n)
                if os.path.exists(base + layout.to_ext(i))]
     missing = [i for i in range(spec.n) if i not in present]

@@ -110,6 +110,10 @@ class DiskLocation:
                 self.collections.setdefault(vid, m.group("col") or "")
         self.load_s = time.perf_counter() - t0
 
+    def base_path(self, vid: int, collection: str = "") -> str:
+        name = f"{collection}_{vid}" if collection else str(vid)
+        return os.path.join(self.directory, name)
+
 
 class Store:
     def __init__(self, directories: list[str], max_volumes: int = 8,

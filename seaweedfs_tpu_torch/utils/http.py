@@ -7,9 +7,11 @@ fresh-dial retry (idempotent methods, or a send the kernel refused, with
 a retry-budget token), the per-peer circuit breaker, the ambient deadline
 (checked, clamped into the socket timeout, forwarded in
 ``X-Weedtpu-Deadline``), the trace and traffic-class headers, TLS dials
-(security/tls.py) and the reuse/dial counters.  The heat-tenant and
-network-fault hooks, the aiohttp trace config, `post_json` and
-`parse_range` come with the servers (ROADMAP 1.15a.3).
+(security/tls.py) and the reuse/dial counters.  The servers' aiohttp
+client sessions mount `aiohttp_trace_config`, and the blob read path
+parses `Range` with `parse_range`.  The heat-tenant and network-fault
+hooks of both clients and `post_json` come with the rest of the volume
+server (ROADMAP 1.15a.3b).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import threading
 import time
 import urllib.parse
 
+from seaweedfs_tpu_torch.stats import heat as _heat
 from seaweedfs_tpu_torch.stats import metrics as _metrics
 from seaweedfs_tpu_torch.stats import netflow as _netflow
 from seaweedfs_tpu_torch.stats import trace as _trace
@@ -406,3 +409,102 @@ class PooledHTTP:
             self._idle.clear()
         for c in conns:
             c.close()
+
+
+def aiohttp_trace_config(role: str | None = None):
+    """aiohttp client half of trace propagation and byte-flow
+    accounting: a TraceConfig whose on_request_start opens a client-send
+    span per outgoing request on sampled traces (the peer's server span
+    parents to it, so the assembler can difference client-observed and
+    server-observed duration into per-hop network time), stamps
+    X-Weedtpu-Trace, the deadline, the traffic-class, caller-role and
+    tenant headers, and whose chunk hooks book body bytes into the
+    netflow ledger.  Every server's ClientSession mounts it."""
+    import aiohttp
+
+    def _finish_span(ctx, error: bool) -> None:
+        span = getattr(ctx, "send_span", None)
+        if span is None:
+            return
+        ctx.send_span = None
+        child, parent_id, start, t0 = span
+        _trace.record_span(
+            "http.send", child.trace_id, child.span_id, parent_id,
+            start, (time.perf_counter() - t0) * 1000.0,
+            ctx.send_attrs, error)
+
+    async def _on_request_start(session, ctx, params) -> None:
+        # deadline budget: each hop forwards only what remains
+        _res.inject_deadline(params.headers)
+        t = _trace.current()
+        ctx.send_span = None
+        if t is not None:
+            hdr_ctx = t
+            if t.sampled:
+                child = _trace.Trace(t.trace_id, _trace._new_span_id(),
+                                     True)
+                ctx.send_span = (child, t.span_id, time.time(),
+                                 time.perf_counter())
+                ctx.send_attrs = {"method": params.method,
+                                  "peer": f"{params.url.host}:"
+                                          f"{params.url.port}"}
+                hdr_ctx = child
+            params.headers[_trace.TRACE_HEADER] = \
+                _trace.format_header(hdr_ctx)
+        ctx.flow_cls = _netflow.current_class() or \
+            _netflow.classify(params.url.path)
+        params.headers[_netflow.CLASS_HEADER] = ctx.flow_cls
+        if role:
+            params.headers[_netflow.ROLE_HEADER] = role
+        _heat.inject(params.headers)
+        ctx.flow_sent = 0
+        ctx.flow_peer = None
+
+    async def _on_request_chunk_sent(session, ctx, params) -> None:
+        # buffered until the response arrives: only then is the peer's
+        # role known (stamped by its on_response_prepare hook)
+        ctx.flow_sent += len(params.chunk)
+
+    async def _on_request_end(session, ctx, params) -> None:
+        ctx.flow_peer = params.response.headers.get(
+            _netflow.ROLE_HEADER, "server")
+        _netflow.account("sent", ctx.flow_cls, ctx.flow_peer,
+                         ctx.flow_sent)
+        ctx.flow_sent = 0
+        _finish_span(ctx, params.response.status >= 500)
+
+    async def _on_request_exception(session, ctx, params) -> None:
+        _finish_span(ctx, True)
+
+    async def _on_response_chunk_received(session, ctx, params) -> None:
+        _netflow.account("recv", ctx.flow_cls,
+                         ctx.flow_peer or "server", len(params.chunk))
+
+    tc = aiohttp.TraceConfig()
+    tc.on_request_start.append(_on_request_start)
+    tc.on_request_chunk_sent.append(_on_request_chunk_sent)
+    tc.on_request_end.append(_on_request_end)
+    tc.on_request_exception.append(_on_request_exception)
+    tc.on_response_chunk_received.append(_on_response_chunk_received)
+    return tc
+
+
+def parse_range(rng: str, size: int) -> tuple[int, int]:
+    """Parse a single-range `bytes=` header against a body of `size` bytes.
+    Returns (offset, length); raises ValueError for unsatisfiable ranges
+    (callers answer 416)."""
+    spec = rng[len("bytes="):].split(",")[0].strip()
+    start_s, _, end_s = spec.partition("-")
+    if start_s == "":
+        n = int(end_s)
+        if n <= 0:
+            raise ValueError(rng)
+        start = max(0, size - n)
+        end = size - 1
+    else:
+        start = int(start_s)
+        end = int(end_s) if end_s else size - 1
+        end = min(end, size - 1)
+    if start > end or start >= size:
+        raise ValueError(rng)
+    return start, end - start + 1

@@ -731,3 +731,88 @@ def _shard_spans(ev, nid, shard):
         if sid == shard:
             out.append((soff, soff + iv.size))
     return out
+
+
+@pytest.mark.cuda
+def test_cuda_volume_server_generate_and_degraded_get(card, tmp_path):
+    """The port's volume server on the card, in process behind a master
+    stand-in: /admin/ec/generate writes the shard set the CPU encode
+    writes of the same .dat, launching K1; once mounted with data shards
+    0 and 3 gone, a GET of each blob equals its bytes, and K1 grows
+    exactly as the volume's reconstruct batches do."""
+    import asyncio
+    import json
+    import socket
+    import threading
+    import urllib.request
+    from aiohttp import web
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.ec import ec_files
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    async def heartbeat(req):
+        return web.json_response({})
+
+    app = web.Application()
+    app.add_routes([web.post("/heartbeat", heartbeat)])
+    loop = asyncio.new_event_loop()
+    threading.Thread(target=loop.run_forever, daemon=True).start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(120)
+
+    runner = web.AppRunner(app)
+    mport = free_port()
+    run(runner.setup())
+    run(web.TCPSite(runner, "127.0.0.1", mport).start())
+    d = tmp_path / "vs"
+    vs = VolumeServer([str(d)], f"127.0.0.1:{mport}", port=free_port())
+    assert vs.device.type == "cuda"
+    run(vs.start())
+
+    def call(path, data=None, method=None):
+        req = urllib.request.Request(
+            f"http://{vs.url}{path}", data=data,
+            method=method or ("POST" if data is not None else "GET"),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.read()
+
+    try:
+        call("/admin/assign_volume", json.dumps({"volume": 3}).encode())
+        g = np.random.default_rng(12)
+        blobs = {}
+        for k in range(1, 41):
+            f = f"3,{k:x}{k:08x}"
+            blobs[f] = g.bytes(int(g.integers(1, 300_000)))
+            call("/" + f, blobs[f], "PUT")
+        call("/admin/volume/readonly", b'{"volume": 3}')
+        before = gf_cuda.LAUNCHES["gf_apply"]
+        call("/admin/ec/generate", b'{"volume": 3}')
+        assert gf_cuda.LAUNCHES["gf_apply"] > before
+        cpu = tmp_path / "cpu"
+        cpu.mkdir()
+        shutil.copy(d / "3.dat", cpu / "3.dat")
+        ec_files.write_ec_files(str(cpu / "3"), device="cpu")
+        for i in range(14):
+            assert (d / f"3.ec{i:02d}").read_bytes() == \
+                (cpu / f"3.ec{i:02d}").read_bytes(), i
+        call("/admin/ec/mount", b'{"volume": 3}')
+        call("/admin/volume/delete", b'{"volume": 3}')
+        call("/admin/ec/delete_shards", b'{"volume": 3, "shards": [0, 3]}')
+        ev = vs.store.get_ec_volume(3)
+        before = gf_cuda.LAUNCHES["gf_apply"]
+        b0 = ev.read_stats_snapshot()["reconstruct_batches"]
+        for f, data in blobs.items():
+            assert call("/" + f) == data, f
+        batches = ev.read_stats_snapshot()["reconstruct_batches"] - b0
+        assert batches > 0
+        assert gf_cuda.LAUNCHES["gf_apply"] - before == batches
+    finally:
+        run(vs.stop())
+        run(runner.cleanup())
+        loop.call_soon_threadsafe(loop.stop)

@@ -53,7 +53,11 @@ def test_port_imports_no_jax_and_no_reference(path):
             assert top != "seaweedfs_tpu", f"{path}: imports {name}"
     # the card's path needs none of the servers' packages: none is
     # imported at module level (security/tls.py imports cryptography
-    # inside generate_certs, which nothing on the card's path calls)
+    # inside generate_certs, which nothing on the card's path calls);
+    # the servers' own modules are the exception, aiohttp being what
+    # they serve with
+    if path.parent.name == "server":
+        return
     for node in tree.body:
         if isinstance(node, (ast.Import, ast.ImportFrom)):
             names = [a.name for a in node.names] \
@@ -70,6 +74,28 @@ def test_import_rule_covers_the_store_slice():
                 "storage/volume.py", "storage/needle_map.py",
                 "utils/resilience.py", "utils/http.py", "security/tls.py"):
         assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
+def test_import_rule_covers_the_server_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("server/volume_server.py", "server/ui.py", "__main__.py",
+                "pb/__init__.py", "security/jwt.py", "security/guard.py",
+                "utils/weedlog.py", "topology/topology.py", "images.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
+def test_card_path_modules_import_no_server_package():
+    """The store, the EC files and the codecs load without aiohttp and
+    protobuf: only the server modules import them at module level."""
+    code = ("import sys\n"
+            "import seaweedfs_tpu_torch.storage.store\n"
+            "import seaweedfs_tpu_torch.pb, seaweedfs_tpu_torch.utils.http\n"
+            "import seaweedfs_tpu_torch.stats.trace\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('aiohttp', 'jax') or m.startswith('google.protobuf')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   timeout=120)
 
 
 def test_port_path_leaves_jax_unloaded(tmp_path):
