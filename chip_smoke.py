@@ -31,14 +31,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                lost data shard (and more, >= 200) read through
                EcVolume.read_needle, CRC checked, bytes compared
   6 rebuild    rebuild_ec_files; rebuilt shards' sha256 == the originals'
-  7 fleet      convert_volumes over four volumes (the phase-3 .dat, 256
-               MiB and 100 MiB + 12 345 B of random bytes, 65 536 B): one
-               K2 launch per batch of 4 units, launches against the count
-               the layout predicts, every stripe row of the three small
-               volumes checked, the 1 GiB volume's shards sha256-equal to
-               phase 4's, each .vif byte-equal to the reference fleet's;
-               then the 1 GiB volume again at 64 MiB large blocks (one
-               large row: [4,10,16MiB] launches)
+  7 fleet      convert_volumes over four volumes (the phase-3 .dat and
+               volumes of one needle of random bytes each, .dat of 256
+               MiB, 100 MiB + 12 352 B and 65 536 B): one K2 launch per
+               batch of 4 units, launches against the count the layout
+               predicts, every stripe row of the three small volumes
+               checked, the 1 GiB volume's shards sha256-equal to phase
+               4's, each .vif byte-equal to the reference fleet's, every
+               shard's sha256 kept for phase 17; then the 1 GiB volume
+               again at 64 MiB large blocks (one large row: [4,10,16MiB]
+               launches)
   8 scrub      syndrome_scan of the phase-4 shard set: clean, then with a
                byte flipped in shards 5 and 11 (two ranges, localised),
                then with shard 12 aside (a flip found, not localised)
@@ -191,14 +193,48 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                ec.rebuild: A borrows B's survivors, rebuilds (sha256 ==
                phase 4's, K1 == phase 6's), drops them, mounts; (6) the
                shell's ec.decode: /admin/ec/to_volume, the .dat sha256 ==
-               phase 3's, every needle read back; (7) 32768 x 1 KiB
+               phase 3's, every needle read back; (7) 16384 x 1 KiB
                objects on B at 16 clients (upstream's `weed benchmark`
                -size 1024 -c 16, cut), written then read, 256 deleted;
                1024 writes to a 001 volume on A read back from A and B;
                (8) /metrics on A and B count the blob requests made;
-               launches zeroed before and read after; every line with
-               the card's name and power limit
- 17 report     {"kernels": [...]} line, the card's name and power limit,
+               the servers start without a scrubber
+               (WEEDTPU_SCRUB_MBPS=0); launches zeroed before and read
+               after; every line with the card's name and power limit
+ 17 maintenance four port VolumeServers on the card (R, "a:1" in its
+               rack, "c:3" in its data centre, "b:2" in another), in
+               process on one loop thread behind the master stand-in,
+               which also takes /maintenance/scrub_report; scrubbers
+               unthrottled and parked (WEEDTPU_SCRUB_INTERVAL=3600),
+               hedging off: (1) /admin/scrub of links of phase 4's
+               shard set on R, clean (K1 one per window), then bits of
+               shards 5 and 11 (copies) flipped by /admin/faults, both
+               found, localised and quarantined, the report at the
+               stand-in; (2) /admin/scrub_rate to 4 MB/s on a:1 and one
+               pass over 256 x 64 KiB needles, at least 0.9 x bytes /
+               rate; (3) reduced rebuilds on R posted as the master's
+               repair posts them, helpers answering /admin/ec/partial on
+               the card: RS lost [3] at d = 10 and [1, 12] on phase 9's
+               topology, MSR lost [0] on phase 10's msr_9_16 set and
+               topology; every rebuilt shard sha256-equal to phase 4's
+               or 10's, the remote bytes per node equal the plan's and
+               the library run's, K1 equal to phases 9 and 10's; (4)
+               /admin/ec/probe_read four times (K1 one each); (5)
+               /admin/ec/recode rs_10_4 -> lrc_10_2_2 -> rs_10_4 on
+               c:3: shards and .vif sha256-equal to phase 10's and 4's,
+               K1 the layout's encode count each, needles read back;
+               (6) /admin/ec/fleet_convert of links of phase 7's four
+               volumes on b:2: K2 == phase 7's, shards sha256-equal to
+               phase 7's, .ecx written, read-only in the beat, the
+               shard sets in the next, the handler's own seconds beside
+               the step's; (6b) the same conversion with nothing
+               polling /admin/ec/progress, under other ids; (7)
+               /metrics counts the scrub bytes, the fleet's encode
+               bytes (both conversions), the repair bytes by
+               locality and the blob requests made; launches zeroed
+               before and read after; every line with the card's name
+               and power limit
+ 18 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -207,16 +243,18 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12, 13, 14, 15 and 16, so the reported launches are the
-paths' own
+around phases 12, 13, 14, 15, 16 and 17, so the reported launches are
+the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
 (`gf_cuda.STAGED`), since each hands the kernel rows it reads in place,
 and if K2 was not launched.  After phase 13's window, two records: fleet
 against one write_ec_files per volume over the same four volumes (fleet,
 serial, serial, fleet), and rebuild_ec_files of phase 9's single loss;
-then phases 14, 15 and 16 (phase 16 on a copy of the phase-3 volume
-taken before phase 14, whose appends go through links of it).
+then phases 14, 15, 16 and 17 (phases 16 and 17 on a copy of the
+phase-3 volume taken before phase 14, whose appends go through links of
+it; phase 17 also on links of phase 4's and 10's shard sets and phase
+7's volumes).
 Needs one CUDA card; exits non-zero without one, and outside a checkout
 of the repository.
 """
@@ -723,6 +761,28 @@ def link_volumes(srcs: list[str], dirname: str) -> list[str]:
     return bases
 
 
+def one_needle_volume(dirname: str, vid: int, size: int, rng) -> str:
+    """A volume of one needle of random bytes whose .dat is exactly `size`
+    bytes (a multiple of 8: the record's padding), written by the port's
+    Volume with its .idx, so a volume server mounts it as it is.  Returns
+    the .dat path."""
+    from seaweedfs_tpu_torch.storage import needle as ndl
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    body = next(x for x in range(size - 48, size - 8)
+                if 8 + t.actual_size(x) == size)  # DataSize + data + flags
+    v = Volume(dirname, "", vid)
+    v.append_needle(ndl.Needle(cookie=0x1234ABCD, id=1,
+                               data=rng.bytes(body - 5),
+                               append_at_ns=1_700_000_000_000_000_000))
+    v.flush()
+    v.close()
+    if os.path.getsize(v.dat_path) != size:
+        raise AssertionError(f"volume {vid}: {os.path.getsize(v.dat_path)} "
+                             f"B, wanted {size}")
+    return v.dat_path
+
+
 def phase_fleet(vdir: str, dat_path: str, hashes: list[str], seed: int,
                 launches: dict) -> tuple[dict, list[str]]:
     """Phase 7: fleet conversion of four volumes through K2, checked against
@@ -740,11 +800,9 @@ def phase_fleet(vdir: str, dat_path: str, hashes: list[str], seed: int,
     srcs = [os.path.join(src, "1.dat")]
     os.link(dat_path, srcs[0])
     rng = np.random.default_rng(seed + 5)
-    for name, size in (("2", 256 * MIB), ("3", 100 * MIB + 12_345),
-                       ("4", 65_536)):
-        srcs.append(os.path.join(src, name + ".dat"))
-        with open(srcs[-1], "wb") as f:
-            f.write(rng.bytes(size))
+    for vid, size in ((2, 256 * MIB), (3, 100 * MIB + 12_352),
+                      (4, 65_536)):
+        srcs.append(one_needle_volume(src, vid, size, rng))
     sizes = [os.path.getsize(p) for p in srcs]
     units = [predict_units(s, large, small) for s in sizes]
     want = -(-sum(units) // fleet_convert.UNIT_BATCH)
@@ -779,6 +837,9 @@ def phase_fleet(vdir: str, dat_path: str, hashes: list[str], seed: int,
     if [sha256(bases[0] + layout.to_ext(i)) for i in range(14)] != hashes:
         raise AssertionError("fleet shards of the phase-3 volume differ "
                              "from write_ec_files'")
+    # phase 17 converts links of the same volumes through the server
+    fleet_hashes = [hashes] + [[sha256(b + layout.to_ext(i))
+                                for i in range(14)] for b in bases[1:]]
     log(f"[fleet] stripe rows checked {checked}; the phase-3 volume's 14 "
         f"shards sha256-equal to phase 4's; every .vif equal to the "
         f"reference fleet's")
@@ -809,8 +870,8 @@ def phase_fleet(vdir: str, dat_path: str, hashes: list[str], seed: int,
             "gbps": sum(sizes) / dt / 1e9, "launches": got,
             "rows_checked": checked,
             "stages_s": {k: v for k, v in st.items() if k.endswith("_s")},
-            "large64": {"units": units64, "launches": got64, "s": dt64}}, \
-        srcs
+            "large64": {"units": units64, "launches": got64, "s": dt64},
+            "sha256": fleet_hashes}, srcs
 
 
 def flip(path: str, offset: int) -> None:
@@ -1382,7 +1443,8 @@ def phase_codecs(vdir: str, dat_path: str, expect: dict, blob: bytes,
     """Phase 10: the phase-3 .dat encoded, read degraded, rebuilt and
     scrubbed as an lrc_10_2_2 and as an msr_9_16 volume, each step's K1
     launches against the count the layout and the row-block split
-    predict.  Each shard set is deleted after its checks."""
+    predict.  The LRC shard set is deleted after its checks; the MSR one
+    is kept for phase 17 (`kept_base`)."""
     from seaweedfs_tpu_torch.maintenance import scrub
     from seaweedfs_tpu_torch.ops import codecs, lrc
     from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume, layout
@@ -1428,6 +1490,7 @@ def phase_codecs(vdir: str, dat_path: str, expect: dict, blob: bytes,
         rec["encode"] = {"s": dt, "gbps": dat_size / dt / 1e9,
                          "launches": got, "units": units,
                          "rows_checked": checked, "sha256": hashes,
+                         "vif_sha256": sha256(base + ".vif"),
                          "shard_bytes": os.path.getsize(shard[0]),
                          "stages_s": {k_: v for k_, v in st.items()
                                       if k_.endswith("_s")}}
@@ -1558,7 +1621,11 @@ def phase_codecs(vdir: str, dat_path: str, expect: dict, blob: bytes,
         finally:
             ev.close()
         rec["scrub"] = passes
-        shutil.rmtree(cdir)
+        if spec.family == "msr":
+            # phase 17 repairs links of it through the volume server
+            rec["kept_base"] = base
+        else:
+            shutil.rmtree(cdir)
         out[tag] = rec
     return out
 
@@ -3657,7 +3724,7 @@ SERVER_LOSSES = (0, 3, 10, 12)  # phase 5's
 SERVER_A_SHARDS = tuple(range(7))  # the spread: A 0-6, B 7-13
 # upstream's `weed benchmark` defaults (-size 1024 -c 16; SeaweedFS
 # README, weed/command/benchmark.go), cut from -n 1048576
-SERVER_SMALL = 32768
+SERVER_SMALL = 16384
 SERVER_SMALL_SIZE = 1024
 SERVER_CLIENTS = 16
 SERVER_REPLICATED = 1024
@@ -3665,19 +3732,30 @@ SERVER_DELETES = 256
 
 
 class MasterStandIn:
-    """The master's heartbeat intake and lookups, on the servers' loop."""
+    """The master's heartbeat intake, lookups and scrub-report intake, on
+    the servers' loop."""
 
     def __init__(self):
         self.beats: dict = {}  # node url -> its latest decoded beat
         self.framing = {"pb": 0, "json": 0}
+        self.scrub_reports: list = []  # phase 17's
 
     def app(self):
         from aiohttp import web
         app = web.Application()
         app.add_routes([web.post("/heartbeat", self.heartbeat),
                         web.get("/dir/lookup", self.lookup),
-                        web.get("/dir/ec/lookup", self.ec_lookup)])
+                        web.get("/dir/ec/lookup", self.ec_lookup),
+                        web.post("/maintenance/scrub_report",
+                                 self.scrub_report)])
         return app
+
+    async def scrub_report(self, req):
+        """The master's scrub-report intake (server/master.py:1322):
+        kept as posted."""
+        from aiohttp import web
+        self.scrub_reports.append(await req.json())
+        return web.json_response({})
 
     async def heartbeat(self, req):
         from aiohttp import web
@@ -3936,11 +4014,16 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
         run(runner.setup())
         run(web.TCPSite(runner, "127.0.0.1", mport).start())
         for d in dirs:
-            # device left at its default (None): the card
+            # device left at its default (None): the card.  No scrubber:
+            # a background pass would launch K1 inside the counted steps
             vs = vsmod.VolumeServer([d], f"127.0.0.1:{mport}", "127.0.0.1",
                                     free_port(), heartbeat_interval=1.0,
                                     device=device)
-            run(vs.start())
+            with scoped_env(WEEDTPU_SCRUB_MBPS="0"):
+                run(vs.start())
+            if vs.scrubber is not None:
+                raise AssertionError("a phase 16 server started a "
+                                     "scrubber")
             servers.append(vs)
         a, b = servers
         slog(f"servers A {a.url} and B {b.url} on {a.device}")
@@ -4238,6 +4321,577 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
                 "launches": dict(launches)})
     slog(f"K1 per step {k1}; {standin.framing['pb']} beats, all protobuf; "
          f"phase wall {out['s']:.1f} s")
+    return out
+
+
+# phase 17's maintenance through the server.  Its topology is phase 9's
+# and phase 10's, on port volume servers: the repairing node "R" holds
+# shards 0-5, "a:1" (its rack) 6-8 (MSR 6-11), "c:3" (its data centre,
+# another rack; MSR only) 12, "b:2" (another data centre) 9-13 (MSR
+# 13-17).  The master stand-in is the helpers' planner: it posts the
+# reduced rebuilds the reference master's repair would post
+# (maintenance/repair.py:735), with each helper's locality class from
+# the nodes' data centre and rack.
+MAINT_NODES = (("R", "dc1", "r1"), ("a:1", "dc1", "r1"),
+               ("c:3", "dc1", "r2"), ("b:2", "dc2", "r1"))
+MAINT_FAST_MBPS = 1e6  # a scrub rate no pass can reach: unthrottled
+MAINT_RATE_MBPS = 4.0  # step 2's: its volume passes in about 4.2 s
+MAINT_RATE_NEEDLES = 256  # step 2's volume: 256 x 64 KiB needles
+MAINT_PROBES = 4
+MAINT_SAMPLE = 16  # needles read back after each recode
+MAINT_VIDS = {"scrub": 171, "rate": 172, "rs": 173, "msr": 174,
+              "recode": 175, "fleet": (176, 177, 178, 179),
+              "fleet_quiet": (180, 181, 182, 183)}
+
+
+def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
+                      blob: bytes, hashes: list[str], aux_hashes: dict,
+                      phases: dict, srcs: list[str], seed: int,
+                      launches: dict, device=None) -> dict:
+    """Phase 17: the volume server's maintenance routes on the card, four
+    port servers in process on one loop thread behind the master
+    stand-in, driven over loopback HTTP as the reference master drives
+    them: /admin/scrub (clean, then two bits flipped by /admin/faults),
+    /admin/scrub_rate, reduced rebuilds through /admin/ec/partial,
+    /admin/ec/probe_read, /admin/ec/recode there and back,
+    /admin/ec/fleet_convert, /metrics.  K1 and K2 per step held against
+    phases 4 and 7-10; every shard, .vif and .ecx against the phase it
+    mirrors."""
+    import asyncio
+
+    import numpy as np
+    from aiohttp import web
+    from seaweedfs_tpu_torch.maintenance import scrub
+    from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.stats import metrics
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.topology.topology import (locality_class,
+                                                        locality_name)
+    from seaweedfs_tpu_torch.utils import http
+
+    card = card_name_power()
+
+    def mlog(msg: str) -> None:
+        log(f"[maintenance] {msg} [{card}]")
+
+    def free_port() -> int:
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    work = os.path.join(vdir, "maintenance")
+    names = [n for n, _, _ in MAINT_NODES]
+    dirs = {n: os.path.join(work, n.replace(":", "_")) for n in names}
+    for d in dirs.values():
+        os.makedirs(d)
+    loop = asyncio.new_event_loop()
+    loop_thread = threading.Thread(target=loop.run_forever, daemon=True)
+    loop_thread.start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(600)
+
+    standin = MasterStandIn()
+    runner = None
+    servers: dict = {}
+    client = http.PooledHTTP(timeout=600.0, max_idle_per_host=16)
+    requests = {"read": 0, "write": 0, "delete": 0}
+    steps: dict = {}
+    counts: dict = {}
+    t_phase = time.perf_counter()
+
+    def call(url: str, path: str, body=None, method=None,
+             data=None) -> tuple[int, bytes]:
+        hdrs = {}
+        if body is not None:
+            data = json.dumps(body).encode()
+            hdrs["Content-Type"] = "application/json"
+        st, _, raw = client.request(
+            f"http://{url}{path}",
+            method=method or ("POST" if data is not None else "GET"),
+            body=data, headers=hdrs)
+        return st, raw
+
+    def admin(name: str, path: str, body=None) -> dict:
+        st, raw = call(servers[name].url, path, body)
+        if st != 200:
+            raise AssertionError(f"{name}{path}: HTTP {st} {raw[:300]!r}")
+        return json.loads(raw) if raw else {}
+
+    def step_counts(name: str, k0: dict, k1: int, k2: int = 0) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        want = {"gf_apply": k1, "gf_apply_batch": k2}
+        if got != want:
+            raise AssertionError(f"phase 17 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def fleet_parts(srv: dict, dt: float) -> str:
+        """The fleet handler's own seconds (its stages' `server`) and the
+        step's time outside the handler."""
+        return (f"handler {srv['handler_s']:.3f} s: flush "
+                f"{srv['flush_s']:.4f}, convert_volumes "
+                f"{srv['convert_s']:.3f}, .ecx {srv['ecx_s']:.4f}, beat "
+                f"{srv['beat_s']:.4f}; outside the handler "
+                f"{dt - srv['handler_s']:.3f} s")
+
+    def place(name: str, vid: int, src: str, shards, copy=(),
+              vif_copy: bool = False) -> str:
+        """Links of `src`'s shards (copies of those in `copy`) and .ecx,
+        the .vif linked or copied, as volume `vid` on node `name`."""
+        dst = os.path.join(dirs[name], str(vid))
+        for i in shards:
+            (shutil.copyfile if i in copy else os.link)(
+                src + layout.to_ext(i), dst + layout.to_ext(i))
+        os.link(src + ".ecx", dst + ".ecx")
+        (shutil.copyfile if vif_copy else os.link)(src + ".vif",
+                                                   dst + ".vif")
+        return dst
+
+    def metric(raw: bytes, family: str, label: str) -> float:
+        for line in raw.decode().splitlines():
+            if line.startswith(f"{family}{{{label}}} "):
+                return float(line.split()[-1])
+        return 0.0
+
+    scrape = {"weedtpu_scrub_bytes_total": ('kind="ec"', 'kind="volume"'),
+              "weedtpu_ec_encode_bytes_total": ('codec="fleet"',),
+              "weedtpu_repair_bytes_total": ('locality="rack"',
+                                             'locality="dc"',
+                                             'locality="remote"')}
+    scrub_bytes = {"ec": 0, "volume": 0}
+    repair_bytes: dict = {}
+    try:
+        mport = free_port()
+        runner = web.AppRunner(standin.app())
+        run(runner.setup())
+        run(web.TCPSite(runner, "127.0.0.1", mport).start())
+        # every server with a scrubber that passes on request only, and
+        # hedging off: a hedge could add a decode to the probe's count
+        with scoped_env(WEEDTPU_SCRUB_MBPS=str(MAINT_FAST_MBPS),
+                        WEEDTPU_SCRUB_INTERVAL="3600",
+                        WEEDTPU_HEDGE_PCT="0"):
+            for name, dc, rack in MAINT_NODES:
+                vs = vsmod.VolumeServer(
+                    [dirs[name]], f"127.0.0.1:{mport}", "127.0.0.1",
+                    free_port(), data_center=dc, rack=rack,
+                    heartbeat_interval=1.0, device=device)
+                run(vs.start())
+                servers[name] = vs
+            r_url = servers["R"].url
+            loc = {n: locality_class("dc1", "r1", dc, rack)
+                   for n, dc, rack in MAINT_NODES[1:]}
+            if loc != {"a:1": 1, "c:3": 2, "b:2": 3}:
+                raise AssertionError(f"localities {loc}")
+            mlog(f"servers {', '.join(f'{n} {servers[n].url}' for n in names)}"
+                 f" on {servers['R'].device}, scrubbers at "
+                 f"{servers['R'].scrubber.mbps} MB/s every "
+                 f"{servers['R'].scrubber.interval} s")
+            m0 = call(r_url, "/metrics")[1]
+            counter0 = {k: metrics.VOLUME_REQUEST_COUNTER.labels(k).value
+                        for k in requests}
+            if sha256(base + ".ecx") != aux_hashes[".ecx"] or \
+                    sha256(base + ".vif") != aux_hashes[".vif"]:
+                raise AssertionError("phase 4's .ecx or .vif changed")
+            windows = phases["scrub"]["clean"]["windows"]
+            size = os.path.getsize(base + layout.to_ext(0))
+            W = scrub.DEFAULT_WINDOW  # the servers': no WEEDTPU_SCRUB_WINDOW
+
+            # 1 scrub: clean, then bits flipped in shards 5 and 11
+            vid = MAINT_VIDS["scrub"]
+            place("R", vid, base, range(14), copy=(5, 11))
+            admin("R", "/admin/ec/mount", {"volume": vid})
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            clean = admin("R", "/admin/scrub", {})
+            dt_clean = time.perf_counter() - t0
+            res = clean["volumes"][str(vid)]
+            if (res["windows"], res["windows_skipped"], res["corrupt"]) != \
+                    (windows, 0, []) or res["bytes"] != 14 * size:
+                raise AssertionError(f"clean scrub: {res}")
+            step_counts("1 scrub clean", k0, windows)
+            w5, w11 = windows // 4, 3 * windows // 4
+            flips = [(5, w5 * W + 123),
+                     (11, w11 * W + 4567 % (size - w11 * W))]
+            got = admin("R", "/admin/faults", {"faults": [
+                {"action": "flip_bit", "volume": vid, "shard": s,
+                 "offset": off, "bit": 4} for s, off in flips]})
+            if [a["ok"] for a in got["applied"]] != [True, True]:
+                raise AssertionError(f"faults: {got}")
+            k0 = dict(launches)
+            n_reports = len(standin.scrub_reports)
+            t0 = time.perf_counter()
+            flipped = admin("R", "/admin/scrub", {})
+            dt_flip = time.perf_counter() - t0
+            res = flipped["volumes"][str(vid)]
+
+            def window(w):
+                return {"offset": w * W, "size": min(W, size - w * W),
+                        "columns": 1}
+            want = [{"shard": 5, **window(w5)}, {"shard": 11, **window(w11)}]
+            if res["corrupt"] != want or res["quarantined"] != {
+                    "5": [[w5 * W, window(w5)["size"]]],
+                    "11": [[w11 * W, window(w11)["size"]]]}:
+                raise AssertionError(f"scrub after the flips: {res}")
+            step_counts("1 scrub flipped", k0, windows)
+            report = standin.scrub_reports[n_reports:]
+            if len(report) != 1 or report[0]["node"] != r_url or \
+                    report[0]["volumes"][str(vid)]["corrupt"] != want:
+                raise AssertionError(f"scrub reports {report}")
+            scrub_bytes["ec"] += clean["bytes"] + flipped["bytes"]
+            steps["1 scrub"] = {"bytes": clean["bytes"], "windows": windows,
+                                "clean_s": dt_clean, "flipped_s": dt_flip,
+                                "gbps": clean["bytes"] / dt_clean / 1e9,
+                                "found": res["corrupt"]}
+            mlog(f"1 scrub: {clean['bytes']} B of shards, {windows} windows "
+                 f"clean in {dt_clean:.3f} s "
+                 f"({clean['bytes'] / dt_clean / 1e9:.3f} "
+                 f"GB/s), K1 {windows}; shard 5 and 11 bits flipped by "
+                 f"/admin/faults, found, localised and quarantined in "
+                 f"{dt_flip:.3f} s, K1 {windows}; the report reached the "
+                 f"master")
+            admin("R", "/admin/ec/unmount", {"volume": vid})
+            for ext in [layout.to_ext(i) for i in range(14)] + [".ecx",
+                                                                ".vif"]:
+                os.remove(os.path.join(dirs["R"], str(vid)) + ext)
+
+            # 2 scrub rate: a needle volume on a:1, one pass at the set rate
+            vid = MAINT_VIDS["rate"]
+            a_url = servers["a:1"].url
+            admin("a:1", "/admin/assign_volume", {"volume": vid})
+            rng = np.random.default_rng(seed + 17)
+            body = rng.bytes(64 * 1024)
+            for i in range(MAINT_RATE_NEEDLES):
+                st, _ = call(a_url, f"/{t.FileId(vid, i + 1, 0x5EED)}",
+                             method="PUT", data=body)
+                if st != 201:
+                    raise AssertionError(f"rate step write {i}: HTTP {st}")
+            requests["write"] += MAINT_RATE_NEEDLES
+            set_to = admin("a:1", "/admin/scrub_rate",
+                           {"mbps": MAINT_RATE_MBPS})
+            if set_to != {"mbps": MAINT_RATE_MBPS, "operator_paused": False}:
+                raise AssertionError(f"scrub_rate: {set_to}")
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            rated = admin("a:1", "/admin/scrub", {})
+            dt = time.perf_counter() - t0
+            admin("a:1", "/admin/scrub_rate", {"mbps": MAINT_FAST_MBPS})
+            res = rated["volumes"][str(vid)]
+            floor = 0.9 * rated["bytes"] / (MAINT_RATE_MBPS * 1e6)
+            if res["needles"] != MAINT_RATE_NEEDLES or \
+                    res["crc_mismatches"] or dt < floor:
+                raise AssertionError(f"rated scrub: {dt:.3f} s against a "
+                                     f"floor of {floor:.3f}: {res}")
+            step_counts("2 scrub rate", k0, 0)
+            scrub_bytes["volume"] += rated["bytes"]
+            steps["2 scrub rate"] = {
+                "bytes": rated["bytes"], "mbps": MAINT_RATE_MBPS, "s": dt,
+                "floor_s": floor, "rate_mbps": rated["bytes"] / dt / 1e6}
+            mlog(f"2 scrub rate: {MAINT_RATE_NEEDLES} needles, "
+                 f"{rated['bytes']} B verified by CRC at {MAINT_RATE_MBPS} "
+                 f"MB/s set through /admin/scrub_rate: {dt:.3f} s "
+                 f"(floor {floor:.3f} s; {rated['bytes'] / dt / 1e6:.3f} "
+                 f"MB/s achieved); K1 0")
+            admin("a:1", "/admin/volume/delete", {"volume": vid})
+
+            # 3 reduced repair over HTTP, RS on phase 9's topology
+            vid = MAINT_VIDS["rs"]
+            place("R", vid, base, (0, 1, 2, 4, 5))
+            place("a:1", vid, base, (6, 7, 8))
+            place("b:2", vid, base, range(9, 14))
+            for n in ("R", "a:1", "b:2"):
+                admin(n, "/admin/ec/mount", {"volume": vid})
+            node_url = {n: servers[n].url for n in names}
+            label_of = {u: n for n, u in node_url.items()}
+            repairs: dict = {}
+
+            def repair(label, vid, tag, lost, helpers, ssize, twin, d=None):
+                groups = [{"node": node_url[n], "shards": [
+                    s for s in span if s not in lost], "locality": loc[n]}
+                    for n, span in helpers]
+                body = {"volume": vid, "codec": tag, "reduced": {
+                    "lost": lost, "groups": groups, "shard_size": ssize}}
+                if d is not None:
+                    body["reduced"]["d"] = d
+                k0 = dict(launches)
+                t0 = time.perf_counter()
+                res = admin("R", "/admin/ec/rebuild", body)
+                dt = time.perf_counter() - t0
+                measured = {label_of[u]: b
+                            for u, b in res["helper_bytes"].items()}
+                planned = {label_of[u]: b for u, b in
+                           res["predicted"]["per_node"].items()}
+                if measured != planned or measured != twin["helper_bytes"] \
+                        or res["rebuilt"] != lost or res["replans"]:
+                    raise AssertionError(
+                        f"repair {label}: measured {measured}, planned "
+                        f"{planned}, the library run's "
+                        f"{twin['helper_bytes']}: {res}")
+                step_counts(f"3 repair {label}", k0, twin["launches"])
+                for n, b in measured.items():
+                    name = locality_name(loc[n])
+                    repair_bytes[name] = repair_bytes.get(name, 0) + b
+                repairs[label] = {"s": dt, "bytes": ssize * len(lost),
+                                  "rebuilt_gbps": ssize * len(lost) / dt
+                                  / 1e9, "helper_bytes": measured,
+                                  "naive_remote":
+                                      res["predicted"]["naive_remote"]}
+                mlog(f"3 repair {label}: lost {lost} rebuilt on R in "
+                     f"{dt:.3f} s ({ssize * len(lost) / dt / 1e9:.3f} GB/s), "
+                     f"remote {measured} == the plan's == phase "
+                     f"{'10' if tag != 'rs_10_4' else '9'}'s, naive "
+                     f"{res['predicted']['naive_remote']} B; K1 "
+                     f"{twin['launches']} over the helpers and R")
+                return res
+
+            runs9 = phases["repair"]
+            helpers9 = (("a:1", range(6, 9)), ("b:2", range(9, 14)))
+            repair("[3] d=10", vid, "rs_10_4", [3], helpers9, size,
+                   runs9["a"], d=10)
+            admin("R", "/admin/ec/delete_shards", {"volume": vid,
+                                                   "shards": [1]})
+            repair("[1, 12]", vid, "rs_10_4", [1, 12], helpers9, size,
+                   runs9["c"])
+            rbase = os.path.join(dirs["R"], str(vid))
+            for s in (3, 1, 12):
+                if sha256(rbase + layout.to_ext(s)) != hashes[s]:
+                    raise AssertionError(f"repaired shard {s} differs "
+                                         f"from phase 4's")
+            msr = phases["codecs"]["msr_9_16"]
+            mbase = msr["kept_base"]
+            msize = os.path.getsize(mbase + layout.to_ext(0))
+            vid = MAINT_VIDS["msr"]
+            for n, span in (("R", range(1, 6)), ("a:1", range(6, 12)),
+                            ("c:3", (12,)), ("b:2", range(13, 18))):
+                place(n, vid, mbase, span)
+                admin(n, "/admin/ec/mount", {"volume": vid})
+            repair("msr [0]", vid, "msr_9_16", [0],
+                   (("a:1", range(6, 12)), ("c:3", (12,)),
+                    ("b:2", range(13, 18))), msize, msr["repair"]["msr [0]"])
+            if sha256(os.path.join(dirs["R"], str(vid)) + ".ec00") != \
+                    msr["encode"]["sha256"][0]:
+                raise AssertionError("repaired MSR shard 0 differs from "
+                                     "phase 10's")
+            steps["3 repair"] = repairs
+
+            # 4 probe: the canary's degraded read of the first needle on R
+            vid = MAINT_VIDS["rs"]
+            admin("R", "/admin/ec/mount", {"volume": vid})
+            ev = servers["R"].store.get_ec_volume(vid)
+            first = int(ev.ids[0])
+            cookie, lo, hi = expect[first]
+            probes = []
+            for i in range(MAINT_PROBES):
+                k0 = dict(launches)
+                t0 = time.perf_counter()
+                st, raw = call(r_url, f"/admin/ec/probe_read?volume={vid}")
+                probes.append(time.perf_counter() - t0)
+                got = json.loads(raw)
+                if st != 200 or got != {"needle": f"{first:x}",
+                                        "bytes": hi - lo,
+                                        "skipped_shard": 0}:
+                    raise AssertionError(f"probe {i}: HTTP {st} {got}")
+                step_counts(f"4 probe {i + 1}", k0, 1)
+            steps["4 probe"] = {"probes": MAINT_PROBES, "s": probes}
+            mlog(f"4 probe: {MAINT_PROBES} reads of needle {first:x} "
+                 f"({hi - lo} B) with shard 0 withheld, each decoded (K1 1 "
+                 f"each: the probe's read has an LRU of its own), p50 "
+                 f"{sorted(probes)[len(probes) // 2] * 1e3:.2f} ms")
+
+            # 5 recode: rs_10_4 -> lrc_10_2_2 -> rs_10_4 on c:3
+            vid = MAINT_VIDS["recode"]
+            place("c:3", vid, base, range(14), vif_copy=True)
+            admin("c:3", "/admin/ec/mount", {"volume": vid})
+            lrc = phases["codecs"]["lrc_10_2_2"]["encode"]
+            cbase = os.path.join(dirs["c:3"], str(vid))
+            sample = np.random.default_rng(seed + 18).choice(
+                sorted(expect), MAINT_SAMPLE, replace=False).tolist()
+            recodes = {}
+            for to, want, vif, k1 in (
+                    ("lrc_10_2_2", lrc["sha256"], lrc["vif_sha256"],
+                     lrc["launches"]),
+                    ("rs_10_4", hashes, aux_hashes[".vif"],
+                     phases["encode_warm"]["launches"])):
+                k0 = dict(launches)
+                t0 = time.perf_counter()
+                got = admin("c:3", "/admin/ec/recode",
+                            {"volume": vid, "codec": to})
+                dt = time.perf_counter() - t0
+                step_counts(f"5 recode {to}", k0, k1)
+                if got["codec"] != to or got["shards"] != list(range(14)) \
+                        or [sha256(cbase + layout.to_ext(i))
+                            for i in range(14)] != want or \
+                        sha256(cbase + ".vif") != vif:
+                    raise AssertionError(f"recode to {to}: {got}")
+                for nid in sample:
+                    c, l_, h_ = expect[nid]
+                    st, raw = call(servers["c:3"].url,
+                                   f"/{t.FileId(vid, nid, c)}")
+                    if st != 200 or raw != blob[l_:h_]:
+                        raise AssertionError(f"recoded {to}: needle {nid}")
+                requests["read"] += MAINT_SAMPLE
+                recodes[to] = {"s": dt, "gbps": len(blob) / dt / 1e9}
+                twin = "10" if to != "rs_10_4" else "4"
+                mlog(f"5 recode to {to}: {dt:.3f} s, 14 shards and the .vif "
+                     f"sha256-equal to phase {twin}'s, K1 {k1}; "
+                     f"{MAINT_SAMPLE} needles read back")
+            steps["5 recode"] = recodes
+
+            # 6 fleet: links of phase 7's four volumes on b:2
+            fvids = MAINT_VIDS["fleet"]
+            fsrc = [server_src] + [p[: -len(".dat")] for p in srcs[1:]]
+            bdir = dirs["b:2"]
+            for fv, src in zip(fvids, fsrc):
+                for ext in (".dat", ".idx"):
+                    os.link(src + ext, os.path.join(bdir, f"{fv}{ext}"))
+                admin("b:2", "/admin/volume/mount", {"volume": fv})
+            total = sum(os.path.getsize(p + ".dat") for p in fsrc)
+            k0 = dict(launches)
+            polls: list = []
+            result: dict = {}
+
+            def convert():
+                result["reply"] = admin("b:2", "/admin/ec/fleet_convert",
+                                        {"volumes": list(fvids)})
+            th = threading.Thread(target=convert)
+            t0 = time.perf_counter()
+            th.start()
+            while th.is_alive():
+                st, raw = call(servers["b:2"].url,
+                               f"/admin/ec/progress?volumeId={fvids[-1]}")
+                if st == 200:
+                    polls.append(json.loads(raw)["bytes_done"])
+                time.sleep(0.02)
+            th.join()
+            dt = time.perf_counter() - t0
+            rep = result.get("reply") or {}
+            want_k2 = phases["fleet"]["launches"]["gf_apply_batch"]
+            step_counts("6 fleet", k0, 0, want_k2)
+            if rep.get("converted") != list(fvids) or rep["bytes"] != total \
+                    or polls != sorted(polls):
+                raise AssertionError(f"fleet: {rep}, progress {polls}")
+            prog = admin("b:2", f"/admin/ec/progress?volumeId={fvids[0]}")
+            if (prog["state"], prog["kind"], prog["bytes_done"]) != \
+                    ("done", "fleet_convert", total):
+                raise AssertionError(f"fleet progress {prog}")
+            for fv, want in zip(fvids, phases["fleet"]["sha256"]):
+                fb = os.path.join(bdir, str(fv))
+                if [sha256(fb + layout.to_ext(i)) for i in range(14)] != \
+                        want:
+                    raise AssertionError(f"fleet volume {fv}: shards "
+                                         f"differ from phase 7's")
+            if sha256(os.path.join(bdir, f"{fvids[0]}.ecx")) != \
+                    aux_hashes[".ecx"]:
+                raise AssertionError("fleet .ecx of the phase-3 volume")
+            for fv in fvids[1:]:  # one needle each: the .ecx is the .idx
+                with open(os.path.join(bdir, f"{fv}.ecx"), "rb") as f, \
+                        open(os.path.join(bdir, f"{fv}.idx"), "rb") as g:
+                    if f.read() != g.read():
+                        raise AssertionError(f"fleet .ecx of {fv}")
+            run(servers["b:2"]._heartbeat_once())
+            beat = standin.beats[servers["b:2"].url]
+            frozen = {v["id"]: v["read_only"] for v in beat["volumes"]
+                      if v["id"] in fvids}
+            if frozen != {fv: True for fv in fvids}:
+                raise AssertionError(f"fleet volumes' beat: {frozen}")
+            for fv in fvids:
+                admin("b:2", "/admin/ec/mount", {"volume": fv})
+            split = standin.ec_split  # the beat after the mounts
+            for fv in fvids:
+                if split(fv).get(servers["b:2"].url) != list(range(14)):
+                    raise AssertionError(f"fleet volume {fv} beat "
+                                         f"{split(fv)}")
+            srv = prog["stages"]["server"]
+            steps["6 fleet"] = {"bytes": total, "s": dt,
+                                "gbps": total / dt / 1e9,
+                                "units": rep["units"], "k2": want_k2,
+                                "wall_s": rep["wall_s"], "server": srv,
+                                "polls": len(polls)}
+            mlog(f"6 fleet: {total} B of 4 volumes through "
+                 f"/admin/ec/fleet_convert in {dt:.3f} s "
+                 f"({total / dt / 1e9:.3f} GB/s; its own wall "
+                 f"{rep['wall_s']:.3f} s; {fleet_parts(srv, dt)}; "
+                 f"{len(polls)} progress polls), {rep['units']} units, K2 "
+                 f"{want_k2} == phase 7's, K1 0; 56 shards sha256-equal to "
+                 f"phase 7's, .ecx written, read-only in the beat, the "
+                 f"shard sets in the next")
+
+            # 6b the same conversion with nothing polling: links of the
+            # same volumes under other ids on b:2, the step's time beside
+            # the handler's own parts
+            qvids = MAINT_VIDS["fleet_quiet"]
+            for fv, src in zip(qvids, fsrc):
+                for ext in (".dat", ".idx"):
+                    os.link(src + ext, os.path.join(bdir, f"{fv}{ext}"))
+                admin("b:2", "/admin/volume/mount", {"volume": fv})
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            rep = admin("b:2", "/admin/ec/fleet_convert",
+                        {"volumes": list(qvids)})
+            dt = time.perf_counter() - t0
+            step_counts("6b fleet unpolled", k0, 0, want_k2)
+            if rep.get("converted") != list(qvids) or rep["bytes"] != total:
+                raise AssertionError(f"unpolled fleet: {rep}")
+            for fv, want in zip(qvids, phases["fleet"]["sha256"]):
+                fb = os.path.join(bdir, str(fv))
+                if [sha256(fb + layout.to_ext(i)) for i in range(14)] != \
+                        want:
+                    raise AssertionError(f"unpolled fleet volume {fv}: "
+                                         f"shards differ from phase 7's")
+            if sha256(os.path.join(bdir, f"{qvids[0]}.ecx")) != \
+                    aux_hashes[".ecx"]:
+                raise AssertionError("unpolled fleet .ecx of the phase-3 "
+                                     "volume")
+            srv = admin("b:2", f"/admin/ec/progress?volumeId={qvids[0]}"
+                        )["stages"]["server"]
+            steps["6b fleet unpolled"] = {"bytes": total, "s": dt,
+                                          "gbps": total / dt / 1e9,
+                                          "wall_s": rep["wall_s"],
+                                          "server": srv}
+            mlog(f"6b fleet unpolled: the same {total} B in {dt:.3f} s "
+                 f"({total / dt / 1e9:.3f} GB/s; its own wall "
+                 f"{rep['wall_s']:.3f} s; {fleet_parts(srv, dt)}), K2 "
+                 f"{want_k2}, K1 0; 56 shards and the .ecx sha256-equal "
+                 f"to phase 7's")
+
+            # 7 /metrics
+            m1 = call(r_url, "/metrics")[1]
+            delta = {f"{fam}{{{lab}}}": metric(m1, fam, lab)
+                     - metric(m0, fam, lab)
+                     for fam, labs in scrape.items() for lab in labs}
+            want = {'weedtpu_scrub_bytes_total{kind="ec"}':
+                    float(scrub_bytes["ec"]),
+                    'weedtpu_scrub_bytes_total{kind="volume"}':
+                    float(scrub_bytes["volume"]),
+                    'weedtpu_ec_encode_bytes_total{codec="fleet"}':
+                    float(2 * total)}
+            for name in ("rack", "dc", "remote"):
+                want[f'weedtpu_repair_bytes_total{{locality="{name}"}}'] = \
+                    float(repair_bytes.get(name, 0))
+            made = {k: metrics.VOLUME_REQUEST_COUNTER.labels(k).value
+                    - counter0[k] for k in requests}
+            if delta != want or made != {k: float(v)
+                                         for k, v in requests.items()}:
+                raise AssertionError(f"/metrics counted {delta} and "
+                                     f"{made}; the phase made {want} and "
+                                     f"{requests}")
+            steps["7 metrics"] = {"counters": delta, "requests": made}
+            mlog(f"7 metrics: /metrics counts {delta} and the blob "
+                 f"requests made, {requests}")
+    finally:
+        for vs in servers.values():
+            run(vs.stop())
+        if runner is not None:
+            run(runner.cleanup())
+        loop.call_soon_threadsafe(loop.stop)
+        loop_thread.join(10)
+        client.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "steps": steps, "counts": counts,
+           "s": time.perf_counter() - t_phase}
+    mlog(f"launches per step {counts}; phase wall {out['s']:.1f} s")
     return out
 
 
@@ -4550,10 +5204,30 @@ def main(argv=None) -> int:
             f"{staged}")
         path_launches = {k: path_launches[k] + server_launches[k]
                          for k in path_launches}
+
+        # 17 maintenance through the server, counted on its own
+        gf_cuda.reset_launches()
+        phases["maintenance"] = phase_maintenance(
+            vdir, base, server_src, expect, blob, hashes, aux_hashes,
+            phases, srcs, args.seed, launches)
+        maint_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the maintenance phase made the kernel "
+                                 f"wrapper stage copies of its input: "
+                                 f"{staged}")
+        if not all(maint_launches.values()):
+            raise AssertionError(f"the maintenance phase launched "
+                                 f"{maint_launches}: K1 and K2 both "
+                                 f"expected")
+        log(f"[path] phase 17: launches {maint_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + maint_launches[k]
+                         for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 17 report
+    # 18 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

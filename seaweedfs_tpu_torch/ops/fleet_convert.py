@@ -28,6 +28,11 @@ as the reference does.  Any error aborts the whole run: volumes not yet
 committed roll back to their previous shard set (or to none), committed
 ones stay.
 
+`progress(bytes_done)` sees the volume bytes staged across the fleet;
+`cancel()`, polled before each batch, aborts the whole run with
+EncodeCancelled (the volume server's /admin/ec/fleet_convert and
+/admin/ec/cancel drive both).
+
 The geometry is fixed: UNIT_BATCH units per launch, PIPELINE_DEPTH
 batches in flight (the reference's defaults).  The codec is the EC
 codec (`ec_files._get_codec`, so WEEDTPU_EC_CODEC chooses it): unset, on
@@ -54,7 +59,8 @@ from seaweedfs_tpu_torch.ops.dispatch import (Pending, device_empty,
 from seaweedfs_tpu_torch.stats import netflow, pipeline
 from seaweedfs_tpu_torch.storage.ec import layout
 from seaweedfs_tpu_torch.storage.ec.ec_files import (
-    DEFAULT_BATCH, _book_stage_bytes, _get_codec, _iter_units,
+    DEFAULT_BATCH, EncodeCancelled, _book_stage_bytes, _get_codec,
+    _iter_units,
     _map_readonly, _ShardFlusher, _ShardWriterPool, _Timer, _unit_coverage,
     _unit_steps, overlap_fraction, write_vif)
 
@@ -171,11 +177,16 @@ class _VolumeJob:
 def convert_volumes(bases: list[str], *,
                     large_block: int = layout.LARGE_BLOCK_SIZE,
                     small_block: int = layout.SMALL_BLOCK_SIZE,
-                    batch_size: int = DEFAULT_BATCH,
-                    stats: dict | None = None, device=None) -> dict:
+                    batch_size: int = DEFAULT_BATCH, progress=None,
+                    cancel=None, stats: dict | None = None,
+                    device=None) -> dict:
     """Convert the volumes `<base>.dat` into EC shard sets through one
     interleaved stream of unit batches on `device` (None: the card; raises
     without one).  Returns per-volume accounting.
+
+    `progress(bytes_done)` sees the total volume bytes staged so far;
+    `cancel()` is polled before each batch and, when true, aborts the
+    run with EncodeCancelled (volumes not yet committed roll back).
 
     `stats` receives per-stage seconds, `mode`, `unit_batch`,
     `committed_bases`, `volumes`, `units`, `overlap_frac` and the write
@@ -227,9 +238,12 @@ def convert_volumes(bases: list[str], *,
     def reader() -> None:
         """Round-robin units across volumes into staged unit batches."""
         active = list(jobs)
+        done_total = 0
         netflow.set_class(flow_cls)
         try:
             while active and not errors:
+                if cancel is not None and cancel():
+                    raise EncodeCancelled("fleet conversion cancelled")
                 with _Timer(stats, "stall_s"):
                     slot = pool.get()
                 buf = slot[0].numpy()
@@ -265,6 +279,9 @@ def convert_volumes(bases: list[str], *,
                                 unit_buf[j, n:] = 0
                         metas.append((job, shard_off, step))
                         job.data_flusher.account(step)
+                        done_total += (nz - 1) * step + tail
+                    if progress is not None:
+                        progress(done_total)
                 if metas:
                     q_read.put((slot, metas))
                 else:

@@ -309,7 +309,7 @@ def _tick(stats: dict, key: str, t0: float) -> float:
 
 def execute_plan(codec, plan: RepairPlan, read_local, fetch_partial,
                  sink, batch_size: int, stats: dict,
-                 pool: ThreadPoolExecutor | None) -> None:
+                 pool: ThreadPoolExecutor | None, cancel=None) -> None:
     """Run one plan: per batch chunk, submit each remote group's fetch to
     `pool`, compute the local partial through `dispatch.apply_matrix`, XOR
     the remote partials in as they complete (each through its part's
@@ -327,10 +327,17 @@ def execute_plan(codec, plan: RepairPlan, read_local, fetch_partial,
     node (`helper_bytes`) and per locality class (`by_locality`), and the
     caller thread's seconds by stage: local preads and stack (`read_s`),
     the local apply and every post apply (`apply_s`), waiting on remote
-    partials (`wait_s`), XOR (`xor_s`) and the sink (`write_s`)."""
+    partials (`wait_s`), XOR (`xor_s`) and the sink (`write_s`).
+    `cancel()`, polled before each chunk, aborts with EncodeCancelled."""
     for seg in plan.segments:
         end = seg.offset + seg.size
         for off in range(seg.offset, end, batch_size):
+            if cancel is not None and cancel():
+                # ec_files imports this module: its exception is looked
+                # up when it is raised
+                from seaweedfs_tpu_torch.storage.ec.ec_files import \
+                    EncodeCancelled
+                raise EncodeCancelled("reduced rebuild cancelled")
             n = min(batch_size, end - off)
             futs = {}
             for part in seg.parts:
@@ -393,7 +400,7 @@ def execute_plan(codec, plan: RepairPlan, read_local, fetch_partial,
 def repair_shard(code, codec, lost: int, groups: list[HelperGroup],
                  length: int, read_local, fetch_partial, sink, *,
                  d: int | None = None, batch_size: int = 16 * 1024 * 1024,
-                 align: int = DEFAULT_SEG_ALIGN,
+                 align: int = DEFAULT_SEG_ALIGN, cancel=None,
                  stats: dict, planner=plan_repair) -> RepairPlan:
     """Repair one lost shard with automatic re-planning: when a helper
     dies mid-transfer (HelperDied), its node (or, for the repairing node's own
@@ -403,7 +410,9 @@ def repair_shard(code, codec, lost: int, groups: list[HelperGroup],
     `plan_repair` (RS, LRC) or `plan_msr_repair` (MSR, whose virtual
     shard ids map back to files as `sid // out_rows`).  `stats` gets
     execute_plan's ledgers and stage seconds, and also counts `replans`
-    and lists `dead_helpers` (in file shard ids).  Raises the planner's
+    and lists `dead_helpers` (in file shard ids).  `cancel` goes to
+    execute_plan: EncodeCancelled is not a helper's death and is not
+    replanned.  Raises the planner's
     ValueError when too few survivors remain.  Returns the plan that
     completed."""
     dead_nodes: set[str] = set()
@@ -428,7 +437,7 @@ def repair_shard(code, codec, lost: int, groups: list[HelperGroup],
                     thread_name_prefix="ec-partial")
             try:
                 execute_plan(codec, plan, read_local, fetch_partial,
-                             sink, batch_size, stats, pool)
+                             sink, batch_size, stats, pool, cancel=cancel)
                 return plan
             except HelperDied as e:
                 shards = sorted({s // plan.out_rows for s in e.shards})

@@ -16,39 +16,67 @@ and the admin routes behind the shell's `ec.encode`, `ec.rebuild`,
 `ec.decode` and `volume.*` commands: assign, delete, leave, readonly,
 configure_replication, mount, unmount, vacuum; EC generate, progress,
 cancel, rebuild, mount, unmount, delete_shards, copy, to_volume,
-shard_read; and the peer file pull.
+shard_read; and the peer file pull.  The maintenance routes the
+reference master drives:
+
+  POST /admin/scrub            one scrub pass now (loopback only); the
+                               background Scrubber runs every
+                               WEEDTPU_SCRUB_INTERVAL at
+                               WEEDTPU_SCRUB_MBPS and reports each pass
+                               to the master's /maintenance/scrub_report
+  POST /admin/scrub_rate       the operator's `mbps` or the governor's
+                               `scale`, applied mid-pass
+  POST /admin/faults           storage faults and the shard-read and
+                               file-pull delays (loopback only)
+  POST /admin/ec/fleet_convert several local volumes into shard sets in
+                               one stream of batched launches (K2)
+  POST /admin/ec/partial       a repair helper's partial product of its
+                               shard ranges (K1), MSR sub-rows included
+  POST /admin/ec/rebuild       with `reduced`: the reduced-read rebuild,
+                               pulling partials from the helpers
+  GET  /admin/ec/probe_read    the canary's degraded read of one needle
+  POST /admin/ec/recode        an EC volume re-encoded under another code
 
 Differences from the reference, kept on purpose:
 - `VolumeServer(..., device=None)` resolves its device once, through its
   `Store` (None: the card, raising without one; "cpu": the plain
   version), and every codec it builds runs there: the EC volumes it
   mounts, the encode of `/admin/ec/generate`, the rebuilds of
-  `/admin/ec/rebuild` and `/admin/ec/to_volume`;
-- a rebuild body with `reduced` answers 501 until the repair endpoint
-  comes (ROADMAP 1.15c); the master's repair then heals by its naive
-  path of survivor copies;
+  `/admin/ec/rebuild` and `/admin/ec/to_volume`, the fleet conversion,
+  the helper's partial, the recode and its remount, where the reference
+  passes no device;
 - `weedtpu_ec_encode_bytes_total` labels an encode by the store's device
-  type ("cuda", "cpu") where the reference writes "tpu".
+  type ("cuda", "cpu") where the reference writes "tpu";
+- a malformed WEEDTPU_SCRUB_* knob or WEEDTPU_FAULTS directive raises
+  at start, where the reference falls back or drops it;
+- `/admin/faults` and WEEDTPU_FAULTS answer a network fault `ok: false`
+  with an error naming it (ROADMAP 1.15a.3b), and the shard reader and
+  the partial fetcher have no network-fault hook.
 
 Routes this slice leaves out (volume copy and move, unconvert, tiering,
-needles, query, recode, probe_read, partial, scrub, faults, fleet
-conversion, `/heat`, `/perf`, `/debug/*`) are not registered and answer
-aiohttp's 404 (ROADMAP 1.15a.3b, 1.15b, 1.15c).
+needles, query, `/heat`, `/perf`, `/debug/*`) are not registered and
+answer aiohttp's 404 (ROADMAP 1.15a.3b).
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import os
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import aiohttp
+import numpy as np
 from aiohttp import web
 
 from seaweedfs_tpu_torch import pb
-from seaweedfs_tpu_torch.ops import codecs
+from seaweedfs_tpu_torch.maintenance import faults
+from seaweedfs_tpu_torch.maintenance import scrub as scrubmod
+from seaweedfs_tpu_torch.ops import codecs, dispatch, fleet_convert, regen
 from seaweedfs_tpu_torch.security import jwt as sjwt
 from seaweedfs_tpu_torch.security import tls
 from seaweedfs_tpu_torch.stats import heat, metrics, netflow, trace
@@ -58,7 +86,8 @@ from seaweedfs_tpu_torch.storage.ec import ec_files, layout
 from seaweedfs_tpu_torch.storage.ec import ec_volume as ecv
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.volume import Volume
-from seaweedfs_tpu_torch.topology.topology import locality_class
+from seaweedfs_tpu_torch.topology.topology import (locality_class,
+                                                    locality_name)
 from seaweedfs_tpu_torch.utils import resilience, weedlog
 from seaweedfs_tpu_torch.utils.http import aiohttp_trace_config, parse_range
 
@@ -198,6 +227,14 @@ class VolumeServer:
             web.post("/admin/ec/copy", self.handle_ec_copy),
             web.post("/admin/ec/to_volume", self.handle_ec_to_volume),
             web.get("/admin/ec/shard_read", self.handle_ec_shard_read),
+            web.post("/admin/ec/fleet_convert",
+                     self.handle_ec_fleet_convert),
+            web.post("/admin/ec/recode", self.handle_ec_recode),
+            web.post("/admin/ec/partial", self.handle_ec_partial),
+            web.get("/admin/ec/probe_read", self.handle_ec_probe_read),
+            web.post("/admin/scrub", self.handle_scrub),
+            web.post("/admin/scrub_rate", self.handle_scrub_rate),
+            web.post("/admin/faults", self.handle_faults),
             web.get("/admin/file", self.handle_file_pull),
             web.route("*", "/{fid:[^/]*,[^/]+}", self.handle_blob),
         ])
@@ -218,6 +255,11 @@ class VolumeServer:
         self._ec_loc_cache: dict[int, tuple[float, dict]] = {}
         self._ec_loc_lock = threading.Lock()
         self._ec_loc_vid_locks: dict[int, threading.Lock] = {}
+        # the background scrubber (None when WEEDTPU_SCRUB_MBPS=0) and
+        # the injected delays of /admin/faults
+        self.scrubber: scrubmod.Scrubber | None = None
+        self._fault_delay_shard_read = 0.0
+        self._fault_delay_file_pull = 0.0
 
     @property
     def device(self):
@@ -226,6 +268,15 @@ class VolumeServer:
     # -- lifecycle -----------------------------------------------------
 
     async def start(self) -> None:
+        # the background scrubber (WEEDTPU_SCRUB_MBPS=0 disables it) and
+        # the fault plan are read before the server binds, so a malformed
+        # knob or directive fails the start cleanly
+        plan = faults.parse_env(os.environ.get("WEEDTPU_FAULTS", ""))
+        mbps = scrubmod.env_mbps()
+        if mbps > 0:
+            self.scrubber = scrubmod.Scrubber(
+                self.store, mbps=mbps, report=self._report_scrub,
+                shard_reader_factory=self._shard_reader)
         self._session = aiohttp.ClientSession(
             connector=aiohttp.TCPConnector(ssl=tls.client_ssl()),
             timeout=aiohttp.ClientTimeout(total=300),
@@ -246,11 +297,25 @@ class VolumeServer:
                 self.master_url = self.master_urls[
                     (i + 1) % len(self.master_urls)]
         self._hb_task = asyncio.create_task(self._heartbeat_loop())
+        # fault plan from the environment (maintenance/faults.py)
+        for f in plan:
+            if f["action"] == "delay_shard_read":
+                self._fault_delay_shard_read = f["ms"] / 1000.0
+            elif f["action"] == "delay_file_pull":
+                self._fault_delay_file_pull = f["ms"] / 1000.0
+            else:
+                res = faults.apply(self.store, f)
+                if not res["ok"]:
+                    log.warning("env fault %s failed", res)
+        if self.scrubber is not None:
+            self.scrubber.start()
         log.info("volume server on %s (dirs=%s, device=%s)", self.url,
                  [loc.directory for loc in self.store.locations],
                  self.device)
 
     async def stop(self) -> None:
+        if self.scrubber is not None:
+            await asyncio.to_thread(self.scrubber.stop)
         if self._hb_task:
             self._hb_task.cancel()
         if self._session:
@@ -1089,6 +1154,115 @@ class VolumeServer:
         return web.json_response({"shards": list(range(spec.n)),
                                   "codec": spec.tag})
 
+    async def handle_ec_fleet_convert(self, req: web.Request
+                                      ) -> web.Response:
+        """Batched multi-volume conversion (ops/fleet_convert.py): the
+        listed local volumes' units interleave into one stream of
+        batched launches (K2) on the store's device instead of one
+        /admin/ec/generate each.  The master's conversion scheduler
+        drives it.  The volumes are frozen read-only for the run (a
+        needle written after the .dat snapshot would be missing from
+        the shard set); success keeps the freeze, failure or cancel
+        thaws the volumes that did not commit.  The run registers as
+        one job shared by every volume's entry of the per-vid job table,
+        so /admin/ec/progress observes it and /admin/ec/cancel on any of
+        its volumes aborts it.  A run that commits books the handler's
+        own seconds under its stages' `server`: `flush_s`, `convert_s`
+        (the whole `convert_volumes` call, of which `wall_s` is the
+        stream), `ecx_s`, `beat_s` and `handler_s`, from the body read
+        to the answer."""
+        t_handler = time.perf_counter()
+        body = await req.json()
+        vids: list[int] = []
+        for v_ in (body.get("volumes") or [])[:64]:  # bounded fan-in
+            try:
+                vid = int(v_)
+            except (TypeError, ValueError):
+                continue
+            if vid not in vids:
+                vids.append(vid)
+        vols, skipped = [], {}
+        for vid in vids:
+            v = self.store.get_volume(vid)
+            if v is None:
+                skipped[str(vid)] = "not found"
+            elif self._ec_jobs.get(vid, {}).get("state") == "running":
+                skipped[str(vid)] = "ec job already running"
+            else:
+                vols.append((vid, v))
+        if not vols:
+            return web.json_response(
+                {"error": "no convertible volumes here",
+                 "skipped": skipped}, status=404)
+        was_writable = [(v, v.read_only) for _, v in vols]
+        for v, _ in was_writable:
+            v.read_only = True
+        total = sum(os.path.getsize(v._base + ".dat") for _, v in vols)
+        stages: dict = {}
+        shared = {"state": "running", "kind": "fleet_convert",
+                  "bytes_done": 0, "total": total, "cancel": False,
+                  "error": None, "started": time.time(),
+                  "volumes": [vid for vid, _ in vols], "stages": stages}
+        for vid, _ in vols:
+            self._ec_jobs[vid] = shared
+        server: dict = {}  # the handler's seconds, booked once it commits
+
+        def run():
+            t0 = time.perf_counter()
+            for _, v in vols:
+                v.flush()  # the .dat and .idx the snapshot must hold
+            t1 = time.perf_counter()
+            rep = fleet_convert.convert_volumes(
+                [v._base for _, v in vols],
+                progress=lambda n: shared.__setitem__("bytes_done", n),
+                cancel=lambda: shared["cancel"],
+                stats=stages, device=self.device)
+            t2 = time.perf_counter()
+            for _, v in vols:
+                ec_files.write_sorted_ecx(v._base + ".idx")
+            metrics.EC_ENCODE_BYTES.labels("fleet").inc(total)
+            server.update(flush_s=t1 - t0, convert_s=t2 - t1,
+                          ecx_s=time.perf_counter() - t2)
+            return rep
+
+        def settle_failed():
+            """A volume whose shard set committed before the run died
+            stays frozen (the shard set is its copy of record) and gets
+            its .ecx; only the rolled-back ones thaw."""
+            committed = set(stages.get("committed_bases") or [])
+            for v, ro in was_writable:
+                if v._base in committed:
+                    try:
+                        ec_files.write_sorted_ecx(v._base + ".idx")
+                    except OSError:
+                        log.warning("post-abort .ecx write failed for %s",
+                                    v._base, exc_info=True)
+                else:
+                    v.read_only = ro
+
+        try:
+            report = await asyncio.to_thread(run)
+        except ec_files.EncodeCancelled:
+            shared["state"] = "cancelled"
+            settle_failed()
+            return web.json_response({"error": "cancelled"}, status=409)
+        except Exception as e:
+            shared["state"] = "failed"
+            shared["error"] = str(e)
+            settle_failed()
+            raise
+        shared["state"] = "done"
+        shared["bytes_done"] = total
+        t_beat = time.perf_counter()
+        await self._heartbeat_once()
+        t_end = time.perf_counter()
+        server.update(beat_s=t_end - t_beat, handler_s=t_end - t_handler)
+        stages["server"] = server
+        return web.json_response(
+            {"converted": [vid for vid, _ in vols], "skipped": skipped,
+             "bytes": report["bytes"], "units": report["units"],
+             "wall_s": report["wall_s"]})
+
     async def handle_ec_progress(self, req: web.Request) -> web.Response:
         """Observability of a long-running encode or rebuild."""
         vid = int(req.query.get("volumeId", "0"))
@@ -1114,22 +1288,20 @@ class VolumeServer:
     async def handle_ec_rebuild(self, req: web.Request) -> web.Response:
         """VolumeEcShardsRebuild (volume_grpc_erasure_coding.go:84),
         registered under the same per-vid job state as encode, so
-        /admin/ec/progress and /admin/ec/cancel observe and abort it."""
+        /admin/ec/progress and /admin/ec/cancel observe and abort it.
+        With `reduced` ({lost, groups, shard_size, d}: the master's
+        repair plan) no survivor copies land here: each helper node
+        ships partials through its /admin/ec/partial
+        (`ec_files.rebuild_ec_reduced`)."""
         body = await req.json()
         vid = body["volume"]
-        if body.get("reduced"):
-            # reduced-read repair needs /admin/ec/partial on the helpers
-            # (ROADMAP 1.15c); the master's repair falls back to copying
-            # survivors and a plain rebuild
-            return web.json_response(
-                {"error": "reduced-read rebuild is not served here"},
-                status=501)
         base = self._ec_base(vid)
         if base is None:
             return web.json_response({"error": "no shards here"}, status=404)
         if self._ec_jobs.get(vid, {}).get("state") == "running":
             return web.json_response({"error": "ec job already running"},
                                      status=409)
+        reduced = body.get("reduced")
         # codec identity: the caller's tag (master plans carry it) wins,
         # else the local .vif
         spec = codecs.parse_tag(body.get("codec") or
@@ -1139,11 +1311,31 @@ class VolumeServer:
         total = (os.path.getsize(base + layout.to_ext(present[0]))
                  * spec.k) if present else 0
         stages: dict = {}
-        job = {"state": "running", "kind": "rebuild", "codec": spec.tag,
-               "bytes_done": 0, "total": total, "cancel": False,
-               "error": None, "started": time.time(), "stages": stages}
+        job = {"state": "running",
+               "kind": "rebuild_reduced" if reduced else "rebuild",
+               "codec": spec.tag, "bytes_done": 0, "total": total,
+               "cancel": False, "error": None, "started": time.time(),
+               "stages": stages}
         self._ec_jobs[vid] = job
         try:
+            if reduced:
+                lost = sorted(int(s) for s in reduced.get("lost", []))
+                groups = [g for g in (reduced.get("groups") or [])
+                          if g.get("node") and g["node"] != self.url]
+                if reduced.get("shard_size"):
+                    for g in groups:
+                        g.setdefault("shard_size", reduced["shard_size"])
+                result = await asyncio.to_thread(
+                    ec_files.rebuild_ec_reduced, base, lost, groups,
+                    self._partial_fetcher(vid, alpha=spec.alpha),
+                    d=reduced.get("d"),
+                    progress=lambda n: job.__setitem__("bytes_done", n),
+                    cancel=lambda: job["cancel"],
+                    stats=stages, codec_tag=spec.tag, device=self.device)
+                job["state"] = "done"
+                job["bytes_done"] = job["total"]
+                await self._heartbeat_once()
+                return web.json_response(result)
             rebuilt = await asyncio.to_thread(
                 ec_files.rebuild_ec_files, base,
                 progress=lambda n: job.__setitem__("bytes_done", n),
@@ -1152,6 +1344,17 @@ class VolumeServer:
         except ec_files.EncodeCancelled:
             job["state"] = "cancelled"
             return web.json_response({"error": "cancelled"}, status=409)
+        except regen.HelperDied as e:
+            # replanning ran out of substitutes: the master falls back to
+            # survivor copies and reads who died and how often it replanned
+            job["state"] = "failed"
+            job["error"] = str(e)
+            return web.json_response(
+                {"error": str(e), "helper": e.node or "<local>",
+                 "helper_shards": list(e.shards),
+                 "replans": stages.get("replans", 0),
+                 "dead_helpers": stages.get("dead_helpers", [])},
+                status=500)
         except Exception as e:
             job["state"] = "failed"
             job["error"] = str(e)
@@ -1282,6 +1485,8 @@ class VolumeServer:
         return web.json_response({})
 
     async def handle_ec_shard_read(self, req: web.Request) -> web.Response:
+        if self._fault_delay_shard_read > 0:
+            await asyncio.sleep(self._fault_delay_shard_read)
         q = req.query
         vid, sid = int(q["volume"]), int(q["shard"])
         offset, size = int(q["offset"]), int(q["size"])
@@ -1295,9 +1500,295 @@ class VolumeServer:
         return web.Response(body=data,
                             content_type="application/octet-stream")
 
+    async def handle_ec_partial(self, req: web.Request) -> web.Response:
+        """A reduced-read repair helper's hop: the XOR-combinable partial
+        product coeff @ local shard ranges over GF(2^8), computed on the
+        store's device (K1 through `dispatch.apply_matrix`), returned as
+        the raw [f, size] bytes.  MSR sub-rows: with `alpha` > 1 the
+        shard ids are virtual (file * alpha + row) and offset and size
+        are in sub-row bytes.  A quarantined range reads as unreadable:
+        409, and the repairing node replans around it."""
+        if self._fault_delay_shard_read > 0:
+            await asyncio.sleep(self._fault_delay_shard_read)
+        try:
+            body = await req.json()
+            vid = int(body["volume"])
+            sids = [int(s) for s in body["shards"]]
+            offset, size = int(body["offset"]), int(body["size"])
+            coeff = np.asarray(body["coeff"], dtype=np.uint8)
+            alpha = int(body.get("alpha", 1) or 1)
+        except (KeyError, TypeError, ValueError):
+            return web.json_response({"error": "bad partial request"},
+                                     status=400)
+        # len(sids) x size bounds the rows stacked in memory: one
+        # malformed request must not pread an unbounded multiple of size
+        if not sids or alpha < 1 or alpha > 64 or \
+                len(sids) > layout.TOTAL_SHARDS * max(1, alpha) or \
+                len(set(sids)) != len(sids) or \
+                size <= 0 or size * alpha > ec_files.DEFAULT_BATCH or \
+                coeff.ndim != 2 or coeff.shape[1] != len(sids) or \
+                coeff.shape[0] > max(layout.PARITY_SHARDS, len(sids)):
+            return web.json_response({"error": "bad partial shape"},
+                                     status=400)
+        base = self._ec_base(vid)
+        if base is None:
+            return web.json_response({"error": "no shards here"},
+                                     status=404)
+        ev = self.store.get_ec_volume(vid)
+
+        def read_range(fsid: int, off: int, n: int) -> bytes | None:
+            if ev is not None:
+                # honours the quarantine: corrupt ranges read as None
+                return ev._read_local(fsid, off, n)
+            try:
+                fd = os.open(base + layout.to_ext(fsid), os.O_RDONLY)
+            except OSError:
+                return None
+            try:
+                return os.pread(fd, n, off)
+            except OSError:
+                return None
+            finally:
+                os.close(fd)
+
+        def compute() -> bytes:
+            rows = []
+            if alpha > 1:
+                # one pread and de-interleave per file, shared by its
+                # alpha virtual sub-rows
+                blocks: dict[int, np.ndarray] = {}
+                for fsid in sorted({s // alpha for s in sids}):
+                    data = read_range(fsid, offset * alpha, size * alpha)
+                    if data is None or len(data) != size * alpha:
+                        raise KeyError(fsid)
+                    blocks[fsid] = np.frombuffer(
+                        data, dtype=np.uint8).reshape(size, alpha)
+                for sid in sids:
+                    rows.append(np.ascontiguousarray(
+                        blocks[sid // alpha][:, sid % alpha]))
+            else:
+                for sid in sids:
+                    data = read_range(sid, offset, size)
+                    if data is None or len(data) != size:
+                        raise KeyError(sid)
+                    rows.append(np.frombuffer(data, dtype=np.uint8))
+            codec = ec_files._get_codec(self.device)
+            return dispatch.apply_matrix(codec, coeff,
+                                         np.stack(rows)).tobytes()
+
+        try:
+            with trace.span("volume.ec_partial", vid=vid,
+                            shards=",".join(map(str, sids)),
+                            bytes=size * len(sids)):
+                out = await asyncio.to_thread(compute)
+        except KeyError as e:
+            return web.json_response(
+                {"error": f"shard {e.args[0]} unreadable or quarantined"},
+                status=409)
+        return web.Response(body=out,
+                            content_type="application/octet-stream")
+
+    def _partial_fetcher(self, vid: int, alpha: int = 1):
+        """The repairing node's side of /admin/ec/partial.  It runs on the
+        repair's pool threads, so the trace context, the traffic class
+        and the deadline are captured here.  It rides the per-peer
+        breakers and the deadline, and maps every failure of a helper to
+        regen.HelperDied, so the rebuild replans with a substitute
+        survivor instead of aborting."""
+        tctx = trace.current()
+        flow_cls = netflow.current_class() or "repair"
+        dl = resilience.deadline()
+
+        def fetch(group, sids, coeff, offset, size) -> bytes:
+            node = group.node
+            breaker = resilience.breaker_for(node) \
+                if resilience.breaker_enabled() else None
+            if breaker is not None and not breaker.allow():
+                raise regen.HelperDied(node, tuple(sids))
+            tmo = 60.0
+            if dl is not None:
+                tmo = min(tmo, dl - time.monotonic())
+                if tmo <= 0.01:
+                    raise regen.HelperDied(node, tuple(sids))
+            payload = json.dumps({
+                "volume": vid, "shards": list(sids),
+                "coeff": coeff.tolist(), "offset": offset, "size": size,
+                **({"alpha": alpha} if alpha > 1 else {})}).encode()
+            try:
+                with trace.span("repair.partial_fetch", parent=tctx,
+                                vid=vid, peer=node,
+                                shards=",".join(map(str, sids)),
+                                bytes=coeff.shape[0] * size,
+                                locality=group.locality) as sp:
+                    r = urllib.request.Request(
+                        f"{tls.scheme()}://{node}/admin/ec/partial",
+                        data=payload,
+                        headers={"Content-Type": "application/json"})
+                    hdr_ctx = sp.trace or tctx
+                    if hdr_ctx is not None:
+                        r.add_header(trace.TRACE_HEADER,
+                                     trace.format_header(hdr_ctx))
+                    r.add_header(netflow.CLASS_HEADER, flow_cls)
+                    r.add_header(netflow.ROLE_HEADER, "volume")
+                    if dl is not None:
+                        r.add_header(
+                            resilience.DEADLINE_HEADER,
+                            str(max(1, int((dl - time.monotonic())
+                                           * 1000))))
+                    with urllib.request.urlopen(r, timeout=tmo) as rr:
+                        data = rr.read()
+            except urllib.error.HTTPError as e:
+                # the peer answered (quarantined survivor, shard moved):
+                # a content miss, not a transport failure; replan
+                # without the helper, its breaker untouched
+                if breaker is not None:
+                    breaker.record(True)
+                raise regen.HelperDied(node, tuple(sids)) from e
+            except OSError as e:
+                if breaker is not None and \
+                        (dl is None or dl - time.monotonic() > 0.05):
+                    breaker.record(False)
+                raise regen.HelperDied(node, tuple(sids)) from e
+            if breaker is not None:
+                breaker.record(True)
+            netflow.account("recv", flow_cls, "volume", len(data))
+            metrics.REPAIR_BYTES.labels(
+                locality_name(group.locality)).inc(len(data))
+            return data
+
+        return fetch
+
+    async def handle_ec_probe_read(self, req: web.Request) -> web.Response:
+        """The canary's degraded-read probe (the reference master's
+        stats/canary.py): read one real needle of an EC volume with one
+        of its planned shards withheld (`skip_shards`, which blocks the
+        remote reader too), so the read reconstructs.  Returns the byte
+        count and the withheld shard."""
+        try:
+            vid = int(req.query.get("volume", "0"))
+        except ValueError:
+            return web.json_response({"error": "bad volume"}, status=400)
+        ev = self.store.get_ec_volume(vid)
+        if ev is None:
+            return web.json_response({"error": "not mounted"}, status=404)
+        nid = next((int(i) for i, sz in zip(ev.ids, ev.sizes)
+                    if t.size_is_valid(int(sz))), None)
+        if nid is None:
+            return web.json_response({"error": "no needles"}, status=404)
+        try:
+            dat_off, size = ev.find_needle(nid)
+            intervals = layout.locate_data(
+                ev.large_block, ev.small_block, ev.dat_size, dat_off,
+                t.actual_size(size, ev.version))
+            planned = sorted({iv.to_shard_id_and_offset(
+                ev.large_block, ev.small_block)[0] for iv in intervals})
+        except KeyError:
+            planned = []
+        if not planned:
+            return web.json_response({"error": "no needles"}, status=404)
+        skip = next((s for s in planned if s in ev.shards), planned[0])
+        reader = self._shard_reader(vid)
+        try:
+            with trace.span("volume.probe_read", vid=vid, skip=skip):
+                n = await asyncio.to_thread(
+                    ev.read_needle, nid, reader, None, frozenset({skip}))
+        except (KeyError, IOError, ValueError) as e:
+            return web.json_response(
+                {"error": f"degraded probe read failed: {e}"}, status=503)
+        return web.json_response({"needle": f"{nid:x}",
+                                  "bytes": len(n.data),
+                                  "skipped_shard": skip})
+
+    async def handle_ec_recode(self, req: web.Request) -> web.Response:
+        """Re-encode an EC volume under another code, in place (the
+        autopilot's codec select): the data shards (any missing one
+        regenerated first) decode to a temporary .dat, which
+        `write_ec_files` encodes under the target code on the store's
+        device, committing each shard by rename and rewriting the .vif;
+        shard files past the new geometry are then retired and the
+        volume remounted.  Needs k of the old code's shards here."""
+        body = await req.json()
+        try:
+            vid = int(body["volume"])
+        except (KeyError, TypeError, ValueError):
+            return web.json_response({"error": "bad volume"}, status=400)
+        to = codecs.parse_tag(body.get("codec") or codecs.default_tag())
+        base = self._ec_base(vid)
+        if base is None:
+            return web.json_response({"error": "no shards here"}, status=404)
+        old = codecs.parse_tag((ec_files.read_vif(base) or {}).get("codec"))
+        if old.tag == to.tag:
+            return web.json_response({"codec": to.tag, "unchanged": True})
+        if self._ec_jobs.get(vid, {}).get("state") == "running":
+            return web.json_response({"error": "ec job already running"},
+                                     status=409)
+        present = [i for i in range(old.n)
+                   if os.path.exists(base + layout.to_ext(i))]
+        if len(present) < old.k:
+            return web.json_response(
+                {"error": f"recode needs {old.k} local shards, "
+                          f"have {len(present)}"}, status=409)
+        stages: dict = {}
+        job = {"state": "running", "kind": "recode", "bytes_done": 0,
+               "total": 0, "cancel": False, "error": None,
+               "started": time.time(), "stages": stages,
+               "from": old.tag, "codec": to.tag}
+        self._ec_jobs[vid] = job
+        tmp_dat = base + ".dat.recode"
+
+        def work():
+            if any(i not in present for i in range(old.k)):
+                ec_files.rebuild_ec_files(base, codec_tag=old.tag,
+                                          device=self.device)
+            dat_size = ec_files.find_dat_file_size(base)
+            job["total"] = dat_size
+            ec_files.write_dat_file(base, dat_size, out_path=tmp_dat)
+            ec_files.write_ec_files(
+                base, dat_path=tmp_dat,
+                progress=lambda n: job.__setitem__("bytes_done", n),
+                cancel=lambda: job["cancel"],
+                stats=stages, codec_tag=to.tag, device=self.device)
+            # shard files past the new geometry are the old code's: a
+            # later fsck or rebuild must not count or mix them
+            for i in range(to.n, max(old.n, to.n)):
+                try:
+                    os.remove(base + layout.to_ext(i))
+                except OSError:
+                    pass
+
+        try:
+            await asyncio.to_thread(work)
+        except ec_files.EncodeCancelled:
+            job["state"] = "cancelled"
+            return web.json_response({"error": "cancelled"}, status=409)
+        except Exception as e:
+            job["state"] = "failed"
+            job["error"] = str(e)
+            return web.json_response({"error": str(e)}, status=500)
+        finally:
+            try:
+                os.remove(tmp_dat)
+            except OSError:
+                pass
+        # remount, so the served code is the new shard set's
+        loc = next(loc for loc in self.store.locations
+                   if base.startswith(loc.directory))
+        ev = loc.ec_volumes.pop(vid, None)
+        if ev is not None:
+            ev.close()
+        loc.ec_volumes[vid] = ecv.EcVolume(base, device=self.device)
+        job["state"] = "done"
+        job["bytes_done"] = job["total"]
+        await self._heartbeat_once()
+        return web.json_response(
+            {"codec": to.tag, "from": old.tag,
+             "shards": loc.ec_volumes[vid].shard_ids()})
+
     async def handle_file_pull(self, req: web.Request) -> web.StreamResponse:
         """Serve a volume or EC file by basename for peer pulls (the
         source side of VolumeEcShardsCopy)."""
+        if self._fault_delay_file_pull > 0:
+            await asyncio.sleep(self._fault_delay_file_pull)
         name = req.query.get("name", "")
         if "/" in name or ".." in name:
             return web.json_response({"error": "bad name"}, status=400)
@@ -1321,3 +1812,84 @@ class VolumeServer:
             if os.path.exists(p):
                 return web.FileResponse(p)
         return web.json_response({"error": "file not found"}, status=404)
+
+    # -- maintenance: scrub and fault injection ------------------------
+
+    def _report_scrub(self, summary: dict) -> None:
+        """Push a scrub pass's verdicts to the master's repair planner.
+        Runs on the scrub thread: a blocking client."""
+        body = json.dumps({"node": self.url, "ts": summary.get("ts"),
+                           "volumes": summary.get("volumes", {})}).encode()
+        try:
+            r = urllib.request.Request(
+                f"{tls.scheme()}://{self.master_url}"
+                "/maintenance/scrub_report", data=body,
+                headers={"Content-Type": "application/json"})
+            urllib.request.urlopen(r, timeout=10).close()
+        except OSError as e:
+            log.warning("scrub report to %s failed: %s", self.master_url, e)
+
+    async def handle_scrub(self, req: web.Request) -> web.Response:
+        """Run one scrub pass now at the configured rate, report it to
+        the master and answer its summary (loopback only).  Without a
+        background scrubber (WEEDTPU_SCRUB_MBPS=0) the pass is made by
+        one built for it from the knobs, and so answers paused, as the
+        reference's does."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        s = self.scrubber
+        if s is None:
+            s = scrubmod.Scrubber(self.store,
+                                  shard_reader_factory=self._shard_reader)
+        summary = await asyncio.to_thread(s.scrub_once)
+        await asyncio.to_thread(self._report_scrub, summary)
+        return web.json_response(summary)
+
+    async def handle_scrub_rate(self, req: web.Request) -> web.Response:
+        """Retune the background scrubber live: the operator's `mbps`
+        ({"mbps": 0} pauses until an operator resumes) or the master's
+        interference governor's `scale` of this node's configured rate
+        (and `governed: true` on an `mbps` push, which respects the
+        operator's pause).  A node without a scrubber answers
+        {"mbps": null}."""
+        try:
+            body = await req.json()
+            scale = body.get("scale")
+            mbps = float(scale) if scale is not None \
+                else float(body.get("mbps"))
+        except (ValueError, TypeError, AttributeError):
+            # AttributeError: a JSON body that is not an object ('[2.5]')
+            return web.json_response({"error": "mbps or scale required"},
+                                     status=400)
+        if self.scrubber is None:
+            return web.json_response({"mbps": None})
+        if scale is not None:
+            out = self.scrubber.apply_governed_scale(mbps)
+        else:
+            out = self.scrubber.set_mbps(
+                mbps, governed=bool(body.get("governed")))
+        return web.json_response(
+            {"mbps": out, "operator_paused": self.scrubber.operator_paused})
+
+    async def handle_faults(self, req: web.Request) -> web.Response:
+        """Fault injection (maintenance/faults.py): delete a shard, flip
+        a bit, delay peer shard reads or file pulls.  Loopback only."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        body = await req.json()
+        applied = []
+        for f in body.get("faults", []):
+            if f.get("action") == "delay_shard_read":
+                self._fault_delay_shard_read = float(f.get("ms", 0)) / 1000.0
+                applied.append(dict(f, ok=True))
+                continue
+            if f.get("action") == "delay_file_pull":
+                self._fault_delay_file_pull = float(f.get("ms", 0)) / 1000.0
+                applied.append(dict(f, ok=True))
+                continue
+            applied.append(await asyncio.to_thread(
+                faults.apply, self.store, f))
+        await self._heartbeat_once()
+        return web.json_response({"applied": applied})

@@ -303,6 +303,11 @@ SCRUB_BYTES = REGISTRY.counter(
 SCRUB_CORRUPTIONS = REGISTRY.counter(
     "weedtpu_scrub_corruptions_total",
     "corruptions found by the scrubber", ("kind",))
+REPAIR_BYTES = REGISTRY.counter(
+    "weedtpu_repair_bytes_total",
+    "repair bytes moved by locality class of the source "
+    "(node/rack/dc/remote; reduced-path partials measured, naive "
+    "survivor copies estimated)", ("locality",))
 # data-plane observatory (stats/pipeline.py, stats/profile.py): busy
 # seconds per pipeline stage (1 busy-second/second == a saturated stage),
 # bytes per stage, and each kernel row's achieved fraction of the

@@ -19,9 +19,9 @@ client carries the context to its peer in the `X-Weedtpu-Trace` header
 (`inject`; `format_header`/`parse_header`: "<32 hex>-<16 hex>-<0|1>").
 A server mounts `aiohttp_middleware`, which continues or starts the
 trace per request, registers the request in flight, applies the deadline
-budget and records the root span.  Pinned traces, the `/debug` routes
-and `loopback_error`, the gate of those routes and of the scrub and
-fault hooks, come with the rest of the volume server (ROADMAP 1.15a.3b).
+budget and records the root span.  `loopback_error` gates the volume
+server's scrub and fault hooks.  Pinned traces and the `/debug` routes
+come with the rest of the volume server (ROADMAP 1.15a.3b).
 """
 
 from __future__ import annotations
@@ -520,3 +520,12 @@ def aiohttp_middleware(role: str):
 
     return middleware
 
+
+def loopback_error(req):
+    """None when the request comes from loopback; a 403 JSON response
+    otherwise.  The one gate of the operator surfaces (the volume
+    server's `/admin/scrub` and `/admin/faults`)."""
+    from aiohttp import web
+    if req.remote not in ("127.0.0.1", "::1"):
+        return web.json_response({"error": "forbidden"}, status=403)
+    return None

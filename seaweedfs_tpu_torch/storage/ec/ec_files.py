@@ -1039,19 +1039,24 @@ def rebuild_ec_files(base: str, batch_size: int = DEFAULT_BATCH,
 
 def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
                        fetch_partial, *, d: int | None = None,
-                       stats: dict | None = None, device=None) -> dict:
-    """Reduced-read rebuild of the `lost` shards under the code the `.vif`
-    names: instead of copying k full survivor shards here, each remote
-    helper node ships XOR-combinable partial products (ops/regen.py), so
+                       progress=None, cancel=None,
+                       stats: dict | None = None,
+                       codec_tag: str | None = None, device=None) -> dict:
+    """Reduced-read rebuild of the `lost` shards under the code `codec_tag`
+    names (None: the `.vif`'s; a caller's tag wins, as for a repairing
+    node holding copied shards without the sidecar): instead of copying k full
+    survivor shards here, each remote helper node ships XOR-combinable
+    partial products (ops/regen.py), so
     repair bytes per remote node drop to one range per lost shard (RS),
     one range inside the lost shard's local group (LRC single loss), or
     one sub-row per held shard (MSR), and the output is byte-identical to
     a full decode.
 
     `groups` lists the REMOTE helper nodes: {"node": name, "shards":
-    [ids], "locality": class}.  The local survivor group is the shard
-    files next to `base`, and each rebuilt shard joins it for the next
-    pass.  `fetch_partial(group, shards, coeff_rows, offset, size) ->
+    [ids], "locality": class}, optionally "shard_size" (the size to
+    repair when no survivor is local).  The local survivor group is the
+    shard files next to `base`, and each rebuilt shard joins it for the
+    next pass.  `fetch_partial(group, shards, coeff_rows, offset, size) ->
     bytes` is the caller's hop to a helper; its failures raise
     regen.HelperDied and trigger a re-plan with a substitute survivor.
     For MSR the shard ids are virtual (`file_sid * alpha + j`, sub-row j
@@ -1065,6 +1070,11 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
     bytes, so a helper's file read stays one batch) and segments align
     to regen.DEFAULT_SEG_ALIGN, both read at call time.
 
+    `progress(bytes_done)` sees the rebuilt bytes after each lost shard
+    commits; `cancel()`, polled before each chunk, aborts with
+    EncodeCancelled (the shard in progress is dropped, earlier ones
+    stay committed).
+
     Returns the accounting: measured helper bytes per node and locality
     class, the completed plans' predictions (with the naive copy-then-
     rebuild cost, `naive_remote`), replans and dead helpers.  `stats`,
@@ -1072,7 +1082,8 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
     the repairing thread's stage seconds (regen.execute_plan)."""
     # fail like a dying disk before any tmp shard file exists
     faults.check_shard_write(base)
-    spec = codecs.parse_tag((read_vif(base) or {}).get("codec"))
+    spec = codecs.parse_tag(codec_tag or
+                            (read_vif(base) or {}).get("codec"))
     codec = _get_codec(device, spec.tag)
     alpha = spec.alpha
     batch_size = DEFAULT_BATCH
@@ -1091,6 +1102,11 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
             if i not in lost and os.path.exists(p_):
                 local_fds[i] = os.open(p_, os.O_RDONLY)
                 shard_size = max(shard_size, os.path.getsize(p_))
+        if shard_size == 0:
+            for g in groups:
+                if g.get("shard_size"):
+                    shard_size = int(g["shard_size"])
+                    break
         if shard_size <= 0:
             raise ValueError(f"cannot size shards of {base}")
         stats["bytes"] = shard_size * len(lost)
@@ -1141,6 +1157,7 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
             for g in groups if g.get("shards")]
         predicted: dict = {"per_node": {}, "by_locality": {},
                            "remote": 0, "local": 0}
+        done = 0
         for sid in lost:
             tmp = base + layout.to_ext(sid) + ".tmp"
             out_fd = os.open(tmp, os.O_RDWR | os.O_CREAT, 0o644)
@@ -1170,8 +1187,8 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
                         [local_group] + remote_groups, shard_size,
                         reader, fetch_partial, sink,
                         d=d, batch_size=batch_size,
-                        align=regen.DEFAULT_SEG_ALIGN, stats=stats,
-                        planner=planner)
+                        align=regen.DEFAULT_SEG_ALIGN, cancel=cancel,
+                        stats=stats, planner=planner)
                 os.ftruncate(out_fd, shard_size)
                 os.close(out_fd)
                 out_fd = -1
@@ -1189,6 +1206,9 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
                 # the rebuilt shard is a local survivor for the next pass
                 local_fds[sid] = os.open(base + layout.to_ext(sid),
                                          os.O_RDONLY)
+                done += shard_size
+                if progress is not None:
+                    progress(done)
             finally:
                 if out_fd >= 0:
                     os.close(out_fd)
@@ -1210,8 +1230,10 @@ def rebuild_ec_reduced(base: str, lost: list[int], groups: list[dict],
 
 def write_dat_file(base: str, dat_size: int,
                    large_block: int = layout.LARGE_BLOCK_SIZE,
-                   small_block: int = layout.SMALL_BLOCK_SIZE) -> None:
-    """Data shard files -> `<base>.dat` (row-major interleave copy).  The
+                   small_block: int = layout.SMALL_BLOCK_SIZE,
+                   out_path: str | None = None) -> None:
+    """Data shard files -> `<base>.dat`, or `out_path` (row-major
+    interleave copy; the recode decodes into a temporary name).  The
     stripe width k comes from the volume's .vif codec tag."""
     data_shards = codecs.parse_tag((read_vif(base) or {}).get("codec")).k
     rows = layout.n_large_rows(dat_size, large_block, small_block,
@@ -1220,7 +1242,7 @@ def write_dat_file(base: str, dat_size: int,
            for i in range(data_shards)]
     written = 0
     try:
-        with open(base + ".dat", "wb") as dat:
+        with open(out_path or (base + ".dat"), "wb") as dat:
             for r in range(rows):
                 for j in range(data_shards):
                     ins[j].seek(r * large_block)

@@ -7,9 +7,11 @@ the port's CLI (`python -m seaweedfs_tpu_torch volume ... -device cpu`),
 where neither jax nor the reference package is imported.  The tests are
 twins of tests/test_cluster.py's and tests/test_pb.py's cluster tests,
 driven by the reference `WeedClient` and shell exactly as those drive
-the reference's servers, plus a mixed cluster (one reference and one
-port volume server) whose shard sets cross both ways, and the master's
-background planes meeting the routes this slice leaves out.
+the reference's servers, plus mixed clusters (one reference and one
+port volume server) whose shard sets and repair partials cross both
+ways, and the master's background planes over port nodes: its repair
+in mode `reduced`, its canary's probe, and the routes this slice
+leaves out.
 
 Tests that share the module's cluster keep their blobs in a collection
 of their own (the EC flow's is the default one), so none sees another's
@@ -426,12 +428,15 @@ def test_mixed_cluster_shards_cross(tmp_path, monkeypatch):
         c.stop()
 
 
-# ---- the reference master's planes against routes this slice lacks -----
+# ---- the reference master's planes against the port's nodes ------------
 
 def test_master_planes_meet_routes_this_slice_lacks(cluster):
-    """The master's repair posts a `reduced` rebuild (501 from a port
-    node) and heals by its naive path; its aggregator and canary pull
-    routes this slice leaves out (404); the master carries on."""
+    """The master's repair posts a `reduced` rebuild to a port node, which
+    rebuilds the lost shard from its own survivors and the other node's
+    partials (the decision ledger says `reduced`); its canary's degraded
+    probe reads through a port node (200); its aggregator and perf
+    fan-out still meet the routes this slice leaves out (404), and the
+    master carries on."""
     client = WeedClient(cluster.master.url)
     payloads = _fill_volume(client, n_blobs=12, seed=3, collection="planes")
     vid = int(next(iter(payloads)).partition(",")[0])
@@ -446,34 +451,108 @@ def test_master_planes_meet_routes_this_slice_lacks(cluster):
     assert vs_call(a, "/admin/ec/delete_shards",
                    {"volume": vid, "shards": [lost]})[0] == 200
     assert lost not in env.ec_shard_locations(vid)
-    # what the planner would post, straight at a port node: a clean 501
-    st, body = vs_call(a, "/admin/ec/rebuild",
-                       {"volume": vid, "codec": "rs_10_4",
-                        "reduced": {"lost": [lost], "groups": []}})
-    assert st == 501 and "error" in body
     st, body = vs_call(cluster.master.url, "/maintenance/tick",
                        {"wait": True})
     assert st == 200
     assert sorted(env.ec_shard_locations(vid)) == list(range(14))
-    modes = [d["mode"] for d in cluster.master.maintenance.decisions
-             if d["vid"] == vid]
-    assert modes == ["naive_fallback"], cluster.master.maintenance.decisions
+    decisions = [d for d in cluster.master.maintenance.decisions
+                 if d["vid"] == vid]
+    assert [d["mode"] for d in decisions] == ["reduced"], decisions
     client._vid_cache.clear()
     for fid, data in payloads.items():
         assert client.download(fid) == data
-    # routes the aggregator, the perf fan-out and the canary pull
     for url in cluster.port_urls:
-        for path in ("/heat", "/perf", "/debug/traces",
-                     f"/admin/ec/probe_read?volume={vid}"):
+        for path in ("/heat", "/perf", "/debug/traces"):
             assert vs_call(url, path)[0] == 404, (url, path)
         st, text = vs_call(url, "/metrics")
         assert st == 200 and b"weedtpu_volume_request_total" in text
+    holder = next(u for u in cluster.port_urls
+                  if u in env.ec_shard_locations(vid)[0])
+    st, probe = vs_call(holder, f"/admin/ec/probe_read?volume={vid}")
+    assert st == 200 and probe["bytes"] > 0, probe
     for path in ("/cluster/metrics?refresh=1", "/cluster/heat",
                  "/cluster/perf", "/cluster/status"):
         assert vs_call(cluster.master.url, path)[0] == 200, path
-    probe = cluster.submit(cluster.master.canary.run_once(("degraded",)))
-    assert probe  # the probe ran and the master answers after it
+    st = cluster.submit(cluster.master.canary.run_once(("degraded",)))
+    assert st["paths"]["degraded"]["outcome"] == "ok", st
     assert vs_call(cluster.master.url, "/cluster/canary")[0] == 200
+
+
+def test_canary_degraded_probe_reconstructs(cluster):
+    """Twin of tests/test_flight_recorder.py::test_canary_degraded_probe_
+    reconstructs: the degraded canary path reaches a port node's
+    /admin/ec/probe_read, a real needle read with one present shard
+    withheld, and the node names the shard it withheld."""
+    client = WeedClient(cluster.master.url)
+    rng = np.random.default_rng(3)
+    fids = [client.upload(rng.integers(0, 256, 40_000,
+                                       dtype=np.uint8).tobytes(),
+                          name=f"deg{i}.bin", collection="canary")
+            for i in range(12)]
+    vid = int(fids[0].partition(",")[0])
+    time.sleep(0.7)
+    env = CommandEnv(cluster.master.url)
+    out = io.StringIO()
+    run_command(env, "lock", out)
+    run_command(env, f"ec.encode -volumeId {vid} -collection canary", out)
+    run_command(env, "unlock", out)
+    time.sleep(0.7)
+    st = cluster.submit(cluster.master.canary.run_once(paths=("degraded",)))
+    rec = st["paths"]["degraded"]
+    assert rec["outcome"] == "ok", rec
+    holder = next(u for u in cluster.port_urls
+                  if u in env.ec_shard_locations(vid)[0])
+    st, probe = vs_call(holder, f"/admin/ec/probe_read?volume={vid}")
+    assert st == 200 and probe["bytes"] == 40_000
+    assert probe["skipped_shard"] in range(14)
+
+
+def test_partials_cross_packages(tmp_path, monkeypatch):
+    """One reference and one port volume server: a reduced rebuild on
+    each takes the other's partials through its /admin/ec/partial, and
+    each rebuilt shard equals the encoder's."""
+    monkeypatch.setenv("WEEDTPU_EC_CODEC", "numpy")  # the reference's
+    c = PortCluster(tmp_path, n_port=1, n_ref=1).start()
+    try:
+        ref_vs = c.ref_servers[0]
+        port_url = c.port_urls[0]
+        rng = np.random.default_rng(8)
+        for repairer, helper, vid in ((port_url, ref_vs.url, 201),
+                                       (ref_vs.url, port_url, 202)):
+            assert vs_call(repairer, "/admin/assign_volume",
+                           {"volume": vid})[0] == 200
+            for i in range(16):
+                data = rng.integers(0, 256, int(rng.integers(500, 30_000)),
+                                    dtype=np.uint8).tobytes()
+                fid = f"{vid},{vid * 1000 + i:x}{0x1234abcd:08x}"
+                req = urllib.request.Request(f"http://{repairer}/{fid}",
+                                             data=data, method="PUT")
+                with urllib.request.urlopen(req) as r:
+                    assert r.status == 201
+            vs_call(repairer, "/admin/volume/readonly", {"volume": vid})
+            assert vs_call(repairer, "/admin/ec/generate",
+                           {"volume": vid})[0] == 200
+            held = [9, 10, 11, 12, 13]
+            assert vs_call(helper, "/admin/ec/copy",
+                           {"volume": vid, "source": repairer,
+                            "shards": held, "copy_ecx": True})[0] == 200
+            assert vs_call(helper, "/admin/ec/mount",
+                           {"volume": vid})[0] == 200
+            rdir = c.port_dirs[0] if repairer == port_url \
+                else c.tmp / "ref0"
+            want = (rdir / f"{vid}.ec02").read_bytes()
+            assert vs_call(repairer, "/admin/ec/delete_shards",
+                           {"volume": vid, "shards": held + [2]})[0] == 200
+            st, r = vs_call(repairer, "/admin/ec/rebuild", {
+                "volume": vid, "codec": "rs_10_4", "reduced": {
+                    "lost": [2], "shard_size": len(want), "groups": [
+                        {"node": helper, "shards": held, "locality": 1}]}})
+            assert st == 200, r
+            assert r["helper_bytes"] == {helper: len(want)}
+            assert r["predicted"]["per_node"] == {helper: len(want)}
+            assert (rdir / f"{vid}.ec02").read_bytes() == want, repairer
+    finally:
+        c.stop()
 
 
 # ---- the CLI ------------------------------------------------------------

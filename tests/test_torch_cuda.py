@@ -816,3 +816,120 @@ def test_cuda_volume_server_generate_and_degraded_get(card, tmp_path):
         run(vs.stop())
         run(runner.cleanup())
         loop.call_soon_threadsafe(loop.stop)
+
+
+@pytest.mark.cuda
+def test_cuda_server_fleet_convert_and_reduced_repair(card, tmp_path,
+                                                      monkeypatch):
+    """Two port volume servers on the card, in process behind a master
+    stand-in.  A's /admin/ec/fleet_convert of two volumes launches K2 and
+    writes the shard sets and .ecx the CPU's convert_volumes writes of
+    the same volumes; then A's reduced rebuild of a lost shard, with B
+    serving partials of the shards it copied, launches K1 on both sides
+    and rebuilds the shard the CPU wrote, B's bytes equal to the plan's."""
+    import asyncio
+    import json
+    import socket
+    import threading
+    import urllib.request
+    from aiohttp import web
+    from seaweedfs_tpu_torch.ops import fleet_convert
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.ec import ec_files
+
+    monkeypatch.setenv("WEEDTPU_SCRUB_MBPS", "0")
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    async def heartbeat(req):
+        await req.read()
+        return web.json_response({})
+
+    app = web.Application()
+    app.add_routes([web.post("/heartbeat", heartbeat)])
+    loop = asyncio.new_event_loop()
+    threading.Thread(target=loop.run_forever, daemon=True).start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(120)
+
+    runner = web.AppRunner(app)
+    mport = free_port()
+    run(runner.setup())
+    run(web.TCPSite(runner, "127.0.0.1", mport).start())
+    dirs = [tmp_path / "a", tmp_path / "b"]
+    servers = [VolumeServer([str(d)], f"127.0.0.1:{mport}",
+                            port=free_port()) for d in dirs]
+    for vs in servers:
+        run(vs.start())
+    a, b = servers
+
+    def call(vs, path, body=None, data=None, method=None):
+        if body is not None:
+            data = json.dumps(body).encode()
+        req = urllib.request.Request(
+            f"http://{vs.url}{path}", data=data,
+            method=method or ("POST" if data is not None else "GET"),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            raw = r.read()
+        return json.loads(raw) if raw[:1] == b"{" else raw
+
+    try:
+        g = np.random.default_rng(14)
+        for vid in (3, 4):
+            call(a, "/admin/assign_volume", {"volume": vid})
+            for k in range(1, 31):
+                call(a, f"/{vid},{k:x}{k:08x}",
+                     data=g.bytes(int(g.integers(1, 200_000))),
+                     method="PUT")
+        cpu = tmp_path / "cpu"
+        cpu.mkdir()
+        for vid in (3, 4):
+            a.store.get_volume(vid).flush()
+            shutil.copy(dirs[0] / f"{vid}.dat", cpu / f"{vid}.dat")
+            shutil.copy(dirs[0] / f"{vid}.idx", cpu / f"{vid}.idx")
+        fleet_convert.convert_volumes([str(cpu / "3"), str(cpu / "4")],
+                                      device="cpu")
+        before = dict(gf_cuda.LAUNCHES)
+        r = call(a, "/admin/ec/fleet_convert", {"volumes": [3, 4]})
+        assert r["converted"] == [3, 4]
+        assert gf_cuda.LAUNCHES["gf_apply_batch"] > \
+            before["gf_apply_batch"]
+        assert gf_cuda.LAUNCHES["gf_apply"] == before["gf_apply"]
+        for vid in (3, 4):
+            ec_files.write_sorted_ecx(str(cpu / f"{vid}.idx"))
+            for ext in [f".ec{i:02d}" for i in range(14)] + [".ecx",
+                                                             ".vif"]:
+                assert (dirs[0] / f"{vid}{ext}").read_bytes() == \
+                    (cpu / f"{vid}{ext}").read_bytes(), (vid, ext)
+        held = [10, 11, 12, 13]
+        call(b, "/admin/ec/copy", {"volume": 3, "source": a.url,
+                                   "shards": held})
+        call(b, "/admin/ec/mount", {"volume": 3})
+        call(a, "/admin/ec/delete_shards", {"volume": 3,
+                                            "shards": held + [2]})
+        size = os.path.getsize(cpu / "3.ec02")
+        before = gf_cuda.LAUNCHES["gf_apply"]
+        staged = dict(gf_cuda.STAGED)
+        r = call(a, "/admin/ec/rebuild", {
+            "volume": 3, "codec": "rs_10_4",
+            "reduced": {"lost": [2], "shard_size": size, "groups": [
+                {"node": b.url, "shards": held, "locality": 1}]}})
+        assert r["helper_bytes"] == r["predicted"]["per_node"] == \
+            {b.url: size}
+        # one segment (the shard is under the plan's 4 MiB alignment)
+        # and one chunk: B's partial and A's local apply
+        assert size <= 4 << 20
+        assert gf_cuda.LAUNCHES["gf_apply"] - before == 2
+        assert (dirs[0] / "3.ec02").read_bytes() == \
+            (cpu / "3.ec02").read_bytes()
+        assert gf_cuda.STAGED == staged  # the kernel read every row in place
+    finally:
+        for vs in servers:
+            run(vs.stop())
+        run(runner.cleanup())
+        loop.call_soon_threadsafe(loop.stop)

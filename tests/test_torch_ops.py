@@ -84,6 +84,14 @@ def test_import_rule_covers_the_server_slice():
         assert f"seaweedfs_tpu_torch/{rel}" in files, rel
 
 
+def test_import_rule_covers_the_maintenance_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("maintenance/scrub.py", "maintenance/faults.py",
+                "ops/fleet_convert.py", "ops/regen.py", "stats/trace.py",
+                "stats/metrics.py", "server/volume_server.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
 def test_card_path_modules_import_no_server_package():
     """The store, the EC files and the codecs load without aiohttp and
     protobuf: only the server modules import them at module level."""
@@ -91,6 +99,8 @@ def test_card_path_modules_import_no_server_package():
             "import seaweedfs_tpu_torch.storage.store\n"
             "import seaweedfs_tpu_torch.pb, seaweedfs_tpu_torch.utils.http\n"
             "import seaweedfs_tpu_torch.stats.trace\n"
+            "import seaweedfs_tpu_torch.maintenance.scrub\n"
+            "import seaweedfs_tpu_torch.maintenance.faults\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('aiohttp', 'jax') or m.startswith('google.protobuf')]\n"
             "assert not bad, bad\n")

@@ -14,6 +14,7 @@ import hashlib
 import io
 import json
 import os
+import pathlib
 import shutil
 import socket
 import threading
@@ -27,13 +28,16 @@ import torch
 
 from seaweedfs_tpu import images as ref_images
 from seaweedfs_tpu import pb as ref_pb
+from seaweedfs_tpu.ops import gf as ref_gf
 from seaweedfs_tpu.storage.ec import ec_files as ref_ec_files
 
 from seaweedfs_tpu_torch import pb
+from seaweedfs_tpu_torch.ops import dispatch, fleet_convert
 from seaweedfs_tpu_torch.server import volume_server as vsmod
 from seaweedfs_tpu_torch.stats import metrics
 from seaweedfs_tpu_torch.storage.ec import ec_files
 
+REPO = pathlib.Path(__file__).resolve().parent.parent
 SHARDS = [f".ec{i:02d}" for i in range(14)]
 
 
@@ -164,19 +168,30 @@ def test_volume_server_needs_the_card(tmp_path):
 
 
 def test_every_codec_runs_on_the_servers_device(harness, monkeypatch):
-    """The encode, the rebuilds and every mounted EC volume get the
-    server's device, never their own default."""
+    """The encode, the rebuilds (plain and reduced), every mounted EC
+    volume, the helper's partial, the recode and its remount, the
+    scrubber's windows and the fleet conversion get the server's device,
+    never their own default."""
     h = harness()
     seen = []
     for mod, name in ((ec_files, "write_ec_files"),
                       (ec_files, "rebuild_ec_files"),
-                      (vsmod.ecv, "EcVolume")):
+                      (ec_files, "rebuild_ec_reduced"),
+                      (vsmod.ecv, "EcVolume"),
+                      (fleet_convert, "convert_volumes")):
         real = getattr(mod, name)
 
         def spy(*a, _real=real, _name=name, **kw):
             seen.append((_name, kw.get("device")))
             return _real(*a, **kw)
         monkeypatch.setattr(mod, name, spy)
+    for name in ("apply_matrix", "parity_mismatch"):
+        real = getattr(dispatch, name)
+
+        def on_codec(codec, *a, _real=real, _name=name, **kw):
+            seen.append((_name, codec.device))
+            return _real(codec, *a, **kw)
+        monkeypatch.setattr(dispatch, name, on_codec)
     assert h.json(0, "/admin/assign_volume", {"volume": 3})[0] == 200
     put_blobs(h, 0, 3, 12, seed=1)
     assert h.json(0, "/admin/ec/generate", {"volume": 3})[0] == 200
@@ -186,8 +201,28 @@ def test_every_codec_runs_on_the_servers_device(harness, monkeypatch):
     assert h.json(0, "/admin/volume/delete", {"volume": 3})[0] == 200
     os.remove(h.dir() / "3.ec04")
     assert h.json(0, "/admin/ec/to_volume", {"volume": 3})[0] == 200
-    assert [n for n, _ in seen] == ["write_ec_files", "rebuild_ec_files",
-                                    "EcVolume", "rebuild_ec_files"]
+    assert h.call(0, "/admin/ec/partial", {
+        "volume": 3, "shards": [0, 1], "offset": 0, "size": 4096,
+        "coeff": [[1, 2]]})[0] == 200
+    os.remove(h.dir() / "3.ec05")
+    assert h.json(0, "/admin/ec/rebuild", {
+        "volume": 3, "reduced": {"lost": [5], "groups": []}})[0] == 200
+    assert h.json(0, "/admin/ec/recode",
+                  {"volume": 3, "codec": "lrc_10_2_2"})[0] == 200
+    assert h.json(0, "/admin/scrub", {})[0] == 200
+    assert h.json(0, "/admin/assign_volume", {"volume": 6})[0] == 200
+    put_blobs(h, 0, 6, 5, seed=2)
+    assert h.json(0, "/admin/ec/fleet_convert", {"volumes": [6]})[0] == 200
+    names = [n for n, _ in seen]
+    assert names[:5] == ["write_ec_files", "rebuild_ec_files", "EcVolume",
+                         "rebuild_ec_files", "apply_matrix"], names
+    assert names[5] == "rebuild_ec_reduced" and \
+        set(names[6:names.index("write_ec_files", 6)]) == {"apply_matrix"}
+    assert names[names.index("write_ec_files", 6):] == \
+        ["write_ec_files", "EcVolume"] + \
+        ["parity_mismatch"] * names.count("parity_mismatch") + \
+        ["convert_volumes"], names
+    assert names.count("parity_mismatch") == 1  # one 1 MiB window
     assert all(d == torch.device("cpu") for _, d in seen), seen
 
 
@@ -327,21 +362,58 @@ def test_generate_equals_reference_and_reads_through(harness, monkeypatch):
         assert h.call(0, "/" + f)[2] == data
 
 
-def test_rebuild_reduced_answers_501(harness):
-    h = harness(master=False)
+def test_rebuild_reduced_equals_reference(harness, monkeypatch):
+    """A rebuild with `reduced` (the reference master's repair plan)
+    rebuilds the lost
+    shard from A's survivors and B's partials through B's
+    /admin/ec/partial: the shard is the encode's, and the answer, byte
+    ledger included, equals the reference's rebuild_ec_reduced over the
+    same files with the same helper."""
+    h = harness(n=2, master=False)
+    a, b = h.vs
     h.json(0, "/admin/assign_volume", {"volume": 2})
-    put_blobs(h, 0, 2, 4, seed=3)
+    blobs = put_blobs(h, 0, 2, 24, seed=3)
     h.json(0, "/admin/ec/generate", {"volume": 2})
+    held = [10, 11, 12, 13]
+    assert h.json(1, "/admin/ec/copy", {"volume": 2, "source": a.url,
+                                        "shards": held})[0] == 200
+    assert h.json(1, "/admin/ec/mount", {"volume": 2})[1] == \
+        {"shards": held}
+    want = (h.dir(0) / "2.ec03").read_bytes()
+    assert h.json(0, "/admin/ec/delete_shards",
+                  {"volume": 2, "shards": held + [3]})[0] == 200
+    ref = h.tmp / "ref"
+    ref.mkdir()
+    for ext in [f".ec{i:02d}" for i in range(10) if i != 3] + \
+            [".ecx", ".vif"]:
+        shutil.copyfile(h.dir(0) / f"2{ext}", ref / f"2{ext}")
+    size = len(want)
+    groups = [{"node": b.url, "shards": held, "locality": 1}]
     st, r = h.json(0, "/admin/ec/rebuild",
                    {"volume": 2, "codec": "rs_10_4",
-                    "reduced": {"lost": [3], "groups": [
-                        {"node": "127.0.0.1:1", "shards": [0, 1],
-                         "locality": 1}], "shard_size": 4096}})
-    assert st == 501 and "error" in r
-    # the refused rebuild registered no job: the encode's is the last
-    assert h.vs[0]._ec_jobs[2]["kind"] == "encode"
-    st, r = h.json(0, "/admin/ec/rebuild", {"volume": 2})
-    assert (st, r) == (200, {"rebuilt": []})
+                    "reduced": {"lost": [3], "groups": groups,
+                                "shard_size": size}})
+    assert st == 200, r
+    assert (h.dir(0) / "2.ec03").read_bytes() == want
+    assert r["helper_bytes"] == {b.url: size}
+    assert a._ec_jobs[2]["kind"] == "rebuild_reduced"
+    assert a._ec_jobs[2]["bytes_done"] == a._ec_jobs[2]["total"]
+
+    def fetch(group, sids, coeff, off, n):
+        rows = np.stack([np.fromfile(h.dir(1) / f"2.ec{s:02d}",
+                                     np.uint8)[off:off + n] for s in sids])
+        return ref_gf.gf_matmul(coeff, rows).tobytes()
+
+    with monkeypatch.context() as mp:
+        mp.setenv("WEEDTPU_EC_CODEC", "numpy")
+        ref_r = ref_ec_files.rebuild_ec_reduced(
+            str(ref / "2"), [3], [dict(g, shard_size=size) for g in groups],
+            fetch, codec_tag="rs_10_4")
+    assert r == json.loads(json.dumps(ref_r))
+    assert (ref / "2.ec03").read_bytes() == want
+    assert h.json(0, "/admin/ec/mount", {"volume": 2})[0] == 200
+    for f, data in blobs.items():
+        assert h.call(0, "/" + f)[2] == data
 
 
 @pytest.mark.parametrize("tag", ["lrc_10_2_2", "rs_10_4"])
@@ -484,11 +556,6 @@ def test_routes_this_slice_leaves_out_answer_404(harness):
     h = harness(master=False)
     for path, body in (("/heat", None), ("/perf", None),
                        ("/debug/traces", None), ("/debug/requests", None),
-                       ("/admin/ec/probe_read?volume=1", None),
-                       ("/admin/ec/partial", {"volume": 1}),
-                       ("/admin/ec/fleet_convert", {"volumes": [1]}),
-                       ("/admin/ec/recode", {"volume": 1}),
-                       ("/admin/scrub", {}), ("/admin/faults", {}),
                        ("/admin/volume/copy", {"volume": 1}),
                        ("/admin/volume/needles?volume=1", None)):
         assert h.call(0, path, body)[0] == 404, path
@@ -748,3 +815,73 @@ def test_trace_config_forwards_headers_as_reference():
     assert got[0] == got[1] == {"X-Weedtpu-Class": "repair",
                                 "X-Weedtpu-Role": "volume",
                                 "X-Weedtpu-Tenant": "acme"}
+
+
+# ---- the maintenance routes need no JAX ---------------------------------
+
+MAINTENANCE_WITHOUT_JAX = r"""
+import asyncio, json, os, socket, sys, threading, urllib.request
+from aiohttp import web
+from seaweedfs_tpu_torch.server import volume_server as vsmod
+d = sys.argv[1]
+loop = asyncio.new_event_loop()
+threading.Thread(target=loop.run_forever, daemon=True).start()
+def run(coro):
+    return asyncio.run_coroutine_threadsafe(coro, loop).result(120)
+async def ok(req):
+    await req.read()
+    return web.json_response({})
+app = web.Application()
+app.add_routes([web.post("/heartbeat", ok),
+                web.post("/maintenance/scrub_report", ok)])
+runner = web.AppRunner(app)
+run(runner.setup())
+run(web.TCPSite(runner, "127.0.0.1", 0).start())
+master = "127.0.0.1:%d" % runner.addresses[0][1]
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+vs = vsmod.VolumeServer([d], master, "127.0.0.1", port, device="cpu")
+run(vs.start())
+def call(path, body=None, data=None, method="POST"):
+    if body is not None:
+        data = json.dumps(body).encode()
+    req = urllib.request.Request("http://%s%s" % (vs.url, path), data=data,
+                                 method=method)
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.read()
+call("/admin/assign_volume", {"volume": 1})
+for k in range(1, 9):
+    call("/1,%x1234abcd" % k, data=os.urandom(3000 * k), method="PUT")
+fleet = json.loads(call("/admin/ec/fleet_convert", {"volumes": [1]}))
+call("/admin/ec/mount", {"volume": 1})
+scrubbed = json.loads(call("/admin/scrub", {}))
+partial = call("/admin/ec/partial", {"volume": 1, "shards": [0, 11],
+                                    "offset": 0, "size": 512,
+                                    "coeff": [[3, 7]]})
+run(vs.stop())
+run(runner.cleanup())
+print(json.dumps({
+    "fleet": fleet["converted"],
+    "scrub": scrubbed["volumes"]["1"]["kind"],
+    "partial": len(partial), "jax": "jax" in sys.modules,
+    "reference": [m for m in sys.modules
+                  if m.split(".")[0] == "seaweedfs_tpu"]}))
+"""
+
+
+def test_maintenance_routes_leave_jax_unloaded(tmp_path):
+    """A fleet conversion, a scrub and a partial through a port server in
+    a fresh interpreter: neither jax nor the reference package gets
+    imported."""
+    import subprocess
+    import sys
+    env = dict(os.environ)
+    env.pop("WEEDTPU_EC_CODEC", None)
+    r = subprocess.run([sys.executable, "-c", MAINTENANCE_WITHOUT_JAX,
+                        str(tmp_path)], cwd=str(REPO), env=env,
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got == {"fleet": [1], "scrub": "ec", "partial": 512,
+                   "jax": False, "reference": []}
