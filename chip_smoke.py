@@ -234,7 +234,43 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                locality and the blob requests made; launches zeroed
                before and read after; every line with the card's name
                and power limit
- 18 report     {"kernels": [...]} line, the card's name and power limit,
+ 18 admin      three port VolumeServers (A, B, C) on the card, in
+               process on one loop thread behind the master stand-in,
+               the continuous profiler on (WEEDTPU_PROFILE_HZ=49) for
+               this phase only: (1) /admin/volume/move of the phase-3
+               volume (links of the copy taken before phase 14) A -> B,
+               its request sampled: B's .dat sha256 == phase 3's and its
+               CRC32 == the move's, A's copy retired, the beats show it;
+               64 x 64 KiB needles appended on B and A's replica (a file
+               copy of phase 3's) caught up by /admin/volume/copy,
+               appended_bytes == B's growth, the tails equal; a move of
+               phase 7's 100 MiB volume B -> C with B's file pulls
+               stalled (delay_file_pull) and C stopped mid-transfer:
+               500, B serves its needle and stays writable, C's boot
+               leaves nothing, a second move B -> C, sha256 and CRC32
+               equal; (2) links of phase 4's shards, A 4-13 / B 0-3, the
+               volume role partitioned from B through A's /admin/faults,
+               256 of the needles on 0-3 (drawn with --seed) read from A
+               at 16 clients, hedging off: K1 == those needles ==
+               reconstruct batches, no remote read; /debug/pprof?seconds=1 meanwhile
+               shows ec_volume frames; (3) peer_latency 350 ms toward B,
+               16 needles, hedging on: K1 == hedges fired == won == 16;
+               peer_error 100 %: K1 16, B's breaker open; (4)
+               /admin/volume/unconvert of phase 4's shard set less
+               0/3/10/12: K1 == phase 6's, .dat sha256 == phase 3's, the
+               shard set, .ecx and .vif gone, writable, in the beat; a
+               one-needle volume of phase 7 through
+               /admin/ec/fleet_convert (K2 as its units) and a thaw-only
+               unconvert (no launch); (5) tier_move to a local
+               directory and tier_download with delete_remote, sha256 ==
+               phase 3's, a write after it; (6) /admin/volume/needles == the needle map,
+               /admin/query over 512 JSON documents == plain Python's
+               selection; (7) /perf lists the unconvert's rebuild, /heat
+               ranks step 2's volume first, /debug/traces holds the
+               move's volume.move span, the continuous profiler has
+               samples; launches zeroed before and read after; every
+               line with the card's name and power limit
+ 19 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -243,7 +279,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12, 13, 14, 15, 16 and 17, so the reported launches are
+around phases 12, 13, 14, 15, 16, 17 and 18, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -251,10 +287,10 @@ a path made the kernel wrapper stage a copy of any input
 and if K2 was not launched.  After phase 13's window, two records: fleet
 against one write_ec_files per volume over the same four volumes (fleet,
 serial, serial, fleet), and rebuild_ec_files of phase 9's single loss;
-then phases 14, 15, 16 and 17 (phases 16 and 17 on a copy of the
-phase-3 volume taken before phase 14, whose appends go through links of
-it; phase 17 also on links of phase 4's and 10's shard sets and phase
-7's volumes).
+then phases 14-18 (phases 16-18 on a copy of the phase-3 volume taken
+before phase 14, whose appends go through links of it; phases 17 and 18
+also on links of phase 4's and (17) 10's shard sets and phase 7's
+volumes).
 Needs one CUDA card; exits non-zero without one, and outside a checkout
 of the repository.
 """
@@ -4895,6 +4931,660 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
     return out
 
 
+# phase 18's volume admin through the server: volume copy, move and
+# incremental copy, the network faults under degraded reads, unconvert,
+# tiering, needles and query, and the telemetry routes.  Three port
+# servers A, B, C on one loop thread behind the master stand-in, hedging
+# and scrubbing as each step sets them.  Its EC steps run on links of
+# phase 4's shard set under volume ids of their own, its moves on the
+# phase-3 volume (links of the copy taken before phase 14 as the first
+# source, so no byte of that copy changes).
+ADMIN_VIDS = {"partition": 181, "unconvert": 182, "thaw": 183,
+              "query": 184, "kill": 185}
+ADMIN_APPENDS = 64  # needles appended on B before the incremental copy
+ADMIN_APPEND_SIZE = 64 * 1024
+ADMIN_SAMPLE = 200  # needles read back after the move
+# step 2's reads, drawn from the needles on shards 0-3 (898 at seed 0):
+# cut for the script's time (PERF §4)
+ADMIN_PARTITION_READS = 256
+ADMIN_HEDGED = 16  # step 3's needles per arm
+ADMIN_SLOW_MS = 350  # step 3's peer_latency, phase 15's slow peer
+ADMIN_DOCS = 512  # step 6's JSON documents
+ADMIN_PROFILE_HZ = "49"  # the continuous profiler of this phase only
+
+
+def sha256_crc32(path: str) -> tuple[str, int]:
+    """The sha256 and the zlib CRC32 of a file, in one pass."""
+    import zlib
+    h, crc = hashlib.sha256(), 0
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(8 * MIB)
+            if not chunk:
+                break
+            h.update(chunk)
+            crc = zlib.crc32(chunk, crc)
+    return h.hexdigest(), crc
+
+
+def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
+                blob: bytes, dat_hash: str, phases: dict, srcs: list[str],
+                seed: int, launches: dict, device=None) -> dict:
+    """Phase 18: the rest of the volume server on the card, three port
+    servers in process on one loop thread behind the master stand-in,
+    driven over loopback HTTP as the reference master, autopilot and
+    shell drive them: (1) /admin/volume/move of the 1 GiB volume A -> B,
+    an incremental /admin/volume/copy of needles appended on B, a move
+    killed mid-transfer and a second one; (2) a partition of B under
+    degraded GETs from A; (3) a slow, then a failing B under hedged
+    GETs; (4) /admin/volume/unconvert of a shard set missing four shards,
+    and a thaw-only one after /admin/ec/fleet_convert; (5) tier_move and
+    tier_download; (6) /admin/volume/needles and /admin/query; (7)
+    /debug/pprof, /perf, /heat, /debug/traces.  K1 and K2 per step held
+    against their predictions, every byte against phases 3, 4 and 7."""
+    import asyncio
+
+    import numpy as np
+    from aiohttp import web
+    from seaweedfs_tpu_torch.maintenance import faults
+    from seaweedfs_tpu_torch.ops import fleet_convert
+    from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.stats import heat, metrics, profile, trace
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.utils import http, resilience
+
+    card = card_name_power()
+
+    def alog(msg: str) -> None:
+        log(f"[admin] {msg} [{card}]")
+
+    def free_port() -> int:
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    work = os.path.join(vdir, "admin")
+    dirs = {n: os.path.join(work, n) for n in ("a", "b", "c")}
+    for d in dirs.values():
+        os.makedirs(d)
+    vid = int(os.path.basename(server_src))
+    loop = asyncio.new_event_loop()
+    loop_thread = threading.Thread(target=loop.run_forever, daemon=True)
+    loop_thread.start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(900)
+
+    standin = MasterStandIn()
+    runner = None
+    servers: dict = {}
+    client = http.PooledHTTP(timeout=900.0, max_idle_per_host=32)
+    steps: dict = {}
+    counts: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 18)
+
+    def call(name: str, path: str, body=None, method=None, data=None,
+             headers=None) -> tuple[int, bytes]:
+        hdrs = dict(headers or {})
+        if body is not None:
+            data = json.dumps(body).encode()
+            hdrs["Content-Type"] = "application/json"
+        st, _, raw = client.request(
+            f"http://{servers[name].url}{path}",
+            method=method or ("POST" if data is not None else "GET"),
+            body=data, headers=hdrs)
+        return st, raw
+
+    def admin(name: str, path: str, body=None, headers=None) -> dict:
+        st, raw = call(name, path, body, headers=headers)
+        if st != 200:
+            raise AssertionError(f"{name}{path}: HTTP {st} {raw[:300]!r}")
+        return json.loads(raw) if raw else {}
+
+    def step_counts(name: str, k0: dict, k1: int, k2: int = 0) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        want = {"gf_apply": k1, "gf_apply_batch": k2}
+        if got != want:
+            raise AssertionError(f"phase 18 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def start(name: str) -> None:
+        vs = vsmod.VolumeServer([dirs[name]], f"127.0.0.1:{mport}",
+                                "127.0.0.1", free_port(),
+                                heartbeat_interval=1.0, device=device)
+        with scoped_env(WEEDTPU_SCRUB_MBPS="0",
+                        WEEDTPU_PROFILE_HZ=ADMIN_PROFILE_HZ):
+            run(vs.start())
+        servers[name] = vs
+
+    def fid(v: int, nid: int) -> str:
+        return str(t.FileId(v, nid, expect[nid][0]))
+
+    def read_back(name: str, v: int, nids, label: str) -> float:
+        """GET each needle of `nids` (volume `v`) from `name`, byte-equal;
+        returns the seconds."""
+        t0 = time.perf_counter()
+        for nid in nids:
+            cookie, lo, hi = expect[nid]
+            st, raw = call(name, "/" + fid(v, nid))
+            if st != 200 or raw != blob[lo:hi]:
+                raise AssertionError(f"{label}: needle {nid} of {v} on "
+                                     f"{name} differs (HTTP {st})")
+        return time.perf_counter() - t0
+
+    def in_beat(name: str, v: int) -> dict | None:
+        return next((x for x in standin.beats[servers[name].url]["volumes"]
+                     if x["id"] == v), None)
+
+    def place_ec(name: str, v: int, shards) -> str:
+        """Links of phase 4's shards `shards`, .ecx and .vif as volume
+        `v` on `name`, mounted."""
+        dst = os.path.join(dirs[name], str(v))
+        for i in shards:
+            os.link(base + layout.to_ext(i), dst + layout.to_ext(i))
+        for ext in (".ecx", ".vif"):
+            os.link(base + ext, dst + ext)
+        admin(name, "/admin/ec/mount", {"volume": v})
+        return dst
+
+    sample = sorted(rng.choice(sorted(expect), ADMIN_SAMPLE,
+                               replace=False).tolist())
+    dat_size = os.path.getsize(server_src + ".dat")
+    try:
+        mport = free_port()
+        runner = web.AppRunner(standin.app())
+        run(runner.setup())
+        run(web.TCPSite(runner, "127.0.0.1", mport).start())
+        for name in ("a", "b", "c"):
+            start(name)
+        if profile.global_profiler() is None:
+            raise AssertionError("WEEDTPU_PROFILE_HZ started no profiler")
+        alog(f"servers A {servers['a'].url}, B {servers['b'].url}, C "
+             f"{servers['c'].url} on {servers['a'].device}; the "
+             f"continuous profiler at {ADMIN_PROFILE_HZ} Hz")
+
+        # 1a move A -> B, its request sampled so /debug/traces holds it
+        k0 = dict(launches)
+        for ext in (".dat", ".idx"):
+            os.link(server_src + ext, os.path.join(dirs["a"], f"{vid}{ext}"))
+        admin("a", "/admin/volume/mount", {"volume": vid})
+        tid = trace._new_trace_id()
+        t0 = time.perf_counter()
+        reply = admin("a", "/admin/volume/move",
+                      {"volume": vid, "target": servers["b"].url},
+                      headers={trace.TRACE_HEADER:
+                               f"{tid}-{trace._new_span_id()}-1"})
+        dt_move = time.perf_counter() - t0
+        b_dat = os.path.join(dirs["b"], f"{vid}.dat")
+        b_hash, b_crc = sha256_crc32(b_dat)
+        if b_hash != dat_hash or reply["crc"] != b_crc:
+            raise AssertionError(f"moved .dat: sha256 {b_hash} (phase 3's "
+                                 f"{dat_hash}), CRC {b_crc} (the move's "
+                                 f"{reply['crc']})")
+        if servers["a"].store.get_volume(vid) is not None or \
+                os.path.exists(os.path.join(dirs["a"], f"{vid}.dat")):
+            raise AssertionError("A's copy was not retired")
+        if in_beat("a", vid) is not None or in_beat("b", vid) is None or \
+                in_beat("b", vid)["read_only"]:
+            raise AssertionError("the beats do not show the move")
+        dt_read = read_back("b", vid, sample, "moved read")
+        step_counts("1a move", k0, 0)
+        steps["1a move"] = {"bytes": dat_size, "s": dt_move,
+                            "gbps": dat_size / dt_move / 1e9,
+                            "crc": reply["crc"],
+                            "reads_per_s": len(sample) / dt_read}
+        alog(f"1a move: {dat_size} B A -> B through /admin/volume/move in "
+             f"{dt_move:.3f} s ({dat_size / dt_move / 1e9:.3f} GB/s, "
+             f"staged copy, CRC {reply['crc']} on both sides, finalize); "
+             f"B's .dat sha256 == phase 3's, A's retired, the beats show "
+             f"it; {len(sample)} needles from B; K1 0, K2 0")
+
+        # 1b append on B, catch A's replica (a file copy of phase 3's
+        # volume) up incrementally
+        k0 = dict(launches)
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(server_src + ext,
+                            os.path.join(dirs["a"], f"{vid}{ext}"))
+        admin("a", "/admin/volume/mount", {"volume": vid})
+        size0 = os.path.getsize(b_dat)
+        appended: dict = {}
+        top = max(expect) + 1
+        for i in range(ADMIN_APPENDS):
+            key = t.FileId(vid, top + i, 0x1234ABCD)
+            data = rng.bytes(ADMIN_APPEND_SIZE)
+            st, raw = call("b", f"/{key}", method="PUT", data=data)
+            if st != 201:
+                raise AssertionError(f"append {key}: HTTP {st}")
+            appended[str(key)] = data
+        grown = os.path.getsize(b_dat) - size0
+        t0 = time.perf_counter()
+        reply = admin("a", "/admin/volume/copy",
+                      {"volume": vid, "source": servers["b"].url})
+        dt = time.perf_counter() - t0
+        if reply != {"incremental": True, "appended_bytes": grown}:
+            raise AssertionError(f"incremental copy {reply}, B grew "
+                                 f"{grown} B")
+        for key, data in appended.items():
+            st, raw = call("a", "/" + key)
+            if st != 200 or raw != data:
+                raise AssertionError(f"appended {key} on A differs")
+        # the heads are phase 3's on both sides (1a's sha256 and the
+        # file copy); the tails must match too
+        with open(os.path.join(dirs["a"], f"{vid}.dat"), "rb") as fa, \
+                open(b_dat, "rb") as fb:
+            fa.seek(size0)
+            fb.seek(size0)
+            if fa.read() != fb.read() or fa.tell() != fb.tell():
+                raise AssertionError("A's caught-up tail differs from B's")
+        step_counts("1b incremental", k0, 0)
+        steps["1b incremental"] = {"appended_bytes": grown, "s": dt}
+        alog(f"1b incremental: {ADMIN_APPENDS} x {ADMIN_APPEND_SIZE} B "
+             f"appended on B ({grown} B of .dat), A's replica caught up "
+             f"by /admin/volume/copy in {dt:.3f} s, appended_bytes == "
+             f"{grown}; A's tail == B's; K1 0")
+
+        # 1c the source's pulls stalled, the target stopped mid-transfer;
+        # then C again, empty, and a second move.  The volume: links of
+        # phase 7's 100 MiB one-needle volume on B (cut from the 1 GiB
+        # one for the script's time, PERF §4)
+        k0 = dict(launches)
+        kv = ADMIN_VIDS["kill"]
+        ksrc = srcs[2][: -len(".dat")]
+        for ext in (".dat", ".idx"):
+            os.link(ksrc + ext, os.path.join(dirs["b"], f"{kv}{ext}"))
+        admin("b", "/admin/volume/mount", {"volume": kv})
+        kfid = f"/{t.FileId(kv, 1, 0x1234ABCD)}"
+        st, kdata = call("b", kfid)
+        k_hash, k_crc = sha256_crc32(ksrc + ".dat")
+        if st != 200 or not kdata:
+            raise AssertionError(f"GET {kfid} from B: HTTP {st}")
+        admin("b", "/admin/faults", {"faults": [
+            {"action": "delay_file_pull", "ms": 1500}]})
+        result: dict = {}
+
+        def doomed():
+            result["st"] = call("b", "/admin/volume/move",
+                                {"volume": kv,
+                                 "target": servers["c"].url})
+        th = threading.Thread(target=doomed)
+        th.start()
+        time.sleep(0.5)
+        dead = servers.pop("c")
+        run(dead.stop())
+        th.join(120)
+        if result.get("st", (0,))[0] != 500:
+            raise AssertionError(f"the killed move answered {result}")
+        admin("b", "/admin/faults", {"faults": [
+            {"action": "delay_file_pull", "ms": 0}]})
+        v = servers["b"].store.get_volume(kv)
+        if v is None or v.read_only:
+            raise AssertionError("B's volume is not writable after the "
+                                 "killed move")
+        if call("b", kfid) != (200, kdata):
+            raise AssertionError("B's read after the killed move differs")
+        leftovers = sorted(os.listdir(dirs["c"]))
+        start("c")
+        if os.listdir(dirs["c"]):
+            raise AssertionError(f"C's boot left {os.listdir(dirs['c'])}")
+        t0 = time.perf_counter()
+        reply = admin("b", "/admin/volume/move",
+                      {"volume": kv, "target": servers["c"].url})
+        dt = time.perf_counter() - t0
+        c_dat = os.path.join(dirs["c"], f"{kv}.dat")
+        if sha256_crc32(c_dat) != (k_hash, k_crc) or reply["crc"] != k_crc:
+            raise AssertionError("the second move's .dat differs")
+        if call("c", kfid) != (200, kdata):
+            raise AssertionError("C's read after the second move differs")
+        step_counts("1c kill", k0, 0)
+        size1 = os.path.getsize(c_dat)
+        steps["1c kill"] = {"leftovers_at_kill": leftovers, "s": dt,
+                            "gbps": size1 / dt / 1e9}
+        alog(f"1c kill: a move of phase 7's {size1} B volume B -> C "
+             f"answered 500 when C stopped mid-transfer (C left "
+             f"{leftovers}); B served its needle byte-equal and stayed "
+             f"writable; C's boot left nothing; the second move in "
+             f"{dt:.3f} s ({size1 / dt / 1e9:.3f} GB/s), sha256 and CRC == "
+             f"the source's; K1 0")
+
+        # 2 partition: A holds 4-13, B 0-3 (phase 15's layout); the volume
+        # role cut from B; every needle on 0-3 read from A, hedging off,
+        # one reconstruct each; /debug/pprof sampled meanwhile
+        pv = ADMIN_VIDS["partition"]
+        place_ec("a", pv, range(4, 14))
+        place_ec("b", pv, range(4))
+        ev = servers["a"].store.get_ec_volume(pv)
+        on_b = [nid for nid in expect
+                if any(s < 4 for s, _, _ in intervals(ev, nid))]
+        touching = sorted(rng.choice(
+            on_b, min(ADMIN_PARTITION_READS, len(on_b)),
+            replace=False).tolist())
+        resilience.reset_latency_trackers()
+        resilience.reset_breakers()
+        heat.reset()  # step 7's /heat ranks from here
+        k0 = dict(launches)
+        s0 = ev.read_stats_snapshot()
+        admin("a", "/admin/faults", {"faults": [
+            {"action": "partition", "a": "volume",
+             "b": servers["b"].url}]})
+        pprof: dict = {}
+
+        def sample_stacks():
+            pprof["st"] = call("a", "/debug/pprof?seconds=1&hz=97")
+        prof_th = threading.Thread(target=sample_stacks)
+        errors: list = []
+
+        def reader(c: int) -> None:
+            try:
+                for nid in touching[c::SERVER_CLIENTS]:
+                    cookie, lo, hi = expect[nid]
+                    st, raw = call("a", "/" + fid(pv, nid))
+                    if st != 200 or raw != blob[lo:hi]:
+                        raise AssertionError(f"partitioned read of {nid} "
+                                             f"differs (HTTP {st})")
+            except Exception as e:  # surfaced after the join
+                errors.append(e)
+        threads = [threading.Thread(target=reader, args=(c,))
+                   for c in range(SERVER_CLIENTS)]
+        with scoped_env(WEEDTPU_HEDGE_PCT="0"):
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            prof_th.start()
+            for th in threads:
+                th.join()
+            dt = time.perf_counter() - t0
+        prof_th.join()
+        if errors:
+            raise errors[0]
+        grew = {k: x - s0[k] for k, x in ev.read_stats_snapshot().items()}
+        admin("a", "/admin/faults", {"faults": [{"action": "clear_net"}]})
+        if faults.NET_ACTIVE:
+            raise AssertionError("clear_net left a fault armed")
+        step_counts("2 partition", k0, len(touching))
+        if grew["reconstruct_batches"] != len(touching) or \
+                grew["remote_shard_reads"] != 0:
+            raise AssertionError(f"partitioned reads grew {grew}, "
+                                 f"predicted {len(touching)} reconstructs "
+                                 f"and no remote read")
+        st, prof = pprof["st"]
+        frames = [line for line in prof.decode().splitlines()
+                  if "ec_volume." in line]
+        if st != 200 or not frames:
+            raise AssertionError("/debug/pprof during the partitioned "
+                                 "reads shows no ec_volume frame")
+        steps["2 partition"] = {"reads": len(touching), "on_b": len(on_b),
+                                "s": dt,
+                                "reads_per_s": len(touching) / dt,
+                                "read_stats": grew,
+                                "pprof_ec_volume_stacks": len(frames)}
+        alog(f"2 partition: volume <-> B armed through A's /admin/faults; "
+             f"{len(touching)} of the {len(on_b)} needles on shards 0-3 "
+             f"equal from A at "
+             f"{SERVER_CLIENTS} clients, {len(touching) / dt:.1f} reads/s "
+             f"({dt:.3f} s); reconstruct batches {grew['reconstruct_batches']}"
+             f", remote shard reads 0; K1 {counts['2 partition']['gf_apply']}"
+             f" == the needles read; /debug/pprof?seconds=1 meanwhile: "
+             f"{len(frames)} stacks through ec_volume; clear_net")
+
+        # 3 a slow, then a failing B, hedging on; the LRU emptied first
+        def empty_lru():
+            with ev._recon_lock:
+                ev._recon_cache.clear()
+                ev._recon_cache_bytes = 0
+
+        def hedges() -> dict:
+            return {o: int(metrics.HEDGE_TOTAL.labels(o).value)
+                    for o in ("fired", "hedge_won", "primary_rescued")}
+
+        picks = rng.choice(on_b, 2 * ADMIN_HEDGED, replace=False).tolist()
+        arms = {}
+        for arm, fault in (
+                ("slow", {"action": "peer_latency",
+                          "dst": servers["b"].url, "ms": ADMIN_SLOW_MS}),
+                ("error", {"action": "peer_error",
+                           "dst": servers["b"].url, "pct": 100})):
+            nids = sorted(picks[:ADMIN_HEDGED] if arm == "slow"
+                          else picks[ADMIN_HEDGED:])
+            empty_lru()
+            resilience.reset_latency_trackers()
+            resilience.reset_breakers()
+            admin("a", "/admin/faults", {"faults": [fault]})
+            k0, h0 = dict(launches), hedges()
+            s0 = ev.read_stats_snapshot()
+            ts = []
+            with scoped_env(WEEDTPU_HEDGE_PCT="99",
+                            WEEDTPU_HEDGE_MAX_MS="100"):
+                for nid in nids:
+                    t0 = time.perf_counter()
+                    read_back("a", pv, [nid], f"{arm} peer")
+                    ts.append(time.perf_counter() - t0)
+            if arm == "slow":
+                # the abandoned primaries sleep out the latency
+                time.sleep(ADMIN_SLOW_MS / 1000 + 0.2)
+            admin("a", "/admin/faults", {"faults": [
+                {"action": "clear_net"}]})
+            hg = {k: x - h0[k] for k, x in hedges().items()}
+            grew = {k: x - s0[k] for k, x in ev.read_stats_snapshot().items()}
+            step_counts(f"3 {arm}", k0, ADMIN_HEDGED)
+            want = {"fired": ADMIN_HEDGED, "hedge_won": ADMIN_HEDGED,
+                    "primary_rescued": 0} if arm == "slow" else \
+                {"fired": 0, "hedge_won": 0, "primary_rescued": 0}
+            if hg != want or grew["reconstruct_batches"] != ADMIN_HEDGED:
+                raise AssertionError(f"3 {arm}: hedges {hg} (predicted "
+                                     f"{want}), read stats {grew}")
+            br = resilience.breakers_snapshot().get(servers["b"].url, {})
+            if arm == "error" and br.get("state") != "open":
+                raise AssertionError(f"B's breaker {br}: not open")
+            arms[arm] = {"p50_s": statistics.median(ts), "max_s": max(ts),
+                         "hedges": hg, "breaker": br.get("state")}
+            alog(f"3 {arm}: {fault['action']} toward B, {ADMIN_HEDGED} "
+                 f"needles on 0-3 equal from A, hedging on; p50 "
+                 f"{statistics.median(ts) * 1e3:.2f} ms, max "
+                 f"{max(ts) * 1e3:.2f} ms; hedges {hg}; B's breaker "
+                 f"{br.get('state')}; K1 {ADMIN_HEDGED}")
+        steps["3 hedged"] = arms
+        resilience.reset_breakers()
+
+        # 4 unconvert: phase 4's shard set less 0/3/10/12 on A, decoded
+        # back to a writable volume
+        uv = ADMIN_VIDS["unconvert"]
+        ubase = place_ec("a", uv, [i for i in range(14)
+                                   if i not in SERVER_LOSSES])
+        k0 = dict(launches)
+        t_unconvert = time.time()
+        t0 = time.perf_counter()
+        reply = admin("a", "/admin/volume/unconvert", {"volume": uv})
+        dt = time.perf_counter() - t0
+        step_counts("4 unconvert", k0, phases["rebuild_warm"]["launches"])
+        if not reply["decoded"] or \
+                reply["shards_retired"] != list(range(14)):
+            raise AssertionError(f"unconvert {reply}")
+        if sha256(ubase + ".dat") != dat_hash:
+            raise AssertionError("unconverted .dat differs from phase 3's")
+        left = [p for p in os.listdir(dirs["a"])
+                if p.startswith(f"{uv}.")]
+        if sorted(left) != [f"{uv}.dat", f"{uv}.idx"]:
+            raise AssertionError(f"unconvert left {left}")
+        if (in_beat("a", uv) or {}).get("read_only", True) or \
+                any(e["id"] == uv for e in
+                    standin.beats[servers["a"].url]["ec_shards"]):
+            raise AssertionError("the beat does not show the thawed "
+                                 "volume")
+        read_back("a", uv, sample[::4], "unconverted read")
+        steps["4 unconvert"] = {"s": dt, "gbps": dat_size / dt / 1e9}
+        alog(f"4 unconvert: shards {list(SERVER_LOSSES)} rebuilt and the "
+             f"1 GiB volume decoded in {dt:.3f} s ({dat_size / dt / 1e9:.3f}"
+             f" GB/s of .dat); .dat sha256 == phase 3's; shard set, .ecx "
+             f"and .vif gone; writable in the beat; K1 "
+             f"{counts['4 unconvert']['gf_apply']} == phase 6's")
+
+        # 4b the thaw-only promote: a one-needle volume of phase 7 through
+        # /admin/ec/fleet_convert, then unconvert: no decode, no launch
+        tv = ADMIN_VIDS["thaw"]
+        src = srcs[-1][: -len(".dat")]
+        for ext in (".dat", ".idx"):
+            os.link(src + ext, os.path.join(dirs["a"], f"{tv}{ext}"))
+        admin("a", "/admin/volume/mount", {"volume": tv})
+        units = predict_units(os.path.getsize(src + ".dat"),
+                              layout.LARGE_BLOCK_SIZE,
+                              layout.SMALL_BLOCK_SIZE)
+        k0 = dict(launches)
+        admin("a", "/admin/ec/fleet_convert", {"volumes": [tv]})
+        admin("a", "/admin/ec/mount", {"volume": tv})
+        step_counts("4b fleet", k0, 0,
+                    -(-units // fleet_convert.UNIT_BATCH))
+        k0 = dict(launches)
+        reply = admin("a", "/admin/volume/unconvert", {"volume": tv})
+        step_counts("4b thaw", k0, 0)
+        if reply["decoded"] or reply["shards_retired"] != list(range(14)) \
+                or servers["a"].store.get_volume(tv).read_only:
+            raise AssertionError(f"thaw-only unconvert {reply}")
+        alog(f"4b thaw: /admin/ec/fleet_convert of a one-needle volume "
+             f"(K2 {counts['4b fleet']['gf_apply_batch']} for {units} "
+             f"unit), then /admin/volume/unconvert: decoded False, "
+             f"thawed, 14 shards retired; K1 0, K2 0")
+
+        # 5 tiering: the unconverted volume to a local-directory remote
+        # and back through the server
+        k0 = dict(launches)
+        remote = os.path.join(work, "tier")
+        t0 = time.perf_counter()
+        reply = admin("a", "/admin/volume/tier_move",
+                      {"volume": uv, "kind": "local",
+                       "options": {"directory": remote}})
+        dt_out = time.perf_counter() - t0
+        if reply != {"backend": "remote"} or \
+                os.path.exists(ubase + ".dat"):
+            raise AssertionError(f"tier_move {reply}")
+        dt_remote = read_back("a", uv, sample[::4], "tiered read")
+        t0 = time.perf_counter()
+        reply = admin("a", "/admin/volume/tier_download",
+                      {"volume": uv, "delete_remote": True})
+        dt_in = time.perf_counter() - t0
+        if reply != {"backend": "disk"} or \
+                sha256(ubase + ".dat") != dat_hash:
+            raise AssertionError(f"tier_download {reply}")
+        if any(files for _, _, files in os.walk(remote)):
+            raise AssertionError("delete_remote left the remote copy")
+        read_back("a", uv, sample[::4], "downloaded read")
+        # writable after the round trip (the unconvert's thaw held)
+        extra = t.FileId(uv, top, 0x1234ABCD)
+        st, _ = call("a", f"/{extra}", method="PUT", data=b"thawed")
+        if st != 201:
+            raise AssertionError(f"write after the tier hop: HTTP {st}")
+        step_counts("5 tier", k0, 0)
+        steps["5 tier"] = {"out_gbps": dat_size / dt_out / 1e9,
+                           "in_gbps": dat_size / dt_in / 1e9,
+                           "remote_reads_per_s": len(sample[::4]) / dt_remote}
+        alog(f"5 tier: tier_move {dat_size / dt_out / 1e9:.3f} GB/s, "
+             f"{len(sample[::4])} needles through the remote at "
+             f"{len(sample[::4]) / dt_remote:.1f} reads/s, tier_download "
+             f"(delete_remote) {dat_size / dt_in / 1e9:.3f} GB/s, .dat "
+             f"sha256 == phase 3's, writable; K1 0")
+
+        # 6 needles and query
+        k0 = dict(launches)
+        reply = admin("a", f"/admin/volume/needles?volume={uv}")
+        live = sorted(nid for nid, (_, size) in
+                      servers["a"].store.get_volume(uv).nm.items()
+                      if size >= 0)
+        if sorted(reply["needles"]) != live or \
+                live != sorted(list(expect) + [top]):
+            raise AssertionError("/admin/volume/needles differs from the "
+                                 "needle map")
+        qv = ADMIN_VIDS["query"]
+        admin("a", "/admin/assign_volume", {"volume": qv})
+        docs: dict = {}
+        for i in range(1, ADMIN_DOCS + 1):
+            doc = {"name": f"user{i}", "age": int(rng.integers(18, 90)),
+                   "city": ["oslo", "bergen", "tromso"][i % 3]} \
+                if i % 7 else [i]
+            key = t.FileId(qv, i, 0x1234ABCD)
+            st, _ = call("a", f"/{key}", method="PUT",
+                         data=json.dumps(doc).encode())
+            if st != 201:
+                raise AssertionError(f"document {key}: HTTP {st}")
+            docs[i] = doc
+        docs[3] = {"name": "user3", "age": 99, "city": "oslo"}
+        call("a", f"/{t.FileId(qv, 3, 0x1234ABCD)}", method="PUT",
+             data=json.dumps(docs[3]).encode())
+        call("a", f"/{t.FileId(qv, 5, 0x1234ABCD)}", method="DELETE")
+        del docs[5]
+        order = sorted(docs, key=lambda i: (i == 3, i))  # 3 written last
+        flt = {"field": "age", "op": ">=", "value": 50}
+        want = [{"name": d["name"], "age": d["age"]}
+                for d in (docs[i] for i in order)
+                if isinstance(d, dict) and d["age"] >= 50]
+        t0 = time.perf_counter()
+        st, raw = call("a", "/admin/query",
+                       {"volume": qv, "filter": flt,
+                        "projections": ["name", "age"]})
+        dt = time.perf_counter() - t0
+        rows = [json.loads(line) for line in raw.splitlines()]
+        if st != 200 or rows != want:
+            raise AssertionError(f"/admin/query: {len(rows)} rows, plain "
+                                 f"Python selects {len(want)}")
+        step_counts("6 needles/query", k0, 0)
+        steps["6 needles/query"] = {"needles": len(live), "rows": len(rows),
+                                    "query_s": dt}
+        alog(f"6 needles/query: /admin/volume/needles lists the "
+             f"{len(live)} ids of the needle map; /admin/query over "
+             f"{ADMIN_DOCS} documents (one rewritten, one deleted, every "
+             f"seventh not an object): {len(rows)} rows == plain Python's, "
+             f"{dt * 1e3:.2f} ms; K1 0")
+
+        # 7 the telemetry routes
+        perf = admin("a", "/perf")
+        rebuilds = [j for j in perf["jobs"] if j["kind"] == "ec_rebuild"
+                    and j["started"] >= t_unconvert - 1]
+        if not rebuilds:
+            raise AssertionError("/perf lists no rebuild of the unconvert")
+        hot = admin("a", "/heat")["dims"]["volume"]["entries"]
+        if hot[0][0] != str(pv):
+            raise AssertionError(f"/heat ranks {hot[:3]}, not volume {pv}")
+        spans = [s for tr in admin(
+            "a", f"/debug/traces?tid={tid}&pin=1")["traces"]
+            for s in tr["spans"]]
+        if not any(s["name"] == "volume.move" for s in spans):
+            raise AssertionError(f"/debug/traces of the move holds "
+                                 f"{[s['name'] for s in spans]}")
+        st, raw = call("a", "/debug/pprof?format=json")
+        cont = json.loads(raw)
+        if st != 200 or cont["samples"] <= 0:
+            raise AssertionError("the continuous profiler holds no sample")
+        if call("a", "/debug/pipeline")[0] != 200 or \
+                call("a", "/debug/requests")[0] != 200:
+            raise AssertionError("a /debug route failed")
+        steps["7 telemetry"] = {"rebuild_jobs": len(rebuilds),
+                                "hot": hot[0][:2], "move_spans": len(spans),
+                                "profiler_samples": cont["samples"]}
+        alog(f"7 telemetry: /perf lists the unconvert's rebuild (bottleneck "
+             f"{rebuilds[0].get('bottleneck')}); /heat ranks volume "
+             f"{hot[0][0]} first ({hot[0][1]:.1f}); /debug/traces holds "
+             f"the move's {len(spans)} spans on A, volume.move among them; "
+             f"the continuous profiler {cont['samples']} samples")
+    finally:
+        faults.clear_net()
+        resilience.reset_breakers()
+        for vs in servers.values():
+            run(vs.stop())
+        profile.shutdown()
+        if runner is not None:
+            run(runner.cleanup())
+        loop.call_soon_threadsafe(loop.stop)
+        loop_thread.join(10)
+        client.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "steps": steps, "counts": counts,
+           "s": time.perf_counter() - t_phase}
+    alog(f"launches per step {counts}; phase wall {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5224,10 +5914,29 @@ def main(argv=None) -> int:
             f"{staged}")
         path_launches = {k: path_launches[k] + maint_launches[k]
                          for k in path_launches}
+
+        # 18 volume admin through the server, counted on its own
+        gf_cuda.reset_launches()
+        phases["admin"] = phase_admin(
+            vdir, base, server_src, expect, blob, dat_hash, phases, srcs,
+            args.seed, launches)
+        admin_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the admin phase made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        if not all(admin_launches.values()):
+            raise AssertionError(f"the admin phase launched "
+                                 f"{admin_launches}: K1 and K2 both "
+                                 f"expected")
+        log(f"[path] phase 18: launches {admin_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + admin_launches[k]
+                         for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 18 report
+    # 19 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -9,9 +9,11 @@ subcommand:
 
 The volume server runs its codecs on the card unless `-device cpu` asks
 for the plain versions; without a card and without `-device cpu` it
-raises.  The master, the shell and the other servers come with ROADMAP
-1.18 and 1.19; the profile flags (`--jax-profile`, `-cpuprofile`) with
-1.15a.3b.
+raises.  `-cpuprofile FILE` writes a cProfile dump when the process
+stops, `--torch-profile DIR` a `torch.profiler` Chrome trace (the
+reference's `--jax-profile`), and SIGUSR1 dumps every thread's stack
+(utils/grace.py).  The master, the shell and the other servers come with
+ROADMAP 1.18 and 1.19.
 """
 
 from __future__ import annotations
@@ -25,6 +27,11 @@ def _add_common_flags(p):
     p.add_argument("-logFile", default=None)
     p.add_argument("-securityConfig", default=None,
                    help="security.toml path (default: standard search paths)")
+    p.add_argument("-cpuprofile", default=None,
+                   help="write a cProfile dump here on exit (grace/pprof.go)")
+    p.add_argument("--torch-profile", dest="torchProfile", default=None,
+                   help="write a torch.profiler trace into this directory "
+                        "on exit (utils/grace.py; open it in Perfetto)")
 
 
 def _security(args):
@@ -77,8 +84,11 @@ def main(argv=None) -> int:
     _add_common_flags(pv)
     args = ap.parse_args(argv)
 
-    from seaweedfs_tpu_torch.utils import weedlog
+    from seaweedfs_tpu_torch.utils import grace, weedlog
     weedlog.setup(args.v, args.logFile)
+    grace.setup_stack_dumps()
+    grace.setup_torch_profile(args.torchProfile, args.device)
+    grace.setup_profiling(args.cpuprofile)
     return asyncio.run(_run_volume(args))
 
 

@@ -16,9 +16,22 @@ and the admin routes behind the shell's `ec.encode`, `ec.rebuild`,
 `ec.decode` and `volume.*` commands: assign, delete, leave, readonly,
 configure_replication, mount, unmount, vacuum; EC generate, progress,
 cancel, rebuild, mount, unmount, delete_shards, copy, to_volume,
-shard_read; and the peer file pull.  The maintenance routes the
-reference master drives:
+shard_read; and the peer file pull.  The routes the reference master's
+autopilot, repair and shell drive:
 
+  POST /admin/volume/copy      pull a volume from a peer (temp names, the
+                               CRC computed while streaming); `staging`
+                               keeps it read-only and out of the beat
+                               until `finalize`; a volume already here
+                               catches up incrementally (the .dat tail)
+  POST /admin/volume/move      freeze, staged copy to the target, CRC
+                               check, finalize, retire the source
+  POST /admin/volume/unconvert an EC volume back to a writable volume:
+                               missing data shards rebuilt on the store's
+                               device (K1), decode, thaw, shards retired
+  POST /admin/volume/tier_move, /admin/volume/tier_download
+  GET  /admin/volume/needles   the live needle ids
+  POST /admin/query            JSON documents filtered and projected
   POST /admin/scrub            one scrub pass now (loopback only); the
                                background Scrubber runs every
                                WEEDTPU_SCRUB_INTERVAL at
@@ -26,8 +39,9 @@ reference master drives:
                                to the master's /maintenance/scrub_report
   POST /admin/scrub_rate       the operator's `mbps` or the governor's
                                `scale`, applied mid-pass
-  POST /admin/faults           storage faults and the shard-read and
-                               file-pull delays (loopback only)
+  POST /admin/faults           storage faults, the shard-read and
+                               file-pull delays, and the process-wide
+                               network faults (loopback only)
   POST /admin/ec/fleet_convert several local volumes into shard sets in
                                one stream of batched launches (K2)
   POST /admin/ec/partial       a repair helper's partial product of its
@@ -36,26 +50,24 @@ reference master drives:
                                pulling partials from the helpers
   GET  /admin/ec/probe_read    the canary's degraded read of one needle
   POST /admin/ec/recode        an EC volume re-encoded under another code
+  GET  /heat, /perf            the heat sketches and the pipeline
+                               snapshot, for the master's fan-outs
+  GET  /debug/traces, /debug/requests, /debug/pprof, /debug/pipeline
+                               (loopback only)
 
 Differences from the reference, kept on purpose:
 - `VolumeServer(..., device=None)` resolves its device once, through its
   `Store` (None: the card, raising without one; "cpu": the plain
   version), and every codec it builds runs there: the EC volumes it
   mounts, the encode of `/admin/ec/generate`, the rebuilds of
-  `/admin/ec/rebuild` and `/admin/ec/to_volume`, the fleet conversion,
-  the helper's partial, the recode and its remount, where the reference
-  passes no device;
+  `/admin/ec/rebuild`, `/admin/ec/to_volume` and
+  `/admin/volume/unconvert`, the fleet conversion, the helper's partial,
+  the recode and its remount, where the reference passes no device;
 - `weedtpu_ec_encode_bytes_total` labels an encode by the store's device
   type ("cuda", "cpu") where the reference writes "tpu";
-- a malformed WEEDTPU_SCRUB_* knob or WEEDTPU_FAULTS directive raises
-  at start, where the reference falls back or drops it;
-- `/admin/faults` and WEEDTPU_FAULTS answer a network fault `ok: false`
-  with an error naming it (ROADMAP 1.15a.3b), and the shard reader and
-  the partial fetcher have no network-fault hook.
-
-Routes this slice leaves out (volume copy and move, unconvert, tiering,
-needles, query, `/heat`, `/perf`, `/debug/*`) are not registered and
-answer aiohttp's 404 (ROADMAP 1.15a.3b).
+- a malformed WEEDTPU_SCRUB_* or WEEDTPU_PROFILE_HZ knob or
+  WEEDTPU_FAULTS directive raises at start, before the socket binds,
+  where the reference falls back or drops it.
 """
 
 from __future__ import annotations
@@ -68,6 +80,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import zlib
 
 import aiohttp
 import numpy as np
@@ -79,17 +92,20 @@ from seaweedfs_tpu_torch.maintenance import scrub as scrubmod
 from seaweedfs_tpu_torch.ops import codecs, dispatch, fleet_convert, regen
 from seaweedfs_tpu_torch.security import jwt as sjwt
 from seaweedfs_tpu_torch.security import tls
-from seaweedfs_tpu_torch.stats import heat, metrics, netflow, trace
+from seaweedfs_tpu_torch.stats import (heat, metrics, netflow, pipeline,
+                                       profile, trace)
 from seaweedfs_tpu_torch.storage import needle as ndl
 from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.storage.ec import ec_files, layout
 from seaweedfs_tpu_torch.storage.ec import ec_volume as ecv
 from seaweedfs_tpu_torch.storage.store import Store
+from seaweedfs_tpu_torch.storage.super_block import SuperBlock
 from seaweedfs_tpu_torch.storage.volume import Volume
 from seaweedfs_tpu_torch.topology.topology import (locality_class,
                                                     locality_name)
 from seaweedfs_tpu_torch.utils import resilience, weedlog
-from seaweedfs_tpu_torch.utils.http import aiohttp_trace_config, parse_range
+from seaweedfs_tpu_torch.utils.http import (aiohttp_trace_config,
+                                            parse_range, post_json)
 
 log = logging.getLogger("volume")
 
@@ -204,10 +220,13 @@ class VolumeServer:
             client_max_size=256 * 1024 * 1024,
             middlewares=[trace.aiohttp_middleware("volume")])
         netflow.install(self.app, "volume")
+        self.app.add_routes(trace.debug_routes())
         self.app.add_routes([
             web.get("/", self.handle_ui),
             web.get("/status", self.handle_status),
             web.get("/metrics", self.handle_metrics),
+            web.get("/heat", heat.handle_heat),
+            web.get("/perf", pipeline.handle_perf),
             web.post("/admin/assign_volume", self.handle_assign_volume),
             web.post("/admin/volume/delete", self.handle_volume_delete),
             web.post("/admin/leave", self.handle_leave),
@@ -217,6 +236,14 @@ class VolumeServer:
             web.post("/admin/volume/mount", self.handle_volume_mount),
             web.post("/admin/volume/unmount", self.handle_volume_unmount),
             web.post("/admin/volume/vacuum", self.handle_vacuum),
+            web.post("/admin/volume/copy", self.handle_volume_copy),
+            web.post("/admin/volume/move", self.handle_volume_move),
+            web.post("/admin/volume/unconvert",
+                     self.handle_volume_unconvert),
+            web.post("/admin/volume/tier_move", self.handle_tier_move),
+            web.post("/admin/volume/tier_download",
+                     self.handle_tier_download),
+            web.get("/admin/volume/needles", self.handle_volume_needles),
             web.post("/admin/ec/generate", self.handle_ec_generate),
             web.get("/admin/ec/progress", self.handle_ec_progress),
             web.post("/admin/ec/cancel", self.handle_ec_cancel),
@@ -236,6 +263,7 @@ class VolumeServer:
             web.post("/admin/scrub_rate", self.handle_scrub_rate),
             web.post("/admin/faults", self.handle_faults),
             web.get("/admin/file", self.handle_file_pull),
+            web.post("/admin/query", self.handle_query),
             web.route("*", "/{fid:[^/]*,[^/]+}", self.handle_blob),
         ])
         self._upload_sem = asyncio.Semaphore(self.CONCURRENT_UPLOADS)
@@ -260,6 +288,10 @@ class VolumeServer:
         self.scrubber: scrubmod.Scrubber | None = None
         self._fault_delay_shard_read = 0.0
         self._fault_delay_file_pull = 0.0
+        # vids with an /admin/volume/move in flight from this server: a
+        # second move of the same volume would stage and commit a second
+        # live copy
+        self._moves_active: set[int] = set()
 
     @property
     def device(self):
@@ -268,10 +300,11 @@ class VolumeServer:
     # -- lifecycle -----------------------------------------------------
 
     async def start(self) -> None:
-        # the background scrubber (WEEDTPU_SCRUB_MBPS=0 disables it) and
-        # the fault plan are read before the server binds, so a malformed
-        # knob or directive fails the start cleanly
+        # the background scrubber (WEEDTPU_SCRUB_MBPS=0 disables it), the
+        # profiler's rate and the fault plan are read before the server
+        # binds, so a malformed knob or directive fails the start cleanly
         plan = faults.parse_env(os.environ.get("WEEDTPU_FAULTS", ""))
+        profile.profile_hz()
         mbps = scrubmod.env_mbps()
         if mbps > 0:
             self.scrubber = scrubmod.Scrubber(
@@ -297,7 +330,10 @@ class VolumeServer:
                 self.master_url = self.master_urls[
                     (i + 1) % len(self.master_urls)]
         self._hb_task = asyncio.create_task(self._heartbeat_loop())
-        # fault plan from the environment (maintenance/faults.py)
+        profile.ensure_started()  # WEEDTPU_PROFILE_HZ, process-wide
+        # the fault plan from the environment (maintenance/faults.py);
+        # the role lets a partition of "volume" find this server's dials
+        faults.register_node(self.url, "volume")
         for f in plan:
             if f["action"] == "delay_shard_read":
                 self._fault_delay_shard_read = f["ms"] / 1000.0
@@ -855,6 +891,10 @@ class VolumeServer:
                     if breaker is not None and not breaker.allow():
                         continue
                     try:
+                        if faults.NET_ACTIVE:
+                            lat = faults.check_net("volume", loc["url"])
+                            if lat > 0:
+                                time.sleep(lat)
                         # the socket timeout respects the captured budget
                         tmo = 30.0
                         if dl is not None:
@@ -1484,6 +1524,532 @@ class VolumeServer:
         await self._heartbeat_once()
         return web.json_response({})
 
+    # -- admin: volume copy, move, unconvert, tiering ------------------
+
+    async def handle_volume_copy(self, req: web.Request) -> web.Response:
+        """VolumeCopy (reference: volume_grpc_copy.go:199-223 doCopyFile):
+        pull a whole volume's .dat and .idx from a peer and mount it here
+        (volume.balance, volume.fix.replication and the move).  The pull
+        goes to `.cpd`/`.cpx` temp names, renamed only when both landed,
+        with each file's CRC32 computed while it streams.  `staging`
+        keeps the copy read-only, out of the beat and marked on disk
+        (`.staging`, which a boot deletes) until a `finalize` call flips
+        it live.  A volume already here catches up incrementally."""
+        body = await req.json()
+        vid, source = body["volume"], body["source"]
+        collection = body.get("collection", "")
+        staging = bool(body.get("staging"))
+        finalize = bool(body.get("finalize"))
+        existing = self.store.get_volume(vid)
+        if existing is not None:
+            resp = await self._volume_copy_incremental(
+                existing, vid, source, collection)
+            if finalize and resp.status == 200 and existing.staging:
+                # only a staged copy flips live: a replica read-only for
+                # another reason (a remote tier) stays read-only
+                try:
+                    os.remove(existing._base + ".staging")
+                except OSError:
+                    pass
+                existing.staging = False
+                existing.read_only = False
+                await self._heartbeat_once()
+            return resp
+        loc = min(self.store.locations, key=lambda loc: len(loc.volumes))
+        base = loc.base_path(vid, collection)
+        tmp_ext = {".dat": ".cpd", ".idx": ".cpx"}
+        crcs: dict[str, int] = {}
+        try:
+            for ext in (".dat", ".idx"):
+                name = os.path.basename(base + ext)
+                crc = 0
+                async with self._session.get(
+                        f"{tls.scheme()}://{source}/admin/file",
+                        params={"name": name}) as r:
+                    if r.status != 200:
+                        raise OSError(
+                            f"pull {name} from {source}: HTTP {r.status}")
+                    with open(base + tmp_ext[ext], "wb") as f:
+                        async for chunk in r.content.iter_chunked(1 << 20):
+                            # streamed reads bypass the aiohttp trace
+                            # hooks: book the bytes here
+                            netflow.account("recv",
+                                            netflow.current_class(),
+                                            "volume", len(chunk))
+                            crc = zlib.crc32(chunk, crc)
+                            f.write(chunk)
+                crcs[ext.lstrip(".")] = crc
+            if staging:
+                # the marker lands before the .dat: a crash between the
+                # renames leaves a marked copy, which no boot mounts
+                with open(base + ".staging", "w"):
+                    pass
+            for ext in (".dat", ".idx"):
+                os.replace(base + tmp_ext[ext], base + ext)
+        except (aiohttp.ClientError, OSError) as e:
+            for ext in (".cpd", ".cpx", ".staging"):
+                try:
+                    os.remove(base + ext)
+                except OSError:
+                    pass
+            return web.json_response({"error": str(e)}, status=500)
+        try:
+            vol = await asyncio.to_thread(Volume, loc.directory, collection,
+                                          vid)
+        except Exception as e:
+            return web.json_response({"error": f"load: {e}"}, status=500)
+        if staging:
+            vol.staging = True
+            vol.read_only = True
+        loc.volumes[vid] = vol
+        loc.collections[vid] = collection
+        if not staging:  # a staged copy stays unseen until finalize
+            await self._heartbeat_once()
+        return web.json_response({"file_count": vol.info().file_count,
+                                  "crc": crcs})
+
+    async def handle_volume_move(self, req: web.Request) -> web.Response:
+        """POST /admin/volume/move {"volume", "target"}: move one volume
+        off this server (the autopilot's balancing).  Freeze writes, copy
+        to the target staged, check the target's streamed CRC against the
+        source .dat, finalize (the staged copy goes live), retire the
+        source.  Every byte books as netflow class `rebalance`.  Until
+        the finalize succeeds the target's copy is staged and the source
+        serves; a failure deletes the staged copy (a killed target's boot
+        deletes it) and thaws the source to its earlier writability."""
+        body = await req.json()
+        try:
+            vid = int(body["volume"])
+            target = str(body["target"])
+        except (KeyError, TypeError, ValueError):
+            return web.json_response(
+                {"error": "volume and target required"}, status=400)
+        v = self.store.get_volume(vid)
+        if v is None:
+            return web.json_response({"error": "volume not found"},
+                                     status=404)
+        if target == self.url or not target:
+            return web.json_response({"error": "bad target"}, status=400)
+        # one move per vid (handlers run on one loop, so the check and
+        # the add are atomic)
+        if vid in self._moves_active or v.staging:
+            return web.json_response({"error": "volume is mid-move"},
+                                     status=409)
+        self._moves_active.add(vid)
+        try:
+            return await self._volume_move(
+                vid, v, str(body.get("collection") or ""), target)
+        finally:
+            self._moves_active.discard(vid)
+
+    async def _volume_move(self, vid: int, v: Volume, collection: str,
+                           target: str) -> web.Response:
+        if not collection:
+            for loc in self.store.locations:
+                if vid in loc.volumes:
+                    collection = loc.collections.get(vid, "")
+                    break
+
+        async def post(path: str, pbody: dict,
+                       timeout: float = 600.0) -> dict:
+            return await post_json(self._session, target, path, pbody,
+                                   timeout)
+
+        def dat_crc() -> int:
+            crc = 0
+            with open(v.dat_path, "rb") as f:
+                while True:
+                    chunk = f.read(1 << 20)
+                    if not chunk:
+                        break
+                    crc = zlib.crc32(chunk, crc)
+            return crc
+
+        was_ro = v.read_only
+        copy_body = {"volume": vid, "source": self.url,
+                     "collection": collection, "staging": True}
+        try:
+            with netflow.flow("rebalance"), \
+                    trace.span("volume.move", vid=vid, target=target,
+                               bytes=v.data_size()):
+                # freeze first: against a frozen source the staged copy
+                # is complete once its CRC matches, and the finalizing
+                # catch-up moves 0 bytes
+                v.read_only = True
+                await asyncio.to_thread(v.flush)
+                data = await post("/admin/volume/copy", copy_body)
+                if data.get("incremental"):
+                    # the target already held a live replica: refuse
+                    # without the abort below, whose delete would take a
+                    # real replica
+                    v.read_only = was_ro
+                    metrics.VOLUME_MOVES.labels("aborted").inc()
+                    return web.json_response(
+                        {"error": f"{target} already holds volume "
+                                  f"{vid}; move refused (that is "
+                                  "volume.fix.replication's job)"},
+                        status=409)
+                remote_crc = (data.get("crc") or {}).get("dat")
+                local_crc = await asyncio.to_thread(dat_crc)
+                if remote_crc != local_crc:
+                    raise RuntimeError(
+                        f"CRC mismatch after copy: source {local_crc} "
+                        f"vs target {remote_crc}")
+                await post("/admin/volume/copy",
+                           dict(copy_body, finalize=True))
+        except Exception as e:
+            try:
+                await post("/admin/volume/delete", {"volume": vid},
+                           timeout=10.0)
+            except Exception:
+                pass  # a dead target's boot removes the staged copy
+            v.read_only = was_ro
+            metrics.VOLUME_MOVES.labels("aborted").inc()
+            return web.json_response({"error": str(e)}, status=500)
+        await asyncio.to_thread(self.store.delete_volume, vid)
+        await self._heartbeat_once()
+        metrics.VOLUME_MOVES.labels("ok").inc()
+        return web.json_response({"moved": vid, "target": target,
+                                  "crc": local_crc})
+
+    async def _volume_copy_incremental(self, v: Volume, vid: int,
+                                       source: str,
+                                       collection: str) -> web.Response:
+        """Stage the source's .dat tail and .idx without touching the
+        live volume, then apply both at once under the volume's lock
+        (`Volume.apply_catch_up`): a concurrent write either lands before
+        the size snapshot (and is copied) or fails the apply cleanly
+        (reference: volume_grpc_copy_incremental.go)."""
+        name = os.path.basename(v.dat_path)
+        # a vacuumed source has another compaction revision: its tail
+        # appended to the pre-vacuum bytes here would corrupt the replica
+        try:
+            async with self._session.get(
+                    f"{tls.scheme()}://{source}/admin/file",
+                    params={"name": name},
+                    headers={"Range": "bytes=0-7"}) as r:
+                if r.status not in (200, 206):
+                    return web.json_response(
+                        {"error": f"probe super block: HTTP {r.status}"},
+                        status=500)
+                remote_sb = await r.read()
+        except aiohttp.ClientError as e:
+            return web.json_response({"error": str(e)}, status=500)
+        try:
+            remote_rev = SuperBlock.from_bytes(
+                remote_sb.ljust(64, b"\0")).compaction_revision
+        except Exception:
+            return web.json_response({"error": "bad source super block"},
+                                     status=500)
+        if remote_rev != v.super_block.compaction_revision:
+            return web.json_response(
+                {"error": "source compaction revision differs; full "
+                          "re-copy required (delete the local copy)"},
+                status=409)
+
+        local_size = v.data_size()
+        tail_path = v.dat_path + ".cptail"
+        try:
+            async with self._session.get(
+                    f"{tls.scheme()}://{source}/admin/file",
+                    params={"name": name},
+                    headers={"Range": f"bytes={local_size}-"}) as r:
+                if r.status == 416:
+                    cr = r.headers.get("Content-Range", "")  # "bytes */N"
+                    try:
+                        src_size = int(cr.rpartition("/")[2])
+                    except ValueError:
+                        src_size = local_size
+                    if src_size < local_size:
+                        return web.json_response(
+                            {"error": "local replica is ahead of the "
+                                      "source; refusing incremental copy"},
+                            status=409)
+                    with open(tail_path, "wb"):
+                        pass
+                elif r.status == 206:
+                    with open(tail_path, "wb") as f:
+                        async for chunk in r.content.iter_chunked(1 << 20):
+                            netflow.account("recv",
+                                            netflow.current_class(),
+                                            "volume", len(chunk))
+                            f.write(chunk)
+                elif r.status == 200:
+                    return web.json_response(
+                        {"error": "source ignored the Range; refusing "
+                                  "incremental copy"}, status=409)
+                else:
+                    return web.json_response(
+                        {"error": f"pull tail: HTTP {r.status}"}, status=500)
+            idx_name = os.path.basename(v.idx_path)
+            async with self._session.get(
+                    f"{tls.scheme()}://{source}/admin/file",
+                    params={"name": idx_name}) as r:
+                if r.status != 200:
+                    return web.json_response(
+                        {"error": f"pull idx: HTTP {r.status}"}, status=500)
+                idx_raw = await r.read()
+            try:
+                appended = await asyncio.to_thread(
+                    v.apply_catch_up, local_size, tail_path, idx_raw)
+            except (RuntimeError, PermissionError) as e:
+                return web.json_response({"error": str(e)}, status=409)
+        except aiohttp.ClientError as e:
+            return web.json_response({"error": str(e)}, status=500)
+        finally:
+            try:
+                os.remove(tail_path)
+            except OSError:
+                pass
+        await self._heartbeat_once()
+        return web.json_response({"incremental": True,
+                                  "appended_bytes": appended})
+
+    async def handle_volume_unconvert(self, req: web.Request
+                                      ) -> web.Response:
+        """POST /admin/volume/unconvert {"volume"}: an EC volume back to a
+        writable volume (the autopilot's tiering promote, reversing the
+        fleet conversion's demote).  Missing data shards are rebuilt on
+        the store's device (K1); the data shards decode into `.dat.unc`
+        and the `.ecx` into `.idx.unc`, renamed once both are written
+        (a crash mid-decode leaves no half .dat a boot would mount); the
+        volume mounts, thaws, and the shard set is retired, its `.ecx`
+        first.  When the conversion's frozen `.dat` is still mounted the
+        decode is skipped: the thaw alone promotes.  The job registers
+        in the per-vid table, so /admin/ec/progress observes it."""
+        body = await req.json()
+        try:
+            vid = int(body["volume"])
+        except (KeyError, TypeError, ValueError):
+            return web.json_response({"error": "volume required"},
+                                     status=400)
+        base = self._ec_base(vid)
+        if base is None or not os.path.exists(base + ".ecx"):
+            return web.json_response({"error": "no ec volume here"},
+                                     status=404)
+        if self._ec_jobs.get(vid, {}).get("state") == "running":
+            return web.json_response({"error": "ec job already running"},
+                                     status=409)
+        existing = self.store.get_volume(vid)
+        job = {"state": "running", "kind": "unconvert", "bytes_done": 0,
+               "total": 0, "cancel": False, "error": None,
+               "started": time.time(), "stages": {}}
+        self._ec_jobs[vid] = job
+
+        def decode() -> bool:
+            if existing is not None and \
+                    os.path.exists(existing._base + ".dat"):
+                return False  # the frozen .dat survives: thaw only
+            spec = codecs.parse_tag(
+                (ec_files.read_vif(base) or {}).get("codec"))
+            missing = [i for i in range(spec.k)
+                       if not os.path.exists(base + layout.to_ext(i))]
+            if missing:
+                ec_files.rebuild_ec_files(base, device=self.device,
+                                          codec_tag=spec.tag)
+            dat_size = ec_files.find_dat_file_size(base)
+            job["total"] = dat_size
+            dat_tmp, idx_tmp = base + ".dat.unc", base + ".idx.unc"
+            try:
+                ec_files.write_dat_file(base, dat_size, out_path=dat_tmp)
+                ec_files.write_idx_from_ecx(base + ".ecx", idx_tmp)
+            except BaseException:
+                for p in (dat_tmp, idx_tmp):
+                    try:
+                        os.remove(p)
+                    except OSError:
+                        pass
+                raise
+            # the .idx lands first: a .dat without its .idx rebuilds its
+            # map at mount, an orphan .idx mounts nothing
+            os.replace(idx_tmp, base + ".idx")
+            os.replace(dat_tmp, base + ".dat")
+            job["bytes_done"] = dat_size
+            return True
+
+        try:
+            with trace.span("volume.unconvert", vid=vid):
+                decoded = await asyncio.to_thread(decode)
+        except Exception as e:
+            job["state"] = "failed"
+            job["error"] = str(e)
+            return web.json_response({"error": str(e)}, status=500)
+        loc = next(loc for loc in self.store.locations
+                   if base.startswith(loc.directory))
+        v = existing
+        if v is None:
+            stem = os.path.basename(base)
+            collection = body.get("collection") or \
+                loc.collections.get(vid) or \
+                (stem[: -(len(str(vid)) + 1)]
+                 if stem.endswith(f"_{vid}") else "")
+            try:
+                v = await asyncio.to_thread(Volume, loc.directory,
+                                            collection, vid)
+            except Exception as e:
+                job["state"] = "failed"
+                job["error"] = str(e)
+                return web.json_response({"error": f"load: {e}"},
+                                         status=500)
+            loc.volumes[vid] = v
+            loc.collections[vid] = collection
+        # the shard set goes before the thaw, its .ecx first: a boot
+        # mounts EC volumes by their .ecx, so a crash from here on boots
+        # the plain volume alone, never a writable .dat beside a stale
+        # shard set
+        for lc in self.store.locations:
+            ev = lc.ec_volumes.pop(vid, None)
+            if ev is not None:
+                ev.close()
+        for ext in (".ecx", ".ecj", ".vif"):
+            if os.path.exists(base + ext):
+                os.remove(base + ext)
+        removed = []
+        for i in range(layout.MAX_TOTAL_SHARDS):
+            p = base + layout.to_ext(i)
+            if os.path.exists(p):
+                os.remove(p)
+                removed.append(i)
+        v.read_only = False  # the thaw
+        job["state"] = "done"
+        await self._heartbeat_once()
+        return web.json_response({"volume": vid, "decoded": decoded,
+                                  "thawed": True,
+                                  "shards_retired": removed})
+
+    async def handle_tier_move(self, req: web.Request) -> web.Response:
+        """Move a sealed volume's .dat to a remote tier (reference:
+        volume_grpc_tier.go VolumeTierMoveDatToRemote)."""
+        body = await req.json()
+        vid = body["volume"]
+        v = self.store.get_volume(vid)
+        if v is None:
+            return web.json_response({"error": "volume not found"},
+                                     status=404)
+        kind = body.get("kind", "local")
+        options = body.get("options", {})
+        try:
+            await asyncio.to_thread(v.tier_move, kind, options,
+                                    body.get("key"))
+        except (ValueError, TypeError, OSError, PermissionError) as e:
+            return web.json_response({"error": str(e)}, status=500)
+        await self._heartbeat_once()
+        return web.json_response({"backend": v.backend_kind})
+
+    async def handle_tier_download(self, req: web.Request) -> web.Response:
+        """Pull a tiered volume's .dat back from the remote (reference:
+        volume_grpc_tier.go VolumeTierMoveDatFromRemote); with
+        `delete_remote` the remote copy goes too."""
+        body = await req.json()
+        vid = body["volume"]
+        v = self.store.get_volume(vid)
+        if v is None:
+            return web.json_response({"error": "volume not found"},
+                                     status=404)
+        try:
+            await asyncio.to_thread(
+                v.tier_download, bool(body.get("delete_remote")))
+        except (ValueError, TypeError, OSError, PermissionError) as e:
+            return web.json_response({"error": str(e)}, status=500)
+        await self._heartbeat_once()
+        return web.json_response({"backend": v.backend_kind})
+
+    # -- admin: needles and query ----------------------------------------
+
+    async def handle_volume_needles(self, req: web.Request) -> web.Response:
+        """The live needle ids of a volume (volume.fsck and
+        volume.check.disk; the reference streams the .idx through
+        CopyFile or VolumeNeedleStatus)."""
+        vid = int(req.query["volume"])
+        v = self.store.get_volume(vid)
+        if v is None:
+            return web.json_response({"error": "not found"}, status=404)
+        limit = int(req.query.get("limit", "1000000"))
+        needles = []
+        for nid, (_off, size) in v.nm.items():
+            if size >= 0:
+                needles.append(nid)
+                if len(needles) >= limit:
+                    break
+        return web.json_response({"volume": vid, "count": len(needles),
+                                  "needles": needles})
+
+    async def handle_query(self, req: web.Request) -> web.Response:
+        """S3-Select-style JSON query over a volume's needles (reference:
+        volume_server.proto:107 Query, weed/server/volume_grpc_query.go,
+        weed/query/json).  Body: {volume, filter: {field, op, value}?,
+        projections: [fields]?, limit?} -> NDJSON of the matching,
+        projected documents.  The read key, when configured, gates it as
+        it gates GET /{fid}."""
+        if self.security is not None and self.security.volume_read:
+            token = sjwt.token_from_request(req.headers, req.query)
+            try:
+                sjwt.decode_jwt(self.security.volume_read, token)
+            except sjwt.JwtError as e:
+                return web.json_response({"error": str(e)}, status=401)
+        body = await req.json()
+        vid = body["volume"]
+        v = self.store.get_volume(vid)
+        if v is None:
+            return web.json_response({"error": "volume not found"},
+                                     status=404)
+        flt = body.get("filter")
+        projections = body.get("projections")
+        limit = int(body.get("limit", 10000))
+
+        def match(doc: dict) -> bool:
+            if not flt:
+                return True
+            val = doc.get(flt["field"])
+            want = flt.get("value")
+            op = flt.get("op", "=")
+            try:
+                if op in ("=", "=="):
+                    return val == want
+                if op == "!=":
+                    return val != want
+                if op == ">":
+                    return val is not None and val > want
+                if op == ">=":
+                    return val is not None and val >= want
+                if op == "<":
+                    return val is not None and val < want
+                if op == "<=":
+                    return val is not None and val <= want
+                if op == "like":
+                    return isinstance(val, str) and str(want) in val
+            except TypeError:
+                return False
+            return False
+
+        def run_query() -> list[bytes]:
+            rows = []
+            for offset, n in v.scan():
+                if not n.data or not v.has_needle(n.id):
+                    continue
+                # only the record the needle map points at is live: the
+                # map holds offsets in NEEDLE_PADDING_SIZE units
+                live = v.nm.get(n.id)
+                if live is None or \
+                        live[0] != offset // t.NEEDLE_PADDING_SIZE:
+                    continue
+                try:
+                    doc = json.loads(n.data)
+                except (ValueError, UnicodeDecodeError):
+                    continue
+                if not isinstance(doc, dict) or not match(doc):
+                    continue
+                if projections:
+                    doc = {k: doc.get(k) for k in projections}
+                rows.append(json.dumps(doc, separators=(",", ":")).encode())
+                if len(rows) >= limit:
+                    break
+            return rows
+
+        rows = await asyncio.to_thread(run_query)
+        return web.Response(body=b"\n".join(rows) + (b"\n" if rows else b""),
+                            content_type="application/x-ndjson")
+
     async def handle_ec_shard_read(self, req: web.Request) -> web.Response:
         if self._fault_delay_shard_read > 0:
             await asyncio.sleep(self._fault_delay_shard_read)
@@ -1605,6 +2171,13 @@ class VolumeServer:
                 if resilience.breaker_enabled() else None
             if breaker is not None and not breaker.allow():
                 raise regen.HelperDied(node, tuple(sids))
+            try:
+                if faults.NET_ACTIVE:
+                    lat = faults.check_net("volume", node)
+                    if lat > 0:
+                        time.sleep(lat)
+            except OSError as e:
+                raise regen.HelperDied(node, tuple(sids)) from e
             tmo = 60.0
             if dl is not None:
                 tmo = min(tmo, dl - time.monotonic())
@@ -1874,7 +2447,8 @@ class VolumeServer:
 
     async def handle_faults(self, req: web.Request) -> web.Response:
         """Fault injection (maintenance/faults.py): delete a shard, flip
-        a bit, delay peer shard reads or file pulls.  Loopback only."""
+        a bit, delay peer shard reads or file pulls, and the process-wide
+        network and disk faults.  Loopback only."""
         err = trace.loopback_error(req)
         if err is not None:
             return err

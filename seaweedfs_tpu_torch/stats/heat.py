@@ -19,10 +19,11 @@ records a ``degraded`` event on a volume whenever an EC read
 reconstructs (`ec_volume.EcVolume`), under foreground traffic only
 (`ambient_is_data`).  The tenant a request carries (`TENANT_HEADER`)
 rides a contextvar that the servers' middleware sets and their clients
-forward (`inject`).  The reference's defaults are constants here: the
-switch, top-K size and half-life knobs, the fleet merge, tenant
-resolution at the edge and the `/heat` handler come with the rest of the
-servers and the master (ROADMAP 1.15a.3b, 1.18c).
+forward (`inject`).  `/heat` (`handle_heat`) serves `serialize()`, the
+form the master's /cluster/heat fan-out merges.  The reference's
+defaults are constants here (the switch, top-K size and half-life
+knobs); the fleet merge and tenant resolution at the edge come with the
+master and the S3 gateway (ROADMAP 1.18c, 1.21).
 """
 
 from __future__ import annotations
@@ -278,6 +279,14 @@ def reset() -> None:
 
 def serialize() -> dict:
     return TRACKER.serialize()
+
+
+async def handle_heat(req):
+    """`/heat`: this process's serialized tracker, which the master's
+    /cluster/heat fan-out merges.  Open on cluster-internal servers, as
+    the `/admin` routes are."""
+    from aiohttp import web
+    return web.json_response(serialize())
 
 
 # -- tenant identity -----------------------------------------------------

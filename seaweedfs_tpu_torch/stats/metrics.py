@@ -7,8 +7,8 @@ metric classes, the registry and its exposition format 0.0.4 (OpenMetrics
 on request), the families the port's telemetry and its volume server
 book into, under the reference's names, labels and buckets, and the
 servers' `/metrics` response (`scrape_response`).  The push-gateway
-loop comes with the rest of the volume server (ROADMAP 1.15a.3b), the
-other servers' families with those servers.
+loop (`MetricsPusher`) is left out for want of a caller; the other
+servers' families come with those servers.
 """
 
 from __future__ import annotations
@@ -354,6 +354,10 @@ VOLUME_SIZE = REGISTRY.gauge(
     "weedtpu_volume_size_bytes",
     "size of each locally served volume, per hosting server",
     ("vid", "vs"))
+VOLUME_MOVES = REGISTRY.counter(
+    "weedtpu_volume_moves_total",
+    "volume rebalance moves driven through /admin/volume/move on this "
+    "server, by outcome (ok/aborted)", ("outcome",))
 
 
 def scrape_response(req):

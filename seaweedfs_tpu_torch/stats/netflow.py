@@ -14,7 +14,7 @@ its own role on every request (``X-Weedtpu-Class``, ``X-Weedtpu-Role``:
 with `extract_class`.  The servers' aiohttp apps stamp their role on
 every reply (`install`), and their middleware books request and reply
 bodies (`response_bytes`).  The reference's ``WEEDTPU_NETFLOW`` switch
-comes with the rest of the servers (ROADMAP 1.15a.3b).
+is not ported: nothing sets it to another value than its default, on.
 
 Classes: ``data``, ``replication``, ``repair``, ``convert``,
 ``rebalance``, ``scrub``, ``readahead``, ``internal``.  Unlabelled

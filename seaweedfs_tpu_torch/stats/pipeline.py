@@ -15,9 +15,11 @@ Counterpart of `seaweedfs_tpu/stats/pipeline.py`:
 
 ``WEEDTPU_PERF_OBS=0`` turns the plane off: `track` then registers no
 job and exports nothing, though the stats dict still gets its seconds.
+`local_snapshot` is what the volume server serves at `/perf` (open, for
+the master's /cluster/perf fan-out) and `/debug/pipeline` (loopback).
 The fleet aggregation (`aggregate_fleet`, `roofline_offenders`) comes
-with the master (ROADMAP 1.15), the tile-drift sentinel with the launch
-pin (ROADMAP 1.7), and the HTTP handlers with the servers (1.15a).
+with the master (ROADMAP 1.18), the tile-drift sentinel with the launch
+pin (ROADMAP 1.7).
 """
 
 from __future__ import annotations
@@ -409,3 +411,20 @@ def local_snapshot(limit: int = 16) -> dict:
     return {"id": TRACKER_ID, "enabled": perf_obs_enabled(),
             "jobs": jobs_snapshot(limit),
             "roofline": profile.roofline_snapshot()}
+
+
+async def handle_debug_pipeline(req):
+    """``/debug/pipeline[?limit=N]``: `local_snapshot` as JSON, mounted
+    loopback-gated by trace.debug_routes()."""
+    from aiohttp import web
+    try:
+        limit = int(req.query.get("limit", "16"))
+    except ValueError:
+        limit = 16
+    return web.json_response(local_snapshot(limit))
+
+
+async def handle_perf(req):
+    """``/perf``: the same payload, open on cluster-internal servers, for
+    the master's /cluster/perf fan-out."""
+    return await handle_debug_pipeline(req)

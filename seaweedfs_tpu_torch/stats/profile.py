@@ -21,8 +21,10 @@ Counterpart of `seaweedfs_tpu/stats/profile.py`:
   ``[device]`` row gives its D2H share only; the card's kernel and H2D
   shares are read from a `torch.profiler` trace.
 
-The process-wide continuous profiler and the `/debug/pprof` handler come
-with the servers (ROADMAP 1.15a).
+The process-wide continuous profiler (`ensure_started`, at
+``WEEDTPU_PROFILE_HZ``; 0, the default, starts none) is shared by every
+server of the process; `/debug/pprof` serves it, or samples a window of
+its own (``?seconds=N``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,22 @@ import time
 from seaweedfs_tpu_torch.stats import metrics
 
 _DEFAULT_HZ = 97  # prime: never phase-locks with 10 ms / 100 ms periodic work
+
+
+def profile_hz() -> float:
+    """The continuous profiler's rate from WEEDTPU_PROFILE_HZ (default 0:
+    no background sampler, only `/debug/pprof?seconds=N`).  A value that
+    is not a number, or is negative, raises ValueError (the reference
+    reads 0)."""
+    value = os.environ.get("WEEDTPU_PROFILE_HZ", "0")
+    try:
+        hz = float(value)
+    except ValueError:
+        raise ValueError(f"WEEDTPU_PROFILE_HZ={value!r} is not a "
+                         f"number") from None
+    if hz < 0 or hz != hz:
+        raise ValueError(f"WEEDTPU_PROFILE_HZ={value!r} is negative")
+    return hz
 
 
 def _clamp_hz(hz: float) -> float:
@@ -154,6 +172,43 @@ class SamplingProfiler:
             out.append(f"{s:8d} {100.0 * s / thread_samples:6.1f}% "
                        f"{tot:8d} {100.0 * tot / thread_samples:6.1f}%  {fr}")
         return "\n".join(out)
+
+
+# -- the process-wide continuous profiler ----------------------------------
+
+_global_lock = threading.Lock()
+_global: SamplingProfiler | None = None
+
+
+def global_profiler() -> SamplingProfiler | None:
+    return _global
+
+
+def ensure_started() -> SamplingProfiler | None:
+    """Start the continuous profiler when WEEDTPU_PROFILE_HZ asks for one,
+    once per process: every server calls it at start, and co-hosted
+    servers share it.  A running profiler at the same (clamped) rate is
+    kept with its samples."""
+    global _global
+    hz = profile_hz()
+    with _global_lock:
+        if hz <= 0:
+            return _global
+        if _global is None or not _global.running or \
+                _global.hz != _clamp_hz(hz):
+            if _global is not None:
+                _global.stop()
+            _global = SamplingProfiler(hz).start()
+        return _global
+
+
+def shutdown() -> None:
+    """Stop the continuous profiler (servers leave it running)."""
+    global _global
+    with _global_lock:
+        if _global is not None:
+            _global.stop()
+            _global = None
 
 
 # -- kernel profile (fed by ops/dispatch.py and the storage layer) --------
@@ -329,3 +384,56 @@ def export_roofline() -> None:
         if frac is not None:
             metrics.ROOFLINE_FRAC.labels(
                 row["resource"], row["kernel"]).set(frac)
+
+
+# -- /debug/pprof ----------------------------------------------------------
+
+async def handle_debug_pprof(req):
+    """An on-demand profile: ``?seconds=N`` samples for N seconds (at most
+    120) at ``?hz=`` (default WEEDTPU_PROFILE_HZ, else 97) and returns
+    collapsed stacks; without ``seconds`` the continuous profiler's
+    cumulative view is served (400 when none runs).  ``?format=table``
+    renders the self/total table and the kernel profile;
+    ``?format=json`` all three views as JSON."""
+    import asyncio
+
+    from aiohttp import web
+
+    try:
+        seconds = float(req.query.get("seconds", "0"))
+    except ValueError:
+        seconds = 0.0
+    seconds = min(seconds, 120.0)
+    try:
+        hz = float(req.query.get("hz", str(profile_hz() or _DEFAULT_HZ)))
+    except ValueError:
+        hz = _DEFAULT_HZ
+    fmt = req.query.get("format", "collapsed")
+
+    if seconds > 0:
+        prof = SamplingProfiler(hz).start()
+        try:
+            await asyncio.sleep(seconds)
+        finally:
+            prof.stop()
+    else:
+        prof = global_profiler()
+        if prof is None:
+            return web.json_response(
+                {"error": "no continuous profiler running; pass "
+                          "?seconds=N or set WEEDTPU_PROFILE_HZ"},
+                status=400)
+
+    if fmt == "json":
+        stacks = [{"stack": list(st), "count": n}
+                  for st, n in sorted(prof.stacks_snapshot().items(),
+                                      key=lambda kv: -kv[1])]
+        return web.json_response({"samples": prof.samples, "hz": prof.hz,
+                                  "stacks": stacks,
+                                  "kernels": KERNELS.snapshot()})
+    if fmt == "table":
+        text = (prof.table() + "\n\n-- kernel profile (ops/dispatch) --\n"
+                + KERNELS.table() + "\n")
+    else:
+        text = prof.collapsed() + "\n"
+    return web.Response(text=text, content_type="text/plain")

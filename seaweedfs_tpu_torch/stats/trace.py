@@ -19,9 +19,12 @@ client carries the context to its peer in the `X-Weedtpu-Trace` header
 (`inject`; `format_header`/`parse_header`: "<32 hex>-<16 hex>-<0|1>").
 A server mounts `aiohttp_middleware`, which continues or starts the
 trace per request, registers the request in flight, applies the deadline
-budget and records the root span.  `loopback_error` gates the volume
-server's scrub and fault hooks.  Pinned traces and the `/debug` routes
-come with the rest of the volume server (ROADMAP 1.15a.3b).
+budget and records the root span.  A pinned trace (`pin_trace`, what
+the master's cross-node assembler asks for with ``pin=1``) keeps its
+spans past the ring's wrap and samples on every hop.  `loopback_error`
+gates the volume server's scrub and fault hooks and, wrapped as
+`debug_guard`, the `/debug` routes every server mounts (`debug_routes`:
+traces, in-flight requests, pprof, pipeline).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import itertools
 import os
 import random
 import time
+from collections import OrderedDict
 from contextvars import ContextVar
 
 TRACE_HEADER = "X-Weedtpu-Trace"
@@ -153,6 +157,34 @@ class _Ring:
 
 _ring = _Ring(TRACE_BUF)
 
+# pinned traces: span lists that survive the ring's wrap.  The master's
+# cross-node assembler pins every trace id it is asked about, and
+# record_span mirrors later spans of a pinned trace here.  A bounded FIFO
+# of _PIN_CAP ids, each holding at most _PIN_SPAN_CAP spans
+_PIN_CAP = 64
+_PIN_SPAN_CAP = 512
+_pinned: "OrderedDict[str, list[dict]]" = OrderedDict()
+
+
+def pin_trace(trace_id: str) -> None:
+    """Keep `trace_id`: copy its spans now in the ring into the pinned
+    store and mirror its later ones there.  A request carrying a pinned
+    id samples on every hop, whatever its header's flag."""
+    spans = _pinned.get(trace_id)
+    if spans is None:
+        _pinned[trace_id] = spans = []
+        while len(_pinned) > _PIN_CAP:
+            _pinned.popitem(last=False)
+    seen = {r["span"] for r in spans}
+    for rec in _ring.snapshot():
+        if rec["trace"] == trace_id and rec["span"] not in seen:
+            spans.append(rec)
+            seen.add(rec["span"])
+
+
+def pinned_ids() -> list[str]:
+    return list(_pinned)
+
 
 def ring_snapshot() -> list[dict]:
     return _ring.snapshot()
@@ -160,6 +192,7 @@ def ring_snapshot() -> list[dict]:
 
 def reset_ring() -> None:
     _ring.clear()
+    _pinned.clear()
 
 
 # -- spans ---------------------------------------------------------------
@@ -232,19 +265,39 @@ def record_span(name: str, trace_id: str, span_id: str,
     if error:
         rec["error"] = True
     _ring.append(rec)
+    if _pinned:  # one truthiness test on the hot path
+        spans = _pinned.get(trace_id)
+        if spans is not None and len(spans) < _PIN_SPAN_CAP:
+            spans.append(rec)
+
+
+def _trace_spans(tid: str) -> list[dict]:
+    """Every known span of one trace: the ring and the pinned store,
+    once each, in start order."""
+    seen: set[str] = set()
+    spans: list[dict] = []
+    for rec in _ring.snapshot() + _pinned.get(tid, []):
+        if rec["trace"] == tid and rec["span"] not in seen:
+            seen.add(rec["span"])
+            spans.append(rec)
+    spans.sort(key=lambda r: r["start"])
+    return spans
 
 
 def traces(min_ms: float = 0.0, limit: int = 50,
            tid: str | None = None) -> list[dict]:
-    """Recent traces in the ring, newest first: spans grouped by trace id
-    in start order, each trace's duration the span envelope.  `tid`
-    looks up that one trace."""
+    """Recent traces, newest first: spans grouped by trace id in start
+    order, each trace's duration the span envelope.  `tid` looks up that
+    one trace, its pinned spans included."""
     by_trace: dict[str, list[dict]] = {}
-    for rec in _ring.snapshot():
-        if tid is None or rec["trace"] == tid:
-            by_trace.setdefault(rec["trace"], []).append(rec)
     if tid is not None:
+        spans = _trace_spans(tid)
+        if spans:
+            by_trace[tid] = spans
         min_ms = 0.0
+    else:
+        for rec in _ring.snapshot():
+            by_trace.setdefault(rec["trace"], []).append(rec)
     out = []
     for t_id, spans in by_trace.items():
         spans.sort(key=lambda r: r["start"])
@@ -383,9 +436,12 @@ def aiohttp_middleware(role: str):
         parent_id = None
         if t_in is not None:
             # continue the caller's trace under a fresh span id: the
-            # header's span id is the caller's current span, our parent
+            # header's span id is the caller's current span, our parent.
+            # A pinned trace samples whatever the header's flag says
             parent_id = t_in.span_id
-            t = Trace(t_in.trace_id, _new_span_id(), t_in.sampled)
+            sampled = t_in.sampled or (bool(_pinned)
+                                       and t_in.trace_id in _pinned)
+            t = Trace(t_in.trace_id, _new_span_id(), sampled)
         elif rate > 0 and next(counter) % rate == 0:
             t = Trace(_new_trace_id(), _new_span_id(), True)
         else:
@@ -521,11 +577,61 @@ def aiohttp_middleware(role: str):
     return middleware
 
 
+async def handle_debug_traces(req):
+    """``/debug/traces[?min_ms=&limit=&tid=&pin=1]``: recent traces of
+    this process; with `tid` and `pin` that trace is pinned first."""
+    from aiohttp import web
+    try:
+        min_ms = float(req.query.get("min_ms", "0"))
+    except ValueError:
+        min_ms = 0.0
+    try:
+        limit = int(req.query.get("limit", "50"))
+    except ValueError:
+        limit = 50
+    tid = req.query.get("tid") or None
+    if tid is not None and req.query.get("pin"):
+        pin_trace(tid)
+    return web.json_response({"sample_rate": sample_rate(),
+                              "traces": traces(min_ms, limit, tid=tid)})
+
+
+async def handle_debug_requests(req):
+    """``/debug/requests``: the requests in flight, oldest first."""
+    from aiohttp import web
+    return web.json_response({"requests": inflight()})
+
+
 def loopback_error(req):
     """None when the request comes from loopback; a 403 JSON response
-    otherwise.  The one gate of the operator surfaces (the volume
-    server's `/admin/scrub` and `/admin/faults`)."""
+    otherwise.  The one gate of the operator surfaces: the `/debug`
+    routes and the volume server's `/admin/scrub` and `/admin/faults`."""
     from aiohttp import web
     if req.remote not in ("127.0.0.1", "::1"):
         return web.json_response({"error": "forbidden"}, status=403)
     return None
+
+
+def debug_guard(handler):
+    """`handler` behind `loopback_error`: the debug surface must not show
+    request paths, query strings or stacks to a remote caller."""
+    async def guarded(req):
+        err = loopback_error(req)
+        if err is not None:
+            return err
+        return await handler(req)
+    return guarded
+
+
+def debug_routes():
+    """The routes every server mounts before any catch-all, loopback-gated
+    as one: /debug/traces, /debug/requests, /debug/pprof,
+    /debug/pipeline."""
+    from aiohttp import web
+
+    from seaweedfs_tpu_torch.stats import pipeline, profile
+    return [web.get("/debug/traces", debug_guard(handle_debug_traces)),
+            web.get("/debug/requests", debug_guard(handle_debug_requests)),
+            web.get("/debug/pprof", debug_guard(profile.handle_debug_pprof)),
+            web.get("/debug/pipeline",
+                    debug_guard(pipeline.handle_debug_pipeline))]

@@ -242,9 +242,16 @@ class Store:
         vols, ec_shards = [], []
         max_slots = 0
         max_file_key = 0
+        staged = 0
         for loc in self.locations:
             max_slots += loc.max_volumes
             for vid, v in loc.volumes.items():
+                if v.staging:
+                    # a mid-move target copy stays out of the beat, so
+                    # no lookup or replica fan-out reaches it; its slot
+                    # is counted, so the master's free-slot sums hold
+                    staged += 1
+                    continue
                 max_file_key = max(max_file_key, v.max_file_key())
                 info = v.info()
                 vols.append({
@@ -268,7 +275,7 @@ class Store:
                     "codec": ev.codec_tag,
                 })
         return {"volumes": vols, "ec_shards": ec_shards,
-                "max_volume_count": max_slots,
+                "max_volume_count": max_slots - staged,
                 "public_url": self.public_url,
                 # the master advances its sequencer past the highest key
                 # so ids never repeat after a master restart

@@ -58,6 +58,9 @@ class Volume:
         self.id = vid
         self.needle_map_kind = needle_map_kind
         self.read_only = False
+        # a volume copy's target while its move runs: read-only and out
+        # of the heartbeat until the move's finalize
+        self.staging = False
         self.last_modified = 0.0
         self._lock = threading.RLock()
         base = f"{collection}_{vid}" if collection else str(vid)
@@ -487,10 +490,11 @@ class Volume:
             self.read_only = True
             os.remove(self.dat_path)
 
-    def tier_download(self) -> None:
+    def tier_download(self, delete_remote: bool = False) -> None:
         """Bring a tiered volume's .dat back to local disk and resume
         normal (writable) service — the inverse of tier_move (reference:
-        shell volume.tier.download + volume_tier.go)."""
+        shell volume.tier.download + volume_tier.go); `delete_remote`
+        also removes the remote copy."""
         with self._lock:
             if self.backend_kind != "remote":
                 return
@@ -511,6 +515,8 @@ class Volume:
             self.backend_kind = "disk"
             self.read_only = False
             os.remove(self.tier_path)
+            if delete_remote:
+                remote.delete_file(tier["key"])
 
     def info(self) -> VolumeInfo:
         return VolumeInfo(

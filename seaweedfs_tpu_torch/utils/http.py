@@ -9,9 +9,11 @@ a retry-budget token), the per-peer circuit breaker, the ambient deadline
 ``X-Weedtpu-Deadline``), the trace and traffic-class headers, TLS dials
 (security/tls.py) and the reuse/dial counters.  The servers' aiohttp
 client sessions mount `aiohttp_trace_config`, and the blob read path
-parses `Range` with `parse_range`.  The heat-tenant and network-fault
-hooks of both clients and `post_json` come with the rest of the volume
-server (ROADMAP 1.15a.3b).
+parses `Range` with `parse_range`.  Both clients forward the ambient
+tenant (stats/heat.py) and pass every dial through the network faults
+(maintenance/faults.py: a partition refuses it, an error rate resets it,
+a latency delays it) while one is armed.  `post_json` is the volume
+move's call to its target's admin routes.
 """
 
 from __future__ import annotations
@@ -331,6 +333,13 @@ class PooledHTTP:
         _netflow.inject(headers, u.path or "/", self.role)
         _res.inject_deadline(headers)
         flow_cls = headers.get(_netflow.CLASS_HEADER)
+        # the network faults, a test of one module global while none is
+        # armed
+        from seaweedfs_tpu_torch.maintenance import faults as _faults
+        if _faults.NET_ACTIVE:
+            lat = _faults.check_net(self.role, u.netloc)
+            if lat > 0:
+                time.sleep(lat)
         # per-peer circuit breaker: a tripped peer fast-fails instead of
         # costing every caller its full connect timeout
         breaker = _res.breaker_for(u.netloc) if _res.breaker_enabled() \
@@ -434,6 +443,18 @@ def aiohttp_trace_config(role: str | None = None):
             ctx.send_attrs, error)
 
     async def _on_request_start(session, ctx, params) -> None:
+        # the network faults toward this peer, a test of one module
+        # global while none is armed
+        from seaweedfs_tpu_torch.maintenance import faults as _faults
+        if _faults.NET_ACTIVE:
+            import asyncio
+            netloc = f"{params.url.host}:{params.url.port}"
+            try:
+                lat = _faults.check_net(role or "client", netloc)
+            except OSError as e:
+                raise aiohttp.ClientConnectionError(str(e)) from None
+            if lat > 0:
+                await asyncio.sleep(lat)
         # deadline budget: each hop forwards only what remains
         _res.inject_deadline(params.headers)
         t = _trace.current()
@@ -487,6 +508,27 @@ def aiohttp_trace_config(role: str | None = None):
     tc.on_request_exception.append(_on_request_exception)
     tc.on_response_chunk_received.append(_on_response_chunk_received)
     return tc
+
+
+async def post_json(session, node: str, path: str, body: dict,
+                    timeout: float = 600.0) -> dict:
+    """POST a JSON body to a peer's admin route over an aiohttp session
+    and return the parsed reply; a status other than 200 raises
+    RuntimeError carrying the peer's error text."""
+    import aiohttp
+
+    from seaweedfs_tpu_torch.security.tls import scheme
+    async with session.post(
+            f"{scheme()}://{node}{path}", json=body,
+            timeout=aiohttp.ClientTimeout(total=timeout)) as r:
+        try:
+            data = await r.json()
+        except Exception:
+            data = {}
+        if r.status != 200:
+            raise RuntimeError(f"{node}{path}: HTTP {r.status} "
+                               f"{data.get('error', '')}".strip())
+        return data
 
 
 def parse_range(rng: str, size: int) -> tuple[int, int]:

@@ -430,13 +430,13 @@ def test_mixed_cluster_shards_cross(tmp_path, monkeypatch):
 
 # ---- the reference master's planes against the port's nodes ------------
 
-def test_master_planes_meet_routes_this_slice_lacks(cluster):
+def test_master_planes_reach_every_port_route(cluster):
     """The master's repair posts a `reduced` rebuild to a port node, which
     rebuilds the lost shard from its own survivors and the other node's
     partials (the decision ledger says `reduced`); its canary's degraded
-    probe reads through a port node (200); its aggregator and perf
-    fan-out still meet the routes this slice leaves out (404), and the
-    master carries on."""
+    probe reads through a port node (200); its heat and perf fan-outs
+    pull every port node's /heat and /perf, and the debug routes answer
+    on loopback."""
     client = WeedClient(cluster.master.url)
     payloads = _fill_volume(client, n_blobs=12, seed=3, collection="planes")
     vid = int(next(iter(payloads)).partition(",")[0])
@@ -462,17 +462,29 @@ def test_master_planes_meet_routes_this_slice_lacks(cluster):
     for fid, data in payloads.items():
         assert client.download(fid) == data
     for url in cluster.port_urls:
-        for path in ("/heat", "/perf", "/debug/traces"):
-            assert vs_call(url, path)[0] == 404, (url, path)
+        st, snap = vs_call(url, "/heat")
+        assert st == 200 and "volume" in snap["dims"], (url, snap)
+        st, perf = vs_call(url, "/perf")
+        assert st == 200 and {"id", "jobs", "roofline"} <= set(perf)
+        for path in ("/debug/traces", "/debug/requests",
+                     "/debug/pipeline"):
+            assert vs_call(url, path)[0] == 200, (url, path)
         st, text = vs_call(url, "/metrics")
         assert st == 200 and b"weedtpu_volume_request_total" in text
     holder = next(u for u in cluster.port_urls
                   if u in env.ec_shard_locations(vid)[0])
     st, probe = vs_call(holder, f"/admin/ec/probe_read?volume={vid}")
     assert st == 200 and probe["bytes"] > 0, probe
-    for path in ("/cluster/metrics?refresh=1", "/cluster/heat",
-                 "/cluster/perf", "/cluster/status"):
+    for path in ("/cluster/metrics?refresh=1", "/cluster/status"):
         assert vs_call(cluster.master.url, path)[0] == 200, path
+    st, fleet_heat = vs_call(cluster.master.url, "/cluster/heat?refresh=1")
+    assert st == 200 and "node_errors" not in fleet_heat, fleet_heat
+    assert set(cluster.port_urls) <= set(fleet_heat["nodes"])
+    hot = {e["key"] for e in fleet_heat["volumes"]["top"]}
+    assert str(vid) in hot, fleet_heat["volumes"]
+    st, fleet_perf = vs_call(cluster.master.url, "/cluster/perf")
+    assert st == 200 and "node_errors" not in fleet_perf, fleet_perf
+    assert set(cluster.port_urls) <= set(fleet_perf["nodes"])
     st = cluster.submit(cluster.master.canary.run_once(("degraded",)))
     assert st["paths"]["degraded"]["outcome"] == "ok", st
     assert vs_call(cluster.master.url, "/cluster/canary")[0] == 200
@@ -610,3 +622,238 @@ def test_volume_cli_without_device_needs_the_card(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr
+
+
+def test_volume_cli_profile_flags(tmp_path):
+    """`-cpuprofile FILE` and `--torch-profile DIR`: the node serves, and
+    on SIGTERM it writes a cProfile dump and a torch.profiler Chrome
+    trace, and exits 128 + SIGTERM."""
+    import pstats
+    import signal
+    port = free_port()
+    prof = tmp_path / "cpu.prof"
+    tdir = tmp_path / "trace"
+    cmd = port_volume_cmd(tmp_path / "d", "127.0.0.1:1", port) + [
+        "-cpuprofile", str(prof), "--torch-profile", str(tdir)]
+    with open(tmp_path / "log", "wb") as log:
+        p = subprocess.Popen(cmd, cwd=str(REPO), env=child_env(),
+                             stdout=log, stderr=subprocess.STDOUT)
+    try:
+        url = f"127.0.0.1:{port}"
+
+        def up():
+            try:
+                return vs_call(url, "/status")[0] == 200
+            except OSError:
+                return False
+        wait_for(up, timeout=90, what="the node")
+        assert vs_call(url, "/admin/assign_volume", {"volume": 3})[0] == 200
+    finally:
+        p.send_signal(signal.SIGTERM)
+        try:
+            p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            p.kill()  # outlived its SIGTERM: fails below, leaks nothing
+            p.wait(timeout=10)
+    assert p.returncode == 128 + signal.SIGTERM, \
+        (tmp_path / "log").read_text()[-3000:]
+    stats = pstats.Stats(str(prof))
+    assert any("handle_assign_volume" in fn for _, _, fn in stats.stats)
+    traces = list(tdir.glob("torch_trace.*.json"))
+    assert len(traces) == 1
+    assert "traceEvents" in json.loads(traces[0].read_text())
+
+
+SIGNAL_IN_A_WEAKREF_CALLBACK = r"""
+import sys, weakref
+grace = __import__(sys.argv[1] + ".utils.grace", fromlist=["grace"])
+ran = []
+grace.on_interrupt(lambda: ran.append(1))
+class A:
+    pass
+a = A()
+# a signal handler runs between any two bytecodes: here, inside a weakref
+# callback, where the interpreter ignores what the callback raises
+r = weakref.ref(a, lambda _: grace._run_hooks(15))
+del a
+print("survived", ran, flush=True)
+"""
+
+
+@pytest.mark.parametrize("pkg,rc,out", [
+    ("seaweedfs_tpu", 0, "survived [1]"), ("seaweedfs_tpu_torch", 143, "")])
+def test_signal_exit_is_not_swallowed_unlike_the_reference(pkg, rc, out):
+    """ROADMAP fault 3.8: the reference's shutdown handler exits by
+    raising SystemExit, which a weakref callback swallows, so a SIGTERM
+    can run the hooks and leave the server running; the port's handler
+    ends the process after its hooks."""
+    r = subprocess.run([sys.executable, "-c", SIGNAL_IN_A_WEAKREF_CALLBACK,
+                        pkg], cwd=str(REPO),
+                       env=child_env(JAX_PLATFORMS="cpu"),
+                       capture_output=True, text=True, timeout=120)
+    assert (r.returncode, r.stdout.strip()) == (rc, out), r.stderr[-2000:]
+
+
+# ---- twins of tests/test_cluster.py and tests/test_cluster_obs.py -------
+
+def test_concurrent_write_read_delete_hammer(cluster):
+    """Twin of tests/test_cluster.py::
+    test_concurrent_write_read_delete_hammer on port nodes."""
+    import concurrent.futures
+    import secrets
+    client = WeedClient(cluster.master.url)
+    big = secrets.token_bytes(512 * 1024)
+    big_fid = client.upload(big, name="big.bin", collection="hammer")
+    big_url = client.lookup(int(big_fid.split(",")[0]))[0]
+
+    def paged_read(i):
+        lo = (i * 37) % (len(big) - 64)
+        req = urllib.request.Request(
+            f"http://{big_url}/{big_fid}",
+            headers={"Range": f"bytes={lo}-{lo + 63}"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert r.read() == big[lo:lo + 64]
+        return True
+    blobs: dict[str, bytes] = {}
+
+    def write_one(i):
+        data = secrets.token_bytes(1000 + (i % 7) * 3777)
+        return client.upload(data, name=f"h{i}.bin",
+                             collection="hammer"), data
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        for f, data in ex.map(write_one, range(60)):
+            blobs[f] = data
+
+    def read_one(item):
+        f, data = item
+        assert client.download(f) == data
+        return True
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        futs = [ex.submit(read_one, it) for it in blobs.items()]
+        futs += [ex.submit(paged_read, i) for i in range(30)]
+        for fu in futs:
+            assert fu.result()
+    fids = list(blobs)
+    doomed = set(fids[::3])
+    kept = [f for i, f in enumerate(fids) if i % 3]
+
+    def delete_one(f):
+        client.delete(f)
+        return True
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        futs = [ex.submit(delete_one, f) for f in doomed]
+        futs += [ex.submit(read_one, (f, blobs[f])) for f in kept]
+        for fu in futs:
+            assert fu.result()
+    for f in doomed:
+        with pytest.raises(RuntimeError):
+            client.download(f)
+
+
+def test_streamed_vid_map_invalidation(tmp_path):
+    """Twin of tests/test_cluster.py::test_streamed_vid_map_invalidation:
+    a client on the master's /cluster/stream feed reroutes around a dead
+    port node as soon as the master expires it."""
+    c = PortCluster(tmp_path, n_port=2).start()
+    try:
+        c.master.node_timeout = 1.5
+        client = WeedClient(c.master.url, stream_updates=True)
+        poll_client = WeedClient(c.master.url)
+        a = client.assign(replication="001")
+        f = a["fid"]
+        vid = int(f.split(",")[0])
+        client.upload_to(a["url"], f, b"replicated-payload",
+                         jwt=a.get("auth", ""))
+        wait_for(lambda: len(client._vid_cache.get(vid, ([], 0))[0]) == 2,
+                 what="both replicas in the streamed map")
+        urls = client._vid_cache[vid][0]
+        assert sorted(poll_client.lookup(vid)) == sorted(urls)
+        dead = urls[0]
+        p = c.procs[c.port_urls.index(dead)]
+        p.terminate()
+        p.wait(timeout=10)
+        wait_for(lambda: (client._vid_cache.get(vid, ([], 0))[0] and dead
+                          not in client._vid_cache[vid][0]),
+                 what="the dead node dropped")
+        assert client.download(f) == b"replicated-payload"
+        assert dead in poll_client._vid_cache.get(vid, ([], 0))[0]
+        client.close()
+    finally:
+        c.stop()
+
+
+def test_debug_traces_and_pprof_under_load(cluster):
+    """Twin of the debug-route checks of tests/test_observability.py::
+    test_trace_propagation_degraded_filer_read and of tests/
+    test_cluster_obs.py::test_cluster_metrics_federation_and_pprof_under_load
+    on port nodes: a forced-sample degraded GET leaves one trace whose
+    spans are on both nodes' /debug/traces (the reading node's request,
+    plan and shard fetches; the peer's /admin/ec/shard_read), and
+    /debug/pprof?seconds=N on a node under degraded reads shows the EC
+    read engine's frames."""
+    from seaweedfs_tpu.stats import trace as ref_trace
+    client = WeedClient(cluster.master.url)
+    payloads = _fill_volume(client, n_blobs=16, seed=9, collection="obs")
+    vid = int(next(iter(payloads)).partition(",")[0])
+    env = CommandEnv(cluster.master.url)
+    out = io.StringIO()
+    run_command(env, "lock", out)
+    run_command(env, f"ec.encode -volumeId {vid} -collection obs", out)
+    run_command(env, "unlock", out)
+    a, b = cluster.port_urls
+    for url in (a, b):
+        vs_call(url, "/admin/ec/delete_shards", {"volume": vid,
+                                                 "shards": [0, 1]})
+    fids = list(payloads)
+    tid = ref_trace._new_trace_id()
+    req = urllib.request.Request(
+        f"http://{a}/{fids[0]}", headers={
+            "X-Weedtpu-Trace": f"{tid}-{ref_trace._new_span_id()}-1"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.read() == payloads[fids[0]]
+
+    def spans(url):
+        st, body = vs_call(url, f"/debug/traces?tid={tid}&pin=1")
+        assert st == 200
+        return [s for t in body["traces"] for s in t["spans"]]
+    wait_for(lambda: any(s["name"] == "volume.request" for s in spans(a)),
+             what="the root span")
+    names = {s["name"] for s in spans(a)}
+    assert {"volume.request", "ec.plan", "ec.reconstruct_batch",
+            "volume.shard_fetch"} <= names, names
+    assert any(s["name"] == "volume.request" and
+               s.get("attrs", {}).get("path") == "/admin/ec/shard_read"
+               for s in spans(b))
+    st, body = vs_call(a, "/debug/traces?min_ms=1e12")
+    assert st == 200 and body["traces"] == []
+    st, body = vs_call(a, "/debug/requests")
+    assert any(e["path"].startswith("/debug/requests")
+               for e in body["requests"])
+    stop = threading.Event()
+
+    def hammer():
+        i = 0
+        while not stop.is_set():
+            f = fids[i % len(fids)]
+            vs_call(a, "/" + f)
+            i += 1
+
+    threads = [threading.Thread(target=hammer, daemon=True)
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        st, prof = vs_call(a, "/debug/pprof?seconds=1.5&hz=147")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(10)
+    lines = [line for line in prof.decode().splitlines() if line.strip()]
+    assert st == 200 and lines
+    assert any("ec_volume." in line for line in lines), prof[:2000]
+    for line in lines[:10]:
+        stack, _, count = line.rpartition(" ")
+        assert count.isdigit() and stack, line

@@ -933,3 +933,184 @@ def test_cuda_server_fleet_convert_and_reduced_repair(card, tmp_path,
             run(vs.stop())
         run(runner.cleanup())
         loop.call_soon_threadsafe(loop.stop)
+
+
+def _card_servers(tmp_path, n):
+    """`n` port volume servers on the card, in process on a loop thread
+    behind a master stand-in that takes beats and answers /dir/ec/lookup
+    from them; returns (servers, run, call, stop)."""
+    import asyncio
+    import json
+    import socket
+    import threading
+    import urllib.request
+    from aiohttp import web
+    from seaweedfs_tpu_torch import pb
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+
+    beats = {}
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    async def heartbeat(req):
+        raw = await req.read()
+        beat = pb.heartbeat_from_bytes(raw) \
+            if req.headers.get("Content-Type") == pb.CONTENT_TYPE \
+            else json.loads(raw)
+        beats[beat["url"]] = beat
+        return web.json_response({})
+
+    async def ec_lookup(req):
+        vid = int(req.query["volumeId"])
+        shards = {}
+        for u, b in sorted(beats.items()):
+            for e in b["ec_shards"]:
+                if e["id"] == vid:
+                    for s in e["shard_ids"]:
+                        shards.setdefault(str(s), []).append({"url": u})
+        return web.json_response({"volumeId": vid, "shards": shards})
+
+    app = web.Application()
+    app.add_routes([web.post("/heartbeat", heartbeat),
+                    web.get("/dir/ec/lookup", ec_lookup)])
+    loop = asyncio.new_event_loop()
+    threading.Thread(target=loop.run_forever, daemon=True).start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(300)
+
+    runner = web.AppRunner(app)
+    mport = free_port()
+    run(runner.setup())
+    run(web.TCPSite(runner, "127.0.0.1", mport).start())
+    servers = []
+    for i in range(n):
+        d = tmp_path / f"s{i}"
+        d.mkdir()
+        servers.append(VolumeServer([str(d)], f"127.0.0.1:{mport}",
+                                    port=free_port()))
+        run(servers[-1].start())
+
+    def call(vs, path, body=None, data=None, method=None):
+        if body is not None:
+            data = json.dumps(body).encode()
+        req = urllib.request.Request(
+            f"http://{vs.url}{path}", data=data,
+            method=method or ("POST" if data is not None else "GET"),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            raw = r.read()
+        return json.loads(raw) if raw[:1] == b"{" else raw
+
+    def stop():
+        for vs in servers:
+            run(vs.stop())
+        run(runner.cleanup())
+        loop.call_soon_threadsafe(loop.stop)
+
+    return servers, run, call, stop
+
+
+@pytest.mark.cuda
+def test_cuda_unconvert_rebuilds_on_the_card(card, tmp_path, monkeypatch):
+    """/admin/volume/unconvert of a shard set missing 0/3/10/12 on a card
+    server: its rebuild builds its codec on cuda and launches the K1 that
+    `rebuild_ec_files` launches for the same loss; the decoded .dat is
+    the volume's own."""
+    from seaweedfs_tpu_torch.storage.ec import ec_files
+    monkeypatch.setenv("WEEDTPU_SCRUB_MBPS", "0")
+    servers, run, call, stop = _card_servers(tmp_path, 1)
+    (a,) = servers
+    try:
+        g = np.random.default_rng(15)
+        call(a, "/admin/assign_volume", {"volume": 5})
+        for k in range(1, 41):
+            call(a, f"/5,{k:x}{k:08x}",
+                 data=g.bytes(int(g.integers(1, 300_000))), method="PUT")
+        call(a, "/admin/volume/readonly", {"volume": 5})
+        call(a, "/admin/ec/generate", {"volume": 5})
+        base = tmp_path / "s0" / "5"
+        dat = (tmp_path / "s0" / "5.dat").read_bytes()
+        ref = tmp_path / "ref"
+        ref.mkdir()
+        for i in range(14):
+            if i not in (0, 3, 10, 12):
+                shutil.copy(f"{base}.ec{i:02d}", ref / f"5.ec{i:02d}")
+        shutil.copy(f"{base}.vif", ref / "5.vif")
+        before = gf_cuda.LAUNCHES["gf_apply"]
+        ec_files.rebuild_ec_files(str(ref / "5"))
+        want = gf_cuda.LAUNCHES["gf_apply"] - before
+        assert want > 0
+        call(a, "/admin/volume/unmount", {"volume": 5})
+        for ext in (".dat", ".idx"):
+            os.remove(f"{base}{ext}")
+        for i in (0, 3, 10, 12):
+            os.remove(f"{base}.ec{i:02d}")
+        call(a, "/admin/ec/mount", {"volume": 5})
+        before = gf_cuda.LAUNCHES["gf_apply"]
+        r = call(a, "/admin/volume/unconvert", {"volume": 5})
+        assert r["decoded"] is True
+        assert gf_cuda.LAUNCHES["gf_apply"] - before == want
+        assert (tmp_path / "s0" / "5.dat").read_bytes() == dat
+        assert a.store.get_volume(5) is not None
+        assert a.store.get_ec_volume(5) is None
+    finally:
+        stop()
+
+
+@pytest.mark.cuda
+def test_cuda_partitioned_peer_reads_reconstruct(card, tmp_path,
+                                                 monkeypatch):
+    """A holds shards 4-13 and B 0-3 on the card; with the volume role
+    partitioned from B (A's /admin/faults), every GET from A of a needle
+    on shards 0-3 reconstructs on the card: K1 == those needles, and
+    each payload is byte-equal."""
+    from seaweedfs_tpu_torch.maintenance import faults
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    monkeypatch.setenv("WEEDTPU_SCRUB_MBPS", "0")
+    monkeypatch.setenv("WEEDTPU_HEDGE_PCT", "0")
+    servers, run, call, stop = _card_servers(tmp_path, 2)
+    a, b = servers
+    try:
+        g = np.random.default_rng(16)
+        call(a, "/admin/assign_volume", {"volume": 6})
+        blobs = {}
+        for k in range(1, 41):
+            f = f"6,{k:x}{k:08x}"
+            blobs[f] = g.bytes(int(g.integers(1, 300_000)))
+            call(a, "/" + f, data=blobs[f], method="PUT")
+        call(a, "/admin/volume/readonly", {"volume": 6})
+        call(a, "/admin/ec/generate", {"volume": 6})
+        call(b, "/admin/ec/copy", {"volume": 6, "source": a.url,
+                                   "shards": [0, 1, 2, 3]})
+        call(b, "/admin/ec/mount", {"volume": 6})
+        call(a, "/admin/ec/delete_shards", {"volume": 6,
+                                            "shards": [0, 1, 2, 3]})
+        call(a, "/admin/ec/mount", {"volume": 6})
+        call(a, "/admin/volume/delete", {"volume": 6})
+        ev = a.store.get_ec_volume(6)
+
+        def on_b(f):
+            off, size = ev.find_needle(t.FileId.parse(f).key)
+            return any(iv.to_shard_id_and_offset(
+                ev.large_block, ev.small_block)[0] < 4
+                for iv in layout.locate_data(
+                    ev.large_block, ev.small_block, ev.dat_size, off,
+                    t.actual_size(size, ev.version)))
+        touching = [f for f in blobs if on_b(f)]
+        call(a, "/admin/faults", {"faults": [
+            {"action": "partition", "a": "volume", "b": b.url}]})
+        before = gf_cuda.LAUNCHES["gf_apply"]
+        import urllib.request
+        for f, data in blobs.items():
+            with urllib.request.urlopen(f"http://{a.url}/{f}",
+                                        timeout=300) as r:
+                assert r.read() == data, f
+        assert gf_cuda.LAUNCHES["gf_apply"] - before == len(touching)
+    finally:
+        faults.clear_net()
+        stop()

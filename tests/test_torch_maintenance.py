@@ -195,18 +195,42 @@ def test_storage_faults_equal_reference(pair):
     assert 12 not in pair.port.store.get_ec_volume(7).shards
 
 
-def test_net_fault_answers_not_served(pair):
-    """A network fault is not served yet: ok false, with an error naming
-    it; the storage faults beside it still apply."""
-    body = {"faults": [{"action": "partition", "a": "volume", "b": "x"},
-                       {"action": "delete_shard", "volume": 7, "shard": 1}]}
-    st, raw = call(pair.port, "handle_faults", fake_req(body))
-    assert st == 200
-    net, store = json.loads(raw)["applied"]
-    assert net["ok"] is False and "'partition'" in net["error"]
-    assert store["ok"] is True
-    assert faults.apply(pair.port.store, {"action": "clear_net"})["ok"] \
-        is False
+def test_net_faults_apply_through_admin_faults(pair):
+    """Twin of tests/test_chaos.py::test_parse_env_net_directives, applied
+    through /admin/faults: the parsed network directives go to both
+    packages' handlers, which answer alike and arm the same process-wide
+    registry (each package's own); the storage fault beside them still
+    applies, and `clear_net` disarms everything."""
+    spec = ("partition:filer:volume;peer_latency:vs1:50:10;"
+            "peer_error:vs1:25;shard_write_error:EIO;clear_net")
+    parsed = faults.parse_env(spec)
+    assert parsed == ref_faults.parse_env(spec)
+    assert [p["action"] for p in parsed] == [
+        "partition", "peer_latency", "peer_error", "shard_write_error",
+        "clear_net"]
+    keys = ("partitions", "latency_ms", "error_rate", "shard_write_error")
+    try:
+        body = {"faults": parsed[:-1] + [
+            {"action": "delete_shard", "volume": 7, "shard": 1}]}
+        (st, got), (rst, want) = pair.both("handle_faults", body)
+        assert st == rst == 200
+        assert json.loads(got) == json.loads(want)
+        assert all(a["ok"] for a in json.loads(got)["applied"])
+        snap = faults.net_snapshot()
+        assert {k: snap[k] for k in keys} == \
+            {k: ref_faults.net_snapshot()[k] for k in keys} == {
+                "partitions": [["filer", "volume"]],
+                "latency_ms": {"vs1": [50.0, 10.0]},
+                "error_rate": {"vs1": 25.0}, "shard_write_error": "EIO"}
+        assert faults.NET_ACTIVE
+        (st, got), (rst, want) = pair.both(
+            "handle_faults", {"faults": parsed[-1:]})
+        assert json.loads(got) == json.loads(want)
+        assert not faults.NET_ACTIVE and faults.net_snapshot()["partitions"] \
+            == []
+    finally:
+        faults.clear_net()
+        ref_faults.clear_net()
 
 
 def test_faults_and_scrub_are_loopback_only(pair):

@@ -552,13 +552,28 @@ def test_ui_lists_ec_shards(harness):
     assert " ".join(str(i) for i in range(14)) in page
 
 
-def test_routes_this_slice_leaves_out_answer_404(harness):
-    h = harness(master=False)
-    for path, body in (("/heat", None), ("/perf", None),
-                       ("/debug/traces", None), ("/debug/requests", None),
-                       ("/admin/volume/copy", {"volume": 1}),
-                       ("/admin/volume/needles?volume=1", None)):
-        assert h.call(0, path, body)[0] == 404, path
+def test_route_table_equals_reference(tmp_path, monkeypatch):
+    """Every (method, path) of the reference volume server's route table
+    (seaweedfs_tpu/server/volume_server.py:136-181) is a route of the
+    port's, and the port has no other."""
+    from seaweedfs_tpu.server.volume_server import VolumeServer as RefVS
+
+    def table(app):
+        return sorted({(r.method, r.resource.canonical)
+                       for r in app.router.routes()})
+    port = vsmod.VolumeServer([str(tmp_path / "p")], "127.0.0.1:1",
+                              device="cpu")
+    with monkeypatch.context() as m:
+        m.setenv("WEEDTPU_EC_CODEC", "numpy")
+        ref = RefVS([str(tmp_path / "r")], "127.0.0.1:1")
+    try:
+        got, want = table(port.app), table(ref.app)
+        assert got == want
+        assert ("POST", "/admin/volume/move") in got
+        assert ("GET", "/debug/pprof") in got and ("GET", "/heat") in got
+    finally:
+        port.store.close()
+        ref.store.close()
 
 
 def test_metrics_count_blob_requests(harness):
@@ -859,21 +874,30 @@ scrubbed = json.loads(call("/admin/scrub", {}))
 partial = call("/admin/ec/partial", {"volume": 1, "shards": [0, 11],
                                     "offset": 0, "size": 512,
                                     "coeff": [[3, 7]]})
+net = json.loads(call("/admin/faults", {"faults": [
+    {"action": "partition", "a": "volume", "b": "x"},
+    {"action": "clear_net"}]}))
+thawed = json.loads(call("/admin/volume/unconvert", {"volume": 1}))
+rest = [len(call(p, method="GET")) > 0 for p in
+        ("/heat", "/perf", "/debug/traces", "/debug/pprof?seconds=0.1",
+         "/admin/volume/needles?volume=1")]
 run(vs.stop())
 run(runner.cleanup())
 print(json.dumps({
     "fleet": fleet["converted"],
     "scrub": scrubbed["volumes"]["1"]["kind"],
-    "partial": len(partial), "jax": "jax" in sys.modules,
+    "partial": len(partial), "net": [a["ok"] for a in net["applied"]],
+    "thawed": thawed["thawed"], "rest": rest,
+    "jax": "jax" in sys.modules,
     "reference": [m for m in sys.modules
                   if m.split(".")[0] == "seaweedfs_tpu"]}))
 """
 
 
 def test_maintenance_routes_leave_jax_unloaded(tmp_path):
-    """A fleet conversion, a scrub and a partial through a port server in
-    a fresh interpreter: neither jax nor the reference package gets
-    imported."""
+    """A fleet conversion, a scrub, a partial, network faults, an
+    unconvert and the telemetry routes through a port server in a fresh
+    interpreter: neither jax nor the reference package gets imported."""
     import subprocess
     import sys
     env = dict(os.environ)
@@ -884,4 +908,5 @@ def test_maintenance_routes_leave_jax_unloaded(tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got == {"fleet": [1], "scrub": "ec", "partial": 512,
-                   "jax": False, "reference": []}
+                   "net": [True, True], "thawed": True,
+                   "rest": [True] * 5, "jax": False, "reference": []}
