@@ -181,19 +181,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                protobuf heartbeats and answering /dir/lookup and
                /dir/ec/lookup; driven over loopback HTTP: (1) the
                phase-3 volume (a copy taken before phase 14) mounted on
-               A with /admin/volume/mount, every needle read; (2)
+               A with /admin/volume/mount, 256 needles (drawn with
+               --seed) read; (2)
                /admin/volume/readonly and /admin/ec/generate, polling
                /admin/ec/progress: shards, .ecx and .vif sha256-equal to
                phase 4's, K1 == phase 4's; (3) B pulls 7-13 through A's
                /admin/file, both mount, A drops 7-13 and the volume, the
                beats show the split; (4) phase 5's losses deleted where
-               they live, every needle read from A, B's shards through
+               they live, every needle on a lost data shard and 256
+               others read from A, B's shards through
                A's shard reader and B's /admin/ec/shard_read (hedging
                off), K1 == needles on lost data shards; (5) the shell's
                ec.rebuild: A borrows B's survivors, rebuilds (sha256 ==
                phase 4's, K1 == phase 6's), drops them, mounts; (6) the
                shell's ec.decode: /admin/ec/to_volume, the .dat sha256 ==
-               phase 3's, every needle read back; (7) 16384 x 1 KiB
+               phase 3's, 256 needles read back; (7) 2048 x 1 KiB
                objects on B at 16 clients (upstream's `weed benchmark`
                -size 1024 -c 16, cut), written then read, 256 deleted;
                1024 writes to a 001 volume on A read back from A and B;
@@ -270,7 +272,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                move's volume.move span, the continuous profiler has
                samples; launches zeroed before and read after; every
                line with the card's name and power limit
- 19 report     {"kernels": [...]} line, the card's name and power limit,
+ 19 mesh       the multi-device mesh (parallel/) on positions of this
+               card: (1) WEEDTPU_EC_CODEC=mesh on one position, the
+               phase-3 volume (links of the copy taken before phase 14)
+               encoded from no shard set, shards, .ecx and .vif sha256 ==
+               phase 4's, K1 == phase 4's; (2) phase 5's losses rebuilt
+               under mesh, K1 == phase 6's; (3) WEEDTPU_CONVERT_CODEC=mesh:
+               links of phase 7's four volumes on one position, sha256 ==
+               phase 7's, K2 == phase 7's; (4) the same on 4 positions of
+               the card, K2 one per unit; (5) encode_batch_place of 4 and 6
+               stripes [10, 1 MiB] of the .dat on (2, 2) and (3, 2) meshes,
+               every position's block == the rows of the shard files it
+               must hold, pad rows zero, and the column-split rebuild of
+               shards 2 and 12 of volume 0; (6) dryrun_multichip(8) on 8
+               positions; K1 and K2 per step against their prediction;
+               launches zeroed before and read after
+ 20 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -279,7 +296,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12, 13, 14, 15, 16, 17 and 18, so the reported launches are
+around phases 12, 13, 14, 15, 16, 17, 18 and 19, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -870,12 +887,15 @@ def phase_fleet(vdir: str, dat_path: str, hashes: list[str], seed: int,
         if vif != json.dumps({"version": t.CURRENT_VERSION,
                               "dat_file_size": size}).encode():
             raise AssertionError(f"{base}.vif is {vif!r}")
-    if [sha256(bases[0] + layout.to_ext(i)) for i in range(14)] != hashes:
+    if sha256_many([bases[0] + layout.to_ext(i) for i in range(14)]) != \
+            hashes:
         raise AssertionError("fleet shards of the phase-3 volume differ "
                              "from write_ec_files'")
     # phase 17 converts links of the same volumes through the server
-    fleet_hashes = [hashes] + [[sha256(b + layout.to_ext(i))
-                                for i in range(14)] for b in bases[1:]]
+    rest = sha256_many([b + layout.to_ext(i) for b in bases[1:]
+                        for i in range(14)])
+    fleet_hashes = [hashes] + [rest[j:j + 14]
+                               for j in range(0, len(rest), 14)]
     log(f"[fleet] stripe rows checked {checked}; the phase-3 volume's 14 "
         f"shards sha256-equal to phase 4's; every .vif equal to the "
         f"reference fleet's")
@@ -1094,8 +1114,9 @@ def repair_run(vdir: str, base: str, label: str, spec, codec, local,
             raise AssertionError(f"repair {label} left a .tmp file")
     dt = time.perf_counter() - t0
     got = launches["gf_apply"] - before
-    for s in lost:
-        if sha256(rbase + layout.to_ext(s)) != hashes[s]:
+    for s, h in zip(lost, sha256_many([rbase + layout.to_ext(s)
+                                       for s in lost])):
+        if h != hashes[s]:
             raise AssertionError(f"repair {label}: shard {s} differs "
                                  f"from the encode's")
     shutil.rmtree(rdir)
@@ -1522,7 +1543,7 @@ def phase_codecs(vdir: str, dat_path: str, expect: dict, blob: bytes,
                                       code.parity_matrix,
                                       sample_rows(n_rows, 8, seed + 8),
                                       seed + 9)
-        hashes = [sha256(p) for p in shard]
+        hashes = sha256_many(shard)
         rec["encode"] = {"s": dt, "gbps": dat_size / dt / 1e9,
                          "launches": got, "units": units,
                          "rows_checked": checked, "sha256": hashes,
@@ -1604,8 +1625,8 @@ def phase_codecs(vdir: str, dat_path: str, expect: dict, blob: bytes,
         if sorted(rebuilt) != gone or got != want or st["codec"] != tag:
             raise AssertionError(f"{tag} rebuilt {rebuilt} in {got} K1 "
                                  f"launches ({st}); want {gone} in {want}")
-        for i in gone:
-            if sha256(shard[i]) != hashes[i]:
+        for i, h in zip(gone, sha256_many([shard[i] for i in gone])):
+            if h != hashes[i]:
                 raise AssertionError(f"{tag} rebuilt shard {i} differs")
         rec["rebuild"] = {"s": dt, "launches": got,
                           "read_gbps": st["bytes"] / dt / 1e9,
@@ -1841,7 +1862,7 @@ def phase_native(vdir: str, dat_path: str, hashes: list[str], expect: dict,
             ec_files.write_sorted_ecx(base + ".idx")
             dt = time.perf_counter() - t0
             native.set_gf_impl(native.GF_IMPL_AUTO)
-            if [sha256(p) for p in shard] != hashes:
+            if sha256_many(shard) != hashes:
                 raise AssertionError(f"native {label} encode: shards "
                                      f"differ from phase 4's")
             if st["mode"] != "pipelined":
@@ -1887,9 +1908,9 @@ def phase_native(vdir: str, dat_path: str, hashes: list[str], expect: dict,
         dt = time.perf_counter() - t0
         if sorted(rebuilt) != lost or st["mode"] != "host-serial":
             raise AssertionError(f"native rebuild: {rebuilt}, {st['mode']}")
-        for i in lost:
-            if sha256(shard[i]) != hashes[i]:
-                raise AssertionError(f"native rebuilt shard {i} differs")
+        if sha256_many([shard[i] for i in lost]) != \
+                [hashes[i] for i in lost]:
+            raise AssertionError("native rebuilt shards differ")
         out["rebuild"] = {"s": dt, "mode": st["mode"],
                           "read_gbps": 10 * shard_size / dt / 1e9,
                           "stages_s": {k: v for k, v in st.items()
@@ -2042,15 +2063,42 @@ def fleet_worker() -> int:
     return 0
 
 
+def spawn_fleet_arms() -> dict:
+    """Phase 12's two fleet children, one per arm of FLEET_ARMS, started
+    at once so their start-up (torch's import) runs while the phase's
+    encode arms do."""
+    procs = {}
+    for arm, extra in FLEET_ARMS.items():
+        env = dict(os.environ)
+        env.pop("WEEDTPU_EC_FLUSH_BYTES", None)
+        env.update(extra)
+        procs[arm] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fleet-worker"],
+            env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            text=True)
+    return procs
+
+
+def stop_fleet_arms(procs: dict) -> None:
+    """End each child at the end of its input (killed if it hangs)."""
+    for proc in procs.values():
+        try:
+            proc.stdin.close()
+            proc.wait(timeout=60)
+        except Exception:
+            proc.kill()
+            proc.wait()
+
+
 def fleet_ab(vdir: str, srcs: list[str], hashes: list[str],
-             repeats: int) -> dict:
+             repeats: int, procs: dict) -> dict:
     """The fleet with the submission batcher (A: the default
     WEEDTPU_EC_FLUSH_BYTES) and without it (B: 1, a flush per unit), each
     arm a child process with its environment set, run A B A B ... with
     `repeats` runs each.  Every run's shards are sha256-equal to the
-    first run's, and the phase-3 volume's to phase 4's."""
+    first run's, and the phase-3 volume's to phase 4's.  `procs` are
+    `spawn_fleet_arms`' children, stopped on the way out."""
     from seaweedfs_tpu_torch.storage.ec import layout
-    procs = {}
     out: dict = {"runs": [], "warmup_launches": {}}
 
     def send(arm: str, d: str, volumes: list[str]) -> None:
@@ -2065,14 +2113,6 @@ def fleet_ab(vdir: str, srcs: list[str], hashes: list[str],
         return json.loads(line)
 
     try:
-        for arm, extra in FLEET_ARMS.items():
-            env = dict(os.environ)
-            env.pop("WEEDTPU_EC_FLUSH_BYTES", None)
-            env.update(extra)
-            procs[arm] = subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__),
-                 "--fleet-worker"], env=env, stdin=subprocess.PIPE,
-                stdout=subprocess.PIPE, text=True)
         # the warm-up run: CUDA context, the kernel library, pinned pools
         for arm in procs:
             send(arm, os.path.join(vdir, f"warm{arm}"), srcs[-1:])
@@ -2111,13 +2151,7 @@ def fleet_ab(vdir: str, srcs: list[str], hashes: list[str],
                         for k in WRITER_KEYS + ("read_s", "d2h_s")
                         if k in st) + f"; launches {doc['launches']}")
     finally:
-        for proc in procs.values():
-            try:
-                proc.stdin.close()
-                proc.wait(timeout=60)
-            except Exception:
-                proc.kill()
-                proc.wait()
+        stop_fleet_arms(procs)
     med = {arm: statistics.median(r["s"] for r in out["runs"]
                                   if r["arm"] == arm) for arm in FLEET_ARMS}
     out["median_s"] = med
@@ -2137,7 +2171,17 @@ def phase_writer(vdir: str, dat_path: str, hashes: list[str],
     set sha256-equal to phase 4's; the fleet A/B of the submission
     batcher in child processes.  Launches (this process's and the
     children's) against the layout's count.  The environment is restored
-    on the way out; a failure goes on up."""
+    on the way out; a failure goes on up.  The fleet's children start
+    first, so their start-up overlaps the encode arms."""
+    procs = spawn_fleet_arms()
+    try:
+        return _phase_writer(vdir, dat_path, hashes, srcs, launches, procs)
+    finally:
+        stop_fleet_arms(procs)
+
+
+def _phase_writer(vdir: str, dat_path: str, hashes: list[str],
+                  srcs: list[str], launches: dict, procs: dict) -> dict:
     from seaweedfs_tpu_torch import native
     from seaweedfs_tpu_torch.ops import fleet_convert
     from seaweedfs_tpu_torch.storage import aio
@@ -2255,7 +2299,7 @@ def phase_writer(vdir: str, dat_path: str, hashes: list[str],
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    out["fleet_ab"] = fleet_ab(vdir, srcs, hashes, repeats)
+    out["fleet_ab"] = fleet_ab(vdir, srcs, hashes, repeats, procs)
     got = {k: launches[k] - before[k] for k in launches}
     for counts in list(out["fleet_ab"]["warmup_launches"].values()) + \
             [run["launches"] for run in out["fleet_ab"]["runs"]]:
@@ -2478,8 +2522,9 @@ def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
     out: dict = {"card": card}
 
     def same_shards(label, ids=range(14)):
-        for i in ids:
-            if sha256(shard[i]) != hashes[i]:
+        got = sha256_many([shard[i] for i in ids])
+        for i, h in zip(ids, got):
+            if h != hashes[i]:
                 raise AssertionError(f"telemetry {label}: shard {i} "
                                      f"differs from phase 4's")
 
@@ -2536,8 +2581,8 @@ def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
         fleet_k2 = launches["gf_apply_batch"] - k2
         fleet_row = delta(KERNELS.snapshot(), before_fleet,
                           "fleet_encode[device]")
-        if [sha256(bases[0] + layout.to_ext(i)) for i in range(14)] != \
-                hashes:
+        if sha256_many([bases[0] + layout.to_ext(i)
+                        for i in range(14)]) != hashes:
             raise AssertionError("telemetry: the fleet's shards of the "
                                  "phase-3 volume differ from phase 4's")
         shutil.rmtree(os.path.join(vdir, "telemetry_fleet"))
@@ -2589,6 +2634,7 @@ def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
     out["kernel_checks"] = {w: list(v) for w, v in checks.items()}
 
     # -- the encode and the rebuild again, under torch.profiler ------------
+    marks = {"workload": time.perf_counter()}
     tdir = trace_dir or os.path.join(vdir, "telemetry_trace")
     shutil.rmtree(tdir, ignore_errors=True)
     k1 = launches["gf_apply"]
@@ -2632,6 +2678,7 @@ def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
     if not trace_dir:
         shutil.rmtree(tdir)
 
+    marks["profiled"] = time.perf_counter()
     # -- the kernel profile, the jobs and the roofline ---------------------
     log("[telemetry] kernel profile (all of phase 13 so far):\n"
         + KERNELS.table())
@@ -2707,6 +2754,7 @@ def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
               if ln.startswith("weedtpu_roofline_frac{")]
     log("[telemetry] exported gauges:\n" + "\n".join(gauges))
 
+    marks["roofline"] = time.perf_counter()
     # -- the seam's bookkeeping, alone, and the pipeline jobs' cost -------
     per = seam_us()
     out["seam_us_per_dispatch"] = per
@@ -2721,7 +2769,7 @@ def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
     try:
         for arm in ("1", "0") * 3:
             os.environ["WEEDTPU_PERF_OBS"] = arm
-            time.sleep(0.6)  # past the switch's 0.5 s cache
+            pipeline._enabled_cache = (0.0, True)  # re-read the switch
             if pipeline.perf_obs_enabled() != (arm == "1"):
                 raise AssertionError("WEEDTPU_PERF_OBS did not take")
             times[arm].append(encode())
@@ -2740,7 +2788,13 @@ def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
          f"{['%.4f' % t for t in times['0']]}; median on over off "
          f"{ratio:.4f}; every shard set sha256-equal to phase 4's")
     out["s"] = time.perf_counter() - t_phase
-    tlog(f"phase wall {out['s']:.1f} s")
+    marks["seam and A/B"] = time.perf_counter()
+    last, out["steps_s"] = t_phase, {}
+    for step, at in marks.items():
+        out["steps_s"][step] = at - last
+        last = at
+    tlog(f"phase wall {out['s']:.1f} s: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in out["steps_s"].items()))
     return out
 
 
@@ -3759,12 +3813,18 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
 SERVER_LOSSES = (0, 3, 10, 12)  # phase 5's
 SERVER_A_SHARDS = tuple(range(7))  # the spread: A 0-6, B 7-13
 # upstream's `weed benchmark` defaults (-size 1024 -c 16; SeaweedFS
-# README, weed/command/benchmark.go), cut from -n 1048576
-SERVER_SMALL = 16384
+# README, weed/command/benchmark.go), cut from -n 1048576 (to 16384 for
+# the script's time, then to 2048: PERF §4)
+SERVER_SMALL = 2048
 SERVER_SMALL_SIZE = 1024
 SERVER_CLIENTS = 16
 SERVER_REPLICATED = 1024
 SERVER_DELETES = 256
+# step 4's needles off the lost data shards, drawn with --seed from the
+# ~1400 of them, and steps 1 and 6's, drawn from all (each step read
+# every needle before; PERF §4)
+SERVER_DEGRADED_OTHERS = 256
+SERVER_READ_SAMPLE = 256
 
 
 class MasterStandIn:
@@ -3932,6 +3992,7 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
     import asyncio
 
     import aiohttp
+    import numpy as np
     from aiohttp import web
     from google import protobuf
     from seaweedfs_tpu_torch.server import volume_server as vsmod
@@ -4005,10 +4066,11 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
     def needle_fid(nid: int) -> str:
         return str(t.FileId(vid, nid, expect[nid][0]))
 
-    def read_needles(url: str, label: str) -> tuple[list[float], float]:
-        """Every needle, byte-equal, at SERVER_CLIENTS clients: (each
-        read's seconds, the wall)."""
-        nids = list(expect)
+    def read_needles(url: str, label: str, nids=None
+                     ) -> tuple[list[float], float]:
+        """Every needle (or those of `nids`), byte-equal, at
+        SERVER_CLIENTS clients: (each read's seconds, the wall)."""
+        nids = list(expect) if nids is None else nids
         ts: list = [[] for _ in range(SERVER_CLIENTS)]
         errors: list = []
 
@@ -4070,20 +4132,28 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
                     for k in requests}
         dat_size = os.path.getsize(src_base + ".dat")
 
+        # steps 1 and 6 read a draw of the needles: the .dat's sha256
+        # holds every byte there (PERF §4)
+        drawn = sorted(np.random.default_rng(seed + 15).choice(
+            list(expect), size=min(len(expect), SERVER_READ_SAMPLE),
+            replace=False).tolist())
+        drawn_bytes = sum(expect[nid][2] - expect[nid][1] for nid in drawn)
+
         # 1 mount the phase-3 volume (a copy taken before phase 14) on A
         k0 = launches["gf_apply"]
         for ext in (".dat", ".idx"):
             shutil.copyfile(src_base + ext, base_a + ext)
         admin(a.url, "/admin/volume/mount", {"volume": vid})
-        ts, dt = read_needles(a.url, "mounted read")
+        ts, dt = read_needles(a.url, "mounted read", drawn)
         k1_step("1 mount", k0, 0)
         steps["1 mount"] = {"reads": len(ts), "s": dt,
                             "reads_per_s": len(ts) / dt,
-                            "gbps": len(blob) / dt / 1e9, **server_latency(ts)}
+                            "gbps": drawn_bytes / dt / 1e9,
+                            **server_latency(ts)}
         slog(f"1 mount: {len(ts)} needles over HTTP from the mounted "
              f"volume at {SERVER_CLIENTS} clients, {len(ts) / dt:.1f} "
              f"reads/s, "
-             f"{len(blob) / dt / 1e9:.3f} GB/s, p50 "
+             f"{drawn_bytes / dt / 1e9:.3f} GB/s, p50 "
              f"{steps['1 mount']['p50_s'] * 1e3:.2f} ms; K1 0")
 
         # 2 encode: readonly, generate, /admin/ec/progress polled
@@ -4114,12 +4184,14 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
         if polls != sorted(polls):
             raise AssertionError(f"progress went backwards: {polls}")
         k1_step("2 encode", k0, encode_k1)
+        got = sha256_many([base_a + layout.to_ext(i) for i in range(14)]
+                          + [base_a + ext for ext in aux_hashes])
         for i in range(14):
-            if sha256(base_a + layout.to_ext(i)) != hashes[i]:
+            if got[i] != hashes[i]:
                 raise AssertionError(f"server shard {i} differs from "
                                      f"phase 4's")
-        for ext, want in aux_hashes.items():
-            if sha256(base_a + ext) != want:
+        for ext, h in zip(aux_hashes, got[14:]):
+            if h != aux_hashes[ext]:
                 raise AssertionError(f"server {ext} differs from phase 4's")
         steps["2 encode"] = {"s": dt, "gbps": dat_size / dt / 1e9,
                              "progress_polls": len(polls),
@@ -4161,8 +4233,8 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
              f"{split[a.url]}, B {split[b.url]}; K1 0")
 
         # 4 degraded reads: phase 5's losses deleted where they live; A
-        # reads every needle, B's shards through A's _shard_reader and
-        # B's /admin/ec/shard_read.  Hedging off, so K1 is one launch per
+        # reads needles, B's shards through A's _shard_reader and B's
+        # /admin/ec/shard_read.  Hedging off, so K1 is one launch per
         # needle on a lost data shard (a hedge would add reconstructs)
         admin(a.url, "/admin/ec/delete_shards",
               {"volume": vid, "shards": [s for s in SERVER_LOSSES
@@ -4174,12 +4246,20 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
         lost_data = {s for s in SERVER_LOSSES if s < layout.DATA_SHARDS}
         touching = [nid for nid in expect
                     if any(s in lost_data for s, _, _ in intervals(ev, nid))]
+        # every needle on a lost data shard, and of the others (read
+        # through B's shards alone, without a decode) a draw, for the
+        # script's time (PERF §4)
+        rest = [nid for nid in expect if nid not in set(touching)]
+        rng = np.random.default_rng(seed + 16)
+        sample = sorted(touching + rng.choice(
+            rest, size=min(len(rest), SERVER_DEGRADED_OTHERS),
+            replace=False).tolist())
         resilience.reset_latency_trackers()
         resilience.reset_breakers()
         k0 = launches["gf_apply"]
         s0 = ev.read_stats_snapshot()
         with scoped_env(WEEDTPU_HEDGE_PCT="0"):
-            ts, dt = read_needles(a.url, "degraded read")
+            ts, dt = read_needles(a.url, "degraded read", sample)
         grew = {k: v - s0[k] for k, v in ev.read_stats_snapshot().items()}
         k1_step("4 degraded", k0, len(touching))
         if grew["reconstruct_batches"] != len(touching):
@@ -4212,8 +4292,9 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
         dt = time.perf_counter() - t0
         if sorted(reply["rebuilt"]) != list(SERVER_LOSSES):
             raise AssertionError(f"rebuilt {reply}")
-        for i in SERVER_LOSSES:
-            if sha256(base_a + layout.to_ext(i)) != hashes[i]:
+        for i, h in zip(SERVER_LOSSES, sha256_many(
+                [base_a + layout.to_ext(i) for i in SERVER_LOSSES])):
+            if h != hashes[i]:
                 raise AssertionError(f"rebuilt shard {i} differs from "
                                      f"phase 4's")
         admin(a.url, "/admin/ec/delete_shards", {"volume": vid,
@@ -4242,7 +4323,7 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
             admin(url, "/admin/ec/unmount", {"volume": vid})
             admin(url, "/admin/ec/delete_shards",
                   {"volume": vid, "shards": list(range(14))})
-        ts, dt_read = read_needles(a.url, "decoded read")
+        ts, dt_read = read_needles(a.url, "decoded read", drawn)
         k1_step("6 decode", k0, 0)
         steps["6 decode"] = {"s": dt, "gbps": dat_size / dt / 1e9,
                              "reads_per_s": len(ts) / dt_read}
@@ -4691,8 +4772,9 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
             repair("[1, 12]", vid, "rs_10_4", [1, 12], helpers9, size,
                    runs9["c"])
             rbase = os.path.join(dirs["R"], str(vid))
-            for s in (3, 1, 12):
-                if sha256(rbase + layout.to_ext(s)) != hashes[s]:
+            for s, h in zip((3, 1, 12), sha256_many(
+                    [rbase + layout.to_ext(s) for s in (3, 1, 12)])):
+                if h != hashes[s]:
                     raise AssertionError(f"repaired shard {s} differs "
                                          f"from phase 4's")
             msr = phases["codecs"]["msr_9_16"]
@@ -4757,8 +4839,8 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
                 dt = time.perf_counter() - t0
                 step_counts(f"5 recode {to}", k0, k1)
                 if got["codec"] != to or got["shards"] != list(range(14)) \
-                        or [sha256(cbase + layout.to_ext(i))
-                            for i in range(14)] != want or \
+                        or sha256_many([cbase + layout.to_ext(i)
+                                        for i in range(14)]) != want or \
                         sha256(cbase + ".vif") != vif:
                     raise AssertionError(f"recode to {to}: {got}")
                 for nid in sample:
@@ -4814,8 +4896,8 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
                 raise AssertionError(f"fleet progress {prog}")
             for fv, want in zip(fvids, phases["fleet"]["sha256"]):
                 fb = os.path.join(bdir, str(fv))
-                if [sha256(fb + layout.to_ext(i)) for i in range(14)] != \
-                        want:
+                if sha256_many([fb + layout.to_ext(i)
+                                for i in range(14)]) != want:
                     raise AssertionError(f"fleet volume {fv}: shards "
                                          f"differ from phase 7's")
             if sha256(os.path.join(bdir, f"{fvids[0]}.ecx")) != \
@@ -4872,8 +4954,8 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
                 raise AssertionError(f"unpolled fleet: {rep}")
             for fv, want in zip(qvids, phases["fleet"]["sha256"]):
                 fb = os.path.join(bdir, str(fv))
-                if [sha256(fb + layout.to_ext(i)) for i in range(14)] != \
-                        want:
+                if sha256_many([fb + layout.to_ext(i)
+                                for i in range(14)]) != want:
                     raise AssertionError(f"unpolled fleet volume {fv}: "
                                          f"shards differ from phase 7's")
             if sha256(os.path.join(bdir, f"{qvids[0]}.ecx")) != \
@@ -4953,18 +5035,22 @@ ADMIN_DOCS = 512  # step 6's JSON documents
 ADMIN_PROFILE_HZ = "49"  # the continuous profiler of this phase only
 
 
-def sha256_crc32(path: str) -> tuple[str, int]:
-    """The sha256 and the zlib CRC32 of a file, in one pass."""
+def crc32(path: str) -> int:
     import zlib
-    h, crc = hashlib.sha256(), 0
+    crc = 0
     with open(path, "rb") as f:
-        while True:
-            chunk = f.read(8 * MIB)
-            if not chunk:
-                break
-            h.update(chunk)
+        for chunk in iter(lambda: f.read(8 * MIB), b""):
             crc = zlib.crc32(chunk, crc)
-    return h.hexdigest(), crc
+    return crc
+
+
+def sha256_crc32(path: str) -> tuple[str, int]:
+    """The sha256 and the zlib CRC32 of a file, side by side on two
+    threads (both drop the GIL on large buffers)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as ex:
+        crc = ex.submit(crc32, path)
+        return sha256(path), crc.result()
 
 
 def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
@@ -5585,6 +5671,217 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
     return out
 
 
+# phase 19's mesh: positions on the one card of this host (the mesh's
+# positions may repeat a device; a mesh over distinct cards needs a host
+# with more than one)
+MESH_FLEET_POSITIONS = 4  # step 4's unit mesh
+MESH_PLACE = ((2, 2), (3, 2))  # step 5's (vol, col) meshes
+MESH_LOSSES = (2, 12)  # step 5's column-split rebuild, of volume 0
+
+
+def phase_mesh(vdir: str, server_src: str, hashes: list[str],
+               aux_hashes: dict, phases: dict, srcs: list[str],
+               launches: dict, device=None) -> dict:
+    """Phase 19: the multi-device mesh (seaweedfs_tpu_torch/parallel/) on
+    the card, its positions repeating the card where a step names
+    several.  (1) WEEDTPU_EC_CODEC=mesh on a one-position mesh:
+    write_ec_files + write_sorted_ecx of links of the phase-3 volume
+    (the copy taken before phase 14), from no shard set, shards, .ecx and
+    .vif sha256 == phase 4's, K1 == phase 4's; (2) phase 5's losses
+    rebuilt under mesh, sha256-equal, K1 == phase 6's; (3)
+    WEEDTPU_CONVERT_CODEC=mesh: links of phase 7's four volumes on a
+    one-position mesh, sha256 == phase 7's, K2 == phase 7's; (4) the same
+    fleet on 4 positions of the card, K2 one per unit (a unit per
+    position per batch); (5) encode_batch_place of 4 and 6 stripes
+    [10, 1 MiB] of the .dat (its first small-block rows) on (2, 2) and
+    (3, 2) meshes: every position's block byte-equal to the rows of
+    step 1's shard files it must hold, pad rows zero, one K2 launch per
+    position; the column-split reconstruct of shards 2 and 12 of volume 0
+    equal to their files, one K1 launch per column position; (6)
+    dryrun_multichip(8) on 8 positions of the card.  K1 and K2 per step
+    against the prediction the layout and the positions make.  `device`
+    (None: the card, every card for steps 1 and 3) is for a rehearsal on
+    the CPU."""
+    import numpy as np
+    from seaweedfs_tpu_torch.models import rs
+    from seaweedfs_tpu_torch.ops import fleet_convert
+    from seaweedfs_tpu_torch.parallel import dryrun
+    from seaweedfs_tpu_torch.parallel import mesh as pmesh
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+
+    card = card_name_power()
+    pos = device or "cuda:0"  # each position of steps 4-6
+
+    def mlog(msg: str) -> None:
+        log(f"[mesh] {msg} [{card}]")
+
+    t_phase = time.perf_counter()
+    work = os.path.join(vdir, "mesh")
+    os.makedirs(work)
+    steps: dict = {}
+
+    def step(name: str, k0: dict, k1: int, k2: int, dt: float,
+             **rec) -> dict:
+        got = {k: launches[k] - k0[k] for k in launches}
+        want = {"gf_apply": k1, "gf_apply_batch": k2}
+        if got != want:
+            raise AssertionError(f"mesh {name}: launched {got}, predicted "
+                                 f"{want}")
+        steps[name] = {"s": dt, "launches": got, **rec}
+        return got
+
+    # 1 the mesh EC codec on one position, from no shard set
+    base = os.path.join(work, os.path.basename(server_src))
+    for ext in (".dat", ".idx"):
+        os.link(server_src + ext, base + ext)
+    dat_size = os.path.getsize(base + ".dat")
+    shard = [base + layout.to_ext(i) for i in range(14)]
+    enc_k1 = phases["encode_warm"]["launches"]
+    k0 = dict(launches)
+    with scoped_env(WEEDTPU_EC_CODEC="mesh"):
+        codec = ec_files._get_codec(device)
+        if not isinstance(codec, pmesh.ShardedRSEncoder) or \
+                codec.mesh.shape != {"data": 1}:
+            raise AssertionError(f"WEEDTPU_EC_CODEC=mesh built {codec!r}")
+        t0 = time.perf_counter()
+        ec_files.write_ec_files(base, device=device)
+        ec_files.write_sorted_ecx(base + ".idx")
+        dt = time.perf_counter() - t0
+    got = sha256_many(shard + [base + ".ecx", base + ".vif"])
+    if got != hashes + [aux_hashes[".ecx"], aux_hashes[".vif"]]:
+        raise AssertionError("mesh encode: shards, .ecx or .vif differ from "
+                             "phase 4's")
+    step("1 encode", k0, enc_k1, 0, dt, gbps=dat_size / dt / 1e9)
+    mlog(f"1 encode: WEEDTPU_EC_CODEC=mesh, one position "
+         f"({codec.mesh.devices.flat[0]}): {dat_size} B in {dt:.3f} s "
+         f"({dat_size / dt / 1e9:.3f} GB/s); 14 shards, .ecx and .vif "
+         f"sha256 == phase 4's; K1 {enc_k1} == phase 4's")
+
+    # 2 phase 5's losses, rebuilt under mesh
+    lost = [0, 3, 10, 12]
+    for i in lost:
+        os.remove(shard[i])
+    reb_k1 = phases["rebuild_warm"]["launches"]
+    k0 = dict(launches)
+    with scoped_env(WEEDTPU_EC_CODEC="mesh"):
+        t0 = time.perf_counter()
+        rebuilt = ec_files.rebuild_ec_files(base, device=device)
+        dt = time.perf_counter() - t0
+    if rebuilt != lost or sha256_many([shard[i] for i in lost]) != \
+            [hashes[i] for i in lost]:
+        raise AssertionError(f"mesh rebuild: {rebuilt} differ")
+    step("2 rebuild", k0, reb_k1, 0, dt)
+    mlog(f"2 rebuild: {lost} under mesh sha256-equal in {dt:.3f} s; K1 "
+         f"{reb_k1} == phase 6's")
+
+    # 3, 4 the fleet on a unit mesh: one position, then four of the card
+    fsrc = [server_src] + [p[: -len(".dat")] for p in srcs[1:]]
+    units = sum(phases["fleet"]["units"])
+    k2_one = phases["fleet"]["launches"]["gf_apply_batch"]
+    for name, devices, want in (
+            ("3 fleet", device, k2_one),
+            ("4 fleet x4", [pos] * MESH_FLEET_POSITIONS, units)):
+        fdir = os.path.join(work, name.split()[0])
+        bases = link_volumes([p + ".dat" for p in fsrc], fdir)
+        k0 = dict(launches)
+        st: dict = {}
+        with scoped_env(WEEDTPU_CONVERT_CODEC="mesh"):
+            fc = fleet_convert.fleet_codec(device=devices)
+            t0 = time.perf_counter()
+            fleet_convert.convert_volumes(bases, device=devices, stats=st)
+            dt = time.perf_counter() - t0
+        for b, want_h in zip(bases, phases["fleet"]["sha256"]):
+            if sha256_many([b + layout.to_ext(i) for i in range(14)]) != \
+                    want_h:
+                raise AssertionError(f"mesh {name}: {b} differs from "
+                                     f"phase 7's shards")
+        shutil.rmtree(fdir)
+        total = sum(os.path.getsize(p + ".dat") for p in fsrc)
+        step(name, k0, 0, want, dt, positions=fc.n_devices,
+             unit_batch=st["unit_batch"], gbps=total / dt / 1e9)
+        mlog(f"{name}: WEEDTPU_CONVERT_CODEC=mesh on {fc.n_devices} "
+             f"position(s), {st['unit_batch']} units a batch: {total} B of "
+             f"4 volumes in {dt:.3f} s ({total / dt / 1e9:.3f} GB/s); every "
+             f"shard sha256 == phase 7's; K2 {want} "
+             + ("== phase 7's" if name == "3 fleet" else
+                f"== the {units} units, one per position per batch"))
+
+    # 5 the shard-placement exchange on stripes of the .dat
+    k, step_w = layout.DATA_SHARDS, layout.SMALL_BLOCK_SIZE
+    stripes = np.fromfile(base + ".dat", dtype=np.uint8,
+                          count=6 * k * step_w).reshape(6, k, step_w)
+    rows = np.stack([np.fromfile(p, dtype=np.uint8, count=6 * step_w)
+                     .reshape(6, step_w) for p in shard], axis=1)
+    code = rs.get_code(layout.DATA_SHARDS, layout.PARITY_SHARDS)
+    place_rec = {}
+    for shape in MESH_PLACE:
+        vol_dim, col_dim = shape
+        V = 2 * vol_dim
+        mesh = pmesh.make_mesh(vol_dim * col_dim, ("vol", "col"),
+                               shape=shape,
+                               devices=[pos] * (vol_dim * col_dim))
+        enc = pmesh.ShardedRSEncoder(code, mesh, col_axis="col",
+                                     vol_axis="vol")
+        S = enc.placement_groups()
+        G, nl = S // vol_dim, step_w // col_dim
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        placed = enc.encode_batch_place(stripes[:V])
+        checked = 0
+        for sh in placed.shards:
+            v, c = sh.position
+            if sh.event is not None:
+                sh.event.synchronize()
+            block = sh.data.cpu().numpy()  # [V, G, nl]
+            want = np.zeros((V, G, nl), dtype=np.uint8)
+            real = min(G, 14 - v * G)
+            want[:, :real] = rows[:V, v * G:v * G + real,
+                                  c * nl:(c + 1) * nl]
+            if block.shape != want.shape or not np.array_equal(block, want):
+                raise AssertionError(f"mesh {shape}: position {(v, c)} "
+                                     f"holds other bytes than rows "
+                                     f"[{v * G}, {v * G + G}) of its "
+                                     f"stripes")
+            checked += 1
+        survivors = {i: rows[0, i] for i in range(14)
+                     if i not in MESH_LOSSES}
+        back = enc.reconstruct(survivors)
+        for i in MESH_LOSSES:
+            if not np.array_equal(back[i].numpy(), rows[0, i]):
+                raise AssertionError(f"mesh {shape}: rebuilt shard {i} of "
+                                     f"volume 0 differs from its file")
+        dt = time.perf_counter() - t0
+        n_pos = vol_dim * col_dim
+        step(f"5 place {shape}", k0, col_dim, n_pos, dt, S=S,
+             positions=checked)
+        place_rec[str(shape)] = S
+        mlog(f"5 place {shape}: {V} stripes [10, {step_w}] through "
+             f"encode_batch_place on {n_pos} positions of the card: S = "
+             f"{S}, each position's [{V}, {G}, {nl}] block == rows "
+             f"[v*{G}, v*{G}+{G}) of step 1's shard files (pad rows zero); "
+             f"column-split rebuild of {list(MESH_LOSSES)} of volume 0 == "
+             f"their files; K2 {n_pos}, K1 {col_dim}; {dt:.3f} s")
+
+    # 6 the dry run on 8 positions of the card
+    k0 = dict(launches)
+    t0 = time.perf_counter()
+    ran = dryrun.dryrun_multichip(8, devices=[pos] * 8)
+    dt = time.perf_counter() - t0
+    want_k1 = sum(col for _, col in ran)
+    want_k2 = sum(vol * col for vol, col in ran)
+    step("6 dry run", k0, want_k1, want_k2, dt, meshes=[list(s) for s in ran])
+    mlog(f"6 dryrun_multichip(8) on 8 positions of the card: meshes "
+         f"{sorted(ran)}, its asserts hold; K2 {want_k2}, K1 {want_k1}; "
+         f"{dt:.3f} s")
+    shutil.rmtree(work)
+    out = {"steps": steps, "placement_groups": place_rec,
+           "s": time.perf_counter() - t_phase}
+    mlog("launches per step (launched == predicted): " + "; ".join(
+        f"{k} {v['launches']}" for k, v in steps.items())
+        + f"; phase wall {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5689,7 +5986,7 @@ def main(argv=None) -> int:
                 f"rows == .dat and plain; read {st.get('read_s', 0):.3f} s "
                 f"/ device wait {c['device_s']:.3f} s / d2h "
                 f"{c['d2h_s']:.3f} s")
-        hashes = [sha256(p) for p in shard]
+        hashes = sha256_many(shard)
         aux_hashes = {ext: sha256(base + ext) for ext in (".ecx", ".vif")}
 
         # 5 degraded read
@@ -5753,8 +6050,8 @@ def main(argv=None) -> int:
             dt = time.perf_counter() - t0
             if sorted(rebuilt) != lost:
                 raise AssertionError(f"rebuilt {rebuilt}, wanted {lost}")
-            for i in lost:
-                if sha256(shard[i]) != hashes[i]:
+            for i, h in zip(lost, sha256_many([shard[i] for i in lost])):
+                if h != hashes[i]:
                     raise AssertionError(f"rebuilt shard {i} differs")
             reb_launches = launches["gf_apply"] - before
             if reb_launches <= 0:
@@ -5933,10 +6230,28 @@ def main(argv=None) -> int:
             f"{staged}")
         path_launches = {k: path_launches[k] + admin_launches[k]
                          for k in path_launches}
+
+        # 19 the mesh, counted on its own
+        gf_cuda.reset_launches()
+        phases["mesh"] = phase_mesh(vdir, server_src, hashes, aux_hashes,
+                                    phases, srcs, launches)
+        mesh_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the mesh phase made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        if not all(mesh_launches.values()):
+            raise AssertionError(f"the mesh phase launched "
+                                 f"{mesh_launches}: K1 and K2 both "
+                                 f"expected")
+        log(f"[path] phase 19: launches {mesh_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + mesh_launches[k]
+                         for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 19 report
+    # 20 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

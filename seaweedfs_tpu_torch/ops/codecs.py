@@ -8,18 +8,24 @@ named by a tag carried in its `.vif`:
     msr_<k>_<d>       product-matrix regenerating, e.g. msr_9_16
 
 `parse_tag(None)` and any unknown tag resolve to the RS default.
-`make_codec` builds every family over one of two matrix applies, chosen
-by the backend kind:
+`make_codec` builds every family by the backend kind:
 
     cuda (or None)   `CudaGFMatrix`: the card's kernel, or its plain
                      version when the caller passes device="cpu"
     native           `NativeGFMatrix`: the host CPU codec (AVX2, or GFNI
                      where CPUID finds it), only when the caller names it
+    mesh             RS: `parallel.mesh.ShardedRSEncoder` over the
+                     positions `device` names (None: every card; one
+                     device; or a sequence of them), memoized per
+                     positions; LRC and MSR: the cuda kind's codec on the
+                     one device named, as the reference's registry gives
+                     them its one-device shell under mesh
 
 RS and LRC are fixed GF(2^8) matrices in the `RSCodecBase` shell; MSR
-wraps that shell in its interleaving file codec (ops/msr.py).  Any other
-kind raises, the reference's auto, tpu, jax, numpy, mesh and its alias
-cpp included: its auto turns to the CPU codec where there is no accelerator, which is the
+wraps that shell in its interleaving file codec (ops/msr.py).  Only the
+mesh kind takes a sequence of devices.  Any other kind raises, the
+reference's auto, tpu, jax, numpy and its alias cpp included: its auto
+turns to the CPU codec where there is no accelerator, which is the
 fallback the port does not make.
 
 Every `rs_<k>_<m>` tag builds RS(10, 4), k and m from the layout
@@ -123,12 +129,12 @@ def default_tag() -> str:
                                     DEFAULT_TAG)).tag
 
 
-KINDS = ("cuda", "native")
+KINDS = ("mesh", "cuda", "native")
 
 
 def _check_kind(kind: str | None) -> str:
-    """The backend kind a caller named, as "cuda" or "native" (None means
-    "cuda"); raises ValueError on any other value."""
+    """The backend kind a caller named, one of KINDS (None means "cuda");
+    raises ValueError on any other value."""
     if kind is None:
         return "cuda"
     if kind in KINDS:
@@ -143,9 +149,24 @@ def make_codec(tag: str | None, device=None, kind: str | None = None):
     m, as the reference builds it) and LRC as `CudaRSCodec`, MSR as
     `MSRFileCodec` over one.  Kind "native": the host
     codec, `NativeRSCodec` or an `MSRFileCodec` over one, on the CPU;
-    `device` must then be None or "cpu"."""
+    `device` must then be None or "cpu".  Kind "mesh": RS as a
+    `ShardedRSEncoder` over the positions `device` names, the other
+    families as kind "cuda" builds them."""
     spec = parse_tag(tag)
     kind = _check_kind(kind)
+    if not isinstance(device, (str, torch.device, type(None))):
+        if kind != "mesh":
+            raise ValueError(f"codec kind {kind} runs on one device, not "
+                             f"{device!r}")
+        if spec.family != "rs":
+            raise ValueError(f"{spec.tag} runs on one device under mesh, "
+                             f"not {device!r}")
+    if kind == "mesh":
+        if spec.family == "rs":
+            from seaweedfs_tpu_torch.parallel import mesh
+            return _mesh_codec(layout.DATA_SHARDS, layout.PARITY_SHARDS,
+                               tuple(mesh.mesh_devices(device)))
+        kind = "cuda"
     if kind == "native":
         if device is not None and torch.device(device).type != "cpu":
             raise ValueError(f"the native codec runs on the CPU, not "
@@ -161,6 +182,14 @@ def make_codec(tag: str | None, device=None, kind: str | None = None):
         return gf_cuda.get_codec(layout.DATA_SHARDS, layout.PARITY_SHARDS,
                                  device=dev)
     return _build(spec.tag, dev, kind)
+
+
+@functools.lru_cache(maxsize=8)
+def _mesh_codec(k: int, m: int, positions: tuple):
+    from seaweedfs_tpu_torch.models import rs
+    from seaweedfs_tpu_torch.parallel import mesh
+    return mesh.ShardedRSEncoder(rs.get_code(k, m),
+                                 mesh.make_mesh(devices=list(positions)))
 
 
 @functools.lru_cache(maxsize=16)

@@ -17,6 +17,13 @@ asynchronous:
   partial product, ops/regen.py) go through the same steps and return
   host bytes.
 
+A mesh codec (parallel/mesh.py: `ShardedRSEncoder`, `FleetUnitEncoder`)
+copies each position's slice to that position itself, and its results
+are `ShardedArray`s, one block per position, each with its own event:
+`materialize` gathers them, and `unit_parity_shards` yields each block
+as its event completes (the fleet's streaming drain).  A mesh's repair
+partials (`apply_matrix`) run on its first position.
+
 Every batch lands on the card in a buffer whose rows start 16 bytes
 apart (`rows.device_empty`), the layout the kernel reads in place, so the
 kernel wrapper never has to stage a copy of it (it does so only for a
@@ -133,27 +140,45 @@ def _enqueue(codec, apply, host: torch.Tensor,
     return Pending(out, kernel, ev)
 
 
-def _fetch(result) -> np.ndarray:
-    """The host bytes of an `_enqueue` result, booking its device wait and
-    its D2H (calls=0) in the result's row: a card `Pending` waits on its
-    event and is copied into pinned memory; the plain version's CPU
-    tensor is viewed as numpy; the native codec's numpy passes
-    through."""
-    if isinstance(result, np.ndarray):
-        return result
-    if result.event is None:
-        out = result.tensor.numpy()
-        KERNELS.record(result.kernel, "device", calls=0,
-                       d2h_bytes=out.nbytes)
+def _to_host(tensor: torch.Tensor, event, kernel: str) -> np.ndarray:
+    """A device result's host bytes, booking its device wait and its D2H
+    (calls=0) in `kernel`'s row: a card tensor waits on its event and is
+    copied into pinned memory; a CPU tensor is viewed as numpy."""
+    if event is None:
+        out = tensor.numpy()
+        KERNELS.record(kernel, "device", calls=0, d2h_bytes=out.nbytes)
         return out
     t0 = time.perf_counter()
-    result.event.synchronize()
+    event.synchronize()
     t1 = time.perf_counter()
-    host = host_empty(tuple(result.tensor.shape), result.tensor.device)
-    host.copy_(result.tensor)
-    KERNELS.record(result.kernel, "device", calls=0, device_s=t1 - t0,
+    host = host_empty(tuple(tensor.shape), tensor.device)
+    host.copy_(tensor)
+    KERNELS.record(kernel, "device", calls=0, device_s=t1 - t0,
                    d2h_s=time.perf_counter() - t1, d2h_bytes=host.numel())
     return host.numpy()
+
+
+def _fetch(result) -> np.ndarray:
+    """The host bytes of an `_enqueue` result or a mesh's `ShardedArray`,
+    its device wait and D2H booked in the result's row; the native
+    codec's numpy passes through."""
+    if isinstance(result, np.ndarray):
+        return result
+    if isinstance(result, Pending):
+        return _to_host(result.tensor, result.event, result.kernel)
+    blocks = [(s.index, _to_host(s.data, s.event, result.kernel))
+              for s in result.shards]
+    if len(blocks) == 1 and blocks[0][1].shape == tuple(result.shape):
+        return blocks[0][1]
+    out = np.zeros(result.shape, dtype=np.uint8)
+    for index, block in blocks:
+        out[index] = block
+    return out
+
+
+def _is_mesh(codec) -> bool:
+    """A mesh codec (parallel/mesh.py) places its own input."""
+    return hasattr(codec, "mesh")
 
 
 def dispatch_parity(codec, batch, staging: torch.Tensor | None = None):
@@ -163,37 +188,89 @@ def dispatch_parity(codec, batch, staging: torch.Tensor | None = None):
     host = _as_tensor(batch)
     with trace.span("codec.dispatch_parity", backend=_backend(codec),
                     bytes=host.numel()):
+        if _is_mesh(codec):
+            return _enqueue_mesh(codec.encode_parity, host, "encode_parity")
         return _enqueue(codec, codec.encode_parity, host, staging,
                         "encode_parity")
+
+
+def _enqueue_mesh(apply, host: torch.Tensor, kernel: str, h2d: bool = True):
+    """Run a mesh codec's `apply` on host data (it copies each position's
+    slice itself) and book it in `kernel`'s row; returns its
+    `ShardedArray`.  `h2d` False: a `place` booked the copy already."""
+    nbytes = host.numel()
+    t0 = time.perf_counter()
+    out = apply(host)
+    out.kernel = kernel
+    KERNELS.record(kernel, "device", wall_s=time.perf_counter() - t0,
+                   h2d_bytes=nbytes if h2d else 0, nbytes=nbytes)
+    return out
 
 
 def materialize(parity) -> np.ndarray:
     """Sync point of a dispatch, its device wait and D2H booked in the row
     of the kernel that dispatched it: host results pass through; a
-    `Pending` waits on its event and is copied D2H into pinned
-    memory."""
+    `Pending` waits on its event and is copied D2H into pinned memory; a
+    mesh's `ShardedArray` so, block by block, gathered."""
     if isinstance(parity, np.ndarray):
         return parity
-    with trace.span("codec.d2h", bytes=parity.tensor.numel()):
+    nbytes = parity.tensor.numel() if isinstance(parity, Pending) \
+        else parity.nbytes
+    with trace.span("codec.d2h", bytes=nbytes):
         return _fetch(parity)
 
 
-def dispatch_parity_batch(codec, units, staging: torch.Tensor | None = None):
-    """Dispatch a [U, k, B] unit batch -> [U, m, B] parity in one kernel
-    launch (K2, `fleet_encode`), the fleet conversion's seam
-    (ops/fleet_convert.py).
+def dispatch_parity_batch(codec, units, staging=None, placed=None):
+    """Dispatch a [U, k, B] unit batch -> [U, m, B] parity (K2,
+    `fleet_encode`), the fleet conversion's seam (ops/fleet_convert.py).
 
-    On the card the pinned host batch is copied into `staging` (a
-    `device_empty((U, k, B))` slot buffer, or a new one when None), whose
-    unit and row strides are multiples of 16, so the kernel reads it in
-    place; the result comes back un-synced as a `Pending`, and
-    `materialize` is its sync point.  On the CPU
-    it is computed eagerly."""
+    A codec with `place` (a mesh's `FleetUnitEncoder`) copies each
+    position's units to it: `placed` is a batch it placed already, else
+    it places `units` here, into `staging` (its `empty_slot`) when given;
+    either way `place` books the H2D, exactly once.  One K2 launch per
+    position holding units.
+
+    Otherwise, on the card, the pinned host batch is copied into `staging`
+    (a `device_empty((U, k, B))` slot buffer, or a new one when None),
+    whose unit and row strides are multiples of 16, so the kernel reads
+    it in place, in one launch.  Results come back un-synced (a `Pending`
+    or a `ShardedArray`); `materialize` and `unit_parity_shards` are
+    their sync points.  On the CPU they are computed eagerly."""
     host = _as_tensor(units)
     with trace.span("codec.dispatch_parity_batch", backend=_backend(codec),
                     bytes=host.numel()):
+        place = getattr(codec, "place", None)
+        if place is not None:
+            if placed is None:
+                placed = place(host, staging)
+            return _enqueue_mesh(lambda _: codec.encode_parity_batch(placed),
+                                 host, "fleet_encode", h2d=False)
+        if placed is not None:
+            raise TypeError(f"placed= needs a codec with place(), not "
+                            f"{type(codec).__name__}")
         return _enqueue(codec, codec.encode_parity_batch, host, staging,
                         "fleet_encode")
+
+
+def unit_parity_shards(parity, kernel: str = "fleet_encode"):
+    """Streaming sync point of a batched dispatch: yield (u_start,
+    u_stop, ndarray) per position's block, each as its event completes,
+    its device wait and D2H booked in `kernel`'s row, so the drain hands
+    a block's shards to the writers while later blocks still copy.  A
+    `Pending` or a host result yields one block."""
+    if isinstance(parity, np.ndarray):
+        yield 0, parity.shape[0], parity
+        return
+    sharded = not isinstance(parity, Pending)
+    nbytes = parity.nbytes if sharded else parity.tensor.numel()
+    with trace.span("codec.d2h", bytes=nbytes, streamed=True):
+        if not sharded:
+            out = _to_host(parity.tensor, parity.event, kernel)
+            yield 0, out.shape[0], out
+            return
+        for s in parity.shards:
+            yield s.index[0].start, s.index[0].stop, \
+                _to_host(s.data, s.event, kernel)
 
 
 def reconstruct_batch(codec, shards: dict[int, np.ndarray],
@@ -215,6 +292,15 @@ def reconstruct_batch(codec, shards: dict[int, np.ndarray],
         hn = host.numpy()
         for r, i in enumerate(basis):
             hn[r, :n] = shards[i]
+        if _is_mesh(codec):
+            t1 = time.perf_counter()
+            rows = codec.reconstruct({i: host[r, :n]
+                                      for r, i in enumerate(basis)},
+                                     list(wanted))
+            KERNELS.record("reconstruct", "device",
+                           wall_s=time.perf_counter() - t1,
+                           h2d_bytes=nbytes, nbytes=nbytes)
+            return {w: _fetch(rows[w]) for w in wanted}
         if codec.device.type == "cpu":
             out = mat(host[:, :n]).numpy()
             if backend == "host":

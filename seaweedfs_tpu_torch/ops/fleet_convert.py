@@ -14,9 +14,10 @@ batched kernel (K2, `dispatch.dispatch_parity_batch`):
     dispatch   (caller's thread, on its own CUDA stream) copies the batch
                into the slot's device buffer and launches K2 on it
     drain      waits on the dispatch's event, copies parity D2H
-               (`dispatch.materialize`), returns the slot to the pool
-               and fans rows out to the owning volume's parity flusher,
-               flushing the volumes the batch touched; a volume whose
+               (`dispatch.unit_parity_shards`: on a mesh, position by
+               position) and fans rows out to the owning volume's
+               parity flusher, flushing the volumes each block touched,
+               then returns the slot to the pool; a volume whose
                last unit lands is finalized (both flushers flushed, cut
                to size, .vif, .tmp -> rename) while the stream feeds the
                others
@@ -33,17 +34,21 @@ ones stay.
 EncodeCancelled (the volume server's /admin/ec/fleet_convert and
 /admin/ec/cancel drive both).
 
-The geometry is fixed: UNIT_BATCH units per launch, PIPELINE_DEPTH
-batches in flight (the reference's defaults).  The codec is the EC
-codec (`ec_files._get_codec`, so WEEDTPU_EC_CODEC chooses it): unset, on
-one card (with more than one attached the port still uses one; the
-unit-sharded multi-card encoder is ROADMAP 1.13); "native", the host CPU
-codec, which encodes a batch unit by unit and needs no device buffer.
+The geometry is fixed: UNIT_BATCH units per batch (rounded up to an
+even split over a mesh's positions), PIPELINE_DEPTH batches in flight
+(the reference's defaults).  The codec (`fleet_codec`, or the caller's
+`codec=`) is a mesh's `FleetUnitEncoder` (parallel/mesh.py), which
+splits each batch over its positions, one K2 launch per position holding
+units, and streams each position's parity back as it completes
+(`dispatch.unit_parity_shards`); or the EC codec on one card; or the
+native host codec, which encodes a batch unit by unit and needs no
+device buffer.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import queue
 import threading
@@ -53,9 +58,10 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch.maintenance import faults
+from seaweedfs_tpu_torch.ops import codecs
 from seaweedfs_tpu_torch.ops.dispatch import (Pending, device_empty,
                                               dispatch_parity_batch,
-                                              host_empty, materialize)
+                                              host_empty, unit_parity_shards)
 from seaweedfs_tpu_torch.stats import netflow, pipeline
 from seaweedfs_tpu_torch.storage.ec import layout
 from seaweedfs_tpu_torch.storage.ec.ec_files import (
@@ -64,8 +70,45 @@ from seaweedfs_tpu_torch.storage.ec.ec_files import (
     _map_readonly, _ShardFlusher, _ShardWriterPool, _Timer, _unit_coverage,
     _unit_steps, overlap_fraction, write_vif)
 
-UNIT_BATCH = 4  # units per K2 launch
+UNIT_BATCH = 4  # units per batch: one K2 launch, or one per position
 PIPELINE_DEPTH = 2  # batches in flight: the pool holds one more
+
+CONVERT_KINDS = ("mesh", "fleet", "cuda", "native")
+
+
+@functools.lru_cache(maxsize=4)
+def _fleet_unit_encoder(k: int, m: int, positions: tuple):
+    from seaweedfs_tpu_torch.models import rs
+    from seaweedfs_tpu_torch.parallel import mesh
+    return mesh.FleetUnitEncoder(rs.get_code(k, m), mesh.make_mesh(
+        devices=list(positions), axis_names=("unit",)))
+
+
+def fleet_codec(kind: str | None = None, device=None):
+    """The codec a fleet conversion rides, by `kind` (None: the
+    WEEDTPU_CONVERT_CODEC knob): "mesh" or "fleet", a `FleetUnitEncoder`
+    over the positions `device` names (None: every card); "cuda" or
+    "native", the EC codec of that kind on `device`; unset, the
+    `FleetUnitEncoder` over every card when more than one is attached and
+    `device` names no single one, else `ec_files._get_codec(device)`
+    (WEEDTPU_EC_CODEC's).  Any other value raises, where the reference
+    hands it to its EC codec's selection, whose last resort takes
+    anything."""
+    from seaweedfs_tpu_torch.parallel import mesh
+    kind = kind or os.environ.get("WEEDTPU_CONVERT_CODEC") or None
+    k, m = layout.DATA_SHARDS, layout.PARITY_SHARDS
+    if kind in ("mesh", "fleet"):
+        return _fleet_unit_encoder(k, m, tuple(mesh.mesh_devices(device)))
+    if kind in ("cuda", "native"):
+        return codecs.make_codec(codecs.DEFAULT_TAG, device, kind)
+    if kind is not None:
+        raise ValueError(f"WEEDTPU_CONVERT_CODEC={kind!r}: the port takes "
+                         f"{', '.join(CONVERT_KINDS)} (unset: the mesh of "
+                         f"every card when there are several)")
+    if device is None and torch.cuda.is_available() and \
+            torch.cuda.device_count() > 1:
+        return _fleet_unit_encoder(k, m, tuple(mesh.mesh_devices(None)))
+    return _get_codec(device)
 
 
 class _VolumeJob:
@@ -174,14 +217,26 @@ class _VolumeJob:
         self.dat_f.close()
 
 
+def _wait(parity) -> None:
+    """Wait for every event of a dispatch's result."""
+    if isinstance(parity, Pending):
+        events = [parity.event]
+    else:
+        events = [s.event for s in getattr(parity, "shards", ())]
+    for ev in events:
+        if ev is not None:
+            ev.synchronize()
+
+
 def convert_volumes(bases: list[str], *,
                     large_block: int = layout.LARGE_BLOCK_SIZE,
                     small_block: int = layout.SMALL_BLOCK_SIZE,
                     batch_size: int = DEFAULT_BATCH, progress=None,
                     cancel=None, stats: dict | None = None,
-                    device=None) -> dict:
+                    device=None, codec=None) -> dict:
     """Convert the volumes `<base>.dat` into EC shard sets through one
-    interleaved stream of unit batches on `device` (None: the card; raises
+    interleaved stream of unit batches through `codec` (None:
+    `fleet_codec(device=device)`; `device` None means the card, and raises
     without one).  Returns per-volume accounting.
 
     `progress(bytes_done)` sees the total volume bytes staged so far;
@@ -195,14 +250,16 @@ def convert_volumes(bases: list[str], *,
     traffic class (unless the caller declared one)."""
     if not bases:
         return {"volumes": {}, "bytes": 0}
-    codec = _get_codec(device)
+    codec = codec if codec is not None else fleet_codec(device=device)
     device = codec.device
     # an armed shard_write_error fails the run like a dying disk, before
     # any tmp shard file exists
     for base in bases:
         faults.check_shard_write(base)
     k, m = layout.DATA_SHARDS, layout.PARITY_SHARDS
-    U = UNIT_BATCH
+    placing = getattr(codec, "place", None) is not None
+    # a mesh takes an even split of units over its positions
+    U = codec.unit_slots(UNIT_BATCH) if placing else UNIT_BATCH
     stats = stats if stats is not None else {}
     stats["mode"] = "fleet"
     stats["unit_batch"] = U
@@ -214,14 +271,16 @@ def convert_volumes(bases: list[str], *,
             jobs.append(_VolumeJob(b, large_block, small_block, batch_size,
                                    stats))
         # one staging width covers every volume (shorter units zero-fill);
-        # each slot is a pinned host batch and its device twin (a host
-        # codec's slot is the host batch alone)
+        # each slot is a pinned host batch and its device twin: a mesh's
+        # buffer on each position, one card's padded buffer, or none (a
+        # host codec's slot is the host batch alone)
         W = max(_unit_steps(j.dat_size, large_block, small_block,
                             batch_size)[1] for j in jobs)
         for _ in range(PIPELINE_DEPTH + 1):
-            pool.put((host_empty((U, k, W), device),
-                      device_empty((U, k, W), device)
-                      if device.type == "cuda" else None))
+            twin = codec.empty_slot(U, W) if placing else \
+                device_empty((U, k, W), device) \
+                if device.type == "cuda" else None
+            pool.put((host_empty((U, k, W), device), twin))
     except BaseException:
         for job in jobs:
             job.abort()
@@ -304,37 +363,44 @@ def convert_volumes(bases: list[str], *,
             try:
                 if failed or errors:
                     continue
-                with _Timer(stats, "d2h_s"):
-                    out = materialize(parity)
-                # materialize waited on the dispatch's event: the card is
-                # done with both of the slot's buffers
+                # block by block as each position's event fires (one
+                # block off one card), each block's parity on to the
+                # writers before the next is waited for
+                blocks = unit_parity_shards(parity)
+                while True:
+                    with _Timer(stats, "d2h_s"):
+                        blk = next(blocks, None)
+                    if blk is None:
+                        break
+                    a, b, out = blk
+                    touched = []
+                    for rows, (job, shard_off, step) in zip(out,
+                                                            metas[a:b]):
+                        # views of the pinned D2H buffer: each queued row
+                        # keeps it alive until the writer has written it
+                        for i in range(m):
+                            job.parity_flusher.put(k + i, rows[i, :step],
+                                                   shard_off)
+                        job.parity_flusher.account(step)
+                        job.units_drained += 1
+                        if job.drained_all():
+                            job.finalize()
+                        elif job not in touched:
+                            touched.append(job)
+                    # the block's parity goes to the writers now, not at
+                    # the volume's next flush group
+                    for job in touched:
+                        job.parity_flusher.flush()
+                # every block's event has fired: the devices are done
+                # with the slot's buffers
                 pool.put(slot)
                 slot = None
-                touched = []
-                for rows, (job, shard_off, step) in zip(out, metas):
-                    # views of the pinned D2H buffer: each queued row
-                    # keeps it alive until the writer has written it
-                    for i in range(m):
-                        job.parity_flusher.put(k + i, rows[i, :step],
-                                               shard_off)
-                    job.parity_flusher.account(step)
-                    job.units_drained += 1
-                    if job.drained_all():
-                        job.finalize()
-                    elif job not in touched:
-                        touched.append(job)
-                # the batch's parity goes to the writers now, not at the
-                # volume's next flush group
-                for job in touched:
-                    job.parity_flusher.flush()
             except BaseException as e:  # surfaced by the caller's thread
                 errors.append(e)
                 failed = True
             finally:
                 if slot is not None:
-                    if isinstance(parity, Pending) and \
-                            parity.event is not None:
-                        parity.event.synchronize()  # the card may read it
+                    _wait(parity)  # a device may still read the slot
                     pool.put(slot)
 
     t_r = threading.Thread(target=reader, name="fleet-reader", daemon=True)
@@ -365,12 +431,14 @@ def convert_volumes(bases: list[str], *,
                     with _Timer(stats, "encode_s"):
                         parity = dispatch_parity_batch(
                             codec, slot[0][:nu],
-                            staging=None if slot[1] is None
+                            staging=slot[1] if placing or slot[1] is None
                             else slot[1][:nu])
                     q_disp.put((slot, metas, parity))
                 except BaseException:
-                    if stream is not None:
-                        stream.synchronize()  # an H2D may read the slot
+                    if stream is not None:  # an H2D may read the slot
+                        for dev in set(codec.mesh.devices.flat) \
+                                if placing else (device,):
+                            torch.cuda.synchronize(dev)
                     pool.put(slot)
                     raise
     except BaseException as e:  # stops the reader; rolls the run back

@@ -99,8 +99,10 @@ def _get_codec(device=None, tag: str | None = None):
     WEEDTPU_EC_CODEC knob (`codecs.make_codec`): unset or "cuda" runs
     the kernel on `device` ("cuda" or None; raises without a card), or
     the same codec shell over the plain version when `device` is "cpu";
-    "native" the host codec; any other value raises.  No fallback between
-    them."""
+    "native" the host codec; "mesh" RS over the mesh of the positions
+    `device` names (None: every card; a device or a sequence of them,
+    parallel/mesh.py), each position copying its own columns; any other
+    value raises.  No fallback between them."""
     kind = os.environ.get("WEEDTPU_EC_CODEC") or None
     return codecs.make_codec(tag or codecs.DEFAULT_TAG, device, kind)
 
@@ -720,9 +722,12 @@ def _encode_pipelined(codec, dat_fd: int, dat_view: np.ndarray,
         for b in reg_bufs:
             pool.put(b)
     else:
+        # a mesh codec copies each position's columns into buffers of
+        # its own: the slot is the host batch alone
         for _ in range(PIPELINE_DEPTH):
             dev = _device_empty((k, max_step), device) \
-                if device.type == "cuda" else None
+                if device.type == "cuda" and not hasattr(codec, "mesh") \
+                else None
             pool.put((_host_empty((k, max_step), device), dev))
     q_read: queue.Queue = queue.Queue(maxsize=PIPELINE_DEPTH)
     q_disp: queue.Queue = queue.Queue()  # bounded by the pool, and FLUSH

@@ -620,12 +620,13 @@ def test_fleet_drain_flushes_each_batch(tmp_path, monkeypatch):
     batches' D2H), not at the next flush group, and the shards still
     equal write_ec_files'."""
     log: list = []
-    orig_mat = fleet_convert.materialize
+    orig_blocks = fleet_convert.unit_parity_shards
     orig_flush = ec_files._ShardFlusher.flush
 
-    def logged_mat(parity):
-        log.append("d2h")
-        return orig_mat(parity)
+    def logged_blocks(parity):
+        for block in orig_blocks(parity):  # one block: one card
+            log.append("d2h")
+            yield block
 
     def logged_flush(self):
         if any(self._jobs) and threading.current_thread().name == \
@@ -633,7 +634,7 @@ def test_fleet_drain_flushes_each_batch(tmp_path, monkeypatch):
             log.append("flush")
         return orig_flush(self)
 
-    monkeypatch.setattr(fleet_convert, "materialize", logged_mat)
+    monkeypatch.setattr(fleet_convert, "unit_parity_shards", logged_blocks)
     monkeypatch.setattr(ec_files._ShardFlusher, "flush", logged_flush)
     geom = dict(large_block=10_000, small_block=100, batch_size=1000)
     bases = []

@@ -1114,3 +1114,76 @@ def test_cuda_partitioned_peer_reads_reconstruct(card, tmp_path,
     finally:
         faults.clear_net()
         stop()
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_equals_the_cpu_mesh(card, tmp_path):
+    """A 4-position mesh on one card against the same mesh on the CPU:
+    the column encode and rebuild, the shard-placement exchange on
+    (2, 2), the unit fleet, and WEEDTPU_EC_CODEC=mesh's shard files, all
+    byte-equal; one launch per position, nothing staged."""
+    from seaweedfs_tpu_torch.ops import fleet_convert
+    from seaweedfs_tpu_torch.parallel import mesh as pmesh
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    code = rs.get_code(10, 4)
+    g = np.random.default_rng(19)
+    on = {d: [d] * 4 for d in ("cuda:0", "cpu")}
+    data = g.integers(0, 256, (10, 4 * 4096 + 7), dtype=np.uint8)
+    vols = g.integers(0, 256, (4, 10, 2 * 4096), dtype=np.uint8)
+    units = g.integers(0, 256, (4, 10, 3000), dtype=np.uint8)
+    got = {}
+    staged = dict(gf_cuda.STAGED)
+    for d, devs in on.items():
+        enc = pmesh.ShardedRSEncoder(code, pmesh.make_mesh(devices=devs))
+        before = dict(gf_cuda.LAUNCHES)
+        full = enc.encode(data).numpy()
+        surv = {i: full[i] for i in range(14) if i not in (0, 13)}
+        back = enc.reconstruct(surv)
+        place = pmesh.ShardedRSEncoder(
+            code, pmesh.make_mesh(4, ("vol", "col"), shape=(2, 2),
+                                  devices=devs),
+            col_axis="col", vol_axis="vol")
+        placed = place.encode_batch_place(vols)
+        fleet = pmesh.FleetUnitEncoder(code, pmesh.make_mesh(
+            devices=devs, axis_names=("unit",)))
+        par = fleet.encode_parity_batch(fleet.place(units)).numpy()
+        if d.startswith("cuda"):
+            assert gf_cuda.LAUNCHES["gf_apply"] - before["gf_apply"] == 8
+            assert gf_cuda.LAUNCHES["gf_apply_batch"] - \
+                before["gf_apply_batch"] == 8
+            assert [s.data.device.type for s in placed.shards] == \
+                ["cuda"] * 4
+        got[d] = [full, back[0].numpy(), back[13].numpy(),
+                  placed.numpy(), par]
+    assert gf_cuda.STAGED == staged
+    for x, y in zip(got["cuda:0"], got["cpu"]):
+        assert np.array_equal(x, y)
+    assert np.array_equal(got["cpu"][0][10:],
+                          gf.gf_matmul(code.parity_matrix, data))
+    # the mesh EC codec and the unit fleet through the files
+    dat = g.integers(0, 256, 300_000, dtype=np.uint8).tobytes()
+    files = {}
+    old = os.environ.get("WEEDTPU_EC_CODEC")
+    os.environ["WEEDTPU_EC_CODEC"] = "mesh"
+    try:
+        for d, devs in on.items():
+            os.makedirs(tmp_path / d)
+            base = str(tmp_path / d / "1")
+            with open(base + ".dat", "wb") as f:
+                f.write(dat)
+            ec_files.write_ec_files(base, large_block=10_000,
+                                    small_block=100, device=devs)
+            os.remove(base + layout.to_ext(3))
+            ec_files.rebuild_ec_files(base, device=devs)
+            fleet_convert.convert_volumes(
+                [base], large_block=10_000, small_block=100,
+                batch_size=1000, codec=fleet_convert.fleet_codec(
+                    "mesh", device=devs))
+            files[d] = [open(base + layout.to_ext(i), "rb").read()
+                        for i in range(14)]
+    finally:
+        if old is None:
+            os.environ.pop("WEEDTPU_EC_CODEC", None)
+        else:
+            os.environ["WEEDTPU_EC_CODEC"] = old
+    assert files["cuda:0"] == files["cpu"]

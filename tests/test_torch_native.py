@@ -261,7 +261,7 @@ def test_codec_kinds():
                       gf_cuda.CudaRSCodec)
     with pytest.raises(ValueError, match="runs on the CPU"):
         codecs.make_codec("rs_10_4", device="cuda", kind="native")
-    for kind in ("auto", "tpu", "jax", "numpy", "mesh", "cpp", "NATIVE"):
+    for kind in ("auto", "tpu", "jax", "numpy", "cpp", "NATIVE"):
         with pytest.raises(ValueError, match="cuda, native \\(unset"):
             codecs.make_codec("rs_10_4", device="cpu", kind=kind)
 
@@ -597,8 +597,8 @@ def test_native_fleet_equals_reference(tmp_path, monkeypatch):
 
 # ---- knobs, the card, and the dispatch seam ---------------------------------
 
-@pytest.mark.parametrize("value", ["auto", "tpu", "jax", "numpy", "mesh",
-                                   "cpp", "bogus"])
+@pytest.mark.parametrize("value", ["auto", "tpu", "jax", "numpy", "cpp",
+                                   "bogus"])
 def test_codec_knob_takes_only_the_ports_values(monkeypatch, value):
     monkeypatch.setenv("WEEDTPU_EC_CODEC", value)
     with pytest.raises(ValueError, match="cuda, native \\(unset"):

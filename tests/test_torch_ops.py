@@ -92,6 +92,14 @@ def test_import_rule_covers_the_maintenance_slice():
         assert f"seaweedfs_tpu_torch/{rel}" in files, rel
 
 
+def test_import_rule_covers_the_mesh_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/dryrun.py", "ops/dispatch.py",
+                "ops/fleet_convert.py", "ops/codecs.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
 def test_card_path_modules_import_no_server_package():
     """The store, the EC files and the codecs load without aiohttp and
     protobuf: only the server modules import them at module level."""
@@ -101,6 +109,8 @@ def test_card_path_modules_import_no_server_package():
             "import seaweedfs_tpu_torch.stats.trace\n"
             "import seaweedfs_tpu_torch.maintenance.scrub\n"
             "import seaweedfs_tpu_torch.maintenance.faults\n"
+            "import seaweedfs_tpu_torch.parallel.mesh\n"
+            "import seaweedfs_tpu_torch.parallel.dryrun\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('aiohttp', 'jax') or m.startswith('google.protobuf')]\n"
             "assert not bad, bad\n")
@@ -117,8 +127,10 @@ def test_port_path_leaves_jax_unloaded(tmp_path):
     back after losing two data shards and tier another volume out, then
     read a needle of that shard set degraded from a loopback peer through
     PooledHTTP, once plainly and once hedged against the peer's delay,
-    all on the CPU, in a fresh interpreter: neither jax nor the reference
-    package gets imported."""
+    then run the mesh: the multi-device dry run, an encode and rebuild
+    under WEEDTPU_EC_CODEC=mesh and a fleet on a unit mesh, all on the
+    CPU, in a fresh interpreter: neither jax nor the reference package
+    gets imported."""
     code = ("import os, sys, numpy as np, torch\n"
             "os.environ.pop('WEEDTPU_EC_CODEC', None)\n"
             "from seaweedfs_tpu_torch.storage.ec import ec_files, ec_volume\n"
@@ -270,6 +282,23 @@ def test_port_path_leaves_jax_unloaded(tmp_path):
             "time.sleep(0.3)\n"
             "srv.shutdown()\n"
             "pool.close()\n"
+            "from seaweedfs_tpu_torch.parallel import dryrun\n"
+            "dryrun.dryrun_multichip(8, devices=['cpu'] * 8)\n"
+            "cpu4 = ['cpu'] * 4\n"
+            "mb = os.path.join(d, '12')\n"
+            "open(mb + '.dat', 'wb').write(os.urandom(20_000))\n"
+            "os.environ['WEEDTPU_EC_CODEC'] = 'mesh'\n"
+            "ec_files.write_ec_files(mb, large_block=1000, small_block=100, "
+            "device=cpu4)\n"
+            "want = open(mb + '.ec11', 'rb').read()\n"
+            "os.remove(mb + '.ec11')\n"
+            "ec_files.rebuild_ec_files(mb, device=cpu4)\n"
+            "assert open(mb + '.ec11', 'rb').read() == want\n"
+            "os.environ.pop('WEEDTPU_EC_CODEC')\n"
+            "fleet_convert.convert_volumes([mb], large_block=1000, "
+            "small_block=100, codec=fleet_convert.fleet_codec('mesh', "
+            "device=cpu4))\n"
+            "assert open(mb + '.ec11', 'rb').read() == want\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('seaweedfs_tpu.') for m in sys.modules), "
             "sorted(m for m in sys.modules if 'jax' in m)\n")
