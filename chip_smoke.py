@@ -177,9 +177,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                prediction, the hedge counters, rates and latencies, and
                whether aiohttp, google.protobuf and cryptography import
  16 server     two port VolumeServers (A, B) on the card, in process on
-               one event-loop thread, behind a master stand-in taking
-               protobuf heartbeats and answering /dir/lookup and
-               /dir/ec/lookup; driven over loopback HTTP: (1) the
+               one event-loop thread, behind the port's MasterServer
+               (single, no raft, on the same loop) taking their protobuf
+               heartbeats and answering /dir/lookup, /dir/ec/lookup and
+               /dir/status; driven over loopback HTTP: (1) the
                phase-3 volume (a copy taken before phase 14) mounted on
                A with /admin/volume/mount, 256 needles (drawn with
                --seed) read; (2)
@@ -187,7 +188,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                /admin/ec/progress: shards, .ecx and .vif sha256-equal to
                phase 4's, K1 == phase 4's; (3) B pulls 7-13 through A's
                /admin/file, both mount, A drops 7-13 and the volume, the
-               beats show the split; (4) phase 5's losses deleted where
+               master shows the split; (4) phase 5's losses deleted where
                they live, every needle on a lost data shard and 256
                others read from A, B's shards through
                A's shard reader and B's /admin/ec/shard_read (hedging
@@ -200,13 +201,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                -size 1024 -c 16, cut), written then read, 256 deleted;
                1024 writes to a 001 volume on A read back from A and B;
                (8) /metrics on A and B count the blob requests made;
-               the servers start without a scrubber
+               both beat in protobuf (`_wire_pb`) and the master's
+               heartbeat counter rose; the servers start without a
+               scrubber
                (WEEDTPU_SCRUB_MBPS=0); launches zeroed before and read
                after; every line with the card's name and power limit
  17 maintenance four port VolumeServers on the card (R, "a:1" in its
                rack, "c:3" in its data centre, "b:2" in another), in
-               process on one loop thread behind the master stand-in,
-               which also takes /maintenance/scrub_report; scrubbers
+               process on one loop thread behind a master stand-in
+               (beats, lookups and /maintenance/scrub_report: the port's
+               master leaves the report's intake, the repair planner's,
+               to ROADMAP 1.18d); scrubbers
                unthrottled and parked (WEEDTPU_SCRUB_INTERVAL=3600),
                hedging off: (1) /admin/scrub of links of phase 4's
                shard set on R, clean (K1 one per window), then bits of
@@ -237,12 +242,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                before and read after; every line with the card's name
                and power limit
  18 admin      three port VolumeServers (A, B, C) on the card, in
-               process on one loop thread behind the master stand-in,
+               process on one loop thread behind the port's MasterServer
+               (single, no raft),
                the continuous profiler on (WEEDTPU_PROFILE_HZ=49) for
                this phase only: (1) /admin/volume/move of the phase-3
                volume (links of the copy taken before phase 14) A -> B,
                its request sampled: B's .dat sha256 == phase 3's and its
-               CRC32 == the move's, A's copy retired, the beats show it;
+               CRC32 == the move's, A's copy retired, the master shows
+               it;
                64 x 64 KiB needles appended on B and A's replica (a file
                copy of phase 3's) caught up by /admin/volume/copy,
                appended_bytes == B's growth, the tails equal; a move of
@@ -260,7 +267,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                peer_error 100 %: K1 16, B's breaker open; (4)
                /admin/volume/unconvert of phase 4's shard set less
                0/3/10/12: K1 == phase 6's, .dat sha256 == phase 3's, the
-               shard set, .ecx and .vif gone, writable, in the beat; a
+               shard set, .ecx and .vif gone, writable, in the master's
+               /dir/status; a
                one-needle volume of phase 7 through
                /admin/ec/fleet_convert (K2 as its units) and a thaw-only
                unconvert (no launch); (5) tier_move to a local
@@ -287,7 +295,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                shards 2 and 12 of volume 0; (6) dryrun_multichip(8) on 8
                positions; K1 and K2 per step against their prediction;
                launches zeroed before and read after
- 20 report     {"kernels": [...]} line, the card's name and power limit,
+ 20 master     the port's master with raft HA: three MasterServers with
+               peers (raft state under the work directory) on one loop
+               thread, two port VolumeServers A and B on the card on
+               another, given the master list reversed: (1) one leader,
+               named by both followers' /cluster/status, /raft/status on
+               each; (2) A and B in the leader's topology through the
+               follower's 409, beating in protobuf; (3) 256 x 1 KiB
+               through the leader's /dir/assign in two collections, a
+               volume grown on A and on B by /admin/assign_volume, read
+               back; a follower's assign 409 naming the leader; every
+               master's max_volume_id >= the grown vids; (4) links of
+               phase 4's shard set, A 0-6 / B 7-13, mounted, the
+               leader's /dir/ec/lookup equal to the split; (5) the leader
+               stopped: a new leader, A's and B's beats at it, the split
+               again; (6) shards 0 and 3 deleted on A, 256 needles on
+               them (drawn with --seed) read from A at 16 clients,
+               hedging off, B's survivors found through the new leader:
+               K1 == needles, every payload equal; (7) an assign on the
+               new leader grows a volume above every vid grown before,
+               no file key repeated; K1 per step against its
+               prediction; launches zeroed before and read after
+ 21 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -296,7 +325,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12, 13, 14, 15, 16, 17, 18 and 19, so the reported launches are
+around phases 12-20, each on its own, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -304,10 +333,10 @@ a path made the kernel wrapper stage a copy of any input
 and if K2 was not launched.  After phase 13's window, two records: fleet
 against one write_ec_files per volume over the same four volumes (fleet,
 serial, serial, fleet), and rebuild_ec_files of phase 9's single loss;
-then phases 14-18 (phases 16-18 on a copy of the phase-3 volume taken
-before phase 14, whose appends go through links of it; phases 17 and 18
-also on links of phase 4's and (17) 10's shard sets and phase 7's
-volumes).
+then phases 14-20 (phases 16-19 on a copy of the phase-3 volume taken
+before phase 14, whose appends go through links of it; phases 17, 18 and
+20 also on links of phase 4's and (17) 10's shard sets, 17 and 18 on
+phase 7's volumes).
 Needs one CUDA card; exits non-zero without one, and outside a checkout
 of the repository.
 """
@@ -3804,12 +3833,7 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
     return out
 
 
-# phase 16's volume server.  The master stand-in is scaffolding, as phase
-# 9's helpers and phase 15's peers are, until the master comes (ROADMAP
-# 1.18a): it takes /heartbeat in protobuf, decoded with the port's pb,
-# and answers /dir/lookup and /dir/ec/lookup from each node's latest beat,
-# in the reference master's shapes (seaweedfs_tpu/server/master.py
-# handle_lookup, handle_ec_lookup).
+# phase 16's volume server, behind the port's master (single, no raft).
 SERVER_LOSSES = (0, 3, 10, 12)  # phase 5's
 SERVER_A_SHARDS = tuple(range(7))  # the spread: A 0-6, B 7-13
 # upstream's `weed benchmark` defaults (-size 1024 -c 16; SeaweedFS
@@ -3828,12 +3852,18 @@ SERVER_READ_SAMPLE = 256
 
 
 class MasterStandIn:
-    """The master's heartbeat intake, lookups and scrub-report intake, on
-    the servers' loop."""
+    """Phase 17's master: the heartbeat intake, lookups and the
+    scrub-report intake, on the servers' loop.  Scaffolding, as phase 9's
+    helpers and phase 15's peers are: the port's master answers the
+    beats and lookups (phases 16, 18, 20), but its /maintenance/
+    scrub_report is the repair planner's (`RepairPlanner.record_scrub`,
+    seaweedfs_tpu/server/master.py:1322-1333), which comes with ROADMAP
+    1.18d.  It takes /heartbeat in protobuf, decoded with the port's pb,
+    and answers /dir/lookup and /dir/ec/lookup from each node's latest
+    beat, in the reference master's shapes."""
 
     def __init__(self):
         self.beats: dict = {}  # node url -> its latest decoded beat
-        self.framing = {"pb": 0, "json": 0}
         self.scrub_reports: list = []  # phase 17's
 
     def app(self):
@@ -3859,10 +3889,8 @@ class MasterStandIn:
         raw = await req.read()
         if req.headers.get("Content-Type") == pb.CONTENT_TYPE:
             beat = pb.heartbeat_from_bytes(raw)
-            self.framing["pb"] += 1
         else:
             beat = json.loads(raw)
-            self.framing["json"] += 1
         self.beats[beat["url"]] = beat
         return web.json_response({"volume_size_limit": 30 << 30})
 
@@ -3897,6 +3925,19 @@ class MasterStandIn:
         return {u: sorted(s for e in b["ec_shards"] if e["id"] == vid
                           for s in e["shard_ids"])
                 for u, b in sorted(self.beats.items())}
+
+
+def master_split(client, master_url: str, vid: int) -> dict:
+    """A master's /dir/ec/lookup of `vid` as node -> its sorted shard ids
+    ({} while the master knows no such EC volume)."""
+    st, _, raw = client.request(
+        f"http://{master_url}/dir/ec/lookup?volumeId={vid}")
+    split: dict = {}
+    for sid, locs in (json.loads(raw)["shards"].items() if st == 200
+                      else ()):
+        for loc in locs:
+            split.setdefault(loc["url"], []).append(int(sid))
+    return {u: sorted(v) for u, v in sorted(split.items())}
 
 
 def server_latency(ts: list[float]) -> dict:
@@ -3984,18 +4025,22 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
                  encode_k1: int, rebuild_k1: int, seed: int,
                  launches: dict, device=None) -> dict:
     """Phase 16: two port volume servers on the card, in process on one
-    event-loop thread behind a master stand-in, driven over loopback HTTP
-    as the reference shell and clients drive them: mount the phase-3
-    volume, encode it, spread the shards, read degraded, rebuild, decode,
-    small objects, replicated writes, /metrics.  K1 per step held
-    against its prediction, every byte against phases 3, 4 and 6."""
+    event-loop thread behind the port's master (single, no raft, on the
+    same loop), driven over loopback HTTP as the reference shell and
+    clients drive them: mount the phase-3 volume, encode it, spread the
+    shards, read degraded, rebuild, decode, small objects, replicated
+    writes, /metrics.  K1 per step held against its prediction, every
+    byte against phases 3, 4 and 6.  The master's vacuum scan (every
+    minute) never fires here: the phase takes under a minute, and its
+    one volume with deletes holds 256 of 2048 needles deleted (12.5%,
+    under the 0.3 garbage threshold)."""
     import asyncio
 
     import aiohttp
     import numpy as np
-    from aiohttp import web
     from google import protobuf
     from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.stats import metrics
     from seaweedfs_tpu_torch.storage import types as t
     from seaweedfs_tpu_torch.storage.ec import layout
@@ -4029,8 +4074,7 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
     def run(coro):
         return asyncio.run_coroutine_threadsafe(coro, loop).result(600)
 
-    standin = MasterStandIn()
-    runner = None
+    master = None
     servers: list = []
     client = http.PooledHTTP(timeout=120.0, max_idle_per_host=64)
     requests = {"read": 0, "write": 0, "delete": 0}
@@ -4106,11 +4150,19 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
             raise AssertionError(f"phase 16 {name}: K1 launched {got}, "
                                  f"predicted {want}")
 
+    def master_view() -> tuple[dict, bool]:
+        """The master's shard split of the volume, and whether its
+        /dir/status still lists the volume."""
+        nodes = json.loads(call(master.url, "/dir/status")[1])[
+            "Topology"]["nodes"]
+        return (master_split(client, master.url, vid),
+                any(vid in n["volumes"] for n in nodes.values()))
+
     try:
-        mport = free_port()
-        runner = web.AppRunner(standin.app())
-        run(runner.setup())
-        run(web.TCPSite(runner, "127.0.0.1", mport).start())
+        beats0 = metrics.MASTER_RECEIVED_HEARTBEATS.labels().value
+        master = MasterServer("127.0.0.1", free_port())
+        run(master.start())
+        mport = master.port
         for d in dirs:
             # device left at its default (None): the card.  No scrubber:
             # a background pass would launch K1 inside the counted steps
@@ -4216,11 +4268,17 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
         admin(a.url, "/admin/ec/delete_shards", {"volume": vid,
                                                   "shards": moved})
         admin(a.url, "/admin/volume/delete", {"volume": vid})
-        split = standin.ec_split(vid)
-        if split != {a.url: list(SERVER_A_SHARDS), b.url: moved}:
-            raise AssertionError(f"the beats show {split}")
-        if any(v["id"] == vid for v in standin.beats[a.url]["volumes"]):
-            raise AssertionError("A still beats the deleted volume")
+        want = {a.url: list(SERVER_A_SHARDS), b.url: moved}
+        deadline = time.monotonic() + 10
+        while (got := master_view()) != (want, False) and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)  # the next beat
+        split, still = got
+        if split != want:
+            raise AssertionError(f"the master shows {split}")
+        if still:
+            raise AssertionError("the master still lists the deleted "
+                                 "volume")
         k1_step("3 spread", k0, 0)
         copied = sum(os.path.getsize(base_b + layout.to_ext(i))
                      for i in moved)
@@ -4229,7 +4287,7 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
                              "split": split}
         slog(f"3 spread: {copied} B of shards pulled by B through A's "
              f"/admin/file in {dt_copy:.3f} s "
-             f"({copied / dt_copy / 1e9:.3f} GB/s); the beats show A "
+             f"({copied / dt_copy / 1e9:.3f} GB/s); the master shows A "
              f"{split[a.url]}, B {split[b.url]}; K1 0")
 
         # 4 degraded reads: phase 5's losses deleted where they live; A
@@ -4422,21 +4480,25 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
                               "one_shot": one_shot}
         slog(f"8 metrics: /metrics on A and B count {requests} (the "
              f"requests made); responses in one write {one_shot}")
-        if standin.framing["json"]:
-            raise AssertionError(f"beats framed {standin.framing}")
-        out["beats"] = dict(standin.framing)
+        # beats in protobuf: the servers' framing, and the master's count
+        if not all(vs._wire_pb is True for vs in servers):
+            raise AssertionError("a server beat in JSON")
+        out["beats"] = metrics.MASTER_RECEIVED_HEARTBEATS.labels().value - \
+            beats0
+        if out["beats"] <= 0:
+            raise AssertionError("the master counted no heartbeat")
     finally:
         for vs in servers:
             run(vs.stop())
-        if runner is not None:
-            run(runner.cleanup())
+        if master is not None:
+            run(master.stop())
         loop.call_soon_threadsafe(loop.stop)
         loop_thread.join(10)
         client.close()
         shutil.rmtree(work, ignore_errors=True)
     out.update({"steps": steps, "k1": k1, "s": time.perf_counter() - t_phase,
                 "launches": dict(launches)})
-    slog(f"K1 per step {k1}; {standin.framing['pb']} beats, all protobuf; "
+    slog(f"K1 per step {k1}; {out['beats']:.0f} beats, all protobuf; "
          f"phase wall {out['s']:.1f} s")
     return out
 
@@ -5057,7 +5119,9 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
                 blob: bytes, dat_hash: str, phases: dict, srcs: list[str],
                 seed: int, launches: dict, device=None) -> dict:
     """Phase 18: the rest of the volume server on the card, three port
-    servers in process on one loop thread behind the master stand-in,
+    servers in process on one loop thread behind the port's master
+    (single, no raft, on the same loop; its vacuum scan, every minute,
+    does not come round in the phase's ~25 s),
     driven over loopback HTTP as the reference master, autopilot and
     shell drive them: (1) /admin/volume/move of the 1 GiB volume A -> B,
     an incremental /admin/volume/copy of needles appended on B, a move
@@ -5071,10 +5135,10 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
     import asyncio
 
     import numpy as np
-    from aiohttp import web
     from seaweedfs_tpu_torch.maintenance import faults
     from seaweedfs_tpu_torch.ops import fleet_convert
     from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.stats import heat, metrics, profile, trace
     from seaweedfs_tpu_torch.storage import types as t
     from seaweedfs_tpu_torch.storage.ec import layout
@@ -5103,8 +5167,7 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
     def run(coro):
         return asyncio.run_coroutine_threadsafe(coro, loop).result(900)
 
-    standin = MasterStandIn()
-    runner = None
+    master = None
     servers: dict = {}
     client = http.PooledHTTP(timeout=900.0, max_idle_per_host=32)
     steps: dict = {}
@@ -5139,7 +5202,7 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
                                  f"predicted {want}")
 
     def start(name: str) -> None:
-        vs = vsmod.VolumeServer([dirs[name]], f"127.0.0.1:{mport}",
+        vs = vsmod.VolumeServer([dirs[name]], master.url,
                                 "127.0.0.1", free_port(),
                                 heartbeat_interval=1.0, device=device)
         with scoped_env(WEEDTPU_SCRUB_MBPS="0",
@@ -5162,9 +5225,24 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
                                      f"{name} differs (HTTP {st})")
         return time.perf_counter() - t0
 
+    def topo_node(name: str) -> dict:
+        """`name`'s entry in the master's /dir/status."""
+        st, raw = client.request(f"http://{master.url}/dir/status")[::2]
+        if st != 200:
+            raise AssertionError(f"/dir/status: HTTP {st}")
+        return json.loads(raw)["Topology"]["nodes"][servers[name].url]
+
     def in_beat(name: str, v: int) -> dict | None:
-        return next((x for x in standin.beats[servers[name].url]["volumes"]
+        return next((x for x in topo_node(name)["volume_infos"]
                      if x["id"] == v), None)
+
+    def until(pred, what: str) -> None:
+        """Poll the master's view until `pred()` (the next beat)."""
+        deadline = time.monotonic() + 10
+        while not pred():
+            if time.monotonic() > deadline:
+                raise AssertionError(what)
+            time.sleep(0.05)
 
     def place_ec(name: str, v: int, shards) -> str:
         """Links of phase 4's shards `shards`, .ecx and .vif as volume
@@ -5181,10 +5259,8 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
                                replace=False).tolist())
     dat_size = os.path.getsize(server_src + ".dat")
     try:
-        mport = free_port()
-        runner = web.AppRunner(standin.app())
-        run(runner.setup())
-        run(web.TCPSite(runner, "127.0.0.1", mport).start())
+        master = MasterServer("127.0.0.1", free_port())
+        run(master.start())
         for name in ("a", "b", "c"):
             start(name)
         if profile.global_profiler() is None:
@@ -5214,9 +5290,9 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
         if servers["a"].store.get_volume(vid) is not None or \
                 os.path.exists(os.path.join(dirs["a"], f"{vid}.dat")):
             raise AssertionError("A's copy was not retired")
-        if in_beat("a", vid) is not None or in_beat("b", vid) is None or \
-                in_beat("b", vid)["read_only"]:
-            raise AssertionError("the beats do not show the move")
+        until(lambda: in_beat("a", vid) is None and
+              not (in_beat("b", vid) or {}).get("read_only", True),
+              "the master does not show the move")
         dt_read = read_back("b", vid, sample, "moved read")
         step_counts("1a move", k0, 0)
         steps["1a move"] = {"bytes": dat_size, "s": dt_move,
@@ -5226,7 +5302,7 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
         alog(f"1a move: {dat_size} B A -> B through /admin/volume/move in "
              f"{dt_move:.3f} s ({dat_size / dt_move / 1e9:.3f} GB/s, "
              f"staged copy, CRC {reply['crc']} on both sides, finalize); "
-             f"B's .dat sha256 == phase 3's, A's retired, the beats show "
+             f"B's .dat sha256 == phase 3's, A's retired, the master shows "
              f"it; {len(sample)} needles from B; K1 0, K2 0")
 
         # 1b append on B, catch A's replica (a file copy of phase 3's
@@ -5495,17 +5571,15 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
                 if p.startswith(f"{uv}.")]
         if sorted(left) != [f"{uv}.dat", f"{uv}.idx"]:
             raise AssertionError(f"unconvert left {left}")
-        if (in_beat("a", uv) or {}).get("read_only", True) or \
-                any(e["id"] == uv for e in
-                    standin.beats[servers["a"].url]["ec_shards"]):
-            raise AssertionError("the beat does not show the thawed "
-                                 "volume")
+        until(lambda: not (in_beat("a", uv) or {}).get("read_only", True)
+              and not topo_node("a")["ec_shards"].get(str(uv)),
+              "the master does not show the thawed volume")
         read_back("a", uv, sample[::4], "unconverted read")
         steps["4 unconvert"] = {"s": dt, "gbps": dat_size / dt / 1e9}
         alog(f"4 unconvert: shards {list(SERVER_LOSSES)} rebuilt and the "
              f"1 GiB volume decoded in {dt:.3f} s ({dat_size / dt / 1e9:.3f}"
              f" GB/s of .dat); .dat sha256 == phase 3's; shard set, .ecx "
-             f"and .vif gone; writable in the beat; K1 "
+             f"and .vif gone; writable in the master's view; K1 "
              f"{counts['4 unconvert']['gf_apply']} == phase 6's")
 
         # 4b the thaw-only promote: a one-needle volume of phase 7 through
@@ -5659,8 +5733,8 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
         for vs in servers.values():
             run(vs.stop())
         profile.shutdown()
-        if runner is not None:
-            run(runner.cleanup())
+        if master is not None:
+            run(master.stop())
         loop.call_soon_threadsafe(loop.stop)
         loop_thread.join(10)
         client.close()
@@ -5879,6 +5953,408 @@ def phase_mesh(vdir: str, server_src: str, hashes: list[str],
     mlog("launches per step (launched == predicted): " + "; ".join(
         f"{k} {v['launches']}" for k, v in steps.items())
         + f"; phase wall {out['s']:.1f} s")
+    return out
+
+
+# phase 20's master HA: three port masters with raft, two volume servers
+# on the card, a failover under degraded reads.  Phase 4's shard set
+# goes in as MASTER_EC_VID, above any vid the masters grow here.
+MASTER_SMALL = 256  # step 3's objects through the leader's /dir/assign
+MASTER_SMALL_SIZE = 1024
+MASTER_LOST = (0, 3)  # step 6's lost data shards, on A
+MASTER_DEGRADED = 256  # step 6's needles on them, drawn with --seed
+MASTER_EC_VID = 201
+MASTER_BEAT_S = 0.5  # the volume servers' heartbeat interval here
+MASTER_LEADER_S = 15.0  # a leader's deadline, the reference tests'
+
+
+def phase_master(vdir: str, base: str, expect: dict, blob: bytes,
+                 seed: int, launches: dict, device=None) -> dict:
+    """Phase 20: the port's master with raft HA, and a failover under
+    degraded reads on the card.  Three port `MasterServer`s with
+    `peers` (raft state under the work directory) on one loop thread,
+    two port `VolumeServer`s A and B on the card on another, given the
+    master list reversed with the leader moved last, so that they start
+    at a follower: (1) one
+    leader, named by both followers' /cluster/status, /raft/status on
+    each; (2) A and B in the leader's topology (the follower's 409
+    redirect), beating in protobuf; (3) MASTER_SMALL x 1 KiB objects
+    through the leader's /dir/assign in two collections, so the master
+    grows one volume on A and one on B by /admin/assign_volume, read
+    back; a follower's assign answers 409 naming the leader; every
+    master's max_volume_id covers the grown vids (raft); (4) links of
+    phase 4's shard set as MASTER_EC_VID, A 0-6 / B 7-13, mounted, the
+    leader's /dir/ec/lookup equal to that split; (5) the leader stopped:
+    a new leader, A's and B's beats at it, its /dir/ec/lookup the split
+    again; (6) shards 0 and 3 deleted on A, MASTER_DEGRADED needles on
+    them (drawn with --seed) read from A at 16 clients with hedging off,
+    B's survivors found through the new leader: K1 one per needle, every
+    payload equal to phase 3's; (7) one more assign on the new leader
+    that must grow a volume: its vid above every vid grown before the
+    failover, no file key repeated.  K1 and K2 per step held against
+    their prediction; nothing staged."""
+    import asyncio
+
+    import numpy as np
+    from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.stats import metrics
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.utils import http, resilience
+
+    card = card_name_power()
+
+    def mlog(msg: str) -> None:
+        log(f"[master] {msg} [{card}]")
+
+    def free_port() -> int:
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    work = os.path.join(vdir, "master")
+    dirs = {n: os.path.join(work, n) for n in ("a", "b")}
+    for d in dirs.values():
+        os.makedirs(d)
+    loops = []
+
+    def loop_thread():
+        loop = asyncio.new_event_loop()
+        th = threading.Thread(target=loop.run_forever, daemon=True)
+        th.start()
+        loops.append((loop, th))
+        return lambda coro: asyncio.run_coroutine_threadsafe(
+            coro, loop).result(600)
+
+    mrun, vrun = loop_thread(), loop_thread()  # masters', servers'
+    client = http.PooledHTTP(timeout=120.0, max_idle_per_host=32)
+    masters: list = []
+    servers: dict = {}
+    steps: dict = {}
+    counts: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 20)
+
+    def call(url: str, path: str, body=None, method=None, data=None
+             ) -> tuple[int, bytes]:
+        hdrs = {}
+        if body is not None:
+            data = json.dumps(body).encode()
+            hdrs["Content-Type"] = "application/json"
+        st, _, raw = client.request(
+            f"http://{url}{path}",
+            method=method or ("POST" if data is not None else "GET"),
+            body=data, headers=hdrs)
+        return st, raw
+
+    def get_json(url: str, path: str) -> dict:
+        st, raw = call(url, path)
+        if st != 200:
+            raise AssertionError(f"{url}{path}: HTTP {st} {raw[:300]!r}")
+        return json.loads(raw)
+
+    def step_counts(name: str, k0: dict, k1: int) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        want = {"gf_apply": k1, "gf_apply_batch": 0}
+        if got != want:
+            raise AssertionError(f"phase 20 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def until(pred, what: str, timeout: float = MASTER_LEADER_S):
+        deadline = time.monotonic() + timeout
+        while True:
+            got = pred()
+            if got:
+                return got
+            if time.monotonic() > deadline:
+                raise AssertionError(what)
+            time.sleep(0.02)
+
+    def settled(live: list):
+        """The one leader of `live`, once every other's /cluster/status
+        names it (a re-election can move the crown right after one)."""
+        leaders = [m for m in live if m.is_leader]
+        if len(leaders) != 1:
+            return None
+        for m in live:
+            if m is not leaders[0]:
+                st = get_json(m.url, "/cluster/status")
+                if st["IsLeader"] or st["Leader"] != leaders[0].url:
+                    return None
+        return leaders[0]
+
+    def ec_split(m) -> dict:
+        return master_split(client, m.url, MASTER_EC_VID)
+
+    try:
+        # 1 three masters with raft; one leader
+        k0 = dict(launches)
+        ports = [free_port() for _ in range(3)]
+        peers = [f"127.0.0.1:{p}" for p in ports]
+        t0 = time.perf_counter()
+        for p in ports:
+            m = MasterServer("127.0.0.1", p, peers=peers,
+                             raft_state_dir=os.path.join(work, "raft"))
+            mrun(m.start())
+            masters.append(m)
+        leader = until(lambda: settled(masters), "no settled leader")
+        dt_elect = time.perf_counter() - t0
+        raft_st = {m.url: get_json(m.url, "/raft/status") for m in masters}
+        if sorted(st["state"] for st in raft_st.values()) != \
+                ["follower", "follower", "leader"] or \
+                {st["leader"] for st in raft_st.values()} != {leader.url}:
+            raise AssertionError(f"/raft/status: {raft_st}")
+        step_counts("1 elect", k0, 0)
+        steps["1 elect"] = {"s": dt_elect, "leader": leader.url,
+                            "term": raft_st[leader.url]["term"]}
+        mlog(f"1 elect: three masters, {leader.url} leads term "
+             f"{steps['1 elect']['term']} {dt_elect:.3f} s after the "
+             f"first start; both followers' /cluster/status name it; K1 0")
+
+        # 2 two volume servers on the card, given the master list
+        # reversed with the leader moved last: both start at a follower
+        # and reach the leader through its 409
+        k0 = dict(launches)
+        mlist = [p for p in peers[::-1] if p != leader.url] + [leader.url]
+        refused = metrics.HTTP_REQUESTS.labels("master", "internal", "4xx")
+        r0 = refused.value
+        t0 = time.perf_counter()
+        for name in ("a", "b"):
+            vs = vsmod.VolumeServer([dirs[name]], ",".join(mlist),
+                                    "127.0.0.1", free_port(),
+                                    heartbeat_interval=MASTER_BEAT_S,
+                                    device=device)
+            with scoped_env(WEEDTPU_SCRUB_MBPS="0"):
+                vrun(vs.start())
+            servers[name] = vs
+        a, b = servers["a"], servers["b"]
+        until(lambda: {a.url, b.url} <= set(leader.topo.nodes),
+              "A and B never reached the leader")
+        dt_join = time.perf_counter() - t0
+        n409 = refused.value - r0
+        if n409 < 2:
+            raise AssertionError(f"{n409} beats refused by a follower")
+        if not (a._wire_pb is True and b._wire_pb is True):
+            raise AssertionError("a server beat in JSON")
+        step_counts("2 join", k0, 0)
+        steps["2 join"] = {"s": dt_join, "started_at": mlist[0],
+                           "refused": n409, "device": str(a.device)}
+        mlog(f"2 join: A {a.url} and B {b.url} on {a.device}, started at "
+             f"the follower {mlist[0]}: {n409:.0f} beats answered 409, "
+             f"both in the leader's topology {dt_join:.3f} s after their "
+             f"start, beating in protobuf; K1 0")
+
+        # 3 small objects through the leader's /dir/assign, two
+        # collections: a volume grown on each server
+        k0 = dict(launches)
+        payload = rng.bytes(MASTER_SMALL * MASTER_SMALL_SIZE)
+        small: dict = {}  # fid -> (url, bytes)
+        errors: list = []
+        lock = threading.Lock()
+
+        def writer(c: int) -> None:
+            try:
+                for i in range(c, MASTER_SMALL, SERVER_CLIENTS):
+                    col = ("p20a", "p20b")[i % 2]
+                    st, raw = call(leader.url,
+                                   f"/dir/assign?collection={col}")
+                    if st != 200:
+                        raise AssertionError(f"assign: HTTP {st} {raw!r}")
+                    a_ = json.loads(raw)
+                    data = payload[i * MASTER_SMALL_SIZE:
+                                   (i + 1) * MASTER_SMALL_SIZE]
+                    st, _ = call(a_["url"], "/" + a_["fid"], data=data,
+                                 method="PUT")
+                    if st != 201:
+                        raise AssertionError(f"write {a_['fid']}: HTTP {st}")
+                    with lock:
+                        small[a_["fid"]] = (a_["url"], data)
+            except Exception as e:  # surfaced after the join
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=writer, args=(c,))
+                   for c in range(SERVER_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        dt_assign = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        for f, (url, data) in small.items():
+            st, raw = call(url, "/" + f)
+            if st != 200 or raw != data:
+                raise AssertionError(f"small read {f}: HTTP {st}")
+        grown = sorted({int(f.split(",")[0]) for f in small})
+        homes = {int(f.split(",")[0]): url for f, (url, _) in small.items()}
+        if len(small) != MASTER_SMALL or len(grown) != 2 or \
+                set(homes.values()) != {a.url, b.url}:
+            raise AssertionError(f"assigns landed on {homes}")
+        follower = next(m for m in masters if m is not leader)
+        st, raw = call(follower.url, "/dir/assign?collection=p20a")
+        if st != 409 or json.loads(raw) != {"error": "not the leader",
+                                            "leader": leader.url}:
+            raise AssertionError(f"a follower's assign: {st} {raw!r}")
+        until(lambda: all(m.topo.max_volume_id >= grown[-1]
+                          for m in masters),
+              "the grown vids did not replicate", 10)
+        keys = [t.FileId.parse(f).key for f in small]
+        step_counts("3 assign", k0, 0)
+        steps["3 assign"] = {"objects": MASTER_SMALL, "s": dt_assign,
+                             "assigns_per_s": MASTER_SMALL / dt_assign,
+                             "grown": homes}
+        mlog(f"3 assign: {MASTER_SMALL} x {MASTER_SMALL_SIZE} B through the "
+             f"leader's /dir/assign and a PUT each at {SERVER_CLIENTS} "
+             f"clients, {MASTER_SMALL / dt_assign:.1f} assigns/s "
+             f"({dt_assign:.3f} s); volumes {grown} grown on A and B, every "
+             f"byte read back; a follower's assign 409 naming the leader; "
+             f"every master's max_volume_id >= {grown[-1]}; K1 0")
+
+        # 4 phase 4's shard set as MASTER_EC_VID, A 0-6 / B 7-13
+        k0 = dict(launches)
+        split = {a.url: list(SERVER_A_SHARDS),
+                 b.url: [i for i in range(14) if i not in SERVER_A_SHARDS]}
+        for name, vs in servers.items():
+            dst = os.path.join(dirs[name], str(MASTER_EC_VID))
+            for i in split[vs.url]:
+                os.link(base + layout.to_ext(i), dst + layout.to_ext(i))
+            for ext in (".ecx", ".vif"):
+                os.link(base + ext, dst + ext)
+            st, raw = call(vs.url, "/admin/ec/mount",
+                           body={"volume": MASTER_EC_VID})
+            if st != 200:
+                raise AssertionError(f"mount on {name}: HTTP {st} {raw!r}")
+        until(lambda: ec_split(leader) == split,
+              f"the leader shows {ec_split(leader)}", 10)
+        step_counts("4 place", k0, 0)
+        mlog(f"4 place: links of phase 4's shards as volume "
+             f"{MASTER_EC_VID}, A {split[a.url]} / B {split[b.url]}, "
+             f"mounted; the leader's /dir/ec/lookup equals the split; K1 0")
+
+        # 5 failover: the leader stopped
+        k0 = dict(launches)
+        old = leader
+        t0 = time.perf_counter()
+        mrun(old.stop())
+        masters.remove(old)
+        leader = until(lambda: settled(masters), "no new leader")
+        dt_elect2 = time.perf_counter() - t0
+        until(lambda: {a.url, b.url} <= set(leader.topo.nodes)
+              and ec_split(leader) == split,
+              "the servers' beats never reached the new leader")
+        dt_failover = time.perf_counter() - t0
+        if not (a.master_url == b.master_url == leader.url):
+            raise AssertionError(f"A beats {a.master_url}, B "
+                                 f"{b.master_url}: not {leader.url}")
+        step_counts("5 failover", k0, 0)
+        steps["5 failover"] = {"elect_s": dt_elect2, "s": dt_failover,
+                               "old": old.url, "new": leader.url}
+        mlog(f"5 failover: {old.url} stopped; {leader.url} leads "
+             f"{dt_elect2:.3f} s later, A's and B's beats and the split "
+             f"at it {dt_failover:.3f} s after the stop; K1 0")
+
+        # 6 degraded reads from A through the new leader's shard map
+        st, raw = call(a.url, "/admin/ec/delete_shards",
+                       body={"volume": MASTER_EC_VID,
+                             "shards": list(MASTER_LOST)})
+        if st != 200:
+            raise AssertionError(f"delete_shards: HTTP {st} {raw!r}")
+        ev = a.store.get_ec_volume(MASTER_EC_VID)
+        touching = [nid for nid in expect
+                    if any(s in MASTER_LOST for s, _, _ in
+                           intervals(ev, nid))]
+        drawn = sorted(rng.choice(touching, size=min(len(touching),
+                                                     MASTER_DEGRADED),
+                                  replace=False).tolist())
+        resilience.reset_latency_trackers()
+        resilience.reset_breakers()
+        k0 = dict(launches)
+        s0 = ev.read_stats_snapshot()
+        ts: list = [[] for _ in range(SERVER_CLIENTS)]
+
+        def reader(c: int) -> None:
+            try:
+                for nid in drawn[c::SERVER_CLIENTS]:
+                    cookie, lo, hi = expect[nid]
+                    f = str(t.FileId(MASTER_EC_VID, nid, cookie))
+                    t1 = time.perf_counter()
+                    st, raw = call(a.url, "/" + f)
+                    ts[c].append(time.perf_counter() - t1)
+                    if st != 200 or raw != blob[lo:hi]:
+                        raise AssertionError(f"degraded read of {nid}: "
+                                             f"HTTP {st}")
+            except Exception as e:  # surfaced after the join
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        with scoped_env(WEEDTPU_HEDGE_PCT="0"):
+            threads = [threading.Thread(target=reader, args=(c,))
+                       for c in range(SERVER_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        dt = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        grew = {k: v - s0[k] for k, v in ev.read_stats_snapshot().items()}
+        step_counts("6 degraded", k0, len(drawn))
+        if grew["reconstruct_batches"] != len(drawn) or \
+                grew["remote_shard_reads"] <= 0:
+            raise AssertionError(f"read stats {grew}")
+        if a.master_url != leader.url:
+            raise AssertionError("A's lookups went to another master")
+        lat = server_latency([x for c in ts for x in c])
+        steps["6 degraded"] = {"reads": len(drawn), "s": dt,
+                               "reads_per_s": len(drawn) / dt, **lat,
+                               "read_stats": grew}
+        mlog(f"6 degraded: shards {list(MASTER_LOST)} gone on A; "
+             f"{len(drawn)} needles on them from A at {SERVER_CLIENTS} "
+             f"clients, B's survivors found through {leader.url}: "
+             f"{len(drawn) / dt:.1f} GETs/s, p50 {lat['p50_s'] * 1e3:.2f} "
+             f"ms, max {lat['max_s'] * 1e3:.2f} ms, every payload == "
+             f"phase 3's; remote shard reads {grew['remote_shard_reads']}; "
+             f"K1 {counts['6 degraded']['gf_apply']} == needles")
+
+        # 7 a grow on the new leader
+        k0 = dict(launches)
+        st, raw = call(leader.url, "/dir/assign?collection=p20c")
+        if st != 200:
+            raise AssertionError(f"assign after the failover: HTTP {st} "
+                                 f"{raw!r}")
+        late = json.loads(raw)
+        fid = t.FileId.parse(late["fid"])
+        if fid.volume_id <= grown[-1] or fid.key in keys:
+            raise AssertionError(f"after the failover {late['fid']}: vids "
+                                 f"before {grown}, a key repeated")
+        st, _ = call(late["url"], "/" + late["fid"], data=b"after failover",
+                     method="PUT")
+        if st != 201 or call(late["url"], "/" + late["fid"]) != \
+                (200, b"after failover"):
+            raise AssertionError("the write after the failover")
+        step_counts("7 grow", k0, 0)
+        steps["7 grow"] = {"fid": late["fid"], "before": grown}
+        mlog(f"7 grow: the new leader grew volume {fid.volume_id} (before "
+             f"the failover: {grown}), key {fid.key:x} new among "
+             f"{len(keys) + 1}; K1 0")
+    finally:
+        for vs in servers.values():
+            vrun(vs.stop())
+        for m in masters:
+            mrun(m.stop())
+        for loop, th in loops:
+            loop.call_soon_threadsafe(loop.stop)
+            th.join(10)
+        client.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "steps": steps, "counts": counts,
+           "s": time.perf_counter() - t_phase}
+    k1 = {k: v["gf_apply"] for k, v in counts.items()}
+    mlog(f"K1 per step {k1}; phase wall {out['s']:.1f} s")
     return out
 
 
@@ -6248,10 +6724,24 @@ def main(argv=None) -> int:
             f"{staged}")
         path_launches = {k: path_launches[k] + mesh_launches[k]
                          for k in path_launches}
+
+        # 20 the master with raft and a failover, counted on its own
+        gf_cuda.reset_launches()
+        phases["master"] = phase_master(vdir, base, expect, blob, args.seed,
+                                        launches)
+        master_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the master phase made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        log(f"[path] phase 20: launches {master_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + master_launches[k]
+                         for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 20 report
+    # 21 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -334,6 +334,17 @@ DEADLINE_TIMEOUTS = REGISTRY.counter(
     "weedtpu_deadline_timeouts_total",
     "requests aborted with 504 by an expired deadline budget",
     ("server",))
+# the master's own families (server/master.py; stats/metrics.go:
+# MasterReceivedHeartbeatCounter)
+MASTER_RECEIVED_HEARTBEATS = REGISTRY.counter(
+    "weedtpu_master_received_heartbeats_total",
+    "Heartbeats received by master")
+MASTER_ASSIGN_COUNTER = REGISTRY.counter(
+    "weedtpu_master_assign_total", "fid assignments", ("collection",))
+# the lookup fan-in the gateway vid caches absorb
+MASTER_LOOKUPS = REGISTRY.counter(
+    "weedtpu_master_lookup_total", "/dir/lookup requests served by the "
+    "master — the fan-in the gateway vid caches absorb")
 # the volume server's own families (server/volume_server.py)
 VOLUME_REQUEST_COUNTER = REGISTRY.counter(
     "weedtpu_volume_request_total", "volume server requests", ("type",))

@@ -402,12 +402,16 @@ def inflight() -> list[dict]:
 
 # -- aiohttp server glue ------------------------------------------------
 
-def aiohttp_middleware(role: str):
+def aiohttp_middleware(role: str, slow_exempt: tuple = (),
+                       region: str = ""):
     """Server-side half of the propagation: extract X-Weedtpu-Trace (or
     make a root sampling decision), register the request in the in-flight
     table, and on completion record the root span -- always for sampled
     requests, retroactively for unsampled ones that finished slow or
-    errored (with a slow-request log line either way).  Client
+    errored (with a slow-request log line either way).  `slow_exempt`
+    lists long-poll paths (the master's /cluster/stream) whose lifetime
+    is their duration: they are never slow.  `region`, when set, is
+    stamped on every span (the master's geo federation).  Client
     disconnects (CancelledError) are neither slow nor errored.
 
     The caller's X-Weedtpu-Class/-Role headers and its tenant
@@ -541,11 +545,14 @@ def aiohttp_middleware(role: str):
             if not cancelled:
                 metrics.HTTP_REQUESTS.labels(
                     role, op, f"{status // 100}xx").inc()
-            slow = ms >= slow_ms() and not cancelled
+            slow = ms >= slow_ms() and not cancelled and \
+                req.path not in slow_exempt
             errored = status >= 500 and not cancelled
             if t is not None and t.sampled:
                 attrs = {"method": req.method, "path": req.path,
                          "status": status, "server": role}
+                if region:
+                    attrs["region"] = region
                 if cancelled:
                     attrs["cancelled"] = True
                 if timed_out:
@@ -561,6 +568,8 @@ def aiohttp_middleware(role: str):
                 retro_attrs = {"method": req.method, "path": req.path,
                                "status": status, "server": role,
                                "retro": True}
+                if region:
+                    retro_attrs["region"] = region
                 if timed_out:
                     retro_attrs["op"] = "timeout"
                 record_span(f"{role}.request", retro.trace_id,

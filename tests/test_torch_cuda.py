@@ -1187,3 +1187,77 @@ def test_cuda_mesh_equals_the_cpu_mesh(card, tmp_path):
         else:
             os.environ["WEEDTPU_EC_CODEC"] = old
     assert files["cuda:0"] == files["cpu"]
+
+
+@pytest.mark.cuda
+def test_cuda_server_subcommand_defaults_to_the_card(card, tmp_path):
+    """`python -m seaweedfs_tpu_torch server` without `-device`: its
+    volume server's codecs run on the card.  An encode through the
+    master's assign and the server's /admin/ec/generate is booked under
+    the device type, `weedtpu_ec_encode_bytes_total{codec="cuda"}`."""
+    import json
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def call(url, path, data=None, method=None):
+        req = urllib.request.Request(
+            f"http://{url}{path}", data=data,
+            method=method or ("POST" if data is not None else "GET"),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.read()
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    mport, vport = free_port(), free_port()
+    master, vs = f"127.0.0.1:{mport}", f"127.0.0.1:{vport}"
+    env = dict(os.environ, PYTHONPATH=str(repo), WEEDTPU_SCRUB_MBPS="0")
+    env.pop("WEEDTPU_EC_CODEC", None)
+    (tmp_path / "d").mkdir()
+    log = open(tmp_path / "server.log", "wb")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "-dir",
+         str(tmp_path / "d"), "-port", str(mport), "-volumePort",
+         str(vport), "-mdir", str(tmp_path / "m")], cwd=str(repo), env=env,
+        stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.time() + 120
+        nodes = {}
+        while time.time() < deadline and not nodes:
+            assert p.poll() is None, (tmp_path / "server.log").read_text()
+            try:
+                nodes = json.loads(call(master, "/dir/status"))[
+                    "Topology"]["nodes"]
+            except OSError:
+                time.sleep(0.2)
+        assert list(nodes) == [vs]
+        a = json.loads(call(master, "/dir/assign"))
+        vid = int(a["fid"].split(",")[0])
+        g = np.random.default_rng(4)
+        blob = g.bytes(200_000)
+        call(a["url"], "/" + a["fid"], blob, "PUT")
+        call(vs, "/admin/volume/readonly",
+             json.dumps({"volume": vid}).encode())
+        reply = json.loads(call(vs, "/admin/ec/generate",
+                                json.dumps({"volume": vid}).encode()))
+        assert reply["shards"] == list(range(14))
+        text = call(vs, "/metrics").decode()
+        booked = [ln for ln in text.splitlines() if ln.startswith(
+            'weedtpu_ec_encode_bytes_total{codec="cuda"}')]
+        assert booked and float(booked[0].split()[-1]) > 0, text[-2000:]
+        assert 'weedtpu_ec_encode_bytes_total{codec="cpu"}' not in text
+    finally:
+        p.terminate()
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=10)
