@@ -178,7 +178,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                whether aiohttp, google.protobuf and cryptography import
  16 server     two port VolumeServers (A, B) on the card, in process on
                one event-loop thread, behind the port's MasterServer
-               (single, no raft, on the same loop) taking their protobuf
+               (single, no raft, on the same loop, its canary off:
+               WEEDTPU_CANARY_INTERVAL=0, so no probe launches K1
+               outside the steps) taking their protobuf
                heartbeats and answering /dir/lookup, /dir/ec/lookup and
                /dir/status; driven over loopback HTTP: (1) the
                phase-3 volume (a copy taken before phase 14) mounted on
@@ -243,7 +245,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                and power limit
  18 admin      three port VolumeServers (A, B, C) on the card, in
                process on one loop thread behind the port's MasterServer
-               (single, no raft),
+               (single, no raft, its canary off),
                the continuous profiler on (WEEDTPU_PROFILE_HZ=49) for
                this phase only: (1) /admin/volume/move of the phase-3
                volume (links of the copy taken before phase 14) A -> B,
@@ -296,7 +298,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                positions; K1 and K2 per step against their prediction;
                launches zeroed before and read after
  20 master     the port's master with raft HA: three MasterServers with
-               peers (raft state under the work directory) on one loop
+               peers (canaries off; raft state under the work
+               directory) on one loop
                thread, two port VolumeServers A and B on the card on
                another, given the master list reversed: (1) one leader,
                named by both followers' /cluster/status, /raft/status on
@@ -316,7 +319,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                new leader grows a volume above every vid grown before,
                no file key repeated; K1 per step against its
                prediction; launches zeroed before and read after
- 21 report     {"kernels": [...]} line, the card's name and power limit,
+ 21 planes     the port's master with its planes (aggregator, SLOs,
+               history, alerts, interference and the scrub governor, the
+               canary, the loop monitor) on one loop thread, two port
+               VolumeServers A and B on the card on another, linking
+               phase 4's shard set A 0-6 / B 7-13, scrubbers at 64 MB/s
+               passing only on request, every tick driven by the phase
+               (WEEDTPU_AGG_INTERVAL=0, WEEDTPU_CANARY_INTERVAL=0):
+               (1) /cluster/metrics?refresh=1 federates A's and B's
+               families under their node labels, scrape ages finite;
+               (2) 16 canary rounds of the blob and degraded probes,
+               all ok, K1 one per degraded probe, /cluster/canary and
+               /cluster/slo ok; (3) /cluster/trace of the last degraded
+               probe: one waterfall with canary.degraded,
+               volume.probe_read and the reconstruct, pinned; (4)
+               /cluster/perf merges the servers' payloads once, the
+               card's reconstruct row calls == the phase's K1; (5)
+               scrape ticks, /cluster/history of the canary counter in
+               aligned points, an alert on the degraded probe's latency
+               firing under delay_shard_read and clearing without it;
+               (6) shards 0 and 3 deleted on A; a quiet tick and a busy
+               one (B's shard reads delayed, scrub bytes booked): the
+               scrub index over the governor's target, the governed
+               rate pushed to A's and B's scrubbers, one /admin/scrub
+               pass on A at that rate (K1 one per window, no faster
+               than 0.9 x bytes / rate), quiet ticks ramping it back;
+               (7) /cluster/loops, /cluster/dashboard, /cluster/heat,
+               the routes left out answering 404; K1 per step against
+               its prediction, K2 0; launches zeroed before and read
+               after; every line with the card's name and power limit
+ 22 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -325,7 +357,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12-20, each on its own, so the reported launches are
+around phases 12-21, each on its own, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -333,10 +365,10 @@ a path made the kernel wrapper stage a copy of any input
 and if K2 was not launched.  After phase 13's window, two records: fleet
 against one write_ec_files per volume over the same four volumes (fleet,
 serial, serial, fleet), and rebuild_ec_files of phase 9's single loss;
-then phases 14-20 (phases 16-19 on a copy of the phase-3 volume taken
-before phase 14, whose appends go through links of it; phases 17, 18 and
-20 also on links of phase 4's and (17) 10's shard sets, 17 and 18 on
-phase 7's volumes).
+then phases 14-21 (phases 16-19 on a copy of the phase-3 volume taken
+before phase 14, whose appends go through links of it; phases 17, 18,
+20 and 21 also on links of phase 4's and (17) 10's shard sets, 17 and
+18 on phase 7's volumes).
 Needs one CUDA card; exits non-zero without one, and outside a checkout
 of the repository.
 """
@@ -4160,8 +4192,11 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
 
     try:
         beats0 = metrics.MASTER_RECEIVED_HEARTBEATS.labels().value
-        master = MasterServer("127.0.0.1", free_port())
-        run(master.start())
+        # no canary: its blob and degraded probes would write and launch
+        # K1 at times no step predicts
+        with scoped_env(WEEDTPU_CANARY_INTERVAL="0"):
+            master = MasterServer("127.0.0.1", free_port())
+            run(master.start())
         mport = master.port
         for d in dirs:
             # device left at its default (None): the card.  No scrubber:
@@ -5259,8 +5294,10 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
                                replace=False).tolist())
     dat_size = os.path.getsize(server_src + ".dat")
     try:
-        master = MasterServer("127.0.0.1", free_port())
-        run(master.start())
+        # no canary: its probes would launch K1 at times no step predicts
+        with scoped_env(WEEDTPU_CANARY_INTERVAL="0"):
+            master = MasterServer("127.0.0.1", free_port())
+            run(master.start())
         for name in ("a", "b", "c"):
             start(name)
         if profile.global_profiler() is None:
@@ -6096,9 +6133,12 @@ def phase_master(vdir: str, base: str, expect: dict, blob: bytes,
         peers = [f"127.0.0.1:{p}" for p in ports]
         t0 = time.perf_counter()
         for p in ports:
-            m = MasterServer("127.0.0.1", p, peers=peers,
-                             raft_state_dir=os.path.join(work, "raft"))
-            mrun(m.start())
+            # no canary: its probes would launch K1 at times no step
+            # predicts
+            with scoped_env(WEEDTPU_CANARY_INTERVAL="0"):
+                m = MasterServer("127.0.0.1", p, peers=peers,
+                                 raft_state_dir=os.path.join(work, "raft"))
+                mrun(m.start())
             masters.append(m)
         leader = until(lambda: settled(masters), "no settled leader")
         dt_elect = time.perf_counter() - t0
@@ -6355,6 +6395,549 @@ def phase_master(vdir: str, base: str, expect: dict, blob: bytes,
            "s": time.perf_counter() - t_phase}
     k1 = {k: v["gf_apply"] for k, v in counts.items()}
     mlog(f"K1 per step {k1}; phase wall {out['s']:.1f} s")
+    return out
+
+
+# phase 21's cluster: the port's master with its planes, A and B on the card
+PLANES_VID = 211  # phase 4's shard set, A 0-6 / B 7-13
+PLANES_SCRUB_VID = 212  # the rated pass's small shard sets: 212, 213, ...
+PLANES_MBPS = 64.0  # the scrubbers' configured rate, the governor's ceiling
+PLANES_SMALL = 19 * MIB // 2  # the small set's .dat: one stripe row
+PLANES_CANARY = 16  # step 2's canary rounds
+PLANES_HISTORY = 3  # step 5's probes, a scrape tick after each
+PLANES_DELAY_MS = 300  # steps 5 and 6: delay_shard_read
+# step 5's alert: a degraded probe's latency, summed over the nodes that
+# expose the process's one registry (the master, A and B): a delayed
+# probe takes >= 0.3 s (x3), an undelayed one tens of ms
+PLANES_SLOW_S = 0.6
+PLANES_TICK_READS = 8  # step 6's degraded GETs per tick, one client
+PLANES_BOOKED = 64 * MIB  # step 6's scrub-class bytes, booked
+PLANES_SCRUB_S = 3.0  # the rated pass's least seconds at its rate
+PLANES_NODE_TIMEOUT = 4.0  # the expire loop ticks every 2 s
+PLANES_RECOVERY_TICKS = 60
+
+
+def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
+                 seed: int, launches: dict, device=None) -> dict:
+    """Phase 21: the port's master with its planes (ROADMAP 1.18c) over
+    two card servers.  One port `MasterServer` on a loop thread, two
+    port `VolumeServer`s A and B on the card on another, linking phase
+    4's shard set as PLANES_VID, A 0-6 / B 7-13; the phase drives every
+    tick itself (WEEDTPU_AGG_INTERVAL=0: ?refresh=1 scrapes;
+    WEEDTPU_CANARY_INTERVAL=0: `run_once`); scrubbers at PLANES_MBPS
+    that pass only on request (WEEDTPU_SCRUB_INTERVAL=3600), hedging
+    off, one alert rule on the degraded probe's latency.  Set-up encodes
+    a small shard set for step 6 (K1 its units).  Steps: (1) federate;
+    (2) PLANES_CANARY canary rounds of the blob and degraded probes, K1
+    one per degraded probe (its read has a reconstruction cache of its
+    own); (3) the last degraded probe's stitched waterfall; (4)
+    /cluster/perf; (5) history and the alert under delay_shard_read;
+    (6) shards 0 and 3 deleted on A, a quiet and a busy tick of degraded
+    GETs from A (B's shard reads delayed, scrub-class bytes booked with
+    `netflow.account`, not read), the governed rate on A's and B's
+    scrubbers, one /admin/scrub pass on A at that rate over small shard
+    sets sized to take PLANES_SCRUB_S or more (K1 one per window), quiet
+    ticks ramping the rate back; (7) /cluster/loops, the dashboard,
+    /cluster/heat and the routes left out.  K1 and K2 per step held
+    against their prediction; nothing staged."""
+    import asyncio
+    import math
+
+    import numpy as np
+    from seaweedfs_tpu_torch.maintenance import scrub
+    from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.server.master import LEFT_OUT, MasterServer
+    from seaweedfs_tpu_torch.stats import heat, metrics, netflow, trace
+    from seaweedfs_tpu_torch.stats.aggregate import parse_exposition
+    from seaweedfs_tpu_torch.stats.profile import KERNELS
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    from seaweedfs_tpu_torch.utils import http, resilience
+
+    card = card_name_power()
+
+    def plog(msg: str) -> None:
+        log(f"[planes] {msg} [{card}]")
+
+    def free_port() -> int:
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    work = os.path.join(vdir, "planes")
+    dirs = {n: os.path.join(work, n) for n in ("a", "b", "small")}
+    for d in dirs.values():
+        os.makedirs(d)
+    loops = []
+
+    def loop_thread():
+        loop = asyncio.new_event_loop()
+        th = threading.Thread(target=loop.run_forever, daemon=True)
+        th.start()
+        loops.append((loop, th))
+        return lambda coro: asyncio.run_coroutine_threadsafe(
+            coro, loop).result(600)
+
+    mrun, vrun = loop_thread(), loop_thread()  # the master's, servers'
+    client = http.PooledHTTP(timeout=120.0, max_idle_per_host=8)
+    master = None
+    servers: dict = {}
+    steps: dict = {}
+    counts: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 21)
+    rule = ("canary_slow=threshold,series=weedtpu_canary_probe_seconds_sum,"
+            f"label.path=degraded,agg=last,window=60,op=gt,"
+            f"value={PLANES_SLOW_S},for=0,clear_for=0")
+    env = scoped_env(
+        WEEDTPU_AGG_INTERVAL="0", WEEDTPU_CANARY_INTERVAL="0",
+        WEEDTPU_SCRUB_MBPS=str(PLANES_MBPS), WEEDTPU_SCRUB_INTERVAL="3600",
+        WEEDTPU_HEDGE_PCT="0",
+        WEEDTPU_INTERF_MIN_SAMPLES=str(PLANES_TICK_READS // 2),
+        WEEDTPU_ALERT_RULES=rule)
+
+    def call(url: str, path: str, body=None) -> tuple[int, bytes]:
+        hdrs = {}
+        data = None
+        if body is not None:
+            data = json.dumps(body).encode()
+            hdrs["Content-Type"] = "application/json"
+        st, _, raw = client.request(
+            f"http://{url}{path}", method="POST" if data else "GET",
+            body=data, headers=hdrs)
+        return st, raw
+
+    def get_json(url: str, path: str, body=None) -> dict:
+        st, raw = call(url, path, body)
+        if st != 200:
+            raise AssertionError(f"{url}{path}: HTTP {st} {raw[:300]!r}")
+        return json.loads(raw)
+
+    def step_counts(name: str, k0: dict, k1: int) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        want = {"gf_apply": k1, "gf_apply_batch": 0}
+        if got != want:
+            raise AssertionError(f"phase 21 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def until(pred, what: str, timeout: float = 15.0):
+        deadline = time.monotonic() + timeout
+        while True:
+            got = pred()
+            if got:
+                return got
+            if time.monotonic() > deadline:
+                raise AssertionError(what)
+            time.sleep(0.02)
+
+    def fault(vs, ms: int) -> None:
+        get_json(vs.url, "/admin/faults", {"faults": [
+            {"action": "delay_shard_read", "ms": ms}]})
+
+    def place(vs, vid: int, src: str, shards) -> None:
+        dst = os.path.join(vs.store.locations[0].directory, str(vid))
+        for i in shards:
+            os.link(src + layout.to_ext(i), dst + layout.to_ext(i))
+        for ext in (".ecx", ".vif"):
+            os.link(src + ext, dst + ext)
+        get_json(vs.url, "/admin/ec/mount", {"volume": vid})
+
+    def tick(view: str = "alerts") -> dict:
+        """One scrape of the aggregator, through a ?refresh=1 view."""
+        return get_json(master.url, f"/cluster/{view}?refresh=1")
+
+    try:
+        with env:
+            # 0 set-up: the small shard set (one stripe row), the master,
+            # A and B, phase 4's set linked A 0-6 / B 7-13
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            small_dat, _, _ = build_volume(dirs["small"], seed + 21,
+                                           PLANES_SMALL)
+            sbase = small_dat[:-len(".dat")]
+            ec_files.write_ec_files(sbase, device=device)
+            ec_files.write_sorted_ecx(sbase + ".idx")
+            small_units = predict_units(os.path.getsize(small_dat),
+                                        layout.LARGE_BLOCK_SIZE,
+                                        layout.SMALL_BLOCK_SIZE)
+            small_shard = os.path.getsize(sbase + layout.to_ext(0))
+            master = MasterServer("127.0.0.1", free_port(),
+                                  node_timeout=PLANES_NODE_TIMEOUT)
+            # the vacuum scan would compact the canary's blob volume
+            master.vacuum_enabled = False
+            mrun(master.start())
+            for name in ("a", "b"):
+                vs = vsmod.VolumeServer([dirs[name]], master.url,
+                                        "127.0.0.1", free_port(),
+                                        heartbeat_interval=0.5,
+                                        device=device)
+                vrun(vs.start())
+                servers[name] = vs
+            a, b = servers["a"], servers["b"]
+            split = {a.url: list(SERVER_A_SHARDS),
+                     b.url: [i for i in range(14)
+                             if i not in SERVER_A_SHARDS]}
+            place(a, PLANES_VID, base, split[a.url])
+            place(b, PLANES_VID, base, split[b.url])
+            until(lambda: master_split(client, master.url,
+                                       PLANES_VID) == split,
+                  "the master never showed the split")
+            step_counts("0 setup", k0, small_units)
+            KERNELS.reset()  # step 4 reads the reconstructs from here on
+            plog(f"0 setup: master {master.url}, A {a.url} and B {b.url} on "
+                 f"{a.device}, scrubbers at {a.scrubber.mbps} MB/s every "
+                 f"{a.scrubber.interval:.0f} s; phase 4's set as "
+                 f"{PLANES_VID}, A {split[a.url]} / B {split[b.url]}; a "
+                 f"{os.path.getsize(small_dat)} B volume encoded for step "
+                 f"6 ({small_shard} B shards), K1 {small_units}; "
+                 f"{time.perf_counter() - t0:.3f} s")
+
+            # 1 federate
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            st, raw = call(master.url, "/cluster/metrics?refresh=1")
+            dt = time.perf_counter() - t0
+            fams = parse_exposition(raw.decode())
+            nodes = {lab.get("node") for f in fams.values()
+                     for _, lab, _ in f["samples"]}
+            ages = {lab["node"]: v for _, lab, v in
+                    fams["weedtpu_agg_scrape_age_seconds"]["samples"]}
+            for vs in (a, b):
+                if not any(lab.get("node") == vs.url and
+                           lab.get("vs") == vs.url for _, lab, _ in
+                           fams["weedtpu_disk_bytes"]["samples"]):
+                    raise AssertionError(f"no disk gauges of {vs.url}")
+            if st != 200 or not {a.url, b.url, master.url} <= nodes or \
+                    not all(math.isfinite(ages.get(u, math.inf))
+                            for u in (a.url, b.url, master.url)):
+                raise AssertionError(f"/cluster/metrics: HTTP {st}, nodes "
+                                     f"{nodes}, ages {ages}")
+            step_counts("1 federate", k0, 0)
+            steps["1 federate"] = {"s": dt, "families": len(fams),
+                                   "ages": ages}
+            plog(f"1 federate: /cluster/metrics?refresh=1 in {dt:.3f} s, "
+                 f"{len(fams)} families under node labels {sorted(nodes)}; "
+                 f"A's and B's disk gauges each under its own node; scrape "
+                 f"ages {ages}; K1 0")
+
+            # 2 canary rounds
+            k0 = dict(launches)
+            probes = metrics.CANARY_PROBES
+            keys = [(p, c) for p in ("blob", "degraded")
+                    for c in ("2xx", "5xx")]
+            c0 = {k: probes.labels(*k).value for k in keys}
+            t0 = time.perf_counter()
+            for _ in range(PLANES_CANARY):
+                st = mrun(master.canary.run_once(("blob", "degraded")))
+                bad = {p: r for p, r in st["paths"].items()
+                       if r["outcome"] != "ok"}
+                if bad:
+                    raise AssertionError(f"canary: {bad}")
+            dt = time.perf_counter() - t0
+            grew = {k: probes.labels(*k).value - c0[k] for k in keys}
+            if grew != {("blob", "2xx"): PLANES_CANARY,
+                        ("blob", "5xx"): 0,
+                        ("degraded", "2xx"): PLANES_CANARY,
+                        ("degraded", "5xx"): 0}:
+                raise AssertionError(f"canary probes counted {grew}")
+            step_counts("2 canary", k0, PLANES_CANARY)
+            view = get_json(master.url, "/cluster/canary")
+            slo = tick("slo")
+            canary_rule = next(r for r in slo["rules"]
+                               if r["name"] == "canary_availability")
+            if slo["state"] != "ok" or canary_rule["state"] != "ok" or \
+                    view["paths"]["degraded"]["samples"] != PLANES_CANARY:
+                raise AssertionError(f"/cluster/slo {slo['state']}, "
+                                     f"canary {canary_rule}")
+            deg, blb = view["paths"]["degraded"], view["paths"]["blob"]
+            steps["2 canary"] = {"s": dt, "rounds": PLANES_CANARY,
+                                 "degraded_p50_ms": deg["p50_ms"],
+                                 "degraded_p99_ms": deg["p99_ms"],
+                                 "blob_p50_ms": blb["p50_ms"],
+                                 "blob_p99_ms": blb["p99_ms"]}
+            plog(f"2 canary: {PLANES_CANARY} rounds of the blob and "
+                 f"degraded probes in {dt:.3f} s, every probe ok; degraded "
+                 f"p50 {deg['p50_ms']:.2f} ms, p99 {deg['p99_ms']:.2f} ms; "
+                 f"blob p50 {blb['p50_ms']:.2f} ms; /cluster/canary and "
+                 f"/cluster/slo ok; K1 {PLANES_CANARY}, one per degraded "
+                 f"probe")
+
+            # 3 the last degraded probe's waterfall
+            k0 = dict(launches)
+            tid = deg["trace_id"]
+            t0 = time.perf_counter()
+            wf = get_json(master.url, f"/cluster/trace/{tid}")
+            dt = time.perf_counter() - t0
+            names = sorted({s["name"] for s in wf["spans"]})
+            want = {"canary.degraded", "volume.probe_read",
+                    "ec.reconstruct_batch", "codec.reconstruct"}
+            if not want <= set(names) or "volume" not in wf["servers"] or \
+                    tid not in trace.pinned_ids():
+                raise AssertionError(f"waterfall {names}, servers "
+                                     f"{wf['servers']}")
+            for vs in (a, b):
+                if not get_json(vs.url, f"/debug/traces?tid={tid}")[
+                        "traces"]:
+                    raise AssertionError(f"{vs.url} lost trace {tid}")
+            step_counts("3 stitch", k0, 0)
+            steps["3 stitch"] = {"s": dt, "spans": len(wf["spans"]),
+                                 "names": names}
+            plog(f"3 stitch: /cluster/trace/{tid} in {dt:.3f} s, one "
+                 f"waterfall of {len(wf['spans'])} spans ({', '.join(names)}"
+                 f"), servers {wf['servers']}; pinned, and in A's and B's "
+                 f"/debug/traces (one process, one ring); K1 0")
+
+            # 4 the fleet's perf view
+            k0 = dict(launches)
+            perf = get_json(master.url, "/cluster/perf")
+            rows = [r for r in perf["roofline"]
+                    if r["kernel"] == "reconstruct"]
+            calls = KERNELS.snapshot().get("reconstruct[device]",
+                                           {}).get("calls", 0)
+            if perf["nodes"] != [master.url] or calls != PLANES_CANARY or \
+                    perf["codecs"]["volumes"].get(str(PLANES_VID)) != \
+                    "rs_10_4":
+                raise AssertionError(f"/cluster/perf nodes {perf['nodes']}, "
+                                     f"reconstruct[device] calls {calls}, "
+                                     f"codecs {perf['codecs']}")
+            step_counts("4 perf", k0, 0)
+            steps["4 perf"] = {"reconstruct_calls": calls,
+                               "reconstruct_rows": rows}
+            plog(f"4 perf: /cluster/perf merges the master's, A's and B's "
+                 f"payloads once (one process, one tracker: nodes "
+                 f"{perf['nodes']}); reconstruct[device] calls {calls} == "
+                 f"K1 since step 1; roofline rows of reconstruct {rows}; "
+                 f"codec of {PLANES_VID} rs_10_4; K1 0")
+
+            # 5 history and the alert
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            tick()
+            for _ in range(PLANES_HISTORY):
+                mrun(master.canary.run_once(("degraded",)))
+                tick()
+            hist = get_json(master.url, "/cluster/history?series="
+                            "weedtpu_canary_probes_total&labels=path="
+                            "degraded,class=2xx&range=120&step=1&agg=sum")
+            pts = hist["vectors"][0]["points"] if hist["vectors"] else []
+            n_nodes = len(master.aggregator.per_node)
+            total = sum(v for _, v in pts if v is not None)
+            if len(pts) != 120 or any(q[0] - p[0] != 1.0 for p, q in
+                                      zip(pts, pts[1:])) or \
+                    total != PLANES_HISTORY * n_nodes:
+                raise AssertionError(f"/cluster/history: {hist}")
+            for vs in (a, b):
+                fault(vs, PLANES_DELAY_MS)
+            st = mrun(master.canary.run_once(("degraded",)))
+            slow = st["paths"]["degraded"]
+            firing = next(r for r in tick()["rules"]
+                          if r["name"] == "canary_slow")
+            for vs in (a, b):
+                fault(vs, 0)
+            st = mrun(master.canary.run_once(("degraded",)))
+            fast = st["paths"]["degraded"]
+            cleared = next(r for r in tick()["rules"]
+                           if r["name"] == "canary_slow")
+            dt = time.perf_counter() - t0
+            group = firing["groups"][0] if firing["groups"] else {}
+            if firing["state"] != "firing" or cleared["state"] != "ok" or \
+                    group.get("exemplar") != slow["trace_id"] or \
+                    slow["outcome"] != "ok" or fast["outcome"] != "ok":
+                raise AssertionError(f"alert: firing {firing}, cleared "
+                                     f"{cleared}, probes {slow} {fast}")
+            step_counts("5 history", k0, PLANES_HISTORY + 2)
+            steps["5 history"] = {"s": dt, "points": len(pts),
+                                  "probes_summed": total,
+                                  "slow_ms": slow["ms"],
+                                  "fast_ms": fast["ms"],
+                                  "alert_value": group.get("value")}
+            plog(f"5 history: {PLANES_HISTORY} degraded probes, a scrape "
+                 f"tick after each; /cluster/history of the probe counter: "
+                 f"{len(pts)} points 1 s apart summing to {total:.0f} "
+                 f"({PLANES_HISTORY} probes x {n_nodes} nodes exposing the "
+                 f"one registry); delay_shard_read {PLANES_DELAY_MS} ms on A "
+                 f"and B: the probe took {slow['ms']:.1f} ms and canary_slow "
+                 f"fired at {group.get('value')} s (> {PLANES_SLOW_S}), its "
+                 f"exemplar the probe's trace; lifted: {fast['ms']:.1f} ms "
+                 f"and it cleared; {dt:.3f} s; K1 {PLANES_HISTORY + 2}")
+
+            # 6 govern the scrub rate
+            get_json(a.url, "/admin/ec/delete_shards",
+                     {"volume": PLANES_VID, "shards": list(MASTER_LOST)})
+            ev = a.store.get_ec_volume(PLANES_VID)
+            touching = [nid for nid in expect
+                        if any(s in MASTER_LOST for s, _, _ in
+                               intervals(ev, nid))]
+            drawn = rng.choice(touching, size=2 * PLANES_TICK_READS,
+                               replace=False).tolist()
+            resilience.reset_latency_trackers()
+            resilience.reset_breakers()
+            k0 = dict(launches)
+            t_step = time.perf_counter()
+
+            def reads(nids) -> list:
+                out = []
+                for nid in nids:
+                    cookie, lo, hi = expect[nid]
+                    t1 = time.perf_counter()
+                    st, raw = call(a.url, "/" + str(
+                        t.FileId(PLANES_VID, nid, cookie)))
+                    out.append(time.perf_counter() - t1)
+                    if st != 200 or raw != blob[lo:hi]:
+                        raise AssertionError(f"degraded read of {nid}: "
+                                             f"HTTP {st}")
+                return out
+
+            quiet_s = reads(drawn[:PLANES_TICK_READS])
+            quiet = tick("interference")
+            node_a = quiet["interference"]["nodes"][a.url]
+            fault(b, PLANES_DELAY_MS)
+            netflow.account("recv", "scrub", "volume", PLANES_BOOKED)
+            busy_s = reads(drawn[PLANES_TICK_READS:])
+            busy = tick("interference")
+            fault(b, 0)
+            itf = busy["interference"]["classes"].get("scrub", {})
+            gov = busy["governor"]
+            rate = gov["targets"]["scrub"]["rate"]
+            down = [d for d in gov["decisions"]
+                    if d["target"] == "scrub" and d["direction"] == "down"]
+            governed = {n: vs.scrubber.mbps for n, vs in servers.items()}
+            if node_a["quiet_p99_ms"] is None or \
+                    itf.get("index", 0.0) <= gov["target_index"] or \
+                    sorted(gov["targets"]) != ["scrub"] or \
+                    not rate < PLANES_MBPS or not down or \
+                    any(abs(m - rate) > 1e-3 for m in governed.values()):
+                raise AssertionError(f"governor: quiet {node_a}, index "
+                                     f"{itf}, {gov}, scrubbers {governed}")
+            # the rated pass: phase 4's set off A (its windows lack shards
+            # and would pace the pass for nothing), small sets on
+            get_json(a.url, "/admin/ec/unmount", {"volume": PLANES_VID})
+            per_vol = 14 * small_shard
+            n_sets = max(1, math.ceil(PLANES_SCRUB_S * rate * 1e6 / per_vol))
+            vids = [PLANES_SCRUB_VID + i for i in range(n_sets)]
+            for vid in vids:
+                place(a, vid, sbase, range(14))
+            W = scrub.DEFAULT_WINDOW  # the servers': no WEEDTPU_SCRUB_WINDOW
+            windows = n_sets * -(-small_shard // W)
+            k1 = dict(launches)
+            t0 = time.perf_counter()
+            passed = get_json(a.url, "/admin/scrub", {})
+            dt_scrub = time.perf_counter() - t0
+            got_k1 = launches["gf_apply"] - k1["gf_apply"]
+            res = [passed["volumes"][str(v)] for v in vids]
+            floor = 0.9 * passed["bytes"] / (rate * 1e6)
+            if dt_scrub < floor or got_k1 != windows or \
+                    sum(r["windows"] for r in res) != windows or \
+                    any(r["corrupt"] or r["windows_skipped"] for r in res):
+                raise AssertionError(f"rated scrub: {dt_scrub:.3f} s "
+                                     f"against {floor:.3f}, K1 {got_k1} "
+                                     f"of {windows}: {passed}")
+            for vid in vids:
+                get_json(a.url, "/admin/ec/unmount", {"volume": vid})
+                for ext in [layout.to_ext(i) for i in range(14)] + [
+                        ".ecx", ".vif"]:
+                    os.remove(os.path.join(dirs["a"], str(vid)) + ext)
+            get_json(a.url, "/admin/ec/mount", {"volume": PLANES_VID})
+            # quiet ticks: the index decays, the rate ramps back
+            rates = [rate]
+            for _ in range(PLANES_RECOVERY_TICKS):
+                st = tick("interference")
+                rates.append(st["governor"]["targets"]["scrub"]["rate"])
+                if rates[-1] >= PLANES_MBPS:
+                    break
+            ups = [d for d in st["governor"]["decisions"]
+                   if d["target"] == "scrub" and d["direction"] == "up"]
+            if not ups or rates[-1] <= rate or \
+                    abs(a.scrubber.mbps - rates[-1]) > 1e-3:
+                raise AssertionError(f"no recovery: rates {rates}")
+            dt = time.perf_counter() - t_step
+            step_counts("6 govern", k0, 2 * PLANES_TICK_READS + windows)
+            steps["6 govern"] = {
+                "s": dt, "quiet_p99_ms": node_a["quiet_p99_ms"],
+                "quiet_read_s": server_latency(quiet_s),
+                "busy_read_s": server_latency(busy_s),
+                "index": itf.get("index"), "rate_mbps": rate,
+                "scrub_bytes": passed["bytes"], "scrub_sets": n_sets,
+                "scrub_s": dt_scrub, "floor_s": floor,
+                "scrub_mbps": passed["bytes"] / dt_scrub / 1e6,
+                "windows": windows, "recovery_ticks": len(rates) - 1,
+                "recovered_mbps": rates[-1]}
+            lat_q, lat_b = server_latency(quiet_s), server_latency(busy_s)
+            plog(f"6 govern: shards {list(MASTER_LOST)} gone on A; quiet "
+                 f"tick: {PLANES_TICK_READS} degraded GETs from A, p50 "
+                 f"{lat_q['p50_s'] * 1e3:.1f} ms, A's quiet p99 "
+                 f"{node_a['quiet_p99_ms']} ms; busy tick: B's shard reads "
+                 f"delayed {PLANES_DELAY_MS} ms and {PLANES_BOOKED} B of "
+                 f"scrub class booked (netflow.account, not read), "
+                 f"{PLANES_TICK_READS} GETs p50 {lat_b['p50_s'] * 1e3:.1f} "
+                 f"ms: scrub index {itf.get('index')} over the target "
+                 f"{gov['target_index']}, the governor {PLANES_MBPS} -> "
+                 f"{rate} MB/s, pushed: A {governed['a']}, B "
+                 f"{governed['b']} MB/s; /admin/scrub on A over {n_sets} "
+                 f"links of the small set: {passed['bytes']} B in "
+                 f"{dt_scrub:.3f} s ({passed['bytes'] / dt_scrub / 1e6:.3f} "
+                 f"MB/s; floor {floor:.3f} s), K1 {windows}, one per window; "
+                 f"{len(rates) - 1} quiet ticks back to {rates[-1]} MB/s "
+                 f"(A's scrubber {a.scrubber.mbps}); {dt:.3f} s; K1 "
+                 f"{2 * PLANES_TICK_READS + windows}")
+
+            # 7 operator views
+            k0 = dict(launches)
+            lp = tick("loops")
+            want = {"expire", "aggregator", "history_record", "forecast",
+                    "alerts", "interference", "governor", "canary"}
+            bad = {n: r for n, r in lp["loops"].items() if r["errors"]}
+            if not want <= set(lp["loops"]) or bad:
+                raise AssertionError(f"/cluster/loops {sorted(lp['loops'])}"
+                                     f", errors {bad}")
+            st, raw = call(master.url, "/cluster/dashboard")
+            if st != 200 or raw.count(b"<svg") < 5:
+                raise AssertionError(f"/cluster/dashboard: HTTP {st}")
+            hv = tick("heat")
+            alone = heat.merge_serialized([heat.serialize()])
+            top = {e["key"]: e for e in hv["volumes"]["top"]}
+            one = {e["key"]: e for e in alone["volumes"]["top"]}
+            vol = top.get(str(PLANES_VID), {})
+            if hv["nodes"] != sorted([master.url, a.url, b.url]) or \
+                    vol.get("degraded", 0) <= 0 or \
+                    abs(vol["est"] - one[str(PLANES_VID)]["est"]) > \
+                    0.01 * vol["est"]:
+                raise AssertionError(f"/cluster/heat {hv}")
+            refused = {}
+            for path in LEFT_OUT:
+                refused[path] = call(master.url,
+                                     path.replace("{tid}", "ab" * 16))[0]
+            if set(refused.values()) != {404}:
+                raise AssertionError(f"left-out routes answered {refused}")
+            step_counts("7 views", k0, 0)
+            steps["7 views"] = {"loops": {n: {k: r[k] for k in (
+                "ticks", "wall_ema", "wall_max", "errors")}
+                for n, r in lp["loops"].items()},
+                "headline": lp["headline"], "subsystems": lp["subsystems"],
+                "heat_est": vol["est"]}
+            plog(f"7 views: /cluster/loops {sorted(lp['loops'])}, no error, "
+                 f"{lp['headline']}; subsystems {lp['subsystems']}; the "
+                 f"dashboard's {raw.count(b'<svg')} sparklines; /cluster/"
+                 f"heat of {hv['nodes']}: volume {PLANES_VID} est "
+                 f"{vol['est']} (one tracker merged once: {one[str(PLANES_VID)]['est']}), "
+                 f"degraded {vol['degraded']}; {len(LEFT_OUT)} routes left "
+                 f"out answer 404; K1 0")
+    finally:
+        for vs in servers.values():
+            vrun(vs.stop())
+        if master is not None:
+            mrun(master.stop())
+        for loop, th in loops:
+            loop.call_soon_threadsafe(loop.stop)
+            th.join(10)
+        client.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "steps": steps, "counts": counts,
+           "s": time.perf_counter() - t_phase}
+    k1 = {k: v["gf_apply"] for k, v in counts.items()}
+    plog(f"K1 per step {k1}; phase wall {out['s']:.1f} s")
     return out
 
 
@@ -6738,10 +7321,24 @@ def main(argv=None) -> int:
             f"{staged}")
         path_launches = {k: path_launches[k] + master_launches[k]
                          for k in path_launches}
+
+        # 21 the master's planes over two card servers, counted on its own
+        gf_cuda.reset_launches()
+        phases["planes"] = phase_planes(vdir, base, expect, blob, args.seed,
+                                        launches)
+        planes_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the planes phase made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        log(f"[path] phase 21: launches {planes_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + planes_launches[k]
+                         for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 21 report
+    # 22 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -13,23 +13,40 @@ KeepConnected vid-map push) and the shell's exclusive admin lock
 allocations, and a follower answers the client routes with a 409 that
 names the leader.
 
-The master has no device: it keeps soft state and routes requests.  Its
-volume servers run the kernels.
+The master's planes (`stats/`) ride on it: the loop monitor, the metrics
+aggregator with its SLO engine (/cluster/metrics, /cluster/slo), the
+history store, alerts and the capacity forecaster (/cluster/history,
+/cluster/alerts, /cluster/dashboard), the interference observatory and
+its governor of the fleet's scrub rate (/cluster/interference), the
+canary prober (/cluster/canary), the fleet views that fan out to every
+node (/cluster/heat, /cluster/perf, /cluster/trace/{tid},
+/cluster/traces) and /cluster/loops.  Each scrape of the aggregator
+runs the observers in the reference's order: history, forecast,
+alerts, interference, governor, accounting.  WEEDTPU_AGG_INTERVAL and
+WEEDTPU_CANARY_INTERVAL set the two background loops (<= 0: driven on
+demand); every knob of the planes is read at construction, and a
+malformed one raises before the socket binds.
 
-Left out until the modules that serve them are ported (ROADMAP 1.18c,
-1.18d): the routes of `LEFT_OUT`, which answer 404, and the planes
-behind them (the repair planner, the conversion scheduler, the loop
-monitor, the metrics aggregator, history, alerts, the capacity
-forecaster, the autopilot, the interference governor and the canary).
+The master has no device: it keeps soft state and routes requests.  Its
+volume servers run the kernels; the canary's degraded probe and the
+governed scrub passes launch them there.
+
+Left out until the modules that serve them are ported: the routes of
+`LEFT_OUT`, which answer 404 (the repair planner, the conversion
+scheduler and the autopilot, ROADMAP 1.18d; the geo-replication view,
+1.22).  Without them the governor governs the scrub rate alone, and
+/cluster/slo reads no health ledger.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import json
 import logging
 import os
 import secrets
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -40,29 +57,29 @@ from aiohttp import web
 
 from seaweedfs_tpu_torch import pb
 from seaweedfs_tpu_torch.maintenance import faults
+from seaweedfs_tpu_torch.ops import codec_tags
 from seaweedfs_tpu_torch.security import tls
 from seaweedfs_tpu_torch.security.jwt import gen_jwt
 from seaweedfs_tpu_torch.server import ui
-from seaweedfs_tpu_torch.stats import (heat, metrics, netflow, pipeline,
-                                       profile, trace)
+from seaweedfs_tpu_torch.stats import (aggregate, canary, heat, history,
+                                       interference, loops, metrics,
+                                       netflow, pipeline, profile, trace)
 from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.topology.raft import RaftConfig, RaftNode
 from seaweedfs_tpu_torch.topology.sequence import SnowflakeSequencer
 from seaweedfs_tpu_torch.topology.topology import Topology, VolumeState
+from seaweedfs_tpu_torch.utils import fanout, weedlog
 from seaweedfs_tpu_torch.utils.http import aiohttp_trace_config
+from seaweedfs_tpu_torch.utils.resilience import env_switch
 
 log = logging.getLogger("master")
 
-# the reference master's routes that come with its planes: the
-# maintenance plane (ROADMAP 1.18d) and the observability planes (1.18c)
+# the reference master's routes that come with planes not ported yet:
+# the maintenance plane and the autopilot (ROADMAP 1.18d), the
+# geo-replication view (1.22)
 LEFT_OUT = (
     "/maintenance/status", "/maintenance/scrub_report", "/maintenance/tick",
-    "/maintenance/convert",
-    "/cluster/metrics", "/cluster/slo", "/cluster/heat", "/cluster/perf",
-    "/cluster/trace/{tid}", "/cluster/traces", "/cluster/canary",
-    "/cluster/history", "/cluster/interference", "/cluster/autopilot",
-    "/cluster/alerts", "/cluster/loops", "/cluster/dashboard",
-    "/cluster/geo",
+    "/maintenance/convert", "/cluster/autopilot", "/cluster/geo",
 )
 
 
@@ -147,6 +164,19 @@ class MasterServer:
             web.get("/metrics", self.handle_metrics),
             web.get("/heat", heat.handle_heat),
             web.get("/perf", pipeline.handle_perf),
+            web.get("/cluster/metrics", self.handle_cluster_metrics),
+            web.get("/cluster/slo", self.handle_cluster_slo),
+            web.get("/cluster/heat", self.handle_cluster_heat),
+            web.get("/cluster/perf", self.handle_cluster_perf),
+            web.get("/cluster/trace/{tid}", self.handle_cluster_trace),
+            web.get("/cluster/traces", self.handle_cluster_traces),
+            web.get("/cluster/canary", self.handle_cluster_canary),
+            web.get("/cluster/history", self.handle_cluster_history),
+            web.get("/cluster/interference",
+                    self.handle_cluster_interference),
+            web.get("/cluster/alerts", self.handle_cluster_alerts),
+            web.get("/cluster/loops", self.handle_cluster_loops),
+            web.get("/cluster/dashboard", self.handle_cluster_dashboard),
             web.get("/", self.handle_ui),
         ])
         netflow.install(self.app, "master")
@@ -165,6 +195,62 @@ class MasterServer:
         self._grow_lock = asyncio.Lock()
         self._admin_lock: tuple[str, str, float] | None = None  # (token, owner, ts)
         self._expire_task: asyncio.Task | None = None
+        # the planes' 0/1 switches are re-read live by their loops: read
+        # them once here too, so that a malformed one raises before the
+        # socket binds (the other knobs are read by the constructors)
+        for knob in ("WEEDTPU_HISTORY", "WEEDTPU_INTERFERENCE",
+                     "WEEDTPU_GOVERNOR"):
+            env_switch(knob)
+        fanout.pool_cap()
+        canary.canary_interval()
+        # control-plane observatory (stats/loops.py): every background
+        # loop below ticks through this monitor; constructed first
+        # because the aggregator and the observer stages report into it
+        self.loops = loops.LoopMonitor()
+        # fleet /metrics federation and the SLO burn-rate engine
+        # (stats/aggregate.py): every known node's exposition over
+        # PooledHTTP, this master's own registry read directly
+        self.aggregator = aggregate.ClusterAggregator(
+            self._agg_nodes, local=(self.url, metrics.REGISTRY),
+            monitor=self.loops)
+        # historical telemetry (stats/history.py): every scrape lands in
+        # the fixed-memory store, then the forecaster re-regresses fill
+        # rates and the alert engine re-evaluates, all on the
+        # aggregator's thread
+        self.history = history.HistoryStore()
+        self.alerts = history.AlertEngine(self.history,
+                                          pin_fn=trace.pin_trace)
+        self.forecaster = history.CapacityForecaster(self.history)
+        # interference (stats/interference.py): the per-node foreground
+        # impact index rides the same observer seam, and the governor
+        # retunes the fleet's scrub rate off it right after
+        self.interference = interference.InterferenceObservatory()
+        self.governor = interference.Governor(self, self.interference)
+        self.aggregator.observers.append(self._on_scrape)
+        # the canary (stats/canary.py): probes through every data path,
+        # each under a pinned trace, feeding the canary SLO rule
+        self.canary = canary.CanaryProber(self)
+        # live-entry counts of every stateful subsystem, stamped as
+        # weedtpu_subsystem_entries on each scrape and on /cluster/loops
+        self.loops.add_cardinality(
+            "registry_series", metrics.REGISTRY.series_count)
+        self.loops.add_cardinality(
+            "history_series", self.history.series_count)
+        self.loops.add_cardinality(
+            "history_node_baselines", lambda: len(self.history._prev))
+        self.loops.add_cardinality(
+            "alert_groups", lambda: sum(
+                len(st) for st in self.alerts._state.values()))
+        self.loops.add_cardinality(
+            "interference_nodes", lambda: len(self.interference._nodes))
+        self.loops.add_cardinality(
+            "heat_entries", lambda: sum(
+                len(sk.entries) for sk in heat.TRACKER._top.values()))
+        self.loops.add_cardinality(
+            "pinned_traces", lambda: len(trace.pinned_ids()))
+        # workload heat: the last fleet-merged /cluster/heat view (ts, dict)
+        self._heat_cache: tuple[float, dict] | None = None
+        self._heat_lock = threading.Lock()
 
     # -- lifecycle -----------------------------------------------------
 
@@ -188,6 +274,8 @@ class MasterServer:
         faults.register_node(self.url, "master")
         if self.region:
             faults.register_region(self.url, self.region)
+        self.aggregator.start()
+        self.canary.start()  # WEEDTPU_CANARY_INTERVAL <= 0 disables
         if self.raft:
             self.raft.start()
         log.info("master listening on %s", self.url)
@@ -195,12 +283,16 @@ class MasterServer:
     async def stop(self) -> None:
         if self.raft:
             self.raft.stop()
+        self.canary.stop()
         if self._expire_task:
             self._expire_task.cancel()
         # wake /cluster/stream subscribers so their handlers return and
         # runner.cleanup() doesn't wait out its shutdown timeout on them
         for q in list(self._vid_subscribers):
             q.put_nowait(None)
+        await asyncio.to_thread(self.aggregator.stop)
+        self.interference.close()
+        self.loops.close()
         if self._session:
             await self._session.close()
         if self._runner:
@@ -316,20 +408,24 @@ class MasterServer:
         interval = min(5.0, self.node_timeout / 2)
         while True:
             await asyncio.sleep(interval)
-            for nid in self.topo.expire_dead_nodes(self.node_timeout):
-                log.warning("volume server %s expired from topology", nid)
-            now = time.time()
-            for members in self.cluster_members.values():
-                for addr in [a for a, ts in members.items()
-                             if now - ts > 30]:
-                    del members[addr]
-            tick += 1
-            if tick % 12 == 0:  # every minute: vacuum scan
-                try:
-                    if self.vacuum_enabled:
-                        await self._vacuum_scan(self.garbage_threshold)
-                except Exception:
-                    log.warning("vacuum scan failed", exc_info=True)
+            with self.loops.tick("expire", interval=interval) as lt:
+                dead = self.topo.expire_dead_nodes(self.node_timeout)
+                lt.items = len(dead)
+                for nid in dead:
+                    log.warning("volume server %s expired from topology",
+                                nid)
+                now = time.time()
+                for members in self.cluster_members.values():
+                    for addr in [a for a, ts in members.items()
+                                 if now - ts > 30]:
+                        del members[addr]
+                tick += 1
+                if tick % 12 == 0:  # every minute: vacuum scan
+                    try:
+                        if self.vacuum_enabled:
+                            await self._vacuum_scan(self.garbage_threshold)
+                    except Exception:
+                        log.warning("vacuum scan failed", exc_info=True)
 
     async def _vacuum_scan(self, threshold: float) -> int:
         """Master-driven compaction: scan volumes whose garbage ratio
@@ -388,6 +484,463 @@ class MasterServer:
         epoch = max(prev + 1, time.time_ns())
         self._mq_epochs[key] = epoch
         return web.json_response({"epoch": epoch})
+
+    # -- the planes' scrape observer ------------------------------------
+
+    def _on_scrape(self, ts: float, per_node: dict) -> None:
+        """Aggregator scrape observer: record the tick into history, then
+        forecast, evaluate alerts, observe interference and retune the
+        governor over the updated store, then stamp the subsystems'
+        sizes (the aggregator's thread; each stage is independent, so
+        one failing must not starve the others).  Every stage ticks the
+        loop monitor with the aggregator's interval."""
+        iv = self.aggregator.interval
+        iv = iv if iv > 0 else None
+        try:
+            with self.loops.tick("history_record", interval=iv) as lt:
+                lt.items = len(per_node)
+                self.history.record(ts, per_node)
+                lt.backlog = self.history.series_count()
+        except Exception:
+            log.warning("history record failed", exc_info=True)
+        try:
+            with self.loops.tick("forecast", interval=iv):
+                self.forecaster.update(
+                    ts, volume_size_limit=self.topo.volume_size_limit)
+        except Exception:
+            log.warning("capacity forecast failed", exc_info=True)
+        try:
+            with self.loops.tick("alerts", interval=iv) as lt:
+                self.alerts.evaluate(ts)
+                lt.backlog = sum(
+                    len(st) for st in self.alerts._state.values())
+        except Exception:
+            log.warning("alert evaluation failed", exc_info=True)
+        try:
+            with self.loops.tick("interference", interval=iv) as lt:
+                lt.items = len(per_node)
+                self.interference.observe(ts, per_node)
+        except Exception as e:
+            weedlog.warning("interference observe failed: %s", e,
+                            name="interference", exc_info=True)
+        try:
+            with self.loops.tick("governor", interval=iv):
+                self.governor.tick(ts)
+        except Exception as e:
+            weedlog.warning("governor tick failed: %s", e,
+                            name="governor", exc_info=True)
+        try:
+            self.loops.refresh_accounting()
+        except Exception:
+            log.warning("loop accounting refresh failed", exc_info=True)
+
+    # -- historical telemetry, interference, alerts, loops ---------------
+
+    async def _refresh(self, what: str) -> None:
+        """One scrape tick before answering (?refresh=1), off the loop:
+        the scrape pulls every node's /metrics, this process's servers'
+        included."""
+        try:
+            await asyncio.to_thread(self.aggregator.scrape_once)
+        except Exception:
+            log.warning("%s refresh pull failed", what, exc_info=True)
+
+    async def handle_cluster_history(self, req: web.Request
+                                     ) -> web.Response:
+        """/cluster/history?series=&labels=&range=&step=&agg=: aligned
+        range vectors out of the history store.  ``labels`` is ``k=v``
+        comma-separated; ``agg`` one of min/max/last/sum/avg/rate or pNN
+        (histogram quantile over time); ``range``/``step`` in seconds.
+        ?refresh=1 scrapes (and so records) once first.  Loopback only:
+        it names nodes, data dirs and trace ids."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        series = req.query.get("series", "").strip()
+        if not series:
+            return web.json_response(
+                {"error": "series required", "status": self.history.status()},
+                status=400)
+        labels: dict[str, str] = {}
+        for part in req.query.get("labels", "").split(","):
+            k, sep, v = part.partition("=")
+            if sep and k.strip():
+                labels[k.strip()] = v.strip()
+        try:
+            range_s = float(req.query.get("range", "600"))
+            step = float(req.query.get("step", "0")) or None
+        except ValueError:
+            return web.json_response({"error": "bad range/step"},
+                                     status=400)
+        if req.query.get("refresh"):
+            await self._refresh("history")
+        agg = req.query.get("agg") or None
+        result = await asyncio.to_thread(
+            self.history.query, series, labels, range_s, step, agg)
+        return web.json_response(result)
+
+    async def handle_cluster_interference(self, req: web.Request
+                                          ) -> web.Response:
+        """/cluster/interference: the per-node foreground-impact index
+        and the governor's rates and retune decisions with their pinned
+        trace ids.  ?refresh=1 runs one scrape tick first, which observes
+        the fresh deltas and re-ticks the governor.  Loopback only."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        if req.query.get("refresh"):
+            await self._refresh("interference")
+        return web.json_response({
+            "interference": self.interference.snapshot(),
+            "governor": self.governor.status()})
+
+    async def handle_cluster_alerts(self, req: web.Request
+                                    ) -> web.Response:
+        """/cluster/alerts: each rule's state per label group (ok,
+        pending, firing, with hysteresis timestamps and pinned exemplar
+        trace ids).  ?refresh=1 runs a scrape tick first.  Loopback
+        only."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        if req.query.get("refresh"):
+            await self._refresh("alerts")
+        elif self.aggregator.interval > 0 and \
+                time.time() - self.alerts.last_eval > \
+                max(3 * self.aggregator.interval, 5.0):
+            # the rule watching for a dead federation plane must not
+            # share its failure domain: a stale last_eval means the
+            # aggregator stopped ticking, so evaluate on read
+            await asyncio.to_thread(self.alerts.evaluate)
+        return web.json_response(self.alerts.status())
+
+    async def handle_cluster_loops(self, req: web.Request
+                                   ) -> web.Response:
+        """/cluster/loops: per-loop tick wall and CPU seconds, items,
+        backlog, overruns and last error for every master loop, plus
+        the subsystems' live entry counts.  ?refresh=1 runs a scrape
+        tick first.  Loopback only: errors can name nodes and paths."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        if req.query.get("refresh"):
+            await self._refresh("loops")
+        st = await asyncio.to_thread(self.loops.status)
+        st["headline"] = self.loops.headline()
+        return web.json_response(st)
+
+    async def handle_cluster_dashboard(self, req: web.Request
+                                       ) -> web.Response:
+        """/cluster/dashboard: a self-contained HTML page of SLOs,
+        alerts, canary latency, net-flow classes and capacity forecasts
+        as inline SVG sparklines from the history store.  Loopback
+        only."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        html = await asyncio.to_thread(history.render_dashboard, self)
+        return web.Response(text=html, content_type="text/html")
+
+    # -- fleet fan-out: federation targets, traces, heat, perf -----------
+
+    def _agg_nodes(self) -> dict[str, str]:
+        """Every node the aggregator pulls /metrics from: volume servers
+        from the topology, filers, gateways and brokers from the member
+        registry (fresh within /cluster/status's 30 s horizon)."""
+        nodes: dict[str, str] = {}
+        with self.topo._lock:
+            for n in self.topo.nodes.values():
+                nodes[n.url] = n.url
+        horizon = time.time() - 30.0
+        for members in self.cluster_members.values():
+            for addr, ts in members.items():
+                if ts > horizon:
+                    nodes.setdefault(addr, addr)
+        return nodes
+
+    def _fan_debug_traces(self, query: str
+                          ) -> tuple[list[tuple[str, list[dict]]],
+                                     dict[str, str]]:
+        """GET /debug/traces?{query} from every known node ->
+        ([(node, traces)], {node: error}): a trace is better partial
+        than absent, but a refusing node is still reported."""
+        out: list[tuple[str, list[dict]]] = []
+        errors: dict[str, str] = {}
+        for name, traces_, err in self._fan_get(
+                f"/debug/traces?{query}", "trace-pull",
+                lambda body: json.loads(body).get("traces", [])):
+            out.append((name, traces_ or []))
+            if err is not None:
+                errors[name] = err
+        return out, errors
+
+    def _fan_get(self, path_qs: str, pool_name: str, parse
+                 ) -> list[tuple[str, object, str | None]]:
+        """GET `path_qs` from every known node over the aggregator's
+        (thread-safe) PooledHTTP, fanned out so that a few partitioned
+        nodes cost the max, not the sum, of their timeouts ->
+        [(node, parsed or None, error or None)] in node order.  Errors
+        are reported, not swallowed."""
+        nodes = self._agg_nodes()
+
+        def pull(item):
+            name, netloc = item
+            try:
+                status, _, body = self.aggregator.pool.request(
+                    f"{tls.scheme()}://{netloc}{path_qs}", timeout=5.0)
+                if status != 200:
+                    return name, None, f"HTTP {status}"
+                return name, parse(body), None
+            except Exception as e:
+                return name, None, str(e) or type(e).__name__
+
+        if not nodes:
+            return []
+        with concurrent.futures.ThreadPoolExecutor(
+                fanout.workers(len(nodes)), pool_name) as ex:
+            return list(ex.map(pull, sorted(nodes.items())))
+
+    def collect_heat(self) -> dict:
+        """Every known node's /heat sketch (and this master's own),
+        merged into the fleet top-K view (a sync function: the handler
+        runs it in a thread)."""
+        snaps: list[dict] = [heat.serialize()]
+        errors: dict[str, str] = {}
+        pulled_nodes: list[str] = []
+        # dedupe by tracker id: servers sharing one process serve the
+        # same tracker, which merged once per node would inflate every
+        # estimate N-fold past its error bound
+        seen_ids = {snaps[0].get("id")}
+        for name, snap, err in self._fan_get("/heat", "heat-pull",
+                                             json.loads):
+            if err is not None:
+                errors[name] = err
+                continue
+            pulled_nodes.append(name)
+            tid = snap.get("id")
+            if tid is None or tid not in seen_ids:
+                seen_ids.add(tid)
+                snaps.append(snap)
+        merged = heat.merge_serialized(snaps)
+        merged["nodes"] = sorted(pulled_nodes + [self.url])
+        if errors:
+            merged["node_errors"] = errors
+        with self._heat_lock:
+            self._heat_cache = (time.time(), merged)
+        return merged
+
+    def cached_heat(self, max_age: float = 5.0) -> dict:
+        """The last merged heat view, refreshed when stale."""
+        with self._heat_lock:
+            cached = self._heat_cache
+        if cached is not None and time.time() - cached[0] <= max_age:
+            return cached[1]
+        return self.collect_heat()
+
+    async def handle_cluster_heat(self, req: web.Request) -> web.Response:
+        """/cluster/heat: the fleet-merged top-K hot chunks, volumes and
+        tenants.  ?refresh=1 forces a fresh fan-out; otherwise a merge
+        up to 5 s old may be served.  Loopback only."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        if req.query.get("refresh"):
+            merged = await asyncio.to_thread(self.collect_heat)
+        else:
+            merged = await asyncio.to_thread(self.cached_heat)
+        return web.json_response(merged)
+
+    def collect_perf(self) -> dict:
+        """Every node's /perf payload (and this master's own) merged into
+        fleet occupancy per (kind, stage), the worst bottleneck per
+        kind, the fleet's roofline rows and worst offenders, and the EC
+        volumes' codec mix from the beats.  The reference's hot-tier
+        block comes from live filers, of which the port has none yet."""
+        per_node: list[tuple[str, dict]] = [
+            (self.url, pipeline.local_snapshot())]
+        errors: dict[str, str] = {}
+        for name, payload, err in self._fan_get("/perf", "perf-pull",
+                                                json.loads):
+            if err is not None:
+                errors[name] = err
+            else:
+                per_node.append((name, payload))
+        out = pipeline.aggregate_fleet(per_node)
+        # roofline rows over the deduped nodes, busiest first (servers
+        # sharing one process share one kernel profile)
+        rows: list[dict] = []
+        seen: set[str] = set()
+        for node, payload in per_node:
+            tid = payload.get("id")
+            if tid is not None:
+                if tid in seen:
+                    continue
+                seen.add(tid)
+            for row in (payload.get("roofline") or {}).get("rows", []):
+                rows.append({"node": node, **row})
+        rows.sort(key=lambda r: -r.get("busy_s", 0.0))
+        out["roofline"] = rows
+        out["offenders"] = pipeline.roofline_offenders({"rows": rows})
+        with self.topo._lock:
+            ec_vids = {vid for n in self.topo.nodes.values()
+                       for vid, s in n.ec_shards.items() if s}
+            codec_map = dict(self.topo.ec_codecs)
+        per_vol = {str(vid): codec_tags.parse_tag(codec_map.get(vid)).tag
+                   for vid in sorted(ec_vids)}
+        mix: dict = {}
+        for tag in per_vol.values():
+            mix[tag] = mix.get(tag, 0) + 1
+        out["codecs"] = {"volumes": per_vol, "mix": mix}
+        if errors:
+            out["node_errors"] = errors
+        return out
+
+    async def handle_cluster_perf(self, req: web.Request) -> web.Response:
+        """/cluster/perf: fleet pipeline occupancy, bottleneck verdicts
+        and roofline offenders.  Loopback only."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        return web.json_response(await asyncio.to_thread(self.collect_perf))
+
+    def collect_trace(self, tid: str, federate: bool = True) -> dict:
+        """One trace id -> one parent-ordered waterfall stitched from
+        every node's span ring (each pull carries pin=1, so the spans
+        survive ring wrap on every hop).  With `federate`, registered
+        peer masters are asked for their view of the same id
+        (``?local=1`` stops the recursion there)."""
+        trace.pin_trace(tid)  # the local ring first (and retro-keep it)
+        spans: list[dict] = []
+        for rec in trace.traces(tid=tid):
+            for s in rec["spans"]:
+                s = dict(s)
+                s.setdefault("node", self.url)
+                spans.append(s)
+        pulled, errors = self._fan_debug_traces(f"tid={tid}&pin=1")
+        for node, remote in pulled:
+            for rec in remote:
+                for s in rec.get("spans", []):
+                    s = dict(s)
+                    s.setdefault("node", node)
+                    spans.append(s)
+        if federate:
+            horizon = time.time() - 30.0
+            peers = sorted(
+                a for a, ts in self.cluster_members.get(
+                    "peer_master", {}).items() if ts > horizon)
+            for peer in peers:
+                try:
+                    status, _, body = self.aggregator.pool.request(
+                        f"{tls.scheme()}://{peer}/cluster/trace/{tid}"
+                        "?local=1", timeout=5.0)
+                    if status == 200:
+                        spans.extend(json.loads(body).get("spans", []))
+                    elif status != 404:  # absent there is not an error
+                        errors[peer] = f"HTTP {status}"
+                except Exception as e:
+                    errors[peer] = str(e) or type(e).__name__
+        wf = trace.assemble(spans)  # dedupes by span id
+        if errors:
+            wf["node_errors"] = errors
+        return wf
+
+    def collect_traces(self, min_ms: float, limit: int
+                       ) -> tuple[list[dict], dict[str, str]]:
+        """The fleet's recent traces merged by trace id (one request's
+        spans live in several rings), newest first, without span bodies,
+        and the per-node pull errors."""
+        by_tid: dict[str, dict] = {}
+
+        def fold(node: str, recs: list[dict]) -> None:
+            for rec in recs:
+                tid = rec.get("trace_id")
+                if not tid:
+                    continue
+                agg = by_tid.setdefault(
+                    tid, {"trace_id": tid, "start": rec["start"],
+                          "end": 0.0, "error": False, "spans": 0,
+                          "nodes": set(), "servers": set()})
+                agg["start"] = min(agg["start"], rec["start"])
+                agg["end"] = max(agg["end"],
+                                 rec["start"] + rec["ms"] / 1000.0)
+                agg["error"] = agg["error"] or bool(rec.get("error"))
+                agg["spans"] += len(rec.get("spans", []))
+                agg["nodes"].add(node)
+                for s in rec.get("spans", []):
+                    server = (s.get("attrs") or {}).get("server")
+                    if server:
+                        agg["servers"].add(server)
+
+        fold(self.url, trace.traces(min_ms=min_ms, limit=limit))
+        pulled, errors = self._fan_debug_traces(
+            f"min_ms={min_ms:g}&limit={limit}")
+        for node, remote in pulled:
+            fold(node, remote)
+        out = []
+        for agg in by_tid.values():
+            ms = (agg.pop("end") - agg["start"]) * 1000.0
+            if ms < min_ms:
+                continue
+            agg["ms"] = round(ms, 3)
+            agg["nodes"] = sorted(agg["nodes"])
+            agg["servers"] = sorted(agg["servers"])
+            out.append(agg)
+        out.sort(key=lambda r: r["start"], reverse=True)
+        return out[:max(1, limit)], errors
+
+    async def handle_cluster_trace(self, req: web.Request) -> web.Response:
+        """/cluster/trace/<tid>: the stitched cross-node waterfall of one
+        trace id.  Loopback only."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        tid = req.match_info["tid"]
+        if len(tid) != 32 or any(c not in "0123456789abcdef"
+                                 for c in tid):
+            return web.json_response({"error": "bad trace id"},
+                                     status=400)
+        # ?local=1: a federating peer asks; answer from this region only
+        result = await asyncio.to_thread(
+            self.collect_trace, tid, req.query.get("local") != "1")
+        if not result["spans"]:
+            # node_errors stay in the 404: "trace expired" and "every
+            # node's debug gate refused the master" must be told apart
+            return web.json_response(
+                {"error": "trace not found on any node",
+                 "trace_id": tid,
+                 "node_errors": result.get("node_errors", {})},
+                status=404)
+        return web.json_response(result)
+
+    async def handle_cluster_traces(self, req: web.Request
+                                    ) -> web.Response:
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        try:
+            min_ms = float(req.query.get("min_ms", "0"))
+        except ValueError:
+            min_ms = 0.0
+        try:
+            limit = int(req.query.get("limit", "50"))
+        except ValueError:
+            limit = 50
+        traces_, errors = await asyncio.to_thread(
+            self.collect_traces, min_ms, limit)
+        return web.json_response({"traces": traces_,
+                                  "node_errors": errors})
+
+    async def handle_cluster_canary(self, req: web.Request
+                                    ) -> web.Response:
+        """The canary's per-path outcomes, latency quantiles, pinned
+        trace ids and the last failure's waterfall.  ?probe=1 runs one
+        probe round inline.  Loopback only."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        if req.query.get("probe"):
+            await self.canary.run_once()
+        return web.json_response(self.canary.status())
 
     # -- handlers ------------------------------------------------------
 
@@ -464,6 +1017,35 @@ class MasterServer:
 
     async def handle_metrics(self, req: web.Request) -> web.Response:
         return metrics.scrape_response(req)
+
+    async def handle_cluster_metrics(self, req: web.Request
+                                     ) -> web.Response:
+        """Fleet federation: every known node's /metrics merged into one
+        exposition with a `node` label per sample.  ?refresh=1 pulls
+        first; otherwise the background loop's last pull is served,
+        refreshed only when stale."""
+        try:
+            await asyncio.to_thread(
+                self.aggregator.ensure_fresh,
+                0.0 if req.query.get("refresh") else None)
+        except Exception:
+            log.warning("cluster metrics pull failed", exc_info=True)
+        return web.Response(text=self.aggregator.render(),
+                            content_type="text/plain")
+
+    async def handle_cluster_slo(self, req: web.Request) -> web.Response:
+        """Burn-rate SLO evaluation over the merged fleet metrics;
+        ?refresh=1 pulls before evaluating.  The reference first
+        rebuilds its repair planner's health ledger (the gauge its
+        `repair_backlog` rule reads); the port has no ledger until the
+        planner comes, so that rule sees no series."""
+        try:
+            await asyncio.to_thread(
+                self.aggregator.ensure_fresh,
+                0.0 if req.query.get("refresh") else None)
+        except Exception:
+            log.warning("cluster slo pull failed", exc_info=True)
+        return web.json_response(self.aggregator.slo_status())
 
     async def handle_heartbeat(self, req: web.Request) -> web.Response:
         if not self.is_leader:

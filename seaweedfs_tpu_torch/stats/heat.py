@@ -20,14 +20,16 @@ reconstructs (`ec_volume.EcVolume`), under foreground traffic only
 (`ambient_is_data`).  The tenant a request carries (`TENANT_HEADER`)
 rides a contextvar that the servers' middleware sets and their clients
 forward (`inject`).  `/heat` (`handle_heat`) serves `serialize()`, the
-form the master's /cluster/heat fan-out merges.  The reference's
-defaults are constants here (the switch, top-K size and half-life
-knobs); the fleet merge and tenant resolution at the edge come with the
-master and the S3 gateway (ROADMAP 1.18c, 1.21).
+form the master's /cluster/heat fan-out merges (`merge_serialized`:
+Space-Saving and Count-Min merges, decay-adjusted to the merger's
+clock).  The reference's defaults are constants here (the switch, top-K
+size and half-life knobs); tenant resolution at the edge comes with the
+S3 gateway (ROADMAP 1.21).
 """
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 import uuid
@@ -52,6 +54,8 @@ EPS = 1e-3
 # the reference's defaults: counters per dimension, and the half-life
 HEAT_K = 64
 HALFLIFE_S = 300.0
+
+LN2 = math.log(2.0)
 
 TENANT_HEADER = "X-Weedtpu-Tenant"
 
@@ -159,6 +163,53 @@ class SpaceSaving:
                 "entries": [[key, ent[0], ent[1], dict(ent[2]), ent[3]]
                             for key, ent in self.entries.items()]}
 
+    @staticmethod
+    def merge(snaps: list[dict], k: int, halflife: float,
+              now: float | None = None) -> dict:
+        """Fold node snapshots into one summary dict.  A key absent from
+        one node's summary contributes that node's minimum counter to
+        both est and err (it may have been evicted there holding up to
+        min), preserving ``est >= true`` and ``est - err <= true`` over
+        the union stream."""
+        if now is None:
+            now = time.time()
+        keys: set[str] = set()
+        adj = []
+        for s in snaps:
+            f = 0.5 ** (max(0.0, now - s.get("ts", now)) / halflife)
+            ents = {e[0]: e for e in s.get("entries", [])}
+            adj.append((f, ents, s.get("min", 0.0) * f))
+            keys.update(ents)
+        total = sum(s.get("total", 0.0) *
+                    0.5 ** (max(0.0, now - s.get("ts", now)) / halflife)
+                    for s in snaps)
+        merged = []
+        for key in keys:
+            est = err = 0.0
+            aux: dict[str, float] = {}
+            # fleet first_seen = the earliest sighting over the nodes
+            # that track the key (absent nodes' min contributions carry
+            # no tenure); adding a node can only move it earlier
+            first_seen: float | None = None
+            for f, ents, minc in adj:
+                ent = ents.get(key)
+                if ent is None:
+                    est += minc
+                    err += minc
+                    continue
+                est += ent[1] * f
+                err += ent[2] * f
+                for name, v in (ent[3] or {}).items():
+                    aux[name] = aux.get(name, 0.0) + v * f
+                if len(ent) > 4 and ent[4] is not None:
+                    fs = float(ent[4])
+                    if first_seen is None or fs < first_seen:
+                        first_seen = fs
+            merged.append([key, est, err, aux, first_seen])
+        merged.sort(key=lambda e: e[1], reverse=True)
+        return {"ts": now, "k": k, "halflife": halflife, "total": total,
+                "min": 0.0, "entries": merged[:k]}
+
 
 class CountMin:
     """Decayed Count-Min sketch over float counters, in plain lists: the
@@ -204,6 +255,27 @@ class CountMin:
                 "halflife": self.halflife,
                 "rows": [[round(v, 6) for v in row]
                          for row in self.rows]}
+
+    @staticmethod
+    def merge(snaps: list[dict], halflife: float,
+              now: float | None = None):
+        if now is None:
+            now = time.time()
+        m = CountMin(halflife)
+        m._last = now
+        for s in snaps:
+            if s.get("width") != CMS_WIDTH or s.get("depth") != CMS_DEPTH:
+                continue  # layout mismatch: skip rather than corrupt
+            f = 0.5 ** (max(0.0, now - s.get("ts", now)) / halflife)
+            rows = s.get("rows", [])
+            if len(rows) != CMS_DEPTH or \
+                    any(len(r) != CMS_WIDTH for r in rows):
+                continue
+            for d in range(CMS_DEPTH):
+                out = m.rows[d]
+                for i, v in enumerate(rows[d]):
+                    out[i] += v * f
+        return m
 
 
 class HeatTracker:
@@ -279,6 +351,77 @@ def reset() -> None:
 
 def serialize() -> dict:
     return TRACKER.serialize()
+
+
+# -- fleet merge (the master's /cluster/heat) ----------------------------
+
+def _entry_view(ent: list, halflife: float,
+                now: float | None = None) -> dict:
+    """One merged Space-Saving entry -> the operator-facing record.
+    RPS and byte rate invert the decay equilibrium (a steady rate r
+    settles at r * H/ln2), so they read as recent-rate estimates."""
+    key, est, err, aux = ent[:4]
+    first_seen = ent[4] if len(ent) > 4 else None
+    rate = LN2 / halflife
+    reads = aux.get("read", 0.0)
+    writes = aux.get("write", 0.0)
+    degraded = aux.get("degraded", 0.0)
+    rec = {"key": key, "est": round(est, 3), "err": round(err, 3),
+           "rps": round(est * rate, 3),
+           "bytes_rate": round(aux.get("bytes", 0.0) * rate, 1),
+           "reads": round(reads, 2), "writes": round(writes, 2)}
+    if first_seen is not None:
+        if now is None:
+            now = time.time()
+        # how long this key has continuously been tracked (an eviction
+        # resets the clock)
+        rec["sustained_s"] = round(max(0.0, now - first_seen), 1)
+    rw = reads + writes
+    if rw > 0:
+        rec["read_fraction"] = round(reads / rw, 4)
+    if degraded > 0:
+        rec["degraded"] = round(degraded, 2)
+        if reads > 0:
+            rec["degraded_fraction"] = round(min(1.0, degraded / reads), 4)
+    return rec
+
+
+def merge_serialized(snaps: list[dict], k: int | None = None,
+                     halflife: float | None = None,
+                     now: float | None = None) -> dict:
+    """Node tracker serializations -> the fleet /cluster/heat body:
+    per-dimension top-K with decayed rate estimates, plus the merge
+    bookkeeping the error bounds are checked against."""
+    if now is None:
+        now = time.time()
+    k = k if k is not None else HEAT_K
+    halflife = halflife if halflife is not None else HALFLIFE_S
+    out: dict = {"ts": now, "k": k, "halflife_s": halflife,
+                 "nodes": len(snaps)}
+    for dim in DIMS:
+        merged = SpaceSaving.merge(
+            [s.get("dims", {}).get(dim, {}) for s in snaps],
+            k, halflife, now)
+        name = {"chunk": "chunks", "volume": "volumes",
+                "tenant": "tenants"}[dim]
+        out[name] = {
+            "total_rps": round(merged["total"] * LN2 / halflife, 3),
+            "top": [_entry_view(e, halflife, now)
+                    for e in merged["entries"]],
+        }
+    return out
+
+
+def merged_estimate(snaps: list[dict], dim: str, key: str,
+                    now: float | None = None) -> float:
+    """Count-Min point estimate for one key over the merged fleet.
+    Reads the merged cells directly (estimate() would re-decay against
+    the real clock, which is wrong for as-of-`now` snapshots)."""
+    cms = CountMin.merge([s.get("cms", {}).get(dim, {}) for s in snaps],
+                         HALFLIFE_S, now)
+    return float(min(cms.rows[d][i]
+                     for d, i in enumerate(_cells(key, cms.width,
+                                                  cms.depth))))
 
 
 async def handle_heat(req):

@@ -4,11 +4,12 @@ exposition.
 Counterpart of `seaweedfs_tpu/stats/metrics.py` (reference:
 weed/stats/metrics.go), cut to what the port's data plane touches: the
 metric classes, the registry and its exposition format 0.0.4 (OpenMetrics
-on request), the families the port's telemetry and its volume server
-book into, under the reference's names, labels and buckets, and the
-servers' `/metrics` response (`scrape_response`).  The push-gateway
-loop (`MetricsPusher`) is left out for want of a caller; the other
-servers' families come with those servers.
+on request) with its own size (`series_count`, `weedtpu_metric_series`),
+the families the port's telemetry, its volume server, its master and the
+master's planes book into, under the reference's names, labels and
+buckets, and the servers' `/metrics` response (`scrape_response`).  The
+push-gateway loop (`MetricsPusher`) is left out for want of a caller;
+the other servers' families come with those servers.
 """
 
 from __future__ import annotations
@@ -223,6 +224,16 @@ class Registry:
     def __init__(self):
         self._metrics: dict[str, _Metric] = {}
         self._lock = threading.Lock()
+        # optional self-cost gauge, stamped with series_count() on every
+        # render (the master's accounting reads the registry's size)
+        self._series_gauge: "Gauge | None" = None
+
+    def series_count(self) -> int:
+        """Live label sets (children) across every family: what each
+        scrape costs."""
+        with self._lock:
+            ms = list(self._metrics.values())
+        return sum(len(m._children) for m in ms)
 
     def _register(self, metric: _Metric) -> _Metric:
         with self._lock:
@@ -242,6 +253,8 @@ class Registry:
         return self._register(Histogram(name, help_text, tuple(labels), buckets))
 
     def render(self, openmetrics: bool = False) -> str:
+        if self._series_gauge is not None:
+            self._series_gauge.labels().set(self.series_count())
         with self._lock:
             metrics = list(self._metrics.values())
         lines: list[str] = []
@@ -369,6 +382,94 @@ VOLUME_MOVES = REGISTRY.counter(
     "weedtpu_volume_moves_total",
     "volume rebalance moves driven through /admin/volume/move on this "
     "server, by outcome (ok/aborted)", ("outcome",))
+
+
+# the master's planes (stats/canary.py, history.py, interference.py,
+# loops.py): canary probes by path and status class (the class label
+# lets the SLO engine's availability rules read them), the history
+# store's size, alert groups firing, capacity forecasts, the
+# interference index and the governor's rates, and every master loop's
+# tick telemetry
+CANARY_PROBES = REGISTRY.counter(
+    "weedtpu_canary_probes_total",
+    "canary probes by gateway path and status class", ("path", "class"))
+CANARY_PROBE_SECONDS = REGISTRY.histogram(
+    "weedtpu_canary_probe_seconds", "canary probe latency", ("path",))
+PREDICTED_FULL = REGISTRY.gauge(
+    "weedtpu_predicted_full_seconds",
+    "seconds until a data dir is predicted to fill (linear fill-rate "
+    "regression over /cluster/history; capped ~10y when not filling)",
+    ("vs", "dir"))
+VOLUME_PREDICTED_FULL = REGISTRY.gauge(
+    "weedtpu_volume_predicted_full_seconds",
+    "seconds until a growing volume is predicted to hit the size limit "
+    "(only volumes actually filling get a series)", ("vid",))
+HISTORY_SERIES = REGISTRY.gauge(
+    "weedtpu_history_series",
+    "series held by the master's history store (bounded by "
+    "WEEDTPU_HISTORY_MAX_SERIES)")
+HISTORY_EVICTED = REGISTRY.counter(
+    "weedtpu_history_evicted_total",
+    "series refused or evicted by the history store's cardinality bound")
+ALERTS_FIRING = REGISTRY.gauge(
+    "weedtpu_alerts_firing", "alert groups currently firing, per rule",
+    ("rule",))
+CANARY_LATENCY = REGISTRY.gauge(
+    "weedtpu_canary_latency_seconds",
+    "canary probe latency quantiles over the rolling window",
+    ("path", "quantile"))
+INTERFERENCE_INDEX = REGISTRY.gauge(
+    "weedtpu_interference_index",
+    "fractional foreground read-p99 inflation attributable to a "
+    "background traffic class (per node, EWMA over aggregator ticks; "
+    "0 = no measurable impact, 1.0 = p99 doubled)",
+    ("node", "class"))
+GOVERNOR_RATE = REGISTRY.gauge(
+    "weedtpu_governor_rate",
+    "current governed rate per background-work target (repair_xrack "
+    "bytes/s, convert volumes/s, scrub MB/s)", ("target",))
+GOVERNOR_RETUNES = REGISTRY.counter(
+    "weedtpu_governor_retunes_total",
+    "governor rate-retune decisions by target and direction (up/down)",
+    ("target", "direction"))
+METRIC_SERIES = REGISTRY.gauge(
+    "weedtpu_metric_series",
+    "label sets live across all metric families in this registry")
+REGISTRY._series_gauge = METRIC_SERIES
+LOOP_TICK_SECONDS = REGISTRY.histogram(
+    "weedtpu_loop_tick_seconds",
+    "wall-clock seconds per master background-loop tick", ("loop",))
+LOOP_CPU_SECONDS = REGISTRY.counter(
+    "weedtpu_loop_cpu_seconds_total",
+    "thread CPU seconds consumed by each master background loop "
+    "(thread_time delta around the tick; awaits that migrate work to "
+    "other threads are attributed to those threads' loops)", ("loop",))
+LOOP_ITEMS = REGISTRY.counter(
+    "weedtpu_loop_items_total",
+    "items processed per master background loop (nodes scraped, plans "
+    "made, actions launched, probes fired)", ("loop",))
+LOOP_OVERRUNS = REGISTRY.counter(
+    "weedtpu_loop_overruns_total",
+    "ticks whose wall time exceeded the loop's own interval", ("loop",))
+LOOP_ERRORS = REGISTRY.counter(
+    "weedtpu_loop_errors_total",
+    "ticks that raised; the exception is swallowed by the loop's own "
+    "guard but recorded here and in /cluster/loops last_error", ("loop",))
+LOOP_BACKLOG = REGISTRY.gauge(
+    "weedtpu_loop_backlog",
+    "queue/backlog depth behind each master background loop (convert "
+    "queue, repair queue, ...; 0 for loops without a queue)", ("loop",))
+LOOP_OVERRUN_RATIO = REGISTRY.gauge(
+    "weedtpu_loop_overrun_ratio",
+    "last tick wall seconds / loop interval (>1 = the loop can no "
+    "longer hold its cadence; 0 when the loop has no fixed interval)",
+    ("loop",))
+SUBSYSTEM_ENTRIES = REGISTRY.gauge(
+    "weedtpu_subsystem_entries",
+    "live entries per stateful master subsystem (registry series, "
+    "history series + counter baselines, alert-engine state groups, "
+    "interference node states, heat tracker entries, pinned traces)",
+    ("subsystem",))
 
 
 def scrape_response(req):

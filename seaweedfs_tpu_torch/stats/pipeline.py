@@ -16,10 +16,10 @@ Counterpart of `seaweedfs_tpu/stats/pipeline.py`:
 ``WEEDTPU_PERF_OBS=0`` turns the plane off: `track` then registers no
 job and exports nothing, though the stats dict still gets its seconds.
 `local_snapshot` is what the volume server serves at `/perf` (open, for
-the master's /cluster/perf fan-out) and `/debug/pipeline` (loopback).
-The fleet aggregation (`aggregate_fleet`, `roofline_offenders`) comes
-with the master (ROADMAP 1.18), the tile-drift sentinel with the launch
-pin (ROADMAP 1.7).
+the master's /cluster/perf fan-out) and `/debug/pipeline` (loopback);
+the master merges the fleet's payloads (`aggregate_fleet`) and ranks
+the kernel rows furthest from their ceilings (`roofline_offenders`).
+The tile-drift sentinel comes with the launch pin (ROADMAP 1.7).
 """
 
 from __future__ import annotations
@@ -403,6 +403,65 @@ def bottleneck(snap: dict) -> dict | None:
                 out["ceiling_gbps"] = round(ceil, 3)
                 out["ceiling_frac"] = round(min(gbps / ceil, 9.99), 3)
     return out
+
+
+# -- fleet aggregation (master /cluster/perf) ------------------------------
+
+def aggregate_fleet(per_node: list[tuple[str, dict]]) -> dict:
+    """Merge per-node /debug/pipeline payloads into fleet occupancy:
+    per (kind, stage) busy seconds / bytes / max busy fraction across
+    every reporting node, the currently-running jobs, the worst
+    bottleneck verdict per kind, and every node's tile-drift verdict.
+    Payloads from nodes sharing one process (the all-in-one binary,
+    in-process test clusters) carry the same tracker ``id`` and are
+    merged once, not once per node."""
+    occupancy: dict[str, dict[str, dict]] = {}
+    running: list[dict] = []
+    verdicts: dict[str, dict] = {}
+    tiles: dict[str, dict] = {}
+    seen: set[str] = set()
+    nodes: list[str] = []
+    for node, payload in per_node:
+        tid = payload.get("id")
+        if tid is not None and tid in seen:
+            continue
+        if tid is not None:
+            seen.add(tid)
+        nodes.append(node)
+        tile = payload.get("tile")
+        if tile:
+            tiles[node] = tile
+        for job in payload.get("jobs", []):
+            kind = job.get("kind", "?")
+            krow = occupancy.setdefault(kind, {})
+            for stage, row in (job.get("stages") or {}).items():
+                srow = krow.setdefault(
+                    stage, {"busy_s": 0.0, "bytes": 0.0, "jobs": 0,
+                            "max_busy_frac": 0.0})
+                srow["busy_s"] = round(srow["busy_s"] + row["busy_s"], 4)
+                srow["bytes"] += row.get("bytes", 0.0)
+                srow["jobs"] += 1
+                if row.get("busy_frac", 0.0) > srow["max_busy_frac"]:
+                    srow["max_busy_frac"] = row["busy_frac"]
+            if job.get("state") == "running":
+                running.append({"node": node, **job})
+            bn = job.get("bottleneck")
+            if bn:
+                prev = verdicts.get(kind)
+                if prev is None or bn.get("busy_frac", 0.0) > \
+                        prev.get("busy_frac", 0.0):
+                    verdicts[kind] = {"node": node, **bn}
+    return {"nodes": nodes, "occupancy": occupancy,
+            "bottlenecks": verdicts, "running": running, "tiles": tiles}
+
+
+def roofline_offenders(roofline: dict, limit: int = 5) -> list[dict]:
+    """The busiest kernel/resource rows ranked by how far they run from
+    their ceiling — the "what should the next perf round attack" list."""
+    rows = [r for r in roofline.get("rows", [])
+            if r.get("ceiling_frac") is not None and r.get("busy_s", 0.0)]
+    rows.sort(key=lambda r: (r["ceiling_frac"], -r["busy_s"]))
+    return rows[:limit]
 
 
 def local_snapshot(limit: int = 16) -> dict:

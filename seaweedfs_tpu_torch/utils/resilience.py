@@ -26,8 +26,9 @@ read engine (storage/ec/ec_volume.py) and the pooled client
 
 Every knob is read per call, under the reference's name and default.  A
 malformed value raises ValueError, where the reference falls back to the
-default.  `Backoff`, `backoff_delay` and `retry_call` come with their
-first caller, the metrics pusher of the volume server.
+default.  `Backoff` and `backoff_delay` serve the master's daemon loops
+(the aggregator's and the canary's); `retry_call` comes with its first
+caller, the replication sink.
 """
 
 from __future__ import annotations
@@ -55,6 +56,14 @@ def _env_float(name: str, default: float) -> float:
         return float(value)
     except ValueError:
         raise ValueError(f"{name}={value!r}: want a number") from None
+
+
+def env_switch(name: str) -> bool:
+    """A 0/1 knob, on when unset; any other value raises ValueError."""
+    raw = os.environ.get(name, "").strip()
+    if raw not in ("", "0", "1"):
+        raise ValueError(f"{name}={raw!r}: want 0 or 1")
+    return raw != "0"
 
 
 # -- deadlines -----------------------------------------------------------
@@ -211,6 +220,39 @@ def spend_retry(cls: str) -> bool:
     metrics.RETRY_TOTAL.labels(cls or "default",
                                "allowed" if ok else "denied").inc()
     return ok
+
+
+# -- backoff -------------------------------------------------------------
+
+def backoff_delay(attempt: int, base: float = 0.5, cap: float = 60.0,
+                  rng: random.Random | None = None) -> float:
+    """Stateless jitter for per-key retry maps: uniform(base,
+    base * 3**attempt), capped.  attempt counts from 1."""
+    r = rng or _rand
+    hi = min(cap, base * (3.0 ** max(1, attempt)))
+    return min(cap, r.uniform(base, max(base, hi)))
+
+
+class Backoff:
+    """Stateful decorrelated-jitter backoff for daemon loops
+    (sleep_n+1 = min(cap, uniform(base, 3 * sleep_n))); reset() after a
+    success restores the base delay."""
+
+    def __init__(self, base: float = 0.5, cap: float = 60.0,
+                 rng: random.Random | None = None):
+        self.base = base
+        self.cap = cap
+        self._rng = rng or _rand
+        self._sleep = 0.0
+
+    def next(self) -> float:
+        prev = self._sleep or self.base
+        self._sleep = min(self.cap,
+                          self._rng.uniform(self.base, prev * 3.0))
+        return self._sleep
+
+    def reset(self) -> None:
+        self._sleep = 0.0
 
 
 # -- hedging -------------------------------------------------------------

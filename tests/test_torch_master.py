@@ -122,8 +122,13 @@ def _table(app) -> list[tuple[str, str]]:
 
 def test_route_table_equals_reference_less_the_left_out():
     """Every (method, path) of the reference master's route table is the
-    port's, but for the planes' routes of `LEFT_OUT` (ROADMAP 1.18c,
-    1.18d), and the port has no other."""
+    port's, but for the six routes of `LEFT_OUT` (the maintenance plane
+    and the autopilot, ROADMAP 1.18d; the geo view, 1.22), and the port
+    has no other."""
+    assert mastermod.LEFT_OUT == (
+        "/maintenance/status", "/maintenance/scrub_report",
+        "/maintenance/tick", "/maintenance/convert", "/cluster/autopilot",
+        "/cluster/geo")
     mine = mastermod.MasterServer("127.0.0.1", 1)
     ref = ref_master.MasterServer("127.0.0.1", 1)
     want = _table(ref.app)
