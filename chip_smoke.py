@@ -178,9 +178,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                whether aiohttp, google.protobuf and cryptography import
  16 server     two port VolumeServers (A, B) on the card, in process on
                one event-loop thread, behind the port's MasterServer
-               (single, no raft, on the same loop, its canary off:
-               WEEDTPU_CANARY_INTERVAL=0, so no probe launches K1
-               outside the steps) taking their protobuf
+               (single, no raft, on the same loop, its canary and
+               repair loop off: WEEDTPU_CANARY_INTERVAL=0 and
+               WEEDTPU_REPAIR_INTERVAL=0, so no probe launches K1 and no
+               planner rebuilds step 4's loss outside the steps)
+               taking their protobuf
                heartbeats and answering /dir/lookup, /dir/ec/lookup and
                /dir/status; driven over loopback HTTP: (1) the
                phase-3 volume (a copy taken before phase 14) mounted on
@@ -210,16 +212,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                after; every line with the card's name and power limit
  17 maintenance four port VolumeServers on the card (R, "a:1" in its
                rack, "c:3" in its data centre, "b:2" in another), in
-               process on one loop thread behind a master stand-in
-               (beats, lookups and /maintenance/scrub_report: the port's
-               master leaves the report's intake, the repair planner's,
-               to ROADMAP 1.18d); scrubbers
+               process on one loop thread behind the port's
+               MasterServer (on the same loop; its repair loop, canary
+               and aggregator loop off); scrubbers
                unthrottled and parked (WEEDTPU_SCRUB_INTERVAL=3600),
                hedging off: (1) /admin/scrub of links of phase 4's
                shard set on R, clean (K1 one per window), then bits of
                shards 5 and 11 (copies) flipped by /admin/faults, both
-               found, localised and quarantined, the report at the
-               stand-in; (2) /admin/scrub_rate to 4 MB/s on a:1 and one
+               found, localised and quarantined, the master's health
+               ledger reading the volume corrupt with both verdicts; (2) /admin/scrub_rate to 4 MB/s on a:1 and one
                pass over 256 x 64 KiB needles, at least 0.9 x bytes /
                rate; (3) reduced rebuilds on R posted as the master's
                repair posts them, helpers answering /admin/ec/partial on
@@ -245,7 +246,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                and power limit
  18 admin      three port VolumeServers (A, B, C) on the card, in
                process on one loop thread behind the port's MasterServer
-               (single, no raft, its canary off),
+               (single, no raft, its canary and repair loop off),
                the continuous profiler on (WEEDTPU_PROFILE_HZ=49) for
                this phase only: (1) /admin/volume/move of the phase-3
                volume (links of the copy taken before phase 14) A -> B,
@@ -298,7 +299,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                positions; K1 and K2 per step against their prediction;
                launches zeroed before and read after
  20 master     the port's master with raft HA: three MasterServers with
-               peers (canaries off; raft state under the work
+               peers (canaries and repair loops off; raft state under
+               the work
                directory) on one loop
                thread, two port VolumeServers A and B on the card on
                another, given the master list reversed: (1) one leader,
@@ -325,7 +327,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                VolumeServers A and B on the card on another, linking
                phase 4's shard set A 0-6 / B 7-13, scrubbers at 64 MB/s
                passing only on request, every tick driven by the phase
-               (WEEDTPU_AGG_INTERVAL=0, WEEDTPU_CANARY_INTERVAL=0):
+               (WEEDTPU_AGG_INTERVAL=0, WEEDTPU_CANARY_INTERVAL=0,
+               WEEDTPU_REPAIR_INTERVAL=0):
                (1) /cluster/metrics?refresh=1 federates A's and B's
                families under their node labels, scrape ages finite;
                (2) 16 canary rounds of the blob and degraded probes,
@@ -348,7 +351,41 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                the routes left out answering 404; K1 per step against
                its prediction, K2 0; launches zeroed before and read
                after; every line with the card's name and power limit
- 22 report     {"kernels": [...]} line, the card's name and power limit,
+ 22 heal       the master's maintenance plane (repair planner and
+               health ledger, conversion scheduler, autopilot, the
+               governor's repair and convert targets) on one loop
+               thread over phase 17's four servers on the card on
+               another, every tick driven by the phase (repair loop,
+               aggregator loop and canary off; the autopilot's clocks
+               shortened): (1) /maintenance/status lists phase 4's set
+               (221 on phase 9's topology, 222 whole on c:3) healthy,
+               weedtpu_volume_health reads it; (2) shards 1 and 12
+               deleted by /admin/faults, one /maintenance/tick: a
+               reduced rebuild on R over a:1's and b:2's
+               /admin/ec/partial, K1 == phase 9's [1, 12], sha256 ==
+               phase 4's, its decision's bytes per helper == phase 9's
+               run of the plan == the helpers' /metrics; (3) a bit of shard 5 flipped on c:3,
+               /admin/scrub (K1 one per window), the ledger corrupt, one
+               tick purges and rebuilds it (K1 == phase 6's), a clean
+               scrub; (4) step 2's loss under WEEDTPU_REPAIR_REDUCED=0:
+               survivor copies, /admin/ec/rebuild (K1 == phase 6's),
+               the naive estimate booked; (5) phase 7's four volumes
+               sealed through /maintenance/convert, one batch, K2 ==
+               phase 7's, shards sha256 == phase 7's; (6) a baseline, a
+               quiet and a busy tick of 8 degraded GETs each (K1 one
+               each) with repair and convert bytes booked: the
+               governor's repair_xrack and convert rates down, the
+               planner's and the scheduler's buckets with them, quiet
+               ticks back to the ceilings; (7) the autopilot in plan
+               mode: 384 GETs make an EC volume hot, one tick plans its
+               promote and a cold volume's demote, nothing runs before
+               approval; the promote's unconvert (K1 == phase 6's,
+               .dat == phase 3's), the demote's sealed conversion (K2
+               its units); one round of the background loop; every
+               volume healthy, /cluster/loops without error,
+               /cluster/geo alone 404; K1 and K2 per step against their
+               prediction; launches zeroed before and read after
+ 23 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -357,7 +394,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12-21, each on its own, so the reported launches are
+around phases 12-22, each on its own, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -365,10 +402,14 @@ a path made the kernel wrapper stage a copy of any input
 and if K2 was not launched.  After phase 13's window, two records: fleet
 against one write_ec_files per volume over the same four volumes (fleet,
 serial, serial, fleet), and rebuild_ec_files of phase 9's single loss;
-then phases 14-21 (phases 16-19 on a copy of the phase-3 volume taken
-before phase 14, whose appends go through links of it; phases 17, 18,
-20 and 21 also on links of phase 4's and (17) 10's shard sets, 17 and
-18 on phase 7's volumes).
+then phases 14-22 (phases 16-19 and 22 on a copy of the phase-3 volume
+taken before phase 14, whose appends go through links of it; phases
+17, 18, 20, 21 and 22 also on links of phase 4's and (17) 10's shard
+sets, 17, 18 and 22 on phase 7's volumes).  Every port master the
+script starts runs with its repair loop off
+(WEEDTPU_REPAIR_INTERVAL=0): phases 16-22 delete shards on purpose, and
+a planner tick would rebuild them, launching K1 at times no step
+predicts.
 Needs one CUDA card; exits non-zero without one, and outside a checkout
 of the repository.
 """
@@ -3883,82 +3924,6 @@ SERVER_DEGRADED_OTHERS = 256
 SERVER_READ_SAMPLE = 256
 
 
-class MasterStandIn:
-    """Phase 17's master: the heartbeat intake, lookups and the
-    scrub-report intake, on the servers' loop.  Scaffolding, as phase 9's
-    helpers and phase 15's peers are: the port's master answers the
-    beats and lookups (phases 16, 18, 20), but its /maintenance/
-    scrub_report is the repair planner's (`RepairPlanner.record_scrub`,
-    seaweedfs_tpu/server/master.py:1322-1333), which comes with ROADMAP
-    1.18d.  It takes /heartbeat in protobuf, decoded with the port's pb,
-    and answers /dir/lookup and /dir/ec/lookup from each node's latest
-    beat, in the reference master's shapes."""
-
-    def __init__(self):
-        self.beats: dict = {}  # node url -> its latest decoded beat
-        self.scrub_reports: list = []  # phase 17's
-
-    def app(self):
-        from aiohttp import web
-        app = web.Application()
-        app.add_routes([web.post("/heartbeat", self.heartbeat),
-                        web.get("/dir/lookup", self.lookup),
-                        web.get("/dir/ec/lookup", self.ec_lookup),
-                        web.post("/maintenance/scrub_report",
-                                 self.scrub_report)])
-        return app
-
-    async def scrub_report(self, req):
-        """The master's scrub-report intake (server/master.py:1322):
-        kept as posted."""
-        from aiohttp import web
-        self.scrub_reports.append(await req.json())
-        return web.json_response({})
-
-    async def heartbeat(self, req):
-        from aiohttp import web
-        from seaweedfs_tpu_torch import pb
-        raw = await req.read()
-        if req.headers.get("Content-Type") == pb.CONTENT_TYPE:
-            beat = pb.heartbeat_from_bytes(raw)
-        else:
-            beat = json.loads(raw)
-        self.beats[beat["url"]] = beat
-        return web.json_response({"volume_size_limit": 30 << 30})
-
-    async def lookup(self, req):
-        from aiohttp import web
-        vid = int(req.query.get("volumeId", "0"))
-        locs = [{"url": u, "publicUrl": b["public_url"]}
-                for u, b in sorted(self.beats.items())
-                if any(v["id"] == vid for v in b["volumes"])]
-        if not locs:
-            return web.json_response({"error": "volume id not found"},
-                                     status=404)
-        return web.json_response({"volumeId": str(vid), "locations": locs})
-
-    async def ec_lookup(self, req):
-        from aiohttp import web
-        vid = int(req.query.get("volumeId", "0"))
-        shards: dict = {}
-        for u, b in sorted(self.beats.items()):
-            for e in b["ec_shards"]:
-                if e["id"] == vid:
-                    for s in e["shard_ids"]:
-                        shards.setdefault(str(s), []).append(
-                            {"url": u, "publicUrl": b["public_url"],
-                             "dc": b["data_center"], "rack": b["rack"]})
-        if not shards:
-            return web.json_response({"error": "not an ec volume"},
-                                     status=404)
-        return web.json_response({"volumeId": vid, "shards": shards})
-
-    def ec_split(self, vid: int) -> dict:
-        return {u: sorted(s for e in b["ec_shards"] if e["id"] == vid
-                          for s in e["shard_ids"])
-                for u, b in sorted(self.beats.items())}
-
-
 def master_split(client, master_url: str, vid: int) -> dict:
     """A master's /dir/ec/lookup of `vid` as node -> its sorted shard ids
     ({} while the master knows no such EC volume)."""
@@ -4192,9 +4157,11 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
 
     try:
         beats0 = metrics.MASTER_RECEIVED_HEARTBEATS.labels().value
-        # no canary: its blob and degraded probes would write and launch
-        # K1 at times no step predicts
-        with scoped_env(WEEDTPU_CANARY_INTERVAL="0"):
+        # no canary and no repair loop: the blob and degraded probes would
+        # write and launch K1, and the planner would rebuild the shards
+        # step 4 deletes, at times no step predicts
+        with scoped_env(WEEDTPU_CANARY_INTERVAL="0",
+                        WEEDTPU_REPAIR_INTERVAL="0"):
             master = MasterServer("127.0.0.1", free_port())
             run(master.start())
         mport = master.port
@@ -4563,20 +4530,24 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
                       phases: dict, srcs: list[str], seed: int,
                       launches: dict, device=None) -> dict:
     """Phase 17: the volume server's maintenance routes on the card, four
-    port servers in process on one loop thread behind the master
-    stand-in, driven over loopback HTTP as the reference master drives
-    them: /admin/scrub (clean, then two bits flipped by /admin/faults),
-    /admin/scrub_rate, reduced rebuilds through /admin/ec/partial,
-    /admin/ec/probe_read, /admin/ec/recode there and back,
-    /admin/ec/fleet_convert, /metrics.  K1 and K2 per step held against
-    phases 4 and 7-10; every shard, .vif and .ecx against the phase it
-    mirrors."""
+    port servers in process on one loop thread behind the port's
+    `MasterServer` (on the same loop; its repair loop, canary and
+    aggregator loop off, WEEDTPU_REPAIR_INTERVAL=0,
+    WEEDTPU_CANARY_INTERVAL=0 and WEEDTPU_AGG_INTERVAL=0, so nothing
+    rebuilds, probes or scrapes between the steps), driven over loopback
+    HTTP as the master's repair planner drives them: /admin/scrub (clean,
+    then two bits flipped by /admin/faults, the verdicts read from the
+    master's health ledger), /admin/scrub_rate, reduced rebuilds through
+    /admin/ec/partial, /admin/ec/probe_read, /admin/ec/recode there and
+    back, /admin/ec/fleet_convert, /metrics.  K1 and K2 per step held
+    against phases 4 and 7-10; every shard, .vif and .ecx against the
+    phase it mirrors."""
     import asyncio
 
     import numpy as np
-    from aiohttp import web
     from seaweedfs_tpu_torch.maintenance import scrub
     from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.stats import metrics
     from seaweedfs_tpu_torch.storage import types as t
     from seaweedfs_tpu_torch.storage.ec import layout
@@ -4607,8 +4578,7 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
     def run(coro):
         return asyncio.run_coroutine_threadsafe(coro, loop).result(600)
 
-    standin = MasterStandIn()
-    runner = None
+    master = None
     servers: dict = {}
     client = http.PooledHTTP(timeout=600.0, max_idle_per_host=16)
     requests = {"read": 0, "write": 0, "delete": 0}
@@ -4678,10 +4648,14 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
     scrub_bytes = {"ec": 0, "volume": 0}
     repair_bytes: dict = {}
     try:
-        mport = free_port()
-        runner = web.AppRunner(standin.app())
-        run(runner.setup())
-        run(web.TCPSite(runner, "127.0.0.1", mport).start())
+        # the loops read their intervals at construction and at start:
+        # both inside the scope (a canary probe 30 s in would add a blob
+        # write, read and delete to step 7's count)
+        with scoped_env(WEEDTPU_REPAIR_INTERVAL="0",
+                        WEEDTPU_CANARY_INTERVAL="0",
+                        WEEDTPU_AGG_INTERVAL="0"):
+            master = MasterServer("127.0.0.1", free_port())
+            run(master.start())
         # every server with a scrubber that passes on request only, and
         # hedging off: a hedge could add a decode to the probe's count
         with scoped_env(WEEDTPU_SCRUB_MBPS=str(MAINT_FAST_MBPS),
@@ -4689,7 +4663,7 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
                         WEEDTPU_HEDGE_PCT="0"):
             for name, dc, rack in MAINT_NODES:
                 vs = vsmod.VolumeServer(
-                    [dirs[name]], f"127.0.0.1:{mport}", "127.0.0.1",
+                    [dirs[name]], master.url, "127.0.0.1",
                     free_port(), data_center=dc, rack=rack,
                     heartbeat_interval=1.0, device=device)
                 run(vs.start())
@@ -4735,7 +4709,6 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
             if [a["ok"] for a in got["applied"]] != [True, True]:
                 raise AssertionError(f"faults: {got}")
             k0 = dict(launches)
-            n_reports = len(standin.scrub_reports)
             t0 = time.perf_counter()
             flipped = admin("R", "/admin/scrub", {})
             dt_flip = time.perf_counter() - t0
@@ -4750,10 +4723,14 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
                     "11": [[w11 * W, window(w11)["size"]]]}:
                 raise AssertionError(f"scrub after the flips: {res}")
             step_counts("1 scrub flipped", k0, windows)
-            report = standin.scrub_reports[n_reports:]
-            if len(report) != 1 or report[0]["node"] != r_url or \
-                    report[0]["volumes"][str(vid)]["corrupt"] != want:
-                raise AssertionError(f"scrub reports {report}")
+            # the report reached the master's repair planner: its health
+            # ledger holds both verdicts, the volume corrupt
+            st, raw = call(master.url, "/maintenance/status")
+            led = json.loads(raw)["volumes"].get(str(vid), {})
+            if st != 200 or led.get("state") != "corrupt" or \
+                    led["corrupt"] != [dict(c, node=r_url) for c in want] \
+                    or led["quarantined"] != {r_url: res["quarantined"]}:
+                raise AssertionError(f"the master's ledger of {vid}: {led}")
             scrub_bytes["ec"] += clean["bytes"] + flipped["bytes"]
             steps["1 scrub"] = {"bytes": clean["bytes"], "windows": windows,
                                 "clean_s": dt_clean, "flipped_s": dt_flip,
@@ -4764,8 +4741,9 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
                  f"({clean['bytes'] / dt_clean / 1e9:.3f} "
                  f"GB/s), K1 {windows}; shard 5 and 11 bits flipped by "
                  f"/admin/faults, found, localised and quarantined in "
-                 f"{dt_flip:.3f} s, K1 {windows}; the report reached the "
-                 f"master")
+                 f"{dt_flip:.3f} s, K1 {windows}; the master's health "
+                 f"ledger reads the volume corrupt, both verdicts and "
+                 f"quarantines in it")
             admin("R", "/admin/ec/unmount", {"volume": vid})
             for ext in [layout.to_ext(i) for i in range(14)] + [".ecx",
                                                                 ".vif"]:
@@ -5006,18 +4984,19 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
                     if f.read() != g.read():
                         raise AssertionError(f"fleet .ecx of {fv}")
             run(servers["b:2"]._heartbeat_once())
-            beat = standin.beats[servers["b:2"].url]
-            frozen = {v["id"]: v["read_only"] for v in beat["volumes"]
+            st, raw = call(master.url, "/dir/status")
+            infos = json.loads(raw)["Topology"]["nodes"][
+                servers["b:2"].url]["volume_infos"]
+            frozen = {v["id"]: v["read_only"] for v in infos
                       if v["id"] in fvids}
             if frozen != {fv: True for fv in fvids}:
                 raise AssertionError(f"fleet volumes' beat: {frozen}")
             for fv in fvids:
                 admin("b:2", "/admin/ec/mount", {"volume": fv})
-            split = standin.ec_split  # the beat after the mounts
-            for fv in fvids:
-                if split(fv).get(servers["b:2"].url) != list(range(14)):
-                    raise AssertionError(f"fleet volume {fv} beat "
-                                         f"{split(fv)}")
+            for fv in fvids:  # the beat after the mounts
+                split = master_split(client, master.url, fv)
+                if split.get(servers["b:2"].url) != list(range(14)):
+                    raise AssertionError(f"fleet volume {fv} beat {split}")
             srv = prog["stages"]["server"]
             steps["6 fleet"] = {"bytes": total, "s": dt,
                                 "gbps": total / dt / 1e9,
@@ -5098,8 +5077,8 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
     finally:
         for vs in servers.values():
             run(vs.stop())
-        if runner is not None:
-            run(runner.cleanup())
+        if master is not None:
+            run(master.stop())
         loop.call_soon_threadsafe(loop.stop)
         loop_thread.join(10)
         client.close()
@@ -5294,8 +5273,11 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
                                replace=False).tolist())
     dat_size = os.path.getsize(server_src + ".dat")
     try:
-        # no canary: its probes would launch K1 at times no step predicts
-        with scoped_env(WEEDTPU_CANARY_INTERVAL="0"):
+        # no canary and no repair loop: a probe would launch K1, and the
+        # planner would rebuild the degraded shard sets the steps mount,
+        # at times no step predicts
+        with scoped_env(WEEDTPU_CANARY_INTERVAL="0",
+                        WEEDTPU_REPAIR_INTERVAL="0"):
             master = MasterServer("127.0.0.1", free_port())
             run(master.start())
         for name in ("a", "b", "c"):
@@ -6133,9 +6115,11 @@ def phase_master(vdir: str, base: str, expect: dict, blob: bytes,
         peers = [f"127.0.0.1:{p}" for p in ports]
         t0 = time.perf_counter()
         for p in ports:
-            # no canary: its probes would launch K1 at times no step
-            # predicts
-            with scoped_env(WEEDTPU_CANARY_INTERVAL="0"):
+            # no canary and no repair loop: a probe would launch K1, and
+            # the planner would rebuild step 6's lost shards, at times no
+            # step predicts
+            with scoped_env(WEEDTPU_CANARY_INTERVAL="0",
+                            WEEDTPU_REPAIR_INTERVAL="0"):
                 m = MasterServer("127.0.0.1", p, peers=peers,
                                  raft_state_dir=os.path.join(work, "raft"))
                 mrun(m.start())
@@ -6415,6 +6399,11 @@ PLANES_BOOKED = 64 * MIB  # step 6's scrub-class bytes, booked
 PLANES_SCRUB_S = 3.0  # the rated pass's least seconds at its rate
 PLANES_NODE_TIMEOUT = 4.0  # the expire loop ticks every 2 s
 PLANES_RECOVERY_TICKS = 60
+# the governor's targets: the repair planner's cross-rack budget, the
+# conversion scheduler's bucket, the autopilot's three plan buckets and
+# the fleet scrub rate
+GOVERNED = ["autopilot_balance", "autopilot_chunk", "autopilot_tier",
+            "convert", "repair_xrack", "scrub"]
 
 
 def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
@@ -6492,6 +6481,7 @@ def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
             f"value={PLANES_SLOW_S},for=0,clear_for=0")
     env = scoped_env(
         WEEDTPU_AGG_INTERVAL="0", WEEDTPU_CANARY_INTERVAL="0",
+        WEEDTPU_REPAIR_INTERVAL="0",
         WEEDTPU_SCRUB_MBPS=str(PLANES_MBPS), WEEDTPU_SCRUB_INTERVAL="3600",
         WEEDTPU_HEDGE_PCT="0",
         WEEDTPU_INTERF_MIN_SAMPLES=str(PLANES_TICK_READS // 2),
@@ -6806,7 +6796,7 @@ def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
             governed = {n: vs.scrubber.mbps for n, vs in servers.items()}
             if node_a["quiet_p99_ms"] is None or \
                     itf.get("index", 0.0) <= gov["target_index"] or \
-                    sorted(gov["targets"]) != ["scrub"] or \
+                    sorted(gov["targets"]) != GOVERNED or \
                     not rate < PLANES_MBPS or not down or \
                     any(abs(m - rate) > 1e-3 for m in governed.values()):
                 raise AssertionError(f"governor: quiet {node_a}, index "
@@ -6938,6 +6928,700 @@ def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
            "s": time.perf_counter() - t_phase}
     k1 = {k: v["gf_apply"] for k, v in counts.items()}
     plog(f"K1 per step {k1}; phase wall {out['s']:.1f} s")
+    return out
+
+
+# phase 22's cluster: the port's master with its maintenance plane over
+# phase 17's four card servers (R, a:1 in its rack, c:3 in its DC, b:2 in
+# another), every volume under an id of its own
+HEAL_VIDS = {"loss": 221, "corrupt": 222, "govern": 223, "promote": 224,
+             "convert": (225, 226, 227, 228), "demote": 229}
+HEAL_LOST = (1, 12)  # phase 9's [1, 12], on phase 9's topology
+HEAL_FLIP = 5  # step 3's corrupt shard, a copy on c:3
+HEAL_TICK_READS = 8  # step 6's degraded GETs per tick, as phase 21's
+HEAL_BOOKED = 64 * MIB  # step 6's repair- and convert-class bytes, booked
+HEAL_HOT_READS = 384  # step 7's GETs making the promoted volume hot
+# step 7's autopilot clocks, shortened: a plain volume is cold at once,
+# an EC volume hot at once from 0.5 reads/s (the heat sketch's estimate:
+# 384 reads read as ~0.89/s), and no codec_select plan
+HEAL_AUTOPILOT = {"WEEDTPU_AUTOPILOT_COLD_S": "0",
+                  "WEEDTPU_AUTOPILOT_HOT_S": "0",
+                  "WEEDTPU_AUTOPILOT_HOT_RPS": "0.5",
+                  "WEEDTPU_AUTOPILOT_CODEC_RATE": "0"}
+
+
+def phase_heal(vdir: str, base: str, server_src: str, expect: dict,
+               blob: bytes, hashes: list[str], aux_hashes: dict,
+               dat_hash: str, phases: dict, srcs: list[str], seed: int,
+               launches: dict, device=None) -> dict:
+    """Phase 22: the master's maintenance plane (ROADMAP 1.18d) healing
+    and converting on the card servers.  One port `MasterServer` on a
+    loop thread (WEEDTPU_REPAIR_INTERVAL=0, WEEDTPU_AGG_INTERVAL=0 and
+    WEEDTPU_CANARY_INTERVAL=0: the phase drives every tick through
+    /maintenance/tick, /maintenance/convert, /cluster/autopilot and
+    ?refresh=1 scrapes; the autopilot's clocks shortened by
+    HEAL_AUTOPILOT), phase 17's four port `VolumeServer`s on the card on
+    another, scrubbers unthrottled and parked, hedging off.  Steps: (1)
+    the health ledger; (2) two shards of phase 4's set lost on phase 9's
+    topology and one planner tick: a reduced rebuild (K1 and the bytes
+    per helper == phase 9's [1, 12]); (3) a bit flipped on c:3, found by /admin/scrub (K1 one
+    per window), purged and rebuilt by one tick (K1 == phase 6's), a
+    clean scrub; (4) step 2's loss again under WEEDTPU_REPAIR_REDUCED=0:
+    survivor copies and /admin/ec/rebuild (K1 == phase 6's); (5) phase
+    7's volumes converted and sealed through the scheduler (K2 == phase
+    7's); (6) a quiet and a busy tick of degraded GETs (K1 one each),
+    repair- and convert-class bytes booked, after a baseline tick of as
+    many: the governor's repair_xrack and convert rates down and back; (7) the autopilot in plan mode: a
+    promote (K1 == phase 6's) and a sealed demote (K2 its units), then
+    one round of the background loop.  Every rebuilt shard and every
+    converted or decoded file sha256-equal to its source phase's; K1 and
+    K2 per step held against their prediction."""
+    import asyncio
+
+    import numpy as np
+    from seaweedfs_tpu_torch.maintenance import scrub
+    from seaweedfs_tpu_torch.ops import fleet_convert
+    from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.server.master import LEFT_OUT, MasterServer
+    from seaweedfs_tpu_torch.stats import heat, netflow
+    from seaweedfs_tpu_torch.stats.aggregate import parse_exposition
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.topology.topology import locality_class
+    from seaweedfs_tpu_torch.utils import http, resilience
+
+    card = card_name_power()
+
+    def hlog(msg: str) -> None:
+        log(f"[heal] {msg} [{card}]")
+
+    def free_port() -> int:
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    work = os.path.join(vdir, "heal")
+    names = [n for n, _, _ in MAINT_NODES]
+    dirs = {n: os.path.join(work, n.replace(":", "_")) for n in names}
+    for d in dirs.values():
+        os.makedirs(d)
+    loops = []
+
+    def loop_thread():
+        loop = asyncio.new_event_loop()
+        th = threading.Thread(target=loop.run_forever, daemon=True)
+        th.start()
+        loops.append((loop, th))
+        return lambda coro: asyncio.run_coroutine_threadsafe(
+            coro, loop).result(600)
+
+    mrun, vrun = loop_thread(), loop_thread()  # the master's, servers'
+    client = http.PooledHTTP(timeout=600.0, max_idle_per_host=8)
+    master = None
+    servers: dict = {}
+    steps: dict = {}
+    counts: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 22)
+    env = scoped_env(
+        WEEDTPU_REPAIR_INTERVAL="0", WEEDTPU_AGG_INTERVAL="0",
+        WEEDTPU_CANARY_INTERVAL="0",
+        WEEDTPU_SCRUB_MBPS=str(MAINT_FAST_MBPS),
+        WEEDTPU_SCRUB_INTERVAL="3600", WEEDTPU_HEDGE_PCT="0",
+        WEEDTPU_INTERF_MIN_SAMPLES=str(HEAL_TICK_READS // 2),
+        **HEAL_AUTOPILOT)
+
+    def call(url: str, path: str, body=None) -> tuple[int, bytes]:
+        hdrs = {}
+        data = None
+        if body is not None:
+            data = json.dumps(body).encode()
+            hdrs["Content-Type"] = "application/json"
+        st, _, raw = client.request(
+            f"http://{url}{path}", method="POST" if data else "GET",
+            body=data, headers=hdrs)
+        return st, raw
+
+    def get_json(url: str, path: str, body=None) -> dict:
+        st, raw = call(url, path, body)
+        if st != 200:
+            raise AssertionError(f"{url}{path}: HTTP {st} {raw[:300]!r}")
+        return json.loads(raw)
+
+    def admin(name: str, path: str, body=None) -> dict:
+        return get_json(servers[name].url, path, body)
+
+    def step_counts(name: str, k0: dict, k1: int, k2: int = 0) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        want = {"gf_apply": k1, "gf_apply_batch": k2}
+        if got != want:
+            raise AssertionError(f"phase 22 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def until(pred, what: str, timeout: float = 15.0):
+        deadline = time.monotonic() + timeout
+        while True:
+            got = pred()
+            if got:
+                return got
+            if time.monotonic() > deadline:
+                raise AssertionError(what)
+            time.sleep(0.02)
+
+    def place(name: str, vid: int, src: str, shards, copy=()) -> str:
+        """Links of `src`'s shards (copies of those in `copy`), .ecx and
+        .vif as EC volume `vid` on node `name`, mounted."""
+        dst = os.path.join(dirs[name], str(vid))
+        for i in shards:
+            (shutil.copyfile if i in copy else os.link)(
+                src + layout.to_ext(i), dst + layout.to_ext(i))
+        for ext in (".ecx", ".vif"):
+            os.link(src + ext, dst + ext)
+        admin(name, "/admin/ec/mount", {"volume": vid})
+        return dst
+
+    def status() -> dict:
+        return get_json(master.url, "/maintenance/status")
+
+    def ledger(vid: int) -> dict:
+        return status()["volumes"].get(str(vid), {})
+
+    def whole(vid: int) -> bool:
+        v = ledger(vid)
+        return v.get("state") == "healthy" and \
+            v.get("shards_present") == list(range(14))
+
+    def tick(body=None) -> list:
+        return get_json(master.url, "/maintenance/tick",
+                        dict(body or {}, wait=True))["actions"]
+
+    def metric(family: str) -> dict:
+        """{label value: sample} of one family on the master's /metrics
+        (one process, one registry: every server's counters too)."""
+        st, raw = call(master.url, "/metrics")
+        fam = parse_exposition(raw.decode()).get(family, {"samples": []})
+        return {next(iter(lab.values()), ""): v
+                for _, lab, v in fam["samples"]}
+
+    def read(name: str, vid: int, nids) -> list:
+        out = []
+        for nid in nids:
+            cookie, lo, hi = expect[nid]
+            t1 = time.perf_counter()
+            st, raw = call(servers[name].url,
+                           "/" + str(t.FileId(vid, nid, cookie)))
+            out.append(time.perf_counter() - t1)
+            if st != 200 or raw != blob[lo:hi]:
+                raise AssertionError(f"GET of {vid}/{nid} on {name}: "
+                                     f"HTTP {st}")
+        return out
+
+    size = os.path.getsize(base + layout.to_ext(0))
+    rebuild_k1 = phases["rebuild_warm"]["launches"]
+    try:
+        with env:
+            # 0 set-up: the master, the four servers, phase 4's set linked
+            # on phase 9's topology (221) and whole on c:3 (222, shard 5 a
+            # copy: step 3 flips it)
+            k0 = dict(launches)
+            master = MasterServer("127.0.0.1", free_port())
+            master.vacuum_enabled = False
+            mrun(master.start())
+            for name, dc, rack in MAINT_NODES:
+                vs = vsmod.VolumeServer(
+                    [dirs[name]], master.url, "127.0.0.1", free_port(),
+                    data_center=dc, rack=rack, heartbeat_interval=0.5,
+                    device=device)
+                vrun(vs.start())
+                servers[name] = vs
+            url = {n: servers[n].url for n in names}
+            loc = {n: locality_class("dc1", "r1", dc, rack)
+                   for n, dc, rack in MAINT_NODES[1:]}
+            if loc != {"a:1": 1, "c:3": 2, "b:2": 3}:
+                raise AssertionError(f"localities {loc}")
+            heat.reset()  # step 7's heat is this phase's reads alone
+            lv, cv = HEAL_VIDS["loss"], HEAL_VIDS["corrupt"]
+            place("R", lv, base, range(0, 6))
+            place("a:1", lv, base, range(6, 9))
+            place("b:2", lv, base, range(9, 14))
+            cbase = place("c:3", cv, base, range(14), copy=(HEAL_FLIP,))
+            until(lambda: whole(lv) and whole(cv),
+                  "the ledger never showed the two volumes whole")
+            step_counts("0 setup", k0, 0)
+            hlog(f"0 setup: master {master.url} (repair loop, aggregator "
+                 f"loop and canary off; autopilot {HEAL_AUTOPILOT}); "
+                 f"servers {', '.join(f'{n} {url[n]}' for n in names)} on "
+                 f"{servers['R'].device}; phase 4's set as {lv} (R 0-5, "
+                 f"a:1 6-8, b:2 9-13) and {cv} (c:3, 0-13)")
+
+            # 1 the ledger
+            k0 = dict(launches)
+            st = status()
+            vol = st["volumes"][str(lv)]
+            health = metric("weedtpu_volume_health")
+            gov = st["interference"]["governor"]
+            if vol["state"] != "healthy" or vol["shard_size"] != size or \
+                    vol["codec"] != "rs_10_4" or vol["urgency"] != 0 or \
+                    st["states"]["healthy"] != 2 or \
+                    health.get("healthy") != 2.0 or \
+                    health.get("degraded") != 0.0 or \
+                    st["autopilot"]["mode"] != "plan" or \
+                    sorted(gov["targets"]) != GOVERNED or \
+                    "geo" in st:
+                raise AssertionError(f"the ledger: {vol}, states "
+                                     f"{st['states']}, gauge {health}, "
+                                     f"autopilot {st['autopilot']}, "
+                                     f"governor {sorted(gov['targets'])}")
+            step_counts("1 ledger", k0, 0)
+            steps["1 ledger"] = {"states": st["states"], "health": health,
+                                 "targets": gov["targets"]}
+            hlog(f"1 ledger: /maintenance/status lists {lv} and {cv} "
+                 f"healthy with 14 shards of {size} B, "
+                 f"weedtpu_volume_health {health}; the autopilot's headline "
+                 f"{st['autopilot']}; the governor's targets "
+                 f"{sorted(gov['targets'])}; no geo block; K1 0")
+
+            # 2 loss, reduced: [1, 12] deleted on their holders
+            for name, sid in (("R", HEAL_LOST[0]), ("b:2", HEAL_LOST[1])):
+                got = admin(name, "/admin/faults", {"faults": [
+                    {"action": "delete_shard", "volume": lv,
+                     "shard": sid}]})
+                if not all(a["ok"] for a in got["applied"]):
+                    raise AssertionError(f"delete_shard: {got}")
+            until(lambda: ledger(lv).get("shards_missing") ==
+                  list(HEAL_LOST), "the loss never reached the ledger")
+            vol = ledger(lv)
+            if (vol["state"], vol["urgency"]) != ("degraded", 2):
+                raise AssertionError(f"the degraded volume: {vol}")
+            bytes0 = metric("weedtpu_repair_bytes_total")
+            by_loc0 = dict(status()["planner"]["repair_bytes_by_locality"])
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            actions = tick()
+            dt = time.perf_counter() - t0
+            step_counts("2 loss reduced", k0,
+                        phases["repair"]["c"]["launches"])
+            if actions != [{"vid": lv, "kind": "ec", "state": "degraded",
+                            "node": url["R"], "urgency": 2}]:
+                raise AssertionError(f"tick: {actions}")
+            until(lambda: whole(lv), "the volume never healed")
+            rbase = os.path.join(dirs["R"], str(lv))
+            if sha256_many([rbase + layout.to_ext(s) for s in HEAL_LOST]) \
+                    != [hashes[s] for s in HEAL_LOST]:
+                raise AssertionError("rebuilt shards differ from phase 4's")
+            planner = status()["planner"]
+            dec = planner["decisions"][-1]
+            by_loc = {k: v - by_loc0.get(k, 0) for k, v in
+                      planner["repair_bytes_by_locality"].items()}
+            booked = {k: v - bytes0.get(k, 0.0) for k, v in
+                      metric("weedtpu_repair_bytes_total").items()
+                      if v - bytes0.get(k, 0.0)}
+            helpers = [(h["node"], h["locality"]) for h in dec["helpers"]]
+            # the plan is phase 9's run (c): its measured bytes per helper
+            # are this repair's; the planner's estimate (n_lost x shard x
+            # helpers, the reference's) is an upper bound, since shard 1
+            # joins R's survivors for the second loss and its windows
+            # rotate over the helpers
+            twin = phases["repair"]["c"]["helper_bytes"]
+            want_loc = {"rack": float(twin["a:1"]),
+                        "remote": float(twin["b:2"])}
+            if dec["mode"] != "reduced" or dec["lost"] != list(HEAL_LOST) \
+                    or dec["rebuilder"] != url["R"] or \
+                    helpers != [(url["a:1"], 1), (url["b:2"], 3)] or \
+                    dec["actual_bytes"] != sum(twin.values()) or \
+                    dec["actual_bytes"] > dec["est_remote_bytes"] or \
+                    dec["replans"] or \
+                    {k: float(v) for k, v in by_loc.items() if v} != booked \
+                    or booked != want_loc or \
+                    planner["history"][-1]["outcome"] != "ok":
+                raise AssertionError(f"the decision {dec}, by locality "
+                                     f"{by_loc}, /metrics {booked}, "
+                                     f"history {planner['history'][-1:]}")
+            steps["2 loss reduced"] = {"s": dt, "decision": dec,
+                                       "by_locality": by_loc}
+            hlog(f"2 loss, reduced: shards {list(HEAL_LOST)} deleted on R "
+                 f"and b:2 by /admin/faults, the ledger degraded, urgency "
+                 f"2; one /maintenance/tick: a reduced rebuild on R with "
+                 f"helpers {helpers} in {dt:.3f} s, the volume healthy, "
+                 f"both shards sha256-equal to phase 4's; actual "
+                 f"{dec['actual_bytes']} B == phase 9's run of the plan "
+                 f"(the planner's estimate {dec['est_remote_bytes']} B, "
+                 f"an upper bound), by locality {by_loc} == the helpers' "
+                 f"/metrics == phase 9's; K1 "
+                 f"{counts['2 loss reduced']['gf_apply']} == phase 9's")
+
+            # 3 corruption: a bit of shard 5 flipped on c:3, scrubbed,
+            # purged and rebuilt, scrubbed clean
+            W = scrub.DEFAULT_WINDOW  # the servers': no WEEDTPU_SCRUB_WINDOW
+            windows = phases["scrub"]["clean"]["windows"]
+            w = windows // 3
+            got = admin("c:3", "/admin/faults", {"faults": [
+                {"action": "flip_bit", "volume": cv, "shard": HEAL_FLIP,
+                 "offset": w * W + 321, "bit": 4}]})
+            if not all(a["ok"] for a in got["applied"]):
+                raise AssertionError(f"flip_bit: {got}")
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            res = admin("c:3", "/admin/scrub", {})["volumes"][str(cv)]
+            dt_scrub = time.perf_counter() - t0
+            step_counts("3 scrub", k0, windows)
+            want = [{"shard": HEAL_FLIP, "offset": w * W,
+                     "size": min(W, size - w * W), "columns": 1}]
+            vol = ledger(cv)
+            if res["corrupt"] != want or vol["state"] != "corrupt" or \
+                    vol["corrupt"] != [dict(c, node=url["c:3"])
+                                       for c in want]:
+                raise AssertionError(f"scrub {res}, ledger {vol}")
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            actions = tick()
+            dt = time.perf_counter() - t0
+            step_counts("3 purge and rebuild", k0, rebuild_k1)
+            if [(a["vid"], a["state"], a["node"]) for a in actions] != \
+                    [(cv, "corrupt", url["c:3"])]:
+                raise AssertionError(f"tick: {actions}")
+            until(lambda: whole(cv) and not ledger(cv)["corrupt"],
+                  "the corrupt volume never healed")
+            if sha256(cbase + layout.to_ext(HEAL_FLIP)) != \
+                    hashes[HEAL_FLIP]:
+                raise AssertionError("the rebuilt shard differs")
+            k0 = dict(launches)
+            res = admin("c:3", "/admin/scrub", {})["volumes"][str(cv)]
+            step_counts("3 rescrub", k0, windows)
+            if res["corrupt"] or res["windows"] != windows:
+                raise AssertionError(f"the fresh scrub: {res}")
+            steps["3 corrupt"] = {"scrub_s": dt_scrub, "repair_s": dt,
+                                  "found": want}
+            hlog(f"3 corruption: a bit of shard {HEAL_FLIP} flipped on "
+                 f"c:3, /admin/scrub found and localised it in "
+                 f"{dt_scrub:.3f} s (K1 {windows}, one per window), the "
+                 f"ledger corrupt; one tick purged it "
+                 f"(/admin/ec/delete_shards) and rebuilt it from c:3's 13 "
+                 f"in {dt:.3f} s (K1 {rebuild_k1} == phase 6's), sha256 "
+                 f"== phase 4's; a fresh scrub clean (K1 {windows})")
+
+            # 4 loss, naive: [1, 12] again, now both on R
+            for sid in HEAL_LOST:
+                admin("R", "/admin/faults", {"faults": [
+                    {"action": "delete_shard", "volume": lv, "shard": sid}]})
+            until(lambda: ledger(lv).get("shards_missing") ==
+                  list(HEAL_LOST), "the second loss never reached the "
+                  "ledger")
+            bytes0 = metric("weedtpu_repair_bytes_total")
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            with scoped_env(WEEDTPU_REPAIR_REDUCED="0"):
+                actions = tick()
+            dt = time.perf_counter() - t0
+            step_counts("4 loss naive", k0, rebuild_k1)
+            until(lambda: whole(lv), "the volume never healed (naive)")
+            if sha256_many([rbase + layout.to_ext(s) for s in HEAL_LOST]) \
+                    != [hashes[s] for s in HEAL_LOST]:
+                raise AssertionError("naive: shards differ from phase 4's")
+            left = sorted(int(p.rsplit(".ec", 1)[1]) for p in
+                          os.listdir(dirs["R"])
+                          if p.startswith(f"{lv}.ec") and
+                          p[-2:].isdigit())
+            dec = status()["planner"]["decisions"][-1]
+            booked = {k: v - bytes0.get(k, 0.0) for k, v in
+                      metric("weedtpu_repair_bytes_total").items()
+                      if v - bytes0.get(k, 0.0)}
+            if [a["vid"] for a in actions] != [lv] or \
+                    dec["mode"] != "naive" or \
+                    left != sorted(list(range(6)) + [12]) or \
+                    booked != {"rack": 3.0 * size, "remote": 4.0 * size}:
+                raise AssertionError(f"naive repair: {actions}, decision "
+                                     f"{dec}, R holds {left}, /metrics "
+                                     f"{booked}")
+            steps["4 loss naive"] = {"s": dt, "booked": booked}
+            hlog(f"4 loss, naive: {list(HEAL_LOST)} deleted on R, one tick "
+                 f"under WEEDTPU_REPAIR_REDUCED=0 in {dt:.3f} s: 7 "
+                 f"survivors copied to R, /admin/ec/rebuild (K1 "
+                 f"{rebuild_k1} == phase 6's), the borrowed shards "
+                 f"deleted, mounted; sha256 == phase 4's; "
+                 f"weedtpu_repair_bytes_total booked the naive estimate "
+                 f"{booked}")
+
+            # 5 convert: links of phase 7's four volumes on a:1, queued
+            # sealed and converted in one tick
+            fvids = list(HEAL_VIDS["convert"])
+            fsrc = [server_src] + [p[: -len(".dat")] for p in srcs[1:]]
+            adir = dirs["a:1"]
+            for fv, src in zip(fvids, fsrc):
+                for ext in (".dat", ".idx"):
+                    os.link(src + ext, os.path.join(adir, f"{fv}{ext}"))
+                admin("a:1", "/admin/volume/mount", {"volume": fv})
+            until(lambda: all(ledger(v).get("kind") == "normal"
+                              for v in fvids),
+                  "the master never showed the plain volumes")
+            want_k2 = phases["fleet"]["launches"]["gf_apply_batch"]
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            rep = get_json(master.url, "/maintenance/convert",
+                           {"volumes": fvids, "seal": True, "tick": True})
+            dt = time.perf_counter() - t0
+            step_counts("5 convert", k0, 0, want_k2)
+            acts = rep["actions"]
+            if rep["accepted"] != fvids or len(acts) != 1 or \
+                    acts[0]["node"] != url["a:1"] or \
+                    acts[0]["outcome"] != "ok" or \
+                    acts[0]["converted"] != fvids or \
+                    acts[0].get("sealed") != fvids or \
+                    rep["status"]["converted"] != 4:
+                raise AssertionError(f"/maintenance/convert: {rep}")
+            for fv, want_h in zip(fvids, phases["fleet"]["sha256"]):
+                fb = os.path.join(adir, str(fv))
+                if sha256_many([fb + layout.to_ext(i) for i in range(14)]) \
+                        != want_h or os.path.exists(fb + ".dat"):
+                    raise AssertionError(f"converted {fv}: shards differ "
+                                         f"from phase 7's or .dat left")
+            if sha256(os.path.join(adir, f"{fvids[0]}.ecx")) != \
+                    aux_hashes[".ecx"]:
+                raise AssertionError("the converted phase-3 volume's .ecx "
+                                     "differs from phase 4's")
+            until(lambda: all(master_split(client, master.url, v) ==
+                              {url["a:1"]: list(range(14))}
+                              for v in fvids),
+                  "the sealed shard sets never reached the master")
+            steps["5 convert"] = {"s": dt, "action": acts[0]}
+            hlog(f"5 convert: /maintenance/convert of {fvids} (links of "
+                 f"phase 7's volumes on a:1), sealed, one tick in "
+                 f"{dt:.3f} s: one /admin/ec/fleet_convert batch (its own "
+                 f"wall {acts[0]['wall_s']:.3f} s), K2 {want_k2} == phase "
+                 f"7's; 56 shards sha256-equal to phase 7's, the phase-3 "
+                 f"volume's .ecx to phase 4's, each shard set mounted and "
+                 f"its .dat deleted, EC in the next beat; "
+                 f"converted {rep['status']['converted']}")
+
+            # 6 govern: a quiet and a busy tick of degraded GETs on R
+            gv = HEAL_VIDS["govern"]
+            gbase = place("R", gv, base, range(7))
+            place("b:2", gv, base, range(7, 14))
+            until(lambda: whole(gv), "the govern volume never whole")
+            admin("R", "/admin/ec/delete_shards",
+                  {"volume": gv, "shards": list(MASTER_LOST)})
+            ev = servers["R"].store.get_ec_volume(gv)
+            touching = [nid for nid in expect
+                        if any(s in MASTER_LOST for s, _, _ in
+                               intervals(ev, nid))]
+            drawn = rng.choice(touching, size=3 * HEAL_TICK_READS,
+                               replace=False).tolist()
+            resilience.reset_latency_trackers()
+            resilience.reset_breakers()
+
+            def scrape() -> dict:
+                return get_json(master.url,
+                                "/cluster/interference?refresh=1")
+
+            k0 = dict(launches)
+            t_step = time.perf_counter()
+            # a first tick of reads: the baseline of every node's read
+            # latency series (nothing before it counts), then the quiet one
+            read("R", gv, drawn[:HEAL_TICK_READS])
+            scrape()
+            quiet_s = read("R", gv, drawn[HEAL_TICK_READS:
+                                          2 * HEAL_TICK_READS])
+            scrape()
+            admin("b:2", "/admin/faults", {"faults": [
+                {"action": "delay_shard_read", "ms": PLANES_DELAY_MS}]})
+            for cls in ("repair", "convert"):
+                netflow.account("recv", cls, "volume", HEAL_BOOKED)
+            busy_s = read("R", gv, drawn[2 * HEAL_TICK_READS:])
+            busy = scrape()
+            admin("b:2", "/admin/faults", {"faults": [
+                {"action": "delay_shard_read", "ms": 0}]})
+            classes = busy["interference"]["classes"]
+            gov = busy["governor"]
+            targets = {n: gov["targets"][n] for n in ("repair_xrack",
+                                                      "convert")}
+            buckets = {"repair_xrack": master.maintenance.xrack_bucket.rate,
+                       "convert": master.convert.bucket.rate}
+            down = {d["target"] for d in gov["decisions"]
+                    if d["direction"] == "down"}
+            if any(classes.get(c, {}).get("index", 0.0) <=
+                   gov["target_index"] for c in ("repair", "convert")) or \
+                    any(r["rate"] >= r["ceiling"]
+                        for r in targets.values()) or \
+                    any(abs(buckets[n] - targets[n]["rate"]) > 1e-3
+                        for n in targets) or \
+                    not {"repair_xrack", "convert"} <= down:
+                raise AssertionError(f"governor: classes {classes}, "
+                                     f"targets {targets}, buckets "
+                                     f"{buckets}, decisions "
+                                     f"{gov['decisions']}")
+            governed = {n: r["rate"] for n, r in targets.items()}
+            rates = [governed]
+            for _ in range(PLANES_RECOVERY_TICKS):
+                st = scrape()["governor"]
+                rates.append({n: st["targets"][n]["rate"]
+                              for n in targets})
+                if all(rates[-1][n] >= targets[n]["ceiling"]
+                       for n in targets):
+                    break
+            ups = {d["target"] for d in st["decisions"]
+                   if d["direction"] == "up"}
+            if any(rates[-1][n] < targets[n]["ceiling"] for n in targets) \
+                    or not {"repair_xrack", "convert"} <= ups or \
+                    master.maintenance.xrack_bucket.rate != \
+                    targets["repair_xrack"]["ceiling"] or \
+                    master.convert.bucket.rate != \
+                    targets["convert"]["ceiling"]:
+                raise AssertionError(f"no recovery: rates {rates}")
+            # the two shards back: the volume whole again
+            admin("R", "/admin/ec/unmount", {"volume": gv})
+            for s in MASTER_LOST:
+                os.link(base + layout.to_ext(s), gbase + layout.to_ext(s))
+            admin("R", "/admin/ec/mount", {"volume": gv})
+            until(lambda: whole(gv), "the govern volume never whole again")
+            dt = time.perf_counter() - t_step
+            step_counts("6 govern", k0, 3 * HEAL_TICK_READS)
+            lat_q, lat_b = server_latency(quiet_s), server_latency(busy_s)
+            steps["6 govern"] = {
+                "s": dt, "index": {c: classes[c]["index"]
+                                   for c in ("repair", "convert")},
+                "governed": governed, "ceilings": {
+                    n: targets[n]["ceiling"] for n in targets},
+                "recovery_ticks": len(rates) - 1,
+                "quiet_read_s": lat_q, "busy_read_s": lat_b}
+            hlog(f"6 govern: shards {list(MASTER_LOST)} of {gv} gone on R; "
+                 f"quiet tick: {HEAL_TICK_READS} degraded GETs, p50 "
+                 f"{lat_q['p50_s'] * 1e3:.1f} ms; busy tick: b:2's shard "
+                 f"reads delayed {PLANES_DELAY_MS} ms, {HEAL_BOOKED} B each "
+                 f"of repair and convert class booked (netflow.account, not "
+                 f"moved), {HEAL_TICK_READS} GETs p50 "
+                 f"{lat_b['p50_s'] * 1e3:.1f} ms: index "
+                 f"{steps['6 govern']['index']} over the target "
+                 f"{gov['target_index']}; governed {governed} below the "
+                 f"ceilings {steps['6 govern']['ceilings']}, the planner's "
+                 f"and the scheduler's buckets at those rates; "
+                 f"{len(rates) - 1} quiet ticks back to the ceilings; the "
+                 f"shards linked back; {dt:.3f} s; K1 "
+                 f"{3 * HEAL_TICK_READS}, one per GET (a first tick of "
+                 f"{HEAL_TICK_READS} sets the baseline)")
+
+            # 7 the autopilot, plan mode: a hot EC volume (c:3 4-13, b:2
+            # 0-3) and a cold one-needle plain volume (a:1)
+            pv, dv = HEAL_VIDS["promote"], HEAL_VIDS["demote"]
+            pbase = place("c:3", pv, base, range(4, 14))
+            place("b:2", pv, base, range(4))
+            dsrc = srcs[-1][: -len(".dat")]
+            for ext in (".dat", ".idx"):
+                os.link(dsrc + ext, os.path.join(adir, f"{dv}{ext}"))
+            admin("a:1", "/admin/volume/mount", {"volume": dv})
+            until(lambda: whole(pv) and ledger(dv).get("state") ==
+                  "healthy", "the autopilot's volumes never showed")
+            hot = sorted(expect, key=lambda n: expect[n][2] - expect[n][1])[
+                :HEAL_HOT_READS]
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            read("c:3", pv, hot)
+            dt_reads = time.perf_counter() - t0
+            hv = get_json(master.url, "/cluster/heat?refresh=1")
+            rec = next(r for r in hv["volumes"]["top"]
+                       if r["key"] == str(pv))
+            out = get_json(master.url, "/cluster/autopilot", {"tick": True})
+            plans = out["plans"]
+            step_counts("7 plan", k0, 0)
+            shape = [(p["policy"], p["vid"], p.get("node"),
+                      p.get("other_shard_nodes"), p["state"])
+                     for p in plans]
+            if shape != [("tiering_promote", pv, url["c:3"],
+                          {url["b:2"]: [0, 1, 2, 3]}, "planned"),
+                         ("tiering_demote", dv, None, None, "planned")] or \
+                    out["status"]["actuator_calls"] != 0:
+                raise AssertionError(f"autopilot tick: {plans}, "
+                                     f"{out['status']}")
+            promote, demote = plans
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            out = get_json(master.url, "/cluster/autopilot",
+                           {"approve": promote["id"], "wait": True})
+            dt_promote = time.perf_counter() - t0
+            step_counts("7 promote", k0, rebuild_k1)
+            done = {p["id"]: p for p in out["status"]["plans"]}
+            if done[promote["id"]]["state"] != "done" or \
+                    sha256(pbase + ".dat") != dat_hash or \
+                    [p for p in os.listdir(dirs["b:2"])
+                     if p.startswith(f"{pv}.ec") and p[-2:].isdigit()] or \
+                    out["status"]["actuator_calls"] != 2:
+                raise AssertionError(f"promote: {done[promote['id']]}, "
+                                     f"{out['status']['actuator_calls']} "
+                                     f"actuator calls")
+            k0 = dict(launches)
+            out = get_json(master.url, "/cluster/autopilot",
+                           {"approve": demote["id"], "wait": True})
+            done = {p["id"]: p for p in out["status"]["plans"]}
+            if done[demote["id"]].get("outcome") != "enqueued" or \
+                    out["status"]["actuator_calls"] != 3:
+                raise AssertionError(f"demote: {done[demote['id']]}")
+            units = predict_units(os.path.getsize(dsrc + ".dat"),
+                                  layout.LARGE_BLOCK_SIZE,
+                                  layout.SMALL_BLOCK_SIZE)
+            demote_k2 = -(-units // fleet_convert.UNIT_BATCH)
+            rep = get_json(master.url, "/maintenance/convert",
+                           {"tick": True})
+            step_counts("7 demote", k0, 0, demote_k2)
+            if [(a["volumes"], a.get("sealed")) for a in rep["actions"]] \
+                    != [([dv], [dv])] or \
+                    os.path.exists(os.path.join(adir, f"{dv}.dat")):
+                raise AssertionError(f"the demote's conversion: {rep}")
+            until(lambda: master_split(client, master.url, dv) ==
+                  {url["a:1"]: list(range(14))} and
+                  ledger(pv).get("kind") == "normal",
+                  "the tiering never reached the master")
+            view = get_json(master.url, "/cluster/autopilot")
+            mine = [p for p in view["plans"]
+                    if p["id"] in (promote["id"], demote["id"])]
+            if [p["state"] for p in mine] != ["done", "done"] or \
+                    any(len(p["trace_id"]) != 32 for p in mine):
+                raise AssertionError(f"the ledger of plans: {mine}")
+            # one round of the background loop: nothing left to do
+            k0 = dict(launches)
+            mrun(asyncio.wait(mrun(master.maintenance_round())))
+            step_counts("7 round", k0, 0)
+            lp = get_json(master.url, "/cluster/loops")
+            bad = {n: r for n, r in lp["loops"].items() if r["errors"]}
+            st = status()
+            refused = {p: call(master.url, p)[0] for p in LEFT_OUT}
+            if not {"repair", "convert", "autopilot"} <= set(lp["loops"]) \
+                    or bad or st["states"]["healthy"] != \
+                    len(st["volumes"]) or refused != {"/cluster/geo": 404}:
+                raise AssertionError(f"/cluster/loops {sorted(lp['loops'])}"
+                                     f", errors {bad}; states "
+                                     f"{st['states']}; left out {refused}")
+            steps["7 autopilot"] = {
+                "reads_s": dt_reads, "rps": rec["rps"],
+                "promote_s": dt_promote, "demote_k2": demote_k2,
+                "plans": [{k: p[k] for k in ("id", "policy", "vid",
+                                              "state", "trace_id")}
+                          for p in mine]}
+            hlog(f"7 autopilot (plan mode): {HEAL_HOT_READS} GETs of {pv} "
+                 f"on c:3 in {dt_reads:.3f} s (heat {rec['rps']} reads/s); "
+                 f"one tick planned a promote of {pv} on c:3 and a demote "
+                 f"of {dv}, actuator calls 0 before approval; the promote "
+                 f"approved: /admin/volume/unconvert in {dt_promote:.3f} s "
+                 f"(K1 {rebuild_k1} == phase 6's), .dat sha256 == phase "
+                 f"3's, b:2's remnants retired; the demote approved and "
+                 f"enqueued sealed, the next convert tick K2 {demote_k2} "
+                 f"for {units} unit(s); both plans done with trace ids; "
+                 f"one background round: loops {sorted(lp['loops'])}, no "
+                 f"error; {len(st['volumes'])} volumes healthy; "
+                 f"{list(refused)} alone answers 404; K1 0")
+    finally:
+        for vs in servers.values():
+            vrun(vs.stop())
+        if master is not None:
+            mrun(master.stop())
+        for loop, th in loops:
+            loop.call_soon_threadsafe(loop.stop)
+            th.join(10)
+        client.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "steps": steps, "counts": counts,
+           "s": time.perf_counter() - t_phase}
+    hlog(f"launches per step {counts}; phase wall {out['s']:.1f} s")
     return out
 
 
@@ -7335,10 +8019,29 @@ def main(argv=None) -> int:
             f"{staged}")
         path_launches = {k: path_launches[k] + planes_launches[k]
                          for k in path_launches}
+
+        # 22 the master's maintenance plane healing, converting and
+        # tiering on four card servers, counted on its own
+        gf_cuda.reset_launches()
+        phases["heal"] = phase_heal(
+            vdir, base, server_src, expect, blob, hashes, aux_hashes,
+            dat_hash, phases, srcs, args.seed, launches)
+        heal_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the heal phase made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        if not all(heal_launches.values()):
+            raise AssertionError(f"the heal phase launched {heal_launches}"
+                                 f": K1 and K2 both expected")
+        log(f"[path] phase 22: launches {heal_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + heal_launches[k]
+                         for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 22 report
+    # 23 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

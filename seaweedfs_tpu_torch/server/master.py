@@ -17,25 +17,34 @@ The master's planes (`stats/`) ride on it: the loop monitor, the metrics
 aggregator with its SLO engine (/cluster/metrics, /cluster/slo), the
 history store, alerts and the capacity forecaster (/cluster/history,
 /cluster/alerts, /cluster/dashboard), the interference observatory and
-its governor of the fleet's scrub rate (/cluster/interference), the
-canary prober (/cluster/canary), the fleet views that fan out to every
-node (/cluster/heat, /cluster/perf, /cluster/trace/{tid},
-/cluster/traces) and /cluster/loops.  Each scrape of the aggregator
-runs the observers in the reference's order: history, forecast,
-alerts, interference, governor, accounting.  WEEDTPU_AGG_INTERVAL and
-WEEDTPU_CANARY_INTERVAL set the two background loops (<= 0: driven on
-demand); every knob of the planes is read at construction, and a
-malformed one raises before the socket binds.
+its governor (/cluster/interference), the canary prober
+(/cluster/canary), the fleet views that fan out to every node
+(/cluster/heat, /cluster/perf, /cluster/trace/{tid}, /cluster/traces)
+and /cluster/loops.  Each scrape of the aggregator runs the observers in
+the reference's order: history, forecast, alerts, interference,
+governor, accounting.
+
+The maintenance plane (`maintenance/`) rides on it too: the repair
+planner and its health ledger (/maintenance/status,
+/maintenance/scrub_report, /maintenance/tick), the fleet-conversion
+scheduler (/maintenance/convert) and the autopilot (/cluster/autopilot).
+The leader ticks them every WEEDTPU_REPAIR_INTERVAL seconds (15; <= 0:
+driven on demand), and yields while the shell holds the admin lock.
+The governor retunes their buckets beside the fleet's scrub rate.
+
+WEEDTPU_AGG_INTERVAL, WEEDTPU_CANARY_INTERVAL and WEEDTPU_REPAIR_INTERVAL
+set the background loops.  Every knob of the planes and of the
+maintenance plane is read at construction, and a malformed one raises
+before the socket binds (the reference reads the repair interval when
+its loop starts, and falls back on a malformed one).
 
 The master has no device: it keeps soft state and routes requests.  Its
-volume servers run the kernels; the canary's degraded probe and the
-governed scrub passes launch them there.
+volume servers run the kernels; the repairs, conversions, promotes and
+recodes it posts, the canary's degraded probe and the governed scrub
+passes launch them there.
 
-Left out until the modules that serve them are ported: the routes of
-`LEFT_OUT`, which answer 404 (the repair planner, the conversion
-scheduler and the autopilot, ROADMAP 1.18d; the geo-replication view,
-1.22).  Without them the governor governs the scrub rate alone, and
-/cluster/slo reads no health ledger.
+Left out until the module that serves it is ported: `LEFT_OUT`, the
+geo-replication view (ROADMAP 1.22), which answers 404.
 """
 
 from __future__ import annotations
@@ -57,6 +66,12 @@ from aiohttp import web
 
 from seaweedfs_tpu_torch import pb
 from seaweedfs_tpu_torch.maintenance import faults
+from seaweedfs_tpu_torch.maintenance.autopilot import (Autopilot,
+                                                       autopilot_mode)
+from seaweedfs_tpu_torch.maintenance.convert import ConvertScheduler
+from seaweedfs_tpu_torch.maintenance.repair import (HEALTH_STATES,
+                                                    RepairPlanner,
+                                                    reduced_enabled)
 from seaweedfs_tpu_torch.ops import codec_tags
 from seaweedfs_tpu_torch.security import tls
 from seaweedfs_tpu_torch.security.jwt import gen_jwt
@@ -68,19 +83,15 @@ from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.topology.raft import RaftConfig, RaftNode
 from seaweedfs_tpu_torch.topology.sequence import SnowflakeSequencer
 from seaweedfs_tpu_torch.topology.topology import Topology, VolumeState
-from seaweedfs_tpu_torch.utils import fanout, weedlog
+from seaweedfs_tpu_torch.utils import fanout, resilience, weedlog
 from seaweedfs_tpu_torch.utils.http import aiohttp_trace_config
-from seaweedfs_tpu_torch.utils.resilience import env_switch
+from seaweedfs_tpu_torch.utils.resilience import _env_float, env_switch
 
 log = logging.getLogger("master")
 
-# the reference master's routes that come with planes not ported yet:
-# the maintenance plane and the autopilot (ROADMAP 1.18d), the
-# geo-replication view (1.22)
-LEFT_OUT = (
-    "/maintenance/status", "/maintenance/scrub_report", "/maintenance/tick",
-    "/maintenance/convert", "/cluster/autopilot", "/cluster/geo",
-)
+# the reference master's route that comes with a plane not ported yet:
+# the geo-replication view (ROADMAP 1.22)
+LEFT_OUT = ("/cluster/geo",)
 
 
 class MasterServer:
@@ -155,6 +166,12 @@ class MasterServer:
             web.get("/cluster/stream", self.handle_cluster_stream),
             web.post("/vol/vacuum", self.handle_vacuum),
             web.post("/vol/vacuum_toggle", self.handle_vacuum_toggle),
+            web.get("/maintenance/status", self.handle_maintenance_status),
+            web.post("/maintenance/scrub_report",
+                     self.handle_scrub_report),
+            web.post("/maintenance/tick", self.handle_maintenance_tick),
+            web.route("*", "/maintenance/convert",
+                      self.handle_maintenance_convert),
             web.post("/raft/peers/add", self.handle_raft_peer_add),
             web.post("/raft/peers/remove", self.handle_raft_peer_remove),
             web.get("/raft/status", self.handle_raft_status),
@@ -174,6 +191,8 @@ class MasterServer:
             web.get("/cluster/history", self.handle_cluster_history),
             web.get("/cluster/interference",
                     self.handle_cluster_interference),
+            web.route("*", "/cluster/autopilot",
+                      self.handle_cluster_autopilot),
             web.get("/cluster/alerts", self.handle_cluster_alerts),
             web.get("/cluster/loops", self.handle_cluster_loops),
             web.get("/cluster/dashboard", self.handle_cluster_dashboard),
@@ -195,14 +214,27 @@ class MasterServer:
         self._grow_lock = asyncio.Lock()
         self._admin_lock: tuple[str, str, float] | None = None  # (token, owner, ts)
         self._expire_task: asyncio.Task | None = None
-        # the planes' 0/1 switches are re-read live by their loops: read
-        # them once here too, so that a malformed one raises before the
-        # socket binds (the other knobs are read by the constructors)
+        # the planes' and the maintenance plane's switches are re-read
+        # live: read them once here too, so that a malformed one raises
+        # before the socket binds (the other knobs are read by the
+        # constructors, the repair interval here)
         for knob in ("WEEDTPU_HISTORY", "WEEDTPU_INTERFERENCE",
                      "WEEDTPU_GOVERNOR"):
             env_switch(knob)
         fanout.pool_cap()
         canary.canary_interval()
+        reduced_enabled()
+        autopilot_mode()
+        self.repair_interval = _env_float("WEEDTPU_REPAIR_INTERVAL", 15.0)
+        # self-healing plane: health ledger + automatic repair executor
+        # (maintenance/repair.py); ticked by _repair_loop on the leader
+        self.maintenance = RepairPlanner(self)
+        self._repair_task: asyncio.Task | None = None
+        # fleet EC conversion scheduler (maintenance/convert.py): paced
+        # background multi-volume encode, ticked in the same background
+        # loop right after the repair planner (repair outranks it)
+        self.convert = ConvertScheduler(self)
+        self._convert_task: asyncio.Task | None = None
         # control-plane observatory (stats/loops.py): every background
         # loop below ticks through this monitor; constructed first
         # because the aggregator and the observer stages report into it
@@ -221,9 +253,17 @@ class MasterServer:
         self.alerts = history.AlertEngine(self.history,
                                           pin_fn=trace.pin_trace)
         self.forecaster = history.CapacityForecaster(self.history)
+        # autopilot (maintenance/autopilot.py): the policy engine that
+        # turns heat/forecast/health telemetry into typed, dry-run-able
+        # action plans.  Constructed BEFORE the governor so its
+        # per-policy pacing buckets register as governed targets like
+        # repair/convert/scrub
+        self.autopilot = Autopilot(self)
+        self._autopilot_task: asyncio.Task | None = None
         # interference (stats/interference.py): the per-node foreground
         # impact index rides the same observer seam, and the governor
-        # retunes the fleet's scrub rate off it right after
+        # retunes the repair/convert/autopilot buckets and the fleet's
+        # scrub rate off it right after
         self.interference = interference.InterferenceObservatory()
         self.governor = interference.Governor(self, self.interference)
         self.aggregator.observers.append(self._on_scrape)
@@ -270,6 +310,7 @@ class MasterServer:
                            ssl_context=tls.server_ssl("master"))
         await site.start()
         self._expire_task = asyncio.create_task(self._expire_loop())
+        self._repair_task = asyncio.create_task(self._repair_loop())
         profile.ensure_started()  # WEEDTPU_PROFILE_HZ, process-wide
         faults.register_node(self.url, "master")
         if self.region:
@@ -286,6 +327,14 @@ class MasterServer:
         self.canary.stop()
         if self._expire_task:
             self._expire_task.cancel()
+        if self._repair_task:
+            self._repair_task.cancel()
+        if self._convert_task:
+            self._convert_task.cancel()
+        if self._autopilot_task:
+            self._autopilot_task.cancel()
+        for task in list(self.autopilot._tasks):
+            task.cancel()  # in-flight plan executions die with the master
         # wake /cluster/stream subscribers so their handlers return and
         # runner.cleanup() doesn't wait out its shutdown timeout on them
         for q in list(self._vid_subscribers):
@@ -450,6 +499,250 @@ class MasterServer:
             except aiohttp.ClientError as e:
                 log.warning("vacuum of %d on %s failed: %s", vid, url, e)
         return vacuumed
+
+    # -- self-healing maintenance plane ---------------------------------
+
+    async def _repair_loop(self) -> None:
+        """Background planner ticks (leader only) every
+        `repair_interval` seconds; <= 0 disables the loop (repairs then
+        run only via explicit /maintenance/tick).  The loop yields while
+        the shell holds the admin lock: automatic maintenance must not
+        race an operator."""
+        interval = self.repair_interval
+        if interval <= 0:
+            return
+        while True:
+            await asyncio.sleep(interval)
+            if not self.is_leader:
+                continue
+            if self._admin_lock and \
+                    time.time() - self._admin_lock[2] < 30:
+                continue
+            await self.maintenance_round(interval)
+
+    async def maintenance_round(self, interval: float | None = None
+                                ) -> list[asyncio.Task]:
+        """One round of the background loop: the planner's tick, then the
+        conversion and autopilot ticks, each as a task of its own (never
+        overlapping itself), all through the loop monitor.  Returns those
+        two tasks; the loop leaves them running, a caller that drives
+        the round by hand (the repair interval <= 0) may await them."""
+        try:
+            with self.loops.tick("repair", interval=interval) as lt:
+                actions = await self.maintenance.tick()
+                lt.items = len(actions)
+                lt.backlog = len(self.maintenance._active_vids)
+        except Exception:
+            log.warning("repair tick failed", exc_info=True)
+        # conversion rides the same cadence but runs as its OWN task
+        # (never overlapping itself): a node batch can hold its HTTP call
+        # open for minutes, and awaiting it inline would starve the
+        # repair tick above — inverting the repair-outranks-conversion
+        # priority exactly when loss recovery is urgent
+        t = self._convert_task
+        if t is None or t.done():
+            self._convert_task = asyncio.create_task(
+                self._convert_tick_once())
+        # the autopilot rides the same cadence, also as its own
+        # non-overlapping task: a promote decode or a volume move can
+        # hold its actuator call open for minutes
+        t = self._autopilot_task
+        if t is None or t.done():
+            self._autopilot_task = asyncio.create_task(
+                self._autopilot_tick_once())
+        return [self._convert_task, self._autopilot_task]
+
+    async def _convert_tick_once(self) -> None:
+        try:
+            with self.loops.tick("convert") as lt:
+                launched = await self.convert.tick()
+                lt.items = len(launched)
+                lt.backlog = len(self.convert.queued)
+        except Exception:
+            log.warning("convert tick failed", exc_info=True)
+
+    async def _autopilot_tick_once(self) -> None:
+        try:
+            with self.loops.tick("autopilot") as lt:
+                plans = await self.autopilot.tick()
+                lt.items = len(plans)
+        except Exception:
+            log.warning("autopilot tick failed", exc_info=True)
+
+    def _health_snapshot(self) -> dict:
+        led = self.maintenance.ledger()  # also refreshes VOLUME_HEALTH
+        counts = {s: 0 for s in HEALTH_STATES}
+        for info in led.values():
+            counts[info["state"]] = counts.get(info["state"], 0) + 1
+        snap = {"volumes": {str(vid): info
+                            for vid, info in sorted(led.items())},
+                "states": counts,
+                "planner": self.maintenance.status(),
+                "convert": self.convert.status()}
+        # resilience plane: per-peer breaker states feed the health
+        # ledger (a tripped breaker is a node the data path has already
+        # given up on — often minutes before the heartbeat horizon says
+        # so), plus armed chaos faults so `chaos.status` can show an
+        # operator what is injected vs what is organically broken
+        snap["resilience"] = {
+            "breakers": resilience.breakers_snapshot(),
+            "retry_budget": resilience.retry_budget().snapshot(),
+            "hedge_pct": resilience.hedge_pct(),
+            "faults": faults.net_snapshot(),
+        }
+        try:
+            # SLO view from whatever the aggregator last pulled — status
+            # must not block on a fleet scrape
+            snap["slo"] = self.aggregator.slo_status()
+        except Exception:
+            log.warning("slo status failed", exc_info=True)
+        try:
+            # firing alerts + capacity forecasts from the history plane:
+            # both read cached state, never a fleet fan-out
+            snap["alerts"] = self.alerts.status()
+            snap["capacity"] = self.forecaster.snapshot()
+            snap["history"] = self.history.status()
+        except Exception:
+            log.warning("alert status failed", exc_info=True)
+        try:
+            # interference headline + governed rates (cached state only;
+            # /cluster/interference has the per-node detail)
+            snap["interference"] = {
+                "classes": self.interference.fleet_index(),
+                "governor": self.governor.status()}
+        except Exception:
+            log.warning("interference status failed", exc_info=True)
+        try:
+            # autopilot headline (mode, plan-state counts, last plans);
+            # /cluster/autopilot has the full ledger
+            snap["autopilot"] = self.autopilot.headline()
+        except Exception:
+            log.warning("autopilot status failed", exc_info=True)
+        try:
+            # control-plane loops headline (slowest loop + overruns);
+            # /cluster/loops has per-loop detail and cardinality
+            snap["loops"] = {"headline": self.loops.headline()}
+        except Exception:
+            log.warning("loops status failed", exc_info=True)
+        with self._heat_lock:
+            cached = self._heat_cache
+        if cached is not None:
+            # workload heat headline from the LAST merged view only —
+            # status never blocks on a fleet fan-out (hit /cluster/heat
+            # for a fresh one)
+            ts, merged = cached
+            snap["heat"] = {
+                "ts": ts,
+                "volumes": merged.get("volumes", {}).get("top", [])[:5],
+                "tenants": merged.get("tenants", {}).get("top", [])[:5],
+            }
+        return snap
+
+    async def handle_maintenance_status(self, req: web.Request
+                                        ) -> web.Response:
+        """Machine-readable cluster health: the per-volume ledger the
+        repair planner acts on, plus planner/executor state.  The
+        maintenance.status shell command and volume.fsck -json read
+        this.  It has no `geo` block: the reference adds one only with
+        geo directions, peers or a region (ROADMAP 1.22)."""
+        return web.json_response(self._health_snapshot())
+
+    async def handle_scrub_report(self, req: web.Request) -> web.Response:
+        """Scrub verdict intake from volume servers (maintenance/scrub.py
+        report hook)."""
+        try:
+            body = await req.json()
+        except ValueError:
+            return web.json_response({"error": "bad json"}, status=400)
+        node = body.get("node", "")
+        if not node:
+            return web.json_response({"error": "node required"}, status=400)
+        self.maintenance.record_scrub(node, body)
+        return web.json_response({})
+
+    async def handle_maintenance_tick(self, req: web.Request
+                                      ) -> web.Response:
+        """Force one planner tick; {"wait": true} blocks until every
+        launched repair finishes — the deterministic hook tests drive
+        instead of sleeping on the background loop."""
+        if not self.is_leader:
+            return self._not_leader_response()
+        try:
+            body = await req.json()
+        except ValueError:
+            body = {}
+        actions = await self.maintenance.tick()
+        if body.get("wait"):
+            await self.maintenance.wait_idle()
+        return web.json_response({"actions": actions})
+
+    async def handle_maintenance_convert(self, req: web.Request
+                                         ) -> web.Response:
+        """Fleet-conversion scheduler surface: GET returns scheduler
+        state; POST {"volumes": [vids]} queues volumes (with "seal":
+        true, sealed on success), {"tick": true} forces one
+        deterministic paced tick."""
+        if req.method == "GET":
+            return web.json_response(self.convert.status())
+        if not self.is_leader:
+            return self._not_leader_response()
+        try:
+            body = await req.json()
+        except ValueError:
+            body = {}
+        accepted = self.convert.enqueue(body.get("volumes") or [],
+                                        seal=bool(body.get("seal")))
+        actions = []
+        if body.get("tick"):
+            actions = await self.convert.tick()
+        return web.json_response({"accepted": accepted,
+                                  "actions": actions,
+                                  "status": self.convert.status()})
+
+    async def handle_cluster_autopilot(self, req: web.Request
+                                       ) -> web.Response:
+        """/cluster/autopilot: the decision ledger — mode, per-policy
+        pacing buckets, hysteresis clocks, and every plan with its
+        state and pinned trace id.  POST drives the state machine:
+        {"tick": true} runs one deterministic policy pass,
+        {"approve": "<id>"} executes one plan (the plan-mode runbook
+        step), {"abort": "<id>"} kills a not-yet-executing plan,
+        {"wait": true} blocks until launched executions settle.
+        Loopback-gated like every operator surface (plans name nodes,
+        volumes, and trace ids)."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        if req.method == "GET":
+            return web.json_response(self.autopilot.status())
+        if req.method != "POST":
+            return web.json_response({"error": "method not allowed"},
+                                     status=405)
+        if not self.is_leader:
+            return self._not_leader_response()
+        try:
+            body = await req.json()
+        except ValueError:
+            body = {}
+        out: dict = {}
+        try:
+            if body.get("approve"):
+                out["approved"] = self.autopilot.serialize_plan(
+                    self.autopilot.approve(str(body["approve"])))
+            if body.get("abort"):
+                out["aborted"] = self.autopilot.serialize_plan(
+                    self.autopilot.abort(str(body["abort"])))
+        except KeyError as e:
+            return web.json_response({"error": f"no plan {e.args[0]}"},
+                                     status=404)
+        except ValueError as e:
+            return web.json_response({"error": str(e)}, status=409)
+        if body.get("tick"):
+            out["plans"] = await self.autopilot.tick()
+        if body.get("wait"):
+            await self.autopilot.wait_idle()
+        out["status"] = self.autopilot.status()
+        return web.json_response(out)
 
     async def handle_vacuum_toggle(self, req: web.Request) -> web.Response:
         """Pause/resume the automatic vacuum scan (reference: shell
@@ -1035,11 +1328,13 @@ class MasterServer:
 
     async def handle_cluster_slo(self, req: web.Request) -> web.Response:
         """Burn-rate SLO evaluation over the merged fleet metrics;
-        ?refresh=1 pulls before evaluating.  The reference first
-        rebuilds its repair planner's health ledger (the gauge its
-        `repair_backlog` rule reads); the port has no ledger until the
-        planner comes, so that rule sees no series."""
+        ?refresh=1 pulls before evaluating."""
         try:
+            # the backlog rule reads the VOLUME_HEALTH gauge, which only
+            # moves when the ledger is rebuilt — and the repair loop
+            # (its usual rebuilder) parks while operators hold the admin
+            # lock, exactly when they are ASKING about backlog
+            self.maintenance.ledger()
             await asyncio.to_thread(
                 self.aggregator.ensure_fresh,
                 0.0 if req.query.get("refresh") else None)

@@ -1,7 +1,7 @@
 """Live interference observatory + the governor that obeys it.
 
-Counterpart of `seaweedfs_tpu/stats/interference.py`: the observatory
-whole, and the governor with its ``scrub`` target only.  Background
+Counterpart of `seaweedfs_tpu/stats/interference.py`, whole: the
+observatory and the governor with all its targets.  Background
 work's foreground cost is nonlinear and device-local (the SSD-array
 study, arXiv 1709.05365) and concentrates on the hot nodes (the
 warehouse study, arXiv 1309.0186), so the throttle is a live, per-node
@@ -21,21 +21,23 @@ measurement, not a constant somebody tuned once.
   doubled).  It decays on quiet ticks, so recovery shows within a few
   ticks of the load stopping.
 
-- **Governor** — closes the loop each aggregator tick.  Its target here
-  is the fleet scrub rate (MB/s), pushed to every volume server's
-  ``/admin/scrub_rate`` as a fraction of the ceiling
-  (``WEEDTPU_SCRUB_MBPS``, the configured static rate).  It reads the
-  fleet index of class ``scrub`` (max over nodes: the worst node binds)
-  and retunes between ``FLOOR_FRAC`` x ceiling and the ceiling: over
-  ``TARGET`` the rate scales by target/index; at or under it the rate
-  ramps back by ``STEP``.  Every retune is a traced, pinned event: a
+- **Governor** — closes the loop each aggregator tick.  Its targets are
+  the repair planner's cross-rack byte budget (``repair_xrack``, class
+  ``repair``), the conversion scheduler's pacing bucket (``convert``),
+  the autopilot's plan buckets (``autopilot_tier``, class ``convert``;
+  ``autopilot_balance``, ``rebalance``; ``autopilot_chunk``,
+  ``readahead``) and the fleet scrub rate (``scrub``, MB/s), which is
+  pushed to every volume server's ``/admin/scrub_rate`` as a fraction of
+  its ceiling (``WEEDTPU_SCRUB_MBPS``).  Each ceiling is the configured
+  static rate.  Per target the governor reads the fleet index of its
+  class (max over nodes: the worst node binds) and retunes between
+  ``FLOOR_FRAC`` x ceiling and the ceiling: over ``TARGET`` the rate
+  scales by target/index; at or under it the rate ramps back by
+  ``STEP``.  Every retune is a traced, pinned event: a
   ``governor.retune`` span under its own root, a decision record in
   ``/cluster/interference``, and the ``weedtpu_governor_rate{target}``
   and ``weedtpu_governor_retunes_total{target,direction}`` series.
-  ``WEEDTPU_GOVERNOR=0`` restores the ceiling once.  The reference's
-  ``repair_xrack`` and ``convert`` targets govern the repair planner's
-  and the conversion scheduler's buckets, and its ``autopilot_*``
-  targets the autopilot's; they come with those planes (ROADMAP 1.18d).
+  ``WEEDTPU_GOVERNOR=0`` restores every ceiling once.
 
 Knobs: ``WEEDTPU_INTERFERENCE`` and ``WEEDTPU_GOVERNOR`` (0 or 1,
 re-read live), ``WEEDTPU_INTERF_MIN_SAMPLES`` and
@@ -336,19 +338,34 @@ class InterferenceObservatory:
 # -- the governor ---------------------------------------------------------
 
 class Governor:
-    """Retune the fleet scrub rate each aggregator tick, proportionally
-    to the live interference index of class ``scrub``, between a floor
-    and the configured (static-knob) ceiling.
+    """Retune the background-work rate limiters each aggregator tick,
+    proportionally to the live interference index, between a floor and
+    the configured (static-knob) ceiling.
 
-    Control law with index ``i`` and target ``t`` (``TARGET``):
-    ``i > t`` -> rate x t/i (proportional backoff, floored at
-    ``FLOOR_FRAC`` x ceiling); ``i <= t`` -> rate x ``STEP``, capped at
-    the ceiling.  Retunes smaller than 5% are skipped (a deadband, so a
-    hovering index does not generate a decision per tick).  The scrub
-    rate is pushed to every volume server's ``/admin/scrub_rate`` when
-    it changes (never when WEEDTPU_SCRUB_MBPS <= 0: scrub is off)."""
+    Targets:
+
+    - ``repair_xrack`` — the repair planner's cross-rack byte budget
+      (bytes/s), class ``repair``;
+    - ``convert`` — the conversion scheduler's pacing bucket
+      (volumes/s), class ``convert``;
+    - ``scrub`` — the fleet scrub rate (MB/s), class ``scrub``, pushed
+      to every volume server's ``/admin/scrub_rate`` when it changes
+      (skipped entirely when WEEDTPU_SCRUB_MBPS <= 0: scrub is off);
+    - ``autopilot_tier`` / ``autopilot_balance`` / ``autopilot_chunk`` —
+      the autopilot's per-policy plan buckets
+      (maintenance/autopilot.py), classes ``convert``, ``rebalance``
+      and ``readahead``: placement decisions back off with the same
+      law as the work they schedule.
+
+    Control law, per target with index ``i`` and target ``t``
+    (``TARGET``): ``i > t`` -> rate x t/i (proportional backoff,
+    floored at ``FLOOR_FRAC`` x ceiling); ``i <= t`` -> rate x
+    ``STEP``, capped at the ceiling.  Retunes smaller than 5% are
+    skipped (a deadband, so a hovering index does not generate a
+    decision per tick)."""
 
     DEADBAND = 0.05
+    INTERFERENCE_ALERT = "interference_high"  # the pause rule we replace
     PIN_INTERVAL_S = 60.0  # pinned-retune-trace rate limit per target
     # while the fleet scrub rate sits away from its ceiling, re-push it
     # this often even without a new decision: a volume server that
@@ -362,10 +379,29 @@ class Governor:
         self.target = TARGET
         self.floor_frac = FLOOR_FRAC
         self.step = STEP
-        # the ceiling is the CONFIGURED static rate, captured once: the
-        # governor moves the rate below it, never above
-        self.ceilings = {"scrub": _env_float("WEEDTPU_SCRUB_MBPS", 8.0)}
-        self.classes = {"scrub": "scrub"}
+        # ceilings are the CONFIGURED static rates, captured once: the
+        # governor moves rates below them, never above
+        self.ceilings = {
+            "repair_xrack": master.maintenance.xrack_bucket.rate,
+            "convert": master.convert.bucket.rate,
+            "scrub": _env_float("WEEDTPU_SCRUB_MBPS", 8.0),
+        }
+        self.classes = {"repair_xrack": "repair", "convert": "convert",
+                        "scrub": "scrub"}
+        # the autopilot's per-policy pacing buckets are governed like
+        # any other background work: tiering plans feed the convert
+        # plane, balance moves are their own rebalance class
+        ap = getattr(master, "autopilot", None)
+        if ap is not None:
+            self.ceilings["autopilot_tier"] = ap.buckets["tiering"].rate
+            self.ceilings["autopilot_balance"] = \
+                ap.buckets["balance"].rate
+            self.classes["autopilot_tier"] = "convert"
+            self.classes["autopilot_balance"] = "rebalance"
+            # chunk promotion's seed pull-throughs book as readahead
+            if "chunk" in ap.buckets:
+                self.ceilings["autopilot_chunk"] = ap.buckets["chunk"].rate
+                self.classes["autopilot_chunk"] = "readahead"
         self._scrub_rate = self.ceilings["scrub"]
         self._last_push = 0.0
         # a fresh master does not know what rate the fleet's scrubbers
@@ -382,9 +418,41 @@ class Governor:
         self._lock = threading.Lock()
         self.decisions: list[dict] = []
         self.retunes = 0
-        metrics.GOVERNOR_RATE.labels("scrub").set(self._scrub_rate)
+        for name in self.ceilings:
+            metrics.GOVERNOR_RATE.labels(name).set(
+                self._current_rate(name))
 
     # -- rate plumbing ---------------------------------------------------
+
+    def _bucket(self, name: str):
+        """The governed TokenBucket for a target, None for scrub (whose
+        'rate' is the fleet MB/s pushed over HTTP, not a bucket)."""
+        if name == "repair_xrack":
+            return self.master.maintenance.xrack_bucket
+        if name == "convert":
+            return self.master.convert.bucket
+        if name == "autopilot_tier":
+            return self.master.autopilot.buckets["tiering"]
+        if name == "autopilot_balance":
+            return self.master.autopilot.buckets["balance"]
+        if name == "autopilot_chunk":
+            return self.master.autopilot.buckets["chunk"]
+        return None
+
+    def _current_rate(self, name: str) -> float:
+        b = self._bucket(name)
+        return b.rate if b is not None else self._scrub_rate
+
+    def _apply_rate(self, name: str, rate: float) -> None:
+        """Apply a bucket rate.  Scrub only records the new fleet rate
+        here — the HTTP fan-out happens AFTER the governor lock drops
+        (tick()), so status() readers and the scrape cadence never
+        block behind a partitioned node's connect timeout."""
+        b = self._bucket(name)
+        if b is not None:
+            b.set_rate(rate)
+        else:
+            self._scrub_rate = rate
 
     def _push_scrub_rate(self, mbps: float) -> None:
         """Fan the new scrub rate out to every volume server over the
@@ -442,7 +510,7 @@ class Governor:
                     # switched-off governor must not strand a
                     # backed-off rate
                     for name, ceiling in self.ceilings.items():
-                        if self._scrub_rate != ceiling:
+                        if self._current_rate(name) != ceiling:
                             made.append(self._retune(ts, name, None,
                                                      ceiling,
                                                      reason="disabled"))
@@ -455,7 +523,7 @@ class Governor:
                         continue  # the static knob disabled this class
                     rec = fleet.get(self.classes[name])
                     idx = rec["index"] if rec else 0.0
-                    cur = self._scrub_rate
+                    cur = self._current_rate(name)
                     floor = ceiling * self.floor_frac
                     if idx > self.target:
                         want = max(floor,
@@ -521,7 +589,7 @@ class Governor:
         """Apply one rate change and make it an auditable event: a
         pinned ``governor.retune`` trace, a decision record, and the
         retune counter/gauge series the history store retains."""
-        old = self._scrub_rate
+        old = self._current_rate(name)
         direction = "up" if rate > old else "down"
         root = trace.new_root(sampled=True)
         if ts - self._last_pin.get(name, 0.0) >= self.PIN_INTERVAL_S:
@@ -538,10 +606,7 @@ class Governor:
                         to_rate=round(rate, 3),
                         direction=direction,
                         reason=reason or "interference"):
-            # the HTTP fan-out happens after the governor lock drops
-            # (tick()), so status() readers and the scrape cadence never
-            # block behind a partitioned node's connect timeout
-            self._scrub_rate = rate
+            self._apply_rate(name, rate)
         metrics.GOVERNOR_RATE.labels(name).set(round(rate, 3))
         metrics.GOVERNOR_RETUNES.labels(name, direction).inc()
         self.retunes += 1
@@ -578,7 +643,7 @@ class Governor:
                 rec = fleet.get(self.classes[name])
                 targets[name] = {
                     "class": self.classes[name],
-                    "rate": round(self._scrub_rate, 3),
+                    "rate": round(self._current_rate(name), 3),
                     "ceiling": ceiling,
                     "floor": round(ceiling * self.floor_frac, 3),
                     "index": rec["index"] if rec else 0.0,

@@ -3,8 +3,8 @@
 Counterpart of `seaweedfs_tpu/stats/loops.py`, whole.  The master runs
 a dozen background loops (aggregator scrape, history record, alert
 evaluation, capacity forecast, interference observe, governor, canary,
-membership expiry; the repair planner, convert scheduler and autopilot
-come with ROADMAP 1.18d).  Each was a black box: the only way to see one
+membership expiry, the repair planner, convert scheduler and
+autopilot).  Each was a black box: the only way to see one
 falling behind was secondary damage (stale scrape-age alerts, repair
 backlog).  `LoopMonitor` gives every loop the same four vital signs —
 wall seconds, CPU seconds, items processed, backlog depth — plus

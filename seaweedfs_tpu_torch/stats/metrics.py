@@ -5,8 +5,8 @@ Counterpart of `seaweedfs_tpu/stats/metrics.py` (reference:
 weed/stats/metrics.go), cut to what the port's data plane touches: the
 metric classes, the registry and its exposition format 0.0.4 (OpenMetrics
 on request) with its own size (`series_count`, `weedtpu_metric_series`),
-the families the port's telemetry, its volume server, its master and the
-master's planes book into, under the reference's names, labels and
+the families the port's telemetry, its volume server, its master, the
+master's planes and its maintenance plane book into, under the reference's names, labels and
 buckets, and the servers' `/metrics` response (`scrape_response`).  The
 push-gateway loop (`MetricsPusher`) is left out for want of a caller;
 the other servers' families come with those servers.
@@ -316,11 +316,17 @@ SCRUB_BYTES = REGISTRY.counter(
 SCRUB_CORRUPTIONS = REGISTRY.counter(
     "weedtpu_scrub_corruptions_total",
     "corruptions found by the scrubber", ("kind",))
+REPAIR_ACTIONS = REGISTRY.counter(
+    "weedtpu_repair_actions_total",
+    "automatic repair executions by outcome", ("kind", "outcome"))
 REPAIR_BYTES = REGISTRY.counter(
     "weedtpu_repair_bytes_total",
     "repair bytes moved by locality class of the source "
     "(node/rack/dc/remote; reduced-path partials measured, naive "
     "survivor copies estimated)", ("locality",))
+VOLUME_HEALTH = REGISTRY.gauge(
+    "weedtpu_volume_health", "volumes per health-ledger state (master)",
+    ("state",))
 # data-plane observatory (stats/pipeline.py, stats/profile.py): busy
 # seconds per pipeline stage (1 busy-second/second == a saturated stage),
 # bytes per stage, and each kernel row's achieved fraction of the
@@ -432,6 +438,22 @@ GOVERNOR_RETUNES = REGISTRY.counter(
     "weedtpu_governor_retunes_total",
     "governor rate-retune decisions by target and direction (up/down)",
     ("target", "direction"))
+# the master's maintenance plane (maintenance/convert.py,
+# autopilot.py): volumes put back on the conversion queue, and the
+# autopilot's plans per policy and executions per policy and outcome
+CONVERT_REQUEUED = REGISTRY.counter(
+    "weedtpu_convert_requeued_total",
+    "fleet-conversion volumes re-queued (never dropped) by reason "
+    "(node_error: the node call failed; skipped: the node answered "
+    "but left the volume unconverted)", ("reason",))
+AUTOPILOT_PLANS = REGISTRY.counter(
+    "weedtpu_autopilot_plans_total",
+    "autopilot action plans created, by policy "
+    "(tiering_demote / tiering_promote / balance_move)", ("policy",))
+AUTOPILOT_ACTIONS = REGISTRY.counter(
+    "weedtpu_autopilot_actions_total",
+    "autopilot plan executions by policy and outcome (done/aborted)",
+    ("policy", "outcome"))
 METRIC_SERIES = REGISTRY.gauge(
     "weedtpu_metric_series",
     "label sets live across all metric families in this registry")

@@ -27,8 +27,10 @@ read engine (storage/ec/ec_volume.py) and the pooled client
 Every knob is read per call, under the reference's name and default.  A
 malformed value raises ValueError, where the reference falls back to the
 default.  `Backoff` and `backoff_delay` serve the master's daemon loops
-(the aggregator's and the canary's); `retry_call` comes with its first
-caller, the replication sink.
+(the aggregator's and the canary's) and the repair planner's and
+conversion scheduler's per-volume backoffs; `retry_async` the
+scheduler's node calls.  `retry_call` comes with its first caller, the
+replication sink.
 """
 
 from __future__ import annotations
@@ -253,6 +255,38 @@ class Backoff:
 
     def reset(self) -> None:
         self._sleep = 0.0
+
+
+async def retry_async(fn, *, attempts: int = 4, base: float = 0.5,
+                      cap: float = 30.0, cls: str = "default",
+                      retry_on: tuple = (OSError,), giveup=None):
+    """Call the coroutine factory `fn` up to `attempts` times, retrying
+    on `retry_on` (unless `giveup(e)` says not to) after a
+    decorrelated-jitter sleep; each retry spends a permit of class
+    `cls` from the retry budget and stops when none is left or the
+    ambient deadline has passed.  The last error is raised."""
+    import asyncio
+    bo = Backoff(base, cap)
+    last: BaseException | None = None
+    for attempt in range(max(1, attempts)):
+        if attempt:
+            rem = remaining()
+            if rem is not None and rem <= 0:
+                break
+            if not spend_retry(cls):
+                break
+            delay = bo.next()
+            if rem is not None:
+                delay = min(delay, max(0.0, rem))
+            await asyncio.sleep(delay)
+        try:
+            return await fn()
+        except retry_on as e:
+            last = e
+            if giveup is not None and giveup(e):
+                raise
+    assert last is not None
+    raise last
 
 
 # -- hedging -------------------------------------------------------------

@@ -59,11 +59,13 @@ def child_env(**extra) -> dict:
 
 
 class PortCluster:
-    """The reference master in process, `n_port` port volume servers in
-    subprocesses and `n_ref` reference volume servers in process."""
+    """A master in process (the reference's, or with `master="port"` the
+    port's), `n_port` port volume servers in subprocesses and `n_ref`
+    reference volume servers in process."""
 
     def __init__(self, tmp_path, n_port=2, n_ref=0, env=None,
-                 volume_size_limit=64 * 1024 * 1024):
+                 volume_size_limit=64 * 1024 * 1024, master="reference"):
+        self.master_kind = master
         self.tmp = pathlib.Path(tmp_path)
         self.n_port, self.n_ref = n_port, n_ref
         self.env = child_env(**(env or {}))
@@ -83,6 +85,8 @@ class PortCluster:
     def start(self):
         from seaweedfs_tpu.server.master import MasterServer
         from seaweedfs_tpu.server.volume_server import VolumeServer
+        if self.master_kind == "port":
+            from seaweedfs_tpu_torch.server.master import MasterServer
         self.thread.start()
         self.master = MasterServer("127.0.0.1", free_port(),
                                    volume_size_limit=self.volume_size_limit)

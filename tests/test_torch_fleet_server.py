@@ -3,8 +3,9 @@ reference: `/admin/ec/fleet_convert` and `convert_volumes`' progress and
 cancel.
 
 Twins of tests/test_fleet_convert.py's cancel, cluster and partial-failure
-tests, with the reference master in process over a port volume server on
-the same loop (`device="cpu"`), and the fleet handler's files and answer
+tests, with the reference master (and, for the cluster and
+partial-failure twins, the port's) in process over a port volume server
+on the same loop (`device="cpu"`), and the fleet handler's files and answer
 against the reference handler's on copies of the same volumes (the
 reference's codec WEEDTPU_CONVERT_CODEC=numpy, set only around its call).
 """
@@ -206,6 +207,24 @@ def node(tmp_path_factory):
     h.stop()
 
 
+@pytest.fixture(scope="module")
+def port_node(tmp_path_factory):
+    """The port's master (its repair loop off) and one port volume server
+    in process."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("WEEDTPU_REPAIR_INTERVAL", "0")
+    h = Harness(tmp_path_factory.mktemp("fleet_port_node"), n=1,
+                master="port")
+    mp.undo()
+    yield h
+    h.stop()
+
+
+def _node(request, master):
+    return request.getfixturevalue("node" if master == "reference"
+                                   else "port_node")
+
+
 def _upload(h, n, seed, collection):
     from seaweedfs_tpu.client import WeedClient
     client = WeedClient(h.master.url)
@@ -225,18 +244,21 @@ async def _enqueue_and_tick(master, vids):
     return {"accepted": accepted, "actions": actions}
 
 
-def test_cluster_fleet_convert_end_to_end(node):
+@pytest.mark.parametrize("master", ["reference", "port"])
+def test_cluster_fleet_convert_end_to_end(request, master):
     """Twin of tests/test_fleet_convert.py::test_cluster_fleet_convert_
-    end_to_end: the reference master's conversion scheduler paces a
-    /admin/ec/fleet_convert batch to the port node; whole shard sets
-    commit with .ecx and .vif, the orchestration hop books as class
-    convert, and every blob reads back."""
+    end_to_end: the master's conversion scheduler (the reference's or
+    the port's) paces a /admin/ec/fleet_convert batch to the port node;
+    whole shard sets commit with .ecx and .vif, the orchestration hop
+    books as class convert, and every blob reads back."""
+    node = _node(request, master)
+    flow = ref_netflow if master == "reference" else netflow
     client, blobs = _upload(node, 12, seed=0xFEE7, collection="fleet")
     vs = node.vs[0]
     vids = sorted({int(f.partition(",")[0]) for f in blobs})
     for v in vids:
         vs.store.get_volume(v).nm.flush()
-    recv0 = ref_netflow.class_total("recv", "convert")
+    recv0 = flow.class_total("recv", "convert")
     res = node.submit(asyncio.wait_for(_enqueue_and_tick(node.master, vids),
                                        60))
     assert res["accepted"] == vids
@@ -247,16 +269,19 @@ def test_cluster_fleet_convert_end_to_end(node):
         assert os.path.exists(base + ".ecx")
         assert ec_files.read_vif(base) is not None
         assert vs.store.get_volume(v).read_only
-    assert ref_netflow.class_total("recv", "convert") > recv0
+    assert flow.class_total("recv", "convert") > recv0
     for fid, data in blobs.items():
         assert client.download(fid) == data
 
 
-def test_fleet_convert_partial_failure_settles_freeze(node, monkeypatch):
+@pytest.mark.parametrize("master", ["reference", "port"])
+def test_fleet_convert_partial_failure_settles_freeze(request, master,
+                                                      monkeypatch):
     """Twin of tests/test_fleet_convert.py::test_fleet_convert_partial_
-    failure_settles_freeze: a run that dies after its first volume
-    committed keeps that volume frozen with its .ecx and thaws the
-    rolled-back one."""
+    failure_settles_freeze, under either master: a run that dies after
+    its first volume committed keeps that volume frozen with its .ecx
+    and thaws the rolled-back one."""
+    node = _node(request, master)
     _, first = _upload(node, 6, seed=11, collection="freeze1")
     _, second = _upload(node, 3, seed=12, collection="freeze2")
     vs = node.vs[0]

@@ -8,8 +8,7 @@ and compares the answers with ``==``, floats included: both are the
 same pure-Python arithmetic.  Then the twins of tests/test_history.py's
 3-node cases on a cluster that is all the port's (its master and
 `device="cpu"` volume servers), driven by the reference's client and
-shell.  The reference's `/maintenance/status` lines wait for the repair
-planner (ROADMAP 1.18d) and are left out of the twins.
+shell, `/maintenance/status` and `maintenance.status` included.
 """
 
 import io
@@ -622,6 +621,14 @@ def test_cluster_alerts_fire_on_delay_fault_and_clear(hist_cluster):
         run_command(CommandEnv(c.master.url), "cluster.alerts", out)
         assert "read_time_burn" in out.getvalue() and \
             "FIRING" in out.getvalue(), out.getvalue()
+        # the firing alert surfaces in maintenance.status and its shell
+        # command
+        mst = _get(c.master.url, "/maintenance/status")
+        assert next(r for r in mst["alerts"]["rules"]
+                    if r["name"] == "read_time_burn")["state"] == "firing"
+        out = io.StringIO()
+        run_command(CommandEnv(c.master.url), "maintenance.status", out)
+        assert "alerts:" in out.getvalue(), out.getvalue()
     finally:
         for vs in c.volume_servers:
             _post(vs.url, "/admin/faults", {"faults": [

@@ -2,16 +2,15 @@
 (seaweedfs_tpu_torch/stats/interference.py) held to the reference's on
 the CPU.
 
-The observatory is ported whole: each case feeds both packages' the
-same scripted ticks (parsed from each package's own registry) and
-compares their state and snapshots with ``==``.  The port's governor
-has one target, the fleet scrub rate: the reference's `repair_xrack`
-and `convert` targets govern planes that come with ROADMAP 1.18d.  Its
-scrub decisions are held against the reference's governor run on a
-stub master that has the two buckets, both fed the same observatory
-state.  Then twins of tests/test_interference.py but its xrack,
-convert-pause and bench trajectory cases, and its 3-node case on port
-nodes, scrub half only.
+Both are ported whole: each case feeds both packages the same scripted
+ticks (parsed from each package's own registry) and compares their
+state, snapshots and decisions with ``==``.  The governors run on stub
+masters that carry each package's own repair, conversion and autopilot
+buckets.  Then twins of tests/test_interference.py but its xrack,
+convert-pause and bench trajectory cases (those are in
+tests/test_torch_repair_planner.py and
+tests/test_torch_convert_scheduler.py), and its 3-node case on port
+nodes.
 """
 
 import copy
@@ -22,12 +21,12 @@ import types
 
 import pytest
 
-from seaweedfs_tpu.maintenance.repair import TokenBucket
+from seaweedfs_tpu.maintenance import repair as ref_repair
 from seaweedfs_tpu.stats import aggregate as ref_ag
 from seaweedfs_tpu.stats import interference as ref_itf
 from seaweedfs_tpu.stats import metrics as ref_metrics
 
-from seaweedfs_tpu_torch.maintenance import scrub
+from seaweedfs_tpu_torch.maintenance import repair, scrub
 from seaweedfs_tpu_torch.stats import aggregate as ag
 from seaweedfs_tpu_torch.stats import interference as itf
 from seaweedfs_tpu_torch.stats import metrics, netflow, trace
@@ -285,21 +284,26 @@ class _FakeTopo:
         self._lock = threading.Lock()
 
 
-def _fake_master(nodes=None):
+def _fake_master(nodes=None, mod=repair):
+    """A stub master with `mod`'s buckets, the ones each governor reads
+    at construction: the repair planner's, the conversion scheduler's
+    and the autopilot's."""
     m = types.SimpleNamespace()
     m.topo = _FakeTopo(nodes)
     m.aggregator = types.SimpleNamespace(pool=None)
+    m.maintenance = types.SimpleNamespace(
+        xrack_bucket=mod.TokenBucket(1000.0, 4000.0))
+    m.convert = types.SimpleNamespace(bucket=mod.TokenBucket(2.0, 8.0))
+    m.autopilot = types.SimpleNamespace(buckets={
+        "tiering": mod.TokenBucket(0.5, 4.0),
+        "balance": mod.TokenBucket(0.1, 2.0),
+        "chunk": mod.TokenBucket(1.0, 8.0),
+        "codec": mod.TokenBucket(0.1, 2.0)})
     return m
 
 
 def _ref_master(nodes=None):
-    """The reference's governor reads its repair planner's and
-    conversion scheduler's buckets at construction."""
-    m = _fake_master(nodes)
-    m.maintenance = types.SimpleNamespace(
-        xrack_bucket=TokenBucket(1000.0, 4000.0))
-    m.convert = types.SimpleNamespace(bucket=TokenBucket(2.0, 8.0))
-    return m
+    return _fake_master(nodes, ref_repair)
 
 
 def _governors(monkeypatch, mbps="8", nodes=None):
@@ -323,23 +327,31 @@ def _set_index(mod, obs, index):
     st.last_seen = time.time()
 
 
-def _scrub_view(decisions):
+def _scrub_view(decisions, targets=("scrub",)):
     return [{k: v for k, v in d.items() if k != "trace_id"}
-            for d in decisions if d["target"] == "scrub"]
+            for d in decisions if d["target"] in targets]
 
 
-def test_governor_targets_scrub_only_unlike_the_reference(monkeypatch):
-    """The port's master has no repair planner or conversion scheduler
-    until ROADMAP 1.18d, so its governor governs the scrub rate alone:
-    /cluster/interference's `governor.targets` lists `scrub` only."""
+ALL = ("scrub", "repair_xrack", "convert", "autopilot_tier",
+       "autopilot_balance", "autopilot_chunk")
+
+
+def test_governor_targets_equal_reference(monkeypatch):
+    """Both governors govern the same targets (the repair planner's
+    cross-rack budget, the conversion scheduler's bucket, the
+    autopilot's three plan buckets and the scrub rate) with the same
+    ceilings, floors and classes, and `INTERFERENCE_ALERT` is the
+    reference's."""
     g = _governors(monkeypatch)
     port, ref = g["port"][1].status(), g["ref"][1].status()
-    assert sorted(port["targets"]) == ["scrub"]
-    assert sorted(ref["targets"]) == ["convert", "repair_xrack", "scrub"]
-    assert port["targets"]["scrub"] == ref["targets"]["scrub"]
-    for k in ("enabled", "target_index", "floor_frac", "step", "retunes",
-              "decisions"):
-        assert port[k] == ref[k], k
+    assert sorted(port["targets"]) == [
+        "autopilot_balance", "autopilot_chunk", "autopilot_tier",
+        "convert", "repair_xrack", "scrub"]
+    assert port == ref
+    assert g["port"][1].ceilings == g["ref"][1].ceilings
+    assert g["port"][1].classes == g["ref"][1].classes
+    assert itf.Governor.INTERFERENCE_ALERT == \
+        ref_itf.Governor.INTERFERENCE_ALERT == "interference_high"
 
 
 SCRIPT = [  # (ts, scrub index, repair index): backoff, floor, recovery
@@ -352,20 +364,23 @@ SCRIPT = [  # (ts, scrub index, repair index): backoff, floor, recovery
 
 
 def test_governor_scrub_decisions_equal_reference(monkeypatch):
-    """The same observatory state tick by tick: the scrub rate, every
-    scrub decision (direction, from, to, index, node) and every push
-    equal the reference governor's."""
+    """The same observatory state tick by tick: every target's rate,
+    every decision (target, direction, from, to, index, node) and every
+    scrub push equal the reference governor's."""
     g = _governors(monkeypatch, nodes={"n1:80": object()})
     for ts, s_idx, r_idx in SCRIPT:
         made = {}
         for name, (mod, gov, obs, _) in g.items():
             _set_index(mod, obs, {"scrub": s_idx, "repair": r_idx})
-            made[name] = _scrub_view(gov.tick(ts))
+            made[name] = _scrub_view(gov.tick(ts), ALL)
         assert made["port"] == made["ref"], ts
         assert g["port"][1]._scrub_rate == g["ref"][1]._scrub_rate
+        for name in g["port"][1].ceilings:
+            assert g["port"][1]._current_rate(name) == \
+                g["ref"][1]._current_rate(name), (ts, name)
     assert g["port"][3] == g["ref"][3] and len(g["port"][3]) > 3
-    assert _scrub_view(g["port"][1].decisions) == \
-        _scrub_view(g["ref"][1].decisions)
+    assert _scrub_view(g["port"][1].decisions, ALL) == \
+        _scrub_view(g["ref"][1].decisions, ALL)
     rates = [d["to"] for d in g["port"][1].decisions]
     assert min(rates) == pytest.approx(0.8)  # the floor, 0.1 x 8
     assert g["port"][1]._scrub_rate == 8.0 or rates[-1] < 8.0
@@ -448,7 +463,7 @@ def test_governor_repushes_scrub_rate_for_late_joiners(monkeypatch):
     assert len(pushes) == n + 1 and pushes[-1] == pytest.approx(8.0)
     monkeypatch.setenv("WEEDTPU_SCRUB_MBPS", "0")
     gov2 = itf.Governor(_fake_master(), _obs(itf))
-    assert gov2.status()["targets"] == {}
+    assert "scrub" not in gov2.status()["targets"]
 
 
 def test_governor_converges_fleet_scrub_on_first_tick(monkeypatch):
@@ -536,6 +551,7 @@ def itf_cluster(tmp_path, monkeypatch):
     hysteresis."""
     monkeypatch.setenv("WEEDTPU_SCRUB_MBPS", "8")
     monkeypatch.setenv("WEEDTPU_SCRUB_INTERVAL", "3600")
+    monkeypatch.setenv("WEEDTPU_REPAIR_INTERVAL", "0")
     monkeypatch.setenv("WEEDTPU_AGG_INTERVAL", "0")
     monkeypatch.setenv("WEEDTPU_HEDGE_PCT", "0")
     monkeypatch.setenv("WEEDTPU_INTERF_MIN_SAMPLES", "4")
@@ -555,9 +571,15 @@ def _interference(master_url):
 
 
 def test_cluster_interference_rises_governs_scrub_and_recovers(itf_cluster):
+    """Twin of tests/test_interference.py's 3-node case on port nodes
+    under the port's master: slow reads with repair- and scrub-class
+    bytes booked raise both indexes; the governor backs the repair
+    planner's cross-rack budget and the fleet scrub rate off (seen in
+    /maintenance/status too), the alert fires, and both recover."""
     c = itf_cluster
     master = c.master
     client, payloads = _upload_and_encode_all(c)
+    xrack_ceiling = master.maintenance.xrack_bucket.rate
     scrub_ceiling = c.volume_servers[0].scrubber.mbps
     assert scrub_ceiling == 8.0
     _interference(master.url)
@@ -570,16 +592,30 @@ def test_cluster_interference_rises_governs_scrub_and_recovers(itf_cluster):
         for vs in c.volume_servers:
             _post(vs.url, "/admin/faults", {"faults": [
                 {"action": "delay_shard_read", "ms": 250}]})
-        # scrub-class bytes, booked (not read) as the reference's case
-        # books them
+        # repair- and scrub-class bytes, booked (not read) as the
+        # reference's case books them
+        netflow.account("recv", "repair", "volume", 64 * 1024 * 1024)
         netflow.account("recv", "scrub", "volume", 64 * 1024 * 1024)
         _read_all(client, payloads)
         st = _interference(master.url)
-        assert st["interference"]["classes"].get("scrub", {}).get(
-            "index", 0.0) > 0.25, st
+        for cls in ("scrub", "repair"):
+            assert st["interference"]["classes"].get(cls, {}).get(
+                "index", 0.0) > 0.25, st
         gov = st["governor"]
-        assert sorted(gov["targets"]) == ["scrub"]
+        assert sorted(gov["targets"]) == [
+            "autopilot_balance", "autopilot_chunk", "autopilot_tier",
+            "convert", "repair_xrack", "scrub"]
         assert gov["targets"]["scrub"]["rate"] < scrub_ceiling
+        assert gov["targets"]["repair_xrack"]["rate"] < xrack_ceiling
+        assert master.maintenance.xrack_bucket.rate == pytest.approx(
+            gov["targets"]["repair_xrack"]["rate"], abs=1e-3)
+        assert [d for d in gov["decisions"] if d["target"] ==
+                "repair_xrack" and d["direction"] == "down"], gov
+        mst = _get(master.url, "/maintenance/status")
+        assert mst["planner"]["xrack"]["budget_bytes_per_s"] < \
+            xrack_ceiling
+        assert mst["interference"]["governor"]["targets"][
+            "repair_xrack"]["rate"] < xrack_ceiling
         down = [d for d in gov["decisions"] if d["target"] == "scrub"
                 and d["direction"] == "down"]
         assert down, gov
@@ -604,15 +640,18 @@ def test_cluster_interference_rises_governs_scrub_and_recovers(itf_cluster):
             _post(vs.url, "/admin/faults", {"faults": [
                 {"action": "delay_shard_read", "ms": 0}]})
     floor = gov["targets"]["scrub"]["floor"]
+    xfloor = gov["targets"]["repair_xrack"]["floor"]
     deadline = time.time() + 30
     recovered = None
     while time.time() < deadline:
         _read_all(client, payloads)
         st = _interference(master.url)
-        idx = st["interference"]["classes"].get("scrub", {}).get(
-            "index", 0.0)
-        if idx < 0.25 and st["governor"]["targets"]["scrub"]["rate"] > \
-                floor:
+        classes = st["interference"]["classes"]
+        targets = st["governor"]["targets"]
+        if max(classes.get(k, {}).get("index", 0.0)
+               for k in ("scrub", "repair")) < 0.25 and \
+                targets["scrub"]["rate"] > floor and \
+                targets["repair_xrack"]["rate"] > xfloor:
             recovered = st
             break
     assert recovered is not None, st

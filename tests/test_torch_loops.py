@@ -413,6 +413,9 @@ def test_cluster_loops_endpoint_and_shell(loops_cluster):
     out = io.StringIO()
     run_command(env, "cluster.loops -json", out)
     assert "aggregator" in json.loads(out.getvalue())["loops"]
+    out = io.StringIO()
+    run_command(env, "maintenance.status", out)
+    assert "loops:" in out.getvalue()
 
 
 def test_expire_loop_ticks_through_the_monitor(tmp_path, monkeypatch):

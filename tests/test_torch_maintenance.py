@@ -7,10 +7,10 @@ shard set (the port's with `device="cpu"`) and call the handlers with the
 same request, the reference's with WEEDTPU_EC_CODEC=numpy set only around
 its calls (the port raises on that value); their answers and files must
 be byte-equal.  The cluster tests are twins of tests/test_maintenance.py's
-heal tests: the reference master in process over one port volume server
-started by the port's CLI in a subprocess (tests/test_torch_cluster.py's
-`PortCluster`), driven through `/admin/faults`, `/admin/scrub` and the
-master's `/maintenance/tick`.
+heal tests: the reference master or the port's, in process, over one port
+volume server started by the port's CLI in a subprocess
+(tests/test_torch_cluster.py's `PortCluster`), driven through
+`/admin/faults`, `/admin/scrub` and the master's `/maintenance/tick`.
 """
 
 import asyncio
@@ -684,16 +684,17 @@ def test_recode_back_and_refusals(pair):
 
 # ---- the heal flow: the reference master over a port node ----------------
 
-@pytest.fixture(scope="module")
-def heal_cluster(tmp_path_factory):
+@pytest.fixture(scope="module", params=["reference", "port"])
+def heal_cluster(request, tmp_path_factory):
     """One port volume server (all 14 shards on it, so the syndrome scan
-    assembles full stripes locally) under the reference master, the
-    background scrub and repair loops parked: tests drive /admin/scrub
-    and /maintenance/tick."""
+    assembles full stripes locally) under the reference master or the
+    port's, the background scrub and repair loops parked: tests drive
+    /admin/scrub and /maintenance/tick."""
     mp = pytest.MonkeyPatch()
     mp.setenv("WEEDTPU_REPAIR_INTERVAL", "3600")
     c = PortCluster(tmp_path_factory.mktemp("heal"), n_port=1,
-                    env={"WEEDTPU_SCRUB_INTERVAL": "3600"}).start()
+                    env={"WEEDTPU_SCRUB_INTERVAL": "3600"},
+                    master=request.param).start()
     yield c
     c.stop()
     mp.undo()

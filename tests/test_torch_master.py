@@ -122,13 +122,10 @@ def _table(app) -> list[tuple[str, str]]:
 
 def test_route_table_equals_reference_less_the_left_out():
     """Every (method, path) of the reference master's route table is the
-    port's, but for the six routes of `LEFT_OUT` (the maintenance plane
-    and the autopilot, ROADMAP 1.18d; the geo view, 1.22), and the port
-    has no other."""
-    assert mastermod.LEFT_OUT == (
-        "/maintenance/status", "/maintenance/scrub_report",
-        "/maintenance/tick", "/maintenance/convert", "/cluster/autopilot",
-        "/cluster/geo")
+    port's, but for the route of `LEFT_OUT` (the geo view, ROADMAP
+    1.22), and the port has no other: the maintenance plane and the
+    autopilot are served."""
+    assert mastermod.LEFT_OUT == ("/cluster/geo",)
     mine = mastermod.MasterServer("127.0.0.1", 1)
     ref = ref_master.MasterServer("127.0.0.1", 1)
     want = _table(ref.app)
@@ -147,8 +144,8 @@ def test_left_out_routes_answer_404(pair):
         for method, body in (("GET", None), ("POST", {})):
             st, _ = call(pair.mine.url, path, body=body, method=method)
             assert st == 404, (path, method)
-    # and the reference serves each (its planes are there)
-    assert call(pair.ref.url, "/maintenance/status")[0] == 200
+    # and the reference serves it (its planes are there)
+    assert call(pair.ref.url, "/cluster/geo")[0] == 200
 
 
 @pytest.mark.parametrize("name", [

@@ -10,9 +10,10 @@ the reference master, is tests/test_torch_cluster.py's), and the CLI:
 `master`, `volume` and `server` subcommands as subprocesses, where
 neither jax nor the reference package is imported.
 
-The port's servers start with WEEDTPU_SCRUB_MBPS=0: a background scrub
-pass would report to /maintenance/scrub_report, which the port's master
-leaves out until the repair planner comes (ROADMAP 1.18d).
+The port's servers start with WEEDTPU_SCRUB_MBPS=0 and the master with
+its repair loop off (WEEDTPU_REPAIR_INTERVAL=0): a background scrub pass
+or a planner tick would launch work no step of the flows expects, and
+the planner would rebuild the shards the flows delete.
 """
 
 import asyncio
@@ -111,6 +112,8 @@ class Cluster:
 @pytest.fixture(autouse=True)
 def _no_scrubber(monkeypatch):
     monkeypatch.setenv("WEEDTPU_SCRUB_MBPS", "0")
+    # the master's repair loop would rebuild the shards a flow deletes
+    monkeypatch.setenv("WEEDTPU_REPAIR_INTERVAL", "0")
 
 
 @pytest.fixture()

@@ -109,6 +109,15 @@ def test_import_rule_covers_the_planes_slice():
         assert f"seaweedfs_tpu_torch/{rel}" in files, rel
 
 
+def test_import_rule_covers_the_master_maintenance_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("maintenance/repair.py", "maintenance/convert.py",
+                "maintenance/autopilot.py", "utils/hashring.py",
+                "utils/resilience.py", "stats/interference.py",
+                "stats/metrics.py", "server/master.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
 def test_card_path_modules_import_no_server_package():
     """The store, the EC files and the codecs load without aiohttp and
     protobuf: only the server modules import them at module level."""

@@ -6,7 +6,7 @@ counter and histogram merges, `histogram_quantile`, the SLO engine over
 one scripted history, the heat fleet merge, `aggregate_fleet` and
 `roofline_offenders`.  Then the master: its route table against the
 reference's, each malformed knob raising where the reference falls
-back, /cluster/slo without the repair planner's health ledger, twins of
+back, /cluster/slo over the repair planner's health ledger, twins of
 tests/test_cluster_obs.py and of tests/test_flight_recorder.py's canary
 and scrape-age cases on clusters that are all the port's (its master,
 `device="cpu"` volume servers, the reference's client and shell), a
@@ -273,10 +273,9 @@ def test_aggregate_fleet_and_offenders_equal_reference(seed):
 # ---- the master: route table, knobs ------------------------------------------
 
 def test_master_serves_every_reference_route_but_six():
-    assert mastermod.LEFT_OUT == (
-        "/maintenance/status", "/maintenance/scrub_report",
-        "/maintenance/tick", "/maintenance/convert", "/cluster/autopilot",
-        "/cluster/geo")
+    """Every route of the reference's master but `LEFT_OUT`, which the
+    maintenance plane shrank from six routes to the geo view's one."""
+    assert mastermod.LEFT_OUT == ("/cluster/geo",)
     mine = mastermod.MasterServer("127.0.0.1", 1)
     ref = ref_master.MasterServer("127.0.0.1", 1)
     table = {(r.method, r.resource.canonical)
@@ -289,8 +288,13 @@ def test_master_serves_every_reference_route_but_six():
                  "/cluster/perf", "/cluster/trace/{tid}", "/cluster/traces",
                  "/cluster/canary", "/cluster/history",
                  "/cluster/interference", "/cluster/alerts",
-                 "/cluster/loops", "/cluster/dashboard"):
+                 "/cluster/loops", "/cluster/dashboard",
+                 "/maintenance/status"):
         assert ("GET", path) in table, path
+    for path in ("/maintenance/scrub_report", "/maintenance/tick"):
+        assert ("POST", path) in table, path
+    for path in ("/maintenance/convert", "/cluster/autopilot"):
+        assert ("*", path) in table, path
 
 
 KNOBS = [("WEEDTPU_AGG_INTERVAL", "soon"), ("WEEDTPU_SLO_RULES", "junk"),
@@ -401,6 +405,10 @@ def test_cluster_slo_flips_under_delay_faults(obs_cluster, monkeypatch):
         out = io.StringIO()
         run_command(env, "cluster.slo", out)
         assert "violated" in out.getvalue()
+        out = io.StringIO()
+        run_command(env, "maintenance.status", out)
+        assert "slo:" in out.getvalue() and \
+            "read_latency" in out.getvalue(), out.getvalue()
     finally:
         for vs in c.volume_servers:
             _post(vs.url, "/admin/faults", {"faults": [
@@ -616,14 +624,30 @@ def test_fleet_views_traces_heat_perf(tmp_path, monkeypatch):
         c.stop()
 
 
-# ---- /cluster/slo without the health ledger ----------------------------------
+# ---- /cluster/slo reads the health ledger -------------------------------------
 
-def test_cluster_slo_without_the_ledger_equals_the_reference(tmp_path,
-                                                             monkeypatch):
-    """The reference's /cluster/slo first rebuilds its repair planner's
-    health ledger; the port has none until the planner comes.  On a
-    cluster with no unhealthy volume both answer the same rules, states
-    and `repair_backlog` verdict."""
+def _degraded_beat(m, node, vid=91):
+    """A JSON beat from a node that holds 12 of an EC volume's 14
+    shards: the volume is degraded in the master's health ledger."""
+    req = urllib.request.Request(
+        f"http://{m.url}/heartbeat", data=json.dumps({
+            "id": node, "url": node, "max_volume_count": 8, "volumes": [],
+            "ec_shards": [{"id": vid, "collection": "",
+                           "shard_ids": list(range(12)),
+                           "shard_size": 4096}]}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        assert r.status == 200
+
+
+def test_cluster_slo_reads_the_ledger_as_reference(tmp_path, monkeypatch):
+    """Both masters' /cluster/slo rebuild the repair planner's health
+    ledger first: on a cluster with one degraded volume both answer the
+    same rules and states, and `repair_backlog` sees the
+    weedtpu_volume_health gauge and is violated.  Its value sums the
+    gauge over every node that exposes it: the port's master and its
+    volume server render one registry (two), the reference's master
+    its own, and the port's volume server under it the port's (two)."""
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     monkeypatch.setenv("WEEDTPU_SCRUB_MBPS", "0")
     monkeypatch.setenv("WEEDTPU_AGG_INTERVAL", "0")
@@ -632,6 +656,7 @@ def test_cluster_slo_without_the_ledger_equals_the_reference(tmp_path,
     ref = ref_master.MasterServer("127.0.0.1", free_port())
     c.submit(ref.start())
     servers = []
+    gone = f"127.0.0.1:{free_port()}"  # the degraded volume's holder
     try:
         for i, m in enumerate((c.master, ref)):
             d = tmp_path / f"v{i}"
@@ -648,6 +673,7 @@ def test_cluster_slo_without_the_ledger_equals_the_reference(tmp_path,
             for j in range(4):
                 client.upload(b"x" * (1000 + j), name=f"s{j}")
             client.close()
+            _degraded_beat(m, gone)
         time.sleep(0.7)
         got = [_slo(m.url) for m in (c.master, ref)]
         got = [_slo(m.url) for m in (c.master, ref)]  # a second tick
@@ -661,7 +687,9 @@ def test_cluster_slo_without_the_ledger_equals_the_reference(tmp_path,
         assert _rule(got[0], "repair_backlog") == \
             _rule(got[1], "repair_backlog") == {
                 "name": "repair_backlog", "kind": "backlog",
-                "windows": {}, "value": 0.0, "state": "ok"}
+                "windows": {}, "value": 2.0, "state": "violated"}
+        assert metrics.VOLUME_HEALTH.labels("degraded").value == 1
+        assert ref_metrics.VOLUME_HEALTH.labels("degraded").value == 1
     finally:
         for vs in servers:
             c.submit(vs.stop())
@@ -713,7 +741,10 @@ def test_mixed_cluster_federation_crosses_registries(tmp_path, monkeypatch):
 def test_planes_leave_jax_unloaded(tmp_path):
     """A port master with its planes and a port volume server on the CPU
     in a fresh interpreter: a canary round, a federated scrape, every
-    plane's view; neither jax nor the reference package is imported."""
+    plane's view, a planner tick and an autopilot tick; neither jax nor
+    the reference package is imported (torch is: the volume server is
+    in the process; tests/test_torch_repair_planner.py holds the master
+    alone to neither)."""
     code = f"""
 import asyncio, json, os, sys, threading, urllib.request
 os.environ.update(WEEDTPU_AGG_INTERVAL="0", WEEDTPU_CANARY_INTERVAL="0",
@@ -737,8 +768,15 @@ for path in ("/cluster/metrics?refresh=1", "/cluster/slo",
              "/cluster/history?series=weedtpu_canary_probes_total",
              "/cluster/alerts", "/cluster/interference", "/cluster/loops",
              "/cluster/heat", "/cluster/perf", "/cluster/traces",
-             "/cluster/canary", "/cluster/dashboard"):
+             "/cluster/canary", "/cluster/dashboard", "/maintenance/status",
+             "/maintenance/convert", "/cluster/autopilot"):
     with urllib.request.urlopen(f"http://{{m.url}}{{path}}") as r:
+        assert r.status == 200, path
+for path in ("/maintenance/tick", "/cluster/autopilot"):
+    req = urllib.request.Request(f"http://{{m.url}}{{path}}",
+        data=b'{{"tick": true, "wait": true}}',
+        headers={{"Content-Type": "application/json"}})
+    with urllib.request.urlopen(req) as r:
         assert r.status == 200, path
 run(vs.stop())
 run(m.stop())

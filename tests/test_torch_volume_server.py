@@ -48,9 +48,9 @@ def free_port() -> int:
 
 
 class Harness:
-    """A loop thread; the reference master (`master=True`) or a stand-in
-    that takes heartbeats (`_stub_master`), and `n` port volume servers
-    on it."""
+    """A loop thread; the reference master (`master=True`; the port's
+    with `master="port"`) or a stand-in that takes heartbeats
+    (`_stub_master`), and `n` port volume servers on it."""
 
     def __init__(self, tmp_path, n=1, master=True, master_app=None):
         if not master and master_app is None:
@@ -71,6 +71,8 @@ class Harness:
             self.master_url = f"127.0.0.1:{port}"
         else:
             from seaweedfs_tpu.server.master import MasterServer
+            if master == "port":
+                from seaweedfs_tpu_torch.server.master import MasterServer
             self.master = MasterServer("127.0.0.1", free_port())
             self.submit(self.master.start())
             self.master_url = self.master.url
