@@ -385,7 +385,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                volume healthy, /cluster/loops without error,
                /cluster/geo alone 404; K1 and K2 per step against their
                prediction; launches zeroed before and read after
- 23 report     {"kernels": [...]} line, the card's name and power limit,
+ 23 shell      the port's own client and shell (ROADMAP 1.19a) over
+               three card servers in three racks on one loop thread,
+               behind the port's master on another (repair loop,
+               aggregator loop and canary off, scrubbers off, hedging
+               off): (1) the port's `WeedClient` on the /cluster/stream
+               feed writes 512 needles (log-uniform 1-256 KiB, from
+               --seed) into collection p23 from 16 threads and reads
+               them back; (2) a link of the phase-3 volume mounted as
+               231, `lock` and `ec.encode -volumeId 231`: K1 == phase
+               4's, the placement `balanced_ec_distribution`'s, every
+               shard sha256 == phase 4's; (3) `ec.encode -collection p23
+               -fullPercent 0 -quietFor 0s` once a beat reports the p23
+               sizes: every p23 volume selected, K1 == their units by
+               the layout; (4) shards 0/3/10/12 of 231 and 1 of a p23
+               volume W deleted, 64 of 231's needles on its lost data
+               shards and every needle of W read through the client, K1
+               one per needle on a lost data shard; (5) `ec.rebuild`: K1
+               == phase 6's plus W's chunks, the rebuilt shards sha256
+               == phase 4's; (6) volume.list, cluster.status,
+               cluster.ps, ec.codecs, maintenance.status (every EC
+               volume healthy), cluster.autopilot and chaos.status; (7)
+               `ec.decode -volumeId W` and `unlock`: .dat sha256 == its
+               record, W read back; (8) `python -m seaweedfs_tpu_torch
+               shell -c volume.list` as a child process; K1 per step
+               against its prediction, K2 0; launches zeroed before and
+               read after; every line with the card's name and power
+               limit
+ 24 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -394,7 +421,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12-22, each on its own, so the reported launches are
+around phases 12-23, each on its own, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -402,12 +429,12 @@ a path made the kernel wrapper stage a copy of any input
 and if K2 was not launched.  After phase 13's window, two records: fleet
 against one write_ec_files per volume over the same four volumes (fleet,
 serial, serial, fleet), and rebuild_ec_files of phase 9's single loss;
-then phases 14-22 (phases 16-19 and 22 on a copy of the phase-3 volume
-taken before phase 14, whose appends go through links of it; phases
+then phases 14-23 (phases 16-19, 22 and 23 on a copy of the phase-3
+volume taken before phase 14, whose appends go through links of it; phases
 17, 18, 20, 21 and 22 also on links of phase 4's and (17) 10's shard
 sets, 17, 18 and 22 on phase 7's volumes).  Every port master the
 script starts runs with its repair loop off
-(WEEDTPU_REPAIR_INTERVAL=0): phases 16-22 delete shards on purpose, and
+(WEEDTPU_REPAIR_INTERVAL=0): phases 16-23 delete shards on purpose, and
 a planner tick would rebuild them, launching K1 at times no step
 predicts.
 Needs one CUDA card; exits non-zero without one, and outside a checkout
@@ -420,6 +447,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -7625,6 +7653,523 @@ def phase_heal(vdir: str, base: str, server_src: str, expect: dict,
     return out
 
 
+# phase 23's cluster: the port's shell and client driving three card
+# servers in three racks behind the port's master.
+SHELL_NODES = (("A", "dc1", "r1"), ("B", "dc1", "r2"), ("C", "dc1", "r3"))
+SHELL_VID = 231  # the phase-3 volume's link, encoded by the shell
+SHELL_COLLECTION = "p23"
+SHELL_NEEDLES = 512  # step 1's uploads, log-uniform sizes
+SHELL_MIN_SIZE = 1 << 10
+SHELL_MAX_SIZE = 256 << 10
+SHELL_THREADS = 16
+SHELL_V_READS = 64  # step 4's needles of V, on its lost data shards
+SHELL_W_LOST = (1,)  # step 4's lost data shard of W
+SHELL_READ_ONLY = ("volume.list", "cluster.status", "cluster.ps",
+                   "ec.codecs -json", "maintenance.status -json",
+                   "cluster.autopilot -json", "chaos.status -json")
+
+
+def phase_shell(vdir: str, server_src: str, expect: dict, blob: bytes,
+                hashes: list[str], aux_hashes: dict, encode_k1: int,
+                rebuild_k1: int, seed: int, launches: dict,
+                device=None) -> dict:
+    """Phase 23: the port's own client and shell (ROADMAP 1.19a) driving
+    three port `VolumeServer`s on the card (three racks, one loop thread)
+    behind the port's `MasterServer` (another; repair loop, aggregator
+    loop and canary off), scrubbers off, hedging off.  Steps: (1) the
+    port's `WeedClient` (on the /cluster/stream feed) uploads 512
+    needles of log-uniform 1-256 KiB into collection p23 from 16 threads
+    and reads each back, K1 0; (2) a link of the phase-3 volume mounted
+    as V on A, `lock` and `ec.encode -volumeId V`: K1 == phase 4's, the
+    placement `balanced_ec_distribution`'s, every shard's sha256 phase
+    4's; (3) `ec.encode -collection p23 -fullPercent 0 -quietFor 0s`
+    after a beat reports every p23 volume's size: the printed list is
+    every p23 volume, K1 == the layout's units of their .dat; (4)
+    shards 0/3/10/12 of V and 1 of one p23 volume W deleted, 64 of V's
+    needles on its lost data shards and every needle of W read through
+    the client, K1 one per needle on a lost data shard; (5) `ec.rebuild`:
+    K1 == phase 6's for V plus W's rebuild chunks, V's rebuilt shards
+    sha256 == phase 4's; (6) the read-only commands, every EC volume
+    healthy in `maintenance.status`, K1 0; (7) `ec.decode -volumeId W`
+    and `unlock`: W's .dat sha256 == step 3's record, its needles read
+    back, K1 0; (8) `python -m seaweedfs_tpu_torch shell -c
+    volume.list` as a child process prints what the shell prints in
+    process, K1 0.  K2 0 throughout."""
+    import asyncio
+    import io
+
+    import numpy as np
+    from seaweedfs_tpu_torch.client import WeedClient
+    from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.shell import commands as shell
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    from seaweedfs_tpu_torch.utils import http, resilience
+
+    card = card_name_power()
+
+    def plog(msg: str) -> None:
+        log(f"[shell] {msg} [{card}]")
+
+    def free_port() -> int:
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    work = os.path.join(vdir, "shell")
+    names = [n for n, _, _ in SHELL_NODES]
+    dirs = {n: os.path.join(work, n) for n in names}
+    for d in dirs.values():
+        os.makedirs(d)
+    loops = []
+
+    def loop_thread():
+        loop = asyncio.new_event_loop()
+        th = threading.Thread(target=loop.run_forever, daemon=True)
+        th.start()
+        loops.append((loop, th))
+        return lambda coro: asyncio.run_coroutine_threadsafe(
+            coro, loop).result(600)
+
+    mrun, vrun = loop_thread(), loop_thread()  # the master's, servers'
+    http_client = http.PooledHTTP(timeout=600.0, max_idle_per_host=8)
+    master = None
+    client = None
+    servers: dict = {}
+    steps: dict = {}
+    counts: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 23)
+    env = scoped_env(
+        WEEDTPU_REPAIR_INTERVAL="0", WEEDTPU_AGG_INTERVAL="0",
+        WEEDTPU_CANARY_INTERVAL="0", WEEDTPU_SCRUB_MBPS="0",
+        WEEDTPU_HEDGE_PCT="0")
+
+    def admin(name: str, path: str, body: dict) -> dict:
+        st, _, raw = http_client.request(
+            f"http://{servers[name].url}{path}", method="POST",
+            body=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        if st != 200:
+            raise AssertionError(f"{name}{path}: HTTP {st} {raw[:300]!r}")
+        return json.loads(raw) if raw else {}
+
+    def step_counts(name: str, k0: dict, k1: int) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        want = {"gf_apply": k1, "gf_apply_batch": 0}
+        if got != want:
+            raise AssertionError(f"phase 23 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def until(pred, what: str, timeout: float = 15.0):
+        deadline = time.monotonic() + timeout
+        while True:
+            got = pred()
+            if got:
+                return got
+            if time.monotonic() > deadline:
+                raise AssertionError(what)
+            time.sleep(0.02)
+
+    def run(line: str) -> str:
+        """One line through the port's shell, which raises on a failed
+        command; returns what it printed."""
+        buf = io.StringIO()
+        rc = shell.run_command(cmd_env, line, buf)
+        if rc:
+            raise AssertionError(f"shell {line!r} exited {rc}: "
+                                 f"{buf.getvalue()[-500:]}")
+        return buf.getvalue()
+
+    def fan(fn, items) -> float:
+        """`fn` over `items` from SHELL_THREADS threads; the wall."""
+        errors: list = []
+
+        def worker(c: int) -> None:
+            try:
+                for it in items[c::SHELL_THREADS]:
+                    fn(it)
+            except Exception as e:  # surfaced after the join
+                errors.append(e)
+        threads = [threading.Thread(target=worker, args=(c,))
+                   for c in range(SHELL_THREADS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        return time.perf_counter() - t0
+
+    def holder_of(vid: int) -> str:
+        """The node holding the normal volume `vid`."""
+        return next(n for n in names
+                    if servers[n].store.get_volume(vid) is not None)
+
+    def base_of(name: str, vid: int, collection: str = "") -> str:
+        return servers[name].store.locations[0].base_path(vid, collection)
+
+    def split(vid: int) -> dict:
+        return master_split(http_client, master.url, vid)
+
+    def topo() -> dict:
+        return cmd_env.topology()
+
+    try:
+        with env:
+            # 0 set-up: the master, three servers in three racks
+            master = MasterServer("127.0.0.1", free_port())
+            master.vacuum_enabled = False
+            mrun(master.start())
+            for name, dc, rack in SHELL_NODES:
+                vs = vsmod.VolumeServer(
+                    [dirs[name]], master.url, "127.0.0.1", free_port(),
+                    data_center=dc, rack=rack, heartbeat_interval=0.5,
+                    device=device)
+                vrun(vs.start())
+                if vs.scrubber is not None:
+                    raise AssertionError("a phase 23 server started a "
+                                         "scrubber")
+                servers[name] = vs
+            url = {n: servers[n].url for n in names}
+            node_of = {u: n for n, u in url.items()}
+            cmd_env = shell.CommandEnv(master.url)
+            until(lambda: len(topo()["nodes"]) == len(names),
+                  "the servers never registered")
+            client = WeedClient(master.url, stream_updates=True)
+
+            # 1 the client writes into p23 from 16 threads, then reads
+            k0 = dict(launches)
+            sizes = np.exp(rng.uniform(np.log(SHELL_MIN_SIZE),
+                                       np.log(SHELL_MAX_SIZE),
+                                       SHELL_NEEDLES)).astype(int).tolist()
+            payload = rng.bytes(sum(sizes))
+            ends = np.cumsum(sizes).tolist()
+            spans = list(zip([0] + ends[:-1], ends))
+            fids: list = [None] * SHELL_NEEDLES
+
+            def put(i: int) -> None:
+                lo, hi = spans[i]
+                fids[i] = client.upload(payload[lo:hi],
+                                        collection=SHELL_COLLECTION)
+
+            def get(i: int) -> None:
+                lo, hi = spans[i]
+                if client.download(fids[i]) != payload[lo:hi]:
+                    raise AssertionError(f"read of {fids[i]} differs")
+            dt_put = fan(put, list(range(SHELL_NEEDLES)))
+            dt_get = fan(get, list(range(SHELL_NEEDLES)))
+            step_counts("1 client", k0, 0)
+            by_vid: dict = {}
+            for i, fid in enumerate(fids):
+                f = t.FileId.parse(fid)
+                by_vid.setdefault(f.volume_id, {})[f.key] = (f.cookie, i)
+            written = sorted(by_vid)
+            steps["1 client"] = {"needles": SHELL_NEEDLES,
+                                 "bytes": sum(sizes), "volumes": written,
+                                 "writes_per_s": SHELL_NEEDLES / dt_put,
+                                 "reads_per_s": SHELL_NEEDLES / dt_get,
+                                 "stream_live": client._stream_live}
+            plog(f"1 client: {SHELL_NEEDLES} needles ({sum(sizes)} B, "
+                 f"log-uniform {SHELL_MIN_SIZE}-{SHELL_MAX_SIZE} B) into "
+                 f"{SHELL_COLLECTION} volumes {written} at "
+                 f"{SHELL_NEEDLES / dt_put:.1f} writes/s and back, equal, "
+                 f"at {SHELL_NEEDLES / dt_get:.1f} reads/s from "
+                 f"{SHELL_THREADS} threads; stream live "
+                 f"{client._stream_live}; K1 0")
+
+            # 2 the full-size encode through the shell: a link of the
+            # phase-3 volume mounted as V on A
+            v = SHELL_VID
+            base_v = base_of("A", v)
+            for ext in (".dat", ".idx"):
+                os.link(server_src + ext, base_v + ext)
+            admin("A", "/admin/volume/mount", {"volume": v})
+            until(lambda: cmd_env.volume_locations(v) == [url["A"]],
+                  "the master never saw V")
+            k0 = dict(launches)
+            run("lock")
+            t0 = time.perf_counter()
+            out2 = run(f"ec.encode -volumeId {v}")
+            dt_enc = time.perf_counter() - t0
+            step_counts("2 encode", k0, encode_k1)
+            racks = {url[n]: f"{dc}/{rack}" for n, dc, rack in SHELL_NODES}
+            want = {u: s for u, s in shell.balanced_ec_distribution(
+                sorted(url.values()), racks).items() if s}
+            got = until(lambda: (lambda s: s if s == want else None)(
+                split(v)), f"V's placement never became {want}: "
+                f"{split(v)}")
+            for u, shards in got.items():
+                b = base_of(node_of[u], v)
+                for i, h in zip(shards, sha256_many(
+                        [b + layout.to_ext(i) for i in shards])):
+                    if h != hashes[i]:
+                        raise AssertionError(f"V's shard {i} on "
+                                             f"{node_of[u]} differs from "
+                                             f"phase 4's")
+                if sha256(b + ".ecx") != aux_hashes[".ecx"]:
+                    raise AssertionError(f"V's .ecx on {node_of[u]} "
+                                         f"differs from phase 4's")
+            if sha256(base_v + ".vif") != aux_hashes[".vif"] or \
+                    os.path.exists(base_v + ".dat"):
+                raise AssertionError("V's .vif differs from phase 4's, or "
+                                     "its .dat is still on A")
+            moved = sum(len(s) for u, s in got.items() if u != url["A"])
+            shard_size = os.path.getsize(base_v + layout.to_ext(
+                got[url["A"]][0]))
+            steps["2 encode"] = {"s": dt_enc, "placement": {
+                node_of[u]: s for u, s in got.items()},
+                "moved_bytes": moved * shard_size}
+            plog(f"2 encode: `ec.encode -volumeId {v}` of the "
+                 f"{os.path.getsize(server_src + '.dat')} B volume in "
+                 f"{dt_enc:.3f} s: placement "
+                 f"{ {node_of[u]: s for u, s in got.items()} } == "
+                 f"balanced_ec_distribution's, {moved} shards "
+                 f"({moved * shard_size} B) copied; every shard and .ecx "
+                 f"sha256 == phase 4's; K1 {encode_k1} == phase 4's")
+
+            # 3 the auto-selection, after a beat reports every p23
+            # volume's size
+            vols = {vid: servers[holder_of(vid)].store.get_volume(vid)
+                    for vid in written}
+            for vol in vols.values():
+                vol.flush()
+            dat_size = {vid: vol.data_size() for vid, vol in vols.items()}
+
+            def p23_view() -> dict:
+                return {vi["id"]: vi["size"]
+                        for nd in topo()["nodes"].values()
+                        for vi in nd["volume_infos"]
+                        if vi["collection"] == SHELL_COLLECTION}
+            p23 = until(lambda: (lambda seen: seen if all(
+                seen.get(vid) == n for vid, n in dat_size.items())
+                else None)(p23_view()),
+                f"no beat reported the p23 sizes {dat_size}")
+            dat_hash = {vid: sha256(base_of(holder_of(vid), vid,
+                                            SHELL_COLLECTION) + ".dat")
+                        for vid in written}
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            out3 = run(f"ec.encode -collection {SHELL_COLLECTION} "
+                       f"-fullPercent 0 -quietFor 0s")
+            dt_auto = time.perf_counter() - t0
+            listed = json.loads(out3.splitlines()[0].split(": ", 1)[1])
+            if listed != sorted(p23) or not set(written) <= set(listed):
+                raise AssertionError(f"ec.encode selected {listed}; the "
+                                     f"p23 volumes are {sorted(p23)}, "
+                                     f"{written} with needles")
+            units = {vid: predict_units(p23[vid], layout.LARGE_BLOCK_SIZE,
+                                        layout.SMALL_BLOCK_SIZE)
+                     for vid in listed}
+            step_counts("3 auto", k0, sum(units.values()))
+            until(lambda: all(sum(map(len, split(vid).values())) == 14
+                              for vid in listed),
+                  "the p23 shard sets never reached the master")
+            steps["3 auto"] = {"s": dt_auto, "volumes": listed,
+                               "dat_bytes": p23, "units": units}
+            plog(f"3 auto: `ec.encode -collection {SHELL_COLLECTION} "
+                 f"-fullPercent 0 -quietFor 0s` selected {listed} (every "
+                 f"p23 volume; .dat {[p23[vid] for vid in listed]} B) and "
+                 f"encoded them in {dt_auto:.3f} s; K1 "
+                 f"{sum(units.values())} == the layout's units")
+
+            # 4 degraded reads through the client
+            w = max(written, key=lambda vid: (len(by_vid[vid]), vid))
+            v_split, w_split = split(v), split(w)
+            for u, shards in v_split.items():
+                lost_here = [s for s in SERVER_LOSSES if s in shards]
+                if lost_here:
+                    admin(node_of[u], "/admin/ec/delete_shards",
+                          {"volume": v, "shards": lost_here})
+            for u, shards in w_split.items():
+                lost_here = [s for s in SHELL_W_LOST if s in shards]
+                if lost_here:
+                    admin(node_of[u], "/admin/ec/delete_shards",
+                          {"volume": w, "shards": lost_here})
+            until(lambda: not any(
+                set(SERVER_LOSSES) & set(s) for s in split(v).values()) and
+                not any(set(SHELL_W_LOST) & set(s)
+                        for s in split(w).values()),
+                "the master still shows the deleted shards")
+            ev_v = next(servers[n].store.get_ec_volume(v) for n in names
+                        if servers[n].store.get_ec_volume(v) is not None)
+            ev_w = next(servers[n].store.get_ec_volume(w) for n in names
+                        if servers[n].store.get_ec_volume(w) is not None)
+            touching_v = touching_needles(ev_v, expect, SERVER_LOSSES)
+            drawn = sorted(np.random.default_rng(seed + 231).choice(
+                touching_v, size=min(SHELL_V_READS, len(touching_v)),
+                replace=False).tolist())
+            expect_w = {key: None for key in by_vid[w]}
+            touching_w = touching_needles(ev_w, expect_w, SHELL_W_LOST)
+            resilience.reset_latency_trackers()
+            resilience.reset_breakers()
+
+            def get_v(nid: int) -> None:
+                cookie, lo, hi = expect[nid]
+                if client.download(str(t.FileId(v, nid, cookie))) != \
+                        blob[lo:hi]:
+                    raise AssertionError(f"degraded read of V/{nid} "
+                                         f"differs")
+
+            def get_w(key: int) -> None:
+                cookie, i = by_vid[w][key]
+                lo, hi = spans[i]
+                if client.download(str(t.FileId(w, key, cookie))) != \
+                        payload[lo:hi]:
+                    raise AssertionError(f"degraded read of W/{key} "
+                                         f"differs")
+            k0 = dict(launches)
+            dt_v = fan(get_v, drawn)
+            dt_w = fan(get_w, sorted(by_vid[w]))
+            step_counts("4 degraded", k0, len(drawn) + len(touching_w))
+            steps["4 degraded"] = {
+                "w": w, "v_reads": len(drawn), "v_s": dt_v,
+                "w_reads": len(by_vid[w]), "w_touching": len(touching_w),
+                "w_s": dt_w}
+            plog(f"4 degraded: V lost {list(SERVER_LOSSES)}, W = {w} lost "
+                 f"{list(SHELL_W_LOST)}; {len(drawn)} of V's "
+                 f"{len(touching_v)} needles on lost data shards in "
+                 f"{dt_v:.3f} s and all {len(by_vid[w])} of W's "
+                 f"({len(touching_w)} on shard 1) in {dt_w:.3f} s through "
+                 f"the client, equal; K1 {len(drawn) + len(touching_w)} "
+                 f"== one per needle on a lost data shard")
+
+            # 5 ec.rebuild: V's phase-5 loss and W's shard
+            w_node, w_shards = next(iter(split(w).items()))
+            w_base = base_of(node_of[w_node], w, SHELL_COLLECTION)
+            w_chunks = -(-os.path.getsize(
+                w_base + layout.to_ext(w_shards[0]))
+                // ec_files.DEFAULT_BATCH)
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            out5 = run("ec.rebuild")
+            dt_reb = time.perf_counter() - t0
+            step_counts("5 rebuild", k0, rebuild_k1 + w_chunks)
+            rebuilt = {int(m.group(1)): (json.loads(m.group(2)),
+                                          m.group(3))
+                       for m in re.finditer(
+                           r"^volume (\d+): rebuilt (\[[^]]*\]) on (\S+)$",
+                           out5, re.M)}
+            if sorted(rebuilt) != sorted({v, w}) or \
+                    rebuilt[v][0] != list(SERVER_LOSSES) or \
+                    rebuilt[w][0] != list(SHELL_W_LOST):
+                raise AssertionError(f"ec.rebuild printed {out5!r}")
+            rb = base_of(node_of[rebuilt[v][1]], v)
+            for i, h in zip(SERVER_LOSSES, sha256_many(
+                    [rb + layout.to_ext(i) for i in SERVER_LOSSES])):
+                if h != hashes[i]:
+                    raise AssertionError(f"V's rebuilt shard {i} differs "
+                                         f"from phase 4's")
+            until(lambda: all(sum(map(len, split(vid).values())) == 14
+                              for vid in (v, w)),
+                  "the rebuilt shards never reached the master")
+            steps["5 rebuild"] = {"s": dt_reb, "w_chunks": w_chunks,
+                                  "rebuilders": {str(k): node_of[r]
+                                                 for k, (_, r) in
+                                                 rebuilt.items()}}
+            plog(f"5 rebuild: `ec.rebuild` rebuilt V's "
+                 f"{list(SERVER_LOSSES)} on {node_of[rebuilt[v][1]]} "
+                 f"(sha256 == phase 4's) and W's {list(SHELL_W_LOST)} on "
+                 f"{node_of[rebuilt[w][1]]} in {dt_reb:.3f} s; K1 "
+                 f"{rebuild_k1 + w_chunks} == phase 6's {rebuild_k1} + "
+                 f"W's {w_chunks} chunk(s)")
+
+            # 6 the read-only commands
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            printed = {line: run(line) for line in SHELL_READ_ONLY}
+            dt_ro = time.perf_counter() - t0
+            step_counts("6 read-only", k0, 0)
+            st = json.loads(printed["maintenance.status -json"])
+            ec_vols = {vid: rec for vid, rec in st["volumes"].items()
+                       if rec.get("kind") == "ec"}
+            if sorted(map(int, ec_vols)) != sorted(written + [v]) or \
+                    any(rec["state"] != "healthy"
+                        for rec in ec_vols.values()):
+                raise AssertionError(f"maintenance.status: "
+                                     f"{ {k: r.get('state') for k, r in st['volumes'].items()} }")
+            codecs_seen = json.loads(printed["ec.codecs -json"])
+            steps["6 read-only"] = {"s": dt_ro, "ec_volumes": len(ec_vols),
+                                    "mix": codecs_seen["mix"]}
+            plog(f"6 read-only: {', '.join(SHELL_READ_ONLY)} exited 0 in "
+                 f"{dt_ro:.3f} s; maintenance.status: {len(ec_vols)} EC "
+                 f"volumes, every one healthy; ec.codecs mix "
+                 f"{codecs_seen['mix']}; K1 0")
+
+            # 7 ec.decode of W, then unlock
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            out7 = run(f"ec.decode -volumeId {w}")
+            dt_dec = time.perf_counter() - t0
+            run("unlock")
+            collector = node_of[out7.split(" on ")[-1].strip()]
+            if sha256(base_of(collector, w, SHELL_COLLECTION) + ".dat") != \
+                    dat_hash[w]:
+                raise AssertionError("W's decoded .dat differs from step "
+                                     "3's record")
+            until(lambda: cmd_env.volume_locations(w) == [url[collector]]
+                  and not split(w), "the decoded W never reached the "
+                  "master")
+            dt_wr = fan(get_w, sorted(by_vid[w]))
+            step_counts("7 decode", k0, 0)
+            steps["7 decode"] = {"s": dt_dec, "collector": collector,
+                                 "reads_s": dt_wr}
+            plog(f"7 decode: `ec.decode -volumeId {w}` on {collector} in "
+                 f"{dt_dec:.3f} s, .dat sha256 == step 3's record; its "
+                 f"{len(by_vid[w])} needles read back in {dt_wr:.3f} s; "
+                 f"unlocked; K1 0")
+
+            # 8 the CLI's shell as a child process
+            k0 = dict(launches)
+            want_list = run("volume.list")
+            here = os.path.dirname(os.path.abspath(__file__))
+            t0 = time.perf_counter()
+            child = subprocess.run(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
+                 "-master", master.url, "-c", "volume.list"],
+                cwd=here, capture_output=True, text=True, timeout=300,
+                env=dict(os.environ, PYTHONPATH=here))
+            dt_cli = time.perf_counter() - t0
+            if child.returncode != 0 or child.stdout != want_list:
+                raise AssertionError(f"the CLI shell exited "
+                                     f"{child.returncode}: "
+                                     f"{child.stdout[-500:]!r} "
+                                     f"{child.stderr[-1500:]}")
+            step_counts("8 cli", k0, 0)
+            steps["8 cli"] = {"s": dt_cli}
+            plog(f"8 cli: `python -m seaweedfs_tpu_torch shell -c "
+                 f"volume.list` exited 0 in {dt_cli:.3f} s and printed "
+                 f"what the shell prints in process "
+                 f"({len(want_list.splitlines())} lines); K1 0")
+    finally:
+        if client is not None:
+            client.close()
+        for vs in servers.values():
+            vrun(vs.stop())
+        if master is not None:
+            mrun(master.stop())
+        for loop, th in loops:
+            loop.call_soon_threadsafe(loop.stop)
+            th.join(10)
+        http_client.close()
+        shutil.rmtree(work, ignore_errors=True)
+    stream = [th for th in threading.enumerate()
+              if th.name == "weed-vidmap-stream"]
+    for th in stream:
+        th.join(5)
+    if any(th.is_alive() for th in stream):
+        raise AssertionError("the client's stream thread outlived its "
+                             "master")
+    out = {"card": card, "steps": steps, "counts": counts,
+           "s": time.perf_counter() - t_phase}
+    plog(f"launches per step {counts}; phase wall {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8038,10 +8583,32 @@ def main(argv=None) -> int:
             f"{staged}")
         path_launches = {k: path_launches[k] + heal_launches[k]
                          for k in path_launches}
+
+        # 23 the port's shell and client over three card servers,
+        # counted on its own
+        gf_cuda.reset_launches()
+        phases["shell"] = phase_shell(
+            vdir, server_src, expect, blob, hashes, aux_hashes,
+            phases["encode_warm"]["launches"],
+            phases["rebuild_warm"]["launches"], args.seed, launches)
+        shell_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the shell phase made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        if not shell_launches["gf_apply"] or \
+                shell_launches["gf_apply_batch"]:
+            raise AssertionError(f"the shell phase launched "
+                                 f"{shell_launches}: K1 and no K2 "
+                                 f"expected")
+        log(f"[path] phase 23: launches {shell_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + shell_launches[k]
+                         for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 23 report
+    # 24 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -1,28 +1,37 @@
 """CLI entry point of the port, the `weed`-style launcher (reference:
 weed/weed.go:46-85, weed/command/server.go).
 
-Counterpart of `seaweedfs_tpu/__main__.py`, cut to three subcommands:
+Counterpart of `seaweedfs_tpu/__main__.py`, cut to these subcommands:
 
   python -m seaweedfs_tpu_torch master -port 9333 [-peers a,b,c -mdir D]
   python -m seaweedfs_tpu_torch volume -dir /data -mserver host:9333 \\
       -port 8080 [-device cpu]
   python -m seaweedfs_tpu_torch server -dir /data [-volumePort 8080] \\
       [-device cpu]      # a master and one volume server in one process
+  python -m seaweedfs_tpu_torch master.follower -masters host:9333 \\
+      [-port 9334]       # read-only lookups, writes proxied to the leader
+  python -m seaweedfs_tpu_torch shell -master host:9333 [-c "cmd; cmd"]
+  python -m seaweedfs_tpu_torch upload -master host:9333 FILE...
+  python -m seaweedfs_tpu_torch download -master host:9333 [-dir D] FID...
+  python -m seaweedfs_tpu_torch benchmark -master host:9333 [-n N]
 
-The master has no device.  A volume server (`volume`, and `server`'s)
-runs its codecs on the card unless `-device cpu` asks for the plain
-versions; without a card and without `-device cpu` it raises.
-`-cpuprofile FILE` writes a cProfile dump when the process stops,
-`--torch-profile DIR` a `torch.profiler` Chrome trace (the reference's
-`--jax-profile`), and SIGUSR1 dumps every thread's stack
-(utils/grace.py).  The shell comes with ROADMAP 1.19a; `server`'s
-`-filer`, `-s3`, `-webdav` and `-mq` with 1.20-1.22.
+The master, the follower, the shell and the client tools have no device
+and load no torch.  A volume server (`volume`, and `server`'s) runs its
+codecs on the card unless `-device cpu` asks for the plain versions;
+without a card and without `-device cpu` it raises.  `-cpuprofile FILE`
+writes a cProfile dump when the process stops, `--torch-profile DIR` a
+`torch.profiler` Chrome trace (the reference's `--jax-profile`; it loads
+torch), and SIGUSR1 dumps every thread's stack
+(utils/grace.py).  `server`'s `-filer`, `-s3`, `-webdav` and `-mq` come
+with ROADMAP 1.20-1.22, and `fix`, `compact`, `export`, `backup`,
+`scaffold`, `version`, `autocomplete` and `certs` with 1.19c.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 
 
 def _add_common_flags(p):
@@ -130,6 +139,103 @@ async def _run_volume(args) -> int:
     return 0
 
 
+async def _run_follower(args) -> int:
+    from seaweedfs_tpu_torch.server.master_follower import MasterFollower
+    _security(args)
+    mf = MasterFollower(args.masters, host=args.ip, port=args.port)
+    await mf.start()
+    await _serve_forever()
+    await mf.stop()
+    return 0
+
+
+def _run_benchmark(args) -> int:
+    """Concurrent small-file write/read benchmark
+    (reference: weed/command/benchmark.go:52-460)."""
+    import concurrent.futures
+    import time
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch.client import WeedClient
+
+    client = WeedClient(args.master)
+    rng = np.random.default_rng(0)
+    payload = rng.integers(0, 256, args.size, dtype=np.uint8).tobytes()
+
+    def write_one(i):
+        t0 = time.perf_counter()
+        fid = client.upload(payload, name=f"bench{i}")
+        return fid, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    fids, lat = [], []
+    with concurrent.futures.ThreadPoolExecutor(args.concurrency) as ex:
+        for fid, dt in ex.map(write_one, range(args.n)):
+            fids.append(fid)
+            lat.append(dt)
+    wall = time.perf_counter() - t0
+    lat_ms = sorted(x * 1e3 for x in lat)
+    print(f"write: {args.n / wall:.1f} req/s, "
+          f"{args.n * args.size / wall / 1e6:.2f} MB/s, "
+          f"p50 {lat_ms[len(lat_ms)//2]:.2f}ms "
+          f"p99 {lat_ms[int(len(lat_ms)*0.99)]:.2f}ms")
+
+    def read_one(fid):
+        t0 = time.perf_counter()
+        data = client.download(fid)
+        assert len(data) == args.size
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(args.concurrency) as ex:
+        lat = list(ex.map(read_one, fids))
+    wall = time.perf_counter() - t0
+    lat_ms = sorted(x * 1e3 for x in lat)
+    print(f"read:  {args.n / wall:.1f} req/s, "
+          f"{args.n * args.size / wall / 1e6:.2f} MB/s, "
+          f"p50 {lat_ms[len(lat_ms)//2]:.2f}ms "
+          f"p99 {lat_ms[int(len(lat_ms)*0.99)]:.2f}ms")
+    return 0
+
+
+def _run_upload(args) -> int:
+    import os
+
+    from seaweedfs_tpu_torch.client import WeedClient
+    client = WeedClient(args.master)
+    results = []
+    for path in args.files:
+        with open(path, "rb") as f:
+            data = f.read()
+        fid = client.upload(data, name=os.path.basename(path),
+                            collection=args.collection,
+                            replication=args.replication)
+        results.append({"fileName": os.path.basename(path), "fid": fid,
+                        "size": len(data)})
+    print(json.dumps(results, indent=1))
+    return 0
+
+
+def _run_download(args) -> int:
+    import os
+
+    from seaweedfs_tpu_torch.client import WeedClient
+    client = WeedClient(args.master)
+    for fid in args.fids:
+        data = client.download(fid)
+        out = os.path.join(args.dir, fid.replace(",", "_"))
+        with open(out, "wb") as f:
+            f.write(data)
+        print(f"{fid} -> {out} ({len(data)} bytes)")
+    return 0
+
+
+def _run_shell(args) -> int:
+    from seaweedfs_tpu_torch.shell.shell import repl
+    return repl(args.master, args.script)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="seaweedfs_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -144,6 +250,38 @@ def main(argv=None) -> int:
     _add_volume_flags(ps, with_master=False)
     ps.add_argument("-volumePort", type=int, default=8080)
     _add_common_flags(ps)
+
+    pmf = sub.add_parser(
+        "master.follower",
+        help="read-only lookup-serving master follower "
+             "(command/master_follower.go)")
+    pmf.add_argument("-ip", default="127.0.0.1")
+    pmf.add_argument("-port", type=int, default=9334)
+    pmf.add_argument("-masters", default="127.0.0.1:9333",
+                     help="comma-separated master list to track")
+    psh = sub.add_parser("shell")
+    psh.add_argument("-master", default="127.0.0.1:9333")
+    psh.add_argument("-c", dest="script", default=None,
+                     help="semicolon-separated commands; omit for a REPL")
+    pb = sub.add_parser("benchmark")
+    pb.add_argument("-master", default="127.0.0.1:9333")
+    pb.add_argument("-n", type=int, default=10000)
+    pb.add_argument("-size", type=int, default=1024)
+    pb.add_argument("-c", type=int, dest="concurrency", default=16)
+    pup = sub.add_parser("upload",
+                         help="upload files via master assign "
+                              "(command/upload.go)")
+    pup.add_argument("-master", default="127.0.0.1:9333")
+    pup.add_argument("-collection", default="")
+    pup.add_argument("-replication", default="")
+    pup.add_argument("files", nargs="+")
+    pdl = sub.add_parser("download",
+                         help="download blobs by fid (command/download.go)")
+    pdl.add_argument("-master", default="127.0.0.1:9333")
+    pdl.add_argument("-dir", default=".")
+    pdl.add_argument("fids", nargs="+")
+    for p in (pmf, psh, pb, pup, pdl):
+        _add_common_flags(p)
     args = ap.parse_args(argv)
 
     from seaweedfs_tpu_torch.utils import grace, weedlog
@@ -152,8 +290,15 @@ def main(argv=None) -> int:
     grace.setup_torch_profile(args.torchProfile, getattr(args, "device",
                                                          "cpu"))
     grace.setup_profiling(args.cpuprofile)
+    sync = {"shell": _run_shell, "benchmark": _run_benchmark,
+            "upload": _run_upload, "download": _run_download}
+    if args.cmd in sync:
+        # the client tools load security.toml too, before any cluster URL
+        # is built: the process-wide TLS
+        _security(args)
+        return sync[args.cmd](args)
     run = {"master": _run_master, "volume": _run_volume,
-           "server": _run_server}[args.cmd]
+           "server": _run_server, "master.follower": _run_follower}[args.cmd]
     return asyncio.run(run(args))
 
 

@@ -1,8 +1,9 @@
 """Codec tags: the identity and geometry of each registered erasure code.
 
 Split out of `ops/codecs.py` so that the master, which has no device,
-reads volumes' codec tags (`/cluster/perf`'s codec mix) without loading
-torch; `ops/codecs.py` re-exports every name.  Counterpart of the tag
+reads volumes' codec tags (`/cluster/perf`'s codec mix), and the shell
+lists them (`ec.codecs`), without loading torch; `ops/codecs.py`
+re-exports every name.  Counterpart of the tag
 half of `seaweedfs_tpu/ops/codecs.py`.
 """
 
@@ -24,6 +25,20 @@ class CodecSpec:
     n: int            # total shard files
     alpha: int        # sub-packetization (1 for rs/lrc)
     params: tuple     # family params, e.g. (10, 4) / (10, 2, 2) / (9, 16)
+
+    @property
+    def tolerance(self) -> int:
+        """Worst-case guaranteed losses: m for MDS codes, the minimum
+        distance - 1 for LRC (g + 1 with one local parity per group)."""
+        if self.family == "lrc":
+            return self.params[2] + 1
+        return self.m
+
+    def describe(self) -> dict:
+        return {"tag": self.tag, "family": self.family, "k": self.k,
+                "m": self.m, "n": self.n, "alpha": self.alpha,
+                "tolerance": self.tolerance,
+                "params": list(self.params)}
 
 
 def _family_params(var: str, default: str, count: int) -> tuple:
@@ -88,3 +103,11 @@ def default_tag() -> str:
     WEEDTPU_CODEC_DEFAULT accepts a full tag or a bare family name."""
     return parse_tag(os.environ.get("WEEDTPU_CODEC_DEFAULT",
                                     DEFAULT_TAG)).tag
+
+
+def registered() -> list[CodecSpec]:
+    """The codec family as configured right now, what `ec.codecs` lists.
+    A malformed WEEDTPU_CODEC_LRC or _MSR raises, as in `parse_tag`."""
+    return [_spec_rs(10, 4),
+            _spec_lrc(*_family_params("WEEDTPU_CODEC_LRC", "10,2,2", 3)),
+            _spec_msr(*_family_params("WEEDTPU_CODEC_MSR", "9,16", 2))]

@@ -47,7 +47,7 @@ import functools
 import torch
 
 from seaweedfs_tpu_torch.ops.codec_tags import (  # noqa: F401
-    DEFAULT_TAG, CodecSpec, default_tag, parse_tag)
+    DEFAULT_TAG, CodecSpec, default_tag, parse_tag, registered)
 from seaweedfs_tpu_torch.storage.ec import layout
 
 KINDS = ("mesh", "cuda", "native")

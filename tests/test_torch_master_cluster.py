@@ -1,9 +1,12 @@
 """A cluster that is all the port's: the port's master and port volume
 servers (`device="cpu"`), in process on one asyncio loop in a thread with
-real sockets, driven by the reference's `WeedClient` and shell exactly as
+real sockets, driven by a `WeedClient` and a shell exactly as
 tests/test_cluster.py drives the reference's servers.
 
-The nine tests below are twins of that file's.  Then a mixed cluster:
+The nine tests below are twins of that file's.  Each runs twice, by its
+`driver` parameter: once with the reference's `WeedClient` and shell,
+and once with the port's own (`seaweedfs_tpu_torch.client`,
+`seaweedfs_tpu_torch.shell.commands`).  Then a mixed cluster:
 one reference and one port volume server under the port's master, with
 a shard set that crosses both ways (the opposite case, port nodes under
 the reference master, is tests/test_torch_cluster.py's), and the CLI:
@@ -124,9 +127,26 @@ def cluster(tmp_path):
     c.stop()
 
 
+@pytest.fixture(params=["reference", "port"])
+def driver(request):
+    """The package whose `WeedClient`, `CommandEnv` and `run_command`
+    drive the cluster."""
+    return request.param
+
+
+def _tools(driver):
+    if driver == "reference":
+        return WeedClient, CommandEnv, run_command
+    from seaweedfs_tpu_torch.client import WeedClient as PortClient
+    from seaweedfs_tpu_torch.shell.commands import CommandEnv as PortEnv
+    from seaweedfs_tpu_torch.shell.commands import run_command as port_run
+    return PortClient, PortEnv, port_run
+
+
 # ---- twins of tests/test_cluster.py ----------------------------------------
 
-def test_blob_lifecycle(cluster):
+def test_blob_lifecycle(cluster, driver):
+    WeedClient, CommandEnv, run_command = _tools(driver)
     client = WeedClient(cluster.master.url)
     rng = np.random.default_rng(0)
     payloads = {}
@@ -148,7 +168,8 @@ def test_blob_lifecycle(cluster):
         client.download(bad)
 
 
-def test_replicated_write_spans_servers(tmp_path):
+def test_replicated_write_spans_servers(tmp_path, driver):
+    WeedClient, CommandEnv, run_command = _tools(driver)
     c = Cluster(tmp_path, n_volume_servers=2, replication="001").start()
     try:
         c.wait_heartbeats()
@@ -189,10 +210,11 @@ def _delete_shards(url: str, vid: int, shards) -> None:
     urllib.request.urlopen(req).close()
 
 
-def _ec_flow(cluster, payloads, vids, dropper):
+def _ec_flow(cluster, payloads, vids, dropper, driver="reference"):
     """The shell's encode, degraded reads after `dropper` loses two
     shards it holds of each volume, rebuild and decode; every blob read
     back after each step."""
+    WeedClient, CommandEnv, run_command = _tools(driver)
     client = WeedClient(cluster.master.url)
     env = CommandEnv(cluster.master.url)
     out = io.StringIO()
@@ -227,21 +249,24 @@ def _ec_flow(cluster, payloads, vids, dropper):
         run_command(env, "unlock", out)
 
 
-def test_ec_encode_degraded_read_rebuild_decode(cluster):
+def test_ec_encode_degraded_read_rebuild_decode(cluster, driver):
+    WeedClient, CommandEnv, run_command = _tools(driver)
     client = WeedClient(cluster.master.url)
     payloads = _fill_volume(client)
     vids = {int(fid.partition(",")[0]) for fid in payloads}
     time.sleep(0.7)
-    _ec_flow(cluster, payloads, vids, cluster.volume_servers[0])
+    _ec_flow(cluster, payloads, vids, cluster.volume_servers[0], driver)
 
 
-def test_shell_requires_lock(cluster):
+def test_shell_requires_lock(cluster, driver):
+    WeedClient, CommandEnv, run_command = _tools(driver)
     env = CommandEnv(cluster.master.url)
     with pytest.raises(RuntimeError, match="lock"):
         run_command(env, "volume.vacuum -volumeId 1", io.StringIO())
 
 
-def test_vacuum_via_shell(cluster):
+def test_vacuum_via_shell(cluster, driver):
+    WeedClient, CommandEnv, run_command = _tools(driver)
     client = WeedClient(cluster.master.url)
     fids = [client.upload(bytes(2000)) for _ in range(20)]
     for fid in fids[:15]:
@@ -258,9 +283,10 @@ def test_vacuum_via_shell(cluster):
         assert client.download(fid) == bytes(2000)
 
 
-def test_paged_range_read_large_blob(cluster):
+def test_paged_range_read_large_blob(cluster, driver):
     """Range requests on large needles read only the page, not the whole
     record (reference: needle_read_page.go)."""
+    WeedClient, CommandEnv, run_command = _tools(driver)
     client = WeedClient(cluster.master.url)
     rng = np.random.default_rng(17)
     blob = rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()  # 1MB
@@ -279,9 +305,10 @@ def test_paged_range_read_large_blob(cluster):
     assert client.download(fid) == blob
 
 
-def test_concurrent_write_read_delete_hammer(cluster):
+def test_concurrent_write_read_delete_hammer(cluster, driver):
     """Thread hammer on one volume server: concurrent uploads, whole and
     paged (Range) reads, and deletes stay consistent."""
+    WeedClient, CommandEnv, run_command = _tools(driver)
     client = WeedClient(cluster.master.url)
     big = secrets.token_bytes(512 * 1024)
     big_fid = client.upload(big, name="big.bin")
@@ -337,9 +364,10 @@ def test_concurrent_write_read_delete_hammer(cluster):
         assert client.download(fid) == blobs[fid]
 
 
-def test_ec_generate_progress_and_cancel(tmp_path):
+def test_ec_generate_progress_and_cancel(tmp_path, driver):
     """EC generate is observable (/admin/ec/progress) and cancellable
     (/admin/ec/cancel)."""
+    WeedClient, CommandEnv, run_command = _tools(driver)
     c = Cluster(tmp_path, n_volume_servers=1).start()
     c.wait_heartbeats()
     try:
@@ -389,9 +417,10 @@ def test_ec_generate_progress_and_cancel(tmp_path):
         c.stop()
 
 
-def test_streamed_vid_map_invalidation(tmp_path):
+def test_streamed_vid_map_invalidation(tmp_path, driver):
     """A client on the master's /cluster/stream push feed reroutes around
     a dead volume server as soon as the master expires it."""
+    WeedClient, CommandEnv, run_command = _tools(driver)
     c = Cluster(tmp_path, n_volume_servers=2, replication="001")
     c.start()
     c.master.node_timeout = 1.5

@@ -118,6 +118,15 @@ def test_import_rule_covers_the_master_maintenance_slice():
         assert f"seaweedfs_tpu_torch/{rel}" in files, rel
 
 
+def test_import_rule_covers_the_shell_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("client.py", "utils/vid_cache.py",
+                "server/master_follower.py", "shell/__init__.py",
+                "shell/commands.py", "shell/shell.py", "ops/codec_tags.py",
+                "__main__.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
 def test_card_path_modules_import_no_server_package():
     """The store, the EC files and the codecs load without aiohttp and
     protobuf: only the server modules import them at module level."""
