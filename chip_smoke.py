@@ -8,7 +8,9 @@ to end and check every byte.
 Phases (any failure ends the run with a non-zero exit and no result line):
 
   1 build      nvcc/g++ build of seaweedfs_tpu_torch/csrc, all at once
-               (the GF kernel, the needle checksum, the native host codec)
+               (the GF kernel, the needle checksum, the native host codec,
+               the chunk cipher), started before torch's import, which it
+               overlaps
   2 kernel     the GF(2^8) kernel against gf_apply_plain, byte for byte:
                timed at the paths' shapes (encode, rebuild, degraded
                reads, the fleet's unit batches, repair's partials, MSR's
@@ -22,7 +24,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                4..6, ragged n, strided and unaligned views,
                a batched [4,72,n], and the codec on a contiguous [10, 700]
   3 write      a volume of needles (sizes uniform in 4 KB..1 MB, data from
-               --seed) through Volume.append_needle
+               --seed) through Volume.append_needle, on a thread while
+               the kernels build (joined before phase 2)
   4 encode     write_ec_files + write_sorted_ecx; sampled stripe rows, cut
                by the layout's definition, held against the .dat (data
                shards) and the plain version (parity shards); sha256 of
@@ -68,7 +71,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                inside its group, [12] at d = 10, [12] at d = None (the
                reference's ValueError, ROADMAP fault 3.5); MSR, on four
                nodes, [0], [0, 13], and [0] with "c:3" dying mid-repair;
-               checked as phase 9's runs
+               checked as phase 9's runs.  It runs in a child process of
+               its own (`--codecs-worker`, its own launch counts, the
+               needles drawn again from --seed) over a copy of the
+               phase-3 .dat: started during phase 13, it waits for
+               phase 13's end, then runs beside the records and phases
+               14 and 15; its lines are printed when it is joined, after
+               phase 15's
  11 native     the native host codec (WEEDTPU_EC_CODEC=native) on this
                card's host: the CPU's model, cores and auto impl; its
                product at [4,10]@[10,1MiB] and @[10,16MiB] under AVX2
@@ -133,9 +142,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                a half-moved copy, with the phase-3 volume linked into
                location A, every needle read back (cookies checked) and
                those of 64 KB or less through read_needle_inline too;
-               131 072 needles of 1 KiB (weed benchmark's -size 1024,
-               reduced from its -n 1048576) written into location B, two
-               merges of the compact needle map, a reboot, 4096 sampled
+               69 632 needles of 1 KiB (weed benchmark's -size 1024,
+               reduced from its -n 1048576) written into location B, a
+               merge of the compact needle map and 4096 past it, a
+               reboot, 4096 sampled
                reads, the volume reopened sorted_file (reads equal, a
                write refused); every fourth needle of volume 1 deleted and
                the volume compacted (revision + 1, size = super block +
@@ -162,18 +172,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                stand-ins of the volume server's shard-read endpoint
                (ThreadingHTTPServer on loopback), the reader a stand-in
                of its shard reader (a static table, the port's
-               PooledHTTP): (1) A holds 4-13, B 0-3, every needle on 0-3
-               read; (2) A 2-13, B 0-1 answering 0.35 s late, 16 needles
+               PooledHTTP): (1) A holds 4-13, B 0-3, every third needle
+               on 0-3 read; (2) A 2-13, B 0-1 answering 0.35 s late, 16 needles
                (drawn from those whose bytes on 0-1 fit 1/16 of the
-               reconstruction LRU) with hedging off, then on
-               (WEEDTPU_HEDGE_PCT=99, WEEDTPU_HEDGE_MAX_MS=100); (3) the
-               16 again from the LRU; (4) 8 needles on 0 and 1 from a
+               reconstruction LRU), 4 of them with hedging off, then the
+               16 with it on (WEEDTPU_HEDGE_PCT=99,
+               WEEDTPU_HEDGE_MAX_MS=100); (3) the 16 again from the LRU;
+               (4) 4 needles on 0 and 1 from a
                node holding 2-10, rescued by the abandoned fetches; (5) B
                down: the 16 reconstructed, B's breaker open; (6) 128
                bytes of shard 2 flipped, found by syndrome_scan,
                quarantined, the needles over it read, restored; (7)
-               skip_shards={0} on 16 needles; (8) step 1's needles in 8
-               threads, B up, then down; K1 per step against its
+               skip_shards={0} on 16 needles; (8) in 8 threads, 256 of
+               step 1's needles with B up, then all of them with B down;
+               K1 per step against its
                prediction, the hedge counters, rates and latencies, and
                whether aiohttp, google.protobuf and cryptography import
  16 server     two port VolumeServers (A, B) on the card, in process on
@@ -193,17 +205,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                phase 4's, K1 == phase 4's; (3) B pulls 7-13 through A's
                /admin/file, both mount, A drops 7-13 and the volume, the
                master shows the split; (4) phase 5's losses deleted where
-               they live, every needle on a lost data shard and 256
+               they live, every needle on a lost data shard and 32
                others read from A, B's shards through
                A's shard reader and B's /admin/ec/shard_read (hedging
-               off), K1 == needles on lost data shards; (5) the shell's
-               ec.rebuild: A borrows B's survivors, rebuilds (sha256 ==
-               phase 4's, K1 == phase 6's), drops them, mounts; (6) the
-               shell's ec.decode: /admin/ec/to_volume, the .dat sha256 ==
-               phase 3's, 256 needles read back; (7) 2048 x 1 KiB
+               off), K1 == needles on lost data shards; (5) A borrows
+               B's survivors (/admin/ec/copy), /admin/ec/rebuild (sha256
+               == phase 4's, K1 == phase 6's), mounts, keeps them (the
+               shell's ec.rebuild, which phase 23 drives, deletes them);
+               (6) A, which holds every shard, decodes through
+               /admin/ec/to_volume, the .dat sha256 ==
+               phase 3's, 256 needles read back; (7) 1024 x 1 KiB
                objects on B at 16 clients (upstream's `weed benchmark`
                -size 1024 -c 16, cut), written then read, 256 deleted;
-               1024 writes to a 001 volume on A read back from A and B;
+               128 writes to a 001 volume on A read back from A and B;
                (8) /metrics on A and B count the blob requests made;
                both beat in protobuf (`_wire_pb`) and the master's
                heartbeat counter rose; the servers start without a
@@ -412,7 +426,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                against its prediction, K2 0; launches zeroed before and
                read after; every line with the card's name and power
                limit
- 24 report     {"kernels": [...]} line, the card's name and power limit,
+ 24 filer      the port's filer without its server (ROADMAP 1.20a) on
+               phase 23's cluster of three card servers, kept up for
+               it: the `Filer` over
+               its `LogStore`, its `on_delete_chunks` feeding a
+               `DeletionQueue` on the port's `WeedClient`, a `ChunkCache`
+               of 32 MiB in memory and a disk tier; (1) 256 MiB of files
+               from --seed (1 KiB-32 MiB) cut into 4 MiB chunks and
+               uploaded into collection p24, those under /p24/enc sealed
+               by the port's AES-GCM cipher; a file of 48 appended chunks
+               manifestized at a batch of 16, a middle range overwritten,
+               a hard link, a subtree rename; (2) `ec.encode -collection
+               p24` through the port's shell, K1 == the layout's units;
+               (3) data shards 0 and 3 of every p24 EC volume deleted; (4)
+               every file read through `ChunkGroup.read_views`, the client
+               and `decrypt`, sha256 == its draw, K1 one per download
+               whose needle touches a lost data shard, sampled sealed
+               chunks opened by `cryptography`'s AESGCM; (5) every file
+               again from the cache, K1 0; (6) /p24/plain deleted: the
+               queue frees its fids (the manifests' inner fids too), each
+               404 on every holder, the /p24/enc files still equal read
+               without the cache, K1 one per manifest and /p24/enc chunk
+               on a lost shard; (7) the LogStore reopened, the same
+               `subtree_digest`; K2 0; launches zeroed before and read
+               after
+ 25 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -462,8 +500,82 @@ PCIE_BYTES_PER_S = 64e9
 MIB = 1 << 20
 
 
+_LAST_LINE = [time.perf_counter()]
+
+
 def log(msg: str) -> None:
+    """A line of the run, with the seconds since the line before it: the
+    step it closes."""
+    now = time.perf_counter()
+    if not msg.startswith("{"):
+        msg = f"{msg} (+{now - _LAST_LINE[0]:.2f} s)"
+    _LAST_LINE[0] = now
     print(msg, flush=True)
+
+
+def free_port() -> int:
+    """A port of the loopback interface that was free a moment ago."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def loop_thread(loops: list, timeout: float = 600):
+    """A new event loop running on a daemon thread, appended to `loops`
+    as (loop, thread); returns a function that runs a coroutine there
+    and waits for its result (`timeout` seconds at most)."""
+    import asyncio
+    loop = asyncio.new_event_loop()
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+    loops.append((loop, th))
+    return lambda coro: asyncio.run_coroutine_threadsafe(
+        coro, loop).result(timeout)
+
+
+def stop_loops(loops: list) -> None:
+    """Stop the loops `loop_thread` started and join their threads."""
+    for loop, th in loops:
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(10)
+
+
+def until(pred, what: str, timeout: float = 15.0):
+    """`pred()`'s first true value, polled every 20 ms; AssertionError
+    with `what` after `timeout` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(what)
+        time.sleep(0.02)
+
+
+def fan(fn, items, threads: int = 16) -> float:
+    """`fn` over `items` from `threads` threads, each taking every
+    `threads`-th item; the wall.  The first error is raised after the
+    join."""
+    errors: list = []
+
+    def worker(c: int) -> None:
+        try:
+            for it in items[c::threads]:
+                fn(it)
+        except Exception as e:  # surfaced after the join
+            errors.append(e)
+    pool = [threading.Thread(target=worker, args=(c,))
+            for c in range(threads)]
+    t0 = time.perf_counter()
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    if errors:
+        raise errors[0]
+    return time.perf_counter() - t0
 
 
 def gpu_ms(fn, flush, runs: int = 20, warmup: int = 3) -> float:
@@ -599,6 +711,9 @@ def kernel_cases(seed: int):
     return cases
 
 
+# phase 2's timed launches of each case's plain version (the kernel's: 20)
+PLAIN_RUNS = 5
+
 # phase 2's cases whose inputs and K1 outputs phase 11 holds the native
 # host codec against
 NATIVE_CASES = ("parity [10,1MiB]", "parity [10,16MiB]")
@@ -653,7 +768,10 @@ def phase_kernel(seed: int) -> tuple[list[dict], list[dict], dict]:
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
         if timed:
             row["ms"] = gpu_ms(kern, flush)
-            row["plain_ms"] = gpu_ms(plain, flush, runs=20, warmup=1)
+            # the plain version's median of PLAIN_RUNS: its times are
+            # tens of ms, steady to a few percent
+            row["plain_ms"] = gpu_ms(plain, flush, runs=PLAIN_RUNS,
+                                     warmup=1)
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             log(f"[kernel] {name}: equal, {row['ms']:.5f} ms "
                 f"({row['share_of_bound']:.1%} of the {row['bound_ms']:.5f} "
@@ -758,10 +876,25 @@ def ptxas_report(log_text: str) -> list[str]:
 def build_volume(vdir: str, seed: int, target: int):
     """Phase 3: needles of uniform 4 KB..1 MB until the .dat reaches
     `target` bytes.  Returns (dat_path, {id: (cookie, lo, hi)}, blob)."""
-    import numpy as np
     from seaweedfs_tpu_torch.storage import needle as ndl
-    from seaweedfs_tpu_torch.storage import types as t
     from seaweedfs_tpu_torch.storage.volume import Volume
+
+    expect, blob = draw_needles(seed, target)
+    v = Volume(vdir, "", 1)
+    for nid, (cookie, lo, hi) in expect.items():
+        v.append_needle(ndl.Needle(
+            cookie=cookie, id=nid, data=blob[lo:hi],
+            append_at_ns=1_700_000_000_000_000_000 + nid - 1))
+    v.flush()
+    v.close()
+    return v.dat_path, expect, blob
+
+
+def draw_needles(seed: int, target: int) -> tuple[dict, bytes]:
+    """Phase 3's needles as `build_volume` draws them from `seed`:
+    ({id: (cookie, lo, hi)}, blob), written nowhere."""
+    import numpy as np
+    from seaweedfs_tpu_torch.storage import types as t
 
     rng = np.random.default_rng(seed)
     sizes = []
@@ -772,19 +905,12 @@ def build_volume(vdir: str, seed: int, target: int):
         total += t.actual_size(s + 5)  # DataSize(4) + data + flags(1)
     blob = rng.bytes(sum(sizes))
     cookies = rng.integers(0, 1 << 32, len(sizes)).tolist()
-    v = Volume(vdir, "", 1)
     expect = {}
     lo = 0
     for i, s in enumerate(sizes):
-        nid = i + 1
-        v.append_needle(ndl.Needle(cookie=cookies[i], id=nid,
-                                   data=blob[lo:lo + s],
-                                   append_at_ns=1_700_000_000_000_000_000 + i))
-        expect[nid] = (cookies[i], lo, lo + s)
+        expect[i + 1] = (cookies[i], lo, lo + s)
         lo += s
-    v.flush()
-    v.close()
-    return v.dat_path, expect, blob
+    return expect, blob
 
 
 def stripe_rows(dat_size: int, large_block: int, small_block: int,
@@ -1817,6 +1943,78 @@ def phase_codecs(vdir: str, dat_path: str, expect: dict, blob: bytes,
     return out
 
 
+def codecs_worker(vdir: str, dat_path: str, seed: int, target: int) -> int:
+    """Phase 10 in a process of its own (`--codecs-worker`): the needles
+    drawn again from `seed` as phase 3 drew them and the card's context
+    made, then, at a line on stdin (the parent's phase 13 done),
+    `phase_codecs` over `dat_path` (a copy of the phase-3 .dat, which
+    phase 14 appends to), and one JSON line: the phase's record, its
+    launches and its staged copies."""
+    import torch
+    from seaweedfs_tpu_torch.ops import gf_cuda
+    expect, blob = draw_needles(seed, target)
+    torch.zeros(1, device="cuda")
+    if not sys.stdin.readline():
+        return 1  # the parent ended before its start signal
+    gf_cuda.reset_launches()
+    rec = phase_codecs(vdir, dat_path, expect, blob, seed, gf_cuda.LAUNCHES)
+    print(json.dumps({"codecs": rec, "launches": dict(gf_cuda.LAUNCHES),
+                      "staged": dict(gf_cuda.STAGED)}), flush=True)
+    return 0
+
+
+def start_codecs_worker(vdir: str, dat_path: str, seed: int,
+                        volume_mib: int):
+    """The child of `codecs_worker`, its output into a file under `vdir`
+    (read at the join, so a full pipe never stalls it)."""
+    out = open(os.path.join(vdir, "codecs_worker.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--codecs-worker",
+         vdir, dat_path, "--seed", str(seed), "--volume-mib",
+         str(volume_mib)], stdin=subprocess.PIPE, stdout=out,
+        stderr=subprocess.STDOUT, text=True)
+    proc.out = out
+    return proc
+
+
+def go_codecs_worker(proc) -> None:
+    """The child's start signal."""
+    proc.t_go = time.perf_counter()
+    try:
+        proc.stdin.write("go\n")
+        proc.stdin.close()
+    except BrokenPipeError:
+        pass  # the child died: the join says why
+
+
+def join_codecs_worker(proc) -> tuple[dict, dict, dict, float]:
+    """Wait for the child, print its lines, and return its phase record,
+    launches, staged copies and the seconds the parent waited."""
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    waited = time.perf_counter() - t0
+    proc.out.seek(0)
+    lines = proc.out.read().splitlines()
+    proc.out.close()
+    if rc != 0 or not lines or not lines[-1].startswith('{"codecs"'):
+        raise AssertionError(f"phase 10's child exited {rc}:\n" +
+                             "\n".join(lines[-40:]))
+    for line in lines[:-1]:
+        print(line, flush=True)
+    doc = json.loads(lines[-1])
+    return doc["codecs"], doc["launches"], doc["staged"], waited
+
+
+def stop_codecs_worker(proc) -> None:
+    """Kill the child on the way out of a failed run."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    if not proc.stdin.closed:
+        proc.stdin.close()
+    proc.out.close()
+
+
 def cpu_model() -> str:
     """The host CPU's `model name` from /proc/cpuinfo; where it is absent
     or "unknown" (as on some virtualised hosts), its vendor, family,
@@ -2193,10 +2391,12 @@ def fleet_worker() -> int:
     return 0
 
 
-def spawn_fleet_arms() -> dict:
+def spawn_fleet_arms(vdir: str, srcs: list[str]) -> dict:
     """Phase 12's two fleet children, one per arm of FLEET_ARMS, started
-    at once so their start-up (torch's import) runs while the phase's
-    encode arms do."""
+    at once with their warm-up request (the CUDA context, the kernel
+    library, pinned pools) on stdin, so their start-up and warm-up run
+    while the phase's encode arms do; `fleet_ab` reads the warm-up's
+    answers."""
     procs = {}
     for arm, extra in FLEET_ARMS.items():
         env = dict(os.environ)
@@ -2206,6 +2406,10 @@ def spawn_fleet_arms() -> dict:
             [sys.executable, os.path.abspath(__file__), "--fleet-worker"],
             env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             text=True)
+        procs[arm].stdin.write(json.dumps({
+            "dir": os.path.join(vdir, f"warm{arm}"), "srcs": srcs[-1:]}) +
+            "\n")
+        procs[arm].stdin.flush()
     return procs
 
 
@@ -2243,9 +2447,7 @@ def fleet_ab(vdir: str, srcs: list[str], hashes: list[str],
         return json.loads(line)
 
     try:
-        # the warm-up run: CUDA context, the kernel library, pinned pools
-        for arm in procs:
-            send(arm, os.path.join(vdir, f"warm{arm}"), srcs[-1:])
+        # the warm-up run `spawn_fleet_arms` asked for
         for arm in procs:
             out["warmup_launches"][arm] = answer(arm)["launches"]
         first = None
@@ -2302,8 +2504,8 @@ def phase_writer(vdir: str, dat_path: str, hashes: list[str],
     batcher in child processes.  Launches (this process's and the
     children's) against the layout's count.  The environment is restored
     on the way out; a failure goes on up.  The fleet's children start
-    first, so their start-up overlaps the encode arms."""
-    procs = spawn_fleet_arms()
+    first, so their start-up and warm-up overlap the encode arms."""
+    procs = spawn_fleet_arms(vdir, srcs)
     try:
         return _phase_writer(vdir, dat_path, hashes, srcs, launches, procs)
     finally:
@@ -2771,7 +2973,9 @@ def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
     for p in shard:
         os.remove(p)
     prof_rows = {}
+    t_prof = time.perf_counter()
     with grace.torch_profile(tdir):
+        t_in = time.perf_counter()
         before = KERNELS.snapshot()
         with torch.profiler.record_function("chip_smoke.encode"):
             ec_files.write_ec_files(base)
@@ -2784,13 +2988,23 @@ def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
             ec_files.rebuild_ec_files(base)
         prof_rows["rebuild"] = delta(KERNELS.snapshot(), before,
                                      "reconstruct[device]")
+        t_work = time.perf_counter()
+    t_out = time.perf_counter()
     prof_k1 = launches["gf_apply"] - k1
     same_shards("profiled encode and rebuild")
+    t_same = time.perf_counter()
     events = trace_events(tdir)
+    t_read = time.perf_counter()
     traced_k1 = sum(1 for e in events if e.get("cat") == "kernel"
                     and K1_TRACE_NAME in e.get("name", ""))
+    out["profile_s"] = {"start": t_in - t_prof, "workload": t_work - t_in,
+                        "stop_and_export": t_out - t_work,
+                        "shard_check": t_same - t_out,
+                        "trace_read": t_read - t_same}
     tlog(f"trace: {traced_k1} K1 kernel events == {prof_k1} K1 launches "
-         f"counted in the profiled encode and rebuild")
+         f"counted in the profiled encode and rebuild; {len(events)} "
+         f"events; seconds: " + ", ".join(
+             f"{k} {v:.2f}" for k, v in out["profile_s"].items()))
     if traced_k1 != prof_k1:
         raise AssertionError(f"telemetry: the trace holds {traced_k1} K1 "
                              f"events, the wrapper counted {prof_k1}")
@@ -2930,9 +3144,10 @@ def phase_telemetry(vdir: str, dat_path: str, hashes: list[str],
 
 # phase 14's small objects: upstream's own `weed benchmark` defaults (-n
 # 1048576 -size 1024, the SeaweedFS README's benchmark section), reduced
-# to two of the compact needle map's merges (CompactNeedleMap.
-# MERGE_THRESHOLD is 65 536) by the run's time limit
-STORE_SMALL_N = 131072
+# by the run's time limit to one of the compact needle map's merges
+# (CompactNeedleMap.MERGE_THRESHOLD is 65 536) and 4096 needles past it,
+# in the map's unmerged tail
+STORE_SMALL_N = 65536 + 4096
 STORE_SMALL_SIZE = 1024
 STORE_SAMPLES = 4096
 # crash leftovers of each kind DiskLocation.load_existing removes
@@ -3039,7 +3254,8 @@ def phase_store(vdir: str, dat_path: str, expect: dict, blob: bytes,
          f"({v1.data_size() / dt / 1e9:.3f} GB/s); {inline} of 64 KB or "
          f"less also through read_needle_inline")
 
-    # 2 small objects in B: two merges of the compact map, a reboot
+    # 2 small objects in B: a merge of the compact map and a tail past
+    # it, a reboot
     g = np.random.default_rng(seed + 14)
     small = g.bytes(STORE_SMALL_N * STORE_SMALL_SIZE)
     cookies = g.integers(0, 1 << 32, STORE_SMALL_N).tolist()
@@ -3307,9 +3523,19 @@ REMOTE_SLOW_S = 0.35  # step 2's slow peer
 # step 2's needles, read again in steps 3 and 5; cut from 32 for the
 # script's time (PERF §4)
 REMOTE_HEDGED = 16
-REMOTE_RESCUED = 8  # step 4's
+# step 2's hedging-off arm reads the first 4 of them, each 0.35 s late: its
+# p50 is the slow peer's delay, and the arm launches nothing
+REMOTE_HEDGE_OFF = 4
+# step 4's, each 0.35 s: the first 4 of a draw of 8, so that the draws
+# after it stay the same
+REMOTE_RESCUED = 4
+REMOTE_RESCUE_DRAW = 8
 REMOTE_SKIPPED = 16  # step 7's
+REMOTE_STEP1_EVERY = 3  # step 1 reads every third needle on shards 0-3
 REMOTE_THREADS = 8  # step 8's
+# step 8's reads with B up, where they launch nothing: the first 256 of
+# the permutation; with B down, all of step 1's needles (K1 each)
+REMOTE_UP_READS = 256
 # the reconstruction LRU's default budget (ec_volume.RECONSTRUCT_CACHE_
 # BYTES): step 2's needles are drawn among those whose bytes on shards 0
 # and 1 fit 1/16 of it, so that step 3 finds all 16 in the cache
@@ -3649,8 +3875,8 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
             n for s, _, n in ivs[nid] if s < 2) <= REMOTE_LRU_SHARE]
         hedged = sorted(rng.choice(fit, REMOTE_HEDGED, replace=False)
                         .tolist())
-        rescued = sorted(rng.choice(both, REMOTE_RESCUED, replace=False)
-                         .tolist())
+        rescued = sorted(rng.choice(both, REMOTE_RESCUE_DRAW, replace=False)
+                         .tolist()[:REMOTE_RESCUED])
         skipped = sorted(rng.choice(
             [nid for nid in pair if any(s == 0 for s, _, _ in ivs[nid])],
             REMOTE_SKIPPED, replace=False).tolist())
@@ -3665,8 +3891,9 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
         ra = reader({s: pb.addr for s in range(4)})
         fresh_history()
         before = counters(a)
+        reads = reads1[::REMOTE_STEP1_EVERY]
         t0 = time.perf_counter()
-        ts = read_all(a, reads1, ra)
+        ts = read_all(a, reads, ra)
         dt = time.perf_counter() - t0
         g = grown(a, before)
         if g["remote_shard_reads"] <= 0:
@@ -3676,14 +3903,15 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
                                  f"batches {g['reconstruct_batches']}, "
                                  f"hedges fired {g['fired']}: not equal")
         k1_steps["1 remote"] = (g["k1"], 0)
-        steps["remote"] = {"reads": len(reads1), "s": dt,
-                           "reads_per_s": len(reads1) / dt,
+        steps["remote"] = {"reads": len(reads), "s": dt,
+                           "reads_per_s": len(reads) / dt,
                            "remote_mb_s": ra.bytes / dt / 1e6,
                            "remote_bytes": ra.bytes, "grown": g,
                            "latency": lat(ts), "peer_headers": dict(
                                pb.headers), "peer_requests": pb.requests}
-        rlog(f"1 remote reads: {len(reads1)} needles on shards 0-3 equal, "
-             f"{len(reads1) / dt:.1f} reads/s, {ra.bytes / dt / 1e6:.1f} "
+        rlog(f"1 remote reads: {len(reads)} of the {len(reads1)} needles "
+             f"on shards 0-3 equal, {len(reads) / dt:.1f} reads/s, "
+             f"{ra.bytes / dt / 1e6:.1f} "
              f"MB/s fetched from B ({ra.bytes} B in {pb.requests} "
              f"requests, remote_shard_reads +{g['remote_shard_reads']}); "
              f"K1 +{g['k1']} == reconstruct batches == hedges fired "
@@ -3698,11 +3926,12 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
         for arm, env in (("off", {"WEEDTPU_HEDGE_PCT": "0"}),
                          ("on", {"WEEDTPU_HEDGE_PCT": "99",
                                  "WEEDTPU_HEDGE_MAX_MS": "100"})):
+            needles = hedged[:REMOTE_HEDGE_OFF] if arm == "off" else hedged
             empty_lru(a2)
             fresh_history()
             with scoped_env(**env):
                 before = counters(a2)
-                ts = read_all(a2, hedged, ra2)
+                ts = read_all(a2, needles, ra2)
                 g = grown(a2, before)
             ra2.quiet()
             pb2.quiet()
@@ -3712,7 +3941,7 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
             hold(f"step 2 ({arm})", g, want)
             k1_steps[f"2 hedge {arm}"] = (g["k1"], want["k1"])
             arms[arm] = {"latency": lat(ts), "grown": g}
-            rlog(f"2 hedge {arm}: {REMOTE_HEDGED} needles on shards 0-1 "
+            rlog(f"2 hedge {arm}: {len(needles)} needles on shards 0-1 "
                  f"equal, p50 {statistics.median(ts):.4f} s, max "
                  f"{max(ts):.4f} s; fired +{g['fired']}, hedge_won "
                  f"+{g['hedge_won']}, primary_rescued "
@@ -3862,8 +4091,9 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
 
         # 8 eight threads on A, B up then down
         order = rng.permutation(reads1).tolist()
-        shares = [order[i::REMOTE_THREADS] for i in range(REMOTE_THREADS)]
         for label in ("peer up", "peer down"):
+            arm = order[:REMOTE_UP_READS] if label == "peer up" else order
+            shares = [arm[i::REMOTE_THREADS] for i in range(REMOTE_THREADS)]
             if label == "peer down":
                 empty_lru(a)
                 ra.quiet()
@@ -3890,19 +4120,19 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
                 raise AssertionError(f"step 8 ({label}): {errors[:3]}")
             g = grown(a, before)
             want = g["reconstruct_batches"] if label == "peer up" \
-                else len(reads1)
+                else len(arm)
             if g["k1"] != g["reconstruct_batches"] or g["k1"] != want:
                 raise AssertionError(f"step 8 ({label}): K1 {g['k1']}, "
                                      f"batches {g['reconstruct_batches']}, "
-                                     f"{len(reads1)} reads")
+                                     f"{len(arm)} reads")
             k1_steps[f"8 threads, {label}"] = (g["k1"], 0 if
                                                label == "peer up" else
                                                len(reads1))
             steps[f"threads_{label.replace(' ', '_')}"] = {
-                "reads": len(reads1), "s": dt,
-                "reads_per_s": len(reads1) / dt, "grown": g}
-            rlog(f"8 {REMOTE_THREADS} threads, {label}: {len(reads1)} "
-                 f"needles equal, {len(reads1) / dt:.1f} reads/s, K1 "
+                "reads": len(arm), "s": dt,
+                "reads_per_s": len(arm) / dt, "grown": g}
+            rlog(f"8 {REMOTE_THREADS} threads, {label}: {len(arm)} "
+                 f"needles equal, {len(arm) / dt:.1f} reads/s, K1 "
                  f"+{g['k1']} == reconstruct batches, hedges fired "
                  f"+{g['fired']}")
         ra.quiet()
@@ -3939,16 +4169,16 @@ SERVER_LOSSES = (0, 3, 10, 12)  # phase 5's
 SERVER_A_SHARDS = tuple(range(7))  # the spread: A 0-6, B 7-13
 # upstream's `weed benchmark` defaults (-size 1024 -c 16; SeaweedFS
 # README, weed/command/benchmark.go), cut from -n 1048576 (to 16384 for
-# the script's time, then to 2048: PERF §4)
-SERVER_SMALL = 2048
+# the script's time, then to 2048, then 1024: PERF §4)
+SERVER_SMALL = 1024
 SERVER_SMALL_SIZE = 1024
 SERVER_CLIENTS = 16
-SERVER_REPLICATED = 1024
+SERVER_REPLICATED = 128  # cut from 1024 for the script's time (PERF §4)
 SERVER_DELETES = 256
 # step 4's needles off the lost data shards, drawn with --seed from the
-# ~1400 of them, and steps 1 and 6's, drawn from all (each step read
-# every needle before; PERF §4)
-SERVER_DEGRADED_OTHERS = 256
+# ~1400 of them (256 before, and every needle before that), and steps 1
+# and 6's, drawn from all (each step read every needle before; PERF §4)
+SERVER_DEGRADED_OTHERS = 32
 SERVER_READ_SAMPLE = 256
 
 
@@ -4057,10 +4287,8 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
     writes, /metrics.  K1 per step held against its prediction, every
     byte against phases 3, 4 and 6.  The master's vacuum scan (every
     minute) never fires here: the phase takes under a minute, and its
-    one volume with deletes holds 256 of 2048 needles deleted (12.5%,
+    one volume with deletes holds 256 of 1024 needles deleted (25%,
     under the 0.3 garbage threshold)."""
-    import asyncio
-
     import aiohttp
     import numpy as np
     from google import protobuf
@@ -4076,12 +4304,6 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
     def slog(msg: str) -> None:
         log(f"[server] {msg} [{card}]")
 
-    def free_port() -> int:
-        import socket
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
     work = os.path.join(vdir, "server")
     dirs = [os.path.join(work, n) for n in ("a", "b")]
     for d in dirs:
@@ -4092,12 +4314,8 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
     slog(f"aiohttp {aiohttp.__version__}, protobuf {protobuf.__version__}; "
          f"the one-write response path "
          f"{'probed' if vsmod._ser_headers is not None else 'unavailable'}")
-    loop = asyncio.new_event_loop()
-    loop_thread = threading.Thread(target=loop.run_forever, daemon=True)
-    loop_thread.start()
-
-    def run(coro):
-        return asyncio.run_coroutine_threadsafe(coro, loop).result(600)
+    loops: list = []
+    run = loop_thread(loops)
 
     master = None
     servers: list = []
@@ -4197,7 +4415,7 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
             # device left at its default (None): the card.  No scrubber:
             # a background pass would launch K1 inside the counted steps
             vs = vsmod.VolumeServer([d], f"127.0.0.1:{mport}", "127.0.0.1",
-                                    free_port(), heartbeat_interval=1.0,
+                                    free_port(), heartbeat_interval=0.5,
                                     device=device)
             with scoped_env(WEEDTPU_SCRUB_MBPS="0"):
                 run(vs.start())
@@ -4368,8 +4586,10 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
              f"{grew['reconstruct_batches']}; K1 {k1['4 degraded']} == "
              f"needles on shards {sorted(lost_data)}")
 
-        # 5 rebuild, as the shell's ec.rebuild: A borrows B's survivors,
-        # rebuilds, drops the borrowed shards and mounts
+        # 5 rebuild through the server's handlers: A borrows B's
+        # survivors, rebuilds and mounts.  Unlike the shell's ec.rebuild
+        # (phase 23 drives it) A keeps the borrowed shards, so step 6
+        # need not copy them again
         k0 = launches["gf_apply"]
         borrowed = [s for s in moved if s not in SERVER_LOSSES]
         admin(a.url, "/admin/ec/copy", {"volume": vid, "source": b.url,
@@ -4385,8 +4605,6 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
             if h != hashes[i]:
                 raise AssertionError(f"rebuilt shard {i} differs from "
                                      f"phase 4's")
-        admin(a.url, "/admin/ec/delete_shards", {"volume": vid,
-                                                  "shards": borrowed})
         admin(a.url, "/admin/ec/mount", {"volume": vid})
         k1_step("5 rebuild", k0, rebuild_k1)
         shard_size = os.path.getsize(base_a + layout.to_ext(0))
@@ -4396,12 +4614,10 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
              f"4's in {dt:.3f} s ({10 * shard_size / dt / 1e9:.3f} GB/s "
              f"of survivors read); K1 {k1['5 rebuild']} == phase 6's")
 
-        # 6 decode, as the shell's ec.decode: A collects B's shards and
+        # 6 decode through A's /admin/ec/to_volume (phase 23 drives the
+        # shell's ec.decode): A, holding every shard since step 5,
         # decodes; every shard then unmounted and deleted on both
         k0 = launches["gf_apply"]
-        admin(a.url, "/admin/ec/copy", {"volume": vid, "source": b.url,
-                                        "shards": borrowed,
-                                        "copy_ecx": False})
         t0 = time.perf_counter()
         admin(a.url, "/admin/ec/to_volume", {"volume": vid})
         dt = time.perf_counter() - t0
@@ -4522,8 +4738,7 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
             run(vs.stop())
         if master is not None:
             run(master.stop())
-        loop.call_soon_threadsafe(loop.stop)
-        loop_thread.join(10)
+        stop_loops(loops)
         client.close()
         shutil.rmtree(work, ignore_errors=True)
     out.update({"steps": steps, "k1": k1, "s": time.perf_counter() - t_phase,
@@ -4570,8 +4785,6 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
     back, /admin/ec/fleet_convert, /metrics.  K1 and K2 per step held
     against phases 4 and 7-10; every shard, .vif and .ecx against the
     phase it mirrors."""
-    import asyncio
-
     import numpy as np
     from seaweedfs_tpu_torch.maintenance import scrub
     from seaweedfs_tpu_torch.server import volume_server as vsmod
@@ -4588,23 +4801,13 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
     def mlog(msg: str) -> None:
         log(f"[maintenance] {msg} [{card}]")
 
-    def free_port() -> int:
-        import socket
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
     work = os.path.join(vdir, "maintenance")
     names = [n for n, _, _ in MAINT_NODES]
     dirs = {n: os.path.join(work, n.replace(":", "_")) for n in names}
     for d in dirs.values():
         os.makedirs(d)
-    loop = asyncio.new_event_loop()
-    loop_thread = threading.Thread(target=loop.run_forever, daemon=True)
-    loop_thread.start()
-
-    def run(coro):
-        return asyncio.run_coroutine_threadsafe(coro, loop).result(600)
+    loops: list = []
+    run = loop_thread(loops)
 
     master = None
     servers: dict = {}
@@ -4693,7 +4896,7 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
                 vs = vsmod.VolumeServer(
                     [dirs[name]], master.url, "127.0.0.1",
                     free_port(), data_center=dc, rack=rack,
-                    heartbeat_interval=1.0, device=device)
+                    heartbeat_interval=0.5, device=device)
                 run(vs.start())
                 servers[name] = vs
             r_url = servers["R"].url
@@ -5107,8 +5310,7 @@ def phase_maintenance(vdir: str, base: str, server_src: str, expect: dict,
             run(vs.stop())
         if master is not None:
             run(master.stop())
-        loop.call_soon_threadsafe(loop.stop)
-        loop_thread.join(10)
+        stop_loops(loops)
         client.close()
         shutil.rmtree(work, ignore_errors=True)
     out = {"card": card, "steps": steps, "counts": counts,
@@ -5174,8 +5376,6 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
     tier_download; (6) /admin/volume/needles and /admin/query; (7)
     /debug/pprof, /perf, /heat, /debug/traces.  K1 and K2 per step held
     against their predictions, every byte against phases 3, 4 and 7."""
-    import asyncio
-
     import numpy as np
     from seaweedfs_tpu_torch.maintenance import faults
     from seaweedfs_tpu_torch.ops import fleet_convert
@@ -5191,23 +5391,13 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
     def alog(msg: str) -> None:
         log(f"[admin] {msg} [{card}]")
 
-    def free_port() -> int:
-        import socket
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
     work = os.path.join(vdir, "admin")
     dirs = {n: os.path.join(work, n) for n in ("a", "b", "c")}
     for d in dirs.values():
         os.makedirs(d)
     vid = int(os.path.basename(server_src))
-    loop = asyncio.new_event_loop()
-    loop_thread = threading.Thread(target=loop.run_forever, daemon=True)
-    loop_thread.start()
-
-    def run(coro):
-        return asyncio.run_coroutine_threadsafe(coro, loop).result(900)
+    loops: list = []
+    run = loop_thread(loops, 900)
 
     master = None
     servers: dict = {}
@@ -5246,7 +5436,7 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
     def start(name: str) -> None:
         vs = vsmod.VolumeServer([dirs[name]], master.url,
                                 "127.0.0.1", free_port(),
-                                heartbeat_interval=1.0, device=device)
+                                heartbeat_interval=0.5, device=device)
         with scoped_env(WEEDTPU_SCRUB_MBPS="0",
                         WEEDTPU_PROFILE_HZ=ADMIN_PROFILE_HZ):
             run(vs.start())
@@ -5782,8 +5972,7 @@ def phase_admin(vdir: str, base: str, server_src: str, expect: dict,
         profile.shutdown()
         if master is not None:
             run(master.stop())
-        loop.call_soon_threadsafe(loop.stop)
-        loop_thread.join(10)
+        stop_loops(loops)
         client.close()
         shutil.rmtree(work, ignore_errors=True)
     out = {"card": card, "steps": steps, "counts": counts,
@@ -6040,8 +6229,6 @@ def phase_master(vdir: str, base: str, expect: dict, blob: bytes,
     that must grow a volume: its vid above every vid grown before the
     failover, no file key repeated.  K1 and K2 per step held against
     their prediction; nothing staged."""
-    import asyncio
-
     import numpy as np
     from seaweedfs_tpu_torch.server import volume_server as vsmod
     from seaweedfs_tpu_torch.server.master import MasterServer
@@ -6055,27 +6242,13 @@ def phase_master(vdir: str, base: str, expect: dict, blob: bytes,
     def mlog(msg: str) -> None:
         log(f"[master] {msg} [{card}]")
 
-    def free_port() -> int:
-        import socket
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
     work = os.path.join(vdir, "master")
     dirs = {n: os.path.join(work, n) for n in ("a", "b")}
     for d in dirs.values():
         os.makedirs(d)
     loops = []
 
-    def loop_thread():
-        loop = asyncio.new_event_loop()
-        th = threading.Thread(target=loop.run_forever, daemon=True)
-        th.start()
-        loops.append((loop, th))
-        return lambda coro: asyncio.run_coroutine_threadsafe(
-            coro, loop).result(600)
-
-    mrun, vrun = loop_thread(), loop_thread()  # masters', servers'
+    mrun, vrun = loop_thread(loops), loop_thread(loops)  # masters', servers'
     client = http.PooledHTTP(timeout=120.0, max_idle_per_host=32)
     masters: list = []
     servers: dict = {}
@@ -6398,9 +6571,7 @@ def phase_master(vdir: str, base: str, expect: dict, blob: bytes,
             vrun(vs.stop())
         for m in masters:
             mrun(m.stop())
-        for loop, th in loops:
-            loop.call_soon_threadsafe(loop.stop)
-            th.join(10)
+        stop_loops(loops)
         client.close()
         shutil.rmtree(work, ignore_errors=True)
     out = {"card": card, "steps": steps, "counts": counts,
@@ -6457,7 +6628,6 @@ def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
     ticks ramping the rate back; (7) /cluster/loops, the dashboard,
     /cluster/heat and the routes left out.  K1 and K2 per step held
     against their prediction; nothing staged."""
-    import asyncio
     import math
 
     import numpy as np
@@ -6476,27 +6646,13 @@ def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
     def plog(msg: str) -> None:
         log(f"[planes] {msg} [{card}]")
 
-    def free_port() -> int:
-        import socket
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
     work = os.path.join(vdir, "planes")
     dirs = {n: os.path.join(work, n) for n in ("a", "b", "small")}
     for d in dirs.values():
         os.makedirs(d)
     loops = []
 
-    def loop_thread():
-        loop = asyncio.new_event_loop()
-        th = threading.Thread(target=loop.run_forever, daemon=True)
-        th.start()
-        loops.append((loop, th))
-        return lambda coro: asyncio.run_coroutine_threadsafe(
-            coro, loop).result(600)
-
-    mrun, vrun = loop_thread(), loop_thread()  # the master's, servers'
+    mrun, vrun = loop_thread(loops), loop_thread(loops)  # master, servers
     client = http.PooledHTTP(timeout=120.0, max_idle_per_host=8)
     master = None
     servers: dict = {}
@@ -6539,16 +6695,6 @@ def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
         if got != want:
             raise AssertionError(f"phase 21 {name}: launched {got}, "
                                  f"predicted {want}")
-
-    def until(pred, what: str, timeout: float = 15.0):
-        deadline = time.monotonic() + timeout
-        while True:
-            got = pred()
-            if got:
-                return got
-            if time.monotonic() > deadline:
-                raise AssertionError(what)
-            time.sleep(0.02)
 
     def fault(vs, ms: int) -> None:
         get_json(vs.url, "/admin/faults", {"faults": [
@@ -6947,9 +7093,7 @@ def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
             vrun(vs.stop())
         if master is not None:
             mrun(master.stop())
-        for loop, th in loops:
-            loop.call_soon_threadsafe(loop.stop)
-            th.join(10)
+        stop_loops(loops)
         client.close()
         shutil.rmtree(work, ignore_errors=True)
     out = {"card": card, "steps": steps, "counts": counts,
@@ -7023,12 +7167,6 @@ def phase_heal(vdir: str, base: str, server_src: str, expect: dict,
     def hlog(msg: str) -> None:
         log(f"[heal] {msg} [{card}]")
 
-    def free_port() -> int:
-        import socket
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
     work = os.path.join(vdir, "heal")
     names = [n for n, _, _ in MAINT_NODES]
     dirs = {n: os.path.join(work, n.replace(":", "_")) for n in names}
@@ -7036,15 +7174,7 @@ def phase_heal(vdir: str, base: str, server_src: str, expect: dict,
         os.makedirs(d)
     loops = []
 
-    def loop_thread():
-        loop = asyncio.new_event_loop()
-        th = threading.Thread(target=loop.run_forever, daemon=True)
-        th.start()
-        loops.append((loop, th))
-        return lambda coro: asyncio.run_coroutine_threadsafe(
-            coro, loop).result(600)
-
-    mrun, vrun = loop_thread(), loop_thread()  # the master's, servers'
+    mrun, vrun = loop_thread(loops), loop_thread(loops)  # master, servers
     client = http.PooledHTTP(timeout=600.0, max_idle_per_host=8)
     master = None
     servers: dict = {}
@@ -7087,16 +7217,6 @@ def phase_heal(vdir: str, base: str, server_src: str, expect: dict,
         if got != want:
             raise AssertionError(f"phase 22 {name}: launched {got}, "
                                  f"predicted {want}")
-
-    def until(pred, what: str, timeout: float = 15.0):
-        deadline = time.monotonic() + timeout
-        while True:
-            got = pred()
-            if got:
-                return got
-            if time.monotonic() > deadline:
-                raise AssertionError(what)
-            time.sleep(0.02)
 
     def place(name: str, vid: int, src: str, shards, copy=()) -> str:
         """Links of `src`'s shards (copies of those in `copy`), .ecx and
@@ -7642,9 +7762,7 @@ def phase_heal(vdir: str, base: str, server_src: str, expect: dict,
             vrun(vs.stop())
         if master is not None:
             mrun(master.stop())
-        for loop, th in loops:
-            loop.call_soon_threadsafe(loop.stop)
-            th.join(10)
+        stop_loops(loops)
         client.close()
         shutil.rmtree(work, ignore_errors=True)
     out = {"card": card, "steps": steps, "counts": counts,
@@ -7669,14 +7787,132 @@ SHELL_READ_ONLY = ("volume.list", "cluster.status", "cluster.ps",
                    "cluster.autopilot -json", "chaos.status -json")
 
 
-def phase_shell(vdir: str, server_src: str, expect: dict, blob: bytes,
-                hashes: list[str], aux_hashes: dict, encode_k1: int,
-                rebuild_k1: int, seed: int, launches: dict,
-                device=None) -> dict:
+class ThreeRacks:
+    """Phases 23 and 24's cluster, up from the first one's start to the
+    second one's end: the port's `MasterServer` on a loop thread of its
+    own (repair loop, aggregator loop and canary off, no vacuum scan)
+    and a `VolumeServer` on the card for each of SHELL_NODES, one rack
+    each, on another loop thread, beating every 0.5 s, scrubbers and
+    hedging off; the shell's `CommandEnv` and an HTTP client drive them.
+    On the way out it stops them and holds that no client's
+    /cluster/stream thread outlived the master."""
+
+    def __init__(self, vdir: str, device=None):
+        self.work = os.path.join(vdir, "racks")
+        self.names = [n for n, _, _ in SHELL_NODES]
+        self.device = device
+        self.loops: list = []
+        self.servers: dict = {}
+        self.master = None
+        self.http = None
+        self.env = scoped_env(
+            WEEDTPU_REPAIR_INTERVAL="0", WEEDTPU_AGG_INTERVAL="0",
+            WEEDTPU_CANARY_INTERVAL="0", WEEDTPU_SCRUB_MBPS="0",
+            WEEDTPU_HEDGE_PCT="0")
+
+    def __enter__(self):
+        from seaweedfs_tpu_torch.server import volume_server as vsmod
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.shell import commands as shell
+        from seaweedfs_tpu_torch.utils import http
+        self.env.__enter__()
+        try:
+            self.mrun = loop_thread(self.loops)
+            self.vrun = loop_thread(self.loops)
+            self.http = http.PooledHTTP(timeout=600.0, max_idle_per_host=8)
+            self.master = MasterServer("127.0.0.1", free_port())
+            self.master.vacuum_enabled = False
+            self.mrun(self.master.start())
+            for name, dc, rack in SHELL_NODES:
+                d = os.path.join(self.work, name)
+                os.makedirs(d)
+                vs = vsmod.VolumeServer(
+                    [d], self.master.url, "127.0.0.1", free_port(),
+                    data_center=dc, rack=rack, heartbeat_interval=0.5,
+                    device=self.device)
+                self.vrun(vs.start())
+                self.servers[name] = vs
+                if vs.scrubber is not None:
+                    raise AssertionError(f"server {name} started a "
+                                         f"scrubber")
+            self.url = {n: self.servers[n].url for n in self.names}
+            self.node_of = {u: n for n, u in self.url.items()}
+            self.cmd_env = shell.CommandEnv(self.master.url)
+            until(lambda: len(self.topo()["nodes"]) == len(self.names),
+                  "the servers never registered")
+        except BaseException:
+            self._stop()
+            raise
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop()
+        stream = [th for th in threading.enumerate()
+                  if th.name == "weed-vidmap-stream"]
+        for th in stream:
+            th.join(5)
+        if exc[0] is None and any(th.is_alive() for th in stream):
+            raise AssertionError("a client's stream thread outlived its "
+                                 "master")
+
+    def _stop(self) -> None:
+        try:
+            for vs in self.servers.values():
+                self.vrun(vs.stop())
+            if self.master is not None:
+                self.mrun(self.master.stop())
+        finally:
+            stop_loops(self.loops)
+            if self.http is not None:
+                self.http.close()
+            shutil.rmtree(self.work, ignore_errors=True)
+            self.env.__exit__(None, None, None)
+
+    def admin(self, name: str, path: str, body: dict) -> dict:
+        """POST `body` to server `name`'s `path`; its JSON answer."""
+        st, _, raw = self.http.request(
+            f"http://{self.servers[name].url}{path}", method="POST",
+            body=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        if st != 200:
+            raise AssertionError(f"{name}{path}: HTTP {st} {raw[:300]!r}")
+        return json.loads(raw) if raw else {}
+
+    def run(self, line: str) -> str:
+        """One line through the port's shell, which raises on a failed
+        command; returns what it printed."""
+        import io
+        from seaweedfs_tpu_torch.shell import commands as shell
+        buf = io.StringIO()
+        rc = shell.run_command(self.cmd_env, line, buf)
+        if rc:
+            raise AssertionError(f"shell {line!r} exited {rc}: "
+                                 f"{buf.getvalue()[-500:]}")
+        return buf.getvalue()
+
+    def split(self, vid: int) -> dict:
+        return master_split(self.http, self.master.url, vid)
+
+    def topo(self) -> dict:
+        return self.cmd_env.topology()
+
+    def holder_of(self, vid: int) -> str:
+        """The node holding the normal volume `vid`."""
+        return next(n for n in self.names
+                    if self.servers[n].store.get_volume(vid) is not None)
+
+    def base_of(self, name: str, vid: int, collection: str = "") -> str:
+        return self.servers[name].store.locations[0].base_path(
+            vid, collection)
+
+
+def phase_shell(racks: ThreeRacks, server_src: str, expect: dict,
+                blob: bytes, hashes: list[str], aux_hashes: dict,
+                encode_k1: int, rebuild_k1: int, seed: int,
+                launches: dict) -> dict:
     """Phase 23: the port's own client and shell (ROADMAP 1.19a) driving
-    three port `VolumeServer`s on the card (three racks, one loop thread)
-    behind the port's `MasterServer` (another; repair loop, aggregator
-    loop and canary off), scrubbers off, hedging off.  Steps: (1) the
+    `racks`, three port `VolumeServer`s on the card in three racks
+    behind the port's `MasterServer`.  Steps: (1) the
     port's `WeedClient` (on the /cluster/stream feed) uploads 512
     needles of log-uniform 1-256 KiB into collection p23 from 16 threads
     and reads each back, K1 0; (2) a link of the phase-3 volume mounted
@@ -7695,66 +7931,26 @@ def phase_shell(vdir: str, server_src: str, expect: dict, blob: bytes,
     back, K1 0; (8) `python -m seaweedfs_tpu_torch shell -c
     volume.list` as a child process prints what the shell prints in
     process, K1 0.  K2 0 throughout."""
-    import asyncio
-    import io
-
     import numpy as np
     from seaweedfs_tpu_torch.client import WeedClient
-    from seaweedfs_tpu_torch.server import volume_server as vsmod
-    from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.shell import commands as shell
     from seaweedfs_tpu_torch.storage import types as t
     from seaweedfs_tpu_torch.storage.ec import ec_files, layout
-    from seaweedfs_tpu_torch.utils import http, resilience
+    from seaweedfs_tpu_torch.utils import resilience
 
     card = card_name_power()
 
     def plog(msg: str) -> None:
         log(f"[shell] {msg} [{card}]")
 
-    def free_port() -> int:
-        import socket
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
-    work = os.path.join(vdir, "shell")
-    names = [n for n, _, _ in SHELL_NODES]
-    dirs = {n: os.path.join(work, n) for n in names}
-    for d in dirs.values():
-        os.makedirs(d)
-    loops = []
-
-    def loop_thread():
-        loop = asyncio.new_event_loop()
-        th = threading.Thread(target=loop.run_forever, daemon=True)
-        th.start()
-        loops.append((loop, th))
-        return lambda coro: asyncio.run_coroutine_threadsafe(
-            coro, loop).result(600)
-
-    mrun, vrun = loop_thread(), loop_thread()  # the master's, servers'
-    http_client = http.PooledHTTP(timeout=600.0, max_idle_per_host=8)
-    master = None
-    client = None
-    servers: dict = {}
+    names, servers, url = racks.names, racks.servers, racks.url
+    node_of, cmd_env, master = racks.node_of, racks.cmd_env, racks.master
+    admin, run, split, topo = racks.admin, racks.run, racks.split, racks.topo
+    holder_of, base_of = racks.holder_of, racks.base_of
     steps: dict = {}
     counts: dict = {}
     t_phase = time.perf_counter()
     rng = np.random.default_rng(seed + 23)
-    env = scoped_env(
-        WEEDTPU_REPAIR_INTERVAL="0", WEEDTPU_AGG_INTERVAL="0",
-        WEEDTPU_CANARY_INTERVAL="0", WEEDTPU_SCRUB_MBPS="0",
-        WEEDTPU_HEDGE_PCT="0")
-
-    def admin(name: str, path: str, body: dict) -> dict:
-        st, _, raw = http_client.request(
-            f"http://{servers[name].url}{path}", method="POST",
-            body=json.dumps(body).encode(),
-            headers={"Content-Type": "application/json"})
-        if st != 200:
-            raise AssertionError(f"{name}{path}: HTTP {st} {raw[:300]!r}")
-        return json.loads(raw) if raw else {}
 
     def step_counts(name: str, k0: dict, k1: int) -> None:
         got = {k: launches[k] - k0[k] for k in launches}
@@ -7764,409 +7960,859 @@ def phase_shell(vdir: str, server_src: str, expect: dict, blob: bytes,
             raise AssertionError(f"phase 23 {name}: launched {got}, "
                                  f"predicted {want}")
 
-    def until(pred, what: str, timeout: float = 15.0):
-        deadline = time.monotonic() + timeout
-        while True:
-            got = pred()
-            if got:
-                return got
-            if time.monotonic() > deadline:
-                raise AssertionError(what)
-            time.sleep(0.02)
-
-    def run(line: str) -> str:
-        """One line through the port's shell, which raises on a failed
-        command; returns what it printed."""
-        buf = io.StringIO()
-        rc = shell.run_command(cmd_env, line, buf)
-        if rc:
-            raise AssertionError(f"shell {line!r} exited {rc}: "
-                                 f"{buf.getvalue()[-500:]}")
-        return buf.getvalue()
-
-    def fan(fn, items) -> float:
-        """`fn` over `items` from SHELL_THREADS threads; the wall."""
-        errors: list = []
-
-        def worker(c: int) -> None:
-            try:
-                for it in items[c::SHELL_THREADS]:
-                    fn(it)
-            except Exception as e:  # surfaced after the join
-                errors.append(e)
-        threads = [threading.Thread(target=worker, args=(c,))
-                   for c in range(SHELL_THREADS)]
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        if errors:
-            raise errors[0]
-        return time.perf_counter() - t0
-
-    def holder_of(vid: int) -> str:
-        """The node holding the normal volume `vid`."""
-        return next(n for n in names
-                    if servers[n].store.get_volume(vid) is not None)
-
-    def base_of(name: str, vid: int, collection: str = "") -> str:
-        return servers[name].store.locations[0].base_path(vid, collection)
-
-    def split(vid: int) -> dict:
-        return master_split(http_client, master.url, vid)
-
-    def topo() -> dict:
-        return cmd_env.topology()
-
+    client = WeedClient(master.url, stream_updates=True)
     try:
-        with env:
-            # 0 set-up: the master, three servers in three racks
-            master = MasterServer("127.0.0.1", free_port())
-            master.vacuum_enabled = False
-            mrun(master.start())
-            for name, dc, rack in SHELL_NODES:
-                vs = vsmod.VolumeServer(
-                    [dirs[name]], master.url, "127.0.0.1", free_port(),
-                    data_center=dc, rack=rack, heartbeat_interval=0.5,
-                    device=device)
-                vrun(vs.start())
-                if vs.scrubber is not None:
-                    raise AssertionError("a phase 23 server started a "
-                                         "scrubber")
-                servers[name] = vs
-            url = {n: servers[n].url for n in names}
-            node_of = {u: n for n, u in url.items()}
-            cmd_env = shell.CommandEnv(master.url)
-            until(lambda: len(topo()["nodes"]) == len(names),
-                  "the servers never registered")
-            client = WeedClient(master.url, stream_updates=True)
+        # 1 the client writes into p23 from 16 threads, then reads
+        k0 = dict(launches)
+        sizes = np.exp(rng.uniform(np.log(SHELL_MIN_SIZE),
+                                   np.log(SHELL_MAX_SIZE),
+                                   SHELL_NEEDLES)).astype(int).tolist()
+        payload = rng.bytes(sum(sizes))
+        ends = np.cumsum(sizes).tolist()
+        spans = list(zip([0] + ends[:-1], ends))
+        fids: list = [None] * SHELL_NEEDLES
 
-            # 1 the client writes into p23 from 16 threads, then reads
-            k0 = dict(launches)
-            sizes = np.exp(rng.uniform(np.log(SHELL_MIN_SIZE),
-                                       np.log(SHELL_MAX_SIZE),
-                                       SHELL_NEEDLES)).astype(int).tolist()
-            payload = rng.bytes(sum(sizes))
-            ends = np.cumsum(sizes).tolist()
-            spans = list(zip([0] + ends[:-1], ends))
-            fids: list = [None] * SHELL_NEEDLES
+        def put(i: int) -> None:
+            lo, hi = spans[i]
+            fids[i] = client.upload(payload[lo:hi],
+                                    collection=SHELL_COLLECTION)
 
-            def put(i: int) -> None:
-                lo, hi = spans[i]
-                fids[i] = client.upload(payload[lo:hi],
-                                        collection=SHELL_COLLECTION)
+        def get(i: int) -> None:
+            lo, hi = spans[i]
+            if client.download(fids[i]) != payload[lo:hi]:
+                raise AssertionError(f"read of {fids[i]} differs")
+        dt_put = fan(put, list(range(SHELL_NEEDLES)), SHELL_THREADS)
+        dt_get = fan(get, list(range(SHELL_NEEDLES)), SHELL_THREADS)
+        step_counts("1 client", k0, 0)
+        by_vid: dict = {}
+        for i, fid in enumerate(fids):
+            f = t.FileId.parse(fid)
+            by_vid.setdefault(f.volume_id, {})[f.key] = (f.cookie, i)
+        written = sorted(by_vid)
+        steps["1 client"] = {"needles": SHELL_NEEDLES,
+                             "bytes": sum(sizes), "volumes": written,
+                             "writes_per_s": SHELL_NEEDLES / dt_put,
+                             "reads_per_s": SHELL_NEEDLES / dt_get,
+                             "stream_live": client._stream_live}
+        plog(f"1 client: {SHELL_NEEDLES} needles ({sum(sizes)} B, "
+             f"log-uniform {SHELL_MIN_SIZE}-{SHELL_MAX_SIZE} B) into "
+             f"{SHELL_COLLECTION} volumes {written} at "
+             f"{SHELL_NEEDLES / dt_put:.1f} writes/s and back, equal, "
+             f"at {SHELL_NEEDLES / dt_get:.1f} reads/s from "
+             f"{SHELL_THREADS} threads; stream live "
+             f"{client._stream_live}; K1 0")
 
-            def get(i: int) -> None:
-                lo, hi = spans[i]
-                if client.download(fids[i]) != payload[lo:hi]:
-                    raise AssertionError(f"read of {fids[i]} differs")
-            dt_put = fan(put, list(range(SHELL_NEEDLES)))
-            dt_get = fan(get, list(range(SHELL_NEEDLES)))
-            step_counts("1 client", k0, 0)
-            by_vid: dict = {}
-            for i, fid in enumerate(fids):
-                f = t.FileId.parse(fid)
-                by_vid.setdefault(f.volume_id, {})[f.key] = (f.cookie, i)
-            written = sorted(by_vid)
-            steps["1 client"] = {"needles": SHELL_NEEDLES,
-                                 "bytes": sum(sizes), "volumes": written,
-                                 "writes_per_s": SHELL_NEEDLES / dt_put,
-                                 "reads_per_s": SHELL_NEEDLES / dt_get,
-                                 "stream_live": client._stream_live}
-            plog(f"1 client: {SHELL_NEEDLES} needles ({sum(sizes)} B, "
-                 f"log-uniform {SHELL_MIN_SIZE}-{SHELL_MAX_SIZE} B) into "
-                 f"{SHELL_COLLECTION} volumes {written} at "
-                 f"{SHELL_NEEDLES / dt_put:.1f} writes/s and back, equal, "
-                 f"at {SHELL_NEEDLES / dt_get:.1f} reads/s from "
-                 f"{SHELL_THREADS} threads; stream live "
-                 f"{client._stream_live}; K1 0")
-
-            # 2 the full-size encode through the shell: a link of the
-            # phase-3 volume mounted as V on A
-            v = SHELL_VID
-            base_v = base_of("A", v)
-            for ext in (".dat", ".idx"):
-                os.link(server_src + ext, base_v + ext)
-            admin("A", "/admin/volume/mount", {"volume": v})
-            until(lambda: cmd_env.volume_locations(v) == [url["A"]],
-                  "the master never saw V")
-            k0 = dict(launches)
-            run("lock")
-            t0 = time.perf_counter()
-            out2 = run(f"ec.encode -volumeId {v}")
-            dt_enc = time.perf_counter() - t0
-            step_counts("2 encode", k0, encode_k1)
-            racks = {url[n]: f"{dc}/{rack}" for n, dc, rack in SHELL_NODES}
-            want = {u: s for u, s in shell.balanced_ec_distribution(
-                sorted(url.values()), racks).items() if s}
-            got = until(lambda: (lambda s: s if s == want else None)(
-                split(v)), f"V's placement never became {want}: "
-                f"{split(v)}")
-            for u, shards in got.items():
-                b = base_of(node_of[u], v)
-                for i, h in zip(shards, sha256_many(
-                        [b + layout.to_ext(i) for i in shards])):
-                    if h != hashes[i]:
-                        raise AssertionError(f"V's shard {i} on "
-                                             f"{node_of[u]} differs from "
-                                             f"phase 4's")
-                if sha256(b + ".ecx") != aux_hashes[".ecx"]:
-                    raise AssertionError(f"V's .ecx on {node_of[u]} "
-                                         f"differs from phase 4's")
-            if sha256(base_v + ".vif") != aux_hashes[".vif"] or \
-                    os.path.exists(base_v + ".dat"):
-                raise AssertionError("V's .vif differs from phase 4's, or "
-                                     "its .dat is still on A")
-            moved = sum(len(s) for u, s in got.items() if u != url["A"])
-            shard_size = os.path.getsize(base_v + layout.to_ext(
-                got[url["A"]][0]))
-            steps["2 encode"] = {"s": dt_enc, "placement": {
-                node_of[u]: s for u, s in got.items()},
-                "moved_bytes": moved * shard_size}
-            plog(f"2 encode: `ec.encode -volumeId {v}` of the "
-                 f"{os.path.getsize(server_src + '.dat')} B volume in "
-                 f"{dt_enc:.3f} s: placement "
-                 f"{ {node_of[u]: s for u, s in got.items()} } == "
-                 f"balanced_ec_distribution's, {moved} shards "
-                 f"({moved * shard_size} B) copied; every shard and .ecx "
-                 f"sha256 == phase 4's; K1 {encode_k1} == phase 4's")
-
-            # 3 the auto-selection, after a beat reports every p23
-            # volume's size
-            vols = {vid: servers[holder_of(vid)].store.get_volume(vid)
-                    for vid in written}
-            for vol in vols.values():
-                vol.flush()
-            dat_size = {vid: vol.data_size() for vid, vol in vols.items()}
-
-            def p23_view() -> dict:
-                return {vi["id"]: vi["size"]
-                        for nd in topo()["nodes"].values()
-                        for vi in nd["volume_infos"]
-                        if vi["collection"] == SHELL_COLLECTION}
-            p23 = until(lambda: (lambda seen: seen if all(
-                seen.get(vid) == n for vid, n in dat_size.items())
-                else None)(p23_view()),
-                f"no beat reported the p23 sizes {dat_size}")
-            dat_hash = {vid: sha256(base_of(holder_of(vid), vid,
-                                            SHELL_COLLECTION) + ".dat")
-                        for vid in written}
-            k0 = dict(launches)
-            t0 = time.perf_counter()
-            out3 = run(f"ec.encode -collection {SHELL_COLLECTION} "
-                       f"-fullPercent 0 -quietFor 0s")
-            dt_auto = time.perf_counter() - t0
-            listed = json.loads(out3.splitlines()[0].split(": ", 1)[1])
-            if listed != sorted(p23) or not set(written) <= set(listed):
-                raise AssertionError(f"ec.encode selected {listed}; the "
-                                     f"p23 volumes are {sorted(p23)}, "
-                                     f"{written} with needles")
-            units = {vid: predict_units(p23[vid], layout.LARGE_BLOCK_SIZE,
-                                        layout.SMALL_BLOCK_SIZE)
-                     for vid in listed}
-            step_counts("3 auto", k0, sum(units.values()))
-            until(lambda: all(sum(map(len, split(vid).values())) == 14
-                              for vid in listed),
-                  "the p23 shard sets never reached the master")
-            steps["3 auto"] = {"s": dt_auto, "volumes": listed,
-                               "dat_bytes": p23, "units": units}
-            plog(f"3 auto: `ec.encode -collection {SHELL_COLLECTION} "
-                 f"-fullPercent 0 -quietFor 0s` selected {listed} (every "
-                 f"p23 volume; .dat {[p23[vid] for vid in listed]} B) and "
-                 f"encoded them in {dt_auto:.3f} s; K1 "
-                 f"{sum(units.values())} == the layout's units")
-
-            # 4 degraded reads through the client
-            w = max(written, key=lambda vid: (len(by_vid[vid]), vid))
-            v_split, w_split = split(v), split(w)
-            for u, shards in v_split.items():
-                lost_here = [s for s in SERVER_LOSSES if s in shards]
-                if lost_here:
-                    admin(node_of[u], "/admin/ec/delete_shards",
-                          {"volume": v, "shards": lost_here})
-            for u, shards in w_split.items():
-                lost_here = [s for s in SHELL_W_LOST if s in shards]
-                if lost_here:
-                    admin(node_of[u], "/admin/ec/delete_shards",
-                          {"volume": w, "shards": lost_here})
-            until(lambda: not any(
-                set(SERVER_LOSSES) & set(s) for s in split(v).values()) and
-                not any(set(SHELL_W_LOST) & set(s)
-                        for s in split(w).values()),
-                "the master still shows the deleted shards")
-            ev_v = next(servers[n].store.get_ec_volume(v) for n in names
-                        if servers[n].store.get_ec_volume(v) is not None)
-            ev_w = next(servers[n].store.get_ec_volume(w) for n in names
-                        if servers[n].store.get_ec_volume(w) is not None)
-            touching_v = touching_needles(ev_v, expect, SERVER_LOSSES)
-            drawn = sorted(np.random.default_rng(seed + 231).choice(
-                touching_v, size=min(SHELL_V_READS, len(touching_v)),
-                replace=False).tolist())
-            expect_w = {key: None for key in by_vid[w]}
-            touching_w = touching_needles(ev_w, expect_w, SHELL_W_LOST)
-            resilience.reset_latency_trackers()
-            resilience.reset_breakers()
-
-            def get_v(nid: int) -> None:
-                cookie, lo, hi = expect[nid]
-                if client.download(str(t.FileId(v, nid, cookie))) != \
-                        blob[lo:hi]:
-                    raise AssertionError(f"degraded read of V/{nid} "
-                                         f"differs")
-
-            def get_w(key: int) -> None:
-                cookie, i = by_vid[w][key]
-                lo, hi = spans[i]
-                if client.download(str(t.FileId(w, key, cookie))) != \
-                        payload[lo:hi]:
-                    raise AssertionError(f"degraded read of W/{key} "
-                                         f"differs")
-            k0 = dict(launches)
-            dt_v = fan(get_v, drawn)
-            dt_w = fan(get_w, sorted(by_vid[w]))
-            step_counts("4 degraded", k0, len(drawn) + len(touching_w))
-            steps["4 degraded"] = {
-                "w": w, "v_reads": len(drawn), "v_s": dt_v,
-                "w_reads": len(by_vid[w]), "w_touching": len(touching_w),
-                "w_s": dt_w}
-            plog(f"4 degraded: V lost {list(SERVER_LOSSES)}, W = {w} lost "
-                 f"{list(SHELL_W_LOST)}; {len(drawn)} of V's "
-                 f"{len(touching_v)} needles on lost data shards in "
-                 f"{dt_v:.3f} s and all {len(by_vid[w])} of W's "
-                 f"({len(touching_w)} on shard 1) in {dt_w:.3f} s through "
-                 f"the client, equal; K1 {len(drawn) + len(touching_w)} "
-                 f"== one per needle on a lost data shard")
-
-            # 5 ec.rebuild: V's phase-5 loss and W's shard
-            w_node, w_shards = next(iter(split(w).items()))
-            w_base = base_of(node_of[w_node], w, SHELL_COLLECTION)
-            w_chunks = -(-os.path.getsize(
-                w_base + layout.to_ext(w_shards[0]))
-                // ec_files.DEFAULT_BATCH)
-            k0 = dict(launches)
-            t0 = time.perf_counter()
-            out5 = run("ec.rebuild")
-            dt_reb = time.perf_counter() - t0
-            step_counts("5 rebuild", k0, rebuild_k1 + w_chunks)
-            rebuilt = {int(m.group(1)): (json.loads(m.group(2)),
-                                          m.group(3))
-                       for m in re.finditer(
-                           r"^volume (\d+): rebuilt (\[[^]]*\]) on (\S+)$",
-                           out5, re.M)}
-            if sorted(rebuilt) != sorted({v, w}) or \
-                    rebuilt[v][0] != list(SERVER_LOSSES) or \
-                    rebuilt[w][0] != list(SHELL_W_LOST):
-                raise AssertionError(f"ec.rebuild printed {out5!r}")
-            rb = base_of(node_of[rebuilt[v][1]], v)
-            for i, h in zip(SERVER_LOSSES, sha256_many(
-                    [rb + layout.to_ext(i) for i in SERVER_LOSSES])):
+        # 2 the full-size encode through the shell: a link of the
+        # phase-3 volume mounted as V on A
+        v = SHELL_VID
+        base_v = base_of("A", v)
+        for ext in (".dat", ".idx"):
+            os.link(server_src + ext, base_v + ext)
+        admin("A", "/admin/volume/mount", {"volume": v})
+        until(lambda: cmd_env.volume_locations(v) == [url["A"]],
+              "the master never saw V")
+        k0 = dict(launches)
+        run("lock")
+        t0 = time.perf_counter()
+        out2 = run(f"ec.encode -volumeId {v}")
+        dt_enc = time.perf_counter() - t0
+        step_counts("2 encode", k0, encode_k1)
+        racks = {url[n]: f"{dc}/{rack}" for n, dc, rack in SHELL_NODES}
+        want = {u: s for u, s in shell.balanced_ec_distribution(
+            sorted(url.values()), racks).items() if s}
+        got = until(lambda: (lambda s: s if s == want else None)(
+            split(v)), f"V's placement never became {want}: "
+            f"{split(v)}")
+        for u, shards in got.items():
+            b = base_of(node_of[u], v)
+            for i, h in zip(shards, sha256_many(
+                    [b + layout.to_ext(i) for i in shards])):
                 if h != hashes[i]:
-                    raise AssertionError(f"V's rebuilt shard {i} differs "
-                                         f"from phase 4's")
-            until(lambda: all(sum(map(len, split(vid).values())) == 14
-                              for vid in (v, w)),
-                  "the rebuilt shards never reached the master")
-            steps["5 rebuild"] = {"s": dt_reb, "w_chunks": w_chunks,
-                                  "rebuilders": {str(k): node_of[r]
-                                                 for k, (_, r) in
-                                                 rebuilt.items()}}
-            plog(f"5 rebuild: `ec.rebuild` rebuilt V's "
-                 f"{list(SERVER_LOSSES)} on {node_of[rebuilt[v][1]]} "
-                 f"(sha256 == phase 4's) and W's {list(SHELL_W_LOST)} on "
-                 f"{node_of[rebuilt[w][1]]} in {dt_reb:.3f} s; K1 "
-                 f"{rebuild_k1 + w_chunks} == phase 6's {rebuild_k1} + "
-                 f"W's {w_chunks} chunk(s)")
+                    raise AssertionError(f"V's shard {i} on "
+                                         f"{node_of[u]} differs from "
+                                         f"phase 4's")
+            if sha256(b + ".ecx") != aux_hashes[".ecx"]:
+                raise AssertionError(f"V's .ecx on {node_of[u]} "
+                                     f"differs from phase 4's")
+        if sha256(base_v + ".vif") != aux_hashes[".vif"] or \
+                os.path.exists(base_v + ".dat"):
+            raise AssertionError("V's .vif differs from phase 4's, or "
+                                 "its .dat is still on A")
+        moved = sum(len(s) for u, s in got.items() if u != url["A"])
+        shard_size = os.path.getsize(base_v + layout.to_ext(
+            got[url["A"]][0]))
+        steps["2 encode"] = {"s": dt_enc, "placement": {
+            node_of[u]: s for u, s in got.items()},
+            "moved_bytes": moved * shard_size}
+        plog(f"2 encode: `ec.encode -volumeId {v}` of the "
+             f"{os.path.getsize(server_src + '.dat')} B volume in "
+             f"{dt_enc:.3f} s: placement "
+             f"{ {node_of[u]: s for u, s in got.items()} } == "
+             f"balanced_ec_distribution's, {moved} shards "
+             f"({moved * shard_size} B) copied; every shard and .ecx "
+             f"sha256 == phase 4's; K1 {encode_k1} == phase 4's")
 
-            # 6 the read-only commands
-            k0 = dict(launches)
-            t0 = time.perf_counter()
-            printed = {line: run(line) for line in SHELL_READ_ONLY}
-            dt_ro = time.perf_counter() - t0
-            step_counts("6 read-only", k0, 0)
-            st = json.loads(printed["maintenance.status -json"])
-            ec_vols = {vid: rec for vid, rec in st["volumes"].items()
-                       if rec.get("kind") == "ec"}
-            if sorted(map(int, ec_vols)) != sorted(written + [v]) or \
-                    any(rec["state"] != "healthy"
-                        for rec in ec_vols.values()):
-                raise AssertionError(f"maintenance.status: "
-                                     f"{ {k: r.get('state') for k, r in st['volumes'].items()} }")
-            codecs_seen = json.loads(printed["ec.codecs -json"])
-            steps["6 read-only"] = {"s": dt_ro, "ec_volumes": len(ec_vols),
-                                    "mix": codecs_seen["mix"]}
-            plog(f"6 read-only: {', '.join(SHELL_READ_ONLY)} exited 0 in "
-                 f"{dt_ro:.3f} s; maintenance.status: {len(ec_vols)} EC "
-                 f"volumes, every one healthy; ec.codecs mix "
-                 f"{codecs_seen['mix']}; K1 0")
+        # 3 the auto-selection, after a beat reports every p23
+        # volume's size
+        vols = {vid: servers[holder_of(vid)].store.get_volume(vid)
+                for vid in written}
+        for vol in vols.values():
+            vol.flush()
+        dat_size = {vid: vol.data_size() for vid, vol in vols.items()}
 
-            # 7 ec.decode of W, then unlock
-            k0 = dict(launches)
-            t0 = time.perf_counter()
-            out7 = run(f"ec.decode -volumeId {w}")
-            dt_dec = time.perf_counter() - t0
-            run("unlock")
-            collector = node_of[out7.split(" on ")[-1].strip()]
-            if sha256(base_of(collector, w, SHELL_COLLECTION) + ".dat") != \
-                    dat_hash[w]:
-                raise AssertionError("W's decoded .dat differs from step "
-                                     "3's record")
-            until(lambda: cmd_env.volume_locations(w) == [url[collector]]
-                  and not split(w), "the decoded W never reached the "
-                  "master")
-            dt_wr = fan(get_w, sorted(by_vid[w]))
-            step_counts("7 decode", k0, 0)
-            steps["7 decode"] = {"s": dt_dec, "collector": collector,
-                                 "reads_s": dt_wr}
-            plog(f"7 decode: `ec.decode -volumeId {w}` on {collector} in "
-                 f"{dt_dec:.3f} s, .dat sha256 == step 3's record; its "
-                 f"{len(by_vid[w])} needles read back in {dt_wr:.3f} s; "
-                 f"unlocked; K1 0")
+        def p23_view() -> dict:
+            return {vi["id"]: vi["size"]
+                    for nd in topo()["nodes"].values()
+                    for vi in nd["volume_infos"]
+                    if vi["collection"] == SHELL_COLLECTION}
+        p23 = until(lambda: (lambda seen: seen if all(
+            seen.get(vid) == n for vid, n in dat_size.items())
+            else None)(p23_view()),
+            f"no beat reported the p23 sizes {dat_size}")
+        dat_hash = {vid: sha256(base_of(holder_of(vid), vid,
+                                        SHELL_COLLECTION) + ".dat")
+                    for vid in written}
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        out3 = run(f"ec.encode -collection {SHELL_COLLECTION} "
+                   f"-fullPercent 0 -quietFor 0s")
+        dt_auto = time.perf_counter() - t0
+        listed = json.loads(out3.splitlines()[0].split(": ", 1)[1])
+        if listed != sorted(p23) or not set(written) <= set(listed):
+            raise AssertionError(f"ec.encode selected {listed}; the "
+                                 f"p23 volumes are {sorted(p23)}, "
+                                 f"{written} with needles")
+        units = {vid: predict_units(p23[vid], layout.LARGE_BLOCK_SIZE,
+                                    layout.SMALL_BLOCK_SIZE)
+                 for vid in listed}
+        step_counts("3 auto", k0, sum(units.values()))
+        until(lambda: all(sum(map(len, split(vid).values())) == 14
+                          for vid in listed),
+              "the p23 shard sets never reached the master")
+        steps["3 auto"] = {"s": dt_auto, "volumes": listed,
+                           "dat_bytes": p23, "units": units}
+        plog(f"3 auto: `ec.encode -collection {SHELL_COLLECTION} "
+             f"-fullPercent 0 -quietFor 0s` selected {listed} (every "
+             f"p23 volume; .dat {[p23[vid] for vid in listed]} B) and "
+             f"encoded them in {dt_auto:.3f} s; K1 "
+             f"{sum(units.values())} == the layout's units")
 
-            # 8 the CLI's shell as a child process
-            k0 = dict(launches)
-            want_list = run("volume.list")
-            here = os.path.dirname(os.path.abspath(__file__))
-            t0 = time.perf_counter()
-            child = subprocess.run(
-                [sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
-                 "-master", master.url, "-c", "volume.list"],
-                cwd=here, capture_output=True, text=True, timeout=300,
-                env=dict(os.environ, PYTHONPATH=here))
-            dt_cli = time.perf_counter() - t0
-            if child.returncode != 0 or child.stdout != want_list:
-                raise AssertionError(f"the CLI shell exited "
-                                     f"{child.returncode}: "
-                                     f"{child.stdout[-500:]!r} "
-                                     f"{child.stderr[-1500:]}")
-            step_counts("8 cli", k0, 0)
-            steps["8 cli"] = {"s": dt_cli}
-            plog(f"8 cli: `python -m seaweedfs_tpu_torch shell -c "
-                 f"volume.list` exited 0 in {dt_cli:.3f} s and printed "
-                 f"what the shell prints in process "
-                 f"({len(want_list.splitlines())} lines); K1 0")
+        # 4 degraded reads through the client
+        w = max(written, key=lambda vid: (len(by_vid[vid]), vid))
+        v_split, w_split = split(v), split(w)
+        for u, shards in v_split.items():
+            lost_here = [s for s in SERVER_LOSSES if s in shards]
+            if lost_here:
+                admin(node_of[u], "/admin/ec/delete_shards",
+                      {"volume": v, "shards": lost_here})
+        for u, shards in w_split.items():
+            lost_here = [s for s in SHELL_W_LOST if s in shards]
+            if lost_here:
+                admin(node_of[u], "/admin/ec/delete_shards",
+                      {"volume": w, "shards": lost_here})
+        until(lambda: not any(
+            set(SERVER_LOSSES) & set(s) for s in split(v).values()) and
+            not any(set(SHELL_W_LOST) & set(s)
+                    for s in split(w).values()),
+            "the master still shows the deleted shards")
+        ev_v = next(servers[n].store.get_ec_volume(v) for n in names
+                    if servers[n].store.get_ec_volume(v) is not None)
+        ev_w = next(servers[n].store.get_ec_volume(w) for n in names
+                    if servers[n].store.get_ec_volume(w) is not None)
+        touching_v = touching_needles(ev_v, expect, SERVER_LOSSES)
+        drawn = sorted(np.random.default_rng(seed + 231).choice(
+            touching_v, size=min(SHELL_V_READS, len(touching_v)),
+            replace=False).tolist())
+        expect_w = {key: None for key in by_vid[w]}
+        touching_w = touching_needles(ev_w, expect_w, SHELL_W_LOST)
+        resilience.reset_latency_trackers()
+        resilience.reset_breakers()
+
+        def get_v(nid: int) -> None:
+            cookie, lo, hi = expect[nid]
+            if client.download(str(t.FileId(v, nid, cookie))) != \
+                    blob[lo:hi]:
+                raise AssertionError(f"degraded read of V/{nid} "
+                                     f"differs")
+
+        def get_w(key: int) -> None:
+            cookie, i = by_vid[w][key]
+            lo, hi = spans[i]
+            if client.download(str(t.FileId(w, key, cookie))) != \
+                    payload[lo:hi]:
+                raise AssertionError(f"degraded read of W/{key} "
+                                     f"differs")
+        k0 = dict(launches)
+        dt_v = fan(get_v, drawn, SHELL_THREADS)
+        dt_w = fan(get_w, sorted(by_vid[w]), SHELL_THREADS)
+        step_counts("4 degraded", k0, len(drawn) + len(touching_w))
+        steps["4 degraded"] = {
+            "w": w, "v_reads": len(drawn), "v_s": dt_v,
+            "w_reads": len(by_vid[w]), "w_touching": len(touching_w),
+            "w_s": dt_w}
+        plog(f"4 degraded: V lost {list(SERVER_LOSSES)}, W = {w} lost "
+             f"{list(SHELL_W_LOST)}; {len(drawn)} of V's "
+             f"{len(touching_v)} needles on lost data shards in "
+             f"{dt_v:.3f} s and all {len(by_vid[w])} of W's "
+             f"({len(touching_w)} on shard 1) in {dt_w:.3f} s through "
+             f"the client, equal; K1 {len(drawn) + len(touching_w)} "
+             f"== one per needle on a lost data shard")
+
+        # 5 ec.rebuild: V's phase-5 loss and W's shard
+        w_node, w_shards = next(iter(split(w).items()))
+        w_base = base_of(node_of[w_node], w, SHELL_COLLECTION)
+        w_chunks = -(-os.path.getsize(
+            w_base + layout.to_ext(w_shards[0]))
+            // ec_files.DEFAULT_BATCH)
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        out5 = run("ec.rebuild")
+        dt_reb = time.perf_counter() - t0
+        step_counts("5 rebuild", k0, rebuild_k1 + w_chunks)
+        rebuilt = {int(m.group(1)): (json.loads(m.group(2)),
+                                      m.group(3))
+                   for m in re.finditer(
+                       r"^volume (\d+): rebuilt (\[[^]]*\]) on (\S+)$",
+                       out5, re.M)}
+        if sorted(rebuilt) != sorted({v, w}) or \
+                rebuilt[v][0] != list(SERVER_LOSSES) or \
+                rebuilt[w][0] != list(SHELL_W_LOST):
+            raise AssertionError(f"ec.rebuild printed {out5!r}")
+        rb = base_of(node_of[rebuilt[v][1]], v)
+        for i, h in zip(SERVER_LOSSES, sha256_many(
+                [rb + layout.to_ext(i) for i in SERVER_LOSSES])):
+            if h != hashes[i]:
+                raise AssertionError(f"V's rebuilt shard {i} differs "
+                                     f"from phase 4's")
+        until(lambda: all(sum(map(len, split(vid).values())) == 14
+                          for vid in (v, w)),
+              "the rebuilt shards never reached the master")
+        steps["5 rebuild"] = {"s": dt_reb, "w_chunks": w_chunks,
+                              "rebuilders": {str(k): node_of[r]
+                                             for k, (_, r) in
+                                             rebuilt.items()}}
+        plog(f"5 rebuild: `ec.rebuild` rebuilt V's "
+             f"{list(SERVER_LOSSES)} on {node_of[rebuilt[v][1]]} "
+             f"(sha256 == phase 4's) and W's {list(SHELL_W_LOST)} on "
+             f"{node_of[rebuilt[w][1]]} in {dt_reb:.3f} s; K1 "
+             f"{rebuild_k1 + w_chunks} == phase 6's {rebuild_k1} + "
+             f"W's {w_chunks} chunk(s)")
+
+        # 6 the read-only commands
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        printed = {line: run(line) for line in SHELL_READ_ONLY}
+        dt_ro = time.perf_counter() - t0
+        step_counts("6 read-only", k0, 0)
+        st = json.loads(printed["maintenance.status -json"])
+        ec_vols = {vid: rec for vid, rec in st["volumes"].items()
+                   if rec.get("kind") == "ec"}
+        if sorted(map(int, ec_vols)) != sorted(written + [v]) or \
+                any(rec["state"] != "healthy"
+                    for rec in ec_vols.values()):
+            raise AssertionError(f"maintenance.status: "
+                                 f"{ {k: r.get('state') for k, r in st['volumes'].items()} }")
+        codecs_seen = json.loads(printed["ec.codecs -json"])
+        steps["6 read-only"] = {"s": dt_ro, "ec_volumes": len(ec_vols),
+                                "mix": codecs_seen["mix"]}
+        plog(f"6 read-only: {', '.join(SHELL_READ_ONLY)} exited 0 in "
+             f"{dt_ro:.3f} s; maintenance.status: {len(ec_vols)} EC "
+             f"volumes, every one healthy; ec.codecs mix "
+             f"{codecs_seen['mix']}; K1 0")
+
+        # 7 ec.decode of W, then unlock
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        out7 = run(f"ec.decode -volumeId {w}")
+        dt_dec = time.perf_counter() - t0
+        run("unlock")
+        collector = node_of[out7.split(" on ")[-1].strip()]
+        if sha256(base_of(collector, w, SHELL_COLLECTION) + ".dat") != \
+                dat_hash[w]:
+            raise AssertionError("W's decoded .dat differs from step "
+                                 "3's record")
+        until(lambda: cmd_env.volume_locations(w) == [url[collector]]
+              and not split(w), "the decoded W never reached the "
+              "master")
+        dt_wr = fan(get_w, sorted(by_vid[w]), SHELL_THREADS)
+        step_counts("7 decode", k0, 0)
+        steps["7 decode"] = {"s": dt_dec, "collector": collector,
+                             "reads_s": dt_wr}
+        plog(f"7 decode: `ec.decode -volumeId {w}` on {collector} in "
+             f"{dt_dec:.3f} s, .dat sha256 == step 3's record; its "
+             f"{len(by_vid[w])} needles read back in {dt_wr:.3f} s; "
+             f"unlocked; K1 0")
+
+        # 8 the CLI's shell as a child process
+        k0 = dict(launches)
+        want_list = run("volume.list")
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
+             "-master", master.url, "-c", "volume.list"],
+            cwd=here, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=here))
+        dt_cli = time.perf_counter() - t0
+        if child.returncode != 0 or child.stdout != want_list:
+            raise AssertionError(f"the CLI shell exited "
+                                 f"{child.returncode}: "
+                                 f"{child.stdout[-500:]!r} "
+                                 f"{child.stderr[-1500:]}")
+        step_counts("8 cli", k0, 0)
+        steps["8 cli"] = {"s": dt_cli}
+        plog(f"8 cli: `python -m seaweedfs_tpu_torch shell -c "
+             f"volume.list` exited 0 in {dt_cli:.3f} s and printed "
+             f"what the shell prints in process "
+             f"({len(want_list.splitlines())} lines); K1 0")
     finally:
-        if client is not None:
-            client.close()
-        for vs in servers.values():
-            vrun(vs.stop())
-        if master is not None:
-            mrun(master.stop())
-        for loop, th in loops:
-            loop.call_soon_threadsafe(loop.stop)
-            th.join(10)
-        http_client.close()
-        shutil.rmtree(work, ignore_errors=True)
-    stream = [th for th in threading.enumerate()
-              if th.name == "weed-vidmap-stream"]
-    for th in stream:
-        th.join(5)
-    if any(th.is_alive() for th in stream):
-        raise AssertionError("the client's stream thread outlived its "
-                             "master")
+        client.close()
     out = {"card": card, "steps": steps, "counts": counts,
            "s": time.perf_counter() - t_phase}
     plog(f"launches per step {counts}; phase wall {out['s']:.1f} s")
+    return out
+
+
+# phase 24's filer (ROADMAP 1.20a): the port's Filer over its LogStore,
+# its chunks on phase 23's layout of three card servers in three racks.
+FILER_COLLECTION = "p24"
+FILER_BYTES = 256 * MIB  # the tree's files, from --seed
+FILER_MIN_SIZE = 1 << 10
+FILER_MAX_SIZE = 32 * MIB
+FILER_CHUNK = 4 * MIB  # the reference filer's -maxMB default
+FILER_APPENDS = 48  # the appended file: one chunk per append
+FILER_APPEND_SIZE = 512 << 10
+FILER_MANIFEST_BATCH = 16  # cut from MANIFEST_BATCH's 10000 (PERF §4)
+FILER_LOST = (0, 3)  # step 3's lost data shards of every p24 EC volume
+FILER_CACHE_MEM = 32 * MIB  # the filer server's chunk_cache_mem default
+FILER_CACHE_DISK = 1 << 30
+FILER_ORACLE = 8  # step 4's sealed chunks opened by `cryptography`
+FILER_THREADS = 16
+
+
+def phase_filer(racks: ThreeRacks, vdir: str, seed: int,
+                launches: dict) -> dict:
+    """Phase 24: the port's filer without its server (ROADMAP 1.20a) over
+    `racks`, phase 23's three port `VolumeServer`s on the card in three
+    racks behind the port's `MasterServer`, kept up for it.  The
+    `Filer` keeps its entries in a `LogStore` in the phase's directory;
+    its `on_delete_chunks` feeds a `DeletionQueue` on the port's
+    `WeedClient`, which resolves manifests; reads go through a
+    `ChunkCache` of the filer server's 32 MiB memory tier and a disk
+    tier.  Steps: (1) 256 MiB of files from --seed (1 KiB-32 MiB,
+    log-uniform) under /p24/plain and /p24/enc, cut into 4 MiB chunks
+    and uploaded by the client into collection p24 from 16 threads,
+    every chunk under /p24/enc sealed by the port's cipher with its key
+    in the chunk; a file of 48 appended chunks manifestized at a batch
+    of 16, a middle range of a plain file overwritten, a plain file
+    hard-linked under /p24/enc, a subtree of /p24/enc renamed; K1 0;
+    (2) `ec.encode -collection p24` through the port's shell, K1 == the
+    layout's units of the p24 .dat files; (3) data shards 0 and 3 of
+    every p24 EC volume deleted, K1 0; (4) every file read in full
+    through `ChunkGroup.read_views`, `WeedClient.download` and
+    `decrypt`, sha256 == its draw, K1 one per chunk read whose needle
+    touches a lost data shard, a sample of sealed chunks opened by
+    `cryptography`'s AESGCM; (5) every file again, every chunk read a
+    cache hit, K1 0; (6) `delete_entry("/p24/plain", recursive=True)`:
+    once the queue drains every freed fid (the manifests' inner fids
+    too) answers 404 on every holder, and every /p24/enc file read
+    without the cache is still equal, K1 one per manifest and /p24/enc
+    chunk on a lost data shard; (7) the LogStore reopened: the same
+    `subtree_digest("/p24")`, K1 0.  K2 0 throughout."""
+    import hashlib
+
+    import numpy as np
+    from cryptography.hazmat.primitives.ciphers.aead import AESGCM
+    from seaweedfs_tpu_torch.client import WeedClient
+    from seaweedfs_tpu_torch.filer import filechunk_manifest as fcm
+    from seaweedfs_tpu_torch.filer.entry import Attr, Entry, FileChunk
+    from seaweedfs_tpu_torch.filer.filechunk_section import ChunkGroup
+    from seaweedfs_tpu_torch.filer.filer import Filer
+    from seaweedfs_tpu_torch.filer.filer_deletion import DeletionQueue
+    from seaweedfs_tpu_torch.filer.stores_extra import LogStore
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.utils import cipher, resilience
+    from seaweedfs_tpu_torch.utils.chunk_cache import ChunkCache
+
+    card = card_name_power()
+
+    def flog(msg: str) -> None:
+        log(f"[filer] {msg} [{card}]")
+
+    work = os.path.join(vdir, "filer")
+    os.makedirs(work)
+    store_dir = os.path.join(work, "logstore")
+    names, servers = racks.names, racks.servers
+    node_of, master, http_client = racks.node_of, racks.master, racks.http
+    admin, run, split, topo = racks.admin, racks.run, racks.split, racks.topo
+    holder_of = racks.holder_of
+    client = queue = store = None
+    steps: dict = {}
+    counts: dict = {}
+    predicted: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 24)
+
+    def step_counts(name: str, k0: dict, k1: int, t0: float) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        predicted[name] = k1
+        steps.setdefault(name, {})["wall_s"] = time.perf_counter() - t0
+        want = {"gf_apply": k1, "gf_apply_batch": 0}
+        if got != want:
+            raise AssertionError(f"phase 24 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def empty_lrus() -> None:
+        """No server's reconstruction LRU answers a read this step
+        predicts a launch for."""
+        for vs in servers.values():
+            for loc in vs.store.locations:
+                for ev in list(loc.ec_volumes.values()):
+                    with ev._recon_lock:
+                        ev._recon_cache.clear()
+                        ev._recon_cache_bytes = 0
+
+    try:
+        # 0 set-up: the client, the filer over its LogStore, the queue,
+        # the cache
+        client = WeedClient(master.url)
+        queue = DeletionQueue(
+            client, interval=0.05,
+            resolve_manifest=lambda cs: fcm.resolve_chunk_manifest(
+                client.download, cs, include_manifests=True))
+        queue.start()
+        store = LogStore(store_dir)
+        filer = Filer(store, on_delete_chunks=queue.enqueue_chunks)
+        cache = ChunkCache(mem_limit=FILER_CACHE_MEM,
+                           disk_dir=os.path.join(work, "cache"),
+                           disk_limit=FILER_CACHE_DISK)
+
+        # 1 the tree: sizes and bytes from the seed, a file every
+        # other one under /p24/enc (sealed), the rest under
+        # /p24/plain, in four directories each
+        t0 = time.perf_counter()
+        k0 = dict(launches)
+        budget = FILER_BYTES - FILER_APPENDS * FILER_APPEND_SIZE
+        sizes: list = []
+        while sum(sizes) < budget:
+            sizes.append(min(int(np.exp(rng.uniform(
+                np.log(FILER_MIN_SIZE), np.log(FILER_MAX_SIZE)))),
+                budget - sum(sizes)))
+        if sizes[-1] < FILER_MIN_SIZE:  # the remainder joins the last
+            sizes[-2] += sizes.pop()
+        payload = rng.bytes(FILER_BYTES)
+        mv = memoryview(payload)
+        content: dict = {}  # path -> the file's bytes
+        plan: list = []  # (path, enc) of the drawn files
+        at = 0
+        for i, size in enumerate(sizes):
+            kind = "enc" if i % 2 else "plain"
+            path = f"/p24/{kind}/d{i // 2 % 4}/f{i:03d}"
+            content[path] = mv[at:at + size]
+            plan.append((path, kind == "enc"))
+            at += size
+        log_path = "/p24/plain/log/appended"
+        content[log_path] = mv[at:at + FILER_APPENDS * FILER_APPEND_SIZE]
+        pieces = [(path, off, enc) for path, enc in plan
+                  for off in range(0, len(content[path]), FILER_CHUNK)]
+        pieces += [(log_path, off, False) for off in range(
+            0, FILER_APPENDS * FILER_APPEND_SIZE, FILER_APPEND_SIZE)]
+        made: dict = {}  # (path, offset) -> FileChunk
+        sealed_of: dict = {}  # fid -> (path, offset): the sealed ones
+
+        def upload(piece) -> None:
+            path, off, enc = piece
+            step = FILER_APPEND_SIZE if path == log_path \
+                else FILER_CHUNK
+            data = bytes(content[path][off:off + step])
+            key = b""
+            stored = data
+            if enc:
+                key, stored = cipher.encrypt(data)
+            fid = client.upload(stored, collection=FILER_COLLECTION)
+            made[(path, off)] = FileChunk(
+                fid=fid, offset=off, size=len(data),
+                mtime=time.time_ns(), etag=hashlib.md5(data).hexdigest(),
+                cipher_key=key)
+            if enc:
+                sealed_of[fid] = (path, off)
+        dt_up = fan(upload, pieces, FILER_THREADS)
+
+        def save_manifest(data: bytes):
+            fid = client.upload(data, collection=FILER_COLLECTION)
+            return FileChunk(fid=fid, offset=0, size=len(data),
+                             etag=hashlib.md5(data).hexdigest())
+
+        def entry(path: str, chunks: list) -> Entry:
+            return Entry(full_path=path, attr=Attr(
+                mode=0o644, mime="application/octet-stream",
+                file_size=len(content[path]),
+                md5=hashlib.md5(content[path]).hexdigest()),
+                chunks=chunks)
+        for path, _ in plan:
+            filer.create_entry(entry(path, sorted(
+                (c for (p, _), c in made.items() if p == path),
+                key=lambda c: c.offset)))
+        appended = sorted((c for (p, _), c in made.items()
+                           if p == log_path), key=lambda c: c.offset)
+        refs = fcm.maybe_manifestize(save_manifest, appended,
+                                     batch=FILER_MANIFEST_BATCH)
+        manifests = [c for c in refs if c.is_chunk_manifest]
+        if len(manifests) != FILER_APPENDS // FILER_MANIFEST_BATCH or \
+                len(refs) != len(manifests):
+            raise AssertionError(f"the appended file's refs: {refs}")
+        filer.create_entry(entry(log_path, refs))
+        # a middle range of the largest plain file overwritten (its
+        # old chunks stay, shadowed where the new one lies)
+        plains = sorted((p for p, enc in plan if not enc),
+                        key=lambda p: (len(content[p]), p))
+        over = plains[-1]
+        size = len(content[over])
+        lo, hi = size // 3, size // 3 + min(3 * MIB, size // 3)
+        fresh = rng.bytes(hi - lo)
+        content[over] = bytes(content[over][:lo]) + fresh + \
+            bytes(content[over][hi:])
+        ent = filer.find_entry(over)
+        fid = client.upload(fresh, collection=FILER_COLLECTION)
+        ent.chunks.append(FileChunk(fid=fid, offset=lo, size=hi - lo,
+                                    mtime=time.time_ns(),
+                                    etag=hashlib.md5(fresh).hexdigest()))
+        ent.attr.md5 = hashlib.md5(content[over]).hexdigest()
+        filer.update_entry(ent)
+        # a second name under /p24/enc for the next-largest plain file
+        linked = plains[-2]
+        link = "/p24/enc/links/" + linked.rsplit("/", 1)[1]
+        filer.link_entry(linked, link)
+        content[link] = content[linked]
+        # a subtree of /p24/enc renamed
+        moved = {p: "/p24/enc/moved/" + p.rsplit("/", 1)[1]
+                 for p in content if p.startswith("/p24/enc/d1/")}
+        filer.rename_entry("/p24/enc/d1", "/p24/enc/moved")
+        for old, new in moved.items():
+            content[new] = content.pop(old)
+        sealed_of = {fid: (moved.get(p, p), off)
+                     for fid, (p, off) in sealed_of.items()}
+        dt_write = time.perf_counter() - t0
+        step_counts("1 write", k0, 0, t0)
+        written = sum(len(c) for p, c in content.items() if p != link)
+        n_chunks = len(made) + len(manifests) + 1
+        steps["1 write"].update({
+            "files": len(content), "bytes": written, "chunks": n_chunks,
+            "upload_s": dt_up, "mbps": written / dt_write / 1e6})
+        flog(f"1 write: {len(content)} files ({len(plan)} drawn, "
+             f"{FILER_MIN_SIZE}-{FILER_MAX_SIZE} B log-uniform, and "
+             f"{log_path} of {FILER_APPENDS} appended chunks, "
+             f"{len(manifests)} manifests at a batch of "
+             f"{FILER_MANIFEST_BATCH}), {written} B in {n_chunks} "
+             f"chunks ({len(sealed_of)} sealed) uploaded by the client "
+             f"from {FILER_THREADS} threads at "
+             f"{written / dt_up / 1e6:.1f} MB/s, the tree at "
+             f"{written / dt_write / 1e6:.1f} MB/s with its entries; "
+             f"{over} overwritten at [{lo}, {hi}), {linked} linked as "
+             f"{link}, /p24/enc/d1 renamed /p24/enc/moved; K1 0")
+
+        # 2 ec.encode -collection p24, once a beat reports the sizes
+        vids = sorted({int(c.fid.split(",")[0]) for c in
+                       list(made.values()) + manifests + [
+                           ent.chunks[-1]]})
+        vols = {vid: servers[holder_of(vid)].store.get_volume(vid)
+                for vid in vids}
+        for vol in vols.values():
+            vol.flush()
+        dat_size = {vid: vol.data_size() for vid, vol in vols.items()}
+
+        def p24_view() -> dict:
+            return {vi["id"]: vi["size"]
+                    for nd in topo()["nodes"].values()
+                    for vi in nd["volume_infos"]
+                    if vi["collection"] == FILER_COLLECTION}
+        p24 = until(lambda: (lambda seen: seen if all(
+            seen.get(vid) == n for vid, n in dat_size.items())
+            else None)(p24_view()),
+            f"no beat reported the p24 sizes {dat_size}")
+        units = {vid: predict_units(p24[vid], layout.LARGE_BLOCK_SIZE,
+                                    layout.SMALL_BLOCK_SIZE)
+                 for vid in p24}
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        run("lock")
+        out2 = run(f"ec.encode -collection {FILER_COLLECTION} "
+                   f"-fullPercent 0 -quietFor 0s")
+        run("unlock")
+        dt_enc = time.perf_counter() - t0
+        listed = json.loads(out2.splitlines()[0].split(": ", 1)[1])
+        if listed != sorted(p24):
+            raise AssertionError(f"ec.encode selected {listed}; the "
+                                 f"p24 volumes are {sorted(p24)}")
+        step_counts("2 encode", k0, sum(units.values()), t0)
+        until(lambda: all(sum(map(len, split(vid).values())) == 14
+                          for vid in listed),
+              "the p24 shard sets never reached the master")
+        steps["2 encode"].update({"s": dt_enc, "volumes": listed,
+                                  "dat_bytes": p24, "units": units})
+        flog(f"2 encode: `ec.encode -collection {FILER_COLLECTION}` "
+             f"of volumes {listed} (.dat {[p24[v] for v in listed]} B) "
+             f"in {dt_enc:.3f} s; K1 {sum(units.values())} == the "
+             f"layout's units")
+
+        # 3 data shards 0 and 3 of every p24 EC volume deleted
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        for vid in listed:
+            for u, shards in split(vid).items():
+                gone = [s for s in FILER_LOST if s in shards]
+                if gone:
+                    admin(node_of[u], "/admin/ec/delete_shards",
+                          {"volume": vid, "shards": gone})
+        until(lambda: not any(set(FILER_LOST) & set(s)
+                              for vid in listed
+                              for s in split(vid).values()),
+              "the master still shows the deleted shards")
+        step_counts("3 loss", k0, 0, t0)
+        flog(f"3 loss: data shards {list(FILER_LOST)} of every p24 EC "
+             f"volume deleted where they lived; K1 0")
+
+        # which chunk needles touch a lost data shard, by the layout
+        evs = {vid: next(servers[n].store.get_ec_volume(vid)
+                         for n in names
+                         if servers[n].store.get_ec_volume(vid)
+                         is not None) for vid in listed}
+
+        def touches(fid: str) -> bool:
+            f = t.FileId.parse(fid)
+            ev = evs[f.volume_id]
+            return bool(touching_needles(ev, {f.key: None}, FILER_LOST))
+
+        # 4 every file read in full through the views, the client
+        # and the cipher, the cache filling
+        flights: dict = {}
+        flights_lock = threading.Lock()
+        fetched: list = []
+        blobs_read = [0]
+
+        def fetch(fid: str, cached: bool = True) -> bytes:
+            """One chunk blob, one download per fid at a time: from
+            the cache, or the client (into the cache)."""
+            with flights_lock:
+                lk = flights.setdefault(fid, threading.Lock())
+            with lk:
+                blobs_read[0] += 1
+                blob = cache.get(fid) if cached else None
+                if blob is None:
+                    blob = client.download(fid)
+                    fetched.append(fid)
+                    if cached:
+                        cache.put(fid, blob)
+                return blob
+
+        def read_file(path: str, cached: bool = True) -> bytes:
+            e = filer.find_entry(path)
+            chunks = fcm.resolve_chunk_manifest(
+                lambda f: fetch(f, cached), e.chunks)
+            out = bytearray(e.size())
+            for v in ChunkGroup(chunks).read_views(0, e.size()):
+                blob = fetch(v.fid, cached)
+                if v.cipher_key:
+                    blob = cipher.decrypt(v.cipher_key, blob)
+                out[v.logic_offset:v.logic_offset + v.size] = \
+                    blob[v.offset_in_chunk:v.offset_in_chunk + v.size]
+            return bytes(out)
+
+        def walk(d: str) -> list:
+            out = []
+            for e in filer.iter_entries(d):
+                out += walk(e.full_path) if e.is_directory \
+                    else [e.full_path]
+            return out
+        tree = walk("/p24")
+        if sorted(tree) != sorted(content):
+            raise AssertionError(
+                f"the tree lists {len(tree)} files, {len(content)} "
+                f"were written: "
+                f"{sorted(set(tree) ^ set(content))[:8]}")
+        want_sha = {p: hashlib.sha256(c).hexdigest()
+                    for p, c in content.items()}
+
+        def needed(paths) -> set:
+            """The fids reading `paths` fetches: the manifests, and
+            every chunk a view of the resolved list names."""
+            out = set()
+            for p in paths:
+                e = filer.find_entry(p)
+                out |= {c.fid for c in e.chunks if c.is_chunk_manifest}
+                chunks = fcm.resolve_chunk_manifest(
+                    lambda f: blobs[f], e.chunks) \
+                    if any(c.is_chunk_manifest for c in e.chunks) \
+                    else e.chunks
+                out |= {v.fid for v in ChunkGroup(chunks).read_views(
+                    0, e.size())}
+            return out
+
+        def check(path: str, cached: bool = True) -> None:
+            got = read_file(path, cached)
+            if hashlib.sha256(got).hexdigest() != want_sha[path]:
+                raise AssertionError(f"{path} differs from its draw")
+        blobs = {m.fid: fcm.manifest_payload(
+            appended[i * FILER_MANIFEST_BATCH:
+                     (i + 1) * FILER_MANIFEST_BATCH])
+            for i, m in enumerate(manifests)}
+        want_fids = needed(tree)
+        touching = {f for f in want_fids if touches(f)}
+        empty_lrus()
+        resilience.reset_latency_trackers()
+        resilience.reset_breakers()
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        dt_read = fan(check, tree, FILER_THREADS)
+        if sorted(fetched) != sorted(want_fids):
+            raise AssertionError(f"step 4 fetched {len(fetched)} "
+                                 f"blobs, {len(set(fetched))} "
+                                 f"distinct; {len(want_fids)} needed")
+        step_counts("4 degraded", k0, len(touching), t0)
+        oracle = sorted(set(fetched) & set(sealed_of))[:FILER_ORACLE]
+        by_fid = {c.fid: c for c in made.values()}
+        for fid in oracle:
+            path, off = sealed_of[fid]
+            blob = cache.get(fid)
+            plain = AESGCM(by_fid[fid].cipher_key).decrypt(
+                blob[:12], blob[12:], None)
+            if plain != bytes(content[path][off:off + len(plain)]) or \
+                    len(plain) != by_fid[fid].size:
+                raise AssertionError(f"cryptography opens {fid} to "
+                                     f"other bytes")
+        steps["4 degraded"].update({
+            "files": len(tree), "chunk_reads": blobs_read[0],
+            "downloads": len(fetched), "touching": len(touching),
+            "s": dt_read, "mbps": written / dt_read / 1e6,
+            "oracle": len(oracle)})
+        flog(f"4 degraded: {len(tree)} files read in full through "
+             f"ChunkGroup.read_views, the client and decrypt at "
+             f"{FILER_THREADS} threads, each sha256 == its draw: "
+             f"{written} B in {dt_read:.3f} s, "
+             f"{written / dt_read / 1e6:.1f} MB/s; {blobs_read[0]} chunk "
+             f"reads, {len(fetched)} downloads ({len(manifests)} "
+             f"manifests), {len(touching)} on a lost data shard; "
+             f"{len(oracle)} sealed chunks opened by cryptography's "
+             f"AESGCM equal; K1 {len(touching)} == one per download "
+             f"touching shards {list(FILER_LOST)}")
+
+        # 5 every file again: each chunk read a cache hit
+        k0 = dict(launches)
+        reads0, hits0, n0 = blobs_read[0], cache.hits, len(fetched)
+        t0 = time.perf_counter()
+        for path in tree:
+            check(path)
+        dt_cached = time.perf_counter() - t0
+        reads = blobs_read[0] - reads0
+        if len(fetched) != n0 or cache.hits - hits0 != reads:
+            raise AssertionError(f"step 5: {len(fetched) - n0} "
+                                 f"downloads, {cache.hits - hits0} "
+                                 f"cache hits of {reads} chunk reads")
+        step_counts("5 cached", k0, 0, t0)
+        steps["5 cached"].update({
+            "chunk_reads": reads, "hits": cache.hits - hits0,
+            "s": dt_cached, "mbps": written / dt_cached / 1e6,
+            "cache": cache.stats()})
+        flog(f"5 cached: every file again, one thread, each sha256 == "
+             f"its draw: {written} B in {dt_cached:.3f} s, "
+             f"{written / dt_cached / 1e6:.1f} MB/s; {reads} chunk "
+             f"reads, {cache.hits - hits0} cache hits, no download; "
+             f"cache {cache.stats()}; K1 0")
+
+        # 6 /p24/plain deleted: the queue frees its chunks, the
+        # linked file's excepted
+        enc_paths = sorted(p for p in tree if p.startswith("/p24/enc/"))
+        keep = needed(enc_paths)
+        freed = set()
+        for p in tree:
+            if p.startswith("/p24/plain/"):
+                e = filer.find_entry(p)
+                freed |= {c.fid for c in e.chunks} | \
+                    {c.fid for c in fcm.resolve_chunk_manifest(
+                        lambda f: blobs[f], e.chunks,
+                        include_manifests=True)}
+        freed -= keep
+        enc_touching = {f for f in keep if touches(f)}
+        man_touching = {m.fid for m in manifests if touches(m.fid)}
+        empty_lrus()
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        deleted0 = queue.deleted_count
+        filer.delete_entry("/p24/plain", recursive=True)
+        until(lambda: queue.pending_count() == 0 and
+              queue.deleted_count + queue.error_count - deleted0 >=
+              len(freed), "the deletion queue never drained",
+              timeout=120)
+        dt_drain = time.perf_counter() - t0
+        if queue.error_count or \
+                queue.deleted_count - deleted0 != len(freed):
+            raise AssertionError(f"the queue deleted "
+                                 f"{queue.deleted_count - deleted0} of "
+                                 f"{len(freed)} fids, "
+                                 f"{queue.error_count} errors")
+        holders = {vid: sorted(split(vid)) for vid in listed}
+        if any(len(h) != len(names) for h in holders.values()):
+            raise AssertionError(f"the p24 volumes' holders {holders}")
+
+        def gone(fid: str) -> None:
+            for u in holders[int(fid.split(",")[0])]:
+                st, _, _ = http_client.request(f"http://{u}/{fid}")
+                if st != 404:
+                    raise AssertionError(f"freed {fid} answers {st} "
+                                         f"on {node_of[u]}")
+        fan(gone, sorted(freed), FILER_THREADS)
+        fetched.clear()
+        dt_enc_read = fan(lambda p: check(p, cached=False), enc_paths,
+                          FILER_THREADS)
+        if sorted(fetched) != sorted(keep):
+            raise AssertionError(f"step 6 fetched {len(fetched)} blobs "
+                                 f"of /p24/enc; {len(keep)} needed")
+        step_counts("6 delete", k0,
+                    len(man_touching) + len(enc_touching), t0)
+        digest = filer.subtree_digest("/p24")
+        steps["6 delete"].update({
+            "freed": len(freed), "drain_s": dt_drain,
+            "enc_files": len(enc_paths), "enc_read_s": dt_enc_read,
+            "manifests_touching": len(man_touching),
+            "enc_touching": len(enc_touching), "digest": digest})
+        flog(f"6 delete: delete_entry('/p24/plain', recursive=True); "
+             f"the queue freed {len(freed)} fids ({len(manifests)} "
+             f"manifests and their inner fids) in {dt_drain:.3f} s, "
+             f"each 404 on every holder; {linked}'s chunks kept for "
+             f"{link}; {len(enc_paths)} /p24/enc files read without "
+             f"the cache at {FILER_THREADS} threads, each sha256 == its "
+             f"draw, in {dt_enc_read:.3f} s; K1 "
+             f"{len(man_touching) + len(enc_touching)} == "
+             f"{len(man_touching)} manifests + {len(enc_touching)} "
+             f"/p24/enc chunks on a lost data shard")
+
+        # 7 the LogStore reopened
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        store.shutdown()
+        store = LogStore(store_dir)
+        again = Filer(store).subtree_digest("/p24")
+        if again != digest:
+            raise AssertionError(f"subtree_digest after the reopen "
+                                 f"{again}, before {digest}")
+        step_counts("7 reopen", k0, 0, t0)
+        flog(f"7 reopen: the LogStore replayed in "
+             f"{time.perf_counter() - t0:.3f} s; subtree_digest('/p24')"
+             f" == before ({digest[1]} lines); K1 0")
+    finally:
+        if queue is not None:
+            queue.stop(drain=False)
+        if store is not None:
+            store.shutdown()
+        if client is not None:
+            client.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "steps": steps, "counts": counts,
+           "predicted": predicted, "s": time.perf_counter() - t_phase}
+    flog(f"launches per step {counts} (K1 predicted {predicted}); phase "
+         f"wall {out['s']:.1f} s")
     return out
 
 
@@ -8179,27 +8825,35 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # phase 12's child
     ap.add_argument("--small-clients", nargs=2, metavar=("URL", "VID"),
                     help=argparse.SUPPRESS)  # phase 16's child
+    ap.add_argument("--codecs-worker", nargs=2, metavar=("DIR", "DAT"),
+                    help=argparse.SUPPRESS)  # phase 10's child
     ap.add_argument("--trace-dir", default=None,
                     help="keep phase 13's torch.profiler trace (Chrome "
                          "JSON) in this directory")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
     if args.small_clients:
         # the clients need no card: the server they load holds it
-        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return small_clients(args.small_clients[0],
                              int(args.small_clients[1]), args.seed)
+    from seaweedfs_tpu_torch import _build
+    # 1 build, started before torch's import, which it overlaps
+    child = args.fleet_worker or args.codecs_worker
+    compiles = {} if child else _build.start()
     import torch
     if not torch.cuda.is_available():
+        _build.stop(compiles)
         print("chip_smoke: no CUDA device; the port runs on the card",
               file=sys.stderr)
         return 1
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
     if args.fleet_worker:
         return fleet_worker()
-    from seaweedfs_tpu_torch import _build
+    if args.codecs_worker:
+        return codecs_worker(*args.codecs_worker, args.seed,
+                             args.volume_mib * MIB)
     from seaweedfs_tpu_torch.ops import gf_cuda
     from seaweedfs_tpu_torch.stats.profile import KERNELS
     from seaweedfs_tpu_torch.storage import types as t
@@ -8209,33 +8863,60 @@ def main(argv=None) -> int:
     log(f"[device] {kind} x{torch.cuda.device_count()}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 1 build
-    t0 = time.perf_counter()
-    took = _build.build()
-    log(f"[build] {time.perf_counter() - t0:.1f} s wall "
-        f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
-    for line in ptxas_report(_build.LOG.get("gf_matmul", "")):
-        log(f"[build] ptxas {line}")
-
-    # 2 kernel
-    rows, kernels, k1_io = phase_kernel(args.seed)
-
     vdir = os.path.join(here, "build", "chip_smoke")
     shutil.rmtree(vdir, ignore_errors=True)
     os.makedirs(vdir)
     phases: dict = {}
+    written: dict = {}
+
+    def write_volume() -> None:
+        t0 = time.perf_counter()
+        try:
+            written["volume"] = build_volume(vdir, args.seed,
+                                             args.volume_mib * MIB)
+        except BaseException as e:  # raised on the main thread
+            written["error"] = e
+        written["s"] = time.perf_counter() - t0
     try:
+        # 1 build: the compiles started above.  3 write, host work alone,
+        # runs on a thread meanwhile (the needle checksum's library
+        # first), joined before phase 2, whose timings want a quiet host
+        t0 = time.perf_counter()
+        try:
+            took = _build.finish({k: compiles.pop(k) for k in ("crc32c",)
+                                  if k in compiles})
+        except BaseException:
+            _build.stop(compiles)
+            raise
+        writer = threading.Thread(target=write_volume)
+        writer.start()
+        try:
+            took.update(_build.finish(compiles))
+        finally:
+            t1 = time.perf_counter()
+            writer.join()
+        log(f"[build] {t1 - t0:.1f} s waited after torch's import ("
+            f"{', '.join(f'{k} {v:.1f} s' for k, v in took.items())} "
+            f"from the start), then {time.perf_counter() - t1:.1f} s for "
+            f"phase 3's volume, written meanwhile")
+        for line in ptxas_report(_build.LOG.get("gf_matmul", "")):
+            log(f"[build] ptxas {line}")
+        if "error" in written:
+            raise written["error"]
+
+        # 2 kernel
+        rows, kernels, k1_io = phase_kernel(args.seed)
+
         gf_cuda.reset_launches()
         launches = gf_cuda.LAUNCHES
-        # 3 write
-        t0 = time.perf_counter()
-        dat_path, expect, blob = build_volume(
-            vdir, args.seed, args.volume_mib * MIB)
-        dt = time.perf_counter() - t0
+        # 3 write: the volume the thread above wrote
+        dat_path, expect, blob = written["volume"]
+        dt = written["s"]
         dat_size = os.path.getsize(dat_path)
         phases["write"] = {"needles": len(expect), "dat_bytes": dat_size,
                            "s": dt}
-        log(f"[write] {len(expect)} needles, {dat_size} B in {dt:.2f} s")
+        log(f"[write] {len(expect)} needles, {dat_size} B in {dt:.2f} s, "
+            f"beside the build")
         base = dat_path[: -len(".dat")]
         shard = [base + layout.to_ext(i) for i in range(14)]
 
@@ -8374,19 +9055,7 @@ def main(argv=None) -> int:
         log(f"[path] phases 3-9: launches {rs_launches}, staged copies "
             f"{staged}")
 
-        # 10 codecs, counted on their own
-        gf_cuda.reset_launches()
-        phases["codecs"] = phase_codecs(vdir, dat_path, expect, blob,
-                                        args.seed, launches)
-        codec_launches = dict(launches)
-        staged = dict(gf_cuda.STAGED)
-        if any(staged.values()):
-            raise AssertionError(f"the codecs phase made the kernel wrapper "
-                                 f"stage copies of its input: {staged}")
-        log(f"[path] phase 10: launches {codec_launches}, staged copies "
-            f"{staged}")
-        path_launches = {k: rs_launches[k] + codec_launches[k]
-                         for k in rs_launches}
+        path_launches = dict(rs_launches)
 
         # 11 native, on the card's host; launches none of the kernels
         phases["native"] = phase_native(
@@ -8402,66 +9071,92 @@ def main(argv=None) -> int:
         path_launches = {k: path_launches[k] + phases["writer"]["launches"][k]
                          for k in path_launches}
 
-        # 13 telemetry, counted on its own
-        gf_cuda.reset_launches()
-        phases["telemetry"] = phase_telemetry(
-            vdir, dat_path, hashes, reads, expect, blob, srcs, rows,
-            launches, args.trace_dir and os.path.abspath(args.trace_dir))
-        tel_launches = dict(launches)
-        staged = dict(gf_cuda.STAGED)
-        if any(staged.values()):
-            raise AssertionError(f"the telemetry phase made the kernel "
-                                 f"wrapper stage copies of its input: "
-                                 f"{staged}")
-        if not all(tel_launches.values()):
-            raise AssertionError(f"the telemetry phase launched "
-                                 f"{tel_launches}: K1 and K2 both expected")
-        phases["telemetry"]["launches"] = tel_launches
-        log(f"[path] phase 13: launches {tel_launches}, staged copies "
-            f"{staged}")
-        path_launches = {k: path_launches[k] + tel_launches[k]
-                         for k in path_launches}
-
-        # records, outside the counted window
-        phases["fleet_record"] = fleet_record(vdir, srcs)
-        phases["rebuild_record"] = rebuild_record(vdir, base, hashes)
-
-        # phase 16 mounts the phase-3 volume as phase 4 encoded it: a
-        # copy, taken before phase 14 appends through links of it
+        # phases 10 and 16 read the phase-3 volume as phase 4 encoded
+        # it: a copy, taken before phase 14 appends through links of it
         server_src = os.path.join(vdir, "server_src", os.path.basename(base))
         os.makedirs(os.path.dirname(server_src))
         for ext in (".dat", ".idx"):
             shutil.copyfile(base + ext, server_src + ext)
         dat_hash = sha256(server_src + ".dat")
 
-        # 14 store, counted on its own; its appends and deletes go
-        # through hard links of the phase-3 volume
-        gf_cuda.reset_launches()
-        phases["store"] = phase_store(vdir, dat_path, expect, blob,
-                                      args.seed, launches)
-        store_launches = dict(launches)
-        staged = dict(gf_cuda.STAGED)
-        if any(staged.values()):
-            raise AssertionError(f"the store phase made the kernel wrapper "
-                                 f"stage copies of its input: {staged}")
-        log(f"[path] phase 14: launches {store_launches}, staged copies "
-            f"{staged}")
-        path_launches = {k: path_launches[k] + store_launches[k]
-                         for k in path_launches}
+        # 10 codecs, in a child process (its own launch counts), which
+        # starts up now and, once phase 13 is done, runs beside the
+        # records and phases 14 and 15: they share no file and no count
+        codecs_proc = start_codecs_worker(vdir, server_src + ".dat",
+                                          args.seed, args.volume_mib)
+        try:
+            # 13 telemetry, counted on its own
+            gf_cuda.reset_launches()
+            phases["telemetry"] = phase_telemetry(
+                vdir, dat_path, hashes, reads, expect, blob, srcs, rows,
+                launches,
+                args.trace_dir and os.path.abspath(args.trace_dir))
+            tel_launches = dict(launches)
+            staged = dict(gf_cuda.STAGED)
+            if any(staged.values()):
+                raise AssertionError(f"the telemetry phase made the kernel "
+                                     f"wrapper stage copies of its input: "
+                                     f"{staged}")
+            if not all(tel_launches.values()):
+                raise AssertionError(f"the telemetry phase launched "
+                                     f"{tel_launches}: K1 and K2 both "
+                                     f"expected")
+            phases["telemetry"]["launches"] = tel_launches
+            log(f"[path] phase 13: launches {tel_launches}, staged copies "
+                f"{staged}")
+            path_launches = {k: path_launches[k] + tel_launches[k]
+                             for k in path_launches}
 
-        # 15 remote reads, counted on its own; after phase 14, on nodes
-        # linking phase 4's shard set
-        gf_cuda.reset_launches()
-        phases["remote"] = phase_remote(vdir, base, expect, blob, args.seed,
-                                        launches)
-        remote_launches = dict(launches)
-        staged = dict(gf_cuda.STAGED)
+            go_codecs_worker(codecs_proc)
+            # records, outside the counted window
+            phases["fleet_record"] = fleet_record(vdir, srcs)
+            phases["rebuild_record"] = rebuild_record(vdir, base, hashes)
+
+            # 14 store, counted on its own; its appends and deletes go
+            # through hard links of the phase-3 volume
+            gf_cuda.reset_launches()
+            phases["store"] = phase_store(vdir, dat_path, expect, blob,
+                                          args.seed, launches)
+            store_launches = dict(launches)
+            staged = dict(gf_cuda.STAGED)
+            if any(staged.values()):
+                raise AssertionError(f"the store phase made the kernel "
+                                     f"wrapper stage copies of its input: "
+                                     f"{staged}")
+            log(f"[path] phase 14: launches {store_launches}, staged "
+                f"copies {staged}")
+            path_launches = {k: path_launches[k] + store_launches[k]
+                             for k in path_launches}
+
+            # 15 remote reads, counted on its own; after phase 14, on
+            # nodes linking phase 4's shard set
+            gf_cuda.reset_launches()
+            phases["remote"] = phase_remote(vdir, base, expect, blob,
+                                            args.seed, launches)
+            remote_launches = dict(launches)
+            staged = dict(gf_cuda.STAGED)
+            if any(staged.values()):
+                raise AssertionError(f"the remote phase made the kernel "
+                                     f"wrapper stage copies of its input: "
+                                     f"{staged}")
+            log(f"[path] phase 15: launches {remote_launches}, staged "
+                f"copies {staged}")
+            path_launches = {k: path_launches[k] + remote_launches[k]
+                             for k in path_launches}
+
+            phases["codecs"], codec_launches, staged, waited = \
+                join_codecs_worker(codecs_proc)
+        finally:
+            stop_codecs_worker(codecs_proc)
         if any(staged.values()):
-            raise AssertionError(f"the remote phase made the kernel wrapper "
+            raise AssertionError(f"the codecs phase made the kernel wrapper "
                                  f"stage copies of its input: {staged}")
-        log(f"[path] phase 15: launches {remote_launches}, staged copies "
-            f"{staged}")
-        path_launches = {k: path_launches[k] + remote_launches[k]
+        phases["codecs"]["child_wait_s"] = waited
+        log(f"[path] phase 10: launches {codec_launches}, staged copies "
+            f"{staged}; its child ran beside the records and phases 14 "
+            f"and 15, {time.perf_counter() - codecs_proc.t_go:.1f} s from "
+            f"the start signal, {waited:.1f} s of them waited at the join")
+        path_launches = {k: path_launches[k] + codec_launches[k]
                          for k in path_launches}
 
         # 16 volume server, counted on its own
@@ -8584,31 +9279,52 @@ def main(argv=None) -> int:
         path_launches = {k: path_launches[k] + heal_launches[k]
                          for k in path_launches}
 
-        # 23 the port's shell and client over three card servers,
-        # counted on its own
-        gf_cuda.reset_launches()
-        phases["shell"] = phase_shell(
-            vdir, server_src, expect, blob, hashes, aux_hashes,
-            phases["encode_warm"]["launches"],
-            phases["rebuild_warm"]["launches"], args.seed, launches)
-        shell_launches = dict(launches)
-        staged = dict(gf_cuda.STAGED)
-        if any(staged.values()):
-            raise AssertionError(f"the shell phase made the kernel wrapper "
-                                 f"stage copies of its input: {staged}")
-        if not shell_launches["gf_apply"] or \
-                shell_launches["gf_apply_batch"]:
-            raise AssertionError(f"the shell phase launched "
-                                 f"{shell_launches}: K1 and no K2 "
-                                 f"expected")
-        log(f"[path] phase 23: launches {shell_launches}, staged copies "
-            f"{staged}")
-        path_launches = {k: path_launches[k] + shell_launches[k]
-                         for k in path_launches}
+        # 23 the port's shell and client over three card servers in
+        # three racks, then 24 the port's filer on the same cluster,
+        # each counted on its own
+        with ThreeRacks(vdir) as racks:
+            gf_cuda.reset_launches()
+            phases["shell"] = phase_shell(
+                racks, server_src, expect, blob, hashes, aux_hashes,
+                phases["encode_warm"]["launches"],
+                phases["rebuild_warm"]["launches"], args.seed, launches)
+            shell_launches = dict(launches)
+            staged = dict(gf_cuda.STAGED)
+            if any(staged.values()):
+                raise AssertionError(f"the shell phase made the kernel "
+                                     f"wrapper stage copies of its input: "
+                                     f"{staged}")
+            if not shell_launches["gf_apply"] or \
+                    shell_launches["gf_apply_batch"]:
+                raise AssertionError(f"the shell phase launched "
+                                     f"{shell_launches}: K1 and no K2 "
+                                     f"expected")
+            log(f"[path] phase 23: launches {shell_launches}, staged "
+                f"copies {staged}")
+            path_launches = {k: path_launches[k] + shell_launches[k]
+                             for k in path_launches}
+
+            gf_cuda.reset_launches()
+            phases["filer"] = phase_filer(racks, vdir, args.seed, launches)
+            filer_launches = dict(launches)
+            staged = dict(gf_cuda.STAGED)
+            if any(staged.values()):
+                raise AssertionError(f"the filer phase made the kernel "
+                                     f"wrapper stage copies of its input: "
+                                     f"{staged}")
+            if not filer_launches["gf_apply"] or \
+                    filer_launches["gf_apply_batch"]:
+                raise AssertionError(f"the filer phase launched "
+                                     f"{filer_launches}: K1 and no K2 "
+                                     f"expected")
+            log(f"[path] phase 24: launches {filer_launches}, staged "
+                f"copies {staged}")
+            path_launches = {k: path_launches[k] + filer_launches[k]
+                             for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 24 report
+    # 25 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

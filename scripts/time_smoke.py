@@ -9,9 +9,14 @@ after another, stamps every line of its output with the seconds since
 the run started, and splits the run into phases by the tag that opens
 each line (`[build]`, `[encode cold]`, `[server] ...`).  Phases only
 move forward: an untagged line, a `[path]` line, or a tag of an earlier
-phase (phase 10's `[repair lrc [2]]`) belongs to the phase it appears
-in.  A phase's seconds run from the last line of the phase before it to
-its own last line, so the phases add up to the run.  The same rule reads
+phase belongs to the phase it appears in.  Phase 10 runs in a child
+process beside the records and phases 14 and 15, and its lines are
+printed when the parent joins it, after phase 15's: its own seconds
+show in none of the rows, and the parent's wait at the join counts in
+phase 15's.  Phase 3 writes its volume while the kernels build: a wait
+for it counts in phase 1's row.  A
+phase's seconds run from the last line of the phase before it to its
+own last line, so the phases add up to the run.  The same rule reads
 every tree, whatever its script records of its own.  Each run's output
 goes to `<out>/<i>_<name>.log`; one JSON line per run, then a table of
 every phase over the runs, go to stdout.  Exits non-zero if a run did.
@@ -36,13 +41,13 @@ ORDER = ["device", "build", "kernel", "write", "encode", "degraded",
          "rebuild", "fleet", "scrub", "repair", "codecs", "native",
          "writer", "telemetry", "record", "store", "remote", "server",
          "maintenance", "admin", "mesh", "master", "planes", "heal",
-         "shell", "total"]
+         "shell", "filer", "total"]
 NAMES = ["0 start", "1 build", "2 kernel", "3 write", "4 encode",
          "5 degraded", "6 rebuild", "7 fleet", "8 scrub", "9 repair",
          "10 codecs", "11 native", "12 writer", "13 telemetry",
          "13r records", "14 store", "15 remote", "16 server",
          "17 maintenance", "18 admin", "19 mesh", "20 master",
-         "21 planes", "22 heal", "23 shell", "24 report"]
+         "21 planes", "22 heal", "23 shell", "24 filer", "25 report"]
 TAG = re.compile(r"^\[([a-z0-9_-]+)")
 
 

@@ -1,18 +1,21 @@
 """First-use build of the port's native sources into shared libraries.
 
-Three libraries, each built from `csrc/` by its own compiler and loaded
+Four libraries, each built from `csrc/` by its own compiler and loaded
 with ctypes through a plain C interface:
 
   gf_matmul   csrc/gf_matmul.cu  nvcc, sm_90a   the GF(2^8) apply kernel
   crc32c      csrc/crc32c.cc     g++            the needle checksum
   gf_native   csrc/gf_native.cc  g++            the host GF(2^8) codec
                                                 (AVX2; GFNI by CPUID)
+  aes_gcm     csrc/aes_gcm.cc    g++            the chunk cipher
+                                                (AES-NI by CPUID)
 
 A library is built the first time it is loaded, into `build/torch_kernels/`
 at the repository root (git-ignored), under a name keyed by a hash of its
 source and command line, so an edited source rebuilds and a stale library
 is never loaded.  `build()` starts every missing compile at once and waits
-for all of them.  Nothing is built at import time.
+for all of them; `start()` and `finish()` are its halves, for a caller
+with other work to do meanwhile.  Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
 _SOURCES = {"gf_matmul": "gf_matmul.cu", "crc32c": "crc32c.cc",
-            "gf_native": "gf_native.cc"}
+            "gf_native": "gf_native.cc", "aes_gcm": "aes_gcm.cc"}
 
 _I64 = ctypes.c_int64
 _PTR = ctypes.c_void_p
@@ -58,7 +61,20 @@ _SIGNATURES = {
         "wn_gf_set_impl": (None, [ctypes.c_int]),
         "wn_gf_impl": (ctypes.c_int, []),
     },
+    "aes_gcm": {
+        "wn_aes256_gcm_seal": (None, [
+            _PTR, _PTR, _PTR, ctypes.c_size_t,  # key, nonce, aad, aad bytes
+            _PTR, _PTR, ctypes.c_size_t,        # in, out, bytes
+            _PTR]),                             # tag
+        "wn_aes256_gcm_open": (ctypes.c_int, [
+            _PTR, _PTR, _PTR, ctypes.c_size_t,
+            _PTR, _PTR, ctypes.c_size_t, _PTR]),
+    },
 }
+# the g++ libraries' ISA flags on x86-64
+_ISA = {"crc32c": ["-msse4.2"], "gf_native": ["-mavx2", "-mssse3"],
+        "aes_gcm": []}
+
 # called once, under the load lock, right after a library is loaded: the
 # host codec's tables must be built before any thread multiplies
 _INIT = {"gf_native": "wn_gf_init"}
@@ -93,11 +109,12 @@ def _command(name: str, out: str) -> list[str]:
                            f"library")
     # fixed ISA flags, never -march=native: the library's name is keyed by
     # this command line, which must mean the same code on every host.  The
-    # host codec's GFNI path has its own `target` attribute and a CPUID
-    # check, so it needs nothing past AVX2 to load
+    # host codec's GFNI path and the cipher's AES-NI path have their own
+    # `target` attribute and a CPUID check, so the codec needs nothing past
+    # AVX2 to load, and the cipher nothing past the x86-64 baseline
     isa = []
     if platform.machine() in ("x86_64", "AMD64"):
-        isa = ["-msse4.2"] if name == "crc32c" else ["-mavx2", "-mssse3"]
+        isa = _ISA[name]
     return [gxx, "-O3", *isa, "-shared", "-fPIC", "-o", out, src]
 
 
@@ -112,16 +129,37 @@ def build(names=tuple(_SOURCES)) -> dict[str, float]:
     """Build every library in `names` that is not built yet, all compiles
     running at once.  Returns {name: seconds} for the ones it built;
     raises RuntimeError with the compiler's output if any compile fails."""
+    return finish(start(names))
+
+
+def start(names=tuple(_SOURCES)) -> dict:
+    """Start the compile of every library in `names` that is not built
+    yet, all at once, and return without waiting: `finish` waits for
+    them, `stop` ends them."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    todo = []  # every command first: a missing compiler starts nothing
     for name in names:
         target = library_path(name)
-        if target.exists():
-            continue
-        tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
-        procs[name] = (target, tmp, time.perf_counter(), subprocess.Popen(
-            _command(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+        if not target.exists():
+            tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
+            todo.append((name, target, tmp, _command(name, tmp)))
+    return {name: (target, tmp, time.perf_counter(), subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, target, tmp, cmd in todo}
+
+
+def stop(procs: dict) -> None:
+    """End the compiles `start` began and remove what they wrote."""
+    for _, tmp, _, proc in procs.values():
+        proc.kill()
+        proc.communicate()
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def finish(procs: dict) -> dict[str, float]:
+    """Wait for the compiles `start` began; {name: seconds from its start}
+    for each, or RuntimeError with the compiler's output if any failed."""
     took: dict[str, float] = {}
     failed = []
     for name, (target, tmp, t0, proc) in procs.items():

@@ -787,10 +787,52 @@ class VolumeServer:
             return web.json_response({"error": "cookie mismatch"},
                                      status=404)
         if req.query.get("type") != "replicate":
-            err = await self._replicate(fid, "DELETE", None)
+            if self.store.get_volume(fid.volume_id) is None:
+                err = await self._delete_on_ec_peers(fid)
+            else:
+                err = await self._replicate(fid, "DELETE", None)
             if err:
                 return web.json_response({"error": err}, status=500)
         return web.json_response({"size": size})
+
+    async def _delete_on_ec_peers(self, fid: t.FileId) -> str | None:
+        """A needle deleted on an EC volume is tombstoned in every other
+        holder's .ecx too, as the reference's Go store does for the
+        holders of the needle's shards (store_ec_delete.go
+        doDeleteNeedleFromAtLeastOneRemoteEcShards).  Each holder keeps
+        its own .ecx, so a tombstone on this node alone would leave the
+        needle readable through the others; the Python reference tombstones
+        only here (ROADMAP fault 3.11).  Every peer is asked at once; a
+        peer that no longer has the volume answers 404, which is no
+        error."""
+        try:
+            shards = await asyncio.to_thread(self._ec_shard_locations,
+                                             fid.volume_id)
+        except (OSError, ValueError) as e:
+            return f"ec peer lookup failed: {e}"
+        peers = sorted({loc["url"] for locs in shards.values()
+                        for loc in locs} - {self.url})
+        if not peers:
+            return None
+        headers = {}
+        if self.security is not None and self.security.volume_write:
+            headers["Authorization"] = "Bearer " + sjwt.gen_jwt(
+                self.security.volume_write, str(fid))
+
+        async def one(peer: str) -> str | None:
+            try:
+                async with self._session.delete(
+                        f"{tls.scheme()}://{peer}/{fid}?type=replicate",
+                        headers=headers) as r:
+                    if r.status >= 300 and r.status != 404:
+                        return f"ec delete on {peer}: {r.status}"
+            except (aiohttp.ClientError, asyncio.TimeoutError) as e:
+                return f"ec delete on {peer} failed: {e!r}"
+            return None
+
+        with trace.span("volume.ec_delete_peers", peers=len(peers)):
+            results = await asyncio.gather(*(one(p) for p in peers))
+        return next((err for err in results if err), None)
 
     # -- degraded reads: where the shards live --------------------------
 

@@ -127,6 +127,18 @@ def test_import_rule_covers_the_shell_slice():
         assert f"seaweedfs_tpu_torch/{rel}" in files, rel
 
 
+def test_import_rule_covers_the_filer_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("filer/__init__.py", "filer/entry.py", "filer/filechunks.py",
+                "filer/filechunk_section.py", "filer/filechunk_manifest.py",
+                "filer/filerstore.py", "filer/abstract_sql.py",
+                "filer/stores_extra.py", "filer/filer_conf.py",
+                "filer/filer.py", "filer/filer_deletion.py",
+                "utils/chunk_cache.py", "utils/cipher.py", "native.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+    assert (REPO / "seaweedfs_tpu_torch/csrc/aes_gcm.cc").exists()
+
+
 def test_card_path_modules_import_no_server_package():
     """The store, the EC files and the codecs load without aiohttp and
     protobuf: only the server modules import them at module level."""
