@@ -210,8 +210,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                A's shard reader and B's /admin/ec/shard_read (hedging
                off), K1 == needles on lost data shards; (5) A borrows
                B's survivors (/admin/ec/copy), /admin/ec/rebuild (sha256
-               == phase 4's, K1 == phase 6's), mounts, keeps them (the
-               shell's ec.rebuild, which phase 23 drives, deletes them);
+               == phase 4's, K1 == phase 6's), mounts, and keeps them
+               for (6);
                (6) A, which holds every shard, decodes through
                /admin/ec/to_volume, the .dat sha256 ==
                phase 3's, 256 needles read back; (7) 1024 x 1 KiB
@@ -450,7 +450,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                on a lost shard; (7) the LogStore reopened, the same
                `subtree_digest`; K2 0; launches zeroed before and read
                after
- 25 report     {"kernels": [...]} line, the card's name and power limit,
+ 25 filer server  the port's `FilerServer` (ROADMAP 1.20b) on the same
+               cluster, kept up for it: A and B (B sealing its chunks),
+               each on a loop thread of its own with a 512 MiB chunk
+               cache, over one SQLite store, the hot tier on; (1) 256 MiB
+               of files from --seed PUT from 16 threads into collection
+               p25, /p25/plain through A (a quarter of them gzipped
+               text), /p25/enc through B, then a PATCH, a truncate and a
+               move through A; (2) `ec.encode -collection p25`, K1 == the
+               layout's units; (3) data shards 0 and 3 of every p25 EC
+               volume deleted; (4) every file read through A and B in
+               turn, sha256 == its draw, summed `direct` == the distinct
+               chunks (each chunk to the volume tier once), K1 one per
+               such fetch touching a lost data shard; (5) a Range GET
+               and a HEAD of each through the other filer, no fetch, K1
+               0, the master's /cluster/perf `hot_tier` the sum of A's
+               and B's events; (6) `fs.ls`, `fs.du`, `fs.verify` of
+               every /p25/enc file (K1 one per chunk on a lost shard),
+               `fs.meta.save` and `fs.rm -r /p25/plain` through the
+               port's shell, every freed fid 404 on every holder; (7)
+               A's /__meta__/subscribe replays its events in order, the
+               digest equal on A and B and after A's restart, 8 files
+               read cold through the restarted A; K2 0; launches zeroed
+               before and read after
+ 26 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -459,7 +482,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12-23, each on its own, so the reported launches are
+around phases 12-25, each on its own, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -472,7 +495,7 @@ volume taken before phase 14, whose appends go through links of it; phases
 17, 18, 20, 21 and 22 also on links of phase 4's and (17) 10's shard
 sets, 17, 18 and 22 on phase 7's volumes).  Every port master the
 script starts runs with its repair loop off
-(WEEDTPU_REPAIR_INTERVAL=0): phases 16-23 delete shards on purpose, and
+(WEEDTPU_REPAIR_INTERVAL=0): phases 16-25 delete shards on purpose, and
 a planner tick would rebuild them, launching K1 at times no step
 predicts.
 Needs one CUDA card; exits non-zero without one, and outside a checkout
@@ -4586,10 +4609,10 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
              f"{grew['reconstruct_batches']}; K1 {k1['4 degraded']} == "
              f"needles on shards {sorted(lost_data)}")
 
-        # 5 rebuild through the server's handlers: A borrows B's
-        # survivors, rebuilds and mounts.  Unlike the shell's ec.rebuild
-        # (phase 23 drives it) A keeps the borrowed shards, so step 6
-        # need not copy them again
+        # 5 rebuild through A's handlers: A copies B's surviving shards
+        # (/admin/ec/copy, no .ecx), rebuilds the lost ones
+        # (/admin/ec/rebuild) and mounts the set; it keeps the copied
+        # shards, which step 6 decodes from
         k0 = launches["gf_apply"]
         borrowed = [s for s in moved if s not in SERVER_LOSSES]
         admin(a.url, "/admin/ec/copy", {"volume": vid, "source": b.url,
@@ -4614,9 +4637,9 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
              f"4's in {dt:.3f} s ({10 * shard_size / dt / 1e9:.3f} GB/s "
              f"of survivors read); K1 {k1['5 rebuild']} == phase 6's")
 
-        # 6 decode through A's /admin/ec/to_volume (phase 23 drives the
-        # shell's ec.decode): A, holding every shard since step 5,
-        # decodes; every shard then unmounted and deleted on both
+        # 6 decode through A's /admin/ec/to_volume: A, holding every
+        # shard since step 5, writes the .dat and .idx back; every shard
+        # then unmounted and deleted on A and B
         k0 = launches["gf_apply"]
         t0 = time.perf_counter()
         admin(a.url, "/admin/ec/to_volume", {"volume": vid})
@@ -7788,8 +7811,8 @@ SHELL_READ_ONLY = ("volume.list", "cluster.status", "cluster.ps",
 
 
 class ThreeRacks:
-    """Phases 23 and 24's cluster, up from the first one's start to the
-    second one's end: the port's `MasterServer` on a loop thread of its
+    """Phases 23, 24 and 25's cluster, up from the first one's start to
+    the last one's end: the port's `MasterServer` on a loop thread of its
     own (repair loop, aggregator loop and canary off, no vacuum scan)
     and a `VolumeServer` on the card for each of SHELL_NODES, one rack
     each, on another loop thread, beating every 0.5 s, scrubbers and
@@ -8816,6 +8839,641 @@ def phase_filer(racks: ThreeRacks, vdir: str, seed: int,
     return out
 
 
+# phase 25's filer server (ROADMAP 1.20b): two port FilerServers over one
+# SQLite store, reading their chunks from phase 23's card servers.
+FS_COLLECTION = "p25"
+FS_BYTES = 256 * MIB  # the tree's files, from --seed
+FS_MIN_SIZE = 1 << 10
+FS_MAX_SIZE = 32 * MIB
+FS_CACHE_MEM = 512 * MIB  # each filer's: no chunk evicted in the phase
+FS_PATCH = 1 * MIB  # step 1's ranged write into the largest plain file
+FS_LOST = (0, 3)  # step 3's lost data shards of every p25 EC volume
+FS_COLD = 8  # step 7's files read through the restarted A
+FS_THREADS = 16
+
+
+def phase_filer_server(racks: ThreeRacks, vdir: str, seed: int,
+                       launches: dict) -> dict:
+    """Phase 25: the port's filer server (ROADMAP 1.20b) over `racks`,
+    phase 23's three port `VolumeServer`s on the card in three racks
+    behind the port's `MasterServer`, kept up for it.  Two port
+    `FilerServer`s, A and B (B sealing its chunks with the port's
+    cipher), each on a loop thread of its own with a 512 MiB chunk cache
+    and the default 4 MiB chunks, share one SQLite store in the phase's
+    directory; the hot tier is on and both rings hold both filers before
+    step 1.  A has the lower port, so the shell's `find_filer` picks it.
+    Steps: (1) /p25 made through A, then 256 MiB of files from --seed
+    (1 KiB-32 MiB, log-uniform) PUT from 16 threads into collection p25:
+    /p25/plain through A, every fourth of them text/plain over 16
+    letters (gzipped), /p25/enc through B (sealed); a 1 MiB PATCH into
+    the largest binary plain file, the next one truncated to half and
+    /p25/plain/d3 moved to /p25/plain/moved through A, A's deletion
+    queue drained of the chunks they dropped; K1 0; (2) `ec.encode
+    -collection p25` through the port's shell, K1 == the layout's units
+    of the p25 .dat files; (3) data shards 0 and 3 of every p25 EC
+    volume deleted, K1 0; (4) every file read in full from 16 threads,
+    alternating A and B, sha256 == its draw: summed `direct` == the
+    distinct chunks read (the hot tier sends each to the volume tier
+    once), `route_in` and `route_out` > 0, `route_fail` 0, K1 == those
+    fetches whose needle touches a lost data shard; (5) one Range GET
+    per file through the other filer and a HEAD, each equal to the
+    draw's slice and size: `direct` and K1 0, and the master's
+    /cluster/perf `hot_tier` block the sum of A's and B's events with
+    its `hit_ratio` from them; (6) through the port's shell `fs.ls -l
+    /p25/plain`, `fs.du /p25` (the draw's bytes), `fs.verify` of every
+    /p25/enc file (0 missing; its HEADs decode: K1 == the /p25/enc
+    chunks on a lost data shard), `fs.meta.save` of /p25 and `fs.rm -r
+    /p25/plain`: once A's deletion queue drains, every freed fid
+    answers 404 on every holder; (7) A's /__meta__/subscribe from the
+    phase's start replays every create, update, move and delete A made,
+    in order; /__meta__/digest of /p25 equal on A and B; A stopped and
+    started again on the same directory and port: the same digest, and
+    8 /p25/enc files read through it with a cold cache equal to their
+    draws, K1 == their chunks homed on A that touch a lost data shard
+    (those homed on B come from B's cache).  K2 0 throughout."""
+    import hashlib
+
+    import numpy as np
+    from seaweedfs_tpu_torch.filer.filechunk_section import ChunkGroup
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.utils import http, resilience
+
+    card = card_name_power()
+
+    def plog(msg: str) -> None:
+        log(f"[filer-server] {msg} [{card}]")
+
+    work = os.path.join(vdir, "filer_server")
+    os.makedirs(work)
+    data_dir = os.path.join(work, "shared")
+    names, servers = racks.names, racks.servers
+    node_of, master = racks.node_of, racks.master
+    admin, run, split, topo = racks.admin, racks.run, racks.split, racks.topo
+    holder_of = racks.holder_of
+    loops: list = []
+    filers: dict = {}
+    runs: dict = {}
+    pool = None
+    steps: dict = {}
+    counts: dict = {}
+    predicted: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 25)
+
+    def step_counts(name: str, k0: dict, k1: int, t0: float) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        predicted[name] = k1
+        steps.setdefault(name, {})["wall_s"] = time.perf_counter() - t0
+        want = {"gf_apply": k1, "gf_apply_batch": 0}
+        if got != want:
+            raise AssertionError(f"phase 25 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def empty_lrus() -> None:
+        """No server's reconstruction LRU answers a read this step
+        predicts a launch for."""
+        for vs in servers.values():
+            for loc in vs.store.locations:
+                for ev in list(loc.ec_volumes.values()):
+                    with ev._recon_lock:
+                        ev._recon_cache.clear()
+                        ev._recon_cache_bytes = 0
+
+    def events() -> dict:
+        return {n: dict(f.hot_stats) for n, f in filers.items()}
+
+    def delta(before: dict) -> dict:
+        now = events()
+        return {k: sum(now[n][k] - before[n][k] for n in now)
+                for k in now["A"]}
+
+    def call(name: str, path: str, method: str = "GET", body=None,
+             headers=None) -> tuple:
+        return pool.request(f"http://{filers[name].url}{path}", method,
+                            body, headers)
+
+    def members() -> list:
+        return racks.cmd_env.master_get("/cluster/status").get(
+            "Members", {}).get("filer", [])
+
+    def start(name: str, port: int) -> None:
+        if name not in runs:
+            runs[name] = loop_thread(loops)
+        f = FilerServer(master.url, "127.0.0.1", port, data_dir=data_dir,
+                        chunk_cache_mem=FS_CACHE_MEM,
+                        encrypt_data=name == "B")
+        runs[name](f.start())
+        filers[name] = f
+
+    def sync_rings() -> None:
+        want = sorted(f.url for f in filers.values())
+        until(lambda: members() == want,
+              f"the master never listed the filers {want}")
+        for n, f in filers.items():
+            runs[n](f._refresh_hot_ring())
+            if sorted(f.hot_ring.members) != want:
+                raise AssertionError(f"{n}'s ring {f.hot_ring.members}")
+
+    try:
+        # 0 set-up: A on the lower port, B sealing its chunks
+        ports = set()
+        while len(ports) < 2:
+            ports.add(free_port())
+        port_a, port_b = sorted(ports)
+        start("A", port_a)
+        start("B", port_b)
+        sync_rings()
+        pool = http.PooledHTTP(timeout=600.0,
+                               max_idle_per_host=FS_THREADS)
+        A = filers["A"]
+        t_ns = time.time_ns()
+
+        # 1 the tree: /p25 through A; sizes and bytes from the seed, a
+        # file every other one under /p25/enc through B, the rest under
+        # /p25/plain through A (every fourth of those text), in four
+        # directories each
+        t0 = time.perf_counter()
+        k0 = dict(launches)
+        st, _, raw = call("A", "/p25/", "POST", b"")
+        if st != 201:
+            raise AssertionError(f"mkdir /p25: HTTP {st} {raw[:200]!r}")
+        sizes: list = []
+        while sum(sizes) < FS_BYTES:
+            sizes.append(min(int(np.exp(rng.uniform(
+                np.log(FS_MIN_SIZE), np.log(FS_MAX_SIZE)))),
+                FS_BYTES - sum(sizes)))
+        if sizes[-1] < FS_MIN_SIZE:  # the remainder joins the last
+            sizes[-2] += sizes.pop()
+        payload = rng.bytes(FS_BYTES)
+        content: dict = {}  # path -> the file's bytes
+        plan: list = []  # (path, filer, content type)
+        at = 0
+        for i, size in enumerate(sizes):
+            piece = payload[at:at + size]
+            at += size
+            if i % 2:
+                path = f"/p25/enc/d{i // 2 % 4}/f{i:03d}"
+                plan.append((path, "B", "application/octet-stream"))
+            elif i // 2 % 4 == 0:
+                path = f"/p25/plain/d{i // 2 % 4}/f{i:03d}.txt"
+                piece = ((np.frombuffer(piece, np.uint8) & 15) + 97) \
+                    .astype(np.uint8).tobytes()
+                plan.append((path, "A", "text/plain"))
+            else:
+                path = f"/p25/plain/d{i // 2 % 4}/f{i:03d}"
+                plan.append((path, "A", "application/octet-stream"))
+            content[path] = piece
+
+        def put(item) -> None:
+            path, name, ctype = item
+            st, _, raw = call(name, f"{path}?collection={FS_COLLECTION}",
+                              "PUT", content[path],
+                              {"Content-Type": ctype})
+            if st != 201 or json.loads(raw)["size"] != len(content[path]):
+                raise AssertionError(f"PUT {path} through {name}: HTTP "
+                                     f"{st} {raw[:200]!r}")
+        dt_up = fan(put, plan, FS_THREADS)
+        texts = [p for p, _, c in plan if c == "text/plain"]
+        text_chunks = [c for p in texts
+                       for c in A.filer.find_entry(p).chunks]
+        gz = sum(1 for c in text_chunks if c.is_compressed)
+        # the filer gzips a text chunk over 128 B that shrinks by 10 %
+        if not texts or gz != sum(1 for c in text_chunks if c.size > 128):
+            raise AssertionError(f"{gz} gzipped chunks of "
+                                 f"{len(text_chunks)} in {len(texts)} "
+                                 f"text files")
+        plains = sorted((p for p, n, c in plan
+                         if n == "A" and c != "text/plain"),
+                        key=lambda p: (len(content[p]), p))
+        dropped: set = set()
+        # a ranged write into the largest binary plain file
+        pat = plains[-1]
+        before = {c.fid for c in A.filer.find_entry(pat).chunks}
+        off = len(content[pat]) // 3
+        fresh = rng.bytes(min(FS_PATCH, len(content[pat]) - off))
+        st, _, raw = call("A", f"{pat}?offset={off}&collection="
+                          f"{FS_COLLECTION}", "PUT", fresh)
+        if st != 201 or json.loads(raw)["size"] != len(fresh):
+            raise AssertionError(f"PATCH {pat}: HTTP {st} {raw[:200]!r}")
+        content[pat] = content[pat][:off] + fresh + \
+            content[pat][off + len(fresh):]
+        dropped |= before - {c.fid for c in A.filer.find_entry(pat).chunks}
+        # the next one truncated to half
+        cut = plains[-2]
+        before = {c.fid for c in A.filer.find_entry(cut).chunks}
+        half = len(content[cut]) // 2
+        st, _, raw = call("A", f"{cut}?truncate={half}", "POST", b"")
+        if st != 200:
+            raise AssertionError(f"truncate {cut}: HTTP {st} {raw!r}")
+        content[cut] = content[cut][:half]
+        dropped |= before - {c.fid for c in A.filer.find_entry(cut).chunks}
+        # a directory of /p25/plain moved
+        st, _, raw = call("A", "/p25/plain/moved?mv.from=/p25/plain/d3",
+                          "POST", b"")
+        if st != 200:
+            raise AssertionError(f"move /p25/plain/d3: HTTP {st} {raw!r}")
+        moved = {p: "/p25/plain/moved/" + p.rsplit("/", 1)[1]
+                 for p in content if p.startswith("/p25/plain/d3/")}
+        for old, new in moved.items():
+            content[new] = content.pop(old)
+        until(lambda: A.deletion.pending_count() == 0 and
+              A.deletion.deleted_count + A.deletion.error_count >=
+              len(dropped), "A's deletion queue never freed the "
+              "dropped chunks", timeout=60)
+        if A.deletion.error_count or \
+                A.deletion.deleted_count != len(dropped):
+            raise AssertionError(f"A's queue deleted "
+                                 f"{A.deletion.deleted_count} of "
+                                 f"{len(dropped)} dropped chunks, "
+                                 f"{A.deletion.error_count} errors")
+        dt_write = time.perf_counter() - t0
+        step_counts("1 write", k0, 0, t0)
+        written = sum(len(c) for c in content.values())
+        entries = {p: A.filer.find_entry(p) for p in content}
+        n_chunks = len({c.fid for e in entries.values() for c in e.chunks})
+        steps["1 write"].update({
+            "files": len(content), "bytes": written, "chunks": n_chunks,
+            "gzipped": gz, "dropped": len(dropped), "put_s": dt_up,
+            "mbps": written / dt_write / 1e6})
+        plog(f"1 write: {len(content)} files ({FS_MIN_SIZE}-"
+             f"{FS_MAX_SIZE} B log-uniform), {written} B in {n_chunks} "
+             f"chunks PUT from {FS_THREADS} threads at "
+             f"{written / dt_up / 1e6:.1f} MB/s: /p25/plain through A "
+             f"({len(texts)} text files, {gz} chunks gzipped), /p25/enc "
+             f"through B (sealed); {pat} patched at [{off}, "
+             f"{off + len(fresh)}), {cut} truncated to {half} B, "
+             f"/p25/plain/d3 moved to /p25/plain/moved, {len(dropped)} "
+             f"dropped chunks freed by A's queue; "
+             f"{written / dt_write / 1e6:.1f} MB/s for the step; K1 0")
+
+        # 2 ec.encode -collection p25, once a beat reports the sizes
+        def p25_view() -> dict:
+            return {vi["id"]: vi["size"]
+                    for nd in topo()["nodes"].values()
+                    for vi in nd["volume_infos"]
+                    if vi["collection"] == FS_COLLECTION}
+        vols = {vid: servers[holder_of(vid)].store.get_volume(vid)
+                for vid in p25_view()}
+        for vol in vols.values():
+            vol.flush()
+        dat_size = {vid: vol.data_size() for vid, vol in vols.items()}
+        p25 = until(lambda: (lambda seen: seen if seen == dat_size
+                             else None)(p25_view()),
+                    f"no beat reported the p25 sizes {dat_size}")
+        units = {vid: predict_units(p25[vid], layout.LARGE_BLOCK_SIZE,
+                                    layout.SMALL_BLOCK_SIZE)
+                 for vid in p25}
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        run("lock")
+        out2 = run(f"ec.encode -collection {FS_COLLECTION} "
+                   f"-fullPercent 0 -quietFor 0s")
+        run("unlock")
+        dt_enc = time.perf_counter() - t0
+        listed = json.loads(out2.splitlines()[0].split(": ", 1)[1])
+        if listed != sorted(p25):
+            raise AssertionError(f"ec.encode selected {listed}; the "
+                                 f"p25 volumes are {sorted(p25)}")
+        step_counts("2 encode", k0, sum(units.values()), t0)
+        until(lambda: all(sum(map(len, split(vid).values())) == 14
+                          for vid in listed),
+              "the p25 shard sets never reached the master")
+        dat_bytes = sum(p25.values())
+        steps["2 encode"].update({"s": dt_enc, "volumes": listed,
+                                  "dat_bytes": p25, "units": units,
+                                  "mbps": dat_bytes / dt_enc / 1e6})
+        plog(f"2 encode: `ec.encode -collection {FS_COLLECTION}` of "
+             f"volumes {listed} (.dat {[p25[v] for v in listed]} B) in "
+             f"{dt_enc:.3f} s, {dat_bytes / dt_enc / 1e6:.1f} MB/s; K1 "
+             f"{sum(units.values())} == the layout's units")
+
+        # 3 data shards 0 and 3 of every p25 EC volume deleted
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        for vid in listed:
+            for u, shards in split(vid).items():
+                gone = [s for s in FS_LOST if s in shards]
+                if gone:
+                    admin(node_of[u], "/admin/ec/delete_shards",
+                          {"volume": vid, "shards": gone})
+        until(lambda: not any(set(FS_LOST) & set(s) for vid in listed
+                              for s in split(vid).values()),
+              "the master still shows the deleted shards")
+        step_counts("3 loss", k0, 0, t0)
+        plog(f"3 loss: data shards {list(FS_LOST)} of every p25 EC "
+             f"volume deleted where they lived; K1 0")
+
+        # which chunk needles touch a lost data shard, by the layout
+        evs = {vid: next(servers[n].store.get_ec_volume(vid)
+                         for n in names
+                         if servers[n].store.get_ec_volume(vid)
+                         is not None) for vid in listed}
+
+        def touches(fid: str) -> bool:
+            f = t.FileId.parse(fid)
+            return bool(touching_needles(evs[f.volume_id], {f.key: None},
+                                         FS_LOST))
+
+        # 4 every file read in full, alternating A and B
+        tree = sorted(content)
+        listed_tree = []
+        stack = ["/p25"]
+        while stack:
+            for e in A.filer.iter_entries(stack.pop()):
+                (stack if e.is_directory else listed_tree).append(
+                    e.full_path)
+        if sorted(listed_tree) != tree:
+            raise AssertionError(
+                f"the store lists {len(listed_tree)} files, "
+                f"{len(tree)} were written: "
+                f"{sorted(set(listed_tree) ^ set(tree))[:8]}")
+        want_sha = {p: hashlib.sha256(c).hexdigest()
+                    for p, c in content.items()}
+        views = {p: {v.fid for v in ChunkGroup(e.chunks).read_views(
+            0, e.size())} for p, e in entries.items()}
+        needed = set().union(*views.values())
+        touching = {f for f in needed if touches(f)}
+        empty_lrus()
+        resilience.reset_latency_trackers()
+        resilience.reset_breakers()
+        h0 = events()
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+
+        def read(item) -> None:
+            i, path = item
+            name = "AB"[i % 2]
+            st, _, body = call(name, path)
+            if st != 200 or hashlib.sha256(body).hexdigest() != \
+                    want_sha[path]:
+                raise AssertionError(f"GET {path} through {name}: HTTP "
+                                     f"{st}, {len(body)} B differ from "
+                                     f"the draw")
+        dt_read = fan(read, list(enumerate(tree)), FS_THREADS)
+        d4 = delta(h0)
+        if d4["direct"] != len(needed) or not d4["route_in"] or \
+                not d4["route_out"] or d4["route_fail"]:
+            raise AssertionError(f"step 4's hot tier {d4}: "
+                                 f"{len(needed)} distinct chunks read")
+        step_counts("4 degraded", k0, len(touching), t0)
+        steps["4 degraded"].update({
+            "files": len(tree), "chunks": len(needed),
+            "touching": len(touching), "hot": d4, "s": dt_read,
+            "mbps": written / dt_read / 1e6})
+        plog(f"4 degraded: {len(tree)} files read in full through A "
+             f"and B in turn from {FS_THREADS} threads, each sha256 == "
+             f"its draw: {written} B in {dt_read:.3f} s, "
+             f"{written / dt_read / 1e6:.1f} MB/s; hot tier {d4}: "
+             f"direct {d4['direct']} == the {len(needed)} distinct "
+             f"chunks; K1 {len(touching)} == the fetches touching shards "
+             f"{list(FS_LOST)}")
+
+        # 5 one Range GET per file through the other filer, and a HEAD
+        spans = {}
+        for p in tree:
+            n = len(content[p])
+            lo = int(rng.integers(0, n))
+            spans[p] = (lo, int(rng.integers(lo, n)))
+        h0 = events()
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+
+        def ranged(item) -> None:
+            i, path = item
+            name = "BA"[i % 2]
+            lo, hi = spans[path]
+            n = len(content[path])
+            st, hdrs, body = call(name, path,
+                                  headers={"Range": f"bytes={lo}-{hi}"})
+            if st != 206 or body != content[path][lo:hi + 1] or \
+                    hdrs.get("content-range") != f"bytes {lo}-{hi}/{n}":
+                raise AssertionError(f"Range {lo}-{hi} of {path} through "
+                                     f"{name}: HTTP {st} "
+                                     f"{hdrs.get('content-range')}")
+            st, hdrs, _ = call(name, path, "HEAD")
+            md5 = entries[path].attr.md5
+            if st != 200 or hdrs.get("content-length") != str(n) or \
+                    (md5 and hdrs.get("etag") != f'"{md5}"'):
+                raise AssertionError(f"HEAD {path} through {name}: HTTP "
+                                     f"{st} {hdrs}")
+        dt_ranged = fan(ranged, list(enumerate(tree)), FS_THREADS)
+        d5 = delta(h0)
+        if d5["direct"]:
+            raise AssertionError(f"step 5 fetched from the volume tier: "
+                                 f"{d5}")
+        step_counts("5 ranged", k0, 0, t0)
+        st, _, raw = racks.http.request(
+            f"http://{master.url}/cluster/perf")
+        block = json.loads(raw)["hot_tier"] if st == 200 else {}
+        now = events()
+        summed = {k: now["A"][k] + now["B"][k] for k in now["A"]}
+        hits = summed["hit_local"] + summed["route_out"]
+        if block.get("events") != summed or block.get("hit_ratio") != \
+                round(hits / (hits + summed["direct"]), 4):
+            raise AssertionError(f"/cluster/perf's hot_tier {block}; "
+                                 f"A + B {summed}")
+        ranged_bytes = sum(hi - lo + 1 for lo, hi in spans.values())
+        steps["5 ranged"].update({
+            "bytes": ranged_bytes, "hot": d5, "s": dt_ranged,
+            "mbps": ranged_bytes / dt_ranged / 1e6,
+            "hit_ratio": block["hit_ratio"]})
+        plog(f"5 ranged: a Range GET and a HEAD of each file through the "
+             f"other filer, each equal to its draw: {ranged_bytes} B in "
+             f"{dt_ranged:.3f} s, {ranged_bytes / dt_ranged / 1e6:.1f} "
+             f"MB/s; hot tier {d5}; /cluster/perf hot_tier events == A "
+             f"+ B {summed}, hit_ratio {block['hit_ratio']}; K1 0")
+
+        # 6 the shell: listing, usage, verify, a metadata dump, and the
+        # deletion of /p25/plain through A
+        enc = sorted(p for p in tree if p.startswith("/p25/enc/"))
+        enc_touching = {c.fid for p in enc for c in entries[p].chunks
+                        if c.fid in touching}
+        freed = {c.fid for p in tree if p.startswith("/p25/plain/")
+                 for c in entries[p].chunks}
+        holders = {vid: sorted(split(vid)) for vid in listed}
+        if any(len(h) != len(names) for h in holders.values()):
+            raise AssertionError(f"the p25 volumes' holders {holders}")
+        empty_lrus()
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        if racks.cmd_env.find_filer() != A.url:
+            raise AssertionError(f"the shell's filer is "
+                                 f"{racks.cmd_env.find_filer()}, not A")
+        out = run("fs.ls -l /p25/plain")
+        if sorted(line.split()[-1] for line in out.splitlines()) != \
+                ["d0/", "d1/", "d2/", "moved/"]:
+            raise AssertionError(f"fs.ls -l /p25/plain: {out!r}")
+        out = run("fs.du /p25")
+        if out != f"{written} bytes in {len(tree)} file(s) under /p25\n":
+            raise AssertionError(f"fs.du /p25: {out!r}, {written} B in "
+                                 f"{len(tree)} files written")
+        verified = 0
+        for p in enc:
+            out = run(f"fs.verify {p}")
+            n = len(entries[p].chunks)
+            if out != f"fs.verify: {n} chunk(s) ok, 0 missing\n":
+                raise AssertionError(f"fs.verify {p}: {out!r}")
+            verified += n
+        dump = os.path.join(work, "p25.jsonl")
+        out = run(f"fs.meta.save -o {dump} /p25")
+        n_dirs = len({p.rsplit("/", 1)[0] for p in tree} - {"/p25"}) + 2
+        if out != f"fs.meta.save: {len(tree) + n_dirs} entr(ies) -> " \
+                  f"{dump}\n":
+            raise AssertionError(f"fs.meta.save: {out!r}")
+        deleted0 = A.deletion.deleted_count
+        t_rm = time.perf_counter()
+        run("fs.rm -r /p25/plain")
+        until(lambda: A.deletion.pending_count() == 0 and
+              A.deletion.deleted_count + A.deletion.error_count -
+              deleted0 >= len(freed), "A's deletion queue never drained",
+              timeout=120)
+        dt_drain = time.perf_counter() - t_rm
+        if A.deletion.error_count or \
+                A.deletion.deleted_count - deleted0 != len(freed):
+            raise AssertionError(f"A's queue deleted "
+                                 f"{A.deletion.deleted_count - deleted0} "
+                                 f"of {len(freed)} fids, "
+                                 f"{A.deletion.error_count} errors")
+
+        def gone(fid: str) -> None:
+            for u in holders[int(fid.split(",")[0])]:
+                st, _, _ = racks.http.request(f"http://{u}/{fid}")
+                if st != 404:
+                    raise AssertionError(f"freed {fid} answers {st} on "
+                                         f"{node_of[u]}")
+        fan(gone, sorted(freed), FS_THREADS)
+        step_counts("6 shell", k0, len(enc_touching), t0)
+        steps["6 shell"].update({
+            "verified_chunks": verified, "enc_touching": len(enc_touching),
+            "freed": len(freed), "drain_s": dt_drain})
+        plog(f"6 shell: fs.ls -l /p25/plain, fs.du /p25 == {written} B "
+             f"in {len(tree)} files, fs.verify of {len(enc)} /p25/enc "
+             f"files ({verified} chunks ok, 0 missing), fs.meta.save of "
+             f"{len(tree) + n_dirs} entries, fs.rm -r /p25/plain: A's "
+             f"queue freed {len(freed)} fids in {dt_drain:.3f} s, each "
+             f"404 on every holder; K1 {len(enc_touching)} == the "
+             f"/p25/enc chunks on a lost data shard that fs.verify's "
+             f"HEADs decoded")
+
+        # 7 A's feed, the digests, A restarted
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        st, _, raw = call("A", f"/__meta__/subscribe?since={t_ns}"
+                          f"&live=false")
+        feed = [json.loads(line) for line in raw.splitlines() if line]
+        expect = _filer_server_events(plan, pat, cut, moved, tree)
+        got = [((e["old_entry"] or {}).get("full_path"),
+                (e["new_entry"] or {}).get("full_path")) for e in feed]
+        if sorted(got, key=repr) != sorted(expect, key=repr):
+            raise AssertionError(
+                f"A's feed holds {len(got)} events, {len(expect)} "
+                f"expected: {sorted(set(got) ^ set(expect), key=repr)[:6]}")
+        live: set = set()
+        for (old, new), ev in zip(got, feed):
+            if old is not None and old not in live:
+                raise AssertionError(f"the feed {ev['ts_ns']} names "
+                                     f"{old} before its creation")
+            live.discard(old)
+            if new is not None:
+                if old is None and new in live:
+                    raise AssertionError(f"the feed creates {new} twice")
+                live.add(new)
+        if [e["ts_ns"] for e in feed] != sorted(
+                {e["ts_ns"] for e in feed}) or feed[0]["ts_ns"] <= t_ns:
+            raise AssertionError("A's feed is out of order")
+
+        def digest(name: str) -> tuple:
+            st, _, raw = call(name, "/__meta__/digest?prefix=/p25")
+            d = json.loads(raw)
+            return d["digest"], d["entries"]
+        dig = digest("A")
+        if digest("B") != dig:
+            raise AssertionError(f"the digests differ: A {dig}, B "
+                                 f"{digest('B')}")
+        runs["A"](filers.pop("A").stop())
+        start("A", port_a)
+        A = filers["A"]
+        sync_rings()
+        if digest("A") != dig:
+            raise AssertionError(f"A's digest after its restart "
+                                 f"{digest('A')}, before {dig}")
+        cold = sorted(rng.choice(enc, size=min(FS_COLD, len(enc)),
+                                 replace=False).tolist())
+        cold_fids = set().union(*(views[p] for p in cold))
+        homed_a = {f for f in cold_fids if A.hot_ring.home(f) == A.url}
+        cold_touching = homed_a & touching
+        empty_lrus()
+        h0 = events()
+        t_cold = time.perf_counter()
+        for p in cold:
+            st, _, body = call("A", p)
+            if st != 200 or hashlib.sha256(body).hexdigest() != \
+                    want_sha[p]:
+                raise AssertionError(f"GET {p} through the restarted A: "
+                                     f"HTTP {st}, differs from its draw")
+        dt_cold = time.perf_counter() - t_cold
+        cold_bytes = sum(len(content[p]) for p in cold)
+        d7 = delta(h0)
+        if d7["direct"] != len(homed_a) or \
+                filers["B"].hot_stats["direct"] != h0["B"]["direct"]:
+            raise AssertionError(f"step 7's hot tier {d7}: "
+                                 f"{len(homed_a)} of {len(cold_fids)} "
+                                 f"chunks homed on A")
+        step_counts("7 restart", k0, len(cold_touching), t0)
+        steps["7 restart"].update({
+            "events": len(feed), "digest": dig, "cold_files": len(cold),
+            "cold_chunks": len(cold_fids), "homed_a": len(homed_a),
+            "hot": d7, "cold_mbps": cold_bytes / dt_cold / 1e6})
+        plog(f"7 restart: A's feed since the phase's start replays its "
+             f"{len(feed)} creates, updates, moves and deletes in order; "
+             f"/__meta__/digest of /p25 ({dig[1]} entries) equal on A "
+             f"and B, and on A restarted on the same directory; "
+             f"{len(cold)} /p25/enc files read through it cold, each "
+             f"sha256 == its draw, {cold_bytes} B at "
+             f"{cold_bytes / dt_cold / 1e6:.1f} MB/s, {len(homed_a)} of "
+             f"their "
+             f"{len(cold_fids)} chunks fetched from the volume tier "
+             f"(homed on A), the rest from B's cache; K1 "
+             f"{len(cold_touching)} == those on a lost data shard")
+    finally:
+        for name, f in filers.items():
+            runs[name](f.stop())
+        stop_loops(loops)
+        if pool is not None:
+            pool.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "steps": steps, "counts": counts,
+           "predicted": predicted, "s": time.perf_counter() - t_phase}
+    plog(f"launches per step {counts} (K1 predicted {predicted}); phase "
+         f"wall {out['s']:.1f} s")
+    return out
+
+
+def _filer_server_events(plan: list, patched: str, cut: str, moved: dict,
+                         tree: list) -> list:
+    """The (old path, new path) of every meta event phase 25 has A make,
+    by its script: /p25, the directories and files of /p25/plain, the
+    patch and the truncate, the move of /p25/plain/d3 (each child, then
+    the directory), and `fs.rm -r /p25/plain` (every entry under it,
+    then itself)."""
+    ev: list = [(None, "/p25")]
+    plain = [p for p, name, _ in plan if name == "A"]
+    dirs = sorted({p.rsplit("/", 1)[0] for p in plain})
+    ev += [(None, "/p25/plain")] + [(None, d) for d in dirs]
+    ev += [(None, p) for p in plain]
+    ev += [(patched, patched), (cut, cut)]
+    ev += [(old, new) for old, new in moved.items()]
+    ev.append(("/p25/plain/d3", "/p25/plain/moved"))
+    gone = [p for p in tree if p.startswith("/p25/plain/")]
+    gone_dirs = sorted({p.rsplit("/", 1)[0] for p in gone})
+    ev += [(p, None) for p in gone] + [(d, None) for d in gone_dirs]
+    ev.append(("/p25/plain", None))
+    return ev
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9280,8 +9938,8 @@ def main(argv=None) -> int:
                          for k in path_launches}
 
         # 23 the port's shell and client over three card servers in
-        # three racks, then 24 the port's filer on the same cluster,
-        # each counted on its own
+        # three racks, then 24 the port's filer and 25 its filer server
+        # on the same cluster, each counted on its own
         with ThreeRacks(vdir) as racks:
             gf_cuda.reset_launches()
             phases["shell"] = phase_shell(
@@ -9321,10 +9979,29 @@ def main(argv=None) -> int:
                 f"copies {staged}")
             path_launches = {k: path_launches[k] + filer_launches[k]
                              for k in path_launches}
+
+            gf_cuda.reset_launches()
+            phases["filer_server"] = phase_filer_server(
+                racks, vdir, args.seed, launches)
+            fs_launches = dict(launches)
+            staged = dict(gf_cuda.STAGED)
+            if any(staged.values()):
+                raise AssertionError(f"the filer server phase made the "
+                                     f"kernel wrapper stage copies of its "
+                                     f"input: {staged}")
+            if not fs_launches["gf_apply"] or \
+                    fs_launches["gf_apply_batch"]:
+                raise AssertionError(f"the filer server phase launched "
+                                     f"{fs_launches}: K1 and no K2 "
+                                     f"expected")
+            log(f"[path] phase 25: launches {fs_launches}, staged "
+                f"copies {staged}")
+            path_launches = {k: path_launches[k] + fs_launches[k]
+                             for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 25 report
+    # 26 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -7,7 +7,11 @@ Counterpart of `seaweedfs_tpu/__main__.py`, cut to these subcommands:
   python -m seaweedfs_tpu_torch volume -dir /data -mserver host:9333 \\
       -port 8080 [-device cpu]
   python -m seaweedfs_tpu_torch server -dir /data [-volumePort 8080] \\
-      [-device cpu]      # a master and one volume server in one process
+      [-device cpu] [-filer [-filerPort 8888]]
+                         # a master, one volume server (and a filer) in
+                         # one process
+  python -m seaweedfs_tpu_torch filer -master host:9333 [-port 8888] \\
+      [-dir D]           # the filer server, sqlite store in D
   python -m seaweedfs_tpu_torch master.follower -masters host:9333 \\
       [-port 9334]       # read-only lookups, writes proxied to the leader
   python -m seaweedfs_tpu_torch shell -master host:9333 [-c "cmd; cmd"]
@@ -15,16 +19,18 @@ Counterpart of `seaweedfs_tpu/__main__.py`, cut to these subcommands:
   python -m seaweedfs_tpu_torch download -master host:9333 [-dir D] FID...
   python -m seaweedfs_tpu_torch benchmark -master host:9333 [-n N]
 
-The master, the follower, the shell and the client tools have no device
-and load no torch.  A volume server (`volume`, and `server`'s) runs its
-codecs on the card unless `-device cpu` asks for the plain versions;
-without a card and without `-device cpu` it raises.  `-cpuprofile FILE`
+The master, the follower, the filer, the shell and the client tools have
+no device and load no torch.  A volume server (`volume`, and `server`'s)
+runs its codecs on the card unless `-device cpu` asks for the plain
+versions; without a card and without `-device cpu` it raises.  `-cpuprofile FILE`
 writes a cProfile dump when the process stops, `--torch-profile DIR` a
 `torch.profiler` Chrome trace (the reference's `--jax-profile`; it loads
 torch), and SIGUSR1 dumps every thread's stack
-(utils/grace.py).  `server`'s `-filer`, `-s3`, `-webdav` and `-mq` come
-with ROADMAP 1.20-1.22, and `fix`, `compact`, `export`, `backup`,
-`scaffold`, `version`, `autocomplete` and `certs` with 1.19c.
+(utils/grace.py).  `filer`'s `-notification.log` and
+`-notification.webhook` come with ROADMAP 1.22a, `server`'s `-s3`,
+`-webdav` and `-mq` with 1.21-1.22, the `s3`, `iam`, `webdav`, `mount`
+and `mq.broker` subcommands with them, and `fix`, `compact`, `export`,
+`backup`, `scaffold`, `version`, `autocomplete` and `certs` with 1.19c.
 """
 
 from __future__ import annotations
@@ -107,8 +113,8 @@ async def _run_master(args) -> int:
 
 
 async def _run_server(args) -> int:
-    """A master and one volume server in one process (reference:
-    `_run_server`, cut to those two)."""
+    """A master, one volume server and with `-filer` a filer in one
+    process (reference: `_run_server`, cut to those three)."""
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     security = _security(args)
     m = _master(args, security)
@@ -118,9 +124,32 @@ async def _run_server(args) -> int:
                      data_center=args.dataCenter, rack=args.rack,
                      security=security, device=args.device)
     await v.start()
+    f = None
+    if args.filer:
+        from seaweedfs_tpu_torch.server.filer_server import FilerServer
+        f = FilerServer(m.url, args.ip, args.filerPort, data_dir=args.dir[0],
+                        security=security)
+        await f.start()
     await _serve_forever()
+    if f is not None:
+        await f.stop()
     await v.stop()
     await m.stop()
+    return 0
+
+
+async def _run_filer(args) -> int:
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    f = FilerServer(args.master, args.ip, args.port, data_dir=args.dir,
+                    collection=args.collection,
+                    replication=args.defaultReplication,
+                    chunk_size=args.maxMB << 20, security=_security(args),
+                    encrypt_data=args.encryptVolumeData,
+                    chunk_cache_disk=args.cacheCapacityMB << 20,
+                    store_kind=args.store, aggregate_peers=args.filerPeers)
+    await f.start()
+    await _serve_forever()
+    await f.stop()
     return 0
 
 
@@ -249,7 +278,31 @@ def main(argv=None) -> int:
     _add_master_flags(ps)
     _add_volume_flags(ps, with_master=False)
     ps.add_argument("-volumePort", type=int, default=8080)
+    ps.add_argument("-filer", action="store_true",
+                    help="also run a filer (in-proc, sqlite store in -dir)")
+    ps.add_argument("-filerPort", type=int, default=8888)
     _add_common_flags(ps)
+    pf = sub.add_parser("filer")
+    pf.add_argument("-ip", default="127.0.0.1")
+    pf.add_argument("-port", type=int, default=8888)
+    pf.add_argument("-master", default="127.0.0.1:9333")
+    pf.add_argument("-dir", default=None,
+                    help="metadata dir (sqlite store); omit for in-memory")
+    pf.add_argument("-collection", default="")
+    pf.add_argument("-defaultReplication", default="")
+    pf.add_argument("-maxMB", type=int, default=4)
+    pf.add_argument("-peers", dest="filerPeers", action="store_true",
+                    help="aggregate meta events from peer filers into this "
+                         "filer's subscribe feed (meta_aggregator.go)")
+    pf.add_argument("-store", default=None,
+                    help="filer store driver (memory|sqlite|logstore|redis|"
+                         "postgres|mysql; "
+                         "default sqlite with -dir, memory without)")
+    pf.add_argument("-encryptVolumeData", action="store_true",
+                    help="AES-256-GCM encrypt chunks (cipher key in meta)")
+    pf.add_argument("-cacheCapacityMB", type=int, default=0,
+                    help="on-disk chunk cache size (0 = memory-only)")
+    _add_common_flags(pf)
 
     pmf = sub.add_parser(
         "master.follower",
@@ -298,7 +351,8 @@ def main(argv=None) -> int:
         _security(args)
         return sync[args.cmd](args)
     run = {"master": _run_master, "volume": _run_volume,
-           "server": _run_server, "master.follower": _run_follower}[args.cmd]
+           "server": _run_server, "filer": _run_filer,
+           "master.follower": _run_follower}[args.cmd]
     return asyncio.run(run(args))
 
 

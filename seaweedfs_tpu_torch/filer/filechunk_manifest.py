@@ -1,7 +1,6 @@
 """Chunk manifests: batch many chunk refs into a stored blob.
 
-Counterpart of `seaweedfs_tpu/filer/filechunk_manifest.py`, cut to what
-the port calls (`has_chunk_manifest` comes with the filer server); the
+Counterpart of `seaweedfs_tpu/filer/filechunk_manifest.py`, whole; the
 manifest payload is byte-equal to the reference's.
 
 Huge files would otherwise carry 100k+ chunk refs in their metadata row;
@@ -23,6 +22,10 @@ MANIFEST_BATCH = 10000
 
 SaveFunc = Callable[[bytes], FileChunk]   # bytes -> stored chunk ref
 ReadFunc = Callable[[str], bytes]         # fid -> chunk bytes
+
+
+def has_chunk_manifest(chunks: list[FileChunk]) -> bool:
+    return any(c.is_chunk_manifest for c in chunks)
 
 
 def maybe_manifestize(save: SaveFunc, chunks: list[FileChunk],

@@ -1,8 +1,6 @@
 """Chunk interval resolution: overlapping chunk lists -> visible intervals.
 
-Counterpart of `seaweedfs_tpu/filer/filechunks.py`, cut to what the
-port calls (`total_size` and `file_size_from_visibles` come with the
-filer server).
+Counterpart of `seaweedfs_tpu/filer/filechunks.py`, whole.
 
 A file is an append-ordered list of FileChunk refs; random-offset writes
 produce overlapping chunks where the later `mtime` wins (MVCC-ish — the
@@ -93,6 +91,14 @@ def _merge_into_visibles(visibles: list[VisibleInterval],
     out.append(new)
     out.sort(key=lambda v: v.start)
     return out
+
+
+def total_size(chunks: list[FileChunk]) -> int:
+    return max((c.offset + c.size for c in chunks), default=0)
+
+
+def file_size_from_visibles(visibles: list[VisibleInterval]) -> int:
+    return visibles[-1].stop if visibles else 0
 
 
 def view_from_chunks(chunks: list[FileChunk], offset: int,

@@ -9,12 +9,12 @@ records appended to an in-memory ring plus an optional on-disk JSONL log,
 each with a monotonically increasing ns timestamp usable as a resume
 offset — the same contract filer.sync relies on in the reference.
 
-Counterpart of `seaweedfs_tpu/filer/filer.py`, cut to what the port
-calls: the event format (`MetaEvent.to_dict`, `signatures` included) and
-the log file are the reference's, so a log written by either package
-replays in the other.  What only the filer server and filer.sync set
-comes with them: the `signatures` keywords of the mutations, and the
-log's listeners, `head_ts` and `backlog_count`.
+Counterpart of `seaweedfs_tpu/filer/filer.py`, whole: the event format
+(`MetaEvent.to_dict`, `signatures` included) and the log file are the
+reference's, so a log written by either package replays in the other.
+The filer server sets the mutations' `signatures`, fans events out
+through the log's listeners (`subscribe`) and answers /__meta__/digest
+from `head_ts` and `backlog_count`.
 """
 
 from __future__ import annotations
@@ -108,6 +108,7 @@ class MetaLog:
         self._lock = threading.Lock()
         self._last_ts = 0
         self._file = open(path, "a", encoding="utf-8") if path else None
+        self.listeners: list[Callable[[MetaEvent], None]] = []
 
     def next_ts(self) -> int:
         with self._lock:
@@ -124,6 +125,21 @@ class MetaLog:
                 self._file.write(json.dumps(ev.to_dict(),
                                             separators=(",", ":")) + "\n")
                 self._file.flush()
+            listeners = list(self.listeners)
+        for fn in listeners:
+            try:
+                fn(ev)
+            except Exception:
+                pass
+
+    def subscribe(self, fn: Callable[[MetaEvent], None]) -> None:
+        with self._lock:
+            self.listeners.append(fn)
+
+    def unsubscribe(self, fn: Callable[[MetaEvent], None]) -> None:
+        with self._lock:
+            if fn in self.listeners:
+                self.listeners.remove(fn)
 
     def replay(self, since_ts_ns: int = 0,
                prefix: str = "/") -> Iterator[MetaEvent]:
@@ -150,6 +166,23 @@ class MetaLog:
             if event_matches_prefix(ev, prefix):
                 yield ev
 
+    def head_ts(self) -> int:
+        """ts_ns of the newest event ever logged (0 when none) — the
+        sync pump differences this against its resume offset for
+        backlog depth."""
+        with self._lock:
+            return self._last_ts
+
+    def backlog_count(self, since_ts_ns: int, prefix: str = "/") -> int:
+        """Events newer than the offset still in the ring that match the
+        prefix.  O(ring); the ring is bounded (default 8192) so this is
+        cheap enough for the pump's periodic backlog polls."""
+        with self._lock:
+            ring_events = list(self.ring)
+        return sum(1 for ev in ring_events
+                   if ev.ts_ns > since_ts_ns
+                   and event_matches_prefix(ev, prefix))
+
     def close(self) -> None:
         if self._file:
             self._file.close()
@@ -169,21 +202,24 @@ class Filer:
     # -- events --------------------------------------------------------
 
     def _notify(self, old: Entry | None, new: Entry | None,
-                new_parent: str = "") -> None:
+                new_parent: str = "", signatures: list[int] | None = None
+                ) -> None:
         directory = (new or old).directory if (new or old) else "/"
         self.meta_log.append(MetaEvent(
-            self.meta_log.next_ts(), directory, old, new, new_parent))
+            self.meta_log.next_ts(), directory, old, new, new_parent,
+            signatures))
 
     # -- core CRUD -----------------------------------------------------
 
     def create_entry(self, entry: Entry, o_excl: bool = False,
-                     mkdirs: bool = True) -> Entry:
+                     mkdirs: bool = True,
+                     signatures: list[int] | None = None) -> Entry:
         """Insert or replace an entry; creates missing parent directories
         (reference: filer.go CreateEntry + ensureParentDirectoryEntry)."""
         with self._lock:
             if mkdirs:
                 for d in parent_directories(entry.full_path):
-                    self._ensure_directory(d)
+                    self._ensure_directory(d, signatures=signatures)
             old = None
             try:
                 old = self.store.find_entry(entry.full_path)
@@ -210,10 +246,11 @@ class Filer:
                 garbage = filechunks.minus_chunks(old.chunks, entry.chunks)
                 if garbage:
                     self.on_delete_chunks(garbage)
-            self._notify(old, entry)
+            self._notify(old, entry, signatures=signatures)
             return entry
 
-    def _ensure_directory(self, dir_path: str) -> None:
+    def _ensure_directory(self, dir_path: str,
+                          signatures: list[int] | None = None) -> None:
         if dir_path == "/":
             return
         try:
@@ -225,7 +262,9 @@ class Filer:
             pass
         d = new_directory_entry(dir_path)
         self.store.insert_entry(d)
-        self._notify(None, d)
+        # parent auto-creates inherit the caller's signatures so replicated
+        # writes don't echo their mkdir legs back to the origin
+        self._notify(None, d, signatures=signatures)
 
     def find_entry(self, full_path: str) -> Entry:
         full_path = full_path.rstrip("/") or "/"
@@ -330,7 +369,8 @@ class Filer:
 
     def delete_entry(self, full_path: str, recursive: bool = False,
                      ignore_recursive_error: bool = False,
-                     delete_chunks: bool = True) -> None:
+                     delete_chunks: bool = True,
+                     signatures: list[int] | None = None) -> None:
         """Delete one entry; directories require recursive=True when
         non-empty. Collected chunk fids flow to on_delete_chunks
         (reference: filer_delete_entry.go)."""
@@ -356,7 +396,7 @@ class Filer:
                 self.store.delete_entry(full_path, hard_link_id="")
             if delete_chunks and chunks:
                 self.on_delete_chunks(chunks)
-            self._notify(entry, None)
+            self._notify(entry, None, signatures=signatures)
 
     def _collect_subtree(self, dir_path: str,
                          chunks: list[FileChunk]) -> None:
@@ -376,7 +416,8 @@ class Filer:
 
     # -- hardlinks (filer_hardlink.go + weedfs_link.go semantics) -------
 
-    def link_entry(self, old_path: str, new_path: str) -> Entry:
+    def link_entry(self, old_path: str, new_path: str,
+                   signatures: list[int] | None = None) -> Entry:
         """Create `new_path` as an additional name for the file at
         `old_path`.  First link converts the file to hardlink mode: its
         attrs+chunks move into a store-KV blob keyed by a fresh random
@@ -393,20 +434,20 @@ class Filer:
             # parents first: a NotADirectoryError here must not leave the
             # group over-counted
             for d in parent_directories(new_path):
-                self._ensure_directory(d)
+                self._ensure_directory(d, signatures=signatures)
             before = Entry.from_dict(entry.to_dict())
             if not entry.hard_link_id:
                 entry.hard_link_id = secrets.token_hex(16)
                 entry.hard_link_counter = 1
             entry.hard_link_counter += 1
             self.store.update_entry(entry)  # rewrites row + shared blob
-            self._notify(before, entry)
+            self._notify(before, entry, signatures=signatures)
             # POSIX link(2): the file's mtime is untouched (only ctime
             # changes) — the new name carries the same attrs verbatim
             link = Entry.from_dict(entry.to_dict())
             link.full_path = new_path
             self.store.insert_entry(link)
-            self._notify(None, link)
+            self._notify(None, link, signatures=signatures)
             return link
 
     # -- rename (atomic within this filer) -----------------------------

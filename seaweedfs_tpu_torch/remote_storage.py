@@ -4,8 +4,10 @@ Counterpart of `seaweedfs_tpu/remote_storage.py` (reference:
 weed/remote_storage/ — s3/gcs/azure clients behind RemoteStorageClient,
 traverse_bfs.go), cut to what `Volume.tier_move` and `tier_download`
 call: the SPI and its local-directory client, an rclone-style adapter
-that stands in for a bucket.  The S3, GCS and Azure clients, the filer
-mount and `parse_remote_spec` come with replication (ROADMAP 1.22).
+that stands in for a bucket, and `parse_remote_spec`, which the filer
+server's remote mounts read.  The S3, GCS and Azure clients and the
+filer mount's sync come with replication (ROADMAP 1.22): until then
+`make_remote` knows `local` only.
 """
 
 from __future__ import annotations
@@ -112,6 +114,25 @@ class LocalDirRemote(RemoteStorageClient):
 
 
 REMOTES = {"local": LocalDirRemote}
+
+
+def parse_remote_spec(spec: str) -> tuple[str, dict]:
+    """Shell-facing remote spec:
+      local:/cold-dir
+      s3:endpoint=127.0.0.1:8333,bucket=tier,access_key=K,secret_key=S
+    (the reference keeps these in remote.conf; the spec string carries the
+    same fields inline)."""
+    kind, _, opt = spec.partition(":")
+    kind = kind or "local"
+    if kind == "local":
+        return kind, ({"directory": opt} if opt else {})
+    options: dict = {}
+    for pair in opt.split(","):
+        if not pair:
+            continue
+        k, _, v = pair.partition("=")
+        options[k.strip()] = v.strip()
+    return kind, options
 
 
 def make_remote(kind: str, **options) -> RemoteStorageClient:

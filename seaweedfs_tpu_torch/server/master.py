@@ -1046,9 +1046,9 @@ class MasterServer:
     def collect_perf(self) -> dict:
         """Every node's /perf payload (and this master's own) merged into
         fleet occupancy per (kind, stage), the worst bottleneck per
-        kind, the fleet's roofline rows and worst offenders, and the EC
-        volumes' codec mix from the beats.  The reference's hot-tier
-        block comes from live filers, of which the port has none yet."""
+        kind, the fleet's roofline rows and worst offenders, the live
+        filers' hot tier (`collect_hot_tier`) and the EC volumes' codec
+        mix from the beats."""
         per_node: list[tuple[str, dict]] = [
             (self.url, pipeline.local_snapshot())]
         errors: dict[str, str] = {}
@@ -1074,6 +1074,9 @@ class MasterServer:
         rows.sort(key=lambda r: -r.get("busy_s", 0.0))
         out["roofline"] = rows
         out["offenders"] = pipeline.roofline_offenders({"rows": rows})
+        hot = self.collect_hot_tier()
+        if hot:
+            out["hot_tier"] = hot
         with self.topo._lock:
             ec_vids = {vid for n in self.topo.nodes.values()
                        for vid, s in n.ec_shards.items() if s}
@@ -1084,6 +1087,50 @@ class MasterServer:
         for tag in per_vol.values():
             mix[tag] = mix.get(tag, 0) + 1
         out["codecs"] = {"volumes": per_vol, "mix": mix}
+        if errors:
+            out["node_errors"] = errors
+        return out
+
+    def collect_hot_tier(self) -> dict:
+        """Pull every live filer's /__hot__/status and fold the event
+        ledgers into one fleet view: per-node rows plus summed events and
+        the tier-wide hit ratio ((local hits + routed hits) / all chunk
+        demands)."""
+        horizon = time.time() - 30.0
+        filers = sorted(a for a, ts in
+                        self.cluster_members.get("filer", {}).items()
+                        if ts > horizon)
+        if not filers:
+            return {}
+
+        def pull(netloc):
+            try:
+                status, _, body = self.aggregator.pool.request(
+                    f"{tls.scheme()}://{netloc}/__hot__/status",
+                    timeout=5.0)
+                if status != 200:
+                    return netloc, None, f"HTTP {status}"
+                return netloc, json.loads(body), None
+            except Exception as e:
+                return netloc, None, str(e) or type(e).__name__
+
+        with concurrent.futures.ThreadPoolExecutor(
+                fanout.workers(len(filers)), "hot-pull") as ex:
+            pulled = list(ex.map(pull, filers))
+        nodes: list[dict] = []
+        events: dict[str, int] = {}
+        errors: dict[str, str] = {}
+        for netloc, payload, err in pulled:
+            if err is not None:
+                errors[netloc] = err
+                continue
+            nodes.append(payload)
+            for k, v in (payload.get("events") or {}).items():
+                events[k] = events.get(k, 0) + int(v)
+        hits = events.get("hit_local", 0) + events.get("route_out", 0)
+        demands = hits + events.get("direct", 0)
+        out = {"nodes": nodes, "events": events,
+               "hit_ratio": round(hits / demands, 4) if demands else None}
         if errors:
             out["node_errors"] = errors
         return out

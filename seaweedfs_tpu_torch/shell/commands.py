@@ -1,15 +1,17 @@
 """Admin shell command environment + commands.
 
 Counterpart of `seaweedfs_tpu/shell/commands.py`, cut to the commands
-that need no filer, S3 gateway, remote store or message queue: `help`,
-`lock`, `unlock`, the `volume.*` commands but `volume.tier.*`, the
-`collection.*`, `ec.*` and `cluster.*` commands but `cluster.geo`,
-`maintenance.status` and `chaos.status`.  `volume.fsck` lists a filer's
-tree, so it needs a filer member until one is ported.  The `fs.*`,
+that need no S3 gateway, remote store or message queue (71 of the
+reference's 95): `help`, `lock`, `unlock`, the `volume.*` commands but
+`volume.tier.*`, the `collection.*`, `ec.*` and `cluster.*` commands
+but `cluster.geo`, `maintenance.status`, `chaos.status`, and the 18
+`fs.*` commands, which drive the first filer registered with the master
+over its HTTP API (`volume.fsck` lists that filer's tree too).  The
 `s3.*`, `remote.*` and `mq.*` commands, `mount.configure`,
-`volume.tier.*` and `cluster.geo` come with ROADMAP 1.19b and 1.22, so
+`volume.tier.*` and `cluster.geo` come with ROADMAP 1.21a-1.22b, so
 `help` and the unknown-command error list fewer names than the
-reference's.
+reference's.  `fs.meta.notify` needs a filer started with a
+notification queue, which the port's CLI offers from 1.22a.
 
 The shell drives the cluster purely over the master/volume-server HTTP
 APIs, holding the master's exclusive admin lock while mutating — same
@@ -1619,6 +1621,88 @@ def cmd_collection_delete(env: CommandEnv, args, out):
           file=out)
 
 
+# ---- filesystem commands over the filer (reference:
+# weed/shell/command_fs_*.go)
+
+
+@command("fs.ls")
+def cmd_fs_ls(env: CommandEnv, args, out):
+    flags = parse_flags(args)
+    path = env.resolve(
+        (args and not args[-1].startswith("-") and args[-1]) or ".")
+    long = "l" in flags or "long" in flags
+    filer = env.find_filer()
+    for e in env.filer_list(filer, path):
+        name = e["FullPath"].rsplit("/", 1)[-1]
+        if e.get("IsDirectory"):
+            name += "/"
+        if long:
+            print(f"{e.get('FileSize', 0):>12} {name}", file=out)
+        else:
+            print(name, file=out)
+
+
+@command("fs.cat")
+def cmd_fs_cat(env: CommandEnv, args, out):
+    path = env.resolve(args[-1])
+    filer = env.find_filer()
+    data = env.filer_read(filer, path)
+    out.write(data.decode(errors="replace"))
+
+
+@command("fs.rm")
+def cmd_fs_rm(env: CommandEnv, args, out):
+    flags = parse_flags(args)
+    path = env.resolve(args[-1])
+    filer = env.find_filer()
+    env.filer_delete(filer, path, recursive="r" in flags or "rf" in flags)
+    print(f"removed {path}", file=out)
+
+
+@command("fs.mkdir")
+def cmd_fs_mkdir(env: CommandEnv, args, out):
+    path = env.resolve(args[-1]).rstrip("/") + "/"
+    filer = env.find_filer()
+    env._call(f"{filer}{urllib.parse.quote(path)}", {}, method="POST")
+    print(f"created {path}", file=out)
+
+
+@command("fs.mv")
+def cmd_fs_mv(env: CommandEnv, args, out):
+    src, dst = env.resolve(args[-2]), env.resolve(args[-1])
+    filer = env.find_filer()
+    env._call(f"{filer}{urllib.parse.quote(dst)}?mv.from="
+              f"{urllib.parse.quote(src)}", {}, method="POST")
+    print(f"moved {src} -> {dst}", file=out)
+
+
+@command("fs.du")
+def cmd_fs_du(env: CommandEnv, args, out):
+    path = env.resolve(
+        (args and not args[-1].startswith("-") and args[-1]) or ".")
+    filer = env.find_filer()
+    total = [0]
+    files = [0]
+
+    def walk(d):
+        for e in env.filer_list(filer, d):
+            if e.get("IsDirectory"):
+                walk(e["FullPath"])
+            else:
+                total[0] += e.get("FileSize", 0)
+                files[0] += 1
+    walk(path.rstrip("/") or "/")
+    print(f"{total[0]} bytes in {files[0]} file(s) under {path}", file=out)
+
+
+@command("fs.meta.cat")
+def cmd_fs_meta_cat(env: CommandEnv, args, out):
+    path = env.resolve(args[-1])
+    filer = env.find_filer()
+    meta = env._call(f"{filer}{urllib.parse.quote(path)}?metadata=true")
+    print(json.dumps(meta, indent=2, default=str), file=out)
+
+
 @command("volume.grow")
 def cmd_volume_grow(env: CommandEnv, args, out):
     """Pre-allocate writable volumes (reference: command_volume_grow /
@@ -1674,6 +1758,79 @@ def cmd_volume_unmount(env: CommandEnv, args, out):
         node = locs[0]
     env.vs_post(node, "/admin/volume/unmount", {"volume": vid})
     print(f"unmounted volume {vid} on {node}", file=out)
+
+
+@command("fs.tree")
+def cmd_fs_tree(env: CommandEnv, args, out):
+    """Recursive directory tree (reference: command_fs_tree.go)."""
+    path = (args and not args[-1].startswith("-") and args[-1]) or "/"
+    filer = env.find_filer()
+
+    def walk(d, depth):
+        for e in env.filer_list(filer, d):
+            name = e["FullPath"].rsplit("/", 1)[-1]
+            print("  " * depth + ("+" if e.get("IsDirectory") else "-")
+                  + " " + name, file=out)
+            if e.get("IsDirectory"):
+                walk(e["FullPath"], depth + 1)
+    print(path, file=out)
+    walk(path.rstrip("/") or "/", 1)
+
+
+@command("fs.meta.save")
+def cmd_fs_meta_save(env: CommandEnv, args, out):
+    """Dump a filer subtree's metadata (entries incl. chunk refs) to a
+    local JSONL file (reference: command_fs_meta_save.go).
+      fs.meta.save -o meta.jsonl [/path]"""
+    flags = parse_flags(args)
+    # first token that is neither a flag nor a flag's value is the path
+    path = flags.get("path", "/")
+    skip_next = False
+    for tok in args:
+        if skip_next:
+            skip_next = False
+            continue
+        if tok.startswith("-"):
+            skip_next = "=" not in tok
+            continue
+        path = tok
+        break
+    out_path = flags.get("o", "filer_meta.jsonl")
+    filer = env.find_filer()
+    count = 0
+    with open(out_path, "w", encoding="utf-8") as f:
+        stack = [path.rstrip("/") or "/"]
+        while stack:
+            d = stack.pop()
+            for e in env.filer_list(filer, d):
+                if e.get("IsDirectory"):
+                    stack.append(e["FullPath"])
+                meta = env._call(
+                    f"{filer}{urllib.parse.quote(e['FullPath'])}"
+                    "?metadata=true")
+                f.write(json.dumps(meta, separators=(",", ":")) + "\n")
+                count += 1
+    print(f"fs.meta.save: {count} entr(ies) -> {out_path}", file=out)
+
+
+@command("fs.meta.load")
+def cmd_fs_meta_load(env: CommandEnv, args, out):
+    """Restore entries from an fs.meta.save dump via the filer raw-entry
+    API (reference: command_fs_meta_load.go).  Chunk refs are restored
+    as-is — blob data must still exist on the volume servers."""
+    flags = parse_flags(args)
+    in_path = flags.get("i", args[-1] if args else "filer_meta.jsonl")
+    filer = env.find_filer()
+    count = 0
+    with open(in_path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            entry = json.loads(line)
+            env._call(f"{filer}/__admin__/entry", {"entry": entry})
+            count += 1
+    print(f"fs.meta.load: {count} entr(ies) restored", file=out)
 
 
 @command("volume.configure.replication")
@@ -1812,6 +1969,107 @@ def cmd_cluster_check(env: CommandEnv, args, out):
                 print(f"{kind:6s} {m:24s} ok", file=out)
             except RuntimeError as e:
                 print(f"{kind:6s} {m:24s} UNREACHABLE: {e}", file=out)
+
+
+@command("fs.pwd")
+def cmd_fs_pwd(env: CommandEnv, args, out):
+    """Print the shell's filer working directory."""
+    print(env.cwd, file=out)
+
+
+@command("fs.cd")
+def cmd_fs_cd(env: CommandEnv, args, out):
+    """Change the shell's filer working directory: fs.cd /buckets"""
+    target = env.resolve(args[0] if args else "/")
+    filer = env.find_filer()
+    if target != "/":
+        env.filer_list(filer, target)  # raises if missing
+    env.cwd = target
+    print(env.cwd, file=out)
+
+
+@command("fs.cp")
+def cmd_fs_cp(env: CommandEnv, args, out):
+    """Copy one filer file: fs.cp /src/path /dst/path."""
+    if len(args) < 2:
+        raise RuntimeError("fs.cp needs <src> <dst>")
+    src, dst = env.resolve(args[0]), env.resolve(args[1])
+    filer = env.find_filer()
+    data = env.filer_read(filer, src)
+    req = urllib.request.Request(
+        f"{_tls_scheme()}://{filer}{urllib.parse.quote(dst)}",
+        data=data, method="PUT")
+    with urllib.request.urlopen(req, timeout=600):
+        pass
+    print(f"copied {src} -> {dst} ({len(data)} bytes)", file=out)
+
+
+@command("fs.verify")
+def cmd_fs_verify(env: CommandEnv, args, out):
+    """Verify every chunk of a file (or tree) is readable on its volume
+    server (reference: command_fs_verify)."""
+    path = env.resolve(args[0] if args and not args[0].startswith("-")
+                       else ".")
+    filer = env.find_filer()
+
+    def chunks_of(p):
+        with urllib.request.urlopen(
+                f"{_tls_scheme()}://{filer}{urllib.parse.quote(p)}"
+                "?metadata=true&resolveManifest=true", timeout=60) as r:
+            meta = json.loads(r.read())
+        return meta.get("chunks") or []
+
+    bad = ok = 0
+    for ck in chunks_of(path):
+        fid = ck.get("fid", "")
+        vid = fid.split(",")[0]
+        locs = env.volume_locations(int(vid)) if vid.isdigit() else []
+        readable = False
+        for url in locs:
+            try:
+                req = urllib.request.Request(
+                    f"{_tls_scheme()}://{url}/{fid}", method="HEAD")
+                with urllib.request.urlopen(req, timeout=30):
+                    readable = True
+                    break
+            except Exception:
+                continue
+        if readable:
+            ok += 1
+        else:
+            bad += 1
+            print(f"  missing chunk {fid} ({path})", file=out)
+    print(f"fs.verify: {ok} chunk(s) ok, {bad} missing", file=out)
+
+
+@command("fs.configure")
+def cmd_fs_configure(env: CommandEnv, args, out):
+    """Show or set per-path filer rules (reference: command_fs_configure +
+    filer.conf): fs.configure [-locationPrefix /p -collection c
+    -replication 010 -ttl 1d -readOnly true -apply]"""
+    flags = parse_flags(args)
+    filer = env.find_filer()
+    conf = env.master_get_raw(filer, "/__admin__/filer_conf")
+    if not flags.get("locationPrefix"):
+        print(json.dumps(conf, indent=2), file=out)
+        return
+    rule = {"location_prefix": flags["locationPrefix"]}
+    for src, dst in (("collection", "collection"),
+                     ("replication", "replication"), ("ttl", "ttl")):
+        if flags.get(src):
+            rule[dst] = flags[src]
+    if flags.get("readOnly"):
+        rule["read_only"] = flags["readOnly"] == "true"
+    rules = [r for r in conf.get("locations", [])
+             if r.get("location_prefix") != rule["location_prefix"]]
+    if not flags.get("delete"):
+        rules.append(rule)
+    if flags.get("apply"):
+        env._call(f"{filer}/__admin__/filer_conf", {"locations": rules})
+        print(f"applied {len(rules)} rule(s)", file=out)
+    else:
+        print(json.dumps({"locations": rules}, indent=2), file=out)
+        print("(dry run; add -apply)", file=out)
 
 
 @command("volume.deleteEmpty")
@@ -2041,3 +2299,172 @@ def cmd_volume_server_leave(env: CommandEnv, args, out):
     node = flags["node"]
     env.vs_post(node, "/admin/leave", {})
     print(f"{node} is leaving the cluster (heartbeats stopped)", file=out)
+
+
+@command("fs.meta.notify")
+def cmd_fs_meta_notify(env: CommandEnv, args, out):
+    """Recursively re-send a directory's metadata to the filer's
+    notification queue (reference: command_fs_meta_notify.go) — primes a
+    replication consumer with the existing tree."""
+    path = env.resolve(
+        (args and not args[-1].startswith("-") and args[-1]) or ".")
+    filer = env.find_filer()
+    r = env._call(f"{filer}/__admin__/notify", {"prefix": path})
+    print(f"notified {r.get('sent', 0)} entr(ies) under {path}", file=out)
+
+
+@command("fs.meta.change.volume.id")
+def cmd_fs_meta_change_volume_id(env: CommandEnv, args, out):
+    """Rewrite chunk fids from one volume id to another across a subtree
+    (reference: command_fs_meta_change_volume_id.go) — the metadata half
+    of renumbering a volume.  -dir / -fromVolumeId X -toVolumeId Y
+    [-mapping file-with-x=>y-lines] [-force to apply]."""
+    flags = parse_flags(args)
+    mapping: dict[int, int] = {}
+    if flags.get("mapping"):
+        with open(flags["mapping"]) as f:
+            for line in f:
+                line = line.strip()
+                if not line or "=>" not in line:
+                    continue
+                a, b = line.split("=>", 1)
+                mapping[int(a)] = int(b)
+    else:
+        src, dst = int(flags.get("fromVolumeId", "0")), \
+            int(flags.get("toVolumeId", "0"))
+        if not src or not dst or src == dst:
+            raise RuntimeError("-fromVolumeId and -toVolumeId must be "
+                               "distinct and non-zero (or use -mapping)")
+        mapping[src] = dst
+    force = "force" in flags
+    root = flags.get("dir", "/")
+    filer = env.find_filer()
+    changed = 0
+
+    def walk(d: str) -> None:
+        nonlocal changed
+        for e in env.filer_list(filer, d):
+            if e.get("IsDirectory"):
+                walk(e["FullPath"])
+                continue
+            entry = env.master_get_raw(
+                filer, urllib.parse.quote(e["FullPath"]), metadata="true")
+            dirty = False
+            for c in entry.get("chunks", []):
+                if c.get("is_chunk_manifest"):
+                    print(f"  skip manifest file {e['FullPath']} "
+                          "(not implemented)", file=out)
+                    break
+                vid_s, _, rest = c.get("fid", "").partition(",")
+                try:
+                    vid = int(vid_s)
+                except ValueError:
+                    continue
+                if vid in mapping:
+                    c["fid"] = f"{mapping[vid]},{rest}"
+                    dirty = True
+            else:
+                if dirty:
+                    changed += 1
+                    print(f"  {'updating' if force else 'would update'} "
+                          f"{e['FullPath']}", file=out)
+                    if force:
+                        env._call(f"{filer}/__admin__/entry",
+                                  {"entry": entry})
+
+    walk(root.rstrip("/") or "/")
+    print(f"{changed} file(s) {'updated' if force else 'need updating'}"
+          + ("" if force else " (dry run; add -force)"), file=out)
+
+
+@command("fs.merge.volumes")
+def cmd_fs_merge_volumes(env: CommandEnv, args, out):
+    """Re-upload the chunks of files under -dir that live on
+    -fromVolumeId into freshly assigned volumes, consolidating data off
+    small/fragmented volumes so they can be deleted (reference:
+    command_fs_merge_volumes.go).  Dry-run by default; -apply commits.
+    -dir /path -fromVolumeId N [-collection c] [-apply]"""
+    flags = parse_flags(args)
+    root = env.resolve(flags.get("dir", "/"))
+    src_vid = int(flags.get("fromVolumeId", "0"))
+    if not src_vid:
+        raise RuntimeError("-fromVolumeId is required")
+    apply = "apply" in flags
+    filer = env.find_filer()
+    from seaweedfs_tpu_torch.client import WeedClient
+    client = WeedClient(env.master) if apply else None
+    files = chunks = 0
+    try:
+        def walk(d: str) -> None:
+            nonlocal files, chunks
+            for e in env.filer_list(filer, d):
+                if e.get("IsDirectory"):
+                    walk(e["FullPath"])
+                    continue
+                entry = env.master_get_raw(
+                    filer, urllib.parse.quote(e["FullPath"]),
+                    metadata="true")
+                dirty = False
+                for c in entry.get("chunks", []):
+                    fid = c.get("fid", "")
+                    vid_s = fid.split(",")[0]
+                    if not vid_s.isdigit() or int(vid_s) != src_vid:
+                        continue
+                    chunks += 1
+                    if not apply:
+                        dirty = True
+                        continue
+                    data = None
+                    for u in env.volume_locations(src_vid):
+                        try:
+                            with urllib.request.urlopen(
+                                    f"{_tls_scheme()}://{u}/{fid}",
+                                    timeout=120) as r:
+                                data = r.read()
+                            break
+                        except Exception:
+                            continue
+                    if data is None:
+                        raise RuntimeError(f"chunk {fid} unreadable on "
+                                           f"volume {src_vid}")
+                    # the point is moving OFF the source volume: retry
+                    # assign past it, growing fresh volumes if the source
+                    # is the only writable one (a grown volume becomes
+                    # assignable only after it registers — wait that
+                    # window out instead of burning the retries)
+                    import time as _time
+                    a = None
+                    for attempt in range(20):
+                        cand = client.assign(
+                            collection=flags.get("collection", ""))
+                        if int(cand["fid"].split(",")[0]) != src_vid:
+                            a = cand
+                            break
+                        if attempt == 3:
+                            env.master_post(
+                                "/vol/grow", count="1",
+                                collection=flags.get("collection", ""))
+                        if attempt >= 3:
+                            _time.sleep(0.2)
+                    if a is None:
+                        raise RuntimeError(
+                            f"could not assign a target volume != "
+                            f"{src_vid}")
+                    client.upload_to(a["url"], a["fid"], data)
+                    c["fid"] = a["fid"]
+                    dirty = True
+                if dirty:
+                    files += 1
+                    print(f"  {'moved' if apply else 'would move'} "
+                          f"{e['FullPath']}", file=out)
+                    if apply:
+                        env._call(f"{filer}/__admin__/entry",
+                                  {"entry": entry})
+
+        walk(root.rstrip("/") or "/")
+    finally:
+        if client is not None:
+            client.close()
+    print(f"fs.merge.volumes: {chunks} chunk(s) in {files} file(s) "
+          f"{'moved off' if apply else 'on'} volume {src_vid}"
+          + ("" if apply else " (dry run; add -apply)"), file=out)

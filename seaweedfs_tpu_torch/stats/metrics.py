@@ -6,8 +6,8 @@ weed/stats/metrics.go), cut to what the port's data plane touches: the
 metric classes, the registry and its exposition format 0.0.4 (OpenMetrics
 on request) with its own size (`series_count`, `weedtpu_metric_series`),
 the families the port's telemetry, its volume server, its master, the
-master's planes and its maintenance plane book into, under the reference's names, labels and
-buckets, and the servers' `/metrics` response (`scrape_response`).  The
+master's planes, its maintenance plane and its filer server book into,
+under the reference's names, labels and buckets, and the servers' `/metrics` response (`scrape_response`).  The
 push-gateway loop (`MetricsPusher`) is left out for want of a caller;
 the other servers' families come with those servers.
 """
@@ -373,6 +373,30 @@ VOLUME_COUNT_GAUGE = REGISTRY.gauge(
     "weedtpu_volumes", "volumes served", ("collection", "type"))
 EC_ENCODE_BYTES = REGISTRY.counter(
     "weedtpu_ec_encode_bytes_total", "bytes EC-encoded", ("codec",))
+# the filer server's own families (server/filer_server.py): requests,
+# its chunk-cache counters (mirrored from ChunkCache at scrape time),
+# streaming singleflight joins, the shared vid-cache counters and the
+# hot tier's event ledger and ring size
+FILER_REQUEST_COUNTER = REGISTRY.counter(
+    "weedtpu_filer_request_total", "filer requests", ("type",))
+FILER_REQUEST_HISTOGRAM = REGISTRY.histogram(
+    "weedtpu_filer_request_seconds", "filer request latency", ("type",))
+FILER_CHUNK_CACHE = REGISTRY.gauge(
+    "weedtpu_filer_chunk_cache", "filer chunk cache counters "
+    "(hits/misses/mem_bytes/tierN_bytes, cumulative where applicable)",
+    ("stat",))
+FILER_SINGLEFLIGHT_JOINED = REGISTRY.counter(
+    "weedtpu_filer_chunk_singleflight_joined_total",
+    "concurrent chunk fetches collapsed into an already in-flight one")
+VID_CACHE = REGISTRY.gauge(
+    "weedtpu_vid_cache", "shared vid->location cache counters "
+    "(hits/misses/negative_hits/invalidations/entries)", ("stat",))
+HOT_TIER_EVENTS = REGISTRY.gauge(
+    "weedtpu_hot_tier_events", "cluster hot-tier event counters by kind "
+    "(cumulative; mirrored from the filer's hot-tier ledger)", ("event",))
+HOT_TIER_RING = REGISTRY.gauge(
+    "weedtpu_hot_tier_ring_members", "live filers in the hot-tier "
+    "rendezvous ring, as this node sees it")
 NEEDLE_CRC_MISMATCH = REGISTRY.counter(
     "weedtpu_needle_crc_mismatch_total",
     "store-volume reads that failed CRC verification")

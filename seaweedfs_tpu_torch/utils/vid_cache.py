@@ -1,8 +1,7 @@
 """Shared vid->locations cache for every tier that resolves volumes.
 
-Counterpart of `seaweedfs_tpu/utils/vid_cache.py`, but for its
-`AsyncVidResolver`, whose one caller, the filer, comes with ROADMAP 1.20.
-The reference keeps one implementation of this map, wdclient/vid_map.go,
+Counterpart of `seaweedfs_tpu/utils/vid_cache.py`, whole.  The
+reference keeps one implementation of this map, wdclient/vid_map.go,
 and mounts it in the client, the filer and the s3 gateway alike:
 
 - TTL'd positive entries (`WEEDTPU_VID_CACHE_TTL`, default 10s) with
@@ -12,9 +11,11 @@ and mounts it in the client, the filer and the s3 gateway alike:
   cannot stampede the master with repeat lookups,
 - the invalidate-once contract from the client's download path: when
   every cached location fails, drop the entry and re-ask exactly once,
-- a singleflight resolver for the thread-world client, so N concurrent
-  misses on one vid issue one /dir/lookup with N-1 waiters: the
-  wdclient's singleflight.Group around LookupVolumeIds.
+- a singleflight resolver for the thread-world client
+  (`SyncVidResolver`) and one for asyncio callers (`AsyncVidResolver`,
+  the filer server's), so N concurrent misses on one vid issue one
+  /dir/lookup with N-1 waiters: the wdclient's singleflight.Group
+  around LookupVolumeIds.
 
 The cache doubles as a plain dict facade over {vid: (urls, ts)} because
 that is the shape the client exposes (tests introspect
@@ -222,4 +223,43 @@ class SyncVidResolver:
             with self._lock:
                 self._flights.pop(vid, None)
             fl.event.set()
+        return urls
+
+
+class AsyncVidResolver:
+    """Singleflighted lookup for asyncio callers (filer/s3 gateways).
+    Same contract as SyncVidResolver; waiters shield the shared future
+    so one cancelled request cannot poison the in-flight lookup."""
+
+    def __init__(self, cache: VidCache, fetch):
+        self.cache = cache
+        self._fetch = fetch
+        self._flights: dict = {}
+        self.upstream_lookups = 0
+        self.joined = 0
+
+    async def lookup(self, vid: int) -> list[str]:
+        import asyncio
+        urls = self.cache.fresh(vid)
+        if urls is not None:
+            return urls
+        if self.cache.negative(vid):
+            return []
+        fut = self._flights.get(vid)
+        if fut is None:
+            fut = self._flights[vid] = asyncio.ensure_future(
+                self._resolve(vid))
+            fut.add_done_callback(
+                lambda _f, v=vid: self._flights.pop(v, None))
+        else:
+            self.joined += 1
+        return await asyncio.shield(fut)
+
+    async def _resolve(self, vid: int) -> list[str]:
+        self.upstream_lookups += 1
+        urls = await self._fetch(vid)
+        if urls:
+            self.cache.put(vid, urls)
+        else:
+            self.cache.put_negative(vid)
         return urls

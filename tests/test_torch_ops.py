@@ -139,6 +139,69 @@ def test_import_rule_covers_the_filer_slice():
     assert (REPO / "seaweedfs_tpu_torch/csrc/aes_gcm.cc").exists()
 
 
+def test_import_rule_covers_the_filer_server_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("server/filer_server.py", "replication/__init__.py",
+                "replication/filer_sync.py", "remote_storage.py",
+                "utils/vid_cache.py", "shell/commands.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
+def test_filer_server_leaves_jax_and_torch_unloaded(tmp_path):
+    """The filer server, its `fs.*` commands and filer.sync's signature
+    in a fresh interpreter: a `FilerServer` over its SQLite store, with
+    no master to reach, makes a directory, lists it, answers
+    /__meta__/digest and /__hot__/status and stops; `fs.ls` reads it
+    through a stand-in master's member list; neither jax, torch nor the
+    reference package gets imported."""
+    code = (
+        "import asyncio, io, json, sys, urllib.request\n"
+        "from aiohttp import web\n"
+        "from seaweedfs_tpu_torch.server.filer_server import FilerServer\n"
+        "from seaweedfs_tpu_torch.shell import commands\n"
+        "from seaweedfs_tpu_torch.replication.filer_sync import "
+        "filer_signature\n"
+        "assert filer_signature('127.0.0.1:8888') > 0\n"
+        "async def main():\n"
+        "    fs = FilerServer('127.0.0.1:1', port=0, data_dir=sys.argv[1])\n"
+        "    await fs.start()\n"
+        "    port = fs._runner.addresses[0][1]\n"
+        "    fs.port = port\n"
+        "    async def status(req):\n"
+        "        return web.json_response({'Members': {'filer': "
+        "[fs.url]}})\n"
+        "    app = web.Application()\n"
+        "    app.add_routes([web.get('/cluster/status', status)])\n"
+        "    runner = web.AppRunner(app)\n"
+        "    await runner.setup()\n"
+        "    site = web.TCPSite(runner, '127.0.0.1', 0)\n"
+        "    await site.start()\n"
+        "    mport = runner.addresses[0][1]\n"
+        "    def drive():\n"
+        "        u = f'http://127.0.0.1:{port}'\n"
+        "        urllib.request.urlopen(urllib.request.Request(\n"
+        "            u + '/a/b/', data=b'', method='POST'), timeout=10)\n"
+        "        d = json.loads(urllib.request.urlopen(\n"
+        "            u + '/__meta__/digest?prefix=/a', timeout=10).read())\n"
+        "        assert d['entries'] == 1, d\n"
+        "        h = json.loads(urllib.request.urlopen(\n"
+        "            u + '/__hot__/status', timeout=10).read())\n"
+        "        assert h['enabled'], h\n"
+        "        out = io.StringIO()\n"
+        "        env = commands.CommandEnv(f'127.0.0.1:{mport}')\n"
+        "        commands.run_command(env, 'fs.ls /a', out)\n"
+        "        assert out.getvalue() == 'b/\\n', out.getvalue()\n"
+        "    await asyncio.to_thread(drive)\n"
+        "    await runner.cleanup()\n"
+        "    await fs.stop()\n"
+        "asyncio.run(main())\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'torch', 'seaweedfs_tpu')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,
+                   check=True, timeout=120)
+
+
 def test_card_path_modules_import_no_server_package():
     """The store, the EC files and the codecs load without aiohttp and
     protobuf: only the server modules import them at module level."""

@@ -825,15 +825,15 @@ def test_reference_shell_fsck_and_status_against_the_port_master(
         run_command(env, "unlock", out)
         time.sleep(0.5)
         vs = c.volume_servers[0]
-        # fsck lists the filer's tree first: the port has no filer yet
-        # (ROADMAP 1.20), so a member that lists an empty root stands in
-        from aiohttp import web
-        filer = web.AppRunner(_empty_filer())
-        c.submit(filer.setup())
-        fport = free_port()
-        c.submit(web.TCPSite(filer, "127.0.0.1", fport).start())
-        call(c.master.url, "/cluster/register",
-             body={"type": "filer", "address": f"127.0.0.1:{fport}"})
+        # fsck lists the filer's tree first: the port's filer server,
+        # with an empty tree, registered with the port's master
+        from seaweedfs_tpu_torch.server.filer_server import FilerServer
+        filer = FilerServer(c.master.url, "127.0.0.1", free_port())
+        c.submit(filer.start())
+        deadline = time.time() + 10
+        while not call(c.master.url, "/cluster/status")[1].get(
+                "Members", {}).get("filer") and time.time() < deadline:
+            time.sleep(0.05)
 
         def fsck():
             buf = io.StringIO()
@@ -878,19 +878,9 @@ def test_reference_shell_fsck_and_status_against_the_port_master(
         assert "geo" not in st
         assert st["planner"]["history"][-1]["outcome"] == "ok"
         client.close()
-        c.submit(filer.cleanup())
+        c.submit(filer.stop())
     finally:
         c.stop()
-
-
-def _empty_filer():
-    from aiohttp import web
-
-    async def listing(req):
-        return web.json_response({"Entries": []})
-    app = web.Application()
-    app.add_routes([web.get("/{path:.*}", listing)])
-    return app
 
 
 def test_maintenance_ticks_leave_jax_and_torch_unloaded(tmp_path):

@@ -201,19 +201,22 @@ def test_collect_volume_ids_for_ec_encode_snapshot(monkeypatch):
 
 def test_help_and_unknown_command_list_the_ported_commands():
     """A kept difference: the port registers fewer commands until ROADMAP
-    1.19b/1.22, and `help` and the unknown-command error list what it
-    has."""
+    1.21a-1.22b (71 of the reference's 95, every `fs.*` one among them),
+    and `help` and the unknown-command error list what it has."""
     left_out = set(ref_commands.COMMANDS) - set(commands.COMMANDS)
     assert set(commands.COMMANDS) <= set(ref_commands.COMMANDS)
+    assert len(commands.COMMANDS) == 71
+    assert {n for n in ref_commands.COMMANDS if n.startswith("fs.")} <= \
+        set(commands.COMMANDS)
     assert {n for n in left_out
-            if not n.startswith(("fs.", "s3.", "remote.", "mq."))} == {
+            if not n.startswith(("s3.", "remote.", "mq."))} == {
         "mount.configure", "volume.tier.move", "volume.tier.upload",
         "volume.tier.download", "cluster.geo"}
     env = CommandEnv("127.0.0.1:1")
     listed = [line.split()[0] for line in shell(env, "help").splitlines()]
     assert listed == sorted(commands.COMMANDS)
     with pytest.raises(RuntimeError) as ei:
-        run_command(env, "fs.ls /", io.StringIO())
+        run_command(env, "s3.bucket.list", io.StringIO())
     assert ", ".join(sorted(commands.COMMANDS)) in str(ei.value)
     # `help <name>` prints the same doc as the reference's
     for name in ("ec.encode", "maintenance.status", "volume.balance"):
@@ -576,25 +579,22 @@ def test_read_only_commands_print_what_the_reference_prints(cluster3):
     assert st_["volumes"][str(vid)]["state"] == "healthy"
 
 
-def test_volume_fsck_equals_the_reference_with_a_filer_stand_in(cluster3):
-    """`volume.fsck` lists a filer's tree first: until the port has a
-    filer, a member that lists an empty root stands in (as
-    tests/test_torch_repair_planner.py's)."""
-    from aiohttp import web
-
-    from tests.test_torch_repair_planner import _empty_filer
+def test_volume_fsck_equals_the_reference_with_a_port_filer(cluster3):
+    """`volume.fsck` lists a filer's tree first: the port's
+    `FilerServer`, with an empty tree, registered with the port's
+    master."""
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
     c = cluster3
     client = WeedClient(c.master.url)
     for _ in range(6):
         client.upload(b"f" * 2000)
-    filer = web.AppRunner(_empty_filer())
-    c.submit(filer.setup())
-    fport = free_port()
-    c.submit(web.TCPSite(filer, "127.0.0.1", fport).start())
+    filer = FilerServer(c.master.url, "127.0.0.1", free_port())
+    c.submit(filer.start())
     try:
-        _post(c.master.url, "/cluster/register",
-              {"type": "filer", "address": f"127.0.0.1:{fport}"})
-        time.sleep(0.5)
+        env = CommandEnv(c.master.url)
+        assert wait_for(lambda: bool(
+            env.master_get("/cluster/status").get("Members", {})
+            .get("filer")))
         outs = []
         for mod in (ref_commands, commands):
             env = mod.CommandEnv(c.master.url)
@@ -607,7 +607,7 @@ def test_volume_fsck_equals_the_reference_with_a_filer_stand_in(cluster3):
         assert outs[:2] == outs[2:]
         assert outs[3][0] == 0 and '"ok": true' in outs[3][1]
     finally:
-        c.submit(filer.cleanup())
+        c.submit(filer.stop())
 
 
 # ---- EC by both shells on twin volumes ------------------------------------
