@@ -473,7 +473,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                digest equal on A and B and after A's restart, 8 files
                read cold through the restarted A; K2 0; launches zeroed
                before and read after
- 26 report     {"kernels": [...]} line, the card's name and power limit,
+ 26 s3         the port's S3 gateway (ROADMAP 1.21a) on the same
+               cluster, kept up for it: one port `FilerServer` F (a
+               fresh SQLite store, a 512 MiB chunk cache, /buckets/p26/
+               mapped to collection p26 by the shell's `fs.configure`)
+               and one port `S3ApiServer` G over it, registered with the
+               master, its identities W (Admin, Read, Write, List,
+               Tagging) and R (Read, List) also stored by `s3.configure`;
+               (1) bucket p26 and 256 MiB of objects from --seed PUT
+               through G by W from 16 threads: signed PUTs, a quarter
+               aws-chunked, two of about 24 MiB by multipart in 5 MiB
+               parts, each ETag the MD5 (-5 for the multipart ones); (2)
+               `ec.encode -collection p26`, K1 == the layout's units; (3)
+               data shards 0 and 3 of every p26 EC volume deleted; (4)
+               every object read in full through G, sha256 and ETag ==
+               its draw's, F's `direct` == the distinct chunks, K1 one
+               per such fetch touching a lost data shard, F's summed GET
+               seconds beside the client's; (5) ListObjectsV2 at
+               max-keys 7 with continuation, a Range GET presigned by R
+               and a HEAD of each object, R's PUT 403, a bucket policy
+               denying R one prefix (403 there, 200 elsewhere), K1 0;
+               (6) the tenant counters of W's and R's keys == the
+               phase's successful requests, tenant bytes against the
+               byte ledger, `s3.bucket.list` and `s3.configure -list`
+               through the port's shell; (7) a DeleteObjects of a
+               quarter of the keys (a multipart object among them):
+               every freed fid 404 on every holder, the other multipart
+               object read whole, K1 0; K2 0; launches zeroed before and
+               read after
+ 27 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -482,7 +510,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12-25, each on its own, so the reported launches are
+around phases 12-26, each on its own, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -495,7 +523,7 @@ volume taken before phase 14, whose appends go through links of it; phases
 17, 18, 20, 21 and 22 also on links of phase 4's and (17) 10's shard
 sets, 17, 18 and 22 on phase 7's volumes).  Every port master the
 script starts runs with its repair loop off
-(WEEDTPU_REPAIR_INTERVAL=0): phases 16-25 delete shards on purpose, and
+(WEEDTPU_REPAIR_INTERVAL=0): phases 16-26 delete shards on purpose, and
 a planner tick would rebuild them, launching K1 at times no step
 predicts.
 Needs one CUDA card; exits non-zero without one, and outside a checkout
@@ -7811,8 +7839,8 @@ SHELL_READ_ONLY = ("volume.list", "cluster.status", "cluster.ps",
 
 
 class ThreeRacks:
-    """Phases 23, 24 and 25's cluster, up from the first one's start to
-    the last one's end: the port's `MasterServer` on a loop thread of its
+    """Phases 23-26's cluster, up from the first one's start to the last
+    one's end: the port's `MasterServer` on a loop thread of its
     own (repair loop, aggregator loop and canary off, no vacuum scan)
     and a `VolumeServer` on the card for each of SHELL_NODES, one rack
     each, on another loop thread, beating every 0.5 s, scrubbers and
@@ -9474,6 +9502,670 @@ def _filer_server_events(plan: list, patched: str, cut: str, moved: dict,
     return ev
 
 
+# phase 26's S3 gateway (ROADMAP 1.21a): one port FilerServer F and one
+# port S3ApiServer G over it on phase 23's cluster
+S3_BUCKET = "p26"  # the bucket, and the collection its chunks land in
+S3_BYTES = 256 * MIB  # the objects, from --seed
+S3_MULTIPART = 24 * MIB  # each of the two multipart objects, about
+S3_PART = 5 * MIB
+S3_CACHE_MEM = 512 * MIB  # F's: no chunk evicted in the phase
+S3_LOST = (0, 3)  # step 3's lost data shards of every p26 EC volume
+S3_THREADS = 16
+S3_PAGE = 7  # step 5's ListObjectsV2 max-keys
+S3_DENIED = "d1/"  # step 5's prefix the bucket policy denies R
+# W writes and administers, R reads and lists
+S3_IDENTITIES = (("W", "P26WRITER", "p26-writer-secret",
+                  "Admin,Read,Write,List,Tagging"),
+                 ("R", "P26READER", "p26-reader-secret", "Read,List"))
+
+
+def phase_s3(racks: ThreeRacks, vdir: str, seed: int,
+             launches: dict) -> dict:
+    """Phase 26: the port's S3 gateway (ROADMAP 1.21a) over `racks`,
+    phase 23's three port `VolumeServer`s on the card in three racks
+    behind the port's `MasterServer`, kept up for it.  One port
+    `FilerServer` F on a loop thread of its own, a fresh SQLite store in
+    the phase's directory and a 512 MiB chunk cache, `/buckets/p26/`
+    mapped to collection p26 through the port shell's `fs.configure`;
+    one port `S3ApiServer` G over F on another loop thread, registered
+    with the master, its IAM two identities (W: Admin, Read, Write,
+    List, Tagging; R: Read, List), also stored in F's identity.json by
+    the shell's `s3.configure`.  Steps: (1) bucket p26 created through
+    G by W, then 256 MiB of objects from --seed (1 KiB-32 MiB,
+    log-uniform) PUT from 16 threads: three quarters by a signed PUT
+    with the payload's SHA-256, a quarter by aws-chunked streaming
+    (`sign_v4_chunked`), and two of about 24 MiB by multipart in 5 MiB
+    parts, each answered with its MD5 ETag (the multipart ones the MD5
+    of the parts' MD5s with -5); K1 0; (2) `ec.encode -collection p26`
+    through the port's shell, K1 == the layout's units of the p26 .dat
+    files; (3) data shards 0 and 3 of every p26 EC volume deleted, K1 0;
+    (4) every object read in full through G from 16 threads, sha256 ==
+    its draw, ETag the filer's MD5 (for a multipart object the MD5 of
+    its parts' MD5s): F's `direct` == the distinct chunks (each fetched
+    from the volume tier once), K1 == those fetches whose needle touches
+    a lost data shard; F's summed GET seconds (its request histogram)
+    beside the client's; (5) ListObjectsV2 at max-keys 7 with
+    continuation lists every key once, in order, with its size; a Range
+    GET of each object through a URL presigned by R equals the draw's
+    slice and a HEAD its size; a PUT signed by R answers 403
+    AccessDenied; a bucket policy denying R s3:GetObject on d1/ makes
+    d1/ 403 for R and the rest 200; K1 0 (F's cache); (6) the process's
+    weedtpu_tenant_requests_total for W's and R's keys == the phase's
+    own count of their successful requests, and weedtpu_tenant_bytes_total
+    received == the byte ledger's client data-class total over steps 1
+    and 4 (sent within 1 %: the master's answers to F's lookups book
+    under the client role too); the
+    port's shell lists p26 (`s3.bucket.list`) and W and R
+    (`s3.configure -list`); (7) a DeleteObjects of a quarter of the keys,
+    a multipart object among them: once F's deletion queue drains, every
+    freed fid answers 404 on every holder, and the other multipart
+    object still reads equal to its draw, K1 0 (F's cache).  K2 0
+    throughout."""
+    import hashlib
+    import hmac
+    import threading as _threading
+    import urllib.parse
+
+    import numpy as np
+    from seaweedfs_tpu_torch.filer.filechunk_section import ChunkGroup
+    from seaweedfs_tpu_torch.s3 import auth
+    from seaweedfs_tpu_torch.s3.s3api_server import S3ApiServer
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    from seaweedfs_tpu_torch.stats import metrics
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.utils import http, resilience
+
+    card = card_name_power()
+
+    def plog(msg: str) -> None:
+        log(f"[s3] {msg} [{card}]")
+
+    work = os.path.join(vdir, "s3")
+    os.makedirs(work)
+    names, servers = racks.names, racks.servers
+    node_of, master = racks.node_of, racks.master
+    admin, run, split, topo = racks.admin, racks.run, racks.split, racks.topo
+    holder_of = racks.holder_of
+    loops: list = []
+    frun = grun = F = G = pool = None
+    steps: dict = {}
+    counts: dict = {}
+    predicted: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 26)
+    creds = {who: auth.Credential(ak, sk)
+             for who, ak, sk, _ in S3_IDENTITIES}
+    ok_by_key: dict = {c.access_key: 0 for c in creds.values()}
+    ok_lock = _threading.Lock()
+
+    def step_counts(name: str, k0: dict, k1: int, t0: float) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        predicted[name] = k1
+        steps.setdefault(name, {})["wall_s"] = time.perf_counter() - t0
+        want = {"gf_apply": k1, "gf_apply_batch": 0}
+        if got != want:
+            raise AssertionError(f"phase 26 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def empty_lrus() -> None:
+        """No server's reconstruction LRU answers a read this step
+        predicts a launch for."""
+        for vs in servers.values():
+            for loc in vs.store.locations:
+                for ev in list(loc.ec_volumes.values()):
+                    with ev._recon_lock:
+                        ev._recon_cache.clear()
+                        ev._recon_cache_bytes = 0
+
+    def s3(who: str | None, method: str, key: str = "", query=None,
+           body: bytes = b"", headers=None, chunked: bool = False,
+           url: str | None = None) -> tuple:
+        """One request to G, signed by `who` (None: unsigned; `url`: a
+        presigned path and query); a success books one request on the
+        signer's key, as the gateway's tenant counter should."""
+        path = f"/{S3_BUCKET}" + (f"/{key}" if key else "")
+        h = dict(headers or {})
+        if url is None:
+            query = query or {}
+            if who is not None and chunked:
+                sh, body = auth.sign_v4_chunked(
+                    creds[who], method, G.url, path, query, body)
+                h.update(sh)
+            elif who is not None:
+                h.update(auth.sign_v4(creds[who], method, G.url, path,
+                                      query, payload=body))
+            qs = urllib.parse.urlencode(query, quote_via=urllib.parse.quote)
+            url = urllib.parse.quote(path) + (f"?{qs}" if qs else "")
+        # the signed Host is the one http.client sends (G.url): a second
+        # copy is a malformed request
+        h.pop("Host", None)
+        st, hdrs, raw = pool.request(f"http://{G.url}{url}", method,
+                                     body if body or method in
+                                     ("PUT", "POST") else None, h)
+        if st < 400 and who is not None:
+            with ok_lock:
+                ok_by_key[creds[who].access_key] += 1
+        return st, hdrs, raw
+
+    def presign(who: str, key: str, expires: int = 900) -> str:
+        """A GET URL presigned by `who` (SigV4 query auth, host signed)."""
+        iam = auth.IdentityAccessManagement
+        when = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+        scope = f"{when[:8]}/us-east-1/s3/aws4_request"
+        path = f"/{S3_BUCKET}/{key}"
+        q = {"X-Amz-Algorithm": "AWS4-HMAC-SHA256",
+             "X-Amz-Credential": f"{creds[who].access_key}/{scope}",
+             "X-Amz-Date": when, "X-Amz-Expires": str(expires),
+             "X-Amz-SignedHeaders": "host"}
+        creq = "\n".join(["GET", iam._canonical_uri(path),
+                          iam._canonical_query(q), f"host:{G.url}\n",
+                          "host", "UNSIGNED-PAYLOAD"])
+        sts = "\n".join(["AWS4-HMAC-SHA256", when, scope,
+                         hashlib.sha256(creq.encode()).hexdigest()])
+        q["X-Amz-Signature"] = hmac.new(
+            iam._sig_key(creds[who].secret_key, when[:8], "us-east-1",
+                         "s3"), sts.encode(), hashlib.sha256).hexdigest()
+        return urllib.parse.quote(path) + "?" + urllib.parse.urlencode(
+            q, quote_via=urllib.parse.quote)
+
+    def ledger() -> dict:
+        """The process's tenant counters and byte ledger, as G books
+        them, once two reads 50 ms apart agree (the middleware books a
+        request after its reply is on the wire)."""
+        while True:
+            a = _ledger()
+            time.sleep(0.05)
+            if _ledger() == a:
+                return a
+
+    def _ledger() -> dict:
+        out = {"req": {}, "tenant": {"recv": 0.0, "sent": 0.0},
+               "flow": {"recv": 0.0, "sent": 0.0}}
+        for labels, child in metrics.TENANT_REQUESTS._pairs():
+            ld = dict(labels)
+            out["req"][ld["tenant"]] = out["req"].get(ld["tenant"], 0) + \
+                child.value
+        for labels, child in metrics.TENANT_BYTES._pairs():
+            out["tenant"][dict(labels)["direction"]] += child.value
+        for labels, child in metrics.NET_BYTES._pairs():
+            ld = dict(labels)
+            if ld.get("class") == "data" and \
+                    ld.get("peer_role") == "client":
+                out["flow"][ld["direction"]] += child.value
+        return out
+
+    try:
+        # 0 set-up.  Phase 25's two filers stopped moments ago and the
+        # master lists a member for 30 s after its last beat, so the
+        # shell's find_filer could pick one: they leave the table first
+        async def forget_filers() -> None:
+            master.cluster_members.pop("filer", None)
+        racks.mrun(forget_filers())
+        frun, grun = loop_thread(loops), loop_thread(loops)
+        F = FilerServer(master.url, "127.0.0.1", free_port(),
+                        data_dir=os.path.join(work, "filer"),
+                        chunk_cache_mem=S3_CACHE_MEM)
+        frun(F.start())
+        until(lambda: racks.cmd_env.master_get("/cluster/status").get(
+            "Members", {}).get("filer") == [F.url],
+            "the master never listed F alone")
+        run("lock")
+        run(f"fs.configure -locationPrefix /buckets/{S3_BUCKET}/ "
+            f"-collection {S3_BUCKET} -apply")
+        for who, ak, sk, actions in S3_IDENTITIES:
+            run(f"s3.configure -user {who} -access_key {ak} -secret_key "
+                f"{sk} -actions {actions}")
+        run("unlock")
+        iam = auth.IdentityAccessManagement([
+            auth.Identity(who, [creds[who]], actions.split(","))
+            for who, _, _, actions in S3_IDENTITIES])
+        G = S3ApiServer(F.url, "127.0.0.1", free_port(), iam=iam,
+                        master_url=master.url)
+        grun(G.start())
+        until(lambda: G.url in master.cluster_members.get("s3", {}),
+              "G never registered with the master")
+        until(lambda: sorted(i.name for i in G.iam.identities) ==
+              ["R", "W"] and G.iam._ever_configured,
+              "G never loaded F's identity.json")
+        pool = http.PooledHTTP(timeout=600.0, max_idle_per_host=S3_THREADS)
+        led0 = ledger()
+        ok0 = dict(ok_by_key)
+
+        # 1 the bucket and its objects
+        t0 = time.perf_counter()
+        k0 = dict(launches)
+        st, _, raw = s3("W", "PUT")
+        if st != 200:
+            raise AssertionError(f"PUT /{S3_BUCKET}: HTTP {st} "
+                                 f"{raw[:200]!r}")
+        mp_sizes = [S3_MULTIPART - int(rng.integers(0, MIB))
+                    for _ in range(2)]
+        budget = S3_BYTES - sum(mp_sizes)
+        sizes: list = []
+        while sum(sizes) < budget:
+            sizes.append(min(int(np.exp(rng.uniform(
+                np.log(FS_MIN_SIZE), np.log(FS_MAX_SIZE)))),
+                budget - sum(sizes)))
+        if sizes[-1] < FS_MIN_SIZE:  # the remainder joins the last
+            sizes[-2] += sizes.pop()
+        payload = rng.bytes(S3_BYTES)
+        content: dict = {}  # key -> the object's bytes
+        plan: list = []  # (key, "put" | "chunked" | "multipart")
+        at = 0
+        for i, size in enumerate(sizes):
+            key = f"d{i % 4}/o{i:03d}.bin"
+            content[key] = payload[at:at + size]
+            at += size
+            plan.append((key, "chunked" if i % 4 == 3 else "put"))
+        multipart = [f"mp/big{j}.bin" for j in range(2)]
+        for key, size in zip(multipart, mp_sizes):
+            content[key] = payload[at:at + size]
+            at += size
+            plan.append((key, "multipart"))
+        md5 = {k: hashlib.md5(c).hexdigest() for k, c in content.items()}
+        for key in multipart:
+            c = content[key]
+            md5[key] = hashlib.md5(b"".join(
+                hashlib.md5(c[o:o + S3_PART]).digest()
+                for o in range(0, len(c), S3_PART))).hexdigest()
+        n_parts = -(-S3_MULTIPART // S3_PART)
+
+        def put(item) -> None:
+            key, how = item
+            data = content[key]
+            if how != "multipart":
+                st, hdrs, raw = s3("W", "PUT", key, body=data,
+                                   chunked=how == "chunked")
+                if st != 200 or hdrs.get("etag") != f'"{md5[key]}"':
+                    raise AssertionError(f"{how} PUT {key}: HTTP {st} "
+                                         f"{hdrs.get('etag')} "
+                                         f"{raw[:200]!r}")
+                return
+            st, _, raw = s3("W", "POST", key, {"uploads": ""})
+            uid = re.search(rb"<UploadId>([^<]+)</UploadId>", raw)
+            if st != 200 or uid is None:
+                raise AssertionError(f"initiate {key}: HTTP {st} "
+                                     f"{raw[:200]!r}")
+            uid = uid.group(1).decode()
+            parts = []
+            for n, o in enumerate(range(0, len(data), S3_PART), 1):
+                st, hdrs, raw = s3("W", "PUT", key, {
+                    "partNumber": str(n), "uploadId": uid},
+                    body=data[o:o + S3_PART])
+                if st != 200:
+                    raise AssertionError(f"part {n} of {key}: HTTP {st} "
+                                         f"{raw[:200]!r}")
+                parts.append(f"<Part><PartNumber>{n}</PartNumber><ETag>"
+                             f"{hdrs['etag']}</ETag></Part>")
+            st, _, raw = s3("W", "POST", key, {"uploadId": uid},
+                            body=("<CompleteMultipartUpload>" +
+                                  "".join(parts) +
+                                  "</CompleteMultipartUpload>").encode())
+            want = f'<ETag>"{md5[key]}-{len(parts)}"</ETag>'
+            if st != 200 or want.encode() not in raw or \
+                    len(parts) != n_parts:
+                raise AssertionError(f"complete {key}: HTTP {st} "
+                                     f"{raw[:300]!r}, {len(parts)} parts")
+        dt_up = fan(put, plan, S3_THREADS)
+        step_counts("1 write", k0, 0, t0)
+        led1 = ledger()
+        written = sum(len(c) for c in content.values())
+        entries = {k: F.filer.find_entry(f"/buckets/{S3_BUCKET}/{k}")
+                   for k in content}
+        n_chunks = len({c.fid for e in entries.values() for c in e.chunks})
+        ways = {w: sum(1 for _, h in plan if h == w)
+                for w in ("put", "chunked", "multipart")}
+        steps["1 write"].update({
+            "objects": len(content), "bytes": written, "chunks": n_chunks,
+            "ways": ways, "put_s": dt_up,
+            "mbps": written / steps["1 write"]["wall_s"] / 1e6})
+        plog(f"1 write: bucket {S3_BUCKET} created by W, {len(content)} "
+             f"objects ({FS_MIN_SIZE}-{FS_MAX_SIZE} B log-uniform), "
+             f"{written} B in {n_chunks} chunks PUT through G from "
+             f"{S3_THREADS} threads at {written / dt_up / 1e6:.1f} MB/s: "
+             f"{ways['put']} signed PUTs with the payload's SHA-256, "
+             f"{ways['chunked']} aws-chunked, {ways['multipart']} "
+             f"multipart of {mp_sizes} B in {n_parts} parts of "
+             f"{S3_PART} B; every ETag the object's MD5 (-{n_parts} on "
+             f"the MD5 of the parts' MD5s); K1 0")
+
+        # 2 ec.encode -collection p26, once a beat reports the sizes
+        def p26_view() -> dict:
+            return {vi["id"]: vi["size"]
+                    for nd in topo()["nodes"].values()
+                    for vi in nd["volume_infos"]
+                    if vi["collection"] == S3_BUCKET}
+        vols = {vid: servers[holder_of(vid)].store.get_volume(vid)
+                for vid in p26_view()}
+        for vol in vols.values():
+            vol.flush()
+        dat_size = {vid: vol.data_size() for vid, vol in vols.items()}
+        p26 = until(lambda: (lambda seen: seen if seen == dat_size
+                             else None)(p26_view()),
+                    f"no beat reported the p26 sizes {dat_size}")
+        units = {vid: predict_units(p26[vid], layout.LARGE_BLOCK_SIZE,
+                                    layout.SMALL_BLOCK_SIZE)
+                 for vid in p26}
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        run("lock")
+        out2 = run(f"ec.encode -collection {S3_BUCKET} "
+                   f"-fullPercent 0 -quietFor 0s")
+        run("unlock")
+        dt_enc = time.perf_counter() - t0
+        listed = json.loads(out2.splitlines()[0].split(": ", 1)[1])
+        if listed != sorted(p26):
+            raise AssertionError(f"ec.encode selected {listed}; the "
+                                 f"p26 volumes are {sorted(p26)}")
+        step_counts("2 encode", k0, sum(units.values()), t0)
+        until(lambda: all(sum(map(len, split(vid).values())) == 14
+                          for vid in listed),
+              "the p26 shard sets never reached the master")
+        dat_bytes = sum(p26.values())
+        steps["2 encode"].update({"s": dt_enc, "volumes": listed,
+                                  "dat_bytes": p26, "units": units,
+                                  "mbps": dat_bytes / dt_enc / 1e6})
+        plog(f"2 encode: `ec.encode -collection {S3_BUCKET}` of volumes "
+             f"{listed} (.dat {[p26[v] for v in listed]} B) in "
+             f"{dt_enc:.3f} s, {dat_bytes / dt_enc / 1e6:.1f} MB/s; K1 "
+             f"{sum(units.values())} == the layout's units")
+
+        # 3 data shards 0 and 3 of every p26 EC volume deleted
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        for vid in listed:
+            for u, shards in split(vid).items():
+                gone = [s for s in S3_LOST if s in shards]
+                if gone:
+                    admin(node_of[u], "/admin/ec/delete_shards",
+                          {"volume": vid, "shards": gone})
+        until(lambda: not any(set(S3_LOST) & set(s) for vid in listed
+                              for s in split(vid).values()),
+              "the master still shows the deleted shards")
+        step_counts("3 loss", k0, 0, t0)
+        plog(f"3 loss: data shards {list(S3_LOST)} of every p26 EC "
+             f"volume deleted where they lived; K1 0")
+
+        evs = {vid: next(servers[n].store.get_ec_volume(vid)
+                         for n in names
+                         if servers[n].store.get_ec_volume(vid)
+                         is not None) for vid in listed}
+
+        def touches(fid: str) -> bool:
+            f = t.FileId.parse(fid)
+            return bool(touching_needles(evs[f.volume_id], {f.key: None},
+                                         S3_LOST))
+
+        # 4 every object read in full through G
+        keys = sorted(content)
+        want_sha = {k: hashlib.sha256(c).hexdigest()
+                    for k, c in content.items()}
+        views = {k: {v.fid for v in ChunkGroup(e.chunks).read_views(
+            0, e.size())} for k, e in entries.items()}
+        needed = set().union(*views.values())
+        touching = {f for f in needed if touches(f)}
+        empty_lrus()
+        resilience.reset_latency_trackers()
+        resilience.reset_breakers()
+        direct0 = F.hot_stats["direct"]
+        fget = metrics.FILER_REQUEST_HISTOGRAM.labels("get")
+        fget0 = (fget.total, fget.count)
+        client_s = [0.0]
+        led3 = ledger()
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+
+        def read(key) -> None:
+            t_req = time.perf_counter()
+            st, hdrs, body = s3("W", "GET", key)
+            dt = time.perf_counter() - t_req
+            with ok_lock:
+                client_s[0] += dt
+            if st != 200 or hashlib.sha256(body).hexdigest() != \
+                    want_sha[key] or hdrs.get("etag") != f'"{md5[key]}"':
+                raise AssertionError(f"GET {key}: HTTP {st}, {len(body)} "
+                                     f"B, ETag {hdrs.get('etag')}: not "
+                                     f"the draw")
+        dt_read = fan(read, keys, S3_THREADS)
+        direct = F.hot_stats["direct"] - direct0
+        if direct != len(needed):
+            raise AssertionError(f"F fetched {direct} chunks from the "
+                                 f"volume tier; {len(needed)} distinct "
+                                 f"chunks were read")
+        step_counts("4 degraded", k0, len(touching), t0)
+        # F's GETs: one per object, and any of G's bucket-policy
+        # refreshes that fell in the step
+        f_s, f_n = fget.total - fget0[0], fget.count - fget0[1]
+        if f_n < len(keys):
+            raise AssertionError(f"F timed {f_n} GETs, {len(keys)} made")
+        steps["4 degraded"].update({
+            "objects": len(keys), "chunks": len(needed),
+            "touching": len(touching), "s": dt_read,
+            "mbps": written / dt_read / 1e6, "filer_get_s": f_s,
+            "filer_gets": f_n, "client_get_s": client_s[0]})
+        plog(f"4 degraded: {len(keys)} objects read in full through G "
+             f"from {S3_THREADS} threads, each sha256 == its draw and its "
+             f"ETag its MD5: {written} B in {dt_read:.3f} s, "
+             f"{written / dt_read / 1e6:.1f} MB/s; F's direct {direct} == "
+             f"the {len(needed)} distinct chunks; seconds summed over "
+             f"the GETs: F's {f_s:.3f} over {f_n} (its request "
+             f"histogram), the "
+             f"client's {client_s[0]:.3f} ({f_s / client_s[0]:.3f} of it "
+             f"in F); K1 {len(touching)} == the fetches touching shards "
+             f"{list(S3_LOST)}")
+        led4 = ledger()
+
+        # 5 listing, ranges and auth
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        listing, token, pages = [], "", 0
+        while True:
+            q = {"list-type": "2", "max-keys": str(S3_PAGE)}
+            if token:
+                q["continuation-token"] = token
+            st, _, raw = s3("W", "GET", query=q)
+            if st != 200:
+                raise AssertionError(f"ListObjectsV2 page {pages}: HTTP "
+                                     f"{st} {raw[:200]!r}")
+            pages += 1
+            page = re.findall(rb"<Key>([^<]*)</Key>.*?<Size>(\d+)</Size>",
+                              raw)
+            if len(page) > S3_PAGE:
+                raise AssertionError(f"page {pages}: {len(page)} keys")
+            listing += [(k.decode(), int(n)) for k, n in page]
+            m = re.search(rb"<NextContinuationToken>([^<]*)<", raw)
+            if b"<IsTruncated>true" not in raw:
+                break
+            token = urllib.parse.unquote(m.group(1).decode())
+        if listing != [(k, len(content[k])) for k in keys] or \
+                pages != -(-len(keys) // S3_PAGE):
+            raise AssertionError(f"ListObjectsV2 at max-keys {S3_PAGE}: "
+                                 f"{len(listing)} keys in {pages} pages, "
+                                 f"{len(keys)} written")
+        spans = {}
+        for k in keys:
+            n = len(content[k])
+            lo = int(rng.integers(0, n))
+            spans[k] = (lo, int(rng.integers(lo, n)))
+        direct0 = F.hot_stats["direct"]
+        t_rng = time.perf_counter()
+
+        def ranged(key) -> None:
+            lo, hi = spans[key]
+            n = len(content[key])
+            st, hdrs, body = s3("R", "GET", url=presign("R", key),
+                                headers={"Range": f"bytes={lo}-{hi}"})
+            if st != 206 or body != content[key][lo:hi + 1] or \
+                    hdrs.get("content-range") != f"bytes {lo}-{hi}/{n}":
+                raise AssertionError(f"presigned Range {lo}-{hi} of {key}"
+                                     f": HTTP {st} "
+                                     f"{hdrs.get('content-range')}")
+            st, hdrs, _ = s3("W", "HEAD", key)
+            if st != 200 or hdrs.get("content-length") != str(n):
+                raise AssertionError(f"HEAD {key}: HTTP {st} {hdrs}")
+        dt_ranged = fan(ranged, keys, S3_THREADS)
+        if F.hot_stats["direct"] != direct0:
+            raise AssertionError("step 5 fetched from the volume tier")
+        st, _, raw = s3("R", "PUT", "r-was-here.bin", body=b"denied")
+        if st != 403 or b"<Code>AccessDenied</Code>" not in raw:
+            raise AssertionError(f"R's PUT: HTTP {st} {raw[:200]!r}")
+        policy = json.dumps({"Version": "2012-10-17", "Statement": [{
+            "Effect": "Deny", "Principal": {"AWS": "arn:aws:iam:::user/R"},
+            "Action": "s3:GetObject",
+            "Resource": f"arn:aws:s3:::{S3_BUCKET}/{S3_DENIED}*"}]})
+        st, _, raw = s3("W", "PUT", query={"policy": ""},
+                        body=policy.encode())
+        if st != 204:
+            raise AssertionError(f"PUT policy: HTTP {st} {raw[:200]!r}")
+        denied = [k for k in keys if k.startswith(S3_DENIED)]
+        allowed = [k for k in keys if not k.startswith(S3_DENIED)]
+        for k in denied[:4]:
+            st, _, raw = s3("R", "GET", url=presign("R", k))
+            if st != 403 or b"<Code>AccessDenied</Code>" not in raw:
+                raise AssertionError(f"R's GET of {k} under the policy: "
+                                     f"HTTP {st} {raw[:200]!r}")
+        for k in allowed[:4]:
+            st, _, body = s3("R", "GET", url=presign("R", k))
+            if st != 200 or body != content[k]:
+                raise AssertionError(f"R's GET of {k}: HTTP {st}")
+        step_counts("5 list", k0, 0, t0)
+        ranged_bytes = sum(hi - lo + 1 for lo, hi in spans.values())
+        steps["5 list"].update({
+            "pages": pages, "ranged_bytes": ranged_bytes,
+            "ranged_s": dt_ranged,
+            "mbps": ranged_bytes / dt_ranged / 1e6})
+        plog(f"5 list: ListObjectsV2 at max-keys {S3_PAGE} lists the "
+             f"{len(keys)} keys once, in order, with their sizes, in "
+             f"{pages} pages; a Range GET presigned by R and a HEAD of "
+             f"each object, equal to its draw: {ranged_bytes} B in "
+             f"{dt_ranged:.3f} s, {ranged_bytes / dt_ranged / 1e6:.1f} "
+             f"MB/s, no volume-tier fetch; R's PUT 403 AccessDenied; a "
+             f"policy denying R s3:GetObject on {S3_DENIED}: 4 of its "
+             f"{len(denied)} objects 403 for R, 4 others 200; K1 0")
+
+        # 6 the tenant counters and the shell
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        led = ledger()
+        for who, c in creds.items():
+            got = led["req"].get(c.access_key, 0) - \
+                led0["req"].get(c.access_key, 0)
+            want = ok_by_key[c.access_key] - ok0[c.access_key]
+            if got != want:
+                raise AssertionError(f"{who}'s tenant requests {got}; the "
+                                     f"phase made {want} successful ones")
+        # over steps 1 and 4, whose client data-class traffic is G's
+        # clients' (steps 2-3 poll the master through another client).
+        # Received bytes conserve exactly; the sent ones also hold the
+        # master's answers to F's EC location lookups, which book under
+        # the client role too, so they agree within 1 %
+        cons = {d: tuple(led1[k][d] - led0[k][d] + led4[k][d] -
+                         led3[k][d] for k in ("tenant", "flow"))
+                for d in ("recv", "sent")}
+        ten, flow = cons["recv"]
+        if not ten or ten != flow:
+            raise AssertionError(f"steps 1 and 4: tenant recv bytes "
+                                 f"{ten}; the ledger's client data recv "
+                                 f"{flow}")
+        ten, flow = cons["sent"]
+        if not ten or not ten <= flow <= 1.01 * ten:
+            raise AssertionError(f"steps 1 and 4: tenant sent bytes "
+                                 f"{ten}; the ledger's client data sent "
+                                 f"{flow}")
+        out = run("s3.bucket.list")
+        if S3_BUCKET not in out.split():
+            raise AssertionError(f"s3.bucket.list: {out!r}")
+        run("lock")
+        out = run("s3.configure -list")
+        run("unlock")
+        if sorted(line.split(":")[0] for line in out.splitlines()) != \
+                ["R", "W"]:
+            raise AssertionError(f"s3.configure -list: {out!r}")
+        step_counts("6 tenants", k0, 0, t0)
+        steps["6 tenants"].update({
+            "requests": {who: ok_by_key[c.access_key] - ok0[c.access_key]
+                         for who, c in creds.items()},
+            "bytes": cons})
+        plog(f"6 tenants: weedtpu_tenant_requests_total W "
+             f"{steps['6 tenants']['requests']['W']}, R "
+             f"{steps['6 tenants']['requests']['R']} == the phase's "
+             f"successful requests; weedtpu_tenant_bytes_total over "
+             f"steps 1 and 4 recv {cons['recv'][0]:.0f} B == the "
+             f"ledger's client data recv {cons['recv'][1]:.0f} B, sent "
+             f"{cons['sent'][0]:.0f} B against its "
+             f"{cons['sent'][1]:.0f} B; "
+             f"s3.bucket.list and s3.configure -list; K1 0")
+
+        # 7 a quarter of the keys deleted in one DeleteObjects
+        doomed = sorted(rng.choice([k for k in keys
+                                    if k not in multipart],
+                                   size=len(keys) // 4 - 1,
+                                   replace=False).tolist()) + [multipart[0]]
+        freed = {c.fid for k in doomed for c in entries[k].chunks}
+        holders = {vid: sorted(split(vid)) for vid in listed}
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        deleted0 = F.deletion.deleted_count
+        body = ("<Delete>" + "".join(f"<Object><Key>{k}</Key></Object>"
+                                     for k in doomed) + "</Delete>")
+        st, _, raw = s3("W", "POST", query={"delete": ""},
+                        body=body.encode())
+        if st != 200 or raw.count(b"<Deleted>") != len(doomed) or \
+                b"<Error>" in raw:
+            raise AssertionError(f"DeleteObjects: HTTP {st} {raw[:300]!r}")
+        until(lambda: F.deletion.pending_count() == 0 and
+              F.deletion.deleted_count + F.deletion.error_count -
+              deleted0 >= len(freed), "F's deletion queue never drained",
+              timeout=120)
+        dt_drain = time.perf_counter() - t0
+        if F.deletion.error_count or \
+                F.deletion.deleted_count - deleted0 != len(freed):
+            raise AssertionError(f"F's queue deleted "
+                                 f"{F.deletion.deleted_count - deleted0} "
+                                 f"of {len(freed)} fids, "
+                                 f"{F.deletion.error_count} errors")
+
+        def gone(fid: str) -> None:
+            for u in holders[int(fid.split(",")[0])]:
+                st, _, _ = racks.http.request(f"http://{u}/{fid}")
+                if st != 404:
+                    raise AssertionError(f"freed {fid} answers {st} on "
+                                         f"{node_of[u]}")
+        fan(gone, sorted(freed), S3_THREADS)
+        st, hdrs, body = s3("W", "GET", multipart[1])
+        if st != 200 or hashlib.sha256(body).hexdigest() != \
+                want_sha[multipart[1]]:
+            raise AssertionError(f"{multipart[1]} after the deletion: "
+                                 f"HTTP {st}, not its draw")
+        st, _, raw = s3("W", "GET", query={"list-type": "2"})
+        if st != 200 or raw.count(b"<Key>") != len(keys) - len(doomed):
+            raise AssertionError(f"the listing after the deletion: HTTP "
+                                 f"{st}, {raw.count(b'<Key>')} keys")
+        step_counts("7 delete", k0, 0, t0)
+        steps["7 delete"].update({"objects": len(doomed),
+                                  "freed": len(freed), "drain_s": dt_drain})
+        plog(f"7 delete: DeleteObjects of {len(doomed)} keys ({multipart[0]}"
+             f" among them); F's queue freed {len(freed)} fids in "
+             f"{dt_drain:.3f} s, each 404 on every holder; "
+             f"{multipart[1]} still reads equal to its draw; K1 0")
+    finally:
+        if G is not None:
+            grun(G.stop())
+        if F is not None:
+            frun(F.stop())
+        stop_loops(loops)
+        if pool is not None:
+            pool.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "steps": steps, "counts": counts,
+           "predicted": predicted, "s": time.perf_counter() - t_phase}
+    plog(f"launches per step {counts} (K1 predicted {predicted}); phase "
+         f"wall {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9938,8 +10630,8 @@ def main(argv=None) -> int:
                          for k in path_launches}
 
         # 23 the port's shell and client over three card servers in
-        # three racks, then 24 the port's filer and 25 its filer server
-        # on the same cluster, each counted on its own
+        # three racks, then 24 the port's filer, 25 its filer server and
+        # 26 its S3 gateway on the same cluster, each counted on its own
         with ThreeRacks(vdir) as racks:
             gf_cuda.reset_launches()
             phases["shell"] = phase_shell(
@@ -9998,10 +10690,28 @@ def main(argv=None) -> int:
                 f"copies {staged}")
             path_launches = {k: path_launches[k] + fs_launches[k]
                              for k in path_launches}
+
+            gf_cuda.reset_launches()
+            phases["s3"] = phase_s3(racks, vdir, args.seed, launches)
+            s3_launches = dict(launches)
+            staged = dict(gf_cuda.STAGED)
+            if any(staged.values()):
+                raise AssertionError(f"the s3 phase made the kernel "
+                                     f"wrapper stage copies of its input: "
+                                     f"{staged}")
+            if not s3_launches["gf_apply"] or \
+                    s3_launches["gf_apply_batch"]:
+                raise AssertionError(f"the s3 phase launched "
+                                     f"{s3_launches}: K1 and no K2 "
+                                     f"expected")
+            log(f"[path] phase 26: launches {s3_launches}, staged "
+                f"copies {staged}")
+            path_launches = {k: path_launches[k] + s3_launches[k]
+                             for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 26 report
+    # 27 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

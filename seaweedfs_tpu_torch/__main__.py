@@ -7,11 +7,16 @@ Counterpart of `seaweedfs_tpu/__main__.py`, cut to these subcommands:
   python -m seaweedfs_tpu_torch volume -dir /data -mserver host:9333 \\
       -port 8080 [-device cpu]
   python -m seaweedfs_tpu_torch server -dir /data [-volumePort 8080] \\
-      [-device cpu] [-filer [-filerPort 8888]]
-                         # a master, one volume server (and a filer) in
-                         # one process
+      [-device cpu] [-filer [-filerPort 8888]] \\
+      [-s3 [-s3Port 8333] [-s3Config s3.json]]
+                         # a master, one volume server (a filer, and an
+                         # S3 gateway, which implies -filer) in one process
   python -m seaweedfs_tpu_torch filer -master host:9333 [-port 8888] \\
       [-dir D]           # the filer server, sqlite store in D
+  python -m seaweedfs_tpu_torch s3 -filer host:8888 [-port 8333] \\
+      [-config s3.json]  # the S3 gateway; no -config allows all
+  python -m seaweedfs_tpu_torch iam -filer host:8888 [-port 8111]
+                         # the IAM API, identities in the filer
   python -m seaweedfs_tpu_torch master.follower -masters host:9333 \\
       [-port 9334]       # read-only lookups, writes proxied to the leader
   python -m seaweedfs_tpu_torch shell -master host:9333 [-c "cmd; cmd"]
@@ -19,17 +24,17 @@ Counterpart of `seaweedfs_tpu/__main__.py`, cut to these subcommands:
   python -m seaweedfs_tpu_torch download -master host:9333 [-dir D] FID...
   python -m seaweedfs_tpu_torch benchmark -master host:9333 [-n N]
 
-The master, the follower, the filer, the shell and the client tools have
-no device and load no torch.  A volume server (`volume`, and `server`'s)
+The master, the follower, the filer, the S3 gateway, the IAM API, the
+shell and the client tools have no device and load no torch.  A volume server (`volume`, and `server`'s)
 runs its codecs on the card unless `-device cpu` asks for the plain
 versions; without a card and without `-device cpu` it raises.  `-cpuprofile FILE`
 writes a cProfile dump when the process stops, `--torch-profile DIR` a
 `torch.profiler` Chrome trace (the reference's `--jax-profile`; it loads
 torch), and SIGUSR1 dumps every thread's stack
 (utils/grace.py).  `filer`'s `-notification.log` and
-`-notification.webhook` come with ROADMAP 1.22a, `server`'s `-s3`,
-`-webdav` and `-mq` with 1.21-1.22, the `s3`, `iam`, `webdav`, `mount`
-and `mq.broker` subcommands with them, and `fix`, `compact`, `export`,
+`-notification.webhook` come with ROADMAP 1.22a, `server`'s `-webdav`
+and `-mq` with 1.21b-1.22b, the `webdav`, `mount` and `mq.broker`
+subcommands with them, and `fix`, `compact`, `export`,
 `backup`, `scaffold`, `version`, `autocomplete` and `certs` with 1.19c.
 """
 
@@ -113,8 +118,9 @@ async def _run_master(args) -> int:
 
 
 async def _run_server(args) -> int:
-    """A master, one volume server and with `-filer` a filer in one
-    process (reference: `_run_server`, cut to those three)."""
+    """A master, one volume server, with `-filer` a filer and with `-s3`
+    a filer and an S3 gateway in one process (reference: `_run_server`,
+    cut to those four)."""
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     security = _security(args)
     m = _master(args, security)
@@ -124,15 +130,22 @@ async def _run_server(args) -> int:
                      data_center=args.dataCenter, rack=args.rack,
                      security=security, device=args.device)
     await v.start()
-    f = None
-    if args.filer:
+    f = s3 = None
+    if args.filer or args.s3:
         from seaweedfs_tpu_torch.server.filer_server import FilerServer
         f = FilerServer(m.url, args.ip, args.filerPort, data_dir=args.dir[0],
                         security=security)
         await f.start()
+    if args.s3:
+        from seaweedfs_tpu_torch.s3.s3api_server import S3ApiServer
+        s3 = S3ApiServer(f.url, args.ip, args.s3Port,
+                         iam=_iam(args.s3Config), security=security,
+                         master_url=m.url)
+        await s3.start()
     await _serve_forever()
-    if f is not None:
-        await f.stop()
+    for srv in (s3, f):
+        if srv is not None:
+            await srv.stop()
     await v.stop()
     await m.stop()
     return 0
@@ -150,6 +163,32 @@ async def _run_filer(args) -> int:
     await f.start()
     await _serve_forever()
     await f.stop()
+    return 0
+
+
+def _iam(config):
+    from seaweedfs_tpu_torch.s3.auth import IdentityAccessManagement
+    return IdentityAccessManagement.from_file(config) if config \
+        else IdentityAccessManagement()
+
+
+async def _run_s3(args) -> int:
+    from seaweedfs_tpu_torch.s3.s3api_server import S3ApiServer
+    s = S3ApiServer(args.filer, args.ip, args.port, iam=_iam(args.config),
+                    security=_security(args))
+    await s.start()
+    await _serve_forever()
+    await s.stop()
+    return 0
+
+
+async def _run_iam(args) -> int:
+    from seaweedfs_tpu_torch.s3.iamapi_server import IamApiServer
+    s = IamApiServer(args.filer, args.ip, args.port,
+                     security=_security(args))
+    await s.start()
+    await _serve_forever()
+    await s.stop()
     return 0
 
 
@@ -281,6 +320,10 @@ def main(argv=None) -> int:
     ps.add_argument("-filer", action="store_true",
                     help="also run a filer (in-proc, sqlite store in -dir)")
     ps.add_argument("-filerPort", type=int, default=8888)
+    ps.add_argument("-s3", action="store_true",
+                    help="also run the S3 gateway (implies -filer)")
+    ps.add_argument("-s3Port", type=int, default=8333)
+    ps.add_argument("-s3Config", default=None)
     _add_common_flags(ps)
     pf = sub.add_parser("filer")
     pf.add_argument("-ip", default="127.0.0.1")
@@ -303,6 +346,16 @@ def main(argv=None) -> int:
     pf.add_argument("-cacheCapacityMB", type=int, default=0,
                     help="on-disk chunk cache size (0 = memory-only)")
     _add_common_flags(pf)
+    p3 = sub.add_parser("s3")
+    p3.add_argument("-ip", default="127.0.0.1")
+    p3.add_argument("-port", type=int, default=8333)
+    p3.add_argument("-filer", default="127.0.0.1:8888")
+    p3.add_argument("-config", default=None,
+                    help="s3.json identities file; omit = allow all")
+    pi = sub.add_parser("iam")
+    pi.add_argument("-ip", default="127.0.0.1")
+    pi.add_argument("-port", type=int, default=8111)
+    pi.add_argument("-filer", default="127.0.0.1:8888")
 
     pmf = sub.add_parser(
         "master.follower",
@@ -333,7 +386,7 @@ def main(argv=None) -> int:
     pdl.add_argument("-master", default="127.0.0.1:9333")
     pdl.add_argument("-dir", default=".")
     pdl.add_argument("fids", nargs="+")
-    for p in (pmf, psh, pb, pup, pdl):
+    for p in (p3, pi, pmf, psh, pb, pup, pdl):
         _add_common_flags(p)
     args = ap.parse_args(argv)
 
@@ -351,8 +404,8 @@ def main(argv=None) -> int:
         _security(args)
         return sync[args.cmd](args)
     run = {"master": _run_master, "volume": _run_volume,
-           "server": _run_server, "filer": _run_filer,
-           "master.follower": _run_follower}[args.cmd]
+           "server": _run_server, "filer": _run_filer, "s3": _run_s3,
+           "iam": _run_iam, "master.follower": _run_follower}[args.cmd]
     return asyncio.run(run(args))
 
 

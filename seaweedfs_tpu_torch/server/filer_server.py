@@ -390,6 +390,10 @@ class FilerServer:
             self._hot_seed_task.cancel()
         for task in self._peer_tasks.values():
             task.cancel()
+        # live /__meta__/subscribe handlers end now rather than at their
+        # next keepalive, which the runner's cleanup would wait for
+        for q in self._subscribers | self._local_subscribers:
+            q.put_nowait(None)
         self.deletion.stop(drain=False)
         if self._session:
             await self._session.close()
@@ -1609,6 +1613,8 @@ class FilerServer:
                     # doesn't hang on handlers parked in q.get()
                     await resp.write(b"\n")
                     continue
+                if payload is None:  # the filer is stopping
+                    break
                 d = json.loads(payload)
                 if d["ts_ns"] <= last_ts:
                     continue

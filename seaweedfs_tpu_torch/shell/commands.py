@@ -1,16 +1,17 @@
 """Admin shell command environment + commands.
 
 Counterpart of `seaweedfs_tpu/shell/commands.py`, cut to the commands
-that need no S3 gateway, remote store or message queue (71 of the
+that need no remote store, message queue or mount (79 of the
 reference's 95): `help`, `lock`, `unlock`, the `volume.*` commands but
 `volume.tier.*`, the `collection.*`, `ec.*` and `cluster.*` commands
-but `cluster.geo`, `maintenance.status`, `chaos.status`, and the 18
-`fs.*` commands, which drive the first filer registered with the master
-over its HTTP API (`volume.fsck` lists that filer's tree too).  The
-`s3.*`, `remote.*` and `mq.*` commands, `mount.configure`,
-`volume.tier.*` and `cluster.geo` come with ROADMAP 1.21a-1.22b, so
-`help` and the unknown-command error list fewer names than the
-reference's.  `fs.meta.notify` needs a filer started with a
+but `cluster.geo`, `maintenance.status`, `chaos.status`, the 18 `fs.*`
+commands, which drive the first filer registered with the master over
+its HTTP API (`volume.fsck` lists that filer's tree too), and the 8
+`s3.*` commands, which keep the gateways' buckets, identities, quotas
+and circuit breaker in that filer.  The `remote.*` and `mq.*` commands,
+`mount.configure`, `volume.tier.*` and `cluster.geo` come with ROADMAP
+1.21b-1.22b, so `help` and the unknown-command error list fewer names
+than the reference's.  `fs.meta.notify` needs a filer started with a
 notification queue, which the port's CLI offers from 1.22a.
 
 The shell drives the cluster purely over the master/volume-server HTTP
@@ -1703,6 +1704,33 @@ def cmd_fs_meta_cat(env: CommandEnv, args, out):
     print(json.dumps(meta, indent=2, default=str), file=out)
 
 
+@command("s3.bucket.list")
+def cmd_s3_bucket_list(env: CommandEnv, args, out):
+    filer = env.find_filer()
+    for e in env.filer_list(filer, "/buckets"):
+        if e.get("IsDirectory"):
+            print(e["FullPath"].rsplit("/", 1)[-1], file=out)
+
+
+@command("s3.bucket.create")
+def cmd_s3_bucket_create(env: CommandEnv, args, out):
+    flags = parse_flags(args)
+    name = flags.get("name", args[-1] if args else "")
+    filer = env.find_filer()
+    env._call(f"{filer}/buckets/{name}/", {}, method="POST")
+    print(f"created bucket {name}", file=out)
+
+
+@command("s3.bucket.delete")
+def cmd_s3_bucket_delete(env: CommandEnv, args, out):
+    env.require_lock()
+    flags = parse_flags(args)
+    name = flags.get("name", args[-1] if args else "")
+    filer = env.find_filer()
+    env.filer_delete(filer, f"/buckets/{name}", recursive=True)
+    print(f"deleted bucket {name}", file=out)
+
+
 @command("volume.grow")
 def cmd_volume_grow(env: CommandEnv, args, out):
     """Pre-allocate writable volumes (reference: command_volume_grow /
@@ -1777,6 +1805,30 @@ def cmd_fs_tree(env: CommandEnv, args, out):
     walk(path.rstrip("/") or "/", 1)
 
 
+@command("s3.clean.uploads")
+def cmd_s3_clean_uploads(env: CommandEnv, args, out):
+    """Purge abandoned multipart uploads older than -timeAgo (reference:
+    command_s3_clean_uploads.go)."""
+    env.require_lock()
+    flags = parse_flags(args)
+    max_age = parse_duration(flags.get("timeAgo", "24h") or "0")
+    filer = env.find_filer()
+    import time as _time
+    cutoff = _time.time() - max_age
+    removed = 0
+    for bucket in env.filer_list(filer, "/buckets"):
+        if not bucket.get("IsDirectory"):
+            continue
+        uploads_dir = bucket["FullPath"] + "/.uploads"
+        for up in env.filer_list(filer, uploads_dir):
+            if up.get("Mtime", 0) < cutoff:
+                env.filer_delete(filer, up["FullPath"], recursive=True)
+                removed += 1
+                print(f"removed {up['FullPath']}", file=out)
+    print(f"s3.clean.uploads: {removed} abandoned upload(s) removed",
+          file=out)
+
+
 @command("fs.meta.save")
 def cmd_fs_meta_save(env: CommandEnv, args, out):
     """Dump a filer subtree's metadata (entries incl. chunk refs) to a
@@ -1846,6 +1898,58 @@ def cmd_volume_configure_replication(env: CommandEnv, args, out):
         env.vs_post(url, "/admin/volume/configure_replication",
                     {"volume": vid, "replication": rp})
         print(f"volume {vid} on {url}: replication -> {rp}", file=out)
+
+
+@command("s3.configure")
+def cmd_s3_configure(env: CommandEnv, args, out):
+    """Manage S3 identities in the filer-stored identity.json, which
+    running gateways hot-reload (reference: command_s3_configure.go).
+      s3.configure -user NAME -access_key AK -secret_key SK -actions Admin
+      s3.configure -user NAME -delete
+      s3.configure -list"""
+    env.require_lock()
+    flags = parse_flags(args)
+    filer = env.find_filer()
+    from seaweedfs_tpu_torch.s3.iamapi_server import IDENTITY_PATH
+    try:
+        cfg = json.loads(env.filer_read(filer, IDENTITY_PATH))
+    except Exception:
+        cfg = {"identities": []}
+    idents = cfg.setdefault("identities", [])
+    if flags.get("list"):
+        for i in idents:
+            keys = ",".join(c.get("accessKey", "") for c in
+                            i.get("credentials", []))
+            print(f"{i.get('name')}: actions={i.get('actions')} "
+                  f"keys=[{keys}]", file=out)
+        if not idents:
+            print("no identities configured", file=out)
+        return
+    user = flags.get("user", "")
+    if not user:
+        raise RuntimeError("s3.configure needs -user (or -list)")
+    existing = next((i for i in idents if i.get("name") == user), None)
+    if flags.get("delete"):
+        if existing:
+            idents.remove(existing)
+            print(f"deleted identity {user}", file=out)
+    else:
+        if existing is None:
+            existing = {"name": user, "credentials": [], "actions": []}
+            idents.append(existing)
+        if flags.get("access_key"):
+            existing["credentials"] = [{
+                "accessKey": flags["access_key"],
+                "secretKey": flags.get("secret_key", "")}]
+        if flags.get("actions"):
+            existing["actions"] = flags["actions"].split(",")
+        print(f"configured identity {user}: {existing['actions']}", file=out)
+    payload = json.dumps(cfg, indent=1).encode()
+    req = urllib.request.Request(
+        f"{_tls_scheme()}://{filer}{urllib.parse.quote(IDENTITY_PATH)}",
+        data=payload, method="PUT")
+    with urllib.request.urlopen(req, timeout=30):
+        pass
 
 
 @command("cluster.ps")
@@ -2468,3 +2572,127 @@ def cmd_fs_merge_volumes(env: CommandEnv, args, out):
     print(f"fs.merge.volumes: {chunks} chunk(s) in {files} file(s) "
           f"{'moved off' if apply else 'on'} volume {src_vid}"
           + ("" if apply else " (dry run; add -apply)"), file=out)
+
+
+@command("s3.bucket.quota")
+def cmd_s3_bucket_quota(env: CommandEnv, args, out):
+    """Set/clear a bucket's byte quota, stored on the bucket entry
+    (reference: command_s3_bucket_quota.go).  -name b -quotaMB 100 |
+    -name b -delete; s3.bucket.quota.check enforces."""
+    flags = parse_flags(args)
+    name = flags.get("name", "")
+    if not name:
+        raise RuntimeError("-name required")
+    filer = env.find_filer()
+    entry = env.master_get_raw(filer, f"/buckets/{name}",
+                               metadata="true")
+    if "delete" in flags:
+        entry["quota"] = 0
+    elif "quotaMB" not in flags:
+        raise RuntimeError("-quotaMB <megabytes> or -delete required")
+    else:
+        entry["quota"] = int(float(flags["quotaMB"]) * 1024 * 1024)
+    env._call(f"{filer}/__admin__/entry", {"entry": entry})
+    q = entry["quota"]
+    print(f"bucket {name}: quota "
+          + (f"{q} bytes" if q else "removed"), file=out)
+
+
+@command("s3.bucket.quota.check")
+def cmd_s3_bucket_quota_check(env: CommandEnv, args, out):
+    """Walk each bucket's usage and enforce its quota by toggling a
+    read-only filer rule on the bucket prefix (reference:
+    command_s3_bucket_quota_check.go; the reference emails/flips
+    read-only the same way).  Dry-run unless -apply."""
+    flags = parse_flags(args)
+    apply = "apply" in flags
+    filer = env.find_filer()
+
+    def usage(d: str) -> int:
+        total = 0
+        for e in env.filer_list(filer, d):
+            if e.get("IsDirectory"):
+                total += usage(e["FullPath"])
+            else:
+                total += e.get("FileSize", 0)
+        return total
+
+    conf = env.master_get_raw(filer, "/__admin__/filer_conf")
+    rules = conf.get("locations", [])
+    changed = 0
+    for b in env.filer_list(filer, "/buckets"):
+        if not b.get("IsDirectory"):
+            continue
+        name = b["FullPath"].rsplit("/", 1)[-1]
+        entry = env.master_get_raw(filer, f"/buckets/{name}",
+                                   metadata="true")
+        quota = int(entry.get("quota", 0) or 0)
+        if quota <= 0:
+            continue
+        used = usage(f"/buckets/{name}")
+        prefix = f"/buckets/{name}/"
+        rule = next((r for r in rules
+                     if r.get("location_prefix") == prefix), None)
+        over = used > quota
+        state = "OVER" if over else "ok"
+        print(f"bucket {name}: {used}/{quota} bytes [{state}]", file=out)
+        # merge into any existing rule at this prefix: a lifecycle TTL
+        # (or other settings) at /buckets/<b>/ must survive the toggle
+        if over and not (rule and rule.get("read_only")):
+            if apply:
+                merged = dict(rule or {"location_prefix": prefix,
+                                       "collection": name})
+                merged["read_only"] = True
+                env._call(f"{filer}/__admin__/filer_conf", merged)
+                changed += 1
+            else:
+                print(f"  would mark {prefix} read-only (-apply)",
+                      file=out)
+        elif not over and rule and rule.get("read_only"):
+            if apply:
+                keeps_other = any(rule.get(k) for k in
+                                  ("ttl", "replication", "fsync",
+                                   "disk_type"))
+                if keeps_other:
+                    env._call(f"{filer}/__admin__/filer_conf",
+                              dict(rule, read_only=False))
+                else:
+                    env._call(f"{filer}/__admin__/filer_conf",
+                              {"delete_prefix": prefix})
+                changed += 1
+            else:
+                print(f"  would clear read-only on {prefix} (-apply)",
+                      file=out)
+    if apply:
+        print(f"{changed} rule change(s) applied", file=out)
+
+
+@command("s3.circuitbreaker")
+def cmd_s3_circuitbreaker(env: CommandEnv, args, out):
+    """Show or set the S3 gateway circuit-breaker limits, stored in the
+    filer at /etc/s3/circuit_breaker.json and hot-reloaded by every
+    gateway (reference: command_s3_circuitbreaker.go).
+    [-global.requests N] [-global.uploadBytes N] [-bucket.requests N]
+    [-apply]   (without -apply: print the stored config)"""
+    flags = parse_flags(args)
+    from seaweedfs_tpu_torch.s3.s3api_server import CIRCUIT_BREAKER_PATH
+    filer = env.find_filer()
+    if "apply" not in flags:
+        try:
+            raw = env.filer_read(filer, CIRCUIT_BREAKER_PATH)
+            print(raw.decode(), file=out)
+        except Exception:
+            print("no circuit breaker configured", file=out)
+        return
+    cfg = {
+        "global_max_requests": int(flags.get("global.requests", "0")),
+        "global_max_upload_bytes": int(flags.get("global.uploadBytes", "0")),
+        "bucket_max_requests": int(flags.get("bucket.requests", "0")),
+    }
+    req = urllib.request.Request(
+        f"{_tls_scheme()}://{filer}"
+        + urllib.parse.quote(CIRCUIT_BREAKER_PATH),
+        data=json.dumps(cfg).encode(), method="PUT")
+    with urllib.request.urlopen(req, timeout=60):
+        pass
+    print(f"s3.circuitbreaker applied: {json.dumps(cfg)}", file=out)

@@ -23,8 +23,9 @@ forward (`inject`).  `/heat` (`handle_heat`) serves `serialize()`, the
 form the master's /cluster/heat fan-out merges (`merge_serialized`:
 Space-Saving and Count-Min merges, decay-adjusted to the merger's
 clock).  The reference's defaults are constants here (the switch, top-K
-size and half-life knobs); tenant resolution at the edge comes with the
-S3 gateway (ROADMAP 1.21).
+size and half-life knobs).  The S3 gateway is the tenant edge: it
+resolves each request's tenant once (`resolve_tenant`: the access key,
+else the bucket, else ``anonymous``).
 """
 
 from __future__ import annotations
@@ -438,6 +439,10 @@ _tenant: ContextVar[str | None] = ContextVar("weedtpu_tenant",
                                              default=None)
 
 
+def current_tenant() -> str | None:
+    return _tenant.get()
+
+
 def set_tenant(tenant: str | None):
     """Raw contextvar set -> reset token (the server middleware's
     seam)."""
@@ -455,3 +460,38 @@ def inject(headers: dict) -> dict:
     if tenant:
         headers[TENANT_HEADER] = tenant
     return headers
+
+
+def resolve_tenant(headers, query: dict, path: str) -> str:
+    """The tenant of one s3 request, read from its syntax alone (no
+    signature check: this is attribution, not authorization): the SigV4
+    or V2 access key when one is presented, else the bucket name, else
+    ``anonymous``.  The gateway resolves it once per request; heat, the
+    per-tenant counters and QoS admission read that one value."""
+    auth = headers.get("Authorization", "")
+    tenant = _raw_tenant(auth, query, path)
+    # bounded: it becomes a metric label and a sketch key, and the
+    # header or path it came from is caller-sized
+    return tenant[:64]
+
+
+def _raw_tenant(auth: str, query: dict, path: str) -> str:
+    if auth.startswith("AWS4-HMAC-SHA256"):
+        # Credential=AKIA.../20260803/us-east-1/s3/aws4_request
+        idx = auth.find("Credential=")
+        if idx >= 0:
+            cred = auth[idx + len("Credential="):]
+            key = cred.split("/", 1)[0].split(",", 1)[0].strip()
+            if key:
+                return key
+    elif auth.startswith("AWS "):
+        key = auth[4:].split(":", 1)[0].strip()
+        if key:
+            return key
+    cred = query.get("X-Amz-Credential", "")
+    if cred:
+        key = cred.split("/", 1)[0].strip()
+        if key:
+            return key
+    bucket = path.lstrip("/").partition("/")[0]
+    return bucket or "anonymous"

@@ -6,8 +6,8 @@ weed/stats/metrics.go), cut to what the port's data plane touches: the
 metric classes, the registry and its exposition format 0.0.4 (OpenMetrics
 on request) with its own size (`series_count`, `weedtpu_metric_series`),
 the families the port's telemetry, its volume server, its master, the
-master's planes, its maintenance plane and its filer server book into,
-under the reference's names, labels and buckets, and the servers' `/metrics` response (`scrape_response`).  The
+master's planes, its maintenance plane, its filer server and its S3
+gateway book into, under the reference's names, labels and buckets, and the servers' `/metrics` response (`scrape_response`).  The
 push-gateway loop (`MetricsPusher`) is left out for want of a caller;
 the other servers' families come with those servers.
 """
@@ -397,6 +397,9 @@ HOT_TIER_EVENTS = REGISTRY.gauge(
 HOT_TIER_RING = REGISTRY.gauge(
     "weedtpu_hot_tier_ring_members", "live filers in the hot-tier "
     "rendezvous ring, as this node sees it")
+S3_QOS = REGISTRY.counter(
+    "weedtpu_s3_qos_total", "tenant QoS admission verdicts at the s3 "
+    "edge", ("outcome",))
 NEEDLE_CRC_MISMATCH = REGISTRY.counter(
     "weedtpu_needle_crc_mismatch_total",
     "store-volume reads that failed CRC verification")
@@ -425,6 +428,18 @@ CANARY_PROBES = REGISTRY.counter(
     "canary probes by gateway path and status class", ("path", "class"))
 CANARY_PROBE_SECONDS = REGISTRY.histogram(
     "weedtpu_canary_probe_seconds", "canary probe latency", ("path",))
+# per-tenant accounting at the s3 gateway (the trace middleware's tenant
+# edge, stats/heat.py's resolve_tenant): the request counter and the
+# byte counter that conserves with the netflow ledger's data-class
+# totals on the gateway that resolved the tenant
+TENANT_REQUESTS = REGISTRY.counter(
+    "weedtpu_tenant_requests_total",
+    "completed gateway requests by tenant and read/write op",
+    ("tenant", "op"))
+TENANT_BYTES = REGISTRY.counter(
+    "weedtpu_tenant_bytes_total",
+    "body bytes moved for a tenant by direction and op",
+    ("tenant", "direction", "op"))
 PREDICTED_FULL = REGISTRY.gauge(
     "weedtpu_predicted_full_seconds",
     "seconds until a data dir is predicted to fill (linear fill-rate "

@@ -403,6 +403,7 @@ def inflight() -> list[dict]:
 # -- aiohttp server glue ------------------------------------------------
 
 def aiohttp_middleware(role: str, slow_exempt: tuple = (),
+                       trust_flow: bool | str = True, tenant_resolver=None,
                        region: str = ""):
     """Server-side half of the propagation: extract X-Weedtpu-Trace (or
     make a root sampling decision), register the request in the in-flight
@@ -414,10 +415,23 @@ def aiohttp_middleware(role: str, slow_exempt: tuple = (),
     stamped on every span (the master's geo federation).  Client
     disconnects (CancelledError) are neither slow nor errored.
 
-    The caller's X-Weedtpu-Class/-Role headers and its tenant
-    (X-Weedtpu-Tenant) are honoured, as on every cluster-internal server
-    of the reference: that propagation is how a repair's shard pulls book
-    as repair two hops away.  The class becomes ambient for the handler;
+    `trust_flow` says whose X-Weedtpu-Class/-Role headers and tenant
+    (X-Weedtpu-Tenant) are honoured.  Cluster-internal servers keep the
+    default True: that propagation is how a repair's shard pulls book as
+    repair two hops away.  The public S3 gateway passes "loopback": only a
+    same-host caller (the master's canary) may declare them, so a remote
+    client cannot move its failures out of the data-plane SLO, poison the
+    repair-traffic ledger or bill another tenant.
+
+    `tenant_resolver` makes this server a tenant edge: without a trusted
+    tenant header it resolves the request's tenant once (`anonymous` if
+    the resolver raises), the tenant rides the contextvar for the
+    handler's downstream hops, and the per-tenant counters
+    (weedtpu_tenant_requests_total, weedtpu_tenant_bytes_total, booked on
+    success only, beside the byte ledger's booking) and the tenant heat
+    dimension are booked here and nowhere else.
+
+    The class becomes ambient for the handler;
     the request and reply bodies are booked into the byte ledger, and
     the request into weedtpu_http_requests_total{server,op,class}
     (op "internal" for cluster plumbing).  An incoming X-Weedtpu-Deadline,
@@ -451,18 +465,34 @@ def aiohttp_middleware(role: str, slow_exempt: tuple = (),
         else:
             t = None
         token = _current.set(t) if t is not None else None
-        flow_cls = netflow.extract_class(req.headers, req.path)
-        flow_peer = req.headers.get(netflow.ROLE_HEADER, "client")
+        trusted = trust_flow is True or \
+            (trust_flow == "loopback" and req.remote in ("127.0.0.1",
+                                                         "::1"))
+        if trusted:
+            flow_cls = netflow.extract_class(req.headers, req.path)
+            flow_peer = req.headers.get(netflow.ROLE_HEADER, "client")
+        else:
+            flow_cls = netflow.classify(req.path)
+            flow_peer = "client"
         # a declared-internal request must not inflate the data-plane
         # availability denominators
         if flow_cls == "internal" or netflow.is_internal(req.path):
             op = "internal"
         else:
             op = "read" if req.method in ("GET", "HEAD") else "write"
-        # the header is caller-sized: the tenant becomes a metric label
+        # a trusted header wins (an inner hop inheriting the edge's
+        # tenant); else the tenant edge resolves it from the request.
+        # The header is caller-sized: the tenant becomes a metric label
+        tenant = None
         hdr_tenant = req.headers.get(heat.TENANT_HEADER)
-        tenant_token = heat.set_tenant(hdr_tenant[:64]) \
-            if hdr_tenant else None
+        if hdr_tenant and trusted:
+            tenant = hdr_tenant[:64]
+        elif tenant_resolver is not None:
+            try:
+                tenant = tenant_resolver(req)
+            except Exception:
+                tenant = "anonymous"
+        tenant_token = heat.set_tenant(tenant) if tenant else None
         flow_token = netflow.set_class(flow_cls)
         deadline_s = resilience.extract_deadline_s(req.headers)
         if deadline_s is None and op != "internal":
@@ -539,9 +569,25 @@ def aiohttp_middleware(role: str, slow_exempt: tuple = (),
             # StreamReader's total_bytes knows what actually arrived
             recv = req.content_length if req.content_length is not None \
                 else getattr(req.content, "total_bytes", 0)
+            sent = netflow.response_bytes(resp_obj)
             netflow.account("recv", flow_cls, flow_peer, recv or 0)
-            netflow.account("sent", flow_cls, flow_peer,
-                            netflow.response_bytes(resp_obj))
+            netflow.account("sent", flow_cls, flow_peer, sent)
+            if tenant and tenant_resolver is not None \
+                    and op != "internal":
+                # the counters book successes only: the tenant is read
+                # before auth, and booking 4xx would let a caller mint a
+                # label per random access key; rejected load still shows
+                # in the bounded, decaying heat sketch
+                if status < 400 and not cancelled:
+                    metrics.TENANT_REQUESTS.labels(tenant, op).inc()
+                    if recv:
+                        metrics.TENANT_BYTES.labels(
+                            tenant, "recv", op).inc(recv)
+                    if sent:
+                        metrics.TENANT_BYTES.labels(
+                            tenant, "sent", op).inc(sent)
+                heat.record("tenant", tenant, (recv or 0) + sent,
+                            "write" if op == "write" else "read")
             if not cancelled:
                 metrics.HTTP_REQUESTS.labels(
                     role, op, f"{status // 100}xx").inc()

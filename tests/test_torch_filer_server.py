@@ -19,6 +19,8 @@ client.
   read through a placeholder entry.
 - The CLI's `filer` as a subprocess: it serves a PUT and a GET and loads
   neither jax, torch nor the reference package.
+- A filer with a live `/__meta__/subscribe` stream stops at once, not at
+  the stream's next keepalive as the reference's does.
 """
 
 import asyncio
@@ -643,3 +645,27 @@ def test_filer_cli_serves_without_jax_or_torch(tmp_path):
             proc.wait()
         log.close()
         c.stop()
+
+
+# ---- stopping with live subscribers -------------------------------------------
+
+def test_stop_ends_live_subscriptions_at_once(fcluster):
+    """A filer with a live /__meta__/subscribe stream (here a reader that
+    never hangs up) stops at once: the handler ends on the stop rather
+    than at its next 5 s keepalive, which the runner's cleanup would wait
+    for (the reference's filer waits)."""
+    f = fcluster.filer
+    r = urllib.request.urlopen(
+        f"http://{f.url}/__meta__/subscribe?prefix=/&live=true", timeout=30)
+    try:
+        deadline = time.time() + 5
+        while not f._subscribers:
+            assert time.time() < deadline, "the stream never subscribed"
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        fcluster.submit(f.stop())
+        assert time.perf_counter() - t0 < 1.0
+        assert not f._subscribers
+    finally:
+        r.close()
+    fcluster.submit(f.start())  # the fixture stops it again

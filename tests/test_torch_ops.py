@@ -55,8 +55,10 @@ def test_port_imports_no_jax_and_no_reference(path):
     # imported at module level (security/tls.py imports cryptography
     # inside generate_certs, which nothing on the card's path calls);
     # the servers' own modules are the exception, aiohttp being what
-    # they serve with
-    if path.parent.name == "server":
+    # they serve with: those under server/ and the S3 gateway's two
+    if path.parent.name == "server" or path.relative_to(REPO).as_posix() \
+            in ("seaweedfs_tpu_torch/s3/s3api_server.py",
+                "seaweedfs_tpu_torch/s3/iamapi_server.py"):
         return
     for node in tree.body:
         if isinstance(node, (ast.Import, ast.ImportFrom)):
@@ -145,6 +147,53 @@ def test_import_rule_covers_the_filer_server_slice():
                 "replication/filer_sync.py", "remote_storage.py",
                 "utils/vid_cache.py", "shell/commands.py"):
         assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
+def test_import_rule_covers_the_s3_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("s3/__init__.py", "s3/auth.py", "s3/policy.py",
+                "s3/circuit_breaker.py", "s3/qos.py", "s3/iamapi_server.py",
+                "s3/s3api_server.py", "stats/heat.py", "stats/trace.py",
+                "stats/metrics.py", "shell/commands.py", "__main__.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
+def test_s3_gateway_leaves_jax_and_torch_unloaded():
+    """The gateway, the IAM API and the `s3.*` commands in a fresh
+    interpreter: a request signed by `sign_v4` and a streamed one by
+    `sign_v4_chunked` verify, a gateway and an IAM API are built, the
+    shell lists its `s3.*` commands; neither jax, torch nor the
+    reference package gets imported, and the signing, policy, breaker
+    and QoS modules load without aiohttp."""
+    code = (
+        "import sys\n"
+        "from seaweedfs_tpu_torch.s3 import (auth, circuit_breaker, "
+        "policy, qos)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == "
+        "'aiohttp'], 'aiohttp'\n"
+        "c = auth.Credential('AK', 'SK')\n"
+        "iam = auth.IdentityAccessManagement([auth.Identity('a', [c], "
+        "['Admin'])])\n"
+        "def both(h):  # a server's headers are case-insensitive\n"
+        "    return {**h, **{k.lower(): v for k, v in h.items()}}\n"
+        "h = both(auth.sign_v4(c, 'PUT', 'h:1', '/b/k', {}, payload=b'x'))\n"
+        "assert iam.authenticate('PUT', '/b/k', {}, h).name == 'a'\n"
+        "h, body = auth.sign_v4_chunked(c, 'PUT', 'h:1', '/b/k', {}, "
+        "b'y' * 70000)\n"
+        "ctx = iam.chunked_context(both(h))\n"
+        "assert auth.decode_aws_chunked(body, ctx, 70000) == b'y' * 70000\n"
+        "from seaweedfs_tpu_torch.s3.s3api_server import S3ApiServer\n"
+        "from seaweedfs_tpu_torch.s3.iamapi_server import IamApiServer\n"
+        "from seaweedfs_tpu_torch.shell import commands\n"
+        "S3ApiServer('127.0.0.1:1', port=0, iam=iam)\n"
+        "IamApiServer('127.0.0.1:1', port=0)\n"
+        "assert len([n for n in commands.COMMANDS "
+        "if n.startswith('s3.')]) == 8\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'torch', 'seaweedfs_tpu')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
 
 
 def test_filer_server_leaves_jax_and_torch_unloaded(tmp_path):
