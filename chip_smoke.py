@@ -501,7 +501,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                every freed fid 404 on every holder, the other multipart
                object read whole, K1 0; K2 0; launches zeroed before and
                read after
- 27 report     {"kernels": [...]} line, the card's name and power limit,
+ 27 webdav     the port's WebDAV gateway and mount (ROADMAP 1.21b) and
+               the CLI's offline tools (1.19c) on the same cluster, kept
+               up for it: one port `FilerServer` F (a fresh SQLite store,
+               collection p27, a 512 MiB chunk cache), one port
+               `WebDavServer` D over F and one port `WFS` M over F, its
+               meta subscription and admin socket live, driven through
+               its VFS calls (no kernel mount); (1) a MKCOL tree and 128
+               MiB of files from --seed PUT through D from 16 threads,
+               36.5 MiB through M (256 KiB writes, a sparse file,
+               appends, an overwrite in place, a truncate, a symlink, a
+               hard link, an xattr); (2) `ec.encode -collection p27`, K1
+               == the layout's units; (3) data shards 0 and 3 of every
+               p27 EC volume deleted; (4) every file read in full
+               through D, sha256 == its draw, F's `direct` == the
+               distinct chunks, K1 one per such fetch touching a lost
+               data shard, then ranged through D and at offsets through
+               M, every byte equal; (5) PROPFIND at Depth 1 of each
+               directory == F's listing, a MOVE and a COPY of subtrees
+               through D, M's meta cache seeing the new names through
+               its subscription, K1 0; (6) `mount.configure` through the
+               port's shell: a quota under M's usage fails a write with
+               EDQUOT, clearing it lets it through; (7) DELETE of a
+               subtree, a copy and a file through D, every freed fid 404
+               on every holder; (8) a child running the CLI's `backup` of a
+               p27 volume from its card server, `fix`, `export` and
+               `compact` of the copy, each checked against the server's
+               volume, no torch loaded; K2 0; launches zeroed before and
+               read after
+ 28 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -510,7 +538,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12-26, each on its own, so the reported launches are
+around phases 12-27, each on its own, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -523,7 +551,7 @@ volume taken before phase 14, whose appends go through links of it; phases
 17, 18, 20, 21 and 22 also on links of phase 4's and (17) 10's shard
 sets, 17, 18 and 22 on phase 7's volumes).  Every port master the
 script starts runs with its repair loop off
-(WEEDTPU_REPAIR_INTERVAL=0): phases 16-26 delete shards on purpose, and
+(WEEDTPU_REPAIR_INTERVAL=0): phases 16-27 delete shards on purpose, and
 a planner tick would rebuild them, launching K1 at times no step
 predicts.
 Needs one CUDA card; exits non-zero without one, and outside a checkout
@@ -7839,7 +7867,7 @@ SHELL_READ_ONLY = ("volume.list", "cluster.status", "cluster.ps",
 
 
 class ThreeRacks:
-    """Phases 23-26's cluster, up from the first one's start to the last
+    """Phases 23-27's cluster, up from the first one's start to the last
     one's end: the port's `MasterServer` on a loop thread of its
     own (repair loop, aggregator loop and canary off, no vacuum scan)
     and a `VolumeServer` on the card for each of SHELL_NODES, one rack
@@ -10166,6 +10194,672 @@ def phase_s3(racks: ThreeRacks, vdir: str, seed: int,
     return out
 
 
+# phase 27's WebDAV gateway and mount (ROADMAP 1.21b) and the CLI's
+# offline tools (1.19c): one port FilerServer F, one port WebDavServer D
+# and one port WFS M (the mount's VFS core, driven without a kernel
+# mount) on phase 23's cluster
+DAV_COLLECTION = "p27"  # F's collection: every chunk of the phase
+DAV_BYTES = 128 * MIB  # the gateway's files, from --seed
+DAV_DIRS = 4  # /p27/dav/d0..d3, and d0/deep
+DAV_CACHE_MEM = 512 * MIB  # F's: no chunk evicted in the phase
+DAV_LOST = (0, 3)  # step 3's lost data shards of every p27 EC volume
+DAV_THREADS = 16
+MNT_WRITE = 256 << 10  # the mount's application write size
+MNT_READ = 4 * MIB  # the mount's reads at offsets in step 4
+MNT_THREADS = 8
+# the CLI's offline tools, in one child on the card's host: backup of a
+# volume from its server, the backup's .idx rebuilt by fix, export and
+# compact of the copy; it reports whether it loaded torch or jax
+OFFLINE_CHILD = r"""
+import json, os, shutil, sys
+from seaweedfs_tpu_torch.__main__ import main
+url, vid, col, bk = sys.argv[1:5]
+base = os.path.join(bk, f"{col}_{vid}")
+def run(*argv):
+    rc = main(list(argv))
+    if rc:
+        raise SystemExit(f"{argv[0]} exited {rc}")
+run("backup", "-server", url, "-volumeId", vid, "-collection", col,
+    "-dir", bk)
+shutil.copyfile(base + ".dat", base + ".dat.backup")
+os.remove(base + ".idx")
+run("fix", "-dir", bk, "-volumeId", vid, "-collection", col)
+shutil.copyfile(base + ".idx", base + ".idx.fixed")
+run("export", "-dir", bk, "-volumeId", vid, "-collection", col, "-o",
+    base + ".tar")
+run("compact", "-dir", bk, "-volumeId", vid, "-collection", col)
+print(json.dumps({m: m in sys.modules for m in ("torch", "jax")}))
+"""
+
+
+def phase_webdav(racks: ThreeRacks, vdir: str, seed: int,
+                 launches: dict) -> dict:
+    """Phase 27: the port's WebDAV gateway and mount (ROADMAP 1.21b) and
+    the CLI's offline tools (1.19c) over `racks`, phase 23's three port
+    `VolumeServer`s on the card in three racks behind the port's
+    `MasterServer`, kept up for it.  One port `FilerServer` F on a loop
+    thread of its own (a fresh SQLite store, every chunk into collection
+    p27, a 512 MiB chunk cache), one port `WebDavServer` D over F on
+    another, and one port `WFS` M over F, its meta subscription on and
+    its admin socket started; M is driven through its VFS calls, with no
+    kernel mount.  Steps: (1) a MKCOL tree and 128 MiB of files from
+    --seed (1 KiB-32 MiB, log-uniform) PUT through D from 16 threads;
+    36.5 MiB through M: a file written sequentially in 256 KiB
+    writes, a sparse one, appends, an overwrite in place, a truncate, a
+    symlink, a hard link and an xattr; K1 0; (2) `ec.encode -collection
+    p27` through the port's shell, K1 == the layout's units of the p27
+    .dat files; (3) data shards 0 and 3 of every p27 EC volume deleted,
+    K1 0; (4) every file read in full through D from 16 threads, sha256
+    == its draw (F's `direct` == the distinct chunks, K1 == those
+    fetches whose needle touches a lost data shard), then a Range GET of
+    each through D and reads of each through M at offsets, every byte
+    equal; the symlink, hard link and xattr through M; (5) PROPFIND at
+    Depth 1 of each directory == F's listing of it; a MOVE of a subtree
+    and a COPY of another through D, M's meta cache seeing the new
+    names through its subscription (a cached lookup of each name made
+    before), K1 0; (6) `mount.configure -dir <M's mountpoint>` through
+    the port's shell: a quota under M's usage makes a write fail with
+    errno 122 (EDQUOT), clearing it lets the write through, K1 0; (7) a
+    DELETE through D of a subtree, a copy and a file: once F's deletion queue
+    drains, every freed fid answers 404 on every holder, K1 0; (8) on
+    the card's host, a child running the CLI: `backup` of a p27 volume
+    from its card server (.dat byte-equal), `fix` of the backup's
+    removed .idx (== the server's live needle map), `export` (each tar
+    member == its needle) and `compact` of the copy (each needle read
+    back), no torch loaded, K1 0.  K2 0 throughout."""
+    import tarfile
+    import urllib.parse
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+    from seaweedfs_tpu_torch.filer.filechunk_section import ChunkGroup
+    from seaweedfs_tpu_torch.mount import weedfs
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    from seaweedfs_tpu_torch.server.webdav_server import WebDavServer
+    from seaweedfs_tpu_torch.storage import idx as idxf
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    from seaweedfs_tpu_torch.utils import http, resilience
+
+    card = card_name_power()
+
+    def plog(msg: str) -> None:
+        log(f"[webdav] {msg} [{card}]")
+
+    work = os.path.join(vdir, "webdav")
+    os.makedirs(work)
+    names, servers = racks.names, racks.servers
+    node_of, master = racks.node_of, racks.master
+    admin, run, split, topo = racks.admin, racks.run, racks.split, racks.topo
+    holder_of = racks.holder_of
+    loops: list = []
+    frun = drun = F = D = M = pool = None
+    steps: dict = {}
+    counts: dict = {}
+    predicted: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 27)
+    dav_root, mnt_root = f"/{DAV_COLLECTION}/dav", f"/{DAV_COLLECTION}/m"
+
+    def step_counts(name: str, k0: dict, k1: int, t0: float) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        predicted[name] = k1
+        steps.setdefault(name, {})["wall_s"] = time.perf_counter() - t0
+        want = {"gf_apply": k1, "gf_apply_batch": 0}
+        if got != want:
+            raise AssertionError(f"phase 27 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def empty_lrus() -> None:
+        """No server's reconstruction LRU answers a read this step
+        predicts a launch for."""
+        for vs in servers.values():
+            for loc in vs.store.locations:
+                for ev in list(loc.ec_volumes.values()):
+                    with ev._recon_lock:
+                        ev._recon_cache.clear()
+                        ev._recon_cache_bytes = 0
+
+    def dav(method: str, path: str, body=None, headers=None) -> tuple:
+        return pool.request(f"http://{D.url}{urllib.parse.quote(path)}",
+                            method, body, headers or {})
+
+    def must(method: str, path: str, want: int, body=None,
+             headers=None) -> tuple:
+        st, hdrs, raw = dav(method, path, body, headers)
+        if st != want:
+            raise AssertionError(f"{method} {path} through D: HTTP {st} "
+                                 f"{raw[:200]!r}, wanted {want}")
+        return st, hdrs, raw
+
+    def propfind(path: str) -> dict:
+        """name -> (is a collection, getcontentlength) of `path`'s
+        members, by D's multistatus at Depth 1."""
+        _, _, raw = must("PROPFIND", path, 207, headers={"Depth": "1"})
+        out = {}
+        for resp in ET.fromstring(raw).iter("{DAV:}response"):
+            href = urllib.parse.unquote(resp.find("{DAV:}href").text)
+            name = href.rstrip("/").rsplit("/", 1)[-1]
+            if href.rstrip("/") == path.rstrip("/"):
+                continue
+            n = resp.find(".//{DAV:}getcontentlength")
+            out[name] = (resp.find(".//{DAV:}collection") is not None,
+                         None if n is None else int(n.text))
+        return out
+
+    try:
+        # 0 set-up.  Phase 26's filer stopped moments ago and the master
+        # lists a member for 30 s after its last beat: it leaves the
+        # table first, so F's hot ring holds F alone
+        async def forget_filers() -> None:
+            master.cluster_members.pop("filer", None)
+        racks.mrun(forget_filers())
+        frun, drun = loop_thread(loops), loop_thread(loops)
+        F = FilerServer(master.url, "127.0.0.1", free_port(),
+                        data_dir=os.path.join(work, "filer"),
+                        collection=DAV_COLLECTION,
+                        chunk_cache_mem=DAV_CACHE_MEM)
+        frun(F.start())
+        until(lambda: racks.cmd_env.master_get("/cluster/status").get(
+            "Members", {}).get("filer") == [F.url],
+            "the master never listed F alone")
+        D = WebDavServer(F.url, "127.0.0.1", free_port())
+        drun(D.start())
+        mnt = os.path.join(work, "mnt")
+        os.makedirs(mnt)
+        M = weedfs.WFS(F.url, subscribe=True)
+        weedfs.start_admin_socket(M, mnt)
+        until(lambda: F._subscribers, "M's meta feed never subscribed")
+        pool = http.PooledHTTP(timeout=600.0, max_idle_per_host=DAV_THREADS)
+
+        # 1 the gateway's tree and files, then the mount's
+        t0 = time.perf_counter()
+        k0 = dict(launches)
+        dirs = [f"{dav_root}/d{i}" for i in range(DAV_DIRS)]
+        for d in [f"/{DAV_COLLECTION}", dav_root, *dirs,
+                  f"{dav_root}/d0/deep"]:
+            must("MKCOL", d, 201)
+        sizes: list = []
+        while sum(sizes) < DAV_BYTES:
+            sizes.append(min(int(np.exp(rng.uniform(
+                np.log(FS_MIN_SIZE), np.log(FS_MAX_SIZE)))),
+                DAV_BYTES - sum(sizes)))
+        if sizes[-1] < FS_MIN_SIZE:  # the remainder joins the last
+            sizes[-2] += sizes.pop()
+        payload = rng.bytes(DAV_BYTES)
+        content: dict = {}  # path -> the file's bytes
+        at = 0
+        for i, size in enumerate(sizes):
+            d = f"{dav_root}/d0/deep" if i % 8 == 0 else dirs[i % DAV_DIRS]
+            content[f"{d}/f{i:03d}.bin"] = payload[at:at + size]
+            at += size
+        dav_paths = sorted(content)
+
+        def put(path: str) -> None:
+            must("PUT", path, 201, content[path],
+                 {"Content-Type": "application/octet-stream"})
+        dt_dav = fan(put, dav_paths, DAV_THREADS)
+
+        t_m = time.perf_counter()
+        model: dict = {}  # the mount's files as M was asked to leave them
+
+        def m_write(path: str, writes, create: bool) -> None:
+            fh = M.create(path) if create else M.open(path)
+            buf = model.setdefault(path, bytearray())
+            for off, data in writes:
+                if M.write(fh, data, off) != len(data):
+                    raise AssertionError(f"M's write at {off} of {path}")
+                if off > len(buf):
+                    buf.extend(bytes(off - len(buf)))
+                buf[off:off + len(data)] = data
+            M.release(fh)
+        M.mkdir(mnt_root)
+        seq = rng.bytes(12 * MIB)
+        m_write(f"{mnt_root}/seq.bin",
+                [(o, seq[o:o + MNT_WRITE])
+                 for o in range(0, len(seq), MNT_WRITE)], True)
+        m_write(f"{mnt_root}/sparse.bin",
+                [(0, rng.bytes(MIB)), (9 * MIB, rng.bytes(MIB))], True)
+        m_write(f"{mnt_root}/append.bin", [], True)
+        for _ in range(4):
+            end = len(model[f"{mnt_root}/append.bin"])
+            m_write(f"{mnt_root}/append.bin",
+                    [(end, rng.bytes(3 * MIB // 2))], False)
+        m_write(f"{mnt_root}/over.bin", [(0, rng.bytes(6 * MIB))], True)
+        m_write(f"{mnt_root}/over.bin", [(3 * MIB, rng.bytes(MIB // 2))],
+                False)
+        m_write(f"{mnt_root}/trunc.bin", [(0, rng.bytes(4 * MIB))], True)
+        M.truncate(f"{mnt_root}/trunc.bin", 5 * MIB // 2)
+        del model[f"{mnt_root}/trunc.bin"][5 * MIB // 2:]
+        M.symlink("seq.bin", f"{mnt_root}/link")
+        M.link(f"{mnt_root}/over.bin", f"{mnt_root}/hard.bin")
+        model[f"{mnt_root}/hard.bin"] = model[f"{mnt_root}/over.bin"]
+        seq_sha = hashlib.sha256(seq).hexdigest()
+        M.setxattr(f"{mnt_root}/seq.bin", "user.sha256", seq_sha.encode())
+        dt_m = time.perf_counter() - t_m
+        content.update({p: bytes(b) for p, b in model.items()})
+        m_bytes = sum(len(b) for p, b in model.items()
+                      if not p.endswith("hard.bin"))
+        step_counts("1 write", k0, 0, t0)
+        sha = {p: hashlib.sha256(c).hexdigest() for p, c in content.items()}
+        entries = {p: F.filer.find_entry(p) for p in content}
+        n_chunks = len({c.fid for e in entries.values() for c in e.chunks})
+        written = sum(sizes)
+        steps["1 write"].update({
+            "dav_files": len(dav_paths), "dav_bytes": written,
+            "dav_s": dt_dav, "dav_mbps": written / dt_dav / 1e6,
+            "mount_files": len(model), "mount_bytes": m_bytes,
+            "mount_s": dt_m, "mount_mbps": m_bytes / dt_m / 1e6,
+            "chunks": n_chunks})
+        plog(f"1 write: {DAV_DIRS + 3} collections and {len(dav_paths)} "
+             f"files ({FS_MIN_SIZE}-{FS_MAX_SIZE} B log-uniform), "
+             f"{written} B PUT through D from {DAV_THREADS} threads at "
+             f"{written / dt_dav / 1e6:.1f} MB/s; through M {m_bytes} B in "
+             f"{dt_m:.3f} s ({m_bytes / dt_m / 1e6:.1f} MB/s): 12 MiB in "
+             f"{MNT_WRITE} B writes, a sparse file, 4 appends, an "
+             f"overwrite in place, a truncate, a symlink, a hard link and "
+             f"an xattr; {n_chunks} chunks; K1 0")
+
+        # 2 ec.encode -collection p27, once a beat reports the sizes
+        def p27_view() -> dict:
+            return {vi["id"]: vi["size"]
+                    for nd in topo()["nodes"].values()
+                    for vi in nd["volume_infos"]
+                    if vi["collection"] == DAV_COLLECTION}
+        vols = {vid: servers[holder_of(vid)].store.get_volume(vid)
+                for vid in p27_view()}
+        for vol in vols.values():
+            vol.flush()
+        dat_size = {vid: vol.data_size() for vid, vol in vols.items()}
+        p27 = until(lambda: (lambda seen: seen if seen == dat_size
+                             else None)(p27_view()),
+                    f"no beat reported the p27 sizes {dat_size}")
+        units = {vid: predict_units(p27[vid], layout.LARGE_BLOCK_SIZE,
+                                    layout.SMALL_BLOCK_SIZE)
+                 for vid in p27}
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        run("lock")
+        out2 = run(f"ec.encode -collection {DAV_COLLECTION} "
+                   f"-fullPercent 0 -quietFor 0s")
+        run("unlock")
+        dt_enc = time.perf_counter() - t0
+        listed = json.loads(out2.splitlines()[0].split(": ", 1)[1])
+        if listed != sorted(p27):
+            raise AssertionError(f"ec.encode selected {listed}; the "
+                                 f"p27 volumes are {sorted(p27)}")
+        step_counts("2 encode", k0, sum(units.values()), t0)
+        until(lambda: all(sum(map(len, split(vid).values())) == 14
+                          for vid in listed),
+              "the p27 shard sets never reached the master")
+        dat_bytes = sum(p27.values())
+        steps["2 encode"].update({"s": dt_enc, "volumes": listed,
+                                  "dat_bytes": p27, "units": units,
+                                  "mbps": dat_bytes / dt_enc / 1e6})
+        plog(f"2 encode: `ec.encode -collection {DAV_COLLECTION}` of "
+             f"volumes {listed} (.dat {[p27[v] for v in listed]} B) in "
+             f"{dt_enc:.3f} s, {dat_bytes / dt_enc / 1e6:.1f} MB/s; K1 "
+             f"{sum(units.values())} == the layout's units")
+
+        # 3 data shards 0 and 3 of every p27 EC volume deleted
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        for vid in listed:
+            for u, shards in split(vid).items():
+                gone = [s for s in DAV_LOST if s in shards]
+                if gone:
+                    admin(node_of[u], "/admin/ec/delete_shards",
+                          {"volume": vid, "shards": gone})
+        until(lambda: not any(set(DAV_LOST) & set(s) for vid in listed
+                              for s in split(vid).values()),
+              "the master still shows the deleted shards")
+        step_counts("3 loss", k0, 0, t0)
+        plog(f"3 loss: data shards {list(DAV_LOST)} of every p27 EC "
+             f"volume deleted where they lived; K1 0")
+
+        evs = {vid: next(servers[n].store.get_ec_volume(vid)
+                         for n in names
+                         if servers[n].store.get_ec_volume(vid)
+                         is not None) for vid in listed}
+
+        def touches(fid: str) -> bool:
+            f = t.FileId.parse(fid)
+            return bool(touching_needles(evs[f.volume_id], {f.key: None},
+                                         DAV_LOST))
+
+        # 4 every file read back through D, whole and ranged, and through
+        # M at offsets
+        files = sorted(content)
+        views = {p: {v.fid for v in ChunkGroup(e.chunks).read_views(
+            0, e.size())} for p, e in entries.items()}
+        needed = set().union(*views.values())
+        touching = {f for f in needed if touches(f)}
+        total = sum(len(content[p]) for p in files)
+        empty_lrus()
+        resilience.reset_latency_trackers()
+        resilience.reset_breakers()
+        direct0 = F.hot_stats["direct"]
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+
+        def whole(path: str) -> None:
+            st, _, body = dav("GET", path)
+            if st != 200 or hashlib.sha256(body).hexdigest() != sha[path]:
+                raise AssertionError(f"GET {path} through D: HTTP {st}, "
+                                     f"{len(body)} B, not its draw")
+        dt_whole = fan(whole, files, DAV_THREADS)
+        direct = F.hot_stats["direct"] - direct0
+        if direct != len(needed):
+            raise AssertionError(f"F fetched {direct} chunks from the "
+                                 f"volume tier; {len(needed)} distinct "
+                                 f"chunks were read")
+        spans = {}
+        for p in files:
+            n = len(content[p])
+            lo = int(rng.integers(0, n))
+            spans[p] = (lo, int(rng.integers(lo, n)))
+
+        def ranged(path: str) -> None:
+            lo, hi = spans[path]
+            st, hdrs, body = dav("GET", path,
+                                 headers={"Range": f"bytes={lo}-{hi}"})
+            if st != 206 or body != content[path][lo:hi + 1]:
+                raise AssertionError(f"Range {lo}-{hi} of {path} through "
+                                     f"D: HTTP {st}")
+        dt_ranged = fan(ranged, files, DAV_THREADS)
+        offsets = {p: list(range(0, len(content[p]), MNT_READ)) +
+                   [int(rng.integers(0, len(content[p])))] for p in files}
+
+        def m_read(path: str) -> None:
+            data = content[path]
+            fh = M.open(path)
+            try:
+                for off in offsets[path]:
+                    got = M.read(fh, MNT_READ, off)
+                    if got != data[off:off + MNT_READ]:
+                        raise AssertionError(f"M's read of {path} at "
+                                             f"{off}: not its draw")
+            finally:
+                M.release(fh)
+        dt_mread = fan(m_read, files, MNT_THREADS)
+        if M.readlink(f"{mnt_root}/link") != "seq.bin" or \
+                M.getxattr(f"{mnt_root}/seq.bin", "user.sha256") != \
+                seq_sha.encode() or \
+                M.getattr(f"{mnt_root}/hard.bin")["st_nlink"] != 2:
+            raise AssertionError("M's symlink, xattr or hard link")
+        if F.hot_stats["direct"] - direct0 != len(needed):
+            raise AssertionError("the ranged and mount reads fetched from "
+                                 "the volume tier")
+        step_counts("4 read", k0, len(touching), t0)
+        ranged_bytes = sum(hi - lo + 1 for lo, hi in spans.values())
+        steps["4 read"].update({
+            "files": len(files), "bytes": total, "chunks": len(needed),
+            "touching": len(touching), "whole_s": dt_whole,
+            "whole_mbps": total / dt_whole / 1e6,
+            "ranged_bytes": ranged_bytes, "ranged_s": dt_ranged,
+            "mount_s": dt_mread, "mount_mbps": total / dt_mread / 1e6})
+        plog(f"4 read: {len(files)} files read in full through D from "
+             f"{DAV_THREADS} threads, each sha256 == its draw: {total} B "
+             f"in {dt_whole:.3f} s, {total / dt_whole / 1e6:.1f} MB/s "
+             f"degraded; F's direct {direct} == the {len(needed)} distinct "
+             f"chunks; a Range GET of each through D, {ranged_bytes} B in "
+             f"{dt_ranged:.3f} s; each through M in {MNT_READ} B reads at "
+             f"offsets from {MNT_THREADS} threads, {total} B in "
+             f"{dt_mread:.3f} s ({total / dt_mread / 1e6:.1f} MB/s), "
+             f"every byte equal; M's symlink, hard link (nlink 2) and "
+             f"xattr; K1 {len(touching)} == the fetches touching shards "
+             f"{list(DAV_LOST)}")
+
+        # 5 listings, then a MOVE and a COPY of subtrees through D
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        listed_dirs = [dav_root, *dirs, f"{dav_root}/d0/deep", mnt_root]
+        for d in listed_dirs:
+            got = propfind(d)
+            want = {}
+            for e in F.filer.list_entries(d, limit=100000):
+                want[e.name] = (e.is_directory, None if e.is_directory
+                                else F.filer.find_entry(e.full_path).size())
+            if got != want:
+                raise AssertionError(f"PROPFIND {d}: {got}; F lists "
+                                     f"{want}")
+        moved_from, moved_to = dirs[1], f"{dav_root}/moved"
+        copied_from, copied_to = dirs[2], f"{dav_root}/copy"
+        old = sorted(p for p in dav_paths if p.startswith(moved_from + "/"))
+        new = [moved_to + p[len(moved_from):] for p in old]
+        for p in old:
+            M.getattr(p)  # cached in M's meta cache
+        for p in new:
+            try:
+                M.getattr(p)  # a cached miss
+                raise AssertionError(f"{p} exists before the MOVE")
+            except weedfs.FsError:
+                pass
+        must("MOVE", moved_from, 201, b"",
+             {"Destination": f"http://{D.url}{moved_to}"})
+        t_seen = time.perf_counter()
+
+        def sees_the_move() -> bool:
+            for p in new:
+                try:
+                    M.getattr(p)
+                except weedfs.FsError:
+                    return False
+            for p in old:
+                try:
+                    M.getattr(p)
+                    return False
+                except weedfs.FsError:
+                    pass
+            return True
+        until(sees_the_move, "M's meta cache never saw the MOVE through "
+              "its subscription")
+        dt_seen = time.perf_counter() - t_seen
+        for p, q in zip(old, new):
+            content[q] = content.pop(p)
+            sha[q] = sha.pop(p)
+            entries[q] = entries.pop(p)
+        fh = M.open(new[0])
+        if M.read(fh, len(content[new[0]]), 0) != content[new[0]]:
+            raise AssertionError(f"{new[0]} through M after the MOVE")
+        M.release(fh)
+        must("COPY", copied_from, 201, b"",
+             {"Destination": f"http://{D.url}{copied_to}"})
+        copies = sorted(p for p in content if p.startswith(copied_from + "/"))
+        for p in copies:
+            q = copied_to + p[len(copied_from):]
+            st, _, body = dav("GET", q)
+            if st != 200 or body != content[p]:
+                raise AssertionError(f"COPY's {q}: HTTP {st}")
+        step_counts("5 list", k0, 0, t0)
+        steps["5 list"].update({"dirs": len(listed_dirs), "moved": len(old),
+                                "seen_s": dt_seen, "copied": len(copies)})
+        plog(f"5 list: PROPFIND at Depth 1 of {len(listed_dirs)} "
+             f"collections == F's listings (names, kinds, sizes); MOVE of "
+             f"{moved_from} ({len(old)} files) to {moved_to}, M's meta "
+             f"cache saw every new name and lost every old one {dt_seen:.3f}"
+             f" s after, through its subscription; COPY of {copied_from} "
+             f"({len(copies)} files) to {copied_to}, each copy equal; K1 0")
+
+        # 6 the mount's quota through the shell's mount.configure
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        out6 = [run(f"mount.configure -dir {mnt}")]
+        used = M._used_bytes()
+        quota_mb = used // MIB - 1
+        out6.append(run(f"mount.configure -dir {mnt} -quotaMB {quota_mb}"))
+        if M.quota_bytes != quota_mb * MIB:
+            raise AssertionError(f"M's quota {M.quota_bytes} after "
+                                 f"-quotaMB {quota_mb}")
+        qpath = f"{mnt_root}/quota.bin"
+        qdata = rng.bytes(MIB)
+        fh = M.create(qpath)
+        try:
+            M.write(fh, qdata, 0)
+            raise AssertionError("a write over the quota went through")
+        except weedfs.FsError as e:
+            if e.errno != 122:
+                raise
+        out6.append(run(f"mount.configure -dir {mnt} -quotaMB 0"))
+        M.write(fh, qdata, 0)
+        M.release(fh)
+        fh = M.open(qpath)
+        if M.read(fh, MIB, 0) != qdata:
+            raise AssertionError(f"{qpath} after the quota was cleared")
+        M.release(fh)
+        if "quota=unlimited" not in out6[0] or \
+                f"quota={quota_mb}MB" not in out6[1] or \
+                "quota=unlimited" not in out6[2]:
+            raise AssertionError(f"mount.configure printed {out6}")
+        step_counts("6 quota", k0, 0, t0)
+        steps["6 quota"].update({"used": used, "quota_mb": quota_mb})
+        plog(f"6 quota: `mount.configure -dir <mnt>` through the port's "
+             f"shell: unlimited; -quotaMB {quota_mb} under M's {used} B "
+             f"in use: a {MIB} B write failed with errno 122 (EDQUOT); "
+             f"-quotaMB 0: the write went through and reads back; K1 0")
+
+        # 7 DELETE through D: a subtree on the EC volumes, a copy on a
+        # plain volume and a file the mount truncated
+        copy_gone = copied_to + copies[0][len(copied_from):]
+        doomed = [f"{dav_root}/d0", copy_gone, f"{mnt_root}/trunc.bin"]
+        gone_paths = [p for p in content
+                      if any(p == d or p.startswith(d + "/")
+                             for d in doomed)]
+        freed = {c.fid for p in gone_paths for c in entries[p].chunks} | \
+            {c.fid for c in F.filer.find_entry(copy_gone).chunks}
+        ec_holders = {vid: sorted(split(vid)) for vid in listed}
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        deleted0 = F.deletion.deleted_count
+        for d in doomed:
+            must("DELETE", d, 204)
+        until(lambda: F.deletion.pending_count() == 0 and
+              F.deletion.deleted_count + F.deletion.error_count -
+              deleted0 >= len(freed), "F's deletion queue never drained",
+              timeout=120)
+        dt_drain = time.perf_counter() - t0
+        if F.deletion.error_count or \
+                F.deletion.deleted_count - deleted0 != len(freed):
+            raise AssertionError(f"F's queue deleted "
+                                 f"{F.deletion.deleted_count - deleted0} "
+                                 f"of {len(freed)} fids, "
+                                 f"{F.deletion.error_count} errors")
+
+        def gone(fid: str) -> None:
+            vid = int(fid.split(",")[0])
+            holders = ec_holders.get(vid) or \
+                [servers[holder_of(vid)].url]
+            for u in holders:
+                st, _, _ = racks.http.request(f"http://{u}/{fid}")
+                if st != 404:
+                    raise AssertionError(f"freed {fid} answers {st} on "
+                                         f"{node_of[u]}")
+        fan(gone, sorted(freed), DAV_THREADS)
+        for d in doomed:
+            must("PROPFIND", d, 404, headers={"Depth": "0"})
+        step_counts("7 delete", k0, 0, t0)
+        steps["7 delete"].update({"paths": len(gone_paths) + 1,
+                                  "freed": len(freed), "drain_s": dt_drain})
+        plog(f"7 delete: DELETE of {doomed} through D "
+             f"({len(gone_paths) + 1} files); F's queue freed "
+             f"{len(freed)} fids in {dt_drain:.3f} s, each 404 on every "
+             f"holder (EC shards and plain volumes); K1 0")
+
+        # 8 the CLI's offline tools on the card's host
+        plain = {vid: size for vid, size in p27_view().items()
+                 if vid not in listed and size > SUPER_BLOCK_SIZE}
+        if not plain:
+            raise AssertionError("no plain p27 volume holds data after "
+                                 "the encode")
+        vid_b = max(plain, key=lambda v: (plain[v], -v))
+        holder = servers[holder_of(vid_b)]
+        vol = holder.store.get_volume(vid_b)
+        vol.flush()
+        bk = os.path.join(work, "backup")
+        base = os.path.join(bk, f"{DAV_COLLECTION}_{vid_b}")
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", OFFLINE_CHILD, holder.url, str(vid_b),
+             DAV_COLLECTION, bk], capture_output=True, text=True,
+            timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+        dt_cli = time.perf_counter() - t0
+        if child.returncode:
+            raise AssertionError(f"the offline CLI child exited "
+                                 f"{child.returncode}: "
+                                 f"{child.stderr[-1500:]}")
+        loaded = json.loads(child.stdout.strip().splitlines()[-1])
+        if any(loaded.values()):
+            raise AssertionError(f"the offline CLI loaded {loaded}")
+        src = os.path.join(vol.dir, f"{DAV_COLLECTION}_{vid_b}")
+        if sha256(base + ".dat.backup") != sha256(src + ".dat"):
+            raise AssertionError(f"backup of volume {vid_b}: its .dat "
+                                 f"differs from the server's")
+        live = sorted((nid, off, size) for nid, (off, size)
+                      in vol.nm.items() if t.size_is_valid(size))
+        with open(base + ".idx.fixed", "rb") as f:
+            raw = f.read()
+        fixed = sorted(idxf.unpack_entry(raw[i:i + 16])
+                       for i in range(0, len(raw), 16))
+        if fixed != live:
+            raise AssertionError(f"fix of volume {vid_b}: {len(fixed)} "
+                                 f"entries; the server's map holds "
+                                 f"{len(live)}")
+        with tarfile.open(base + ".tar") as tar:
+            members = {m.name: tar.extractfile(m).read()
+                       for m in tar.getmembers()}
+        needles = {nid: vol.read_needle(nid) for nid, _, _ in live}
+        want_tar = {f"{vid_b}/{nid:x}_"
+                    f"{n.name.decode(errors='replace') or f'{nid:x}'}":
+                    n.data for nid, n in needles.items() if n.data}
+        if members != want_tar:
+            raise AssertionError(f"export of volume {vid_b}: "
+                                 f"{len(members)} members against "
+                                 f"{len(want_tar)} needles")
+        compacted = Volume(bk, DAV_COLLECTION, vid_b)
+        try:
+            for nid, n in needles.items():
+                if compacted.read_needle(nid).data != n.data:
+                    raise AssertionError(f"needle {nid} after compact")
+            compacted_size = compacted.data_size()
+        finally:
+            compacted.close()
+        step_counts("8 offline", k0, 0, t0)
+        steps["8 offline"].update({
+            "volume": vid_b, "dat_bytes": os.path.getsize(src + ".dat"),
+            "needles": len(live), "compacted_bytes": compacted_size,
+            "cli_s": dt_cli})
+        plog(f"8 offline: a child on the card's host ran the CLI's backup "
+             f"of p27 volume {vid_b} from {node_of[holder.url]} "
+             f"({os.path.getsize(src + '.dat')} B, .dat byte-equal), fix of "
+             f"its removed .idx ({len(live)} entries == the server's map), "
+             f"export ({len(members)} tar members == the needles) and "
+             f"compact ({compacted_size} B, every needle read back) in "
+             f"{dt_cli:.3f} s, loading neither torch nor jax; K1 0")
+    finally:
+        t_stop = time.perf_counter()
+        if M is not None:
+            M.close()
+        if D is not None:
+            drun(D.stop())
+        if F is not None:
+            frun(F.stop())
+        stop_loops(loops)
+        if pool is not None:
+            pool.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "steps": steps, "counts": counts,
+           "predicted": predicted, "stop_s": time.perf_counter() - t_stop,
+           "s": time.perf_counter() - t_phase}
+    plog(f"launches per step {counts} (K1 predicted {predicted}); M, D "
+         f"and F stopped in {out['stop_s']:.3f} s; phase wall "
+         f"{out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10630,8 +11324,9 @@ def main(argv=None) -> int:
                          for k in path_launches}
 
         # 23 the port's shell and client over three card servers in
-        # three racks, then 24 the port's filer, 25 its filer server and
-        # 26 its S3 gateway on the same cluster, each counted on its own
+        # three racks, then 24 the port's filer, 25 its filer server, 26
+        # its S3 gateway and 27 its WebDAV gateway, mount and offline
+        # tools on the same cluster, each counted on its own
         with ThreeRacks(vdir) as racks:
             gf_cuda.reset_launches()
             phases["shell"] = phase_shell(
@@ -10708,10 +11403,28 @@ def main(argv=None) -> int:
                 f"copies {staged}")
             path_launches = {k: path_launches[k] + s3_launches[k]
                              for k in path_launches}
+
+            gf_cuda.reset_launches()
+            phases["webdav"] = phase_webdav(racks, vdir, args.seed, launches)
+            dav_launches = dict(launches)
+            staged = dict(gf_cuda.STAGED)
+            if any(staged.values()):
+                raise AssertionError(f"the webdav phase made the kernel "
+                                     f"wrapper stage copies of its input: "
+                                     f"{staged}")
+            if not dav_launches["gf_apply"] or \
+                    dav_launches["gf_apply_batch"]:
+                raise AssertionError(f"the webdav phase launched "
+                                     f"{dav_launches}: K1 and no K2 "
+                                     f"expected")
+            log(f"[path] phase 27: launches {dav_launches}, staged "
+                f"copies {staged}")
+            path_launches = {k: path_launches[k] + dav_launches[k]
+                             for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 27 report
+    # 28 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -41,14 +41,14 @@ ORDER = ["device", "build", "kernel", "write", "encode", "degraded",
          "rebuild", "fleet", "scrub", "repair", "codecs", "native",
          "writer", "telemetry", "record", "store", "remote", "server",
          "maintenance", "admin", "mesh", "master", "planes", "heal",
-         "shell", "filer", "filer-server", "s3", "total"]
+         "shell", "filer", "filer-server", "s3", "webdav", "total"]
 NAMES = ["0 start", "1 build", "2 kernel", "3 write", "4 encode",
          "5 degraded", "6 rebuild", "7 fleet", "8 scrub", "9 repair",
          "10 codecs", "11 native", "12 writer", "13 telemetry",
          "13r records", "14 store", "15 remote", "16 server",
          "17 maintenance", "18 admin", "19 mesh", "20 master",
          "21 planes", "22 heal", "23 shell", "24 filer",
-         "25 filer server", "26 s3", "27 report"]
+         "25 filer server", "26 s3", "27 webdav", "28 report"]
 TAG = re.compile(r"^\[([a-z0-9_-]+)")
 
 

@@ -6,3 +6,5 @@ the reference package.  Entry points run on the CUDA card unless the caller
 passes `device="cpu"`, which selects the plain PyTorch versions of the
 kernels.
 """
+
+__version__ = "0.1.0"  # the reference package's, which `version` prints

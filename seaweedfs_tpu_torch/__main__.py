@@ -8,34 +8,55 @@ Counterpart of `seaweedfs_tpu/__main__.py`, cut to these subcommands:
       -port 8080 [-device cpu]
   python -m seaweedfs_tpu_torch server -dir /data [-volumePort 8080] \\
       [-device cpu] [-filer [-filerPort 8888]] \\
-      [-s3 [-s3Port 8333] [-s3Config s3.json]]
-                         # a master, one volume server (a filer, and an
-                         # S3 gateway, which implies -filer) in one process
+      [-s3 [-s3Port 8333] [-s3Config s3.json]] \\
+      [-webdav [-webdavPort 7333]]
+                         # a master, one volume server (a filer, an S3
+                         # gateway and a WebDAV gateway, each of which
+                         # implies -filer) in one process
   python -m seaweedfs_tpu_torch filer -master host:9333 [-port 8888] \\
       [-dir D]           # the filer server, sqlite store in D
   python -m seaweedfs_tpu_torch s3 -filer host:8888 [-port 8333] \\
       [-config s3.json]  # the S3 gateway; no -config allows all
   python -m seaweedfs_tpu_torch iam -filer host:8888 [-port 8111]
                          # the IAM API, identities in the filer
+  python -m seaweedfs_tpu_torch webdav -filer host:8888 [-port 7333] \\
+      [-filer.path /x]   # the WebDAV gateway
+  python -m seaweedfs_tpu_torch ftp -filer host:8888
+                         # the FTP stub: exits 1 with the stub's text
+  python -m seaweedfs_tpu_torch mount -filer host:8888 -dir /mnt \\
+      [-filer.path /x]   # a FUSE mount (fusepy, else libfuse2)
+  python -m seaweedfs_tpu_torch fuse SOURCE /mnt -o filer=host:8888
+                         # the same, as /etc/fstab's mount(8) calls it
   python -m seaweedfs_tpu_torch master.follower -masters host:9333 \\
       [-port 9334]       # read-only lookups, writes proxied to the leader
   python -m seaweedfs_tpu_torch shell -master host:9333 [-c "cmd; cmd"]
   python -m seaweedfs_tpu_torch upload -master host:9333 FILE...
   python -m seaweedfs_tpu_torch download -master host:9333 [-dir D] FID...
   python -m seaweedfs_tpu_torch benchmark -master host:9333 [-n N]
+  python -m seaweedfs_tpu_torch fix -dir D -volumeId N [-collection C]
+  python -m seaweedfs_tpu_torch compact -dir D -volumeId N [-collection C]
+  python -m seaweedfs_tpu_torch export -dir D -volumeId N -o out.tar
+  python -m seaweedfs_tpu_torch backup -server host:8080 -volumeId N \\
+      [-dir D]           # .dat and .idx from a volume server, resumed
+  python -m seaweedfs_tpu_torch scaffold -config filer|security|master|...
+  python -m seaweedfs_tpu_torch certs [-dir ./certs] [-hosts a,b]
+  python -m seaweedfs_tpu_torch version
+  python -m seaweedfs_tpu_torch autocomplete
 
-The master, the follower, the filer, the S3 gateway, the IAM API, the
-shell and the client tools have no device and load no torch.  A volume server (`volume`, and `server`'s)
+The master, the follower, the filer, the gateways, the mount, the
+shell, the client tools and the offline tools (`fix`, `compact`,
+`export`, `backup`, on the port's `storage/volume.py`) have no device
+and load no torch.  A volume server (`volume`, and `server`'s)
 runs its codecs on the card unless `-device cpu` asks for the plain
 versions; without a card and without `-device cpu` it raises.  `-cpuprofile FILE`
 writes a cProfile dump when the process stops, `--torch-profile DIR` a
 `torch.profiler` Chrome trace (the reference's `--jax-profile`; it loads
 torch), and SIGUSR1 dumps every thread's stack
 (utils/grace.py).  `filer`'s `-notification.log` and
-`-notification.webhook` come with ROADMAP 1.22a, `server`'s `-webdav`
-and `-mq` with 1.21b-1.22b, the `webdav`, `mount` and `mq.broker`
-subcommands with them, and `fix`, `compact`, `export`,
-`backup`, `scaffold`, `version`, `autocomplete` and `certs` with 1.19c.
+`-notification.webhook` come with ROADMAP 1.22a, with the filer client
+tools (`filer.cat`, `filer.copy`, `filer.meta.tail`,
+`filer.meta.backup`, `filer.backup`); `server`'s `-mq` and the
+`mq.broker` subcommand with 1.22b.
 """
 
 from __future__ import annotations
@@ -43,6 +64,8 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
+import sys
 
 
 def _add_common_flags(p):
@@ -118,9 +141,9 @@ async def _run_master(args) -> int:
 
 
 async def _run_server(args) -> int:
-    """A master, one volume server, with `-filer` a filer and with `-s3`
-    a filer and an S3 gateway in one process (reference: `_run_server`,
-    cut to those four)."""
+    """A master, one volume server, with `-filer` a filer, with `-s3` a
+    filer and an S3 gateway and with `-webdav` a filer and a WebDAV
+    gateway in one process (reference: `_run_server`, but its `-mq`)."""
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     security = _security(args)
     m = _master(args, security)
@@ -130,8 +153,8 @@ async def _run_server(args) -> int:
                      data_center=args.dataCenter, rack=args.rack,
                      security=security, device=args.device)
     await v.start()
-    f = s3 = None
-    if args.filer or args.s3:
+    f = s3 = dav = None
+    if args.filer or args.s3 or args.webdav:
         from seaweedfs_tpu_torch.server.filer_server import FilerServer
         f = FilerServer(m.url, args.ip, args.filerPort, data_dir=args.dir[0],
                         security=security)
@@ -142,8 +165,12 @@ async def _run_server(args) -> int:
                          iam=_iam(args.s3Config), security=security,
                          master_url=m.url)
         await s3.start()
+    if args.webdav:
+        from seaweedfs_tpu_torch.server.webdav_server import WebDavServer
+        dav = WebDavServer(f.url, args.ip, args.webdavPort, security=security)
+        await dav.start()
     await _serve_forever()
-    for srv in (s3, f):
+    for srv in (dav, s3, f):
         if srv is not None:
             await srv.stop()
     await v.stop()
@@ -214,6 +241,332 @@ async def _run_follower(args) -> int:
     await mf.start()
     await _serve_forever()
     await mf.stop()
+    return 0
+
+
+async def _run_webdav(args) -> int:
+    from seaweedfs_tpu_torch.server.webdav_server import WebDavServer
+    s = WebDavServer(args.filer, args.ip, args.port, prefix=args.filerPath,
+                     security=_security(args))
+    await s.start()
+    await _serve_forever()
+    await s.stop()
+    return 0
+
+
+def _run_ftp(args) -> int:
+    from seaweedfs_tpu_torch.ftpd import FtpServer, FtpServerOption
+    try:
+        asyncio.run(FtpServer(FtpServerOption(
+            args.filer, args.ip, args.port)).start())
+    except NotImplementedError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    return 0
+
+
+def _run_mount(args) -> int:
+    """`mount -filer -dir`, or `fuse SOURCE MOUNTPOINT -o filer=...`, the
+    form mount(8) calls from /etc/fstab (reference: command/fuse.go)."""
+    from seaweedfs_tpu_torch.mount.weedfs import mount
+    if args.cmd == "fuse":
+        # mount(8) passes the mountpoint positionally and config via -o
+        opts = dict(p.partition("=")[::2]
+                    for p in args.options.split(",") if p)
+        filer = opts.get("filer", "127.0.0.1:8888")
+        root = opts.get("filer.path", "/")
+        target = args.mountpoint or args.source
+        if not target:
+            print("fuse: mountpoint required", file=sys.stderr)
+            return 2
+    else:
+        filer, root, target = args.filer, args.filerPath, args.dir
+    try:
+        mount(filer, target, root=root)
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    return 0
+
+
+def _volume_name(args) -> str:
+    return (f"{args.collection}_{args.volumeId}" if args.collection
+            else str(args.volumeId))
+
+
+def _run_fix(args) -> int:
+    """Offline .idx reconstruction by scanning the .dat
+    (reference: weed/command/fix.go:64 runFix)."""
+    from seaweedfs_tpu_torch.storage import idx as idxf
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    name = _volume_name(args)
+    dat = os.path.join(args.dir, name + ".dat")
+    if not os.path.exists(dat):
+        print(f"{dat} not found", file=sys.stderr)
+        return 1
+    idx_path = os.path.join(args.dir, name + ".idx")
+    v = Volume(args.dir, args.collection, args.volumeId)
+    try:
+        # last write wins per needle id; a zero-size record is the
+        # tombstone the delete path appends
+        entries: dict[int, tuple[int, int]] = {}
+        for offset, n in v.scan():
+            if n.size == 0 and not n.data:
+                entries.pop(n.id, None)
+            else:
+                entries[n.id] = (offset // t.NEEDLE_PADDING_SIZE, n.size)
+        with open(idx_path + ".tmp", "wb") as f:
+            for nid, (off_units, size) in sorted(entries.items()):
+                f.write(idxf.pack_entry(nid, off_units, size))
+        os.replace(idx_path + ".tmp", idx_path)
+        print(f"rebuilt {idx_path}: {len(entries)} live entries")
+        return 0
+    finally:
+        v.close()
+
+
+def _run_compact(args) -> int:
+    """Offline vacuum of one volume (reference: weed/command/compact.go)."""
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    name = _volume_name(args)
+    if not os.path.exists(os.path.join(args.dir, name + ".dat")):
+        print(f"{name}.dat not found in {args.dir}", file=sys.stderr)
+        return 1
+    v = Volume(args.dir, args.collection, args.volumeId)
+    try:
+        before = v.data_size()
+        ratio = v.garbage_ratio()
+        v.compact()
+        after = v.data_size()
+        print(f"compacted volume {args.volumeId}: {before} -> {after} bytes "
+              f"(garbage was {ratio:.1%})")
+        return 0
+    except PermissionError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    finally:
+        v.close()
+
+
+def _run_export(args) -> int:
+    """Export live needles of a volume into a tar file
+    (reference: weed/command/export.go)."""
+    import io
+    import tarfile
+
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    v = Volume(args.dir, args.collection, args.volumeId)
+    count = 0
+    try:
+        with tarfile.open(args.output, "w") as tar:
+            for offset, n in v.scan():
+                # only the record the needle map points at is live; earlier
+                # versions of an overwritten id are superseded
+                live = v.nm.get(n.id)
+                if not n.data or live is None or \
+                        live[0] != offset // t.NEEDLE_PADDING_SIZE:
+                    continue
+                name = n.name.decode(errors="replace") or f"{n.id:x}"
+                info = tarfile.TarInfo(name=f"{args.volumeId}/{n.id:x}_{name}")
+                info.size = len(n.data)
+                info.mtime = n.last_modified or 0
+                tar.addfile(info, io.BytesIO(n.data))
+                count += 1
+    finally:
+        v.close()
+    print(f"exported {count} files to {args.output}")
+    return 0
+
+
+def _run_backup(args) -> int:
+    """Pull a volume's .dat/.idx from a live volume server to a local dir
+    (reference: weed/command/backup.go, via the server's /admin/file:
+    the .dat resumes past the local copy's size with a Range request)."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    from seaweedfs_tpu_torch.security.tls import scheme as _tls_scheme
+
+    name = _volume_name(args)
+    os.makedirs(args.dir, exist_ok=True)
+    for ext in (".dat", ".idx"):
+        url = (f"{_tls_scheme()}://{args.server}/admin/file?"
+               f"name={urllib.parse.quote(name + ext)}")
+        out = os.path.join(args.dir, name + ext)
+        # incremental: .dat is append-only, so resume past the local size
+        # (reference: command/backup.go appends the remote tail)
+        local_size = os.path.getsize(out) if ext == ".dat" and \
+            os.path.exists(out) else 0
+        headers = {"Range": f"bytes={local_size}-"} if local_size else {}
+        try:
+            req = urllib.request.Request(url, headers=headers)
+            with urllib.request.urlopen(req, timeout=600) as r:
+                mode = "ab" if local_size and r.status == 206 else "wb"
+                target = out if mode == "ab" else out + ".tmp"
+                with open(target, mode) as f:
+                    while True:
+                        chunk = r.read(1 << 20)
+                        if not chunk:
+                            break
+                        f.write(chunk)
+                if mode == "wb":
+                    os.replace(out + ".tmp", out)
+        except urllib.error.HTTPError as e:
+            if e.code == 416 and local_size:  # already up to date
+                print(f"{name}{ext}: up to date")
+                continue
+            try:
+                os.remove(out + ".tmp")
+            except OSError:
+                pass
+            print(f"backup {name}{ext} from {args.server}: HTTP {e.code}",
+                  file=sys.stderr)
+            return 1
+        except urllib.error.URLError as e:
+            print(f"backup: cannot reach {args.server}: {e}",
+                  file=sys.stderr)
+            return 1
+        print(f"backed up {name}{ext} -> {out}")
+    return 0
+
+
+# the templates `scaffold` prints, the reference's own text
+_SCAFFOLDS = {
+    "filer": """\
+# filer store configuration (reference: weed scaffold -config=filer)
+[filer.options]
+# directory to persist metadata; omit for in-memory
+# dir = "/data/filer"
+
+[memory]
+enabled = false
+
+[sqlite]
+enabled = true
+# dbFile = "/data/filer/filer.db"
+""",
+    "security": """\
+# security.toml (reference: weed scaffold -config=security)
+[jwt.signing]
+key = ""
+[jwt.signing.read]
+key = ""
+[jwt.filer.signing]
+key = ""
+[jwt.filer.signing.read]
+key = ""
+[access]
+ui = false
+[guard]
+white_list = []
+
+# cluster HTTPS/mTLS (reference wraps gRPC in mTLS, weed/security/tls.go);
+# generate with: weedtpu certs -dir ./certs
+[tls]
+# ca = "certs/ca.crt"
+# cert = "certs/server.crt"
+# key = "certs/server.key"
+# verify_client = true
+""",
+    "master": """\
+# master.toml
+[master.volume_growth]
+copy_1 = 7
+copy_2 = 6
+copy_3 = 3
+copy_other = 1
+[master.maintenance]
+garbage_threshold = 0.3
+""",
+    "replication": """\
+# replication.toml (reference: weed scaffold -config=replication)
+[source.filer]
+enabled = true
+grpcAddress = "localhost:8888"
+directory = "/buckets"
+
+[sink.filer]
+enabled = false
+grpcAddress = "localhost:8889"
+directory = "/backup"
+
+[sink.local]
+enabled = false
+directory = "/backup"
+""",
+    "notification": """\
+# notification.toml (reference: weed scaffold -config=notification)
+[notification.log]
+enabled = false
+path = "/tmp/filer_events.jsonl"
+
+[notification.kafka]
+enabled = false
+hosts = ["kafka1:9092"]
+topic = "seaweedfs_filer"
+""",
+    "shell": """\
+# shell.toml
+[cluster]
+default = "localhost:9333"
+""",
+}
+
+
+def _run_scaffold(args) -> int:
+    print(_SCAFFOLDS[args.config], end="")
+    return 0
+
+
+def _run_version(args) -> int:
+    """The package's version, and whether the host codec's library
+    builds and loads (`native`, with GFNI where the CPU has it) and
+    protobuf imports (`pb`), with the reference's fields."""
+    import platform
+
+    import seaweedfs_tpu_torch
+    from seaweedfs_tpu_torch import native, pb
+    try:
+        impl = native.gf_impl()
+    except (RuntimeError, OSError):
+        impl = None
+    print(f"weedtpu {seaweedfs_tpu_torch.__version__} "
+          f"(python {platform.python_version()}, "
+          f"native={'yes' if impl is not None else 'no'}"
+          f"{', gfni' if impl == native.GF_IMPL_GFNI else ''}, "
+          f"pb={'yes' if pb.available() else 'no'})")
+    return 0
+
+
+def _run_autocomplete(args, names) -> int:
+    """A bash completion script over the parser's own subcommands
+    (reference: weed autocomplete)."""
+    cmds = " ".join(sorted(names))
+    print(f"""_weedtpu_complete() {{
+  local cur="${{COMP_WORDS[COMP_CWORD]}}"
+  if [ "$COMP_CWORD" -eq 1 ]; then
+    COMPREPLY=( $(compgen -W "{cmds}" -- "$cur") )
+  fi
+}}
+complete -F _weedtpu_complete weedtpu""")
+    return 0
+
+
+def _run_certs(args) -> int:
+    """A cluster CA and a node certificate and key under -dir, and the
+    [tls] table for security.toml (security/tls.py)."""
+    from seaweedfs_tpu_torch.security import tls
+    table = tls.generate_certs(
+        args.dir, [h.strip() for h in args.hosts.split(",") if h.strip()])
+    print("[tls]")
+    for k, v in table.items():
+        val = str(v).lower() if isinstance(v, bool) else f'"{v}"'
+        print(f"{k} = {val}")
     return 0
 
 
@@ -324,6 +677,9 @@ def main(argv=None) -> int:
                     help="also run the S3 gateway (implies -filer)")
     ps.add_argument("-s3Port", type=int, default=8333)
     ps.add_argument("-s3Config", default=None)
+    ps.add_argument("-webdav", action="store_true",
+                    help="also run the WebDAV gateway (implies -filer)")
+    ps.add_argument("-webdavPort", type=int, default=7333)
     _add_common_flags(ps)
     pf = sub.add_parser("filer")
     pf.add_argument("-ip", default="127.0.0.1")
@@ -386,7 +742,78 @@ def main(argv=None) -> int:
     pdl.add_argument("-master", default="127.0.0.1:9333")
     pdl.add_argument("-dir", default=".")
     pdl.add_argument("fids", nargs="+")
-    for p in (p3, pi, pmf, psh, pb, pup, pdl):
+    pfx = sub.add_parser("fix",
+                         help="rebuild .idx from a .dat offline "
+                              "(command/fix.go:64)")
+    pfx.add_argument("-dir", required=True)
+    pfx.add_argument("-volumeId", type=int, required=True)
+    pfx.add_argument("-collection", default="")
+    pcp = sub.add_parser("compact",
+                         help="offline volume vacuum (command/compact.go)")
+    pcp.add_argument("-dir", required=True)
+    pcp.add_argument("-volumeId", type=int, required=True)
+    pcp.add_argument("-collection", default="")
+    pex = sub.add_parser("export",
+                         help="export volume needles to a tar "
+                              "(command/export.go)")
+    pex.add_argument("-dir", required=True)
+    pex.add_argument("-volumeId", type=int, required=True)
+    pex.add_argument("-collection", default="")
+    pex.add_argument("-o", dest="output", required=True, help="output .tar")
+    pbk = sub.add_parser("backup",
+                         help="incremental volume backup from a volume "
+                              "server (command/backup.go)")
+    pbk.add_argument("-server", required=True, help="volume server host:port")
+    pbk.add_argument("-volumeId", type=int, required=True)
+    pbk.add_argument("-collection", default="")
+    pbk.add_argument("-dir", default=".")
+    pwd = sub.add_parser("webdav",
+                         help="WebDAV gateway over a filer (webdav_server.go)")
+    pwd.add_argument("-ip", default="127.0.0.1")
+    pwd.add_argument("-port", type=int, default=7333)
+    pwd.add_argument("-filer", default="127.0.0.1:8888")
+    pwd.add_argument("-filer.path", dest="filerPath", default="/")
+    pft = sub.add_parser("ftp",
+                         help="FTP gateway (stub, like the reference's "
+                              "weed/ftpd)")
+    pft.add_argument("-ip", default="127.0.0.1")
+    pft.add_argument("-port", type=int, default=8021)
+    pft.add_argument("-filer", default="127.0.0.1:8888")
+    pmt = sub.add_parser("mount",
+                         help="FUSE-mount a filer path "
+                              "(weed/command/mount_std.go)")
+    pmt.add_argument("-filer", default="127.0.0.1:8888")
+    pmt.add_argument("-dir", required=True, help="mountpoint")
+    pmt.add_argument("-filer.path", dest="filerPath", default="/")
+    psc = sub.add_parser("scaffold",
+                         help="print a config template "
+                              "(command/scaffold.go:33)")
+    psc.add_argument("-config", default="filer", choices=list(_SCAFFOLDS))
+    # fstab-style alias for mount (reference: command/fuse.go lets
+    # /etc/fstab say `weed fuse /mnt -o "filer=..."`)
+    pfu = sub.add_parser(
+        "fuse",
+        help="fstab-style mount: `weedtpu fuse SOURCE MOUNTPOINT -o "
+             "filer=host:port,filer.path=/x` (command/fuse.go)")
+    pfu.add_argument("source", nargs="?", default="",
+                     help="fstab device field (informational)")
+    pfu.add_argument("mountpoint", nargs="?", default="")
+    pfu.add_argument("-o", dest="options", default="",
+                     help="comma-separated mount options: "
+                          "filer=host:port, filer.path=/subdir")
+    pver = sub.add_parser("version", help="print version and build info")
+    pac = sub.add_parser(
+        "autocomplete",
+        help="print a bash completion script (source it or install to "
+             "/etc/bash_completion.d)")
+    pcrt = sub.add_parser(
+        "certs", help="generate a cluster CA + node cert/key and print the "
+                      "[tls] table for security.toml (security/tls.py)")
+    pcrt.add_argument("-dir", default="./certs")
+    pcrt.add_argument("-hosts", default="localhost,127.0.0.1",
+                      help="comma-separated SAN hosts/IPs")
+    for p in (p3, pi, pmf, psh, pb, pup, pdl, pfx, pcp, pex, pbk, pwd, pft,
+              pmt, psc, pfu, pver, pac, pcrt):
         _add_common_flags(p)
     args = ap.parse_args(argv)
 
@@ -396,8 +823,18 @@ def main(argv=None) -> int:
     grace.setup_torch_profile(args.torchProfile, getattr(args, "device",
                                                          "cpu"))
     grace.setup_profiling(args.cpuprofile)
+    # the bootstrap tools (and `version`, the diagnostic) run even where
+    # the configured cert files are missing: they load no security.toml
+    bootstrap = {"certs": _run_certs, "scaffold": _run_scaffold,
+                 "version": _run_version,
+                 "autocomplete": lambda a: _run_autocomplete(a, sub.choices)}
+    if args.cmd in bootstrap:
+        return bootstrap[args.cmd](args)
     sync = {"shell": _run_shell, "benchmark": _run_benchmark,
-            "upload": _run_upload, "download": _run_download}
+            "upload": _run_upload, "download": _run_download,
+            "fix": _run_fix, "compact": _run_compact, "export": _run_export,
+            "backup": _run_backup, "ftp": _run_ftp, "mount": _run_mount,
+            "fuse": _run_mount}
     if args.cmd in sync:
         # the client tools load security.toml too, before any cluster URL
         # is built: the process-wide TLS
@@ -405,7 +842,8 @@ def main(argv=None) -> int:
         return sync[args.cmd](args)
     run = {"master": _run_master, "volume": _run_volume,
            "server": _run_server, "filer": _run_filer, "s3": _run_s3,
-           "iam": _run_iam, "master.follower": _run_follower}[args.cmd]
+           "iam": _run_iam, "webdav": _run_webdav,
+           "master.follower": _run_follower}[args.cmd]
     return asyncio.run(run(args))
 
 

@@ -1,17 +1,18 @@
 """Admin shell command environment + commands.
 
 Counterpart of `seaweedfs_tpu/shell/commands.py`, cut to the commands
-that need no remote store, message queue or mount (79 of the
-reference's 95): `help`, `lock`, `unlock`, the `volume.*` commands but
-`volume.tier.*`, the `collection.*`, `ec.*` and `cluster.*` commands
-but `cluster.geo`, `maintenance.status`, `chaos.status`, the 18 `fs.*`
-commands, which drive the first filer registered with the master over
-its HTTP API (`volume.fsck` lists that filer's tree too), and the 8
-`s3.*` commands, which keep the gateways' buckets, identities, quotas
-and circuit breaker in that filer.  The `remote.*` and `mq.*` commands,
-`mount.configure`, `volume.tier.*` and `cluster.geo` come with ROADMAP
-1.21b-1.22b, so `help` and the unknown-command error list fewer names
-than the reference's.  `fs.meta.notify` needs a filer started with a
+that need no remote store or message queue (80 of the reference's 95):
+`help`, `lock`, `unlock`, the `volume.*` commands but `volume.tier.*`,
+the `collection.*`, `ec.*` and `cluster.*` commands but `cluster.geo`,
+`maintenance.status`, `chaos.status`, the 18 `fs.*` commands, which
+drive the first filer registered with the master over its HTTP API
+(`volume.fsck` lists that filer's tree too), the 8 `s3.*` commands,
+which keep the gateways' buckets, identities, quotas and circuit
+breaker in that filer, and `mount.configure`, which talks to a running
+mount over its admin socket.  The `remote.*` and `mq.*` commands,
+`volume.tier.*` and `cluster.geo` come with ROADMAP 1.22a-1.22b, so
+`help` and the unknown-command error list fewer names than the
+reference's.  `fs.meta.notify` needs a filer started with a
 notification queue, which the port's CLI offers from 1.22a.
 
 The shell drives the cluster purely over the master/volume-server HTTP
@@ -2696,3 +2697,38 @@ def cmd_s3_circuitbreaker(env: CommandEnv, args, out):
     with urllib.request.urlopen(req, timeout=60):
         pass
     print(f"s3.circuitbreaker applied: {json.dumps(cfg)}", file=out)
+
+
+@command("mount.configure")
+def cmd_mount_configure(env: CommandEnv, args, out):
+    """Configure a RUNNING weedtpu mount through its admin unix socket
+    (reference: command_mount_configure.go over the mount's local socket).
+    -dir /mountpoint [-quotaMB N]  (0 clears the quota; no -quotaMB just
+    prints the mount's current state)"""
+    import socket as _socket
+    flags = parse_flags(args)
+    mountpoint = flags.get("dir")
+    if not mountpoint:
+        raise RuntimeError("-dir (the mountpoint) is required")
+    from seaweedfs_tpu_torch.mount.weedfs import admin_socket_path
+    payload: dict = {}
+    if "quotaMB" in flags:
+        payload["quota"] = int(float(flags["quotaMB"]) * 1024 * 1024)
+    sock = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
+    try:
+        sock.settimeout(10)
+        sock.connect(admin_socket_path(mountpoint))
+        sock.sendall(json.dumps(payload).encode())
+        sock.shutdown(_socket.SHUT_WR)
+        resp = json.loads(sock.recv(65536))
+    except (OSError, ValueError) as e:
+        raise RuntimeError(
+            f"no responding mount at {mountpoint} ({e})") from None
+    finally:
+        sock.close()
+    if not resp.get("ok"):
+        raise RuntimeError(f"mount.configure: {resp.get('error')}")
+    quota = resp.get("quota", 0)
+    print(f"mount at {mountpoint}: root={resp.get('root')} quota="
+          + (f"{quota / (1024 * 1024):.0f}MB" if quota else "unlimited"),
+          file=out)

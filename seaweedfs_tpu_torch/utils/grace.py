@@ -19,6 +19,7 @@ import atexit
 import contextlib
 import cProfile
 import faulthandler
+import io
 import logging
 import os
 import signal
@@ -70,8 +71,13 @@ def _install() -> None:
 
 def setup_stack_dumps() -> None:
     """SIGUSR1 prints every thread's stack to stderr: what the process is
-    doing (the reference's pprof goroutine dump)."""
-    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    doing (the reference's pprof goroutine dump).  A caller whose stderr
+    is no file (the CLI run in process under a capturing test) gets no
+    dump: there is nowhere to write one."""
+    try:
+        faulthandler.register(signal.SIGUSR1, all_threads=True)
+    except io.UnsupportedOperation:
+        pass
 
 
 def setup_profiling(cpu_profile_path: str | None) -> None:

@@ -251,6 +251,96 @@ def test_filer_server_leaves_jax_and_torch_unloaded(tmp_path):
                    check=True, timeout=120)
 
 
+def test_import_rule_covers_the_gateway_mount_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("mount/__init__.py", "mount/inode.py", "mount/weedfs.py",
+                "mount/fuse_ll.py", "server/webdav_server.py", "ftpd.py",
+                "shell/commands.py", "__main__.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
+def test_gateway_mount_and_offline_cli_leave_jax_and_torch_unloaded(
+        tmp_path):
+    """The mount, the WebDAV gateway, the FTP stub and the offline CLI in
+    a fresh interpreter: a port `FilerServer` with no master to reach
+    and a `WebDavServer` over it answer MKCOL and PROPFIND; a `WFS` over
+    the filer makes a directory, a symlink and an xattr and reads them
+    back through `make_fuse_ops`, its subscription and admin socket
+    live; `fix`, `export`, `compact`, `scaffold` and `version` run on a
+    volume the port's `Volume` wrote; `mount.configure` answers; neither
+    jax, torch nor the reference package gets imported."""
+    code = (
+        "import asyncio, io, os, sys, urllib.request\n"
+        "from seaweedfs_tpu_torch.server.filer_server import FilerServer\n"
+        "from seaweedfs_tpu_torch.server.webdav_server import "
+        "WebDavServer\n"
+        "from seaweedfs_tpu_torch.mount import fuse_ll, weedfs\n"
+        "from seaweedfs_tpu_torch import ftpd\n"
+        "from seaweedfs_tpu_torch.__main__ import main\n"
+        "from seaweedfs_tpu_torch.shell import commands\n"
+        "from seaweedfs_tpu_torch.storage.needle import Needle\n"
+        "from seaweedfs_tpu_torch.storage.volume import Volume\n"
+        "d = sys.argv[1]\n"
+        "async def main_():\n"
+        "    fs = FilerServer('127.0.0.1:1', port=0, data_dir=d + '/f')\n"
+        "    await fs.start()\n"
+        "    fs.port = fs._runner.addresses[0][1]\n"
+        "    dav = WebDavServer(fs.url, port=0)\n"
+        "    await dav.start()\n"
+        "    dport = dav._runner.addresses[0][1]\n"
+        "    def drive():\n"
+        "        u = f'http://127.0.0.1:{dport}'\n"
+        "        r = urllib.request.urlopen(urllib.request.Request(\n"
+        "            u + '/dav', method='MKCOL'), timeout=10)\n"
+        "        assert r.status == 201\n"
+        "        r = urllib.request.urlopen(urllib.request.Request(\n"
+        "            u + '/', method='PROPFIND', headers={'Depth': '1'}),\n"
+        "            timeout=10)\n"
+        "        assert r.status == 207 and b'/dav/' in r.read()\n"
+        "        w = weedfs.WFS(fs.url, subscribe=True)\n"
+        "        admin = weedfs.start_admin_socket(w, d + '/mnt')\n"
+        "        ops = weedfs.make_fuse_ops(w, fuse_ll.Operations,\n"
+        "                                   fuse_ll.FuseOSError)\n"
+        "        ops.mkdir('/m', 0o755)\n"
+        "        ops.symlink('/m/l', 'target')\n"
+        "        ops.setxattr('/m', 'user.k', b'v', 0)\n"
+        "        assert ops.readlink('/m/l') == 'target'\n"
+        "        assert ops.getxattr('/m', 'user.k') == b'v'\n"
+        "        assert 'l' in ops.readdir('/m', 0)\n"
+        "        out = io.StringIO()\n"
+        "        commands.run_command(commands.CommandEnv('127.0.0.1:1'),\n"
+        "            f'mount.configure -dir {d}/mnt -quotaMB 1', out)\n"
+        "        assert 'quota=1MB' in out.getvalue(), out.getvalue()\n"
+        "        w.close()\n"
+        "        assert not admin.thread.is_alive()\n"
+        "    await asyncio.to_thread(drive)\n"
+        "    await dav.stop()\n"
+        "    await fs.stop()\n"
+        "asyncio.run(main_())\n"
+        "v = Volume(d, '', 3)\n"
+        "for i in range(1, 5):\n"
+        "    v.append_needle(Needle(id=i, cookie=i, data=b'x' * i))\n"
+        "v.delete_needle(2, 2)\n"
+        "v.close()\n"
+        "os.remove(d + '/3.idx')\n"
+        "for argv in (['fix', '-dir', d, '-volumeId', '3'],\n"
+        "             ['export', '-dir', d, '-volumeId', '3', '-o',\n"
+        "              d + '/3.tar'],\n"
+        "             ['compact', '-dir', d, '-volumeId', '3'],\n"
+        "             ['scaffold', '-config', 'filer'], ['version']):\n"
+        "    assert main(argv) == 0, argv\n"
+        "assert Volume(d, '', 3).read_needle(4).data == b'xxxx'\n"
+        "try:\n"
+        "    asyncio.run(ftpd.FtpServer(ftpd.FtpServerOption('h:1')).start())\n"
+        "except NotImplementedError:\n"
+        "    pass\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'torch', 'seaweedfs_tpu')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,
+                   check=True, timeout=120)
+
+
 def test_card_path_modules_import_no_server_package():
     """The store, the EC files and the codecs load without aiohttp and
     protobuf: only the server modules import them at module level."""

@@ -85,22 +85,69 @@ def _hot_delta(before, after):
     return {k: after[k] - before[k] for k in after}
 
 
-def test_filer_steady_state_reads_skip_master(plane):
-    c, (f1, _) = plane
-    base = f"http://{f1.url}"
-    body = bytes(range(256)) * 128  # 32 KiB: 4 chunks of 8 KiB
-    st, _, _ = req(f"{base}/steady/zero.bin", method="PUT", data=body)
-    assert st == 201
-    st, got, _ = req(f"{base}/steady/zero.bin")
-    assert st == 200 and got == body
-    master_before = metrics.MASTER_LOOKUPS.labels().value
-    resolver_before = f1._vid_resolver.upstream_lookups
-    for _ in range(10):
-        st, got, _ = req(f"{base}/steady/zero.bin")
+class _PinnedRing(RendezvousRing):
+    """The ring of the same members with every key homed on `pinned`: a
+    layout that the address-keyed ring gives only now and then (the
+    filers' addresses come from free_port())."""
+
+    def __init__(self, members, pinned: str):
+        super().__init__(members)
+        self.pinned = pinned
+
+    def home(self, key: str) -> str:
+        return self.pinned
+
+
+@pytest.mark.parametrize("layout", ["ring", "f1", "f2"])
+def test_filer_steady_state_reads_skip_master(plane, layout):
+    """Ten steady reads through f1 touch neither the master nor the
+    volume tier, wherever the chunks' homes fall: "ring" as the
+    rendezvous ring places them, "f1"/"f2" with every home pinned on
+    that filer.  The reads are served from a cache in the cluster: f1's
+    own (hit_local) for chunks homed on f1, the home's through a route
+    (f1's route_out, the home's hit_local) for the others."""
+    c, (f1, f2) = plane
+    rings = (f1.hot_ring, f2.hot_ring)
+    if layout != "ring":
+        home = {"f1": f1, "f2": f2}[layout].url
+        f1.hot_ring = _PinnedRing(rings[0].members, home)
+        f2.hot_ring = _PinnedRing(rings[1].members, home)
+    try:
+        base = f"http://{f1.url}"
+        body = bytes(range(256)) * 128  # 32 KiB: 4 chunks of 8 KiB
+        n_chunks = 4
+        path = f"{base}/steady/{layout}.bin"
+        st, _, _ = req(path, method="PUT", data=body)
+        assert st == 201
+        st, got, _ = req(path)
         assert st == 200 and got == body
-    assert metrics.MASTER_LOOKUPS.labels().value == master_before
-    assert f1._vid_resolver.upstream_lookups == resolver_before
-    assert f1.vid_cache.hits > 0 or f1.hot_stats["hit_local"] > 0
+        master_before = metrics.MASTER_LOOKUPS.labels().value
+        resolver_before = [f._vid_resolver.upstream_lookups
+                           for f in (f1, f2)]
+        hits_before = [f.vid_cache.hits for f in (f1, f2)]
+        before = [dict(f1.hot_stats), dict(f2.hot_stats)]
+        for _ in range(10):
+            st, got, _ = req(path)
+            assert st == 200 and got == body
+        d1 = _hot_delta(before[0], f1.hot_stats)
+        d2 = _hot_delta(before[1], f2.hot_stats)
+        assert metrics.MASTER_LOOKUPS.labels().value == master_before
+        assert [f._vid_resolver.upstream_lookups
+                for f in (f1, f2)] == resolver_before
+        assert d1["direct"] == 0 and d2["direct"] == 0, (d1, d2)
+        assert d1["hit_local"] + d1["route_out"] == 10 * n_chunks, d1
+        assert d1["route_fail"] == 0, d1
+        assert d2["route_in"] == d1["route_out"], (d1, d2)
+        cache_hits = sum(f.vid_cache.hits - h
+                         for f, h in zip((f1, f2), hits_before))
+        assert cache_hits + d1["hit_local"] + d2["hit_local"] > 0
+        if layout == "f1":
+            assert d1["hit_local"] == 10 * n_chunks and d1["route_out"] == 0
+        elif layout == "f2":
+            assert d1["route_out"] == 10 * n_chunks, d1
+            assert d2["hit_local"] == 10 * n_chunks, d2
+    finally:
+        f1.hot_ring, f2.hot_ring = rings
 
 
 def test_concurrent_multi_filer_load(plane):

@@ -201,12 +201,13 @@ def test_collect_volume_ids_for_ec_encode_snapshot(monkeypatch):
 
 def test_help_and_unknown_command_list_the_ported_commands():
     """A kept difference: the port registers fewer commands until ROADMAP
-    1.21b-1.22b (79 of the reference's 95, every `fs.*` and `s3.*` one
-    among them), and `help` and the unknown-command error list what it
-    has."""
+    1.22a-1.22b (80 of the reference's 95, every `fs.*` and `s3.*` one
+    and `mount.configure` among them), and `help` and the
+    unknown-command error list what it has."""
     left_out = set(ref_commands.COMMANDS) - set(commands.COMMANDS)
     assert set(commands.COMMANDS) <= set(ref_commands.COMMANDS)
-    assert len(commands.COMMANDS) == 79
+    assert len(commands.COMMANDS) == 80
+    assert "mount.configure" in commands.COMMANDS
     assert {n for n in ref_commands.COMMANDS
             if n.startswith(("fs.", "s3."))} <= set(commands.COMMANDS)
     assert sorted(n for n in commands.COMMANDS if n.startswith("s3.")) == [
@@ -215,7 +216,7 @@ def test_help_and_unknown_command_list_the_ported_commands():
         "s3.clean.uploads", "s3.configure"]
     assert {n for n in left_out
             if not n.startswith(("remote.", "mq."))} == {
-        "mount.configure", "volume.tier.move", "volume.tier.upload",
+        "volume.tier.move", "volume.tier.upload",
         "volume.tier.download", "cluster.geo"}
     env = CommandEnv("127.0.0.1:1")
     listed = [line.split()[0] for line in shell(env, "help").splitlines()]
@@ -225,7 +226,8 @@ def test_help_and_unknown_command_list_the_ported_commands():
     assert ", ".join(sorted(commands.COMMANDS)) in str(ei.value)
     # `help <name>` prints the same doc as the reference's
     for name in ("ec.encode", "maintenance.status", "volume.balance",
-                 "s3.configure", "s3.circuitbreaker", "s3.bucket.quota"):
+                 "s3.configure", "s3.circuitbreaker", "s3.bucket.quota",
+                 "mount.configure"):
         ref = io.StringIO()
         ref_commands.run_command(ref_commands.CommandEnv("127.0.0.1:1"),
                                  f"help {name}", ref)
