@@ -184,7 +184,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                bytes of shard 2 flipped, found by syndrome_scan,
                quarantined, the needles over it read, restored; (7)
                skip_shards={0} on 16 needles; (8) in 8 threads, 256 of
-               step 1's needles with B up, then all of them with B down;
+               step 1's needles with B up, then 384 with B down;
                K1 per step against its
                prediction, the hedge counters, rates and latencies, and
                whether aiohttp, google.protobuf and cryptography import
@@ -205,8 +205,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                phase 4's, K1 == phase 4's; (3) B pulls 7-13 through A's
                /admin/file, both mount, A drops 7-13 and the volume, the
                master shows the split; (4) phase 5's losses deleted where
-               they live, every needle on a lost data shard and 32
-               others read from A, B's shards through
+               they live, 256 needles on a lost data shard and 32
+               others (drawn with --seed) read from A, B's shards through
                A's shard reader and B's /admin/ec/shard_read (hedging
                off), K1 == needles on lost data shards; (5) A borrows
                B's survivors (/admin/ec/copy), /admin/ec/rebuild (sha256
@@ -328,7 +328,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                phase 4's shard set, A 0-6 / B 7-13, mounted, the
                leader's /dir/ec/lookup equal to the split; (5) the leader
                stopped: a new leader, A's and B's beats at it, the split
-               again; (6) shards 0 and 3 deleted on A, 256 needles on
+               again; (6) shards 0 and 3 deleted on A, 128 needles on
                them (drawn with --seed) read from A at 16 clients,
                hedging off, B's survivors found through the new leader:
                K1 == needles, every payload equal; (7) an assign on the
@@ -362,7 +362,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                pass on A at that rate (K1 one per window, no faster
                than 0.9 x bytes / rate), quiet ticks ramping it back;
                (7) /cluster/loops, /cluster/dashboard, /cluster/heat,
-               the routes left out answering 404; K1 per step against
+               /cluster/geo with no sync direction; K1 per step against
                its prediction, K2 0; launches zeroed before and read
                after; every line with the card's name and power limit
  22 heal       the master's maintenance plane (repair planner and
@@ -397,7 +397,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                .dat == phase 3's), the demote's sealed conversion (K2
                its units); one round of the background loop; every
                volume healthy, /cluster/loops without error,
-               /cluster/geo alone 404; K1 and K2 per step against their
+               /cluster/geo with no sync direction; K1 and K2 per step
+               against their
                prediction; launches zeroed before and read after
  23 shell      the port's own client and shell (ROADMAP 1.19a) over
                three card servers in three racks on one loop thread,
@@ -431,7 +432,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                it: the `Filer` over
                its `LogStore`, its `on_delete_chunks` feeding a
                `DeletionQueue` on the port's `WeedClient`, a `ChunkCache`
-               of 32 MiB in memory and a disk tier; (1) 256 MiB of files
+               of 32 MiB in memory and a disk tier; (1) 128 MiB of files
                from --seed (1 KiB-32 MiB) cut into 4 MiB chunks and
                uploaded into collection p24, those under /p24/enc sealed
                by the port's AES-GCM cipher; a file of 48 appended chunks
@@ -453,7 +454,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
  25 filer server  the port's `FilerServer` (ROADMAP 1.20b) on the same
                cluster, kept up for it: A and B (B sealing its chunks),
                each on a loop thread of its own with a 512 MiB chunk
-               cache, over one SQLite store, the hot tier on; (1) 256 MiB
+               cache, over one SQLite store, the hot tier on; (1) 128 MiB
                of files from --seed PUT from 16 threads into collection
                p25, /p25/plain through A (a quarter of them gzipped
                text), /p25/enc through B, then a PATCH, a truncate and a
@@ -480,7 +481,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                and one port `S3ApiServer` G over it, registered with the
                master, its identities W (Admin, Read, Write, List,
                Tagging) and R (Read, List) also stored by `s3.configure`;
-               (1) bucket p26 and 256 MiB of objects from --seed PUT
+               (1) bucket p26 and 128 MiB of objects from --seed PUT
                through G by W from 16 threads: signed PUTs, a quarter
                aws-chunked, two of about 24 MiB by multipart in 5 MiB
                parts, each ETag the MD5 (-5 for the multipart ones); (2)
@@ -529,7 +530,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                `compact` of the copy, each checked against the server's
                volume, no torch loaded; K2 0; launches zeroed before and
                read after
- 28 report     {"kernels": [...]} line, the card's name and power limit,
+ 28 replication  the port's replication, notification and remote
+               storage (ROADMAP 1.22a) on the same cluster, kept up for
+               it: two port `FilerServer`s, A (region a, collection p28a,
+               a `LogQueue` notification) and B (region b, collection
+               p28b), each on a loop thread of its own with a fresh
+               SQLite store, and one port `S3ApiServer` G over B with an
+               identity file; (1) 128 MiB of files from --seed POSTed to
+               A under /p28 from 16 threads; (2) `ec.encode -collection
+               p28a`, K1 == the layout's units; (3) data shards 0 and 3
+               of every p28a EC volume deleted; (4) a port `FilerSync(A,
+               B)` until B's digest of /p28 equals A's: every file on B
+               == its draw, the b->a pump skipping every echo, A's
+               `direct` == the distinct chunks, K1 one per such fetch
+               touching a lost data shard; (5) files PUT on B reach A,
+               no echo; (6) the master's /cluster/geo with both
+               directions unstalled, the applied counters == the pumps',
+               `cluster.geo`, the auditor clean, the sync stopped at once;
+               (7) two `ReplicateDaemon`s over A's log into a
+               `LocalSink` and a `CloudSink` over `S3Remote` into G's
+               bucket p28mirror, every file and object == its draw; (8)
+               `volume.tier.upload` of B's p28b volume into G's p28tier,
+               its needles read through G, `volume.tier.download`, the
+               .dat unchanged; (9) `remote.mount` of p28mirror on A,
+               read-through GETs, `remote.cache`, `remote.uncache`,
+               `remote.meta.sync`, `remote.unmount`; (10) a child running
+               the CLI's `filer.cat`, `filer.copy`, `filer.meta.tail`,
+               `filer.meta.backup` and `filer.backup` against A, each
+               output == what A holds, no torch loaded; K1 per step
+               against its prediction from the run's own layout and A's
+               cache, K2 0; launches zeroed before and read after
+ 29 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -538,7 +569,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12-27, each on its own, so the reported launches are
+around phases 12-28, each on its own, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -551,7 +582,7 @@ volume taken before phase 14, whose appends go through links of it; phases
 17, 18, 20, 21 and 22 also on links of phase 4's and (17) 10's shard
 sets, 17, 18 and 22 on phase 7's volumes).  Every port master the
 script starts runs with its repair loop off
-(WEEDTPU_REPAIR_INTERVAL=0): phases 16-27 delete shards on purpose, and
+(WEEDTPU_REPAIR_INTERVAL=0): phases 16-28 delete shards on purpose, and
 a planner tick would rebuild them, launching K1 at times no step
 predicts.
 Needs one CUDA card; exits non-zero without one, and outside a checkout
@@ -3613,8 +3644,11 @@ REMOTE_SKIPPED = 16  # step 7's
 REMOTE_STEP1_EVERY = 3  # step 1 reads every third needle on shards 0-3
 REMOTE_THREADS = 8  # step 8's
 # step 8's reads with B up, where they launch nothing: the first 256 of
-# the permutation; with B down, all of step 1's needles (K1 each)
+# the permutation; with B down, the first REMOTE_DOWN_READS (K1 each)
 REMOTE_UP_READS = 256
+# step 8's reads with B down, each a decode: cut from all of step 1's
+# (898 at seed 0) for the script's time (PERF §4)
+REMOTE_DOWN_READS = 384
 # the reconstruction LRU's default budget (ec_volume.RECONSTRUCT_CACHE_
 # BYTES): step 2's needles are drawn among those whose bytes on shards 0
 # and 1 fit 1/16 of it, so that step 3 finds all 16 in the cache
@@ -4171,7 +4205,8 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
         # 8 eight threads on A, B up then down
         order = rng.permutation(reads1).tolist()
         for label in ("peer up", "peer down"):
-            arm = order[:REMOTE_UP_READS] if label == "peer up" else order
+            arm = order[:REMOTE_UP_READS] if label == "peer up" else \
+                order[:REMOTE_DOWN_READS]
             shares = [arm[i::REMOTE_THREADS] for i in range(REMOTE_THREADS)]
             if label == "peer down":
                 empty_lru(a)
@@ -4206,7 +4241,7 @@ def phase_remote(vdir: str, base: str, expect: dict, blob: bytes,
                                      f"{len(arm)} reads")
             k1_steps[f"8 threads, {label}"] = (g["k1"], 0 if
                                                label == "peer up" else
-                                               len(reads1))
+                                               len(arm))
             steps[f"threads_{label.replace(' ', '_')}"] = {
                 "reads": len(arm), "s": dt,
                 "reads_per_s": len(arm) / dt, "grown": g}
@@ -4258,6 +4293,9 @@ SERVER_DELETES = 256
 # ~1400 of them (256 before, and every needle before that), and steps 1
 # and 6's, drawn from all (each step read every needle before; PERF §4)
 SERVER_DEGRADED_OTHERS = 32
+# step 4's needles on a lost data shard, drawn with --seed: cut from all
+# 602 for the script's time (PERF §4)
+SERVER_DEGRADED_TOUCHING = 256
 SERVER_READ_SAMPLE = 256
 
 
@@ -4631,11 +4669,14 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
         lost_data = {s for s in SERVER_LOSSES if s < layout.DATA_SHARDS}
         touching = [nid for nid in expect
                     if any(s in lost_data for s, _, _ in intervals(ev, nid))]
-        # every needle on a lost data shard, and of the others (read
-        # through B's shards alone, without a decode) a draw, for the
+        # a draw of the needles on a lost data shard and of the others
+        # (read through B's shards alone, without a decode), for the
         # script's time (PERF §4)
         rest = [nid for nid in expect if nid not in set(touching)]
         rng = np.random.default_rng(seed + 16)
+        touching = rng.choice(
+            touching, size=min(len(touching), SERVER_DEGRADED_TOUCHING),
+            replace=False).tolist()
         sample = sorted(touching + rng.choice(
             rest, size=min(len(rest), SERVER_DEGRADED_OTHERS),
             replace=False).tolist())
@@ -6277,7 +6318,7 @@ def phase_mesh(vdir: str, server_src: str, hashes: list[str],
 MASTER_SMALL = 256  # step 3's objects through the leader's /dir/assign
 MASTER_SMALL_SIZE = 1024
 MASTER_LOST = (0, 3)  # step 6's lost data shards, on A
-MASTER_DEGRADED = 256  # step 6's needles on them, drawn with --seed
+MASTER_DEGRADED = 128  # step 6's needles on them, drawn with --seed (cut from 256, PERF §4)
 MASTER_EC_VID = 201
 MASTER_BEAT_S = 0.5  # the volume servers' heartbeat interval here
 MASTER_LEADER_S = 15.0  # a leader's deadline, the reference tests'
@@ -6705,14 +6746,14 @@ def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
     scrubbers, one /admin/scrub pass on A at that rate over small shard
     sets sized to take PLANES_SCRUB_S or more (K1 one per window), quiet
     ticks ramping the rate back; (7) /cluster/loops, the dashboard,
-    /cluster/heat and the routes left out.  K1 and K2 per step held
+    /cluster/heat and /cluster/geo (no direction).  K1 and K2 per step held
     against their prediction; nothing staged."""
     import math
 
     import numpy as np
     from seaweedfs_tpu_torch.maintenance import scrub
     from seaweedfs_tpu_torch.server import volume_server as vsmod
-    from seaweedfs_tpu_torch.server.master import LEFT_OUT, MasterServer
+    from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.stats import heat, metrics, netflow, trace
     from seaweedfs_tpu_torch.stats.aggregate import parse_exposition
     from seaweedfs_tpu_torch.stats.profile import KERNELS
@@ -7148,12 +7189,9 @@ def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
                     abs(vol["est"] - one[str(PLANES_VID)]["est"]) > \
                     0.01 * vol["est"]:
                 raise AssertionError(f"/cluster/heat {hv}")
-            refused = {}
-            for path in LEFT_OUT:
-                refused[path] = call(master.url,
-                                     path.replace("{tid}", "ab" * 16))[0]
-            if set(refused.values()) != {404}:
-                raise AssertionError(f"left-out routes answered {refused}")
+            st_geo, geo = call(master.url, "/cluster/geo")
+            if st_geo != 200 or json.loads(geo)["directions"]:
+                raise AssertionError(f"/cluster/geo: HTTP {st_geo} {geo!r}")
             step_counts("7 views", k0, 0)
             steps["7 views"] = {"loops": {n: {k: r[k] for k in (
                 "ticks", "wall_ema", "wall_max", "errors")}
@@ -7165,8 +7203,8 @@ def phase_planes(vdir: str, base: str, expect: dict, blob: bytes,
                  f"dashboard's {raw.count(b'<svg')} sparklines; /cluster/"
                  f"heat of {hv['nodes']}: volume {PLANES_VID} est "
                  f"{vol['est']} (one tracker merged once: {one[str(PLANES_VID)]['est']}), "
-                 f"degraded {vol['degraded']}; {len(LEFT_OUT)} routes left "
-                 f"out answer 404; K1 0")
+                 f"degraded {vol['degraded']}; /cluster/geo answers with "
+                 f"no sync direction; K1 0")
     finally:
         for vs in servers.values():
             vrun(vs.stop())
@@ -7233,7 +7271,7 @@ def phase_heal(vdir: str, base: str, server_src: str, expect: dict,
     from seaweedfs_tpu_torch.maintenance import scrub
     from seaweedfs_tpu_torch.ops import fleet_convert
     from seaweedfs_tpu_torch.server import volume_server as vsmod
-    from seaweedfs_tpu_torch.server.master import LEFT_OUT, MasterServer
+    from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.stats import heat, netflow
     from seaweedfs_tpu_torch.stats.aggregate import parse_exposition
     from seaweedfs_tpu_torch.storage import types as t
@@ -7811,13 +7849,13 @@ def phase_heal(vdir: str, base: str, server_src: str, expect: dict,
             lp = get_json(master.url, "/cluster/loops")
             bad = {n: r for n, r in lp["loops"].items() if r["errors"]}
             st = status()
-            refused = {p: call(master.url, p)[0] for p in LEFT_OUT}
+            geo = get_json(master.url, "/cluster/geo")
             if not {"repair", "convert", "autopilot"} <= set(lp["loops"]) \
                     or bad or st["states"]["healthy"] != \
-                    len(st["volumes"]) or refused != {"/cluster/geo": 404}:
+                    len(st["volumes"]) or geo["directions"]:
                 raise AssertionError(f"/cluster/loops {sorted(lp['loops'])}"
                                      f", errors {bad}; states "
-                                     f"{st['states']}; left out {refused}")
+                                     f"{st['states']}; /cluster/geo {geo}")
             steps["7 autopilot"] = {
                 "reads_s": dt_reads, "rps": rec["rps"],
                 "promote_s": dt_promote, "demote_k2": demote_k2,
@@ -7835,7 +7873,7 @@ def phase_heal(vdir: str, base: str, server_src: str, expect: dict,
                  f"for {units} unit(s); both plans done with trace ids; "
                  f"one background round: loops {sorted(lp['loops'])}, no "
                  f"error; {len(st['volumes'])} volumes healthy; "
-                 f"{list(refused)} alone answers 404; K1 0")
+                 f"/cluster/geo with no sync direction; K1 0")
     finally:
         for vs in servers.values():
             vrun(vs.stop())
@@ -8355,7 +8393,7 @@ def phase_shell(racks: ThreeRacks, server_src: str, expect: dict,
 # phase 24's filer (ROADMAP 1.20a): the port's Filer over its LogStore,
 # its chunks on phase 23's layout of three card servers in three racks.
 FILER_COLLECTION = "p24"
-FILER_BYTES = 256 * MIB  # the tree's files, from --seed
+FILER_BYTES = 128 * MIB  # the tree's files, from --seed (cut from 256, PERF §4)
 FILER_MIN_SIZE = 1 << 10
 FILER_MAX_SIZE = 32 * MIB
 FILER_CHUNK = 4 * MIB  # the reference filer's -maxMB default
@@ -8378,7 +8416,7 @@ def phase_filer(racks: ThreeRacks, vdir: str, seed: int,
     its `on_delete_chunks` feeds a `DeletionQueue` on the port's
     `WeedClient`, which resolves manifests; reads go through a
     `ChunkCache` of the filer server's 32 MiB memory tier and a disk
-    tier.  Steps: (1) 256 MiB of files from --seed (1 KiB-32 MiB,
+    tier.  Steps: (1) 128 MiB of files from --seed (1 KiB-32 MiB,
     log-uniform) under /p24/plain and /p24/enc, cut into 4 MiB chunks
     and uploaded by the client into collection p24 from 16 threads,
     every chunk under /p24/enc sealed by the port's cipher with its key
@@ -8898,7 +8936,7 @@ def phase_filer(racks: ThreeRacks, vdir: str, seed: int,
 # phase 25's filer server (ROADMAP 1.20b): two port FilerServers over one
 # SQLite store, reading their chunks from phase 23's card servers.
 FS_COLLECTION = "p25"
-FS_BYTES = 256 * MIB  # the tree's files, from --seed
+FS_BYTES = 128 * MIB  # the tree's files, from --seed (cut from 256, PERF §4)
 FS_MIN_SIZE = 1 << 10
 FS_MAX_SIZE = 32 * MIB
 FS_CACHE_MEM = 512 * MIB  # each filer's: no chunk evicted in the phase
@@ -8918,7 +8956,7 @@ def phase_filer_server(racks: ThreeRacks, vdir: str, seed: int,
     and the default 4 MiB chunks, share one SQLite store in the phase's
     directory; the hot tier is on and both rings hold both filers before
     step 1.  A has the lower port, so the shell's `find_filer` picks it.
-    Steps: (1) /p25 made through A, then 256 MiB of files from --seed
+    Steps: (1) /p25 made through A, then 128 MiB of files from --seed
     (1 KiB-32 MiB, log-uniform) PUT from 16 threads into collection p25:
     /p25/plain through A, every fourth of them text/plain over 16
     letters (gzipped), /p25/enc through B (sealed); a 1 MiB PATCH into
@@ -9533,7 +9571,7 @@ def _filer_server_events(plan: list, patched: str, cut: str, moved: dict,
 # phase 26's S3 gateway (ROADMAP 1.21a): one port FilerServer F and one
 # port S3ApiServer G over it on phase 23's cluster
 S3_BUCKET = "p26"  # the bucket, and the collection its chunks land in
-S3_BYTES = 256 * MIB  # the objects, from --seed
+S3_BYTES = 128 * MIB  # the objects, from --seed (cut from 256, PERF §4)
 S3_MULTIPART = 24 * MIB  # each of the two multipart objects, about
 S3_PART = 5 * MIB
 S3_CACHE_MEM = 512 * MIB  # F's: no chunk evicted in the phase
@@ -9559,7 +9597,7 @@ def phase_s3(racks: ThreeRacks, vdir: str, seed: int,
     with the master, its IAM two identities (W: Admin, Read, Write,
     List, Tagging; R: Read, List), also stored in F's identity.json by
     the shell's `s3.configure`.  Steps: (1) bucket p26 created through
-    G by W, then 256 MiB of objects from --seed (1 KiB-32 MiB,
+    G by W, then 128 MiB of objects from --seed (1 KiB-32 MiB,
     log-uniform) PUT from 16 threads: three quarters by a signed PUT
     with the payload's SHA-256, a quarter by aws-chunked streaming
     (`sign_v4_chunked`), and two of about 24 MiB by multipart in 5 MiB
@@ -10860,6 +10898,769 @@ def phase_webdav(racks: ThreeRacks, vdir: str, seed: int,
     return out
 
 
+# phase 28's replication, notification and remote storage (ROADMAP
+# 1.22a): two port FilerServers A (region a) and B (region b) kept in
+# step by the port's FilerSync, a port S3ApiServer G over B, the
+# replicate daemon into a local directory and a bucket of G, the volume
+# tier and remote mounts over G, on phase 23's cluster
+REPL_BYTES = 128 * MIB  # A's files, from --seed
+REPL_DIRS = 4  # /p28/d0..d3
+REPL_CACHE_MEM = 512 * MIB  # A's and B's: no chunk evicted in the phase
+REPL_LOST = (0, 3)  # step 3's lost data shards of every p28a EC volume
+REPL_THREADS = 16
+REPL_BACK = 4  # step 5's files PUT on B, 2 MiB each
+REPL_KEYS = ("W28", "AKIAPHASE28", "phase28secretKEY/+=")  # G's identity
+# the CLI's filer client tools, in one child on the card's host: filer.cat,
+# filer.copy, filer.meta.tail, then filer.meta.backup and filer.backup,
+# each of those two ended by a SIGINT once its work is done, as an
+# operator's ^C would; it reports whether it loaded torch or jax
+REPL_CHILD = r"""
+import contextlib, io, json, os, signal, sys, threading, time
+from seaweedfs_tpu_torch.__main__ import main
+a, work = sys.argv[1:3]
+want = json.load(open(os.path.join(work, "cli_want.json")))
+secs = {}
+
+def run(name, argv, done=None):
+    stop = threading.Event()
+    buf = io.StringIO()
+    def watch():
+        while not stop.wait(0.02):
+            if done(buf.getvalue()):
+                os.kill(os.getpid(), signal.SIGINT)
+                return
+    if done is not None:
+        threading.Thread(target=watch, daemon=True).start()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    stop.set()
+    secs[name] = time.perf_counter() - t0
+    if rc:
+        raise SystemExit(f"{name} exited {rc}")
+    return buf.getvalue()
+
+def mirrored(_):
+    for p, size in want["backup"].items():
+        q = os.path.join(work, "bk", p.lstrip("/"))
+        if not os.path.exists(q) or os.path.getsize(q) != size:
+            return False
+    return True
+
+run("cat", ["filer.cat", "-filer", a, "-o", os.path.join(work, "cat.out"),
+            want["cat"]])
+run("copy", ["filer.copy", "-filer", a, os.path.join(work, "cli_src"),
+             "/cli28/"])
+tail = run("tail", ["filer.meta.tail", "-filer", a, "-pathPrefix", "/p28",
+                    "-timeAgo", "3600", "-untilTimeAgo", "0.001"])
+with open(os.path.join(work, "tail.out"), "w") as f:
+    f.write(tail)
+run("meta_backup", ["filer.meta.backup", "-filer", a, "-filerPath", "/p28",
+                    "-store", "sqlite:" + os.path.join(work, "meta.db")],
+    lambda out: "tailing" in out)
+run("backup", ["filer.backup", "-filer", a, "-dir",
+               os.path.join(work, "bk"), "-filerPath", "/p28",
+               "-offsetFile", os.path.join(work, "bk.json")], mirrored)
+print(json.dumps({"s": secs, "loaded": {m: m in sys.modules
+                                        for m in ("torch", "jax")}}))
+"""
+
+
+def phase_replication(racks: ThreeRacks, vdir: str, seed: int,
+                      launches: dict) -> dict:
+    """Phase 28: the port's replication, notification and remote storage
+    (ROADMAP 1.22a) over `racks`, phase 23's three port `VolumeServer`s on
+    the card in three racks behind the port's `MasterServer`, kept up for
+    it.  Two port `FilerServer`s, each on a loop thread of its own with a
+    fresh SQLite store and a 512 MiB chunk cache, the hot tier off (two
+    regions): A (region a, collection p28a, a `LogQueue` notification in
+    the phase's directory, the lower port, so the shell's `find_filer`
+    picks it) and B (region b, collection p28b, /buckets/ mapped to
+    collection p28g); one port `S3ApiServer` G over B with an identity
+    file, so the port's `S3Remote` signs every request.  Steps: (1) 128
+    MiB of files from --seed (1 KiB-32 MiB, log-uniform, 4 MiB chunks)
+    POSTed to A under /p28 from 16 threads, K1 0; (2) `ec.encode
+    -collection p28a` through the port's shell, K1 == the layout's units
+    of the p28a .dat files; (3) data shards 0 and 3 of every p28a EC
+    volume deleted, K1 0; (4) a port `FilerSync(A, B, prefix="/p28")`
+    with regions a and b until B's `/__meta__/digest` of /p28 equals
+    A's: every file read from B sha256 == its draw, the a->b pump applied
+    A's step-1 events, the b->a pump applied nothing and skipped every
+    echo, A's `direct` == the distinct chunks, K1 == those fetches whose
+    needle touches a lost data shard; (5) files PUT on B under
+    /p28/back reach A, nothing echoes back, the digests equal again, K1
+    0; (6) the master's /cluster/geo lists a->b and b->a, neither
+    stalled, `weedtpu_replication_applied_total` == the pumps' counts,
+    `cluster.geo` through the port's shell prints both, the sync's
+    `DivergenceAuditor` reports the prefix clean, the sync stopped, K1
+    0; (7) two port `ReplicateDaemon`s over a `LogFileSource` of A's
+    log, A's chunk cache emptied first: a `LocalSink` directory and a
+    `CloudSink` over `S3Remote` into G's bucket p28mirror, every file ==
+    its draw and every object's ETag its draw's MD5 (step 9 reads them
+    all back), A's `direct` == the distinct chunks, K1 == those fetches
+    whose needle touches a lost data shard; (8) `volume.tier.upload` of
+    B's p28b volume to G's bucket p28tier through the port's shell, its
+    needles read from its card server through G from 16 threads ==
+    their draws, `volume.tier.download` back, the .dat's sha256
+    unchanged, K1 0; (9) `remote.mount` of p28mirror on A under
+    /remote28, every placeholder read through G == its draw, then
+    `remote.cache` (every entry whole on A's volumes, 8 read back),
+    `remote.uncache` (8 read through G again), `remote.meta.sync` and
+    `remote.unmount` through the port's shell, K1 0; (10) a child
+    running the CLI against A, loading neither torch nor jax:
+    `filer.cat`, `filer.copy` of a local directory, `filer.meta.tail`
+    (== A's feed of /p28), `filer.meta.backup` into SQLite (== A's
+    entries and chunk lists) and `filer.backup` into a directory (every
+    file == its draw), K1 == the fetches of chunks not in A's cache
+    that touch a lost shard (0: step 7 cached them all).  K2 0
+    throughout."""
+    import urllib.parse
+
+    import numpy as np
+    from seaweedfs_tpu_torch.filer.abstract_sql import SqliteStore
+    from seaweedfs_tpu_torch.filer.filechunk_section import ChunkGroup
+    from seaweedfs_tpu_torch.notification import LogQueue
+    from seaweedfs_tpu_torch.remote_storage import S3Remote
+    from seaweedfs_tpu_torch.replication.filer_sync import FilerSync
+    from seaweedfs_tpu_torch.replication.replicate_daemon import (
+        LogFileSource, ReplicateDaemon, read_file_via_filer)
+    from seaweedfs_tpu_torch.replication.sink import LocalSink, make_sink
+    from seaweedfs_tpu_torch.s3 import auth
+    from seaweedfs_tpu_torch.s3.s3api_server import S3ApiServer
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    from seaweedfs_tpu_torch.stats import metrics, netflow
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.utils import http, resilience
+    from seaweedfs_tpu_torch.utils.chunk_cache import ChunkCache
+
+    card = card_name_power()
+
+    def plog(msg: str) -> None:
+        log(f"[replication] {msg} [{card}]")
+
+    work = os.path.join(vdir, "replication")
+    os.makedirs(work)
+    names, servers = racks.names, racks.servers
+    node_of, master = racks.node_of, racks.master
+    admin, run, split, topo = racks.admin, racks.run, racks.split, racks.topo
+    holder_of = racks.holder_of
+    loops: list = []
+    arun = brun = grun = A = B = G = pool = queue = sync = None
+    daemons: list = []
+    steps: dict = {}
+    counts: dict = {}
+    predicted: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 28)
+    who, ak, sk = REPL_KEYS
+    root = "/p28"
+
+    def step_counts(name: str, k0: dict, k1: int, t0: float) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        predicted[name] = k1
+        steps.setdefault(name, {})["wall_s"] = time.perf_counter() - t0
+        want = {"gf_apply": k1, "gf_apply_batch": 0}
+        if got != want:
+            raise AssertionError(f"phase 28 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def empty_lrus() -> None:
+        """No server's reconstruction LRU answers a read this step
+        predicts a launch for."""
+        for vs in servers.values():
+            for loc in vs.store.locations:
+                for ev in list(loc.ec_volumes.values()):
+                    with ev._recon_lock:
+                        ev._recon_cache.clear()
+                        ev._recon_cache_bytes = 0
+
+    def req(url: str, method: str = "GET", body=None, headers=None,
+            want=(200,)) -> bytes:
+        st, _, raw = pool.request(url, method, body, headers or {})
+        if st not in want:
+            raise AssertionError(f"{method} {url}: HTTP {st} {raw[:200]!r}")
+        return raw
+
+    def path_url(filer, path: str) -> str:
+        return f"http://{filer.url}{urllib.parse.quote(path)}"
+
+    def digest(filer) -> str:
+        return json.loads(req(f"http://{filer.url}/__meta__/digest?"
+                              + urllib.parse.urlencode({"prefix": root})
+                              ))["digest"]
+
+    def replay(filer, prefix: str = root) -> list:
+        raw = req(f"http://{filer.url}/__meta__/subscribe?"
+                  + urllib.parse.urlencode({"since": "0", "prefix": prefix,
+                                            "live": "false"}))
+        return [ln for ln in raw.split(b"\n") if ln.strip()]
+
+    try:
+        # 0 set-up.  Phase 27's filer stopped moments ago and the master
+        # lists a member for 30 s after its last beat: it leaves the
+        # table first, so A and B are the filers find_filer sees
+        async def forget_filers() -> None:
+            master.cluster_members.pop("filer", None)
+        racks.mrun(forget_filers())
+        arun, brun, grun = (loop_thread(loops), loop_thread(loops),
+                            loop_thread(loops))
+        ports = sorted(free_port() for _ in range(2))
+        queue = LogQueue(os.path.join(work, "a_events.jsonl"))
+        with scoped_env(WEEDTPU_HOT_TIER="0"):
+            A = FilerServer(master.url, "127.0.0.1", ports[0],
+                            data_dir=os.path.join(work, "a"),
+                            collection="p28a", chunk_cache_mem=REPL_CACHE_MEM,
+                            notification=queue, region="a")
+            B = FilerServer(master.url, "127.0.0.1", ports[1],
+                            data_dir=os.path.join(work, "b"),
+                            collection="p28b", chunk_cache_mem=REPL_CACHE_MEM,
+                            region="b")
+        arun(A.start())
+        brun(B.start())
+        until(lambda: racks.cmd_env.master_get("/cluster/status").get(
+            "Members", {}).get("filer") == [A.url, B.url],
+            "the master never listed A and B alone")
+        pool = http.PooledHTTP(timeout=600.0, max_idle_per_host=REPL_THREADS)
+        req(f"http://{B.url}/__admin__/filer_conf", "POST", json.dumps(
+            {"locations": [{"location_prefix": "/buckets/",
+                            "collection": "p28g"}]}).encode(),
+            {"Content-Type": "application/json"})
+        ident = os.path.join(work, "s3.json")
+        with open(ident, "w") as f:
+            json.dump({"identities": [{
+                "name": who, "credentials": [{"accessKey": ak,
+                                              "secretKey": sk}],
+                "actions": ["Admin", "Read", "Write", "List"]}]}, f)
+        G = S3ApiServer(B.url, "127.0.0.1", free_port(),
+                        iam=auth.IdentityAccessManagement.from_file(ident))
+        grun(G.start())
+
+        def bucket(name: str) -> "S3Remote":
+            return S3Remote(G.url, name, access_key=ak, secret_key=sk)
+        plog(f"0 set-up: A {A.url} (region a, p28a, LogQueue), B {B.url} "
+             f"(region b, p28b, /buckets/ -> p28g) and G {G.url} over B in "
+             f"{time.perf_counter() - t_phase:.3f} s")
+
+        # 1 A's files
+        t0 = time.perf_counter()
+        k0 = dict(launches)
+        sizes: list = []
+        while sum(sizes) < REPL_BYTES:
+            sizes.append(min(int(np.exp(rng.uniform(
+                np.log(FS_MIN_SIZE), np.log(FS_MAX_SIZE)))),
+                REPL_BYTES - sum(sizes)))
+        if sizes[-1] < FS_MIN_SIZE:  # the remainder joins the last
+            sizes[-2] += sizes.pop()
+        payload = rng.bytes(REPL_BYTES)
+        content: dict = {}  # path -> the file's bytes
+        at = 0
+        for i, size in enumerate(sizes):
+            content[f"{root}/d{i % REPL_DIRS}/f{i:03d}.bin"] = \
+                payload[at:at + size]
+            at += size
+        a_paths = sorted(content)
+
+        def post(path: str) -> None:
+            req(path_url(A, path), "POST", content[path],
+                {"Content-Type": "application/octet-stream"},
+                want=(200, 201))
+        dt_write = fan(post, a_paths, REPL_THREADS)
+        step_counts("1 write", k0, 0, t0)
+        sha = {p: hashlib.sha256(c).hexdigest() for p, c in content.items()}
+        entries = {p: A.filer.find_entry(p) for p in a_paths}
+        n_chunks = len({c.fid for e in entries.values() for c in e.chunks})
+        steps["1 write"].update({"files": len(a_paths),
+                                 "bytes": REPL_BYTES, "s": dt_write,
+                                 "mbps": REPL_BYTES / dt_write / 1e6,
+                                 "chunks": n_chunks})
+        plog(f"1 write: {len(a_paths)} files ({FS_MIN_SIZE}-{FS_MAX_SIZE} "
+             f"B log-uniform), {REPL_BYTES} B POSTed to A under {root} "
+             f"from {REPL_THREADS} threads at "
+             f"{REPL_BYTES / dt_write / 1e6:.1f} MB/s; {n_chunks} chunks; "
+             f"K1 0")
+
+        # 2 ec.encode -collection p28a, once a beat reports the sizes
+        def view(col: str) -> dict:
+            return {vi["id"]: vi["size"]
+                    for nd in topo()["nodes"].values()
+                    for vi in nd["volume_infos"]
+                    if vi["collection"] == col}
+        vols = {vid: servers[holder_of(vid)].store.get_volume(vid)
+                for vid in view("p28a")}
+        for vol in vols.values():
+            vol.flush()
+        dat_size = {vid: vol.data_size() for vid, vol in vols.items()}
+        p28a = until(lambda: (lambda seen: seen if seen == dat_size
+                              else None)(view("p28a")),
+                     f"no beat reported the p28a sizes {dat_size}")
+        units = {vid: predict_units(p28a[vid], layout.LARGE_BLOCK_SIZE,
+                                    layout.SMALL_BLOCK_SIZE)
+                 for vid in p28a}
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        run("lock")
+        out2 = run("ec.encode -collection p28a -fullPercent 0 "
+                   "-quietFor 0s")
+        run("unlock")
+        dt_enc = time.perf_counter() - t0
+        listed = json.loads(out2.splitlines()[0].split(": ", 1)[1])
+        if listed != sorted(p28a):
+            raise AssertionError(f"ec.encode selected {listed}; the p28a "
+                                 f"volumes are {sorted(p28a)}")
+        step_counts("2 encode", k0, sum(units.values()), t0)
+        until(lambda: all(sum(map(len, split(vid).values())) == 14
+                          for vid in listed),
+              "the p28a shard sets never reached the master")
+        steps["2 encode"].update({"s": dt_enc, "volumes": listed,
+                                  "dat_bytes": p28a, "units": units})
+        plog(f"2 encode: `ec.encode -collection p28a` of volumes {listed} "
+             f"(.dat {[p28a[v] for v in listed]} B) in {dt_enc:.3f} s; K1 "
+             f"{sum(units.values())} == the layout's units")
+
+        # 3 data shards 0 and 3 of every p28a EC volume deleted
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        for vid in listed:
+            for u, shards in split(vid).items():
+                gone = [s for s in REPL_LOST if s in shards]
+                if gone:
+                    admin(node_of[u], "/admin/ec/delete_shards",
+                          {"volume": vid, "shards": gone})
+        until(lambda: not any(set(REPL_LOST) & set(s) for vid in listed
+                              for s in split(vid).values()),
+              "the master still shows the deleted shards")
+        step_counts("3 loss", k0, 0, t0)
+        plog(f"3 loss: data shards {list(REPL_LOST)} of every p28a EC "
+             f"volume deleted where they lived; K1 0")
+
+        evs = {vid: next(servers[n].store.get_ec_volume(vid)
+                         for n in names
+                         if servers[n].store.get_ec_volume(vid)
+                         is not None) for vid in listed}
+
+        def touches(fid: str) -> bool:
+            f = t.FileId.parse(fid)
+            ev = evs.get(f.volume_id)
+            return ev is not None and bool(
+                touching_needles(ev, {f.key: None}, REPL_LOST))
+
+        def views_of(entry) -> set:
+            return {v.fid for v in ChunkGroup(entry.chunks).read_views(
+                0, entry.size())}
+
+        def uncached_touching(paths) -> int:
+            """Launches a read of `paths` through A costs: one per chunk
+            not in A's cache whose needle touches a lost shard."""
+            cached = set(A.chunk_cache.mem._d)
+            fids = set().union(*(views_of(A.filer.find_entry(p))
+                                 for p in paths))
+            return sum(1 for f in fids if f not in cached and touches(f))
+
+        # 4 A -> B through the port's sync pump
+        a_events = replay(A)
+        needed = set().union(*(views_of(e) for e in entries.values()))
+        k1 = uncached_touching(a_paths)
+        empty_lrus()
+        resilience.reset_latency_trackers()
+        resilience.reset_breakers()
+        direct0 = A.hot_stats["direct"]
+        wan0 = netflow.wan_total("sent")
+        # the process's counters, which the geo view folds, before the
+        # pumps start
+        counted0 = {d: metrics.REPLICATION_APPLIED.labels(d).value
+                    for d in ("a->b", "b->a")}
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        with scoped_env(WEEDTPU_GEO_AUDIT_INTERVAL="0"):
+            sync = FilerSync(A.url, B.url, prefix=root,
+                             offset_path=os.path.join(work, "sync.json"),
+                             region_a="a", region_b="b")
+            sync.start()
+        a_digest = digest(A)
+        until(lambda: digest(B) == a_digest,
+              "B's digest of /p28 never reached A's", timeout=300)
+        dt_sync = time.perf_counter() - t0
+        until(lambda: sync.b2a.skipped >= sync.a2b.applied,
+              "the b->a pump never saw the echoes", timeout=60)
+        direct = A.hot_stats["direct"] - direct0
+
+        def from_b(path: str) -> None:
+            body = req(path_url(B, path))
+            if hashlib.sha256(body).hexdigest() != sha[path]:
+                raise AssertionError(f"{path} on B: not its draw")
+        fan(from_b, a_paths, REPL_THREADS)
+        a2b, b2a = sync.a2b, sync.b2a
+        if a2b.applied != len(a_events) or a2b.errors or b2a.errors or \
+                b2a.applied or b2a.skipped != a2b.applied or \
+                a2b.skipped:
+            raise AssertionError(f"the pumps: a->b {a2b.status()}, b->a "
+                                 f"{b2a.status()}; A logged "
+                                 f"{len(a_events)} events under {root}")
+        if direct != len(needed):
+            raise AssertionError(f"A fetched {direct} chunks from the "
+                                 f"volume tier; {len(needed)} distinct "
+                                 f"chunks were read")
+        step_counts("4 sync a->b", k0, k1, t0)
+        wan = netflow.wan_total("sent") - wan0
+        steps["4 sync a->b"].update({
+            "s": dt_sync, "mbps": REPL_BYTES / dt_sync / 1e6,
+            "events": len(a_events), "applied": a2b.applied,
+            "echoes_skipped": b2a.skipped, "direct": direct,
+            "chunks": len(needed), "wan_sent": wan})
+        plog(f"4 sync a->b: FilerSync(A, B, prefix={root}) reached B's "
+             f"digest == A's in {dt_sync:.3f} s "
+             f"({REPL_BYTES / dt_sync / 1e6:.1f} MB/s): a->b applied "
+             f"{a2b.applied} == A's {len(a_events)} events, b->a applied 0 "
+             f"and skipped {b2a.skipped} echoes; every file on B sha256 == "
+             f"its draw; A's direct {direct} == the {len(needed)} distinct "
+             f"chunks; WAN sent {wan:.0f} B; K1 {k1} == the fetches "
+             f"touching shards {list(REPL_LOST)}")
+
+        # 5 B -> A: files PUT on B come back, nothing echoes
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        applied0, skipped0 = a2b.applied, a2b.skipped
+        back = {f"{root}/back/b{i}.bin": rng.bytes(2 * MIB)
+                for i in range(REPL_BACK)}
+        for p, data in back.items():
+            req(path_url(B, p), "PUT", data,
+                {"Content-Type": "application/octet-stream"},
+                want=(200, 201))
+        content.update(back)
+        sha.update({p: hashlib.sha256(d).hexdigest() for p, d in back.items()})
+        until(lambda: all(pool.request(path_url(A, p))[2] == d
+                          for p, d in back.items()),
+              "B's files never reached A", timeout=60)
+        until(lambda: digest(A) == digest(B),
+              "the digests never met again", timeout=60)
+        until(lambda: a2b.skipped - skipped0 >= b2a.applied,
+              "the a->b pump never saw the echoes", timeout=60)
+        if a2b.applied != applied0 or a2b.errors or b2a.errors:
+            raise AssertionError(f"echo: a->b {a2b.status()}, b->a "
+                                 f"{b2a.status()}")
+        dt_back = time.perf_counter() - t0
+        step_counts("5 sync b->a", k0, 0, t0)
+        steps["5 sync b->a"].update({"files": len(back), "s": dt_back,
+                                     "applied": b2a.applied,
+                                     "echoes_skipped":
+                                         a2b.skipped - skipped0})
+        plog(f"5 sync b->a: {len(back)} files PUT on B under {root}/back "
+             f"reached A in {dt_back:.3f} s, b->a applied {b2a.applied}, "
+             f"a->b skipped {a2b.skipped - skipped0} echoes and applied "
+             f"nothing more; digests equal; K1 0")
+
+        # 6 the observatory: /cluster/geo, cluster.geo, the auditor
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        geo = json.loads(req(f"http://{master.url}/cluster/geo?refresh=1"))
+        dirs = geo["directions"]
+        if sorted(dirs) != ["a->b", "b->a"] or \
+                any(d.get("stalled") for d in dirs.values()) or \
+                any(dirs[d.direction].get("applied", 0) -
+                    counted0[d.direction] != d.applied
+                    for d in (a2b, b2a)):
+            raise AssertionError(f"/cluster/geo: {geo}, the pumps applied "
+                                 f"{a2b.applied} and {b2a.applied} since "
+                                 f"{counted0}")
+        for d in (a2b, b2a):
+            got = metrics.REPLICATION_APPLIED.labels(d.direction).value - \
+                counted0[d.direction]
+            if got != d.applied:
+                raise AssertionError(f"weedtpu_replication_applied_total"
+                                     f"{{{d.direction}}} {got}, the pump "
+                                     f"applied {d.applied}")
+        printed = run("cluster.geo")
+        if not all(re.search(rf"^\s+{re.escape(d)}\s+lag=", printed, re.M)
+                   for d in ("a->b", "b->a")) or "STALLED" in printed:
+            raise AssertionError(f"cluster.geo printed {printed!r}")
+        audit = sync.auditor.run_once()
+        if audit["outcome"] != "clean" or \
+                metrics.GEO_DIVERGENCE.labels(root).value != 0:
+            raise AssertionError(f"the auditor: {audit}")
+        t_stop = time.perf_counter()
+        sync.stop()
+        dt_stop = time.perf_counter() - t_stop
+        if any(th.is_alive() for th in sync._threads):
+            raise AssertionError("a pump outlived FilerSync.stop")
+        sync_status = sync.status()
+        sync = None
+        step_counts("6 observe", k0, 0, t0)
+        steps["6 observe"].update({"geo": dirs, "stop_s": dt_stop,
+                                   "audit": audit["outcome"],
+                                   "wan": geo["wan"]})
+        plog(f"6 observe: /cluster/geo a->b applied {a2b.applied} lag "
+             f"{dirs['a->b'].get('lag_s', 0):.3f} s, b->a applied "
+             f"{b2a.applied}, neither stalled; the applied counters == "
+             f"the pumps'; cluster.geo printed both; "
+             f"the auditor: {root} {audit['outcome']}; FilerSync stopped "
+             f"in {dt_stop:.3f} s, every pump thread ended; K1 0")
+
+        # 7 the replicate daemon over A's notification log, into a local
+        # directory and into G's bucket p28mirror.  A's cache is emptied
+        # first, so the daemons' source reads fetch from the volume tier
+        # and decode every chunk on a lost shard
+        mirror = os.path.join(work, "mirror")
+        bucket("p28mirror").create_bucket()
+        log_path = queue.path
+        log_size = os.path.getsize(log_path)
+        all_paths = sorted(content)
+        A.chunk_cache = ChunkCache(mem_limit=REPL_CACHE_MEM)
+        direct0 = A.hot_stats["direct"]
+        k1 = uncached_touching(all_paths)
+        empty_lrus()
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        sinks = {"local": LocalSink(mirror),
+                 "s3": make_sink("s3", endpoint=G.url, bucket="p28mirror",
+                                 access_key=ak, secret_key=sk)}
+        done_s: dict = {}
+        for name, sink in sinks.items():
+            d = ReplicateDaemon(
+                LogFileSource(log_path, poll_interval=0.05), sink,
+                read_file_via_filer(A.url), prefix=root,
+                offset_path=os.path.join(work, f"rep_{name}.json"),
+                offset_key=f"p28:{name}")
+            daemons.append(d)
+            d.run_in_thread()
+        for name, d in zip(sinks, daemons):
+            until(lambda: d.offsets.get(d.key) >= log_size,
+                  f"the {name} daemon never reached the log's end",
+                  timeout=300)
+            done_s[name] = time.perf_counter() - t0
+        for d in daemons:
+            d.stop()
+        applied = [d.applied for d in daemons]
+        daemons.clear()
+        fetched = set().union(*(views_of(A.filer.find_entry(p))
+                                for p in all_paths))
+        direct = A.hot_stats["direct"] - direct0
+        if direct != len(fetched):
+            raise AssertionError(f"A fetched {direct} chunks from the "
+                                 f"volume tier for the daemons; the files "
+                                 f"have {len(fetched)}")
+        for p in all_paths:
+            with open(os.path.join(mirror, p.lstrip("/")), "rb") as f:
+                if hashlib.sha256(f.read()).hexdigest() != sha[p]:
+                    raise AssertionError(f"{p} in the mirror")
+        mirror_b = bucket("p28mirror")
+
+        def object_of(p: str) -> None:
+            # the gateway's ETag: the MD5 of the bytes the sink PUT
+            with mirror_b._request("HEAD", p.lstrip("/")) as r:
+                etag = r.headers.get("ETag", "").strip('"')
+            if etag != hashlib.md5(content[p]).hexdigest():
+                raise AssertionError(f"{p} in p28mirror: ETag {etag}")
+        fan(object_of, all_paths, REPL_THREADS)
+        step_counts("7 replicate", k0, k1, t0)
+        total = sum(len(content[p]) for p in all_paths)
+        steps["7 replicate"].update({
+            "files": len(all_paths), "bytes": total, "applied": applied,
+            "direct": direct,
+            "s": done_s, "mbps": {k: total / v / 1e6
+                                  for k, v in done_s.items()}})
+        plog(f"7 replicate: two ReplicateDaemons over A's log "
+             f"({log_size} B): {total} B of {len(all_paths)} files into "
+             f"the local directory in {done_s['local']:.3f} s "
+             f"({total / done_s['local'] / 1e6:.1f} MB/s) and into G's "
+             f"p28mirror in {done_s['s3']:.3f} s "
+             f"({total / done_s['s3'] / 1e6:.1f} MB/s), applied "
+             f"{applied}; every file sha256 == its draw, every object's "
+             f"ETag its draw's MD5; A's direct {direct} == the distinct "
+             f"chunks; K1 {k1} (chunks on a lost shard, A's cache emptied "
+             f"first)")
+
+        # 8 B's p28b volume to G's bucket p28tier and back
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        p28b = view("p28b")
+        vid_t = max(p28b, key=lambda v: (p28b[v], -v))
+        holder = servers[holder_of(vid_t)]
+        vol = holder.store.get_volume(vid_t)
+        vol.flush()
+        dat = racks.base_of(node_of[holder.url], vid_t, "p28b") + ".dat"
+        dat_sha = sha256(dat)
+        dat_len = os.path.getsize(dat)
+        bucket("p28tier").create_bucket()
+        spec = (f"s3:endpoint={G.url},bucket=p28tier,access_key={ak},"
+                f"secret_key={sk}")
+        run("lock")
+        out8 = [run(f"volume.tier.upload -volumeId {vid_t} -dest {spec}")]
+        if os.path.exists(dat) or "tier s3" not in out8[0]:
+            raise AssertionError(f"volume {vid_t} after the upload: "
+                                 f"{out8[0]!r}")
+        needles = [(p, c) for p in all_paths
+                   for c in B.filer.find_entry(p).chunks
+                   if t.FileId.parse(c.fid).volume_id == vid_t]
+        if not needles:
+            raise AssertionError(f"no B chunk lives on volume {vid_t}")
+        t_read = time.perf_counter()
+
+        def tiered(item) -> None:
+            p, c = item
+            body = req(f"http://{holder.url}/{c.fid}")
+            if body != content[p][c.offset:c.offset + c.size]:
+                raise AssertionError(f"{c.fid} through the tier")
+        # sixteen readers: a read of the tiered volume waits on G, whose
+        # filer reads the same servers; the servers read a tier on a
+        # pool of their own, so G's reads find the loop's pool free
+        # (ROADMAP fault 3.15)
+        fan(tiered, needles, REPL_THREADS)
+        dt_tread = time.perf_counter() - t_read
+        out8.append(run(f"volume.tier.download -volumeId {vid_t} "
+                        f"-deleteRemote true"))
+        run("unlock")
+        if sha256(dat) != dat_sha or "back on local disk" not in out8[1]:
+            raise AssertionError(f"volume {vid_t} after the download: "
+                                 f"{out8[1]!r}")
+        dt_tier = time.perf_counter() - t0
+        step_counts("8 tier", k0, 0, t0)
+        steps["8 tier"].update({"volume": vid_t, "dat_bytes": dat_len,
+                                "needles": len(needles),
+                                "read_s": dt_tread, "s": dt_tier})
+        plog(f"8 tier: `volume.tier.upload` of p28b volume {vid_t} "
+             f"({dat_len} B) on node {node_of[holder.url]} to G's p28tier, "
+             f"{len(needles)} needles read through G in {dt_tread:.3f} s, "
+             f"each == its draw; `volume.tier.download` back, .dat sha256 "
+             f"unchanged; {dt_tier:.3f} s in all; K1 0")
+
+        # 9 p28mirror mounted on A under /remote28
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        rspec = (f"s3:endpoint={G.url},bucket=p28mirror,access_key={ak},"
+                 f"secret_key={sk}")
+        mnt = "/remote28"
+        out9 = [run(f"remote.mount -remote {rspec} -dir {mnt}")]
+        mounted = {f"{mnt}{p}": p for p in all_paths}
+
+        def through(item) -> None:
+            q, p = item
+            body = req(path_url(A, q))
+            if hashlib.sha256(body).hexdigest() != sha[p]:
+                raise AssertionError(f"{q} through A: not its draw")
+        items = sorted(mounted.items())
+        dt_rt = fan(through, items, REPL_THREADS)
+        out9.append(run(f"remote.cache -remote {rspec} -dir {mnt}"))
+        for q, p in items:  # cached: chunks on A's volumes, whole files
+            e = A.filer.find_entry(q)
+            if not e.chunks or e.size() != len(content[p]):
+                raise AssertionError(f"{q} after remote.cache: "
+                                     f"{len(e.chunks)} chunks, {e.size()} B")
+        fan(through, items[:8], REPL_THREADS)
+        out9.append(run(f"remote.uncache -dir {mnt}"))
+        fan(through, items[:8], REPL_THREADS)
+        out9.append(run(f"remote.meta.sync -remote {rspec} -dir {mnt}"))
+        out9.append(run(f"remote.unmount -dir {mnt}"))
+        n = len(all_paths)
+        want9 = [f"remote.mount: {n} object(s) from s3 -> {mnt}",
+                 f"remote.cache: {n} object(s) cached under {mnt}",
+                 f"remote.uncache: {n} file(s) reverted to placeholders",
+                 f"remote.meta.sync: 0 updated, 0 deleted, {n} unchanged",
+                 f"remote.unmount: {mnt} detached"]
+        if not all(w in o for w, o in zip(want9, out9)):
+            raise AssertionError(f"the remote commands printed {out9}")
+        dt_remote = time.perf_counter() - t0
+        step_counts("9 remote", k0, 0, t0)
+        steps["9 remote"].update({"objects": n, "read_through_s": dt_rt,
+                                  "s": dt_remote})
+        plog(f"9 remote: `remote.mount` of p28mirror on A under {mnt}: "
+             f"{n} placeholders read through G in {dt_rt:.3f} s, each == "
+             f"its draw; `remote.cache` (every entry whole on A's "
+             f"volumes, 8 read back), `remote.uncache` (8 read through "
+             f"again), `remote.meta.sync` (0 updated, 0 "
+             f"deleted) and `remote.unmount`; {dt_remote:.3f} s in all; "
+             f"K1 0")
+
+        # 10 the CLI's filer client tools in a child against A
+        src = os.path.join(work, "cli_src")
+        cli_files = {f"s{i}.bin": rng.bytes(64 << 10) for i in range(4)}
+        os.makedirs(src)
+        for name, data in cli_files.items():
+            with open(os.path.join(src, name), "wb") as f:
+                f.write(data)
+        cat_path = max(a_paths, key=lambda p: len(content[p]))
+        with open(os.path.join(work, "cli_want.json"), "w") as f:
+            json.dump({"cat": cat_path,
+                       "backup": {p: len(content[p]) for p in all_paths}},
+                      f)
+        k1 = uncached_touching(all_paths)
+        empty_lrus()
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", REPL_CHILD, A.url, work],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        dt_cli = time.perf_counter() - t0
+        if child.returncode:
+            raise AssertionError(f"the CLI child exited {child.returncode}"
+                                 f": {child.stderr[-1500:]}")
+        res = json.loads(child.stdout.strip().splitlines()[-1])
+        if any(res["loaded"].values()):
+            raise AssertionError(f"the CLI child loaded {res['loaded']}")
+        with open(os.path.join(work, "cat.out"), "rb") as f:
+            if f.read() != content[cat_path]:
+                raise AssertionError("filer.cat: not the draw")
+        for name, data in cli_files.items():
+            if req(path_url(A, f"/cli28/cli_src/{name}")) != data:
+                raise AssertionError(f"filer.copy's {name} on A")
+        with open(os.path.join(work, "tail.out"), "rb") as f:
+            tailed = [ln for ln in f.read().split(b"\n") if ln.strip()]
+        if tailed != replay(A):
+            raise AssertionError(f"filer.meta.tail printed {len(tailed)} "
+                                 f"events; A's feed of {root} has "
+                                 f"{len(replay(A))}")
+        store = SqliteStore(os.path.join(work, "meta.db"))
+        try:
+            for p in all_paths:
+                got = [c.fid for c in store.find_entry(p).chunks]
+                if got != [c.fid for c in A.filer.find_entry(p).chunks]:
+                    raise AssertionError(f"filer.meta.backup's {p}")
+        finally:
+            store.shutdown()
+        for p in all_paths:
+            with open(os.path.join(work, "bk", p.lstrip("/")), "rb") as f:
+                if hashlib.sha256(f.read()).hexdigest() != sha[p]:
+                    raise AssertionError(f"filer.backup's {p}")
+        step_counts("10 cli", k0, k1, t0)
+        steps["10 cli"].update({"s": dt_cli, "child_s": res["s"],
+                                "tailed": len(tailed)})
+        plog(f"10 cli: a child ran filer.cat ({len(content[cat_path])} B "
+             f"== the draw), filer.copy ({len(cli_files)} files on A), "
+             f"filer.meta.tail ({len(tailed)} events == A's feed), "
+             f"filer.meta.backup (every entry's chunks == A's) and "
+             f"filer.backup (every file == its draw) in {dt_cli:.3f} s "
+             f"({', '.join(f'{k} {v:.3f}' for k, v in res['s'].items())}"
+             f"), loading neither torch nor jax; K1 {k1}")
+    finally:
+        t_stop = time.perf_counter()
+        for d in daemons:
+            d.stop()
+        if sync is not None:
+            sync.stop()
+        if G is not None:
+            grun(G.stop())
+        if B is not None:
+            brun(B.stop())
+        if A is not None:
+            arun(A.stop())
+        stop_loops(loops)
+        if queue is not None:
+            queue.close()
+        if pool is not None:
+            pool.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "steps": steps, "counts": counts,
+           "predicted": predicted, "sync": sync_status,
+           "stop_s": time.perf_counter() - t_stop,
+           "s": time.perf_counter() - t_phase}
+    plog(f"launches per step {counts} (K1 predicted {predicted}); G, B "
+         f"and A stopped in {out['stop_s']:.3f} s; phase wall "
+         f"{out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11325,8 +12126,9 @@ def main(argv=None) -> int:
 
         # 23 the port's shell and client over three card servers in
         # three racks, then 24 the port's filer, 25 its filer server, 26
-        # its S3 gateway and 27 its WebDAV gateway, mount and offline
-        # tools on the same cluster, each counted on its own
+        # its S3 gateway, 27 its WebDAV gateway, mount and offline tools
+        # and 28 its replication on the same cluster, each counted on its
+        # own
         with ThreeRacks(vdir) as racks:
             gf_cuda.reset_launches()
             phases["shell"] = phase_shell(
@@ -11421,10 +12223,29 @@ def main(argv=None) -> int:
                 f"copies {staged}")
             path_launches = {k: path_launches[k] + dav_launches[k]
                              for k in path_launches}
+
+            gf_cuda.reset_launches()
+            phases["replication"] = phase_replication(racks, vdir, args.seed,
+                                                      launches)
+            repl_launches = dict(launches)
+            staged = dict(gf_cuda.STAGED)
+            if any(staged.values()):
+                raise AssertionError(f"the replication phase made the "
+                                     f"kernel wrapper stage copies of its "
+                                     f"input: {staged}")
+            if not repl_launches["gf_apply"] or \
+                    repl_launches["gf_apply_batch"]:
+                raise AssertionError(f"the replication phase launched "
+                                     f"{repl_launches}: K1 and no K2 "
+                                     f"expected")
+            log(f"[path] phase 28: launches {repl_launches}, staged "
+                f"copies {staged}")
+            path_launches = {k: path_launches[k] + repl_launches[k]
+                             for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 28 report
+    # 29 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -14,7 +14,9 @@ Counterpart of `seaweedfs_tpu/__main__.py`, cut to these subcommands:
                          # gateway and a WebDAV gateway, each of which
                          # implies -filer) in one process
   python -m seaweedfs_tpu_torch filer -master host:9333 [-port 8888] \\
-      [-dir D]           # the filer server, sqlite store in D
+      [-dir D] [-notification.log F | -notification.webhook URL]
+                         # the filer server, sqlite store in D, meta
+                         # events published to a queue
   python -m seaweedfs_tpu_torch s3 -filer host:8888 [-port 8333] \\
       [-config s3.json]  # the S3 gateway; no -config allows all
   python -m seaweedfs_tpu_torch iam -filer host:8888 [-port 8111]
@@ -38,25 +40,38 @@ Counterpart of `seaweedfs_tpu/__main__.py`, cut to these subcommands:
   python -m seaweedfs_tpu_torch export -dir D -volumeId N -o out.tar
   python -m seaweedfs_tpu_torch backup -server host:8080 -volumeId N \\
       [-dir D]           # .dat and .idx from a volume server, resumed
+  python -m seaweedfs_tpu_torch filer.sync -a host:8888 -b host:8889 \\
+      [-filerPath /p] [-offsetFile F] [-oneway]   # keep two filers in step
+  python -m seaweedfs_tpu_torch filer.replicate -filer host:8888 \\
+      -notificationLog F -sink local:/dir|s3:endpoint=..,bucket=..|filer:h:p
+  python -m seaweedfs_tpu_torch filer.backup -filer host:8888 -dir D
+  python -m seaweedfs_tpu_torch filer.meta.backup -filer host:8888 \\
+      -store sqlite:/path/meta.db
+  python -m seaweedfs_tpu_torch filer.remote.sync -filer host:8888 \\
+      -dir /mounted -remote s3:endpoint=..,bucket=..
+  python -m seaweedfs_tpu_torch filer.remote.gateway -filer host:8888 \\
+      -remote s3:endpoint=..
+  python -m seaweedfs_tpu_torch filer.meta.tail -filer host:8888 [-timeAgo S]
+  python -m seaweedfs_tpu_torch filer.cat -filer host:8888 /path [-o F]
+  python -m seaweedfs_tpu_torch filer.copy -filer host:8888 SRC... /dir/
   python -m seaweedfs_tpu_torch scaffold -config filer|security|master|...
   python -m seaweedfs_tpu_torch certs [-dir ./certs] [-hosts a,b]
   python -m seaweedfs_tpu_torch version
   python -m seaweedfs_tpu_torch autocomplete
 
 The master, the follower, the filer, the gateways, the mount, the
-shell, the client tools and the offline tools (`fix`, `compact`,
-`export`, `backup`, on the port's `storage/volume.py`) have no device
-and load no torch.  A volume server (`volume`, and `server`'s)
+shell, the client tools, the filer's replication and client tools
+(`filer.sync`, `filer.replicate`, `filer.backup`, `filer.meta.backup`,
+`filer.remote.*`, `filer.meta.tail`, `filer.cat`, `filer.copy`) and the
+offline tools (`fix`, `compact`, `export`, `backup`, on the port's
+`storage/volume.py`) have no device and load no torch.  A volume server (`volume`, and `server`'s)
 runs its codecs on the card unless `-device cpu` asks for the plain
 versions; without a card and without `-device cpu` it raises.  `-cpuprofile FILE`
 writes a cProfile dump when the process stops, `--torch-profile DIR` a
 `torch.profiler` Chrome trace (the reference's `--jax-profile`; it loads
 torch), and SIGUSR1 dumps every thread's stack
-(utils/grace.py).  `filer`'s `-notification.log` and
-`-notification.webhook` come with ROADMAP 1.22a, with the filer client
-tools (`filer.cat`, `filer.copy`, `filer.meta.tail`,
-`filer.meta.backup`, `filer.backup`); `server`'s `-mq` and the
-`mq.broker` subcommand with 1.22b.
+(utils/grace.py).  `server`'s `-mq` and the `mq.broker` subcommand
+come with ROADMAP 1.22b.
 """
 
 from __future__ import annotations
@@ -180,16 +195,26 @@ async def _run_server(args) -> int:
 
 async def _run_filer(args) -> int:
     from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    notification = None
+    if args.notificationWebhook:
+        from seaweedfs_tpu_torch.notification import WebhookQueue
+        notification = WebhookQueue(args.notificationWebhook)
+    elif args.notificationLog:
+        from seaweedfs_tpu_torch.notification import LogQueue
+        notification = LogQueue(args.notificationLog)
     f = FilerServer(args.master, args.ip, args.port, data_dir=args.dir,
                     collection=args.collection,
                     replication=args.defaultReplication,
                     chunk_size=args.maxMB << 20, security=_security(args),
                     encrypt_data=args.encryptVolumeData,
                     chunk_cache_disk=args.cacheCapacityMB << 20,
-                    store_kind=args.store, aggregate_peers=args.filerPeers)
+                    notification=notification, store_kind=args.store,
+                    aggregate_peers=args.filerPeers)
     await f.start()
     await _serve_forever()
     await f.stop()
+    if notification is not None:
+        notification.close()
     return 0
 
 
@@ -652,6 +677,416 @@ def _run_download(args) -> int:
     return 0
 
 
+def _run_filer_sync(args) -> int:
+    from seaweedfs_tpu_torch.replication.filer_sync import FilerSync
+    FilerSync(args.a, args.b, prefix=args.filerPath,
+              offset_path=args.offsetFile,
+              one_way=args.oneway).run_forever()
+    return 0
+
+
+def _run_filer_replicate(args) -> int:
+    from seaweedfs_tpu_torch.replication.replicate_daemon import (
+        LogFileSource, ReplicateDaemon, read_file_via_filer)
+    from seaweedfs_tpu_torch.replication.sink import make_sink
+    if args.sink.startswith("filer:"):
+        sink = make_sink("filer", filer_url=args.sink[len("filer:"):])
+    else:
+        from seaweedfs_tpu_torch.remote_storage import parse_remote_spec
+        kind, options = parse_remote_spec(args.sink)
+        sink = make_sink(kind, **options)
+    daemon = ReplicateDaemon(
+        LogFileSource(args.notificationLog), sink,
+        read_file_via_filer(args.filer), prefix=args.filerPath,
+        offset_path=args.offsetFile)
+    try:
+        daemon.run()
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _run_filer_remote_sync(args) -> int:
+    from seaweedfs_tpu_torch.remote_storage import (make_remote,
+                                                    parse_remote_spec,
+                                                    remote_sync_loop)
+    kind, options = parse_remote_spec(args.remote)
+    remote = make_remote(kind, **options)
+    try:
+        remote_sync_loop(remote, args.filer, args.dir,
+                         offset_file=args.offsetFile)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _run_filer_meta_backup(args) -> int:
+    """Continuously replicate filer METADATA (entries incl. chunk refs,
+    no blob content) into a local FilerStore, resumable via an offset kept
+    in the store's own KV (reference: weed/command/filer_meta_backup.go —
+    same restore story: point a filer at the backup store)."""
+    import urllib.parse
+    import urllib.request
+
+    from seaweedfs_tpu_torch.security.tls import scheme as _tls_scheme
+
+    from seaweedfs_tpu_torch.filer.entry import Entry
+    from seaweedfs_tpu_torch.filer.filerstore import NotFound, make_store
+
+    kind, _, opt = args.store.partition(":")
+    if kind == "sqlite":
+        from seaweedfs_tpu_torch.filer.abstract_sql import SqliteStore
+        store = SqliteStore(opt)
+    elif kind == "logstore":
+        from seaweedfs_tpu_torch.filer.stores_extra import LogStore
+        store = LogStore(opt)
+    elif "=" in opt or not opt:
+        # other store kinds take key=value options like remote specs; an
+        # unparsed option string must never be silently dropped (it would
+        # back up into the store's DEFAULT target)
+        options = dict(p.partition("=")[::2]
+                       for p in opt.split(",") if p)
+        store = make_store(kind, **options)
+    else:
+        print(f"filer.meta.backup: cannot parse store spec "
+              f"{args.store!r} (use kind:key=value,... or sqlite:/path "
+              f"or logstore:/dir)", file=sys.stderr)
+        return 2
+
+    OFFSET_KEY = b"__meta_backup_offset__"
+    CHECKPOINT_EVERY = 100  # events between offset commits
+    since = 0
+    if not args.restart:
+        try:
+            since = int(store.kv_get(OFFSET_KEY))
+        except (NotFound, ValueError):
+            since = 0
+    if since == 0:
+        # initial FULL traversal (reference: filer_meta_backup.go syncs
+        # existing metadata first): the filer's event ring is bounded, so
+        # subscribing from 0 alone would silently miss older entries
+        import time as _time
+        t0 = _time.time_ns()
+        n = _meta_backup_traverse(args.filer, args.filerPath, store)
+        since = t0 - 1
+        store.kv_put(OFFSET_KEY, str(since).encode())
+        print(f"filer.meta.backup: full sync copied {n} entr(ies); "
+              f"tailing from there", flush=True)
+    else:
+        print(f"filer.meta.backup: resuming at offset {since}; tailing",
+              flush=True)
+    applied = 0
+    dirty = 0
+    try:
+        while True:
+            url = (f"{_tls_scheme()}://{args.filer}/__meta__/subscribe?"
+                   + urllib.parse.urlencode({"since": str(since),
+                                             "prefix": args.filerPath,
+                                             "live": "true"}))
+            try:
+                with urllib.request.urlopen(url, timeout=3600) as r:
+                    for raw in r:
+                        line = raw.strip()
+                        if not line:
+                            continue
+                        ev = json.loads(line)
+                        old, new = ev.get("old_entry"), ev.get("new_entry")
+                        if new is not None:
+                            store.insert_entry(Entry.from_dict(new))
+                            if old is not None and \
+                                    old.get("full_path") != \
+                                    new.get("full_path"):
+                                try:
+                                    store.delete_entry(old["full_path"])
+                                except NotFound:
+                                    pass
+                        elif old is not None:
+                            try:
+                                store.delete_entry(old["full_path"])
+                            except NotFound:
+                                pass
+                        applied += 1
+                        dirty += 1
+                        since = max(since, ev.get("ts_ns", since))
+                        if dirty >= CHECKPOINT_EVERY:
+                            store.kv_put(OFFSET_KEY, str(since).encode())
+                            dirty = 0
+            except OSError as e:
+                import time as _time
+                print(f"filer.meta.backup: subscribe to {args.filer} "
+                      f"failed ({e}), retrying in 2s", file=sys.stderr)
+                _time.sleep(2)
+    except KeyboardInterrupt:
+        print(f"filer.meta.backup: {applied} event(s) applied, "
+              f"offset {since}")
+    finally:
+        store.kv_put(OFFSET_KEY, str(since).encode())
+        if hasattr(store, "shutdown"):
+            store.shutdown()
+    return 0
+
+
+def _meta_backup_traverse(filer: str, prefix: str, store) -> int:
+    """Recursive listing walk copying every entry's metadata (incl. chunk
+    refs) into the backup store."""
+    import urllib.parse
+    import urllib.request
+
+    from seaweedfs_tpu_torch.security.tls import scheme as _tls_scheme
+
+    from seaweedfs_tpu_torch.filer.entry import Entry
+
+    n = 0
+    stack = [prefix.rstrip("/") or "/"]
+    while stack:
+        d = stack.pop()
+        url = (f"{_tls_scheme()}://{filer}"
+               f"{urllib.parse.quote(d.rstrip('/') + '/')}?limit=100000")
+        try:
+            with urllib.request.urlopen(url, timeout=120) as r:
+                listing = json.loads(r.read())
+        except OSError:
+            continue
+        for e in listing.get("Entries") or []:
+            full = e["FullPath"]
+            try:
+                with urllib.request.urlopen(
+                        f"{_tls_scheme()}://{filer}"
+                        f"{urllib.parse.quote(full)}?metadata=true",
+                        timeout=120) as r:
+                    meta = json.loads(r.read())
+            except OSError:
+                continue
+            store.insert_entry(Entry.from_dict(meta))
+            n += 1
+            if e.get("IsDirectory"):
+                stack.append(full)
+    return n
+
+
+def _run_filer_meta_tail(args) -> int:
+    """Stream filer meta events as JSON lines (reference:
+    weed/command/filer_meta_tail.go — same event shape, same fnmatch
+    -pattern semantics: full-path match when the pattern contains '/')."""
+    import fnmatch
+    import time as _time
+    import urllib.parse
+    import urllib.request
+
+    from seaweedfs_tpu_torch.security.tls import scheme as _tls_scheme
+
+    since_ns = 0
+    if args.timeAgo > 0:
+        since_ns = int((_time.time() - args.timeAgo) * 1e9)
+    until_ns = None
+    if args.untilTimeAgo > 0:
+        until_ns = int((_time.time() - args.untilTimeAgo) * 1e9)
+        live = "false"
+    else:
+        live = "true"
+    url = (f"{_tls_scheme()}://{args.filer}/__meta__/subscribe?"
+           + urllib.parse.urlencode({"since": str(since_ns),
+                                     "prefix": args.pathPrefix,
+                                     "live": live}))
+
+    def matches(ev: dict) -> bool:
+        if not args.pattern:
+            return True
+        ent = ev.get("new_entry") or ev.get("old_entry") or {}
+        full = ent.get("full_path", "")
+        name = full.rsplit("/", 1)[-1]
+        target = full if "/" in args.pattern else name
+        return fnmatch.fnmatch(target, args.pattern)
+
+    try:
+        with urllib.request.urlopen(url, timeout=3600) as r:
+            for raw in r:
+                line = raw.strip()
+                if not line:
+                    continue
+                ev = json.loads(line)
+                if until_ns is not None and ev.get("ts_ns", 0) > until_ns:
+                    break
+                if matches(ev):
+                    print(line.decode())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _run_filer_cat(args) -> int:
+    """Stream one filer file to stdout / -o FILE (reference:
+    weed/command/filer_cat.go)."""
+    import shutil
+    import urllib.parse
+    import urllib.request
+
+    from seaweedfs_tpu_torch.security.tls import scheme as _tls_scheme
+
+    path = args.path if args.path.startswith("/") else "/" + args.path
+    url = f"{_tls_scheme()}://{args.filer}{urllib.parse.quote(path)}"
+    try:
+        with urllib.request.urlopen(url, timeout=3600) as r:
+            if args.output:
+                with open(args.output, "wb") as f:
+                    shutil.copyfileobj(r, f)
+            else:
+                shutil.copyfileobj(r, sys.stdout.buffer)
+    except urllib.error.HTTPError as e:
+        print(f"filer.cat: {path}: HTTP {e.code}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _run_filer_copy(args) -> int:
+    """Upload local files/directories into a filer directory (reference:
+    weed/command/filer_copy.go — `weed filer.copy local... /target/dir/`)."""
+    import os
+    import urllib.parse
+    import urllib.request
+
+    from seaweedfs_tpu_torch.security.tls import scheme as _tls_scheme
+
+    if len(args.sources) < 2:
+        print("filer.copy: need SOURCE... TARGET_DIR", file=sys.stderr)
+        return 1
+    *sources, target = args.sources
+    # accept both /dir and http://filer:port/dir target forms
+    if "://" in target:
+        parsed = urllib.parse.urlparse(target)
+        filer, target = parsed.netloc, parsed.path or "/"
+    else:
+        filer = args.filer
+    target = target.rstrip("/") + "/"
+
+    def put(local: str, remote: str) -> None:
+        size = os.path.getsize(local)
+        with open(local, "rb") as f:
+            # stream the file object: a multi-GB source must not be
+            # buffered whole in this process (the filer chunks it anyway)
+            req = urllib.request.Request(
+                f"{_tls_scheme()}://{filer}{urllib.parse.quote(remote)}",
+                data=f, method="POST",
+                headers={"Content-Length": str(size)})
+            with urllib.request.urlopen(req, timeout=600):
+                pass
+        print(f"copied {local} -> {remote} ({size} bytes)")
+
+    n = 0
+    for src in sources:
+        if os.path.isdir(src):
+            base = os.path.basename(src.rstrip("/"))
+            for root, _, files in os.walk(src):
+                rel = os.path.relpath(root, src)
+                for fn in files:
+                    dst = target + base + "/" + \
+                        (fn if rel == "." else f"{rel}/{fn}")
+                    put(os.path.join(root, fn), dst)
+                    n += 1
+        else:
+            put(src, target + os.path.basename(src))
+            n += 1
+    print(f"filer.copy: {n} file(s) uploaded")
+    return 0
+
+
+def _run_filer_remote_gateway(args) -> int:
+    """Mirror bucket-level events under -buckets.dir to the remote:
+    creating a bucket in the filer creates it on the remote, deleting
+    removes it, and object writes inside a bucket sync through the same
+    event-applier filer.remote.sync uses (reference:
+    weed/command/filer_remote_gateway.go)."""
+    import urllib.parse
+    import urllib.request
+
+    from seaweedfs_tpu_torch.security.tls import scheme as _tls_scheme
+
+    from seaweedfs_tpu_torch.remote_storage import make_remote, parse_remote_spec
+    from seaweedfs_tpu_torch.replication.filer_sync import SyncOffsetStore
+
+    kind, options = parse_remote_spec(args.remote)
+    offsets = SyncOffsetStore(args.offsetFile)
+    okey = f"remote-gateway:{args.remote}"
+    buckets_dir = args.bucketsDir.rstrip("/")
+
+    def bucket_remote(bucket: str):
+        opt = dict(options)
+        opt["bucket"] = bucket
+        return make_remote(kind, **opt)
+
+    while True:
+        since = offsets.get(okey)
+        url = (f"{_tls_scheme()}://{args.filer}/__meta__/subscribe?"
+               + urllib.parse.urlencode({"since": str(since),
+                                         "prefix": buckets_dir,
+                                         "live": "true"}))
+        try:
+            with urllib.request.urlopen(url, timeout=3600) as r:
+                for raw in r:
+                    line = raw.strip()
+                    if not line:
+                        continue
+                    ev = json.loads(line)
+                    _apply_gateway_event(ev, buckets_dir, bucket_remote,
+                                         args.filer)
+                    offsets.put(okey, ev.get("ts_ns", since))
+        except KeyboardInterrupt:
+            offsets.flush()
+            return 0
+        except OSError:
+            import time as _time
+            _time.sleep(2)
+
+
+def _apply_gateway_event(ev: dict, buckets_dir: str, bucket_remote,
+                         filer: str) -> None:
+    """One meta event -> remote bucket/object action."""
+    from seaweedfs_tpu_torch.remote_storage import _apply_local_event_to_remote
+    ent = ev.get("new_entry") or ev.get("old_entry") or {}
+    full = ent.get("full_path", "")
+    if not full.startswith(buckets_dir + "/"):
+        return
+    rel = full[len(buckets_dir) + 1:]
+    bucket, _, inner = rel.partition("/")
+    if not bucket:
+        return
+    remote = bucket_remote(bucket)
+    if not inner:
+        # bucket-level create/delete
+        import stat as _stat
+        is_dir = bool(ent.get("is_directory")) or _stat.S_ISDIR(
+            (ent.get("attr") or {}).get("mode", 0))
+        if not is_dir:
+            return
+        if ev.get("new_entry") is None and hasattr(remote, "delete_bucket"):
+            remote.delete_bucket()
+        elif ev.get("old_entry") is None and hasattr(remote, "create_bucket"):
+            remote.create_bucket()
+        return
+    # object-level event inside the bucket: reuse the remote.sync applier
+    _apply_local_event_to_remote(remote, filer, f"{buckets_dir}/{bucket}",
+                                 ev, 60.0)
+
+
+def _run_filer_backup(args) -> int:
+    """One-way filer -> local directory mirror with resume offsets
+    (reference: weed/command/filer_backup.go over the LocalSink)."""
+    import threading
+
+    from seaweedfs_tpu_torch.replication.filer_sync import (SyncDirection,
+                                                      SyncOffsetStore)
+    from seaweedfs_tpu_torch.replication.sink import LocalSink
+    offsets = SyncOffsetStore(args.offsetFile)
+    d = SyncDirection(args.filer, f"local:{args.dir}", prefix=args.filerPath,
+                      offsets=offsets, sink=LocalSink(args.dir))
+    try:
+        d.run(threading.Event(), live=True)
+    except KeyboardInterrupt:
+        pass
+    offsets.flush()
+    return 0
+
+
 def _run_shell(args) -> int:
     from seaweedfs_tpu_torch.shell.shell import repl
     return repl(args.master, args.script)
@@ -701,6 +1136,11 @@ def main(argv=None) -> int:
                     help="AES-256-GCM encrypt chunks (cipher key in meta)")
     pf.add_argument("-cacheCapacityMB", type=int, default=0,
                     help="on-disk chunk cache size (0 = memory-only)")
+    pf.add_argument("-notification.log", dest="notificationLog", default=None,
+                    help="append meta events to this JSONL file")
+    pf.add_argument("-notification.webhook", dest="notificationWebhook",
+                    default=None,
+                    help="POST meta events to this HTTP endpoint")
     _add_common_flags(pf)
     p3 = sub.add_parser("s3")
     p3.add_argument("-ip", default="127.0.0.1")
@@ -767,6 +1207,96 @@ def main(argv=None) -> int:
     pbk.add_argument("-volumeId", type=int, required=True)
     pbk.add_argument("-collection", default="")
     pbk.add_argument("-dir", default=".")
+    prs = sub.add_parser(
+        "filer.remote.sync",
+        help="continuously push local changes under a mounted dir to its "
+             "remote (command/filer_remote_sync.go)")
+    prs.add_argument("-filer", default="127.0.0.1:8888")
+    prs.add_argument("-dir", required=True, help="mounted directory")
+    prs.add_argument("-remote", required=True,
+                     help="kind:spec, e.g. s3:endpoint=..,bucket=..")
+    prs.add_argument("-offsetFile", default=None,
+                     help="resume-offset persistence path")
+    psy = sub.add_parser("filer.sync",
+                         help="continuous filer A<->B sync (command/filer_sync.go)")
+    psy.add_argument("-a", required=True, help="filer A host:port")
+    psy.add_argument("-b", required=True, help="filer B host:port")
+    psy.add_argument("-filerPath", default="/")
+    psy.add_argument("-offsetFile", default=".filer_sync_offsets.json")
+    psy.add_argument("-oneway", action="store_true")
+    pmt2 = sub.add_parser(
+        "filer.meta.tail",
+        help="stream continuous meta changes on a filer as JSON lines "
+             "(command/filer_meta_tail.go)")
+    pmt2.add_argument("-filer", default="127.0.0.1:8888")
+    pmt2.add_argument("-pathPrefix", default="/")
+    pmt2.add_argument("-timeAgo", type=float, default=0.0,
+                      help="start this many seconds before now")
+    pmt2.add_argument("-untilTimeAgo", type=float, default=0.0,
+                      help="stop after reaching this many seconds ago")
+    pmt2.add_argument("-pattern", default="",
+                      help="fnmatch on the file name (or full path when "
+                           "it contains '/')")
+    pct = sub.add_parser(
+        "filer.cat",
+        help="stream one filer file to stdout or -o FILE "
+             "(command/filer_cat.go)")
+    pct.add_argument("-filer", default="127.0.0.1:8888")
+    pct.add_argument("-o", dest="output", default="",
+                     help="write to file instead of stdout")
+    pct.add_argument("path", help="file path on the filer")
+    pcpy = sub.add_parser(
+        "filer.copy",
+        help="upload local files/directories to a filer path "
+             "(command/filer_copy.go)")
+    pcpy.add_argument("-filer", default="127.0.0.1:8888")
+    pcpy.add_argument("sources", nargs="+",
+                      help="local files/dirs, last arg = target filer dir")
+    prg = sub.add_parser(
+        "filer.remote.gateway",
+        help="mirror bucket creation/deletion under -buckets.dir to the "
+             "remote storage (command/filer_remote_gateway.go)")
+    prg.add_argument("-filer", default="127.0.0.1:8888")
+    prg.add_argument("-remote", required=True,
+                     help="kind:spec of the remote (bucket field ignored; "
+                          "buckets are created per filer bucket)")
+    prg.add_argument("-buckets.dir", dest="bucketsDir", default="/buckets")
+    prg.add_argument("-offsetFile", default=None)
+    prp = sub.add_parser(
+        "filer.replicate",
+        help="consume filer meta events from a notification queue and "
+             "apply them to a replication sink "
+             "(command/filer_replicate.go)")
+    prp.add_argument("-filer", default="127.0.0.1:8888",
+                     help="filer to read file content from")
+    prp.add_argument("-notificationLog", required=True,
+                     help="JSONL file written by the filer's `log` "
+                          "notification queue")
+    prp.add_argument("-sink", required=True,
+                     help="kind:spec, e.g. local:/mirror or "
+                          "s3:endpoint=..,bucket=..,access_key=..,"
+                          "secret_key=.. or filer:host:port")
+    prp.add_argument("-filerPath", default="/",
+                     help="only replicate events under this prefix")
+    prp.add_argument("-offsetFile", default=".filer_replicate_offsets.json")
+    pfb = sub.add_parser("filer.backup",
+                         help="continuously mirror a filer subtree into a "
+                              "local directory (command/filer_backup.go)")
+    pfb.add_argument("-filer", required=True, help="source filer host:port")
+    pfb.add_argument("-dir", required=True, help="local target directory")
+    pfb.add_argument("-filerPath", default="/")
+    pfb.add_argument("-offsetFile", default=".filer_backup_offsets.json")
+    pmb = sub.add_parser(
+        "filer.meta.backup",
+        help="continuously back up filer METADATA (entries + chunk refs) "
+             "into a local store (command/filer_meta_backup.go)")
+    pmb.add_argument("-filer", default="127.0.0.1:8888")
+    pmb.add_argument("-filerPath", default="/")
+    pmb.add_argument("-store", required=True,
+                     help="target store spec: sqlite:/path/meta.db or "
+                          "logstore:/dir")
+    pmb.add_argument("-restart", action="store_true",
+                     help="resync from scratch instead of resuming")
     pwd = sub.add_parser("webdav",
                          help="WebDAV gateway over a filer (webdav_server.go)")
     pwd.add_argument("-ip", default="127.0.0.1")
@@ -812,8 +1342,9 @@ def main(argv=None) -> int:
     pcrt.add_argument("-dir", default="./certs")
     pcrt.add_argument("-hosts", default="localhost,127.0.0.1",
                       help="comma-separated SAN hosts/IPs")
-    for p in (p3, pi, pmf, psh, pb, pup, pdl, pfx, pcp, pex, pbk, pwd, pft,
-              pmt, psc, pfu, pver, pac, pcrt):
+    for p in (p3, pi, pmf, psh, pb, pup, pdl, pfx, pcp, pex, pbk, prs, psy,
+              pmt2, pct, pcpy, prg, prp, pfb, pmb, pwd, pft, pmt, psc, pfu,
+              pver, pac, pcrt):
         _add_common_flags(p)
     args = ap.parse_args(argv)
 
@@ -834,7 +1365,14 @@ def main(argv=None) -> int:
             "upload": _run_upload, "download": _run_download,
             "fix": _run_fix, "compact": _run_compact, "export": _run_export,
             "backup": _run_backup, "ftp": _run_ftp, "mount": _run_mount,
-            "fuse": _run_mount}
+            "fuse": _run_mount, "filer.sync": _run_filer_sync,
+            "filer.replicate": _run_filer_replicate,
+            "filer.remote.sync": _run_filer_remote_sync,
+            "filer.remote.gateway": _run_filer_remote_gateway,
+            "filer.meta.tail": _run_filer_meta_tail,
+            "filer.cat": _run_filer_cat, "filer.copy": _run_filer_copy,
+            "filer.meta.backup": _run_filer_meta_backup,
+            "filer.backup": _run_filer_backup}
     if args.cmd in sync:
         # the client tools load security.toml too, before any cluster URL
         # is built: the process-wide TLS

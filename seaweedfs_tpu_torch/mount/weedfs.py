@@ -43,6 +43,7 @@ import urllib.request
 
 from seaweedfs_tpu_torch.mount.inode import InodeToPath
 from seaweedfs_tpu_torch.security.tls import scheme as _tls_scheme
+from seaweedfs_tpu_torch.utils.http import shutdown_response
 
 log = logging.getLogger("mount")
 
@@ -243,7 +244,7 @@ class WFS:
         with self._lock:
             resp, self._sub_resp = self._sub_resp, None
         if resp is not None:
-            _shutdown(resp)
+            shutdown_response(resp)
         if self._sub_thread is not None:
             self._sub_thread.join(10)
         if self._admin is not None:
@@ -656,22 +657,6 @@ class WFS:
         if name not in self._xattrs(path):
             raise FsError(61, name)  # ENODATA
         self._set_attr(path, {"extended_del": [self.XATTR_PREFIX + name]})
-
-
-def _shutdown(resp) -> None:
-    """Cut an open HTTP response's connection, waking a thread blocked
-    in its read (shutdown acts on the connection, so a duplicate of the
-    descriptor will do)."""
-    try:
-        s = socket.fromfd(resp.fileno(), socket.AF_INET, socket.SOCK_STREAM)
-    except (OSError, ValueError, AttributeError):
-        return  # already closed
-    try:
-        s.shutdown(socket.SHUT_RDWR)
-    except OSError:
-        pass
-    finally:
-        s.close()
 
 
 def admin_socket_path(mountpoint: str) -> str:

@@ -34,11 +34,11 @@ client and shell it has no device and loads no torch: its reads are
 chunk GETs from the volume servers, and a GET of a needle on a lost data
 shard of an EC volume is a degraded read that the card server decodes.
 
-`notification` is any object with `send(key, dict)`; the queue classes
-come with replication (ROADMAP 1.22a), and /__admin__/notify answers 400
-without one.  A remote mount reads through `remote_storage.make_remote`,
-which knows `local` only until then: a mount of another kind raises on
-its first read.
+`notification` is a `notification.MessageQueue` (the CLI's
+`-notification.log` gives a `LogQueue`, `-notification.webhook` a
+`WebhookQueue`): every meta event is sent to it, and /__admin__/notify
+re-sends a subtree (400 without a queue).  A remote mount reads through
+`remote_storage.make_remote`: a `local`, `s3`, `gcs` or `azure` remote.
 """
 
 from __future__ import annotations

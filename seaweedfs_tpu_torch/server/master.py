@@ -43,8 +43,10 @@ volume servers run the kernels; the repairs, conversions, promotes and
 recodes it posts, the canary's degraded probe and the governed scrub
 passes launch them there.
 
-Left out until the module that serves it is ported: `LEFT_OUT`, the
-geo-replication view (ROADMAP 1.22), which answers 404.
+The geo-replication view, `/cluster/geo` (`geo_status`), folds the sync
+pumps' and the divergence auditor's series (replication/filer_sync.py,
+stats/canary.py) from the last scrape, as the reference's does; its
+`geo` loop stage runs before the history record of each scrape.
 """
 
 from __future__ import annotations
@@ -88,11 +90,6 @@ from seaweedfs_tpu_torch.utils.http import aiohttp_trace_config
 from seaweedfs_tpu_torch.utils.resilience import _env_float, env_switch
 
 log = logging.getLogger("master")
-
-# the reference master's route that comes with a plane not ported yet:
-# the geo-replication view (ROADMAP 1.22)
-LEFT_OUT = ("/cluster/geo",)
-
 
 class MasterServer:
     def __init__(self, host: str = "127.0.0.1", port: int = 9333,
@@ -196,6 +193,7 @@ class MasterServer:
             web.get("/cluster/alerts", self.handle_cluster_alerts),
             web.get("/cluster/loops", self.handle_cluster_loops),
             web.get("/cluster/dashboard", self.handle_cluster_dashboard),
+            web.get("/cluster/geo", self.handle_cluster_geo),
             web.get("/", self.handle_ui),
         ])
         netflow.install(self.app, "master")
@@ -619,6 +617,14 @@ class MasterServer:
         except Exception:
             log.warning("autopilot status failed", exc_info=True)
         try:
+            # geo observatory headline (cached scrape state only;
+            # /cluster/geo has the same view with ?refresh=1)
+            geo = self.geo_status()
+            if geo["directions"] or geo["peers"] or self.region:
+                snap["geo"] = geo
+        except Exception:
+            log.warning("geo status failed", exc_info=True)
+        try:
             # control-plane loops headline (slowest loop + overruns);
             # /cluster/loops has per-loop detail and cardinality
             snap["loops"] = {"headline": self.loops.headline()}
@@ -643,8 +649,7 @@ class MasterServer:
         """Machine-readable cluster health: the per-volume ledger the
         repair planner acts on, plus planner/executor state.  The
         maintenance.status shell command and volume.fsck -json read
-        this.  It has no `geo` block: the reference adds one only with
-        geo directions, peers or a region (ROADMAP 1.22)."""
+        this."""
         return web.json_response(self._health_snapshot())
 
     async def handle_scrub_report(self, req: web.Request) -> web.Response:
@@ -778,10 +783,142 @@ class MasterServer:
         self._mq_epochs[key] = epoch
         return web.json_response({"epoch": epoch})
 
+    # -- geo-replication observatory --------------------------------------
+
+    _GEO_SYNTH = (("weedtpu_replication_lag_seconds",
+                   "geo_replication_lag_s"),
+                  ("weedtpu_replication_stalled",
+                   "geo_replication_stalled"))
+
+    def _geo_synth(self, per_node: dict) -> None:
+        """Collapse the pump-exported replication gauges into
+        per-direction MAX series under a ``__geo__`` pseudo-node (same
+        trick as the aggregator's ``__aggregator__`` staleness gauges).
+        Needed because gauges from nodes sharing one in-process registry
+        (every test topology) SUM in the history store — N nodes would
+        report N× the true lag; max is the honest fleet signal, and it
+        is what the default replication_stalled / replication_lag_high
+        rules watch."""
+        best: dict[tuple[str, str], float] = {}
+        for node, fams in per_node.items():
+            if node.startswith("__"):
+                continue
+            for raw, synth in self._GEO_SYNTH:
+                fam = fams.get(raw)
+                if not fam:
+                    continue
+                for _name, labels, value in fam.get("samples", ()):
+                    if value != value:  # NaN
+                        continue
+                    key = (synth, labels.get("direction", ""))
+                    if value > best.get(key, float("-inf")):
+                        best[key] = value
+        if not best:
+            return  # no pumps anywhere: don't invent empty series
+        out: dict[str, dict] = {}
+        for (synth, direction), value in sorted(best.items()):
+            fam = out.setdefault(synth, {
+                "type": "gauge",
+                "help": "geo observatory synthesis (max across nodes)",
+                "samples": []})
+            fam["samples"].append((synth, {"direction": direction}, value))
+        per_node["__geo__"] = out
+
+    def _geo_fold(self, fname: str, label_keys: tuple[str, ...]
+                  ) -> dict[tuple, float]:
+        """MAX-fold one scraped family across the last scrape's nodes,
+        keyed by the given label values (shared-registry dedup, same
+        rationale as _geo_synth)."""
+        best: dict[tuple, float] = {}
+        for fams in self.aggregator.per_node.values():
+            fam = fams.get(fname)
+            if not fam:
+                continue
+            for _name, labels, value in fam.get("samples", ()):
+                if value != value:
+                    continue
+                key = tuple(labels.get(k, "") for k in label_keys)
+                if value > best.get(key, float("-inf")):
+                    best[key] = value
+        return best
+
+    def geo_status(self) -> dict:
+        """The /cluster/geo payload: per-direction replication lag,
+        backlog, counters and stall flags (from the last scrape),
+        apply/WAN throughput (from the history store), divergence-audit
+        state, WAN byte totals, registered peer masters, and the two
+        geo alert rules' states.  Cached-state only — never blocks on a
+        fleet fan-out (?refresh=1 on the handler scrapes first)."""
+        directions: dict[str, dict] = {}
+        for fname, field in (
+                ("weedtpu_replication_lag_seconds", "lag_s"),
+                ("weedtpu_replication_backlog_events", "backlog_events"),
+                ("weedtpu_replication_stalled", "stalled"),
+                ("weedtpu_replication_applied_total", "applied"),
+                ("weedtpu_replication_skipped_total", "skipped"),
+                ("weedtpu_replication_errors_total", "errors")):
+            for (d,), v in self._geo_fold(fname, ("direction",)).items():
+                directions.setdefault(d, {})[field] = v
+        try:
+            res = self.history.query(
+                "weedtpu_replication_applied_total", None, 120.0, None,
+                "rate")
+            for vec in res.get("vectors", []):
+                d = vec["labels"].get("direction", "")
+                pts = [v for _, v in vec["points"] if v is not None]
+                if d in directions and pts:
+                    directions[d]["apply_rate_eps"] = pts[-1]
+        except Exception:
+            log.warning("geo throughput query failed", exc_info=True)
+        wan = {"sent_bytes": netflow.wan_total("sent"),
+               "recv_bytes": netflow.wan_total("recv"),
+               "by_region": {}}
+        for (direction, cls, region), v in self._geo_fold(
+                "weedtpu_wan_bytes_total",
+                ("direction", "class", "region")).items():
+            wan["by_region"].setdefault(region, {}).setdefault(
+                direction, {})[cls] = v
+        divergence = {
+            "prefixes": {p: v for (p,), v in self._geo_fold(
+                "weedtpu_geo_divergence", ("prefix",)).items()},
+            "audits": {o: v for (o,), v in self._geo_fold(
+                "weedtpu_geo_audits_total", ("outcome",)).items()}}
+        horizon = time.time() - 30.0
+        peers = sorted(
+            a for a, ts in self.cluster_members.get(
+                "peer_master", {}).items() if ts > horizon)
+        alerts = {}
+        try:
+            for r in self.alerts.status().get("rules", []):
+                if r["name"] in ("replication_stalled",
+                                 "replication_lag_high"):
+                    alerts[r["name"]] = r["state"]
+        except Exception:
+            log.warning("geo alert status failed", exc_info=True)
+        return {"region": self.region, "peers": peers,
+                "directions": directions, "wan": wan,
+                "divergence": divergence, "alerts": alerts}
+
+    async def handle_cluster_geo(self, req: web.Request) -> web.Response:
+        """/cluster/geo: the geo-replication observatory headline.
+        Loopback-gated (names nodes, prefixes and trace ids).
+        ?refresh=1 runs one scrape tick first so tests and operators get
+        a deterministic fresh view."""
+        err = trace.loopback_error(req)
+        if err is not None:
+            return err
+        if req.query.get("refresh"):
+            try:
+                await asyncio.to_thread(self.aggregator.scrape_once)
+            except Exception:
+                log.warning("geo refresh pull failed", exc_info=True)
+        return web.json_response(await asyncio.to_thread(self.geo_status))
+
     # -- the planes' scrape observer ------------------------------------
 
     def _on_scrape(self, ts: float, per_node: dict) -> None:
-        """Aggregator scrape observer: record the tick into history, then
+        """Aggregator scrape observer: fold the sync pumps' gauges into
+        the geo series, record the tick into history, then
         forecast, evaluate alerts, observe interference and retune the
         governor over the updated store, then stamp the subsystems'
         sizes (the aggregator's thread; each stage is independent, so
@@ -789,6 +926,13 @@ class MasterServer:
         loop monitor with the aggregator's interval."""
         iv = self.aggregator.interval
         iv = iv if iv > 0 else None
+        try:
+            # the geo synthesis precedes the history record, so the lag
+            # and stall series land in the tick they derive from
+            with self.loops.tick("geo", interval=iv):
+                self._geo_synth(per_node)
+        except Exception:
+            log.warning("geo synthesis failed", exc_info=True)
         try:
             with self.loops.tick("history_record", interval=iv) as lt:
                 lt.items = len(per_node)

@@ -67,12 +67,19 @@ Differences from the reference, kept on purpose:
   type ("cuda", "cpu") where the reference writes "tpu";
 - a malformed WEEDTPU_SCRUB_* or WEEDTPU_PROFILE_HZ knob or
   WEEDTPU_FAULTS directive raises at start, before the socket binds,
-  where the reference falls back or drops it.
+  where the reference falls back or drops it;
+- a blob read of a volume on a remote tier runs on a pool of the
+  server's own (`TIER_READ_THREADS`), not the loop's default pool
+  (ROADMAP fault 3.15): where the tier target is served by this same
+  server (a gateway over its filer), the reference's tier reads hold the
+  default pool's threads while the gateway's reads wait for one.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
+import functools
 import json
 import logging
 import os
@@ -81,6 +88,7 @@ import time
 import urllib.error
 import urllib.request
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import aiohttp
 import numpy as np
@@ -195,6 +203,8 @@ class VolumeServer:
     # WEEDTPU_INLINE_READ_MAX=0 to send every read through the pool
     INLINE_READ_MAX = int(os.environ.get("WEEDTPU_INLINE_READ_MAX",
                                          str(64 * 1024)))
+    # threads of the pool that reads volumes on a remote tier (3.15)
+    TIER_READ_THREADS = 4
 
     def __init__(self, directories: list[str], master_url: str,
                  host: str = "127.0.0.1", port: int = 8080,
@@ -214,6 +224,7 @@ class VolumeServer:
         self.heartbeat_interval = heartbeat_interval
         self.store = Store(directories, max_volumes, self.public_url,
                            device=device)
+        self._tier_pool: ThreadPoolExecutor | None = None  # at first use
         self.volume_size_limit = 30 * 1024 * 1024 * 1024
 
         self.app = web.Application(
@@ -358,6 +369,8 @@ class VolumeServer:
             await self._session.close()
         if self._runner:
             await self._runner.cleanup()
+        if self._tier_pool is not None:
+            self._tier_pool.shutdown(wait=False, cancel_futures=True)
         self.store.close()
         # retire this instance's capacity series from the process-wide
         # registry: a stopped server must not leave stale series behind
@@ -605,6 +618,21 @@ class VolumeServer:
                 return err
         return None
 
+    async def _read_off_loop(self, vid: int, fn, *args):
+        """`asyncio.to_thread(fn, *args)`, but a volume on a remote tier
+        is read on the server's tier pool: a tier read waits on the
+        network, perhaps on a gateway that reads this server in turn,
+        and must not hold the threads that gateway's reads need."""
+        v = self.store.get_volume(vid)
+        if v is None or v.backend_kind != "remote":
+            return await asyncio.to_thread(fn, *args)
+        if self._tier_pool is None:
+            self._tier_pool = ThreadPoolExecutor(
+                self.TIER_READ_THREADS, thread_name_prefix="tier-read")
+        call = functools.partial(contextvars.copy_context().run, fn, *args)
+        return await asyncio.get_running_loop().run_in_executor(
+            self._tier_pool, call)
+
     async def _read_blob(self, req: web.Request,
                          fid: t.FileId) -> web.StreamResponse:
         # parsing an empty query string still costs a parse_qsl pass per
@@ -621,9 +649,9 @@ class VolumeServer:
                 fid.volume_id, fid.key, fid.cookie, self.INLINE_READ_MAX) \
                 if self.INLINE_READ_MAX else None
             if n is None:
-                n = await asyncio.to_thread(
-                    self.store.read_needle, fid.volume_id, fid.key,
-                    fid.cookie, self._shard_reader(fid.volume_id))
+                n = await self._read_off_loop(
+                    fid.volume_id, self.store.read_needle, fid.volume_id,
+                    fid.key, fid.cookie, self._shard_reader(fid.volume_id))
         except KeyError:
             return web.json_response({"error": "not found"}, status=404)
         except PermissionError:
@@ -686,8 +714,8 @@ class VolumeServer:
         try:
             # cheap probe: header + meta tail (cookie and TTL enforced,
             # mime and checksum recovered without touching the data)
-            meta = await asyncio.to_thread(
-                v.read_needle_meta, fid.key, fid.cookie)
+            meta = await self._read_off_loop(
+                fid.volume_id, v.read_needle_meta, fid.key, fid.cookie)
         except (KeyError, PermissionError):
             return web.json_response({"error": "not found"}, status=404)
         except (ValueError, EOFError, OSError):
@@ -701,8 +729,9 @@ class VolumeServer:
             return web.Response(
                 status=416, headers={"Content-Range": f"bytes */{total}"})
         try:
-            data = await asyncio.to_thread(
-                v.read_needle_page, fid.key, lo, length, fid.cookie)
+            data = await self._read_off_loop(
+                fid.volume_id, v.read_needle_page, fid.key, lo, length,
+                fid.cookie)
         except (KeyError, PermissionError):
             return web.json_response({"error": "not found"}, status=404)
         except (ValueError, EOFError, OSError):
@@ -1157,7 +1186,12 @@ class VolumeServer:
         if v is None:
             return web.json_response({"error": "volume not found"},
                                      status=404)
-        v.read_only = bool(body.get("readonly", True))
+        readonly = bool(body.get("readonly", True))
+        if not readonly and v.tiering:
+            return web.json_response(
+                {"error": f"volume {v.id} is moving to or from a remote "
+                          "tier"}, status=409)
+        v.read_only = readonly
         await self._heartbeat_once()
         return web.json_response({})
 
@@ -1168,7 +1202,10 @@ class VolumeServer:
             return web.json_response({"error": "volume not found"},
                                      status=404)
         garbage = v.garbage_ratio()
-        await asyncio.to_thread(v.compact)
+        try:
+            await asyncio.to_thread(v.compact)
+        except PermissionError as e:  # a remote tier, or one moving
+            return web.json_response({"error": str(e)}, status=409)
         return web.json_response({"garbage_ratio": garbage})
 
     # -- admin: EC -------------------------------------------------------
@@ -1973,7 +2010,8 @@ class VolumeServer:
         try:
             await asyncio.to_thread(v.tier_move, kind, options,
                                     body.get("key"))
-        except (ValueError, TypeError, OSError, PermissionError) as e:
+        except (ValueError, TypeError, OSError, PermissionError,
+                RuntimeError) as e:
             return web.json_response({"error": str(e)}, status=500)
         await self._heartbeat_once()
         return web.json_response({"backend": v.backend_kind})

@@ -1,19 +1,21 @@
 """Admin shell command environment + commands.
 
 Counterpart of `seaweedfs_tpu/shell/commands.py`, cut to the commands
-that need no remote store or message queue (80 of the reference's 95):
-`help`, `lock`, `unlock`, the `volume.*` commands but `volume.tier.*`,
-the `collection.*`, `ec.*` and `cluster.*` commands but `cluster.geo`,
-`maintenance.status`, `chaos.status`, the 18 `fs.*` commands, which
-drive the first filer registered with the master over its HTTP API
-(`volume.fsck` lists that filer's tree too), the 8 `s3.*` commands,
-which keep the gateways' buckets, identities, quotas and circuit
-breaker in that filer, and `mount.configure`, which talks to a running
-mount over its admin socket.  The `remote.*` and `mq.*` commands,
-`volume.tier.*` and `cluster.geo` come with ROADMAP 1.22a-1.22b, so
-`help` and the unknown-command error list fewer names than the
-reference's.  `fs.meta.notify` needs a filer started with a
-notification queue, which the port's CLI offers from 1.22a.
+that need no message queue (91 of the reference's 95): `help`, `lock`,
+`unlock`, the `volume.*` commands with `volume.tier.move`, `.upload` and
+`.download` (a volume's `.dat` to a `local`, `s3`, `gcs` or `azure`
+remote and back), the `collection.*`, `ec.*` and `cluster.*` commands
+with `cluster.geo` (the master's `/cluster/geo`), `maintenance.status`,
+`chaos.status`, the 18 `fs.*` commands, which drive the first filer
+registered with the master over its HTTP API (`volume.fsck` lists that
+filer's tree too; `fs.meta.notify` needs a filer started with a
+notification queue), the 7 `remote.*` commands, which mount, cache,
+reconcile and unmount a remote store under that filer through
+`remote_storage`, the 8 `s3.*` commands, which keep the gateways'
+buckets, identities, quotas and circuit breaker in that filer, and
+`mount.configure`, which talks to a running mount over its admin
+socket.  The `mq.*` commands come with ROADMAP 1.22b, so `help` and the
+unknown-command error list four names fewer than the reference's.
 
 The shell drives the cluster purely over the master/volume-server HTTP
 APIs, holding the master's exclusive admin lock while mutating — same
@@ -1195,6 +1197,62 @@ def cmd_cluster_alerts(env: CommandEnv, args, out):
                   file=out)
 
 
+@command("cluster.geo")
+def cmd_cluster_geo(env: CommandEnv, args, out):
+    """Geo-replication observatory (/cluster/geo): per sync direction,
+    replication lag (seconds since the last applied event's mtime),
+    source backlog depth, applied/skipped/error counters and the stall
+    flag; plus the divergence auditor's verdict per prefix, WAN byte
+    totals by region, registered peer masters, and the geo alert
+    states.  -refresh runs one scrape tick first; -json dumps raw.
+    Runbook: replication_stalled fires -> cluster.geo (which direction?
+    backlog growing means the WAN link or the remote filer; errors
+    growing with zero backlog means a poisoned event) -> cluster.trace
+    <its last_trace_id> (where the apply died, which region's hop)."""
+    flags = parse_flags(args)
+    params = {"refresh": "1"} if "refresh" in flags else {}
+    st = env.master_get("/cluster/geo", **params)
+    if "json" in flags:
+        print(json.dumps(st, separators=(",", ":")), file=out)
+        return
+    region = st.get("region") or "-"
+    peers = ",".join(st.get("peers") or []) or "-"
+    print(f"region: {region}  peer_masters: {peers}", file=out)
+    dirs = st.get("directions") or {}
+    if not dirs:
+        print("no replication pumps reporting (FilerSync not running,"
+              " or no scrape yet: try -refresh)", file=out)
+    for d, rec in sorted(dirs.items()):
+        stall = "  STALLED" if rec.get("stalled") else ""
+        rate = rec.get("apply_rate_eps")
+        rate_s = f" rate={rate:.2f}/s" if rate is not None else ""
+        print(f"  {d:10s} lag={rec.get('lag_s', 0.0):8.2f}s "
+              f"backlog={rec.get('backlog_events', 0.0):g} "
+              f"applied={rec.get('applied', 0.0):g} "
+              f"skipped={rec.get('skipped', 0.0):g} "
+              f"errors={rec.get('errors', 0.0):g}"
+              f"{rate_s}{stall}", file=out)
+    div = st.get("divergence") or {}
+    for prefix, v in sorted((div.get("prefixes") or {}).items()):
+        verdict = "DIVERGED" if v else "clean"
+        print(f"  divergence {prefix}: {verdict}", file=out)
+    audits = div.get("audits") or {}
+    if audits:
+        print("  audits: " + " ".join(
+            f"{k}={v:g}" for k, v in sorted(audits.items())), file=out)
+    wan = st.get("wan") or {}
+    print(f"  wan: sent={wan.get('sent_bytes', 0.0):g}B "
+          f"recv={wan.get('recv_bytes', 0.0):g}B", file=out)
+    for region_, by_dir in sorted((wan.get("by_region") or {}).items()):
+        for direction, by_cls in sorted(by_dir.items()):
+            tot = sum(by_cls.values())
+            print(f"    -> {region_} {direction}={tot:g}B", file=out)
+    alerts = st.get("alerts") or {}
+    if alerts:
+        print("  alerts: " + " ".join(
+            f"{k}={v}" for k, v in sorted(alerts.items())), file=out)
+
+
 @command("cluster.loops")
 def cmd_cluster_loops(env: CommandEnv, args, out):
     """Control-plane observatory (/cluster/loops): per master background
@@ -1732,6 +1790,68 @@ def cmd_s3_bucket_delete(env: CommandEnv, args, out):
     print(f"deleted bucket {name}", file=out)
 
 
+@command("volume.tier.move")
+def cmd_volume_tier_move(env: CommandEnv, args, out):
+    """Move a volume's data file to a remote tier (reference:
+    command_volume_tier_move.go).  -dest kind:option, e.g.
+    -dest local:/cold-storage."""
+    env.require_lock()
+    flags = parse_flags(args)
+    vid = int(flags["volumeId"])
+    from seaweedfs_tpu_torch.remote_storage import parse_remote_spec
+    kind, options = parse_remote_spec(flags.get("dest", ""))
+    if kind == "local" and not options.get("directory"):
+        raise RuntimeError(
+            "volume.tier.move needs -dest local:<directory> or "
+            "-dest s3:endpoint=..,bucket=..")
+    for url in env.volume_locations(vid):
+        r = env.vs_post(url, "/admin/volume/tier_move",
+                        {"volume": vid, "kind": kind,
+                         "options": options})
+        print(f"volume {vid} on {url} -> tier {kind} "
+              f"(backend={r.get('backend')})", file=out)
+
+
+@command("remote.mount")
+def cmd_remote_mount(env: CommandEnv, args, out):
+    """Mount a remote store's objects under a filer directory (reference:
+    command_remote_mount.go).  -remote kind:option -dir /mounted"""
+    flags = parse_flags(args)
+    from seaweedfs_tpu_torch.remote_storage import (make_remote,
+                                              parse_remote_spec,
+                                              sync_remote_to_filer)
+    kind, options = parse_remote_spec(flags.get("remote", ""))
+    mount_dir = flags.get("dir", "/remote")
+    cache = flags.get("cache", "false") == "true"
+    remote = make_remote(kind, **options)
+    filer = env.find_filer()
+    n = sync_remote_to_filer(remote, filer, mount_dir, cache=cache)
+    # record the mapping so the filer can read placeholders THROUGH the
+    # remote on demand (reference: remote_mapping.go + read_remote.go)
+    env._call(f"{filer}/__admin__/remote_mounts",
+              {"set": {mount_dir: flags.get("remote", "")}})
+    print(f"remote.mount: {n} object(s) from {kind} -> {mount_dir}"
+          + ("" if cache else " (placeholders; read-through live, "
+                              "remote.cache to pin)"),
+          file=out)
+
+
+@command("remote.cache")
+def cmd_remote_cache(env: CommandEnv, args, out):
+    """Pull remote object content into the mounted directory (reference:
+    command_remote_cache.go)."""
+    flags = parse_flags(args)
+    from seaweedfs_tpu_torch.remote_storage import (make_remote,
+                                              parse_remote_spec,
+                                              sync_remote_to_filer)
+    kind, options = parse_remote_spec(flags.get("remote", ""))
+    mount_dir = flags.get("dir", "/remote")
+    remote = make_remote(kind, **options)
+    filer = env.find_filer()
+    n = sync_remote_to_filer(remote, filer, mount_dir, cache=True)
+    print(f"remote.cache: {n} object(s) cached under {mount_dir}", file=out)
+
+
 @command("volume.grow")
 def cmd_volume_grow(env: CommandEnv, args, out):
     """Pre-allocate writable volumes (reference: command_volume_grow /
@@ -2177,6 +2297,30 @@ def cmd_fs_configure(env: CommandEnv, args, out):
         print("(dry run; add -apply)", file=out)
 
 
+@command("volume.tier.upload")
+def cmd_volume_tier_upload(env: CommandEnv, args, out):
+    """Upload a volume's data to a remote tier — alias of volume.tier.move
+    matching the reference's command name (command_volume_tier_upload)."""
+    cmd_volume_tier_move(env, args, out)
+
+
+@command("volume.tier.download")
+def cmd_volume_tier_download(env: CommandEnv, args, out):
+    """Bring a tiered volume's data back to local disk (reference:
+    command_volume_tier_download): volume.tier.download -volumeId N
+    [-deleteRemote true]"""
+    env.require_lock()
+    flags = parse_flags(args)
+    vid = int(flags["volumeId"])
+    for url in env.volume_locations(vid):
+        r = env.vs_post(url, "/admin/volume/tier_download",
+                        {"volume": vid,
+                         "delete_remote":
+                             flags.get("deleteRemote", "false") == "true"})
+        print(f"volume {vid} on {url} back on local disk "
+              f"(backend={r.get('backend')})", file=out)
+
+
 @command("volume.deleteEmpty")
 def cmd_volume_delete_empty(env: CommandEnv, args, out):
     """Delete volumes holding no live needles (reference:
@@ -2199,6 +2343,90 @@ def cmd_volume_delete_empty(env: CommandEnv, args, out):
                     env.vs_post(url, "/admin/volume/delete", {"volume": vid})
     print(f"volume.deleteEmpty: {n} volume(s)"
           + ("" if apply else " planned"), file=out)
+
+
+@command("remote.meta.sync")
+def cmd_remote_meta_sync(env: CommandEnv, args, out):
+    """Reconcile a mounted directory's metadata against the remote's
+    current object list (reference: command_remote_meta_sync):
+    remote.meta.sync -remote kind:spec -dir /mounted"""
+    flags = parse_flags(args)
+    from seaweedfs_tpu_torch.remote_storage import (make_remote,
+                                              meta_sync_remote_to_filer,
+                                              parse_remote_spec)
+    kind, options = parse_remote_spec(flags.get("remote", ""))
+    remote = make_remote(kind, **options)
+    filer = env.find_filer()
+    changed, deleted, same = meta_sync_remote_to_filer(
+        remote, filer, flags.get("dir", "/remote"))
+    print(f"remote.meta.sync: {changed} updated, {deleted} deleted, "
+          f"{same} unchanged", file=out)
+
+
+@command("remote.uncache")
+def cmd_remote_uncache(env: CommandEnv, args, out):
+    """Drop cached content under a mounted directory, reverting entries to
+    placeholders (reference: command_remote_uncache):
+    remote.uncache -dir /mounted"""
+    flags = parse_flags(args)
+    mount = flags.get("dir", "/remote")
+    filer = env.find_filer()
+    from seaweedfs_tpu_torch.remote_storage import _filer_walk
+    import urllib.request
+    n = 0
+    for path, meta in _filer_walk(filer, mount):
+        ext = {k.lower(): v
+               for k, v in (meta.get("extended") or {}).items()}
+        if "remote-key" not in ext or \
+                ext.get("remote-placeholder") == "true":
+            continue
+        headers = {
+            "Seaweed-remote-size": ext.get("remote-size", "0"),
+            "Seaweed-remote-mtime": ext.get("remote-mtime", "0"),
+            "Seaweed-remote-key": ext["remote-key"],
+            "Seaweed-remote-placeholder": "true",
+        }
+        req = urllib.request.Request(
+            f"{_tls_scheme()}://{filer}{urllib.parse.quote(path)}",
+            data=b"", method="POST", headers=headers)
+        with urllib.request.urlopen(req, timeout=60):
+            pass
+        n += 1
+    print(f"remote.uncache: {n} file(s) reverted to placeholders", file=out)
+
+
+@command("remote.configure")
+def cmd_remote_configure(env: CommandEnv, args, out):
+    """Store named remote specs on the filer (reference:
+    command_remote_configure): remote.configure -name cold
+    -spec s3:endpoint=..,bucket=.. | -list | -delete -name cold"""
+    flags = parse_flags(args)
+    filer = env.find_filer()
+    path = "/etc/remote.conf"
+    import urllib.error
+    import urllib.request
+    try:
+        conf = json.loads(env.filer_read(filer, path) or b"{}")
+    except urllib.error.HTTPError as e:
+        if e.code != 404:
+            raise  # a transient failure must NOT read as "no remotes"
+        conf = {}
+    mutated = False
+    if flags.get("name") and flags.get("spec"):
+        conf[flags["name"]] = flags["spec"]
+        mutated = True
+    elif flags.get("delete") and flags.get("name"):
+        mutated = conf.pop(flags["name"], None) is not None
+    if mutated:  # plain listing never rewrites the config file
+        req = urllib.request.Request(
+            f"{_tls_scheme()}://{filer}{urllib.parse.quote(path)}",
+            data=json.dumps(conf, indent=2).encode(), method="PUT")
+        with urllib.request.urlopen(req, timeout=60):
+            pass
+    for name, spec in sorted(conf.items()):
+        print(f"{name:16s} {spec}", file=out)
+    if not conf:
+        print("(no remotes configured)", file=out)
 
 
 @command("volume.copy")
@@ -2575,6 +2803,24 @@ def cmd_fs_merge_volumes(env: CommandEnv, args, out):
           + ("" if apply else " (dry run; add -apply)"), file=out)
 
 
+@command("remote.unmount")
+def cmd_remote_unmount(env: CommandEnv, args, out):
+    """Detach a remote mapping from a directory (reference:
+    command_remote_unmount.go).  Cached/placeholder entries under the
+    directory stay unless -deleteEntries."""
+    flags = parse_flags(args)
+    mount_dir = flags.get("dir", "/remote")
+    filer = env.find_filer()
+    env._call(f"{filer}/__admin__/remote_mounts",
+              {"remove": [mount_dir]})
+    if flags.get("deleteEntries", "false") == "true":
+        try:
+            env.filer_delete(filer, mount_dir, recursive=True)
+        except Exception as e:
+            print(f"  entry cleanup failed: {e}", file=out)
+    print(f"remote.unmount: {mount_dir} detached", file=out)
+
+
 @command("s3.bucket.quota")
 def cmd_s3_bucket_quota(env: CommandEnv, args, out):
     """Set/clear a bucket's byte quota, stored on the bucket entry
@@ -2697,6 +2943,42 @@ def cmd_s3_circuitbreaker(env: CommandEnv, args, out):
     with urllib.request.urlopen(req, timeout=60):
         pass
     print(f"s3.circuitbreaker applied: {json.dumps(cfg)}", file=out)
+
+
+@command("remote.mount.buckets")
+def cmd_remote_mount_buckets(env: CommandEnv, args, out):
+    """Mount every bucket of an S3-class remote under -dir (reference:
+    command_remote_mount_buckets.go): one subdirectory per bucket, each
+    with placeholder entries + a recorded read-through mapping.
+    -remote s3:endpoint=..,access_key=..,secret_key=.. [-dir /buckets]
+    [-bucketPattern glob]"""
+    import fnmatch
+    flags = parse_flags(args)
+    from seaweedfs_tpu_torch.remote_storage import (make_remote,
+                                              parse_remote_spec,
+                                              sync_remote_to_filer)
+    kind, options = parse_remote_spec(flags.get("remote", ""))
+    options.pop("bucket", None)
+    base_dir = flags.get("dir", "/buckets").rstrip("/")
+    pattern = flags.get("bucketPattern", "")
+    probe = make_remote(kind, bucket="", **options)
+    if not hasattr(probe, "list_buckets"):
+        raise RuntimeError(f"remote kind {kind!r} cannot list buckets")
+    filer = env.find_filer()
+    mounted = 0
+    for bucket in probe.list_buckets():
+        if pattern and not fnmatch.fnmatch(bucket, pattern):
+            continue
+        remote = make_remote(kind, bucket=bucket, **options)
+        mount_dir = f"{base_dir}/{bucket}"
+        n = sync_remote_to_filer(remote, filer, mount_dir, cache=False)
+        spec = f"{kind}:bucket={bucket}," + ",".join(
+            f"{k}={v}" for k, v in options.items())
+        env._call(f"{filer}/__admin__/remote_mounts",
+                  {"set": {mount_dir: spec}})
+        print(f"  {bucket}: {n} object(s) -> {mount_dir}", file=out)
+        mounted += 1
+    print(f"remote.mount.buckets: {mounted} bucket(s) mounted", file=out)
 
 
 @command("mount.configure")

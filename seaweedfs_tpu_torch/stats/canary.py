@@ -1,8 +1,7 @@
 """Always-on canary probes: synthetic traffic through every gateway path.
 
-Counterpart of `seaweedfs_tpu/stats/canary.py`'s `CanaryProber`, whole
-(its `DivergenceAuditor` needs two regions' filers and comes with
-replication, ROADMAP 1.22).  The SLO engine (stats/aggregate.py) is availability-blind between real
+Counterpart of `seaweedfs_tpu/stats/canary.py`, whole: the
+`CanaryProber` and the geo plane's `DivergenceAuditor` (at the end).  The SLO engine (stats/aggregate.py) is availability-blind between real
 requests — a cluster serving nobody reports "ok" right up until the
 first user request fails.  The canary closes that gap: a background loop
 on the master writes, reads back (byte-compared), and deletes sentinel
@@ -341,3 +340,124 @@ class CanaryProber:
         return {"interval_s": canary_interval(),
                 "enabled_paths": list(ALL_PATHS),
                 "running": self._task is not None, "paths": paths}
+
+
+# -- geo divergence auditor ---------------------------------------------
+
+def geo_audit_interval() -> float:
+    """WEEDTPU_GEO_AUDIT_INTERVAL: seconds between divergence audits
+    (<= 0 turns the loop off; ``run_once()`` still works on demand).  A
+    malformed value raises ValueError where the reference falls back to
+    30; an auditor reads it when it is built."""
+    raw = os.environ.get("WEEDTPU_GEO_AUDIT_INTERVAL", "").strip()
+    if not raw:
+        return 30.0
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"WEEDTPU_GEO_AUDIT_INTERVAL={raw!r}: want "
+                         f"seconds") from None
+
+
+class DivergenceAuditor:
+    """Canary-style background prober for the geo-replication plane:
+    pull ``/__meta__/digest?prefix=`` from BOTH filers of a FilerSync
+    pair and publish ``weedtpu_geo_divergence{prefix}`` (0 = the
+    subtree content digests are byte-identical, 1 = the regions have
+    diverged).  Divergence is EXPECTED while replication is catching up
+    — the signal that matters is the gauge returning to 0 after a heal,
+    which is ROADMAP item 3's convergence proof.
+
+    Thread-based (it lives beside the sync pumps, not on a server's
+    event loop); probe traffic stays class=internal so the replication
+    byte-conservation ledger holds pure data.  ``run_once()`` is the
+    deterministic hook the chaos tests and the bench drive; the loop
+    waits a full interval before its first probe so short-lived syncs
+    never pay for it."""
+
+    def __init__(self, filer_a: str, filer_b: str, prefix: str = "/",
+                 region_a: str = "", region_b: str = "",
+                 timeout: float = 30.0, http=None):
+        import threading
+        from seaweedfs_tpu_torch.utils.http import PooledHTTP
+        geo_audit_interval()  # a malformed knob raises here
+        self.filer_a, self.filer_b = filer_a, filer_b
+        self.prefix = prefix
+        self.region_a, self.region_b = region_a, region_b
+        self.timeout = timeout
+        self._own_http = http is None
+        self.http = http or PooledHTTP(timeout=timeout, role="replicator")
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        # last audit outcome: {outcome, diverged, digests, entries, ts}
+        self.state: dict = {}
+        self.audits = 0
+
+    def start(self, interval: float | None = None) -> "DivergenceAuditor":
+        import threading
+        iv = geo_audit_interval() if interval is None else interval
+        if iv > 0 and self._thread is None:
+            self._thread = threading.Thread(
+                target=self._run, args=(iv,), daemon=True,
+                name=f"geo-audit-{self.prefix}")
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        th, self._thread = self._thread, None
+        if th is not None:
+            th.join(2)
+        if self._own_http:
+            self.http.close()
+
+    def _run(self, interval: float) -> None:
+        while not self._stop.wait(interval):
+            try:
+                self.run_once()
+            except Exception as e:  # must survive anything
+                weedlog.V(1, "canary").infof(
+                    "geo audit failed: %s: %s", type(e).__name__, e)
+
+    def _digest(self, filer: str) -> dict:
+        import json as _json
+        import urllib.parse as _up
+        url = (f"{_tls_scheme()}://{filer}/__meta__/digest?"
+               + _up.urlencode({"prefix": self.prefix}))
+        status, _, body = self.http.request(url, timeout=self.timeout)
+        if status != 200:
+            raise OSError(f"digest HTTP {status} from {filer}")
+        return _json.loads(body)
+
+    def run_once(self) -> dict:
+        """One audit pass; returns (and stores) the outcome record."""
+        self.audits += 1
+        ts = time.time()
+        try:
+            da = self._digest(self.filer_a)
+            db = self._digest(self.filer_b)
+        except (OSError, ValueError) as e:
+            # an unreachable filer is NOT divergence — the lag plane
+            # owns that signal; the gauge keeps its last honest value
+            metrics.GEO_AUDITS.labels("error").inc()
+            self.state = {"outcome": "error", "ts": ts,
+                          "error": f"{type(e).__name__}: {e}"}
+            return self.state
+        diverged = da.get("digest") != db.get("digest")
+        metrics.GEO_DIVERGENCE.labels(self.prefix).set(
+            1 if diverged else 0)
+        metrics.GEO_AUDITS.labels(
+            "diverged" if diverged else "clean").inc()
+        self.state = {
+            "outcome": "diverged" if diverged else "clean", "ts": ts,
+            "diverged": diverged,
+            "digests": {self.filer_a: da.get("digest"),
+                        self.filer_b: db.get("digest")},
+            "entries": {self.filer_a: da.get("entries"),
+                        self.filer_b: db.get("entries")}}
+        return self.state
+
+    def status(self) -> dict:
+        return {"prefix": self.prefix, "interval_s": geo_audit_interval(),
+                "running": self._thread is not None,
+                "audits": self.audits, "last": dict(self.state)}

@@ -276,6 +276,44 @@ NET_BYTES = REGISTRY.counter(
     "weedtpu_net_bytes_total",
     "network body bytes by direction, traffic class, and peer role",
     ("direction", "class", "peer_role"))
+# geo-replication observatory (replication/filer_sync.py): each sync
+# pump's per-direction lag (now minus the last applied or confirmed
+# source event's ts, refreshed by live-stream keepalives), backlog (source
+# meta-log events newer than the resume offset), the stall flag the pump
+# computes itself (no progress for WEEDTPU_SYNC_STALL_AFTER s while the
+# stream errors), and its applied, skipped and error counts
+REPLICATION_LAG = REGISTRY.gauge(
+    "weedtpu_replication_lag_seconds",
+    "per-direction replication lag: now minus last applied/confirmed "
+    "source event timestamp", ("direction",))
+REPLICATION_BACKLOG = REGISTRY.gauge(
+    "weedtpu_replication_backlog_events",
+    "per-direction replication backlog: source meta-log events newer "
+    "than the resume offset", ("direction",))
+REPLICATION_STALLED = REGISTRY.gauge(
+    "weedtpu_replication_stalled",
+    "1 while a sync direction has made no progress for the stall "
+    "window despite errors or backlog, else 0", ("direction",))
+REPLICATION_APPLIED = REGISTRY.counter(
+    "weedtpu_replication_applied_total",
+    "meta-log events applied to the remote filer", ("direction",))
+REPLICATION_SKIPPED = REGISTRY.counter(
+    "weedtpu_replication_skipped_total",
+    "meta-log events skipped by signature loop-prevention",
+    ("direction",))
+REPLICATION_ERRORS = REGISTRY.counter(
+    "weedtpu_replication_errors_total",
+    "sync pump apply/stream errors", ("direction",))
+# divergence auditor (stats/canary.py DivergenceAuditor): both filers'
+# /__meta__/digest of a prefix, 0 when byte-identical, 1 when they differ
+GEO_DIVERGENCE = REGISTRY.gauge(
+    "weedtpu_geo_divergence",
+    "1 while the two regions' subtree digests differ, 0 when "
+    "byte-identical", ("prefix",))
+GEO_AUDITS = REGISTRY.counter(
+    "weedtpu_geo_audits_total",
+    "divergence audit passes by outcome (clean/diverged/error)",
+    ("outcome",))
 # WAN ledger: the same bytes again while an ambient netflow.wan(region)
 # names the remote region they cross to
 WAN_BYTES = REGISTRY.counter(

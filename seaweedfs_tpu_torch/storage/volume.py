@@ -11,6 +11,14 @@ with the same crash-safety order (data before index, torn tails
 truncated at load).  It writes the same `.dat` and `.idx` bytes as the
 reference package for the same needles, and a volume either package
 wrote, compacted or tiered mounts in the other.
+
+Unlike the reference's, a tier move's upload, a tier download and a
+read through the remote tier hold no volume lock across the network
+(ROADMAP fault 3.14): the volume is sealed first, and the lock is taken
+only to switch the backend.  While the transfer runs the volume is
+`tiering`: writes, deletes, compaction, a replica catch-up and a
+placement rewrite refuse, and the switch aborts if the .dat's size or
+compaction revision moved since the seal.
 """
 
 from __future__ import annotations
@@ -61,6 +69,9 @@ class Volume:
         # a volume copy's target while its move runs: read-only and out
         # of the heartbeat until the move's finalize
         self.staging = False
+        # a tier move's or download's transfer runs (outside the lock):
+        # nothing may change the .dat until its switch
+        self.tiering = False
         self.last_modified = 0.0
         self._lock = threading.RLock()
         base = f"{collection}_{vid}" if collection else str(vid)
@@ -205,6 +216,8 @@ class Volume:
             raise PermissionError(f"volume {self.id} is read-only")
         record = n.to_bytes(self.version)
         with self._lock:
+            if self.read_only or self.tiering:  # sealed since the check
+                raise PermissionError(f"volume {self.id} is read-only")
             offset = self._dat.size()
             if offset % t.NEEDLE_PADDING_SIZE != 0:
                 pad = t.NEEDLE_PADDING_SIZE - offset % t.NEEDLE_PADDING_SIZE
@@ -226,6 +239,8 @@ class Volume:
         if self.read_only:
             raise PermissionError(f"volume {self.id} is read-only")
         with self._lock:
+            if self.read_only or self.tiering:  # sealed since the check
+                raise PermissionError(f"volume {self.id} is read-only")
             existing = self.nm.get(needle_id)
             if existing is None:
                 return 0
@@ -248,7 +263,12 @@ class Volume:
         (DiskFile.pread): concurrent GETs of one volume stop serializing
         on the shared file handle's seek position.  Falls back to the
         locked path on backends without pread, and on the (vacuum-swap)
-        race where the backing fd was just replaced."""
+        race where the backing fd was just replaced.  A remote tier's
+        read is a positional request and takes no lock either: held
+        across the network, the lock would stall the heartbeat (which
+        reads the volume's size under it) for the request's length."""
+        if self.backend_kind == "remote":
+            return self._dat.read_at(offset, length)
         pread = getattr(self._dat, "pread", None)
         if pread is not None:
             try:
@@ -391,6 +411,7 @@ class Volume:
                 f"volume {self.id} is opened with a read-only needle map; "
                 f"reopen with a writable needle map kind to compact")
         with self._lock:
+            self._refuse_while_tiering("compact")
             cpd, cpx = self._base + ".cpd", self._base + ".cpx"
             new_sb = SuperBlock(
                 version=self.version,
@@ -430,6 +451,7 @@ class Volume:
             raise PermissionError("read-only needle map")
         appended = 0
         with self._lock:
+            self._refuse_while_tiering("catch up")
             if self._dat.size() != base_size:
                 raise RuntimeError(
                     "volume changed during catch-up; retry")
@@ -455,6 +477,7 @@ class Volume:
         (reference: volume_super_block.go MaybeWriteSuperBlock +
         VolumeConfigure)."""
         with self._lock:
+            self._refuse_while_tiering("rewrite the placement of")
             if self.backend_kind == "remote":
                 raise PermissionError("remote-tier volume is read-only")
             # write the file first; only mutate memory on success so the
@@ -465,20 +488,49 @@ class Volume:
                 f.write(bytes([rp.to_byte()]))
             self.super_block.replica_placement = rp
 
+    def _refuse_while_tiering(self, what: str) -> None:
+        if self.tiering:
+            raise PermissionError(
+                f"cannot {what} volume {self.id}: a tier transfer is running")
+
     def tier_move(self, kind: str, options: dict, key: str | None = None
                   ) -> None:
         """Move this sealed volume's .dat to a remote tier; reads keep
         working through the RemoteFile backend (reference:
-        weed/storage/volume_tier.go + shell volume.tier.move)."""
+        weed/storage/volume_tier.go + shell volume.tier.move).  The
+        volume is sealed under its lock, then uploaded without it (the
+        heartbeat and readers go on reading the local .dat; the
+        reference holds the lock for the whole upload), then switched
+        over under it, unless the .dat changed since the seal."""
         with self._lock:
             if self.backend_kind == "remote":
                 return
+            self._refuse_while_tiering("tier")
             self._dat.flush()
             self.nm.flush()
             size = self._dat.size()
+            revision = self.super_block.compaction_revision
             key = key or f"{self.collection or 'default'}/{self.id}.dat"
+            was_read_only, self.read_only = self.read_only, True
+            self.tiering = True
+        try:
             remote = make_remote(kind, **options)
             remote.upload_file(key, self.dat_path)
+        except BaseException:
+            with self._lock:
+                self.read_only, self.tiering = was_read_only, False
+            raise
+        with self._lock:
+            try:
+                if (self._dat.size(), self.super_block.compaction_revision
+                        ) != (size, revision):
+                    self.read_only = was_read_only
+                    remote.delete_file(key)
+                    raise RuntimeError(
+                        f"volume {self.id} changed during its tier move; "
+                        f"the local .dat stays")
+            finally:
+                self.tiering = False
             tmp = self.tier_path + ".tmp"
             with open(tmp, "w") as f:
                 json.dump({"kind": kind, "options": options, "key": key,
@@ -494,14 +546,19 @@ class Volume:
         """Bring a tiered volume's .dat back to local disk and resume
         normal (writable) service — the inverse of tier_move (reference:
         shell volume.tier.download + volume_tier.go); `delete_remote`
-        also removes the remote copy."""
+        also removes the remote copy.  The download runs outside the
+        volume's lock, as `tier_move`'s upload does; reads go on through
+        the remote until the switch."""
         with self._lock:
             if self.backend_kind != "remote":
                 return
+            self._refuse_while_tiering("download")
             with open(self.tier_path) as f:
                 tier = json.load(f)
+            self.tiering = True
+        tmp = self.dat_path + ".dl"
+        try:
             remote = make_remote(tier["kind"], **tier.get("options", {}))
-            tmp = self.dat_path + ".dl"
             with open(tmp, "wb") as f:
                 size = tier["size"]
                 off = 0
@@ -509,6 +566,14 @@ class Volume:
                     n = min(8 << 20, size - off)
                     f.write(remote.read_range(tier["key"], off, n))
                     off += n
+        except BaseException:
+            with self._lock:
+                self.tiering = False
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise
+        with self._lock:
+            self.tiering = False
             os.replace(tmp, self.dat_path)
             self._dat.close()
             self._dat = open_backend(self.dat_path, "disk")

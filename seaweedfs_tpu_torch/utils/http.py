@@ -13,7 +13,8 @@ parses `Range` with `parse_range`.  Both clients forward the ambient
 tenant (stats/heat.py) and pass every dial through the network faults
 (maintenance/faults.py: a partition refuses it, an error rate resets it,
 a latency delays it) while one is armed.  `post_json` is the volume
-move's call to its target's admin routes.
+move's call to its target's admin routes; `shutdown_response` cuts a
+live feed a reader is blocked on.
 """
 
 from __future__ import annotations
@@ -182,6 +183,23 @@ class _RawConn:
         return status, hdrs, b"".join(parts_body), False
 
 
+def shutdown_response(resp) -> None:
+    """Cut an open urllib response's connection, waking a thread blocked
+    in its read (shutdown acts on the connection, so a duplicate of the
+    descriptor will do): how a mount's feed and a sync pump's live
+    stream end at once."""
+    try:
+        s = socket.fromfd(resp.fileno(), socket.AF_INET, socket.SOCK_STREAM)
+    except (OSError, ValueError, AttributeError):
+        return  # already closed
+    try:
+        s.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
+    finally:
+        s.close()
+
+
 class PooledHTTP:
     """Keep-alive HTTP/1.1 connection pool keyed by (scheme, host).
 
@@ -198,7 +216,8 @@ class PooledHTTP:
     does not hold fds to every peer it ever contacted."""
 
     def __init__(self, timeout: float = 30.0, max_idle_per_host: int = 16,
-                 idle_timeout: float = 60.0, role: str = "client"):
+                 idle_timeout: float = 60.0, role: str = "client",
+                 region: str = ""):
         self.timeout = timeout
         self.max_idle_per_host = max_idle_per_host
         self.idle_timeout = idle_timeout
@@ -206,6 +225,11 @@ class PooledHTTP:
         # label who it was talking to (the master's aggregator and the
         # shell pass their own roles; plain clients stay "client")
         self.role = role
+        # fault-plane identities: a region-aware client (the sync pump)
+        # declares its home region so region_partition / wan_latency
+        # faults can tell its cross-region dials from local ones
+        self._fault_ids = (role, "region:" + region) if region \
+            else role
         # key -> [(conn, time.monotonic() when parked), ...]
         self._idle: dict[tuple[str, str],
                          list[tuple[_RawConn, float]]] = {}
@@ -337,7 +361,7 @@ class PooledHTTP:
         # armed
         from seaweedfs_tpu_torch.maintenance import faults as _faults
         if _faults.NET_ACTIVE:
-            lat = _faults.check_net(self.role, u.netloc)
+            lat = _faults.check_net(self._fault_ids, u.netloc)
             if lat > 0:
                 time.sleep(lat)
         # per-peer circuit breaker: a tripped peer fast-fails instead of

@@ -29,8 +29,8 @@ malformed value raises ValueError, where the reference falls back to the
 default.  `Backoff` and `backoff_delay` serve the master's daemon loops
 (the aggregator's and the canary's) and the repair planner's and
 conversion scheduler's per-volume backoffs; `retry_async` the
-scheduler's node calls.  `retry_call` comes with its first caller, the
-replication sink.
+scheduler's node calls; `retry_call` the replication sinks' and the sync
+pump's applies (replication/sink.py, replication/filer_sync.py).
 """
 
 from __future__ import annotations
@@ -255,6 +255,41 @@ class Backoff:
 
     def reset(self) -> None:
         self._sleep = 0.0
+
+
+def retry_call(fn, *, attempts: int = 4, base: float = 0.5,
+               cap: float = 30.0, cls: str = "default",
+               retry_on: tuple = (OSError,), giveup=None,
+               sleep=time.sleep):
+    """Run `fn()` with budgeted, deadline-aware, jittered retries.
+
+    The first attempt is free; each retry must win a token from the
+    process-wide retry budget (spend_retry), and when the budget is dry
+    the last error raises at once.  `giveup(exc) -> bool` short-circuits
+    errors that will not heal by retrying (4xx-shaped failures).  An
+    ambient deadline bounds the total: no retry starts after it, and no
+    sleep runs past it."""
+    bo = Backoff(base, cap)
+    last: BaseException | None = None
+    for attempt in range(max(1, attempts)):
+        if attempt:
+            rem = remaining()
+            if rem is not None and rem <= 0:
+                break
+            if not spend_retry(cls):
+                break
+            delay = bo.next()
+            if rem is not None:
+                delay = min(delay, max(0.0, rem))
+            sleep(delay)
+        try:
+            return fn()
+        except retry_on as e:
+            last = e
+            if giveup is not None and giveup(e):
+                raise
+    assert last is not None
+    raise last
 
 
 async def retry_async(fn, *, attempts: int = 4, base: float = 0.5,

@@ -122,30 +122,32 @@ def _table(app) -> list[tuple[str, str]]:
 
 def test_route_table_equals_reference_less_the_left_out():
     """Every (method, path) of the reference master's route table is the
-    port's, but for the route of `LEFT_OUT` (the geo view, ROADMAP
-    1.22), and the port has no other: the maintenance plane and the
-    autopilot are served."""
-    assert mastermod.LEFT_OUT == ("/cluster/geo",)
+    port's, and the port has no other.  Since the replication slice
+    nothing is left out (the name is the pin's from when the geo view
+    was): `LEFT_OUT` is gone and `/cluster/geo` is served."""
+    assert not hasattr(mastermod, "LEFT_OUT")
     mine = mastermod.MasterServer("127.0.0.1", 1)
     ref = ref_master.MasterServer("127.0.0.1", 1)
-    want = _table(ref.app)
-    left = [(m, p) for m, p in want if p in mastermod.LEFT_OUT]
-    assert sorted({p for _, p in left}) == sorted(mastermod.LEFT_OUT)
-    assert _table(mine.app) == [r for r in want if r not in left]
+    assert _table(mine.app) == _table(ref.app)
+    assert ("GET", "/cluster/geo") in _table(mine.app)
     assert ("POST", "/raft/install_snapshot") in _table(mine.app)
     assert ("GET", "/debug/pprof") in _table(mine.app)
     assert mine._UNGUARDED == ref._UNGUARDED
 
 
 def test_left_out_routes_answer_404(pair):
+    """The route the pin once held out, `/cluster/geo`, answers 200 on
+    both masters, with the same keys and no direction while no sync pump
+    reports; a POST to it is refused alike (405)."""
     pair.start()
-    for path in mastermod.LEFT_OUT:
-        path = path.replace("{tid}", "ab" * 16)
-        for method, body in (("GET", None), ("POST", {})):
-            st, _ = call(pair.mine.url, path, body=body, method=method)
-            assert st == 404, (path, method)
-    # and the reference serves it (its planes are there)
-    assert call(pair.ref.url, "/cluster/geo")[0] == 200
+    got = {}
+    for name, m in (("mine", pair.mine), ("ref", pair.ref)):
+        st, body = call(m.url, "/cluster/geo")
+        assert st == 200, name
+        got[name] = body
+        assert call(m.url, "/cluster/geo", body={}, method="POST")[0] == 405
+    assert sorted(got["mine"]) == sorted(got["ref"])
+    assert got["mine"]["directions"] == got["ref"]["directions"] == {}
 
 
 @pytest.mark.parametrize("name", [

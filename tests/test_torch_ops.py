@@ -12,6 +12,7 @@ import itertools
 import pathlib
 import subprocess
 import sys
+import urllib.request
 
 import numpy as np
 import pytest
@@ -339,6 +340,99 @@ def test_gateway_mount_and_offline_cli_leave_jax_and_torch_unloaded(
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,
                    check=True, timeout=120)
+
+
+def test_import_rule_covers_the_replication_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("replication/__init__.py", "replication/sink.py",
+                "replication/filer_sync.py", "replication/replicate_daemon.py",
+                "notification.py", "remote_storage.py", "stats/canary.py",
+                "server/master.py", "shell/commands.py", "__main__.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
+# the CLI's replication and filer client tools, each run by `main` in one
+# fresh interpreter against filers of the test's cluster; the long-running
+# ones end on a SIGINT a timer sends, as an operator's ^C would
+_REPLICATION_CLI = r"""
+import json, os, signal, sys, threading
+from seaweedfs_tpu_torch.__main__ import main
+fa, fb, d, log = sys.argv[1:5]
+def run(argv, interrupt_after=None):
+    if interrupt_after is not None:
+        threading.Timer(interrupt_after, os.kill,
+                        (os.getpid(), signal.SIGINT)).start()
+    rc = main(argv)
+    assert rc == 0, (argv, rc)
+run(["filer.copy", "-filer", fa, d + "/up", "/ops/"])
+run(["filer.cat", "-filer", fa, "-o", d + "/cat.out", "/ops/up/a.txt"])
+run(["filer.meta.tail", "-filer", fa, "-timeAgo", "300", "-untilTimeAgo",
+     "0.001", "-pattern", "*.txt"])
+run(["filer.sync", "-a", fa, "-b", fb, "-filerPath", "/ops",
+     "-offsetFile", d + "/sync.json", "-oneway"], 3.0)
+run(["filer.backup", "-filer", fa, "-dir", d + "/bk", "-filerPath", "/ops",
+     "-offsetFile", d + "/bk.json"], 2.0)
+run(["filer.meta.backup", "-filer", fa, "-filerPath", "/ops", "-store",
+     "sqlite:" + d + "/meta.db"], 2.0)
+run(["filer.replicate", "-filer", fa, "-notificationLog", log, "-sink",
+     "local:" + d + "/rep", "-filerPath", "/ops", "-offsetFile",
+     d + "/rep.json"], 2.0)
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "torch", "seaweedfs_tpu")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_replication_cli_leaves_jax_and_torch_unloaded(tmp_path,
+                                                      monkeypatch):
+    """`filer.copy`, `filer.cat`, `filer.meta.tail`, `filer.sync`,
+    `filer.backup`, `filer.meta.backup` and `filer.replicate` in a fresh
+    interpreter against two port filers: each does its work (the files
+    land on the other filer, in the mirror directories and in the
+    metadata store) and neither jax, torch nor the reference package
+    gets imported."""
+    from seaweedfs_tpu_torch.filer.abstract_sql import SqliteStore
+    from seaweedfs_tpu_torch.notification import LogQueue
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    from tests.test_torch_master_cluster import Cluster, free_port
+    monkeypatch.setenv("WEEDTPU_SCRUB_MBPS", "0")
+    monkeypatch.setenv("WEEDTPU_REPAIR_INTERVAL", "0")
+    (tmp_path / "up" / "sub").mkdir(parents=True)
+    (tmp_path / "up" / "a.txt").write_bytes(b"alpha")
+    (tmp_path / "up" / "sub" / "b.txt").write_bytes(b"beta" * 100)
+    log = str(tmp_path / "events.jsonl")
+    queue = LogQueue(log)
+    c = Cluster(tmp_path, n_volume_servers=1).start()
+    c.wait_heartbeats()
+    fa = FilerServer(c.master.url, port=free_port(),
+                     data_dir=str(tmp_path / "fa"), notification=queue)
+    fb = FilerServer(c.master.url, port=free_port(),
+                     data_dir=str(tmp_path / "fb"))
+    c.submit(fa.start())
+    c.submit(fb.start())
+    try:
+        r = subprocess.run(
+            [sys.executable, "-c", _REPLICATION_CLI, fa.url, fb.url,
+             str(tmp_path), log], cwd=REPO, capture_output=True,
+            text=True, timeout=180)
+        assert r.returncode == 0 and r.stdout.endswith("ok\n"), \
+            r.stderr[-3000:]
+        assert (tmp_path / "cat.out").read_bytes() == b"alpha"
+        with urllib.request.urlopen(
+                f"http://{fb.url}/ops/up/sub/b.txt", timeout=30) as resp:
+            assert resp.read() == b"beta" * 100
+        for mirror in ("bk", "rep"):
+            assert (tmp_path / mirror / "ops/up/a.txt").read_bytes() == \
+                b"alpha", mirror
+        store = SqliteStore(str(tmp_path / "meta.db"))
+        assert store.find_entry("/ops/up/sub/b.txt").attr.file_size == 400
+        store.shutdown()
+    finally:
+        c.submit(fa.stop())
+        c.submit(fb.stop())
+        c.stop()
+        queue.close()
 
 
 def test_card_path_modules_import_no_server_package():

@@ -112,18 +112,19 @@ def _through(trace_mod, heat_mod, netflow_mod, metrics_mod, peer, headers):
         "s3", trust_flow="loopback",
         tenant_resolver=lambda req: heat_mod.resolve_tenant(
             req.headers, req.query, req.path))
-    roles0 = {dict(lab).get("peer_role"): ch.value
-              for lab, ch in metrics_mod.NET_BYTES._pairs()
-              if dict(lab).get("direction") == "sent"}
+    # per series: a role's bytes may sit under several classes
+    sent0 = {tuple(lab): ch.value
+             for lab, ch in metrics_mod.NET_BYTES._pairs()
+             if dict(lab).get("direction") == "sent"}
     reqs0 = {tuple(lab): ch.value
              for lab, ch in metrics_mod.TENANT_REQUESTS._pairs()}
     resp = asyncio.run(mw(_mock_req("/bkt/key", peer, headers), handler))
     assert resp.status == 200
-    roles = {dict(lab).get("peer_role"): ch.value
-             for lab, ch in metrics_mod.NET_BYTES._pairs()
-             if dict(lab).get("direction") == "sent"}
-    seen["booked_role"] = sorted(r for r, v in roles.items()
-                                 if v != roles0.get(r, 0.0))
+    seen["booked_role"] = sorted({
+        dict(lab)["peer_role"]
+        for lab, ch in metrics_mod.NET_BYTES._pairs()
+        if dict(lab).get("direction") == "sent"
+        and ch.value != sent0.get(tuple(lab), 0.0)})
     seen["tenant_requests"] = sorted(
         dict(lab)["tenant"] + ":" + dict(lab)["op"]
         for lab, ch in metrics_mod.TENANT_REQUESTS._pairs()

@@ -769,8 +769,17 @@ def test_local_remote_client_equals_reference(tmp_path):
 
 
 def test_make_remote_has_local_only():
-    assert sorted(remote_storage.REMOTES) == ["local"]
-    for kind in ("s3", "gcs", "azure"):
+    """Since the replication slice `make_remote` knows every kind the
+    reference's does (`local`, `s3`, `gcs`, `azure`; the name is the
+    pin's from when it knew `local` only), with the same classes' names,
+    and refuses any other kind as the reference does."""
+    from seaweedfs_tpu import remote_storage as ref_remote_storage
+    assert sorted(remote_storage.REMOTES) == \
+        sorted(ref_remote_storage.REMOTES) == ["azure", "gcs", "local", "s3"]
+    for kind, cls in remote_storage.REMOTES.items():
+        assert cls.__name__ == ref_remote_storage.REMOTES[kind].__name__
+        assert cls.name == kind
+    for kind in ("b2", "hdfs"):
         with pytest.raises(ValueError, match=f"unknown remote '{kind}'"):
             remote_storage.make_remote(kind)
 
