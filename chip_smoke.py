@@ -234,7 +234,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                shard set on R, clean (K1 one per window), then bits of
                shards 5 and 11 (copies) flipped by /admin/faults, both
                found, localised and quarantined, the master's health
-               ledger reading the volume corrupt with both verdicts; (2) /admin/scrub_rate to 4 MB/s on a:1 and one
+               ledger reading the volume corrupt with both verdicts; (2) /admin/scrub_rate to 8 MB/s on a:1 and one
                pass over 256 x 64 KiB needles, at least 0.9 x bytes /
                rate; (3) reduced rebuilds on R posted as the master's
                repair posts them, helpers answering /admin/ec/partial on
@@ -560,7 +560,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                output == what A holds, no torch loaded; K1 per step
                against its prediction from the run's own layout and A's
                cache, K2 0; launches zeroed before and read after
- 29 report     {"kernels": [...]} line, the card's name and power limit,
+ 29 mq         the port's message queue (ROADMAP 1.22b) on the same
+               cluster, kept up for it: one port `FilerServer` F
+               (collection p29, a fresh SQLite store) and two port
+               `BrokerServer`s P and Q keeping their logs in it, each on
+               a loop thread of its own; (1) `mq.topic.configure -topic
+               chip.p29 -partitionCount 8` through the port's shell; (2)
+               64 MiB of messages from --seed published through
+               `MQClient` from 16 threads of a child process, each key
+               on the partition the reference's `ring_slot` gives it;
+               (3) a consumer group of two polls each message once, in
+               order, and commits; (4) `/flush`, then `ec.encode
+               -collection p29`, K1 == the layout's units; (5) data
+               shards 0 and 3 of every p29 EC volume deleted, F's cache
+               emptied; (6) both brokers stopped and two fresh ones
+               started over F: their recovery reads every segment back
+               (K1 one per chunk fetch touching a lost data shard),
+               offsets, the replay and the group's commits kept; (7) one
+               stopped, and once the survivor's ring has settled 256
+               more published, `mq.balance`, `mq.topic.list` and
+               `mq.topic.desc` show it owning every partition, nothing
+               lost; (8) the master's epochs rose, a stale `/replicate`
+               403 `fenced`; (9) a child running the CLI's `mq.broker`
+               behind a master of its own, no torch loaded, serves
+               `MQClient` byte for byte; K1 per step against its
+               prediction, K2 0; launches zeroed before and read after
+ 30 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -569,7 +594,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12-28, each on its own, so the reported launches are
+around phases 12-29, each on its own, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -582,7 +607,7 @@ volume taken before phase 14, whose appends go through links of it; phases
 17, 18, 20, 21 and 22 also on links of phase 4's and (17) 10's shard
 sets, 17, 18 and 22 on phase 7's volumes).  Every port master the
 script starts runs with its repair loop off
-(WEEDTPU_REPAIR_INTERVAL=0): phases 16-28 delete shards on purpose, and
+(WEEDTPU_REPAIR_INTERVAL=0): phases 16-29 delete shards on purpose, and
 a planner tick would rebuild them, launching K1 at times no step
 predicts.
 Needs one CUDA card; exits non-zero without one, and outside a checkout
@@ -602,6 +627,7 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM host link, PCIe Gen5 x16, each direction (NVIDIA data sheet:
@@ -4879,7 +4905,7 @@ def phase_server(vdir: str, src_base: str, expect: dict, blob: bytes,
 MAINT_NODES = (("R", "dc1", "r1"), ("a:1", "dc1", "r1"),
                ("c:3", "dc1", "r2"), ("b:2", "dc2", "r1"))
 MAINT_FAST_MBPS = 1e6  # a scrub rate no pass can reach: unthrottled
-MAINT_RATE_MBPS = 4.0  # step 2's: its volume passes in about 4.2 s
+MAINT_RATE_MBPS = 8.0  # step 2's: its volume passes in about 2.1 s (cut from 4, PERF §4)
 MAINT_RATE_NEEDLES = 256  # step 2's volume: 256 x 64 KiB needles
 MAINT_PROBES = 4
 MAINT_SAMPLE = 16  # needles read back after each recode
@@ -7905,7 +7931,7 @@ SHELL_READ_ONLY = ("volume.list", "cluster.status", "cluster.ps",
 
 
 class ThreeRacks:
-    """Phases 23-27's cluster, up from the first one's start to the last
+    """Phases 23-29's cluster, up from the first one's start to the last
     one's end: the port's `MasterServer` on a loop thread of its
     own (repair loop, aggregator loop and canary off, no vacuum scan)
     and a `VolumeServer` on the card for each of SHELL_NODES, one rack
@@ -11661,6 +11687,732 @@ def phase_replication(racks: ThreeRacks, vdir: str, seed: int,
     return out
 
 
+MQ_COLLECTION = "p29"  # F's collection: every segment, conf and offset
+MQ_TOPIC = "chip.p29"
+MQ_PARTITIONS = 8
+MQ_BYTES = 64 * MIB  # step 2's message values, from --seed
+MQ_MIN_SIZE = 256
+MQ_MAX_SIZE = 256 << 10
+MQ_THREADS = 16
+MQ_CACHE_MEM = 512 * MIB  # F's: no chunk evicted in the phase
+MQ_LOST = (0, 3)  # step 5's lost data shards of every p29 EC volume
+MQ_MORE = 256  # step 7's messages, after the failover
+MQ_GROUP = "g1"
+MQ_CLI = 64  # step 9's messages through the CLI's broker
+MQ_RING = 4096  # the reference's PARTITION_COUNT_RING
+
+# the CLI's `mq.broker` in a child: `main` on a thread, what it loaded
+# printed when the phase says so on stdin
+MQ_CHILD = r"""
+import json, os, sys, threading, traceback
+from seaweedfs_tpu_torch.__main__ import main
+def serve():
+    try:
+        main(sys.argv[1:])
+    except BaseException:
+        traceback.print_exc()
+        os._exit(3)
+threading.Thread(target=serve, daemon=True).start()
+sys.stdin.readline()
+print(json.dumps({m: m in sys.modules for m in ("torch", "jax")} | {
+    "seaweedfs_tpu": any(m.split(".")[0] == "seaweedfs_tpu"
+                         for m in sys.modules)}), flush=True)
+os._exit(0)
+"""
+
+
+def mq_draws(rng, n_bytes: int = 0, n: int = 0) -> list:
+    """(key, value) pairs from `rng`, `n_bytes` of values or `n` of them:
+    log-uniform sizes of MQ_MIN_SIZE-MQ_MAX_SIZE, printable values (the
+    broker's NDJSON decodes a value as UTF-8), a drawn 16-hex-digit key
+    each."""
+    import numpy as np
+    sizes: list = []
+    while (n_bytes and sum(sizes) < n_bytes) or (n and len(sizes) < n):
+        sizes.append(int(np.exp(rng.uniform(np.log(MQ_MIN_SIZE),
+                                             np.log(MQ_MAX_SIZE)))))
+    if n_bytes:
+        sizes[-1] -= sum(sizes) - n_bytes
+        if sizes[-1] < MQ_MIN_SIZE:
+            sizes[-2] += sizes.pop()
+    payload = rng.integers(33, 127, sum(sizes), dtype=np.uint8).tobytes()
+    out, at = [], 0
+    for size in sizes:
+        out.append((b"%016x" % int(rng.integers(0, 1 << 62)),
+                    payload[at:at + size]))
+        at += size
+    return out
+
+
+def mq_publishers(seed: int) -> int:
+    """Child of phase 29's step 2, a process of its own as a queue's
+    producers are, started at the phase's set-up: it draws the MQ_BYTES
+    of messages `mq_draws` gives for `seed` and says `ready`; on a line
+    of brokers (comma-separated) on its stdin, MQ_THREADS threads publish
+    them through one `MQClient` of those brokers, each thread every
+    MQ_THREADS-th message; it answers one JSON line, [index, partition,
+    offset] per acknowledged message and the seconds."""
+    import numpy as np
+    from seaweedfs_tpu_torch.mq.client import MQClient
+
+    msgs = mq_draws(np.random.default_rng(seed + 29), n_bytes=MQ_BYTES)
+    print("ready", flush=True)
+    client = MQClient(sys.stdin.readline().strip().split(","))
+    acked: list = []
+
+    def publish(i: int) -> None:
+        key, value = msgs[i]
+        acked.append((i, *client.publish(MQ_TOPIC, value, key=key)))
+    dt = fan(publish, list(range(len(msgs))), MQ_THREADS)
+    print(json.dumps({"acked": acked, "s": dt}), flush=True)
+    return 0
+
+
+def mq_partition(key: bytes, n: int) -> int:
+    """The partition of `key` among `n` by the reference's rule,
+    written out here: `ring_slot` is crc32 % 4096
+    (seaweedfs_tpu/mq/topic.py:44-45), and `split_ring` gives partition
+    i the slots [i * step, (i + 1) * step), the last one up to 4096."""
+    step = MQ_RING // n
+    return min((zlib.crc32(key) % MQ_RING) // step, n - 1)
+
+
+def phase_mq(racks: ThreeRacks, vdir: str, seed: int,
+             launches: dict) -> dict:
+    """Phase 29: the port's message queue (ROADMAP 1.22b) over `racks`,
+    phase 23's three port `VolumeServer`s on the card behind the port's
+    `MasterServer`, kept up for it.  One port `FilerServer` F on a loop
+    thread of its own (a fresh SQLite store, collection p29, a 512 MiB
+    chunk cache) and two port `BrokerServer`s P and Q, each on a loop
+    thread of its own, keeping their logs in F (`peer_refresh=0.5`).
+    Steps: (1) `mq.topic.configure -topic chip.p29 -partitionCount 8`
+    through the port's shell once both brokers see a ring of two, K1 0;
+    (2) 64 MiB of messages from --seed (256 B-256 KiB, log-uniform,
+    printable bytes, a drawn key each) published through `MQClient`
+    from 16 threads of a child process (`--mq-publish`, started at the
+    set-up to draw them meanwhile), each on the partition the
+    reference's `ring_slot` gives its key, the offsets dense, K1 0; (3) a
+    `GroupConsumer` group g1 of two members polls everything and
+    commits: each message once, in offset order within its partition,
+    equal to its draw, `/offsets/get` == the commits, K1 0; (4) `POST
+    /flush` to both brokers, then `ec.encode -collection p29` through
+    the port's shell, K1 == the layout's units; (5) data shards 0 and 3
+    of every p29 EC volume deleted and F's chunk cache emptied, K1 0;
+    (6) P and Q stopped (each at once) and two fresh brokers started
+    over F, whose recovery reads every segment back through F: every
+    partition's next offset as before, a replay from 0 == the draws,
+    g1's offsets kept, a publish takes the next offset, F's `direct` ==
+    the distinct chunks under /topics, K1 one per such fetch whose
+    needle touches a lost data shard; (7) one broker stopped, and once
+    the survivor's ring has settled on itself 256 more messages
+    published, `mq.balance`, `mq.topic.list` and `mq.topic.desc` through
+    the port's shell show it owning every partition, nothing lost, K1 0;
+    (8) the master's epoch of every partition rose across the ring
+    change, and a `/replicate` below the epoch the survivor has seen
+    gets 403 `fenced` while one at it gets 200, K1 0; (9) a child
+    running the CLI's `mq.broker` behind a master of its own (started
+    at step 4, so it boots meanwhile), loading neither torch nor jax:
+    `MQClient` configures a topic, publishes and fetches through it,
+    every byte equal, K1 0.  K2 0 throughout."""
+    import urllib.parse
+
+    import numpy as np
+    from seaweedfs_tpu_torch.filer.filechunk_section import ChunkGroup
+    from seaweedfs_tpu_torch.mq.broker import BrokerServer
+    from seaweedfs_tpu_torch.mq.client import MQClient
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.utils import http
+    from seaweedfs_tpu_torch.utils.chunk_cache import ChunkCache
+
+    card = card_name_power()
+
+    def plog(msg: str) -> None:
+        log(f"[mq] {msg} [{card}]")
+
+    work = os.path.join(vdir, "mq")
+    os.makedirs(work)
+    names, servers = racks.names, racks.servers
+    node_of, master = racks.node_of, racks.master
+    admin, run, split, topo = racks.admin, racks.run, racks.split, racks.topo
+    holder_of = racks.holder_of
+    loops: list = []
+    F = M = pool = child = publishers = None
+    brokers: dict = {}  # url -> (broker, its loop's runner)
+    steps: dict = {}
+    counts: dict = {}
+    predicted: dict = {}
+    stops: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 29)
+
+    def step_counts(name: str, k0: dict, k1: int, t0: float) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        predicted[name] = k1
+        steps.setdefault(name, {})["wall_s"] = time.perf_counter() - t0
+        want = {"gf_apply": k1, "gf_apply_batch": 0}
+        if got != want:
+            raise AssertionError(f"phase 29 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    def empty_lrus() -> None:
+        for vs in servers.values():
+            for loc in vs.store.locations:
+                for ev in list(loc.ec_volumes.values()):
+                    with ev._recon_lock:
+                        ev._recon_cache.clear()
+                        ev._recon_cache_bytes = 0
+
+    def req(url: str, method: str = "GET", body=None, want=(200,)):
+        st, _, raw = pool.request(url, method, body, {
+            "Content-Type": "application/json"} if body else {})
+        if st not in want:
+            raise AssertionError(f"{method} {url}: HTTP {st} {raw[:200]!r}")
+        return st, raw
+
+    def start_broker() -> "BrokerServer":
+        brun = loop_thread(loops)
+        b = BrokerServer(master.url, "127.0.0.1", free_port(),
+                         peer_refresh=0.5, filer_url=F.url)
+        t0 = time.perf_counter()
+        brun(b.start())
+        brokers[b.url] = (b, brun, time.perf_counter() - t0)
+        return b
+
+    def stop_broker(b) -> float:
+        t0 = time.perf_counter()
+        brokers.pop(b.url)[1](b.stop())
+        stops[b.url] = time.perf_counter() - t0
+        if stops[b.url] > 2.0:
+            raise AssertionError(f"broker {b.url} took {stops[b.url]:.3f}"
+                                 f" s to stop")
+        return stops[b.url]
+
+    def live() -> list:
+        return [b for b, _, _ in brokers.values()]
+
+    def settled() -> bool:
+        ring = sorted(brokers)
+        listed = racks.cmd_env.master_get("/cluster/status").get(
+            "Members", {}).get("broker", [])
+        return sorted(listed) == ring and all(
+            b.peer_brokers == ring for b in live())
+
+    async def forget_brokers() -> None:
+        master.cluster_members.pop("broker", None)
+
+    def replay(client, want_next: list) -> dict:
+        """Every partition of MQ_TOPIC from offset 0: -> {(pi, offset):
+        value bytes}, each partition dense and in order up to
+        want_next[pi]."""
+        got: dict = {}
+        for pi in range(MQ_PARTITIONS):
+            off = 0
+            while off < want_next[pi]:
+                msgs, nxt = client.fetch(MQ_TOPIC, pi, off, limit=16384)
+                if not msgs:
+                    raise AssertionError(f"partition {pi} ends at {off}, "
+                                         f"not {want_next[pi]}")
+                if [m["offset"] for m in msgs] != list(
+                        range(off, off + len(msgs))):
+                    raise AssertionError(f"partition {pi} from {off}: "
+                                         f"not dense and in order")
+                got.update({(pi, m["offset"]): m["value"].encode()
+                            for m in msgs})
+                off = nxt
+        return got
+
+    try:
+        # 0 set-up.  Phase 28's filers stopped moments ago and the master
+        # lists a member for 30 s after its last beat: they leave the
+        # table first, so F is the filer the brokers and the shell see
+        async def forget_filers() -> None:
+            master.cluster_members.pop("filer", None)
+        racks.mrun(forget_filers())
+        racks.mrun(forget_brokers())
+        # step 2's publishers, a process of their own, draw meanwhile
+        here = os.path.dirname(os.path.abspath(__file__))
+        pub_err = os.path.join(work, "publishers.log")
+        with open(pub_err, "wb") as err:
+            publishers = subprocess.Popen(
+                [sys.executable, os.path.join(here, "chip_smoke.py"),
+                 "--seed", str(seed), "--mq-publish"],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+                text=True, cwd=here)
+        pool = http.PooledHTTP(timeout=600.0, max_idle_per_host=MQ_THREADS)
+        frun = loop_thread(loops)
+        F = FilerServer(master.url, "127.0.0.1", free_port(),
+                        data_dir=os.path.join(work, "filer"),
+                        collection=MQ_COLLECTION,
+                        chunk_cache_mem=MQ_CACHE_MEM)
+        frun(F.start())
+        P, Q = start_broker(), start_broker()
+        until(settled, "P and Q never shared a ring of two", timeout=30)
+        plog(f"0 set-up: F {F.url} (p29), brokers P {P.url} and Q "
+             f"{Q.url} in one ring in "
+             f"{time.perf_counter() - t_phase:.3f} s")
+
+        # 1 the topic, through the port's shell
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        out1 = run(f"mq.topic.configure -topic {MQ_TOPIC} -partitionCount "
+                   f"{MQ_PARTITIONS}")
+        if out1 != f"topic {MQ_TOPIC} partitions={MQ_PARTITIONS}\n":
+            raise AssertionError(f"mq.topic.configure printed {out1!r}")
+        for b in live():
+            if len(b._get_topic(MQ_TOPIC) or []) != MQ_PARTITIONS:
+                raise AssertionError(f"{b.url} has not the topic")
+        step_counts("1 configure", k0, 0, t0)
+        plog(f"1 configure: {out1.strip()} on both brokers; K1 0")
+
+        # 2 publish
+        msgs = mq_draws(rng, n_bytes=MQ_BYTES)  # the child draws the same
+        client = MQClient([P.url, Q.url])
+        acked: dict = {}  # (pi, offset) -> index into msgs
+        lock = threading.Lock()
+
+        def publish(i: int) -> None:
+            key, value = msgs[i]
+            acknowledged(i, *client.publish(MQ_TOPIC, value, key=key))
+
+        def acknowledged(i: int, pi: int, off: int) -> None:
+            if pi != mq_partition(msgs[i][0], MQ_PARTITIONS):
+                raise AssertionError(f"key {msgs[i][0]!r} on partition "
+                                     f"{pi}")
+            with lock:
+                if (pi, off) in acked:
+                    raise AssertionError(f"({pi}, {off}) acknowledged "
+                                         f"twice")
+                acked[(pi, off)] = i
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        if publishers.stdout.readline().strip() != "ready":
+            raise AssertionError(f"the publishers exited "
+                                 f"{publishers.wait(10)}")
+        out2, _ = publishers.communicate(f"{P.url},{Q.url}\n",
+                                         timeout=300)
+        if publishers.returncode:
+            with open(pub_err) as f:
+                raise AssertionError(f"the publishers exited "
+                                     f"{publishers.returncode}: "
+                                     f"{f.read()[-1500:]}")
+        publishers = None
+        res = json.loads(out2.strip().splitlines()[-1])
+        if sorted(i for i, _, _ in res["acked"]) != list(range(len(msgs))):
+            raise AssertionError("the publishers' acks are not the draws")
+        for i, pi, off in res["acked"]:
+            acknowledged(i, pi, off)
+        dt_pub = res["s"]
+        per_part = [sum(1 for pi, _ in acked if pi == k)
+                    for k in range(MQ_PARTITIONS)]
+        want = [(pi, o) for pi in range(MQ_PARTITIONS)
+                for o in range(per_part[pi])]
+        if sorted(acked) != want:
+            raise AssertionError(f"the acknowledged offsets are not "
+                                 f"dense: {sorted(set(acked) - set(want))[:8]}"
+                                 f" beyond, {sorted(set(want) - set(acked))[:8]}"
+                                 f" missing")
+        for b in live():  # the owner's log and its follower's replica
+            got = [p.next_offset for p in b._get_topic(MQ_TOPIC)]
+            if got != per_part:
+                raise AssertionError(f"{b.url} holds {got}, the acks "
+                                     f"{per_part}")
+        step_counts("2 publish", k0, 0, t0)
+        steps["2 publish"].update({
+            "messages": len(msgs), "bytes": MQ_BYTES, "s": dt_pub,
+            "msgs_per_s": len(msgs) / dt_pub,
+            "mbps": MQ_BYTES / dt_pub / 1e6, "per_partition": per_part})
+        plog(f"2 publish: {len(msgs)} messages ({MQ_MIN_SIZE}-{MQ_MAX_SIZE}"
+             f" B log-uniform, {MQ_BYTES} B) through MQClient from "
+             f"{MQ_THREADS} threads of a child in {dt_pub:.3f} s "
+             f"({len(msgs) / dt_pub:.0f} msg/s, "
+             f"{MQ_BYTES / dt_pub / 1e6:.1f} MB/s, the follower's "
+             f"replication in it); per partition {per_part}, each key "
+             f"where the reference's ring_slot puts it, both brokers "
+             f"holding every message; K1 0")
+
+        # 3 a group of two consumes everything and commits
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        members = [client.consumer(MQ_TOPIC, group=MQ_GROUP, member=m)
+                   for m in ("c1", "c2")]
+        for m in members:
+            m.join()
+        members[0].join()  # learns of c2
+        if sorted(members[0].partitions + members[1].partitions) != \
+                list(range(MQ_PARTITIONS)):
+            raise AssertionError(f"g1's split: {members[0].partitions} "
+                                 f"{members[1].partitions}")
+        seen: dict = {}
+        for m in members:
+            last = {pi: -1 for pi in m.partitions}
+            while True:
+                batch = m.poll(max_messages=1024)
+                if not batch:
+                    break
+                for r in batch:
+                    pi, off = r["partition"], r["offset"]
+                    if off != last[pi] + 1 or (pi, off) in seen:
+                        raise AssertionError(f"{m.member} got ({pi}, "
+                                             f"{off}) after {last[pi]}")
+                    last[pi] = off
+                    seen[(pi, off)] = r["value"].encode()
+            m.commit()
+        dt_sub = time.perf_counter() - t0
+        if seen.keys() != acked.keys() or any(
+                seen[k] != msgs[i][1] for k, i in acked.items()):
+            raise AssertionError("g1 did not read each message once, "
+                                 "equal to its draw")
+        committed = {pi: per_part[pi] for pi in range(MQ_PARTITIONS)}
+
+        def offsets_of(url: str) -> dict:
+            return {pi: json.loads(req(
+                f"http://{url}/offsets/get?" + urllib.parse.urlencode(
+                    {"group": MQ_GROUP, "topic": MQ_TOPIC,
+                     "partition": str(pi)}))[1])["offset"]
+                for pi in range(MQ_PARTITIONS)}
+        for b in live():
+            if offsets_of(b.url) != committed:
+                raise AssertionError(f"{b.url}'s g1 offsets "
+                                     f"{offsets_of(b.url)}")
+        step_counts("3 consume", k0, 0, t0)
+        steps["3 consume"].update({"s": dt_sub,
+                                   "msgs_per_s": len(msgs) / dt_sub,
+                                   "mbps": MQ_BYTES / dt_sub / 1e6})
+        plog(f"3 consume: group {MQ_GROUP} (c1 {members[0].partitions}, "
+             f"c2 {members[1].partitions}) polled {len(seen)} messages "
+             f"once each, in offset order, == their draws, in "
+             f"{dt_sub:.3f} s ({len(msgs) / dt_sub:.0f} msg/s, "
+             f"{MQ_BYTES / dt_sub / 1e6:.1f} MB/s) and committed; "
+             f"/offsets/get on both brokers == the commits; K1 0")
+
+        # 4 /flush, then ec.encode -collection p29 once a beat reports
+        # the sizes
+        def view(col: str) -> dict:
+            return {vi["id"]: vi["size"]
+                    for nd in topo()["nodes"].values()
+                    for vi in nd["volume_infos"]
+                    if vi["collection"] == col}
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        # step 9's child boots meanwhile, behind a master of its own
+        mrun = loop_thread(loops)
+        M = MasterServer("127.0.0.1", free_port())
+        mrun(M.start())
+        port = free_port()
+        url = f"127.0.0.1:{port}"
+        err_path = os.path.join(work, "cli_broker.log")
+        t_spawn = time.perf_counter()
+        with open(err_path, "wb") as err:
+            child = subprocess.Popen(
+                [sys.executable, "-c", MQ_CHILD, "mq.broker", "-master",
+                 M.url, "-port", str(port)], stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=err, cwd=here,
+                env=dict(os.environ, PYTHONPATH=here))
+        for b in live():
+            req(f"http://{b.url}/flush", "POST", b"{}")
+
+        def deletions_done() -> bool:
+            """F's deletion queue (the chunks of the overwritten offset
+            files and confs: their tombstones grow the .dat) empty, and
+            its last batch through: no count moved for 0.3 s."""
+            q = F.deletion
+            n = (q.pending_count(), q.deleted_count, q.error_count)
+            time.sleep(0.3)
+            return n[0] == 0 and n == (q.pending_count(), q.deleted_count,
+                                       q.error_count)
+        until(deletions_done, "F's deletion queue never went idle")
+        vols = {vid: servers[holder_of(vid)].store.get_volume(vid)
+                for vid in view(MQ_COLLECTION)}
+
+        def beat_sizes():
+            for vol in vols.values():
+                vol.flush()
+            sizes = {vid: vol.data_size() for vid, vol in vols.items()}
+            return sizes if view(MQ_COLLECTION) == sizes else None
+        p29 = until(beat_sizes, "no beat reported the p29 sizes")
+        units = {vid: predict_units(p29[vid], layout.LARGE_BLOCK_SIZE,
+                                    layout.SMALL_BLOCK_SIZE)
+                 for vid in p29}
+        t_enc = time.perf_counter()
+        run("lock")
+        out4 = run(f"ec.encode -collection {MQ_COLLECTION} -fullPercent 0 "
+                   f"-quietFor 0s")
+        run("unlock")
+        dt_enc = time.perf_counter() - t_enc
+        listed = json.loads(out4.splitlines()[0].split(": ", 1)[1])
+        if listed != sorted(p29):
+            raise AssertionError(f"ec.encode selected {listed}; the p29 "
+                                 f"volumes are {sorted(p29)}")
+        step_counts("4 encode", k0, sum(units.values()), t0)
+        until(lambda: all(sum(map(len, split(vid).values())) == 14
+                          for vid in listed),
+              "the p29 shard sets never reached the master")
+        steps["4 encode"].update({"s": dt_enc, "volumes": listed,
+                                  "dat_bytes": p29, "units": units})
+        plog(f"4 encode: both brokers flushed; `ec.encode -collection "
+             f"p29` of volumes {listed} (.dat {[p29[v] for v in listed]} "
+             f"B) in {dt_enc:.3f} s; K1 {sum(units.values())} == the "
+             f"layout's units")
+
+        # 5 data shards 0 and 3 lost; F's chunk cache emptied
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        for vid in listed:
+            for u, shards in split(vid).items():
+                gone = [s for s in MQ_LOST if s in shards]
+                if gone:
+                    admin(node_of[u], "/admin/ec/delete_shards",
+                          {"volume": vid, "shards": gone})
+        until(lambda: not any(set(MQ_LOST) & set(s) for vid in listed
+                              for s in split(vid).values()),
+              "the master still shows the deleted shards")
+        F.chunk_cache = ChunkCache(mem_limit=MQ_CACHE_MEM)
+        step_counts("5 loss", k0, 0, t0)
+        plog(f"5 loss: data shards {list(MQ_LOST)} of every p29 EC volume "
+             f"deleted where they lived, F's chunk cache emptied; K1 0")
+
+        # 6 every broker restarted: recovery reads the segments back
+        # through F, whose chunks lie on the lost shards
+        evs = {vid: next(servers[n].store.get_ec_volume(vid)
+                         for n in names
+                         if servers[n].store.get_ec_volume(vid)
+                         is not None) for vid in listed}
+
+        def touches(fid: str) -> bool:
+            f = t.FileId.parse(fid)
+            ev = evs.get(f.volume_id)
+            return ev is not None and bool(
+                touching_needles(ev, {f.key: None}, MQ_LOST))
+
+        def files_under(d: str) -> list:
+            out = []
+            for e in F.filer.iter_entries(d):
+                out += files_under(e.full_path) if e.is_directory else [e]
+            return out
+        topic_files = files_under("/topics")
+        fids = {v.fid for e in topic_files
+                for v in ChunkGroup(e.chunks).read_views(0, e.size())}
+        segs = [e for e in topic_files if e.full_path.endswith(".seg")]
+        k1 = sum(1 for f in fids if touches(f))
+        before = list(per_part)
+        for b in live():
+            stop_broker(b)
+        racks.mrun(forget_brokers())
+        empty_lrus()
+        direct0 = F.hot_stats["direct"]
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        P2 = start_broker()
+        Q2 = start_broker()
+        recover_s = [brokers[b.url][2] for b in (P2, Q2)]
+        for b in (P2, Q2):
+            got = [p.next_offset for p in b._get_topic(MQ_TOPIC)]
+            if got != before:
+                raise AssertionError(f"{b.url} recovered next offsets "
+                                     f"{got}, not {before}")
+        until(settled, "P2 and Q2 never shared a ring of two", timeout=30)
+        client = MQClient([P2.url, Q2.url])
+        client.refresh()
+        back = replay(client, before)
+        if back.keys() != acked.keys() or any(
+                back[k] != msgs[i][1] for k, i in acked.items()):
+            raise AssertionError("the replay after the restart is not the "
+                                 "draws")
+        for b in live():
+            if offsets_of(b.url) != committed:
+                raise AssertionError(f"{b.url}'s g1 offsets after the "
+                                     f"restart: {offsets_of(b.url)}")
+        one = (b"after-restart", b"0123456789abcdef")
+        pi1, off1 = client.publish(MQ_TOPIC, one[0], key=one[1])
+        if off1 != before[pi1]:
+            raise AssertionError(f"the publish after the restart took "
+                                 f"({pi1}, {off1}), not offset "
+                                 f"{before[pi1]}")
+        acked[(pi1, off1)] = len(msgs)
+        msgs.append((one[1], one[0]))
+        per_part[pi1] += 1
+        direct = F.hot_stats["direct"] - direct0
+        if direct != len(fids):
+            raise AssertionError(f"F fetched {direct} chunks from the "
+                                 f"volume tier; the files under /topics "
+                                 f"have {len(fids)}")
+        step_counts("6 restart", k0, k1, t0)
+        seg_bytes = sum(e.size() for e in segs)
+        steps["6 restart"].update({
+            "segments": len(segs), "segment_bytes": seg_bytes,
+            "files": len(topic_files), "chunks": len(fids),
+            "direct": direct, "recover_s": recover_s,
+            "recover_mbps": seg_bytes / recover_s[0] / 1e6,
+            "stop_s": dict(stops)})
+        plog(f"6 restart: P and Q stopped in "
+             f"{', '.join(f'{s:.3f}' for s in stops.values())} s; P2 "
+             f"recovered {len(segs)} segments ({seg_bytes} B) through F "
+             f"in {recover_s[0]:.3f} s ({seg_bytes / recover_s[0] / 1e6:.1f}"
+             f" MB/s), Q2 from F's cache in {recover_s[1]:.3f} s; next "
+             f"offsets {before} kept, the replay from 0 == the draws, "
+             f"g1's offsets kept, a publish took ({pi1}, {off1}); F's "
+             f"direct {direct} == the distinct chunks under /topics; K1 "
+             f"{k1} (those on a lost shard)")
+
+        # 7 failover: Q2 stopped, more published, the shell's view
+        epochs0 = {pi: master._mq_epochs.get(f"{MQ_TOPIC}/{pi}", 0)
+                   for pi in range(MQ_PARTITIONS)}
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        stop_broker(Q2)
+        racks.mrun(forget_brokers())
+        until(settled, "P2's ring never settled on itself", timeout=30)
+        dt_settle = time.perf_counter() - t0
+        client.refresh()  # the client's ring is P2's now
+        more = mq_draws(rng, n=MQ_MORE)
+        base = len(msgs)
+        msgs.extend(more)
+        dt_more = fan(publish, list(range(base, len(msgs))), MQ_THREADS)
+        per_part = [sum(1 for pi, _ in acked if pi == k)
+                    for k in range(MQ_PARTITIONS)]
+        ring = [P2.url]
+        out7 = {line: run(line) for line in (
+            "mq.balance", "mq.topic.list", f"mq.topic.desc -topic "
+            f"{MQ_TOPIC}")}
+        want7 = {
+            "mq.balance": f"broker ring: {ring}\n{MQ_TOPIC}: "
+                          f"{MQ_PARTITIONS} partition(s)\n" + "".join(
+                              f"  p{pi}: owner {P2.url} follower - "
+                              f"next_offset {per_part[pi]}\n"
+                              for pi in range(MQ_PARTITIONS)),
+            "mq.topic.list": f"{MQ_TOPIC:32s} partitions={MQ_PARTITIONS} "
+                             f"next_offsets={per_part}\n",
+            f"mq.topic.desc -topic {MQ_TOPIC}": "".join(
+                f"partition {pi}: owner={P2.url} next_offset="
+                f"{per_part[pi]}\n" for pi in range(MQ_PARTITIONS))}
+        if out7 != want7:
+            raise AssertionError(f"the shell printed {out7}")
+        # P2's log itself (step 6 read everything through the client)
+        held = {(pi, m.offset): m.value
+                for pi, part in enumerate(P2._get_topic(MQ_TOPIC))
+                for m in part.snapshot()[1]}
+        if held.keys() != acked.keys() or any(
+                held[k] != msgs[i][1] for k, i in acked.items()):
+            raise AssertionError("messages lost in the failover")
+        step_counts("7 failover", k0, 0, t0)
+        steps["7 failover"].update({"messages": MQ_MORE, "s": dt_more,
+                                    "settle_s": dt_settle})
+        plog(f"7 failover: Q2 stopped in {stops[Q2.url]:.3f} s, the ring "
+             f"settled on P2 in {dt_settle:.3f} s, {MQ_MORE} more messages "
+             f"published through the client in {dt_more:.3f} s; "
+             f"mq.balance, mq.topic.list and "
+             f"mq.topic.desc show P2 owning all {MQ_PARTITIONS} "
+             f"partitions, next offsets {per_part}; every acknowledged "
+             f"message in P2's log == its draw; K1 0")
+
+        # 8 fencing
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+        epochs1 = {pi: master._mq_epochs.get(f"{MQ_TOPIC}/{pi}", 0)
+                   for pi in range(MQ_PARTITIONS)}
+        if not all(epochs1[pi] > epochs0[pi]
+                   for pi in range(MQ_PARTITIONS)):
+            raise AssertionError(f"the epochs did not all rise across the "
+                                 f"ring change: {epochs0} -> {epochs1}")
+        part = P2._get_topic(MQ_TOPIC)[0]
+        held = part.next_offset - 1  # already held: nothing appended
+
+        def replicate(epoch: int, want: int) -> bytes:
+            body = json.dumps({
+                "topic": MQ_TOPIC, "partition": 0,
+                "partition_count": MQ_PARTITIONS, "offset": held,
+                "ts_ns": 1, "epoch": epoch, "key": "",
+                "value": "c3RhbGU="}).encode()
+            return req(f"http://{P2.url}/replicate", "POST", body,
+                       want=(want,))[1]
+        replicate(epochs1[0], 200)
+        fenced = replicate(epochs0[0], 403)
+        if b"fenced" not in fenced:
+            raise AssertionError(f"/replicate below the epoch: {fenced!r}")
+        replicate(epochs1[0], 200)
+        if part.next_offset != held + 1:
+            raise AssertionError("a /replicate of a held offset appended")
+        step_counts("8 fencing", k0, 0, t0)
+        plog(f"8 fencing: the master's epoch of every partition rose "
+             f"across the ring change; on P2 a /replicate at the new epoch"
+             f" 200, at the old one 403 ({fenced.decode()[:60]}), at the "
+             f"new one again 200; K1 0")
+
+        # 9 the CLI's mq.broker, started in a child at step 4 behind a
+        # master of its own (M), so it is alone in its ring
+        k0 = dict(launches)
+        t0 = time.perf_counter()
+
+        def child_up() -> bool:
+            if child.poll() is not None:
+                with open(err_path) as f:
+                    raise AssertionError(f"the CLI's broker exited "
+                                         f"{child.returncode}: "
+                                         f"{f.read()[-1500:]}")
+            try:
+                st, raw = req(f"http://{url}/status", want=(200, 404))
+            except OSError:
+                return False
+            return st == 200 and json.loads(raw)["brokers"] == [url]
+        until(child_up, "the CLI's broker never came up", timeout=60)
+        dt_up = time.perf_counter() - t_spawn
+        cli = MQClient([url])
+        cli.configure("chip.p29cli", partition_count=2)
+        sent = {}
+        for key, value in mq_draws(rng, n=MQ_CLI):
+            sent[cli.publish("chip.p29cli", value, key=key)] = value
+        got = {}
+        for pi in range(2):
+            off = 0
+            while True:
+                batch, off = cli.fetch("chip.p29cli", pi, off)
+                if not batch:
+                    break
+                got.update({(pi, r["offset"]): r["value"].encode()
+                            for r in batch})
+        if got != sent:
+            raise AssertionError("the CLI's broker gave back other bytes")
+        out, _ = child.communicate(b"report\n", timeout=60)
+        loaded = json.loads(out.decode().strip().splitlines()[-1])
+        child = None
+        if any(loaded.values()):
+            raise AssertionError(f"the CLI's broker loaded {loaded}")
+        step_counts("9 cli", k0, 0, t0)
+        steps["9 cli"].update({"up_s": dt_up, "messages": MQ_CLI})
+        plog(f"9 cli: `mq.broker` in a child behind M up {dt_up:.3f} s "
+             f"after its start; "
+             f"MQClient configured chip.p29cli, published {MQ_CLI} "
+             f"messages and fetched every byte back; the child loaded "
+             f"{loaded}; K1 0")
+    finally:
+        t_stop = time.perf_counter()
+        for proc in (child, publishers):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+        for b, brun, _ in list(brokers.values()):
+            brun(b.stop())
+        brokers.clear()
+        if F is not None:
+            frun(F.stop())
+        if M is not None:
+            mrun(M.stop())
+        stop_loops(loops)
+        if pool is not None:
+            pool.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "steps": steps, "counts": counts,
+           "predicted": predicted, "stop_s": time.perf_counter() - t_stop,
+           "s": time.perf_counter() - t_phase}
+    plog(f"launches per step {counts} (K1 predicted {predicted}); phase "
+         f"wall {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11672,6 +12424,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # phase 16's child
     ap.add_argument("--codecs-worker", nargs=2, metavar=("DIR", "DAT"),
                     help=argparse.SUPPRESS)  # phase 10's child
+    ap.add_argument("--mq-publish", action="store_true",
+                    help=argparse.SUPPRESS)  # phase 29's child
     ap.add_argument("--trace-dir", default=None,
                     help="keep phase 13's torch.profiler trace (Chrome "
                          "JSON) in this directory")
@@ -11684,6 +12438,8 @@ def main(argv=None) -> int:
         # the clients need no card: the server they load holds it
         return small_clients(args.small_clients[0],
                              int(args.small_clients[1]), args.seed)
+    if args.mq_publish:
+        return mq_publishers(args.seed)
     from seaweedfs_tpu_torch import _build
     # 1 build, started before torch's import, which it overlaps
     child = args.fleet_worker or args.codecs_worker
@@ -12126,9 +12882,9 @@ def main(argv=None) -> int:
 
         # 23 the port's shell and client over three card servers in
         # three racks, then 24 the port's filer, 25 its filer server, 26
-        # its S3 gateway, 27 its WebDAV gateway, mount and offline tools
-        # and 28 its replication on the same cluster, each counted on its
-        # own
+        # its S3 gateway, 27 its WebDAV gateway, mount and offline tools,
+        # 28 its replication and 29 its message queue on the same
+        # cluster, each counted on its own
         with ThreeRacks(vdir) as racks:
             gf_cuda.reset_launches()
             phases["shell"] = phase_shell(
@@ -12242,10 +12998,28 @@ def main(argv=None) -> int:
                 f"copies {staged}")
             path_launches = {k: path_launches[k] + repl_launches[k]
                              for k in path_launches}
+
+            gf_cuda.reset_launches()
+            phases["mq"] = phase_mq(racks, vdir, args.seed, launches)
+            mq_launches = dict(launches)
+            staged = dict(gf_cuda.STAGED)
+            if any(staged.values()):
+                raise AssertionError(f"the mq phase made the kernel "
+                                     f"wrapper stage copies of its input: "
+                                     f"{staged}")
+            if not mq_launches["gf_apply"] or \
+                    mq_launches["gf_apply_batch"]:
+                raise AssertionError(f"the mq phase launched "
+                                     f"{mq_launches}: K1 and no K2 "
+                                     f"expected")
+            log(f"[path] phase 29: launches {mq_launches}, staged "
+                f"copies {staged}")
+            path_launches = {k: path_launches[k] + mq_launches[k]
+                             for k in path_launches}
     finally:
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 29 report
+    # 30 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -1,7 +1,7 @@
 """CLI entry point of the port, the `weed`-style launcher (reference:
 weed/weed.go:46-85, weed/command/server.go).
 
-Counterpart of `seaweedfs_tpu/__main__.py`, cut to these subcommands:
+Counterpart of `seaweedfs_tpu/__main__.py`, with these subcommands:
 
   python -m seaweedfs_tpu_torch master -port 9333 [-peers a,b,c -mdir D]
   python -m seaweedfs_tpu_torch volume -dir /data -mserver host:9333 \\
@@ -9,10 +9,10 @@ Counterpart of `seaweedfs_tpu/__main__.py`, cut to these subcommands:
   python -m seaweedfs_tpu_torch server -dir /data [-volumePort 8080] \\
       [-device cpu] [-filer [-filerPort 8888]] \\
       [-s3 [-s3Port 8333] [-s3Config s3.json]] \\
-      [-webdav [-webdavPort 7333]]
+      [-webdav [-webdavPort 7333]] [-mq [-mqPort 17777]]
                          # a master, one volume server (a filer, an S3
                          # gateway and a WebDAV gateway, each of which
-                         # implies -filer) in one process
+                         # implies -filer, and an MQ broker) in one process
   python -m seaweedfs_tpu_torch filer -master host:9333 [-port 8888] \\
       [-dir D] [-notification.log F | -notification.webhook URL]
                          # the filer server, sqlite store in D, meta
@@ -23,6 +23,8 @@ Counterpart of `seaweedfs_tpu/__main__.py`, cut to these subcommands:
                          # the IAM API, identities in the filer
   python -m seaweedfs_tpu_torch webdav -filer host:8888 [-port 7333] \\
       [-filer.path /x]   # the WebDAV gateway
+  python -m seaweedfs_tpu_torch mq.broker -master host:9333 [-port 17777]
+                         # the MQ broker, registered with the master
   python -m seaweedfs_tpu_torch ftp -filer host:8888
                          # the FTP stub: exits 1 with the stub's text
   python -m seaweedfs_tpu_torch mount -filer host:8888 -dir /mnt \\
@@ -70,8 +72,8 @@ versions; without a card and without `-device cpu` it raises.  `-cpuprofile FILE
 writes a cProfile dump when the process stops, `--torch-profile DIR` a
 `torch.profiler` Chrome trace (the reference's `--jax-profile`; it loads
 torch), and SIGUSR1 dumps every thread's stack
-(utils/grace.py).  `server`'s `-mq` and the `mq.broker` subcommand
-come with ROADMAP 1.22b.
+(utils/grace.py).  The MQ broker (`mq.broker`, and `server`'s `-mq`)
+has no device and loads no torch either.
 """
 
 from __future__ import annotations
@@ -157,8 +159,9 @@ async def _run_master(args) -> int:
 
 async def _run_server(args) -> int:
     """A master, one volume server, with `-filer` a filer, with `-s3` a
-    filer and an S3 gateway and with `-webdav` a filer and a WebDAV
-    gateway in one process (reference: `_run_server`, but its `-mq`)."""
+    filer and an S3 gateway, with `-webdav` a filer and a WebDAV gateway
+    and with `-mq` an MQ broker in one process (reference: `_run_server`).
+    The broker starts last and stops first."""
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     security = _security(args)
     m = _master(args, security)
@@ -168,7 +171,7 @@ async def _run_server(args) -> int:
                      data_center=args.dataCenter, rack=args.rack,
                      security=security, device=args.device)
     await v.start()
-    f = s3 = dav = None
+    f = s3 = dav = mq = None
     if args.filer or args.s3 or args.webdav:
         from seaweedfs_tpu_torch.server.filer_server import FilerServer
         f = FilerServer(m.url, args.ip, args.filerPort, data_dir=args.dir[0],
@@ -184,12 +187,25 @@ async def _run_server(args) -> int:
         from seaweedfs_tpu_torch.server.webdav_server import WebDavServer
         dav = WebDavServer(f.url, args.ip, args.webdavPort, security=security)
         await dav.start()
+    if args.mq:
+        from seaweedfs_tpu_torch.mq.broker import BrokerServer
+        mq = BrokerServer(m.url, args.ip, args.mqPort)
+        await mq.start()
     await _serve_forever()
-    for srv in (dav, s3, f):
+    for srv in (mq, dav, s3, f):
         if srv is not None:
             await srv.stop()
     await v.stop()
     await m.stop()
+    return 0
+
+
+async def _run_mq_broker(args) -> int:
+    from seaweedfs_tpu_torch.mq.broker import BrokerServer
+    s = BrokerServer(args.master, args.ip, args.port)
+    await s.start()
+    await _serve_forever()
+    await s.stop()
     return 0
 
 
@@ -1115,6 +1131,9 @@ def main(argv=None) -> int:
     ps.add_argument("-webdav", action="store_true",
                     help="also run the WebDAV gateway (implies -filer)")
     ps.add_argument("-webdavPort", type=int, default=7333)
+    ps.add_argument("-mq", action="store_true",
+                    help="also run the MQ broker")
+    ps.add_argument("-mqPort", type=int, default=17777)
     _add_common_flags(ps)
     pf = sub.add_parser("filer")
     pf.add_argument("-ip", default="127.0.0.1")
@@ -1303,6 +1322,11 @@ def main(argv=None) -> int:
     pwd.add_argument("-port", type=int, default=7333)
     pwd.add_argument("-filer", default="127.0.0.1:8888")
     pwd.add_argument("-filer.path", dest="filerPath", default="/")
+    pmq = sub.add_parser("mq.broker",
+                         help="message queue broker (weed/mq/broker)")
+    pmq.add_argument("-ip", default="127.0.0.1")
+    pmq.add_argument("-port", type=int, default=17777)
+    pmq.add_argument("-master", default="127.0.0.1:9333")
     pft = sub.add_parser("ftp",
                          help="FTP gateway (stub, like the reference's "
                               "weed/ftpd)")
@@ -1343,8 +1367,8 @@ def main(argv=None) -> int:
     pcrt.add_argument("-hosts", default="localhost,127.0.0.1",
                       help="comma-separated SAN hosts/IPs")
     for p in (p3, pi, pmf, psh, pb, pup, pdl, pfx, pcp, pex, pbk, prs, psy,
-              pmt2, pct, pcpy, prg, prp, pfb, pmb, pwd, pft, pmt, psc, pfu,
-              pver, pac, pcrt):
+              pmt2, pct, pcpy, prg, prp, pfb, pmb, pwd, pmq, pft, pmt, psc,
+              pfu, pver, pac, pcrt):
         _add_common_flags(p)
     args = ap.parse_args(argv)
 
@@ -1381,6 +1405,7 @@ def main(argv=None) -> int:
     run = {"master": _run_master, "volume": _run_volume,
            "server": _run_server, "filer": _run_filer, "s3": _run_s3,
            "iam": _run_iam, "webdav": _run_webdav,
+           "mq.broker": _run_mq_broker,
            "master.follower": _run_follower}[args.cmd]
     return asyncio.run(run(args))
 

@@ -1,7 +1,7 @@
 """Admin shell command environment + commands.
 
-Counterpart of `seaweedfs_tpu/shell/commands.py`, cut to the commands
-that need no message queue (91 of the reference's 95): `help`, `lock`,
+Counterpart of `seaweedfs_tpu/shell/commands.py`, with all of its 95
+commands: `help`, `lock`,
 `unlock`, the `volume.*` commands with `volume.tier.move`, `.upload` and
 `.download` (a volume's `.dat` to a `local`, `s3`, `gcs` or `azure`
 remote and back), the `collection.*`, `ec.*` and `cluster.*` commands
@@ -14,8 +14,9 @@ reconcile and unmount a remote store under that filer through
 `remote_storage`, the 8 `s3.*` commands, which keep the gateways'
 buckets, identities, quotas and circuit breaker in that filer, and
 `mount.configure`, which talks to a running mount over its admin
-socket.  The `mq.*` commands come with ROADMAP 1.22b, so `help` and the
-unknown-command error list four names fewer than the reference's.
+socket, and the 4 `mq.*` commands, which configure, list and describe
+the topics of the first broker registered with the master and show the
+ring's partition layout.
 
 The shell drives the cluster purely over the master/volume-server HTTP
 APIs, holding the master's exclusive admin lock while mutating — same
@@ -2468,6 +2469,60 @@ def cmd_volume_vacuum_enable(env: CommandEnv, args, out):
     print("automatic vacuum enabled", file=out)
 
 
+def _find_broker(env: CommandEnv) -> str:
+    members = env.master_get("/cluster/status").get("Members", {})
+    brokers = members.get("broker", [])
+    if not brokers:
+        raise RuntimeError("no mq broker registered with the master")
+    return brokers[0]
+
+
+@command("mq.topic.list")
+def cmd_mq_topic_list(env: CommandEnv, args, out):
+    """List MQ topics with partition next-offsets (reference:
+    command_mq_topic_list)."""
+    broker = _find_broker(env)
+    r = env.master_get_raw(broker, "/topics/list")
+    for t_ in r.get("topics", []):
+        print(f"{t_['name']:32s} partitions={t_['partition_count']} "
+              f"next_offsets={t_['next_offsets']}", file=out)
+    if not r.get("topics"):
+        print("(no topics)", file=out)
+
+
+@command("mq.topic.configure")
+def cmd_mq_topic_configure(env: CommandEnv, args, out):
+    """Create/configure an MQ topic (reference: command_mq_topic_configure):
+    mq.topic.configure -topic ns.name -partitionCount 4"""
+    flags = parse_flags(args)
+    broker = _find_broker(env)
+    r = env._call(f"{broker}/topics/configure",
+                  {"topic": flags["topic"],
+                   "partition_count": int(flags.get("partitionCount", "4"))})
+    print(f"topic {r.get('topic')} partitions={r.get('partition_count')}",
+          file=out)
+
+
+@command("mq.topic.desc")
+def cmd_mq_topic_desc(env: CommandEnv, args, out):
+    """Describe one topic's partitions and broker assignment (reference:
+    command_mq_topic_describe)."""
+    flags = parse_flags(args)
+    topic = flags["topic"]
+    broker = _find_broker(env)
+    r = env.master_get_raw(broker, "/topics/list")
+    brokers = r.get("brokers", [broker])
+    for t_ in r.get("topics", []):
+        if t_["name"] != topic:
+            continue
+        for pi, nxt in enumerate(t_["next_offsets"]):
+            owner = brokers[pi % len(brokers)]
+            print(f"partition {pi}: owner={owner} next_offset={nxt}",
+                  file=out)
+        return
+    raise RuntimeError(f"topic {topic!r} not found")
+
+
 @command("ec.cleanup")
 def cmd_ec_cleanup(env: CommandEnv, args, out):
     """Remove leftover EC shards for volumes that are back to normal
@@ -2632,6 +2687,31 @@ def cmd_volume_server_leave(env: CommandEnv, args, out):
     node = flags["node"]
     env.vs_post(node, "/admin/leave", {})
     print(f"{node} is leaving the cluster (heartbeats stopped)", file=out)
+
+
+@command("mq.balance")
+def cmd_mq_balance(env: CommandEnv, args, out):
+    """Show the deterministic partition->broker assignment for every topic
+    (reference: command_mq_balance.go triggers the balancer; this ring
+    balances continuously, so the command reports the settled layout)."""
+    brokers = env.master_get_raw(env.master, "/cluster/status") \
+        .get("Members", {}).get("broker", [])
+    if not brokers:
+        print("no brokers registered", file=out)
+        return
+    listing = env.master_get_raw(sorted(brokers)[0], "/topics/list")
+    # the queried broker's ring can momentarily be [] during a master
+    # heartbeat lapse; fall back to the registry view
+    ring = listing.get("brokers") or sorted(brokers)
+    print(f"broker ring: {ring}", file=out)
+    for t in listing.get("topics", []):
+        n = t["partition_count"]
+        print(f"{t['name']}: {n} partition(s)", file=out)
+        for pi in range(n):
+            follower = ring[(pi + 1) % len(ring)] if len(ring) > 1 else "-"
+            print(f"  p{pi}: owner {ring[pi % len(ring)]} "
+                  f"follower {follower} "
+                  f"next_offset {t['next_offsets'][pi]}", file=out)
 
 
 @command("fs.meta.notify")

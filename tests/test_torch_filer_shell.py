@@ -6,7 +6,7 @@ port's master and port volume servers with `device="cpu"`, in process).
   `fs_meta_save_load_and_configure_replication` and `fs_breadth`, driven
   by the port's shell over the port's `FilerServer`.  The reference's
   `fs_breadth` stack also starts an MQ broker, which none of its steps
-  uses; the port has none until ROADMAP 1.22b.
+  uses (the port's is held to it in tests/test_torch_mq*.py).
 - Both shells over either package's filer: the reference's shell and
   the port's run one script of every `fs.*` command on mirrored trees
   (`/ref` and `/port`, the same bytes) of one filer, the reference's or

@@ -538,10 +538,20 @@ def test_mixed_cluster_under_the_port_master(tmp_path):
 
 # ---- the CLI ---------------------------------------------------------------
 
+# `main` runs on a thread so that the test can ask what got imported; if
+# it raises (a port already bound, say), the child dies with it, as the
+# CLI's own process would, and the test sees the traceback in its log
 CLI_CHILD = r"""
-import json, sys, threading
+import json, os, sys, threading, traceback
 from seaweedfs_tpu_torch.__main__ import main
-threading.Thread(target=main, args=(sys.argv[1:],), daemon=True).start()
+def serve():
+    try:
+        main(sys.argv[1:])
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(3)
+threading.Thread(target=serve, daemon=True).start()
 sys.stdin.readline()  # the test's word to report and leave
 print(json.dumps({"jax": "jax" in sys.modules,
                   "reference": sorted(m for m in sys.modules
@@ -550,6 +560,84 @@ print(json.dumps({"jax": "jax" in sys.modules,
 import os
 os._exit(0)
 """
+
+
+def _ephemeral_low() -> int:
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+def cli_ports(n: int) -> list[int]:
+    """`n` distinct ports, free now, drawn below the host's ephemeral
+    range.  `free_port()` hands out the kernel's picks, which lie in that
+    range, as does every outgoing connection's local port: neither can
+    take one of these between the draw and a child's bind."""
+    lo = _ephemeral_low()
+    rng = secrets.SystemRandom()
+    ports: list[int] = []
+    while len(ports) < n:
+        port = rng.randrange(max(1024, lo - 12000), lo)
+        if port in ports:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        ports.append(port)
+    return ports
+
+
+BIND_TRIES = 3
+
+
+def start_cli(tmp_path, argvs_for, n_ports: int, ready, timeout=120.0,
+              child=None, env=None):
+    """Start one CLI child per argv of `argvs_for(ports)`, on `n_ports`
+    ports of `cli_ports`, and poll `ready(ports)` until it returns
+    something truthy, for up to `timeout` seconds: -> (procs, ports,
+    what it returned).  A child that dies fails the test with its log's
+    tail, unless the log says a port was already bound: then every child
+    is killed and all start again on fresh ports (BIND_TRIES in all).
+    The caller kills the children it gets back.  `child` replaces
+    CLI_CHILD, the script each child runs, and `env` `_child_env()`, its
+    environment."""
+    for attempt in range(BIND_TRIES):
+        ports = cli_ports(n_ports)
+        procs, logs = [], []
+        for i, argv in enumerate(argvs_for(ports)):
+            logs.append(tmp_path / f"child{i}-{attempt}.log")
+            with open(logs[-1], "wb") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", child or CLI_CHILD, *argv],
+                    cwd=str(REPO),
+                    env=env or _child_env(), stdin=subprocess.PIPE,
+                    stdout=subprocess.PIPE, stderr=log))
+        deadline = time.time() + timeout
+        got, died = None, None
+        while time.time() < deadline and not got and died is None:
+            try:
+                got = ready(ports)
+            except OSError:
+                pass
+            died = next((i for i, p in enumerate(procs)
+                         if p.poll() is not None), None)
+            if not got and died is None:
+                time.sleep(0.1)
+        if died is None:
+            assert got, f"not ready in {timeout} s: " + " | ".join(
+                f.read_text()[-1500:] for f in logs)
+            return procs, ports, got
+        tail = logs[died].read_text()[-3000:]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=10)
+        assert "address already in use" in tail, tail
+    raise AssertionError(f"{BIND_TRIES} draws of ports were all taken")
 
 
 def _child_env() -> dict:
@@ -563,42 +651,31 @@ def test_cli_master_and_server_serve_the_reference_client(tmp_path, mode):
     """`python -m seaweedfs_tpu_torch master` with a `volume -device cpu`
     beside it, or one `server -device cpu`: the reference `WeedClient`
     writes, reads and deletes through them, and neither child imported
-    jax or the reference package."""
-    mport, vport = free_port(), free_port()
-    if mode == "server":
-        argvs = [["server", "-dir", str(tmp_path / "d"), "-port",
-                  str(mport), "-volumePort", str(vport), "-device", "cpu",
-                  "-mdir", str(tmp_path / "m")]]
-    else:
-        argvs = [["master", "-port", str(mport), "-mdir",
-                  str(tmp_path / "m")],
-                 ["volume", "-dir", str(tmp_path / "d"), "-port",
-                  str(vport), "-mserver", f"127.0.0.1:{mport}", "-device",
-                  "cpu"]]
+    jax or the reference package.  Their ports come from `cli_ports`, and
+    a child whose port was taken before it bound starts again on fresh
+    ones (`start_cli`)."""
+    def argvs(ports):
+        mport, vport = ports
+        if mode == "server":
+            return [["server", "-dir", str(tmp_path / "d"), "-port",
+                     str(mport), "-volumePort", str(vport), "-device",
+                     "cpu", "-mdir", str(tmp_path / "m")]]
+        return [["master", "-port", str(mport), "-mdir",
+                 str(tmp_path / "m")],
+                ["volume", "-dir", str(tmp_path / "d"), "-port",
+                 str(vport), "-mserver", f"127.0.0.1:{mport}", "-device",
+                 "cpu"]]
+
+    def nodes(ports):
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{ports[0]}/dir/status", timeout=2) as r:
+            return json.loads(r.read())["Topology"]["nodes"]
     (tmp_path / "d").mkdir()
     procs = []
     try:
-        for i, argv in enumerate(argvs):
-            log = open(tmp_path / f"child{i}.log", "wb")
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", CLI_CHILD, *argv], cwd=str(REPO),
-                env=_child_env(), stdin=subprocess.PIPE,
-                stdout=subprocess.PIPE, stderr=log))
+        procs, (mport, vport), got = start_cli(tmp_path, argvs, 2, nodes)
         master = f"127.0.0.1:{mport}"
-        deadline = time.time() + 120
-        nodes = {}
-        while time.time() < deadline and not nodes:
-            try:
-                with urllib.request.urlopen(
-                        f"http://{master}/dir/status", timeout=2) as r:
-                    nodes = json.loads(r.read())["Topology"]["nodes"]
-            except OSError:
-                pass
-            for i, p in enumerate(procs):
-                assert p.poll() is None, \
-                    (tmp_path / f"child{i}.log").read_text()[-3000:]
-            time.sleep(0.1)
-        assert list(nodes) == [f"127.0.0.1:{vport}"]
+        assert list(got) == [f"127.0.0.1:{vport}"]
         client = WeedClient(master)
         payloads = {client.upload(b"cli %d" % i * (i + 1)): b"cli %d" % i *
                     (i + 1) for i in range(12)}

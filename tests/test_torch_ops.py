@@ -9,6 +9,7 @@ tests/test_pallas.py runs it.
 
 import ast
 import itertools
+import os
 import pathlib
 import subprocess
 import sys
@@ -56,10 +57,12 @@ def test_port_imports_no_jax_and_no_reference(path):
     # imported at module level (security/tls.py imports cryptography
     # inside generate_certs, which nothing on the card's path calls);
     # the servers' own modules are the exception, aiohttp being what
-    # they serve with: those under server/ and the S3 gateway's two
+    # they serve with: those under server/, the S3 gateway's two and the
+    # MQ broker
     if path.parent.name == "server" or path.relative_to(REPO).as_posix() \
             in ("seaweedfs_tpu_torch/s3/s3api_server.py",
-                "seaweedfs_tpu_torch/s3/iamapi_server.py"):
+                "seaweedfs_tpu_torch/s3/iamapi_server.py",
+                "seaweedfs_tpu_torch/mq/broker.py"):
         return
     for node in tree.body:
         if isinstance(node, (ast.Import, ast.ImportFrom)):
@@ -433,6 +436,86 @@ def test_replication_cli_leaves_jax_and_torch_unloaded(tmp_path,
         c.submit(fb.stop())
         c.stop()
         queue.close()
+
+
+def test_import_rule_covers_the_mq_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("mq/__init__.py", "mq/topic.py", "mq/segments.py",
+                "mq/client.py", "mq/broker.py", "shell/commands.py",
+                "__main__.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
+# the port's master and two brokers in one fresh interpreter: a client
+# configures, publishes, fetches and commits, and the shell runs the four
+# `mq.*` commands (a filer would need a volume server, which loads torch:
+# tests/test_torch_mq.py keeps the logs in one)
+_MQ_CHILD = r"""
+import asyncio, io, sys, threading
+from seaweedfs_tpu_torch.mq import segments, topic
+assert not [m for m in sys.modules if m.split(".")[0] == "aiohttp"]
+msgs = [topic.Message(i, i, b"k", b"v" * i) for i in range(3)]
+assert segments.decode_segment(segments.encode_segment(msgs)) == msgs
+from seaweedfs_tpu_torch.mq.broker import BrokerServer
+from seaweedfs_tpu_torch.mq.client import MQClient
+from seaweedfs_tpu_torch.server.master import MasterServer
+from seaweedfs_tpu_torch.shell import commands
+import socket
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+loop = asyncio.new_event_loop()
+threading.Thread(target=loop.run_forever, daemon=True).start()
+def run(coro):
+    return asyncio.run_coroutine_threadsafe(coro, loop).result(60)
+m = MasterServer("127.0.0.1", free_port())
+run(m.start())
+bs = [BrokerServer(m.url, port=free_port(), peer_refresh=0.2)
+      for _ in range(2)]
+for b in bs:
+    run(b.start())
+import time
+deadline = time.time() + 30
+while time.time() < deadline and not all(
+        b.peer_brokers == sorted(x.url for x in bs) for b in bs):
+    time.sleep(0.05)
+c = MQClient([b.url for b in bs])
+c.configure("imp.t", partition_count=2)
+sent = sorted(c.publish("imp.t", b"v%d" % i, key=b"%d" % i)
+              for i in range(10))
+got = sorted((pi, m["offset"]) for pi in range(2)
+             for m in c.fetch("imp.t", pi, 0)[0])
+assert got == sent, (got, sent)
+g = c.consumer("imp.t", group="g")
+assert len(g.poll()) == 10
+g.commit()
+env = commands.CommandEnv(m.url)
+for line in ("mq.topic.list", "mq.topic.desc -topic imp.t", "mq.balance",
+             "mq.topic.configure -topic imp.u -partitionCount 1"):
+    out = io.StringIO()
+    commands.run_command(env, line, out)
+    assert out.getvalue(), line
+for b in bs:
+    run(b.stop())
+run(m.stop())
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "torch", "seaweedfs_tpu")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_mq_broker_and_client_leave_jax_and_torch_unloaded():
+    """The broker, the client and the four `mq.*` commands in a fresh
+    interpreter, over the port's master: neither jax, torch nor the
+    reference package gets imported, and the topic model and the
+    segment codec load without aiohttp."""
+    r = subprocess.run([sys.executable, "-c", _MQ_CHILD], cwd=REPO, capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, WEEDTPU_SCRUB_MBPS="0",
+                                WEEDTPU_REPAIR_INTERVAL="0"))
+    assert r.returncode == 0 and r.stdout.endswith("ok\n"), \
+        r.stderr[-3000:]
 
 
 def test_card_path_modules_import_no_server_package():

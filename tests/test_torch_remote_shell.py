@@ -9,8 +9,8 @@ process).
   and `::test_tier_upload_download_roundtrip`, and
   `TestRound5Commands::test_remote_mount_buckets` (against the port's
   gateway), each keeping its name and checks.  The reference's breadth
-  stack also starts an MQ broker, which none of these steps uses; the
-  port has none until ROADMAP 1.22b.
+  stack also starts an MQ broker, which none of these steps uses (the
+  port's is held to it in tests/test_torch_mq*.py).
 - Both shells over one port cluster print the same for the 11 commands
   this slice brought (`cluster.geo`, the three `volume.tier.*`, the seven
   `remote.*`), each on a tree, a bucket and a volume of its own, once

@@ -53,7 +53,7 @@ from seaweedfs_tpu_torch.ops import codec_tags
 from seaweedfs_tpu_torch.shell import commands
 from seaweedfs_tpu_torch.shell.commands import CommandEnv, run_command
 from seaweedfs_tpu_torch.stats import metrics
-from tests.test_torch_master_cluster import Cluster, free_port
+from tests.test_torch_master_cluster import Cluster, free_port, start_cli
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -200,18 +200,20 @@ def test_collect_volume_ids_for_ec_encode_snapshot(monkeypatch):
 
 
 def test_help_and_unknown_command_list_the_ported_commands():
-    """A kept difference: the port registers fewer commands until ROADMAP
-    1.22b (91 of the reference's 95: all but the four `mq.*`), and
-    `help` and the unknown-command error list what it has."""
+    """The port registers every command of the reference's (95, the four
+    `mq.*` with them), and `help` and the unknown-command error list
+    them."""
     left_out = set(ref_commands.COMMANDS) - set(commands.COMMANDS)
-    assert set(commands.COMMANDS) <= set(ref_commands.COMMANDS)
-    assert len(commands.COMMANDS) == 91
+    assert set(commands.COMMANDS) == set(ref_commands.COMMANDS)
+    assert len(commands.COMMANDS) == 95
     assert "mount.configure" in commands.COMMANDS
     assert {n for n in ref_commands.COMMANDS
             if n.startswith(("fs.", "s3.", "remote.", "volume.tier.",
                              "cluster."))} <= set(commands.COMMANDS)
-    assert left_out == {"mq.balance", "mq.topic.configure",
-                        "mq.topic.desc", "mq.topic.list"}
+    assert left_out == set()
+    assert sorted(n for n in commands.COMMANDS if n.startswith("mq.")) == [
+        "mq.balance", "mq.topic.configure", "mq.topic.desc",
+        "mq.topic.list"]
     assert sorted(n for n in commands.COMMANDS if n.startswith("s3.")) == [
         "s3.bucket.create", "s3.bucket.delete", "s3.bucket.list",
         "s3.bucket.quota", "s3.bucket.quota.check", "s3.circuitbreaker",
@@ -220,8 +222,12 @@ def test_help_and_unknown_command_list_the_ported_commands():
     listed = [line.split()[0] for line in shell(env, "help").splitlines()]
     assert listed == sorted(commands.COMMANDS)
     with pytest.raises(RuntimeError) as ei:
-        run_command(env, "mq.topic.list", io.StringIO())
+        run_command(env, "mq.topic.lists", io.StringIO())
     assert ", ".join(sorted(commands.COMMANDS)) in str(ei.value)
+    with pytest.raises(RuntimeError) as ref_ei:
+        ref_commands.run_command(ref_commands.CommandEnv("127.0.0.1:1"),
+                                 "mq.topic.lists", io.StringIO())
+    assert str(ei.value) == str(ref_ei.value)
     # `help <name>` prints the same doc as the reference's
     for name in ("ec.encode", "maintenance.status", "volume.balance",
                  "s3.configure", "s3.circuitbreaker", "s3.bucket.quota",
@@ -229,7 +235,8 @@ def test_help_and_unknown_command_list_the_ported_commands():
                  "volume.tier.upload", "volume.tier.download",
                  "remote.mount", "remote.cache", "remote.meta.sync",
                  "remote.uncache", "remote.configure", "remote.unmount",
-                 "remote.mount.buckets"):
+                 "remote.mount.buckets", "mq.balance", "mq.topic.list",
+                 "mq.topic.configure", "mq.topic.desc"):
         ref = io.StringIO()
         ref_commands.run_command(ref_commands.CommandEnv("127.0.0.1:1"),
                                  f"help {name}", ref)
@@ -786,10 +793,19 @@ print(json.dumps({"rc": rc, "jax": "jax" in sys.modules,
                                       "seaweedfs_tpu")}))
 """
 
+# as tests/test_torch_master_cluster.py's CLI_CHILD: a `main` that raises
+# (a port already bound, say) ends the child, its traceback in the log
 SERVER_CHILD = r"""
-import json, sys, threading
+import json, os, sys, threading, traceback
 from seaweedfs_tpu_torch.__main__ import main
-threading.Thread(target=main, args=(sys.argv[1:],), daemon=True).start()
+def serve():
+    try:
+        main(sys.argv[1:])
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(3)
+threading.Thread(target=serve, daemon=True).start()
 sys.stdin.readline()  # the test's word to report and leave
 print(json.dumps({"jax": "jax" in sys.modules,
                   "torch": "torch" in sys.modules}), flush=True)
@@ -828,35 +844,27 @@ def test_cli_shell_upload_download_benchmark_and_follower(tmp_path):
     `volume -device cpu`: each client-side process exits 0 and loads
     neither jax, torch nor the reference package; `shell -c` prints
     what the port's shell prints in process, and a failing command ends
-    it with a non-zero code."""
-    mport, vport, fport = free_port(), free_port(), free_port()
-    master = f"127.0.0.1:{mport}"
+    it with a non-zero code.  The servers' ports come from `cli_ports`,
+    and a child whose port was taken before it bound starts again on
+    fresh ones (`start_cli`)."""
+    def argvs(ports):
+        mport, vport, _ = ports
+        return [["master", "-port", str(mport), "-mdir",
+                 str(tmp_path / "m")],
+                ["volume", "-dir", str(tmp_path / "d"), "-port", str(vport),
+                 "-mserver", f"127.0.0.1:{mport}", "-device", "cpu"]]
+
+    def nodes(ports):
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{ports[0]}/dir/status", timeout=2) as r:
+            return json.loads(r.read())["Topology"]["nodes"]
     (tmp_path / "d").mkdir()
-    argvs = [["master", "-port", str(mport), "-mdir", str(tmp_path / "m")],
-             ["volume", "-dir", str(tmp_path / "d"), "-port", str(vport),
-              "-mserver", master, "-device", "cpu"]]
     procs = []
     try:
-        for i, argv in enumerate(argvs):
-            log = open(tmp_path / f"child{i}.log", "wb")
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", SERVER_CHILD, *argv], cwd=str(REPO),
-                env=_child_env(), stdin=subprocess.PIPE,
-                stdout=subprocess.PIPE, stderr=log))
-        deadline = time.time() + 120
-        nodes = {}
-        while time.time() < deadline and not nodes:
-            try:
-                with urllib.request.urlopen(
-                        f"http://{master}/dir/status", timeout=2) as r:
-                    nodes = json.loads(r.read())["Topology"]["nodes"]
-            except OSError:
-                pass
-            for i, p in enumerate(procs):
-                assert p.poll() is None, \
-                    (tmp_path / f"child{i}.log").read_text()[-3000:]
-            time.sleep(0.1)
-        assert list(nodes) == [f"127.0.0.1:{vport}"]
+        procs, (mport, vport, fport), got = start_cli(
+            tmp_path, argvs, 3, nodes, child=SERVER_CHILD, env=_child_env())
+        master = f"127.0.0.1:{mport}"
+        assert list(got) == [f"127.0.0.1:{vport}"]
         clean = {"rc": 0, "jax": False, "torch": False, "reference": []}
 
         files = []
