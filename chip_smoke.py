@@ -585,7 +585,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                behind a master of its own, no torch loaded, serves
                `MQClient` byte for byte; K1 per step against its
                prediction, K2 0; launches zeroed before and read after
- 30 report     {"kernels": [...]} line, the card's name and power limit,
+ 30 chaos      the port's chaos harness and fleet simulator: four cells
+               through `run_scenario`, each on a fresh `ChaosCluster` (the
+               port's master, three card `VolumeServer`s in racks a, b
+               and c, a `FilerServer`), the reference harness's sizes and
+               seeds: degraded_read x shard_loss, x bit_rot (found by the
+               on-request remote scrub of the background scrubbers, then
+               healed), x convert_mid_failure (K2: the scheduler's batch,
+               node 0 killed mid-flight) and filer_stream x rack_loss (a
+               reduced repair); K1 and K2 per cell against the layout's
+               prediction (units, scrub windows, degraded reads, the
+               reduced rebuilds' applies; K2 ceil(units/4) per batch, once
+               or twice), every healed shard set sha256-equal to before
+               the fault (a converted one: to the plain encode of its
+               .dat), fsck ok; `FleetSim` at its defaults (500 vnodes)
+               against the last cell's master: beats, the aggregator's
+               items and backlog, a rack failed and recovered, 50 nodes
+               left, the median tick; a child running the CLI's
+               `python -m seaweedfs_tpu_torch.maintenance.fleetsim`
+               behind a master of its own: 500 vnodes registered, SIGINT
+               exit 0, no torch, jax or reference package loaded;
+               it runs in a child process, `chip_smoke.py --chaos-worker
+               DIR`, started after phase 22 and told to go at phase 27's
+               start, beside phases 27-29, its lines printed at the join
+               after phase 29's; launches zeroed before and read after
+ 31 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -594,7 +618,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12-29, each on its own, so the reported launches are
+around phases 12-30, each on its own, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -607,7 +631,7 @@ volume taken before phase 14, whose appends go through links of it; phases
 17, 18, 20, 21 and 22 also on links of phase 4's and (17) 10's shard
 sets, 17, 18 and 22 on phase 7's volumes).  Every port master the
 script starts runs with its repair loop off
-(WEEDTPU_REPAIR_INTERVAL=0): phases 16-29 delete shards on purpose, and
+(WEEDTPU_REPAIR_INTERVAL=0): phases 16-30 delete shards on purpose, and
 a planner tick would rebuild them, launching K1 at times no step
 predicts.
 Needs one CUDA card; exits non-zero without one, and outside a checkout
@@ -2099,21 +2123,20 @@ def codecs_worker(vdir: str, dat_path: str, seed: int, target: int) -> int:
     return 0
 
 
-def start_codecs_worker(vdir: str, dat_path: str, seed: int,
-                        volume_mib: int):
-    """The child of `codecs_worker`, its output into a file under `vdir`
-    (read at the join, so a full pipe never stalls it)."""
-    out = open(os.path.join(vdir, "codecs_worker.log"), "w+")
+def start_worker(vdir: str, name: str, argv: list) -> subprocess.Popen:
+    """A child running this script with `argv`, its output into
+    `<vdir>/<name>.log` (read at the join, so a full pipe never stalls
+    it)."""
+    out = open(os.path.join(vdir, f"{name}.log"), "w+")
     proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--codecs-worker",
-         vdir, dat_path, "--seed", str(seed), "--volume-mib",
-         str(volume_mib)], stdin=subprocess.PIPE, stdout=out,
-        stderr=subprocess.STDOUT, text=True)
+        [sys.executable, os.path.abspath(__file__), *argv],
+        stdin=subprocess.PIPE, stdout=out, stderr=subprocess.STDOUT,
+        text=True)
     proc.out = out
     return proc
 
 
-def go_codecs_worker(proc) -> None:
+def go_worker(proc) -> None:
     """The child's start signal."""
     proc.t_go = time.perf_counter()
     try:
@@ -2123,25 +2146,26 @@ def go_codecs_worker(proc) -> None:
         pass  # the child died: the join says why
 
 
-def join_codecs_worker(proc) -> tuple[dict, dict, dict, float]:
-    """Wait for the child, print its lines, and return its phase record,
-    launches, staged copies and the seconds the parent waited."""
+def join_worker(proc, key: str, phase: int) -> tuple[dict, dict, dict, float]:
+    """Wait for the child, print its lines, and return its phase record
+    (under `key`), launches, staged copies and the seconds the parent
+    waited."""
     t0 = time.perf_counter()
     rc = proc.wait()
     waited = time.perf_counter() - t0
     proc.out.seek(0)
     lines = proc.out.read().splitlines()
     proc.out.close()
-    if rc != 0 or not lines or not lines[-1].startswith('{"codecs"'):
-        raise AssertionError(f"phase 10's child exited {rc}:\n" +
+    if rc != 0 or not lines or not lines[-1].startswith(f'{{"{key}"'):
+        raise AssertionError(f"phase {phase}'s child exited {rc}:\n" +
                              "\n".join(lines[-40:]))
     for line in lines[:-1]:
         print(line, flush=True)
     doc = json.loads(lines[-1])
-    return doc["codecs"], doc["launches"], doc["staged"], waited
+    return doc[key], doc["launches"], doc["staged"], waited
 
 
-def stop_codecs_worker(proc) -> None:
+def stop_worker(proc) -> None:
     """Kill the child on the way out of a failed run."""
     if proc.poll() is None:
         proc.kill()
@@ -12413,6 +12437,378 @@ def phase_mq(racks: ThreeRacks, vdir: str, seed: int,
     return out
 
 
+# phase 30: the chaos harness's cells, then the fleet simulator, on the card
+CHAOS_CELLS = (("degraded_read", "shard_loss"), ("degraded_read", "bit_rot"),
+               ("degraded_read", "convert_mid_failure"),
+               ("filer_stream", "rack_loss"))
+CHAOS_RACKS = ["a", "b", "c"]
+CHAOS_FLEET_TICKS = 5  # the fleet's aggregator ticks, their median printed
+
+# the CLI's `python -m seaweedfs_tpu_torch.maintenance.fleetsim <master>`
+# through runpy, ended by a SIGINT as an operator's ^C would; it reports
+# its exit code and what it loaded
+FLEETSIM_CHILD = r"""
+import json, runpy, sys
+sys.argv = ["fleetsim", sys.argv[1]]
+rc = None
+try:
+    runpy.run_module("seaweedfs_tpu_torch.maintenance.fleetsim",
+                     run_name="__main__")
+except SystemExit as e:
+    rc = e.code
+print(json.dumps({"rc": rc, "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in
+    ("torch", "jax", "seaweedfs_tpu"))}), flush=True)
+"""
+
+
+def chaos_layout(c) -> dict:
+    """{vid: {shard id: (server index, file)}} of every EC volume on the
+    cluster's live nodes."""
+    from seaweedfs_tpu_torch.storage.ec import layout
+    out: dict = {}
+    for i, vs in enumerate(c.volume_servers):
+        if vs is None:
+            continue
+        for loc in vs.store.locations:
+            for vid, ev in list(loc.ec_volumes.items()):
+                for sid in ev.shard_ids():
+                    out.setdefault(vid, {})[sid] = \
+                        (i, ev.base + layout.to_ext(sid))
+    return out
+
+
+def chaos_reduced_launches(local, helpers: list, lost: list,
+                           k: int = 10) -> int:
+    """K1 launches of one reduced rebuild of shards that fit one segment
+    and one batch chunk, by the planner's rule as the reference documents
+    it: each lost shard in turn is one window of the rebuilder's local
+    survivors and, when they are fewer than k, the first k - |local|
+    remote survivors ordered by (locality, node, shard); one apply of the
+    local part and one partial per helper node in the window; the rebuilt
+    shard joins the local survivors for the next."""
+    local = set(local)
+    total = 0
+    for sid in sorted(lost):
+        remote = sorted((h["locality"], h["node"], s) for h in helpers
+                        for s in h["shards"] if s != sid)
+        t = k - len(local)
+        window = remote[:t] if t > 0 else []
+        total += (1 if local else 0) + len({n for _, n, _ in window})
+        local.add(sid)
+    return total
+
+
+def chaos_predict(c, fault: str, pre: dict, dats: dict) -> dict:
+    """K1 and K2 of one cell from its own layout (`pre`: {vid: {shard
+    id: (node index, bytes)}} before the fault; `dats`: {vid: .dat
+    bytes} of node 0's plain volumes then), each as [lo, hi]: the
+    EC volumes' units (from the encode-time .dat size in their .vif), the
+    scrub windows the passes verify, the degraded reads made while a
+    shard is lost (none: every verify runs after the heal), the reduced
+    rebuilds' applies (the planner's decisions, their rebuilders' final
+    shards less the lost ones); K2 ceil(units / UNIT_BATCH) per
+    conversion batch, once when the kill lands before the batch or after
+    it commits, twice when it lands in between."""
+    from seaweedfs_tpu_torch.maintenance import scrub
+    from seaweedfs_tpu_torch.ops import fleet_convert
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    large, small = layout.LARGE_BLOCK_SIZE, layout.SMALL_BLOCK_SIZE
+    out = {"units": 0, "windows": [0, 0], "degraded": 0, "repair": 0,
+           "k2": [0, 0]}
+    if fault == "convert_mid_failure":
+        units = sum(predict_units(size, large, small)
+                    for size in dats.values())
+        batch = -(-units // fleet_convert.UNIT_BATCH)
+        out["k2"] = [batch, 2 * batch]
+    now = chaos_layout(c)
+    for vid, files in pre.items():
+        path = next(iter(now[vid].values()))[1]
+        vif = ec_files.read_vif(path[:-len(layout.to_ext(0))])
+        out["units"] += predict_units(vif["dat_file_size"], large, small)
+        size = next(iter(files.values()))[1]
+        if size > min(REPAIR_ALIGN, REPAIR_BATCH):
+            raise AssertionError(f"[chaos] volume {vid}'s shards are "
+                                 f"{size} B: the model covers one "
+                                 f"segment and one chunk")
+    decisions = list(c.leader().maintenance.decisions)
+    url_of = {vs.url: vs for vs in c.volume_servers if vs is not None}
+    for d in decisions:
+        if d["mode"] != "reduced" or d.get("replans"):
+            raise AssertionError(f"[chaos] a repair the model does not "
+                                 f"cover: {d}")
+        ev = url_of[d["rebuilder"]].store.get_ec_volume(d["vid"])
+        out["repair"] += chaos_reduced_launches(
+            set(ev.shard_ids()) - set(d["lost"]), d["helpers"], d["lost"])
+    if fault == "bit_rot":
+        # pass 1: node 0 verifies the flipped window; the others read its
+        # quarantined range of the flipped shard and skip it, unless that
+        # is a parity shard.  Pass 2: the rebuilder verifies; the others
+        # hold the shard's old home in their 10 s location cache and skip,
+        # unless the rebuilder is node 0 or their cache expired
+        home = {d["vid"]: d["rebuilder"] for d in decisions}
+        for vid, files in pre.items():
+            windows = -(-next(iter(files.values()))[1]
+                        // scrub.DEFAULT_WINDOW)
+            holders = len({i for i, _ in files.values()})
+            flipped = min(s for s, (i, _) in files.items() if i == 0)
+            first = 1 + (holders - 1) * (flipped >= 10)
+            lo = holders if home.get(vid) == c.volume_servers[0].url else 1
+            out["windows"][0] += windows * (first + lo)
+            out["windows"][1] += windows * (first + holders)
+    base = out["units"] + out["degraded"] + out["repair"]
+    out["k1"] = [base + out["windows"][0], base + out["windows"][1]]
+    return out
+
+
+def chaos_cell(c, workload: str, fault: str, launches: dict,
+               work: str) -> dict:
+    """One cell through `run_scenario` on `c`: the shard files' sha256
+    taken before the fault (and, for the conversion, the .dat of each of
+    node 0's plain volumes), K1 and K2 of the cell against
+    `chaos_predict`, and after it every healed shard set equal to its
+    pre-fault sha256 (a converted set: to write_ec_files' plain version
+    of its .dat, on the CPU)."""
+    from seaweedfs_tpu_torch.maintenance import chaos
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    pre: dict = {}
+    dats: dict = {}
+
+    def before_fault(c) -> None:
+        for vid, files in chaos_layout(c).items():
+            pre[vid] = {sid: (i, os.path.getsize(path), sha256(path))
+                        for sid, (i, path) in files.items()}
+        if fault == "convert_mid_failure":
+            for loc in c.volume_servers[0].store.locations:
+                for vid, v in list(loc.volumes.items()):
+                    dats[vid] = os.path.getsize(v._base + ".dat")
+
+    k0 = dict(launches)
+    rep = chaos.run_scenario(c, workload, fault, before_fault=before_fault)
+    got = {k: launches[k] - k0[k] for k in launches}
+    pred = chaos_predict(c, fault, {v: {s: f[:2] for s, f in fs.items()}
+                                    for v, fs in pre.items()}, dats)
+    now = chaos_layout(c)
+    for vid, files in pre.items():
+        if sorted(now.get(vid, {})) != list(range(layout.TOTAL_SHARDS)):
+            raise AssertionError(f"[chaos] {fault}: volume {vid} healed to "
+                                 f"shards {sorted(now.get(vid, {}))}")
+        for sid, (_, _, want) in files.items():
+            if sha256(now[vid][sid][1]) != want:
+                raise AssertionError(f"[chaos] {fault}: volume {vid} shard "
+                                     f"{sid} differs from before the fault")
+    for vid in dats:
+        base = os.path.join(work, f"plain{vid}")
+        v = c.volume_servers[0].store.get_volume(vid)
+        shutil.copy(v._base + ".dat", base + ".dat")
+        ec_files.write_ec_files(base, device="cpu")
+        shards = now.get(vid, {})
+        if sorted(shards) != list(range(layout.TOTAL_SHARDS)) or any(
+                sha256(shards[s][1]) != sha256(base + layout.to_ext(s))
+                for s in shards):
+            raise AssertionError(f"[chaos] {fault}: volume {vid}'s "
+                                 f"converted shards differ from the plain "
+                                 f"encode of its .dat")
+    k1_ok = pred["k1"][0] <= got["gf_apply"] <= pred["k1"][1]
+    k2_ok = pred["k2"][0] <= got["gf_apply_batch"] <= pred["k2"][1]
+    if not (k1_ok and k2_ok) or \
+            (fault == "convert_mid_failure") != bool(got["gf_apply_batch"]):
+        raise AssertionError(f"[chaos] {workload} x {fault} launched {got}"
+                             f", the layout predicts {pred}")
+    return {"report": rep, "launches": got, "predicted": pred,
+            "volumes": sorted(pre) or sorted(dats)}
+
+
+def phase_chaos(vdir: str, launches: dict, device=None) -> dict:
+    """Phase 30: the port's chaos harness and fleet simulator (ROADMAP
+    1.23) on the card.  Four cells of `CHAOS_CELLS`, each through
+    `run_scenario` on a fresh port `ChaosCluster` on a loop thread of its
+    own (the port's master, three `VolumeServer`s on the card in racks a,
+    b and c, one `FilerServer`; the workloads' sizes and seeds are the
+    reference harness's): degraded_read x shard_loss, x bit_rot (the
+    flip found by the on-request remote scrub of the nodes' background
+    scrubbers, at 1e6 MB/s and a 3600 s interval, and healed), x
+    convert_mid_failure (the scheduler's K2 batch on node 0, killed
+    mid-flight) and filer_stream x rack_loss (a reduced repair on the
+    rack-labelled cluster).  Per cell: K1 and K2 against
+    `chaos_predict`'s layout, every healed shard set equal to its
+    pre-fault sha256, `volume.fsck -json` ok (inside `run_scenario`).
+    Then `FleetSim` at its defaults (500 vnodes in 10 racks, 8 volumes
+    each) against the last cell's master: 500 beats, the aggregator's
+    items and backlog, a rack failed and recovered, 50 nodes left, the
+    median of its CHAOS_FLEET_TICKS ticks; K1 and K2 0.  Meanwhile a child
+    runs the CLI's `python -m seaweedfs_tpu_torch.maintenance.fleetsim`
+    against a master of its own from the phase's start: its 500 vnodes
+    register, a SIGINT ends it with 0, and it loaded neither torch, jax
+    nor the reference package.  Every master runs with its repair loop,
+    aggregator loop and canary off, hedging off."""
+    import pathlib
+    import signal
+    from seaweedfs_tpu_torch.maintenance import chaos, fleetsim
+    from seaweedfs_tpu_torch.server.master import MasterServer
+
+    card = card_name_power()
+    work = os.path.join(vdir, "chaos")
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    cells: dict = {}
+    loops: list = []
+    child = cluster = M = None
+    env = scoped_env(
+        WEEDTPU_REPAIR_INTERVAL="0", WEEDTPU_AGG_INTERVAL="0",
+        WEEDTPU_CANARY_INTERVAL="0", WEEDTPU_HEDGE_PCT="0",
+        WEEDTPU_SCRUB_MBPS="1000000", WEEDTPU_SCRUB_INTERVAL="3600")
+    env.__enter__()
+    try:
+        # the CLI's fleet, behind a master of its own (M), registering
+        # while the cells run
+        mrun = loop_thread(loops)
+        M = MasterServer("127.0.0.1", free_port())
+        mrun(M.start())
+        t_child = time.time()
+        child = subprocess.Popen(
+            [sys.executable, "-c", FLEETSIM_CHILD, M.url],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+        for i, (workload, fault) in enumerate(CHAOS_CELLS):
+            t0 = time.perf_counter()
+            cdir = os.path.join(work, f"cell{i}")
+            os.makedirs(cdir)
+            cluster = chaos.ChaosCluster(
+                pathlib.Path(cdir), n_volume_servers=3, with_filer=True,
+                racks=CHAOS_RACKS, device=device).start()
+            cluster.wait_heartbeats()
+            rec = chaos_cell(cluster, workload, fault, launches, cdir)
+            rec["s"] = time.perf_counter() - t0
+            cells[f"{workload} x {fault}"] = rec
+            pred = rec["predicted"]
+            log(f"[chaos] {workload} x {fault}: {rec['report']}; volumes "
+                f"{rec['volumes']}; launches {rec['launches']}, predicted "
+                f"K1 {pred['k1']} (units {pred['units']} + windows "
+                f"{pred['windows']} + degraded {pred['degraded']} + "
+                f"repair {pred['repair']}), K2 {pred['k2']}; every shard "
+                f"set sha256-equal to before the fault, fsck ok; {card}")
+            if i < len(CHAOS_CELLS) - 1:
+                cluster.stop()
+                cluster = None
+
+        # the CLI's fleet registered meanwhile: stop it
+        def registered() -> int:
+            with M.topo._lock:
+                return sum(1 for n in M.topo.nodes.values()
+                           if n.last_seen >= t_child)
+        until(lambda: registered() >= fleetsim.NODES or
+              child.poll() is not None, "the CLI's fleet never registered",
+              timeout=60)
+        n_cli = registered()
+        child.send_signal(signal.SIGINT)
+        out, err = child.communicate(timeout=60)
+        rep = json.loads(out.decode().strip().splitlines()[-1])
+        if n_cli != fleetsim.NODES or child.returncode != 0 or \
+                rep != {"rc": 0, "loaded": []}:
+            raise AssertionError(f"[chaos cli] {n_cli} vnodes registered, "
+                                 f"exit {child.returncode}, {rep}: "
+                                 f"{err.decode()[-1500:]}")
+        child = None
+        log(f"[chaos cli] `python -m seaweedfs_tpu_torch.maintenance."
+            f"fleetsim` registered {n_cli} vnodes behind a master of its "
+            f"own, ended by SIGINT with 0, loaded {rep['loaded']}")
+
+        # the fleet simulator at its defaults against the last cell's
+        # master
+        k0 = dict(launches)
+        master = cluster.leader()
+        sim = fleetsim.FleetSim(master.url).start()
+        try:
+            t0 = time.perf_counter()
+            beats = sim.beat_all()
+            t_beat = time.perf_counter() - t0
+
+            def tick() -> dict:
+                st, raw, _ = chaos._req(
+                    f"http://{master.url}/cluster/loops?refresh=1")
+                if st != 200:
+                    raise AssertionError(f"[chaos fleet] /cluster/loops: "
+                                         f"HTTP {st}")
+                return json.loads(raw)["loops"]["aggregator"]
+            # CHAOS_FLEET_TICKS ticks: the fleet registered, a rack down,
+            # recovered, then the rest steady
+            agg = tick()
+            walls = [agg["wall_last"]]
+            failed = sim.fail_rack("rack0")
+            down = tick()
+            walls.append(down["wall_last"])
+            sim.recover_rack("rack0")
+            up = tick()
+            walls.append(up["wall_last"])
+            backlog_failed, backlog_recovered = down["backlog"], \
+                up["backlog"]
+            while len(walls) < CHAOS_FLEET_TICKS:
+                walls.append(tick()["wall_last"])
+            gone = sim.stop_nodes(50)
+            left = len(sim)
+        finally:
+            sim.stop()
+        fleet = {"beats": beats, "beat_s": t_beat,
+                 "items_total": agg["items_total"],
+                 "backlog": agg["backlog"], "failed": len(failed),
+                 "backlog_failed": backlog_failed,
+                 "backlog_recovered": backlog_recovered,
+                 "left": left, "tick_s": walls,
+                 "tick_median_s": statistics.median(walls),
+                 "launches": {k: launches[k] - k0[k] for k in launches}}
+        if beats != fleetsim.NODES or \
+                agg["items_total"] < fleetsim.NODES + 1 or \
+                agg["backlog"] or len(failed) != 50 or \
+                backlog_failed < 50 or backlog_recovered or \
+                len(gone) != 50 or left != 450 or \
+                any(fleet["launches"].values()):
+            raise AssertionError(f"[chaos fleet] {fleet}")
+        log(f"[chaos fleet] FleetSim(500 vnodes, 10 racks, 8 volumes "
+            f"each): beat_all {beats} in {t_beat:.3f} s; aggregator "
+            f"items_total {agg['items_total']}, backlog {agg['backlog']}; "
+            f"fail_rack(rack0) {len(failed)} nodes, backlog "
+            f"{backlog_failed}, recovered {backlog_recovered}; "
+            f"stop_nodes(50) leaves {left}; median of the "
+            f"{CHAOS_FLEET_TICKS} ticks (registered, rack down, recovered, "
+            f"steady) {fleet['tick_median_s']:.3f} s "
+            f"({', '.join(f'{w:.3f}' for w in walls)}); launches "
+            f"{fleet['launches']}; {card}")
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait(10)
+        if cluster is not None:
+            cluster.stop()
+        if M is not None:
+            mrun(M.stop())
+        stop_loops(loops)
+        env.__exit__(None, None, None)
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "cells": cells, "fleet": fleet,
+           "s": time.perf_counter() - t_phase}
+    log(f"[chaos] phase wall {out['s']:.1f} s; {card}")
+    return out
+
+
+def chaos_worker(vdir: str) -> int:
+    """Phase 30 in a process of its own (`--chaos-worker`): the card's
+    context made, then, at a line on stdin (the parent's phase 27
+    starting), `phase_chaos` under `vdir`, and one JSON line: the phase's
+    record, its launches and its staged copies."""
+    import torch
+    from seaweedfs_tpu_torch.ops import gf_cuda
+    torch.zeros(1, device="cuda")
+    if not sys.stdin.readline():
+        return 1  # the parent ended before its start signal
+    gf_cuda.reset_launches()
+    rec = phase_chaos(vdir, gf_cuda.LAUNCHES)
+    print(json.dumps({"chaos": rec, "launches": dict(gf_cuda.LAUNCHES),
+                      "staged": dict(gf_cuda.STAGED)}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -12426,6 +12822,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # phase 10's child
     ap.add_argument("--mq-publish", action="store_true",
                     help=argparse.SUPPRESS)  # phase 29's child
+    ap.add_argument("--chaos-worker", metavar="DIR",
+                    help=argparse.SUPPRESS)  # phase 30's child
     ap.add_argument("--trace-dir", default=None,
                     help="keep phase 13's torch.profiler trace (Chrome "
                          "JSON) in this directory")
@@ -12442,7 +12840,7 @@ def main(argv=None) -> int:
         return mq_publishers(args.seed)
     from seaweedfs_tpu_torch import _build
     # 1 build, started before torch's import, which it overlaps
-    child = args.fleet_worker or args.codecs_worker
+    child = args.fleet_worker or args.codecs_worker or args.chaos_worker
     compiles = {} if child else _build.start()
     import torch
     if not torch.cuda.is_available():
@@ -12452,6 +12850,8 @@ def main(argv=None) -> int:
         return 1
     if args.fleet_worker:
         return fleet_worker()
+    if args.chaos_worker:
+        return chaos_worker(args.chaos_worker)
     if args.codecs_worker:
         return codecs_worker(*args.codecs_worker, args.seed,
                              args.volume_mib * MIB)
@@ -12478,6 +12878,7 @@ def main(argv=None) -> int:
         except BaseException as e:  # raised on the main thread
             written["error"] = e
         written["s"] = time.perf_counter() - t0
+    chaos_proc = None
     try:
         # 1 build: the compiles started above.  3 write, host work alone,
         # runs on a thread meanwhile (the needle checksum's library
@@ -12683,8 +13084,9 @@ def main(argv=None) -> int:
         # 10 codecs, in a child process (its own launch counts), which
         # starts up now and, once phase 13 is done, runs beside the
         # records and phases 14 and 15: they share no file and no count
-        codecs_proc = start_codecs_worker(vdir, server_src + ".dat",
-                                          args.seed, args.volume_mib)
+        codecs_proc = start_worker(vdir, "codecs_worker", [
+            "--codecs-worker", vdir, server_src + ".dat", "--seed",
+            str(args.seed), "--volume-mib", str(args.volume_mib)])
         try:
             # 13 telemetry, counted on its own
             gf_cuda.reset_launches()
@@ -12708,7 +13110,7 @@ def main(argv=None) -> int:
             path_launches = {k: path_launches[k] + tel_launches[k]
                              for k in path_launches}
 
-            go_codecs_worker(codecs_proc)
+            go_worker(codecs_proc)
             # records, outside the counted window
             phases["fleet_record"] = fleet_record(vdir, srcs)
             phases["rebuild_record"] = rebuild_record(vdir, base, hashes)
@@ -12746,9 +13148,9 @@ def main(argv=None) -> int:
                              for k in path_launches}
 
             phases["codecs"], codec_launches, staged, waited = \
-                join_codecs_worker(codecs_proc)
+                join_worker(codecs_proc, "codecs", 10)
         finally:
-            stop_codecs_worker(codecs_proc)
+            stop_worker(codecs_proc)
         if any(staged.values()):
             raise AssertionError(f"the codecs phase made the kernel wrapper "
                                  f"stage copies of its input: {staged}")
@@ -12880,6 +13282,12 @@ def main(argv=None) -> int:
         path_launches = {k: path_launches[k] + heal_launches[k]
                          for k in path_launches}
 
+        # 30 the chaos harness in a child: started here, after the
+        # phases that time the master's planes, to import and make its
+        # card context meanwhile; told to go at phase 27
+        chaos_proc = start_worker(vdir, "chaos_worker",
+                                  ["--chaos-worker", vdir])
+
         # 23 the port's shell and client over three card servers in
         # three racks, then 24 the port's filer, 25 its filer server, 26
         # its S3 gateway, 27 its WebDAV gateway, mount and offline tools,
@@ -12963,6 +13371,7 @@ def main(argv=None) -> int:
                              for k in path_launches}
 
             gf_cuda.reset_launches()
+            go_worker(chaos_proc)
             phases["webdav"] = phase_webdav(racks, vdir, args.seed, launches)
             dav_launches = dict(launches)
             staged = dict(gf_cuda.STAGED)
@@ -13016,10 +13425,32 @@ def main(argv=None) -> int:
                 f"copies {staged}")
             path_launches = {k: path_launches[k] + mq_launches[k]
                              for k in path_launches}
+
+        # 30 the chaos harness's cells and the fleet simulator, on
+        # clusters of their own, in the child beside phases 27-29
+        phases["chaos"], chaos_launches, staged, waited = \
+            join_worker(chaos_proc, "chaos", 30)
+        phases["chaos"]["child_wait_s"] = waited
+        if any(staged.values()):
+            raise AssertionError(f"the chaos phase made the kernel "
+                                 f"wrapper stage copies of its input: "
+                                 f"{staged}")
+        if not all(chaos_launches.values()):
+            raise AssertionError(f"the chaos phase launched "
+                                 f"{chaos_launches}: K1 and K2 both "
+                                 f"expected")
+        log(f"[path] phase 30: launches {chaos_launches}, staged copies "
+            f"{staged}; its child ran beside phases 27-29, "
+            f"{time.perf_counter() - chaos_proc.t_go:.1f} s from the "
+            f"start signal, {waited:.1f} s of them waited at the join")
+        path_launches = {k: path_launches[k] + chaos_launches[k]
+                         for k in path_launches}
     finally:
+        if chaos_proc is not None:
+            stop_worker(chaos_proc)
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 30 report
+    # 31 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

@@ -102,7 +102,7 @@ def _env_window() -> int | None:
     return val
 
 
-def _env_remote() -> bool:
+def env_remote() -> bool:
     raw = os.environ.get("WEEDTPU_SCRUB_REMOTE", "").strip()
     if raw not in ("", "0", "1"):
         raise ValueError(f"WEEDTPU_SCRUB_REMOTE={raw!r}: want 0 or 1")
@@ -247,7 +247,9 @@ class Scrubber:
     remote shard reader for windows missing local shards when
     WEEDTPU_SCRUB_REMOTE=1.  The knobs are read once, here (the
     reference reads WEEDTPU_SCRUB_REMOTE at each pass); the interval and
-    the window come from them alone.  The EC windows run on each
+    the window come from them alone.  A pass asked for on request
+    (`scrub_once(remote=...)`, the volume server's /admin/scrub) takes
+    the switch as read at the request.  The EC windows run on each
     EcVolume's own codec, built on the store's device."""
 
     def __init__(self, store, *, mbps: float | None = None,
@@ -256,7 +258,7 @@ class Scrubber:
         self.mbps = mbps if mbps is not None else env_mbps()
         self.interval = _env_interval()
         self.window = _env_window()
-        self.remote = _env_remote()
+        self.remote = env_remote()
         self.report = report
         self.shard_reader_factory = shard_reader_factory
         # this node's configured rate: the governor's pushes scale it
@@ -331,9 +333,13 @@ class Scrubber:
 
     # -- one pass ------------------------------------------------------
 
-    def scrub_once(self) -> dict:
+    def scrub_once(self, remote: bool | None = None) -> dict:
         """One pass over every mounted volume; returns the summary that
-        also goes upstream: {ts, bytes, volumes: {vid: verdict}}."""
+        also goes upstream: {ts, bytes, volumes: {vid: verdict}}.
+        `remote` verifies windows missing local shards through the
+        remote reader (None: the switch read at construction)."""
+        if remote is None:
+            remote = self.remote
         if self.mbps <= 0:
             return {"ts": time.time(), "bytes": 0, "volumes": {},
                     "paused": True}
@@ -362,7 +368,7 @@ class Scrubber:
                     if self._stop.is_set() or self.mbps <= 0:
                         break
                     try:
-                        res = self._scrub_ec(vid, ev, limiter)
+                        res = self._scrub_ec(vid, ev, limiter, remote)
                     except Exception as e:
                         res = {"kind": "ec", "error": str(e)}
                     vols[str(vid)] = res
@@ -403,11 +409,12 @@ class Scrubber:
         res["last_scrub"] = time.time()
         return res
 
-    def _scrub_ec(self, vid: int, ev, limiter: RateLimiter) -> dict:
+    def _scrub_ec(self, vid: int, ev, limiter: RateLimiter,
+                  remote: bool) -> dict:
         res: dict = {"kind": "ec", "windows": 0, "windows_skipped": 0,
                      "bytes": 0}
         reader = None
-        if self.shard_reader_factory is not None and self.remote:
+        if self.shard_reader_factory is not None and remote:
             reader = self.shard_reader_factory(vid)
         corrupt = syndrome_scan(ev, res, window=self.window,
                                 limiter=limiter, shard_reader=reader,

@@ -12,7 +12,10 @@ fixed [m, k] GF(2^8) matrix C to [k, n] (`__call__`) or [U, k, n]
 - a CPU tensor goes to `gf_apply_plain`, the bit-sliced algorithm of
   `gfmat_jax.bitsliced_apply_body`: unpack bit planes, one float32 matrix
   product against the [8m, 8k] 0/1 lift of C (exact: every sum is at most
-  8k < 2^11), keep the parity bit, repack.
+  8k < 2^11), keep the parity bit, repack.  It runs on one intra-op
+  thread (`one_intra_op_thread`): a server's request threads are its
+  parallelism, and an OpenMP team of one thread per core in every call
+  oversubscribes the host's cores (ROADMAP fault 3.16).
 
 C may have any shape a GF(2^8) code gives it (k + m <= 256).  The kernel
 takes at most 16 output rows per launch, so the wrapper cuts C into row
@@ -36,6 +39,7 @@ show its path handed the kernel rows it reads in place.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 
@@ -75,6 +79,24 @@ def resolve_device(device=None) -> torch.device:
 
 
 # -- plain version -------------------------------------------------------
+
+@contextlib.contextmanager
+def one_intra_op_thread():
+    """Run the block's CPU ops on the calling thread alone, then give the
+    thread back the intra-op thread count it had.  Under a loaded host a
+    team of one thread per core waits at every op's barrier for threads
+    the scheduler parked: a [2, 10] @ [10, 50 000] plain product took
+    219 ms on the team against 14 ms on one thread (ROADMAP fault 3.16)."""
+    n = torch.get_num_threads()
+    if n == 1:
+        yield
+        return
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
 
 def gf_apply_plain(bitmat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """[..., k, n] uint8 -> [..., m, n]: the product over GF(2^8) by the
@@ -209,7 +231,8 @@ class CudaGFMatrix:
         if x.shape[-2] != self.k:
             raise ValueError(f"want {self.k} input rows, got {x.shape[-2]}")
         if x.device.type == "cpu":
-            return gf_apply_plain(self.bitmat, x)
+            with one_intra_op_thread():
+                return gf_apply_plain(self.bitmat, x)
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
         return gf_apply_cuda(self.tables_on(x.device), x, name)

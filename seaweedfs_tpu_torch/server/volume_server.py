@@ -2487,7 +2487,10 @@ class VolumeServer:
         the master and answer its summary (loopback only).  Without a
         background scrubber (WEEDTPU_SCRUB_MBPS=0) the pass is made by
         one built for it from the knobs, and so answers paused, as the
-        reference's does."""
+        reference's does.  Either way the pass reads
+        WEEDTPU_SCRUB_REMOTE now, as the reference's reads it at every
+        pass: a harness that spreads shards over nodes turns remote
+        verification on around the request."""
         err = trace.loopback_error(req)
         if err is not None:
             return err
@@ -2495,7 +2498,8 @@ class VolumeServer:
         if s is None:
             s = scrubmod.Scrubber(self.store,
                                   shard_reader_factory=self._shard_reader)
-        summary = await asyncio.to_thread(s.scrub_once)
+        summary = await asyncio.to_thread(s.scrub_once,
+                                          scrubmod.env_remote())
         await asyncio.to_thread(self._report_scrub, summary)
         return web.json_response(summary)
 

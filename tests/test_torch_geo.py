@@ -4,9 +4,9 @@ and loop prevention under churn, the master's `/cluster/geo` with the
 shell's `cluster.geo`, and the `DivergenceAuditor`.
 
 - Twins of tests/test_geo.py's `test_meta_digest_endpoint`,
-  `test_sync_resume_mid_stream` and `test_bidirectional_churn_no_echo`,
-  each keeping its name and checks.  `test_geo_chaos_acceptance` waits
-  for the chaos harness (ROADMAP 1.23).
+  `test_sync_resume_mid_stream`, `test_bidirectional_churn_no_echo` and
+  `test_geo_chaos_acceptance` (over the port's `GeoCluster`, its
+  volume servers on the CPU), each keeping its name and checks.
 - `/cluster/geo` and `cluster.geo` print what the reference's print for
   the same scraped series, and either shell prints alike on either
   master.
@@ -343,3 +343,119 @@ def test_divergence_auditor_gauge_goes_to_one_and_back_after_a_heal(
     finally:
         aud.stop()
         ref_aud.stop()
+
+
+# -- the acceptance run: two regions, WAN partition, heal, converge ------
+
+def test_geo_chaos_acceptance(tmp_path, monkeypatch):
+    """Partition the WAN, watch geo_replication_lag_s rise in
+    /cluster/history and the replication_stalled rule fire on
+    /cluster/alerts; heal, watch it clear; prove byte-identical digests
+    via the divergence auditor; see one trace id span both regions on
+    /cluster/trace/<tid>; and check the class=replication byte ledger
+    conserves within 1%."""
+    from seaweedfs_tpu_torch.maintenance.chaos import GeoCluster
+    from seaweedfs_tpu_torch.shell.commands import CommandEnv, run_command
+    from seaweedfs_tpu_torch.stats import netflow
+    from seaweedfs_tpu_torch.utils import resilience
+
+    monkeypatch.setenv("WEEDTPU_AGG_INTERVAL", "0.5")
+    monkeypatch.setenv("WEEDTPU_SYNC_STALL_AFTER", "1.5")
+    monkeypatch.setenv("WEEDTPU_SYNC_BACKOFF_BASE", "0.2")
+    monkeypatch.setenv("WEEDTPU_SYNC_BACKOFF_CAP", "1")
+    monkeypatch.setenv("WEEDTPU_SYNC_BACKLOG_INTERVAL", "0.5")
+    # deterministic audits: the test drives run_once() itself
+    monkeypatch.setenv("WEEDTPU_GEO_AUDIT_INTERVAL", "0")
+    # generous budget: this test proves the observatory, not the damper
+    monkeypatch.setenv("WEEDTPU_RETRY_BUDGET", "20:40")
+    resilience.reset_retry_budget()
+    # the default rules' windows are operator-scale; shrink them so the
+    # fire->clear cycle fits a test
+    monkeypatch.setenv("WEEDTPU_ALERT_RULES", (
+        "replication_stalled=threshold,series=geo_replication_stalled,"
+        "agg=max,window=2,op=gt,value=0,for=0.4,clear_for=0.4;"
+        "replication_lag_high=threshold,series=geo_replication_lag_s,"
+        "agg=max,window=2,op=gt,value=1.0,for=0.4,clear_for=0.4"))
+
+    geo = GeoCluster(tmp_path, device="cpu").start()
+    try:
+        ma = f"http://{geo.master('a').url}"
+        sent0 = netflow.class_total("sent", "replication")
+        recv0 = netflow.class_total("recv", "replication")
+        wan0 = netflow.wan_total("sent")
+
+        # healthy steady state: writes converge both ways
+        geo.write("a", "/geo/from_a.txt", b"hello-from-a" * 100)
+        geo.write("b", "/geo/from_b.txt", b"hello-from-b" * 100)
+        assert wait_for(
+            lambda: geo.read("b", "/geo/from_a.txt")[0] == 200, 20)
+        assert wait_for(
+            lambda: geo.read("a", "/geo/from_b.txt")[0] == 200, 20)
+
+        # one write's trace spans BOTH regions (federated endpoint)
+        assert wait_for(lambda: geo.sync.a2b.last_trace_id, 10)
+        tid = geo.sync.a2b.last_trace_id
+        tr = _json_get(f"{ma}/cluster/trace/{tid}")
+        assert len(tr["spans"]) >= 2
+        assert {"a", "b"} <= set(tr.get("regions", []))
+
+        # /cluster/geo: both pumps reporting under region-pair labels
+        st = _json_get(f"{ma}/cluster/geo?refresh=1")
+        assert st["region"] == "a"
+        assert geo.master("b").url in st["peers"]
+        assert "a->b" in st["directions"] and "b->a" in st["directions"]
+        assert "lag_s" in st["directions"]["a->b"]
+        # ...and the maintenance roll-up carries the geo block
+        assert "geo" in _json_get(f"{ma}/maintenance/status")
+        # ...and the shell command renders it
+        out = io.StringIO()
+        run_command(CommandEnv(geo.master("a").url), "cluster.geo", out)
+        assert "a->b" in out.getvalue()
+
+        # -- partition the WAN, write during the outage ------------------
+        geo.partition()
+        geo.write("a", "/geo/during.txt", b"wrote-during-partition" * 50)
+
+        def alert_state(name):
+            st = _json_get(f"{ma}/cluster/alerts?refresh=1")
+            return {r["name"]: r["state"] for r in st["rules"]}.get(name)
+
+        # lag climbs, the pump flags itself stalled, the rule fires
+        assert wait_for(lambda: alert_state("replication_stalled")
+                        == "firing", 40)
+        assert geo.sync.a2b.stalled
+        assert geo.sync.a2b.backlog >= 1
+        hist = _json_get(
+            f"{ma}/cluster/history?"
+            + urllib.parse.urlencode({
+                "series": "geo_replication_lag_s", "range": "120",
+                "agg": "max", "labels": "direction=a->b"}))
+        peaks = [v for vec in hist["vectors"]
+                 for _, v in vec["points"] if v is not None]
+        assert peaks and max(peaks) > 1.0
+
+        # the auditor sees the divergence (its probes aren't partitioned)
+        assert geo.sync.auditor.run_once()["outcome"] == "diverged"
+
+        # -- heal: catch up, clear, converge -----------------------------
+        geo.heal()
+        assert wait_for(
+            lambda: geo.read("b", "/geo/during.txt")[0] == 200, 30)
+        assert wait_for(lambda: alert_state("replication_stalled")
+                        == "ok", 30)
+        audit = geo.sync.auditor.run_once()
+        assert audit["outcome"] == "clean"
+        da, db = geo.digests()
+        assert da == db  # byte-identical regions: the convergence proof
+
+        # -- byte conservation: replication sent == recv within 1% -------
+        time.sleep(0.5)
+        sent_d = netflow.class_total("sent", "replication") - sent0
+        recv_d = netflow.class_total("recv", "replication") - recv0
+        assert sent_d > 0
+        assert abs(sent_d - recv_d) <= 0.01 * max(sent_d, recv_d), \
+            (sent_d, recv_d)
+        # and the WAN ledger saw the cross-region bytes
+        assert netflow.wan_total("sent") - wan0 > 0
+    finally:
+        geo.stop()

@@ -1,14 +1,17 @@
 """The port's loop monitor (seaweedfs_tpu_torch/stats/loops.py), fan-out
 sizing and backoff, held to the reference's on the CPU.
 
-Twins of tests/test_loops.py but its fleet simulator case (which waits
-for the harness subsystems, ROADMAP 1.23): the tick math, overruns,
+Twins of tests/test_loops.py, its fleet simulator case on a port master
+with the port's `FleetSim` included: the tick math, overruns,
 errors, the EMA, `close` retiring the metric children, the cardinality
 providers, the fan-out knob (which raises on a malformed value, where
 the reference falls back), the bounds under 500-node churn, and
 /cluster/loops on a port master driven by the reference's shell.  Where
 a result does not depend on wall time, both packages get the same input
-and their answers compare with ``==``.
+and their answers compare with ``==``.  The port's fleet simulator
+(maintenance/fleetsim.py): each vnode's heartbeat, exposition and heat
+sketch on a frozen clock equal the reference's, and a port master
+aggregates either package's fleet alike.
 """
 
 import io
@@ -18,6 +21,7 @@ import time
 
 import pytest
 
+from seaweedfs_tpu.maintenance import fleetsim as ref_fleetsim
 from seaweedfs_tpu.shell.commands import CommandEnv, run_command
 from seaweedfs_tpu.stats import history as ref_history
 from seaweedfs_tpu.stats import interference as ref_itf
@@ -26,6 +30,7 @@ from seaweedfs_tpu.stats import metrics as ref_metrics
 from seaweedfs_tpu.utils import fanout as ref_fanout
 from seaweedfs_tpu.utils import resilience as ref_res
 
+from seaweedfs_tpu_torch.maintenance import fleetsim
 from seaweedfs_tpu_torch.stats import history, interference, loops, metrics
 from seaweedfs_tpu_torch.utils import fanout, resilience
 from tests.test_maintenance import _get
@@ -444,4 +449,140 @@ def test_expire_loop_ticks_through_the_monitor(tmp_path, monkeypatch):
         assert st["errors"] == 0
         assert "127.0.0.1:1" not in m.topo.nodes
     finally:
+        c.stop()
+
+
+# ---- the fleet simulator ------------------------------------------------------
+
+def test_fleetsim_drives_master_loops(tmp_path, monkeypatch):
+    monkeypatch.setenv("WEEDTPU_SCRUB_MBPS", "0")
+    monkeypatch.setenv("WEEDTPU_REPAIR_INTERVAL", "3600")
+    monkeypatch.setenv("WEEDTPU_AGG_INTERVAL", "0")
+    c = Cluster(tmp_path, n_volume_servers=1).start()
+    c.wait_heartbeats()
+    # heartbeat_s is huge: beat_all() below is the only heartbeat source,
+    # so registration is deterministic and the test never sleeps
+    sim = fleetsim.FleetSim(c.master.url, nodes=20, racks=4,
+                            volumes_per_node=2, heartbeat_s=3600.0,
+                            base_rps=50.0, seed=7)
+    sim.start()
+    try:
+        assert sim.beat_all() == 20
+        st = _get(c.master.url, "/cluster/loops?refresh=1")
+        agg = st["loops"]["aggregator"]
+        assert agg["items_total"] >= 21  # 20 vnodes + the real fleet
+        assert agg["backlog"] == 0      # every scrape answered
+        # the synthesized expositions are real enough for the whole
+        # observer chain: per-node interference state for every vnode
+        assert st["subsystems"]["interference_nodes"] >= 20
+
+        # correlated rack failure -> scrape errors surface as backlog
+        failed = sim.fail_rack("rack0")
+        assert len(failed) == 5  # 20 nodes round-robined over 4 racks
+        st = _get(c.master.url, "/cluster/loops?refresh=1")
+        assert st["loops"]["aggregator"]["backlog"] >= len(failed)
+        sim.recover_rack("rack0")
+        st = _get(c.master.url, "/cluster/loops?refresh=1")
+        assert st["loops"]["aggregator"]["backlog"] == 0
+
+        # leave churn shrinks the fleet
+        gone = sim.stop_nodes(5)
+        assert len(gone) == 5 and len(sim) == 15
+    finally:
+        sim.stop()
+        c.stop()
+
+
+class _FrozenTime:
+    """A `time` module whose clock moves only when the test moves it."""
+
+    def __init__(self, t: float):
+        self.t = t
+
+    def time(self) -> float:
+        return self.t
+
+
+@pytest.mark.parametrize("seed", [7, 42])
+def test_fleetsim_surfaces_equal_reference(monkeypatch, seed):
+    """On a frozen clock and one seed, each vnode's heartbeat, metrics
+    exposition and heat sketch, the Zipf weights and a flash crowd's
+    pick are the reference's, calm and busy."""
+    clock = _FrozenTime(1_700_000_000.0)
+    monkeypatch.setattr(fleetsim, "time", clock)
+    monkeypatch.setattr(ref_fleetsim, "time", clock)
+    sims = {name: mod.FleetSim("127.0.0.1:1", nodes=6, racks=3,
+                               volumes_per_node=5, base_rps=80.0, seed=seed)
+            for name, mod in (("port", fleetsim), ("ref", ref_fleetsim))}
+    for n in (1, 5, 8, 500):
+        assert sims["port"].zipf_weights(n) == \
+            sims["ref"].zipf_weights(n)
+    nodes = {}
+    for name, mod in (("port", fleetsim), ("ref", ref_fleetsim)):
+        nodes[name] = []
+        for idx in range(6):
+            vn = mod._VNode(sims[name], idx, f"rack{idx % 3}",
+                            list(range(1 + 5 * idx, 6 + 5 * idx)))
+            vn.url = f"127.0.0.1:{20000 + idx}"
+            vn.tracker_id = f"t{idx}"
+            sims[name].nodes[idx] = vn
+            nodes[name].append(vn)
+
+    def surfaces(vn):
+        return (vn.heartbeat_body(), vn.render_metrics(), vn.render_heat())
+
+    for step in (37.5, 120.25):
+        clock.t += step
+        for a, b in zip(nodes["port"], nodes["ref"]):
+            assert surfaces(a) == surfaces(b)
+    assert sims["port"].flash_crowd(0.34, 60.0) == \
+        sims["ref"].flash_crowd(0.34, 60.0)
+    clock.t += 12.0
+    for a, b in zip(nodes["port"], nodes["ref"]):
+        assert surfaces(a) == surfaces(b)
+
+
+def test_port_master_aggregates_both_fleetsims_alike(tmp_path, monkeypatch):
+    """A reference and a port FleetSim against one port master: every
+    vnode of either is scraped, its families carry the same labels, a
+    rack failure in each shows as backlog and clears on recovery."""
+    monkeypatch.setenv("WEEDTPU_SCRUB_MBPS", "0")
+    monkeypatch.setenv("WEEDTPU_REPAIR_INTERVAL", "3600")
+    monkeypatch.setenv("WEEDTPU_AGG_INTERVAL", "0")
+    c = Cluster(tmp_path, n_volume_servers=1).start()
+    c.wait_heartbeats()
+    sims = [mod.FleetSim(c.master.url, nodes=6, racks=2,
+                         volumes_per_node=2, heartbeat_s=3600.0, seed=3)
+            for mod in (fleetsim, ref_fleetsim)]
+    try:
+        for sim in sims:
+            sim.start()
+            assert sim.beat_all() == 6
+        st = _get(c.master.url, "/cluster/loops?refresh=1")
+        agg = st["loops"]["aggregator"]
+        assert agg["items_total"] >= 13 and agg["backlog"] == 0
+        per_node = c.master.aggregator.per_node
+        shapes = []
+        for sim in sims:
+            urls = sim.urls()
+            assert set(urls) <= set(per_node)
+            for u in urls:
+                fams = per_node[u]
+                shapes.append({f: sorted({(name, tuple(sorted(labels)))
+                                          for name, labels, _ in
+                                          fam["samples"]})
+                               for f, fam in fams.items()})
+        assert all(s == shapes[0] for s in shapes)
+        for sim in sims:
+            failed = sim.fail_rack("rack1")
+            assert len(failed) == 3
+        st = _get(c.master.url, "/cluster/loops?refresh=1")
+        assert st["loops"]["aggregator"]["backlog"] >= 6
+        for sim in sims:
+            sim.recover_rack("rack1")
+        st = _get(c.master.url, "/cluster/loops?refresh=1")
+        assert st["loops"]["aggregator"]["backlog"] == 0
+    finally:
+        for sim in sims:
+            sim.stop()
         c.stop()

@@ -72,8 +72,9 @@ def test_follower_answers_as_the_leader_and_the_reference_follower(tmp_path):
     fid = seeder.upload(b"y" * 700, name="seed.txt")
     vid = int(fid.split(",")[0])
     mf = MasterFollower(c.master.url, port=free_port())
-    ref = RefFollower(c.master.url, port=free_port())
     c.submit(mf.start())
+    # drawn once mf holds its port: two draws in a row may name one port
+    ref = RefFollower(c.master.url, port=free_port())
     c.submit(ref.start())
     try:
         for path in ("/dir/status", "/dir/ec/lookup?volumeId=%d" % vid):

@@ -9,6 +9,7 @@ tests/test_pallas.py runs it.
 
 import ast
 import itertools
+import json
 import os
 import pathlib
 import subprocess
@@ -518,6 +519,141 @@ def test_mq_broker_and_client_leave_jax_and_torch_unloaded():
         r.stderr[-3000:]
 
 
+def test_import_rule_covers_the_harness_slice():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for rel in ("maintenance/chaos.py", "maintenance/fleetsim.py"):
+        assert f"seaweedfs_tpu_torch/{rel}" in files, rel
+
+
+# the port's master and a 20-vnode fleet in one fresh interpreter: every
+# vnode beats and is scraped; neither jax, torch nor the reference loads
+_FLEETSIM_CHILD = r"""
+import asyncio, json, sys, threading, urllib.request
+from seaweedfs_tpu_torch.maintenance import chaos, fleetsim
+assert not [m for m in sys.modules if m.split(".")[0] in ("aiohttp", "torch")]
+from seaweedfs_tpu_torch.server.master import MasterServer
+loop = asyncio.new_event_loop()
+threading.Thread(target=loop.run_forever, daemon=True).start()
+def run(coro):
+    return asyncio.run_coroutine_threadsafe(coro, loop).result(60)
+m = MasterServer("127.0.0.1", chaos.free_port())
+run(m.start())
+sim = fleetsim.FleetSim(m.url, nodes=20, racks=4, volumes_per_node=2,
+                        heartbeat_s=3600.0, seed=7).start()
+assert sim.beat_all() == 20
+with urllib.request.urlopen(f"http://{m.url}/cluster/loops?refresh=1",
+                            timeout=60) as r:
+    agg = json.load(r)["loops"]["aggregator"]
+assert agg["items_total"] >= 21 and agg["backlog"] == 0, agg
+sim.stop()
+run(m.stop())
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "torch", "seaweedfs_tpu")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_fleetsim_leaves_jax_and_torch_unloaded():
+    """The port's fleet simulator against the port's master in a fresh
+    interpreter: the harness modules load without aiohttp or torch, and
+    a beating, scraped fleet imports neither jax, torch nor the
+    reference package."""
+    r = subprocess.run([sys.executable, "-c", _FLEETSIM_CHILD], cwd=REPO,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, WEEDTPU_AGG_INTERVAL="0",
+                                WEEDTPU_REPAIR_INTERVAL="0"))
+    assert r.returncode == 0 and r.stdout.endswith("ok\n"), \
+        r.stderr[-3000:]
+
+
+# `python -m seaweedfs_tpu_torch.maintenance.fleetsim <master>` through
+# runpy, ended by a SIGINT as an operator's ^C would; it reports what it
+# loaded
+_FLEETSIM_CLI = r"""
+import json, runpy, sys
+sys.argv = ["fleetsim", sys.argv[1]]
+try:
+    runpy.run_module("seaweedfs_tpu_torch.maintenance.fleetsim",
+                     run_name="__main__")
+except SystemExit as e:
+    rc = e.code
+print(json.dumps({"rc": rc, "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in
+    ("jax", "torch", "seaweedfs_tpu"))}))
+"""
+
+
+def test_fleetsim_cli_registers_its_fleet_and_stops_on_sigint(tmp_path,
+                                                              monkeypatch):
+    """The module's entry point at its defaults (500 vnodes) against a
+    port master: every vnode registers within a heartbeat period or
+    two, a SIGINT stops it with exit code 0, and it loaded neither
+    torch, jax nor the reference package."""
+    import signal
+    import time
+    from tests.test_torch_master_cluster import Cluster
+    monkeypatch.setenv("WEEDTPU_AGG_INTERVAL", "0")
+    monkeypatch.setenv("WEEDTPU_REPAIR_INTERVAL", "0")
+    c = Cluster(tmp_path, n_volume_servers=0).start()
+    proc = subprocess.Popen([sys.executable, "-c", _FLEETSIM_CLI,
+                             c.master.url], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        deadline = time.time() + 60
+        while time.time() < deadline and len(c.master.topo.nodes) < 500:
+            assert proc.poll() is None, proc.stderr.read()[-3000:]
+            time.sleep(0.1)
+        assert len(c.master.topo.nodes) == 500
+        racks = {n.rack for n in c.master.topo.nodes.values()}
+        assert racks == {f"rack{i}" for i in range(10)}
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        c.stop()
+    assert proc.returncode == 0, err[-3000:]
+    rep = json.loads(out.splitlines()[-1])
+    assert rep == {"rc": 0, "loaded": []}, rep
+
+
+# one chaos cell on the CPU in a fresh interpreter: the harness drives
+# port servers only, so neither jax nor the reference package loads
+_CHAOS_CHILD = r"""
+import pathlib, sys
+from seaweedfs_tpu_torch.maintenance import chaos
+c = chaos.ChaosCluster(pathlib.Path(sys.argv[1]), n_volume_servers=2,
+                       device="cpu").start()
+try:
+    c.wait_heartbeats()
+    rep = chaos.run_scenario(c, "degraded_read", "shard_loss")
+finally:
+    c.stop()
+assert rep["fault"] == "shard_loss", rep
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "seaweedfs_tpu")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_chaos_cell_leaves_jax_unloaded(tmp_path):
+    """A `degraded_read x shard_loss` cell on a port `ChaosCluster` with
+    its volume servers on the CPU, in a fresh interpreter: prepare,
+    encode, the loss, the heal and the byte and fsck checks import
+    neither jax nor the reference package."""
+    r = subprocess.run([sys.executable, "-c", _CHAOS_CHILD, str(tmp_path)],
+                       cwd=REPO, capture_output=True, text=True,
+                       timeout=120,
+                       env=dict(os.environ, WEEDTPU_SCRUB_MBPS="0",
+                                WEEDTPU_REPAIR_INTERVAL="0"))
+    assert r.returncode == 0 and r.stdout.endswith("ok\n"), \
+        r.stderr[-3000:]
+
+
 def test_card_path_modules_import_no_server_package():
     """The store, the EC files and the codecs load without aiohttp and
     protobuf: only the server modules import them at module level."""
@@ -988,3 +1124,33 @@ def test_kernel_reads_in_place_only_aligned_rows(view, in_place):
                                    dtype=torch.uint8).transpose(1, 2),
          }[view]
     assert gf_cuda._in_place(x) is in_place
+
+
+def test_plain_version_runs_on_one_intra_op_thread(monkeypatch):
+    """A CPU apply runs `gf_apply_plain` on one intra-op thread and gives
+    the calling thread its own count back (ROADMAP fault 3.16: an
+    OpenMP team per call oversubscribes a loaded host)."""
+    seen = []
+    plain = gf_cuda.gf_apply_plain
+
+    def probe(bitmat, x):
+        seen.append(torch.get_num_threads())
+        return plain(bitmat, x)
+
+    monkeypatch.setattr(gf_cuda, "gf_apply_plain", probe)
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(3)
+        C = np.random.default_rng(0).integers(0, 256, (4, 10),
+                                              dtype=np.uint8)
+        x = np.random.default_rng(1).integers(0, 256, (10, 4096),
+                                              dtype=np.uint8)
+        got = gf_cuda.CudaGFMatrix(C)(torch.from_numpy(x))
+        assert torch.get_num_threads() == 3
+        with gf_cuda.one_intra_op_thread():
+            assert torch.get_num_threads() == 1
+        assert torch.get_num_threads() == 3
+    finally:
+        torch.set_num_threads(before)
+    assert seen == [1]
+    assert np.array_equal(got.numpy(), ref_gf.gf_matmul(C, x))
