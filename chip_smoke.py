@@ -8,7 +8,8 @@ to end and check every byte.
 Phases (any failure ends the run with a non-zero exit and no result line):
 
   1 build      nvcc/g++ build of seaweedfs_tpu_torch/csrc, all at once
-               (the GF kernel, the needle checksum, the native host codec,
+               (the GF kernel at the default launch tile and, tiled, at
+               the others, the needle checksum, the native host codec,
                the chunk cipher), started before torch's import, which it
                overlaps
   2 kernel     the GF(2^8) kernel against gf_apply_plain, byte for byte:
@@ -609,7 +610,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                DIR`, started after phase 22 and told to go at phase 27's
                start, beside phases 27-29, its lines printed at the join
                after phase 29's; launches zeroed before and read after
- 31 report     {"kernels": [...]} line, the card's name and power limit,
+ 31 tile       the launch tile (ops/gf_cuda.py) and the tile-drift
+               sentinel, after phase 30's join, with WEEDTPU_TILE_PIN in
+               the work directory (set for the whole run: no pin applies
+               before this phase, and none is read from or written to the
+               home directory): micro_sweep at [10, 1 MiB], one line per
+               candidate tile with its GB/s and the card's name and power
+               limit, K1 candidates x (1 + 3); each candidate's product
+               byte-equal to the plain version's and the default tile's;
+               the winner pinned and resolved, a pin with another chip's
+               fingerprint not applied, WEEDTPU_EC_TILE winning over the
+               pin; the phase-3 volume (links of its copy) encoded at the
+               pinned tile, sha256 == phase 4's, K1 phase 4's; a port
+               master and a card VolumeServer with
+               WEEDTPU_TILE_SENTINEL_INTERVAL=1: after two sweeps the
+               sentinel is stopped, its verdict (ok or stale, held
+               against its own sweep table) on /debug/pipeline, the
+               master's /cluster/perf, /metrics (weedtpu_tile_drift) and
+               the shell's cluster.perf, K1 one sweep per tick; the
+               sentinel cleared (`set_sentinel(None)`); K2 0; launches
+               zeroed before and read after
+ 32 report     {"kernels": [...]} line, the card's name and power limit,
                and the result line
 
 Phases 4-6 each run twice: first "cold", with the files they read synced
@@ -618,7 +639,7 @@ the share still resident), then "warm", right after, with those files
 cached; each encode run starts with no shard set on disk.  Launch
 counts are zeroed just before phase 3 and read just after phase 9, and
 zeroed again just before phase 10 and read just after it, and again
-around phases 12-30, each on its own, so the reported launches are
+around phases 12-31, each on its own, so the reported launches are
 the paths' own
 (their sum); the run fails if
 a path made the kernel wrapper stage a copy of any input
@@ -868,6 +889,22 @@ def kernel_cases(seed: int):
     cases += [(f"random [{m},{k}] n={n}", rand(m, k), (k, n), False, False)
               for c in (4, 5, 6) for m, k in ((c, 8 * c), (8, c))
               for n in (17, 4097, 2 * MIB + 5)]
+    # every candidate launch tile but the default, which the cases above
+    # run: K1 at ragged n around the tile, K2 on [4, 10, n] units, and
+    # the generic instantiation on a [16, 72] row block
+    for tile in gf_cuda.SWEEP_TILES:
+        if tile == gf_cuda.DEFAULT_TILE:
+            continue
+        tp = gf_cuda.CudaGFMatrix(code.parity_matrix, tile=tile)
+        cases += [(f"tile {tile} parity n={n}", tp, (10, n), False, False)
+                  for n in (17, tile - 16, tile + 17, 3 * tile + 5,
+                            MIB + 5)]
+        cases += [(f"tile {tile} batch [4,10] n={n}", tp, (4, 10, n), True,
+                   False) for n in (tile + 17, MIB)]
+        wide = gf_cuda.CudaGFMatrix(
+            g.integers(0, 256, (16, 72), np.uint8), tile=tile)
+        cases.append((f"tile {tile} random [16,72] n={2 * tile + 33}", wide,
+                      (72, 2 * tile + 33), False, False))
     return cases
 
 
@@ -939,7 +976,8 @@ def phase_kernel(seed: int) -> tuple[list[dict], list[dict], dict]:
         rows.append(row)
         del x
     log(f"[kernel] {sum('ms' not in r for r in rows)} correctness cases "
-        "equal (m 1..16, k 1..9/17/32; m 17..72, k 33..200; ragged n)")
+        "equal (m 1..16, k 1..9/17/32; m 17..72, k 33..200; ragged n; "
+        f"K1 and K2 at launch tiles {list(gf_cuda.SWEEP_TILES)})")
     rows += views_and_codec(seed)
     torch.cuda.empty_cache()
 
@@ -12809,6 +12847,277 @@ def chaos_worker(vdir: str) -> int:
     return 0
 
 
+# phase 31: the launch tile's sweep, its pin and the tile-drift sentinel
+TILE_SWEEP_ITERS = 3  # timed launches per tile: micro_sweep's default,
+#                       which the sentinel's sweeps take
+TILE_SENTINEL_TICKS = 2  # the sentinel's sweeps before it is stopped
+TILE_FOREIGN = "tpu:TPU v5 lite:1"  # a pin's fingerprint from another chip
+
+
+def phase_tile(vdir: str, server_src: str, dat_hash: str,
+               hashes: list[str], enc_launches: int, launches: dict,
+               device=None) -> dict:
+    """Phase 31: the launch tile (ops/gf_cuda.py) and its sentinel on the
+    card, with WEEDTPU_TILE_PIN in the work directory.  (1) micro_sweep at
+    [10, 1 MiB]: one line per candidate, K1 candidates x (1 + iters);
+    each candidate's product of the sweep's input byte-equal to the plain
+    version's and to the default tile's (K1 one each).  (2) The winner
+    pinned; resolved_tile gives it; a pin with another chip's
+    fingerprint gives the default; WEEDTPU_EC_TILE wins over the pin.
+    (3) The phase-3 volume (links of its copy) encoded at the pinned tile:
+    the 14 shards sha256-equal to phase 4's, K1 phase 4's count.  (4) A
+    port master and a card VolumeServer started with
+    WEEDTPU_TILE_SENTINEL_INTERVAL=1: after TILE_SENTINEL_TICKS sweeps
+    the sentinel is stopped, and its verdict (held against its own sweep
+    table) is on /debug/pipeline, the master's /cluster/perf, /metrics
+    (weedtpu_tile_drift) and the shell's cluster.perf; K1 one sweep per
+    tick.  (5) The sentinel cleared.  K2 0 throughout."""
+    import io
+
+    import numpy as np
+    import torch
+    from seaweedfs_tpu_torch.models import rs
+    from seaweedfs_tpu_torch.ops import gf_cuda
+    from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.shell.commands import CommandEnv, run_command
+    from seaweedfs_tpu_torch.stats import pipeline
+    from seaweedfs_tpu_torch.stats.aggregate import parse_exposition
+    from seaweedfs_tpu_torch.storage.ec import ec_files, layout
+    from seaweedfs_tpu_torch.utils import http
+
+    card = card_name_power()
+
+    def tlog(msg: str) -> None:
+        log(f"[tile] {msg} [{card}]")
+
+    work = os.path.join(vdir, "tile")
+    dirs = {n: os.path.join(work, n) for n in ("enc", "vs")}
+    for d in dirs.values():
+        os.makedirs(d)
+    pin_path = os.path.join(work, "pin.json")
+    tiles = sorted(gf_cuda.SWEEP_TILES)
+    steps: dict = {}
+    counts: dict = {}
+    t_phase = time.perf_counter()
+
+    def step_counts(name: str, k0: dict, k1: int) -> None:
+        got = {k: launches[k] - k0[k] for k in launches}
+        counts[name] = got
+        want = {"gf_apply": k1, "gf_apply_batch": 0}
+        if got != want:
+            raise AssertionError(f"phase 31 {name}: launched {got}, "
+                                 f"predicted {want}")
+
+    loops: list = []
+    client = http.PooledHTTP(timeout=120.0, max_idle_per_host=4)
+    master = vs = sentinel = None
+    saved_ec_tile = os.environ.pop("WEEDTPU_EC_TILE", None)
+    try:
+        with scoped_env(WEEDTPU_TILE_PIN=pin_path):
+            # 1 the sweep, then every candidate's bytes
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            sweep = gf_cuda.micro_sweep(iters=TILE_SWEEP_ITERS,
+                                        device=device)
+            dt = time.perf_counter() - t0
+            if sorted(sweep) != tiles or not all(
+                    v > 0 for v in sweep.values()):
+                raise AssertionError(f"micro_sweep gave {sweep}, wanted a "
+                                     f"rate for each of {tiles}")
+            step_counts("1 sweep", k0, len(tiles) * (1 + TILE_SWEEP_ITERS))
+            for t in tiles:
+                tlog(f"1 sweep [10,1MiB] tile {t}: {sweep[t]:.3f} GB/s")
+            k0 = dict(launches)
+            C = rs.get_code(10, 4).parity_matrix
+            dev = gf_cuda.resolve_device(device)
+            x = gf_cuda.device_empty((10, gf_cuda.SWEEP_N), dev)
+            x.copy_(torch.from_numpy(np.random.default_rng(0).integers(
+                0, 256, (10, gf_cuda.SWEEP_N), dtype=np.uint8)))
+            plain = gf_cuda.gf_apply_plain(
+                gf_cuda.CudaGFMatrix(C).bitmat.to(dev), x)
+            outs = {t: gf_cuda.CudaGFMatrix(C, tile=t)(x) for t in tiles}
+            for t in tiles:
+                if not torch.equal(outs[t], plain) or not torch.equal(
+                        outs[t], outs[gf_cuda.DEFAULT_TILE]):
+                    raise AssertionError(f"tile {t}: the product differs "
+                                         f"from the plain version's or the "
+                                         f"default tile's")
+            del outs, plain, x
+            step_counts("1 bytes", k0, len(tiles))
+            best = max(sweep, key=sweep.get)
+            steps["1 sweep"] = {"gbps": {str(t): sweep[t] for t in tiles},
+                                "best": best, "s": dt}
+            tlog(f"1 sweep: {len(tiles)} candidates in {dt:.3f} s, K1 "
+                 f"{counts['1 sweep']['gf_apply']} (x {1 + TILE_SWEEP_ITERS}"
+                 f" each); best {best} ({sweep[best]:.3f} GB/s, default "
+                 f"{gf_cuda.DEFAULT_TILE}: "
+                 f"{sweep[gf_cuda.DEFAULT_TILE]:.3f}); each tile's product "
+                 f"== plain == the default tile's, K1 {len(tiles)}")
+
+            # 2 the pin, a foreign pin, the override
+            written = gf_cuda.save_tile_pin(best, sweep[best], sweep,
+                                            device=device)
+            home = os.path.join(os.path.expanduser("~"),
+                                ".weedtpu_tile_pin.json")
+            if written != pin_path or os.path.realpath(written) == \
+                    os.path.realpath(home):
+                raise AssertionError(f"the pin went to {written}")
+            pin = gf_cuda.load_tile_pin()
+            fingerprint = gf_cuda.chip_fingerprint(device)
+            if pin["fingerprint"] != fingerprint or \
+                    gf_cuda.resolved_tile(device=device) != best or \
+                    gf_cuda.get_codec(10, 4, device=device).tile != best:
+                raise AssertionError(f"the pin {pin} does not apply")
+            foreign_path = os.path.join(work, "foreign.json")
+            with open(foreign_path, "w") as f:
+                json.dump(dict(pin, fingerprint=TILE_FOREIGN,
+                               tile=max(tiles)), f)
+            with scoped_env(WEEDTPU_TILE_PIN=foreign_path):
+                if gf_cuda.resolved_tile(device=device) != \
+                        gf_cuda.DEFAULT_TILE:
+                    raise AssertionError("a foreign pin applied")
+            other = next(t for t in reversed(tiles) if t != best)
+            with scoped_env(WEEDTPU_EC_TILE=str(other)):
+                if gf_cuda.resolved_tile(device=device) != other:
+                    raise AssertionError("WEEDTPU_EC_TILE lost to the pin")
+            tlog(f"2 pin: {best} written to the work directory with "
+                 f"{fingerprint!r}, resolved_tile {best}; a pin of "
+                 f"{max(tiles)} with {TILE_FOREIGN!r} resolves "
+                 f"{gf_cuda.DEFAULT_TILE}; WEEDTPU_EC_TILE={other} wins "
+                 f"over the pin")
+
+            # 3 the phase-3 volume encoded at the pinned tile
+            if sha256(server_src + ".dat") != dat_hash:
+                raise AssertionError("the phase-3 copy changed")
+            ebase = os.path.join(dirs["enc"], os.path.basename(server_src))
+            for ext in (".dat", ".idx"):
+                os.link(server_src + ext, ebase + ext)
+            if ec_files._get_codec(device).tile != best:
+                raise AssertionError("the encode's codec is not at the "
+                                     "pinned tile")
+            k0 = dict(launches)
+            t0 = time.perf_counter()
+            ec_files.write_ec_files(ebase, device=device)
+            dt = time.perf_counter() - t0
+            got = sha256_many([ebase + layout.to_ext(i) for i in range(14)])
+            if got != hashes:
+                bad = [i for i in range(14) if got[i] != hashes[i]]
+                raise AssertionError(f"shards {bad} at tile {best} differ "
+                                     f"from phase 4's")
+            step_counts("3 encode", k0, enc_launches)
+            steps["3 encode"] = {"tile": best, "s": dt}
+            tlog(f"3 encode: the phase-3 volume at tile {best} in {dt:.2f} "
+                 f"s, 14 shards sha256 == phase 4's, K1 {enc_launches}")
+
+            # 4 the sentinel behind a port master and a card server
+            mrun, vrun = loop_thread(loops), loop_thread(loops)
+            with scoped_env(WEEDTPU_REPAIR_INTERVAL="0",
+                            WEEDTPU_CANARY_INTERVAL="0",
+                            WEEDTPU_AGG_INTERVAL="0",
+                            WEEDTPU_SCRUB_MBPS="0",
+                            WEEDTPU_TILE_SENTINEL_INTERVAL="1"):
+                master = MasterServer("127.0.0.1", free_port())
+                master.vacuum_enabled = False
+                mrun(master.start())
+                k0 = dict(launches)
+                vs = vsmod.VolumeServer([dirs["vs"]], master.url,
+                                        "127.0.0.1", free_port(),
+                                        heartbeat_interval=0.5,
+                                        device=device)
+                vrun(vs.start())
+            sentinel = pipeline._sentinel
+            if sentinel is None or sentinel.interval != 1.0 or \
+                    sentinel.device != vs.device:
+                raise AssertionError("the server started no sentinel on "
+                                     "its device")
+            ticks: list = []
+            tick = sentinel.run_once
+
+            def counted() -> dict:
+                st = tick()
+                ticks.append(st["state"])
+                return st
+            sentinel.run_once = counted  # before its first tick, 1 s on
+            until(lambda: len(ticks) >= TILE_SENTINEL_TICKS,
+                  "the sentinel did not tick", timeout=15)
+            sentinel.stop()
+            step_counts("4 sentinel", k0, len(ticks) * len(tiles) *
+                        (1 + TILE_SWEEP_ITERS))
+            verdict = sentinel.status()
+            if verdict["state"] not in ("ok", "stale") or \
+                    "sweep_failed" in ticks:
+                raise AssertionError(f"the sentinel's ticks {ticks}, last "
+                                     f"{verdict}")
+            table = {int(t): v for t, v in verdict["sweep"].items()}
+            pinned, top = table[verdict["pinned_tile"]], max(table.values())
+            drift = max(0.0, top / pinned - 1.0)
+            if sorted(table) != tiles or verdict["pinned_tile"] != best or \
+                    abs(verdict["drift"] - drift) > 1e-3 or \
+                    (verdict["state"] == "stale") != (drift > 0.1):
+                raise AssertionError(f"the verdict {verdict} disagrees with "
+                                     f"its sweep table")
+            st, _, raw = client.request(f"http://{vs.url}/debug/pipeline")
+            if st != 200 or json.loads(raw).get("tile") != verdict:
+                raise AssertionError(f"/debug/pipeline: {st} {raw[:300]!r}")
+            until(lambda: master.topo.nodes, "the server never beat")
+            st, _, raw = client.request(f"http://{master.url}/cluster/perf")
+            tiles_seen = json.loads(raw).get("tiles", {}) if st == 200 \
+                else {}
+            # one process, one tracker: the master's own snapshot, first
+            # in the merge, carries the process-wide sentinel's verdict
+            if list(tiles_seen.values()) != [verdict]:
+                raise AssertionError(f"/cluster/perf tiles {tiles_seen}")
+            node = next(iter(tiles_seen))
+            st, _, raw = client.request(f"http://{vs.url}/metrics")
+            gauge = [v for _, _, v in parse_exposition(raw.decode()).get(
+                "weedtpu_tile_drift", {}).get("samples", [])]
+            if st != 200 or gauge != [verdict["drift"]]:
+                raise AssertionError(f"weedtpu_tile_drift {gauge}, the "
+                                     f"verdict's {verdict['drift']}")
+            out = io.StringIO()
+            run_command(CommandEnv(master.url), "cluster.perf", out)
+            line = next((ln for ln in out.getvalue().splitlines()
+                         if ln.strip().startswith(
+                             f"tile {node}: {verdict['state']}")),
+                        None)
+            if line is None:
+                raise AssertionError(f"cluster.perf: {out.getvalue()!r}")
+            steps["4 sentinel"] = {"ticks": ticks, "verdict": verdict}
+            tlog(f"4 sentinel: {len(ticks)} ticks {ticks} on {vs.device} at "
+                 f"1 s, stopped; {verdict['state']}: pinned {best} "
+                 f"{verdict['pinned_gbps']} GB/s, best "
+                 f"{verdict['best_tile']} {verdict['best_gbps']} GB/s, "
+                 f"drift {verdict['drift']} (its own table's "
+                 f"{drift:.4f}); on /debug/pipeline, /cluster/perf, "
+                 f"/metrics and `{line.strip()}`; K1 "
+                 f"{counts['4 sentinel']['gf_apply']} "
+                 f"({len(tiles) * (1 + TILE_SWEEP_ITERS)} a sweep)")
+    finally:
+        if sentinel is not None:
+            sentinel.stop()
+        pipeline.set_sentinel(None)
+        if vs is not None:
+            vrun(vs.stop())
+        if master is not None:
+            mrun(master.stop())
+        stop_loops(loops)
+        client.close()
+        if saved_ec_tile is not None:
+            os.environ["WEEDTPU_EC_TILE"] = saved_ec_tile
+        shutil.rmtree(work, ignore_errors=True)
+    # 5 cleared
+    if pipeline.sentinel_status() is not None or any(
+            t.name == "weedtpu-tile-sentinel" for t in threading.enumerate()):
+        raise AssertionError("a tile sentinel outlived the phase")
+    out = {"card": card, "steps": steps, "counts": counts,
+           "s": time.perf_counter() - t_phase}
+    k1 = {k: v["gf_apply"] for k, v in counts.items()}
+    tlog(f"5 cleared: no sentinel left; K1 per step {k1}, K2 0; phase wall "
+         f"{out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -12867,6 +13176,10 @@ def main(argv=None) -> int:
     vdir = os.path.join(here, "build", "chip_smoke")
     shutil.rmtree(vdir, ignore_errors=True)
     os.makedirs(vdir)
+    # the launch tile's pin lives in the work directory: no pin applies
+    # before phase 31 writes one, in this process or its children, and
+    # none is read from or written to the home directory
+    os.environ["WEEDTPU_TILE_PIN"] = os.path.join(vdir, "tile_pin.json")
     phases: dict = {}
     written: dict = {}
 
@@ -12901,8 +13214,9 @@ def main(argv=None) -> int:
             f"{', '.join(f'{k} {v:.1f} s' for k, v in took.items())} "
             f"from the start), then {time.perf_counter() - t1:.1f} s for "
             f"phase 3's volume, written meanwhile")
-        for line in ptxas_report(_build.LOG.get("gf_matmul", "")):
-            log(f"[build] ptxas {line}")
+        for name, tag in (("gf_matmul", ""), ("gf_matmul_tiled", "tiled ")):
+            for line in ptxas_report(_build.LOG.get(name, "")):
+                log(f"[build] ptxas {tag}{line}")
         if "error" in written:
             raise written["error"]
 
@@ -13445,12 +13759,32 @@ def main(argv=None) -> int:
             f"start signal, {waited:.1f} s of them waited at the join")
         path_launches = {k: path_launches[k] + chaos_launches[k]
                          for k in path_launches}
+
+        # 31 the launch tile: its sweep, its pin and the sentinel, after
+        # every other phase (the sentinel's ticks launch K1 at times no
+        # other phase predicts), counted on its own
+        gf_cuda.reset_launches()
+        phases["tile"] = phase_tile(vdir, server_src, dat_hash, hashes,
+                                    phases["encode_warm"]["launches"],
+                                    launches)
+        tile_launches = dict(launches)
+        staged = dict(gf_cuda.STAGED)
+        if any(staged.values()):
+            raise AssertionError(f"the tile phase made the kernel wrapper "
+                                 f"stage copies of its input: {staged}")
+        if not tile_launches["gf_apply"] or tile_launches["gf_apply_batch"]:
+            raise AssertionError(f"the tile phase launched {tile_launches}: "
+                                 f"K1 and no K2 expected")
+        log(f"[path] phase 31: launches {tile_launches}, staged copies "
+            f"{staged}")
+        path_launches = {k: path_launches[k] + tile_launches[k]
+                         for k in path_launches}
     finally:
         if chaos_proc is not None:
             stop_worker(chaos_proc)
         shutil.rmtree(vdir, ignore_errors=True)
 
-    # 31 report
+    # 32 report
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
     log(json.dumps({"phases": phases, "kernel_cases": rows}))

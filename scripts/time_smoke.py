@@ -42,7 +42,7 @@ ORDER = ["device", "build", "kernel", "write", "encode", "degraded",
          "writer", "telemetry", "record", "store", "remote", "server",
          "maintenance", "admin", "mesh", "master", "planes", "heal",
          "shell", "filer", "filer-server", "s3", "webdav", "replication",
-         "mq", "chaos", "total"]
+         "mq", "chaos", "tile", "total"]
 NAMES = ["0 start", "1 build", "2 kernel", "3 write", "4 encode",
          "5 degraded", "6 rebuild", "7 fleet", "8 scrub", "9 repair",
          "10 codecs", "11 native", "12 writer", "13 telemetry",
@@ -50,7 +50,7 @@ NAMES = ["0 start", "1 build", "2 kernel", "3 write", "4 encode",
          "17 maintenance", "18 admin", "19 mesh", "20 master",
          "21 planes", "22 heal", "23 shell", "24 filer",
          "25 filer server", "26 s3", "27 webdav", "28 replication",
-         "29 mq", "30 chaos", "31 report"]
+         "29 mq", "30 chaos", "31 tile", "32 report"]
 TAG = re.compile(r"^\[([a-z0-9_-]+)")
 
 

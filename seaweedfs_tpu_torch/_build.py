@@ -1,21 +1,26 @@
 """First-use build of the port's native sources into shared libraries.
 
-Four libraries, each built from `csrc/` by its own compiler and loaded
+Five libraries, each built from `csrc/` by its own compiler and loaded
 with ctypes through a plain C interface:
 
-  gf_matmul   csrc/gf_matmul.cu  nvcc, sm_90a   the GF(2^8) apply kernel
-  crc32c      csrc/crc32c.cc     g++            the needle checksum
-  gf_native   csrc/gf_native.cc  g++            the host GF(2^8) codec
-                                                (AVX2; GFNI by CPUID)
-  aes_gcm     csrc/aes_gcm.cc    g++            the chunk cipher
-                                                (AES-NI by CPUID)
+  gf_matmul        csrc/gf_matmul.cu   nvcc, sm_90a  the GF(2^8) apply
+                                                     kernel, default tile
+  gf_matmul_tiled  csrc/gf_matmul_     nvcc, sm_90a  the same kernel with
+                   tiled.cu (includes                the tiled loop, for
+                   gf_matmul.cu)                     every other tile
+  crc32c           csrc/crc32c.cc      g++           the needle checksum
+  gf_native        csrc/gf_native.cc   g++           the host GF(2^8) codec
+                                                     (AVX2; GFNI by CPUID)
+  aes_gcm          csrc/aes_gcm.cc     g++           the chunk cipher
+                                                     (AES-NI by CPUID)
 
 A library is built the first time it is loaded, into `build/torch_kernels/`
 at the repository root (git-ignored), under a name keyed by a hash of its
-source and command line, so an edited source rebuilds and a stale library
-is never loaded.  `build()` starts every missing compile at once and waits
-for all of them; `start()` and `finish()` are its halves, for a caller
-with other work to do meanwhile.  Nothing is built at import time.
+source, the sources it includes and its command line, so an edited
+source rebuilds and a stale library is never loaded.  `build()` starts
+every missing compile at once and waits for all of them; `start()` and
+`finish()` are its halves, for a caller with other work to do
+meanwhile.  Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -34,8 +39,11 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
-_SOURCES = {"gf_matmul": "gf_matmul.cu", "crc32c": "crc32c.cc",
+_SOURCES = {"gf_matmul": "gf_matmul.cu",
+            "gf_matmul_tiled": "gf_matmul_tiled.cu", "crc32c": "crc32c.cc",
             "gf_native": "gf_native.cc", "aes_gcm": "aes_gcm.cc"}
+# sources a library's source includes: they key its build too
+_INCLUDES = {"gf_matmul_tiled": ("gf_matmul.cu",)}
 
 _I64 = ctypes.c_int64
 _PTR = ctypes.c_void_p
@@ -45,7 +53,7 @@ _SIGNATURES = {
             _PTR, ctypes.c_int, ctypes.c_int,   # tables, m, k
             _PTR, _I64, _I64,                   # x, unit stride, row stride
             _PTR, _I64, _I64,                   # out, unit stride, row stride
-            _I64, ctypes.c_int,                 # n, units
+            _I64, ctypes.c_int, ctypes.c_int,   # n, units, launch tile
             _PTR]),                             # stream
     },
     "crc32c": {
@@ -71,6 +79,7 @@ _SIGNATURES = {
             _PTR, _PTR, ctypes.c_size_t, _PTR]),
     },
 }
+_SIGNATURES["gf_matmul_tiled"] = _SIGNATURES["gf_matmul"]  # the same entry
 # the g++ libraries' ISA flags on x86-64
 _ISA = {"crc32c": ["-msse4.2"], "gf_native": ["-mavx2", "-mssse3"],
         "aes_gcm": []}
@@ -99,7 +108,7 @@ def _nvcc() -> str:
 
 def _command(name: str, out: str) -> list[str]:
     src = str(CSRC / _SOURCES[name])
-    if name == "gf_matmul":
+    if name in ("gf_matmul", "gf_matmul_tiled"):
         return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v", "-o", out, src]
@@ -121,6 +130,8 @@ def _command(name: str, out: str) -> list[str]:
 def library_path(name: str) -> Path:
     """Where `name` lives once built: keyed by source bytes + flags."""
     h = hashlib.sha256((CSRC / _SOURCES[name]).read_bytes())
+    for inc in _INCLUDES.get(name, ()):
+        h.update((CSRC / inc).read_bytes())
     h.update(" ".join(_command(name, "OUT")[1:]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -46,6 +46,26 @@
 //    row block, up to 130.6 KB at k = 255); past the 48 KB default the
 //    attribute is raised once per instantiation and card, then cached.
 //
+// The launch tile, the counterpart of the Pallas kernel's byte-column
+// tile (seaweedfs_tpu/ops/pallas_gf.py:42-50): the byte columns one block
+// covers per grid-stride step, a multiple of kTileUnit = 128 threads x
+// 16 B = 2048.  A tile of t makes each thread handle t / 2048 chunks
+// 2048 B apart inside its block's span, so a warp's loads stay coalesced;
+// the grid is ceil(n / tile) blocks, capped at kMaxBlocks.  The default,
+// 2048, is one chunk per thread per step: the launch this design had
+// before it took a tile, exactly (same grid, same loop, same code).
+// ops/gf_cuda.py's micro_sweep times the candidates, and a pin keyed by
+// the card's name and capability carries the winner to later launches.
+//
+// The tiled loop costs registers where it is compiled in (an M = 4, k = 10
+// kernel took 128 against 96, and 3.6-4.8 % more time at [10,16MiB] and
+// [4,10,16MiB] at the default tile on an H100 80GB HBM3 at 700 W), so it
+// lives in a library of its own:
+// GF_TILED = 0 (this file) builds the untiled kernels, which take only the
+// default tile; gf_matmul_tiled.cu includes this file with GF_TILED = 1
+// for every other tile.  The two compile at once, so the build takes no
+// longer than one.
+//
 // Any [m, k] (k + m <= 256, as a GF(2^8) code allows): the wrapper
 // (ops/gf_cuda.py) cuts C into row blocks of at most 16 rows and makes one
 // launch per block, each writing its own output rows.  So a [72, 72] apply
@@ -72,6 +92,12 @@ constexpr int kMaxM = 16;
 constexpr int kMaxK = 255;  // k + m <= 256 in GF(2^8)
 constexpr int kDefaultSmem = 48 * 1024;  // without the attribute
 constexpr int64_t kMaxBlocks = 1 << 20;  // a grid-stride loop goes beyond
+constexpr int kTileUnit = kThreads * 16;  // one 16-byte chunk per thread
+constexpr int kMaxTile = 1 << 20;  // 512 chunks per thread per step
+#ifndef GF_TILED
+#define GF_TILED 0
+#endif
+constexpr bool kTiled = GF_TILED != 0;  // this library's loop
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
   uint32_t r;
@@ -176,7 +202,7 @@ __global__ void __launch_bounds__(kThreads)
 gf_apply_kernel(const uint4* __restrict__ tables, int k,
                 const uint8_t* __restrict__ x, int64_t x_unit, int64_t x_row,
                 uint8_t* __restrict__ out, int64_t o_unit, int64_t o_row,
-                int64_t n) {
+                int64_t n, int per) {
   // k fixed: static tables; k at run time: M * k Coefs of dynamic memory
   __shared__ Coef tab_static[K ? M * K : 1];
   extern __shared__ uint4 tab_dynamic[];
@@ -186,7 +212,10 @@ gf_apply_kernel(const uint4* __restrict__ tables, int k,
   uint8_t* ou = out + (int64_t)blockIdx.y * o_unit;
   const int64_t full = n >> 4;  // whole 16-byte chunks
   const int64_t chunks = (n + 15) >> 4;
-  const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  // per step a block covers `per` chunks per thread, kThreads apart
+  // (untiled: one, per == 1)
+  const int64_t span = kTiled ? (int64_t)per * kThreads : kThreads;
+  const int64_t first = (int64_t)blockIdx.x * span + threadIdx.x;
 
   uint4 v[K ? K : 1];
   if constexpr (K > 0)  // in flight while the tables are copied
@@ -195,43 +224,49 @@ gf_apply_kernel(const uint4* __restrict__ tables, int k,
     tab[e] = coef_from(tables[2 * e], tables[2 * e + 1]);
   __syncthreads();
 
-  for (int64_t ch = first; ch < chunks; ch += (int64_t)gridDim.x * kThreads) {
-    const int64_t c = ch << 4;
-    if (ch < full) {
-      uint4 acc[M];
+  for (int64_t base = first; base < chunks; base += (int64_t)gridDim.x * span) {
+    for (int p = 0; p < (kTiled ? per : 1); ++p) {
+      const int64_t ch = base + (int64_t)p * kThreads;
+      if (ch >= chunks) break;
+      const int64_t c = ch << 4;
+      if (ch < full) {
+        uint4 acc[M];
 #pragma unroll
-      for (int i = 0; i < M; ++i) acc[i] = make_uint4(0u, 0u, 0u, 0u);
-      if constexpr (K > 0) {
-        if (ch != first) load_rows<K>(v, xu, x_row, c);
+        for (int i = 0; i < M; ++i) acc[i] = make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (K > 0) {
+          if (ch != first) load_rows<K>(v, xu, x_row, c);
 #pragma unroll
-        for (int j = 0; j < K; ++j) apply_row<M>(acc, v[j], tab + j, K);
-      } else {
+          for (int j = 0; j < K; ++j) apply_row<M>(acc, v[j], tab + j, K);
+        } else {
 #pragma unroll 2
-        for (int j = 0; j < kk; ++j)
-          apply_row<M>(acc, load_stream(xu + j * x_row + c), tab + j, kk);
-      }
-#pragma unroll
-      for (int i = 0; i < M; ++i)
-        __stcs(reinterpret_cast<uint4*>(ou + i * o_row + c),
-               unshuffle4(acc[i]));
-    } else {  // the ragged tail, a byte at a time
-      const uint8_t* tb = reinterpret_cast<const uint8_t*>(tables);
-      const int rem = (int)(n - c);
-      for (int b = 0; b < rem; ++b) {
-#pragma unroll
-        for (int i = 0; i < M; ++i) {
-          uint32_t r = 0;
           for (int j = 0; j < kk; ++j)
-            r ^= mul_byte(tb + 32 * (i * kk + j), xu[j * x_row + c + b]);
-          ou[i * o_row + c + b] = (uint8_t)r;
+            apply_row<M>(acc, load_stream(xu + j * x_row + c), tab + j, kk);
+        }
+#pragma unroll
+        for (int i = 0; i < M; ++i)
+          __stcs(reinterpret_cast<uint4*>(ou + i * o_row + c),
+                 unshuffle4(acc[i]));
+      } else {  // the ragged tail, a byte at a time
+        const uint8_t* tb = reinterpret_cast<const uint8_t*>(tables);
+        const int rem = (int)(n - c);
+        for (int b = 0; b < rem; ++b) {
+#pragma unroll
+          for (int i = 0; i < M; ++i) {
+            uint32_t r = 0;
+            for (int j = 0; j < kk; ++j)
+              r ^= mul_byte(tb + 32 * (i * kk + j), xu[j * x_row + c + b]);
+            ou[i * o_row + c + b] = (uint8_t)r;
+          }
         }
       }
     }
   }
 }
 
-int64_t grid_blocks(int64_t n) {
-  const int64_t blocks = ((n + 15) / 16 + kThreads - 1) / kThreads;
+// ceil(n / tile) blocks, capped (at tile = kTileUnit, one per 2048 B)
+int64_t grid_blocks(int64_t n, int per) {
+  const int64_t span = (int64_t)per * kThreads;
+  const int64_t blocks = ((n + 15) / 16 + span - 1) / span;
   return blocks < kMaxBlocks ? blocks : kMaxBlocks;
 }
 
@@ -257,8 +292,8 @@ template <int M, int K>
 cudaError_t launch(const uint4* tables, int k, const uint8_t* x,
                    int64_t x_unit, int64_t x_row, uint8_t* out,
                    int64_t o_unit, int64_t o_row, int64_t n, int units,
-                   cudaStream_t stream) {
-  const dim3 grid((unsigned)grid_blocks(n), (unsigned)units);
+                   int per, cudaStream_t stream) {
+  const dim3 grid((unsigned)grid_blocks(n, per), (unsigned)units);
   const size_t smem = K ? 0 : (size_t)M * k * sizeof(Coef);
   if constexpr (K == 0) {
     if (smem + sizeof(Coef) > (size_t)kDefaultSmem) {  // + the static one
@@ -267,7 +302,7 @@ cudaError_t launch(const uint4* tables, int k, const uint8_t* x,
     }
   }
   gf_apply_kernel<M, K><<<grid, kThreads, smem, stream>>>(
-      tables, k, x, x_unit, x_row, out, o_unit, o_row, n);
+      tables, k, x, x_unit, x_row, out, o_unit, o_row, n, per);
   return cudaGetLastError();
 }
 
@@ -277,16 +312,20 @@ cudaError_t launch(const uint4* tables, int k, const uint8_t* x,
 // the device, (lo[16], hi[16]) per coefficient: lo[x] = C[i,j] * x and
 // hi[x] = C[i,j] * (x << 4).  x: units x k rows of n bytes at the given
 // byte strides; out: units x m rows likewise; both 16-byte aligned.
-// m <= 16 (one row block of a larger C), k <= 255.  Launches on `stream`
-// and does not synchronise.
+// m <= 16 (one row block of a larger C), k <= 255.  tile: the byte
+// columns a block covers per step, a multiple of 2048 up to 1 MiB; the
+// untiled library takes 2048 only.  Launches on `stream` and does not
+// synchronise.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int gf_apply_u8(const void* tables, int m, int k, const void* x,
                            int64_t x_unit, int64_t x_row, void* out,
                            int64_t o_unit, int64_t o_row, int64_t n,
-                           int units, void* stream) {
+                           int units, int tile, void* stream) {
   if (m < 1 || m > kMaxM || k < 1 || k > kMaxK || n < 1 || units < 1 ||
-      units > 65535)
+      units > 65535 || tile < kTileUnit || tile > kMaxTile ||
+      tile % kTileUnit || (!kTiled && tile != kTileUnit))
     return (int)cudaErrorInvalidValue;
+  const int per = tile / kTileUnit;
   const uint4* t = static_cast<const uint4*>(tables);
   const uint8_t* xi = static_cast<const uint8_t*>(x);
   uint8_t* o = static_cast<uint8_t*>(out);
@@ -295,7 +334,7 @@ extern "C" int gf_apply_u8(const void* tables, int m, int k, const void* x,
     switch (m) {
 #define GF_K10(MM) \
   case MM:         \
-    return (int)launch<MM, 10>(t, k, xi, x_unit, x_row, o, o_unit, o_row, n, units, s);
+    return (int)launch<MM, 10>(t, k, xi, x_unit, x_row, o, o_unit, o_row, n, units, per, s);
       GF_K10(1) GF_K10(2) GF_K10(3) GF_K10(4)
 #undef GF_K10
     }
@@ -303,7 +342,7 @@ extern "C" int gf_apply_u8(const void* tables, int m, int k, const void* x,
   switch (m) {
 #define GF_CASE(MM) \
   case MM:          \
-    return (int)launch<MM, 0>(t, k, xi, x_unit, x_row, o, o_unit, o_row, n, units, s);
+    return (int)launch<MM, 0>(t, k, xi, x_unit, x_row, o, o_unit, o_row, n, units, per, s);
     GF_CASE(1) GF_CASE(2) GF_CASE(3) GF_CASE(4) GF_CASE(5) GF_CASE(6)
     GF_CASE(7) GF_CASE(8) GF_CASE(9) GF_CASE(10) GF_CASE(11) GF_CASE(12)
     GF_CASE(13) GF_CASE(14) GF_CASE(15) GF_CASE(16)

@@ -96,13 +96,13 @@ def make_codec(tag: str | None, device=None, kind: str | None = None):
             from seaweedfs_tpu_torch.ops import native_codec
             return native_codec.get_codec(layout.DATA_SHARDS,
                                           layout.PARITY_SHARDS)
-        return _build(spec.tag, None, kind)
+        return _build(spec.tag, None, kind, None)
     from seaweedfs_tpu_torch.ops import gf_cuda
     dev = gf_cuda.resolve_device(device)
     if spec.family == "rs":
         return gf_cuda.get_codec(layout.DATA_SHARDS, layout.PARITY_SHARDS,
                                  device=dev)
-    return _build(spec.tag, dev, kind)
+    return _build(spec.tag, dev, kind, gf_cuda.resolved_tile(None, dev))
 
 
 @functools.lru_cache(maxsize=8)
@@ -114,11 +114,13 @@ def _mesh_codec(k: int, m: int, positions: tuple):
 
 
 @functools.lru_cache(maxsize=16)
-def _build(tag: str, device, kind: str):
+def _build(tag: str, device, kind: str, tile: int | None):
+    """The LRC or MSR codec of `tag`; `tile`, a card codec's launch tile,
+    is in the key, so a pin written since reaches the next lookup."""
     from seaweedfs_tpu_torch.ops import gf_cuda, lrc, msr, native_codec
     spec = parse_tag(tag)
     code = lrc.get_code(*spec.params) if spec.family == "lrc" \
         else msr.get_code(*spec.params)
     shell = native_codec.NativeRSCodec(code) if kind == "native" \
-        else gf_cuda.CudaRSCodec(code, device)
+        else gf_cuda.CudaRSCodec(code, device, tile)
     return shell if spec.family == "lrc" else msr.MSRFileCodec(shell)

@@ -29,6 +29,21 @@ that start on 16-byte boundaries in place (ops/rows.py buffers, which
 ops/dispatch.py stages every host batch into); any other CUDA view of any
 width is first copied once into such a buffer, as `PallasGFMatrix` pads.
 
+Every launch takes a tile, the counterpart of the Pallas kernel's
+byte-column tile: the byte columns one block covers per step, a multiple
+of 2048 (csrc/gf_matmul.cu); `DEFAULT_TILE`, one chunk per thread per
+step, is the launch the kernel had before it took a tile.
+`resolved_tile` picks it as the reference does: the argument, else
+WEEDTPU_EC_TILE (raising where it is not a positive integer; the
+reference falls back), else the pin whose fingerprint is this card's
+(`chip_fingerprint`: the card's name, capability and count), else the
+default.  `micro_sweep` times every candidate of `SWEEP_TILES` at the
+main path's [10, 1 MiB] dispatch on the card; `save_tile_pin` writes
+its winner (to WEEDTPU_TILE_PIN, default ~/.weedtpu_tile_pin.json) and
+`load_tile_pin` reads it back, at one `stat` a lookup in steady state.
+The tile-drift sentinel (stats/pipeline.py) re-runs the sweep against
+the pin.  The plain version has no tile and ignores it.
+
 `LAUNCHES` counts the kernel's launches by name ("gf_apply" for the
 [k, n] apply, K1; "gf_apply_batch" for the [U, k, n] one, K2), one per
 row block, raised only where a launch succeeds: a run reads it to show
@@ -41,7 +56,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import json
+import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -51,6 +69,19 @@ from seaweedfs_tpu_torch.ops.rows import ALIGN, device_empty, padded_width
 
 ROW_BLOCK = 16  # output rows per launch (csrc/gf_matmul.cu kMaxM)
 MAX_UNITS = 65535  # units per launch: the grid's y dimension
+TILE_UNIT = 2048  # byte columns of one step of a block: 128 threads x 16 B
+MAX_TILE = 1 << 20  # csrc/gf_matmul.cu kMaxTile
+DEFAULT_TILE = TILE_UNIT  # one chunk per thread per step
+# the candidates micro_sweep times; DEFAULT_TILE is always one of them
+SWEEP_TILES = (2048, 4096, 8192, 16384, 32768)
+SWEEP_N = 1 << 20  # byte columns of the sweep: the encode's [10, 1 MiB]
+# the card's sleep before a candidate's timed launches (~10 ms at 2 GHz):
+# the host enqueues them meanwhile, so the events time the kernel and not
+# the host's launch rate, which is below the kernel's at [10, 1 MiB]
+SWEEP_SLEEP_CYCLES = 20_000_000
+# the fingerprint of the plain version: it never equals a card's, nor the
+# reference's "cpu:cpu:1", so no measured pin applies to it
+CPU_FINGERPRINT = "cpu:plain:1"
 
 LAUNCHES = {"gf_apply": 0, "gf_apply_batch": 0}
 STAGED = {"gf_apply": 0, "gf_apply_batch": 0}
@@ -76,6 +107,175 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+# -- launch tile and its pin ---------------------------------------------
+
+def check_tile(tile) -> int:
+    """`tile` if the kernel can take it: a multiple of TILE_UNIT from
+    TILE_UNIT to MAX_TILE.  Raises ValueError otherwise."""
+    if isinstance(tile, bool) or not isinstance(tile, (int, np.integer)) \
+            or not TILE_UNIT <= tile <= MAX_TILE or tile % TILE_UNIT:
+        raise ValueError(f"launch tile {tile!r}: want a multiple of "
+                         f"{TILE_UNIT} from {TILE_UNIT} to {MAX_TILE}")
+    return int(tile)
+
+
+def resolved_tile(tile: int | None = None, device=None) -> int:
+    """The tile a launch on `device` (None: the card) uses: `tile` if
+    given, else WEEDTPU_EC_TILE, else the pin (`load_tile_pin`) when its
+    fingerprint is `chip_fingerprint(device)`, else DEFAULT_TILE.  A
+    WEEDTPU_EC_TILE that is not a positive integer raises ValueError
+    (the reference falls back to the pin).  Whether the kernel can take
+    the tile is `check_tile`'s question, asked before any launch."""
+    if tile is not None:
+        return tile
+    env = os.environ.get("WEEDTPU_EC_TILE")
+    if env:
+        try:
+            t = int(env)
+        except ValueError:
+            t = 0
+        if t <= 0:
+            raise ValueError(f"WEEDTPU_EC_TILE={env!r} is not a positive "
+                             f"integer")
+        return t
+    pin = load_tile_pin()
+    if pin and pin.get("fingerprint") == chip_fingerprint(device):
+        return int(pin["tile"])
+    return DEFAULT_TILE
+
+
+_fingerprints: dict = {}
+
+
+def chip_fingerprint(device=None) -> str:
+    """What a tile measurement is a property of: ``cuda:<name> sm_<cc>:
+    <cards>`` for a card (None: the current one), CPU_FINGERPRINT for the
+    CPU.  Memoised per card, and taken only for a device asked for: the
+    CPU's creates no CUDA context."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        _fingerprints["cpu"] = CPU_FINGERPRINT
+        return CPU_FINGERPRINT
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    fp = _fingerprints.get(idx)
+    if fp is None:
+        major, minor = torch.cuda.get_device_capability(idx)
+        fp = _fingerprints[idx] = (
+            f"cuda:{torch.cuda.get_device_name(idx)} sm_{major}{minor}:"
+            f"{torch.cuda.device_count()}")
+    return fp
+
+
+def known_fingerprints() -> set:
+    """The fingerprints this process has taken so far; asking takes none
+    (profile.ceilings reads it where it must not touch the card)."""
+    return set(_fingerprints.values())
+
+
+def pin_path(path: str | None = None) -> str:
+    """`path`, else WEEDTPU_TILE_PIN, else ~/.weedtpu_tile_pin.json."""
+    return path or os.environ.get("WEEDTPU_TILE_PIN") or \
+        os.path.join(os.path.expanduser("~"), ".weedtpu_tile_pin.json")
+
+
+def save_tile_pin(tile: int, gbps: float, sweep: dict | None = None,
+                  path: str | None = None, device=None) -> str:
+    """Write the sweep's winner, with `device`'s fingerprint (None: the
+    card) and the sweep table, atomically (a temporary file renamed), in
+    the reference's format; returns the path written."""
+    p = pin_path(path)
+    rec = {"tile": int(tile), "gbps": round(float(gbps), 3),
+           "fingerprint": chip_fingerprint(device), "ts": time.time()}
+    if sweep:
+        rec["sweep"] = {str(k): v for k, v in sweep.items()}
+    tmp = p + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(rec, f)
+    os.replace(tmp, p)
+    return p
+
+
+_pin_cache: dict[str, tuple[tuple, dict | None]] = {}
+
+
+def load_tile_pin(path: str | None = None) -> dict | None:
+    """The pin at `pin_path(path)`, or None.  Cached by the file's (mtime,
+    size, inode), so a lookup costs one `stat` until the file changes; a
+    file that does not parse, or holds no tile, is cached as None.  Hands
+    out a copy."""
+    p = pin_path(path)
+    try:
+        st = os.stat(p)
+    except OSError:
+        _pin_cache.pop(p, None)
+        return None
+    key = (st.st_mtime_ns, st.st_size, st.st_ino)
+    hit = _pin_cache.get(p)
+    if hit is not None and hit[0] == key:
+        return dict(hit[1]) if hit[1] is not None else None
+    try:
+        with open(p) as f:
+            rec = json.load(f)
+    except OSError:
+        return None  # gone between the stat and the open: not cached
+    except ValueError:
+        rec = None
+    rec = rec if isinstance(rec, dict) and rec.get("tile") else None
+    _pin_cache[p] = (key, rec)
+    return dict(rec) if rec is not None else None
+
+
+def micro_sweep(k: int = 10, m: int = 4, n: int | None = None,
+                iters: int = 3, ensure_tile: int | None = None,
+                device=None) -> dict[int, float]:
+    """{tile: GB/s} of RS(k, m)'s parity apply (K1) on the card at every
+    SWEEP_TILES candidate and `ensure_tile` (the pin a sentinel watches),
+    over [k, n] bytes from a fixed seed: n defaults to SWEEP_N, or the
+    largest candidate if that is larger, and is moved to a multiple of
+    `ensure_tile` as the reference moves it.  Each candidate is launched
+    once to warm up, then `iters` times between two CUDA events on the
+    current stream, enqueued while the card sleeps (SWEEP_SLEEP_CYCLES),
+    so back to back and with the input warm in L2; GB/s is k * n over the
+    mean seconds.  So a sweep launches K1 (1 + iters) times per
+    candidate.  Raises on the CPU (the
+    plain version has no tile), on a tile the kernel cannot take, and on
+    a launch that fails: no candidate is skipped."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"micro_sweep times the kernel's launch tile on a "
+                         f"card; the plain version on {dev} has none")
+    from seaweedfs_tpu_torch.models import rs
+    tiles = sorted(set(SWEEP_TILES) |
+                   ({int(ensure_tile)} if ensure_tile else set()))
+    if n is None:
+        n = max(SWEEP_N, max(SWEEP_TILES))
+        if ensure_tile:
+            t = int(ensure_tile)
+            if t > n:
+                n = t
+            elif n % t:
+                n = (n // t) * t
+    mats = [CudaGFMatrix(rs.get_code(k, m).parity_matrix, tile=t)
+            for t in tiles]
+    data = device_empty((k, n), dev)
+    data.copy_(torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (k, n), dtype=np.uint8)))
+    out: dict[int, float] = {}
+    with torch.cuda.device(dev):
+        for t, mat in zip(tiles, mats):
+            mat(data)  # the tables' copy and the first launch
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SWEEP_SLEEP_CYCLES)
+            start.record()
+            for _ in range(iters):
+                mat(data)
+            end.record()
+            end.synchronize()
+            out[t] = k * n / 1e9 / (start.elapsed_time(end) / 1e3 / iters)
+    return out
 
 
 # -- plain version -------------------------------------------------------
@@ -143,9 +343,11 @@ def _in_place(x: torch.Tensor) -> bool:
 
 
 def gf_apply_cuda(tables: torch.Tensor, x: torch.Tensor,
-                  name: str = "gf_apply") -> torch.Tensor:
+                  name: str = "gf_apply",
+                  tile: int = DEFAULT_TILE) -> torch.Tensor:
     """Launch the kernel on [U, k, n] uint8 `x` with the [m, k, 32]
-    `nibble_tables` of the matrix, both on the same card.  Returns
+    `nibble_tables` of the matrix, both on the same card, at launch tile
+    `tile` (`check_tile`).  Returns
     [U, m, n] (a view of a 16-byte-padded buffer), enqueued on the current
     stream.  C is applied in row blocks of up to ROW_BLOCK rows, one
     launch each, and each launch that succeeds adds one to
@@ -169,6 +371,7 @@ def gf_apply_cuda(tables: torch.Tensor, x: torch.Tensor,
     if kc != k or width != 32 or not tables.is_contiguous():
         raise ValueError(f"tables {tuple(tables.shape)} do not fit k={k}")
     _check_shape(m, k)
+    check_tile(tile)
     if U > MAX_UNITS:
         raise ValueError(f"kernel takes at most {MAX_UNITS} units, got {U}")
     out = device_empty((U, m, n), x.device)
@@ -180,7 +383,9 @@ def gf_apply_cuda(tables: torch.Tensor, x: torch.Tensor,
         x = staged
         with _launch_lock:
             STAGED[name] += 1
-    lib = _build.load("gf_matmul")
+    # the default tile's kernels keep the untiled loop (csrc/gf_matmul.cu)
+    lib = _build.load("gf_matmul" if tile == DEFAULT_TILE
+                      else "gf_matmul_tiled")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for r0 in range(0, m, ROW_BLOCK):
@@ -188,7 +393,7 @@ def gf_apply_cuda(tables: torch.Tensor, x: torch.Tensor,
             err = lib.gf_apply_u8(tables[r0].data_ptr(), rows, k,
                                   x.data_ptr(), x.stride(0), x.stride(1),
                                   out[:, r0].data_ptr(), out.stride(0),
-                                  out.stride(1), n, U, stream)
+                                  out.stride(1), n, U, tile, stream)
             if err != 0:
                 raise RuntimeError(f"gf_apply_u8 launch failed: "
                                    f"cudaError {err}")
@@ -207,12 +412,17 @@ def _check_shape(m: int, k: int) -> None:
 class CudaGFMatrix:
     """A fixed GF(2^8) matrix, applied by the kernel to CUDA tensors and
     by the plain version to CPU tensors.  The kernel's lookup tables are
-    built once, here, and copied to each card at first use."""
+    built once, here, and copied to each card at first use.  Every launch
+    takes `tile` (`check_tile`, raising here on one the kernel cannot
+    take); None resolves it per card at the first launch there
+    (`resolved_tile`) and keeps it.  The plain version ignores it."""
 
-    def __init__(self, C: np.ndarray):
+    def __init__(self, C: np.ndarray, tile: int | None = None):
         self.C = np.ascontiguousarray(C, dtype=np.uint8)
         self.m, self.k = self.C.shape
         _check_shape(self.m, self.k)
+        self.tile = None if tile is None else check_tile(tile)
+        self._tiles: dict[torch.device, int] = {}
         self.bitmat = torch.from_numpy(
             gf.gf_matrix_to_bitmatrix(self.C)).to(torch.float32)
         self.tables = nibble_tables(self.C)
@@ -226,6 +436,16 @@ class CudaGFMatrix:
                 self.tables).to(device)
         return t
 
+    def tile_on(self, device: torch.device) -> int:
+        """The launch tile on `device`: the constructor's, else the one
+        `resolved_tile` gave at the first launch there."""
+        if self.tile is not None:
+            return self.tile
+        t = self._tiles.get(device)
+        if t is None:
+            t = self._tiles[device] = check_tile(resolved_tile(None, device))
+        return t
+
     def _apply(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """[U, k, n] on the tensor's own device."""
         if x.shape[-2] != self.k:
@@ -235,7 +455,8 @@ class CudaGFMatrix:
                 return gf_apply_plain(self.bitmat, x)
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
-        return gf_apply_cuda(self.tables_on(x.device), x, name)
+        return gf_apply_cuda(self.tables_on(x.device), x, name,
+                             self.tile_on(x.device))
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """[k, n] uint8 -> [m, n]."""
@@ -249,21 +470,29 @@ class CudaGFMatrix:
 class CudaRSCodec(codec_base.RSCodecBase):
     """RS codec on one device: `RSCodecBase` over `CudaGFMatrix` applies.
     `device` is where the dispatch seam (ops/dispatch.py) puts the data:
-    the card runs the kernel, the CPU the plain version."""
+    the card runs the kernel, the CPU the plain version.  `tile` is
+    resolved for that device here (`resolved_tile`) and every apply of
+    the codec launches at it."""
 
-    def __init__(self, code, device=None):
-        super().__init__(code, CudaGFMatrix)
+    def __init__(self, code, device=None, tile: int | None = None):
         self.device = resolve_device(device)
+        self.tile = check_tile(resolved_tile(tile, self.device))
+        super().__init__(code, functools.partial(CudaGFMatrix,
+                                                 tile=self.tile))
 
 
 @functools.lru_cache(maxsize=16)
 def _get_codec_cached(k: int, m: int, construction: str,
-                      device: torch.device) -> CudaRSCodec:
+                      device: torch.device, tile: int) -> CudaRSCodec:
     from seaweedfs_tpu_torch.models import rs
-    return CudaRSCodec(rs.get_code(k, m, construction), device)
+    return CudaRSCodec(rs.get_code(k, m, construction), device, tile)
 
 
 def get_codec(k: int, m: int, construction: str = "vandermonde",
-              device=None) -> CudaRSCodec:
-    """RS(k, m) codec on `device` (None: the card; raises without one)."""
-    return _get_codec_cached(k, m, construction, resolve_device(device))
+              device=None, tile: int | None = None) -> CudaRSCodec:
+    """RS(k, m) codec on `device` (None: the card; raises without one)
+    at `resolved_tile(tile, device)`, which is part of the cache key: a
+    pin written after a first call reaches the calls after it."""
+    dev = resolve_device(device)
+    return _get_codec_cached(k, m, construction, dev,
+                             resolved_tile(tile, dev))

@@ -65,9 +65,10 @@ Differences from the reference, kept on purpose:
   the recode and its remount, where the reference passes no device;
 - `weedtpu_ec_encode_bytes_total` labels an encode by the store's device
   type ("cuda", "cpu") where the reference writes "tpu";
-- a malformed WEEDTPU_SCRUB_* or WEEDTPU_PROFILE_HZ knob or
-  WEEDTPU_FAULTS directive raises at start, before the socket binds,
-  where the reference falls back or drops it;
+- a malformed WEEDTPU_SCRUB_*, WEEDTPU_PROFILE_HZ or
+  WEEDTPU_TILE_SENTINEL_INTERVAL knob or WEEDTPU_FAULTS directive raises
+  at start, before the socket binds, where the reference falls back or
+  drops it; the tile sentinel measures on the server's device;
 - a blob read of a volume on a remote tier runs on a pool of the
   server's own (`TIER_READ_THREADS`), not the loop's default pool
   (ROADMAP fault 3.15): where the tier target is served by this same
@@ -312,10 +313,12 @@ class VolumeServer:
 
     async def start(self) -> None:
         # the background scrubber (WEEDTPU_SCRUB_MBPS=0 disables it), the
-        # profiler's rate and the fault plan are read before the server
-        # binds, so a malformed knob or directive fails the start cleanly
+        # profiler's rate, the tile sentinel's interval and the fault plan
+        # are read before the server binds, so a malformed knob or
+        # directive fails the start cleanly
         plan = faults.parse_env(os.environ.get("WEEDTPU_FAULTS", ""))
         profile.profile_hz()
+        pipeline.sentinel_interval()
         mbps = scrubmod.env_mbps()
         if mbps > 0:
             self.scrubber = scrubmod.Scrubber(
@@ -342,6 +345,10 @@ class VolumeServer:
                     (i + 1) % len(self.master_urls)]
         self._hb_task = asyncio.create_task(self._heartbeat_loop())
         profile.ensure_started()  # WEEDTPU_PROFILE_HZ, process-wide
+        # the tile-drift sentinel on this server's device, when
+        # WEEDTPU_TILE_SENTINEL_INTERVAL asks for one (process-wide:
+        # co-hosted servers share it)
+        pipeline.ensure_sentinel(self.device)
         # the fault plan from the environment (maintenance/faults.py);
         # the role lets a partition of "volume" find this server's dials
         faults.register_node(self.url, "volume")

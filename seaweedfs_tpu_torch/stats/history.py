@@ -584,9 +584,8 @@ _DEFAULT_ALERT_RULES = (
     # then cluster.trace of the latest retune decision)
     "interference_high=threshold,series=weedtpu_interference_index,"
     "agg=max,window=120,op=gt,value=0.5,for=30;"
-    # tile-drift sentinel: the pinned tile no longer wins its own
-    # micro-sweep by >10%.  The port's sentinel comes with the launch
-    # pin (ROADMAP 1.7); until then the rule sees no series.  It watches
+    # tile-drift sentinel (stats/pipeline.py): the pinned launch tile no
+    # longer wins its own micro-sweep by >10%.  It watches
     # the EXCESS series (best/pinned - 1) rather than the companion
     # ratio gauge: federated gauges sum across nodes, and a healthy
     # fleet must sum to zero at any size

@@ -381,6 +381,17 @@ ROOFLINE_FRAC = REGISTRY.gauge(
     "achieved throughput of a kernel as a fraction of the measured "
     "hardware ceiling of the resource it exercises",
     ("resource", "kernel"))
+# the tile-drift sentinel (stats/pipeline.py): how much the best candidate
+# of its micro-sweep beats the pinned launch tile
+TILE_DRIFT = REGISTRY.gauge(
+    "weedtpu_tile_drift",
+    "fractional throughput advantage of the best candidate launch tile "
+    "over the pinned one (0 = pin still optimal; >0.1 fires "
+    "tile_pin_stale)")
+TILE_DRIFT_RATIO = REGISTRY.gauge(
+    "weedtpu_tile_drift_ratio",
+    "best candidate tile throughput / pinned tile throughput from the "
+    "drift sentinel's last micro-sweep")
 # every completed HTTP request by role/read-write/status class, counted in
 # the trace middleware (stats/trace.py)
 HTTP_REQUESTS = REGISTRY.counter(

@@ -19,7 +19,10 @@ job and exports nothing, though the stats dict still gets its seconds.
 the master's /cluster/perf fan-out) and `/debug/pipeline` (loopback);
 the master merges the fleet's payloads (`aggregate_fleet`) and ranks
 the kernel rows furthest from their ceilings (`roofline_offenders`).
-The tile-drift sentinel comes with the launch pin (ROADMAP 1.7).
+The **TileDriftSentinel** re-runs the launch tile's micro-sweep
+(ops/gf_cuda.py) against the pin, sets ``weedtpu_tile_drift`` and
+``weedtpu_tile_drift_ratio``, and its verdict rides the snapshot as
+``tile``.
 """
 
 from __future__ import annotations
@@ -464,12 +467,191 @@ def roofline_offenders(roofline: dict, limit: int = 5) -> list[dict]:
     return rows[:limit]
 
 
+# -- tile-drift sentinel ---------------------------------------------------
+
+def sentinel_interval() -> float:
+    """WEEDTPU_TILE_SENTINEL_INTERVAL in seconds (default 0: no sentinel).
+    A value that is not a number, or is negative, raises ValueError (the
+    reference reads 0)."""
+    value = os.environ.get("WEEDTPU_TILE_SENTINEL_INTERVAL", "0")
+    try:
+        interval = float(value)
+    except ValueError:
+        raise ValueError(f"WEEDTPU_TILE_SENTINEL_INTERVAL={value!r} is not "
+                         f"a number") from None
+    if interval < 0 or interval != interval:
+        raise ValueError(f"WEEDTPU_TILE_SENTINEL_INTERVAL={value!r} is "
+                         f"negative")
+    return interval
+
+
+class TileDriftSentinel:
+    """Re-validates the pinned launch tile on this card in the background.
+    Loads the pin (ops/gf_cuda.load_tile_pin: the winning tile, the
+    card's fingerprint, the sweep table), re-runs the micro-sweep on
+    `device` (None: the card), and reports how much the best candidate
+    now beats the pin:
+
+        weedtpu_tile_drift        best/pinned - 1 (0 = pin still wins)
+        weedtpu_tile_drift_ratio  best/pinned
+
+    The ``tile_pin_stale`` alert rule (stats/history.py) fires past 10 %
+    drift; the verdict, with the sweep table, is on /debug/pipeline and
+    /cluster/perf.  A pin taken on other hardware is reported as
+    ``fingerprint_mismatch`` and never measured against; a sweep that
+    raises (the CPU has no launch tile) is ``sweep_failed`` with the
+    error.  ``measure`` replaces the sweep ({tile: GB/s}), for tests."""
+
+    def __init__(self, interval: float | None = None, measure=None,
+                 pin_path: str | None = None, device=None):
+        self.interval = sentinel_interval() if interval is None \
+            else interval
+        self.pin_path = pin_path
+        self.device = device
+        self._measure = measure
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._lock = threading.Lock()
+        self._status: dict = {"state": "idle"}
+
+    # -- one verdict -----------------------------------------------------
+
+    def run_once(self) -> dict:
+        from seaweedfs_tpu_torch.ops import gf_cuda
+        ts = time.time()
+        pin = gf_cuda.load_tile_pin(self.pin_path)
+        if pin is None:
+            st = {"state": "no_pin", "ts": ts}
+        elif pin.get("fingerprint") != \
+                gf_cuda.chip_fingerprint(self.device):
+            st = {"state": "fingerprint_mismatch", "ts": ts,
+                  "pin": {k: pin.get(k) for k in
+                          ("tile", "gbps", "fingerprint")},
+                  "fingerprint": gf_cuda.chip_fingerprint(self.device)}
+        else:
+            # the sweep sizes its input so that the pinned tile measures
+            measure = self._measure or (
+                lambda: gf_cuda.micro_sweep(ensure_tile=int(pin["tile"]),
+                                            device=self.device))
+            try:
+                sweep = measure()
+            except Exception as e:  # the verdict says so; nothing skipped
+                st = {"state": "sweep_failed", "ts": ts,
+                      "error": str(e) or type(e).__name__}
+            else:
+                st = self._verdict(pin, sweep, ts)
+        if "drift" in st:
+            metrics.TILE_DRIFT.labels().set(st["drift"])
+            metrics.TILE_DRIFT_RATIO.labels().set(st["ratio"])
+        else:
+            # no measurable verdict: zero the gauges, so a firing
+            # tile_pin_stale clears instead of latching its last value
+            metrics.TILE_DRIFT.labels().set(0.0)
+            metrics.TILE_DRIFT_RATIO.labels().set(1.0)
+        with self._lock:
+            self._status = st
+        return st
+
+    @staticmethod
+    def _verdict(pin: dict, sweep: dict, ts: float) -> dict:
+        pinned_tile = int(pin["tile"])
+        pinned_now = sweep.get(pinned_tile) or \
+            sweep.get(str(pinned_tile)) or 0.0
+        best_tile, best = pinned_tile, pinned_now
+        for t, v in sweep.items():
+            if isinstance(v, (int, float)) and v > best:
+                best_tile, best = int(t), float(v)
+        if pinned_now <= 0:
+            return {"state": "sweep_failed", "ts": ts,
+                    "error": "pinned tile did not measure",
+                    "sweep": {str(k): v for k, v in sweep.items()}}
+        ratio = best / pinned_now
+        drift = max(0.0, ratio - 1.0)
+        return {"state": "stale" if drift > 0.1 else "ok", "ts": ts,
+                "pinned_tile": pinned_tile, "best_tile": best_tile,
+                "pinned_gbps": round(pinned_now, 3),
+                "best_gbps": round(best, 3),
+                "ratio": round(ratio, 4), "drift": round(drift, 4),
+                "pin": {"tile": pin.get("tile"), "gbps": pin.get("gbps"),
+                        "ts": pin.get("ts")},
+                "sweep": {str(k): round(v, 3) if isinstance(v, float)
+                          else v for k, v in sweep.items()}}
+
+    def status(self) -> dict:
+        with self._lock:
+            return dict(self._status)
+
+    # -- lifecycle -------------------------------------------------------
+
+    def start(self) -> "TileDriftSentinel":
+        if self.interval <= 0 or self._thread is not None:
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, name="weedtpu-tile-sentinel", daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        from seaweedfs_tpu_torch.utils import weedlog
+        while not self._stop.wait(self.interval):
+            try:
+                self.run_once()
+            except Exception as e:  # a bad tick must not end the thread
+                weedlog.V(1, "pipeline").infof(
+                    "tile sentinel tick failed: %s", e)
+
+    def stop(self, timeout: float = 5.0) -> None:
+        t = self._thread
+        if t is None:
+            return
+        self._stop.set()
+        t.join(timeout)
+        self._thread = None
+
+
+_sentinel_lock = threading.Lock()
+_sentinel: TileDriftSentinel | None = None
+
+
+def ensure_sentinel(device=None) -> TileDriftSentinel | None:
+    """Start the process-wide sentinel on `device` once, when
+    WEEDTPU_TILE_SENTINEL_INTERVAL asks for one; codec-hosting servers
+    call this at start, and co-hosted servers share it."""
+    global _sentinel
+    with _sentinel_lock:
+        if _sentinel is None:
+            s = TileDriftSentinel(device=device)
+            if s.interval <= 0:
+                return None
+            _sentinel = s.start()
+        return _sentinel
+
+
+def sentinel_status() -> dict | None:
+    with _sentinel_lock:
+        s = _sentinel
+    return s.status() if s is not None else None
+
+
+def set_sentinel(s: TileDriftSentinel | None) -> None:
+    """Install (or clear, with None) the process-wide sentinel whose
+    verdict the snapshot reports; the one it replaces is not stopped."""
+    global _sentinel
+    with _sentinel_lock:
+        _sentinel = s
+
+
 def local_snapshot(limit: int = 16) -> dict:
     """What this process knows of its own data-plane performance: jobs
-    and flows, and the kernel roofline."""
-    return {"id": TRACKER_ID, "enabled": perf_obs_enabled(),
-            "jobs": jobs_snapshot(limit),
-            "roofline": profile.roofline_snapshot()}
+    and flows, the kernel roofline, and the tile sentinel's verdict."""
+    out = {"id": TRACKER_ID, "enabled": perf_obs_enabled(),
+           "jobs": jobs_snapshot(limit),
+           "roofline": profile.roofline_snapshot()}
+    tile = sentinel_status()
+    if tile is not None:
+        out["tile"] = tile
+    return out
 
 
 async def handle_debug_pipeline(req):

@@ -300,9 +300,10 @@ def set_ceiling(resource: str, gbps: float) -> None:
 def ceilings() -> dict[str, float]:
     """resource -> GB/s ceiling, from the WEEDTPU_CEILINGS environment
     ("resource=GBps,resource=GBps") overlaid by set_ceiling() calls;
-    cached ~5 s.  Unlike the reference, no ``device`` ceiling comes from
-    a launch pin: the port has none until ROADMAP 1.7, so the device
-    ceiling is whatever a caller measured and set."""
+    cached ~5 s.  Where neither names ``device``, a launch pin's sweep
+    rate is its ceiling when the pin's fingerprint is one this process
+    has taken (ops/gf_cuda.py); only where torch is already loaded, and
+    without taking a fingerprint, so no CUDA context is made here."""
     global _ceilings_cache
     now = time.monotonic()
     with _ceilings_lock:
@@ -319,6 +320,14 @@ def ceilings() -> dict[str, float]:
                     continue
                 if gbps > 0:
                     out[k.strip()] = gbps
+        # the pin only where torch is resident: importing gf_cuda would
+        # load it into processes that never do (the CLI's offline tools)
+        if "device" not in out and "torch" in sys.modules:
+            from seaweedfs_tpu_torch.ops import gf_cuda
+            pin = gf_cuda.load_tile_pin()
+            if pin and pin.get("gbps") and \
+                    pin.get("fingerprint") in gf_cuda.known_fingerprints():
+                out["device"] = float(pin["gbps"])
         out.update(_ceilings_set)
         _ceilings_cache = (now, out)
         return dict(out)

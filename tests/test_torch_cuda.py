@@ -87,6 +87,72 @@ def test_cuda_kernel_every_shape(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile", gf_cuda.SWEEP_TILES)
+def test_cuda_kernel_every_sweep_tile(card, tile):
+    """K1 and K2 at each candidate launch tile, byte-equal to the plain
+    version: ragged n around the tile, a [:, :n] view of a wider buffer
+    read in place, [4, 10, n] unit batches, and a [16, 72] row block
+    through the generic instantiation."""
+    g = np.random.default_rng(tile)
+    C = rs.get_code(10, 4).parity_matrix
+    mat = gf_cuda.CudaGFMatrix(C, tile=tile)
+    bit = mat.bitmat.to(card)
+    for n in (1, 17, 2047, tile - 16, tile + 17, 3 * tile + 5,
+              (1 << 20) + 5):
+        x = dispatch.device_empty((10, n), card)
+        x.copy_(torch.from_numpy(g.integers(0, 256, (10, n), np.uint8)))
+        before = dict(gf_cuda.LAUNCHES)
+        assert torch.equal(mat(x), gf_cuda.gf_apply_plain(bit, x)), n
+        assert gf_cuda.LAUNCHES["gf_apply"] == before["gf_apply"] + 1
+        xb = dispatch.device_empty((4, 10, n), card)
+        xb.copy_(torch.from_numpy(g.integers(0, 256, (4, 10, n),
+                                             np.uint8)))
+        assert torch.equal(mat.apply_batch(xb),
+                           gf_cuda.gf_apply_plain(bit, xb)), n
+        assert gf_cuda.LAUNCHES["gf_apply_batch"] == \
+            before["gf_apply_batch"] + 1
+    wide = torch.from_numpy(g.integers(0, 256, (10, 3 * tile + 4096),
+                                       np.uint8)).to(card)
+    staged = dict(gf_cuda.STAGED)
+    view = wide[:, :3 * tile + 48]
+    assert torch.equal(mat(view), gf_cuda.gf_apply_plain(bit, view))
+    assert gf_cuda.STAGED == staged
+    # the default tile gives the same bytes
+    assert torch.equal(mat(view), gf_cuda.CudaGFMatrix(C)(view))
+    Cm = g.integers(0, 256, (16, 72), np.uint8)
+    mm = gf_cuda.CudaGFMatrix(Cm, tile=tile)
+    xm = dispatch.device_empty((72, 2 * tile + 33), card)
+    xm.copy_(torch.from_numpy(g.integers(0, 256, tuple(xm.shape),
+                                         np.uint8)))
+    assert torch.equal(mm(xm), gf_cuda.gf_apply_plain(
+        mm.bitmat.to(card), xm))
+
+
+@pytest.mark.cuda
+def test_cuda_micro_sweep_times_every_candidate(card, tmp_path,
+                                                monkeypatch):
+    """micro_sweep returns a positive rate for every candidate and the
+    tile it must keep, at (1 + iters) K1 launches per candidate; a pin of
+    its winner is what resolved_tile then gives the card."""
+    monkeypatch.setenv("WEEDTPU_TILE_PIN", str(tmp_path / "pin.json"))
+    monkeypatch.delenv("WEEDTPU_EC_TILE", raising=False)
+    before = gf_cuda.LAUNCHES["gf_apply"]
+    sweep = gf_cuda.micro_sweep(device=card)
+    assert sorted(sweep) == sorted(gf_cuda.SWEEP_TILES)
+    assert all(v > 0 for v in sweep.values()), sweep
+    assert gf_cuda.LAUNCHES["gf_apply"] - before == \
+        len(gf_cuda.SWEEP_TILES) * (1 + 3)
+    sweep = gf_cuda.micro_sweep(ensure_tile=6144, iters=2, device=card)
+    assert sorted(sweep) == sorted(set(gf_cuda.SWEEP_TILES) | {6144})
+    best = max(sweep, key=sweep.get)
+    gf_cuda.save_tile_pin(best, sweep[best], sweep, device=card)
+    assert gf_cuda.resolved_tile(device=card) == best
+    assert gf_cuda.get_codec(10, 4, device=card).tile == best
+    with pytest.raises(ValueError, match="launch tile"):
+        gf_cuda.micro_sweep(ensure_tile=3000, device=card)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [4097, 1 << 20])
 @pytest.mark.parametrize("units", [1, 4, 8])
 def test_cuda_dispatch_parity_batch(card, units, n):

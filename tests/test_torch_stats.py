@@ -30,11 +30,14 @@ from seaweedfs_tpu_torch.stats import (heat, metrics, netflow, pipeline,
 
 @pytest.mark.parametrize("name", [
     "NET_BYTES", "WAN_BYTES", "SCRUB_BYTES", "SCRUB_CORRUPTIONS",
-    "PIPELINE_STAGE_SECONDS", "PIPELINE_STAGE_BYTES", "ROOFLINE_FRAC"])
+    "PIPELINE_STAGE_SECONDS", "PIPELINE_STAGE_BYTES", "ROOFLINE_FRAC",
+    "TILE_DRIFT", "TILE_DRIFT_RATIO"])
 def test_metric_families_are_the_references(name):
     ref, mine = getattr(ref_metrics, name), getattr(metrics, name)
+    # the port's tile is a CUDA launch's, not a Pallas kernel's
+    ref_help = ref.help.replace("Pallas tile", "launch tile")
     assert (mine.name, mine.help, mine.label_names, mine.kind) == \
-        (ref.name, ref.help, ref.label_names, ref.kind)
+        (ref.name, ref_help, ref.label_names, ref.kind)
     assert metrics.REGISTRY._metrics[mine.name] is mine
 
 
